@@ -1,0 +1,110 @@
+"""Runtime configuration: twins of rustic_tpu/config.py.
+
+`TracingConfig` is the host-side description of a render; its
+`static_part` selects the code path and its `dynamic_part` is the
+camera and light state as tensors on a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+from typing import Tuple
+
+import torch
+
+
+class NextEventEstimation(enum.IntEnum):
+    """Next-event-estimation mode (reference: shared_structs/src/lib.rs:193-236)."""
+
+    NONE = 0
+    MIS = 1  # NEE with multiple importance sampling
+    DIRECT = 2  # NEE without MIS weighting
+
+    @property
+    def uses_nee(self) -> bool:
+        return self != NextEventEstimation.NONE
+
+    @property
+    def uses_mis(self) -> bool:
+        return self == NextEventEstimation.MIS
+
+
+def _default_sun() -> Tuple[float, float, float, float]:
+    # normalize(0.5, 1.3, 1.0) with w = intensity 15
+    n = math.sqrt(0.5 * 0.5 + 1.3 * 1.3 + 1.0 * 1.0)
+    return (0.5 / n, 1.3 / n, 1.0 / n, 15.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticConfig:
+    """The subset of the config that selects the code path."""
+
+    width: int
+    height: int
+    min_bounces: int
+    max_bounces: int
+    nee: NextEventEstimation
+    has_skybox: bool
+
+
+@dataclasses.dataclass
+class CameraParams:
+    """Camera, sun and specular clamp as f32 tensors on one device."""
+
+    cam_position: torch.Tensor  # [3]
+    cam_rotation: torch.Tensor  # [2] (pitch, yaw)
+    sun_direction: torch.Tensor  # [4] xyz dir, w intensity
+    specular_weight_clamp: torch.Tensor  # [2] lo, hi
+
+
+@dataclasses.dataclass(frozen=True)
+class TracingConfig:
+    """Full render configuration; defaults match rustic_tpu.config."""
+
+    width: int = 1280
+    height: int = 720
+    min_bounces: int = 3
+    max_bounces: int = 4
+    nee: NextEventEstimation = NextEventEstimation.NONE
+    has_skybox: bool = False  # True => HDR equirect image, False => procedural sky
+    cam_position: Tuple[float, float, float] = (0.0, 1.0, -5.0)
+    cam_rotation: Tuple[float, float] = (0.0, 0.0)  # (pitch x, yaw y) radians
+    sun_direction: Tuple[float, float, float, float] = dataclasses.field(
+        default_factory=_default_sun
+    )
+    specular_weight_clamp: Tuple[float, float] = (0.1, 0.9)
+
+    def static_part(self) -> StaticConfig:
+        return StaticConfig(
+            width=self.width,
+            height=self.height,
+            min_bounces=self.min_bounces,
+            max_bounces=self.max_bounces,
+            nee=NextEventEstimation(self.nee),
+            has_skybox=bool(self.has_skybox),
+        )
+
+    def dynamic_part(self, device) -> CameraParams:
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        return CameraParams(
+            cam_position=f32(self.cam_position),
+            cam_rotation=f32(self.cam_rotation),
+            sun_direction=f32(self.sun_direction),
+            specular_weight_clamp=f32(self.specular_weight_clamp),
+        )
+
+
+@dataclasses.dataclass
+class RenderSettings:
+    """Knobs of a synchronous render (the subset of
+    rustic_tpu.config.RenderSettings that render_image reads)."""
+
+    samples: int = 32
+    # Pixel-seed mode: False hashes the pixel id (the default), True
+    # tiles the committed blue-noise rank table.
+    use_blue_noise: bool = False
+    batch_pixels: int = 1 << 20  # wavefront megabatch size (pixels per chunk)

@@ -1,0 +1,165 @@
+// Single-tile flash intersection scans (kernels K1-K3) for Hopper, sm_90a.
+//
+// Replaces the Pallas TPU kernels of rustic_tpu/ops/flash_intersect.py:
+//   rt_nearest_attrs         <- _nearest_single_attrs         (flash_nearest_attrs_t)
+//   rt_nearest_shadow_attrs  <- _nearest_shadow_single_attrs  (flash_nearest_shadow_attrs_t)
+//   rt_occlude               <- _occlude_single               (flash_occlude_packed_t)
+//
+// What they compute: for each ray (feature rows F[16, B] = rd, ro x rd, ro,
+// 1, maxt) and each triangle of the one tile (G[16, 4*TT] = the det, u*det,
+// v*det, t*det columns), the four Moller-Trumbore numerators are 10-term
+// dot products; the epilogue divides exactly, tests the window, and either
+// keeps the nearest valid t (strict <, in triangle order, so the first
+// index wins among equal minima; a miss gives t = BIG, idx = 0) or any hit
+// within (EPS, maxt]. The nearest scans then copy row idx of the f32 slim
+// shading table into attrsT[:, ray]. These are the numerics of the JAX
+// package's "f32" plan (_epilogue, _tile_minarg, _tile_anyhit).
+//
+// What bounds them: about 55 flops per (ray, triangle) pair (40 FMA for the
+// four dots, one IEEE division, three multiplies, the compares). At the
+// main path's 3,686,400 lanes and 256 triangles that is ~52 GFLOP per scan,
+// so the scans are FP32 issue bound; a ray reads 40-80 B of features and
+// writes 8 B plus its 128 B attr row.
+//
+// Design: one thread per ray, its feature values in registers. The block
+// stages the 10 used rows of G into shared memory 128 triangles at a time
+// (20 KB) as one float4 (det, u, v, t numerators) per (row, triangle), and
+// every thread of the block reads the same float4 (a broadcast, no bank
+// conflict), so each pair costs 10 shared loads for 40 FMA. What the TPU
+// kernels needed and Hopper does not is not carried over: the MXU dot
+// plans and top-2 carry, the [R,128] lane tiling, and the bf16 hi/mid/lo
+// attr split read by a one-hot matmul (here a direct row read of the f32
+// table, which stays in L1/L2: 32 KB at 256 triangles).
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr float BIG = 1e6f;
+constexpr float DET_EPS = 1e-6f;
+constexpr float EPS = 1e-3f;
+constexpr int NROWS = 10;     // feature rows that meet nonzero G rows
+constexpr int MAXT_ROW = 10;  // shadow rays carry maxt in this row
+constexpr int CHUNK = 128;    // triangles staged per shared-memory pass
+constexpr int THREADS = 128;  // rays per block
+
+// One (ray, triangle) pair: the exact division epilogue.
+__device__ __forceinline__ void pair_test(const float (&f)[NROWS], const float4* sg,
+                                          int j, float& t, bool& valid) {
+  float4 acc;
+  {
+    const float4 g = sg[j];
+    acc.x = f[0] * g.x;
+    acc.y = f[0] * g.y;
+    acc.z = f[0] * g.z;
+    acc.w = f[0] * g.w;
+  }
+#pragma unroll
+  for (int r = 1; r < NROWS; ++r) {
+    const float4 g = sg[r * CHUNK + j];
+    acc.x = fmaf(f[r], g.x, acc.x);
+    acc.y = fmaf(f[r], g.y, acc.y);
+    acc.z = fmaf(f[r], g.z, acc.z);
+    acc.w = fmaf(f[r], g.w, acc.w);
+  }
+  const bool good = fabsf(acc.x) >= DET_EPS;
+  const float inv = good ? 1.0f / acc.x : 0.0f;
+  const float u = acc.y * inv;
+  const float v = acc.z * inv;
+  t = acc.w * inv;
+  valid = good && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > EPS;
+}
+
+template <bool NEAR, bool ANY>
+__global__ void __launch_bounds__(THREADS)
+scan_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
+            const float* __restrict__ g, const float* __restrict__ attrs,
+            float* __restrict__ t_out, int* __restrict__ idx_out,
+            int* __restrict__ occ_out, float* __restrict__ attrs_out,
+            int B, int TT, int W) {
+  __shared__ float4 sg[NROWS * CHUNK];  // [row][triangle] -> (det, u, v, t)
+  float* sgf = reinterpret_cast<float*>(sg);
+
+  const int ray = blockIdx.x * THREADS + threadIdx.x;
+  const bool active = ray < B;
+  float f[NROWS], s[NROWS];
+  float maxt = 0.0f;
+#pragma unroll
+  for (int r = 0; r < NROWS; ++r) {
+    f[r] = (NEAR && active) ? feats[(size_t)r * B + ray] : 0.0f;
+    s[r] = (ANY && active) ? sh[(size_t)r * B + ray] : 0.0f;
+  }
+  if (ANY && active) maxt = sh[(size_t)MAXT_ROW * B + ray];
+
+  float best_t = INFINITY;
+  int best_i = 0;
+  bool occ = false;
+  for (int c0 = 0; c0 < TT; c0 += CHUNK) {
+    const int n = min(CHUNK, TT - c0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int e = threadIdx.x; e < NROWS * 4 * CHUNK; e += THREADS) {
+      const int j = e % CHUNK;  // fastest: coalesced reads of G
+      const int rq = e / CHUNK;
+      const int r = rq >> 2, q = rq & 3;
+      sgf[(r * CHUNK + j) * 4 + q] =
+          j < n ? g[(size_t)r * 4 * TT + (size_t)q * TT + c0 + j] : 0.0f;
+    }
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      if (NEAR) {
+        float t;
+        bool valid;
+        pair_test(f, sg, j, t, valid);
+        const float tm = valid ? t : BIG;
+        if (tm < best_t) {
+          best_t = tm;
+          best_i = c0 + j;
+        }
+      }
+      if (ANY && !occ) {
+        float t;
+        bool valid;
+        pair_test(s, sg, j, t, valid);
+        occ = valid && t <= maxt;
+      }
+    }
+  }
+  if (!active) return;
+  if (NEAR) {
+    t_out[ray] = best_t;
+    idx_out[ray] = best_i;
+    const float* row = attrs + (size_t)best_i * W;
+    for (int w = 0; w < W; ++w) attrs_out[(size_t)w * B + ray] = row[w];
+  }
+  if (ANY) occ_out[ray] = occ ? 1 : 0;
+}
+
+inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
+
+}  // namespace
+
+extern "C" int rt_nearest_attrs(const float* feats, const float* g, const float* attrs,
+                                float* t, int* idx, float* attrs_t,
+                                int B, int TT, int W, void* stream) {
+  scan_kernel<true, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      feats, nullptr, g, attrs, t, idx, nullptr, attrs_t, B, TT, W);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_nearest_shadow_attrs(const float* feats, const float* sh, const float* g,
+                                       const float* attrs, float* t, int* idx, int* occ,
+                                       float* attrs_t, int B, int TT, int W, void* stream) {
+  scan_kernel<true, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      feats, sh, g, attrs, t, idx, occ, attrs_t, B, TT, W);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_occlude(const float* sh, const float* g, int* occ, int B, int TT,
+                          void* stream) {
+  scan_kernel<false, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      nullptr, sh, g, nullptr, nullptr, nullptr, occ, nullptr, B, TT, 0);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,116 @@
+"""Build, load and launch the CUDA kernels of csrc/.
+
+Each `csrc/<name>.cu` has a plain C interface and becomes its own shared
+library, `build/lib<name>-<hash>.so` at the root of the checkout, built
+by nvcc at first use; the hash covers the source and the flags, so an
+edited source is rebuilt. The library is loaded with ctypes. Every entry
+point takes its pointers, then its ints, then the CUDA stream, and
+returns the `cudaError_t` of its launch.
+
+The wrappers of ops/ share one rule (`uses_plain`): a CPU tensor runs
+the kernel's plain PyTorch version, a CUDA tensor runs the kernel, and
+any other device is an error. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Per-source extra flags. shade.cu is compiled without FMA contraction
+# so that it rounds like its plain PyTorch twin, which runs one
+# operation per torch kernel. No source uses --use_fast_math: the sky
+# march's exp(2.2 log x) and the GGX terms need the precise functions.
+EXTRA_FLAGS = {
+    "flash_intersect": [],
+    "shade": ["-fmad=false"],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its library is current; returns the
+    library path. The compiler's resource report (-Xptxas -v) goes to a
+    .log beside it."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS[name]
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(flags).encode())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *flags, "-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(out[: -len(".so")] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src} (exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def entry_point(name: str, fn: str, n_ptrs: int, n_ints: int):
+    """`fn` of csrc/<name>.cu (built if needed), declared as
+    `int fn(void* x n_ptrs, int x n_ints, void* stream)`: every pointer
+    and the stream are c_void_p, so no 64-bit value is cut."""
+    f = getattr(ctypes.CDLL(build(name)), fn)
+    f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def uses_plain(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (run the plain version), False for a CUDA
+    tensor (run the kernel); any other device has no implementation."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
+def check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless `x` is a contiguous `dtype` tensor of `shape` on `device`."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn, label: str, device: torch.device, tensors, ints) -> None:
+    """Call entry point `fn` on `device`'s current stream with the data
+    pointers of `tensors` (None passes a null pointer) and `ints`; raise
+    if the launch was refused."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(device):
+        rc = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {label} failed to launch: cudaError {rc}")

@@ -1,0 +1,106 @@
+"""Where the time of the headline render goes on one CUDA device.
+
+    python -m rustic_tpu_torch.profile_render [--table PATH]
+
+Renders DarkCornell 1280x720 NEE+MIS (4 bounces) once as a warm-up, then
+once at 32 spp under torch.profiler, and prints: the wall time of the profiled
+render, the device time summed over its kernels and copies, the device's
+idle share (1 - device time / wall time, one stream so nothing overlaps),
+and the device time per kernel (K1-K4), per copy and for the torch glue.
+Then it times two renders at 160 spp (the headline render) without the
+profiler. `--table` writes the profiler's full table to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+
+from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic_tpu_torch.runtime.render import render_image
+from rustic_tpu_torch.scene.world import World
+
+PROFILE_SPP = 32
+SPP = 160
+
+# demangled kernel names -> the port's kernel ids (scan_kernel<NEAR, ANY>)
+_KERNELS = {
+    "scan_kernel<true,false>": "K1 nearest_attrs",
+    "scan_kernel<true,true>": "K2 nearest_shadow_attrs",
+    "scan_kernel<false,true>": "K3 occlude",
+    "shade_kernel": "K4 shade_bounce",
+}
+
+
+def _category(name: str) -> str:
+    flat = name.replace(" ", "")
+    for key, label in _KERNELS.items():
+        if key in flat:
+            return label
+    if name.startswith(("Memcpy", "Memset")):
+        return name.split(" (")[0]
+    return "torch glue"
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--table", help="write the profiler's key_averages table here")
+    args = ap.parse_args(argv)
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi: n/a")
+    scene = World.from_path("assets/scenes/DarkCornell.glb").to_torch(dev)
+    config = TracingConfig(width=1280, height=720, nee=NextEventEstimation.MIS)
+    render_image(scene, config, RenderSettings(samples=4), device=dev)  # builds and warms
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        render_image(scene, config, RenderSettings(samples=PROFILE_SPP), device=dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_cat: dict[str, list] = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            c = by_cat.setdefault(_category(evt.key), [0.0, 0])
+            c[0] += us
+            c[1] += evt.count
+    busy_us = sum(v[0] for v in by_cat.values())
+    if busy_us == 0:
+        raise RuntimeError("the profiler recorded no device time; time with CUDA events")
+    print(f"profiled render 1280x720x{PROFILE_SPP} spp: wall {wall_us / 1e3:.3f} ms, "
+          f"device {busy_us / 1e3:.3f} ms, busy {busy_us / wall_us:.4f}, "
+          f"idle {1 - busy_us / wall_us:.4f}")
+    for cat, (us, n) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {cat}: {us / 1e3:.3f} ms in {n} launches, "
+              f"{us / busy_us:.4f} of device time")
+    if args.table:
+        with open(args.table, "w") as f:
+            f.write(prof.key_averages().table(row_limit=200))
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_image(scene, config, RenderSettings(samples=SPP), device=dev)
+        s = time.perf_counter() - t0
+        print(f"render 1280x720x{SPP} spp: {s:.4f} s, "
+              f"{1280 * 720 * SPP / s / 1e6:.2f} Mpaths/s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

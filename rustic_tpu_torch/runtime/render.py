@@ -1,0 +1,137 @@
+"""Synchronous rendering (twin of rustic_tpu/runtime/render.py).
+
+`render_image(scene, config, settings, device)` renders a full frame on
+`device`, through the CUDA kernels when it is a CUDA device and through
+their plain PyTorch versions when it is the CPU. A CUDA device that is
+absent is an error, never a silent fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rustic_tpu_torch.config import RenderSettings, TracingConfig
+from rustic_tpu_torch.ops.rng import as_i32_bits, pcg_hash
+from rustic_tpu_torch.runtime.pipeline import render_batch_staged
+from rustic_tpu_torch.scene.world import SceneTensors
+
+_BLUENOISE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "assets", "bluenoise_128.npy",
+)
+
+
+@functools.lru_cache(maxsize=1)
+def _bluenoise_table() -> Optional[np.ndarray]:
+    """The committed 128x128 rank texture (u32 offsets), or None."""
+    try:
+        return np.load(_BLUENOISE)
+    except OSError:
+        return None
+
+
+def pixel_offsets(width: int, height: int, use_blue_noise: bool = True) -> np.ndarray:
+    """Per-pixel LDS decorrelation offsets ([H*W] u32): the tiled
+    blue-noise rank table (interleaved-gradient noise if the asset is
+    missing), or a hash of the pixel id."""
+    y, x = np.mgrid[0:height, 0:width]
+    if use_blue_noise:
+        table = _bluenoise_table()
+        if table is not None:
+            n = table.shape[0]
+            return table[y % n, x % n].reshape(-1).copy()
+        ign = np.mod(52.9829189 * np.mod(0.06711056 * x + 0.00583715 * y, 1.0), 1.0)
+        return (ign * 4294967295.0).astype(np.uint32).reshape(-1)
+    ids = torch.from_numpy((y * width + x).reshape(-1).astype(np.int64))
+    return pcg_hash(ids).numpy().astype(np.uint32)
+
+
+def resolve_device(device) -> torch.device:
+    """The render device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"render device {device} requested but CUDA is not available")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported render device {device}")
+    return device
+
+
+def _u32_bits(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
+
+
+def render_pixels(
+    scene: SceneTensors,
+    config: TracingConfig,
+    px: np.ndarray,
+    py: np.ndarray,
+    samples: int,
+    offsets: Optional[np.ndarray] = None,
+    sample_start: int = 0,
+    film_in: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Render an arbitrary pixel set on the scene's device; returns the
+    film *sum* [B, 3] there."""
+    device = scene.device
+    cfg = config.static_part()
+    cam = config.dynamic_part(device)
+    if offsets is None:
+        ids = torch.from_numpy(
+            (np.asarray(py, np.int64) * config.width + np.asarray(px, np.int64))
+        )
+        offsets_t = as_i32_bits(pcg_hash(ids)).to(device)
+    else:
+        offsets_t = _u32_bits(offsets, device)
+    return render_batch_staged(
+        scene,
+        cfg,
+        cam,
+        torch.from_numpy(np.asarray(px, np.int32)).to(device),
+        torch.from_numpy(np.asarray(py, np.int32)).to(device),
+        offsets_t,
+        int(sample_start),
+        int(samples),
+        film_in=film_in,
+    )
+
+
+def render_image(
+    scene: SceneTensors,
+    config: TracingConfig,
+    settings: Optional[RenderSettings] = None,
+    device="cuda",
+) -> np.ndarray:
+    """Render a full frame on `device`; returns the *mean* film [H, W, 3]
+    float32. Pixels go in chunks of settings.batch_pixels."""
+    device = resolve_device(device)
+    settings = settings or RenderSettings()
+    if scene.device != device:
+        scene = scene.to(device)
+    w, h = config.width, config.height
+    offsets = pixel_offsets(w, h, settings.use_blue_noise)
+    y, x = np.mgrid[0:h, 0:w]
+    px = x.reshape(-1).astype(np.int32)
+    py = y.reshape(-1).astype(np.int32)
+
+    n_px = h * w
+    chunk = min(int(settings.batch_pixels), n_px)
+    # pad to whole chunks so every chunk has one shape
+    pad = (-n_px) % chunk
+    if pad:
+        px = np.pad(px, (0, pad))
+        py = np.pad(py, (0, pad))
+        offsets = np.pad(offsets, (0, pad))
+
+    out = np.empty((n_px + pad, 3), np.float32)
+    for lo in range(0, n_px + pad, chunk):
+        hi = lo + chunk
+        film = render_pixels(
+            scene, config, px[lo:hi], py[lo:hi], settings.samples, offsets=offsets[lo:hi]
+        )
+        out[lo:hi] = film.cpu().numpy()
+    return (out[:n_px] / max(settings.samples, 1)).reshape(h, w, 3)

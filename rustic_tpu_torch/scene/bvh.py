@@ -1,0 +1,139 @@
+"""Binned-SAH BVH builder: a NumPy port of
+rustic_tpu/scene/bvh.py:_build_bvh_numpy.
+
+The port needs the builder for its triangle permutation, which fixes
+the flash tile layout and every winner index, so this is the same
+algorithm step for step and gives the same permutation as the JAX
+NumPy builder. The JAX package prefers its C++ builder (native/bvh.cpp)
+when that library is built, and that one gives a different permutation.
+The node arrays built on the way are not returned: no port stage
+traverses the BVH yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_INF = np.float32(np.inf)
+
+
+def _node_area(lo: np.ndarray, hi: np.ndarray) -> float:
+    e = hi - lo
+    if not np.all(np.isfinite(e)):
+        return 0.0
+    return float(e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
+
+
+def build_bvh(
+    vertices: np.ndarray, triangles: np.ndarray, sah_samples: int = 128
+) -> np.ndarray:
+    """Build a binned-SAH BVH over [T, 4] (i0, i1, i2, material) triangles
+    -> the permutation mapping the BVH triangle order to the old triangle
+    index (reference: src/bvh.rs:178-324)."""
+    verts = np.asarray(vertices, np.float32)[:, :3]
+    tris = np.asarray(triangles, np.int64)
+    n_tris = len(tris)
+    if n_tris == 0:
+        raise ValueError("scene has no triangle geometry (cameras/lights only?)")
+
+    va = verts[tris[:, 0]]
+    vb = verts[tris[:, 1]]
+    vc = verts[tris[:, 2]]
+    tri_min = np.minimum(np.minimum(va, vb), vc)
+    tri_max = np.maximum(np.maximum(va, vb), vc)
+    centroids = (va + vb + vc) / 3.0
+
+    perm = np.arange(n_tris)
+    max_nodes = max(2 * n_tris - 1, 1)
+    aabb_min = np.full((max_nodes, 3), _INF, np.float32)
+    aabb_max = np.full((max_nodes, 3), -_INF, np.float32)
+    left_first = np.zeros(max_nodes, np.int32)
+    count = np.zeros(max_nodes, np.int32)
+    count[0] = n_tris
+    aabb_min[0] = tri_min.min(axis=0)
+    aabb_max[0] = tri_max.max(axis=0)
+
+    def area(lo_, hi_):
+        e = np.maximum(hi_ - lo_, 0.0)
+        e = np.where(np.isfinite(e), e, 0.0)
+        return e[:, 0] * e[:, 1] + e[:, 1] * e[:, 2] + e[:, 2] * e[:, 0]
+
+    node_count = 1
+    stack = [0]
+    while stack:
+        node = stack.pop()
+        first = int(left_first[node])
+        n = int(count[node])
+        sl = slice(first, first + n)
+        cen = centroids[sl]
+        tmin = tri_min[sl]
+        tmax = tri_max[sl]
+
+        best_cost = np.inf
+        best_axis = -1
+        best_split = 0.0
+        for axis in range(3):
+            c = cen[:, axis]
+            lo = float(c.min())
+            hi = float(c.max())
+            if lo == hi:
+                continue
+            # bin triangles (reference: src/bvh.rs:199-218)
+            scale = sah_samples / (hi - lo)
+            seg = np.minimum(((c - lo) * scale).astype(np.int64), sah_samples - 1)
+            bin_min = np.full((sah_samples, 3), _INF, np.float32)
+            bin_max = np.full((sah_samples, 3), -_INF, np.float32)
+            np.minimum.at(bin_min, seg, tmin)
+            np.maximum.at(bin_max, seg, tmax)
+            bin_n = np.bincount(seg, minlength=sah_samples)
+
+            # prefix/suffix sweeps (reference: src/bvh.rs:221-240)
+            lmin = np.minimum.accumulate(bin_min[:-1], axis=0)
+            lmax = np.maximum.accumulate(bin_max[:-1], axis=0)
+            rmin = np.minimum.accumulate(bin_min[:0:-1], axis=0)[::-1]
+            rmax = np.maximum.accumulate(bin_max[:0:-1], axis=0)[::-1]
+            lcnt = np.cumsum(bin_n[:-1])
+            rcnt = np.cumsum(bin_n[:0:-1])[::-1]
+
+            cost = lcnt * area(lmin, lmax) + rcnt * area(rmin, rmax)
+            # empty-side planes must not win (reference: src/bvh.rs:132-137)
+            cost = np.where((lcnt == 0) | (rcnt == 0), np.inf, cost)
+            i = int(np.argmin(cost))
+            if cost[i] < best_cost:
+                best_cost = float(cost[i])
+                best_axis = axis
+                best_split = lo + (hi - lo) / sah_samples * (i + 1)
+
+        # leaf if splitting is not cheaper (reference: src/bvh.rs:274-277)
+        parent_cost = _node_area(aabb_min[node], aabb_max[node]) * n
+        if best_axis < 0 or parent_cost <= best_cost:
+            continue
+
+        mask = cen[:, best_axis] < best_split
+        n_left = int(mask.sum())
+        if n_left == 0 or n_left == n:
+            continue
+
+        order = np.concatenate([np.nonzero(mask)[0], np.nonzero(~mask)[0]]) + first
+        perm[sl] = perm[order]
+        centroids[sl] = centroids[order]
+        tri_min[sl] = tri_min[order]
+        tri_max[sl] = tri_max[order]
+
+        left = node_count
+        right = node_count + 1
+        node_count += 2
+        left_first[node] = left
+        count[node] = 0
+        left_first[left] = first
+        count[left] = n_left
+        left_first[right] = first + n_left
+        count[right] = n - n_left
+        aabb_min[left] = tri_min[first : first + n_left].min(axis=0)
+        aabb_max[left] = tri_max[first : first + n_left].max(axis=0)
+        aabb_min[right] = tri_min[first + n_left : first + n].min(axis=0)
+        aabb_max[right] = tri_max[first + n_left : first + n].max(axis=0)
+        stack.append(right)
+        stack.append(left)
+
+    return perm
