@@ -31,45 +31,13 @@
 // attr split read by a one-hot matmul (here a direct row read of the f32
 // table, which stays in L1/L2: 32 KB at 256 triangles).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float BIG = 1e6f;
-constexpr float DET_EPS = 1e-6f;
-constexpr float EPS = 1e-3f;
-constexpr int NROWS = 10;     // feature rows that meet nonzero G rows
-constexpr int MAXT_ROW = 10;  // shadow rays carry maxt in this row
-constexpr int CHUNK = 128;    // triangles staged per shared-memory pass
-constexpr int THREADS = 128;  // rays per block
+using namespace flash;
 
-// One (ray, triangle) pair: the exact division epilogue.
-__device__ __forceinline__ void pair_test(const float (&f)[NROWS], const float4* sg,
-                                          int j, float& t, bool& valid) {
-  float4 acc;
-  {
-    const float4 g = sg[j];
-    acc.x = f[0] * g.x;
-    acc.y = f[0] * g.y;
-    acc.z = f[0] * g.z;
-    acc.w = f[0] * g.w;
-  }
-#pragma unroll
-  for (int r = 1; r < NROWS; ++r) {
-    const float4 g = sg[r * CHUNK + j];
-    acc.x = fmaf(f[r], g.x, acc.x);
-    acc.y = fmaf(f[r], g.y, acc.y);
-    acc.z = fmaf(f[r], g.z, acc.z);
-    acc.w = fmaf(f[r], g.w, acc.w);
-  }
-  const bool good = fabsf(acc.x) >= DET_EPS;
-  const float inv = good ? 1.0f / acc.x : 0.0f;
-  const float u = acc.y * inv;
-  const float v = acc.z * inv;
-  t = acc.w * inv;
-  valid = good && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > EPS;
-}
+constexpr int THREADS = 128;  // rays per block
 
 template <bool NEAR, bool ANY>
 __global__ void __launch_bounds__(THREADS)
@@ -79,18 +47,13 @@ scan_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
             int* __restrict__ occ_out, float* __restrict__ attrs_out,
             int B, int TT, int W) {
   __shared__ float4 sg[NROWS * CHUNK];  // [row][triangle] -> (det, u, v, t)
-  float* sgf = reinterpret_cast<float*>(sg);
 
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool active = ray < B;
   float f[NROWS], s[NROWS];
-  float maxt = 0.0f;
-#pragma unroll
-  for (int r = 0; r < NROWS; ++r) {
-    f[r] = (NEAR && active) ? feats[(size_t)r * B + ray] : 0.0f;
-    s[r] = (ANY && active) ? sh[(size_t)r * B + ray] : 0.0f;
-  }
-  if (ANY && active) maxt = sh[(size_t)MAXT_ROW * B + ray];
+  load_rows(feats, B, ray, NEAR && active, f);
+  load_rows(sh, B, ray, ANY && active, s);
+  const float maxt = (ANY && active) ? sh[(size_t)MAXT_ROW * B + ray] : 0.0f;
 
   float best_t = INFINITY;
   int best_i = 0;
@@ -98,13 +61,7 @@ scan_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
   for (int c0 = 0; c0 < TT; c0 += CHUNK) {
     const int n = min(CHUNK, TT - c0);
     __syncthreads();  // the previous chunk is consumed
-    for (int e = threadIdx.x; e < NROWS * 4 * CHUNK; e += THREADS) {
-      const int j = e % CHUNK;  // fastest: coalesced reads of G
-      const int rq = e / CHUNK;
-      const int r = rq >> 2, q = rq & 3;
-      sgf[(r * CHUNK + j) * 4 + q] =
-          j < n ? g[(size_t)r * 4 * TT + (size_t)q * TT + c0 + j] : 0.0f;
-    }
+    stage_chunk(sg, g, (size_t)4 * TT, 0, TT, c0, n);
     __syncthreads();
     if (!active) continue;
 #pragma unroll 2

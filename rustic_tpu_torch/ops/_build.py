@@ -36,6 +36,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 # march's exp(2.2 log x) and the GGX terms need the precise functions.
 EXTRA_FLAGS = {
     "flash_intersect": [],
+    "flash_multi": [],
     "shade": ["-fmad=false"],
 }
 
@@ -48,14 +49,17 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its library is current; returns the
-    library path. The compiler's resource report (-Xptxas -v) goes to a
-    .log beside it."""
+    """Compile csrc/<name>.cu unless its library is current (the hash
+    also covers the shared csrc/*.cuh headers); returns the library
+    path. The compiler's resource report (-Xptxas -v) goes to a .log
+    beside it."""
     src = os.path.join(CSRC, f"{name}.cu")
     flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS[name]
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
     if os.path.exists(out):

@@ -1,4 +1,5 @@
-"""Single-tile flash intersection: kernels K1-K3 and their plain twins.
+"""Flash intersection: kernels K1-K3 (one triangle tile), K5-K7 (many
+tiles) and their plain twins.
 
 Twins of rustic_tpu/ops/flash_intersect.py under its "f32" plan (the
 plan the JAX package runs on the CPU): the Möller–Trumbore numerators of
@@ -14,9 +15,22 @@ takes the first index among equal minima.
   set within (EPS, maxt], maxt in feature row SH_MAXT_COL.
 - `occlude` (K3): the any-hit test alone.
 
+Scenes of more than 512 triangles are NT tiles of 512. For each block
+of BT_MULTI rays, `block_tile_lists` finds the tiles some ray of the
+block may hit (an interval slab test against the tile AABBs, the twin of
+the JAX package's XLA `_block_tile_lists`); the multi-tile scans walk
+only those tiles, in ascending order:
+
+- `nearest_multi` (K5): nearest hit over the admitted tiles; the index
+  is global (j·TT + local).
+- `nearest_shadow_multi` (K6): K5 on the tiles the first ray set admits
+  (list bit 20), plus any-hit of a second ray set on the tiles it admits
+  (bit 21).
+- `occlude_multi` (K7): the any-hit test alone.
+
 Each wrapper runs the plain PyTorch version for CPU tensors and the
-CUDA kernel (csrc/flash_intersect.cu) for CUDA tensors; it counts its
-kernel launches in LAUNCHES.
+CUDA kernel (csrc/flash_intersect.cu, csrc/flash_multi.cu) for CUDA
+tensors; it counts its kernel launches in LAUNCHES.
 """
 
 from __future__ import annotations
@@ -29,12 +43,18 @@ from rustic_tpu_torch.ops.sampling import EPS
 BIG = 1e6
 DET_EPS = 1e-6
 SH_MAXT_COL = 10
-MAX_TT = 512  # the single-tile width the kernels take
+MAX_TT = 512  # triangles per tile
+BT_MULTI = 256  # rays per block of the multi-tile scans (pick_bt)
+_LIST_ID_MASK = (1 << 20) - 1
+_SET_BIT = (1 << 20, 1 << 21)  # list flag of ray set 0 and 1
 
 # rays per plain-version chunk: keeps the [chunk, 4·TT] f32 product near 1 GB
 _PLAIN_CHUNK_BYTES = 1 << 30
 
-LAUNCHES = {"nearest_attrs": 0, "nearest_shadow_attrs": 0, "occlude": 0}
+LAUNCHES = {
+    "nearest_attrs": 0, "nearest_shadow_attrs": 0, "occlude": 0,
+    "nearest_multi": 0, "nearest_shadow_multi": 0, "occlude_multi": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -45,14 +65,24 @@ def reset_launch_counts() -> None:
 # ---- plain PyTorch versions -------------------------------------------------
 
 
+def geometry(g16: torch.Tensor):
+    """[16, NT*4*TT] triangle table -> (T_pad, TT, NT)."""
+    t_pad = g16.shape[1] // 4
+    if g16.shape[0] != 16 or g16.shape[1] != 4 * t_pad or t_pad == 0:
+        raise ValueError(f"triangle table must be [16, NT*4*TT], got {tuple(g16.shape)}")
+    tt = min(t_pad, MAX_TT)
+    if t_pad % tt:
+        raise ValueError(f"{t_pad} triangles do not fill whole tiles of {tt}")
+    return t_pad, tt, t_pad // tt
+
+
 def _tile_width(g16: torch.Tensor) -> int:
-    tt = g16.shape[1] // 4
-    if g16.shape[0] != 16 or g16.shape[1] != 4 * tt:
-        raise ValueError(f"triangle table must be [16, 4*TT], got {tuple(g16.shape)}")
-    if tt > MAX_TT:
+    """The tile width TT of a one-tile table (all K1-K3 take)."""
+    _, tt, nt = geometry(g16)
+    if nt > 1:
         raise NotImplementedError(
-            "multi-tile scenes (more than 512 triangles) are not ported yet "
-            "(ROADMAP.md queue 1 item 7, queue 2)"
+            "K1-K3 scan one tile; multi-tile scenes (more than 512 triangles) "
+            "go through the multi-tile scans (nearest_multi and its twins)"
         )
     return tt
 
@@ -117,6 +147,164 @@ def occlude_plain(sh_t, g16):
     return occ
 
 
+# ---- multi-tile: admitted-tile lists and plain versions --------------------
+
+
+def _interval_mul(a_lo, a_hi, b_lo, b_hi):
+    """Interval product bounds: [a]*[b] via the four corner products."""
+    p1 = a_lo * b_lo
+    p2 = a_lo * b_hi
+    p3 = a_hi * b_lo
+    p4 = a_hi * b_hi
+    return (
+        torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4)),
+        torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4)),
+    )
+
+
+def _pad_rays_t(feats_t, bt: int):
+    """[16, B] rows -> [16, B_pad] with zero rays up to a multiple of bt."""
+    pad = (-feats_t.shape[1]) % bt
+    return torch.nn.functional.pad(feats_t, (0, pad)) if pad else feats_t
+
+
+def block_admits(feats_t, tile_aabbs, bt: int, use_maxt: bool):
+    """Conservative per-(ray block, tile) slab admits [nb, NT] bool by
+    interval arithmetic over each block's origin, inverse-direction and
+    max-t ranges; `feats_t` is [16, nb*bt]. Any tile a ray of the block
+    could hit is admitted (twin of rustic_tpu's `_block_admits`)."""
+    nb = feats_t.shape[1] // bt
+    f3 = feats_t.reshape(16, nb, bt)
+    ro = f3[6:9]
+    rd = f3[0:3]
+    inv = torch.where(
+        rd.abs() < 1e-12, torch.where(rd < 0, -1e12, 1e12), torch.reciprocal(rd)
+    )
+    o_lo, o_hi = ro.amin(-1), ro.amax(-1)  # [3, nb]
+    iv_lo, iv_hi = inv.amin(-1), inv.amax(-1)
+    if use_maxt:
+        limit_hi = f3[SH_MAXT_COL].amax(-1)  # [nb]
+    else:
+        limit_hi = torch.full((nb,), BIG, dtype=torch.float32, device=feats_t.device)
+    lo_t = tile_aabbs[:, 0:3]  # [nt, 3]
+    hi_t = tile_aabbs[:, 4:7]
+    tmin_lo = tmax_hi = None
+    for a in range(3):
+        ivl, ivh = iv_lo[a][:, None], iv_hi[a][:, None]
+        t1_lo, t1_hi = _interval_mul(
+            lo_t[:, a][None, :] - o_hi[a][:, None], lo_t[:, a][None, :] - o_lo[a][:, None],
+            ivl, ivh,
+        )
+        t2_lo, t2_hi = _interval_mul(
+            hi_t[:, a][None, :] - o_hi[a][:, None], hi_t[:, a][None, :] - o_lo[a][:, None],
+            ivl, ivh,
+        )
+        slo_lo = torch.minimum(t1_lo, t2_lo)  # lower bound of min(t1, t2)
+        shi_hi = torch.maximum(t1_hi, t2_hi)  # upper bound of max(t1, t2)
+        tmin_lo = slo_lo if tmin_lo is None else torch.maximum(tmin_lo, slo_lo)
+        tmax_hi = shi_hi if tmax_hi is None else torch.minimum(tmax_hi, shi_hi)
+    return (tmax_hi >= tmin_lo) & (tmax_hi > 0.0) & (tmin_lo < limit_hi[:, None])
+
+
+def block_tile_lists(tile_aabbs, bt: int, maxt_flags, *feats_sets):
+    """Admitted-tile lists of the multi-tile scans: for each block of bt
+    rays, the ascending ids of the tiles any of the ray sets may hit,
+    each with bit 20 + i set where ray set i admits it, then the other
+    tiles without flags -> (lists [nb, NT] i32, counts [nb] i32).
+
+    `feats_sets` are [16, B] rows; B is padded with zero rays to a whole
+    block as the JAX package pads it, so the lists equal its
+    `_block_tile_lists` (which returns them transposed, padded to 128
+    blocks)."""
+    nt = tile_aabbs.shape[0]
+    admits = [
+        block_admits(_pad_rays_t(f, bt), tile_aabbs, bt, use_maxt)
+        for f, use_maxt in zip(feats_sets, maxt_flags)
+    ]
+    nb = admits[0].shape[0]
+    iota = torch.arange(nt, dtype=torch.int32, device=tile_aabbs.device).expand(nb, nt)
+    packed = iota
+    any_ok = admits[0]
+    for i, m in enumerate(admits):
+        packed = packed + torch.where(m, _SET_BIT[i], 0).to(torch.int32)
+        any_ok = any_ok | m
+    # stable ascending compaction: admitted ids first, in tile order
+    order = torch.argsort(torch.where(any_ok, iota, iota + nt), dim=1)
+    lists = torch.gather(packed, 1, order).to(torch.int32).contiguous()
+    return lists, any_ok.sum(dim=1, dtype=torch.int32)
+
+
+def _admit_table(lists, counts, nt: int, ray_set: int):
+    """[nb, NT] bool: tile j is on block i's list for `ray_set`."""
+    listed = torch.arange(nt, device=lists.device)[None, :] < counts[:, None]
+    ok = listed & ((lists & _SET_BIT[ray_set]) != 0)
+    table = torch.zeros(lists.shape, dtype=torch.bool, device=lists.device)
+    return table.scatter_(1, (lists & _LIST_ID_MASK).long(), ok)
+
+
+def _tiles(g16, tt: int, nt: int):
+    """(j, G columns of tile j) for every tile, ascending."""
+    for j in range(nt):
+        yield j, g16[:, j * 4 * tt : (j + 1) * 4 * tt]
+
+
+def _nearest_tiles(feats_t, g16, admit):
+    """Nearest hit over the admitted tiles: per chunk of rays, each tile's
+    (min, first argmin), masked to BIG where the ray's block does not
+    admit the tile, folded in ascending tile order with a strict <."""
+    b = feats_t.shape[1]
+    dev = feats_t.device
+    _, tt, nt = geometry(g16)
+    t = torch.full((b,), BIG, dtype=torch.float32, device=dev)
+    idx = torch.zeros(b, dtype=torch.int32, device=dev)
+    block = torch.arange(b, device=dev) // BT_MULTI
+    for lo, hi in _chunks(b, tt):
+        f, blk = feats_t[:, lo:hi], block[lo:hi]
+        t_c, i_c = t[lo:hi], idx[lo:hi]
+        for j, gj in _tiles(g16, tt, nt):
+            tile_min, tile_arg = _nearest_chunk(f, gj, tt)
+            tile_min = torch.where(admit[blk, j], tile_min, BIG)
+            better = tile_min < t_c
+            t_c = torch.where(better, tile_min, t_c)
+            i_c = torch.where(better, tile_arg + j * tt, i_c)
+        t[lo:hi], idx[lo:hi] = t_c, i_c
+    return t, idx
+
+
+def _occlude_tiles(sh_t, g16, admit):
+    """Any hit within (EPS, maxt] over the admitted tiles -> [B] i32."""
+    b = sh_t.shape[1]
+    dev = sh_t.device
+    _, tt, nt = geometry(g16)
+    occ = torch.zeros(b, dtype=torch.int32, device=dev)
+    block = torch.arange(b, device=dev) // BT_MULTI
+    for lo, hi in _chunks(b, tt):
+        f, blk = sh_t[:, lo:hi], block[lo:hi]
+        o = occ[lo:hi]
+        for j, gj in _tiles(g16, tt, nt):
+            o = o | (_anyhit_chunk(f, gj, tt) & admit[blk, j].to(torch.int32))
+        occ[lo:hi] = o
+    return occ
+
+
+def nearest_multi_plain(feats_t, g16, lists, counts):
+    """[16, B] rays, admitted-tile lists -> (t [B] f32, idx [B] i32)."""
+    return _nearest_tiles(feats_t, g16, _admit_table(lists, counts, geometry(g16)[2], 0))
+
+
+def nearest_shadow_multi_plain(feats_t, sh_t, g16, lists, counts):
+    """K5 on `feats_t` (list bit 20) plus any-hit on `sh_t` (bit 21) ->
+    (t, idx, occ [B] i32)."""
+    nt = geometry(g16)[2]
+    t, idx = _nearest_tiles(feats_t, g16, _admit_table(lists, counts, nt, 0))
+    return t, idx, _occlude_tiles(sh_t, g16, _admit_table(lists, counts, nt, 1))
+
+
+def occlude_multi_plain(sh_t, g16, lists, counts):
+    """[16, B] shadow rows (maxt in row SH_MAXT_COL) -> occ [B] i32."""
+    return _occlude_tiles(sh_t, g16, _admit_table(lists, counts, geometry(g16)[2], 0))
+
+
 # ---- CUDA wrappers ------------------------------------------------------------
 
 # entry point of csrc/flash_intersect.cu: (C name, pointer count, int count)
@@ -127,8 +315,19 @@ _ENTRY = {
 }
 
 
+# entry points of csrc/flash_multi.cu
+_ENTRY_MULTI = {
+    "nearest_multi": ("rt_nearest_multi", 6, 3),
+    "nearest_shadow_multi": ("rt_nearest_shadow_multi", 8, 3),
+    "occlude_multi": ("rt_occlude_multi", 5, 3),
+}
+
+
 def _launch(name: str, device, tensors, ints):
-    fn = _build.entry_point("flash_intersect", *_ENTRY[name])
+    if name in _ENTRY_MULTI:
+        fn = _build.entry_point("flash_multi", *_ENTRY_MULTI[name])
+    else:
+        fn = _build.entry_point("flash_intersect", *_ENTRY[name])
     _build.launch(fn, name, device, tensors, ints)
     LAUNCHES[name] += 1
 
@@ -187,4 +386,58 @@ def occlude(sh_t, g16):
     occ = torch.empty(b, dtype=torch.int32, device=sh_t.device)
     if b:
         _launch("occlude", sh_t.device, (sh_t, g16, occ), (b, tt))
+    return occ
+
+
+def _check_multi(feats_t, g16, lists, counts):
+    dev = feats_t.device
+    b = feats_t.shape[1]
+    t_pad, tt, nt = geometry(g16)
+    nb = -(-b // BT_MULTI)
+    _build.check(feats_t, "feats_t", torch.float32, (16, b), dev)
+    _build.check(g16, "tri_feats16", torch.float32, (16, 4 * t_pad), dev)
+    _build.check(lists, "lists", torch.int32, (nb, nt), dev)
+    _build.check(counts, "counts", torch.int32, (nb,), dev)
+    return b, nt, tt
+
+
+def nearest_multi(feats_t, g16, lists, counts):
+    """K5 (replaces _nearest_multi_dma): -> (t [B] f32, idx [B] i32)."""
+    if _build.uses_plain(feats_t):
+        return nearest_multi_plain(feats_t, g16, lists, counts)
+    b, nt, tt = _check_multi(feats_t, g16, lists, counts)
+    dev = feats_t.device
+    t = torch.empty(b, dtype=torch.float32, device=dev)
+    idx = torch.empty(b, dtype=torch.int32, device=dev)
+    if b:
+        _launch("nearest_multi", dev, (feats_t, g16, lists, counts, t, idx), (b, nt, tt))
+    return t, idx
+
+
+def nearest_shadow_multi(feats_t, sh_t, g16, lists, counts):
+    """K6 (replaces _nearest_shadow_multi_dma): -> (t, idx, occ [B] i32)."""
+    if _build.uses_plain(feats_t):
+        return nearest_shadow_multi_plain(feats_t, sh_t, g16, lists, counts)
+    b, nt, tt = _check_multi(feats_t, g16, lists, counts)
+    _build.check(sh_t, "shadow feats_t", torch.float32, feats_t.shape, feats_t.device)
+    dev = feats_t.device
+    t = torch.empty(b, dtype=torch.float32, device=dev)
+    idx = torch.empty(b, dtype=torch.int32, device=dev)
+    occ = torch.empty(b, dtype=torch.int32, device=dev)
+    if b:
+        _launch(
+            "nearest_shadow_multi", dev, (feats_t, sh_t, g16, lists, counts, t, idx, occ),
+            (b, nt, tt),
+        )
+    return t, idx, occ
+
+
+def occlude_multi(sh_t, g16, lists, counts):
+    """K7 (replaces _occlude_multi_dma): -> occ [B] i32."""
+    if _build.uses_plain(sh_t):
+        return occlude_multi_plain(sh_t, g16, lists, counts)
+    b, nt, tt = _check_multi(sh_t, g16, lists, counts)
+    occ = torch.empty(b, dtype=torch.int32, device=sh_t.device)
+    if b:
+        _launch("occlude_multi", sh_t.device, (sh_t, g16, lists, counts, occ), (b, nt, tt))
     return occ

@@ -1,14 +1,21 @@
-"""Where the time of the headline render goes on one CUDA device.
+"""Where the time of a render goes on one CUDA device.
 
-    python -m rustic_tpu_torch.profile_render [--table PATH]
+    python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis] [--table PATH]
 
-Renders DarkCornell 1280x720 NEE+MIS (4 bounces) once as a warm-up, then
-once at 32 spp under torch.profiler, and prints: the wall time of the profiled
-render, the device time summed over its kernels and copies, the device's
-idle share (1 - device time / wall time, one stream so nothing overlaps),
-and the device time per kernel (K1-K4), per copy and for the torch glue.
-Then it times two renders at 160 spp (the headline render) without the
-profiler. `--table` writes the profiler's full table to a file.
+`darkcornell` (the default, the headline render): DarkCornell 1280x720
+NEE+MIS, 4 bounces, profiled at 32 spp, then timed at 160 spp.
+`veachmis` (the multi-tile render, BASELINE.md config 4 with the spp
+cut): VeachMIS 1024x1024 NEE+MIS with the camera of
+tools/quality_gate.py, profiled at 16 spp, then timed at 64 spp.
+
+Renders the scene once as a warm-up, then once under torch.profiler, and
+prints: the wall time of the profiled render, the device time summed over
+its kernels and copies, the device's idle share (1 - device time / wall
+time, one stream so nothing overlaps), and the device time per kernel
+(K1-K7), per copy and for the torch glue (on the multi-tile path the glue
+is the shading stages and the tile lists). Then it times two renders at
+the timed spp without the profiler. `--table` writes the profiler's full
+table to a file.
 """
 
 from __future__ import annotations
@@ -23,15 +30,30 @@ from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, Tracing
 from rustic_tpu_torch.runtime.render import render_image
 from rustic_tpu_torch.scene.world import World
 
-PROFILE_SPP = 32
-SPP = 160
+# scene -> (path, config, profiled spp, timed spp)
+CONFIGS = {
+    "darkcornell": (
+        "assets/scenes/DarkCornell.glb",
+        TracingConfig(width=1280, height=720, nee=NextEventEstimation.MIS),
+        32, 160,
+    ),
+    "veachmis": (
+        "assets/scenes/VeachMIS.glb",
+        TracingConfig(width=1024, height=1024, nee=NextEventEstimation.MIS,
+                      cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05)),
+        16, 64,
+    ),
+}
 
-# demangled kernel names -> the port's kernel ids (scan_kernel<NEAR, ANY>)
+# demangled kernel names -> the port's kernel ids
 _KERNELS = {
     "scan_kernel<true,false>": "K1 nearest_attrs",
     "scan_kernel<true,true>": "K2 nearest_shadow_attrs",
     "scan_kernel<false,true>": "K3 occlude",
     "shade_kernel": "K4 shade_bounce",
+    "multi_kernel<true,false>": "K5 nearest_multi",
+    "multi_kernel<true,true>": "K6 nearest_shadow_multi",
+    "multi_kernel<false,true>": "K7 occlude_multi",
 }
 
 
@@ -54,8 +76,11 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=sorted(CONFIGS), default="darkcornell")
     ap.add_argument("--table", help="write the profiler's key_averages table here")
     args = ap.parse_args(argv)
+    path, config, profile_spp, spp = CONFIGS[args.scene]
+    size = f"{config.width}x{config.height}"
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -63,14 +88,13 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     )
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi: n/a")
-    scene = World.from_path("assets/scenes/DarkCornell.glb").to_torch(dev)
-    config = TracingConfig(width=1280, height=720, nee=NextEventEstimation.MIS)
+    scene = World.from_path(path).to_torch(dev)
     render_image(scene, config, RenderSettings(samples=4), device=dev)  # builds and warms
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        render_image(scene, config, RenderSettings(samples=PROFILE_SPP), device=dev)
+        render_image(scene, config, RenderSettings(samples=profile_spp), device=dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     by_cat: dict[str, list] = {}
     for evt in prof.key_averages():
@@ -82,7 +106,7 @@ def main(argv=None) -> int:
     busy_us = sum(v[0] for v in by_cat.values())
     if busy_us == 0:
         raise RuntimeError("the profiler recorded no device time; time with CUDA events")
-    print(f"profiled render 1280x720x{PROFILE_SPP} spp: wall {wall_us / 1e3:.3f} ms, "
+    print(f"profiled render {args.scene} {size}x{profile_spp} spp: wall {wall_us / 1e3:.3f} ms, "
           f"device {busy_us / 1e3:.3f} ms, busy {busy_us / wall_us:.4f}, "
           f"idle {1 - busy_us / wall_us:.4f}")
     for cat, (us, n) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
@@ -95,10 +119,10 @@ def main(argv=None) -> int:
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        render_image(scene, config, RenderSettings(samples=SPP), device=dev)
+        render_image(scene, config, RenderSettings(samples=spp), device=dev)
         s = time.perf_counter() - t0
-        print(f"render 1280x720x{SPP} spp: {s:.4f} s, "
-              f"{1280 * 720 * SPP / s / 1e6:.2f} Mpaths/s")
+        print(f"render {args.scene} {size}x{spp} spp: {s:.4f} s, "
+              f"{config.width * config.height * spp / s / 1e6:.2f} Mpaths/s")
     return 0
 
 

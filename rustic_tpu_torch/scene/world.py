@@ -54,7 +54,7 @@ ENTRY_B_EMISSION = slice(36, 39)
 ENTRY_B_TRI = 39
 ENTRY_WIDTH = 48
 
-_TEXTURES_TODO = (
+TEXTURES_TODO = (
     "textured scenes are not ported yet (ROADMAP.md queue 1 item 7: "
     "ops/texture.py and the 9-channel atlas)"
 )
@@ -71,6 +71,36 @@ def slim_attr_table(attrs: np.ndarray) -> np.ndarray:
     out[:, SLIM_TRANSMISSION] = attrs[:, ATTR_TRANSMISSION]
     out[:, SLIM_IOR] = attrs[:, ATTR_IOR]
     return out
+
+
+# Slim-row accessors (twins of rustic_tpu/scene/world.py:72-101 for the
+# slim layout, the only one the port uploads): `attrs` is [B, SLIM_WIDTH].
+# Columns 0:9 hold the vertex positions a, b, c (ops/intersect.py).
+ATTR_NRM = slice(9, 18)  # vertex normals a, b, c
+
+
+def attr_emissive(attrs):
+    return attrs[:, SLIM_EMISSIVE]
+
+
+def attr_albedo3(attrs):
+    return attrs[:, SLIM_ALBEDO]
+
+
+def attr_rough_scalar(attrs):
+    return attrs[:, SLIM_ROUGH]
+
+
+def attr_metal_scalar(attrs):
+    return attrs[:, SLIM_METAL]
+
+
+def attr_transmission(attrs):
+    return attrs[:, SLIM_TRANSMISSION]
+
+
+def attr_ior(attrs):
+    return attrs[:, SLIM_IOR]
 
 
 def padded_tri_count(t_count: int) -> int:
@@ -198,7 +228,7 @@ def scene_from_arrays(fields: dict, device) -> SceneTensors:
     `has_lights`, `has_glass`, `has_textures`), so one scene can feed
     both packages."""
     if fields["has_textures"]:
-        raise NotImplementedError(_TEXTURES_TODO)
+        raise NotImplementedError(TEXTURES_TODO)
     attrs = np.asarray(fields["tri_attrs"], np.float32)
     if attrs.shape[-1] != SLIM_WIDTH:
         attrs = slim_attr_table(attrs)
@@ -218,7 +248,7 @@ class World:
 
     def __init__(self, gltf: GltfScene):
         if any(m.has_texture for m in gltf.materials):
-            raise NotImplementedError(_TEXTURES_TODO)
+            raise NotImplementedError(TEXTURES_TODO)
         self.positions = gltf.positions
         self.normals = gltf.normals
         mats = gltf.materials

@@ -1,0 +1,324 @@
+"""The port's shading modules (ops/skybox.py, bsdf.py, nee.py,
+intersect.py, trace.py) against their JAX functions on the same numpy
+inputs.
+
+Tolerance rtol 1e-4, atol 1e-5 (XLA on the CPU contracts a*b + c into
+FMAs, torch does not); discrete outputs (lobes, masks, indices) are
+compared exactly."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rustic_tpu.config import NextEventEstimation as JNEE
+from rustic_tpu.config import TracingConfig as JTracingConfig
+from rustic_tpu.ops import bsdf as JB
+from rustic_tpu.ops import intersect as JI
+from rustic_tpu.ops import nee as JN
+from rustic_tpu.ops import skybox as JS
+from rustic_tpu.ops import trace as JT
+from rustic_tpu.scene.world import World
+from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
+from rustic_tpu_torch.ops import bsdf as B_
+from rustic_tpu_torch.ops import flash_intersect as FI
+from rustic_tpu_torch.ops import intersect as I_
+from rustic_tpu_torch.ops import nee as N_
+from rustic_tpu_torch.ops import skybox as S_
+from rustic_tpu_torch.ops import trace as T_
+from rustic_tpu_torch.runtime.pipeline import stage_init
+from rustic_tpu_torch.scene.world import scene_from_arrays
+from tests.conftest import scene_path
+
+torch.set_num_threads(2)
+
+B = 512
+VEACH_CAM = dict(cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05))
+
+
+def scene_fields(scene) -> dict:
+    out = {
+        k: np.asarray(getattr(scene, k))
+        for k in ("tri_feats16", "tri_attrs", "entry_rows", "tile_aabbs")
+    }
+    for k in ("n_tris", "n_alias_entries", "has_lights", "has_glass", "has_textures"):
+        out[k] = getattr(scene, k)
+    return out
+
+
+@pytest.fixture(scope="module")
+def veach():
+    js = World.from_path(scene_path("VeachMIS.glb")).to_device()
+    return js, scene_from_arrays(scene_fields(js), "cpu")
+
+
+@pytest.fixture(scope="module")
+def cornell(cornell_scene):
+    return cornell_scene, scene_from_arrays(scene_fields(cornell_scene), "cpu")
+
+
+def close(got, want, what=""):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if want.dtype == bool or np.issubdtype(want.dtype, np.integer):
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=what)
+
+
+def unit(rng, n):
+    v = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def uniform(rng, lo, hi, shape=(B,)):
+    return rng.uniform(lo, hi, shape).astype(np.float32)
+
+
+def both(*arrays):
+    """numpy arrays -> (jax arrays, torch tensors)."""
+    return [jnp.asarray(a) for a in arrays], [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def test_refract_matches_jax():
+    from rustic_tpu.ops import sampling as JSa
+
+    from rustic_tpu_torch.ops import sampling as Sa
+
+    rng = np.random.default_rng(9)
+    i, n = unit(rng, B), unit(rng, B)
+    in_ior, out_ior = uniform(rng, 1.0, 1.8), uniform(rng, 1.0, 1.8)
+    (ji, jn, ja, jb), (ti, tn, ta, tb) = both(i, n, in_ior[:, None], out_ior[:, None])
+    got = Sa.refract(ti, tn, ta, tb)
+    assert 0.02 < float((got == 0).all(dim=-1).float().mean()) < 0.98  # some total reflection
+    close(got, JSa.refract(ji, jn, ja, jb), "refract")
+
+
+def test_procedural_sky_matches_jax():
+    rng = np.random.default_rng(0)
+    ro = rng.normal(0, 5, (B, 3)).astype(np.float32)
+    rd = unit(rng, B)  # half of them point below the horizon
+    sun = np.array(TracingConfig().sun_direction, np.float32)
+    (jro, jrd, jsun), (tro, trd, tsun) = both(ro, rd, sun)
+    want = JS.procedural_sky(jsun, jro, jrd)
+    got = S_.procedural_sky(tsun, tro, trd)
+    assert float(got.max()) > 0.1
+    close(got, want, "sky")
+    with pytest.raises(NotImplementedError, match="HDR"):
+        S_.sky_radiance(None, True, tsun, tro, trd)
+
+
+def materials(rng):
+    albedo = uniform(rng, 0, 1, (B, 3))
+    rough = uniform(rng, 1e-3, 1)
+    metal = np.where(rng.uniform(0, 1, B) < 0.3, 0.0, uniform(rng, 0, 0.999)).astype(np.float32)
+    clamp = np.array([0.1, 0.9], np.float32)
+    (ja, jr, jm, jc), (ta, tr, tm, tc) = both(albedo, rough, metal, clamp)
+    return JB.PBRMaterial(ja, jr, jm, jc), B_.PBRMaterial(ta, tr, tm, tc)
+
+
+def geometry(rng):
+    normal = unit(rng, B)
+    view = unit(rng, B)
+    flip = (np.sum(normal * view, axis=1) < 0) & (rng.uniform(0, 1, B) < 0.8)
+    view[flip] *= -1.0  # mostly in front of the surface
+    light = unit(rng, B)
+    draws = [uniform(rng, 0, 1) for _ in range(3)]
+    return both(normal, view, light, *draws)
+
+
+def test_pbr_sample_matches_jax():
+    rng = np.random.default_rng(1)
+    jm, tm = materials(rng)
+    (jn, jv, _, j1, j2, j3), (tn, tv, _, t1, t2, t3) = geometry(rng)
+    want = JB.pbr_sample(jm, jv, jn, j1, j2, j3)
+    got = B_.pbr_sample(tm, tv, tn, t1, t2, t3)
+    assert 0.1 < float((got.lobe == B_.LOBE_SPECULAR).float().mean()) < 0.9
+    for name in ("lobe", "pdf", "spectrum", "direction"):
+        close(getattr(got, name), getattr(want, name), name)
+
+
+@pytest.mark.parametrize("specular", [False, True])
+def test_pbr_evaluate_and_pdf_match_jax(specular):
+    rng = np.random.default_rng(2)
+    jm, tm = materials(rng)
+    (jn, jv, jl, *_), (tn, tv, tl, *_) = geometry(rng)
+    close(
+        B_.pbr_evaluate_lobe(tm, tv, tn, tl, lobe_is_specular=specular),
+        JB.pbr_evaluate_lobe(jm, jv, jn, jl, lobe_is_specular=specular), "value",
+    )
+    close(
+        B_.pbr_pdf_lobe(tm, tv, tn, tl, lobe_is_specular=specular),
+        JB.pbr_pdf_lobe(jm, jv, jn, jl, lobe_is_specular=specular), "pdf",
+    )
+
+
+def test_glass_sample_matches_jax():
+    rng = np.random.default_rng(3)
+    albedo = uniform(rng, 0.5, 1, (B, 3))
+    ior = uniform(rng, 1.2, 1.8)
+    rough = uniform(rng, 1e-3, 0.5)
+    (ja, ji, jr), (ta, ti, tr) = both(albedo, ior, rough)
+    (jn, jv, _, j1, j2, j3), (tn, tv, _, t1, t2, t3) = geometry(rng)
+    want = JB.glass_sample(ja, ji, jr, jv, jn, j1, j2, j3)
+    got = B_.glass_sample(ta, ti, tr, tv, tn, t1, t2, t3)
+    assert 0.02 < float((got.lobe == B_.LOBE_SPECULAR).float().mean()) < 0.98
+    for name in ("lobe", "pdf", "spectrum", "direction"):
+        close(getattr(got, name), getattr(want, name), name)
+
+
+@pytest.mark.parametrize("scene_name", ["veach", "cornell"])  # 2,880 and 2 alias entries
+@pytest.mark.parametrize("mode", [NextEventEstimation.MIS, NextEventEstimation.DIRECT])
+def test_prepare_direct_lighting_matches_jax(request, scene_name, mode):
+    js, ts = request.getfixturevalue(scene_name)
+    rng = np.random.default_rng(4)
+    jm, tm = materials(rng)
+    aabbs = ts.tile_aabbs.numpy()
+    point = rng.uniform(aabbs[:, 0:3].min(0), aabbs[:, 4:7].max(0), (B, 3)).astype(np.float32)
+    throughput = uniform(rng, 0.1, 1.5, (B, 3))
+    normal, rd = unit(rng, B), unit(rng, B)
+    draws = [uniform(rng, 0, 1) for _ in range(4)]
+    (jp, jt, jn, jd, *jr), (tp, tt, tn, td, *tr) = both(point, throughput, normal, rd, *draws)
+    want_dls, want_sh = JN.prepare_direct_lighting(js, JNEE(int(mode)), jm, jt, jp, jn, jd, tuple(jr))
+    got_dls, got_sh = N_.prepare_direct_lighting(ts, mode, tm, tt, tp, tn, td, tuple(tr))
+    assert 0.05 < float(got_sh[3].float().mean())  # some candidates are lit
+    for name in got_dls._fields:
+        close(getattr(got_dls, name), getattr(want_dls, name), name)
+    for k, name in enumerate(("shadow_ro", "shadow_rd", "shadow_maxt", "geom_ok")):
+        close(got_sh[k], want_sh[k], name)
+
+
+def test_resolve_entry_branches_agree(cornell, veach):
+    """The select-sum (<= 16 entries) and gather branches resolve the
+    same fields, and each matches JAX."""
+    for js, ts in (cornell, veach):
+        rng = np.random.default_rng(5)
+        n = ts.n_alias_entries
+        entry = rng.integers(0, n, B).astype(np.int32)
+        r2 = uniform(rng, 0, 1)
+        (je, jr), (te, tr) = both(entry, r2)
+        want = JN.resolve_entry_fields(js, je, jr)
+        got = N_.resolve_entry_fields(ts, te, tr)
+        gathered = N_.resolve_entry(ts.entry_rows[te.long()], tr)
+        for k in want:
+            close(got[k], want[k], k)
+            assert torch.equal(got[k], gathered[k]), k
+
+
+def test_classify_flash_hit2_matches_jax(veach):
+    """Both branches: one candidate (the port's "f32" plan) and a top-2 pair."""
+    js, ts = veach
+    rng = np.random.default_rng(6)
+    n_t = ts.n_tris
+    ro = rng.uniform(-3, 3, (B, 3)).astype(np.float32)
+    attrs_full = np.asarray(js.tri_attrs)
+    i1 = rng.integers(0, n_t, B).astype(np.int32)
+    i2 = rng.integers(0, n_t, B).astype(np.int32)
+    # aim most rays at a point inside triangle i1, the rest anywhere
+    w = rng.dirichlet(np.ones(3), B).astype(np.float32)
+    target = np.einsum("bk,bkd->bd", w, attrs_full[i1, 0:9].reshape(B, 3, 3))
+    rd = np.where(rng.uniform(0, 1, (B, 1)) < 0.6, target - ro, unit(rng, B))
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    t1 = np.where(rng.uniform(0, 1, B) < 0.9, 1.0, FI.BIG).astype(np.float32)
+    t2 = np.where(rng.uniform(0, 1, B) < 0.5, 2.0, FI.BIG).astype(np.float32)
+    (jro, jrd, ji1, ji2, jt1, jt2), (tro, trd, ti1, ti2, tt1, tt2) = both(ro, rd, i1, i2, t1, t2)
+    ja1, ja2 = JI.gather_attr_rows(js, ji1), JI.gather_attr_rows(js, ji2)
+    ta1, ta2 = I_.gather_attr_rows(ts, ti1), I_.gather_attr_rows(ts, ti2)
+    for top2 in (False, True):
+        if top2:
+            want, wa = JI.classify_flash_hit2(jt1, ji1, ja1, jt2, ji2, ja2, jro, jrd)
+            got, ga = I_.classify_flash_hit2(tt1, ti1, ta1, tt2, ti2, ta2, tro, trd)
+        else:
+            want, wa = JI.classify_flash_hit2(jt1, ji1, ja1, None, None, None, jro, jrd)
+            got, ga = I_.classify_flash_hit2(tt1, ti1, ta1, None, None, None, tro, trd)
+        assert 0.2 < float(got.hit.float().mean()) < 0.95
+        for name in got._fields:
+            close(getattr(got, name), getattr(want, name), name)
+        close(ga[:, 0:18], np.asarray(wa)[:, 0:18], "attr rows")  # positions, normals
+
+
+def bounce_inputs(ts, bounce: int, seed: int):
+    """One bounce's inputs on VeachMIS: camera rays, their exact hits
+    from the port's multi-tile scan, and a random path state (at bounce
+    0 every lane alive with nothing carried)."""
+    rng = np.random.default_rng(seed)
+    cfg = TracingConfig(width=64, height=64, **VEACH_CAM)
+    px = torch.from_numpy(rng.integers(0, 64, B).astype(np.int32))
+    py = torch.from_numpy(rng.integers(0, 64, B).astype(np.int32))
+    off = torch.from_numpy(rng.integers(0, 2**32, B, dtype=np.uint32).view(np.int32))
+    _, feats, sidx = stage_init(cfg.static_part(), cfg.dynamic_part("cpu"), px, py, 0, off, 1)
+    lists, counts = FI.block_tile_lists(ts.tile_aabbs, FI.BT_MULTI, (False,), feats)
+    t, idx = FI.nearest_multi(feats, ts.tri_feats16, lists, counts)
+    ro, rd = feats[6:9].T.contiguous(), feats[0:3].T.contiguous()
+    res = I_.classify_flash_hit(t, idx, I_.gather_attr_rows(ts, idx), ro, rd)
+    first = bounce == 0
+    alive = np.ones(B, bool) if first else rng.uniform(0, 1, B) < 0.8
+    state = dict(
+        ro=ro.numpy(), rd=rd.numpy(),
+        throughput=np.ones((B, 3), np.float32) if first else uniform(rng, 0.1, 1.5, (B, 3)),
+        radiance=np.zeros((B, 3), np.float32) if first else uniform(rng, 0, 1, (B, 3)),
+        alive=alive,
+        missed=np.zeros(B, bool) if first else ~alive & (rng.uniform(0, 1, B) < 0.5),
+        last_lobe_diffuse=np.zeros(B, bool) if first else rng.uniform(0, 1, B) < 0.5,
+    )
+    # light hits whose carried triangle is the hit one exercise the MIS side
+    light_tri = np.where(rng.uniform(0, 1, B) < 0.5, idx.numpy(), 0).astype(np.int32)
+    mis = dict(
+        vec=uniform(rng, 0, 2, (B, 3)), area_cos=uniform(rng, -0.5, 2),
+        pdf=uniform(rng, 0.1, 2), tri=light_tri,
+    )
+    if first:
+        mis = {k: np.zeros_like(v) for k, v in mis.items()}
+    draws = T_.bounce_draws(bounce, sidx, off).numpy()
+    return state, mis, {f: getattr(res, f).numpy() for f in res._fields}, idx.numpy(), draws
+
+
+@pytest.mark.parametrize("mode", list(NextEventEstimation))
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bounce_pre_matches_jax(veach, mode, bounce):
+    js, ts = veach
+    state, mis, res, idx, draws = bounce_inputs(ts, bounce, seed=7 + bounce)
+    assert 0.3 < res["hit"].mean() < 0.99  # hits and misses
+    jcfg = JTracingConfig(width=64, height=64, nee=JNEE(int(mode)), **VEACH_CAM)
+    tcfg = TracingConfig(width=64, height=64, nee=mode, **VEACH_CAM)
+    as_j = lambda d: {k: jnp.asarray(v) for k, v in d.items()}  # noqa: E731
+    as_t = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in d.items()}  # noqa: E731
+
+    jst = JT.TraceState(**as_j(state), mis=JN.MISCarry(**as_j(mis)))
+    jres = JI.TraceResult(**as_j(res))
+    jpre = jax.jit(
+        lambda st, r, d, a: JT.bounce_pre(
+            js, jcfg.static_part(), jcfg.dynamic_part(), bounce, st, r, d, attrs=a
+        )
+    )
+    want_st, want_nee = jpre(jst, jres, jnp.asarray(draws), JI.gather_attr_rows(js, jnp.asarray(idx)))
+
+    tst = T_.TraceState(**as_t(state), mis=N_.MISCarry(**as_t(mis)))
+    got_st, got_nee = T_.bounce_pre(
+        ts, tcfg.static_part(), tcfg.dynamic_part("cpu"), bounce, tst,
+        I_.TraceResult(**as_t(res)), torch.from_numpy(draws),
+        attrs=I_.gather_attr_rows(ts, torch.from_numpy(idx)),
+    )
+    assert (got_nee is None) == (want_nee is None) == (mode == NextEventEstimation.NONE)
+    for name in ("ro", "rd", "throughput", "radiance", "alive", "missed", "last_lobe_diffuse"):
+        close(getattr(got_st, name), getattr(want_st, name), name)
+    for name in got_st.mis._fields:
+        close(getattr(got_st.mis, name), getattr(want_st.mis, name), f"mis.{name}")
+    if got_nee is not None:
+        elig = want_nee.eligible
+        assert 0.05 < float(got_nee.eligible.float().mean())
+        for name in got_nee._fields:
+            g, w = getattr(got_nee, name), np.asarray(getattr(want_nee, name))
+            if name in ("shadow_ro", "shadow_rd"):  # read on eligible lanes only
+                g, w = g[torch.from_numpy(np.array(elig))], w[np.asarray(elig)]
+            close(g, w, name)
+    if bounce == 3:  # the deferred sky was paid to the lanes that missed
+        assert bool(got_st.missed.any())
+    if got_nee is not None:  # fold a visibility result in
+        occ = np.random.default_rng(bounce).uniform(0, 1, B) < 0.5
+        close(
+            T_.bounce_post(got_st, got_nee, torch.from_numpy(occ)).radiance,
+            JT.bounce_post(want_st, want_nee, jnp.asarray(occ)).radiance, "bounce_post",
+        )
