@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the headline render
-(DarkCornell, one triangle tile, kernels K1-K4) and the multi-tile render
-(VeachMIS, six tiles, kernels K5-K7 and the torch shading stages).
+(DarkCornell, one triangle tile, kernels K1-K4) and the multi-tile renders
+(VeachMIS, six tiles): the kernel-shade loop, the default (kernels K5-K7
+and K8), and the reference loops, unsorted and ray-sorted (K5-K7 and the
+torch shading stages).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phases, each of which must pass:
+Phases, each of which must pass (the first that fails ends the run):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; the kernel sources of rustic_tpu_torch/csrc built by nvcc,
      one process per source, all started together.
@@ -35,19 +37,48 @@ Phases, each of which must pass:
      >= 99.99% of rays, t within rtol 1e-5.
   7. multi-time: K5-K7 and their plain versions at 4,194,304 lanes, in
      turns, as phase 3 (the lists are built before the timed launches).
-  8. multi-render: VeachMIS 1024x1024, NEE+MIS, 4 bounces, 64 spp through
-     render_image after a one-group warm-up; Mpaths/s; launch counts K5 1,
-     K6 63, K7 1 and none of K1-K4; a finite film.
-  9. multi-film: VeachMIS 256x144 x 1024 spp against the committed
-     reference film (assets/reference/veachmis_256x144_1024spp.npy):
-     relative energy within 1%, RMSE under the bound of
-     tests/test_reference_films.py.
- 10. multi-cross-device: VeachMIS 64x64x4, card against host CPU, rtol 1e-4,
-     atol 1e-5.
+  8. multi-render: VeachMIS 1024x1024, NEE+MIS, 4 bounces, 16 spp through
+     the unsorted loop after a one-group warm-up;
+     Mpaths/s; launch counts K5 1, K6 15, K7 1 and none of K1-K4, K8; a
+     finite film.
+  9. sort-check: one VeachMIS fold group traced through the ray-sorted
+     loop: admitted tiles per 256-ray block of the sorted bounce-1 rays
+     with the bounce-0 shadow rays (K6's lists) and of the sorted bounce-3
+     shadow rays (K7's), and the blocks that are all sentinel; K5 (on the
+     sorted bounce-1 rays), K6 and K7 against their plain versions on these
+     operands as phase 6 checks them, at 4,194,304 lanes and on the last
+     65,613 (where the sentinel blocks, which admit no tile, lie). K5 on
+     sorted rays is off every path (each loop runs K5 once a render, on
+     the unsorted bounce-0 camera rays of phases 6-7), a check only.
+ 10. shade-check: the same group traced through the kernel-shade loop
+     (the main path); K8 against its plain version on all 4,194,304 lanes
+     of every bounce, bit for bit (NaN equal to NaN), and K8 and its plain
+     version timed on bounce 1 as phase 3; the admitted tiles of its
+     sorted operands, and K6 and K7 on them checked as phase 6 and timed
+     as phase 7.
+ 11. sorted-renders: VeachMIS 1024x1024, NEE+MIS, 64 spp through the
+     kernel-shade loop (the default) and the ray-sorted loop, each after
+     a one-group warm-up; Mpaths/s; launch counts K5 1, K6 63, K7 1 and,
+     for the kernel-shade loop, K8 64; none of K1-K4 (nor K8 on the
+     ray-sorted loop).
+ 12. multi-film: VeachMIS 256x144 x 1024 spp through each of the three
+     loops against the committed reference film
+     (assets/reference/veachmis_256x144_1024spp.npy): relative energy
+     within 1%, RMSE under the bound of tests/test_reference_films.py.
+ 13. multi-cross-device: VeachMIS 64x64x4 through each loop, and
+     FurnaceTest 64x64x4 (5,120 alias entries) through the kernel-shade
+     loop, card against host CPU, rtol 1e-4, atol 1e-5.
+
+Each multi-tile loop is named by RenderSettings.multitile_loop.
 
 The last two lines of standard output are a JSON object describing each
-kernel and then {"ok": true, "device": {...}}; neither is printed when a
-phase fails or no CUDA device exists, and the exit code is then 1.
+kernel (its time, plain version's time, launches on its main path's
+render, largest error against its plain version, all on the main path's
+operands, and the least time the card could take for the same work:
+bytes over 3.35 TB/s or FP32 operations over 67 TFLOP/s, whichever is
+larger) and then
+{"ok": true, "device": {...}}; neither is printed when a phase fails or
+no CUDA device exists, and the exit code is then 1.
 """
 
 from __future__ import annotations
@@ -73,10 +104,22 @@ VEACH = "assets/scenes/VeachMIS.glb"
 VEACH_CAM = dict(cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05))
 MT_SIZE = 1024
 MT_SPP = 64
+MT_UNSORTED_SPP = 16  # the unsorted loop's render, cut to keep the run short
 MT_LANES = MT_SIZE * MT_SIZE * FOLD  # 4,194,304
 MT_REF = "assets/reference/veachmis_256x144_1024spp.npy"
 MT_REF_SPP = 1024
 MT_REF_RMSE_TPU = 1.55e-4  # QUALITY_r5.json, the TPU build at 256x144x1024 spp
+FURNACE = "assets/scenes/FurnaceTest.glb"
+
+# published peaks of one H100 SXM (NVIDIA H100 datasheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# FP32 operations of one (ray, triangle) pair test (csrc/flash_common.cuh
+# pair_test): 4 multiplies and 36 FMAs (2 each) for the four numerators,
+# one division, three multiplies and the u + v add
+FLOPS_PER_PAIR = 4 + 36 * 2 + 1 + 3 + 1
+# the used rows of a [16, B] ray table: rd, ro x rd, ro, 1 (+ max_t)
+RAY_ROWS, SHADOW_ROWS = 10, 11
 
 KERNELS = {
     "K1": dict(
@@ -107,9 +150,44 @@ KERNELS = {
         name="occlude_multi", source="rustic_tpu_torch/csrc/flash_multi.cu",
         replaces="rustic_tpu/ops/flash_intersect.py:1313",
     ),
+    "K8": dict(
+        name="shade_bounce_wide", source="rustic_tpu_torch/csrc/shade.cu",
+        replaces="rustic_tpu/ops/shade_kernel.py:683",
+    ),
 }
 SINGLE_TILE = ("K1", "K2", "K3", "K4")
 MULTI_TILE = ("K5", "K6", "K7")
+
+
+def bound(n_bytes, flops):
+    """(least ms the card could take, what bounds it)."""
+    ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def scan_bound(lanes_by_set, pairs, n_out_bytes, table_bytes):
+    """Bound of a scan: each ray set's used rows read once, the triangle
+    table read once, its outputs written once; FLOPS_PER_PAIR per pair
+    the ray sets need (for the multi-tile scans, the pairs their tile
+    lists admit)."""
+    n_bytes = sum(lanes * rows * 4 for lanes, rows in lanes_by_set) + table_bytes + n_out_bytes
+    return bound(n_bytes, pairs * FLOPS_PER_PAIR)
+
+
+def shade_bound(cfg, st, nf_out, sf_out, occ, has_glass, n_alias):
+    """Bound of K4/K8: each row the kernel reads, read once
+    (shade_kernel.rows_moved), the alias entries it may pick, and each
+    output row written once; the few hundred flops a lane are far under
+    the byte time."""
+    from rustic_tpu_torch.config import NextEventEstimation
+    from rustic_tpu_torch.ops import shade_kernel as SK
+
+    rows = SK.rows_moved(
+        occ is not None, cfg.nee == NextEventEstimation.MIS, has_glass,
+        0 if nf_out is None else nf_out.shape[0], 0 if sf_out is None else sf_out.shape[0],
+    )
+    return bound(rows * 4 * st.shape[1] + n_alias * 48 * 4, 0)
 
 
 def log(*a):
@@ -122,24 +200,50 @@ class Smoke:
 
         self.torch = torch
         self.dev = torch.device("cuda", 0)
-        self.failures = []
-        self.results = {k: dict(route="cuda", **v) for k, v in KERNELS.items()}
+        # no single PyTorch call computes any of these kernels' functions
+        self.results = {
+            k: dict(route="cuda", **v, library_ms=None) for k, v in KERNELS.items()
+        }
 
     # ---- helpers ---------------------------------------------------------------
 
     def phase(self, name, fn):
+        """Run one phase; a failure ends the run (run() returns 1)."""
         log(f"== {name}")
         t0 = time.time()
         try:
             fn()
-        except Exception:  # a failed phase is recorded; later phases still run
+        except Exception:
             traceback.print_exc(file=sys.stdout)
-            self.failures.append(name)
-            log(f"== {name}: FAILED")
+            log(f"== {name}: FAILED after {time.time() - t0:.1f} s")
+            return False
         log(f"== {name}: {time.time() - t0:.1f} s")
+        return True
 
     def fail(self, msg):
         raise AssertionError(msg)
+
+    def set_bound(self, key, b, report=True):
+        if report:
+            self.results[key]["bound_ms"], self.results[key]["bound_by"] = b
+        log(f"{key} bound: {b[0]:.4f} ms ({b[1]})")
+
+    def time_pair(self, key, kern, plain, lanes, reps=10, report=True):
+        """Median CUDA-event times of `kern` and `plain`, taken in turns,
+        into the kernels line if `report`."""
+        import statistics
+
+        kern(), plain()  # warm
+        self.torch.cuda.synchronize()
+        tk, tp = [], []
+        for _ in range(reps):  # in turns: kernel, plain
+            tk += self.time_ms(kern, reps=1)
+            tp += self.time_ms(plain, reps=1)
+        if report:
+            self.results[key]["ms"] = statistics.median(tk)
+            self.results[key]["plain_ms"] = statistics.median(tp)
+        log(f"{key} at {lanes} lanes: kernel {statistics.median(tk):.3f} ms "
+            f"(min {min(tk):.3f}), plain {statistics.median(tp):.3f} ms (min {min(tp):.3f})")
 
     def time_ms(self, fn, reps=10):
         """Per-launch times (ms) of `fn` by CUDA events."""
@@ -366,19 +470,18 @@ class Smoke:
             "K4": (lambda: SK.shade_bounce(*shade_args, **kw),
                    lambda: SK.shade_bounce_plain(*shade_args, **kw)),
         }
-        import statistics
-
         for key, (kern, plain) in cases.items():
-            kern(), plain()  # warm
-            self.torch.cuda.synchronize()
-            tk, tp = [], []
-            for _ in range(10):  # in turns: kernel, plain
-                tk += self.time_ms(kern, reps=1)
-                tp += self.time_ms(plain, reps=1)
-            self.results[key]["ms"] = statistics.median(tk)
-            self.results[key]["plain_ms"] = statistics.median(tp)
-            log(f"{key} at {MAIN_LANES} lanes: kernel {statistics.median(tk):.3f} ms "
-                f"(min {min(tk):.3f}), plain {statistics.median(tp):.3f} ms (min {min(tp):.3f})")
+            self.time_pair(key, kern, plain, MAIN_LANES)
+        # bounds at the timed shapes: one tile of n_tris real triangles
+        n, n_tris = MAIN_LANES, self.scene.n_tris
+        table = g16.shape[1] * RAY_ROWS * 4 + attrs.numel() * 4
+        self.set_bound("K1", scan_bound([(n, RAY_ROWS)], n * n_tris, n * (8 + 32 * 4), table))
+        self.set_bound("K2", scan_bound([(n, RAY_ROWS), (n, SHADOW_ROWS)], 2 * n * n_tris,
+                                        n * (12 + 32 * 4), table))
+        self.set_bound("K3", scan_bound([(n, SHADOW_ROWS)], n * n_tris, n * 4, table))
+        st_out, nf, sf = SK.shade_bounce(*shade_args, **kw)
+        self.set_bound("K4", shade_bound(cfg, b1["st"], nf, sf, b1["occ"],
+                                         self.scene.has_glass, self.n_alias))
         self.bounces = None  # free the traced group
         self.torch.cuda.empty_cache()
 
@@ -420,7 +523,7 @@ class Smoke:
         }
         for key in SINGLE_TILE:
             self.results[key]["launches"] = counts[KERNELS[key]["name"]]
-        expect |= {KERNELS[k]["name"]: 0 for k in MULTI_TILE}
+        expect |= {KERNELS[k]["name"]: 0 for k in MULTI_TILE + ("K8",)}
         if counts != expect:
             self.fail(f"launch counts {counts} != expected {expect}")
         mean = float(film.mean())
@@ -494,53 +597,92 @@ class Smoke:
         hit = float((self.mt_bounces[0]["t"] < FI.BIG).float().mean())
         log(f"VeachMIS group traced: {MT_LANES} lanes, bounce-0 hit rate {hit:.4f}")
 
-    def _mt_cases(self, n):
-        """(key, kernel call, plain call) of K5-K7 on the first n lanes,
-        with their admitted-tile lists built once for both."""
+    def _mt_cases(self, bounces, lanes: slice, k5_bounce: int = 0):
+        """(tile lists, ray rows, kernel call, plain call) of K5-K7 on
+        `lanes` of a traced group: K5 on the rays of `k5_bounce`, K6 on
+        bounce-1 rays with the bounce-0 shadow rays, K7 on the bounce-3
+        shadow rays; each with its admitted-tile lists, built once for
+        both calls."""
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        g16, aabbs = self.mt_scene.tri_feats16, self.mt_scene.tile_aabbs
+
+        def cut(x):
+            return x[:, lanes].contiguous()
+
+        f5 = cut(bounces[k5_bounce]["feats"])
+        f1, s1 = cut(bounces[1]["feats"]), cut(bounces[1]["pending"])
+        s3 = cut(bounces[-1]["shadow_out"])
+        l5 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), f5)
+        l1 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), f1, s1)
+        l3 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (True,), s3)
+        return {
+            "K5": (l5, (f5,), lambda: FI.nearest_multi(f5, g16, *l5),
+                   lambda: FI.nearest_multi_plain(f5, g16, *l5)),
+            "K6": (l1, (f1, s1), lambda: FI.nearest_shadow_multi(f1, s1, g16, *l1),
+                   lambda: FI.nearest_shadow_multi_plain(f1, s1, g16, *l1)),
+            "K7": (l3, (s3,), lambda: FI.occlude_multi(s3, g16, *l3),
+                   lambda: FI.occlude_multi_plain(s3, g16, *l3)),
+        }
+
+    def _mt_compare(self, cases, n):
+        """K5-K7 against their plain versions -> {key: max |dt| or 0}."""
+        admitted = {k: float(c[0][1].float().mean()) for k, c in cases.items()}
+        (t_k, i_k), (t_p, i_p) = (f() for f in cases["K5"][2:])
+        frac, e5, _ = self._cmp_winner("K5", t_k, i_k, t_p, i_p)
+        log(f"K5 n={n}: idx agree {frac:.6f}, max |dt| {e5:.3g}, "
+            f"admitted tiles per block {admitted['K5']:.3f} of 6")
+        (t_k, i_k, o_k), (t_p, i_p, o_p) = (f() for f in cases["K6"][2:])
+        frac, e6, _ = self._cmp_winner("K6", t_k, i_k, t_p, i_p)
+        occ_agree, _ = self._cmp_occ("K6", o_k, o_p)
+        log(f"K6 n={n}: idx agree {frac:.6f}, occ agree {occ_agree:.6f}, "
+            f"occluded {float(o_k.float().mean()):.4f}, max |dt| {e6:.3g}, "
+            f"admitted tiles per block {admitted['K6']:.3f}")
+        del t_k, i_k, o_k, t_p, i_p, o_p
+        o_k, o_p = (f() for f in cases["K7"][2:])
+        occ_agree, e7 = self._cmp_occ("K7", o_k, o_p)
+        log(f"K7 n={n}: occ agree {occ_agree:.6f}, occluded {float(o_k.float().mean()):.4f}, "
+            f"admitted tiles per block {admitted['K7']:.3f}")
+        return {"K5": e5, "K6": e6, "K7": e7}
+
+    def _mt_time(self, cases, lanes, report):
+        """Time the kernels of `cases` and their plain versions and bound
+        each by the pairs its lists admit (each block's rays x the real
+        triangles of each admitted tile; K7's early exit is not credited);
+        the kernels line takes the numbers of the keys in `report`."""
+        import torch
+
         from rustic_tpu_torch.ops import flash_intersect as FI
 
         scene = self.mt_scene
-        g16, aabbs = scene.tri_feats16, scene.tile_aabbs
-        b0, b1, b3 = self.mt_bounces[0], self.mt_bounces[1], self.mt_bounces[-1]
-        f0 = b0["feats"][:, :n].contiguous()
-        f1 = b1["feats"][:, :n].contiguous()
-        s1 = b1["pending"][:, :n].contiguous()
-        s3 = b3["shadow_out"][:, :n].contiguous()
-        l0 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), f0)
-        l1 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), f1, s1)
-        l3 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (True,), s3)
-        admitted = {k: float(l[1].float().mean()) for k, l in (("K5", l0), ("K6", l1), ("K7", l3))}
-        return admitted, {
-            "K5": (lambda: FI.nearest_multi(f0, g16, *l0),
-                   lambda: FI.nearest_multi_plain(f0, g16, *l0)),
-            "K6": (lambda: FI.nearest_shadow_multi(f1, s1, g16, *l1),
-                   lambda: FI.nearest_shadow_multi_plain(f1, s1, g16, *l1)),
-            "K7": (lambda: FI.occlude_multi(s3, g16, *l3),
-                   lambda: FI.occlude_multi_plain(s3, g16, *l3)),
-        }
+        g16 = scene.tri_feats16
+        _, tt, nt = FI.geometry(g16)
+        tile_tris = torch.clamp(
+            scene.n_tris - torch.arange(nt, device=self.dev) * tt, 0, tt).float()
+        table = g16.shape[1] * RAY_ROWS * 4
+        for key, (lists, rays, kern, plain) in cases.items():
+            self.time_pair(key, kern, plain, lanes, report=key in report)
+            b = rays[0].shape[1]
+            nb = lists[0].shape[0]
+            per_block = torch.full((nb,), float(FI.BT_MULTI), device=self.dev)
+            per_block[-1] = b - FI.BT_MULTI * (nb - 1)
+            pairs = 0.0
+            for ray_set in range(len(rays)):
+                admit = FI._admit_table(*lists, nt, ray_set).float()
+                pairs += float(per_block @ (admit @ tile_tris))
+            rows = {"K5": [RAY_ROWS], "K6": [RAY_ROWS, SHADOW_ROWS], "K7": [SHADOW_ROWS]}[key]
+            out = {"K5": 8, "K6": 12, "K7": 4}[key] * b
+            lists_bytes = lists[0].numel() * 4 + lists[1].numel() * 4
+            self.set_bound(key, scan_bound([(b, r) for r in rows], pairs, out, table + lists_bytes),
+                           report=key in report)
 
     def mt_check(self):
         self.mt_inputs()
         for n in (CHECK_LANES, CHECK_LANES + RAGGED, MT_LANES):
-            admitted, cases = self._mt_cases(n)
-            (t_k, i_k), (t_p, i_p) = (f() for f in cases["K5"])
-            frac, e5, _ = self._cmp_winner("K5", t_k, i_k, t_p, i_p)
-            log(f"K5 n={n}: idx agree {frac:.6f}, max |dt| {e5:.3g}, "
-                f"admitted tiles per block {admitted['K5']:.3f} of 6")
-            (t_k, i_k, o_k), (t_p, i_p, o_p) = (f() for f in cases["K6"])
-            frac, e6, _ = self._cmp_winner("K6", t_k, i_k, t_p, i_p)
-            occ_agree, _ = self._cmp_occ("K6", o_k, o_p)
-            log(f"K6 n={n}: idx agree {frac:.6f}, occ agree {occ_agree:.6f}, "
-                f"occluded {float(o_k.float().mean()):.4f}, max |dt| {e6:.3g}, "
-                f"admitted tiles per block {admitted['K6']:.3f}")
-            del t_k, i_k, o_k, t_p, i_p, o_p
-            o_k, o_p = (f() for f in cases["K7"])
-            occ_agree, e7 = self._cmp_occ("K7", o_k, o_p)
-            log(f"K7 n={n}: occ agree {occ_agree:.6f}, occluded {float(o_k.float().mean()):.4f}, "
-                f"admitted tiles per block {admitted['K7']:.3f}")
-        # the kernels line reports the comparison at the main path's shape
-        for k, e in (("K5", e5), ("K6", e6), ("K7", e7)):
-            self.results[k]["max_abs_err"] = e
+            errs = self._mt_compare(self._mt_cases(self.mt_bounces, slice(0, n)), n)
+        # K5's operands are the unsorted camera rays on every loop; K6 and
+        # K7 are reported on the main path's sorted operands (shade-check)
+        self.results["K5"]["max_abs_err"] = errs["K5"]
 
     def mt_timing(self):
         import statistics
@@ -554,22 +696,14 @@ class Smoke:
         )
         log(f"block_tile_lists at {MT_LANES} lanes (one ray set): "
             f"{statistics.median(lists_ms):.3f} ms")
-        _, cases = self._mt_cases(MT_LANES)
-        for key, (kern, plain) in cases.items():
-            kern(), plain()  # warm
-            self.torch.cuda.synchronize()
-            tk, tp = [], []
-            for _ in range(10):  # in turns: kernel, plain
-                tk += self.time_ms(kern, reps=1)
-                tp += self.time_ms(plain, reps=1)
-            self.results[key]["ms"] = statistics.median(tk)
-            self.results[key]["plain_ms"] = statistics.median(tp)
-            log(f"{key} at {MT_LANES} lanes: kernel {statistics.median(tk):.3f} ms "
-                f"(min {min(tk):.3f}), plain {statistics.median(tp):.3f} ms (min {min(tp):.3f})")
+        self._mt_time(self._mt_cases(self.mt_bounces, slice(None)), MT_LANES, ("K5",))
         self.mt_bounces = None  # free the traced group
         self.torch.cuda.empty_cache()
 
-    def mt_render(self):
+    def _render_mt(self, loop, spp, expect):
+        """Render VeachMIS MT_SIZE^2 x spp through the multi-tile `loop`
+        after a one-group warm-up; check the launch counts against
+        `expect` (the others 0) -> the counts."""
         import numpy as np
         import torch
 
@@ -579,101 +713,281 @@ class Smoke:
         from rustic_tpu_torch.runtime.render import render_image
 
         t0 = time.time()
-        render_image(self.mt_scene, self.mt_config, RenderSettings(samples=FOLD), device=self.dev)
-        log(f"warm-up render ({FOLD} spp): {time.time() - t0:.2f} s")
-
+        render_image(self.mt_scene, self.mt_config,
+                     RenderSettings(samples=FOLD, multitile_loop=loop), device=self.dev)
+        log(f"{loop} warm-up render ({FOLD} spp): {time.time() - t0:.2f} s")
         FI.reset_launch_counts()
         SK.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.time()
-        film = render_image(
-            self.mt_scene, self.mt_config, RenderSettings(samples=MT_SPP), device=self.dev
-        )
+        film = render_image(self.mt_scene, self.mt_config,
+                            RenderSettings(samples=spp, multitile_loop=loop), device=self.dev)
         render_s = time.time() - t0
         counts = {**FI.LAUNCHES, **SK.LAUNCHES}
-        mpaths = MT_SIZE * MT_SIZE * MT_SPP / render_s / 1e6
-        log(f"render VeachMIS {MT_SIZE}x{MT_SIZE}x{MT_SPP} spp NEE+MIS: {render_s:.3f} s, "
-            f"{mpaths:.2f} Mpaths/s ({self.card})")
+        mpaths = MT_SIZE * MT_SIZE * spp / render_s / 1e6
+        log(f"render VeachMIS {MT_SIZE}x{MT_SIZE}x{spp} spp NEE+MIS, {loop} loop: "
+            f"{render_s:.3f} s, {mpaths:.2f} Mpaths/s ({self.card})")
         log(f"launch counts: {counts}")
-        groups = MT_SPP // FOLD
-        expect = dict.fromkeys(counts, 0) | {
-            "nearest_multi": 1,
-            "nearest_shadow_multi": self.mt_config.max_bounces * groups - 1,
-            "occlude_multi": 1,
-        }
-        for key in MULTI_TILE:
-            self.results[key]["launches"] = counts[KERNELS[key]["name"]]
+        expect = dict.fromkeys(counts, 0) | expect
         if counts != expect:
             self.fail(f"launch counts {counts} != expected {expect}")
         log(f"film mean {float(film.mean()):.6f}")
         if not np.isfinite(film).all() or film.shape != (MT_SIZE, MT_SIZE, 3):
             self.fail("film is not finite or has the wrong shape")
+        return counts
+
+    def mt_render(self):
+        groups = MT_UNSORTED_SPP // FOLD
+        self._render_mt("unsorted", MT_UNSORTED_SPP, {
+            "nearest_multi": 1,
+            "nearest_shadow_multi": self.mt_config.max_bounces * groups - 1,
+            "occlude_multi": 1,
+        })
+
+    # ---- phases 9-11: the sorted loops -----------------------------------------------
+
+    def _mt_group(self):
+        """One VeachMIS fold group's pixels, offsets and settings."""
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.runtime.render import pixel_offsets
+
+        y, x = np.mgrid[0:MT_SIZE, 0:MT_SIZE]
+        px = torch.from_numpy(x.reshape(-1).astype(np.int32)).to(self.dev).repeat(FOLD)
+        py = torch.from_numpy(y.reshape(-1).astype(np.int32)).to(self.dev).repeat(FOLD)
+        off = pixel_offsets(MT_SIZE, MT_SIZE, use_blue_noise=False).view(np.int32)
+        off = torch.from_numpy(off.copy()).to(self.dev).repeat(FOLD)
+        return (self.mt_config.static_part(), self.mt_config.dynamic_part(self.dev),
+                px, py, off)
+
+    def _sorted_tiles(self, loop, bounces):
+        """Print the admitted tiles per block and the all-sentinel blocks
+        of a sorted group's K6 operands (bounce-1 rays with the bounce-0
+        shadow rays) and K7 operands (bounce-3 shadow rays)."""
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        def sentinel_blocks(*rows):
+            dead = torch.stack([r[6] == P.SENTINEL_RO for r in rows]).all(dim=0)
+            nb = -(-dead.shape[0] // FI.BT_MULTI)
+            dead = torch.nn.functional.pad(dead, (0, nb * FI.BT_MULTI - dead.shape[0]),
+                                           value=True)
+            return int(dead.reshape(nb, FI.BT_MULTI).all(dim=1).sum()), nb
+
+        for what, rows in (("bounce-1 rays with bounce-0 shadow rays",
+                            (bounces[1]["feats"], bounces[1]["pending"])),
+                           ("bounce-3 shadow rays", (bounces[-1]["shadow_out"],))):
+            flags = (False, True) if len(rows) == 2 else (True,)
+            lists = FI.block_tile_lists(self.mt_scene.tile_aabbs, FI.BT_MULTI, flags, *rows)
+            dead, nb = sentinel_blocks(*rows)
+            log(f"{loop} loop, sorted {what}: admitted tiles per 256-ray block "
+                f"{float(lists[1].float().mean()):.3f} of 6 (unsorted: 6.000), "
+                f"{dead} of {nb} blocks all sentinel, "
+                f"{int((lists[1] == 0).sum())} blocks admit no tile")
+
+    def _sorted_compare(self, bounces):
+        """K5 (on the sorted bounce-1 rays), K6 and K7 against their plain
+        versions on a sorted group's last 65,613 lanes, where the sentinel
+        blocks lie, and on all of them -> the errors at all lanes."""
+        tail = slice(MT_LANES - CHECK_LANES - RAGGED, MT_LANES)
+        for lanes, n in ((tail, CHECK_LANES + RAGGED), (slice(None), MT_LANES)):
+            errs = self._mt_compare(self._mt_cases(bounces, lanes, k5_bounce=1), n)
+        return errs
+
+    def sort_check(self):
+        """Trace one group through the ray-sorted loop; hold K5-K7 to
+        their plain versions on its sorted operands."""
+        import torch
+
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        cfg, cam, px, py, off = self._mt_group()
+        scene = self.mt_scene
+        st, feats, sidx = P.rs_init(cfg, cam, px, py, 0, off, FOLD)
+        bounces = []
+        pending = prev_nee = inv = None
+        for b in range(cfg.max_bounces):
+            t, idx, occ = P._scan(feats, pending, scene)
+            rec = dict(feats=feats, pending=pending)
+            st, feats, nee, inv = P.rs_pre(
+                scene, cfg, cam, b, st, prev_nee, occ, t, idx, inv, sidx, off
+            )
+            prev_nee, pending = nee if nee is not None else (None, None)
+            rec["shadow_out"] = pending
+            bounces.append(rec)
+        torch.cuda.synchronize()
+        self._sorted_tiles("ray-sorted", bounces)
+        self._sorted_compare(bounces)
+        del bounces
+        torch.cuda.empty_cache()
+
+    def shade_check(self):
+        """Trace one group through the kernel-shade loop, the main path;
+        hold K8 to its plain version bit for bit on every bounce and time
+        it; check and time K6 and K7 on the group's sorted operands."""
+        import torch
+
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        cfg, cam, px, py, off = self._mt_group()
+        scene = self.mt_scene
+        n_alias = scene.n_alias_entries
+        st, feats_t, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+        pending = inv = feats_in = None
+        worst = 0.0
+        timed = None
+        bounces = []
+        for b in range(cfg.max_bounces):
+            rays = feats_t if feats_in is None else feats_in
+            rec = dict(feats=rays, pending=pending)
+            t, i, occ = P._scan(rays, pending, scene)
+            t, i, occ, attrs_t = P.ks_resolve(scene, feats_t, t, i, occ, inv)
+            args = (cfg, b, params, scene.entry_rows, st, feats_t, t, i, attrs_t, occ, sidx, off)
+            kw = dict(has_glass=scene.has_glass, n_alias=n_alias)
+            outs_k = SK.shade_bounce_wide(*args, **kw)
+            outs_p = SK.shade_bounce_plain(*args, **kw)
+            for name, k_, p_ in zip(("state", "next rays", "shadow rays"), outs_k, outs_p):
+                if (k_ is None) != (p_ is None):
+                    self.fail(f"K8 bounce {b}: {name} present on one side only")
+                if k_ is None:
+                    continue
+                same = (k_ == p_) | (torch.isnan(k_) & torch.isnan(p_))
+                err = float(torch.nan_to_num((k_ - p_).abs(), nan=0.0).max())
+                worst = max(worst, err)
+                if not bool(same.all()):
+                    lanes = (~same).any(dim=0).nonzero()[:5, 0].tolist()
+                    self.fail(f"K8 bounce {b}: {name} differs at {int((~same).sum())} entries "
+                              f"(lanes {lanes}), max |d| {err:.3g}")
+            log(f"K8 bounce {b} n={MT_LANES}: bit-equal to its plain version")
+            if b == 1:
+                timed = (args, kw)
+            st, nf, sf = outs_k
+            del outs_p
+            feats_in, pending, inv = P.ks_sort(scene, st, nf, sf)
+            rec["shadow_out"] = pending
+            bounces.append(rec)
+            if nf is not None:
+                feats_t = nf
+        self.results["K8"]["max_abs_err"] = worst
+        args, kw = timed
+        self.time_pair("K8", lambda: SK.shade_bounce_wide(*args, **kw),
+                       lambda: SK.shade_bounce_plain(*args, **kw), MT_LANES)
+        _, nf, sf = SK.shade_bounce_wide(*args, **kw)
+        self.set_bound("K8", shade_bound(cfg, args[4], nf, sf, args[9], scene.has_glass, n_alias))
+        del timed, args, nf, sf
+
+        self._sorted_tiles("kernel-shade", bounces)
+        errs = self._sorted_compare(bounces)
+        for k in ("K6", "K7"):  # the main path's operands
+            self.results[k]["max_abs_err"] = errs[k]
+        cases = self._mt_cases(bounces, slice(None), k5_bounce=1)
+        self._mt_time({k: cases[k] for k in ("K6", "K7")}, MT_LANES, ("K6", "K7"))
+        del bounces, cases
+        torch.cuda.empty_cache()
+
+    def sorted_renders(self):
+        groups = MT_SPP // FOLD
+        scans = {
+            "nearest_multi": 1,
+            "nearest_shadow_multi": self.mt_config.max_bounces * groups - 1,
+            "occlude_multi": 1,
+        }
+        counts = self._render_mt("kernel-shade", MT_SPP, scans | {
+            "shade_bounce_wide": self.mt_config.max_bounces * groups,
+        })
+        for key in MULTI_TILE + ("K8",):  # the main path's render
+            self.results[key]["launches"] = counts[KERNELS[key]["name"]]
+        self._render_mt("ray-sorted", MT_SPP, scans)
 
     def mt_film(self):
         import numpy as np
 
         from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS
         from rustic_tpu_torch.runtime.render import render_image
 
         ref = np.load(MT_REF)
         h, w = ref.shape[:2]
         config = dataclasses.replace(self.mt_config, width=w, height=h)
-        t0 = time.time()
-        film = render_image(self.mt_scene, config, RenderSettings(samples=MT_REF_SPP),
-                            device=self.dev)
-        wall = time.time() - t0
-        rel_energy = abs(float(film.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-9)
-        rmse = float(np.sqrt(np.mean((film - ref) ** 2)))
         bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
-        log(f"VeachMIS {w}x{h}x{MT_REF_SPP} spp: {wall:.2f} s, film mean {film.mean():.6f} "
-            f"vs reference {ref.mean():.6f} (relative energy {rel_energy:.6f}), "
-            f"RMSE {rmse:.6g} (bound {bound:.4g}; TPU build {MT_REF_RMSE_TPU:g}, QUALITY_r5.json)")
-        if not np.isfinite(film).all():
-            self.fail("film is not finite")
-        if rel_energy > 0.01:
-            self.fail(f"relative energy {rel_energy} is not within 1%")
-        if rmse >= bound:
-            self.fail(f"RMSE {rmse} is not under {bound}")
+        for loop in MULTITILE_LOOPS:
+            t0 = time.time()
+            film = render_image(self.mt_scene, config,
+                                RenderSettings(samples=MT_REF_SPP, multitile_loop=loop),
+                                device=self.dev)
+            wall = time.time() - t0
+            rel_energy = abs(float(film.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-9)
+            rmse = float(np.sqrt(np.mean((film - ref) ** 2)))
+            log(f"VeachMIS {w}x{h}x{MT_REF_SPP} spp, {loop} loop: {wall:.2f} s, film mean "
+                f"{film.mean():.6f} vs reference {ref.mean():.6f} (relative energy "
+                f"{rel_energy:.6f}), RMSE {rmse:.6g} (bound {bound:.4g}; TPU build "
+                f"{MT_REF_RMSE_TPU:g}, QUALITY_r5.json)")
+            if not np.isfinite(film).all():
+                self.fail(f"{loop}: film is not finite")
+            if rel_energy > 0.01:
+                self.fail(f"{loop}: relative energy {rel_energy} is not within 1%")
+            if rmse >= bound:
+                self.fail(f"{loop}: RMSE {rmse} is not under {bound}")
 
-    def mt_cross_device(self):
+    def _cross(self, what, scene, config, loop):
         import numpy as np
 
         from rustic_tpu_torch.config import RenderSettings
         from rustic_tpu_torch.runtime.render import render_image
 
-        config = dataclasses.replace(self.mt_config, width=64, height=64)
-        settings = RenderSettings(samples=4)
-        gpu = render_image(self.mt_scene, config, settings, device=self.dev)
-        cpu = render_image(self.mt_scene.to("cpu"), config, settings, device="cpu")
+        settings = RenderSettings(samples=4, multitile_loop=loop)
+        gpu = render_image(scene, config, settings, device=self.dev)
+        cpu = render_image(scene.to("cpu"), config, settings, device="cpu")
         bad = ~np.isclose(gpu, cpu, rtol=1e-4, atol=1e-5)
-        log(f"VeachMIS 64x64x4 film, card vs host CPU: max |d| {np.abs(gpu - cpu).max():.3g}, "
+        log(f"{what} 64x64x4 film, card vs host CPU: max |d| {np.abs(gpu - cpu).max():.3g}, "
             f"{int(bad.sum())} entries outside rtol 1e-4 / atol 1e-5, mean {gpu.mean():.6f}")
         if bad.any():
             px = np.argwhere(bad.any(axis=-1))[:5].tolist()
-            self.fail(f"card and host films differ at pixels {px}")
+            self.fail(f"{what}: card and host films differ at pixels {px}")
+
+    def mt_cross_device(self):
+        from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
+        from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS
+        from rustic_tpu_torch.scene.world import World
+
+        config = dataclasses.replace(self.mt_config, width=64, height=64)
+        for loop in MULTITILE_LOOPS:
+            self._cross(f"VeachMIS, {loop} loop,", self.mt_scene, config, loop)
+        furnace = World.from_path(FURNACE).to_torch(self.dev)
+        config = TracingConfig(width=64, height=64, nee=NextEventEstimation.MIS)
+        self._cross("FurnaceTest (5,120 alias entries), kernel-shade loop,", furnace, config,
+                    "kernel-shade")
 
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self) -> int:
-        self.phase("device", self.device)
-        if self.failures:
-            return 1
-        self.phase("check", self.check)
-        if "check" not in self.failures:
-            self.phase("time", self.timing)
-            self.phase("render", self.render)
-            self.phase("cross-device", self.cross_device)
-        self.scene = None
-        self.phase("multi-check", self.mt_check)
-        if "multi-check" not in self.failures:
-            self.phase("multi-time", self.mt_timing)
-            self.phase("multi-render", self.mt_render)
-            self.phase("multi-film", self.mt_film)
-            self.phase("multi-cross-device", self.mt_cross_device)
-        if self.failures:
-            log(f"FAILED phases: {self.failures}")
-            return 1
+        phases = [
+            ("device", self.device),
+            ("check", self.check),
+            ("time", self.timing),
+            ("render", self.render),
+            ("cross-device", self.cross_device),
+            ("multi-check", self.mt_check),
+            ("multi-time", self.mt_timing),
+            ("multi-render", self.mt_render),
+            ("sort-check", self.sort_check),
+            ("shade-check", self.shade_check),
+            ("sorted-renders", self.sorted_renders),
+            ("multi-film", self.mt_film),
+            ("multi-cross-device", self.mt_cross_device),
+        ]
+        for name, fn in phases:
+            if not self.phase(name, fn):
+                log(f"FAILED phase: {name}")
+                return 1
+            if name == "cross-device":
+                self.scene = None
         torch = self.torch
+        log(self.card)
         log(json.dumps({"kernels": list(self.results.values())}))
         log(json.dumps({
             "ok": True,

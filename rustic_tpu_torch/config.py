@@ -108,3 +108,6 @@ class RenderSettings:
     # tiles the committed blue-noise rank table.
     use_blue_noise: bool = False
     batch_pixels: int = 1 << 20  # wavefront megabatch size (pixels per chunk)
+    # the loop a multi-tile scene takes (runtime/pipeline.py MULTITILE_LOOPS):
+    # "kernel-shade", or the reference loops "ray-sorted" and "unsorted"
+    multitile_loop: str = "kernel-shade"

@@ -1,7 +1,13 @@
-// One bounce's shading stage (kernel K4) for Hopper, sm_90a.
+// One bounce's shading stage (kernels K4 and K8) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel of rustic_tpu/ops/shade_kernel.py
-// (_build_kernel, called through shade_bounce): rt_shade_bounce.
+// (_build_kernel, called through shade_bounce):
+//   rt_shade_bounce       (K4) <- the kernel with its in-kernel alias pick
+//                                 over a table of at most 16 entries
+//   rt_shade_bounce_wide  (K8) <- its prepicked mode (shade_kernel.py:683,
+//                                 operands :969-971) together with the XLA
+//                                 pick before it (ops/resolve.py
+//                                 picked_light_rows_t), for wider tables
 //
 // What it computes, per lane: fold the previous bounce's shadow result into
 // the radiance, re-test the winner triangle in exact f32 (Moller-Trumbore),
@@ -11,16 +17,22 @@
 // procedural sky to escaped lanes on the last bounce, and write the packed
 // state [19, B], the next ray rows [16, B] and the shadow ray rows [16, B].
 //
-// What bounds it: memory. A lane reads 19 + 16 + 32 + 4 f32/i32 rows and
-// writes 19 + 16 + 16: about 0.5 KB per lane, 1.8 GB per call at the main
-// path's 3,686,400 lanes. The arithmetic (a few hundred flops, the sky march
-// only on escaped lanes of the last bounce) is small beside it.
+// What bounds them: memory. A lane reads 19 + 16 + 32 + 4 f32/i32 rows and
+// writes 19 + 16 + 16: about 0.5 KB per lane, 1.8 GB per call at the
+// single-tile path's 3,686,400 lanes, 2.1 GB at the multi-tile path's
+// 4,194,304. The arithmetic (a few hundred flops, the sky march only on
+// escaped lanes of the last bounce) is small beside it.
 //
 // Design: one thread per lane, a straight per-lane port of the JAX kernel;
 // every row is read and written once, coalesced (lane i of row r at r*B+i).
-// The <= 16 x 48 alias entry table sits in shared memory and the pick reads
-// the chosen row directly (the TPU kernel's select-sum over all rows adds
-// exact zeros, so `0 + x` gives the same value). The TPU's [R,128] lane
+// K4 keeps the <= 16 x 48 alias entry table in shared memory and the pick
+// reads the chosen row directly (the TPU kernel's select-sum over all rows
+// adds exact zeros, so `0 + x` gives the same value). K8 (the template flag
+// WIDE) reads the picked entry's row straight from the global table through
+// the read-only cache: a Mosaic kernel has no per-lane gather, so the TPU
+// picks in XLA and streams an [18, B] buffer of picked fields into the
+// kernel (302 MB at 4,194,304 lanes); here one thread reads its own row
+// (VeachMIS's 2,880 x 192 B table stays in L2). The TPU's [R,128] lane
 // tiling and its bool-through-f32 selects are not carried over.
 //
 // Numerics: the operation order of the plain PyTorch twin
@@ -81,6 +93,16 @@ struct V3 {
 };
 
 __device__ __forceinline__ V3 v3(float a, float b, float c) { return V3{a, b, c}; }
+
+// column c of a picked alias entry row: shared memory (K4) or global (K8)
+template <bool WIDE>
+__device__ __forceinline__ float entry_at(const float* row, int c) {
+  if constexpr (WIDE) {
+    return __ldg(row + c);
+  } else {
+    return row[c];
+  }
+}
 __device__ __forceinline__ float dot(V3 a, V3 b) { return (a.x * b.x + a.y * b.y) + a.z * b.z; }
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
   return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
@@ -326,6 +348,7 @@ __device__ V3 procedural_sky(V3 sun, float intensity, V3 ro, V3 rd) {
   return v3(out[0], out[1], out[2]);
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 shade_kernel(const float* __restrict__ params, const float* __restrict__ entry_rows,
              const float* __restrict__ st, const float* __restrict__ feats,
@@ -336,11 +359,13 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ entry_r
              float* __restrict__ nf_out, float* __restrict__ sf_out,
              int B, int bounce, int min_bounces, int max_bounces, int nee,
              int uses_nee, int has_glass, int n_alias) {
-  __shared__ float s_entry[MAX_ALIAS * ENTRY_WIDTH];
-  if (uses_nee) {
-    for (int e = threadIdx.x; e < n_alias * ENTRY_WIDTH; e += THREADS) s_entry[e] = entry_rows[e];
+  __shared__ float s_entry[WIDE ? 1 : MAX_ALIAS * ENTRY_WIDTH];
+  if constexpr (!WIDE) {
+    if (uses_nee) {
+      for (int e = threadIdx.x; e < n_alias * ENTRY_WIDTH; e += THREADS) s_entry[e] = entry_rows[e];
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= B) return;
 
@@ -464,9 +489,9 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ entry_r
     const float n2 = lds(primes, n_u, dim0 + 4, off);
     // float -> int truncates, as XLA's and torch's conversions do
     const int entry = min(max((int)(n1 * (float)n_alias), 0), n_alias - 1);
-    const float* row = s_entry + entry * ENTRY_WIDTH;
-    const bool take = n2 < row[E_RATIO];
-#define PICK(ca, cb) (0.0f + (take ? row[(ca)] : row[(cb)]))
+    const float* row = (WIDE ? entry_rows : s_entry) + (size_t)entry * ENTRY_WIDTH;
+    const bool take = n2 < entry_at<WIDE>(row, E_RATIO);
+#define PICK(ca, cb) (0.0f + (take ? entry_at<WIDE>(row, (ca)) : entry_at<WIDE>(row, (cb))))
 #define PICK3(sa, sb) v3(PICK((sa), (sb)), PICK((sa) + 1, (sb) + 1), PICK((sa) + 2, (sb) + 2))
     const float l_area = PICK(E_AREA_A, E_AREA_B);
     const float l_pdf = PICK(E_PDF_A, E_PDF_B);
@@ -614,7 +639,23 @@ extern "C" int rt_shade_bounce(const float* params, const float* entry_rows, con
                                int has_glass, int n_alias, int n_entry_rows, void* stream) {
   if (uses_nee && (n_alias > MAX_ALIAS || n_alias > n_entry_rows)) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + THREADS - 1) / THREADS);
-  shade_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  shade_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      params, entry_rows, st, feats, t, idx, attrs, occ, sidx, offsets, primes, st_out,
+      nf_out, sf_out, B, bounce, min_bounces, max_bounces, nee, uses_nee, has_glass, n_alias);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_shade_bounce_wide(const float* params, const float* entry_rows,
+                                    const float* st, const float* feats, const float* t,
+                                    const int* idx, const float* attrs, const int* occ,
+                                    const int* sidx, const int* offsets, const int* primes,
+                                    float* st_out, float* nf_out, float* sf_out, int B,
+                                    int bounce, int min_bounces, int max_bounces, int nee,
+                                    int uses_nee, int has_glass, int n_alias, int n_entry_rows,
+                                    void* stream) {
+  if (uses_nee && (n_alias < 1 || n_alias > n_entry_rows)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + THREADS - 1) / THREADS);
+  shade_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       params, entry_rows, st, feats, t, idx, attrs, occ, sidx, offsets, primes, st_out,
       nf_out, sf_out, B, bounce, min_bounces, max_bounces, nee, uses_nee, has_glass, n_alias);
   return (int)cudaGetLastError();

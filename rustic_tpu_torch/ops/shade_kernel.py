@@ -1,4 +1,4 @@
-"""One bounce's shading stage: kernel K4 and its plain twin.
+"""One bounce's shading stage: kernels K4 and K8 and their plain twin.
 
 Twin of rustic_tpu/ops/shade_kernel.py (`shade_bounce`, the Pallas
 kernel of `_build_kernel`): fold the previous bounce's shadow result,
@@ -7,6 +7,12 @@ sample the BSDF (Lambert/GGX, or the GGX dielectric), pick a light from
 the alias table and build the shadow ray (NEE), update the throughput,
 run russian roulette after min_bounces, add the procedural sky to the
 lanes that escaped on the last bounce, and emit the next ray rows.
+
+K4 holds an alias table of at most 16 entries in shared memory (the
+single-tile path). K8 is the same kernel for wider tables: it reads the
+picked entry row from the global table, which replaces the JAX package's
+prepicked mode (`picked_light_rows_t` in XLA, then the kernel on the
+picked rows). Both share one plain version, which gathers the row.
 
 State crosses bounces as one packed [NST, B] f32 block (SK_* rows);
 rays are the [16, B] feature rows of ops/flash_intersect.py; the winner
@@ -49,7 +55,20 @@ NST = 19
 
 _DIMS_PER_BOUNCE = 8
 _AA_DIMS = 2
-MAX_ALIAS = 16  # alias-table rows the in-kernel pick serves
+MAX_ALIAS = 16  # alias-table rows K4's shared-memory table holds
+
+
+def rows_moved(has_occ: bool, mis: bool, has_glass: bool, n_next: int, n_shadow: int) -> int:
+    """The f32/i32 rows per lane K4 and K8 must move (csrc/shade.cu
+    `shade_kernel`): in, state rows 0-14 (the pending NEE rows too when
+    a shadow result is folded), rd and ro of the rays (rows 0-2, 6-8),
+    t, the winner index (read for MIS only), the slim rows up to the
+    metallic row (transmission and ior too with glass), occ, sidx and
+    offsets; out, the state and the n_next + n_shadow ray rows."""
+    st_in = SK_MIS_TRI + 1 + (NST - SK_PEND_CON.start if has_occ else 0)
+    attrs_in = (W.SLIM_IOR if has_glass else W.SLIM_METAL) + 1
+    rows_in = st_in + 6 + 1 + int(mis) + attrs_in + int(has_occ) + 2
+    return rows_in + NST + n_next + n_shadow
 
 # BSDF constants (reference: kernels/src/bsdf.rs:178-183)
 _DIELECTRIC_IOR = 1.5
@@ -66,11 +85,12 @@ _H_RAY = 8e3
 _H_MIE = 12e2
 _SKY_STEPS = 12
 
-LAUNCHES = {"shade_bounce": 0}
+LAUNCHES = {"shade_bounce": 0, "shade_bounce_wide": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["shade_bounce"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 # ---- vec3 as component tuples of [B] tensors --------------------------------
@@ -435,15 +455,10 @@ def _alias_select(entry_rows, n_alias, n_u32, dim0, offs):
 # ---- the plain version -----------------------------------------------------------
 
 
-def _check_supported(cfg: StaticConfig, n_alias: int) -> None:
+def _check_supported(cfg: StaticConfig) -> None:
     if cfg.has_skybox:
         raise NotImplementedError(
             "HDR skyboxes are not ported yet (ROADMAP.md queue 1 item 7)"
-        )
-    if n_alias > MAX_ALIAS:
-        raise NotImplementedError(
-            f"alias tables over {MAX_ALIAS} entries need the pre-picked shade "
-            "mode, not ported yet (ROADMAP.md queue 2)"
         )
 
 
@@ -453,8 +468,9 @@ def shade_bounce_plain(
 ):
     """One bounce of shading, vectorised over the B lanes -> (st_out
     [NST, B], next feats [16, B] or None on the last bounce, shadow
-    feats [16, B] or None without NEE). Arguments as `shade_bounce`."""
-    _check_supported(cfg, n_alias)
+    feats [16, B] or None without NEE). Arguments as `shade_bounce`;
+    the alias table may have any number of entries."""
+    _check_supported(cfg)
     nee = cfg.nee
     uses_nee = nee.uses_nee and n_alias > 0
     last = bounce == cfg.max_bounces - 1
@@ -663,7 +679,7 @@ def shade_bounce(
     attrs_t, occ, sidx, offsets, has_glass: bool = False, n_alias: int = 0,
 ):
     """K4 (replaces rustic_tpu shade_kernel.shade_bounce): one bounce of
-    shading over B lanes.
+    shading over B lanes, for alias tables of at most MAX_ALIAS entries.
 
     params [1, 8] f32: sun direction and intensity (0:4), specular clamp
     (4:6); entry_rows [L_pad, 48] f32; st [NST, B]; feats_t [16, B];
@@ -671,12 +687,42 @@ def shade_bounce(
     previous bounce's shadow rays) or None; sidx, offsets [B] i32 (u32
     bits); n_alias: the alias entries NEE may pick (0 = no NEE).
     Returns (st_out, next feats or None, shadow feats or None)."""
+    if n_alias > MAX_ALIAS:
+        raise NotImplementedError(
+            f"K4 holds alias tables of at most {MAX_ALIAS} entries; wider tables "
+            "go through K8 (shade_bounce_wide), which the single-tile loop does not "
+            "run yet (ROADMAP.md queue 1 item 7)"
+        )
+    return _run_shade(
+        "rt_shade_bounce", "shade_bounce", cfg, bounce, params, entry_rows, st, feats_t, t,
+        idx, attrs_t, occ, sidx, offsets, has_glass, n_alias,
+    )
+
+
+def shade_bounce_wide(
+    cfg: StaticConfig, bounce: int, params, entry_rows, st, feats_t, t, idx,
+    attrs_t, occ, sidx, offsets, has_glass: bool = False, n_alias: int = 0,
+):
+    """K8 (replaces the prepicked mode of rustic_tpu shade_kernel
+    `_build_kernel`, with `resolve.picked_light_rows_t` folded in): K4
+    for alias tables of any size, the picked entry row read from the
+    global `entry_rows`. Arguments and results as `shade_bounce`."""
+    return _run_shade(
+        "rt_shade_bounce_wide", "shade_bounce_wide", cfg, bounce, params, entry_rows, st,
+        feats_t, t, idx, attrs_t, occ, sidx, offsets, has_glass, n_alias,
+    )
+
+
+def _run_shade(fn, label, cfg, bounce, params, entry_rows, st, feats_t, t, idx, attrs_t, occ,
+               sidx, offsets, has_glass, n_alias):
+    """The plain version for CPU tensors, else launch entry point `fn` of
+    csrc/shade.cu and count it under `label`."""
     if _build.uses_plain(st):
         return shade_bounce_plain(
             cfg, bounce, params, entry_rows, st, feats_t, t, idx, attrs_t, occ,
             sidx, offsets, has_glass=has_glass, n_alias=n_alias,
         )
-    _check_supported(cfg, n_alias)
+    _check_supported(cfg)
     dev = st.device
     b = st.shape[1]
     uses_nee = cfg.nee.uses_nee and n_alias > 0
@@ -701,13 +747,13 @@ def shade_bounce(
     sf = torch.empty((16, b), dtype=torch.float32, device=dev) if uses_nee else None
     if b:
         _build.launch(
-            _build.entry_point("shade", "rt_shade_bounce", 14, 9), "shade_bounce", dev,
+            _build.entry_point("shade", fn, 14, 9), label, dev,
             (params, entry_rows, st, feats_t, t, idx, attrs_t, occ, sidx, offsets,
              _lds_primes(dev), st_out, nf, sf),
             (b, bounce, cfg.min_bounces, cfg.max_bounces, int(cfg.nee), int(uses_nee),
              int(has_glass), n_alias, entry_rows.shape[0]),
         )
-        LAUNCHES["shade_bounce"] += 1
+        LAUNCHES[label] += 1
     return st_out, nf, sf
 
 

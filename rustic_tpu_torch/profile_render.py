@@ -1,21 +1,26 @@
 """Where the time of a render goes on one CUDA device.
 
-    python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis] [--table PATH]
+    python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis]
+        [--driver kernel-shade|ray-sorted|unsorted] [--table PATH]
 
 `darkcornell` (the default, the headline render): DarkCornell 1280x720
 NEE+MIS, 4 bounces, profiled at 32 spp, then timed at 160 spp.
 `veachmis` (the multi-tile render, BASELINE.md config 4 with the spp
 cut): VeachMIS 1024x1024 NEE+MIS with the camera of
 tools/quality_gate.py, profiled at 16 spp, then timed at 64 spp.
+`--driver` names the multi-tile loop (RenderSettings.multitile_loop):
+`kernel-shade` (the default) or the reference loops `ray-sorted` and
+`unsorted`; it does not change the single-tile path.
 
 Renders the scene once as a warm-up, then once under torch.profiler, and
 prints: the wall time of the profiled render, the device time summed over
 its kernels and copies, the device's idle share (1 - device time / wall
 time, one stream so nothing overlaps), and the device time per kernel
-(K1-K7), per copy and for the torch glue (on the multi-tile path the glue
-is the shading stages and the tile lists). Then it times two renders at
-the timed spp without the profiler. `--table` writes the profiler's full
-table to a file.
+(K1-K8), per copy and for the torch glue (on the multi-tile path the glue
+is the tile lists, the sort and unsort gathers, and the shading stages or
+the row resolve), with the glue's twelve largest kernels and the peak
+device memory. `--table` writes the profiler's full table to a file.
+Then it times two renders at the timed spp without the profiler.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import time
 import torch
 
 from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS
 from rustic_tpu_torch.runtime.render import render_image
 from rustic_tpu_torch.scene.world import World
 
@@ -50,7 +56,8 @@ _KERNELS = {
     "scan_kernel<true,false>": "K1 nearest_attrs",
     "scan_kernel<true,true>": "K2 nearest_shadow_attrs",
     "scan_kernel<false,true>": "K3 occlude",
-    "shade_kernel": "K4 shade_bounce",
+    "shade_kernel<false>": "K4 shade_bounce",
+    "shade_kernel<true>": "K8 shade_bounce_wide",
     "multi_kernel<true,false>": "K5 nearest_multi",
     "multi_kernel<true,true>": "K6 nearest_shadow_multi",
     "multi_kernel<false,true>": "K7 occlude_multi",
@@ -77,10 +84,14 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=sorted(CONFIGS), default="darkcornell")
+    ap.add_argument("--driver", choices=MULTITILE_LOOPS, default=MULTITILE_LOOPS[0])
     ap.add_argument("--table", help="write the profiler's key_averages table here")
     args = ap.parse_args(argv)
     path, config, profile_spp, spp = CONFIGS[args.scene]
     size = f"{config.width}x{config.height}"
+
+    def settings(samples):
+        return RenderSettings(samples=samples, multitile_loop=args.driver)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -89,29 +100,38 @@ def main(argv=None) -> int:
     )
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi: n/a")
     scene = World.from_path(path).to_torch(dev)
-    render_image(scene, config, RenderSettings(samples=4), device=dev)  # builds and warms
+    render_image(scene, config, settings(4), device=dev)  # builds and warms
 
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        render_image(scene, config, RenderSettings(samples=profile_spp), device=dev)
+        render_image(scene, config, settings(profile_spp), device=dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     by_cat: dict[str, list] = {}
+    glue = []
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            c = by_cat.setdefault(_category(evt.key), [0.0, 0])
+            cat = _category(evt.key)
+            c = by_cat.setdefault(cat, [0.0, 0])
             c[0] += us
             c[1] += evt.count
+            if cat == "torch glue":
+                glue.append((us, evt.count, evt.key))
     busy_us = sum(v[0] for v in by_cat.values())
     if busy_us == 0:
         raise RuntimeError("the profiler recorded no device time; time with CUDA events")
-    print(f"profiled render {args.scene} {size}x{profile_spp} spp: wall {wall_us / 1e3:.3f} ms, "
+    print(f"profiled render {args.scene} {size}x{profile_spp} spp, {args.driver} loop, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: "
+          f"wall {wall_us / 1e3:.3f} ms, "
           f"device {busy_us / 1e3:.3f} ms, busy {busy_us / wall_us:.4f}, "
           f"idle {1 - busy_us / wall_us:.4f}")
     for cat, (us, n) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
         print(f"  {cat}: {us / 1e3:.3f} ms in {n} launches, "
               f"{us / busy_us:.4f} of device time")
+    for us, n, key in sorted(glue, reverse=True)[:12]:
+        print(f"    glue {us / 1e3:.3f} ms in {n}: {key[:110]}")
     if args.table:
         with open(args.table, "w") as f:
             f.write(prof.key_averages().table(row_limit=200))
@@ -119,9 +139,9 @@ def main(argv=None) -> int:
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        render_image(scene, config, RenderSettings(samples=spp), device=dev)
+        render_image(scene, config, settings(spp), device=dev)
         s = time.perf_counter() - t0
-        print(f"render {args.scene} {size}x{spp} spp: {s:.4f} s, "
+        print(f"render {args.scene} {size}x{spp} spp, {args.driver} loop: {s:.4f} s, "
               f"{config.width * config.height * spp / s / 1e6:.2f} Mpaths/s")
     return 0
 

@@ -1,5 +1,5 @@
 """Staged renderer (twin of rustic_tpu/runtime/pipeline.py
-`render_batch_staged` without path sorting).
+`render_batch_staged`).
 
 Single-tile scenes take the kernel-shade loop. Per group of folded
 samples: init (camera rays, packed state) -> K1 nearest for bounce 0 ->
@@ -7,18 +7,33 @@ K4 shade -> per later bounce: K2 nearest plus the previous bounce's
 shadow rays -> K4 shade -> finish (fold the last shadow result and the
 radiance into the film).
 
-Multi-tile scenes take the stage loop of the JAX package's unsorted
-multi-tile branch: init -> K5 nearest for bounce 0 -> `pre` (the torch
-shading stage, ops/trace.py bounce_pre) -> per later bounce: K6 nearest
-plus the previous bounce's shadow rays -> `pre` -> finish.
+Multi-tile scenes take one of three loops, named by the caller's
+`loop` argument (`MULTITILE_LOOPS`):
 
-In both, the last bounce's shadow rays of a group are held and ride the
-next group's bounce-0 scan (K2 / K6); the last group's are resolved by
-K3 / K7. All work is queued on the tensors' device; nothing waits for it.
+- kernel-shade (the default): the loop of `_stages_ks_mt`. Per bounce a
+  scan, the row resolve of ops/resolve.py and one shade kernel (K8 for
+  alias tables over 16 entries, else K4); the packed state stays in
+  pixel order, while the next and shadow rays are sorted by origin cell
+  (retired lanes as sentinel rays at the back) for K5/K6, whose tile
+  lists then cull.
+- ray-sorted: the stage loop of `_stages_raysorted`, the same sorting
+  around the torch shading stage (`pre`, ops/trace.py bounce_pre).
+- unsorted: init -> K5 -> `pre` -> per later bounce K6 plus the previous
+  bounce's shadow rays -> `pre` -> finish.
+
+The three give the same film; kernel-shade is the fastest on the card.
+The other two are the ports of the JAX package's XLA-shade drivers,
+kept as the references the tests hold the default to.
+
+In every loop the last bounce's shadow rays of a group are held and ride
+the next group's bounce-0 scan (K2 / K6); the last group's are resolved
+by K3 / K7. All work is queued on the tensors' device; nothing waits for
+it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -29,6 +44,8 @@ from rustic_tpu_torch.ops import sampling as s
 from rustic_tpu_torch.ops import shade_kernel as SK
 from rustic_tpu_torch.ops import trace as trace_mod
 from rustic_tpu_torch.ops.intersect import _ray_features16, classify_flash_hit2, gather_attr_rows
+from rustic_tpu_torch.ops.nee import ENTRY_SELECT_MAX
+from rustic_tpu_torch.ops.resolve import resolve_attrs_rowT
 from rustic_tpu_torch.ops.sampling import cross
 from rustic_tpu_torch.ops.skybox import IMAGE_SKY_TODO
 from rustic_tpu_torch.scene.world import SceneTensors
@@ -118,21 +135,28 @@ def stage_init(cfg: StaticConfig, cam: CameraParams, px, py, sample_idx: int, of
     return st._replace(ro=None, rd=None), feats, sidx
 
 
-def stage_pre(scene, cfg: StaticConfig, cam: CameraParams, bounce: int, st, feats,
-              prev_nee, prev_occ, t, idx, sidx, offsets):
-    """One bounce of shading after its scan: fold the previous bounce's
-    shadow result, re-test the winner exactly, then `bounce_pre`.
-    Returns (st, next ray rows, (slim NEE carry, shadow rows) or None);
-    on the last bounce st is just the radiance and no rays are made."""
-    st = st._replace(ro=feats[6:9].T, rd=feats[0:3].T)
+def _shade(scene, cfg: StaticConfig, cam: CameraParams, bounce: int, st,
+           prev_nee, prev_occ, t, idx, sidx, offsets):
+    """Fold the previous bounce's shadow result, re-test the winner
+    exactly, then `bounce_pre` -> (st, NEEPack or None). st carries the
+    rays of this bounce in ro/rd; t, idx and prev_occ are in its order."""
     if prev_nee is not None:
         st = st._replace(radiance=_fold_slim_nee(st.radiance, prev_nee, prev_occ))
     attrs = gather_attr_rows(scene, idx)
     res, attrs = classify_flash_hit2(t, idx, attrs, None, None, None, st.ro, st.rd)
-    st2, nee_pack = trace_mod.bounce_pre(
+    return trace_mod.bounce_pre(
         scene, cfg, cam, bounce, st, res, trace_mod.bounce_draws(bounce, sidx, offsets),
         attrs=attrs,
     )
+
+
+def stage_pre(scene, cfg: StaticConfig, cam: CameraParams, bounce: int, st, feats,
+              prev_nee, prev_occ, t, idx, sidx, offsets):
+    """One bounce of shading after its scan (`_shade`).
+    Returns (st, next ray rows, (slim NEE carry, shadow rows) or None);
+    on the last bounce st is just the radiance and no rays are made."""
+    st = st._replace(ro=feats[6:9].T, rd=feats[0:3].T)
+    st2, nee_pack = _shade(scene, cfg, cam, bounce, st, prev_nee, prev_occ, t, idx, sidx, offsets)
     nee = None
     if nee_pack is not None:
         nee = ((nee_pack.eligible, nee_pack.contribution), _shadow_feats16(nee_pack))
@@ -210,6 +234,283 @@ def _render_batch_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_sa
     return film
 
 
+# ---- ray sorting (twins of `_sort_perm_rays`, `_sentinel_feats`) -------------
+
+SORT_CELLS = 16  # origin cells per axis of the Morton key
+SENTINEL_RO = 1e7  # a sentinel ray starts here, outside every tile AABB
+
+
+def _spread4(v):
+    """4-bit Morton spread: b3 b2 b1 b0 -> bits 9, 6, 3, 0."""
+    return ((v & 8) << 6) | ((v & 4) << 4) | ((v & 2) << 2) | (v & 1)
+
+
+def sort_keys(scene, ro, rd, dead):
+    """The ray-sort key of each lane (int32): retired last (bit 16), then
+    the origin's cell over the scene's tile-AABB bounds (4-bit Morton per
+    axis), then the direction octant. ro, rd: [B, 3]; dead: [B] bool."""
+    aabb = scene.tile_aabbs
+    lo = aabb[:, 0:3].amin(dim=0)
+    hi = aabb[:, 4:7].amax(dim=0)
+    span = torch.clamp(hi - lo, min=1e-6)
+    cell = (ro - lo) / span * float(SORT_CELLS)
+    # XLA's f32 -> s32 conversion saturates (NaN -> 0); clamping first
+    # keeps torch's conversion in range with the same clipped result
+    cell = torch.nan_to_num(cell, nan=0.0).clamp(-1.0, float(SORT_CELLS))
+    q = torch.clamp(cell.to(torch.int32), 0, SORT_CELLS - 1)
+    morton = (_spread4(q[:, 0]) << 2) | (_spread4(q[:, 1]) << 1) | _spread4(q[:, 2])
+    octant = (
+        ((rd[:, 0] > 0).to(torch.int32) << 2)
+        | ((rd[:, 1] > 0).to(torch.int32) << 1)
+        | (rd[:, 2] > 0).to(torch.int32)
+    )
+    return (dead.to(torch.int32) << 16) | (morton << 3) | octant
+
+
+def sort_perm_rays(scene, ro, rd, dead):
+    """The lane order the scans see (`_sort_perm_rays`): a stable sort of
+    `sort_keys`, as jnp.argsort is stable. sorted[k] = lane perm[k]."""
+    return torch.argsort(sort_keys(scene, ro, rd, dead), stable=True)
+
+
+def _inverse(perm):
+    """inv[perm] = arange: ray order -> state order by `x[inv]`."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+def sentinel_feats(feats, dead):
+    """Retired lanes' ray rows [16, B] become a ray far outside every tile
+    AABB (ro = 1e7, rd = +x), so a block of them admits no tile; its
+    max_t (row SH_MAXT_COL) is -1, so any-hit never fires."""
+    dev = feats.device
+    row = _ray_features16(
+        torch.full((1, 3), SENTINEL_RO, dtype=torch.float32, device=dev),
+        torch.tensor([[1.0, 0.0, 0.0]], dtype=torch.float32, device=dev),
+    )
+    row[FI.SH_MAXT_COL] = -1.0
+    return torch.where(dead[None, :], row, feats)
+
+
+def _sort_rows(scene, ro, rd, dead, *rows):
+    """Sort ray rows [16, B] (None skipped) by `sort_perm_rays` in one
+    gather -> (the sorted rows, inverse permutation)."""
+    perm = sort_perm_rays(scene, ro, rd, dead)
+    present = [r for r in rows if r is not None]
+    both = torch.cat(present, dim=0)[:, perm] if len(present) > 1 else present[0][:, perm]
+    parts = iter(both.split(16, dim=0))
+    return tuple(None if r is None else next(parts) for r in rows), _inverse(perm)
+
+
+# ---- the ray-sorted stage loop (twin of `_stages_raysorted`) ----------------
+
+
+def rs_init(cfg: StaticConfig, cam: CameraParams, px, py, sample_idx: int, offsets, fold: int):
+    """Camera rays and the initial state, which keeps its ro/rd: the
+    scans' rows are sorted, so they cannot carry the state's rays.
+    Bounce 0 runs unsorted -> (st, ray rows [16, B], sidx)."""
+    sidx = _fold_sample_idx(sample_idx, px.shape[0], fold, px.device)
+    st = trace_mod.init_state(cfg, cam, px, py, sidx, offsets)
+    return st, _ray_features16(st.ro, st.rd), sidx
+
+
+def rs_pre(scene, cfg: StaticConfig, cam: CameraParams, bounce: int, st, prev_nee, prev_occ,
+           t, idx, inv, sidx, offsets):
+    """One bounce of shading on the ray-sorted loop: unsort the scan's
+    results through `inv` (None at bounce 0), `_shade`, then sort the next
+    and shadow rays, retired ones as sentinels at the back. Returns (st,
+    sorted next rows, (slim NEE carry, sorted shadow rows) or None, the
+    new inverse); on the last bounce st is the radiance and only the
+    shadow rows are sorted (by the state's continuation rays)."""
+    if inv is not None:
+        t, idx = t[inv], idx[inv]
+        if prev_occ is not None:
+            prev_occ = prev_occ[inv]
+    st2, nee_pack = _shade(scene, cfg, cam, bounce, st, prev_nee, prev_occ, t, idx, sidx, offsets)
+    slim = shadow = None
+    dead = ~st2.alive
+    if nee_pack is not None:
+        slim = (nee_pack.eligible, nee_pack.contribution)
+        shadow = sentinel_feats(_shadow_feats16(nee_pack), ~nee_pack.eligible)
+    if bounce == cfg.max_bounces - 1:
+        if nee_pack is None:
+            return st2.radiance, None, None, None
+        (shadow,), inv = _sort_rows(scene, st2.ro, st2.rd, ~nee_pack.eligible, shadow)
+        return st2.radiance, None, (slim, shadow), inv
+    nxt = sentinel_feats(_ray_features16(st2.ro, st2.rd), dead)
+    if nee_pack is not None:
+        dead = dead & ~nee_pack.eligible
+    (nxt, shadow), inv = _sort_rows(scene, st2.ro, st2.rd, dead, nxt, shadow)
+    return st2, nxt, None if slim is None else (slim, shadow), inv
+
+
+def rs_finish(radiance, prev_nee, prev_occ, inv, film, fold: int):
+    """`stage_finish` after unsorting the held shadow result."""
+    if prev_occ is not None and inv is not None:
+        prev_occ = prev_occ[inv]
+    return stage_finish(radiance, prev_nee, prev_occ, film, fold)
+
+
+def _flush_held_rs(held, film, scene):
+    """Resolve a held group's sorted shadow rows with K7 and fold it."""
+    rad, prev_nee, shadow, inv, g = held
+    lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), shadow)
+    occ = FI.occlude_multi(shadow, scene.tri_feats16, lists, counts) != 0
+    return rs_finish(rad, prev_nee, occ, inv, film, g)
+
+
+def _render_batch_raysorted(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film):
+    """The ray-sorted multi-tile stage loop (rustic_tpu/runtime/pipeline.py:1539-1597)."""
+    if cfg.has_skybox:
+        raise NotImplementedError(IMAGE_SKY_TODO)
+    fold = pick_sample_fold(px.shape[0], n_samples)
+    held = None  # (radiance, prev_nee, sorted shadow rows, inverse, fold)
+    for k in range(0, n_samples, fold):
+        g = min(fold, n_samples - k)
+        pxg, pyg, offg = (a.repeat(g) for a in (px, py, offsets))
+        if held is not None and held[2].shape[1] != pxg.shape[0]:
+            film = _flush_held_rs(held, film, scene)
+            held = None
+        st, feats, sidx = rs_init(cfg, cam, pxg, pyg, sample_start + k, offg, g)
+        prev_nee = pending_sh = inv = None
+        for bounce in range(cfg.max_bounces):
+            held_here = bounce == 0 and held is not None
+            t, idx, prev_occ = _scan(feats, held[2] if held_here else pending_sh, scene)
+            if held_here:
+                rad_h, nee_h, _, inv_h, g_h = held
+                film = rs_finish(rad_h, nee_h, prev_occ, inv_h, film, g_h)
+                held = None
+                prev_occ = None
+            st, feats, nee, inv = rs_pre(
+                scene, cfg, cam, bounce, st, prev_nee, prev_occ, t, idx, inv, sidx, offg
+            )
+            prev_nee = pending_sh = None
+            if nee is not None:
+                prev_nee, pending_sh = nee
+        if pending_sh is not None:
+            held = (st, prev_nee, pending_sh, inv, g)
+        else:
+            film = stage_finish(st, prev_nee, None, film, g)
+    if held is not None:
+        film = _flush_held_rs(held, film, scene)
+    return film
+
+
+# ---- the kernel-shade multi-tile loop (twin of `_stages_ks_mt`) -------------
+
+
+def ks_resolve(scene, feats_t, t, idx, occ, inv):
+    """Unsort a scan's results through `inv` (None at bounce 0) and
+    resolve the winners' slim rows -> (t, idx, occ i32 or None, attrsT)."""
+    if inv is not None:
+        t, idx = t[inv], idx[inv]
+        if occ is not None:
+            occ = occ[inv]
+    if occ is not None:
+        occ = occ.to(torch.int32)
+    return t, idx, occ, resolve_attrs_rowT(scene, feats_t, idx)
+
+
+def ks_sort(scene, st, nf, sf):
+    """Sort the shade kernel's next and shadow rows for the next scans:
+    sentinels on retired lanes, keys from the next rays (from the shadow
+    rays on the last bounce) -> (next rows, shadow rows, inverse)."""
+    alive = st[SK.SK_ALIVE] > 0.5
+    elig = st[SK.SK_PEND_ELIG] > 0.5 if sf is not None else None
+    if nf is not None:
+        dead = ~alive if sf is None else ~alive & ~elig
+        keyed = nf
+        nf = sentinel_feats(nf, ~alive)
+    else:
+        dead = ~elig
+        keyed = sf
+    if sf is not None:
+        sf = sentinel_feats(sf, ~elig)
+    (nf, sf), inv = _sort_rows(scene, keyed[6:9].T, keyed[0:3].T, dead, nf, sf)
+    return nf, sf, inv
+
+
+def _render_batch_ks_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film):
+    """The kernel-shade multi-tile loop (rustic_tpu/runtime/pipeline.py:1416-1527):
+    per bounce a scan (K5/K6), `ks_resolve`, one shade kernel (K8 for
+    alias tables over 16 entries, else K4) and `ks_sort`. The packed
+    state and the shade kernel's ray rows stay in pixel order."""
+    if cfg.has_skybox:
+        raise NotImplementedError(IMAGE_SKY_TODO)
+    fold = pick_sample_fold(px.shape[0], n_samples)
+    n_alias = scene.n_alias_entries if cfg.nee.uses_nee and scene.has_lights else 0
+    shade = SK.shade_bounce_wide if n_alias > ENTRY_SELECT_MAX else SK.shade_bounce
+
+    def flush_held(held, film):
+        st_h, sh_h, inv_h, g_h = held
+        lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), sh_h)
+        occ = FI.occlude_multi(sh_h, scene.tri_feats16, lists, counts)
+        return finishk(st_h, occ[inv_h], film, g_h)
+
+    held = None  # (st, sorted shadow rows, inverse, fold) awaiting occlusion
+    for k in range(0, n_samples, fold):
+        g = min(fold, n_samples - k)
+        pxg, pyg, offg = (a.repeat(g) for a in (px, py, offsets))
+        if held is not None and held[1].shape[1] != pxg.shape[0]:
+            film = flush_held(held, film)
+            held = None
+        st, feats_t, sidx, params = initk(cfg, cam, pxg, pyg, sample_start + k, offg, g)
+        pending_sh = held[1] if held is not None else None
+        inv = None  # inverse of the scan operands' order
+        feats_in = None  # sorted next rays; None: the bounce-0 camera rays
+        for bounce in range(cfg.max_bounces):
+            t, i, occ = _scan(feats_t if feats_in is None else feats_in, pending_sh, scene)
+            if bounce == 0 and held is not None:
+                # the occlusion column belongs to the held group, in its order
+                st_h, _, inv_h, g_h = held
+                film = finishk(st_h, occ[inv_h].to(torch.int32), film, g_h)
+                held = None
+                occ = None
+            t, i, occ, attrs_t = ks_resolve(scene, feats_t, t, i, occ, inv)
+            st, nf, sf = shade(
+                cfg, bounce, params, scene.entry_rows, st, feats_t, t, i, attrs_t, occ,
+                sidx, offg, has_glass=scene.has_glass, n_alias=n_alias,
+            )
+            if nf is None and sf is None:  # last bounce without NEE
+                pending_sh = feats_in = inv = None
+                continue
+            feats_in, pending_sh, inv = ks_sort(scene, st, nf, sf)
+            if nf is not None:
+                feats_t = nf
+        if pending_sh is not None:
+            held = (st, pending_sh, inv, g)
+        else:
+            film = finishk(st, None, film, g)
+    if held is not None:
+        film = flush_held(held, film)
+    return film
+
+
+STATE_SORT_TODO = (
+    "RUSTIC_SORT_MODE=state (the state-sorted driver with its compaction "
+    "pilot) is not ported yet (ROADMAP.md queue 1 item 7)"
+)
+
+# the names of the multi-tile loops; the first is the default
+MULTITILE_LOOPS = ("kernel-shade", "ray-sorted", "unsorted")
+
+
+def multitile_loop(loop: str):
+    """The multi-tile loop named `loop` (one of MULTITILE_LOOPS). The JAX
+    package's RUSTIC_SORT_MODE=state asks for its state-sorted driver,
+    which the port lacks: that setting is refused rather than ignored."""
+    if os.environ.get("RUSTIC_SORT_MODE") == "state":
+        raise NotImplementedError(STATE_SORT_TODO)
+    if loop == "kernel-shade":
+        return _render_batch_ks_multitile
+    if loop == "ray-sorted":
+        return _render_batch_raysorted
+    if loop == "unsorted":
+        return _render_batch_multitile
+    raise ValueError(f"multi-tile loop {loop!r}: expected one of {MULTITILE_LOOPS}")
+
+
 def render_batch_staged(
     scene: SceneTensors,
     cfg: StaticConfig,
@@ -220,14 +521,14 @@ def render_batch_staged(
     sample_start: int,
     n_samples: int,
     film_in: Optional[torch.Tensor] = None,
+    loop: str = MULTITILE_LOOPS[0],
 ) -> torch.Tensor:
     """Render n_samples of one pixel batch -> film sum [B, 3] on the
     scene's device. px, py: [B] int32; offsets: [B] int32 (u32 bits).
     A scene of one triangle tile takes the kernel-shade loop, one of
-    more tiles the stage loop (as rustic_tpu's `render_batch_staged`
-    dispatches at pipeline.py:1007, with path sorting off). What the
-    port does not run yet (an HDR sky; on one tile, an alias table over
-    16 entries) raises NotImplementedError.
+    more tiles the multi-tile loop named `loop` (`multitile_loop`). What
+    the port does not run yet (an HDR sky, the state-sorted driver; on
+    one tile, an alias table over 16 entries) raises NotImplementedError.
 
     Single tile: per bounce exactly two launches, a flash scan and the
     shade kernel, chained through the transposed row operands."""
@@ -235,9 +536,7 @@ def render_batch_staged(
         (px.shape[0], 3), dtype=torch.float32, device=px.device
     )
     if FI.geometry(scene.tri_feats16)[2] > 1:
-        return _render_batch_multitile(
-            scene, cfg, cam, px, py, offsets, sample_start, n_samples, film
-        )
+        return multitile_loop(loop)(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film)
     g16 = scene.tri_feats16
     attrs = scene.tri_attrs
     fold = pick_sample_fold(px.shape[0], n_samples)

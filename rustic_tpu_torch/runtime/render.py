@@ -74,9 +74,10 @@ def render_pixels(
     offsets: Optional[np.ndarray] = None,
     sample_start: int = 0,
     film_in: Optional[torch.Tensor] = None,
+    loop: str = RenderSettings.multitile_loop,
 ) -> torch.Tensor:
     """Render an arbitrary pixel set on the scene's device; returns the
-    film *sum* [B, 3] there."""
+    film *sum* [B, 3] there. `loop` names the multi-tile loop."""
     device = scene.device
     cfg = config.static_part()
     cam = config.dynamic_part(device)
@@ -97,6 +98,7 @@ def render_pixels(
         int(sample_start),
         int(samples),
         film_in=film_in,
+        loop=loop,
     )
 
 
@@ -131,7 +133,8 @@ def render_image(
     for lo in range(0, n_px + pad, chunk):
         hi = lo + chunk
         film = render_pixels(
-            scene, config, px[lo:hi], py[lo:hi], settings.samples, offsets=offsets[lo:hi]
+            scene, config, px[lo:hi], py[lo:hi], settings.samples, offsets=offsets[lo:hi],
+            loop=settings.multitile_loop,
         )
         out[lo:hi] = film.cpu().numpy()
     return (out[:n_px] / max(settings.samples, 1)).reshape(h, w, 3)

@@ -154,11 +154,14 @@ def test_port_runs_without_jax():
         film = render_image(scene, config, RenderSettings(samples=1), device="cpu")
         assert film.shape == (16, 32, 3) and film.mean() > 0.0, film.mean()
         # a multi-tile scene (VeachMIS, 6 triangle tiles, 2,880 alias entries)
+        # through the default (kernel-shade) loop and the ray-sorted loop
         veach = World.from_path("assets/scenes/VeachMIS.glb").to_torch("cpu")
         config = TracingConfig(width=8, height=6, nee=NextEventEstimation.MIS,
                                cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05))
-        film = render_image(veach, config, RenderSettings(samples=1), device="cpu")
-        assert film.shape == (6, 8, 3) and film.mean() > 0.0, film.mean()
+        for settings in (RenderSettings(samples=1),
+                         RenderSettings(samples=1, multitile_loop="ray-sorted")):
+            film = render_image(veach, config, settings, device="cpu")
+            assert film.shape == (6, 8, 3) and film.mean() > 0.0, film.mean()
         assert not any(m == "jax" or m.startswith(("jax.", "flax", "rustic_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

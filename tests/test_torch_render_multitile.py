@@ -1,10 +1,14 @@
-"""The port's multi-tile render path against the JAX staged renderer.
+"""The port's unsorted multi-tile render path against the JAX staged
+renderer.
 
 One scene feeds both packages (the JAX SceneArrays passes to the port
 through scene_from_arrays), with the same pixel offsets: the port's
 film (plain versions on the CPU) must match the JAX film of
 `render_batch_staged` with path sorting off (its unsorted multi-tile
-stage loop; Pallas interpret mode, "f32" plan) to rtol 1e-4, atol 1e-5."""
+stage loop; Pallas interpret mode, "f32" plan) to rtol 1e-4, atol 1e-5.
+The port takes that loop when asked for its "unsorted" multi-tile loop,
+the JAX package with its RUSTIC_SORT_PATHS flag patched off;
+tests/test_torch_sorted.py covers the sorted loops."""
 
 import numpy as np
 import pytest
@@ -26,6 +30,9 @@ CASES = {
     "VeachMIS": dict(cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05)),
     "GlassTest": dict(cam_position=(0.0, 2.2, -6.5), cam_rotation=(0.15, 0.0)),
 }
+
+
+UNSORTED = "unsorted"
 
 
 def scene_fields(scene) -> dict:
@@ -66,7 +73,7 @@ def test_multitile_film_matches_jax_unsorted(name, monkeypatch):
         )
     )
     config = TracingConfig(width=W_, height=H_, nee=NextEventEstimation.MIS, **CASES[name])
-    got = render_pixels(ts, config, px, py, spp, offsets=off).numpy()
+    got = render_pixels(ts, config, px, py, spp, offsets=off, loop=UNSORTED).numpy()
     assert got.shape == (W_ * H_, 3) and np.isfinite(got).all()
     assert got.mean() > 0.01
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
@@ -115,7 +122,8 @@ def test_multitile_group_structure(veach_port, monkeypatch, samples, expect):
     config = TracingConfig(
         width=16, height=4, nee=NextEventEstimation.MIS, **CASES["VeachMIS"]
     )
-    film = render_image(veach_port, config, RenderSettings(samples=samples), device="cpu")
+    settings = RenderSettings(samples=samples, multitile_loop=UNSORTED)
+    film = render_image(veach_port, config, settings, device="cpu")
     assert film.shape == (4, 16, 3) and np.isfinite(film).all()
     assert calls == {
         "nearest_multi": expect[0],
@@ -129,7 +137,8 @@ def test_multitile_group_structure(veach_port, monkeypatch, samples, expect):
 def test_multitile_refuses_hdr_sky(veach_port):
     config = TracingConfig(width=4, height=4, has_skybox=True, **CASES["VeachMIS"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_image(veach_port, config, RenderSettings(samples=1), device="cpu")
+        render_image(veach_port, config, RenderSettings(samples=1, multitile_loop=UNSORTED),
+                     device="cpu")
 
 
 def test_multitile_without_nee_has_no_shadow_scans(veach_port, monkeypatch):
@@ -137,6 +146,7 @@ def test_multitile_without_nee_has_no_shadow_scans(veach_port, monkeypatch):
     calls = {}
     count_calls(monkeypatch, FI, SCANS, calls)
     config = TracingConfig(width=8, height=4, nee=NextEventEstimation.NONE, **CASES["VeachMIS"])
-    film = render_image(veach_port, config, RenderSettings(samples=2), device="cpu")
+    film = render_image(veach_port, config, RenderSettings(samples=2, multitile_loop=UNSORTED),
+                        device="cpu")
     assert np.isfinite(film).all() and film.mean() > 0.0
     assert calls == dict.fromkeys(SCANS, 0) | {"nearest_multi": config.max_bounces}

@@ -4,7 +4,30 @@ inputs.
 
 Tolerance rtol 1e-4, atol 1e-5 (XLA on the CPU contracts a*b + c into
 FMAs, torch does not); discrete outputs (lobes, masks, indices) are
-compared exactly."""
+compared exactly.
+
+The BSDF tests draw roughness down to 1e-3 and views down to grazing.
+There some lanes are ill-conditioned in float32: at low roughness the
+sampled half vector lies within ~roughness² of the normal, so the
+sample's `1 - cos²θ` and the distribution's `n·h² (a - 1) + 1`
+(a = roughness²) cancel to a few significant bits, and at grazing views
+`v·h` does. Two float32 evaluations in another operation order then
+differ by percents, and neither is the float64 value.
+
+`close_conditioned` evaluates both functions in float64 too. There the
+port must match JAX on every lane to rtol 1e-6 (float32 constants such
+as pi differ by ~4e-8): the two compute the same function. In float32 a
+lane is ill-conditioned where JAX's result is off its float64 value by
+more than 1e-5 relative (~100 ulps; a well-conditioned lane of these few
+dozen operations is within a few). Such lanes must lie where the GGX lobe
+is evaluated, and there the port must be within rtol 1e-4 / atol 1e-5 of
+the float64 value widened by ILL_FACTOR times JAX's own error. That
+factor compares two rounding errors of the same cancelled term, so it
+scatters: over seeds 0-39 of the three BSDF tests the port needed at most
+26.0, in pbr_sample's direction (the glass sample and the lobe
+evaluations needed none; `python -m tests.test_torch_trace 0 40` prints
+the worst per case), and ILL_FACTOR is the next power of two. Every other lane keeps rtol
+1e-4, atol 1e-5 against JAX."""
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +91,59 @@ def close(got, want, what=""):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=what)
 
 
+ILL_RTOL, ILL_ATOL = 1e-5, 1e-7  # JAX f32 vs f64 beyond this: ill-conditioned
+ILL_FACTOR = 32.0  # the port's error may be this many times JAX's there (docstring)
+
+
+def float64_eval(fn, *args):
+    """fn (a JAX function) evaluated in float64 on the same inputs."""
+    with jax.enable_x64(True):
+        f64 = lambda x: jnp.asarray(np.asarray(x), jnp.float64)  # noqa: E731
+        out = fn(*[jax.tree_util.tree_map(f64, a) for a in args])
+        return jax.tree_util.tree_map(np.asarray, out)
+
+
+def as_f64(*args):
+    """Tensors, and NamedTuples of them, as float64 copies."""
+    return [type(a)(*as_f64(*a)) if isinstance(a, tuple) else a.double() for a in args]
+
+
+def ill_lanes(want, exact):
+    """[B] bool: where JAX's float32 result is off its float64 value
+    beyond ILL_RTOL / ILL_ATOL (a vector against its largest component)."""
+    b = exact.shape[0]
+    scale = np.abs(exact).reshape(b, -1).max(axis=1)
+    return np.abs(want - exact).reshape(b, -1).max(axis=1) > ILL_RTOL * scale + ILL_ATOL
+
+
+def factor_needed(got, want, exact):
+    """The least ILL_FACTOR under which `got` meets its bound on the
+    ill-conditioned lanes (0 where there are none)."""
+    lanes = ill_lanes(want, exact)
+    excess = np.abs(got.astype(np.float64) - exact) - 1e-4 * np.abs(exact) - 1e-5
+    ref_err = np.abs(want - exact)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        need = np.where(excess > 0, excess / ref_err, 0.0)[lanes]
+    return float(need.max()) if need.size else 0.0
+
+
+def close_conditioned(got, want, exact, got64, allowed, what=""):
+    """`close`, except on the ill-conditioned lanes (module docstring),
+    which must all be in `allowed` ([B] bool) and are held to `exact`;
+    got64, the port in float64, must match `exact` everywhere."""
+    got, got64 = (x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in (got, got64))
+    want, exact = np.asarray(want), np.asarray(exact)
+    assert got.shape == want.shape == exact.shape == got64.shape, what
+    np.testing.assert_allclose(got64, exact, rtol=1e-6, atol=1e-9, err_msg=f"{what} (float64)")
+    lanes = ill_lanes(want, exact)
+    assert not (lanes & ~allowed).any(), (what, np.nonzero(lanes & ~allowed)[0])
+    assert lanes.mean() < 0.15, (what, lanes.mean())
+    well = ~lanes
+    np.testing.assert_allclose(got[well], want[well], rtol=1e-4, atol=1e-5, err_msg=what)
+    need = factor_needed(got, want, exact)
+    assert need <= ILL_FACTOR, (what, np.nonzero(lanes)[0], need)
+
+
 def unit(rng, n):
     v = rng.normal(0, 1, (n, 3)).astype(np.float32)
     return v / np.linalg.norm(v, axis=1, keepdims=True)
@@ -129,44 +205,101 @@ def geometry(rng):
     return both(normal, view, light, *draws)
 
 
-def test_pbr_sample_matches_jax():
-    rng = np.random.default_rng(1)
+def pbr_sample_case(seed):
+    """pbr_sample on the inputs of `seed` -> (port, JAX, JAX in float64,
+    port in float64)."""
+    rng = np.random.default_rng(seed)
     jm, tm = materials(rng)
     (jn, jv, _, j1, j2, j3), (tn, tv, _, t1, t2, t3) = geometry(rng)
-    want = JB.pbr_sample(jm, jv, jn, j1, j2, j3)
-    got = B_.pbr_sample(tm, tv, tn, t1, t2, t3)
-    assert 0.1 < float((got.lobe == B_.LOBE_SPECULAR).float().mean()) < 0.9
-    for name in ("lobe", "pdf", "spectrum", "direction"):
-        close(getattr(got, name), getattr(want, name), name)
+    return (B_.pbr_sample(tm, tv, tn, t1, t2, t3), JB.pbr_sample(jm, jv, jn, j1, j2, j3),
+            float64_eval(JB.pbr_sample, jm, jv, jn, j1, j2, j3),
+            B_.pbr_sample(*as_f64(tm, tv, tn, t1, t2, t3)))
 
 
-@pytest.mark.parametrize("specular", [False, True])
-def test_pbr_evaluate_and_pdf_match_jax(specular):
-    rng = np.random.default_rng(2)
+def pbr_lobe_case(seed, specular):
+    """{"value": pbr_evaluate_lobe, "pdf": pbr_pdf_lobe} on the inputs of
+    `seed`, each (port, JAX, JAX in float64, port in float64)."""
+    rng = np.random.default_rng(seed)
     jm, tm = materials(rng)
     (jn, jv, jl, *_), (tn, tv, tl, *_) = geometry(rng)
-    close(
-        B_.pbr_evaluate_lobe(tm, tv, tn, tl, lobe_is_specular=specular),
-        JB.pbr_evaluate_lobe(jm, jv, jn, jl, lobe_is_specular=specular), "value",
-    )
-    close(
-        B_.pbr_pdf_lobe(tm, tv, tn, tl, lobe_is_specular=specular),
-        JB.pbr_pdf_lobe(jm, jv, jn, jl, lobe_is_specular=specular), "pdf",
-    )
+    out = {}
+    for name, jfn, tfn in (("value", JB.pbr_evaluate_lobe, B_.pbr_evaluate_lobe),
+                           ("pdf", JB.pbr_pdf_lobe, B_.pbr_pdf_lobe)):
+        out[name] = (
+            tfn(tm, tv, tn, tl, lobe_is_specular=specular),
+            jfn(jm, jv, jn, jl, lobe_is_specular=specular),
+            float64_eval(lambda *a, f=jfn: f(*a, lobe_is_specular=specular), jm, jv, jn, jl),
+            tfn(*as_f64(tm, tv, tn, tl), lobe_is_specular=specular),
+        )
+    return out
 
 
-def test_glass_sample_matches_jax():
-    rng = np.random.default_rng(3)
+def glass_sample_case(seed):
+    """glass_sample on the inputs of `seed`, as `pbr_sample_case`."""
+    rng = np.random.default_rng(seed)
     albedo = uniform(rng, 0.5, 1, (B, 3))
     ior = uniform(rng, 1.2, 1.8)
     rough = uniform(rng, 1e-3, 0.5)
     (ja, ji, jr), (ta, ti, tr) = both(albedo, ior, rough)
     (jn, jv, _, j1, j2, j3), (tn, tv, _, t1, t2, t3) = geometry(rng)
-    want = JB.glass_sample(ja, ji, jr, jv, jn, j1, j2, j3)
-    got = B_.glass_sample(ta, ti, tr, tv, tn, t1, t2, t3)
+    return (B_.glass_sample(ta, ti, tr, tv, tn, t1, t2, t3),
+            JB.glass_sample(ja, ji, jr, jv, jn, j1, j2, j3),
+            float64_eval(JB.glass_sample, ja, ji, jr, jv, jn, j1, j2, j3),
+            B_.glass_sample(*as_f64(ta, ti, tr, tv, tn, t1, t2, t3)))
+
+
+SAMPLE_FIELDS = ("pdf", "spectrum", "direction")
+
+
+def test_pbr_sample_matches_jax():
+    got, want, exact, got64 = pbr_sample_case(1)
+    specular = (got.lobe == B_.LOBE_SPECULAR).numpy()
+    assert 0.1 < specular.mean() < 0.9
+    close(got.lobe, want.lobe, "lobe")
+    close(got.lobe, exact.lobe, "lobe (float64)")
+    for name in SAMPLE_FIELDS:
+        close_conditioned(*(getattr(r, name) for r in (got, want, exact, got64)), specular, name)
+
+
+@pytest.mark.parametrize("specular", [False, True])
+def test_pbr_evaluate_and_pdf_match_jax(specular):
+    allowed = np.full(B, specular)  # only the GGX lobe is ill-conditioned
+    for name, results in pbr_lobe_case(2, specular).items():
+        close_conditioned(*results, allowed, name)
+
+
+def test_glass_sample_matches_jax():
+    got, want, exact, got64 = glass_sample_case(3)
     assert 0.02 < float((got.lobe == B_.LOBE_SPECULAR).float().mean()) < 0.98
-    for name in ("lobe", "pdf", "spectrum", "direction"):
-        close(getattr(got, name), getattr(want, name), name)
+    close(got.lobe, want.lobe, "lobe")
+    for name in SAMPLE_FIELDS:  # a GGX microfacet sample on every lane
+        close_conditioned(*(getattr(r, name) for r in (got, want, exact, got64)),
+                          np.ones(B, bool), name)
+
+
+def scan_ill_factor(seeds):
+    """The least ILL_FACTOR each BSDF case needs over `seeds` (the
+    module docstring's measurement); run as
+    `python -m tests.test_torch_trace FIRST_SEED END_SEED`."""
+    worst = {}
+
+    def note(case, results):
+        got, want, exact, _ = (
+            x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in results
+        )
+        worst[case] = max(worst.get(case, 0.0), factor_needed(got, want, exact))
+
+    for seed in seeds:
+        for tag, rec in (("pbr_sample", pbr_sample_case(seed)),
+                         ("glass_sample", glass_sample_case(seed))):
+            for name in SAMPLE_FIELDS:
+                note(f"{tag} {name}", [getattr(r, name) for r in rec])
+        for specular in (False, True):
+            for name, results in pbr_lobe_case(seed, specular).items():
+                note(f"pbr lobe {name} specular={specular}", results)
+    for case, need in sorted(worst.items(), key=lambda kv: -kv[1]):
+        print(f"{case}: ILL_FACTOR needed {need:.2f}")
+    return worst
 
 
 @pytest.mark.parametrize("scene_name", ["veach", "cornell"])  # 2,880 and 2 alias entries
@@ -322,3 +455,9 @@ def test_bounce_pre_matches_jax(veach, mode, bounce):
             T_.bounce_post(got_st, got_nee, torch.from_numpy(occ)).radiance,
             JT.bounce_post(want_st, want_nee, jnp.asarray(occ)).radiance, "bounce_post",
         )
+
+
+if __name__ == "__main__":
+    import sys
+
+    scan_ill_factor(range(int(sys.argv[1]), int(sys.argv[2])))
