@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the headline render
-(DarkCornell, one triangle tile, kernels K1-K4) and the multi-tile renders
+(DarkCornell, one triangle tile, kernels K1-K4), the multi-tile renders
 (VeachMIS, six tiles): the kernel-shade loop, the default (kernels K5-K7
 and K8), and the reference loops, unsorted and ray-sorted (K5-K7 and the
-torch shading stages).
+torch shading stages), and the full-pipeline render (BreakTime, 21 tiles,
+textures, normal maps, HDR sky) through the kernel-shade loop with each
+scan form: tile lists and K5-K7, or the grid form K9-K11.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -68,8 +70,41 @@ Phases, each of which must pass (the first that fails ends the run):
  13. multi-cross-device: VeachMIS 64x64x4 through each loop, and
      FurnaceTest 64x64x4 (5,120 alias entries) through the kernel-shade
      loop, card against host CPU, rtol 1e-4, atol 1e-5.
+ 14. breaktime-check: BreakTime (BASELINE.md config 5: 1920x1080, NEE+MIS,
+     4 bounces, HDR sky, the camera of tools/quality_gate.py) loaded once
+     (PNG decode, the 4096^2 atlas and the upload timed); one fold group
+     of its first pixel chunk (1,048,576 pixels x 4 = 4,194,304 lanes)
+     traced through the kernel-shade loop in the grid form. K9 on the
+     bounce-0 camera rays, K10 on the sorted bounce-1 rays with the
+     bounce-0 shadow rays, K11 on the sorted bounce-3 shadow rays, each
+     against its plain version (index and occlusion equal on >= 99.99% of
+     rays, t within rtol 1e-5, the tiles each block visits equal) at
+     65,536, 65,613 and 4,194,304 lanes, and against K5-K7 on the same
+     operands with their tile lists, as closely; the tiles each block
+     visits (grid) and admits (lists). The shade kernel of the path (K4:
+     BreakTime has 2 alias entries) and K8, both in HDR mode, bit-equal to
+     their plain version on every bounce.
+ 15. breaktime-time: K9-K11 and their plain versions in turns as phase 7
+     (median of 3); each form's whole scan, block_tile_lists plus K5-K7
+     against K9-K11 alone, and the list pre-pass alone.
+ 16. breaktime-renders: BreakTime 1920x1080 x 32 spp (BASELINE's 2048 cut
+     for card time; the rate is per path) through the kernel-shade loop,
+     with "lists" and with "grid", each after a one-group warm-up;
+     Mpaths/s; launch counts per the 2 pixel chunks x 8 groups x 4
+     bounces (K9 2, K10 62, K11 2, K4 64 on the grid render, none of
+     K5-K7 and no block_tile_lists call there); a finite film.
+ 17. breaktime-film: BreakTime 256x144 x 1024 spp with each scan form
+     against assets/reference/breaktime_256x144_1024spp.npy: relative
+     energy within 1%, RMSE under the bound of tests/test_reference_films.py.
+ 18. breaktime-cross-device: BreakTime 64x64x4 with each scan form, card
+     against host CPU: entries outside rtol 1e-4 / atol 1e-5 no more than
+     the card's own film moves under a one-ulp camera shift (an ulp of a
+     direction changes a path under the HDR sun; the card's sin, cos,
+     atan2 and asin are not the host's to the ulp), at most 1%, and film
+     means within 1e-4 relative.
 
-Each multi-tile loop is named by RenderSettings.multitile_loop.
+Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
+form by RenderSettings.multitile_scan.
 
 The last two lines of standard output are a JSON object describing each
 kernel (its time, plain version's time, launches on its main path's
@@ -110,6 +145,16 @@ MT_REF = "assets/reference/veachmis_256x144_1024spp.npy"
 MT_REF_SPP = 1024
 MT_REF_RMSE_TPU = 1.55e-4  # QUALITY_r5.json, the TPU build at 256x144x1024 spp
 FURNACE = "assets/scenes/FurnaceTest.glb"
+
+# the full-pipeline configuration (BASELINE.md config 5, spp cut to 32)
+BT = "assets/scenes/BreakTime.glb"
+BT_SKY = "assets/scenes/BreakTimeSky.npy"
+BT_CAM = dict(cam_position=(0.0, 1.8, -3.2), has_skybox=True)
+BT_W, BT_H = 1920, 1080
+BT_SPP = 32
+BT_CHUNK = 1 << 20  # RenderSettings.batch_pixels: 2 chunks of the frame
+BT_LANES = BT_CHUNK * FOLD  # 4,194,304
+BT_REF = "assets/reference/breaktime_256x144_1024spp.npy"
 
 # published peaks of one H100 SXM (NVIDIA H100 datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -154,9 +199,22 @@ KERNELS = {
         name="shade_bounce_wide", source="rustic_tpu_torch/csrc/shade.cu",
         replaces="rustic_tpu/ops/shade_kernel.py:683",
     ),
+    "K9": dict(
+        name="nearest_grid", source="rustic_tpu_torch/csrc/flash_multi.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:830",
+    ),
+    "K10": dict(
+        name="nearest_shadow_grid", source="rustic_tpu_torch/csrc/flash_multi.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:967",
+    ),
+    "K11": dict(
+        name="occlude_grid", source="rustic_tpu_torch/csrc/flash_multi.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:1018",
+    ),
 }
 SINGLE_TILE = ("K1", "K2", "K3", "K4")
 MULTI_TILE = ("K5", "K6", "K7")
+GRID = ("K9", "K10", "K11")
 
 
 def bound(n_bytes, flops):
@@ -523,7 +581,7 @@ class Smoke:
         }
         for key in SINGLE_TILE:
             self.results[key]["launches"] = counts[KERNELS[key]["name"]]
-        expect |= {KERNELS[k]["name"]: 0 for k in MULTI_TILE + ("K8",)}
+        expect |= {KERNELS[k]["name"]: 0 for k in MULTI_TILE + GRID + ("K8",)}
         if counts != expect:
             self.fail(f"launch counts {counts} != expected {expect}")
         mean = float(film.mean())
@@ -962,6 +1020,382 @@ class Smoke:
         self._cross("FurnaceTest (5,120 alias entries), kernel-shade loop,", furnace, config,
                     "kernel-shade")
 
+    # ---- phases 14-18: BreakTime, the grid form -----------------------------------
+
+    def bt_load(self):
+        """Load BreakTime with its 4096^2 atlas and HDR sky, timing the
+        PNG decode (the glTF load), the atlas, the rest of the scene build
+        and the upload."""
+        import torch
+
+        from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
+        from rustic_tpu_torch.scene import atlas as atlas_mod
+        from rustic_tpu_torch.scene import world as world_mod
+        from rustic_tpu_torch.scene.gltf import load_glb
+
+        t0 = time.time()
+        gltf = load_glb(BT)
+        t_load = time.time() - t0
+        pack = atlas_mod.pack_material_textures
+        t_atlas = []
+
+        def timed_pack(*a, **k):
+            t1 = time.time()
+            out = pack(*a, **k)
+            t_atlas.append(time.time() - t1)
+            return out
+
+        atlas_mod.pack_material_textures = timed_pack
+        try:
+            t0 = time.time()
+            world = world_mod.World(gltf)
+            t_world = time.time() - t0
+        finally:
+            atlas_mod.pack_material_textures = pack
+        t0 = time.time()
+        sky = world_mod.load_skybox_image(BT_SKY)
+        self.bt_scene = world.to_torch(self.dev, sky)
+        torch.cuda.synchronize()
+        t_up = time.time() - t0
+        log(f"BreakTime load: glTF + 6 PNG decodes {t_load:.2f} s, World build {t_world:.2f} s "
+            f"(of which the {world.atlas.shape[0]}^2 x 9 atlas {t_atlas[0]:.2f} s), sky + upload "
+            f"{t_up:.2f} s; {self.bt_scene.n_tris} triangles in "
+            f"{self.bt_scene.tile_aabbs.shape[0]} tiles, {self.bt_scene.n_alias_entries} alias "
+            f"entries, atlas {self.bt_scene.atlas.numel() * 4 / 1e6:.0f} MB on the card")
+        self.bt_config = TracingConfig(width=BT_W, height=BT_H, nee=NextEventEstimation.MIS,
+                                       **BT_CAM)
+
+    def _bt_group(self):
+        """The first pixel chunk of the BreakTime frame, folded 4 times."""
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.runtime.render import pixel_offsets
+
+        y, x = np.mgrid[0:BT_H, 0:BT_W]
+        px = torch.from_numpy(x.reshape(-1)[:BT_CHUNK].astype(np.int32)).to(self.dev).repeat(FOLD)
+        py = torch.from_numpy(y.reshape(-1)[:BT_CHUNK].astype(np.int32)).to(self.dev).repeat(FOLD)
+        off = pixel_offsets(BT_W, BT_H, use_blue_noise=False)[:BT_CHUNK].view(np.int32)
+        off = torch.from_numpy(off.copy()).to(self.dev).repeat(FOLD)
+        return (self.bt_config.static_part(), self.bt_config.dynamic_part(self.dev), px, py, off)
+
+    def bt_trace(self):
+        """One BreakTime group through the kernel-shade loop in the grid
+        form; K4 (the path's shade kernel) and K8 in HDR mode held bit for
+        bit to their plain version on every bounce -> the scans' operands."""
+        import torch
+
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        cfg, cam, px, py, off = self._bt_group()
+        scene = self.bt_scene
+        n_alias = scene.n_alias_entries
+        if n_alias > SK.MAX_ALIAS:
+            self.fail(f"BreakTime has {n_alias} alias entries: its path would run K8, not K4")
+        st, feats_t, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+        pending = inv = feats_in = None
+        bounces = []
+        kw = dict(has_glass=scene.has_glass, n_alias=n_alias)
+        for b in range(cfg.max_bounces):
+            rays = feats_t if feats_in is None else feats_in
+            rec = dict(feats=rays, pending=pending)
+            t, i, occ = P._scan(rays, pending, scene, "grid")
+            t, i, occ, attrs_t = P.ks_resolve(scene, feats_t, t, i, occ, inv)
+            args = (cfg, b, params, scene.entry_rows, st, feats_t, t, i, attrs_t, occ, sidx, off)
+            outs_p = SK.shade_bounce_plain(*args, **kw)
+            for key, fn in (("K4", SK.shade_bounce), ("K8", SK.shade_bounce_wide)):
+                outs_k = fn(*args, **kw)
+                for name, k_, p_ in zip(("state", "next rays", "shadow rays"), outs_k, outs_p):
+                    if (k_ is None) != (p_ is None):
+                        self.fail(f"{key} HDR bounce {b}: {name} present on one side only")
+                    if k_ is None:
+                        continue
+                    same = (k_ == p_) | (torch.isnan(k_) & torch.isnan(p_))
+                    if not bool(same.all()):
+                        lanes = (~same).any(dim=0).nonzero()[:5, 0].tolist()
+                        self.fail(f"{key} HDR bounce {b}: {name} differs at "
+                                  f"{int((~same).sum())} entries (lanes {lanes})")
+                if key == "K4":
+                    st, nf, sf = outs_k
+                del outs_k
+            log(f"BreakTime bounce {b}: K4 and K8 in HDR mode bit-equal to their plain "
+                f"version on {BT_LANES} lanes")
+            del outs_p
+            feats_in, pending, inv = P.ks_sort(scene, st, nf, sf)
+            rec["shadow_out"] = pending
+            bounces.append(rec)
+            if nf is not None:
+                feats_t = nf
+        missed = float((st[SK.SK_MISSED] > 0.5).float().mean())
+        log(f"BreakTime group traced: {BT_LANES} lanes, {missed:.4f} of them escaped to the sky")
+        return bounces
+
+    def _bt_cases(self, bounces, lanes: slice):
+        """Operands of K9-K11 on `lanes` of the traced group: K9 on the
+        bounce-0 camera rays, K10 on bounce-1 rays with the bounce-0 shadow
+        rays, K11 on the bounce-3 shadow rays -> {key: rays (nearest set,
+        any-hit set)}."""
+        def cut(x):
+            return x[:, lanes].contiguous()
+
+        return {
+            "K9": (cut(bounces[0]["feats"]), None),
+            "K10": (cut(bounces[1]["feats"]), cut(bounces[1]["pending"])),
+            "K11": (None, cut(bounces[-1]["shadow_out"])),
+        }
+
+    def _grid_call(self, key, f, s, visits=None):
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        g16, aabbs = self.bt_scene.tri_feats16, self.bt_scene.tile_aabbs
+        if key == "K9":
+            return FI.nearest_grid(f, g16, aabbs, visits=visits)
+        if key == "K10":
+            return FI.nearest_shadow_grid(f, s, g16, aabbs, visits=visits)
+        return (FI.occlude_grid(s, g16, aabbs, visits=visits),)
+
+    def _list_call(self, key, f, s):
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        g16, aabbs = self.bt_scene.tri_feats16, self.bt_scene.tile_aabbs
+        if key == "K9":
+            return FI.nearest_multi(f, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), f))
+        if key == "K10":
+            return FI.nearest_shadow_multi(
+                f, s, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), f, s))
+        return (FI.occlude_multi(s, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (True,), s)),)
+
+    def _bt_compare(self, cases, n):
+        """K9-K11 against their plain versions and against K5-K7 with lists
+        on the same operands -> {key: max |dt| or 0 against the plain version}."""
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        errs = {}
+        for key, (f, s) in cases.items():
+            rays = f if f is not None else s
+            nb = -(-rays.shape[1] // FI.BT_MULTI)
+            visits = torch.zeros(nb, dtype=torch.int32, device=self.dev)
+            out_k = self._grid_call(key, f, s, visits)
+            t_p, i_p, o_p, vis_p, _ = FI._grid_scan(f, s, self.bt_scene.tri_feats16,
+                                                     self.bt_scene.tile_aabbs)
+            out_p = {"K9": (t_p, i_p), "K10": (t_p, i_p, o_p), "K11": (o_p,)}[key]
+            out_l = self._list_call(key, f, s)
+            flags = {"K9": (False,), "K10": (False, True), "K11": (True,)}[key]
+            admitted = FI.block_tile_lists(self.bt_scene.tile_aabbs, FI.BT_MULTI, flags,
+                                           *[r for r in (f, s) if r is not None])[1]
+            msg = []
+            for against, out in (("plain", out_p), ("lists", out_l)):
+                label = f"{key} vs {against}"
+                if key != "K11":
+                    frac, e, _ = self._cmp_winner(label, out_k[0], out_k[1], out[0], out[1])
+                    msg.append(f"{against}: idx agree {frac:.6f}, max |dt| {e:.3g}")
+                    if against == "plain":
+                        errs[key] = e
+                if key != "K9":
+                    agree, _ = self._cmp_occ(label, out_k[-1], out[-1])
+                    msg.append(f"{against}: occ agree {agree:.6f}")
+                    if key == "K11" and against == "plain":
+                        errs[key] = float((out_k[-1] - out[-1]).abs().max())
+            if not torch.equal(visits, vis_p):
+                self.fail(f"{key}: the tiles its blocks visit differ from its plain version's")
+            log(f"{key} n={n}: " + "; ".join(msg) + f"; tiles per 256-ray block: grid visits "
+                f"{float(visits.float().mean()):.3f}, lists admit "
+                f"{float(admitted.float().mean()):.3f} of {self.bt_scene.tile_aabbs.shape[0]}")
+        return errs
+
+    def bt_check(self):
+        self.bt_load()
+        self.bt_bounces = self.bt_trace()
+        for n in (CHECK_LANES, CHECK_LANES + RAGGED, BT_LANES):
+            errs = self._bt_compare(self._bt_cases(self.bt_bounces, slice(0, n)), n)
+        for k, e in errs.items():
+            self.results[k]["max_abs_err"] = e
+
+    def bt_timing(self):
+        """K9-K11 and their plain versions timed in turns; bound by the
+        pairs the grid form tests (each ray x the real triangles of each
+        tile its own slab test admits); the whole scan of each form."""
+        import statistics
+
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        scene = self.bt_scene
+        g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+        _, tt, nt = FI.geometry(g16)
+        tile_tris = torch.clamp(
+            scene.n_tris - torch.arange(nt, device=self.dev) * tt, 0, tt).double()
+        table = g16.shape[1] * RAY_ROWS * 4 + aabbs.numel() * 4
+        cases = self._bt_cases(self.bt_bounces, slice(None))
+        for key, (f, s) in cases.items():
+            plain = {"K9": lambda f=f: FI.nearest_grid_plain(f, g16, aabbs),
+                     "K10": lambda f=f, s=s: FI.nearest_shadow_grid_plain(f, s, g16, aabbs),
+                     "K11": lambda s=s: FI.occlude_grid_plain(s, g16, aabbs)}[key]
+            self.time_pair(key, lambda key=key, f=f, s=s: self._grid_call(key, f, s), plain,
+                           BT_LANES, reps=3)
+            per_set = FI._grid_scan(f, s, g16, aabbs)[4].double()
+            pairs = float((per_set @ tile_tris).sum())
+            rows = [(BT_LANES, r) for r, x in ((RAY_ROWS, f), (SHADOW_ROWS, s)) if x is not None]
+            out = {"K9": 8, "K10": 12, "K11": 4}[key] * BT_LANES
+            self.set_bound(key, scan_bound(rows, pairs, out, table))
+            log(f"{key}: {pairs:.4g} (ray, triangle) pairs tested "
+                f"({pairs / (BT_LANES * len(rows) * scene.n_tris):.4f} of all)")
+        # each form's whole scan: the list pre-pass plus K5-K7, or K9-K11
+        for key, (f, s) in cases.items():
+            lk = {"K9": "K5", "K10": "K6", "K11": "K7"}[key]
+            flags = {"K9": (False,), "K10": (False, True), "K11": (True,)}[key]
+            sets = [r for r in (f, s) if r is not None]
+
+            def lists(flags=flags, sets=sets):
+                return FI.block_tile_lists(aabbs, FI.BT_MULTI, flags, *sets)
+
+            self._list_call(key, f, s), self._grid_call(key, f, s), lists()  # warm
+            tl, tg, tp = [], [], []
+            for _ in range(5):  # in turns
+                tl += self.time_ms(lambda key=key, f=f, s=s: self._list_call(key, f, s), reps=1)
+                tg += self.time_ms(lambda key=key, f=f, s=s: self._grid_call(key, f, s), reps=1)
+                tp += self.time_ms(lists, reps=1)
+            log(f"whole scan at {BT_LANES} lanes: lists form (block_tile_lists + {lk}) "
+                f"{statistics.median(tl):.3f} ms, grid form ({key}) {statistics.median(tg):.3f} ms; "
+                f"the list pre-pass alone {statistics.median(tp):.3f} ms ({self.card})")
+        self.bt_bounces = None
+        torch.cuda.empty_cache()
+
+    def bt_renders(self):
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.runtime import pipeline as P
+        from rustic_tpu_torch.runtime.render import render_image
+
+        chunk = min(RenderSettings().batch_pixels, BT_W * BT_H)
+        chunks = -(-BT_W * BT_H // chunk)
+        groups = chunks * -(-BT_SPP // P.pick_sample_fold(chunk, BT_SPP))
+        nb = self.bt_config.max_bounces
+        names = {"lists": ("nearest_multi", "nearest_shadow_multi", "occlude_multi"),
+                 "grid": ("nearest_grid", "nearest_shadow_grid", "occlude_grid")}
+        for scan in ("lists", "grid"):
+            settings = RenderSettings(samples=BT_SPP, multitile_scan=scan)
+            t0 = time.time()
+            render_image(self.bt_scene, self.bt_config,
+                         RenderSettings(samples=FOLD, multitile_scan=scan), device=self.dev)
+            log(f"{scan} warm-up render ({FOLD} spp): {time.time() - t0:.2f} s")
+            list_calls = []
+            real_lists = FI.block_tile_lists
+
+            def counted_lists(*a, **k):
+                list_calls.append(1)
+                return real_lists(*a, **k)
+
+            FI.block_tile_lists = counted_lists
+            try:
+                FI.reset_launch_counts()
+                SK.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                film = render_image(self.bt_scene, self.bt_config, settings, device=self.dev)
+                render_s = time.time() - t0
+                counts = {**FI.LAUNCHES, **SK.LAUNCHES}
+            finally:
+                FI.block_tile_lists = real_lists
+            mpaths = BT_W * BT_H * BT_SPP / render_s / 1e6
+            log(f"render BreakTime {BT_W}x{BT_H}x{BT_SPP} spp NEE+MIS, HDR sky, kernel-shade "
+                f"loop, {scan} scans: {render_s:.3f} s, {mpaths:.2f} Mpaths/s ({self.card}); "
+                f"block_tile_lists calls {len(list_calls)}")
+            log(f"launch counts: {counts}")
+            near, merged, occl = names[scan]
+            expect = dict.fromkeys(counts, 0) | {
+                near: chunks, merged: nb * groups - chunks, occl: chunks,
+                "shade_bounce": nb * groups,
+            }
+            if counts != expect:
+                self.fail(f"launch counts {counts} != expected {expect}")
+            if scan == "grid":
+                if list_calls:
+                    self.fail(f"the grid render built tile lists {len(list_calls)} times")
+                for key in GRID:  # the main path's render of K9-K11
+                    self.results[key]["launches"] = counts[KERNELS[key]["name"]]
+            elif len(list_calls) != nb * groups + chunks:  # one list pre-pass per scan
+                self.fail(f"the lists render built {len(list_calls)} tile lists")
+            log(f"film mean {float(film.mean()):.6f}")
+            if not np.isfinite(film).all() or film.shape != (BT_H, BT_W, 3):
+                self.fail("film is not finite or has the wrong shape")
+
+    def bt_film(self):
+        import numpy as np
+
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.runtime.pipeline import MULTITILE_SCANS
+        from rustic_tpu_torch.runtime.render import render_image
+
+        ref = np.load(BT_REF)
+        h, w = ref.shape[:2]
+        config = dataclasses.replace(self.bt_config, width=w, height=h)
+        bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
+        for scan in MULTITILE_SCANS:
+            t0 = time.time()
+            film = render_image(self.bt_scene, config,
+                                RenderSettings(samples=MT_REF_SPP, multitile_scan=scan),
+                                device=self.dev)
+            wall = time.time() - t0
+            rel_energy = abs(float(film.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-9)
+            rmse = float(np.sqrt(np.mean((film - ref) ** 2)))
+            log(f"BreakTime {w}x{h}x{MT_REF_SPP} spp, {scan} scans: {wall:.2f} s, film mean "
+                f"{film.mean():.6f} vs reference {ref.mean():.6f} (relative energy "
+                f"{rel_energy:.6f}), RMSE {rmse:.6g} (bound {bound:.4g})")
+            if not np.isfinite(film).all():
+                self.fail(f"{scan}: film is not finite")
+            if rel_energy > 0.01:
+                self.fail(f"{scan}: relative energy {rel_energy} is not within 1%")
+            if rmse >= bound:
+                self.fail(f"{scan}: RMSE {rmse} is not under {bound}")
+
+    def bt_cross_device(self):
+        """BreakTime 64x64x4, card against host CPU. Its normal-mapped
+        glossy surfaces under the HDR sun turn an ulp of a direction into a
+        visible change of a path, and the card's transcendental functions
+        are not the host's to the ulp, so the gate is calibrated in the run:
+        the card's film under a one-ulp camera shift (y of the position)
+        differs from its own film in some entries beyond rtol 1e-4 / atol
+        1e-5; card and host may differ in at most as many, at most 1% of
+        the entries, with film means within 1e-4 relative."""
+        import numpy as np
+
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.runtime.pipeline import MULTITILE_SCANS
+        from rustic_tpu_torch.runtime.render import render_image
+
+        config = dataclasses.replace(self.bt_config, width=64, height=64)
+        x, y, z = config.cam_position
+        shifted = dataclasses.replace(
+            config, cam_position=(x, float(np.nextafter(np.float32(y), np.float32(2 * y))), z))
+        host = self.bt_scene.to("cpu")
+
+        def outside(a, b):
+            return int((~np.isclose(a, b, rtol=1e-4, atol=1e-5)).sum())
+
+        for scan in MULTITILE_SCANS:
+            settings = RenderSettings(samples=4, multitile_scan=scan)
+            gpu = render_image(self.bt_scene, config, settings, device=self.dev)
+            cpu = render_image(host, config, settings, device="cpu")
+            ulp = outside(gpu, render_image(self.bt_scene, shifted, settings, device=self.dev))
+            bad = outside(gpu, cpu)
+            energy = abs(float(gpu.mean()) / float(cpu.mean()) - 1.0)
+            log(f"BreakTime, {scan} scans, 64x64x4 film, card vs host CPU: max |d| "
+                f"{np.abs(gpu - cpu).max():.3g}, {bad} of {gpu.size} entries outside rtol 1e-4 / "
+                f"atol 1e-5 (a one-ulp camera shift on the card: {ulp}), relative energy "
+                f"{energy:.3g}, mean {gpu.mean():.6f}")
+            if bad > ulp or bad > 0.01 * gpu.size or energy > 1e-4:
+                self.fail(f"BreakTime {scan}: card and host films differ beyond the one-ulp "
+                          f"shift ({bad} entries against {ulp}, relative energy {energy:.3g})")
+
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self) -> int:
@@ -979,6 +1413,11 @@ class Smoke:
             ("sorted-renders", self.sorted_renders),
             ("multi-film", self.mt_film),
             ("multi-cross-device", self.mt_cross_device),
+            ("breaktime-check", self.bt_check),
+            ("breaktime-time", self.bt_timing),
+            ("breaktime-renders", self.bt_renders),
+            ("breaktime-film", self.bt_film),
+            ("breaktime-cross-device", self.bt_cross_device),
         ]
         for name, fn in phases:
             if not self.phase(name, fn):
@@ -986,6 +1425,9 @@ class Smoke:
                 return 1
             if name == "cross-device":
                 self.scene = None
+            if name == "multi-cross-device":
+                self.mt_scene = None
+                self.torch.cuda.empty_cache()
         torch = self.torch
         log(self.card)
         log(json.dumps({"kernels": list(self.results.values())}))

@@ -5,14 +5,14 @@ against (tests/test_torch_*.py). This package imports torch and numpy
 only: never jax, flax or rustic_tpu, so it runs on a host that has none
 of them.
 
-What is ported is the single-tile kernel-shade slice: a scene with at
-most 512 triangles (one flash tile), no textures, the procedural sky,
-an alias light table of at most 16 entries, rendered by
-runtime/render.py:render_image through runtime/pipeline.py. Four
-hand-written CUDA kernels carry it (csrc/): the three flash scans and
-the per-bounce shade kernel. Each has a plain PyTorch twin in the same
-module; a wrapper runs the twin for CPU tensors and the kernel for CUDA
-tensors.
+What is ported: the staged renderer of runtime/pipeline.py behind
+runtime/render.py:render_image, for scenes of one triangle tile (the
+headline render, untextured) and of many (textures, normal maps, HDR
+sky images), through eleven hand-written CUDA kernels (csrc/): the flash
+scans of one tile (K1-K3) and of many, with tile lists (K5-K7) or culled
+per ray in the kernel (K9-K11), and the per-bounce shade kernel (K4,
+K8). Each has a plain PyTorch twin in the same module; a wrapper runs
+the twin for CPU tensors and the kernel for CUDA tensors.
 """
 
 __version__ = "0.1.0"

@@ -111,3 +111,6 @@ class RenderSettings:
     # the loop a multi-tile scene takes (runtime/pipeline.py MULTITILE_LOOPS):
     # "kernel-shade", or the reference loops "ray-sorted" and "unsorted"
     multitile_loop: str = "kernel-shade"
+    # the form of the multi-tile scans (runtime/pipeline.py MULTITILE_SCANS):
+    # "lists" (tile lists, then K5-K7) or "grid" (K9-K11, culling in the kernel)
+    multitile_scan: str = "lists"

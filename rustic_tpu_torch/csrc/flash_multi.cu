@@ -1,10 +1,16 @@
-// Multi-tile flash intersection scans (kernels K5-K7) for Hopper, sm_90a.
+// Multi-tile flash intersection scans (kernels K5-K7 and K9-K11) for
+// Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernels of rustic_tpu/ops/flash_intersect.py that
-// multi-tile scenes (more than 512 triangles) run by default:
+// multi-tile scenes (more than 512 triangles) run:
 //   rt_nearest_multi         <- _nearest_multi_dma         (flash_nearest)
 //   rt_nearest_shadow_multi  <- _nearest_shadow_multi_dma  (flash_nearest_shadow)
 //   rt_occlude_multi         <- _occlude_multi_dma         (flash_occlude_packed)
+// and their grid form without lists (the non-DMA branch of the same entry
+// points, below):
+//   rt_nearest_grid          <- _nearest_multi
+//   rt_nearest_shadow_grid   <- _nearest_shadow_multi
+//   rt_occlude_grid          <- _occlude_multi
 //
 // What they compute: the triangle table G[16, NT*4*TT] holds NT tiles of TT
 // triangles. Before the launch, block_tile_lists (torch, the twin of the
@@ -112,6 +118,129 @@ multi_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
   if (ANY) occ_out[ray] = occ ? 1 : 0;
 }
 
+// ---- the grid form (K9-K11) ----------------------------------------------
+//
+// The same scans without tile lists: each block of 256 rays walks all NT
+// tiles in ascending order. Per tile, each thread evaluates the JAX
+// kernel's _tile_possible slab test for its own ray against the tile's AABB
+// (row `tile` of aabbs [NT, 8] = min xyz, pad, max xyz, pad), with its
+// running best t as the limit for the nearest set and its max t for the
+// any-hit set (false once the ray is occluded). The block stages the tile
+// only if __syncthreads_or of either predicate holds, and each thread runs
+// a set's pair tests only where that set's predicate holds. The JAX kernel
+// tests the slab per block (jnp.any over its rays) and then runs every ray
+// of the block; a ray whose own test fails cannot hit the tile closer than
+// its limit, so the result is the same, and the per-ray test saves the pair
+// work of the rays that miss the box. The tie order is K5's: ascending
+// tiles, strict < from (BIG, 0). What bounds it: FP32 throughput on the pairs
+// the per-ray tests admit; the slab tests are ~30 flops per (ray, tile).
+// `visits` (optional, one int per block) receives the tiles the block
+// staged.
+
+// min / max that return NaN when either operand is NaN, as jnp.minimum,
+// jnp.maximum and torch.minimum do (fminf/fmaxf drop a NaN operand)
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+struct SlabRay {
+  float ro[3], inv[3];
+};
+
+__device__ __forceinline__ SlabRay slab_ray(const float (&f)[NROWS]) {
+  SlabRay r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float d = f[a];
+    r.ro[a] = f[6 + a];
+    r.inv[a] = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e12f : 1e12f) : 1.0f / d;
+  }
+  return r;
+}
+
+// _tile_possible for one ray: can it reach the box closer than `limit`?
+__device__ __forceinline__ bool slab_ok(const SlabRay& r, const float* __restrict__ box,
+                                        float limit) {
+  float tmin = 0.0f, tmax = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t1 = (__ldg(box + a) - r.ro[a]) * r.inv[a];
+    const float t2 = (__ldg(box + 4 + a) - r.ro[a]) * r.inv[a];
+    const float lo = nan_min(t1, t2), hi = nan_max(t1, t2);
+    tmin = a == 0 ? lo : nan_max(tmin, lo);
+    tmax = a == 0 ? hi : nan_min(tmax, hi);
+  }
+  return tmax >= tmin && tmax > 0.0f && tmin < limit;
+}
+
+template <bool NEAR, bool ANY>
+__global__ void __launch_bounds__(THREADS)
+grid_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
+            const float* __restrict__ g, const float* __restrict__ aabbs,
+            float* __restrict__ t_out, int* __restrict__ idx_out, int* __restrict__ occ_out,
+            int* __restrict__ visits, int B, int NT, int TT) {
+  __shared__ float4 sg[NROWS * CHUNK];  // [row][triangle] -> (det, u, v, t)
+
+  const int ray = blockIdx.x * THREADS + threadIdx.x;
+  const bool active = ray < B;
+  float f[NROWS], s[NROWS];
+  load_rows(feats, B, ray, NEAR && active, f);
+  load_rows(sh, B, ray, ANY && active, s);
+  const float maxt = (ANY && active) ? sh[(size_t)MAXT_ROW * B + ray] : 0.0f;
+  const SlabRay fr = slab_ray(f), sr = slab_ray(s);
+
+  const size_t row_stride = (size_t)4 * TT * NT;
+  float best_t = BIG;
+  int best_i = 0;
+  bool occ = false;
+  int n_visits = 0;
+  for (int tile = 0; tile < NT; ++tile) {
+    if (!NEAR && __syncthreads_and(occ || !active)) break;  // every ray occluded
+    const float* box = aabbs + (size_t)tile * 8;
+    const bool near_ok = NEAR && active && slab_ok(fr, box, best_t);
+    const bool any_ok = ANY && active && !occ && slab_ok(sr, box, maxt);
+    if (!__syncthreads_or(near_ok || any_ok)) continue;  // no ray of the block needs it
+    ++n_visits;
+    for (int c0 = 0; c0 < TT; c0 += CHUNK) {
+      const int n = min(CHUNK, TT - c0);
+      __syncthreads();  // the previous chunk is consumed
+      stage_chunk(sg, g, row_stride, (size_t)tile * 4 * TT, TT, c0, n);
+      __syncthreads();
+      if (!near_ok && !any_ok) continue;
+      const int base = tile * TT + c0;
+#pragma unroll 2
+      for (int j = 0; j < n; ++j) {
+        if (near_ok) {
+          float t;
+          bool valid;
+          pair_test(f, sg, j, t, valid);
+          const float tm = valid ? t : BIG;
+          if (tm < best_t) {
+            best_t = tm;
+            best_i = base + j;
+          }
+        }
+        if (any_ok && !occ) {
+          float t;
+          bool valid;
+          pair_test(s, sg, j, t, valid);
+          occ = valid && t <= maxt;
+        }
+      }
+    }
+  }
+  if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = n_visits;
+  if (!active) return;
+  if (NEAR) {
+    t_out[ray] = best_t;
+    idx_out[ray] = best_i;
+  }
+  if (ANY) occ_out[ray] = occ ? 1 : 0;
+}
+
 inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -138,5 +267,27 @@ extern "C" int rt_occlude_multi(const float* sh, const float* g, const int* list
                                 void* stream) {
   multi_kernel<false, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
       nullptr, sh, g, lists, counts, nullptr, nullptr, occ, B, NT, TT);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_nearest_grid(const float* feats, const float* g, const float* aabbs, float* t,
+                               int* idx, int* visits, int B, int NT, int TT, void* stream) {
+  grid_kernel<true, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      feats, nullptr, g, aabbs, t, idx, nullptr, visits, B, NT, TT);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_nearest_shadow_grid(const float* feats, const float* sh, const float* g,
+                                      const float* aabbs, float* t, int* idx, int* occ,
+                                      int* visits, int B, int NT, int TT, void* stream) {
+  grid_kernel<true, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      feats, sh, g, aabbs, t, idx, occ, visits, B, NT, TT);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_occlude_grid(const float* sh, const float* g, const float* aabbs, int* occ,
+                               int* visits, int B, int NT, int TT, void* stream) {
+  grid_kernel<false, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      nullptr, sh, g, aabbs, nullptr, nullptr, occ, visits, B, NT, TT);
   return (int)cudaGetLastError();
 }

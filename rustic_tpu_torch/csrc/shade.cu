@@ -14,7 +14,8 @@
 // add emission with the MIS weight, sample the BSDF (Lambert/GGX or the GGX
 // dielectric), pick a light from the alias table and build the shadow ray
 // (NEE), update throughput, russian roulette after min_bounces, add the
-// procedural sky to escaped lanes on the last bounce, and write the packed
+// procedural sky to escaped lanes on the last bounce (in HDR-sky mode,
+// has_skybox, the driver adds the image sky instead), and write the packed
 // state [19, B], the next ray rows [16, B] and the shadow ray rows [16, B].
 //
 // What bounds them: memory. A lane reads 19 + 16 + 32 + 4 f32/i32 rows and
@@ -358,7 +359,7 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ entry_r
              const int* __restrict__ primes, float* __restrict__ st_out,
              float* __restrict__ nf_out, float* __restrict__ sf_out,
              int B, int bounce, int min_bounces, int max_bounces, int nee,
-             int uses_nee, int has_glass, int n_alias) {
+             int uses_nee, int has_glass, int n_alias, int has_skybox) {
   __shared__ float s_entry[WIDE ? 1 : MAX_ALIAS * ENTRY_WIDTH];
   if constexpr (!WIDE) {
     if (uses_nee) {
@@ -568,8 +569,10 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ entry_r
     thr = sel(alive_out, scale(thr, inv_p), thr);
   }
 
-  // ---- procedural sky on the lanes that escaped (last bounce)
-  if (last) {
+  // ---- procedural sky on the lanes that escaped (last bounce); with an
+  // HDR skybox the driver adds the image sky after this bounce
+  // (runtime/pipeline.py hdr_sky_payoff), as the JAX kernel leaves it to XLA
+  if (last && !has_skybox) {
     const V3 sun = v3(params[0], params[1], params[2]);
     const V3 term = missed ? mul(thr, procedural_sky(sun, params[3], ro, rd)) : zero3;
     rad = add(rad, term);
@@ -636,12 +639,14 @@ extern "C" int rt_shade_bounce(const float* params, const float* entry_rows, con
                                const int* offsets, const int* primes, float* st_out,
                                float* nf_out, float* sf_out, int B, int bounce,
                                int min_bounces, int max_bounces, int nee, int uses_nee,
-                               int has_glass, int n_alias, int n_entry_rows, void* stream) {
+                               int has_glass, int n_alias, int n_entry_rows, int has_skybox,
+                               void* stream) {
   if (uses_nee && (n_alias > MAX_ALIAS || n_alias > n_entry_rows)) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + THREADS - 1) / THREADS);
   shade_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       params, entry_rows, st, feats, t, idx, attrs, occ, sidx, offsets, primes, st_out,
-      nf_out, sf_out, B, bounce, min_bounces, max_bounces, nee, uses_nee, has_glass, n_alias);
+      nf_out, sf_out, B, bounce, min_bounces, max_bounces, nee, uses_nee, has_glass, n_alias,
+      has_skybox);
   return (int)cudaGetLastError();
 }
 
@@ -652,11 +657,12 @@ extern "C" int rt_shade_bounce_wide(const float* params, const float* entry_rows
                                     float* st_out, float* nf_out, float* sf_out, int B,
                                     int bounce, int min_bounces, int max_bounces, int nee,
                                     int uses_nee, int has_glass, int n_alias, int n_entry_rows,
-                                    void* stream) {
+                                    int has_skybox, void* stream) {
   if (uses_nee && (n_alias < 1 || n_alias > n_entry_rows)) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + THREADS - 1) / THREADS);
   shade_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       params, entry_rows, st, feats, t, idx, attrs, occ, sidx, offsets, primes, st_out,
-      nf_out, sf_out, B, bounce, min_bounces, max_bounces, nee, uses_nee, has_glass, n_alias);
+      nf_out, sf_out, B, bounce, min_bounces, max_bounces, nee, uses_nee, has_glass, n_alias,
+      has_skybox);
   return (int)cudaGetLastError();
 }

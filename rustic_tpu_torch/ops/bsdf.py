@@ -1,5 +1,6 @@
-"""BSDFs over the wavefront (twin of rustic_tpu/ops/bsdf.py for untextured
-scenes): metallic/roughness PBR (cosine diffuse + Karis GGX specular
+"""BSDFs over the wavefront (twin of rustic_tpu/ops/bsdf.py): the
+material of a hit (its row's factors, or texels of the co-located
+material atlas where the material is textured), metallic/roughness PBR (cosine diffuse + Karis GGX specular
 with the specular-weight clamp) and the GGX microfacet dielectric.
 Both lobes run for every lane; masks pick the result.
 
@@ -15,7 +16,9 @@ from typing import NamedTuple
 import torch
 
 from rustic_tpu_torch.ops import sampling as s
+from rustic_tpu_torch.ops.texture import sample_atlas
 from rustic_tpu_torch.scene import world as W
+from rustic_tpu_torch.scene.atlas import CH_ALBEDO, CH_METAL, CH_ROUGH
 
 LOBE_DIFFUSE = 0
 LOBE_SPECULAR = 1
@@ -139,17 +142,50 @@ def pbr_pdf_lobe(mat: PBRMaterial, view, normal, light, lobe_is_specular=False):
     return _pdf_specular(view, normal, halfway, d_term)
 
 
-def material_from_attrs(scene, attrs, specular_weight_clamp) -> PBRMaterial:
-    """PBR parameters from the slim shading row (untextured scenes: no
-    atlas fetch, so no UVs)."""
-    if scene.has_textures:
-        raise NotImplementedError(W.TEXTURES_TODO)
-    roughness = torch.clamp(W.attr_rough_scalar(attrs), min=s.EPS)
-    metallic = torch.clamp(W.attr_metal_scalar(attrs), max=1.0 - s.EPS)
+def material_tex_rect(has_tex, albedo_slot, metal_slot, rough_slot, norm_slot):
+    """A material's atlas rect: every textured map of a material lands at
+    one cell (scene/atlas.py), so any textured slot holds it; take the
+    first. Untextured lanes yield their colour slot, whose fetch the
+    has-texture selects then discard."""
+    return torch.where(
+        has_tex[..., 0:1] != 0, albedo_slot,
+        torch.where(
+            has_tex[..., 1:2] != 0, metal_slot,
+            torch.where(has_tex[..., 2:3] != 0, rough_slot, norm_slot),
+        ),
+    )
+
+
+def material_tex_rows(scene, rect, uv):
+    """One bilinear footprint over the 9-channel material atlas -> [B, 9]
+    rows serving albedo, metallic, roughness and the normal map."""
+    return sample_atlas(scene.atlas, rect, uv)
+
+
+def material_from_attrs(scene, attrs, uv, specular_weight_clamp, tex_rows=None) -> PBRMaterial:
+    """PBR parameters from the hit's shading row (reference:
+    kernels/src/bsdf.rs:354-387): its factors, or for a textured scene
+    the atlas texels where the material has a map. `tex_rows` ([B, 9])
+    lets the caller share the footprint it fetched for normal mapping;
+    without it a textured scene fetches here."""
+    albedo = W.attr_albedo3(attrs)
+    roughness = W.attr_rough_scalar(attrs)
+    metallic = W.attr_metal_scalar(attrs)
+    if scene.has_textures:  # textured scenes carry full-width rows
+        has_tex = attrs[:, W.ATTR_HASTEX]
+        if tex_rows is None:
+            rect = material_tex_rect(
+                has_tex, attrs[:, W.ATTR_ALBEDO], attrs[:, W.ATTR_METAL],
+                attrs[:, W.ATTR_ROUGH], attrs[:, W.ATTR_NORMTEX],
+            )
+            tex_rows = material_tex_rows(scene, rect, uv)
+        albedo = torch.where(has_tex[:, 0:1] != 0, tex_rows[..., CH_ALBEDO][..., :3], albedo)
+        roughness = torch.where(has_tex[:, 2] != 0, tex_rows[..., CH_ROUGH], roughness)
+        metallic = torch.where(has_tex[:, 1] != 0, tex_rows[..., CH_METAL], metallic)
     return PBRMaterial(
-        albedo=W.attr_albedo3(attrs),
-        roughness=roughness,
-        metallic=metallic,
+        albedo=albedo,
+        roughness=torch.clamp(roughness, min=s.EPS),
+        metallic=torch.clamp(metallic, max=1.0 - s.EPS),
         specular_weight_clamp=specular_weight_clamp,
     )
 

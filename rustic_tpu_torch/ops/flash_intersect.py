@@ -28,6 +28,15 @@ only those tiles, in ascending order:
   (bit 21).
 - `occlude_multi` (K7): the any-hit test alone.
 
+The grid form (K9-K11: `nearest_grid`, `nearest_shadow_grid`,
+`occlude_grid`) computes what K5-K7 compute without lists: each block
+walks all NT tiles in ascending order, and each ray runs a tile's pair
+tests only where its own slab test against the tile's AABB passes, with
+its running best t as the limit for the nearest set and its max t for
+the any-hit set (`_tile_possible` of the JAX package's `_nearest_multi`
+and its twins). A block stages a tile only when one of its rays needs
+it; the wrappers' `visits` argument receives those tiles per block.
+
 Each wrapper runs the plain PyTorch version for CPU tensors and the
 CUDA kernel (csrc/flash_intersect.cu, csrc/flash_multi.cu) for CUDA
 tensors; it counts its kernel launches in LAUNCHES.
@@ -54,6 +63,7 @@ _PLAIN_CHUNK_BYTES = 1 << 30
 LAUNCHES = {
     "nearest_attrs": 0, "nearest_shadow_attrs": 0, "occlude": 0,
     "nearest_multi": 0, "nearest_shadow_multi": 0, "occlude_multi": 0,
+    "nearest_grid": 0, "nearest_shadow_grid": 0, "occlude_grid": 0,
 }
 
 
@@ -305,6 +315,96 @@ def occlude_multi_plain(sh_t, g16, lists, counts):
     return _occlude_tiles(sh_t, g16, _admit_table(lists, counts, geometry(g16)[2], 0))
 
 
+# ---- multi-tile, grid form: the per-ray AABB cull without lists -----------
+
+
+def _inv_dir(rd):
+    """1/rd with |rd| < 1e-12 clamped to +-1e12 (`_tile_possible`)."""
+    return torch.where(rd.abs() < 1e-12, torch.where(rd < 0, -1e12, 1e12), torch.reciprocal(rd))
+
+
+def _slab_spans(rays_t, tile_aabbs):
+    """Each ray's slab interval against every tile AABB: rays_t [16, c] ->
+    (tmin, tmax) [c, NT], min/max propagating NaN as jnp's do."""
+    ro, inv = rays_t[6:9], _inv_dir(rays_t[0:3])
+    tmin = tmax = None
+    for a in range(3):
+        t1 = (tile_aabbs[:, a][None, :] - ro[a][:, None]) * inv[a][:, None]
+        t2 = (tile_aabbs[:, 4 + a][None, :] - ro[a][:, None]) * inv[a][:, None]
+        lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = lo if tmin is None else torch.maximum(tmin, lo)
+        tmax = hi if tmax is None else torch.minimum(tmax, hi)
+    return tmin, tmax
+
+
+def _slab_ok(tmin, tmax, limit):
+    return (tmax >= tmin) & (tmax > 0.0) & (tmin < limit)
+
+
+def _grid_scan(feats_t, sh_t, g16, tile_aabbs):
+    """The grid form over the nearest set `feats_t` and/or the any-hit set
+    `sh_t` (either may be None) -> (t, idx, occ, visits [nb] i32,
+    tested [2, NT] i64). Per chunk of rays, tiles in ascending order: a
+    ray tests tile j where its slab test passes (limit: its running best
+    t, or its max t while not yet occluded), the nearest fold keeps a
+    strict <, and a block visits tile j when any of its rays tests it.
+    tested[s, j]: the rays of set s (0 nearest, 1 any-hit) that tested
+    tile j."""
+    rays = feats_t if feats_t is not None else sh_t
+    b = rays.shape[1]
+    dev = rays.device
+    _, tt, nt = geometry(g16)
+    t = torch.full((b,), BIG, dtype=torch.float32, device=dev)
+    idx = torch.zeros(b, dtype=torch.int32, device=dev)
+    occ = torch.zeros(b, dtype=torch.int32, device=dev)
+    tested = torch.zeros((nt, b), dtype=torch.bool, device=dev)
+    per_set = torch.zeros((2, nt), dtype=torch.int64, device=dev)
+    for lo, hi in _chunks(b, tt):
+        f = feats_t[:, lo:hi] if feats_t is not None else None
+        s = sh_t[:, lo:hi] if sh_t is not None else None
+        t_c, i_c, o_c = t[lo:hi], idx[lo:hi], occ[lo:hi]
+        if f is not None:
+            n_min, n_max = _slab_spans(f, tile_aabbs)
+        if s is not None:
+            s_min, s_max = _slab_spans(s, tile_aabbs)
+            maxt = s[SH_MAXT_COL]
+        for j, gj in _tiles(g16, tt, nt):
+            near_ok = any_ok = torch.zeros_like(tested[j, lo:hi])
+            if f is not None:
+                near_ok = _slab_ok(n_min[:, j], n_max[:, j], t_c)
+                tile_min, tile_arg = _nearest_chunk(f, gj, tt)
+                better = near_ok & (tile_min < t_c)
+                t_c = torch.where(better, tile_min, t_c)
+                i_c = torch.where(better, tile_arg + j * tt, i_c)
+            if s is not None:
+                any_ok = (o_c == 0) & _slab_ok(s_min[:, j], s_max[:, j], maxt)
+                o_c = o_c | (_anyhit_chunk(s, gj, tt) & any_ok.to(torch.int32))
+            tested[j, lo:hi] = near_ok | any_ok
+            per_set[0, j] += near_ok.sum()
+            per_set[1, j] += any_ok.sum()
+        t[lo:hi], idx[lo:hi], occ[lo:hi] = t_c, i_c, o_c
+    nb = -(-b // BT_MULTI)
+    tested = torch.nn.functional.pad(tested, (0, nb * BT_MULTI - b))
+    visits = tested.reshape(nt, nb, BT_MULTI).any(dim=2).sum(dim=0, dtype=torch.int32)
+    return t, idx, occ, visits, per_set
+
+
+def nearest_grid_plain(feats_t, g16, tile_aabbs):
+    """[16, B] rays -> (t [B] f32, idx [B] i32), the grid form."""
+    t, idx = _grid_scan(feats_t, None, g16, tile_aabbs)[:2]
+    return t, idx
+
+
+def nearest_shadow_grid_plain(feats_t, sh_t, g16, tile_aabbs):
+    """The grid form of the merged scan -> (t, idx, occ [B] i32)."""
+    return _grid_scan(feats_t, sh_t, g16, tile_aabbs)[:3]
+
+
+def occlude_grid_plain(sh_t, g16, tile_aabbs):
+    """[16, B] shadow rows -> occ [B] i32, the grid form."""
+    return _grid_scan(None, sh_t, g16, tile_aabbs)[2]
+
+
 # ---- CUDA wrappers ------------------------------------------------------------
 
 # entry point of csrc/flash_intersect.cu: (C name, pointer count, int count)
@@ -320,6 +420,9 @@ _ENTRY_MULTI = {
     "nearest_multi": ("rt_nearest_multi", 6, 3),
     "nearest_shadow_multi": ("rt_nearest_shadow_multi", 8, 3),
     "occlude_multi": ("rt_occlude_multi", 5, 3),
+    "nearest_grid": ("rt_nearest_grid", 6, 3),
+    "nearest_shadow_grid": ("rt_nearest_shadow_grid", 8, 3),
+    "occlude_grid": ("rt_occlude_grid", 5, 3),
 }
 
 
@@ -441,3 +544,55 @@ def occlude_multi(sh_t, g16, lists, counts):
     if b:
         _launch("occlude_multi", sh_t.device, (sh_t, g16, lists, counts, occ), (b, nt, tt))
     return occ
+
+
+def _grid(name, feats_t, sh_t, g16, tile_aabbs, visits):
+    """Run grid-form scan `name` (K9-K11) on the nearest set `feats_t`
+    and/or the any-hit set `sh_t`: the plain version for CPU tensors, the
+    kernel for CUDA tensors -> (t, idx, occ), None where the scan has no
+    such output. `visits` (int32 [nb] or None) receives the tiles each
+    block visited."""
+    rays = feats_t if feats_t is not None else sh_t
+    if _build.uses_plain(rays):
+        t, idx, occ, vis, _ = _grid_scan(feats_t, sh_t, g16, tile_aabbs)
+        if visits is not None:
+            visits.copy_(vis)
+        return (t if feats_t is not None else None, idx if feats_t is not None else None,
+                occ if sh_t is not None else None)
+    dev = rays.device
+    b = rays.shape[1]
+    t_pad, tt, nt = geometry(g16)
+    for x, what in ((feats_t, "feats_t"), (sh_t, "shadow feats_t")):
+        if x is not None:
+            _build.check(x, what, torch.float32, (16, b), dev)
+    _build.check(g16, "tri_feats16", torch.float32, (16, 4 * t_pad), dev)
+    _build.check(tile_aabbs, "tile_aabbs", torch.float32, (nt, 8), dev)
+    if visits is not None:
+        _build.check(visits, "visits", torch.int32, (-(-b // BT_MULTI),), dev)
+    t = idx = occ = None
+    if feats_t is not None:
+        t = torch.empty(b, dtype=torch.float32, device=dev)
+        idx = torch.empty(b, dtype=torch.int32, device=dev)
+    if sh_t is not None:
+        occ = torch.empty(b, dtype=torch.int32, device=dev)
+    if b:
+        ins = [x for x in (feats_t, sh_t) if x is not None]
+        outs = [x for x in (t, idx, occ) if x is not None]
+        _launch(name, dev, (*ins, g16, tile_aabbs, *outs, visits), (b, nt, tt))
+    return t, idx, occ
+
+
+def nearest_grid(feats_t, g16, tile_aabbs, visits=None):
+    """K9 (replaces _nearest_multi): -> (t [B] f32, idx [B] i32). `visits`,
+    an int32 [nb] tensor or None, receives the tiles each block visited."""
+    return _grid("nearest_grid", feats_t, None, g16, tile_aabbs, visits)[:2]
+
+
+def nearest_shadow_grid(feats_t, sh_t, g16, tile_aabbs, visits=None):
+    """K10 (replaces _nearest_shadow_multi): -> (t, idx, occ [B] i32)."""
+    return _grid("nearest_shadow_grid", feats_t, sh_t, g16, tile_aabbs, visits)
+
+
+def occlude_grid(sh_t, g16, tile_aabbs, visits=None):
+    """K11 (replaces _occlude_multi): -> occ [B] i32."""
+    return _grid("occlude_grid", None, sh_t, g16, tile_aabbs, visits)[2]

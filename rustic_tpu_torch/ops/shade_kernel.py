@@ -6,7 +6,9 @@ re-test the winner triangle exactly, add emission with the MIS weight,
 sample the BSDF (Lambert/GGX, or the GGX dielectric), pick a light from
 the alias table and build the shadow ray (NEE), update the throughput,
 run russian roulette after min_bounces, add the procedural sky to the
-lanes that escaped on the last bounce, and emit the next ray rows.
+lanes that escaped on the last bounce (with an HDR skybox the kernel
+leaves the sky to the driver, runtime/pipeline.py `hdr_sky_payoff`), and
+emit the next ray rows.
 
 K4 holds an alias table of at most 16 entries in shared memory (the
 single-tile path). K8 is the same kernel for wider tables: it reads the
@@ -455,13 +457,6 @@ def _alias_select(entry_rows, n_alias, n_u32, dim0, offs):
 # ---- the plain version -----------------------------------------------------------
 
 
-def _check_supported(cfg: StaticConfig) -> None:
-    if cfg.has_skybox:
-        raise NotImplementedError(
-            "HDR skyboxes are not ported yet (ROADMAP.md queue 1 item 7)"
-        )
-
-
 def shade_bounce_plain(
     cfg: StaticConfig, bounce: int, params, entry_rows, st, feats_t, t, idx,
     attrs_t, occ, sidx, offsets, has_glass: bool = False, n_alias: int = 0,
@@ -470,7 +465,6 @@ def shade_bounce_plain(
     [NST, B], next feats [16, B] or None on the last bounce, shadow
     feats [16, B] or None without NEE). Arguments as `shade_bounce`;
     the alias table may have any number of entries."""
-    _check_supported(cfg)
     nee = cfg.nee
     uses_nee = nee.uses_nee and n_alias > 0
     last = bounce == cfg.max_bounces - 1
@@ -637,8 +631,9 @@ def shade_bounce_plain(
         inv_p = torch.reciprocal(_max(prob, 1e-20))
         throughput = _where(alive_out, _scale(throughput, inv_p), throughput)
 
-    # ---- procedural sky on the lanes that escaped (last bounce) --------------------
-    if last:
+    # ---- procedural sky on the lanes that escaped (last bounce); an HDR
+    # skybox is paid off by the driver from the last bounce's ray rows ----
+    if last and not cfg.has_skybox:
         sun = (params[0, 0], params[0, 1], params[0, 2])
         sky = _procedural_sky(sun, params[0, 3], ro, rd)
         radiance = _add(radiance, _where(missed, _mul(throughput, sky), zero3))
@@ -722,7 +717,6 @@ def _run_shade(fn, label, cfg, bounce, params, entry_rows, st, feats_t, t, idx, 
             cfg, bounce, params, entry_rows, st, feats_t, t, idx, attrs_t, occ,
             sidx, offsets, has_glass=has_glass, n_alias=n_alias,
         )
-    _check_supported(cfg)
     dev = st.device
     b = st.shape[1]
     uses_nee = cfg.nee.uses_nee and n_alias > 0
@@ -747,11 +741,11 @@ def _run_shade(fn, label, cfg, bounce, params, entry_rows, st, feats_t, t, idx, 
     sf = torch.empty((16, b), dtype=torch.float32, device=dev) if uses_nee else None
     if b:
         _build.launch(
-            _build.entry_point("shade", fn, 14, 9), label, dev,
+            _build.entry_point("shade", fn, 14, 10), label, dev,
             (params, entry_rows, st, feats_t, t, idx, attrs_t, occ, sidx, offsets,
              _lds_primes(dev), st_out, nf, sf),
             (b, bounce, cfg.min_bounces, cfg.max_bounces, int(cfg.nee), int(uses_nee),
-             int(has_glass), n_alias, entry_rows.shape[0]),
+             int(has_glass), n_alias, entry_rows.shape[0], int(cfg.has_skybox)),
         )
         LAUNCHES[label] += 1
     return st_out, nf, sf

@@ -1,5 +1,5 @@
 """Sky radiance (twin of rustic_tpu/ops/skybox.py): the single-scattering
-procedural atmosphere. The HDR equirect sky is not ported yet.
+procedural atmosphere and the HDR equirect image sky.
 
 Vectors are [..., 3] tensors; the 12-step march is a Python loop over
 whole-batch tensor ops.
@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from rustic_tpu_torch.ops.sampling import dot, inv, mask_nan, rdiv
+from rustic_tpu_torch.ops.sampling import PI, dot, inv, mask_nan, rdiv
+from rustic_tpu_torch.ops.texture import sample_bilinear
 
 # (reference: kernels/src/skybox.rs:8-16)
 _RAY_COEFF = (58e-7, 135e-7, 331e-7)
@@ -20,12 +21,6 @@ _ATMOSPHERE_RADIUS = 6380e3
 _H_RAY = 8e3
 _H_MIE = 12e2
 _STEPS = 12  # reference: kernels/src/skybox.rs:80
-
-IMAGE_SKY_TODO = (
-    "HDR skyboxes (image_sky, _hdr_sky_payoff) are not ported yet "
-    "(ROADMAP.md queue 1 item 7, the BreakTime slice)"
-)
-
 
 def _escape(p, d, r):
     """Distance to the sphere of radius r about the earth centre
@@ -102,8 +97,26 @@ def procedural_sky(sun_direction: torch.Tensor, ro: torch.Tensor, rd: torch.Tens
     return torch.where(g > 0.0, torch.exp(2.2 * torch.log(safe)), 0.0)
 
 
+def image_sky(skybox: torch.Tensor, sun_direction: torch.Tensor, rd: torch.Tensor):
+    """Equirect sky image [H, W, 4] seen along rd [..., 3], rotated with the
+    sun's azimuth and scaled by its intensity / 15 (reference:
+    kernels/src/lib.rs:71-77) -> [..., 3]."""
+    rotation = torch.atan2(sun_direction[2], sun_direction[0])
+    cosr = torch.cos(rotation)
+    sinr = torch.sin(rotation)
+    # Mat3::from_rotation_y(rotation) applied to rd
+    x = cosr * rd[..., 0] + sinr * rd[..., 2]
+    y = rd[..., 1]
+    z = -sinr * rd[..., 0] + cosr * rd[..., 2]
+    u = 0.5 + torch.atan2(z, x) * inv(2.0 * PI)
+    v = 1.0 - (0.5 + torch.asin(torch.clamp(y, -1.0, 1.0)) * inv(PI))
+    uv = torch.stack([u, v], dim=-1)
+    intensity = sun_direction[3] * inv(15.0)
+    return sample_bilinear(skybox, uv, wrap_x=True)[..., :3] * intensity
+
+
 def sky_radiance(scene, has_skybox: bool, sun_direction, ro, rd):
-    """Procedural vs image sky (static has_skybox, kernels/src/lib.rs:66-78)."""
+    """Image vs procedural sky (static has_skybox, kernels/src/lib.rs:66-78)."""
     if has_skybox:
-        raise NotImplementedError(IMAGE_SKY_TODO)
+        return image_sky(scene.skybox, sun_direction, rd)
     return procedural_sky(sun_direction, ro, rd)

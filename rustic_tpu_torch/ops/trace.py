@@ -23,6 +23,7 @@ from rustic_tpu_torch.ops.intersect import TraceResult, gather_attr_rows
 from rustic_tpu_torch.ops.rng import lds
 from rustic_tpu_torch.ops.skybox import sky_radiance
 from rustic_tpu_torch.scene import world as W
+from rustic_tpu_torch.scene.atlas import CH_NORMAL
 
 _DIMS_PER_BOUNCE = 8
 _AA_DIMS = 2
@@ -174,16 +175,44 @@ def bounce_pre(
 
     shade = hit_alive & ~die_emis
 
-    # ---- vertex normal interpolation (kernels/src/lib.rs:111-129), not
-    # renormalised, as the reference ----
+    # ---- vertex attribute interpolation (kernels/src/lib.rs:111-129); the
+    # normal is not renormalised, as the reference ----
     w_b = res.u[..., None]
     w_c = res.v[..., None]
     w_a = 1.0 - w_b - w_c
     nrm = attrs[:, W.ATTR_NRM]
     normal = w_a * nrm[:, 0:3] + w_b * nrm[:, 3:6] + w_c * nrm[:, 6:9]
+    if W.attr_is_slim(attrs):  # untextured: no uvs are read
+        uv = torch.zeros((batch, 2), dtype=torch.float32, device=ro.device)
+    else:
+        uvs = attrs[:, W.ATTR_UV]
+        uv = w_a * uvs[:, 0:2] + w_b * uvs[:, 2:4] + w_c * uvs[:, 4:6]
+        out_of_range = ((uv < 0.0) | (uv > 1.0)).any(dim=-1, keepdim=True)
+        uv = torch.where(out_of_range, uv - torch.floor(uv), uv)
+
+    # ---- normal mapping (kernels/src/lib.rs:131-141): one footprint of the
+    # material atlas serves the normal map and the material maps ----
+    tex_rows = None
+    if scene.has_textures:
+        has_tex = attrs[:, W.ATTR_HASTEX]
+        rect = bsdf_mod.material_tex_rect(
+            has_tex, attrs[:, W.ATTR_ALBEDO], attrs[:, W.ATTR_METAL],
+            attrs[:, W.ATTR_ROUGH], attrs[:, W.ATTR_NORMTEX],
+        )
+        tex_rows = bsdf_mod.material_tex_rows(scene, rect, uv)
+        nm = tex_rows[..., CH_NORMAL] * 2.0 - 1.0
+        tan = attrs[:, W.ATTR_TAN]
+        tangent = w_a * tan[:, 0:3] + w_b * tan[:, 3:6] + w_c * tan[:, 6:9]
+        bitangent = s.cross(tangent, normal)
+        mapped = s.normalize(
+            tangent * nm[..., 0:1] + bitangent * nm[..., 1:2] + normal * nm[..., 2:3]
+        )
+        normal = torch.where((has_tex[:, 3] != 0)[..., None], mapped, normal)
 
     # ---- BSDF sample (kernels/src/lib.rs:143-146) ----
-    mat = bsdf_mod.material_from_attrs(scene, attrs, cam.specular_weight_clamp)
+    mat = bsdf_mod.material_from_attrs(
+        scene, attrs, uv, cam.specular_weight_clamp, tex_rows=tex_rows
+    )
     r1 = draws[:, 0]
     r2 = draws[:, 1]
     r3 = draws[:, 2]
@@ -264,11 +293,12 @@ def bounce_pre(
 def deferred_sky_term(scene, cfg, cam, ro, rd, throughput, missed):
     """The sky radiance of the lanes that escaped, [B, 3].
 
-    The JAX package skips the march when no lane missed (`lax.cond`) and
+    The sky is the image sky with has_skybox, else the procedural march.
+    The JAX package skips the sky when no lane missed (`lax.cond`) and
     marches only the 512-lane segments holding misses; both equal the
-    full march up to rounding, because the march is elementwise. Here
-    every lane is marched and the result masked, so the host never waits
-    on the device to decide."""
+    full evaluation up to rounding, because it is elementwise. Here every
+    lane is evaluated and the result masked, so the host never waits on
+    the device to decide."""
     sky = sky_radiance(scene, cfg.has_skybox, cam.sun_direction, ro, rd)
     return torch.where(missed[:, None], throughput * sky, 0.0)
 

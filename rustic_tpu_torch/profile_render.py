@@ -1,22 +1,26 @@
 """Where the time of a render goes on one CUDA device.
 
-    python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis]
-        [--driver kernel-shade|ray-sorted|unsorted] [--table PATH]
+    python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis|breaktime]
+        [--driver kernel-shade|ray-sorted|unsorted] [--scan lists|grid] [--table PATH]
 
 `darkcornell` (the default, the headline render): DarkCornell 1280x720
 NEE+MIS, 4 bounces, profiled at 32 spp, then timed at 160 spp.
 `veachmis` (the multi-tile render, BASELINE.md config 4 with the spp
 cut): VeachMIS 1024x1024 NEE+MIS with the camera of
 tools/quality_gate.py, profiled at 16 spp, then timed at 64 spp.
+`breaktime` (the full-pipeline render, BASELINE.md config 5 with the spp
+cut): BreakTime 1920x1080 NEE+MIS with its HDR sky and textures (4096^2
+atlas), profiled at 8 spp, then timed at 32 spp.
 `--driver` names the multi-tile loop (RenderSettings.multitile_loop):
 `kernel-shade` (the default) or the reference loops `ray-sorted` and
-`unsorted`; it does not change the single-tile path.
+`unsorted`; `--scan` the form of its scans (RenderSettings.multitile_scan):
+`lists` (the default) or `grid`. Neither changes the single-tile path.
 
 Renders the scene once as a warm-up, then once under torch.profiler, and
 prints: the wall time of the profiled render, the device time summed over
 its kernels and copies, the device's idle share (1 - device time / wall
 time, one stream so nothing overlaps), and the device time per kernel
-(K1-K8), per copy and for the torch glue (on the multi-tile path the glue
+(K1-K11), per copy and for the torch glue (on the multi-tile path the glue
 is the tile lists, the sort and unsort gathers, and the shading stages or
 the row resolve), with the glue's twelve largest kernels and the peak
 device memory. `--table` writes the profiler's full table to a file.
@@ -32,22 +36,28 @@ import time
 import torch
 
 from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
-from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS
+from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS, MULTITILE_SCANS
 from rustic_tpu_torch.runtime.render import render_image
-from rustic_tpu_torch.scene.world import World
+from rustic_tpu_torch.scene.world import World, load_skybox_image
 
-# scene -> (path, config, profiled spp, timed spp)
+# scene -> (path, sky image or None, config, profiled spp, timed spp)
 CONFIGS = {
     "darkcornell": (
-        "assets/scenes/DarkCornell.glb",
+        "assets/scenes/DarkCornell.glb", None,
         TracingConfig(width=1280, height=720, nee=NextEventEstimation.MIS),
         32, 160,
     ),
     "veachmis": (
-        "assets/scenes/VeachMIS.glb",
+        "assets/scenes/VeachMIS.glb", None,
         TracingConfig(width=1024, height=1024, nee=NextEventEstimation.MIS,
                       cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05)),
         16, 64,
+    ),
+    "breaktime": (
+        "assets/scenes/BreakTime.glb", "assets/scenes/BreakTimeSky.npy",
+        TracingConfig(width=1920, height=1080, nee=NextEventEstimation.MIS,
+                      cam_position=(0.0, 1.8, -3.2), has_skybox=True),
+        8, 32,
     ),
 }
 
@@ -61,6 +71,9 @@ _KERNELS = {
     "multi_kernel<true,false>": "K5 nearest_multi",
     "multi_kernel<true,true>": "K6 nearest_shadow_multi",
     "multi_kernel<false,true>": "K7 occlude_multi",
+    "grid_kernel<true,false>": "K9 nearest_grid",
+    "grid_kernel<true,true>": "K10 nearest_shadow_grid",
+    "grid_kernel<false,true>": "K11 occlude_grid",
 }
 
 
@@ -85,13 +98,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=sorted(CONFIGS), default="darkcornell")
     ap.add_argument("--driver", choices=MULTITILE_LOOPS, default=MULTITILE_LOOPS[0])
+    ap.add_argument("--scan", choices=MULTITILE_SCANS, default=MULTITILE_SCANS[0])
     ap.add_argument("--table", help="write the profiler's key_averages table here")
     args = ap.parse_args(argv)
-    path, config, profile_spp, spp = CONFIGS[args.scene]
+    path, sky, config, profile_spp, spp = CONFIGS[args.scene]
     size = f"{config.width}x{config.height}"
+    loop = f"{args.driver} loop, {args.scan} scans"
 
     def settings(samples):
-        return RenderSettings(samples=samples, multitile_loop=args.driver)
+        return RenderSettings(samples=samples, multitile_loop=args.driver,
+                              multitile_scan=args.scan)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -99,7 +115,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     )
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi: n/a")
-    scene = World.from_path(path).to_torch(dev)
+    scene = World.from_path(path).to_torch(dev, load_skybox_image(sky) if sky else None)
     render_image(scene, config, settings(4), device=dev)  # builds and warms
 
     torch.cuda.reset_peak_memory_stats()
@@ -122,7 +138,7 @@ def main(argv=None) -> int:
     busy_us = sum(v[0] for v in by_cat.values())
     if busy_us == 0:
         raise RuntimeError("the profiler recorded no device time; time with CUDA events")
-    print(f"profiled render {args.scene} {size}x{profile_spp} spp, {args.driver} loop, "
+    print(f"profiled render {args.scene} {size}x{profile_spp} spp, {loop}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: "
           f"wall {wall_us / 1e3:.3f} ms, "
           f"device {busy_us / 1e3:.3f} ms, busy {busy_us / wall_us:.4f}, "
@@ -141,7 +157,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         render_image(scene, config, settings(spp), device=dev)
         s = time.perf_counter() - t0
-        print(f"render {args.scene} {size}x{spp} spp, {args.driver} loop: {s:.4f} s, "
+        print(f"render {args.scene} {size}x{spp} spp, {loop}: {s:.4f} s, "
               f"{config.width * config.height * spp / s / 1e6:.2f} Mpaths/s")
     return 0
 

@@ -21,14 +21,21 @@ Multi-tile scenes take one of three loops, named by the caller's
 - unsorted: init -> K5 -> `pre` -> per later bounce K6 plus the previous
   bounce's shadow rays -> `pre` -> finish.
 
+Each multi-tile scan takes the form the caller's `scan` argument names
+(`MULTITILE_SCANS`): "lists" (the default), `block_tile_lists` in torch
+and then K5/K6/K7, or "grid", K9/K10/K11, which cull tiles per ray in the
+kernel and need no lists.
+
 The three give the same film; kernel-shade is the fastest on the card.
 The other two are the ports of the JAX package's XLA-shade drivers,
 kept as the references the tests hold the default to.
 
 In every loop the last bounce's shadow rays of a group are held and ride
-the next group's bounce-0 scan (K2 / K6); the last group's are resolved
-by K3 / K7. All work is queued on the tensors' device; nothing waits for
-it.
+the next group's bounce-0 scan (K2 / K6 / K10); the last group's are
+resolved by K3 / K7 / K11. With an HDR skybox (`cfg.has_skybox`) the
+kernel-shade loops add the image sky to the escaped lanes after a group's
+last bounce (`hdr_sky_payoff`), the reference loops in `bounce_pre`. All
+work is queued on the tensors' device; nothing waits for it.
 """
 
 from __future__ import annotations
@@ -47,8 +54,8 @@ from rustic_tpu_torch.ops.intersect import _ray_features16, classify_flash_hit2,
 from rustic_tpu_torch.ops.nee import ENTRY_SELECT_MAX
 from rustic_tpu_torch.ops.resolve import resolve_attrs_rowT
 from rustic_tpu_torch.ops.sampling import cross
-from rustic_tpu_torch.ops.skybox import IMAGE_SKY_TODO
-from rustic_tpu_torch.scene.world import SceneTensors
+from rustic_tpu_torch.ops.skybox import image_sky
+from rustic_tpu_torch.scene.world import SINGLE_TILE_TEXTURES_TODO, SceneTensors
 
 # Lane budget for sample folding: fold 4 at megabatch sizes (~1M pixels).
 _FOLD_MAX_LANES = 1 << 22
@@ -91,6 +98,19 @@ def initk(cfg: StaticConfig, cam: CameraParams, px, py, sample_idx: int, offsets
          torch.zeros(2, dtype=torch.float32, device=dev)]
     ).reshape(1, 8)
     return st, feats_t, sidx, params
+
+
+def hdr_sky_payoff(skybox, sun_direction, st, feats_t):
+    """The HDR sky of the kernel-shade loops (`_hdr_sky_payoff`): the shade
+    kernel in HDR mode leaves the sky out, so after the last bounce the
+    escaped lanes (SK_MISSED) add throughput x image_sky along the rd of
+    the last bounce's input rows (a retired lane's rd stays frozen at its
+    miss). A masked update in place of the JAX `lax.cond`: no host sync.
+    Updates st [NST, B] in place and returns it."""
+    missed = st[SK.SK_MISSED] > 0.5
+    sky = image_sky(skybox, sun_direction, feats_t[0:3].T)  # [B, 3]
+    st[SK.SK_RAD] += torch.where(missed[None, :], st[SK.SK_THR] * sky.T, 0.0)
+    return st
 
 
 def finishk(st, occ, film, fold: int):
@@ -175,10 +195,26 @@ def stage_finish(radiance, prev_nee, prev_occ, film, fold: int):
     return film + radiance
 
 
-def _scan(feats, pending_sh, scene):
+# the forms of the multi-tile scans; the first is the default
+MULTITILE_SCANS = ("lists", "grid")
+
+
+def _check_scan(scan: str) -> None:
+    if scan not in MULTITILE_SCANS:
+        raise ValueError(f"multi-tile scan {scan!r}: expected one of {MULTITILE_SCANS}")
+
+
+def _scan(feats, pending_sh, scene, scan: str = MULTITILE_SCANS[0]):
     """The flash scan of one bounce: K5 alone, or K6 with the pending
-    shadow rays -> (t, idx, occ bool or None)."""
+    shadow rays, after their tile lists; K9 / K10 in the grid form ->
+    (t, idx, occ bool or None)."""
     g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+    if scan == "grid":
+        if pending_sh is None:
+            t, idx = FI.nearest_grid(feats, g16, aabbs)
+            return t, idx, None
+        t, idx, occ = FI.nearest_shadow_grid(feats, pending_sh, g16, aabbs)
+        return t, idx, occ != 0
     if pending_sh is None:
         lists, counts = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), feats)
         t, idx = FI.nearest_multi(feats, g16, lists, counts)
@@ -188,31 +224,37 @@ def _scan(feats, pending_sh, scene):
     return t, idx, occ != 0
 
 
-def _flush_held(held, film, scene):
-    """Resolve a held group's last shadow rays with K7 and fold it."""
+def _occlude(sh, scene, scan: str):
+    """Any-hit of shadow rows alone: K7 after its tile lists, or K11
+    -> occ [B] i32."""
+    if scan == "grid":
+        return FI.occlude_grid(sh, scene.tri_feats16, scene.tile_aabbs)
+    lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), sh)
+    return FI.occlude_multi(sh, scene.tri_feats16, lists, counts)
+
+
+def _flush_held(held, film, scene, scan):
+    """Resolve a held group's last shadow rays with K7 / K11 and fold it."""
     rad, prev_nee, pending_sh, g = held
-    lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), pending_sh)
-    occ = FI.occlude_multi(pending_sh, scene.tri_feats16, lists, counts) != 0
-    return stage_finish(rad, prev_nee, occ, film, g)
+    return stage_finish(rad, prev_nee, _occlude(pending_sh, scene, scan) != 0, film, g)
 
 
-def _render_batch_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film):
+def _render_batch_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
+                            scan=MULTITILE_SCANS[0]):
     """The unsorted multi-tile stage loop (rustic_tpu/runtime/pipeline.py:1066-1150)."""
-    if cfg.has_skybox:
-        raise NotImplementedError(IMAGE_SKY_TODO)
     fold = pick_sample_fold(px.shape[0], n_samples)
     held = None  # (radiance, prev_nee, pending shadow rows, fold) awaiting occlusion
     for k in range(0, n_samples, fold):
         g = min(fold, n_samples - k)
         pxg, pyg, offg = (a.repeat(g) for a in (px, py, offsets))
         if held is not None and held[2].shape[1] != pxg.shape[0]:
-            film = _flush_held(held, film, scene)
+            film = _flush_held(held, film, scene, scan)
             held = None
         st, feats, sidx = stage_init(cfg, cam, pxg, pyg, sample_start + k, offg, g)
         prev_nee = None
         pending_sh = held[2] if held is not None else None
         for bounce in range(cfg.max_bounces):
-            t, idx, prev_occ = _scan(feats, pending_sh, scene)
+            t, idx, prev_occ = _scan(feats, pending_sh, scene, scan)
             if bounce == 0 and held is not None:
                 # this occlusion result belongs to the held group
                 rad_h, nee_h, _, g_h = held
@@ -230,7 +272,7 @@ def _render_batch_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_sa
         else:
             film = stage_finish(st, prev_nee, None, film, g)
     if held is not None:
-        film = _flush_held(held, film, scene)
+        film = _flush_held(held, film, scene, scan)
     return film
 
 
@@ -352,31 +394,28 @@ def rs_finish(radiance, prev_nee, prev_occ, inv, film, fold: int):
     return stage_finish(radiance, prev_nee, prev_occ, film, fold)
 
 
-def _flush_held_rs(held, film, scene):
-    """Resolve a held group's sorted shadow rows with K7 and fold it."""
+def _flush_held_rs(held, film, scene, scan):
+    """Resolve a held group's sorted shadow rows with K7 / K11 and fold it."""
     rad, prev_nee, shadow, inv, g = held
-    lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), shadow)
-    occ = FI.occlude_multi(shadow, scene.tri_feats16, lists, counts) != 0
-    return rs_finish(rad, prev_nee, occ, inv, film, g)
+    return rs_finish(rad, prev_nee, _occlude(shadow, scene, scan) != 0, inv, film, g)
 
 
-def _render_batch_raysorted(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film):
+def _render_batch_raysorted(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
+                            scan=MULTITILE_SCANS[0]):
     """The ray-sorted multi-tile stage loop (rustic_tpu/runtime/pipeline.py:1539-1597)."""
-    if cfg.has_skybox:
-        raise NotImplementedError(IMAGE_SKY_TODO)
     fold = pick_sample_fold(px.shape[0], n_samples)
     held = None  # (radiance, prev_nee, sorted shadow rows, inverse, fold)
     for k in range(0, n_samples, fold):
         g = min(fold, n_samples - k)
         pxg, pyg, offg = (a.repeat(g) for a in (px, py, offsets))
         if held is not None and held[2].shape[1] != pxg.shape[0]:
-            film = _flush_held_rs(held, film, scene)
+            film = _flush_held_rs(held, film, scene, scan)
             held = None
         st, feats, sidx = rs_init(cfg, cam, pxg, pyg, sample_start + k, offg, g)
         prev_nee = pending_sh = inv = None
         for bounce in range(cfg.max_bounces):
             held_here = bounce == 0 and held is not None
-            t, idx, prev_occ = _scan(feats, held[2] if held_here else pending_sh, scene)
+            t, idx, prev_occ = _scan(feats, held[2] if held_here else pending_sh, scene, scan)
             if held_here:
                 rad_h, nee_h, _, inv_h, g_h = held
                 film = rs_finish(rad_h, nee_h, prev_occ, inv_h, film, g_h)
@@ -393,7 +432,7 @@ def _render_batch_raysorted(scene, cfg, cam, px, py, offsets, sample_start, n_sa
         else:
             film = stage_finish(st, prev_nee, None, film, g)
     if held is not None:
-        film = _flush_held_rs(held, film, scene)
+        film = _flush_held_rs(held, film, scene, scan)
     return film
 
 
@@ -431,22 +470,20 @@ def ks_sort(scene, st, nf, sf):
     return nf, sf, inv
 
 
-def _render_batch_ks_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film):
+def _render_batch_ks_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
+                               scan=MULTITILE_SCANS[0]):
     """The kernel-shade multi-tile loop (rustic_tpu/runtime/pipeline.py:1416-1527):
-    per bounce a scan (K5/K6), `ks_resolve`, one shade kernel (K8 for
-    alias tables over 16 entries, else K4) and `ks_sort`. The packed
-    state and the shade kernel's ray rows stay in pixel order."""
-    if cfg.has_skybox:
-        raise NotImplementedError(IMAGE_SKY_TODO)
+    per bounce a scan (K5/K6, or K9/K10 in the grid form), `ks_resolve`,
+    one shade kernel (K8 for alias tables over 16 entries, else K4) and
+    `ks_sort`; with an HDR sky, `hdr_sky_payoff` after the last bounce.
+    The packed state and the shade kernel's ray rows stay in pixel order."""
     fold = pick_sample_fold(px.shape[0], n_samples)
     n_alias = scene.n_alias_entries if cfg.nee.uses_nee and scene.has_lights else 0
     shade = SK.shade_bounce_wide if n_alias > ENTRY_SELECT_MAX else SK.shade_bounce
 
     def flush_held(held, film):
         st_h, sh_h, inv_h, g_h = held
-        lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), sh_h)
-        occ = FI.occlude_multi(sh_h, scene.tri_feats16, lists, counts)
-        return finishk(st_h, occ[inv_h], film, g_h)
+        return finishk(st_h, _occlude(sh_h, scene, scan)[inv_h], film, g_h)
 
     held = None  # (st, sorted shadow rows, inverse, fold) awaiting occlusion
     for k in range(0, n_samples, fold):
@@ -460,7 +497,7 @@ def _render_batch_ks_multitile(scene, cfg, cam, px, py, offsets, sample_start, n
         inv = None  # inverse of the scan operands' order
         feats_in = None  # sorted next rays; None: the bounce-0 camera rays
         for bounce in range(cfg.max_bounces):
-            t, i, occ = _scan(feats_t if feats_in is None else feats_in, pending_sh, scene)
+            t, i, occ = _scan(feats_t if feats_in is None else feats_in, pending_sh, scene, scan)
             if bounce == 0 and held is not None:
                 # the occlusion column belongs to the held group, in its order
                 st_h, _, inv_h, g_h = held
@@ -478,6 +515,8 @@ def _render_batch_ks_multitile(scene, cfg, cam, px, py, offsets, sample_start, n
             feats_in, pending_sh, inv = ks_sort(scene, st, nf, sf)
             if nf is not None:
                 feats_t = nf
+        if cfg.has_skybox:  # feats_t holds the last bounce's input rows
+            st = hdr_sky_payoff(scene.skybox, cam.sun_direction, st, feats_t)
         if pending_sh is not None:
             held = (st, pending_sh, inv, g)
         else:
@@ -522,21 +561,28 @@ def render_batch_staged(
     n_samples: int,
     film_in: Optional[torch.Tensor] = None,
     loop: str = MULTITILE_LOOPS[0],
+    scan: str = MULTITILE_SCANS[0],
 ) -> torch.Tensor:
     """Render n_samples of one pixel batch -> film sum [B, 3] on the
     scene's device. px, py: [B] int32; offsets: [B] int32 (u32 bits).
     A scene of one triangle tile takes the kernel-shade loop, one of
-    more tiles the multi-tile loop named `loop` (`multitile_loop`). What
-    the port does not run yet (an HDR sky, the state-sorted driver; on
-    one tile, an alias table over 16 entries) raises NotImplementedError.
+    more tiles the multi-tile loop named `loop` (`multitile_loop`) with
+    the scan form named `scan` (`MULTITILE_SCANS`). Textured scenes and
+    HDR skies render on both. What the port does not run yet (the
+    state-sorted driver; on one tile, a textured scene or an alias table
+    over 16 entries) raises NotImplementedError.
 
     Single tile: per bounce exactly two launches, a flash scan and the
     shade kernel, chained through the transposed row operands."""
+    _check_scan(scan)
     film = film_in if film_in is not None else torch.zeros(
         (px.shape[0], 3), dtype=torch.float32, device=px.device
     )
     if FI.geometry(scene.tri_feats16)[2] > 1:
-        return multitile_loop(loop)(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film)
+        return multitile_loop(loop)(scene, cfg, cam, px, py, offsets, sample_start, n_samples,
+                                    film, scan=scan)
+    if scene.has_textures:
+        raise NotImplementedError(SINGLE_TILE_TEXTURES_TODO)
     g16 = scene.tri_feats16
     attrs = scene.tri_attrs
     fold = pick_sample_fold(px.shape[0], n_samples)
@@ -576,6 +622,8 @@ def render_batch_staged(
             )
             if nf is not None:  # the last bounce keeps its input rows
                 feats_t = nf
+        if cfg.has_skybox:
+            st = hdr_sky_payoff(scene.skybox, cam.sun_direction, st, feats_t)
         if pending_sh is not None:
             held = (st, pending_sh, g)
         else:

@@ -75,9 +75,11 @@ def render_pixels(
     sample_start: int = 0,
     film_in: Optional[torch.Tensor] = None,
     loop: str = RenderSettings.multitile_loop,
+    scan: str = RenderSettings.multitile_scan,
 ) -> torch.Tensor:
     """Render an arbitrary pixel set on the scene's device; returns the
-    film *sum* [B, 3] there. `loop` names the multi-tile loop."""
+    film *sum* [B, 3] there. `loop` names the multi-tile loop, `scan` the
+    form of its scans."""
     device = scene.device
     cfg = config.static_part()
     cam = config.dynamic_part(device)
@@ -99,6 +101,7 @@ def render_pixels(
         int(samples),
         film_in=film_in,
         loop=loop,
+        scan=scan,
     )
 
 
@@ -134,7 +137,7 @@ def render_image(
         hi = lo + chunk
         film = render_pixels(
             scene, config, px[lo:hi], py[lo:hi], settings.samples, offsets=offsets[lo:hi],
-            loop=settings.multitile_loop,
+            loop=settings.multitile_loop, scan=settings.multitile_scan,
         )
         out[lo:hi] = film.cpu().numpy()
     return (out[:n_px] / max(settings.samples, 1)).reshape(h, w, 3)

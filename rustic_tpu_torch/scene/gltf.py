@@ -1,11 +1,12 @@
 """glTF 2.0 / GLB loader: a NumPy port of rustic_tpu/scene/gltf.py:load_glb.
 
-The geometry and material factors are read exactly as the JAX package
-reads them (node-graph walk, the (x, z, y) swizzle, the (i0, i2, i1)
-winding, the x15 emissive factor). Texture images are not decoded: the
-port refuses textured scenes for now (scene/world.py), so a material
-only records which maps it references. Tangents and uvs, which only
-textures read, are not carried.
+Geometry, material factors and texture maps are read exactly as the JAX
+package reads them (node-graph walk, the (x, z, y) swizzle, the (i0, i2,
+i1) winding, the x15 emissive factor, vertex uvs and tangents, generated
+when missing). Images are decoded by utils/png.py, not Pillow: albedo
+maps are raised to the power 2.2 (sRGB to linear), and the
+metallic-roughness map is split into its B (metallic) and G (roughness)
+channels.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import dataclasses
 import json
 import os
 import struct
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from rustic_tpu_torch.utils.png import decode_image_rgba
 
 _COMPONENT_DTYPES = {
     5120: np.int8,
@@ -38,7 +41,18 @@ class GltfMaterial:
     emissive: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     transmission: float = 0.0  # KHR_materials_transmission
     ior: float = 1.5  # KHR_materials_ior
-    has_texture: bool = False  # references any albedo/metal-rough/normal map
+    # decoded maps, float32 [H, W, 4] in [0, 1], or None
+    albedo_texture: Optional[np.ndarray] = None
+    metallic_texture: Optional[np.ndarray] = None
+    roughness_texture: Optional[np.ndarray] = None
+    normal_texture: Optional[np.ndarray] = None
+
+    @property
+    def has_texture(self) -> bool:
+        return any(
+            m is not None for m in (self.albedo_texture, self.metallic_texture,
+                                    self.roughness_texture, self.normal_texture)
+        )
 
 
 @dataclasses.dataclass
@@ -47,6 +61,8 @@ class GltfScene:
 
     positions: np.ndarray  # [V, 3] float32
     normals: np.ndarray  # [V, 3] float32
+    tangents: np.ndarray  # [V, 3] float32
+    uv0: np.ndarray  # [V, 2] float32
     triangles: np.ndarray  # [T, 4] int32: (i0, i1, i2, material)
     materials: List[GltfMaterial]
 
@@ -97,7 +113,7 @@ def _load_gltf_json(path: str):
         _resolve_uri(buf["uri"], base_dir) if "uri" in buf else bin_chunk
         for buf in gltf.get("buffers", [{}])
     ]
-    return gltf, buffers
+    return gltf, buffers, base_dir
 
 
 def _accessor(gltf: dict, buffers: List[bytes], index: int) -> np.ndarray:
@@ -165,6 +181,20 @@ def _node_local_matrix(node: dict) -> np.ndarray:
     return m
 
 
+def _decode_image(gltf: dict, buffers: List[bytes], image_index: int, base_dir: str) -> np.ndarray:
+    """A glTF image -> float32 [H, W, 4] in [0, 1] (no colour transform)."""
+    img = gltf["images"][image_index]
+    if "bufferView" in img:
+        bv = gltf["bufferViews"][img["bufferView"]]
+        start = bv.get("byteOffset", 0)
+        raw = buffers[bv["buffer"]][start : start + bv["byteLength"]]
+    elif "uri" in img:
+        raw = _resolve_uri(img["uri"], base_dir)
+    else:
+        raise ValueError("glTF image has neither bufferView nor uri")
+    return decode_image_rgba(raw)
+
+
 def _smooth_normals(positions: np.ndarray, tris: np.ndarray) -> np.ndarray:
     """Area-weighted smooth vertex normals over position-welded vertices
     (assimp GenerateSmoothNormals analog)."""
@@ -182,11 +212,38 @@ def _smooth_normals(positions: np.ndarray, tris: np.ndarray) -> np.ndarray:
     return normals / np.maximum(norm, 1e-12)
 
 
+def _smooth_tangents(positions, uv, normals, tris):
+    """UV-gradient tangents averaged per vertex, Gram-Schmidt against the
+    normal (assimp CalculateTangentSpace analog)."""
+    a, b, c = (positions[tris[:, k]] for k in range(3))
+    ua, ub, uc = (uv[tris[:, k]] for k in range(3))
+    e1, e2 = b - a, c - a
+    d1, d2 = ub - ua, uc - ua
+    det = d1[:, 0] * d2[:, 1] - d2[:, 0] * d1[:, 1]
+    inv = np.where(np.abs(det) < 1e-12, 0.0, 1.0 / np.where(det == 0, 1.0, det))
+    tan = (e1 * d2[:, 1:2] - e2 * d1[:, 1:2]) * inv[:, None]
+    tangents = np.zeros_like(positions)
+    for k in range(3):
+        np.add.at(tangents, tris[:, k], tan)
+    tangents -= normals * np.sum(tangents * normals, axis=-1, keepdims=True)
+    norm = np.linalg.norm(tangents, axis=-1, keepdims=True)
+    fallback = np.tile(np.array([1.0, 0.0, 0.0]), (len(positions), 1))
+    return np.where(norm > 1e-8, tangents / np.maximum(norm, 1e-12), fallback)
+
+
 def load_glb(path: str) -> GltfScene:
     """Load a .glb or .gltf scene."""
-    gltf, buffers = _load_gltf_json(path)
+    gltf, buffers, base_dir = _load_gltf_json(path)
 
     materials: List[GltfMaterial] = []
+    images: Dict[int, np.ndarray] = {}
+
+    def get_image(texture_index: int) -> np.ndarray:
+        src = gltf["textures"][texture_index]["source"]
+        if src not in images:
+            images[src] = _decode_image(gltf, buffers, src, base_dir)
+        return images[src]
+
     for mat in gltf.get("materials", []):
         m = GltfMaterial()
         pbr = mat.get("pbrMetallicRoughness", {})
@@ -196,11 +253,17 @@ def load_glb(path: str) -> GltfScene:
         emissive = mat.get("emissiveFactor", [0.0, 0.0, 0.0])
         # assimp-5.2.5 emissive-strength hack (reference: src/asset.rs:165-168)
         m.emissive = tuple(15.0 * np.asarray(emissive, np.float64))
-        m.has_texture = (
-            "baseColorTexture" in pbr
-            or "metallicRoughnessTexture" in pbr
-            or "normalTexture" in mat
-        )
+        if "baseColorTexture" in pbr:
+            img = get_image(pbr["baseColorTexture"]["index"]).copy()
+            # sRGB -> linear (reference: src/asset.rs:142-147)
+            img[..., :3] = img[..., :3] ** 2.2
+            m.albedo_texture = img
+        if "metallicRoughnessTexture" in pbr:
+            img = get_image(pbr["metallicRoughnessTexture"]["index"])
+            m.metallic_texture = np.repeat(img[..., 2:3], 4, axis=-1)  # B channel
+            m.roughness_texture = np.repeat(img[..., 1:2], 4, axis=-1)  # G channel
+        if "normalTexture" in mat:
+            m.normal_texture = get_image(mat["normalTexture"]["index"])
         ext = mat.get("extensions", {})
         if "KHR_materials_transmission" in ext:
             m.transmission = float(
@@ -214,6 +277,8 @@ def load_glb(path: str) -> GltfScene:
 
     positions_l: List[np.ndarray] = []
     normals_l: List[np.ndarray] = []
+    tangents_l: List[np.ndarray] = []
+    uv_l: List[np.ndarray] = []
     tris_l: List[np.ndarray] = []
     vert_base = 0
 
@@ -244,11 +309,23 @@ def load_glb(path: str) -> GltfScene:
                 nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-12)
             else:
                 nrm = _smooth_normals(world_pos, idx)
+            if "TEXCOORD_0" in attrs:
+                uv = _accessor(gltf, buffers, attrs["TEXCOORD_0"]).astype(np.float64)
+            else:
+                uv = np.zeros((n_verts, 2))
+            if "TANGENT" in attrs:
+                tan = _accessor(gltf, buffers, attrs["TANGENT"]).astype(np.float64)[:, :3]
+                tan = tan @ nrm_mat.T
+                tan /= np.maximum(np.linalg.norm(tan, axis=-1, keepdims=True), 1e-12)
+            else:
+                tan = _smooth_tangents(world_pos, uv, nrm, idx)
 
             # renderer-space swizzle (x, z, y) + winding reorder (i0, i2, i1)
             # (reference: src/asset.rs:102-114)
             positions_l.append(world_pos[:, [0, 2, 1]].astype(np.float32))
             normals_l.append(nrm[:, [0, 2, 1]].astype(np.float32))
+            tangents_l.append(tan[:, [0, 2, 1]].astype(np.float32))
+            uv_l.append(uv.astype(np.float32))
             t = np.empty((len(idx), 4), np.int32)
             t[:, 0] = idx[:, 0] + vert_base
             t[:, 1] = idx[:, 2] + vert_base
@@ -278,6 +355,8 @@ def load_glb(path: str) -> GltfScene:
     return GltfScene(
         positions=np.concatenate(positions_l),
         normals=np.concatenate(normals_l),
+        tangents=np.concatenate(tangents_l),
+        uv0=np.concatenate(uv_l),
         triangles=np.concatenate(tris_l),
         materials=materials,
     )

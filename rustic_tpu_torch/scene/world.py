@@ -1,36 +1,51 @@
-"""World assembly: GLB -> BVH order, light table, flash features and
-shading rows, uploaded as a `SceneTensors` (twin of
-rustic_tpu/scene/world.py for untextured scenes).
+"""World assembly: GLB -> BVH order, light table, material atlas, flash
+features and shading rows, uploaded as a `SceneTensors` (twin of
+rustic_tpu/scene/world.py).
 
 The triangle-feature packing of rustic_tpu/ops/flash_intersect.py
 (`padded_tri_count`, `tile_size`, `pack_tri_feats16`) lives here too:
 it is host-side NumPy and only the scene build uses it.
+
+Shading rows: textured scenes upload the full 64-wide rows (ATTR_*:
+tangents, uvs, atlas rects and has-texture flags); untextured scenes the
+32-wide slim rows (SLIM_*), which drop those columns. The accessors
+below read either layout, by its width.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from rustic_tpu_torch.scene import atlas as atlas_mod
 from rustic_tpu_torch.scene import bvh as bvh_mod
 from rustic_tpu_torch.scene import light_table as lt_mod
 from rustic_tpu_torch.scene.gltf import GltfScene, load_glb
+from rustic_tpu_torch.utils.png import FORMATS_TODO
 
 DEF_TT = 512  # triangles per flash tile
+ATLAS_SIZE = 4096  # reference: src/asset.rs:177
 
-# Full shading-row layout of the JAX package (tri_attrs[:, i]); the port
-# reads it only to slim a JAX table (scene_from_arrays).
+# Full shading-row layout (tri_attrs[:, i]) of the JAX package
+ATTR_POS = slice(0, 9)  # vertex positions a, b, c
+ATTR_NRM = slice(9, 18)  # vertex normals a, b, c
+ATTR_TAN = slice(18, 27)  # vertex tangents a, b, c
+ATTR_UV = slice(27, 33)  # vertex uv0 a, b, c
 ATTR_EMISSIVE = slice(33, 36)
-ATTR_ALBEDO = slice(36, 40)
+ATTR_ALBEDO = slice(36, 40)  # colour or atlas uvst
 ATTR_ROUGH = slice(40, 44)
 ATTR_METAL = slice(44, 48)
+ATTR_NORMTEX = slice(48, 52)
+ATTR_HASTEX = slice(52, 56)  # albedo, metallic, roughness, normal flags
 ATTR_TRANSMISSION = 56
 ATTR_IOR = 57
+ATTR_WIDTH = 64
 
-# Slim shading-row layout for untextured scenes: positions a,b,c (0:9),
-# vertex normals a,b,c (9:18), then the material scalars.
+# Slim shading-row layout for untextured scenes: positions and vertex
+# normals at the same offsets (0:18), then the material scalars.
 SLIM_EMISSIVE = slice(18, 21)
 SLIM_ALBEDO = slice(21, 24)
 SLIM_ROUGH = 24
@@ -54,9 +69,9 @@ ENTRY_B_EMISSION = slice(36, 39)
 ENTRY_B_TRI = 39
 ENTRY_WIDTH = 48
 
-TEXTURES_TODO = (
-    "textured scenes are not ported yet (ROADMAP.md queue 1 item 7: "
-    "ops/texture.py and the 9-channel atlas)"
+SINGLE_TILE_TEXTURES_TODO = (
+    "textured scenes of one triangle tile are not ported (the single-tile loop's K1/K2 "
+    "emit slim rows; ROADMAP.md queue 3)"
 )
 
 
@@ -73,34 +88,36 @@ def slim_attr_table(attrs: np.ndarray) -> np.ndarray:
     return out
 
 
-# Slim-row accessors (twins of rustic_tpu/scene/world.py:72-101 for the
-# slim layout, the only one the port uploads): `attrs` is [B, SLIM_WIDTH].
-# Columns 0:9 hold the vertex positions a, b, c (ops/intersect.py).
-ATTR_NRM = slice(9, 18)  # vertex normals a, b, c
+# Row accessors (rustic_tpu/scene/world.py:72-102): `attrs` is [B, 32]
+# (slim) or [B, 64] (full).
+
+
+def attr_is_slim(attrs) -> bool:
+    return attrs.shape[-1] == SLIM_WIDTH
 
 
 def attr_emissive(attrs):
-    return attrs[:, SLIM_EMISSIVE]
+    return attrs[:, SLIM_EMISSIVE if attr_is_slim(attrs) else ATTR_EMISSIVE]
 
 
 def attr_albedo3(attrs):
-    return attrs[:, SLIM_ALBEDO]
+    return attrs[:, SLIM_ALBEDO] if attr_is_slim(attrs) else attrs[:, ATTR_ALBEDO][:, :3]
 
 
 def attr_rough_scalar(attrs):
-    return attrs[:, SLIM_ROUGH]
+    return attrs[:, SLIM_ROUGH if attr_is_slim(attrs) else ATTR_ROUGH.start]
 
 
 def attr_metal_scalar(attrs):
-    return attrs[:, SLIM_METAL]
+    return attrs[:, SLIM_METAL if attr_is_slim(attrs) else ATTR_METAL.start]
 
 
 def attr_transmission(attrs):
-    return attrs[:, SLIM_TRANSMISSION]
+    return attrs[:, SLIM_TRANSMISSION if attr_is_slim(attrs) else ATTR_TRANSMISSION]
 
 
 def attr_ior(attrs):
-    return attrs[:, SLIM_IOR]
+    return attrs[:, SLIM_IOR if attr_is_slim(attrs) else ATTR_IOR]
 
 
 def padded_tri_count(t_count: int) -> int:
@@ -183,12 +200,14 @@ def _tile_aabbs(verts: np.ndarray, tri_vidx: np.ndarray, t_pad: int, tt: int) ->
 
 @dataclasses.dataclass
 class SceneTensors:
-    """A scene on one device: what the single-tile slice reads."""
+    """A scene on one device."""
 
     tri_feats16: torch.Tensor  # [16, NT*4*TT] f32 flash triangle table
-    tri_attrs: torch.Tensor  # [T_pad, SLIM_WIDTH] f32 shading rows
+    tri_attrs: torch.Tensor  # [T_pad, SLIM_WIDTH or ATTR_WIDTH] f32 shading rows
     entry_rows: torch.Tensor  # [L_pad, ENTRY_WIDTH] f32 NEE entry rows
     tile_aabbs: torch.Tensor  # [NT, 8] f32
+    atlas: torch.Tensor  # [Ha, Wa, 9] f32 co-located material maps (scene/atlas.py CH_*)
+    skybox: torch.Tensor  # [Hs, Ws, 4] f32 equirect sky image
     n_tris: int
     n_alias_entries: int
     has_lights: bool
@@ -208,15 +227,27 @@ class SceneTensors:
         return dataclasses.replace(self, **tensors)
 
 
-def _scene_tensors(tri_feats16, slim_attrs, entry_rows, tile_aabbs, device, **meta):
+def fallback_skybox() -> np.ndarray:
+    """2x2 magenta sky for configs without an image (reference:
+    src/asset.rs:275-289)."""
+    return np.tile(np.array([1.0, 0.0, 1.0, 1.0], np.float32), (2, 2, 1))
+
+
+def _empty_atlas() -> np.ndarray:
+    return np.zeros((4, 4, atlas_mod.ATLAS_CHANNELS), np.float32)
+
+
+def _scene_tensors(tri_feats16, attrs, entry_rows, tile_aabbs, atlas, skybox, device, **meta):
     def f32(a):
         return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
 
     return SceneTensors(
         tri_feats16=f32(tri_feats16),
-        tri_attrs=f32(slim_attrs),
+        tri_attrs=f32(attrs),
         entry_rows=f32(entry_rows),
         tile_aabbs=f32(tile_aabbs),
+        atlas=f32(atlas),
+        skybox=f32(fallback_skybox() if skybox is None else skybox),
         **meta,
     )
 
@@ -224,40 +255,97 @@ def _scene_tensors(tri_feats16, slim_attrs, entry_rows, tile_aabbs, device, **me
 def scene_from_arrays(fields: dict, device) -> SceneTensors:
     """SceneTensors from the JAX package's SceneArrays fields as numpy
     arrays (`tri_feats16`, `tri_attrs` [T_pad, 64], `entry_rows`,
-    `tile_aabbs`) plus its static metadata (`n_tris`, `n_alias_entries`,
+    `tile_aabbs`, and for textured scenes or an image sky `atlas` and
+    `skybox`) plus its static metadata (`n_tris`, `n_alias_entries`,
     `has_lights`, `has_glass`, `has_textures`), so one scene can feed
-    both packages."""
-    if fields["has_textures"]:
-        raise NotImplementedError(TEXTURES_TODO)
+    both packages. Untextured rows are slimmed; textured rows stay full."""
     attrs = np.asarray(fields["tri_attrs"], np.float32)
-    if attrs.shape[-1] != SLIM_WIDTH:
+    has_textures = bool(fields["has_textures"])
+    if not has_textures and attrs.shape[-1] != SLIM_WIDTH:
         attrs = slim_attr_table(attrs)
+    atlas = fields.get("atlas")
     return _scene_tensors(
         fields["tri_feats16"], attrs, fields["entry_rows"], fields["tile_aabbs"],
+        _empty_atlas() if atlas is None else atlas, fields.get("skybox"),
         device,
         n_tris=int(fields["n_tris"]),
         n_alias_entries=int(fields["n_alias_entries"]),
         has_lights=bool(fields["has_lights"]),
         has_glass=bool(fields["has_glass"]),
-        has_textures=False,
+        has_textures=has_textures,
     )
 
 
-class World:
-    """Host-side scene bundle (NumPy) with `.to_torch(device)` upload."""
+def load_skybox_image(path: str) -> np.ndarray:
+    """An equirect sky image -> float32 [H, W, 4] (twin of the JAX
+    package's `load_skybox_image`): .npy ([H, W, 3] or [H, W, 4]
+    radiance), Radiance .hdr, or PNG (LDR, scaled to [0, 1])."""
+    low = path.lower()
+    if low.endswith(".npy"):
+        img = np.asarray(np.load(path), np.float32)
+        if img.shape[-1] == 3:
+            img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
+        return img
+    if low.endswith(".hdr"):
+        from rustic_tpu_torch.utils.hdr import read_hdr
 
-    def __init__(self, gltf: GltfScene):
-        if any(m.has_texture for m in gltf.materials):
-            raise NotImplementedError(TEXTURES_TODO)
+        img = read_hdr(path)
+        return np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
+    if low.endswith(".exr"):
+        raise NotImplementedError(f"{path}: OpenEXR skyboxes are not read ({FORMATS_TODO})")
+    from rustic_tpu_torch.utils.png import decode_image_rgba
+
+    with open(path, "rb") as f:
+        return decode_image_rgba(f.read())
+
+
+class World:
+    """Host-side scene bundle (NumPy) with `.to_torch(device)` upload.
+    `atlas_size` is the side of the square material atlas."""
+
+    def __init__(self, gltf: GltfScene, atlas_size: int = ATLAS_SIZE):
         self.positions = gltf.positions
         self.normals = gltf.normals
-        mats = gltf.materials
-        self.mat_emissive = np.array([m.emissive for m in mats], np.float32)
-        self.mat_albedo = np.array([m.base_color for m in mats], np.float32)
-        self.mat_roughness = np.array([m.roughness for m in mats], np.float32)
-        self.mat_metallic = np.array([m.metallic for m in mats], np.float32)
-        self.mat_transmission = np.array([m.transmission for m in mats], np.float32)
-        self.mat_ior = np.array([m.ior for m in mats], np.float32)
+        self.tangents = gltf.tangents
+        self.uv0 = gltf.uv0
+        n_mats = len(gltf.materials)
+        self.mat_emissive = np.zeros((n_mats, 3), np.float32)
+        self.mat_albedo = np.zeros((n_mats, 4), np.float32)
+        self.mat_roughness = np.zeros((n_mats, 4), np.float32)
+        self.mat_metallic = np.zeros((n_mats, 4), np.float32)
+        self.mat_normals = np.zeros((n_mats, 4), np.float32)
+        self.mat_has_tex = np.zeros((n_mats, 4), np.int32)
+        self.mat_transmission = np.zeros((n_mats, 2), np.float32)  # transmission, ior
+        mat_maps: List[dict] = []
+        for mi, m in enumerate(gltf.materials):
+            self.mat_albedo[mi] = m.base_color
+            self.mat_roughness[mi] = m.roughness
+            self.mat_metallic[mi] = m.metallic
+            self.mat_emissive[mi] = m.emissive
+            self.mat_transmission[mi] = (m.transmission, m.ior)
+            mat_maps.append({
+                "albedo": m.albedo_texture,
+                "metallic": m.metallic_texture,
+                "roughness": m.roughness_texture,
+                "normal": m.normal_texture,
+            })
+
+        # the co-located material atlas; each textured slot of a material
+        # holds its one uvst rect (reference: src/asset.rs:179-192)
+        if any(v is not None for maps in mat_maps for v in maps.values()):
+            self.atlas, mat_uvst = atlas_mod.pack_material_textures(
+                mat_maps, atlas_size, atlas_size
+            )
+        else:
+            self.atlas, mat_uvst = _empty_atlas(), [None] * n_mats
+        slots = {"albedo": (0, self.mat_albedo), "metallic": (1, self.mat_metallic),
+                 "roughness": (2, self.mat_roughness), "normal": (3, self.mat_normals)}
+        for mi, (maps, uvst) in enumerate(zip(mat_maps, mat_uvst)):
+            for field, tex in maps.items():
+                if tex is not None:
+                    col, table = slots[field]
+                    self.mat_has_tex[mi, col] = 1
+                    table[mi] = uvst
 
         # BVH order first, then the light table on the reordered
         # triangles (reference: src/asset.rs:194-203)
@@ -272,22 +360,29 @@ class World:
         self.tri_feats16 = pack_tri_feats16(_triangle_features(self.positions, vi))
         t_pad = self.tri_feats16.shape[-1] // 4
         self.tile_aabbs = _tile_aabbs(self.positions, vi, t_pad, tile_size(t_pad))
-        self.tri_attrs = self._slim_rows(t_pad)
+        full = self._shading_rows(t_pad)
+        self.has_textures = bool(self.mat_has_tex.any())
+        self.tri_attrs = full if self.has_textures else slim_attr_table(full)
         self.entry_rows = self._entry_rows()
 
-    def _slim_rows(self, t_pad: int) -> np.ndarray:
+    def _shading_rows(self, t_pad: int) -> np.ndarray:
+        """The full [t_pad, ATTR_WIDTH] rows (`_pack_shading_rows`)."""
         vi = self.triangles[:, :3]
         mi = self.triangles[:, 3]
-        t_count = len(vi)
-        attrs = np.zeros((t_pad, SLIM_WIDTH), np.float32)
-        attrs[:t_count, 0:9] = self.positions[vi].reshape(t_count, 9)
-        attrs[:t_count, 9:18] = self.normals[vi].reshape(t_count, 9)
-        attrs[:t_count, SLIM_EMISSIVE] = self.mat_emissive[mi]
-        attrs[:t_count, SLIM_ALBEDO] = self.mat_albedo[mi, :3]
-        attrs[:t_count, SLIM_ROUGH] = self.mat_roughness[mi]
-        attrs[:t_count, SLIM_METAL] = self.mat_metallic[mi]
-        attrs[:t_count, SLIM_TRANSMISSION] = self.mat_transmission[mi]
-        attrs[:t_count, SLIM_IOR] = self.mat_ior[mi]
+        n = len(vi)
+        attrs = np.zeros((t_pad, ATTR_WIDTH), np.float32)
+        attrs[:n, ATTR_POS] = self.positions[vi].reshape(n, 9)
+        attrs[:n, ATTR_NRM] = self.normals[vi].reshape(n, 9)
+        attrs[:n, ATTR_TAN] = self.tangents[vi].reshape(n, 9)
+        attrs[:n, ATTR_UV] = self.uv0[vi].reshape(n, 6)
+        attrs[:n, ATTR_EMISSIVE] = self.mat_emissive[mi]
+        attrs[:n, ATTR_ALBEDO] = self.mat_albedo[mi]
+        attrs[:n, ATTR_ROUGH] = self.mat_roughness[mi]
+        attrs[:n, ATTR_METAL] = self.mat_metallic[mi]
+        attrs[:n, ATTR_NORMTEX] = self.mat_normals[mi]
+        attrs[:n, ATTR_HASTEX] = self.mat_has_tex[mi]
+        attrs[:n, ATTR_TRANSMISSION] = self.mat_transmission[mi, 0]
+        attrs[:n, ATTR_IOR] = self.mat_transmission[mi, 1]
         return attrs
 
     def _entry_rows(self) -> np.ndarray:
@@ -318,20 +413,22 @@ class World:
         return entries
 
     @classmethod
-    def from_path(cls, path: str) -> "World":
+    def from_path(cls, path: str, atlas_size: int = ATLAS_SIZE) -> "World":
         if not path.lower().endswith((".glb", ".gltf")):
             raise NotImplementedError(
                 f"{path}: only .glb/.gltf scenes are ported (ROADMAP.md queue 1)"
             )
-        return cls(load_glb(path))
+        return cls(load_glb(path), atlas_size)
 
-    def to_torch(self, device) -> SceneTensors:
+    def to_torch(self, device, skybox: Optional[np.ndarray] = None) -> SceneTensors:
+        """Upload to `device`; `skybox` is the equirect sky image
+        (`load_skybox_image`) that configs with has_skybox read."""
         return _scene_tensors(
             self.tri_feats16, self.tri_attrs, self.entry_rows, self.tile_aabbs,
-            device,
+            self.atlas, skybox, device,
             n_tris=len(self.triangles),
             n_alias_entries=len(self.light_table),
             has_lights=not self.light_table.is_sentinel,
-            has_glass=bool((self.mat_transmission > 0.0).any()),
-            has_textures=False,
+            has_glass=bool((self.mat_transmission[:, 0] > 0.0).any()),
+            has_textures=self.has_textures,
         )

@@ -135,10 +135,23 @@ def test_multitile_group_structure(veach_port, monkeypatch, samples, expect):
 
 
 def test_multitile_refuses_hdr_sky(veach_port):
-    config = TracingConfig(width=4, height=4, has_skybox=True, **CASES["VeachMIS"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_image(veach_port, config, RenderSettings(samples=1, multitile_loop=UNSORTED),
-                     device="cpu")
+    """HDR skies were refused before BreakTime was ported; now the
+    unsorted loop renders one: the lanes that see the sky take the image's
+    radiance instead of the procedural sky's, the others are unchanged."""
+    import dataclasses
+
+    from rustic_tpu_torch.scene.world import load_skybox_image
+
+    sky = torch.from_numpy(load_skybox_image(scene_path("BreakTimeSky.npy")))
+    scene = dataclasses.replace(veach_port, skybox=sky)
+    settings = RenderSettings(samples=1, multitile_loop=UNSORTED)
+    films = {
+        has_sky: render_image(scene, TracingConfig(width=8, height=8, has_skybox=has_sky,
+                                                   **CASES["VeachMIS"]), settings, device="cpu")
+        for has_sky in (False, True)
+    }
+    assert np.isfinite(films[True]).all()
+    assert not np.array_equal(films[True], films[False])
 
 
 def test_multitile_without_nee_has_no_shadow_scans(veach_port, monkeypatch):

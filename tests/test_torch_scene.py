@@ -16,7 +16,7 @@ from rustic_tpu.scene import bvh_native
 from rustic_tpu.scene import world as JW
 from rustic_tpu_torch.scene import bvh as port_bvh
 from rustic_tpu_torch.scene import world as TW
-from rustic_tpu_torch.scene.gltf import GltfMaterial, load_glb
+from rustic_tpu_torch.scene.gltf import load_glb
 
 torch.set_num_threads(2)
 
@@ -132,7 +132,18 @@ def test_loader_matches_jax_loader():
 
 
 def test_textured_scene_is_refused():
+    """What stays refused of textured scenes: one of a single triangle
+    tile (its K1/K2 emit slim rows), and an image the port cannot decode."""
+    from rustic_tpu_torch.config import TracingConfig
+    from rustic_tpu_torch.runtime.render import render_image
+    from rustic_tpu_torch.scene import gltf as TG
+
     g = load_glb(__import__("conftest").scene_path("DarkCornell.glb"))
-    g.materials.append(GltfMaterial(has_texture=True))
+    g.materials[0].albedo_texture = np.full((4, 4, 4), 0.5, np.float32)
+    world = TW.World(g, atlas_size=16)
+    assert world.has_textures and world.tri_attrs.shape[1] == TW.ATTR_WIDTH
     with pytest.raises(NotImplementedError, match="textured"):
-        TW.World(g)
+        render_image(world.to_torch("cpu"), TracingConfig(width=4, height=4), device="cpu")
+    jpeg = {"images": [{"bufferView": 0}], "bufferViews": [{"buffer": 0, "byteLength": 20}]}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TG._decode_image(jpeg, [b"\xff\xd8\xff\xe0" + bytes(16)], 0, "")

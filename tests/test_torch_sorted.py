@@ -33,6 +33,7 @@ from rustic_tpu_torch.runtime import pipeline as P
 from rustic_tpu_torch.runtime.render import pixel_offsets, render_image, render_pixels
 from rustic_tpu_torch.scene import world as W
 from rustic_tpu_torch.scene.world import scene_from_arrays
+from tests.conftest import scene_path
 from tests.test_torch_render_multitile import count_calls, jax_scene, scene_fields
 
 torch.set_num_threads(2)
@@ -143,12 +144,25 @@ def test_resolve_matches_jax(scenes):
 
 
 def test_resolve_refuses_textures(scenes):
-    import dataclasses
+    """Textured scenes were refused before BreakTime was ported; now their
+    resolve returns slim rows whose untextured lanes carry the material's
+    factors as the slim table does (tests/test_torch_textures.py holds
+    the textured lanes to JAX)."""
+    from rustic_tpu_torch.scene.world import World
 
-    _, ts = scenes("VeachMIS")
-    textured = dataclasses.replace(ts, has_textures=True)
-    with pytest.raises(NotImplementedError, match="textured"):
-        resolve_attrs_rowT(textured, torch.zeros((16, 4)), torch.zeros(4, dtype=torch.int32))
+    ts = World.from_path(scene_path("BreakTime.glb"), 64).to_torch("cpu")
+    full = ts.tri_attrs
+    assert ts.has_textures and full.shape[1] == W.ATTR_WIDTH
+    plain = (full[:ts.n_tris, W.ATTR_HASTEX] == 0).all(dim=1).nonzero()[:, 0]
+    idx = plain.to(torch.int32)
+    assert len(idx) > 4
+    feats = torch.zeros((16, len(idx)))
+    feats[0] = 1.0  # any ray: the material columns do not depend on it
+    got = resolve_attrs_rowT(ts, feats, idx)
+    assert got.shape == (W.SLIM_WIDTH, len(idx))
+    want = torch.from_numpy(W.slim_attr_table(full[idx.long()].numpy())).T
+    for cols in (range(0, 9), range(18, 28)):  # positions, then the material
+        assert torch.equal(got[list(cols)], want[list(cols)])
 
 
 # ---- K8: the wide-alias shade kernel's plain version ------------------------
@@ -426,7 +440,21 @@ def test_state_sort_mode_is_refused(monkeypatch):
 
 @pytest.mark.parametrize("loop", P.MULTITILE_LOOPS)
 def test_multitile_loops_refuse_hdr_sky(scenes, loop):
+    """HDR skies were refused before BreakTime was ported; now each loop
+    renders one, and its film equals the unsorted loop's (rtol 1e-4,
+    atol 1e-5: the kernel-shade loop pays the sky after its last bounce)."""
+    import dataclasses
+
+    from rustic_tpu_torch.scene.world import load_skybox_image
+
     _, ts = scenes("VeachMIS")
-    config = TracingConfig(width=4, height=4, has_skybox=True, **CAMS["VeachMIS"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_image(ts, config, RenderSettings(samples=1, multitile_loop=loop), device="cpu")
+    sky = torch.from_numpy(load_skybox_image(scene_path("BreakTimeSky.npy")))
+    scene = dataclasses.replace(ts, skybox=sky)
+    config = TracingConfig(width=8, height=8, nee=MIS, has_skybox=True, **CAMS["VeachMIS"])
+    films = {
+        name: render_image(scene, config, RenderSettings(samples=1, multitile_loop=name),
+                           device="cpu")
+        for name in (loop, "unsorted")
+    }
+    assert np.isfinite(films[loop]).all()
+    np.testing.assert_allclose(films[loop], films["unsorted"], rtol=1e-4, atol=1e-5)

@@ -182,8 +182,8 @@ def test_procedural_sky_matches_jax():
     got = S_.procedural_sky(tsun, tro, trd)
     assert float(got.max()) > 0.1
     close(got, want, "sky")
-    with pytest.raises(NotImplementedError, match="HDR"):
-        S_.sky_radiance(None, True, tsun, tro, trd)
+    # without an HDR skybox the sky is the procedural one
+    close(S_.sky_radiance(None, False, tsun, tro, trd), want, "sky_radiance")
 
 
 def materials(rng):
