@@ -5,7 +5,12 @@
 and K8), and the reference loops, unsorted and ray-sorted (K5-K7 and the
 torch shading stages), and the full-pipeline render (BreakTime, 21 tiles,
 textures, normal maps, HDR sky) through the kernel-shade loop with each
-scan form: tile lists and K5-K7, or the grid form K9-K11.
+scan form: tile lists and K5-K7, or the grid form K9-K11; then the
+one-tile scenes the kernel-shade loop does not take (one-tile cuts of
+BreakTime and VeachMIS) and DarkCornell through the torch-shade loop
+(K12, K13, K3), held to the brute-force integrator, and VeachMIS through
+the kernel-shade loop with the resident scans (K14-K16, the triangle
+table in a thread-block cluster's shared memory).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -102,9 +107,38 @@ Phases, each of which must pass (the first that fails ends the run):
      direction changes a path under the HDR sun; the card's sin, cos,
      atan2 and asin are not the host's to the ulp), at most 1%, and film
      means within 1e-4 relative.
+ 19. single-check: one DarkCornell group traced again; K12 and K13 against
+     their plain versions as phase 2 checks K1 and K2, and equal to K1's
+     and K2's (t, idx, occ) bit for bit, at 65,536, 65,613 and 3,686,400
+     lanes; K12, K13 and their plain versions timed in turns as phase 3.
+ 20. single-renders: DarkCornell 1280x720 x 16 spp through the
+     torch-shade loop (RenderSettings.single_tile_loop), and the one-tile
+     cut of BreakTime (rustic_tpu_torch/scene/cuts.py: 512 triangles,
+     textured, 4096^2 atlas, HDR sky) 1280x720 x 16 spp, which takes that
+     loop by itself; Mpaths/s; launch counts K12 1, K13 15, K3 1 and no
+     other kernel; finite films that are not black; DarkCornell's 64x64x4
+     film equal to the kernel-shade loop's within rtol 1e-4, atol 1e-5.
+ 21. single-films: the one-tile cuts of BreakTime and VeachMIS (460 alias
+     entries), 64x64x4: the staged film against the brute-force
+     integrator (render_image(..., engine="brute")) on the card, and card
+     against host CPU; each gated as phase 18 gates BreakTime (the brute
+     engine perturbs t at every bounce: twice the shift's entries, 2%).
+ 22. resident-check: K14-K16 against their plain versions and against
+     K9-K11 (index and occlusion equal on >= 99.99% of rays, t within rtol
+     1e-5) at 65,536, 65,613 and 4,194,304 lanes on the kernel-shade
+     loop's VeachMIS operands (cluster of 3) and BreakTime operands
+     (cluster of 8); cluster size, bytes per rank and active clusters;
+     K14-K16, K9-K11 and (VeachMIS) the plain versions timed in turns;
+     K15 on VeachMIS timed at every cluster size from 3 to 8.
+ 23. resident-render: VeachMIS 1024x1024 x 64 spp through the kernel-shade
+     loop with multitile_scan="resident": launch counts K14 1, K15 63,
+     K16 1, K8 64, none of K5-K7 and K9-K11, no block_tile_lists call; its
+     64x64x4 film equal to the grid form's; its 256x144 x 1024 spp film
+     against the reference film as phase 12.
 
 Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
-form by RenderSettings.multitile_scan.
+form by RenderSettings.multitile_scan, a one-tile scene's loop by
+RenderSettings.single_tile_loop.
 
 The last two lines of standard output are a JSON object describing each
 kernel (its time, plain version's time, launches on its main path's
@@ -155,6 +189,9 @@ BT_SPP = 32
 BT_CHUNK = 1 << 20  # RenderSettings.batch_pixels: 2 chunks of the frame
 BT_LANES = BT_CHUNK * FOLD  # 4,194,304
 BT_REF = "assets/reference/breaktime_256x144_1024spp.npy"
+
+# the one-tile renders (the torch-shade loop)
+ONE_TILE_SPP = 16
 
 # published peaks of one H100 SXM (NVIDIA H100 datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -211,10 +248,31 @@ KERNELS = {
         name="occlude_grid", source="rustic_tpu_torch/csrc/flash_multi.cu",
         replaces="rustic_tpu/ops/flash_intersect.py:1018",
     ),
+    "K12": dict(
+        name="nearest", source="rustic_tpu_torch/csrc/flash_intersect.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:817",
+    ),
+    "K13": dict(
+        name="nearest_shadow", source="rustic_tpu_torch/csrc/flash_intersect.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:950",
+    ),
+    "K14": dict(
+        name="nearest_resident", source="rustic_tpu_torch/csrc/flash_resident.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:864",
+    ),
+    "K15": dict(
+        name="nearest_shadow_resident", source="rustic_tpu_torch/csrc/flash_resident.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:893",
+    ),
+    "K16": dict(
+        name="occlude_resident", source="rustic_tpu_torch/csrc/flash_resident.cu",
+        replaces="rustic_tpu/ops/flash_intersect.py:926",
+    ),
 }
 SINGLE_TILE = ("K1", "K2", "K3", "K4")
 MULTI_TILE = ("K5", "K6", "K7")
 GRID = ("K9", "K10", "K11")
+RESIDENT = ("K14", "K15", "K16")
 
 
 def bound(n_bytes, flops):
@@ -302,6 +360,19 @@ class Smoke:
             self.results[key]["plain_ms"] = statistics.median(tp)
         log(f"{key} at {lanes} lanes: kernel {statistics.median(tk):.3f} ms "
             f"(min {min(tk):.3f}), plain {statistics.median(tp):.3f} ms (min {min(tp):.3f})")
+
+    def time_turns(self, what, label_a, fn_a, label_b, fn_b, reps=5):
+        """Median CUDA-event times of two kernels, taken in turns."""
+        import statistics
+
+        fn_a(), fn_b()  # warm
+        self.torch.cuda.synchronize()
+        ta, tb = [], []
+        for _ in range(reps):
+            ta += self.time_ms(fn_a, reps=1)
+            tb += self.time_ms(fn_b, reps=1)
+        log(f"{what}: {label_a} {statistics.median(ta):.3f} ms, {label_b} "
+            f"{statistics.median(tb):.3f} ms ({self.card})")
 
     def time_ms(self, fn, reps=10):
         """Per-launch times (ms) of `fn` by CUDA events."""
@@ -581,7 +652,7 @@ class Smoke:
         }
         for key in SINGLE_TILE:
             self.results[key]["launches"] = counts[KERNELS[key]["name"]]
-        expect |= {KERNELS[k]["name"]: 0 for k in MULTI_TILE + GRID + ("K8",)}
+        expect = dict.fromkeys(counts, 0) | expect
         if counts != expect:
             self.fail(f"launch counts {counts} != expected {expect}")
         mean = float(film.mean())
@@ -758,10 +829,10 @@ class Smoke:
         self.mt_bounces = None  # free the traced group
         self.torch.cuda.empty_cache()
 
-    def _render_mt(self, loop, spp, expect):
+    def _render_mt(self, loop, spp, expect, scan="lists"):
         """Render VeachMIS MT_SIZE^2 x spp through the multi-tile `loop`
-        after a one-group warm-up; check the launch counts against
-        `expect` (the others 0) -> the counts."""
+        with the scan form `scan` after a one-group warm-up; check the
+        launch counts against `expect` (the others 0) -> the counts."""
         import numpy as np
         import torch
 
@@ -772,18 +843,20 @@ class Smoke:
 
         t0 = time.time()
         render_image(self.mt_scene, self.mt_config,
-                     RenderSettings(samples=FOLD, multitile_loop=loop), device=self.dev)
+                     RenderSettings(samples=FOLD, multitile_loop=loop, multitile_scan=scan),
+                     device=self.dev)
         log(f"{loop} warm-up render ({FOLD} spp): {time.time() - t0:.2f} s")
         FI.reset_launch_counts()
         SK.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.time()
         film = render_image(self.mt_scene, self.mt_config,
-                            RenderSettings(samples=spp, multitile_loop=loop), device=self.dev)
+                            RenderSettings(samples=spp, multitile_loop=loop, multitile_scan=scan),
+                            device=self.dev)
         render_s = time.time() - t0
         counts = {**FI.LAUNCHES, **SK.LAUNCHES}
         mpaths = MT_SIZE * MT_SIZE * spp / render_s / 1e6
-        log(f"render VeachMIS {MT_SIZE}x{MT_SIZE}x{spp} spp NEE+MIS, {loop} loop: "
+        log(f"render VeachMIS {MT_SIZE}x{MT_SIZE}x{spp} spp NEE+MIS, {loop} loop, {scan} scans: "
             f"{render_s:.3f} s, {mpaths:.2f} Mpaths/s ({self.card})")
         log(f"launch counts: {counts}")
         expect = dict.fromkeys(counts, 0) | expect
@@ -944,7 +1017,8 @@ class Smoke:
             self.results[k]["max_abs_err"] = errs[k]
         cases = self._mt_cases(bounces, slice(None), k5_bounce=1)
         self._mt_time({k: cases[k] for k in ("K6", "K7")}, MT_LANES, ("K6", "K7"))
-        del bounces, cases
+        self.ks_bounces = bounces  # the resident scans are checked on these operands
+        del cases
         torch.cuda.empty_cache()
 
     def sorted_renders(self):
@@ -961,7 +1035,10 @@ class Smoke:
             self.results[key]["launches"] = counts[KERNELS[key]["name"]]
         self._render_mt("ray-sorted", MT_SPP, scans)
 
-    def mt_film(self):
+    def mt_film(self, scans=None):
+        """VeachMIS 256x144x1024 spp against the reference film, through
+        each loop with tile lists, or through the (loop, scan form) pairs
+        `scans`."""
         import numpy as np
 
         from rustic_tpu_torch.config import RenderSettings
@@ -972,15 +1049,18 @@ class Smoke:
         h, w = ref.shape[:2]
         config = dataclasses.replace(self.mt_config, width=w, height=h)
         bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
-        for loop in MULTITILE_LOOPS:
+        if scans is None:
+            scans = [(loop, "lists") for loop in MULTITILE_LOOPS]
+        for loop, scan in scans:
             t0 = time.time()
             film = render_image(self.mt_scene, config,
-                                RenderSettings(samples=MT_REF_SPP, multitile_loop=loop),
+                                RenderSettings(samples=MT_REF_SPP, multitile_loop=loop,
+                                               multitile_scan=scan),
                                 device=self.dev)
             wall = time.time() - t0
             rel_energy = abs(float(film.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-9)
             rmse = float(np.sqrt(np.mean((film - ref) ** 2)))
-            log(f"VeachMIS {w}x{h}x{MT_REF_SPP} spp, {loop} loop: {wall:.2f} s, film mean "
+            log(f"VeachMIS {w}x{h}x{MT_REF_SPP} spp, {loop} loop, {scan} scans: {wall:.2f} s, film mean "
                 f"{film.mean():.6f} vs reference {ref.mean():.6f} (relative energy "
                 f"{rel_energy:.6f}), RMSE {rmse:.6g} (bound {bound:.4g}; TPU build "
                 f"{MT_REF_RMSE_TPU:g}, QUALITY_r5.json)")
@@ -1262,8 +1342,7 @@ class Smoke:
             log(f"whole scan at {BT_LANES} lanes: lists form (block_tile_lists + {lk}) "
                 f"{statistics.median(tl):.3f} ms, grid form ({key}) {statistics.median(tg):.3f} ms; "
                 f"the list pre-pass alone {statistics.median(tp):.3f} ms ({self.card})")
-        self.bt_bounces = None
-        torch.cuda.empty_cache()
+        torch.cuda.empty_cache()  # bt_bounces stay for the resident scans' check
 
     def bt_renders(self):
         import numpy as np
@@ -1396,6 +1475,386 @@ class Smoke:
                 self.fail(f"BreakTime {scan}: card and host films differ beyond the one-ulp "
                           f"shift ({bad} entries against {ulp}, relative energy {energy:.3g})")
 
+    # ---- phases 19-21: one tile, the torch-shade loop (K12, K13, K3) ------------------
+
+    def single_check(self):
+        """K12/K13 on DarkCornell lanes: against their plain versions, bit
+        for bit against K1/K2, then timed with their plain versions."""
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        self.main_path_inputs()
+        g16, attrs = self.scene.tri_feats16, self.scene.tri_attrs
+        b0, b1 = self.bounces[0], self.bounces[1]
+        for n in (CHECK_LANES, CHECK_LANES + RAGGED, MAIN_LANES):
+            f0 = b0["feats"][:, :n].contiguous()
+            f1 = b1["feats"][:, :n].contiguous()
+            s1 = b1["pending"][:, :n].contiguous()
+            t_k, i_k = FI.nearest(f0, g16)
+            frac, e12, _ = self._cmp_winner("K12", t_k, i_k, *FI.nearest_plain(f0, g16))
+            t_1, i_1, _ = FI.nearest_attrs(f0, g16, attrs)
+            if not (torch.equal(t_k, t_1) and torch.equal(i_k, i_1)):
+                self.fail(f"K12 n={n}: (t, idx) differ from K1's")
+            log(f"K12 n={n}: idx agree {frac:.6f}, max |dt| {e12:.3g}; bit-equal to K1")
+            t_k, i_k, o_k = FI.nearest_shadow(f1, s1, g16)
+            t_p, i_p, o_p = FI.nearest_shadow_plain(f1, s1, g16)
+            frac, e13, _ = self._cmp_winner("K13", t_k, i_k, t_p, i_p)
+            occ_agree, _ = self._cmp_occ("K13", o_k, o_p)
+            t_2, i_2, o_2, _ = FI.nearest_shadow_attrs(f1, s1, g16, attrs)
+            if not (torch.equal(t_k, t_2) and torch.equal(i_k, i_2) and torch.equal(o_k, o_2)):
+                self.fail(f"K13 n={n}: (t, idx, occ) differ from K2's")
+            log(f"K13 n={n}: idx agree {frac:.6f}, occ agree {occ_agree:.6f}, occluded "
+                f"{float(o_k.float().mean()):.4f}, max |dt| {e13:.3g}; bit-equal to K2")
+            del t_k, i_k, o_k, t_p, i_p, o_p, t_1, i_1, t_2, i_2, o_2
+        self.results["K12"]["max_abs_err"] = e12  # at the main path's shape
+        self.results["K13"]["max_abs_err"] = e13
+        f0, f1, s1 = b0["feats"], b1["feats"], b1["pending"]
+        self.time_pair("K12", lambda: FI.nearest(f0, g16), lambda: FI.nearest_plain(f0, g16),
+                       MAIN_LANES)
+        self.time_pair("K13", lambda: FI.nearest_shadow(f1, s1, g16),
+                       lambda: FI.nearest_shadow_plain(f1, s1, g16), MAIN_LANES)
+        self.time_turns(f"at {MAIN_LANES} lanes", "K12", lambda: FI.nearest(f0, g16),
+                        "K1", lambda: FI.nearest_attrs(f0, g16, attrs))
+        self.time_turns(f"at {MAIN_LANES} lanes", "K13", lambda: FI.nearest_shadow(f1, s1, g16),
+                        "K2", lambda: FI.nearest_shadow_attrs(f1, s1, g16, attrs))
+        n, n_tris = MAIN_LANES, self.scene.n_tris
+        table = g16.shape[1] * RAY_ROWS * 4
+        self.set_bound("K12", scan_bound([(n, RAY_ROWS)], n * n_tris, n * 8, table))
+        self.set_bound("K13", scan_bound([(n, RAY_ROWS), (n, SHADOW_ROWS)], 2 * n * n_tris,
+                                         n * 12, table))
+        self.bounces = None
+        torch.cuda.empty_cache()
+
+    def _one_tile_scenes(self):
+        """The one-tile cuts of BreakTime (4096^2 atlas, HDR sky) and
+        VeachMIS on the card, with their configurations at WIDTH x HEIGHT."""
+        from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.scene import cuts
+        from rustic_tpu_torch.scene.gltf import load_glb
+        from rustic_tpu_torch.scene.world import World, load_skybox_image
+
+        t0 = time.time()
+        self.one_tile = {}
+        for name, path, cut, cam, sky in (
+            ("BreakTime-1tile", BT, cuts.BREAKTIME_ONE_TILE, BT_CAM, BT_SKY),
+            ("VeachMIS-1tile", VEACH, cuts.VEACH_ONE_TILE, VEACH_CAM, None),
+        ):
+            world = World(cuts.one_tile(load_glb(path), cut))
+            scene = world.to_torch(self.dev, None if sky is None else load_skybox_image(sky))
+            if FI.geometry(scene.tri_feats16)[2] != 1 or SK.supported(scene):
+                self.fail(f"{name} is not a one-tile scene the kernel-shade loop refuses")
+            config = TracingConfig(width=WIDTH, height=HEIGHT, nee=NextEventEstimation.MIS, **cam)
+            self.one_tile[name] = (scene, config)
+            log(f"{name}: {scene.n_tris} triangles, {scene.n_alias_entries} alias entries, "
+                f"textured {scene.has_textures}, rows {scene.tri_attrs.shape[1]} wide")
+        log(f"one-tile scenes built: {time.time() - t0:.1f} s")
+
+    def _render_one_tile(self, what, scene, config, settings):
+        """A timed render after a one-group warm-up; launch counts K12 1,
+        K13 4 x groups - 1, K3 1, every other kernel 0 -> (counts, film)."""
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.runtime.render import render_image
+
+        t0 = time.time()
+        render_image(scene, config, dataclasses.replace(settings, samples=FOLD), device=self.dev)
+        log(f"{what} warm-up render ({FOLD} spp): {time.time() - t0:.2f} s")
+        FI.reset_launch_counts()
+        SK.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        film = render_image(scene, config, settings, device=self.dev)
+        render_s = time.time() - t0
+        counts = {**FI.LAUNCHES, **SK.LAUNCHES}
+        spp = settings.samples
+        mpaths = config.width * config.height * spp / render_s / 1e6
+        log(f"render {what} {config.width}x{config.height}x{spp} spp NEE+MIS, torch-shade loop: "
+            f"{render_s:.3f} s, {mpaths:.2f} Mpaths/s ({self.card})")
+        log(f"launch counts: {counts}")
+        groups = -(-spp // FOLD)
+        expect = dict.fromkeys(counts, 0) | {
+            "nearest": 1, "nearest_shadow": config.max_bounces * groups - 1, "occlude": 1}
+        if counts != expect:
+            self.fail(f"launch counts {counts} != expected {expect}")
+        if not np.isfinite(film).all() or film.shape != (config.height, config.width, 3):
+            self.fail(f"{what}: film is not finite or has the wrong shape")
+        return counts, film
+
+    def single_renders(self):
+        import numpy as np
+
+        from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+        from rustic_tpu_torch.runtime.render import render_image
+        from rustic_tpu_torch.scene.world import World
+
+        self.scene = World.from_path("assets/scenes/DarkCornell.glb").to_torch(self.dev)
+        torch_shade = RenderSettings(samples=ONE_TILE_SPP, single_tile_loop="torch-shade")
+        _, film = self._render_one_tile("DarkCornell", self.scene, self.config, torch_shade)
+        mean = float(film.mean())
+        log(f"film mean {mean:.6f} (reference {FILM_MEAN_REF} at {SPP} spp, "
+            f"{(mean / FILM_MEAN_REF - 1) * 100:+.3f}%)")
+        if abs(mean / FILM_MEAN_REF - 1.0) > 0.02:
+            self.fail(f"film mean {mean} is not within 2% of {FILM_MEAN_REF}")
+        small = TracingConfig(width=64, height=64, nee=NextEventEstimation.MIS)
+        a = render_image(self.scene, small, RenderSettings(samples=4, single_tile_loop="torch-shade"),
+                         device=self.dev)
+        b = render_image(self.scene, small, RenderSettings(samples=4), device=self.dev)
+        bad = ~np.isclose(a, b, rtol=1e-4, atol=1e-5)
+        log(f"DarkCornell 64x64x4 film, torch-shade loop vs kernel-shade loop: max |d| "
+            f"{np.abs(a - b).max():.3g}, {int(bad.sum())} entries outside rtol 1e-4 / atol 1e-5")
+        if bad.any():
+            self.fail("the torch-shade and the kernel-shade films of DarkCornell differ")
+        self.scene = None
+
+        self._one_tile_scenes()
+        scene, config = self.one_tile["BreakTime-1tile"]
+        counts, film = self._render_one_tile("BreakTime-1tile", scene, config,
+                                             RenderSettings(samples=ONE_TILE_SPP))
+        for key in ("K12", "K13"):  # the main path's render of K12, K13
+            self.results[key]["launches"] = counts[KERNELS[key]["name"]]
+        log(f"film mean {float(film.mean()):.6f}")
+        if not film.mean() > 0.05:
+            self.fail(f"BreakTime-1tile: the film is black (mean {film.mean()})")
+
+    def _ulp_gated(self, what, a, b, ulp, slack=1):
+        """Films `a` and `b` may differ beyond rtol 1e-4 / atol 1e-5 in at
+        most `slack` x `ulp` entries (`ulp`: what a one-ulp camera shift
+        moves) and `slack`% of them, with means within 1e-4 relative."""
+        import numpy as np
+
+        bad = int((~np.isclose(a, b, rtol=1e-4, atol=1e-5)).sum())
+        energy = abs(float(a.mean()) / float(b.mean()) - 1.0)
+        log(f"{what}: max |d| {np.abs(a - b).max():.3g}, {bad} of {a.size} entries outside "
+            f"rtol 1e-4 / atol 1e-5 (a one-ulp camera shift on the card: {ulp}, allowed "
+            f"{slack} x), relative energy {energy:.3g}, mean {a.mean():.6f}")
+        if bad > slack * ulp or bad > 0.01 * slack * a.size or energy > 1e-4:
+            self.fail(f"{what}: the films differ beyond {slack} x the one-ulp shift ({bad} "
+                      f"entries against {ulp}, relative energy {energy:.3g})")
+
+    def single_films(self):
+        """The one-tile cuts at 64x64x4: staged (K12, K13, K3) against the
+        brute-force integrator on the card, and card against host; gated
+        by the card's own film under a one-ulp camera shift. The brute
+        engine's t differs from the flash engine's exact re-test by ulps at
+        every bounce, where the camera shift perturbs a path once, so that
+        comparison is allowed twice the shift's entries."""
+        import numpy as np
+
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.runtime.render import render_image
+
+        settings = RenderSettings(samples=4)
+        for name, (scene, config) in self.one_tile.items():
+            config = dataclasses.replace(config, width=64, height=64)
+            x, y, z = config.cam_position
+            shifted = dataclasses.replace(
+                config, cam_position=(x, float(np.nextafter(np.float32(y), np.float32(2 * y))), z))
+            FI.reset_launch_counts()
+            staged = render_image(scene, config, settings, device=self.dev)
+            if FI.LAUNCHES["nearest"] != 1 or FI.LAUNCHES["nearest_shadow"] != 3:
+                self.fail(f"{name}: the staged film did not run K12/K13: {FI.LAUNCHES}")
+            if not np.isfinite(staged).all() or not staged.mean() > 0.05:
+                self.fail(f"{name}: the staged film is not finite or is black")
+            moved = render_image(scene, shifted, settings, device=self.dev)
+            ulp = int((~np.isclose(staged, moved, rtol=1e-4, atol=1e-5)).sum())
+            brute = render_image(scene, config, settings, device=self.dev, engine="brute")
+            self._ulp_gated(f"{name} 64x64x4, staged vs the brute-force integrator on the card",
+                            staged, brute, ulp, slack=2)
+            host = render_image(scene.to("cpu"), config, settings, device="cpu")
+            self._ulp_gated(f"{name} 64x64x4, card vs host CPU", staged, host, ulp)
+        self.one_tile = None
+        self.torch.cuda.empty_cache()
+
+    # ---- phases 22-23: the resident scans (K14-K16) -----------------------------------
+
+    def _resident_call(self, key, scene, f, s):
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+        if key == "K14":
+            return FI.nearest_resident(f, g16, aabbs)
+        if key == "K15":
+            return FI.nearest_shadow_resident(f, s, g16, aabbs)
+        return (FI.occlude_resident(s, g16, aabbs),)
+
+    def _grid_on(self, key, scene, f, s):
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+        if key == "K14":
+            return FI.nearest_grid(f, g16, aabbs)
+        if key == "K15":
+            return FI.nearest_shadow_grid(f, s, g16, aabbs)
+        return (FI.occlude_grid(s, g16, aabbs),)
+
+    def _resident_cases(self, bounces, lanes: slice):
+        """Operands of K14-K16 on `lanes` of a group traced through the
+        kernel-shade loop: K14 on the bounce-0 camera rays, K15 on the
+        sorted bounce-1 rays with the bounce-0 shadow rays, K16 on the
+        sorted bounce-3 shadow rays."""
+        def cut(x):
+            return x[:, lanes].contiguous()
+
+        return {
+            "K14": (cut(bounces[0]["feats"]), None),
+            "K15": (cut(bounces[1]["feats"]), cut(bounces[1]["pending"])),
+            "K16": (None, cut(bounces[-1]["shadow_out"])),
+        }
+
+    def _resident_compare(self, what, scene, cases, n):
+        """K14-K16 against their plain versions and against K9-K11 ->
+        ({key: max |dt| or 0 against plain}, {key: tested rays per tile})."""
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        errs, per_set = {}, {}
+        for key, (f, s) in cases.items():
+            out_k = self._resident_call(key, scene, f, s)
+            t_p, i_p, o_p, _, per_set[key] = FI._grid_scan(f, s, scene.tri_feats16,
+                                                           scene.tile_aabbs)
+            out_p = {"K14": (t_p, i_p), "K15": (t_p, i_p, o_p), "K16": (o_p,)}[key]
+            out_g = self._grid_on(key, scene, f, s)
+            msg = []
+            for against, out in (("plain", out_p), ("grid", out_g)):
+                label = f"{key} vs {against}"
+                if key != "K16":
+                    frac, e, _ = self._cmp_winner(label, out_k[0], out_k[1], out[0], out[1])
+                    msg.append(f"{against}: idx agree {frac:.6f}, max |dt| {e:.3g}")
+                    if against == "plain":
+                        errs[key] = e
+                if key != "K14":
+                    agree, _ = self._cmp_occ(label, out_k[-1], out[-1])
+                    msg.append(f"{against}: occ agree {agree:.6f}")
+                    if key == "K16" and against == "plain":
+                        errs[key] = float((out_k[-1] - out[-1]).abs().max())
+            log(f"{what} {key} n={n}: " + "; ".join(msg))
+        return errs, per_set
+
+    def resident_check(self):
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        names = {k: KERNELS[k]["name"] for k in RESIDENT}
+        grid_of = {"K14": "K9", "K15": "K10", "K16": "K11"}
+        log(f"device budget: {FI.resident_budget(self.dev)} (shared-memory bytes a block, "
+            f"blocks a portable cluster)")
+        for what, scene, bounces in (("VeachMIS", self.mt_scene, self.ks_bounces),
+                                     ("BreakTime", self.bt_scene, self.bt_bounces)):
+            g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+            _, tt, nt = FI.geometry(g16)
+            plan = FI.use_resident(g16)
+            if plan is None:
+                self.fail(f"{what}: the triangle table does not fit a cluster")
+            active = {k: FI.resident_active_clusters(names[k], plan, self.dev) for k in RESIDENT}
+            log(f"{what}: {nt} tiles, {nt * tt} padded triangles in a cluster of {plan.cluster}, "
+                f"{plan.chunks_per_rank} chunks = {plan.bytes_per_rank} bytes a rank; active "
+                f"clusters {active} ({plan.cluster * max(active.values())} of "
+                f"{torch.cuda.get_device_properties(self.dev).multi_processor_count} SMs)")
+            lanes = bounces[0]["feats"].shape[1]
+            for n in (CHECK_LANES, CHECK_LANES + RAGGED, lanes):
+                errs, per_set = self._resident_compare(
+                    what, scene, self._resident_cases(bounces, slice(0, n)), n)
+            cases = self._resident_cases(bounces, slice(None))
+            tile_tris = torch.clamp(
+                scene.n_tris - torch.arange(nt, device=self.dev) * tt, 0, tt).double()
+            table = g16.shape[1] * RAY_ROWS * 4 + aabbs.numel() * 4
+            main = what == "VeachMIS"  # the resident render's scene: the kernels line
+            for key, (f, s) in cases.items():
+                def kern(key=key, f=f, s=s):
+                    return self._resident_call(key, scene, f, s)
+
+                def grid(key=key, f=f, s=s):
+                    return self._grid_on(key, scene, f, s)
+
+                if main:
+                    self.results[key]["max_abs_err"] = errs[key]
+                    plain = {"K14": lambda f=f: FI.nearest_resident_plain(f, g16, aabbs),
+                             "K15": lambda f=f, s=s: FI.nearest_shadow_resident_plain(
+                                 f, s, g16, aabbs),
+                             "K16": lambda s=s: FI.occlude_resident_plain(s, g16, aabbs)}[key]
+                    self.time_pair(key, kern, plain, lanes, reps=3)
+                    pairs = float((per_set[key].double() @ tile_tris).sum())
+                    rows = [(lanes, r) for r, x in ((RAY_ROWS, f), (SHADOW_ROWS, s))
+                            if x is not None]
+                    out = {"K14": 8, "K15": 12, "K16": 4}[key] * lanes
+                    self.set_bound(key, scan_bound(rows, pairs, out, table))
+                self.time_turns(f"{what} at {lanes} lanes", f"resident {key}", kern,
+                                f"grid {grid_of[key]}", grid)
+            if main:
+                self._cluster_sweep(what, scene, cases["K15"], plan, lanes)
+
+    def _cluster_sweep(self, what, scene, case, plan, lanes):
+        """K15 with the table spread over each cluster size from the plan's
+        up to the device's largest: the share of a ray's reads that leave
+        its SM grows as 1 - 1/c while the pair work stays the same."""
+        import statistics
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        f, s = case
+        n_chunks = scene.tri_feats16.shape[1] // 4 // FI.CHUNK
+        name = KERNELS["K15"]["name"]
+        real = FI.use_resident
+        for c in range(plan.cluster, FI.resident_budget(self.dev)[1] + 1):
+            forced = FI.ResidentPlan(c, -(-n_chunks // c))
+            FI.use_resident = lambda g16, forced=forced: forced
+            try:
+                self._resident_call("K15", scene, f, s)  # warm
+                ms = statistics.median(self.time_ms(
+                    lambda: self._resident_call("K15", scene, f, s), reps=3))
+            finally:
+                FI.use_resident = real
+            active = FI.resident_active_clusters(name, forced, self.dev)
+            log(f"{what} K15 at {lanes} lanes, cluster of {c} ({forced.chunks_per_rank} chunks a "
+                f"rank, {active} active clusters = {active * c} SMs, {1 - 1 / c:.3f} of reads "
+                f"remote): {ms:.3f} ms ({self.card})")
+
+    def resident_render(self):
+        import numpy as np
+
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.runtime.render import render_image
+
+        groups = MT_SPP // FOLD
+        nb = self.mt_config.max_bounces
+        list_calls = []
+        real_lists = FI.block_tile_lists
+
+        def counted_lists(*a, **k):
+            list_calls.append(1)
+            return real_lists(*a, **k)
+
+        FI.block_tile_lists = counted_lists
+        try:
+            counts = self._render_mt("kernel-shade", MT_SPP, {
+                "nearest_resident": 1, "nearest_shadow_resident": nb * groups - 1,
+                "occlude_resident": 1, "shade_bounce_wide": nb * groups,
+            }, scan="resident")
+        finally:
+            FI.block_tile_lists = real_lists
+        if list_calls:
+            self.fail(f"the resident render built tile lists {len(list_calls)} times")
+        for key in RESIDENT:  # the main path's render of K14-K16
+            self.results[key]["launches"] = counts[KERNELS[key]["name"]]
+        config = dataclasses.replace(self.mt_config, width=64, height=64)
+        films = {scan: render_image(self.mt_scene, config,
+                                    RenderSettings(samples=4, multitile_scan=scan),
+                                    device=self.dev) for scan in ("grid", "resident")}
+        same = np.array_equal(films["grid"], films["resident"])
+        log(f"VeachMIS 64x64x4 film, resident scans vs grid scans: equal {same}, mean "
+            f"{films['resident'].mean():.6f}")
+        if not same:
+            self.fail("the resident and the grid films differ")
+        self.mt_film(scans=[("kernel-shade", "resident")])
+
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self) -> int:
@@ -1418,6 +1877,11 @@ class Smoke:
             ("breaktime-renders", self.bt_renders),
             ("breaktime-film", self.bt_film),
             ("breaktime-cross-device", self.bt_cross_device),
+            ("single-check", self.single_check),
+            ("single-renders", self.single_renders),
+            ("single-films", self.single_films),
+            ("resident-check", self.resident_check),
+            ("resident-render", self.resident_render),
         ]
         for name, fn in phases:
             if not self.phase(name, fn):
@@ -1425,8 +1889,8 @@ class Smoke:
                 return 1
             if name == "cross-device":
                 self.scene = None
-            if name == "multi-cross-device":
-                self.mt_scene = None
+            if name == "resident-check":
+                self.ks_bounces = self.bt_bounces = None
                 self.torch.cuda.empty_cache()
         torch = self.torch
         log(self.card)

@@ -6,13 +6,16 @@ only: never jax, flax or rustic_tpu, so it runs on a host that has none
 of them.
 
 What is ported: the staged renderer of runtime/pipeline.py behind
-runtime/render.py:render_image, for scenes of one triangle tile (the
-headline render, untextured) and of many (textures, normal maps, HDR
-sky images), through eleven hand-written CUDA kernels (csrc/): the flash
-scans of one tile (K1-K3) and of many, with tile lists (K5-K7) or culled
-per ray in the kernel (K9-K11), and the per-bounce shade kernel (K4,
-K8). Each has a plain PyTorch twin in the same module; a wrapper runs
-the twin for CPU tensors and the kernel for CUDA tensors.
+runtime/render.py:render_image, for scenes of one triangle tile and of
+many (textures, normal maps, HDR sky images), and the single-program
+integrator of ops/trace.py with the flash and the brute-force engine,
+through sixteen hand-written CUDA kernels (csrc/): the flash scans of
+one tile with the winner's shading row (K1-K3) and without (K12-K13),
+and of many tiles, with tile lists (K5-K7), culled per ray in the kernel
+(K9-K11), or so with the triangle table held in a thread-block cluster's
+shared memory (K14-K16), and the per-bounce shade kernel (K4, K8). Each
+has a plain PyTorch twin in the same module; a wrapper runs the twin for
+CPU tensors and the kernel for CUDA tensors.
 """
 
 __version__ = "0.1.0"

@@ -111,6 +111,13 @@ class RenderSettings:
     # the loop a multi-tile scene takes (runtime/pipeline.py MULTITILE_LOOPS):
     # "kernel-shade", or the reference loops "ray-sorted" and "unsorted"
     multitile_loop: str = "kernel-shade"
-    # the form of the multi-tile scans (runtime/pipeline.py MULTITILE_SCANS):
-    # "lists" (tile lists, then K5-K7) or "grid" (K9-K11, culling in the kernel)
+    # the form of the multi-tile scans (ops/intersect.py MULTITILE_SCANS):
+    # "lists" (tile lists, then K5-K7), "grid" (K9-K11, culling in the kernel)
+    # or "resident" (K14-K16, the triangle table held in a thread-block
+    # cluster's shared memory; a scene that does not fit there is refused)
     multitile_scan: str = "lists"
+    # the loop a one-tile scene takes (runtime/pipeline.py SINGLE_TILE_LOOPS):
+    # "kernel-shade" where the shade kernel takes the scene (untextured, an
+    # alias table of at most 16 entries) and the torch-shade loop elsewhere,
+    # or "torch-shade" for every one-tile scene
+    single_tile_loop: str = "kernel-shade"

@@ -1,5 +1,6 @@
 // Device code shared by the flash scans of flash_intersect.cu (K1-K3,
-// one triangle tile) and flash_multi.cu (K5-K7, many tiles).
+// K12-K13: one triangle tile), flash_multi.cu (K5-K7, K9-K11: many tiles)
+// and flash_resident.cu (K14-K16: many tiles, the table in shared memory).
 //
 // A (ray, triangle) pair: the ray's feature rows f[0..9] (rd, ro x rd, ro,
 // 1) against the triangle's ten G rows, one float4 (det, u, v, t
@@ -37,25 +38,26 @@ __device__ __forceinline__ void stage_chunk(float4* sg, const float* __restrict_
   }
 }
 
-// One (ray, triangle) pair: the exact division epilogue.
-__device__ __forceinline__ void pair_test(const float (&f)[NROWS], const float4* sg, int j,
-                                          float& t, bool& valid) {
-  float4 acc;
-  {
-    const float4 g = sg[j];
-    acc.x = f[0] * g.x;
-    acc.y = f[0] * g.y;
-    acc.z = f[0] * g.z;
-    acc.w = f[0] * g.w;
+// The four numerators of one (ray, triangle) pair: a multiply for row 0,
+// then one FMA per row, in row order. Every scan sums them this way, so
+// two scans give the same bits on the same pair.
+__device__ __forceinline__ void pair_accumulate(float4& acc, float fr, const float4 g,
+                                                bool first) {
+  if (first) {
+    acc.x = fr * g.x;
+    acc.y = fr * g.y;
+    acc.z = fr * g.z;
+    acc.w = fr * g.w;
+  } else {
+    acc.x = fmaf(fr, g.x, acc.x);
+    acc.y = fmaf(fr, g.y, acc.y);
+    acc.z = fmaf(fr, g.z, acc.z);
+    acc.w = fmaf(fr, g.w, acc.w);
   }
-#pragma unroll
-  for (int r = 1; r < NROWS; ++r) {
-    const float4 g = sg[r * CHUNK + j];
-    acc.x = fmaf(f[r], g.x, acc.x);
-    acc.y = fmaf(f[r], g.y, acc.y);
-    acc.z = fmaf(f[r], g.z, acc.z);
-    acc.w = fmaf(f[r], g.w, acc.w);
-  }
+}
+
+// The exact division epilogue on a pair's numerators (det, u, v, t).
+__device__ __forceinline__ void pair_epilogue(const float4 acc, float& t, bool& valid) {
   const bool good = fabsf(acc.x) >= DET_EPS;
   const float inv = good ? 1.0f / acc.x : 0.0f;
   const float u = acc.y * inv;
@@ -64,11 +66,61 @@ __device__ __forceinline__ void pair_test(const float (&f)[NROWS], const float4*
   valid = good && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > EPS;
 }
 
+// One (ray, triangle) pair: triangle j of the staged chunk `sg`.
+__device__ __forceinline__ void pair_test(const float (&f)[NROWS], const float4* sg, int j,
+                                          float& t, bool& valid) {
+  float4 acc;
+#pragma unroll
+  for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, f[r], sg[r * CHUNK + j], r == 0);
+  pair_epilogue(acc, t, valid);
+}
+
 // A ray's feature rows from the [16, B] table (zeros when inactive).
 __device__ __forceinline__ void load_rows(const float* __restrict__ rows, int B, int ray,
                                           bool active, float (&f)[NROWS]) {
 #pragma unroll
   for (int r = 0; r < NROWS; ++r) f[r] = active ? rows[(size_t)r * B + ray] : 0.0f;
+}
+
+// ---- the per-ray tile cull of the grid and resident forms ---------------
+
+// min / max that return NaN when either operand is NaN, as jnp.minimum,
+// jnp.maximum and torch.minimum do (fminf/fmaxf drop a NaN operand)
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+struct SlabRay {
+  float ro[3], inv[3];
+};
+
+__device__ __forceinline__ SlabRay slab_ray(const float (&f)[NROWS]) {
+  SlabRay r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float d = f[a];
+    r.ro[a] = f[6 + a];
+    r.inv[a] = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e12f : 1e12f) : 1.0f / d;
+  }
+  return r;
+}
+
+// _tile_possible for one ray: can it reach the box closer than `limit`?
+__device__ __forceinline__ bool slab_ok(const SlabRay& r, const float* __restrict__ box,
+                                        float limit) {
+  float tmin = 0.0f, tmax = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t1 = (__ldg(box + a) - r.ro[a]) * r.inv[a];
+    const float t2 = (__ldg(box + 4 + a) - r.ro[a]) * r.inv[a];
+    const float lo = nan_min(t1, t2), hi = nan_max(t1, t2);
+    tmin = a == 0 ? lo : nan_max(tmin, lo);
+    tmax = a == 0 ? hi : nan_min(tmax, hi);
+  }
+  return tmax >= tmin && tmax > 0.0f && tmin < limit;
 }
 
 }  // namespace flash

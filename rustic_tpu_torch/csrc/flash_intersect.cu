@@ -1,9 +1,16 @@
-// Single-tile flash intersection scans (kernels K1-K3) for Hopper, sm_90a.
+// Single-tile flash intersection scans (kernels K1-K3 and K12-K13) for
+// Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernels of rustic_tpu/ops/flash_intersect.py:
 //   rt_nearest_attrs         <- _nearest_single_attrs         (flash_nearest_attrs_t)
 //   rt_nearest_shadow_attrs  <- _nearest_shadow_single_attrs  (flash_nearest_shadow_attrs_t)
 //   rt_occlude               <- _occlude_single               (flash_occlude_packed_t)
+//   rt_nearest               <- _nearest_single               (flash_nearest, one tile)
+//   rt_nearest_shadow        <- _nearest_shadow_single        (flash_nearest_shadow, one tile)
+// The last two (K12, K13) are K1 and K2 without the copy of the winner's
+// shading row: the consumer gathers the row itself, at whatever width the
+// scene's table has (textured scenes: 64 floats). They are the same
+// template with ATTRS off, so they return K1/K2's (t, idx, occ) bit for bit.
 //
 // What they compute: for each ray (feature rows F[16, B] = rd, ro x rd, ro,
 // 1, maxt) and each triangle of the one tile (G[16, 4*TT] = the det, u*det,
@@ -39,7 +46,7 @@ using namespace flash;
 
 constexpr int THREADS = 128;  // rays per block
 
-template <bool NEAR, bool ANY>
+template <bool NEAR, bool ANY, bool ATTRS>
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
             const float* __restrict__ g, const float* __restrict__ attrs,
@@ -88,8 +95,10 @@ scan_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
   if (NEAR) {
     t_out[ray] = best_t;
     idx_out[ray] = best_i;
-    const float* row = attrs + (size_t)best_i * W;
-    for (int w = 0; w < W; ++w) attrs_out[(size_t)w * B + ray] = row[w];
+    if (ATTRS) {
+      const float* row = attrs + (size_t)best_i * W;
+      for (int w = 0; w < W; ++w) attrs_out[(size_t)w * B + ray] = row[w];
+    }
   }
   if (ANY) occ_out[ray] = occ ? 1 : 0;
 }
@@ -101,7 +110,7 @@ inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
 extern "C" int rt_nearest_attrs(const float* feats, const float* g, const float* attrs,
                                 float* t, int* idx, float* attrs_t,
                                 int B, int TT, int W, void* stream) {
-  scan_kernel<true, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+  scan_kernel<true, false, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
       feats, nullptr, g, attrs, t, idx, nullptr, attrs_t, B, TT, W);
   return (int)cudaGetLastError();
 }
@@ -109,14 +118,28 @@ extern "C" int rt_nearest_attrs(const float* feats, const float* g, const float*
 extern "C" int rt_nearest_shadow_attrs(const float* feats, const float* sh, const float* g,
                                        const float* attrs, float* t, int* idx, int* occ,
                                        float* attrs_t, int B, int TT, int W, void* stream) {
-  scan_kernel<true, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+  scan_kernel<true, true, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
       feats, sh, g, attrs, t, idx, occ, attrs_t, B, TT, W);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rt_occlude(const float* sh, const float* g, int* occ, int B, int TT,
                           void* stream) {
-  scan_kernel<false, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+  scan_kernel<false, true, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
       nullptr, sh, g, nullptr, nullptr, nullptr, occ, nullptr, B, TT, 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_nearest(const float* feats, const float* g, float* t, int* idx, int B, int TT,
+                          void* stream) {
+  scan_kernel<true, false, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      feats, nullptr, g, nullptr, t, idx, nullptr, nullptr, B, TT, 0);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_nearest_shadow(const float* feats, const float* sh, const float* g, float* t,
+                                 int* idx, int* occ, int B, int TT, void* stream) {
+  scan_kernel<true, true, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+      feats, sh, g, nullptr, t, idx, occ, nullptr, B, TT, 0);
   return (int)cudaGetLastError();
 }

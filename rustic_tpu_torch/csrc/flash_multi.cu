@@ -137,45 +137,6 @@ multi_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
 // `visits` (optional, one int per block) receives the tiles the block
 // staged.
 
-// min / max that return NaN when either operand is NaN, as jnp.minimum,
-// jnp.maximum and torch.minimum do (fminf/fmaxf drop a NaN operand)
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-
-struct SlabRay {
-  float ro[3], inv[3];
-};
-
-__device__ __forceinline__ SlabRay slab_ray(const float (&f)[NROWS]) {
-  SlabRay r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float d = f[a];
-    r.ro[a] = f[6 + a];
-    r.inv[a] = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e12f : 1e12f) : 1.0f / d;
-  }
-  return r;
-}
-
-// _tile_possible for one ray: can it reach the box closer than `limit`?
-__device__ __forceinline__ bool slab_ok(const SlabRay& r, const float* __restrict__ box,
-                                        float limit) {
-  float tmin = 0.0f, tmax = 0.0f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float t1 = (__ldg(box + a) - r.ro[a]) * r.inv[a];
-    const float t2 = (__ldg(box + 4 + a) - r.ro[a]) * r.inv[a];
-    const float lo = nan_min(t1, t2), hi = nan_max(t1, t2);
-    tmin = a == 0 ? lo : nan_max(tmin, lo);
-    tmax = a == 0 ? hi : nan_min(tmax, hi);
-  }
-  return tmax >= tmin && tmax > 0.0f && tmin < limit;
-}
-
 template <bool NEAR, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 grid_kernel(const float* __restrict__ feats, const float* __restrict__ sh,

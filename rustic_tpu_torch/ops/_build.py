@@ -37,6 +37,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 EXTRA_FLAGS = {
     "flash_intersect": [],
     "flash_multi": [],
+    "flash_resident": [],
     "shade": ["-fmad=false"],
 }
 

@@ -1,5 +1,5 @@
-"""Flash intersection: kernels K1-K3 (one triangle tile), K5-K7 (many
-tiles) and their plain twins.
+"""Flash intersection: kernels K1-K3 and K12-K13 (one triangle tile),
+K5-K7, K9-K11 and K14-K16 (many tiles) and their plain twins.
 
 Twins of rustic_tpu/ops/flash_intersect.py under its "f32" plan (the
 plan the JAX package runs on the CPU): the Möller–Trumbore numerators of
@@ -14,6 +14,10 @@ takes the first index among equal minima.
 - `nearest_shadow_attrs` (K2): K1 plus an any-hit test of a second ray
   set within (EPS, maxt], maxt in feature row SH_MAXT_COL.
 - `occlude` (K3): the any-hit test alone.
+- `nearest` (K12) and `nearest_shadow` (K13): K1 and K2 without the row;
+  the caller gathers the winner's row itself (`gather_attr_rows`), at the
+  width of the scene's table. The scans of the torch-shade loop at one
+  tile and of the single-program integrator.
 
 Scenes of more than 512 triangles are NT tiles of 512. For each block
 of BT_MULTI rays, `block_tile_lists` finds the tiles some ray of the
@@ -37,12 +41,24 @@ the any-hit set (`_tile_possible` of the JAX package's `_nearest_multi`
 and its twins). A block stages a tile only when one of its rays needs
 it; the wrappers' `visits` argument receives those tiles per block.
 
+The resident form (K14-K16: `nearest_resident`,
+`nearest_shadow_resident`, `occlude_resident`) computes the same again
+with the whole triangle table staged once into the shared memory of a
+thread-block cluster (`use_resident` says whether it fits and how it is
+spread) and each ray walking the tiles on its own; a scene that does not
+fit is refused.
+
 Each wrapper runs the plain PyTorch version for CPU tensors and the
-CUDA kernel (csrc/flash_intersect.cu, csrc/flash_multi.cu) for CUDA
-tensors; it counts its kernel launches in LAUNCHES.
+CUDA kernel (csrc/flash_intersect.cu, csrc/flash_multi.cu,
+csrc/flash_resident.cu) for CUDA tensors; it counts its kernel launches
+in LAUNCHES.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -64,6 +80,8 @@ LAUNCHES = {
     "nearest_attrs": 0, "nearest_shadow_attrs": 0, "occlude": 0,
     "nearest_multi": 0, "nearest_shadow_multi": 0, "occlude_multi": 0,
     "nearest_grid": 0, "nearest_shadow_grid": 0, "occlude_grid": 0,
+    "nearest": 0, "nearest_shadow": 0,
+    "nearest_resident": 0, "nearest_shadow_resident": 0, "occlude_resident": 0,
 }
 
 
@@ -87,11 +105,11 @@ def geometry(g16: torch.Tensor):
 
 
 def _tile_width(g16: torch.Tensor) -> int:
-    """The tile width TT of a one-tile table (all K1-K3 take)."""
+    """The tile width TT of a one-tile table (all K1-K3, K12-K13 take)."""
     _, tt, nt = geometry(g16)
     if nt > 1:
         raise NotImplementedError(
-            "K1-K3 scan one tile; multi-tile scenes (more than 512 triangles) "
+            "K1-K3 and K12-K13 scan one tile; multi-tile scenes (more than 512 triangles) "
             "go through the multi-tile scans (nearest_multi and its twins)"
         )
     return tt
@@ -129,14 +147,28 @@ def _anyhit_chunk(sh_t, g16, tt):
     return hit.any(dim=1).to(torch.int32)
 
 
-def nearest_attrs_plain(feats_t, g16, attrs):
-    """[16, B] rays -> (t [B] f32, idx [B] i32, attrsT [W, B] f32)."""
+def nearest_plain(feats_t, g16):
+    """[16, B] rays -> (t [B] f32, idx [B] i32): the nearest hit in the
+    one tile, BIG and 0 on a miss."""
     tt = _tile_width(g16)
     b = feats_t.shape[1]
     t = torch.empty(b, dtype=torch.float32, device=feats_t.device)
     idx = torch.empty(b, dtype=torch.int32, device=feats_t.device)
     for lo, hi in _chunks(b, tt):
         t[lo:hi], idx[lo:hi] = _nearest_chunk(feats_t[:, lo:hi], g16, tt)
+    return t, idx
+
+
+def nearest_shadow_plain(feats_t, sh_t, g16):
+    """`nearest_plain` on `feats_t` plus any-hit on `sh_t` ->
+    (t, idx, occ [B] i32)."""
+    t, idx = nearest_plain(feats_t, g16)
+    return t, idx, occlude_plain(sh_t, g16)
+
+
+def nearest_attrs_plain(feats_t, g16, attrs):
+    """[16, B] rays -> (t [B] f32, idx [B] i32, attrsT [W, B] f32)."""
+    t, idx = nearest_plain(feats_t, g16)
     return t, idx, attrs[idx.long()].T.contiguous()
 
 
@@ -405,6 +437,104 @@ def occlude_grid_plain(sh_t, g16, tile_aabbs):
     return _grid_scan(None, sh_t, g16, tile_aabbs)[2]
 
 
+# ---- multi-tile, resident form: the table in a cluster's shared memory -----
+
+CHUNK = 128  # triangles per staged chunk (csrc/flash_common.cuh)
+CHUNK_BYTES = 10 * CHUNK * 16  # ten rows of one float4 per triangle
+
+
+class ResidentPlan(NamedTuple):
+    """How a triangle table is spread over a thread-block cluster: chunk k
+    of CHUNK triangles lives on rank k % cluster, in slot k // cluster."""
+
+    cluster: int  # blocks of the cluster
+    chunks_per_rank: int  # slots each rank holds
+
+    @property
+    def bytes_per_rank(self) -> int:
+        return self.chunks_per_rank * CHUNK_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_budget(index: int):
+    """(shared-memory bytes a block may opt in to, largest portable
+    cluster) of CUDA device `index`, asked of the device through
+    csrc/flash_resident.cu."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        rc = _build.entry_point("flash_resident", "rt_resident_limits", 1, 0)(
+            ctypes.addressof(out), None)
+    if rc != 0:
+        raise RuntimeError(f"rt_resident_limits failed: cudaError {rc}")
+    if out[1] != CHUNK_BYTES:
+        raise RuntimeError(f"a staged chunk is {out[1]} bytes in the kernels, {CHUNK_BYTES} here")
+    return out[0], out[2]
+
+
+def resident_budget(device):
+    """What `device` offers the resident scans -> (shared-memory bytes of
+    one block, largest cluster), read from the device's properties; None
+    for the CPU, whose plain versions hold the table in no fast memory."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return _cuda_budget(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def use_resident(g16) -> Optional[ResidentPlan]:
+    """The resident form's plan for triangle table `g16` on its device, or
+    None where the form does not apply: a one-tile table (K12-K13 scan
+    it), or a padded table that does not fit the shared memory of the
+    largest portable cluster. The smallest cluster that holds the table
+    is taken, so the fewest reads leave their SM."""
+    _, tt, nt = geometry(g16)
+    if nt < 2 or tt % CHUNK:
+        return None
+    n_chunks = nt * (tt // CHUNK)
+    budget = resident_budget(g16.device)
+    if budget is None:
+        return ResidentPlan(1, n_chunks)
+    smem_bytes, max_cluster = budget
+    per_rank = smem_bytes // CHUNK_BYTES
+    if per_rank < 1:
+        return None
+    cluster = -(-n_chunks // per_rank)
+    if cluster > max_cluster:
+        return None
+    return ResidentPlan(cluster, -(-n_chunks // cluster))
+
+
+def resident_active_clusters(name: str, plan: ResidentPlan, device) -> int:
+    """How many clusters of `plan` the CUDA `device` runs at once for
+    resident scan `name`: the persistent grid of its launches."""
+    which = ("nearest_resident", "nearest_shadow_resident", "occlude_resident").index(name)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.entry_point("flash_resident", "rt_resident_active_clusters", 1, 3)(
+            ctypes.addressof(out), which, plan.cluster, plan.chunks_per_rank, None)
+    if rc != 0:
+        raise RuntimeError(f"rt_resident_active_clusters failed: cudaError {rc}")
+    return out.value
+
+
+def nearest_resident_plain(feats_t, g16, tile_aabbs):
+    """[16, B] rays -> (t [B] f32, idx [B] i32), the resident form: per
+    ray the tiles in ascending order, culled against its running best t."""
+    t, idx = _grid_scan(feats_t, None, g16, tile_aabbs)[:2]
+    return t, idx
+
+
+def nearest_shadow_resident_plain(feats_t, sh_t, g16, tile_aabbs):
+    """The resident form of the merged scan -> (t, idx, occ [B] i32)."""
+    return _grid_scan(feats_t, sh_t, g16, tile_aabbs)[:3]
+
+
+def occlude_resident_plain(sh_t, g16, tile_aabbs):
+    """[16, B] shadow rows -> occ [B] i32, the resident form (culled
+    against max t, a ray stops at its first hit)."""
+    return _grid_scan(None, sh_t, g16, tile_aabbs)[2]
+
+
 # ---- CUDA wrappers ------------------------------------------------------------
 
 # entry point of csrc/flash_intersect.cu: (C name, pointer count, int count)
@@ -412,6 +542,8 @@ _ENTRY = {
     "nearest_attrs": ("rt_nearest_attrs", 6, 3),
     "nearest_shadow_attrs": ("rt_nearest_shadow_attrs", 8, 3),
     "occlude": ("rt_occlude", 3, 2),
+    "nearest": ("rt_nearest", 4, 2),
+    "nearest_shadow": ("rt_nearest_shadow", 6, 2),
 }
 
 
@@ -426,9 +558,19 @@ _ENTRY_MULTI = {
 }
 
 
+# entry points of csrc/flash_resident.cu
+_ENTRY_RESIDENT = {
+    "nearest_resident": ("rt_nearest_resident", 5, 5),
+    "nearest_shadow_resident": ("rt_nearest_shadow_resident", 7, 5),
+    "occlude_resident": ("rt_occlude_resident", 4, 5),
+}
+
+
 def _launch(name: str, device, tensors, ints):
     if name in _ENTRY_MULTI:
         fn = _build.entry_point("flash_multi", *_ENTRY_MULTI[name])
+    elif name in _ENTRY_RESIDENT:
+        fn = _build.entry_point("flash_resident", *_ENTRY_RESIDENT[name])
     else:
         fn = _build.entry_point("flash_intersect", *_ENTRY[name])
     _build.launch(fn, name, device, tensors, ints)
@@ -492,6 +634,36 @@ def occlude(sh_t, g16):
     return occ
 
 
+def nearest(feats_t, g16):
+    """K12 (replaces _nearest_single): -> (t [B] f32, idx [B] i32)."""
+    if _build.uses_plain(feats_t):
+        return nearest_plain(feats_t, g16)
+    tt = _check_scene(feats_t, g16)
+    b = feats_t.shape[1]
+    dev = feats_t.device
+    t = torch.empty(b, dtype=torch.float32, device=dev)
+    idx = torch.empty(b, dtype=torch.int32, device=dev)
+    if b:
+        _launch("nearest", dev, (feats_t, g16, t, idx), (b, tt))
+    return t, idx
+
+
+def nearest_shadow(feats_t, sh_t, g16):
+    """K13 (replaces _nearest_shadow_single): -> (t, idx, occ [B] i32)."""
+    if _build.uses_plain(feats_t):
+        return nearest_shadow_plain(feats_t, sh_t, g16)
+    tt = _check_scene(feats_t, g16)
+    _build.check(sh_t, "shadow feats_t", torch.float32, feats_t.shape, feats_t.device)
+    b = feats_t.shape[1]
+    dev = feats_t.device
+    t = torch.empty(b, dtype=torch.float32, device=dev)
+    idx = torch.empty(b, dtype=torch.int32, device=dev)
+    occ = torch.empty(b, dtype=torch.int32, device=dev)
+    if b:
+        _launch("nearest_shadow", dev, (feats_t, sh_t, g16, t, idx, occ), (b, tt))
+    return t, idx, occ
+
+
 def _check_multi(feats_t, g16, lists, counts):
     dev = feats_t.device
     b = feats_t.shape[1]
@@ -546,19 +718,21 @@ def occlude_multi(sh_t, g16, lists, counts):
     return occ
 
 
-def _grid(name, feats_t, sh_t, g16, tile_aabbs, visits):
-    """Run grid-form scan `name` (K9-K11) on the nearest set `feats_t`
-    and/or the any-hit set `sh_t`: the plain version for CPU tensors, the
-    kernel for CUDA tensors -> (t, idx, occ), None where the scan has no
-    such output. `visits` (int32 [nb] or None) receives the tiles each
-    block visited."""
+def _plain_two_sets(feats_t, sh_t, g16, tile_aabbs):
+    """`_grid_scan` as the grid and resident wrappers return it ->
+    ((t, idx, occ), tiles visited per block), None where the scan has no
+    such output."""
+    t, idx, occ, vis, _ = _grid_scan(feats_t, sh_t, g16, tile_aabbs)
+    near, anyhit = feats_t is not None, sh_t is not None
+    return (t if near else None, idx if near else None, occ if anyhit else None), vis
+
+
+def _check_two_sets(feats_t, sh_t, g16, tile_aabbs):
+    """Check the operands of a grid- or resident-form scan on the nearest
+    set `feats_t` and/or the any-hit set `sh_t` and allocate its outputs
+    -> (device, b, nt, tt, (t, idx, occ)), None where the scan has no
+    such output."""
     rays = feats_t if feats_t is not None else sh_t
-    if _build.uses_plain(rays):
-        t, idx, occ, vis, _ = _grid_scan(feats_t, sh_t, g16, tile_aabbs)
-        if visits is not None:
-            visits.copy_(vis)
-        return (t if feats_t is not None else None, idx if feats_t is not None else None,
-                occ if sh_t is not None else None)
     dev = rays.device
     b = rays.shape[1]
     t_pad, tt, nt = geometry(g16)
@@ -567,19 +741,37 @@ def _grid(name, feats_t, sh_t, g16, tile_aabbs, visits):
             _build.check(x, what, torch.float32, (16, b), dev)
     _build.check(g16, "tri_feats16", torch.float32, (16, 4 * t_pad), dev)
     _build.check(tile_aabbs, "tile_aabbs", torch.float32, (nt, 8), dev)
-    if visits is not None:
-        _build.check(visits, "visits", torch.int32, (-(-b // BT_MULTI),), dev)
     t = idx = occ = None
     if feats_t is not None:
         t = torch.empty(b, dtype=torch.float32, device=dev)
         idx = torch.empty(b, dtype=torch.int32, device=dev)
     if sh_t is not None:
         occ = torch.empty(b, dtype=torch.int32, device=dev)
+    return dev, b, nt, tt, (t, idx, occ)
+
+
+def _present(*tensors):
+    return [x for x in tensors if x is not None]
+
+
+def _grid(name, feats_t, sh_t, g16, tile_aabbs, visits):
+    """Run grid-form scan `name` (K9-K11) on the nearest set `feats_t`
+    and/or the any-hit set `sh_t`: the plain version for CPU tensors, the
+    kernel for CUDA tensors -> (t, idx, occ), None where the scan has no
+    such output. `visits` (int32 [nb] or None) receives the tiles each
+    block visited."""
+    if _build.uses_plain(feats_t if feats_t is not None else sh_t):
+        out, vis = _plain_two_sets(feats_t, sh_t, g16, tile_aabbs)
+        if visits is not None:
+            visits.copy_(vis)
+        return out
+    dev, b, nt, tt, out = _check_two_sets(feats_t, sh_t, g16, tile_aabbs)
+    if visits is not None:
+        _build.check(visits, "visits", torch.int32, (-(-b // BT_MULTI),), dev)
     if b:
-        ins = [x for x in (feats_t, sh_t) if x is not None]
-        outs = [x for x in (t, idx, occ) if x is not None]
-        _launch(name, dev, (*ins, g16, tile_aabbs, *outs, visits), (b, nt, tt))
-    return t, idx, occ
+        _launch(name, dev, (*_present(feats_t, sh_t), g16, tile_aabbs, *_present(*out), visits),
+                (b, nt, tt))
+    return out
 
 
 def nearest_grid(feats_t, g16, tile_aabbs, visits=None):
@@ -596,3 +788,40 @@ def nearest_shadow_grid(feats_t, sh_t, g16, tile_aabbs, visits=None):
 def occlude_grid(sh_t, g16, tile_aabbs, visits=None):
     """K11 (replaces _occlude_multi): -> occ [B] i32."""
     return _grid("occlude_grid", None, sh_t, g16, tile_aabbs, visits)[2]
+
+
+def _resident(name, feats_t, sh_t, g16, tile_aabbs):
+    """Run resident-form scan `name` (K14-K16) on the nearest set
+    `feats_t` and/or the any-hit set `sh_t` -> (t, idx, occ), None where
+    the scan has no such output. A table `use_resident` refuses raises."""
+    plan = use_resident(g16)
+    if plan is None:
+        t_pad, _, nt = geometry(g16)
+        raise ValueError(
+            f"the resident scans take a table of 2 or more tiles that fits a thread-block "
+            f"cluster's shared memory; this one has {nt} tile(s) and stages "
+            f"{t_pad * CHUNK_BYTES // CHUNK} bytes, the device offers (bytes a block, "
+            f"blocks a cluster) {resident_budget(g16.device)}"
+        )
+    if _build.uses_plain(feats_t if feats_t is not None else sh_t):
+        return _plain_two_sets(feats_t, sh_t, g16, tile_aabbs)[0]
+    dev, b, nt, tt, out = _check_two_sets(feats_t, sh_t, g16, tile_aabbs)
+    if b:
+        _launch(name, dev, (*_present(feats_t, sh_t), g16, tile_aabbs, *_present(*out)),
+                (b, nt, tt, plan.cluster, plan.chunks_per_rank))
+    return out
+
+
+def nearest_resident(feats_t, g16, tile_aabbs):
+    """K14 (replaces _nearest_resident): -> (t [B] f32, idx [B] i32)."""
+    return _resident("nearest_resident", feats_t, None, g16, tile_aabbs)[:2]
+
+
+def nearest_shadow_resident(feats_t, sh_t, g16, tile_aabbs):
+    """K15 (replaces _nearest_shadow_resident): -> (t, idx, occ [B] i32)."""
+    return _resident("nearest_shadow_resident", feats_t, sh_t, g16, tile_aabbs)
+
+
+def occlude_resident(sh_t, g16, tile_aabbs):
+    """K16 (replaces _occlude_resident): -> occ [B] i32."""
+    return _resident("occlude_resident", None, sh_t, g16, tile_aabbs)[2]

@@ -685,8 +685,8 @@ def shade_bounce(
     if n_alias > MAX_ALIAS:
         raise NotImplementedError(
             f"K4 holds alias tables of at most {MAX_ALIAS} entries; wider tables "
-            "go through K8 (shade_bounce_wide), which the single-tile loop does not "
-            "run yet (ROADMAP.md queue 1 item 7)"
+            "go through K8 (shade_bounce_wide) on many tiles and through the "
+            "torch-shade loop on one (`supported`)"
         )
     return _run_shade(
         "rt_shade_bounce", "shade_bounce", cfg, bounce, params, entry_rows, st, feats_t, t,
@@ -749,6 +749,14 @@ def _run_shade(fn, label, cfg, bounce, params, entry_rows, st, feats_t, t, idx, 
         )
         LAUNCHES[label] += 1
     return st_out, nf, sf
+
+
+def supported(scene) -> bool:
+    """Whether the single-tile kernel-shade loop takes `scene` (twin of
+    rustic_tpu shade_kernel.supported, without its TPU-only gates): K1/K2
+    emit slim rows, so the scene is untextured, and that loop has no
+    pre-pick stage, so the alias table fits K4's in-kernel select."""
+    return not scene.has_textures and scene.n_alias_entries <= MAX_ALIAS
 
 
 def init_state_packed(batch: int, device) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """The wavefront integrator's stages (twin of rustic_tpu/ops/trace.py):
 camera rays, the per-lane path state, and one bounce of shading
 (`bounce_pre`) around a flash scan, with the shadow ray's visibility
-folded in by `bounce_post`.
+folded in by `bounce_post`; and the single-program integrator built from
+them, `trace_paths` / `accumulate_samples`, which traces one sample at a
+time through the intersection engine the caller names (the brute engine
+makes it the oracle of the staged renderer).
 
 A flat batch of paths advances bounce by bounce in lockstep; dead lanes
 are masked, not branched around. Low-discrepancy dimensions are fixed
@@ -19,7 +22,15 @@ from rustic_tpu_torch.config import CameraParams, StaticConfig
 from rustic_tpu_torch.ops import bsdf as bsdf_mod
 from rustic_tpu_torch.ops import nee as nee_mod
 from rustic_tpu_torch.ops import sampling as s
-from rustic_tpu_torch.ops.intersect import TraceResult, gather_attr_rows
+from rustic_tpu_torch.ops.intersect import (
+    MULTITILE_SCANS,
+    TraceResult,
+    _pick_engine,
+    gather_attr_rows,
+    intersect_any,
+    intersect_flash_attrs,
+    intersect_nearest,
+)
 from rustic_tpu_torch.ops.rng import lds
 from rustic_tpu_torch.ops.skybox import sky_radiance
 from rustic_tpu_torch.scene import world as W
@@ -308,3 +319,67 @@ def bounce_post(st: TraceState, nee_pack: NEEPack, occluded) -> TraceState:
     lit = nee_pack.eligible & ~occluded
     radiance = st.radiance + torch.where(lit[..., None], s.mask_nan(nee_pack.contribution), 0.0)
     return st._replace(radiance=radiance)
+
+
+def trace_paths(
+    scene,
+    cfg: StaticConfig,
+    cam: CameraParams,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    sample_idx: int,
+    offsets: torch.Tensor,
+    engine: str = "auto",
+    scan: str = MULTITILE_SCANS[0],
+) -> torch.Tensor:
+    """Trace sample `sample_idx` of a batch of pixels, bounce by bounce
+    with a nearest-hit query, `bounce_pre`, an any-hit query of the shadow
+    rays and `bounce_post` -> radiance [B, 3]. `engine` names the
+    intersection engine (ops/intersect.py), `scan` the form of the flash
+    engine's multi-tile scans."""
+    resolved = _pick_engine(scene, engine)
+    bits = int(sample_idx) & 0xFFFFFFFF
+    sidx = torch.full((px.shape[0],), bits - (1 << 32) if bits >= (1 << 31) else bits,
+                      dtype=torch.int32, device=px.device)
+    st = init_state(cfg, cam, px, py, sidx, offsets)
+    for bounce in range(cfg.max_bounces):
+        if resolved == "flash":
+            res, attrs = intersect_flash_attrs(scene, st.ro, st.rd, scan)
+        else:
+            res = intersect_nearest(scene, st.ro, st.rd, engine=resolved)
+            attrs = None
+        st, nee_pack = bounce_pre(
+            scene, cfg, cam, bounce, st, res, bounce_draws(bounce, sidx, offsets), attrs=attrs
+        )
+        if nee_pack is not None:
+            occluded = intersect_any(
+                scene, nee_pack.shadow_ro, nee_pack.shadow_rd, nee_pack.shadow_maxt,
+                engine=resolved, scan=scan,
+            )
+            st = bounce_post(st, nee_pack, occluded)
+    return st.radiance
+
+
+def accumulate_samples(
+    scene,
+    cfg: StaticConfig,
+    cam: CameraParams,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    offsets: torch.Tensor,
+    sample_start: int,
+    n_samples: int,
+    engine: str = "auto",
+    film_in: Optional[torch.Tensor] = None,
+    scan: str = MULTITILE_SCANS[0],
+) -> torch.Tensor:
+    """Fold samples sample_start .. sample_start + n_samples - 1 into a
+    film sum [B, 3] on the scene's device, one `trace_paths` each."""
+    film = film_in if film_in is not None else torch.zeros(
+        (px.shape[0], 3), dtype=torch.float32, device=px.device
+    )
+    for i in range(n_samples):
+        film = film + trace_paths(
+            scene, cfg, cam, px, py, sample_start + i, offsets, engine=engine, scan=scan
+        )
+    return film

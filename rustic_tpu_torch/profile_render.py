@@ -1,7 +1,8 @@
 """Where the time of a render goes on one CUDA device.
 
     python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis|breaktime]
-        [--driver kernel-shade|ray-sorted|unsorted] [--scan lists|grid] [--table PATH]
+        [--driver kernel-shade|ray-sorted|unsorted] [--scan lists|grid|resident]
+        [--single-loop kernel-shade|torch-shade] [--table PATH]
 
 `darkcornell` (the default, the headline render): DarkCornell 1280x720
 NEE+MIS, 4 bounces, profiled at 32 spp, then timed at 160 spp.
@@ -14,13 +15,16 @@ atlas), profiled at 8 spp, then timed at 32 spp.
 `--driver` names the multi-tile loop (RenderSettings.multitile_loop):
 `kernel-shade` (the default) or the reference loops `ray-sorted` and
 `unsorted`; `--scan` the form of its scans (RenderSettings.multitile_scan):
-`lists` (the default) or `grid`. Neither changes the single-tile path.
+`lists` (the default), `grid` or `resident`. Neither changes the
+single-tile path, whose loop `--single-loop` names
+(RenderSettings.single_tile_loop): `kernel-shade` (the default) or
+`torch-shade`.
 
 Renders the scene once as a warm-up, then once under torch.profiler, and
 prints: the wall time of the profiled render, the device time summed over
 its kernels and copies, the device's idle share (1 - device time / wall
 time, one stream so nothing overlaps), and the device time per kernel
-(K1-K11), per copy and for the torch glue (on the multi-tile path the glue
+(K1-K16), per copy and for the torch glue (on the multi-tile path the glue
 is the tile lists, the sort and unsort gathers, and the shading stages or
 the row resolve), with the glue's twelve largest kernels and the peak
 device memory. `--table` writes the profiler's full table to a file.
@@ -36,7 +40,11 @@ import time
 import torch
 
 from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
-from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS, MULTITILE_SCANS
+from rustic_tpu_torch.runtime.pipeline import (
+    MULTITILE_LOOPS,
+    MULTITILE_SCANS,
+    SINGLE_TILE_LOOPS,
+)
 from rustic_tpu_torch.runtime.render import render_image
 from rustic_tpu_torch.scene.world import World, load_skybox_image
 
@@ -63,9 +71,11 @@ CONFIGS = {
 
 # demangled kernel names -> the port's kernel ids
 _KERNELS = {
-    "scan_kernel<true,false>": "K1 nearest_attrs",
-    "scan_kernel<true,true>": "K2 nearest_shadow_attrs",
-    "scan_kernel<false,true>": "K3 occlude",
+    "scan_kernel<true,false,true>": "K1 nearest_attrs",
+    "scan_kernel<true,true,true>": "K2 nearest_shadow_attrs",
+    "scan_kernel<false,true,false>": "K3 occlude",
+    "scan_kernel<true,false,false>": "K12 nearest",
+    "scan_kernel<true,true,false>": "K13 nearest_shadow",
     "shade_kernel<false>": "K4 shade_bounce",
     "shade_kernel<true>": "K8 shade_bounce_wide",
     "multi_kernel<true,false>": "K5 nearest_multi",
@@ -74,6 +84,9 @@ _KERNELS = {
     "grid_kernel<true,false>": "K9 nearest_grid",
     "grid_kernel<true,true>": "K10 nearest_shadow_grid",
     "grid_kernel<false,true>": "K11 occlude_grid",
+    "resident_kernel<true,false>": "K14 nearest_resident",
+    "resident_kernel<true,true>": "K15 nearest_shadow_resident",
+    "resident_kernel<false,true>": "K16 occlude_resident",
 }
 
 
@@ -99,15 +112,18 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", choices=sorted(CONFIGS), default="darkcornell")
     ap.add_argument("--driver", choices=MULTITILE_LOOPS, default=MULTITILE_LOOPS[0])
     ap.add_argument("--scan", choices=MULTITILE_SCANS, default=MULTITILE_SCANS[0])
+    ap.add_argument("--single-loop", choices=SINGLE_TILE_LOOPS, default=SINGLE_TILE_LOOPS[0])
     ap.add_argument("--table", help="write the profiler's key_averages table here")
     args = ap.parse_args(argv)
     path, sky, config, profile_spp, spp = CONFIGS[args.scene]
     size = f"{config.width}x{config.height}"
-    loop = f"{args.driver} loop, {args.scan} scans"
+    one_tile = args.scene == "darkcornell"
+    loop = (f"{args.single_loop} loop" if one_tile
+            else f"{args.driver} loop, {args.scan} scans")
 
     def settings(samples):
         return RenderSettings(samples=samples, multitile_loop=args.driver,
-                              multitile_scan=args.scan)
+                              multitile_scan=args.scan, single_tile_loop=args.single_loop)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(

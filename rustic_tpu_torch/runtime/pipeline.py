@@ -1,11 +1,16 @@
 """Staged renderer (twin of rustic_tpu/runtime/pipeline.py
 `render_batch_staged`).
 
-Single-tile scenes take the kernel-shade loop. Per group of folded
-samples: init (camera rays, packed state) -> K1 nearest for bounce 0 ->
-K4 shade -> per later bounce: K2 nearest plus the previous bounce's
-shadow rays -> K4 shade -> finish (fold the last shadow result and the
-radiance into the film).
+Single-tile scenes take the kernel-shade loop where the shade kernel
+takes the scene (`shade_kernel.supported`: untextured, an alias table of
+at most 16 entries). Per group of folded samples: init (camera rays,
+packed state) -> K1 nearest for bounce 0 -> K4 shade -> per later bounce:
+K2 nearest plus the previous bounce's shadow rays -> K4 shade -> finish
+(fold the last shadow result and the radiance into the film). The other
+single-tile scenes, and any for which the caller names it
+(`SINGLE_TILE_LOOPS`), take the torch-shade loop: the unsorted stage loop
+below at one tile, whose scans are K12 / K13 / K3 and whose shading stage
+gathers the winners' rows itself, at the width of the scene's table.
 
 Multi-tile scenes take one of three loops, named by the caller's
 `loop` argument (`MULTITILE_LOOPS`):
@@ -23,16 +28,18 @@ Multi-tile scenes take one of three loops, named by the caller's
 
 Each multi-tile scan takes the form the caller's `scan` argument names
 (`MULTITILE_SCANS`): "lists" (the default), `block_tile_lists` in torch
-and then K5/K6/K7, or "grid", K9/K10/K11, which cull tiles per ray in the
-kernel and need no lists.
+and then K5/K6/K7; "grid", K9/K10/K11, which cull tiles per ray in the
+kernel and need no lists; or "resident", K14/K15/K16, the same cull with
+the whole triangle table held in a thread-block cluster's shared memory
+(a scene that does not fit there is refused).
 
 The three give the same film; kernel-shade is the fastest on the card.
 The other two are the ports of the JAX package's XLA-shade drivers,
 kept as the references the tests hold the default to.
 
 In every loop the last bounce's shadow rays of a group are held and ride
-the next group's bounce-0 scan (K2 / K6 / K10); the last group's are
-resolved by K3 / K7 / K11. With an HDR skybox (`cfg.has_skybox`) the
+the next group's bounce-0 scan (K2 / K13 / K6 / K10 / K15); the last
+group's are resolved by K3 / K7 / K11 / K16. With an HDR skybox (`cfg.has_skybox`) the
 kernel-shade loops add the image sky to the escaped lanes after a group's
 last bounce (`hdr_sky_payoff`), the reference loops in `bounce_pre`. All
 work is queued on the tensors' device; nothing waits for it.
@@ -50,12 +57,20 @@ from rustic_tpu_torch.ops import flash_intersect as FI
 from rustic_tpu_torch.ops import sampling as s
 from rustic_tpu_torch.ops import shade_kernel as SK
 from rustic_tpu_torch.ops import trace as trace_mod
-from rustic_tpu_torch.ops.intersect import _ray_features16, classify_flash_hit2, gather_attr_rows
+from rustic_tpu_torch.ops.intersect import (
+    MULTITILE_SCANS,
+    _ray_features16,
+    check_scan as _check_scan,
+    classify_flash_hit2,
+    flash_occlude_rows as _occlude,
+    flash_scan as _scan,
+    gather_attr_rows,
+)
 from rustic_tpu_torch.ops.nee import ENTRY_SELECT_MAX
 from rustic_tpu_torch.ops.resolve import resolve_attrs_rowT
 from rustic_tpu_torch.ops.sampling import cross
 from rustic_tpu_torch.ops.skybox import image_sky
-from rustic_tpu_torch.scene.world import SINGLE_TILE_TEXTURES_TODO, SceneTensors
+from rustic_tpu_torch.scene.world import SceneTensors
 
 # Lane budget for sample folding: fold 4 at megabatch sizes (~1M pixels).
 _FOLD_MAX_LANES = 1 << 22
@@ -195,53 +210,16 @@ def stage_finish(radiance, prev_nee, prev_occ, film, fold: int):
     return film + radiance
 
 
-# the forms of the multi-tile scans; the first is the default
-MULTITILE_SCANS = ("lists", "grid")
-
-
-def _check_scan(scan: str) -> None:
-    if scan not in MULTITILE_SCANS:
-        raise ValueError(f"multi-tile scan {scan!r}: expected one of {MULTITILE_SCANS}")
-
-
-def _scan(feats, pending_sh, scene, scan: str = MULTITILE_SCANS[0]):
-    """The flash scan of one bounce: K5 alone, or K6 with the pending
-    shadow rays, after their tile lists; K9 / K10 in the grid form ->
-    (t, idx, occ bool or None)."""
-    g16, aabbs = scene.tri_feats16, scene.tile_aabbs
-    if scan == "grid":
-        if pending_sh is None:
-            t, idx = FI.nearest_grid(feats, g16, aabbs)
-            return t, idx, None
-        t, idx, occ = FI.nearest_shadow_grid(feats, pending_sh, g16, aabbs)
-        return t, idx, occ != 0
-    if pending_sh is None:
-        lists, counts = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), feats)
-        t, idx = FI.nearest_multi(feats, g16, lists, counts)
-        return t, idx, None
-    lists, counts = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), feats, pending_sh)
-    t, idx, occ = FI.nearest_shadow_multi(feats, pending_sh, g16, lists, counts)
-    return t, idx, occ != 0
-
-
-def _occlude(sh, scene, scan: str):
-    """Any-hit of shadow rows alone: K7 after its tile lists, or K11
-    -> occ [B] i32."""
-    if scan == "grid":
-        return FI.occlude_grid(sh, scene.tri_feats16, scene.tile_aabbs)
-    lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), sh)
-    return FI.occlude_multi(sh, scene.tri_feats16, lists, counts)
-
-
 def _flush_held(held, film, scene, scan):
-    """Resolve a held group's last shadow rays with K7 / K11 and fold it."""
+    """Resolve a held group's last shadow rays (`_occlude`) and fold it."""
     rad, prev_nee, pending_sh, g = held
     return stage_finish(rad, prev_nee, _occlude(pending_sh, scene, scan) != 0, film, g)
 
 
-def _render_batch_multitile(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
-                            scan=MULTITILE_SCANS[0]):
-    """The unsorted multi-tile stage loop (rustic_tpu/runtime/pipeline.py:1066-1150)."""
+def _render_batch_unsorted(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
+                           scan=MULTITILE_SCANS[0]):
+    """The unsorted stage loop (rustic_tpu/runtime/pipeline.py:1066-1150):
+    the "unsorted" multi-tile loop and, at one tile, the torch-shade loop."""
     fold = pick_sample_fold(px.shape[0], n_samples)
     held = None  # (radiance, prev_nee, pending shadow rows, fold) awaiting occlusion
     for k in range(0, n_samples, fold):
@@ -546,8 +524,12 @@ def multitile_loop(loop: str):
     if loop == "ray-sorted":
         return _render_batch_raysorted
     if loop == "unsorted":
-        return _render_batch_multitile
+        return _render_batch_unsorted
     raise ValueError(f"multi-tile loop {loop!r}: expected one of {MULTITILE_LOOPS}")
+
+
+# the loops of a one-tile scene; the first is the default
+SINGLE_TILE_LOOPS = ("kernel-shade", "torch-shade")
 
 
 def render_batch_staged(
@@ -562,27 +544,39 @@ def render_batch_staged(
     film_in: Optional[torch.Tensor] = None,
     loop: str = MULTITILE_LOOPS[0],
     scan: str = MULTITILE_SCANS[0],
+    single_loop: str = SINGLE_TILE_LOOPS[0],
 ) -> torch.Tensor:
     """Render n_samples of one pixel batch -> film sum [B, 3] on the
     scene's device. px, py: [B] int32; offsets: [B] int32 (u32 bits).
-    A scene of one triangle tile takes the kernel-shade loop, one of
-    more tiles the multi-tile loop named `loop` (`multitile_loop`) with
-    the scan form named `scan` (`MULTITILE_SCANS`). Textured scenes and
-    HDR skies render on both. What the port does not run yet (the
-    state-sorted driver; on one tile, a textured scene or an alias table
-    over 16 entries) raises NotImplementedError.
 
-    Single tile: per bounce exactly two launches, a flash scan and the
-    shade kernel, chained through the transposed row operands."""
+    A scene of more than one triangle tile takes the multi-tile loop named
+    `loop` (`multitile_loop`) with the scan form named `scan`
+    (`MULTITILE_SCANS`). A scene of one tile takes the kernel-shade loop
+    (`_render_batch_kernelshade`) if `single_loop` is "kernel-shade" and
+    the shade kernel takes the scene (`shade_kernel.supported`); otherwise,
+    or if `single_loop` is "torch-shade", the torch-shade loop
+    (`_render_batch_unsorted` at one tile), which takes any scene.
+    Textured scenes and HDR skies render on all of them. The state-sorted
+    driver is not ported and raises NotImplementedError."""
     _check_scan(scan)
+    if single_loop not in SINGLE_TILE_LOOPS:
+        raise ValueError(f"single-tile loop {single_loop!r}: expected one of {SINGLE_TILE_LOOPS}")
     film = film_in if film_in is not None else torch.zeros(
         (px.shape[0], 3), dtype=torch.float32, device=px.device
     )
+    args = (scene, cfg, cam, px, py, offsets, sample_start, n_samples, film)
     if FI.geometry(scene.tri_feats16)[2] > 1:
-        return multitile_loop(loop)(scene, cfg, cam, px, py, offsets, sample_start, n_samples,
-                                    film, scan=scan)
-    if scene.has_textures:
-        raise NotImplementedError(SINGLE_TILE_TEXTURES_TODO)
+        return multitile_loop(loop)(*args, scan=scan)
+    if single_loop == "kernel-shade" and SK.supported(scene):
+        return _render_batch_kernelshade(*args)
+    return _render_batch_unsorted(*args)
+
+
+def _render_batch_kernelshade(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film):
+    """The single-tile kernel-shade loop
+    (rustic_tpu/runtime/pipeline.py:1209-1294): per bounce exactly two
+    launches, a flash scan (K1, K2) and the shade kernel (K4), chained
+    through the transposed row operands."""
     g16 = scene.tri_feats16
     attrs = scene.tri_attrs
     fold = pick_sample_fold(px.shape[0], n_samples)

@@ -4,6 +4,13 @@
 `device`, through the CUDA kernels when it is a CUDA device and through
 their plain PyTorch versions when it is the CPU. A CUDA device that is
 absent is an error, never a silent fall back to the CPU.
+
+With no `engine` named, a render goes through the staged pipeline
+(runtime/pipeline.py). With one named (ops/intersect.py: "auto", "flash",
+"brute"), it goes through the staged pipeline when the engine resolves to
+"flash" on a CUDA device and through the single-program integrator
+(ops/trace.py `accumulate_samples`) otherwise, as in the JAX package;
+`engine="brute"` is the oracle.
 """
 
 from __future__ import annotations
@@ -16,7 +23,9 @@ import numpy as np
 import torch
 
 from rustic_tpu_torch.config import RenderSettings, TracingConfig
+from rustic_tpu_torch.ops.intersect import _pick_engine
 from rustic_tpu_torch.ops.rng import as_i32_bits, pcg_hash
+from rustic_tpu_torch.ops.trace import accumulate_samples
 from rustic_tpu_torch.runtime.pipeline import render_batch_staged
 from rustic_tpu_torch.scene.world import SceneTensors
 
@@ -76,10 +85,14 @@ def render_pixels(
     film_in: Optional[torch.Tensor] = None,
     loop: str = RenderSettings.multitile_loop,
     scan: str = RenderSettings.multitile_scan,
+    single_loop: str = RenderSettings.single_tile_loop,
+    engine: Optional[str] = None,
 ) -> torch.Tensor:
     """Render an arbitrary pixel set on the scene's device; returns the
     film *sum* [B, 3] there. `loop` names the multi-tile loop, `scan` the
-    form of its scans."""
+    form of its scans, `single_loop` the loop of a one-tile scene.
+    `engine`: None for the staged pipeline, or an intersection engine (see
+    the module docstring)."""
     device = scene.device
     cfg = config.static_part()
     cam = config.dynamic_part(device)
@@ -90,18 +103,18 @@ def render_pixels(
         offsets_t = as_i32_bits(pcg_hash(ids)).to(device)
     else:
         offsets_t = _u32_bits(offsets, device)
+    px_t = torch.from_numpy(np.asarray(px, np.int32)).to(device)
+    py_t = torch.from_numpy(np.asarray(py, np.int32)).to(device)
+    if engine is not None:
+        resolved = _pick_engine(scene, engine)
+        if resolved != "flash" or device.type != "cuda":
+            return accumulate_samples(
+                scene, cfg, cam, px_t, py_t, offsets_t, int(sample_start), int(samples),
+                engine=resolved, film_in=film_in, scan=scan,
+            )
     return render_batch_staged(
-        scene,
-        cfg,
-        cam,
-        torch.from_numpy(np.asarray(px, np.int32)).to(device),
-        torch.from_numpy(np.asarray(py, np.int32)).to(device),
-        offsets_t,
-        int(sample_start),
-        int(samples),
-        film_in=film_in,
-        loop=loop,
-        scan=scan,
+        scene, cfg, cam, px_t, py_t, offsets_t, int(sample_start), int(samples),
+        film_in=film_in, loop=loop, scan=scan, single_loop=single_loop,
     )
 
 
@@ -110,9 +123,11 @@ def render_image(
     config: TracingConfig,
     settings: Optional[RenderSettings] = None,
     device="cuda",
+    engine: Optional[str] = None,
 ) -> np.ndarray:
     """Render a full frame on `device`; returns the *mean* film [H, W, 3]
-    float32. Pixels go in chunks of settings.batch_pixels."""
+    float32. Pixels go in chunks of settings.batch_pixels. `engine` as in
+    `render_pixels`."""
     device = resolve_device(device)
     settings = settings or RenderSettings()
     if scene.device != device:
@@ -138,6 +153,7 @@ def render_image(
         film = render_pixels(
             scene, config, px[lo:hi], py[lo:hi], settings.samples, offsets=offsets[lo:hi],
             loop=settings.multitile_loop, scan=settings.multitile_scan,
+            single_loop=settings.single_tile_loop, engine=engine,
         )
         out[lo:hi] = film.cpu().numpy()
     return (out[:n_px] / max(settings.samples, 1)).reshape(h, w, 3)

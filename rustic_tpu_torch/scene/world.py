@@ -69,11 +69,6 @@ ENTRY_B_EMISSION = slice(36, 39)
 ENTRY_B_TRI = 39
 ENTRY_WIDTH = 48
 
-SINGLE_TILE_TEXTURES_TODO = (
-    "textured scenes of one triangle tile are not ported (the single-tile loop's K1/K2 "
-    "emit slim rows; ROADMAP.md queue 3)"
-)
-
 
 def slim_attr_table(attrs: np.ndarray) -> np.ndarray:
     """[T, 64] full shading rows -> [T, SLIM_WIDTH] (untextured)."""

@@ -132,9 +132,12 @@ def test_loader_matches_jax_loader():
 
 
 def test_textured_scene_is_refused():
-    """What stays refused of textured scenes: one of a single triangle
-    tile (its K1/K2 emit slim rows), and an image the port cannot decode."""
+    """A textured scene of a single triangle tile renders through the
+    torch-shade loop (K1/K2 emit slim rows, so the kernel-shade loop does
+    not take it). What is refused of textured scenes: an image the port
+    cannot decode."""
     from rustic_tpu_torch.config import TracingConfig
+    from rustic_tpu_torch.ops import shade_kernel as SK
     from rustic_tpu_torch.runtime.render import render_image
     from rustic_tpu_torch.scene import gltf as TG
 
@@ -142,8 +145,10 @@ def test_textured_scene_is_refused():
     g.materials[0].albedo_texture = np.full((4, 4, 4), 0.5, np.float32)
     world = TW.World(g, atlas_size=16)
     assert world.has_textures and world.tri_attrs.shape[1] == TW.ATTR_WIDTH
-    with pytest.raises(NotImplementedError, match="textured"):
-        render_image(world.to_torch("cpu"), TracingConfig(width=4, height=4), device="cpu")
+    scene = world.to_torch("cpu")
+    assert not SK.supported(scene)
+    film = render_image(scene, TracingConfig(width=4, height=4), device="cpu")
+    assert film.shape == (4, 4, 3) and np.isfinite(film).all() and film.mean() > 0.0
     jpeg = {"images": [{"bufferView": 0}], "bufferViews": [{"buffer": 0, "byteLength": 20}]}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TG._decode_image(jpeg, [b"\xff\xd8\xff\xe0" + bytes(16)], 0, "")

@@ -404,7 +404,7 @@ def test_kernel_shade_uses_k4_for_small_tables(scenes, monkeypatch):
 @pytest.mark.parametrize("loop, driver", [
     ("kernel-shade", "_render_batch_ks_multitile"),
     ("ray-sorted", "_render_batch_raysorted"),
-    ("unsorted", "_render_batch_multitile"),
+    ("unsorted", "_render_batch_unsorted"),
 ])
 def test_multitile_loop_names(monkeypatch, loop, driver):
     monkeypatch.delenv("RUSTIC_SORT_MODE", raising=False)
