@@ -10,9 +10,13 @@ one-tile scenes the kernel-shade loop does not take (one-tile cuts of
 BreakTime and VeachMIS) and DarkCornell through the torch-shade loop
 (K12, K13, K3), held to the brute-force integrator, and VeachMIS through
 the kernel-shade loop with the resident scans (K14-K16, the triangle
-table in a thread-block cluster's shared memory).
+table in a thread-block cluster's shared memory); then the fused loop
+(K17: one launch a bounce, scan and shading in one kernel) on DarkCornell
+and VeachMIS, and the dot-rate probes (K18, K19) through their program,
+rustic_tpu_torch/probe_dot_floor.py.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(`--only PHASE[,PHASE...]` runs the device phase and the named ones.)
 
 Phases, each of which must pass (the first that fails ends the run):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -68,11 +72,13 @@ Phases, each of which must pass (the first that fails ends the run):
      a one-group warm-up; Mpaths/s; launch counts K5 1, K6 63, K7 1 and,
      for the kernel-shade loop, K8 64; none of K1-K4 (nor K8 on the
      ray-sorted loop).
- 12. multi-film: VeachMIS 256x144 x 1024 spp through each of the three
-     loops against the committed reference film
+ 12. multi-film: VeachMIS 256x144 x 1024 spp through the kernel-shade and
+     the ray-sorted loop against the committed reference film
      (assets/reference/veachmis_256x144_1024spp.npy): relative energy
      within 1%, RMSE under the bound of tests/test_reference_films.py.
- 13. multi-cross-device: VeachMIS 64x64x4 through each loop, and
+ 13. multi-cross-device: VeachMIS 64x64x4 through the kernel-shade and
+     the ray-sorted loop (the unsorted loop's film is held to the JAX film
+     by the CPU tests), and
      FurnaceTest 64x64x4 (5,120 alias entries) through the kernel-shade
      loop, card against host CPU, rtol 1e-4, atol 1e-5.
  14. breaktime-check: BreakTime (BASELINE.md config 5: 1920x1080, NEE+MIS,
@@ -102,7 +108,8 @@ Phases, each of which must pass (the first that fails ends the run):
      against assets/reference/breaktime_256x144_1024spp.npy: relative
      energy within 1%, RMSE under the bound of tests/test_reference_films.py.
  18. breaktime-cross-device: BreakTime 64x64x4 with each scan form, card
-     against host CPU: entries outside rtol 1e-4 / atol 1e-5 no more than
+     against host CPU (the resident form against the grid form's host
+     film: on the host both run one plain version): entries outside rtol 1e-4 / atol 1e-5 no more than
      the card's own film moves under a one-ulp camera shift (an ulp of a
      direction changes a path under the HDR sun; the card's sin, cos,
      atan2 and asin are not the host's to the ulp), at most 1%, and film
@@ -135,6 +142,42 @@ Phases, each of which must pass (the first that fails ends the run):
      K16 1, K8 64, none of K5-K7 and K9-K11, no block_tile_lists call; its
      64x64x4 film equal to the grid form's; its 256x144 x 1024 spp film
      against the reference film as phase 12.
+ 24. fused-check: one DarkCornell group traced again; on every bounce, at
+     65,613 and 3,686,400 lanes, K17 against its plain version (scan
+     winner, hit and occlusion equal on >= 99.99% of lanes; there the
+     outputs within rtol 1e-4, atol 1e-5, as K4's), and against K1/K2 then
+     K4 on the card bit for bit (NaN equal to NaN) on the state, the next
+     rays and the shadow rays; its held-occlusion mode equal to K2's occ
+     (where a shadow ray is pending) and to K4 without a fold. One VeachMIS group (6 tiles, 2,880 alias
+     entries: the WIDE flag) traced through K17 itself; on every bounce
+     65,536 of its lanes (rows 480-543 of the frame's first sample)
+     against the plain version as above and against K10's winner, a row
+     gather and K8, bit for bit.
+ 25. fused-time: K17 and its plain version, then K17 against K2 then K4,
+     in turns at 3,686,400 lanes (bounce 1), medians of 10 CUDA-event
+     timings; K17's bound.
+ 26. fused-render: DarkCornell 1280x720 x 160 spp through
+     single_tile_loop="fused" and through the kernel-shade loop, in turns
+     (two each) after a warm-up; launch counts K17 160, K3 1 and no other
+     kernel; the film mean within 2% of 0.03945; its 64x64x4 film equal to
+     the kernel-shade loop's bit for bit and to the host CPU's within rtol
+     1e-4, atol 1e-5. VeachMIS 1024x1024 x 16 spp through
+     multitile_loop="fused" (every pair tested: no cull), launch counts
+     K17 16, K7 1; its 64x64x4 film against the kernel-shade loop's,
+     rtol 1e-4, atol 1e-5.
+ 27. probe-check: K18 (FP32 FMAs; TF32, BF16 and int8 tensor cores through
+     mma.sync; BF16 through wgmma) and K19 (the six-term split dot at K =
+     96, F pre-split or split in the kernel, and the three-term dot at K =
+     48, through mma.sync and through wgmma) against their plain
+     versions at B = 1,048,576 and 65,613 rays, N = 1024, reps = 8: int8
+     equal; the others within rtol 1e-5, atol 1e-5 on the same operands (TF32 and
+     BF16 operands rounded to the type beforehand; the plain versions
+     multiply in full f32, allow_tf32 off); K19 also within 1e-5 x
+     sum_k |F_k| max_n |G_kn| of the float64 dot. Each timed beside its
+     plain version and a torch.matmul + amin of the operand type, and
+     bound by its unit's peak. Then the probes' program
+     (probe_dot_floor.main: the case sweep and the accuracy table), with
+     the launch counts read after it.
 
 Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
 form by RenderSettings.multitile_scan, a one-tile scene's loop by
@@ -144,8 +187,8 @@ The last two lines of standard output are a JSON object describing each
 kernel (its time, plain version's time, launches on its main path's
 render, largest error against its plain version, all on the main path's
 operands, and the least time the card could take for the same work:
-bytes over 3.35 TB/s or FP32 operations over 67 TFLOP/s, whichever is
-larger) and then
+bytes over 3.35 TB/s or operations over the peak of the unit they run on,
+67 TFLOP/s FP32 outside the tensor cores, whichever is larger) and then
 {"ok": true, "device": {...}}; neither is printed when a phase fails or
 no CUDA device exists, and the exit code is then 1.
 """
@@ -196,6 +239,7 @@ ONE_TILE_SPP = 16
 # published peaks of one H100 SXM (NVIDIA H100 datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TENSOR_OP_PER_S = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12}
 # FP32 operations of one (ray, triangle) pair test (csrc/flash_common.cuh
 # pair_test): 4 multiplies and 36 FMAs (2 each) for the four numerators,
 # one division, three multiplies and the u + v add
@@ -268,6 +312,23 @@ KERNELS = {
         name="occlude_resident", source="rustic_tpu_torch/csrc/flash_resident.cu",
         replaces="rustic_tpu/ops/flash_intersect.py:926",
     ),
+    "K17": dict(
+        name="fused_bounce", source="rustic_tpu_torch/csrc/fused_bounce.cu",
+        replaces="archive/fused_bounce/fused_bounce.py:376",
+    ),
+    # K18 by the unit its dot runs on ("bf16w": BF16 through wgmma)
+    **{f"K18 {v}": dict(
+        name=f"dot_min_{v}", source="rustic_tpu_torch/csrc/probe_dot.cu",
+        replaces="tools/mxu_floor.py:38",
+    ) for v in ("fp32", "tf32", "bf16", "int8", "bf16w")},
+    "K19": dict(
+        name="dot_min_split", source="rustic_tpu_torch/csrc/probe_dot.cu",
+        replaces="tools/probe_k96.py:79",
+    ),
+    "K19 bf16w": dict(
+        name="dot_min_split_bf16w", source="rustic_tpu_torch/csrc/probe_dot.cu",
+        replaces="tools/probe_k96.py:79",
+    ),
 }
 SINGLE_TILE = ("K1", "K2", "K3", "K4")
 MULTI_TILE = ("K5", "K6", "K7")
@@ -275,10 +336,11 @@ GRID = ("K9", "K10", "K11")
 RESIDENT = ("K14", "K15", "K16")
 
 
-def bound(n_bytes, flops):
-    """(least ms the card could take, what bounds it)."""
+def bound(n_bytes, flops, peak=FP32_FLOP_PER_S):
+    """(least ms the card could take, what bounds it); `peak`: the
+    operations per second of the unit the work runs on."""
     ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    ms_ops = flops / FP32_FLOP_PER_S * 1e3
+    ms_ops = flops / peak * 1e3
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
 
 
@@ -373,6 +435,25 @@ class Smoke:
             tb += self.time_ms(fn_b, reps=1)
         log(f"{what}: {label_a} {statistics.median(ta):.3f} ms, {label_b} "
             f"{statistics.median(tb):.3f} ms ({self.card})")
+
+    def _counted(self):
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import fused_bounce as FB
+        from rustic_tpu_torch.ops import probe_dot as PD
+        from rustic_tpu_torch.ops import shade_kernel as SK
+
+        return (FI, SK, FB, PD)
+
+    def reset_counts(self):
+        for module in self._counted():
+            module.reset_launch_counts()
+
+    def counts(self):
+        """The launch counts of every kernel's wrapper."""
+        out = {}
+        for module in self._counted():
+            out |= module.LAUNCHES
+        return out
 
     def time_ms(self, fn, reps=10):
         """Per-launch times (ms) of `fn` by CUDA events."""
@@ -684,6 +765,17 @@ class Smoke:
 
     # ---- phase 6: the multi-tile path --------------------------------------------------
 
+    def _mt_setup(self):
+        """VeachMIS on the card and its 1024x1024 configuration."""
+        from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
+        from rustic_tpu_torch.scene.world import World
+
+        if getattr(self, "mt_scene", None) is None:
+            self.mt_scene = World.from_path(VEACH).to_torch(self.dev)
+            self.mt_config = TracingConfig(
+                width=MT_SIZE, height=MT_SIZE, nee=NextEventEstimation.MIS, **VEACH_CAM
+            )
+
     def mt_inputs(self):
         """One real fold group of the VeachMIS render traced through all
         four bounces by the kernels and the stage functions: the ray rows
@@ -691,16 +783,11 @@ class Smoke:
         import numpy as np
         import torch
 
-        from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
         from rustic_tpu_torch.ops import flash_intersect as FI
         from rustic_tpu_torch.runtime import pipeline as P
         from rustic_tpu_torch.runtime.render import pixel_offsets
-        from rustic_tpu_torch.scene.world import World
 
-        self.mt_scene = World.from_path(VEACH).to_torch(self.dev)
-        self.mt_config = TracingConfig(
-            width=MT_SIZE, height=MT_SIZE, nee=NextEventEstimation.MIS, **VEACH_CAM
-        )
+        self._mt_setup()
         cfg = self.mt_config.static_part()
         cam = self.mt_config.dynamic_part(self.dev)
         y, x = np.mgrid[0:MT_SIZE, 0:MT_SIZE]
@@ -837,8 +924,6 @@ class Smoke:
         import torch
 
         from rustic_tpu_torch.config import RenderSettings
-        from rustic_tpu_torch.ops import flash_intersect as FI
-        from rustic_tpu_torch.ops import shade_kernel as SK
         from rustic_tpu_torch.runtime.render import render_image
 
         t0 = time.time()
@@ -846,15 +931,14 @@ class Smoke:
                      RenderSettings(samples=FOLD, multitile_loop=loop, multitile_scan=scan),
                      device=self.dev)
         log(f"{loop} warm-up render ({FOLD} spp): {time.time() - t0:.2f} s")
-        FI.reset_launch_counts()
-        SK.reset_launch_counts()
+        self.reset_counts()
         torch.cuda.synchronize()
         t0 = time.time()
         film = render_image(self.mt_scene, self.mt_config,
                             RenderSettings(samples=spp, multitile_loop=loop, multitile_scan=scan),
                             device=self.dev)
         render_s = time.time() - t0
-        counts = {**FI.LAUNCHES, **SK.LAUNCHES}
+        counts = self.counts()
         mpaths = MT_SIZE * MT_SIZE * spp / render_s / 1e6
         log(f"render VeachMIS {MT_SIZE}x{MT_SIZE}x{spp} spp NEE+MIS, {loop} loop, {scan} scans: "
             f"{render_s:.3f} s, {mpaths:.2f} Mpaths/s ({self.card})")
@@ -1042,15 +1126,14 @@ class Smoke:
         import numpy as np
 
         from rustic_tpu_torch.config import RenderSettings
-        from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS
         from rustic_tpu_torch.runtime.render import render_image
 
         ref = np.load(MT_REF)
         h, w = ref.shape[:2]
         config = dataclasses.replace(self.mt_config, width=w, height=h)
         bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
-        if scans is None:
-            scans = [(loop, "lists") for loop in MULTITILE_LOOPS]
+        if scans is None:  # the unsorted loop's film is held to these by the CPU tests
+            scans = [("kernel-shade", "lists"), ("ray-sorted", "lists")]
         for loop, scan in scans:
             t0 = time.time()
             film = render_image(self.mt_scene, config,
@@ -1089,11 +1172,10 @@ class Smoke:
 
     def mt_cross_device(self):
         from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
-        from rustic_tpu_torch.runtime.pipeline import MULTITILE_LOOPS
         from rustic_tpu_torch.scene.world import World
 
         config = dataclasses.replace(self.mt_config, width=64, height=64)
-        for loop in MULTITILE_LOOPS:
+        for loop in ("kernel-shade", "ray-sorted"):
             self._cross(f"VeachMIS, {loop} loop,", self.mt_scene, config, loop)
         furnace = World.from_path(FURNACE).to_torch(self.dev)
         config = TracingConfig(width=64, height=64, nee=NextEventEstimation.MIS)
@@ -1460,10 +1542,16 @@ class Smoke:
         def outside(a, b):
             return int((~np.isclose(a, b, rtol=1e-4, atol=1e-5)).sum())
 
+        host_films = {}
         for scan in MULTITILE_SCANS:
             settings = RenderSettings(samples=4, multitile_scan=scan)
             gpu = render_image(self.bt_scene, config, settings, device=self.dev)
-            cpu = render_image(host, config, settings, device="cpu")
+            # on the host the resident scans are the grid form's plain versions
+            plain = "grid" if scan == "resident" else scan
+            if plain not in host_films:
+                host_films[plain] = render_image(
+                    host, config, RenderSettings(samples=4, multitile_scan=plain), device="cpu")
+            cpu = host_films[plain]
             ulp = outside(gpu, render_image(self.bt_scene, shifted, settings, device=self.dev))
             bad = outside(gpu, cpu)
             energy = abs(float(gpu.mean()) / float(cpu.mean()) - 1.0)
@@ -1855,9 +1943,385 @@ class Smoke:
             self.fail("the resident and the grid films differ")
         self.mt_film(scans=[("kernel-shade", "resident")])
 
+    # ---- phases 24-26: the fused loop (K17) -------------------------------------------
+
+    def _differing_lanes(self, what, outs_a, outs_b):
+        """[B] bool: the lanes on which the (state, next rays, shadow
+        rays) of `outs_a` and `outs_b` differ in any bit (NaN equal to NaN)."""
+        torch = self.torch
+        diff = None
+        for name, a, b in zip(("state", "next rays", "shadow rays"), outs_a, outs_b):
+            if (a is None) != (b is None):
+                self.fail(f"{what}: {name} present on one side only")
+            if a is None:
+                continue
+            d = ~((a == b) | (torch.isnan(a) & torch.isnan(b))).all(dim=0)
+            diff = d if diff is None else diff | d
+        return diff
+
+    def _fused_case(self, what, scene, cfg, b, params, st, feats, pending, sidx, off,
+                    ref_scan, ref_shade, strict):
+        """K17 on one bounce's operands: bit for bit against the two-launch
+        composition on the card (`ref_scan` -> (t, idx, occ i32 or None,
+        rows), then `ref_shade`), folded and held; then against its plain
+        version. `strict`: no lane may differ from the composition (else
+        at most 0.01% of them) -> the largest |d| against the plain version."""
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import fused_bounce as FB
+        from rustic_tpu_torch.ops import shade_kernel as SK
+
+        kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+        g16, attrs = scene.tri_feats16, scene.tri_attrs
+        n = st.shape[1]
+        allowed = 0 if strict else int(1e-4 * n)
+        args = (cfg, b, params, scene.entry_rows, st, feats, pending, g16, attrs, sidx, off)
+        outs_k = FB.fused_bounce(*args, **kw)
+        if outs_k[3] is not None:
+            self.fail(f"{what}: an occlusion row came back without hold_occ")
+        t, i, occ, rows = ref_scan(feats, pending)
+        shade_args = (cfg, b, params, scene.entry_rows, st, feats, t, i, rows)
+        outs_c = ref_shade(*shade_args, occ, sidx, off, **kw)
+        n_diff = int(self._differing_lanes(what, outs_k[:3], outs_c).sum())
+        if n_diff > allowed:
+            self.fail(f"{what}: K17 differs from the two launches on {n_diff} lanes")
+        msg = f"{n_diff} lanes differ from scan then shade"
+        if pending is not None:  # the held mode: occ handed back, nothing folded
+            outs_h = FB.fused_bounce(*args, **kw, hold_occ=True)
+            # where a shadow ray is pending: elsewhere its rows are not a
+            # ray, no consumer reads its occ, and a scan that culls may skip it
+            n_occ = int(((outs_h[3] != occ) & (st[SK.SK_PEND_ELIG] > 0.5)).sum())
+            n_held = int(self._differing_lanes(
+                what, outs_h[:3], ref_shade(*shade_args, None, sidx, off, **kw)).sum())
+            if n_occ > allowed or n_held > allowed:
+                self.fail(f"{what}: held mode differs on {n_occ} occ entries, {n_held} lanes")
+            msg += f"; held: {n_occ} occ entries, {n_held} lanes differ"
+            del outs_h
+        del outs_c
+
+        # the plain version, where its scan picks what the kernel's picks
+        t_p, i_p, o_p = FB.scan_plain(feats, pending, g16)
+        agree = (i_p == i) & ((t_p < FI.BIG) == (t < FI.BIG))
+        if o_p is not None:  # occ counts where a shadow ray is pending, as above
+            agree &= (o_p == occ) | ~(st[SK.SK_PEND_ELIG] > 0.5)
+        frac = float(agree.float().mean())
+        if frac < 0.9999:
+            self.fail(f"{what}: the plain scan agrees on {frac:.6f} of lanes (< 0.9999)")
+        outs_p = FB.fused_bounce_plain(*args, **kw)
+        elig = outs_p[0][SK.SK_PEND_ELIG] > 0.5
+        if not torch.equal(elig[agree], (outs_k[0][SK.SK_PEND_ELIG] > 0.5)[agree]):
+            self.fail(f"{what}: NEE eligibility differs from the plain version")
+        worst = 0.0
+        for name, k_, p_, sel in zip(("state", "next rays", "shadow rays"), outs_k, outs_p,
+                                     (agree, agree, agree & elig)):
+            if (k_ is None) != (p_ is None):
+                self.fail(f"{what}: {name} present on one side only")
+            if k_ is None:
+                continue
+            k_, p_ = k_[:, sel], p_[:, sel]
+            err = torch.nan_to_num((k_ - p_).abs(), nan=0.0)
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+            bad = ~torch.isclose(k_, p_, rtol=1e-4, atol=1e-5, equal_nan=True)
+            if bool(bad.any()):
+                self.fail(f"{what}: {name} differs from the plain version at "
+                          f"{int(bad.sum())} entries, max |d| {float(err.max()):.3g}")
+        log(f"{what} n={n}: {msg}; plain scan agrees on {frac:.6f}, outputs allclose, "
+            f"max |d| {worst:.3g}")
+        return worst
+
+    def fused_check(self):
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import fused_bounce as FB
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        self.main_path_inputs()
+        scene, cfg = self.scene, self.config.static_part()
+        g16, attrs = scene.tri_feats16, scene.tri_attrs
+
+        def scan_1tile(feats, pending):
+            if pending is None:
+                t, i, rows = FI.nearest_attrs(feats, g16, attrs)
+                return t, i, None, rows
+            return FI.nearest_shadow_attrs(feats, pending, g16, attrs)
+
+        worst = 0.0
+        for n in (CHECK_LANES + RAGGED, MAIN_LANES):
+            for b, rec in enumerate(self.bounces):
+                def cut(x):
+                    return None if x is None else x[..., :n].contiguous()
+
+                e = self._fused_case(
+                    f"K17 DarkCornell bounce {b}", scene, cfg, b, self.params, cut(rec["st"]),
+                    cut(rec["feats"]), cut(rec["pending"]), cut(self.sidx), cut(self.off),
+                    scan_1tile, SK.shade_bounce, strict=True)
+                if n == MAIN_LANES:
+                    worst = max(worst, e)
+        self.results["K17"]["max_abs_err"] = worst
+        torch.cuda.empty_cache()
+
+        # VeachMIS: six tiles, a wide alias table; the group traced by K17
+        self._mt_setup()
+        cfg, cam, px, py, off = self._mt_group()
+        scene = self.mt_scene
+        if scene.n_alias_entries <= SK.MAX_ALIAS:
+            self.fail("VeachMIS would not run K17's wide alias mode")
+        mg16, mattrs = scene.tri_feats16, scene.tri_attrs
+
+        def scan_tiles(feats, pending):
+            t, i, occ = P._scan(feats, pending, scene, "grid")
+            return (t, i, None if occ is None else occ.to(torch.int32),
+                    mattrs[i.long()].T.contiguous())
+
+        st, feats, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+        lanes = slice(480 * MT_SIZE, 480 * MT_SIZE + CHECK_LANES)  # rows 480-543 of sample 0
+        pending = None
+        kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+        for b in range(cfg.max_bounces):
+            def cut(x):
+                return None if x is None else x[..., lanes].contiguous()
+
+            self._fused_case(
+                f"K17 VeachMIS bounce {b}", scene, cfg, b, params, cut(st), cut(feats),
+                cut(pending), cut(sidx), cut(off), scan_tiles, SK.shade_bounce_wide, strict=False)
+            st, nf, pending, _ = FB.fused_bounce(
+                cfg, b, params, scene.entry_rows, st, feats, pending, mg16, mattrs, sidx, off, **kw)
+            if nf is not None:
+                feats = nf
+        torch.cuda.empty_cache()
+
+    def fused_time(self):
+        from rustic_tpu_torch.config import NextEventEstimation
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import fused_bounce as FB
+        from rustic_tpu_torch.ops import shade_kernel as SK
+
+        scene, cfg = self.scene, self.config.static_part()
+        g16, attrs = scene.tri_feats16, scene.tri_attrs
+        b1 = self.bounces[1]
+        kw = dict(has_glass=scene.has_glass, n_alias=self.n_alias)
+        args = (cfg, 1, self.params, scene.entry_rows, b1["st"], b1["feats"], b1["pending"], g16,
+                attrs, self.sidx, self.off)
+
+        def fused():
+            return FB.fused_bounce(*args, **kw)
+
+        def two_launches():
+            t, i, occ, rows = FI.nearest_shadow_attrs(b1["feats"], b1["pending"], g16, attrs)
+            return SK.shade_bounce(cfg, 1, self.params, scene.entry_rows, b1["st"], b1["feats"],
+                                   t, i, rows, occ, self.sidx, self.off, **kw)
+
+        self.time_pair("K17", fused, lambda: FB.fused_bounce_plain(*args, **kw), MAIN_LANES)
+        self.time_turns(f"at {MAIN_LANES} lanes", "K17", fused, "K2 then K4", two_launches, reps=10)
+        n = MAIN_LANES
+        _, nf, sf, _ = fused()
+        rows = FB.rows_moved(True, False, nf.shape[0], sf.shape[0])
+        table = g16.shape[1] * RAY_ROWS * 4 + attrs.numel() * 4 + self.n_alias * 48 * 4
+        mis = cfg.nee == NextEventEstimation.MIS
+        k4_rows = SK.rows_moved(True, mis, scene.has_glass, nf.shape[0], sf.shape[0])
+        k2_rows = RAY_ROWS + SHADOW_ROWS + 3 + 32
+        log(f"rows a lane: K17 {rows}, K2 {k2_rows} + K4 {k4_rows} "
+            f"({(k2_rows + k4_rows - rows) * 4} B a lane less)")
+        self.set_bound("K17", bound(rows * 4 * n + table, 2 * n * scene.n_tris * FLOPS_PER_PAIR))
+        self.bounces = None
+        self.torch.cuda.empty_cache()
+
+    def fused_render(self):
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+        from rustic_tpu_torch.runtime.render import render_image
+
+        if getattr(self, "scene", None) is None:
+            from rustic_tpu_torch.scene.world import World
+
+            self.scene = World.from_path("assets/scenes/DarkCornell.glb").to_torch(self.dev)
+            self.config = TracingConfig(width=WIDTH, height=HEIGHT, nee=NextEventEstimation.MIS)
+        fused = RenderSettings(samples=SPP, single_tile_loop="fused")
+        t0 = time.time()
+        render_image(self.scene, self.config, dataclasses.replace(fused, samples=FOLD),
+                     device=self.dev)
+        log(f"fused warm-up render ({FOLD} spp): {time.time() - t0:.2f} s")
+        groups, nb = SPP // FOLD, self.config.max_bounces
+        for turn in range(2):  # in turns: fused, kernel-shade
+            for what, settings in (("fused", fused), ("kernel-shade", RenderSettings(samples=SPP))):
+                self.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                film = render_image(self.scene, self.config, settings, device=self.dev)
+                render_s = time.time() - t0
+                counts = self.counts()
+                log(f"render DarkCornell {WIDTH}x{HEIGHT}x{SPP} spp NEE+MIS, {what} loop: "
+                    f"{render_s:.3f} s, {WIDTH * HEIGHT * SPP / render_s / 1e6:.2f} Mpaths/s "
+                    f"({self.card})")
+                if what != "fused":
+                    continue
+                log(f"launch counts: {counts}")
+                expect = dict.fromkeys(counts, 0) | {"fused_bounce": nb * groups, "occlude": 1}
+                if counts != expect:
+                    self.fail(f"launch counts {counts} != expected {expect}")
+                self.results["K17"]["launches"] = counts["fused_bounce"]
+                mean = float(film.mean())
+                log(f"film mean {mean:.6f} (reference {FILM_MEAN_REF}, "
+                    f"{(mean / FILM_MEAN_REF - 1) * 100:+.3f}%)")
+                if not np.isfinite(film).all() or film.shape != (HEIGHT, WIDTH, 3):
+                    self.fail("film is not finite or has the wrong shape")
+                if abs(mean / FILM_MEAN_REF - 1.0) > 0.02:
+                    self.fail(f"film mean {mean} is not within 2% of {FILM_MEAN_REF}")
+
+        small = TracingConfig(width=64, height=64, nee=NextEventEstimation.MIS)
+        four = RenderSettings(samples=4, single_tile_loop="fused")
+        a = render_image(self.scene, small, four, device=self.dev)
+        b = render_image(self.scene, small, RenderSettings(samples=4), device=self.dev)
+        cpu = render_image(self.scene.to("cpu"), small, four, device="cpu")
+        bad = ~np.isclose(a, cpu, rtol=1e-4, atol=1e-5)
+        log(f"DarkCornell 64x64x4 film, fused loop: equal to the kernel-shade loop's "
+            f"{np.array_equal(a, b)}; card vs host CPU max |d| {np.abs(a - cpu).max():.3g}, "
+            f"{int(bad.sum())} entries outside rtol 1e-4 / atol 1e-5, mean {a.mean():.6f}")
+        if not np.array_equal(a, b):
+            self.fail("the fused and the kernel-shade films of DarkCornell differ")
+        if bad.any():
+            self.fail("the fused loop's card and host films differ")
+        self.scene = None
+
+        self._mt_setup()
+        groups = MT_UNSORTED_SPP // FOLD
+        self._render_mt("fused", MT_UNSORTED_SPP, {
+            "fused_bounce": self.mt_config.max_bounces * groups, "occlude_multi": 1})
+        config = dataclasses.replace(self.mt_config, width=64, height=64)
+        a, b = (render_image(self.mt_scene, config, RenderSettings(samples=4, multitile_loop=loop),
+                             device=self.dev) for loop in ("fused", "kernel-shade"))
+        bad = ~np.isclose(a, b, rtol=1e-4, atol=1e-5)
+        log(f"VeachMIS 64x64x4 film, fused loop vs kernel-shade loop: equal "
+            f"{np.array_equal(a, b)}, max |d| {np.abs(a - b).max():.3g}, {int(bad.sum())} "
+            f"entries outside rtol 1e-4 / atol 1e-5, mean {a.mean():.6f}")
+        if bad.any():
+            self.fail("the fused and the kernel-shade films of VeachMIS differ")
+
+    # ---- phase 27: the dot-rate probes (K18, K19) -------------------------------------
+
+    def probe_check(self):
+        import torch
+
+        from rustic_tpu_torch import probe_dot_floor as PF
+        from rustic_tpu_torch.ops import probe_dot as PD
+
+        n, reps, k = 1024, 8, PD.SPLIT_K
+        if torch.backends.cuda.matmul.allow_tf32:
+            self.fail("the plain versions need full-f32 products (allow_tf32 off)")
+
+        def close(key, got, want, what):
+            if got.dtype == torch.int32:
+                if not torch.equal(got, want):
+                    self.fail(f"{key} {what}: int32 results differ")
+                return 0.0
+            err = float((got - want).abs().max())
+            # atol: a min near zero (terms of magnitude 1, summed in another order)
+            if not bool(torch.isclose(got, want, rtol=1e-5, atol=1e-5).all()):
+                self.fail(f"{key} {what}: differs from its plain version beyond rtol 1e-5, "
+                          f"atol 1e-5 (max |d| {err:.3g})")
+            return err
+
+        def library(f, g):
+            """One matmul and one amin in the operands' type, a chunk of rays at a time."""
+            for lo in range(0, f.shape[1], 1 << 15):
+                (f[:, lo : lo + (1 << 15)].T @ g).amin(dim=1)
+
+        for b in (CHECK_LANES + RAGGED, PF.RAYS):
+            f32, g32 = PF.operands("fp32", k, b, n * reps, self.dev)
+            f8, g8 = PF.operands("int8", k, b, n * reps, self.dev)
+            operands = {
+                "fp32": (f32, g32),
+                "tf32": (PD.round_tf32(f32), PD.round_tf32(g32)),
+                "bf16": (f32.to(torch.bfloat16), g32.to(torch.bfloat16)),
+                "int8": (f8, g8),
+            }
+            operands["bf16w"] = operands["bf16"]
+            for v, (f, g) in operands.items():
+                key = f"K18 {v}"
+                for acc_min in (True, False) if v != "bf16w" else (True,):
+                    e = close(key, PD.dot_min(f, g, n, reps, v, acc_min=acc_min),
+                              PD.dot_min_plain(f, g, n, reps, v, acc_min=acc_min),
+                              f"B={b} acc_min={acc_min}")
+                    if acc_min:
+                        err = e
+                log(f"{key} B={b}: within rtol 1e-5 of its plain version (equal for int8), "
+                    f"max |d| {err:.3g}")
+                if b != PF.RAYS:
+                    continue
+                self.results[key]["max_abs_err"] = err
+                self.time_pair(key, lambda: PD.dot_min(f, g, n, reps, v),
+                               lambda: PD.dot_min_plain(f, g, n, reps, v), b, reps=5)
+                if v != "int8":  # torch has no public int8 product on the card
+                    torch.backends.cuda.matmul.allow_tf32 = v == "tf32"
+                    try:
+                        lib = self.time_ms(lambda: library(f, g), reps=5)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+                    self.results[key]["library_ms"] = sorted(lib)[len(lib) // 2]
+                    log(f"{key}: torch.matmul + amin in {f.dtype}"
+                        f"{' with allow_tf32' if v == 'tf32' else ''} "
+                        f"{self.results[key]['library_ms']:.3f} ms")
+                n_bytes = f.numel() * f.element_size() + g.numel() * g.element_size() + 4 * b
+                peak = FP32_FLOP_PER_S if v == "fp32" else TENSOR_OP_PER_S[v]
+                self.set_bound(key, bound(n_bytes, 2 * b * n * reps * k, peak))
+
+            # K19: the split dots against their plain versions and float64
+            g96, f96 = PD.cat6_g(g32), PD.cat6_f(f32)
+            scale = f32.double().abs().T @ g32.double().abs().amax(dim=1)
+            ref = torch.empty(b, dtype=torch.float64, device=self.dev)
+            ha = f96[:k].double()  # the three-term dot is exact in G: ha . (hb + mb + lb)
+            ref48 = torch.empty_like(ref)
+            for lo in range(0, b, 1 << 14):
+                ref[lo : lo + (1 << 14)] = (f32[:, lo : lo + (1 << 14)].double().T
+                                            @ g32.double()).amin(dim=1)
+                ref48[lo : lo + (1 << 14)] = (ha[:, lo : lo + (1 << 14)].T
+                                              @ g32.double()).amin(dim=1)
+            cases = {
+                "pre-split K=96": (f96, g96, ref),
+                "in-kernel split K=96": (f32, g96, ref),
+                "pre-split K=48": (f96[:48].contiguous(), g96[:48].contiguous(), ref48),
+            }
+            for (what, (f, g, r64)), (key, v) in itertools.product(
+                    cases.items(), (("K19", "bf16"), ("K19 bf16w", "bf16w"))):
+                got = PD.dot_min_split(f, g, n, reps, variant=v)
+                plain = PD.dot_min_split_plain(f, g, n, reps)
+                e = close(key, got, plain, f"{what} B={b}")
+                rel = float(((got.double() - r64).abs() / scale).max())
+                log(f"{key} {what} B={b}: within rtol 1e-5 of its plain version (max |d| {e:.3g}); "
+                    f"|d| against float64 at most {rel:.3g} x sum_k |F_k| max_n |G_kn|")
+                if rel > 1e-5:
+                    self.fail(f"{key} {what}: {rel:.3g} x the term scale from the float64 dot")
+                if b == PF.RAYS and what == "in-kernel split K=96":
+                    self.results[key]["max_abs_err"] = e
+                    self.time_pair(key, lambda: PD.dot_min_split(f, g, n, reps, variant=v),
+                                   lambda: PD.dot_min_split_plain(f, g, n, reps), b, reps=5)
+                    n_bytes = f.numel() * 4 + g.numel() * 2 + 4 * b
+                    self.set_bound(key, bound(n_bytes, 2 * b * n * reps * 6 * k,
+                                              TENSOR_OP_PER_S["bf16"]))
+            del operands, cases, f32, g32, f8, g8, g96, f96, ref, ref48, ha, scale
+            torch.cuda.empty_cache()
+
+        # the probes' path: their program, with the counts read after it
+        self.reset_counts()
+        if PF.main([]) != 0:
+            self.fail("probe_dot_floor failed")
+        counts = self.counts()
+        log(f"launch counts of probe_dot_floor: "
+            f"{ {k_: v_ for k_, v_ in counts.items() if v_} }")
+        for key in self.results:
+            if key.startswith(("K18", "K19")):
+                self.results[key]["launches"] = counts[KERNELS[key]["name"]]
+                if not counts[KERNELS[key]["name"]]:
+                    self.fail(f"{key} was not launched by probe_dot_floor")
+
     # ---- phases ----------------------------------------------------------------------------
 
-    def run(self) -> int:
+    def run(self, only=()) -> int:
         phases = [
             ("device", self.device),
             ("check", self.check),
@@ -1882,7 +2346,17 @@ class Smoke:
             ("single-films", self.single_films),
             ("resident-check", self.resident_check),
             ("resident-render", self.resident_render),
+            ("fused-check", self.fused_check),
+            ("fused-time", self.fused_time),
+            ("fused-render", self.fused_render),
+            ("probe-check", self.probe_check),
         ]
+        if only:
+            unknown = set(only) - {name for name, _ in phases}
+            if unknown:
+                log(f"unknown phases: {sorted(unknown)}")
+                return 2
+            phases = [(name, fn) for name, fn in phases if name == "device" or name in only]
         for name, fn in phases:
             if not self.phase(name, fn):
                 log(f"FAILED phase: {name}")
@@ -1893,6 +2367,15 @@ class Smoke:
                 self.ks_bounces = self.bt_bounces = None
                 self.torch.cuda.empty_cache()
         torch = self.torch
+        if only:  # a partial run proves nothing about the whole: no result lines
+            log(f"ran only {sorted(only)}")
+            return 0
+        keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms"}
+        for key, row in self.results.items():
+            if set(row) != keys or not row["launches"]:
+                log(f"FAILED: {key} lacks {sorted(keys - set(row))} or was never launched: {row}")
+                return 1
         log(self.card)
         log(json.dumps({"kernels": list(self.results.values())}))
         log(json.dumps({
@@ -1917,7 +2400,13 @@ def main() -> int:
     except ImportError:
         traceback.print_exc()
         return 1
-    return Smoke().run()
+    only = ()
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        only = tuple(sys.argv[2].split(","))
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--only PHASE[,PHASE...]]", file=sys.stderr)
+        return 2
+    return Smoke().run(only)
 
 
 if __name__ == "__main__":

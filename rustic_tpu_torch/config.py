@@ -109,7 +109,9 @@ class RenderSettings:
     use_blue_noise: bool = False
     batch_pixels: int = 1 << 20  # wavefront megabatch size (pixels per chunk)
     # the loop a multi-tile scene takes (runtime/pipeline.py MULTITILE_LOOPS):
-    # "kernel-shade", or the reference loops "ray-sorted" and "unsorted"
+    # "kernel-shade", the reference loops "ray-sorted" and "unsorted", or
+    # "fused" (one launch of K17 a bounce, every tile scanned whole;
+    # untextured scenes under the procedural sky, ValueError on any other)
     multitile_loop: str = "kernel-shade"
     # the form of the multi-tile scans (ops/intersect.py MULTITILE_SCANS):
     # "lists" (tile lists, then K5-K7), "grid" (K9-K11, culling in the kernel)
@@ -119,5 +121,7 @@ class RenderSettings:
     # the loop a one-tile scene takes (runtime/pipeline.py SINGLE_TILE_LOOPS):
     # "kernel-shade" where the shade kernel takes the scene (untextured, an
     # alias table of at most 16 entries) and the torch-shade loop elsewhere,
-    # or "torch-shade" for every one-tile scene
+    # "torch-shade" for every one-tile scene, or "fused" (one launch of K17
+    # a bounce in place of a scan and a shade launch; untextured scenes under
+    # the procedural sky, ValueError on any other)
     single_tile_loop: str = "kernel-shade"

@@ -56,14 +56,18 @@ __device__ __forceinline__ void pair_accumulate(float4& acc, float fr, const flo
   }
 }
 
-// The exact division epilogue on a pair's numerators (det, u, v, t).
+// The exact division epilogue on a pair's numerators (det, u, v, t). The
+// roundings are written out, so that a translation unit built with
+// -fmad=false (fused_bounce.cu) and one built with contraction on give the
+// same bits: u + v is a rounded add of two rounded products, never an FMA.
 __device__ __forceinline__ void pair_epilogue(const float4 acc, float& t, bool& valid) {
   const bool good = fabsf(acc.x) >= DET_EPS;
   const float inv = good ? 1.0f / acc.x : 0.0f;
-  const float u = acc.y * inv;
-  const float v = acc.z * inv;
-  t = acc.w * inv;
-  valid = good && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > EPS;
+  const float u = __fmul_rn(acc.y, inv);
+  const float v = __fmul_rn(acc.z, inv);
+  t = __fmul_rn(acc.w, inv);
+  const float u_plus_v = __fadd_rn(u, v);
+  valid = good && u >= 0.0f && u <= 1.0f && v >= 0.0f && u_plus_v <= 1.0f && t > EPS;
 }
 
 // One (ray, triangle) pair: triangle j of the staged chunk `sg`.

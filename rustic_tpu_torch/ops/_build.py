@@ -30,15 +30,20 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Per-source extra flags. shade.cu is compiled without FMA contraction
-# so that it rounds like its plain PyTorch twin, which runs one
-# operation per torch kernel. No source uses --use_fast_math: the sky
-# march's exp(2.2 log x) and the GGX terms need the precise functions.
+# Per-source extra flags. shade.cu and fused_bounce.cu (the sources that
+# include shade_common.cuh) are compiled without FMA contraction so that
+# the shading rounds like its plain PyTorch twin, which runs one
+# operation per torch kernel; the scans' device code (flash_common.cuh)
+# writes its roundings out, so it gives the same bits under either
+# setting. No source uses --use_fast_math: the sky march's exp(2.2 log x)
+# and the GGX terms need the precise functions.
 EXTRA_FLAGS = {
     "flash_intersect": [],
     "flash_multi": [],
     "flash_resident": [],
     "shade": ["-fmad=false"],
+    "fused_bounce": ["-fmad=false"],
+    "probe_dot": [],
 }
 
 
@@ -50,19 +55,28 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its library is current (the hash
-    also covers the shared csrc/*.cuh headers); returns the library
-    path. The compiler's resource report (-Xptxas -v) goes to a .log
-    beside it."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS[name]
+    """Compile csrc/<name>.cu unless its library is current; returns the
+    library path."""
+    return compile_source(os.path.join(CSRC, f"{name}.cu"), EXTRA_FLAGS[name])
+
+
+def compile_source(src: str, extra_flags=()) -> str:
+    """Compile the CUDA source `src` (its includes found in csrc/) into
+    build/lib<stem>-<hash>.so unless that library is current: the hash
+    covers the source, the *.cuh headers beside it and in csrc/, and the
+    flags.
+    Returns the library path. The compiler's resource report (-Xptxas -v)
+    goes to a .log beside it."""
+    flags = ARCH_FLAGS + BASE_FLAGS + ["-I", CSRC] + list(extra_flags)
     h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+    dirs = dict.fromkeys([os.path.dirname(os.path.abspath(src)), CSRC])  # include order
+    headers = [os.path.join(d, f) for d in dirs for f in sorted(os.listdir(d)) if f.endswith(".cuh")]
+    for path in [src] + headers:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(flags).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:12]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -77,15 +91,20 @@ def build(name: str) -> str:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def entry_point(name: str, fn: str, n_ptrs: int, n_ints: int):
-    """`fn` of csrc/<name>.cu (built if needed), declared as
+def load_entry(lib: str, fn: str, n_ptrs: int, n_ints: int):
+    """`fn` of the shared library `lib`, declared as
     `int fn(void* x n_ptrs, int x n_ints, void* stream)`: every pointer
     and the stream are c_void_p, so no 64-bit value is cut."""
-    f = getattr(ctypes.CDLL(build(name)), fn)
+    f = getattr(ctypes.CDLL(lib), fn)
     f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
+
+
+@functools.lru_cache(maxsize=None)
+def entry_point(name: str, fn: str, n_ptrs: int, n_ints: int):
+    """`fn` of csrc/<name>.cu (built if needed), declared by `load_entry`."""
+    return load_entry(build(name), fn, n_ptrs, n_ints)
 
 
 def uses_plain(x: torch.Tensor) -> bool:

@@ -1,8 +1,8 @@
 """Where the time of a render goes on one CUDA device.
 
     python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis|breaktime]
-        [--driver kernel-shade|ray-sorted|unsorted] [--scan lists|grid|resident]
-        [--single-loop kernel-shade|torch-shade] [--table PATH]
+        [--driver kernel-shade|ray-sorted|unsorted|fused] [--scan lists|grid|resident]
+        [--single-loop kernel-shade|torch-shade|fused] [--table PATH]
 
 `darkcornell` (the default, the headline render): DarkCornell 1280x720
 NEE+MIS, 4 bounces, profiled at 32 spp, then timed at 160 spp.
@@ -13,18 +13,18 @@ tools/quality_gate.py, profiled at 16 spp, then timed at 64 spp.
 cut): BreakTime 1920x1080 NEE+MIS with its HDR sky and textures (4096^2
 atlas), profiled at 8 spp, then timed at 32 spp.
 `--driver` names the multi-tile loop (RenderSettings.multitile_loop):
-`kernel-shade` (the default) or the reference loops `ray-sorted` and
-`unsorted`; `--scan` the form of its scans (RenderSettings.multitile_scan):
-`lists` (the default), `grid` or `resident`. Neither changes the
-single-tile path, whose loop `--single-loop` names
-(RenderSettings.single_tile_loop): `kernel-shade` (the default) or
-`torch-shade`.
+`kernel-shade` (the default), the reference loops `ray-sorted` and
+`unsorted`, or `fused` (K17: one launch a bounce); `--scan` the form of
+its scans (RenderSettings.multitile_scan): `lists` (the default), `grid`
+or `resident`. Neither changes the single-tile path, whose loop
+`--single-loop` names (RenderSettings.single_tile_loop): `kernel-shade`
+(the default), `torch-shade` or `fused`.
 
 Renders the scene once as a warm-up, then once under torch.profiler, and
 prints: the wall time of the profiled render, the device time summed over
 its kernels and copies, the device's idle share (1 - device time / wall
 time, one stream so nothing overlaps), and the device time per kernel
-(K1-K16), per copy and for the torch glue (on the multi-tile path the glue
+(K1-K17), per copy and for the torch glue (on the multi-tile path the glue
 is the tile lists, the sort and unsort gathers, and the shading stages or
 the row resolve), with the glue's twelve largest kernels and the peak
 device memory. `--table` writes the profiler's full table to a file.
@@ -87,6 +87,7 @@ _KERNELS = {
     "resident_kernel<true,false>": "K14 nearest_resident",
     "resident_kernel<true,true>": "K15 nearest_shadow_resident",
     "resident_kernel<false,true>": "K16 occlude_resident",
+    "fused_kernel<": "K17 fused_bounce",
 }
 
 

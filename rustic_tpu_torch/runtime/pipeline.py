@@ -54,6 +54,7 @@ import torch
 
 from rustic_tpu_torch.config import CameraParams, StaticConfig
 from rustic_tpu_torch.ops import flash_intersect as FI
+from rustic_tpu_torch.ops import fused_bounce as FB
 from rustic_tpu_torch.ops import sampling as s
 from rustic_tpu_torch.ops import shade_kernel as SK
 from rustic_tpu_torch.ops import trace as trace_mod
@@ -510,7 +511,7 @@ STATE_SORT_TODO = (
 )
 
 # the names of the multi-tile loops; the first is the default
-MULTITILE_LOOPS = ("kernel-shade", "ray-sorted", "unsorted")
+MULTITILE_LOOPS = ("kernel-shade", "ray-sorted", "unsorted", "fused")
 
 
 def multitile_loop(loop: str):
@@ -525,11 +526,13 @@ def multitile_loop(loop: str):
         return _render_batch_raysorted
     if loop == "unsorted":
         return _render_batch_unsorted
+    if loop == "fused":
+        return _render_batch_fused
     raise ValueError(f"multi-tile loop {loop!r}: expected one of {MULTITILE_LOOPS}")
 
 
 # the loops of a one-tile scene; the first is the default
-SINGLE_TILE_LOOPS = ("kernel-shade", "torch-shade")
+SINGLE_TILE_LOOPS = ("kernel-shade", "torch-shade", "fused")
 
 
 def render_batch_staged(
@@ -556,8 +559,11 @@ def render_batch_staged(
     the shade kernel takes the scene (`shade_kernel.supported`); otherwise,
     or if `single_loop` is "torch-shade", the torch-shade loop
     (`_render_batch_unsorted` at one tile), which takes any scene.
-    Textured scenes and HDR skies render on all of them. The state-sorted
-    driver is not ported and raises NotImplementedError."""
+    Textured scenes and HDR skies render on all of them but one: the fused
+    loop (`_render_batch_fused`, "fused" as `single_loop` or as `loop`)
+    takes untextured scenes under the procedural sky and raises ValueError
+    on any other. The state-sorted driver is not ported and raises
+    NotImplementedError."""
     _check_scan(scan)
     if single_loop not in SINGLE_TILE_LOOPS:
         raise ValueError(f"single-tile loop {single_loop!r}: expected one of {SINGLE_TILE_LOOPS}")
@@ -567,6 +573,8 @@ def render_batch_staged(
     args = (scene, cfg, cam, px, py, offsets, sample_start, n_samples, film)
     if FI.geometry(scene.tri_feats16)[2] > 1:
         return multitile_loop(loop)(*args, scan=scan)
+    if single_loop == "fused":
+        return _render_batch_fused(*args)
     if single_loop == "kernel-shade" and SK.supported(scene):
         return _render_batch_kernelshade(*args)
     return _render_batch_unsorted(*args)
@@ -618,6 +626,59 @@ def _render_batch_kernelshade(scene, cfg, cam, px, py, offsets, sample_start, n_
                 feats_t = nf
         if cfg.has_skybox:
             st = hdr_sky_payoff(scene.skybox, cam.sun_direction, st, feats_t)
+        if pending_sh is not None:
+            held = (st, pending_sh, g)
+        else:
+            film = finishk(st, None, film, g)
+    if held is not None:
+        film = flush_held(held, film)
+    return film
+
+
+def _render_batch_fused(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
+                        scan=MULTITILE_SCANS[0]):
+    """The fused loop (the render loop of archive/fused_bounce): the
+    single-tile kernel-shade loop with the two launches of a bounce, scan
+    and shade, replaced by one launch of K17, which takes any number of
+    tiles. The last bounce's shadow rays of a group ride the next group's
+    first launch, which hands their occlusion back (`hold_occ`); the last
+    group's go through the any-hit scan alone (K3 on one tile, else the
+    form `scan` names). A scene outside K17's envelope raises ValueError."""
+    if not FB.supported(scene, cfg):
+        raise ValueError(
+            "the fused loop takes untextured scenes under the procedural sky "
+            f"(textures: {scene.has_textures}, HDR sky: {cfg.has_skybox}); name another loop"
+        )
+    g16 = scene.tri_feats16
+    attrs = scene.tri_attrs
+    fold = pick_sample_fold(px.shape[0], n_samples)
+    n_alias = scene.n_alias_entries if cfg.nee.uses_nee and scene.has_lights else 0
+
+    def flush_held(held, film):
+        st_h, sh_h, g_h = held
+        return finishk(st_h, _occlude(sh_h, scene, scan), film, g_h)
+
+    held = None  # (st, shadow feats_t, fold) awaiting its occlusion
+    for k in range(0, n_samples, fold):
+        g = min(fold, n_samples - k)
+        pxg, pyg, offg = (a.repeat(g) for a in (px, py, offsets))
+        if held is not None and held[1].shape[1] != pxg.shape[0]:
+            film = flush_held(held, film)
+            held = None
+        st, feats_t, sidx, params = initk(cfg, cam, pxg, pyg, sample_start + k, offg, g)
+        pending_sh = held[1] if held is not None else None
+        for bounce in range(cfg.max_bounces):
+            holding = bounce == 0 and held is not None
+            st, nf, pending_sh, occ = FB.fused_bounce(
+                cfg, bounce, params, scene.entry_rows, st, feats_t, pending_sh, g16, attrs,
+                sidx, offg, has_glass=scene.has_glass, n_alias=n_alias, hold_occ=holding,
+            )
+            if holding:  # this occlusion result belongs to the held group
+                st_h, _sh, g_h = held
+                film = finishk(st_h, occ, film, g_h)
+                held = None
+            if nf is not None:  # the last bounce keeps its input rows
+                feats_t = nf
         if pending_sh is not None:
             held = (st, pending_sh, g)
         else:

@@ -116,7 +116,8 @@ def test_breaktime_film_matches_jax(breaktime, monkeypatch, loop, scan, driver):
     assert calls == [1]
 
 
-@pytest.mark.parametrize("loop", P.MULTITILE_LOOPS)
+# the fused loop takes no textured scene (tests/test_torch_fused.py)
+@pytest.mark.parametrize("loop", [name for name in P.MULTITILE_LOOPS if name != "fused"])
 def test_scan_forms_give_one_film(breaktime, monkeypatch, loop):
     """Each loop gives the same film with either scan form, and the grid
     form runs no tile lists and none of K5-K7."""

@@ -135,12 +135,12 @@ def test_render_image_refuses_missing_cuda(port_scene):
 
 
 def test_port_runs_without_jax():
-    """The port imports and renders with jax, flax and rustic_tpu
-    blocked from import."""
+    """The port imports and renders with jax, flax, rustic_tpu, tools and
+    archive blocked from import."""
     code = textwrap.dedent(
         """
         import sys
-        for name in ("jax", "flax", "rustic_tpu"):
+        for name in ("jax", "flax", "rustic_tpu", "tools", "archive"):
             sys.modules[name] = None
         import torch
         torch.set_num_threads(2)
@@ -162,7 +162,20 @@ def test_port_runs_without_jax():
                          RenderSettings(samples=1, multitile_loop="ray-sorted")):
             film = render_image(veach, config, settings, device="cpu")
             assert film.shape == (6, 8, 3) and film.mean() > 0.0, film.mean()
-        assert not any(m == "jax" or m.startswith(("jax.", "flax", "rustic_tpu."))
+        # the fused loop (K17's plain version) on one tile and on many
+        fused = RenderSettings(samples=1, single_tile_loop="fused", multitile_loop="fused")
+        film = render_image(veach, config, fused, device="cpu")
+        assert film.shape == (6, 8, 3) and film.mean() > 0.0, film.mean()
+        config = TracingConfig(width=32, height=16, nee=NextEventEstimation.MIS)
+        assert render_image(scene, config, fused, device="cpu").mean() > 0.0
+        # the dot probes (K18, K19: their plain versions) and their programs
+        import rustic_tpu_torch.probe_kernel_builds
+        from rustic_tpu_torch import probe_dot_floor
+        from rustic_tpu_torch.ops import probe_dot
+        f, g = probe_dot_floor.operands("fp32", 16, 64, 32, "cpu")
+        out = probe_dot.dot_min_split(f, probe_dot.cat6_g(g), 16, 2)
+        assert torch.allclose(out, probe_dot.dot_min(f, g, 16, 2), atol=1e-4)
+        assert not any(m == "jax" or m.startswith(("jax.", "flax", "rustic_tpu.", "tools", "archive"))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
         """

@@ -438,7 +438,8 @@ def test_state_sort_mode_is_refused(monkeypatch):
         P.multitile_loop("rays")
 
 
-@pytest.mark.parametrize("loop", P.MULTITILE_LOOPS)
+# the fused loop does refuse an HDR sky (tests/test_torch_fused.py)
+@pytest.mark.parametrize("loop", [name for name in P.MULTITILE_LOOPS if name != "fused"])
 def test_multitile_loops_refuse_hdr_sky(scenes, loop):
     """HDR skies were refused before BreakTime was ported; now each loop
     renders one, and its film equals the unsorted loop's (rtol 1e-4,
