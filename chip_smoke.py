@@ -31,7 +31,9 @@ Phases, each of which must pass (the first that fails ends the run):
      the largest error at the main path's shape.
   3. time: each kernel and its plain version at the main path's shape
      (1280x720 pixels x 4 folded samples = 3,686,400 lanes), the median
-     of 10 CUDA-event timings, taken in turns.
+     of 10 CUDA-event timings, taken in turns; the share of K1-K3's pairs
+     and warp iterations that the skip test sends to the exact epilogue
+     (its torch twin, FI.skip_scan, on the first 65,536 lanes).
   4. render: DarkCornell 1280x720, NEE+MIS, 4 bounces, 160 spp (the
      headline render of bench.py) through render_image on the card, after
      a warm-up of one sample fold; Mpaths/s; the kernel launch counts of that render,
@@ -96,8 +98,11 @@ Phases, each of which must pass (the first that fails ends the run):
      BreakTime has 2 alias entries) and K8, both in HDR mode, bit-equal to
      their plain version on every bounce.
  15. breaktime-time: K9-K11 and their plain versions in turns as phase 7
-     (median of 3); each form's whole scan, block_tile_lists plus K5-K7
-     against K9-K11 alone, and the list pre-pass alone.
+     (median of 3); the lane utilisation a loop of one thread a ray would
+     have (admitted lanes over 32 x the warp-tiles with one), and the
+     exact-epilogue shares of the skip test as phase 3; each form's whole
+     scan, block_tile_lists plus K5-K7 against K9-K11 alone, and the list
+     pre-pass alone.
  16. breaktime-renders: BreakTime 1920x1080 x 32 spp (BASELINE's 2048 cut
      for card time; the rate is per path) through the kernel-shade loop,
      with "lists" and with "grid", each after a one-group warm-up;
@@ -523,15 +528,15 @@ class Smoke:
         off = torch.from_numpy(off.copy()).to(self.dev).repeat(FOLD)
         st, feats, sidx, params = initk(cfg, self.config.dynamic_part(self.dev), px, py, 0, off, FOLD)
         n_alias = self.scene.n_alias_entries
-        g16, attrs = self.scene.tri_feats16, self.scene.tri_attrs
+        g16, attrs, live = self.scene.tri_feats16, self.scene.tri_attrs, self.scene.n_tris
         self.bounces = []
         pending = None
         for b in range(cfg.max_bounces):
             if pending is None:
-                t, i, a = FI.nearest_attrs(feats, g16, attrs)
+                t, i, a = FI.nearest_attrs(feats, g16, attrs, live)
                 occ = None
             else:
-                t, i, occ, a = FI.nearest_shadow_attrs(feats, pending, g16, attrs)
+                t, i, occ, a = FI.nearest_shadow_attrs(feats, pending, g16, attrs, live)
             rec = dict(st=st, feats=feats, pending=pending, t=t, idx=i, attrs=a, occ=occ)
             st, nf, pending = SK.shade_bounce(
                 cfg, b, params, self.scene.entry_rows, st, feats, t, i, a, occ, sidx, off,
@@ -581,7 +586,7 @@ class Smoke:
     def check_scans(self):
         from rustic_tpu_torch.ops import flash_intersect as FI
 
-        g16, attrs = self.scene.tri_feats16, self.scene.tri_attrs
+        g16, attrs, live = self.scene.tri_feats16, self.scene.tri_attrs, self.scene.n_tris
         b0, b1 = self.bounces[0], self.bounces[1]
         for n in (CHECK_LANES, CHECK_LANES + RAGGED, MAIN_LANES):
             errs = {}
@@ -591,12 +596,12 @@ class Smoke:
             s3 = self.bounces[-1]["shadow_out"][:, :n].contiguous()
 
             frac, e = self._cmp_nearest(
-                "K1", *FI.nearest_attrs(f0, g16, attrs), *FI.nearest_attrs_plain(f0, g16, attrs)
+                "K1", *FI.nearest_attrs(f0, g16, attrs, live), *FI.nearest_attrs_plain(f0, g16, attrs)
             )
             errs["K1"] = e
             log(f"K1 n={n}: idx agree {frac:.6f}, max |dt| {e:.3g}")
 
-            t_k, i_k, o_k, a_k = FI.nearest_shadow_attrs(f1, s1, g16, attrs)
+            t_k, i_k, o_k, a_k = FI.nearest_shadow_attrs(f1, s1, g16, attrs, live)
             t_p, i_p, o_p, a_p = FI.nearest_shadow_attrs_plain(f1, s1, g16, attrs)
             frac, e = self._cmp_nearest("K2", t_k, i_k, a_k, t_p, i_p, a_p)
             occ_agree, _ = self._cmp_occ("K2", o_k, o_p)
@@ -605,7 +610,7 @@ class Smoke:
                 f"occluded {float(o_k.float().mean()):.4f}, max |dt| {e:.3g}")
             del t_k, i_k, o_k, a_k, t_p, i_p, o_p, a_p
 
-            occ_agree, e = self._cmp_occ("K3", FI.occlude(s3, g16), FI.occlude_plain(s3, g16))
+            occ_agree, e = self._cmp_occ("K3", FI.occlude(s3, g16, live), FI.occlude_plain(s3, g16))
             errs["K3"] = e
             log(f"K3 n={n}: occ agree {occ_agree:.6f}")
         # the kernels line reports the comparison at the main path's shape
@@ -664,7 +669,7 @@ class Smoke:
         from rustic_tpu_torch.ops import flash_intersect as FI
         from rustic_tpu_torch.ops import shade_kernel as SK
 
-        g16, attrs = self.scene.tri_feats16, self.scene.tri_attrs
+        g16, attrs, live = self.scene.tri_feats16, self.scene.tri_attrs, self.scene.n_tris
         b0, b1 = self.bounces[0], self.bounces[1]
         sh = self.bounces[-1]["shadow_out"]
         cfg = self.config.static_part()
@@ -672,11 +677,11 @@ class Smoke:
                       b1["idx"], b1["attrs"], b1["occ"], self.sidx, self.off)
         kw = dict(has_glass=self.scene.has_glass, n_alias=self.n_alias)
         cases = {
-            "K1": (lambda: FI.nearest_attrs(b0["feats"], g16, attrs),
+            "K1": (lambda: FI.nearest_attrs(b0["feats"], g16, attrs, live),
                    lambda: FI.nearest_attrs_plain(b0["feats"], g16, attrs)),
-            "K2": (lambda: FI.nearest_shadow_attrs(b1["feats"], b1["pending"], g16, attrs),
+            "K2": (lambda: FI.nearest_shadow_attrs(b1["feats"], b1["pending"], g16, attrs, live),
                    lambda: FI.nearest_shadow_attrs_plain(b1["feats"], b1["pending"], g16, attrs)),
-            "K3": (lambda: FI.occlude(sh, g16), lambda: FI.occlude_plain(sh, g16)),
+            "K3": (lambda: FI.occlude(sh, g16, live), lambda: FI.occlude_plain(sh, g16)),
             "K4": (lambda: SK.shade_bounce(*shade_args, **kw),
                    lambda: SK.shade_bounce_plain(*shade_args, **kw)),
         }
@@ -689,11 +694,30 @@ class Smoke:
         self.set_bound("K2", scan_bound([(n, RAY_ROWS), (n, SHADOW_ROWS)], 2 * n * n_tris,
                                         n * (12 + 32 * 4), table))
         self.set_bound("K3", scan_bound([(n, SHADOW_ROWS)], n * n_tris, n * 4, table))
+        self.log_exact_share("K1", b0["feats"], None, g16, None, live)
+        self.log_exact_share("K2", b1["feats"], b1["pending"], g16, None, live)
+        self.log_exact_share("K3", None, sh, g16, None, live)
         st_out, nf, sf = SK.shade_bounce(*shade_args, **kw)
         self.set_bound("K4", shade_bound(cfg, b1["st"], nf, sf, b1["occ"],
                                          self.scene.has_glass, self.n_alias))
         self.bounces = None  # free the traced group
         self.torch.cuda.empty_cache()
+
+    def log_exact_share(self, key, f, s, g16, aabbs, live):
+        """The share of pairs and of warp iterations that the skip test
+        (`FI.skip_scan`, the kernels' `pair_skip` in torch) sends to the
+        exact epilogue, on the first CHECK_LANES lanes of the operands."""
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        def cut(x):
+            return None if x is None else x[:, :CHECK_LANES].contiguous()
+
+        stats = FI.skip_scan(cut(f), cut(s), g16, aabbs, live)[3].tolist()
+        for (pairs, exact, warps, warps_exact), name in zip(stats, ("nearest", "any-hit")):
+            if pairs:
+                log(f"{key} {name} set on {CHECK_LANES} lanes: {exact / pairs:.4%} of {pairs} "
+                    f"pairs and {warps_exact / warps:.4%} of {warps} warp iterations take the "
+                    f"exact epilogue")
 
     # ---- phase 4 -------------------------------------------------------------------------
 
@@ -1310,12 +1334,12 @@ class Smoke:
     def _grid_call(self, key, f, s, visits=None):
         from rustic_tpu_torch.ops import flash_intersect as FI
 
-        g16, aabbs = self.bt_scene.tri_feats16, self.bt_scene.tile_aabbs
+        g16, aabbs, live = self.bt_scene.tri_feats16, self.bt_scene.tile_aabbs, self.bt_scene.n_tris
         if key == "K9":
-            return FI.nearest_grid(f, g16, aabbs, visits=visits)
+            return FI.nearest_grid(f, g16, aabbs, visits=visits, n_live=live)
         if key == "K10":
-            return FI.nearest_shadow_grid(f, s, g16, aabbs, visits=visits)
-        return (FI.occlude_grid(s, g16, aabbs, visits=visits),)
+            return FI.nearest_shadow_grid(f, s, g16, aabbs, visits=visits, n_live=live)
+        return (FI.occlude_grid(s, g16, aabbs, visits=visits, n_live=live),)
 
     def _list_call(self, key, f, s):
         from rustic_tpu_torch.ops import flash_intersect as FI
@@ -1341,8 +1365,8 @@ class Smoke:
             nb = -(-rays.shape[1] // FI.BT_MULTI)
             visits = torch.zeros(nb, dtype=torch.int32, device=self.dev)
             out_k = self._grid_call(key, f, s, visits)
-            t_p, i_p, o_p, vis_p, _ = FI._grid_scan(f, s, self.bt_scene.tri_feats16,
-                                                     self.bt_scene.tile_aabbs)
+            t_p, i_p, o_p, vis_p = FI._grid_scan(f, s, self.bt_scene.tri_feats16,
+                                                  self.bt_scene.tile_aabbs)[:4]
             out_p = {"K9": (t_p, i_p), "K10": (t_p, i_p, o_p), "K11": (o_p,)}[key]
             out_l = self._list_call(key, f, s)
             flags = {"K9": (False,), "K10": (False, True), "K11": (True,)}[key]
@@ -1399,8 +1423,15 @@ class Smoke:
                      "K11": lambda s=s: FI.occlude_grid_plain(s, g16, aabbs)}[key]
             self.time_pair(key, lambda key=key, f=f, s=s: self._grid_call(key, f, s), plain,
                            BT_LANES, reps=3)
-            per_set = FI._grid_scan(f, s, g16, aabbs)[4].double()
+            per_set, warp_tiles = (x.double() for x in FI._grid_scan(f, s, g16, aabbs)[4:6])
             pairs = float((per_set @ tile_tris).sum())
+            for k, name in enumerate(("nearest", "any-hit")):
+                if warp_tiles[k].sum() > 0:  # a loop of one thread a ray
+                    log(f"{key} {name} set, one thread a ray: {float(per_set[k].sum()):.0f} "
+                        f"admitted (ray, tile) lanes over 32 x {float(warp_tiles[k].sum()):.0f} "
+                        f"warp-tiles with one: lane utilisation "
+                        f"{float(per_set[k].sum() / (32 * warp_tiles[k].sum())):.4f}")
+            self.log_exact_share(key, f, s, g16, aabbs, scene.n_tris)
             rows = [(BT_LANES, r) for r, x in ((RAY_ROWS, f), (SHADOW_ROWS, s)) if x is not None]
             out = {"K9": 8, "K10": 12, "K11": 4}[key] * BT_LANES
             self.set_bound(key, scan_bound(rows, pairs, out, table))
@@ -1573,23 +1604,23 @@ class Smoke:
         from rustic_tpu_torch.ops import flash_intersect as FI
 
         self.main_path_inputs()
-        g16, attrs = self.scene.tri_feats16, self.scene.tri_attrs
+        g16, attrs, live = self.scene.tri_feats16, self.scene.tri_attrs, self.scene.n_tris
         b0, b1 = self.bounces[0], self.bounces[1]
         for n in (CHECK_LANES, CHECK_LANES + RAGGED, MAIN_LANES):
             f0 = b0["feats"][:, :n].contiguous()
             f1 = b1["feats"][:, :n].contiguous()
             s1 = b1["pending"][:, :n].contiguous()
-            t_k, i_k = FI.nearest(f0, g16)
+            t_k, i_k = FI.nearest(f0, g16, live)
             frac, e12, _ = self._cmp_winner("K12", t_k, i_k, *FI.nearest_plain(f0, g16))
-            t_1, i_1, _ = FI.nearest_attrs(f0, g16, attrs)
+            t_1, i_1, _ = FI.nearest_attrs(f0, g16, attrs, live)
             if not (torch.equal(t_k, t_1) and torch.equal(i_k, i_1)):
                 self.fail(f"K12 n={n}: (t, idx) differ from K1's")
             log(f"K12 n={n}: idx agree {frac:.6f}, max |dt| {e12:.3g}; bit-equal to K1")
-            t_k, i_k, o_k = FI.nearest_shadow(f1, s1, g16)
+            t_k, i_k, o_k = FI.nearest_shadow(f1, s1, g16, live)
             t_p, i_p, o_p = FI.nearest_shadow_plain(f1, s1, g16)
             frac, e13, _ = self._cmp_winner("K13", t_k, i_k, t_p, i_p)
             occ_agree, _ = self._cmp_occ("K13", o_k, o_p)
-            t_2, i_2, o_2, _ = FI.nearest_shadow_attrs(f1, s1, g16, attrs)
+            t_2, i_2, o_2, _ = FI.nearest_shadow_attrs(f1, s1, g16, attrs, live)
             if not (torch.equal(t_k, t_2) and torch.equal(i_k, i_2) and torch.equal(o_k, o_2)):
                 self.fail(f"K13 n={n}: (t, idx, occ) differ from K2's")
             log(f"K13 n={n}: idx agree {frac:.6f}, occ agree {occ_agree:.6f}, occluded "
@@ -1598,14 +1629,14 @@ class Smoke:
         self.results["K12"]["max_abs_err"] = e12  # at the main path's shape
         self.results["K13"]["max_abs_err"] = e13
         f0, f1, s1 = b0["feats"], b1["feats"], b1["pending"]
-        self.time_pair("K12", lambda: FI.nearest(f0, g16), lambda: FI.nearest_plain(f0, g16),
+        self.time_pair("K12", lambda: FI.nearest(f0, g16, live), lambda: FI.nearest_plain(f0, g16),
                        MAIN_LANES)
-        self.time_pair("K13", lambda: FI.nearest_shadow(f1, s1, g16),
+        self.time_pair("K13", lambda: FI.nearest_shadow(f1, s1, g16, live),
                        lambda: FI.nearest_shadow_plain(f1, s1, g16), MAIN_LANES)
-        self.time_turns(f"at {MAIN_LANES} lanes", "K12", lambda: FI.nearest(f0, g16),
-                        "K1", lambda: FI.nearest_attrs(f0, g16, attrs))
-        self.time_turns(f"at {MAIN_LANES} lanes", "K13", lambda: FI.nearest_shadow(f1, s1, g16),
-                        "K2", lambda: FI.nearest_shadow_attrs(f1, s1, g16, attrs))
+        self.time_turns(f"at {MAIN_LANES} lanes", "K12", lambda: FI.nearest(f0, g16, live),
+                        "K1", lambda: FI.nearest_attrs(f0, g16, attrs, live))
+        self.time_turns(f"at {MAIN_LANES} lanes", "K13", lambda: FI.nearest_shadow(f1, s1, g16, live),
+                        "K2", lambda: FI.nearest_shadow_attrs(f1, s1, g16, attrs, live))
         n, n_tris = MAIN_LANES, self.scene.n_tris
         table = g16.shape[1] * RAY_ROWS * 4
         self.set_bound("K12", scan_bound([(n, RAY_ROWS)], n * n_tris, n * 8, table))
@@ -1775,12 +1806,12 @@ class Smoke:
     def _grid_on(self, key, scene, f, s):
         from rustic_tpu_torch.ops import flash_intersect as FI
 
-        g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+        g16, aabbs, live = scene.tri_feats16, scene.tile_aabbs, scene.n_tris
         if key == "K14":
-            return FI.nearest_grid(f, g16, aabbs)
+            return FI.nearest_grid(f, g16, aabbs, n_live=live)
         if key == "K15":
-            return FI.nearest_shadow_grid(f, s, g16, aabbs)
-        return (FI.occlude_grid(s, g16, aabbs),)
+            return FI.nearest_shadow_grid(f, s, g16, aabbs, n_live=live)
+        return (FI.occlude_grid(s, g16, aabbs, n_live=live),)
 
     def _resident_cases(self, bounces, lanes: slice):
         """Operands of K14-K16 on `lanes` of a group traced through the
@@ -1805,7 +1836,7 @@ class Smoke:
         for key, (f, s) in cases.items():
             out_k = self._resident_call(key, scene, f, s)
             t_p, i_p, o_p, _, per_set[key] = FI._grid_scan(f, s, scene.tri_feats16,
-                                                           scene.tile_aabbs)
+                                                           scene.tile_aabbs)[:5]
             out_p = {"K14": (t_p, i_p), "K15": (t_p, i_p, o_p), "K16": (o_p,)}[key]
             out_g = self._grid_on(key, scene, f, s)
             msg = []
@@ -2040,13 +2071,13 @@ class Smoke:
 
         self.main_path_inputs()
         scene, cfg = self.scene, self.config.static_part()
-        g16, attrs = scene.tri_feats16, scene.tri_attrs
+        g16, attrs, live = scene.tri_feats16, scene.tri_attrs, scene.n_tris
 
         def scan_1tile(feats, pending):
             if pending is None:
-                t, i, rows = FI.nearest_attrs(feats, g16, attrs)
+                t, i, rows = FI.nearest_attrs(feats, g16, attrs, live)
                 return t, i, None, rows
-            return FI.nearest_shadow_attrs(feats, pending, g16, attrs)
+            return FI.nearest_shadow_attrs(feats, pending, g16, attrs, live)
 
         worst = 0.0
         for n in (CHECK_LANES + RAGGED, MAIN_LANES):
@@ -2100,7 +2131,7 @@ class Smoke:
         from rustic_tpu_torch.ops import shade_kernel as SK
 
         scene, cfg = self.scene, self.config.static_part()
-        g16, attrs = scene.tri_feats16, scene.tri_attrs
+        g16, attrs, live = scene.tri_feats16, scene.tri_attrs, scene.n_tris
         b1 = self.bounces[1]
         kw = dict(has_glass=scene.has_glass, n_alias=self.n_alias)
         args = (cfg, 1, self.params, scene.entry_rows, b1["st"], b1["feats"], b1["pending"], g16,
@@ -2110,7 +2141,7 @@ class Smoke:
             return FB.fused_bounce(*args, **kw)
 
         def two_launches():
-            t, i, occ, rows = FI.nearest_shadow_attrs(b1["feats"], b1["pending"], g16, attrs)
+            t, i, occ, rows = FI.nearest_shadow_attrs(b1["feats"], b1["pending"], g16, attrs, live)
             return SK.shade_bounce(cfg, 1, self.params, scene.entry_rows, b1["st"], b1["feats"],
                                    t, i, rows, occ, self.sidx, self.off, **kw)
 

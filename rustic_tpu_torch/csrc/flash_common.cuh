@@ -70,6 +70,84 @@ __device__ __forceinline__ void pair_epilogue(const float4 acc, float& t, bool& 
   valid = good && u >= 0.0f && u <= 1.0f && v >= 0.0f && u_plus_v <= 1.0f && t > EPS;
 }
 
+// ---- the skip test: divide only for a pair that may win -----------------
+//
+// From a pair's numerators (Nd, Nu, Nv, Nt) take the sign of Nd out: D =
+// |Nd|, a, b, c = Nu, Nv, Nt with that sign flipped away (exact). The exact
+// epilogue's u, v, t are a/D, b/D, c/D within three roundings (2^-22
+// relative, also where 1/D is subnormal), so with a margin of DELTA =
+// 2^-20 each test below proves that the exact epilogue would not take the
+// pair:
+//   D < DET_EPS                      the determinant test fails (exact);
+//   a or b < -D 2^-100               u or v is a negative normal number;
+//   a + b > D (1 + DELTA)            u + v rounds above 1;
+//   c <= D EPS (1 - DELTA)           t rounds to at most EPS;
+//   c > D lim                        t is above lim / (1 + DELTA).
+// `lim` is rn(limit (1 + DELTA)) (`skip_limit`): for the nearest set the
+// ray's running best t, so a skipped pair is not strictly closer; for the
+// any-hit set its max t, so a skipped pair is not within it (the strict >
+// keeps t = inf against max t = inf). Every test fails on NaN, so a NaN
+// anywhere leaves the pair to the exact epilogue, as does anything near a
+// boundary. The roundings are written
+// out, so -fmad=false changes nothing.
+constexpr float SKIP_DELTA = 0x1p-20f;
+
+__device__ __forceinline__ float skip_limit(float limit) {
+  return __fmul_rn(limit, 1.0f + SKIP_DELTA);
+}
+
+__device__ __forceinline__ bool pair_skip(const float4 acc, float lim) {
+  const unsigned s = __float_as_uint(acc.x) & 0x80000000u;
+  const float d = fabsf(acc.x);
+  const float a = __uint_as_float(__float_as_uint(acc.y) ^ s);
+  const float b = __uint_as_float(__float_as_uint(acc.z) ^ s);
+  const float c = __uint_as_float(__float_as_uint(acc.w) ^ s);
+  const float tiny = -__fmul_rn(d, 0x1p-100f);
+  return d < DET_EPS || a < tiny || b < tiny ||
+         __fadd_rn(a, b) > __fmul_rn(d, 1.0f + SKIP_DELTA) ||
+         c <= __fmul_rn(d, EPS * (1.0f - SKIP_DELTA)) || c > __fmul_rn(d, lim);
+}
+
+// The nearest set's winner as one 64-bit key, t's bits above the global
+// index: for t >= 0 (every valid t, and the miss BIG) the smaller key is
+// the smaller t, then the first index, so a min over keys in any order
+// equals the strict-< scan in triangle order.
+__device__ __forceinline__ unsigned long long win_key(float t, int idx) {
+  return ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)idx;
+}
+__device__ __forceinline__ float win_t(unsigned long long k) {
+  return __uint_as_float((unsigned)(k >> 32));
+}
+
+// ---- the packed triangle table ---------------------------------------------
+//
+// K1-K3, K12-K13 and K9-K11 read the table packed once a scene
+// (ops/flash_intersect.py `packed_table`) in shared-memory order:
+// pg[(tile * NROWS + row) * TT + triangle] = float4(det, u, v, t). A tile's
+// live columns of one row are then contiguous, and a block stages them
+// with 16-byte cp.async copies that bypass the registers.
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Issue the copy of triangles [c0, c0 + n) of packed tile `tile` into
+// sg[row * stride + j] (j < n); every thread of the block takes part.
+__device__ __forceinline__ void stage_packed(float4* sg, int stride,
+                                             const float4* __restrict__ pg, int TT, int tile,
+                                             int c0, int n) {
+  for (int e = threadIdx.x; e < NROWS * n; e += blockDim.x) {
+    const int r = e / n, j = e - r * n;
+    cp_async16(sg + r * stride + j, pg + ((size_t)tile * NROWS + r) * TT + c0 + j);
+  }
+}
+
 // One (ray, triangle) pair: triangle j of the staged chunk `sg`.
 __device__ __forceinline__ void pair_test(const float (&f)[NROWS], const float4* sg, int j,
                                           float& t, bool& valid) {

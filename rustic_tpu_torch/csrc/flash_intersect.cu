@@ -22,21 +22,30 @@
 // shading table into attrsT[:, ray]. These are the numerics of the JAX
 // package's "f32" plan (_epilogue, _tile_minarg, _tile_anyhit).
 //
-// What bounds them: about 55 flops per (ray, triangle) pair (40 FMA for the
-// four dots, one IEEE division, three multiplies, the compares). At the
-// main path's 3,686,400 lanes and 256 triangles that is ~52 GFLOP per scan,
-// so the scans are FP32 issue bound; a ray reads 40-80 B of features and
-// writes 8 B plus its 128 B attr row.
+// What bounds them: about 81 flops per (ray, triangle) pair (40 FMA for the
+// four dots and the epilogue). At the main path's 3,686,400 lanes and
+// DarkCornell's 184 triangles that is ~55 GFLOP per merged scan, so the
+// scans are FP32 issue bound; a ray reads 40-80 B of features and writes
+// 8 B plus its 128 B attr row.
 //
-// Design: one thread per ray, its feature values in registers. The block
-// stages the 10 used rows of G into shared memory 128 triangles at a time
-// (20 KB) as one float4 (det, u, v, t numerators) per (row, triangle), and
-// every thread of the block reads the same float4 (a broadcast, no bank
-// conflict), so each pair costs 10 shared loads for 40 FMA. What the TPU
-// kernels needed and Hopper does not is not carried over: the MXU dot
-// plans and top-2 carry, the [R,128] lane tiling, and the bf16 hi/mid/lo
-// attr split read by a one-hot matmul (here a direct row read of the f32
-// table, which stays in L1/L2: 32 KB at 256 triangles).
+// Design. The table's padding columns are all zero and never valid, so a
+// scan walks the `n_live` live triangles only (the scene's triangle count;
+// the whole tile width when the caller does not give it). A block stages
+// those columns of the ten used G rows once, from the table packed in
+// shared-memory order (`stage_packed`, 16-byte cp.async copies), into
+// 10 x n_live float4 (29 KB at 184 triangles), and then walks ray blocks
+// as a persistent block, two rays a thread, so each broadcast float4 of G
+// feeds the FMAs of both rays (and of both ray sets in the merged scan).
+// Most pairs never divide: `pair_skip` proves from the numerators alone
+// that the exact epilogue would reject the pair or that its t is not
+// below the ray's running best (or within its max t); only the rest take
+// the exact division, so the result is the exact scan's bit for bit. The
+// nearest fold starts from t = inf as the first column of the exact scan
+// does, and skips nothing while its best is above BIG. What the TPU kernels
+// needed and Hopper does not is not carried over: the MXU dot plans and
+// top-2 carry, the [R,128] lane tiling, and the bf16 hi/mid/lo attr split
+// read by a one-hot matmul (here a direct row read of the f32 table,
+// which stays in L1/L2).
 
 #include "flash_common.cuh"
 
@@ -44,102 +53,162 @@ namespace {
 
 using namespace flash;
 
-constexpr int THREADS = 128;  // rays per block
+constexpr int THREADS = 128;
+constexpr int RPT = 2;  // rays a thread
+constexpr int RAYS = THREADS * RPT;  // rays a block takes at a time
+constexpr int MAX_TT = 512;
 
 template <bool NEAR, bool ANY, bool ATTRS>
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
-            const float* __restrict__ g, const float* __restrict__ attrs,
+            const float4* __restrict__ pg, const float* __restrict__ attrs,
             float* __restrict__ t_out, int* __restrict__ idx_out,
             int* __restrict__ occ_out, float* __restrict__ attrs_out,
-            int B, int TT, int W) {
-  __shared__ float4 sg[NROWS * CHUNK];  // [row][triangle] -> (det, u, v, t)
+            int B, int TT, int W, int L) {
+  extern __shared__ float4 sg[];  // [row][live triangle] -> (det, u, v, t)
+  stage_packed(sg, L, pg, TT, 0, 0, L);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const int ray = blockIdx.x * THREADS + threadIdx.x;
-  const bool active = ray < B;
-  float f[NROWS], s[NROWS];
-  load_rows(feats, B, ray, NEAR && active, f);
-  load_rows(sh, B, ray, ANY && active, s);
-  const float maxt = (ANY && active) ? sh[(size_t)MAXT_ROW * B + ray] : 0.0f;
-
-  float best_t = INFINITY;
-  int best_i = 0;
-  bool occ = false;
-  for (int c0 = 0; c0 < TT; c0 += CHUNK) {
-    const int n = min(CHUNK, TT - c0);
-    __syncthreads();  // the previous chunk is consumed
-    stage_chunk(sg, g, (size_t)4 * TT, 0, TT, c0, n);
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll 2
-    for (int j = 0; j < n; ++j) {
-      if (NEAR) {
-        float t;
-        bool valid;
-        pair_test(f, sg, j, t, valid);
-        const float tm = valid ? t : BIG;
-        if (tm < best_t) {
-          best_t = tm;
-          best_i = c0 + j;
+  const int n_blocks = (B + RAYS - 1) / RAYS;
+  for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
+    int ray[RPT];
+    bool active[RPT];
+    float f[RPT][NROWS], s[RPT][NROWS];
+    float maxt[RPT], lim_s[RPT], best_t[RPT], lim_n[RPT];
+    int best_i[RPT];
+    bool occ[RPT];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      ray[k] = rb * RAYS + k * THREADS + threadIdx.x;
+      active[k] = ray[k] < B;
+      load_rows(feats, B, ray[k], NEAR && active[k], f[k]);
+      load_rows(sh, B, ray[k], ANY && active[k], s[k]);
+      maxt[k] = (ANY && active[k]) ? sh[(size_t)MAXT_ROW * B + ray[k]] : 0.0f;
+      lim_s[k] = skip_limit(maxt[k]);
+      best_t[k] = INFINITY;  // the exact scan's first column always lands
+      lim_n[k] = INFINITY;
+      best_i[k] = 0;
+      occ[k] = !(ANY && active[k]);  // nothing to test
+    }
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      float4 g[NROWS];
+#pragma unroll
+      for (int r = 0; r < NROWS; ++r) g[r] = sg[r * L + j];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        if (NEAR) {
+          float4 acc;
+#pragma unroll
+          for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, f[k][r], g[r], r == 0);
+          if (!(best_t[k] <= BIG) || !pair_skip(acc, lim_n[k])) {
+            float t;
+            bool valid;
+            pair_epilogue(acc, t, valid);
+            const float tm = valid ? t : BIG;
+            if (tm < best_t[k]) {
+              best_t[k] = tm;
+              best_i[k] = j;
+              lim_n[k] = skip_limit(tm);
+            }
+          }
+        }
+        if (ANY && !occ[k]) {
+          float4 acc;
+#pragma unroll
+          for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, s[k][r], g[r], r == 0);
+          if (!pair_skip(acc, lim_s[k])) {
+            float t;
+            bool valid;
+            pair_epilogue(acc, t, valid);
+            occ[k] = valid && t <= maxt[k];
+          }
         }
       }
-      if (ANY && !occ) {
-        float t;
-        bool valid;
-        pair_test(s, sg, j, t, valid);
-        occ = valid && t <= maxt;
+    }
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      if (!active[k]) continue;
+      if (NEAR) {
+        t_out[ray[k]] = best_t[k];
+        idx_out[ray[k]] = best_i[k];
+        if (ATTRS) {
+          const float* row = attrs + (size_t)best_i[k] * W;
+          for (int w = 0; w < W; ++w) attrs_out[(size_t)w * B + ray[k]] = row[w];
+        }
       }
+      if (ANY) occ_out[ray[k]] = occ[k] ? 1 : 0;
     }
   }
-  if (!active) return;
-  if (NEAR) {
-    t_out[ray] = best_t;
-    idx_out[ray] = best_i;
-    if (ATTRS) {
-      const float* row = attrs + (size_t)best_i * W;
-      for (int w = 0; w < W; ++w) attrs_out[(size_t)w * B + ray] = row[w];
-    }
-  }
-  if (ANY) occ_out[ray] = occ ? 1 : 0;
 }
 
-inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
+// Launch one scan: a persistent grid of as many blocks as the device runs
+// at once (or fewer, one per ray block), each staging the live columns.
+template <bool NEAR, bool ANY, bool ATTRS>
+int launch_scan(const float* feats, const float* sh, const float* pg, const float* attrs,
+                float* t, int* idx, int* occ, float* attrs_t, int B, int TT, int W, int L,
+                void* stream) {
+  if (L < 1 || L > TT || TT > MAX_TT) return (int)cudaErrorInvalidValue;
+  auto kernel = scan_kernel<NEAR, ANY, ATTRS>;
+  const size_t smem = (size_t)NROWS * L * sizeof(float4);
+  static int sms = 0;  // per template, set at the first launch with the shared-memory opt-in
+  if (sms == 0) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(NROWS * MAX_TT * sizeof(float4)));
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_blocks = (B + RAYS - 1) / RAYS;
+  const int grid = per_sm * sms < n_blocks ? per_sm * sms : n_blocks;
+  scan_kernel<NEAR, ANY, ATTRS><<<grid > 0 ? grid : 1, THREADS, smem, (cudaStream_t)stream>>>(
+      feats, sh, reinterpret_cast<const float4*>(pg), attrs, t, idx, occ, attrs_t, B, TT, W, L);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
-extern "C" int rt_nearest_attrs(const float* feats, const float* g, const float* attrs,
+// The entry points' layout (pointers, then ints, then the stream); the
+// table argument is the packed table of ops/flash_intersect.py
+// `packed_table`, and `n_live` the live triangles of the tile.
+extern "C" int rt_scan_abi() { return 2; }
+
+extern "C" int rt_nearest_attrs(const float* feats, const float* pg, const float* attrs,
                                 float* t, int* idx, float* attrs_t,
-                                int B, int TT, int W, void* stream) {
-  scan_kernel<true, false, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
-      feats, nullptr, g, attrs, t, idx, nullptr, attrs_t, B, TT, W);
-  return (int)cudaGetLastError();
+                                int B, int TT, int W, int n_live, void* stream) {
+  return launch_scan<true, false, true>(feats, nullptr, pg, attrs, t, idx, nullptr, attrs_t, B,
+                                        TT, W, n_live, stream);
 }
 
-extern "C" int rt_nearest_shadow_attrs(const float* feats, const float* sh, const float* g,
+extern "C" int rt_nearest_shadow_attrs(const float* feats, const float* sh, const float* pg,
                                        const float* attrs, float* t, int* idx, int* occ,
-                                       float* attrs_t, int B, int TT, int W, void* stream) {
-  scan_kernel<true, true, true><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
-      feats, sh, g, attrs, t, idx, occ, attrs_t, B, TT, W);
-  return (int)cudaGetLastError();
+                                       float* attrs_t, int B, int TT, int W, int n_live,
+                                       void* stream) {
+  return launch_scan<true, true, true>(feats, sh, pg, attrs, t, idx, occ, attrs_t, B, TT, W,
+                                       n_live, stream);
 }
 
-extern "C" int rt_occlude(const float* sh, const float* g, int* occ, int B, int TT,
+extern "C" int rt_occlude(const float* sh, const float* pg, int* occ, int B, int TT, int n_live,
                           void* stream) {
-  scan_kernel<false, true, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
-      nullptr, sh, g, nullptr, nullptr, nullptr, occ, nullptr, B, TT, 0);
-  return (int)cudaGetLastError();
+  return launch_scan<false, true, false>(nullptr, sh, pg, nullptr, nullptr, nullptr, occ, nullptr,
+                                         B, TT, 0, n_live, stream);
 }
 
-extern "C" int rt_nearest(const float* feats, const float* g, float* t, int* idx, int B, int TT,
-                          void* stream) {
-  scan_kernel<true, false, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
-      feats, nullptr, g, nullptr, t, idx, nullptr, nullptr, B, TT, 0);
-  return (int)cudaGetLastError();
+extern "C" int rt_nearest(const float* feats, const float* pg, float* t, int* idx, int B, int TT,
+                          int n_live, void* stream) {
+  return launch_scan<true, false, false>(feats, nullptr, pg, nullptr, t, idx, nullptr, nullptr, B,
+                                         TT, 0, n_live, stream);
 }
 
-extern "C" int rt_nearest_shadow(const float* feats, const float* sh, const float* g, float* t,
-                                 int* idx, int* occ, int B, int TT, void* stream) {
-  scan_kernel<true, true, false><<<grid_for(B), THREADS, 0, (cudaStream_t)stream>>>(
-      feats, sh, g, nullptr, t, idx, occ, nullptr, B, TT, 0);
-  return (int)cudaGetLastError();
+extern "C" int rt_nearest_shadow(const float* feats, const float* sh, const float* pg, float* t,
+                                 int* idx, int* occ, int B, int TT, int n_live, void* stream) {
+  return launch_scan<true, true, false>(feats, sh, pg, nullptr, t, idx, occ, nullptr, B, TT, 0,
+                                        n_live, stream);
 }

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -80,7 +81,7 @@ def compile_source(src: str, extra_flags=()) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"  # builds may race in threads
     cmd = [_nvcc(), *flags, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(out[: -len(".so")] + ".log", "w") as f:

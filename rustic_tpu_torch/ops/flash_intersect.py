@@ -51,7 +51,12 @@ fit is refused.
 Each wrapper runs the plain PyTorch version for CPU tensors and the
 CUDA kernel (csrc/flash_intersect.cu, csrc/flash_multi.cu,
 csrc/flash_resident.cu) for CUDA tensors; it counts its kernel launches
-in LAUNCHES.
+in LAUNCHES. The one-tile and grid-form wrappers take `n_live`, the
+scene's live triangles (`SceneTensors.n_tris`; None: the whole table):
+their kernels walk only those columns, which they read from a copy of
+the table packed once (`packed_table`). Those kernels divide only for
+the pairs that `pair_skip` cannot prove irrelevant; `skip_scan` is their
+scan rebuilt in torch from it, bit for bit the plain versions' result.
 """
 
 from __future__ import annotations
@@ -121,17 +126,27 @@ def _chunks(b: int, tt: int):
         yield lo, min(lo + step, b)
 
 
-def _epilogue(f_t: torch.Tensor, g16: torch.Tensor, tt: int):
-    """[16, c] ray rows -> (t, valid) [c, TT] (flash_intersect._epilogue)."""
-    raw = f_t.T @ g16
-    det = raw[:, 0 * tt : 1 * tt]
+def _exact(det, u_num, v_num, t_num):
+    """The exact epilogue on a pair's numerators -> (t, valid)."""
     good = det.abs() >= DET_EPS
     inv = torch.where(good, torch.reciprocal(torch.where(good, det, 1.0)), 0.0)
-    u = raw[:, 1 * tt : 2 * tt] * inv
-    v = raw[:, 2 * tt : 3 * tt] * inv
-    t = raw[:, 3 * tt : 4 * tt] * inv
+    u = u_num * inv
+    v = v_num * inv
+    t = t_num * inv
     valid = good & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
     return t, valid
+
+
+def _numerators(raw, tt: int, lo: int = 0, hi: Optional[int] = None):
+    """Columns [lo, hi) of the det, u, v and t blocks of a [c, 4·TT]
+    product of ray rows with one tile."""
+    hi = tt if hi is None else hi
+    return tuple(raw[:, q * tt + lo : q * tt + hi] for q in range(4))
+
+
+def _epilogue(f_t: torch.Tensor, g16: torch.Tensor, tt: int):
+    """[16, c] ray rows -> (t, valid) [c, TT] (flash_intersect._epilogue)."""
+    return _exact(*_numerators(f_t.T @ g16, tt))
 
 
 def _nearest_chunk(f_t, g16, tt):
@@ -376,12 +391,13 @@ def _slab_ok(tmin, tmax, limit):
 def _grid_scan(feats_t, sh_t, g16, tile_aabbs):
     """The grid form over the nearest set `feats_t` and/or the any-hit set
     `sh_t` (either may be None) -> (t, idx, occ, visits [nb] i32,
-    tested [2, NT] i64). Per chunk of rays, tiles in ascending order: a
-    ray tests tile j where its slab test passes (limit: its running best
-    t, or its max t while not yet occluded), the nearest fold keeps a
-    strict <, and a block visits tile j when any of its rays tests it.
-    tested[s, j]: the rays of set s (0 nearest, 1 any-hit) that tested
-    tile j."""
+    tested [2, NT] i64, warp_tiles [2, NT] i64). Per chunk of rays, tiles
+    in ascending order: a ray tests tile j where its slab test passes
+    (limit: its running best t, or its max t while not yet occluded), the
+    nearest fold keeps a strict <, and a block visits tile j when any of
+    its rays tests it. tested[s, j]: the rays of set s (0 nearest, 1
+    any-hit) that tested tile j; warp_tiles[s, j]: the warps (32
+    consecutive rays) in which some ray of set s tested tile j."""
     rays = feats_t if feats_t is not None else sh_t
     b = rays.shape[1]
     dev = rays.device
@@ -389,8 +405,7 @@ def _grid_scan(feats_t, sh_t, g16, tile_aabbs):
     t = torch.full((b,), BIG, dtype=torch.float32, device=dev)
     idx = torch.zeros(b, dtype=torch.int32, device=dev)
     occ = torch.zeros(b, dtype=torch.int32, device=dev)
-    tested = torch.zeros((nt, b), dtype=torch.bool, device=dev)
-    per_set = torch.zeros((2, nt), dtype=torch.int64, device=dev)
+    tested = torch.zeros((2, nt, b), dtype=torch.bool, device=dev)  # [set, tile, ray]
     for lo, hi in _chunks(b, tt):
         f = feats_t[:, lo:hi] if feats_t is not None else None
         s = sh_t[:, lo:hi] if sh_t is not None else None
@@ -401,7 +416,7 @@ def _grid_scan(feats_t, sh_t, g16, tile_aabbs):
             s_min, s_max = _slab_spans(s, tile_aabbs)
             maxt = s[SH_MAXT_COL]
         for j, gj in _tiles(g16, tt, nt):
-            near_ok = any_ok = torch.zeros_like(tested[j, lo:hi])
+            near_ok = any_ok = torch.zeros_like(tested[0, j, lo:hi])
             if f is not None:
                 near_ok = _slab_ok(n_min[:, j], n_max[:, j], t_c)
                 tile_min, tile_arg = _nearest_chunk(f, gj, tt)
@@ -411,14 +426,14 @@ def _grid_scan(feats_t, sh_t, g16, tile_aabbs):
             if s is not None:
                 any_ok = (o_c == 0) & _slab_ok(s_min[:, j], s_max[:, j], maxt)
                 o_c = o_c | (_anyhit_chunk(s, gj, tt) & any_ok.to(torch.int32))
-            tested[j, lo:hi] = near_ok | any_ok
-            per_set[0, j] += near_ok.sum()
-            per_set[1, j] += any_ok.sum()
+            tested[0, j, lo:hi], tested[1, j, lo:hi] = near_ok, any_ok
         t[lo:hi], idx[lo:hi], occ[lo:hi] = t_c, i_c, o_c
     nb = -(-b // BT_MULTI)
     tested = torch.nn.functional.pad(tested, (0, nb * BT_MULTI - b))
-    visits = tested.reshape(nt, nb, BT_MULTI).any(dim=2).sum(dim=0, dtype=torch.int32)
-    return t, idx, occ, visits, per_set
+    visits = tested.any(dim=0).reshape(nt, nb, BT_MULTI).any(dim=2).sum(dim=0, dtype=torch.int32)
+    per_set = tested.sum(dim=2)
+    warp_tiles = tested.reshape(2, nt, -1, 32).any(dim=3).sum(dim=2)
+    return t, idx, occ, visits, per_set, warp_tiles
 
 
 def nearest_grid_plain(feats_t, g16, tile_aabbs):
@@ -435,6 +450,143 @@ def nearest_shadow_grid_plain(feats_t, sh_t, g16, tile_aabbs):
 def occlude_grid_plain(sh_t, g16, tile_aabbs):
     """[16, B] shadow rows -> occ [B] i32, the grid form."""
     return _grid_scan(None, sh_t, g16, tile_aabbs)[2]
+
+
+# ---- the skip test (twin of csrc/flash_common.cuh pair_skip) --------------
+
+SKIP_DELTA = 2.0**-20
+_SIGN = -(2**31)  # the sign bit of an int32 view of a float32
+_NO_KEY = torch.iinfo(torch.int64).max
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def skip_limit(limit: torch.Tensor) -> torch.Tensor:
+    """rn(limit (1 + 2^-20)), in float32 as the kernels round it."""
+    return limit * _f32(1.0 + SKIP_DELTA).to(limit.device)
+
+
+def pair_skip(det, u_num, v_num, t_num, lim) -> torch.Tensor:
+    """True where a pair's numerators prove that the exact epilogue rejects
+    it, or that its t is above lim / (1 + 2^-20) (`lim` from
+    `skip_limit` of the running best t, or of the max t): the scans then
+    skip its division. Float32 with the kernels' roundings; NaN and inf
+    never skip."""
+    dev = det.device
+    sign = det.view(torch.int32) & _SIGN
+    d = det.abs()
+    a, b, c = ((x.view(torch.int32) ^ sign).view(torch.float32) for x in (u_num, v_num, t_num))
+    tiny = -(d * _f32(2.0**-100).to(dev))
+    eps_lo = _f32(EPS).to(dev) * _f32(1.0 - SKIP_DELTA).to(dev)
+    return ((d < DET_EPS) | (a < tiny) | (b < tiny)
+            | (a + b > d * _f32(1.0 + SKIP_DELTA).to(dev))
+            | (c <= d * eps_lo) | (c > d * lim))
+
+
+def win_key(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(t bits << 32) | idx as int64: for t >= 0 the smaller key is the
+    smaller t, then the first index (csrc/flash_common.cuh win_key)."""
+    return (t.view(torch.int32).to(torch.int64) << 32) | idx.to(torch.int64)
+
+
+def win_t(key: torch.Tensor) -> torch.Tensor:
+    return (key >> 32).to(torch.int32).view(torch.float32)
+
+
+def win_idx(key: torch.Tensor) -> torch.Tensor:
+    return (key & 0xFFFFFFFF).to(torch.int32)
+
+
+def live_count(n_live: Optional[int], width: int) -> int:
+    """The live triangles a scan walks: `n_live`, or the whole table
+    `width` for None; anything outside 1..width is refused."""
+    if n_live is None:
+        return width
+    if isinstance(n_live, bool) or not isinstance(n_live, int) or not 1 <= n_live <= width:
+        raise ValueError(f"n_live must be an int in 1..{width} (the table's width), got {n_live!r}")
+    return n_live
+
+
+def _warp_any(mask: torch.Tensor) -> torch.Tensor:
+    """[c, n] lanes x triangles -> [ceil(c / 32), n]: some lane of the warp."""
+    pad = (-mask.shape[0]) % 32
+    if pad:
+        mask = torch.nn.functional.pad(mask, (0, 0, 0, pad))
+    return mask.reshape(-1, 32, mask.shape[1]).any(dim=1)
+
+
+def skip_scan(feats_t, sh_t, g16, tile_aabbs=None, n_live=None, chunk: int = 32):
+    """The kernels' scans rebuilt from `pair_skip` and the exact epilogue,
+    on the plain versions' numerators: the nearest set `feats_t` and/or
+    the any-hit set `sh_t` (either may be None) over the first `n_live`
+    triangles, chunk by chunk with the running best t as the limit. One
+    tile (`tile_aabbs` None): K1-K3's fold from t = inf, no skip while the
+    best is above BIG. Many tiles: K9-K11's per-ray slab cull from (BIG,
+    0). -> (t, idx, occ, stats); stats [2 sets, 4] i64 = pairs tested,
+    pairs sent to the exact epilogue, warp iterations (32 consecutive rays
+    x one triangle) with a pair tested, and those with a pair sent to the
+    exact epilogue. Equal to the plain versions bit for bit where the skip
+    test is sound."""
+    rays = feats_t if feats_t is not None else sh_t
+    b, dev = rays.shape[1], rays.device
+    t_pad, tt, nt = geometry(g16)
+    live = live_count(n_live, t_pad)
+    grid = tile_aabbs is not None
+    if not grid and nt > 1:
+        raise NotImplementedError("a one-tile scan takes a one-tile table")
+    start = BIG if grid else float("inf")
+    key = win_key(torch.full((b,), start, dtype=torch.float32, device=dev),
+                  torch.zeros(b, dtype=torch.int32, device=dev))
+    occ = torch.zeros(b, dtype=torch.bool, device=dev)
+    stats = torch.zeros((2, 4), dtype=torch.int64, device=dev)
+    every = torch.ones(b, dtype=torch.bool, device=dev)
+    if grid and feats_t is not None:
+        n_min, n_max = _slab_spans(feats_t, tile_aabbs)
+    if sh_t is not None:
+        maxt = sh_t[SH_MAXT_COL]
+        lim_s = skip_limit(maxt)
+        if grid:
+            s_min, s_max = _slab_spans(sh_t, tile_aabbs)
+    for j, gj in _tiles(g16, tt, nt):
+        n_j = min(max(live - j * tt, 0), tt)
+        near_ok = _slab_ok(n_min[:, j], n_max[:, j], win_t(key)) if grid and feats_t is not None \
+            else every
+        any_ok = ~occ & (_slab_ok(s_min[:, j], s_max[:, j], maxt) if grid and sh_t is not None
+                         else every)
+        raw_f = feats_t.T @ gj if feats_t is not None else None
+        raw_s = sh_t.T @ gj if sh_t is not None else None
+        # one tile: the first column alone (the fold from inf takes it exactly)
+        first = 0 if grid else 1
+        spans = [(0, first)] if first else []
+        spans += [(c0, min(c0 + chunk, n_j)) for c0 in range(first, n_j, chunk)]
+        for c0, c1 in spans:
+            cols = torch.arange(j * tt + c0, j * tt + c1, dtype=torch.int32, device=dev)
+            if raw_f is not None:
+                num = _numerators(raw_f, tt, c0, c1)
+                best = win_t(key)
+                test = near_ok[:, None] & (~pair_skip(*num, skip_limit(best)[:, None])
+                                           | ~(best <= BIG)[:, None])
+                t, valid = _exact(*num)
+                cand = torch.where(test, win_key(torch.where(valid, t, BIG), cols), _NO_KEY)
+                key = torch.minimum(key, cand.amin(dim=1))
+                _count(stats[0], near_ok[:, None].expand_as(test), test)
+            if raw_s is not None:
+                num = _numerators(raw_s, tt, c0, c1)
+                ok = any_ok & ~occ  # rays still looking at the chunk's start
+                test = ok[:, None] & ~pair_skip(*num, lim_s[:, None])
+                t, valid = _exact(*num)
+                occ = occ | (test & valid & (t <= maxt[:, None])).any(dim=1)
+                _count(stats[1], ok[:, None].expand_as(test), test)
+    t = win_t(key) if feats_t is not None else None
+    idx = win_idx(key) if feats_t is not None else None
+    return t, idx, (occ.to(torch.int32) if sh_t is not None else None), stats
+
+
+def _count(row, tested, exact) -> None:
+    row += torch.stack([tested.sum(), exact.sum(), _warp_any(tested).sum(),
+                        _warp_any(exact).sum()])
 
 
 # ---- multi-tile, resident form: the table in a cluster's shared memory -----
@@ -539,11 +691,11 @@ def occlude_resident_plain(sh_t, g16, tile_aabbs):
 
 # entry point of csrc/flash_intersect.cu: (C name, pointer count, int count)
 _ENTRY = {
-    "nearest_attrs": ("rt_nearest_attrs", 6, 3),
-    "nearest_shadow_attrs": ("rt_nearest_shadow_attrs", 8, 3),
-    "occlude": ("rt_occlude", 3, 2),
-    "nearest": ("rt_nearest", 4, 2),
-    "nearest_shadow": ("rt_nearest_shadow", 6, 2),
+    "nearest_attrs": ("rt_nearest_attrs", 6, 4),
+    "nearest_shadow_attrs": ("rt_nearest_shadow_attrs", 8, 4),
+    "occlude": ("rt_occlude", 3, 3),
+    "nearest": ("rt_nearest", 4, 3),
+    "nearest_shadow": ("rt_nearest_shadow", 6, 3),
 }
 
 
@@ -552,10 +704,37 @@ _ENTRY_MULTI = {
     "nearest_multi": ("rt_nearest_multi", 6, 3),
     "nearest_shadow_multi": ("rt_nearest_shadow_multi", 8, 3),
     "occlude_multi": ("rt_occlude_multi", 5, 3),
-    "nearest_grid": ("rt_nearest_grid", 6, 3),
-    "nearest_shadow_grid": ("rt_nearest_shadow_grid", 8, 3),
-    "occlude_grid": ("rt_occlude_grid", 5, 3),
+    "nearest_grid": ("rt_nearest_grid", 6, 4),
+    "nearest_shadow_grid": ("rt_nearest_shadow_grid", 8, 4),
+    "occlude_grid": ("rt_occlude_grid", 5, 4),
 }
+
+# packed copies of triangle tables: (tensor, its version) -> packed table;
+# the entry holds the table, so its storage is not reused while cached
+_PACKED: dict = {}
+_PACKED_MAX = 8
+
+
+def pack_table(g16: torch.Tensor) -> torch.Tensor:
+    """[16, NT·4·TT] -> [NT, 10, TT, 4]: per tile, row and triangle one
+    float4 (det, u, v, t), the order in which K1-K3, K12-K13 and K9-K11
+    stage it (csrc/flash_common.cuh `stage_packed`): element (j, r, k, q)
+    is g16[r, j·4·TT + q·TT + k]."""
+    _, tt, nt = geometry(g16)
+    return g16[:10].reshape(10, nt, 4, tt).permute(1, 0, 3, 2).contiguous()
+
+
+def packed_table(g16: torch.Tensor) -> torch.Tensor:
+    """`pack_table(g16)`, packed once per table and cached: the wrappers
+    keep the JAX layout `tri_feats16` at their signatures and read this
+    copy."""
+    key = (g16.data_ptr(), g16._version, tuple(g16.shape), g16.device)
+    hit = _PACKED.get(key)
+    if hit is None:
+        if len(_PACKED) >= _PACKED_MAX:
+            _PACKED.pop(next(iter(_PACKED)))
+        hit = _PACKED[key] = (g16, pack_table(g16))
+    return hit[1]
 
 
 # entry points of csrc/flash_resident.cu
@@ -587,8 +766,10 @@ def _check_scene(feats_t, g16, attrs=None):
     return tt
 
 
-def nearest_attrs(feats_t, g16, attrs):
-    """K1 (replaces flash_nearest_attrs_t): -> (t, idx, attrsT)."""
+def nearest_attrs(feats_t, g16, attrs, n_live: Optional[int] = None):
+    """K1 (replaces flash_nearest_attrs_t): -> (t, idx, attrsT). `n_live`:
+    the live triangles (the scene's `n_tris`; None: the tile width)."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(feats_t):
         return nearest_attrs_plain(feats_t, g16, attrs)
     tt = _check_scene(feats_t, g16, attrs)
@@ -598,12 +779,14 @@ def nearest_attrs(feats_t, g16, attrs):
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     attrs_t = torch.empty((w, b), dtype=torch.float32, device=dev)
     if b:
-        _launch("nearest_attrs", dev, (feats_t, g16, attrs, t, idx, attrs_t), (b, tt, w))
+        _launch("nearest_attrs", dev, (feats_t, packed_table(g16), attrs, t, idx, attrs_t),
+                (b, tt, w, live))
     return t, idx, attrs_t
 
 
-def nearest_shadow_attrs(feats_t, sh_t, g16, attrs):
+def nearest_shadow_attrs(feats_t, sh_t, g16, attrs, n_live: Optional[int] = None):
     """K2 (replaces flash_nearest_shadow_attrs_t): -> (t, idx, occ, attrsT)."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(feats_t):
         return nearest_shadow_attrs_plain(feats_t, sh_t, g16, attrs)
     tt = _check_scene(feats_t, g16, attrs)
@@ -617,25 +800,27 @@ def nearest_shadow_attrs(feats_t, sh_t, g16, attrs):
     if b:
         _launch(
             "nearest_shadow_attrs", dev,
-            (feats_t, sh_t, g16, attrs, t, idx, occ, attrs_t), (b, tt, w),
+            (feats_t, sh_t, packed_table(g16), attrs, t, idx, occ, attrs_t), (b, tt, w, live),
         )
     return t, idx, occ, attrs_t
 
 
-def occlude(sh_t, g16):
+def occlude(sh_t, g16, n_live: Optional[int] = None):
     """K3 (replaces flash_occlude_packed_t): -> occ [B] i32."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(sh_t):
         return occlude_plain(sh_t, g16)
     tt = _check_scene(sh_t, g16)
     b = sh_t.shape[1]
     occ = torch.empty(b, dtype=torch.int32, device=sh_t.device)
     if b:
-        _launch("occlude", sh_t.device, (sh_t, g16, occ), (b, tt))
+        _launch("occlude", sh_t.device, (sh_t, packed_table(g16), occ), (b, tt, live))
     return occ
 
 
-def nearest(feats_t, g16):
+def nearest(feats_t, g16, n_live: Optional[int] = None):
     """K12 (replaces _nearest_single): -> (t [B] f32, idx [B] i32)."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(feats_t):
         return nearest_plain(feats_t, g16)
     tt = _check_scene(feats_t, g16)
@@ -644,12 +829,13 @@ def nearest(feats_t, g16):
     t = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     if b:
-        _launch("nearest", dev, (feats_t, g16, t, idx), (b, tt))
+        _launch("nearest", dev, (feats_t, packed_table(g16), t, idx), (b, tt, live))
     return t, idx
 
 
-def nearest_shadow(feats_t, sh_t, g16):
+def nearest_shadow(feats_t, sh_t, g16, n_live: Optional[int] = None):
     """K13 (replaces _nearest_shadow_single): -> (t, idx, occ [B] i32)."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(feats_t):
         return nearest_shadow_plain(feats_t, sh_t, g16)
     tt = _check_scene(feats_t, g16)
@@ -660,7 +846,8 @@ def nearest_shadow(feats_t, sh_t, g16):
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     occ = torch.empty(b, dtype=torch.int32, device=dev)
     if b:
-        _launch("nearest_shadow", dev, (feats_t, sh_t, g16, t, idx, occ), (b, tt))
+        _launch("nearest_shadow", dev, (feats_t, sh_t, packed_table(g16), t, idx, occ),
+                (b, tt, live))
     return t, idx, occ
 
 
@@ -722,7 +909,7 @@ def _plain_two_sets(feats_t, sh_t, g16, tile_aabbs):
     """`_grid_scan` as the grid and resident wrappers return it ->
     ((t, idx, occ), tiles visited per block), None where the scan has no
     such output."""
-    t, idx, occ, vis, _ = _grid_scan(feats_t, sh_t, g16, tile_aabbs)
+    t, idx, occ, vis = _grid_scan(feats_t, sh_t, g16, tile_aabbs)[:4]
     near, anyhit = feats_t is not None, sh_t is not None
     return (t if near else None, idx if near else None, occ if anyhit else None), vis
 
@@ -754,12 +941,13 @@ def _present(*tensors):
     return [x for x in tensors if x is not None]
 
 
-def _grid(name, feats_t, sh_t, g16, tile_aabbs, visits):
+def _grid(name, feats_t, sh_t, g16, tile_aabbs, visits, n_live):
     """Run grid-form scan `name` (K9-K11) on the nearest set `feats_t`
     and/or the any-hit set `sh_t`: the plain version for CPU tensors, the
     kernel for CUDA tensors -> (t, idx, occ), None where the scan has no
     such output. `visits` (int32 [nb] or None) receives the tiles each
-    block visited."""
+    block visited; `n_live` (None: the whole table) the live triangles."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(feats_t if feats_t is not None else sh_t):
         out, vis = _plain_two_sets(feats_t, sh_t, g16, tile_aabbs)
         if visits is not None:
@@ -769,25 +957,26 @@ def _grid(name, feats_t, sh_t, g16, tile_aabbs, visits):
     if visits is not None:
         _build.check(visits, "visits", torch.int32, (-(-b // BT_MULTI),), dev)
     if b:
-        _launch(name, dev, (*_present(feats_t, sh_t), g16, tile_aabbs, *_present(*out), visits),
-                (b, nt, tt))
+        _launch(name, dev, (*_present(feats_t, sh_t), packed_table(g16), tile_aabbs,
+                            *_present(*out), visits), (b, nt, tt, live))
     return out
 
 
-def nearest_grid(feats_t, g16, tile_aabbs, visits=None):
+def nearest_grid(feats_t, g16, tile_aabbs, visits=None, n_live: Optional[int] = None):
     """K9 (replaces _nearest_multi): -> (t [B] f32, idx [B] i32). `visits`,
     an int32 [nb] tensor or None, receives the tiles each block visited."""
-    return _grid("nearest_grid", feats_t, None, g16, tile_aabbs, visits)[:2]
+    return _grid("nearest_grid", feats_t, None, g16, tile_aabbs, visits, n_live)[:2]
 
 
-def nearest_shadow_grid(feats_t, sh_t, g16, tile_aabbs, visits=None):
+def nearest_shadow_grid(feats_t, sh_t, g16, tile_aabbs, visits=None,
+                        n_live: Optional[int] = None):
     """K10 (replaces _nearest_shadow_multi): -> (t, idx, occ [B] i32)."""
-    return _grid("nearest_shadow_grid", feats_t, sh_t, g16, tile_aabbs, visits)
+    return _grid("nearest_shadow_grid", feats_t, sh_t, g16, tile_aabbs, visits, n_live)
 
 
-def occlude_grid(sh_t, g16, tile_aabbs, visits=None):
+def occlude_grid(sh_t, g16, tile_aabbs, visits=None, n_live: Optional[int] = None):
     """K11 (replaces _occlude_multi): -> occ [B] i32."""
-    return _grid("occlude_grid", None, sh_t, g16, tile_aabbs, visits)[2]
+    return _grid("occlude_grid", None, sh_t, g16, tile_aabbs, visits, n_live)[2]
 
 
 def _resident(name, feats_t, sh_t, g16, tile_aabbs):

@@ -224,20 +224,24 @@ def flash_scan(feats, pending_sh, scene, scan: str = MULTITILE_SCANS[0]):
     bool or None). One tile: K12 or K13. Many tiles, by `scan`: K5 or K6
     after their tile lists, K9 or K10 in the grid form, K14 or K15 in the
     resident form."""
-    g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+    g16, aabbs, live = scene.tri_feats16, scene.tile_aabbs, scene.n_tris
     if FI.geometry(g16)[2] == 1:
         if pending_sh is None:
-            t, idx = FI.nearest(feats, g16)
+            t, idx = FI.nearest(feats, g16, live)
             return t, idx, None
-        t, idx, occ = FI.nearest_shadow(feats, pending_sh, g16)
+        t, idx, occ = FI.nearest_shadow(feats, pending_sh, g16, live)
         return t, idx, occ != 0
-    if scan in ("grid", "resident"):
-        near, merged = ((FI.nearest_grid, FI.nearest_shadow_grid) if scan == "grid"
-                        else (FI.nearest_resident, FI.nearest_shadow_resident))
+    if scan == "grid":
         if pending_sh is None:
-            t, idx = near(feats, g16, aabbs)
+            t, idx = FI.nearest_grid(feats, g16, aabbs, n_live=live)
             return t, idx, None
-        t, idx, occ = merged(feats, pending_sh, g16, aabbs)
+        t, idx, occ = FI.nearest_shadow_grid(feats, pending_sh, g16, aabbs, n_live=live)
+        return t, idx, occ != 0
+    if scan == "resident":
+        if pending_sh is None:
+            t, idx = FI.nearest_resident(feats, g16, aabbs)
+            return t, idx, None
+        t, idx, occ = FI.nearest_shadow_resident(feats, pending_sh, g16, aabbs)
         return t, idx, occ != 0
     if pending_sh is None:
         lists, counts = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), feats)
@@ -253,9 +257,9 @@ def flash_occlude_rows(sh, scene, scan: str = MULTITILE_SCANS[0]):
     tile, else K7 after its tile lists, K11 or K16."""
     g16 = scene.tri_feats16
     if FI.geometry(g16)[2] == 1:
-        return FI.occlude(sh, g16)
+        return FI.occlude(sh, g16, scene.n_tris)
     if scan == "grid":
-        return FI.occlude_grid(sh, g16, scene.tile_aabbs)
+        return FI.occlude_grid(sh, g16, scene.tile_aabbs, n_live=scene.n_tris)
     if scan == "resident":
         return FI.occlude_resident(sh, g16, scene.tile_aabbs)
     lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), sh)

@@ -1,7 +1,8 @@
-"""Two questions about how the kernels are built, asked on one CUDA device.
+"""Three questions about how the kernels are built, asked on one CUDA device.
 
     python -m rustic_tpu_torch.probe_kernel_builds contraction [DIR ...]
     python -m rustic_tpu_torch.probe_kernel_builds shade LABEL=SOURCE.cu [LABEL=SOURCE.cu ...]
+    python -m rustic_tpu_torch.probe_kernel_builds scans LABEL=DIR [LABEL=DIR ...]
 
 `contraction`: do the scans round the same with and without nvcc's FMA
 contraction? K17 (csrc/fused_bounce.cu) runs the scans' pair test in a
@@ -25,11 +26,29 @@ traced through the kernel-shade loop (4,194,304 lanes); the median of 10
 CUDA-event timings each, and whether the outputs equal the first
 version's bit for bit.
 
-Both print the card's name and power limit first.
+`scans`: the one-tile scans K1-K3 (flash_intersect.cu) and the grid-form
+scans K9-K11 (flash_multi.cu) built from several versions of the
+sources, each DIR holding its flash_intersect.cu, flash_multi.cu and
+flash_common.cuh (an older version: `git show <commit>:rustic_tpu_torch/
+csrc/<file>` into a directory under build/). K1 on the bounce-0 rays, K2
+on bounces 1-3 and K3 on the last shadow rays of one traced DarkCornell
+group (1280x720x4 = 3,686,400 lanes); K9 on the bounce-0 rays, K10 on
+the sorted bounce-1 rays with the bounce-0 shadow rays and K11 on the
+sorted bounce-3 shadow rays of one BreakTime group (the first 1920x1080
+pixel chunk x 4 = 4,194,304 lanes, grid form, HDR sky, 4096^2 atlas):
+(t, idx, occ, attr rows, tiles visited per block) against the first
+version's bit for bit on every lane (NaN equal to NaN), and each
+kernel's versions timed in turns (median of 10 CUDA-event timings).
+Either table layout is taken: a version that exports `rt_scan_abi` reads
+the packed table and the live triangle count, an older one the JAX
+layout.
+
+All print the card's name and power limit first.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import re
@@ -84,10 +103,10 @@ def darkcornell_bounce1(device):
     g16, attrs = scene.tri_feats16, scene.tri_attrs
     kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
     st, feats, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
-    t, i, a = FI.nearest_attrs(feats, g16, attrs)
+    t, i, a = FI.nearest_attrs(feats, g16, attrs, scene.n_tris)
     st, feats, pending = SK.shade_bounce(cfg, 0, params, scene.entry_rows, st, feats, t, i, a,
                                          None, sidx, off, **kw)
-    t, i, occ, a = FI.nearest_shadow_attrs(feats, pending, g16, attrs)
+    t, i, occ, a = FI.nearest_shadow_attrs(feats, pending, g16, attrs, scene.n_tris)
     shade_args = (cfg, 1, params, scene.entry_rows, st, feats, t, i, a, occ, sidx, off)
     return scene, (feats, pending), (shade_args, kw)
 
@@ -116,6 +135,64 @@ def time_ms(fn) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b)
+
+
+# ---- one scan from a given build ------------------------------------------------
+
+# key -> (source, entry point, ray sets (nearest, any-hit), outputs)
+SCANS = {
+    "K1": ("flash_intersect", "rt_nearest_attrs", (True, False), ("t", "idx", "rows")),
+    "K2": ("flash_intersect", "rt_nearest_shadow_attrs", (True, True), ("t", "idx", "occ", "rows")),
+    "K3": ("flash_intersect", "rt_occlude", (False, True), ("occ",)),
+    "K9": ("flash_multi", "rt_nearest_grid", (True, False), ("t", "idx", "visits")),
+    "K10": ("flash_multi", "rt_nearest_shadow_grid", (True, True), ("t", "idx", "occ", "visits")),
+    "K11": ("flash_multi", "rt_occlude_grid", (False, True), ("occ", "visits")),
+}
+
+
+def scan_abi(lib: str) -> int:
+    """2 for a build that reads the packed table and the live count
+    (`rt_scan_abi`), 1 for an older one (the JAX layout)."""
+    try:
+        fn = ctypes.CDLL(lib).rt_scan_abi
+    except AttributeError:
+        return 1
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def scan_outputs(key, scene, b):
+    """Fresh outputs of scan `key` for `b` rays, in its entry point's order."""
+    dev = scene.tri_feats16.device
+    alloc = {
+        "t": lambda: torch.empty(b, dtype=torch.float32, device=dev),
+        "idx": lambda: torch.empty(b, dtype=torch.int32, device=dev),
+        "occ": lambda: torch.empty(b, dtype=torch.int32, device=dev),
+        "rows": lambda: torch.empty((scene.tri_attrs.shape[1], b), dtype=torch.float32, device=dev),
+        "visits": lambda: torch.empty(-(-b // FI.BT_MULTI), dtype=torch.int32, device=dev),
+    }
+    return tuple(alloc[name]() for name in SCANS[key][3])
+
+
+def run_scan(lib, key, scene, f, s, outs=None):
+    """Launch scan `key` of build `lib` on rays `f` (nearest set) and `s`
+    (any-hit set) -> its outputs, in SCANS order."""
+    _, fn, (near, anyhit), names = SCANS[key]
+    b = (f if f is not None else s).shape[1]
+    outs = scan_outputs(key, scene, b) if outs is None else outs
+    g16 = scene.tri_feats16
+    t_pad, tt, nt = FI.geometry(g16)
+    abi = scan_abi(lib)
+    table = FI.packed_table(g16) if abi == 2 else g16
+    rays = [x for x, on in ((f, near), (s, anyhit)) if on]
+    grid = "visits" in names
+    ptrs = (*rays, table, *((scene.tile_aabbs,) if grid else
+                            (scene.tri_attrs,) if "rows" in names else ()), *outs)
+    ints = (b, nt, tt) if grid else (b, tt, scene.tri_attrs.shape[1]) if "rows" in names else (b, tt)
+    ints += (scene.n_tris,) if abi == 2 else ()
+    entry = _build.load_entry(lib, fn, len(ptrs), len(ints))
+    _build.launch(entry, key, g16.device, ptrs, ints)
+    return outs
 
 
 # ---- contraction ---------------------------------------------------------------
@@ -147,8 +224,6 @@ def sass_by_kernel(lib: str) -> dict:
 def contraction(dirs) -> int:
     device = torch.device("cuda", 0)
     scene, (feats, pending), _ = darkcornell_bounce1(device)
-    g16, attrs = scene.tri_feats16, scene.tri_attrs
-    b, tt = feats.shape[1], FI.geometry(g16)[1]
     first = None
     failed = False
     flags = ((), ("-fmad=false",))
@@ -166,19 +241,13 @@ def contraction(dirs) -> int:
                 sass[flag] = sass_by_kernel(lib)
                 if name != "flash_intersect":
                     continue
-                t = torch.empty(b, dtype=torch.float32, device=device)
-                idx = torch.empty(b, dtype=torch.int32, device=device)
-                occ = torch.empty(b, dtype=torch.int32, device=device)
-                rows = torch.empty((W.SLIM_WIDTH, b), dtype=torch.float32, device=device)
-                _build.launch(_build.load_entry(lib, "rt_nearest_shadow_attrs", 8, 3), "K2", device,
-                              (feats, pending, g16, attrs, t, idx, occ, rows),
-                              (b, tt, W.SLIM_WIDTH))
+                got = run_scan(lib, "K2", scene, feats, pending)
                 torch.cuda.synchronize()
-                got = (t, idx, occ, rows)
+                t, idx, occ, rows = got
                 if first is None:
                     first = got
                 same = all(torch.equal(x, y) for x, y in zip(got, first))
-                print(f"{d} {name} {' '.join(flag) or '(contraction on)'}: K2 on {b} lanes "
+                print(f"{d} {name} {' '.join(flag) or '(contraction on)'}: K2 on {feats.shape[1]} lanes "
                       f"{'equals' if same else 'DIFFERS from'} the first build's "
                       f"({int((t != first[0]).sum())} t, {int((idx != first[1]).sum())} idx, "
                       f"{int((occ != first[2]).sum())} occ differ)")
@@ -246,13 +315,131 @@ def shade(sources) -> int:
     return 0
 
 
+# ---- scans ----------------------------------------------------------------------
+
+
+def darkcornell_cases(device):
+    """{key: [(what, f, s)]}: K1-K3's operands on one DarkCornell group
+    traced through the kernel-shade loop -> (scene, cases)."""
+    config = TracingConfig(width=1280, height=720, nee=NextEventEstimation.MIS)
+    scene, cfg, cam, px, py, off = group("assets/scenes/DarkCornell.glb", config, device)
+    g16, attrs, live = scene.tri_feats16, scene.tri_attrs, scene.n_tris
+    kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+    st, feats, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+    cases, pending = {"K1": [], "K2": [], "K3": []}, None
+    for bounce in range(cfg.max_bounces):
+        if pending is None:
+            cases["K1"].append((f"bounce {bounce}", feats, None))
+            t, i, a = FI.nearest_attrs(feats, g16, attrs, live)
+            occ = None
+        else:
+            cases["K2"].append((f"bounce {bounce}", feats, pending))
+            t, i, occ, a = FI.nearest_shadow_attrs(feats, pending, g16, attrs, live)
+        st, nf, pending = SK.shade_bounce(cfg, bounce, params, scene.entry_rows, st, feats, t, i,
+                                          a, occ, sidx, off, **kw)
+        feats = nf if nf is not None else feats
+    cases["K3"].append(("the last shadow rays", None, pending))
+    return scene, cases
+
+
+def breaktime_cases(device):
+    """K9-K11's operands on the first pixel chunk of BreakTime (folded 4
+    times) traced through the kernel-shade loop in the grid form ->
+    (scene, cases)."""
+    config = TracingConfig(width=1920, height=1080, nee=NextEventEstimation.MIS,
+                           cam_position=(0.0, 1.8, -3.2), has_skybox=True)
+    sky = W.load_skybox_image("assets/scenes/BreakTimeSky.npy")
+    scene = World.from_path("assets/scenes/BreakTime.glb").to_torch(device, sky)
+    n = 1 << 20
+    y, x = np.mgrid[0 : config.height, 0 : config.width]
+    px = torch.from_numpy(x.reshape(-1)[:n].astype(np.int32)).to(device).repeat(FOLD)
+    py = torch.from_numpy(y.reshape(-1)[:n].astype(np.int32)).to(device).repeat(FOLD)
+    off = pixel_offsets(config.width, config.height, use_blue_noise=False)[:n].view(np.int32)
+    off = torch.from_numpy(off.copy()).to(device).repeat(FOLD)
+    cfg = config.static_part()
+    kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+    st, feats_t, sidx, params = P.initk(cfg, config.dynamic_part(device), px, py, 0, off, FOLD)
+    pending = inv = rays = None
+    cases = {"K9": [], "K10": [], "K11": []}
+    for bounce in range(cfg.max_bounces):
+        rays = feats_t if rays is None else rays
+        if bounce == 0:
+            cases["K9"].append(("bounce 0", rays, None))
+        elif bounce == 1:
+            cases["K10"].append(("bounce 1", rays, pending))
+        t, i, occ = P._scan(rays, pending, scene, "grid")
+        t, i, occ, attrs_t = P.ks_resolve(scene, feats_t, t, i, occ, inv)
+        st, nf, sf = SK.shade_bounce(cfg, bounce, params, scene.entry_rows, st, feats_t, t, i,
+                                     attrs_t, occ, sidx, off, **kw)
+        rays, pending, inv = P.ks_sort(scene, st, nf, sf)
+        feats_t = nf if nf is not None else feats_t
+    cases["K11"].append(("the last shadow rays", None, pending))
+    return scene, cases
+
+
+def _same(x, y) -> bool:
+    return bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+
+def scans(specs) -> int:
+    device = torch.device("cuda", 0)
+    card = card_line()
+    dirs = dict(spec.split("=", 1) for spec in specs)
+    jobs = [(label, name) for label in dirs for name in ("flash_intersect", "flash_multi")]
+    with ThreadPoolExecutor(8) as pool:  # one nvcc per source
+        built = pool.map(lambda job: _build.compile_source(
+            os.path.join(dirs[job[0]], f"{job[1]}.cu")), jobs)
+        libs = dict(zip(jobs, built))
+    for (label, name), lib in libs.items():
+        with open(lib[: -len(".so")] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"{label} {name}: {line.strip()}")
+    failed = False
+    for trace in (darkcornell_cases, breaktime_cases):
+        scene, cases = trace(device)
+        torch.cuda.synchronize()
+        for key, ops in cases.items():
+            source = SCANS[key][0]
+            for what, f, s in ops:
+                outs = {label: run_scan(libs[label, source], key, scene, f, s) for label in dirs}
+                torch.cuda.synchronize()
+                base = next(iter(dirs))
+                b = (f if f is not None else s).shape[1]
+                for label in dirs:
+                    same = all(_same(x, y) for x, y in zip(outs[label], outs[base]))
+                    failed |= not same
+                    print(f"{key} {what} at {b} lanes, {label}: (t, idx, occ, rows, visits) "
+                          f"{'equal' if same else 'DIFFER from'} {base}'s on every lane")
+            what, f, s = ops[0]
+            times = {label: [] for label in dirs}
+            for label in dirs:  # warm
+                run_scan(libs[label, source], key, scene, f, s, outs[label])
+            torch.cuda.synchronize()
+            for _ in range(10):  # in turns
+                for label in dirs:
+                    times[label].append(time_ms(
+                        lambda label=label: run_scan(libs[label, source], key, scene, f, s,
+                                                     outs[label])))
+            print(f"{key} {what}: " + ", ".join(
+                f"{label} {statistics.median(ts):.3f} ms (min {min(ts):.3f})"
+                for label, ts in times.items()) + f" ({card})")
+        del scene, cases
+        torch.cuda.empty_cache()
+    print("every version equals the first bit for bit" if not failed else
+          "a version DIFFERS from the first")
+    return int(failed)
+
+
 def main(argv) -> int:
-    if not argv or argv[0] not in ("contraction", "shade"):
+    if not argv or argv[0] not in ("contraction", "shade", "scans"):
         print(__doc__)
         return 2
     print(card_line())
     if argv[0] == "contraction":
         return contraction([_build.CSRC] + argv[1:])
+    if argv[0] == "scans":
+        return scans(argv[1:])
     return shade(argv[1:])
 
 

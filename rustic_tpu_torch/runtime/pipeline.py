@@ -595,7 +595,7 @@ def _render_batch_kernelshade(scene, cfg, cam, px, py, offsets, sample_start, n_
 
     def flush_held(held, film):
         st_h, sh_h, g_h = held
-        return finishk(st_h, FI.occlude(sh_h, g16), film, g_h)
+        return finishk(st_h, FI.occlude(sh_h, g16, scene.n_tris), film, g_h)
 
     held = None  # (st, shadow feats_t, fold) awaiting its occlusion
     for k in range(0, n_samples, fold):
@@ -608,10 +608,11 @@ def _render_batch_kernelshade(scene, cfg, cam, px, py, offsets, sample_start, n_
         pending_sh = held[1] if held is not None else None
         for bounce in range(cfg.max_bounces):
             if pending_sh is None:
-                t, i, attrs_t = FI.nearest_attrs(feats_t, g16, attrs)
+                t, i, attrs_t = FI.nearest_attrs(feats_t, g16, attrs, scene.n_tris)
                 occ = None
             else:
-                t, i, occ, attrs_t = FI.nearest_shadow_attrs(feats_t, pending_sh, g16, attrs)
+                t, i, occ, attrs_t = FI.nearest_shadow_attrs(feats_t, pending_sh, g16, attrs,
+                                                             scene.n_tris)
             if bounce == 0 and held is not None:
                 # this occlusion result belongs to the held group
                 st_h, _sh, g_h = held
