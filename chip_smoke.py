@@ -46,10 +46,16 @@ Phases, each of which must pass (the first that fails ends the run):
      K5/K6 and the stage functions; K5 on bounce-0 rays, K6 on bounce-1
      rays plus the bounce-0 shadow rays, K7 on the bounce-3 shadow rays,
      each against its plain version on the same admitted-tile lists at
-     65,536, 65,613 and 4,194,304 lanes: index and occlusion equal on
-     >= 99.99% of rays, t within rtol 1e-5.
+     65,536, 65,613 and 4,194,304 lanes: K5 and K6, which also run each
+     ray's own slab test inside the listed tiles for the nearest set,
+     equal to their plain versions (the lists alone) bit for bit (NaN
+     equal to NaN); K7 index and occlusion equal on >= 99.99% of rays.
   7. multi-time: K5-K7 and their plain versions at 4,194,304 lanes, in
-     turns, as phase 3 (the lists are built before the timed launches).
+     turns, as phase 3 (the lists are built before the timed launches);
+     each bound over the pairs its loop needs on this data (the nearest
+     set: the listed tiles that each ray's slab test admits at its running
+     best t; the any-hit set: the listed tiles a ray reaches before it is
+     occluded), and beside it the bound over every pair the lists admit.
   8. multi-render: VeachMIS 1024x1024, NEE+MIS, 4 bounces, 16 spp through
      the unsorted loop after a one-group warm-up;
      Mpaths/s; launch counts K5 1, K6 15, K7 1 and none of K1-K4, K8; a
@@ -68,7 +74,7 @@ Phases, each of which must pass (the first that fails ends the run):
      of every bounce, bit for bit (NaN equal to NaN), and K8 and its plain
      version timed on bounce 1 as phase 3; the admitted tiles of its
      sorted operands, and K6 and K7 on them checked as phase 6 and timed
-     as phase 7.
+     as phase 7; K6 equal to K10 bit for bit on its operands.
  11. sorted-renders: VeachMIS 1024x1024, NEE+MIS, 64 spp through the
      kernel-shade loop (the default) and the ray-sorted loop, each after
      a one-group warm-up; Mpaths/s; launch counts K5 1, K6 63, K7 1 and,
@@ -93,8 +99,9 @@ Phases, each of which must pass (the first that fails ends the run):
      against its plain version (index and occlusion equal on >= 99.99% of
      rays, t within rtol 1e-5, the tiles each block visits equal) at
      65,536, 65,613 and 4,194,304 lanes, and against K5-K7 on the same
-     operands with their tile lists, as closely; the tiles each block
-     visits (grid) and admits (lists). The shade kernel of the path (K4:
+     operands with their tile lists, as closely; K5 and K6 on these
+     operands equal to their plain versions (the lists alone) bit for bit;
+     the tiles each block visits (grid) and admits (lists). The shade kernel of the path (K4:
      BreakTime has 2 alias entries) and K8, both in HDR mode, bit-equal to
      their plain version on every bounce.
  15. breaktime-time: K9-K11 and their plain versions in turns as phase 7
@@ -139,9 +146,10 @@ Phases, each of which must pass (the first that fails ends the run):
      K9-K11 (index and occlusion equal on >= 99.99% of rays, t within rtol
      1e-5) at 65,536, 65,613 and 4,194,304 lanes on the kernel-shade
      loop's VeachMIS operands (cluster of 3) and BreakTime operands
-     (cluster of 8); cluster size, bytes per rank and active clusters;
-     K14-K16, K9-K11 and (VeachMIS) the plain versions timed in turns;
-     K15 on VeachMIS timed at every cluster size from 3 to 8.
+     (cluster of 8); on VeachMIS also equal to K9-K11 bit for bit; cluster
+     size, bytes per rank and active clusters; K14-K16, K9-K11 and
+     (VeachMIS) the plain versions timed in turns; K15 on VeachMIS timed
+     at every cluster size from 3 to 8.
  23. resident-render: VeachMIS 1024x1024 x 64 spp through the kernel-shade
      loop with multitile_scan="resident": launch counts K14 1, K15 63,
      K16 1, K8 64, none of K5-K7 and K9-K11, no block_tile_lists call; its
@@ -352,10 +360,52 @@ def bound(n_bytes, flops, peak=FP32_FLOP_PER_S):
 def scan_bound(lanes_by_set, pairs, n_out_bytes, table_bytes):
     """Bound of a scan: each ray set's used rows read once, the triangle
     table read once, its outputs written once; FLOPS_PER_PAIR per pair
-    the ray sets need (for the multi-tile scans, the pairs their tile
-    lists admit)."""
+    the ray sets need (for the multi-tile scans, the pairs of the tiles
+    their culls admit on this data: `list_form_pairs`, or each ray's slab
+    test in the grid and resident forms)."""
     n_bytes = sum(lanes * rows * 4 for lanes, rows in lanes_by_set) + table_bytes + n_out_bytes
     return bound(n_bytes, pairs * FLOPS_PER_PAIR)
+
+
+def list_form_pairs(f, s, scene, lists):
+    """The (ray, triangle) pairs the list form's loop (K5-K7) needs on this
+    data, tiles in ascending order: for the nearest set `f`, each listed
+    tile that the ray's own slab test admits at its running best t; for the
+    any-hit set `s`, each listed tile the ray reaches before it is
+    occluded; times the tile's real triangles -> (nearest pairs, any-hit
+    pairs). On the plain versions' pieces, chunk by chunk."""
+    import torch
+
+    from rustic_tpu_torch.ops import flash_intersect as FI
+
+    g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+    _, tt, nt = FI.geometry(g16)
+    tris = [min(max(scene.n_tris - j * tt, 0), tt) for j in range(nt)]
+    rays = f if f is not None else s
+    block = torch.arange(rays.shape[1], device=rays.device) // FI.BT_MULTI
+    near_admit = FI._admit_table(*lists, nt, 0) if f is not None else None
+    any_admit = FI._admit_table(*lists, nt, 0 if f is None else 1) if s is not None else None
+    near = anyhit = 0
+    for lo, hi in FI._chunks(rays.shape[1], tt):
+        blk = block[lo:hi]
+        if f is not None:
+            fc = f[:, lo:hi]
+            n_min, n_max = FI._slab_spans(fc, aabbs)
+            best = torch.full((hi - lo,), FI.BIG, dtype=torch.float32, device=rays.device)
+        if s is not None:
+            sc = s[:, lo:hi]
+            occ = torch.zeros(hi - lo, dtype=torch.bool, device=rays.device)
+        for j, gj in FI._tiles(g16, tt, nt):
+            if f is not None:
+                ok = near_admit[blk, j] & FI._slab_ok(n_min[:, j], n_max[:, j], best)
+                near += int(ok.sum()) * tris[j]
+                t_j = FI._nearest_chunk(fc, gj, tt)[0]
+                best = torch.where(ok & (t_j < best), t_j, best)
+            if s is not None:
+                ok = any_admit[blk, j] & ~occ
+                anyhit += int(ok.sum()) * tris[j]
+                occ |= ok & (FI._anyhit_chunk(sc, gj, tt) != 0)
+    return float(near), float(anyhit)
 
 
 def shade_bound(cfg, st, nf_out, sf_out, occ, has_glass, n_alias):
@@ -582,6 +632,17 @@ class Smoke:
         if agree < 0.9999:
             self.fail(f"{key}: occlusion agrees on {agree:.6f} of rays (< 0.9999)")
         return agree, float((o_k - o_p).abs().max())
+
+    def _bit_equal(self, what, outs_a, outs_b):
+        """Fail unless two scans' (t, idx, occ) are equal bit for bit on
+        every lane (NaN equal to NaN)."""
+        torch = self.torch
+        names = {1: ("occ",), 2: ("t", "idx"), 3: ("t", "idx", "occ")}[len(outs_a)]
+        for name, a, b in zip(names, outs_a, outs_b):
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
+            if not bool(same.all()):
+                self.fail(f"{what}: {name} differs on {int((~same).sum())} of {a.numel()} lanes")
+        log(f"{what}: equal bit for bit on all {outs_a[0].numel()} lanes")
 
     def check_scans(self):
         from rustic_tpu_torch.ops import flash_intersect as FI
@@ -845,7 +906,7 @@ class Smoke:
         both calls."""
         from rustic_tpu_torch.ops import flash_intersect as FI
 
-        g16, aabbs = self.mt_scene.tri_feats16, self.mt_scene.tile_aabbs
+        g16, aabbs, live = self.mt_scene.tri_feats16, self.mt_scene.tile_aabbs, self.mt_scene.n_tris
 
         def cut(x):
             return x[:, lanes].contiguous()
@@ -857,28 +918,28 @@ class Smoke:
         l1 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), f1, s1)
         l3 = FI.block_tile_lists(aabbs, FI.BT_MULTI, (True,), s3)
         return {
-            "K5": (l5, (f5,), lambda: FI.nearest_multi(f5, g16, *l5),
+            "K5": (l5, (f5,), lambda: FI.nearest_multi(f5, g16, *l5, aabbs, live),
                    lambda: FI.nearest_multi_plain(f5, g16, *l5)),
-            "K6": (l1, (f1, s1), lambda: FI.nearest_shadow_multi(f1, s1, g16, *l1),
+            "K6": (l1, (f1, s1), lambda: FI.nearest_shadow_multi(f1, s1, g16, *l1, aabbs, live),
                    lambda: FI.nearest_shadow_multi_plain(f1, s1, g16, *l1)),
-            "K7": (l3, (s3,), lambda: FI.occlude_multi(s3, g16, *l3),
+            "K7": (l3, (s3,), lambda: FI.occlude_multi(s3, g16, *l3, live),
                    lambda: FI.occlude_multi_plain(s3, g16, *l3)),
         }
 
     def _mt_compare(self, cases, n):
-        """K5-K7 against their plain versions -> {key: max |dt| or 0}."""
+        """K5 and K6 against their plain versions (the lists alone) bit
+        for bit: their per-ray slab test inside the listed tiles must not
+        change a lane; K7 as phase 6 -> {key: max |dt| or 0}."""
         admitted = {k: float(c[0][1].float().mean()) for k, c in cases.items()}
-        (t_k, i_k), (t_p, i_p) = (f() for f in cases["K5"][2:])
-        frac, e5, _ = self._cmp_winner("K5", t_k, i_k, t_p, i_p)
-        log(f"K5 n={n}: idx agree {frac:.6f}, max |dt| {e5:.3g}, "
-            f"admitted tiles per block {admitted['K5']:.3f} of 6")
-        (t_k, i_k, o_k), (t_p, i_p, o_p) = (f() for f in cases["K6"][2:])
-        frac, e6, _ = self._cmp_winner("K6", t_k, i_k, t_p, i_p)
-        occ_agree, _ = self._cmp_occ("K6", o_k, o_p)
-        log(f"K6 n={n}: idx agree {frac:.6f}, occ agree {occ_agree:.6f}, "
-            f"occluded {float(o_k.float().mean()):.4f}, max |dt| {e6:.3g}, "
+        out_k, out_p = (f() for f in cases["K5"][2:])
+        self._bit_equal(f"K5 n={n} against its plain version", out_k, out_p)
+        log(f"K5 n={n}: admitted tiles per block {admitted['K5']:.3f} of 6")
+        out_k, out_p = (f() for f in cases["K6"][2:])
+        self._bit_equal(f"K6 n={n} against its plain version", out_k, out_p)
+        log(f"K6 n={n}: occluded {float(out_k[2].float().mean()):.4f}, "
             f"admitted tiles per block {admitted['K6']:.3f}")
-        del t_k, i_k, o_k, t_p, i_p, o_p
+        e5 = e6 = 0.0  # bit for bit
+        del out_k, out_p
         o_k, o_p = (f() for f in cases["K7"][2:])
         occ_agree, e7 = self._cmp_occ("K7", o_k, o_p)
         log(f"K7 n={n}: occ agree {occ_agree:.6f}, occluded {float(o_k.float().mean()):.4f}, "
@@ -887,9 +948,10 @@ class Smoke:
 
     def _mt_time(self, cases, lanes, report):
         """Time the kernels of `cases` and their plain versions and bound
-        each by the pairs its lists admit (each block's rays x the real
-        triangles of each admitted tile; K7's early exit is not credited);
-        the kernels line takes the numbers of the keys in `report`."""
+        each by the pairs its loop needs on this data (`list_form_pairs`);
+        beside it, the bound over every pair the lists admit (each block's
+        rays x the real triangles of each admitted tile). The kernels line
+        takes the numbers of the keys in `report`."""
         import torch
 
         from rustic_tpu_torch.ops import flash_intersect as FI
@@ -906,15 +968,24 @@ class Smoke:
             nb = lists[0].shape[0]
             per_block = torch.full((nb,), float(FI.BT_MULTI), device=self.dev)
             per_block[-1] = b - FI.BT_MULTI * (nb - 1)
-            pairs = 0.0
+            listed = 0.0
             for ray_set in range(len(rays)):
                 admit = FI._admit_table(*lists, nt, ray_set).float()
-                pairs += float(per_block @ (admit @ tile_tris))
-            rows = {"K5": [RAY_ROWS], "K6": [RAY_ROWS, SHADOW_ROWS], "K7": [SHADOW_ROWS]}[key]
+                listed += float(per_block @ (admit @ tile_tris))
+            f, s = (rays[0], None) if key == "K5" else (None, rays[0]) if key == "K7" else rays
+            near, anyhit = list_form_pairs(f, s, scene, lists)
+            rows = [(b, r) for r in
+                    {"K5": [RAY_ROWS], "K6": [RAY_ROWS, SHADOW_ROWS], "K7": [SHADOW_ROWS]}[key]]
             out = {"K5": 8, "K6": 12, "K7": 4}[key] * b
-            lists_bytes = lists[0].numel() * 4 + lists[1].numel() * 4
-            self.set_bound(key, scan_bound([(b, r) for r in rows], pairs, out, table + lists_bytes),
-                           report=key in report)
+            inputs = (table + lists[0].numel() * 4 + lists[1].numel() * 4
+                      + (scene.tile_aabbs.numel() * 4 if f is not None else 0))
+            self.set_bound(key, scan_bound(rows, near + anyhit, out, inputs), report=key in report)
+            parts = ([f"nearest set, listed tiles its slab test admits: {near:.4g}"] * (f is not None)
+                     + [f"any-hit set, listed tiles before its occlusion: {anyhit:.4g}"]
+                     * (s is not None))
+            log(f"{key} bound counts {near + anyhit:.4g} pairs ({'; '.join(parts)}), "
+                f"{(near + anyhit) / max(listed, 1.0):.4f} of the {listed:.4g} its lists admit; "
+                f"over those: {scan_bound(rows, listed, out, inputs)[0]:.4f} ms")
 
     def mt_check(self):
         self.mt_inputs()
@@ -1066,9 +1137,11 @@ class Smoke:
     def shade_check(self):
         """Trace one group through the kernel-shade loop, the main path;
         hold K8 to its plain version bit for bit on every bounce and time
-        it; check and time K6 and K7 on the group's sorted operands."""
+        it; check and time K6 and K7 on the group's sorted operands, and K6
+        against K10 bit for bit."""
         import torch
 
+        from rustic_tpu_torch.ops import flash_intersect as FI
         from rustic_tpu_torch.ops import shade_kernel as SK
         from rustic_tpu_torch.runtime import pipeline as P
 
@@ -1125,6 +1198,13 @@ class Smoke:
             self.results[k]["max_abs_err"] = errs[k]
         cases = self._mt_cases(bounces, slice(None), k5_bounce=1)
         self._mt_time({k: cases[k] for k in ("K6", "K7")}, MT_LANES, ("K6", "K7"))
+        # the list form and the grid form compute the same winner and occlusion on these
+        # sorted operands (a dead lane is a sentinel here, which no slab test admits)
+        self._bit_equal(
+            "K6 against K10 on the sorted bounce-1 rays with the bounce-0 shadow rays",
+            cases["K6"][2](), FI.nearest_shadow_grid(bounces[1]["feats"], bounces[1]["pending"],
+                                                    scene.tri_feats16, scene.tile_aabbs,
+                                                    n_live=scene.n_tris))
         self.ks_bounces = bounces  # the resident scans are checked on these operands
         del cases
         torch.cuda.empty_cache()
@@ -1344,13 +1424,16 @@ class Smoke:
     def _list_call(self, key, f, s):
         from rustic_tpu_torch.ops import flash_intersect as FI
 
-        g16, aabbs = self.bt_scene.tri_feats16, self.bt_scene.tile_aabbs
+        g16, aabbs, live = self.bt_scene.tri_feats16, self.bt_scene.tile_aabbs, self.bt_scene.n_tris
         if key == "K9":
-            return FI.nearest_multi(f, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), f))
+            return FI.nearest_multi(
+                f, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), f), aabbs, live)
         if key == "K10":
             return FI.nearest_shadow_multi(
-                f, s, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), f, s))
-        return (FI.occlude_multi(s, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (True,), s)),)
+                f, s, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), f, s), aabbs,
+                live)
+        return (FI.occlude_multi(
+            s, g16, *FI.block_tile_lists(aabbs, FI.BT_MULTI, (True,), s), live),)
 
     def _bt_compare(self, cases, n):
         """K9-K11 against their plain versions and against K5-K7 with lists
@@ -1370,8 +1453,16 @@ class Smoke:
             out_p = {"K9": (t_p, i_p), "K10": (t_p, i_p, o_p), "K11": (o_p,)}[key]
             out_l = self._list_call(key, f, s)
             flags = {"K9": (False,), "K10": (False, True), "K11": (True,)}[key]
-            admitted = FI.block_tile_lists(self.bt_scene.tile_aabbs, FI.BT_MULTI, flags,
-                                           *[r for r in (f, s) if r is not None])[1]
+            lists = FI.block_tile_lists(self.bt_scene.tile_aabbs, FI.BT_MULTI, flags,
+                                        *[r for r in (f, s) if r is not None])
+            admitted = lists[1]
+            if key != "K11":  # K5 and K6 run each ray's slab test inside the listed tiles
+                g16 = self.bt_scene.tri_feats16
+                plain_l = (FI.nearest_multi_plain(f, g16, *lists) if key == "K9"
+                           else FI.nearest_shadow_multi_plain(f, s, g16, *lists))
+                self._bit_equal(f"{'K5' if key == 'K9' else 'K6'} n={n} on these operands "
+                                f"against its plain version", out_l, plain_l)
+                del plain_l
             msg = []
             for against, out in (("plain", out_p), ("lists", out_l)):
                 label = f"{key} vs {against}"
@@ -1796,12 +1887,12 @@ class Smoke:
     def _resident_call(self, key, scene, f, s):
         from rustic_tpu_torch.ops import flash_intersect as FI
 
-        g16, aabbs = scene.tri_feats16, scene.tile_aabbs
+        g16, aabbs, live = scene.tri_feats16, scene.tile_aabbs, scene.n_tris
         if key == "K14":
-            return FI.nearest_resident(f, g16, aabbs)
+            return FI.nearest_resident(f, g16, aabbs, live)
         if key == "K15":
-            return FI.nearest_shadow_resident(f, s, g16, aabbs)
-        return (FI.occlude_resident(s, g16, aabbs),)
+            return FI.nearest_shadow_resident(f, s, g16, aabbs, live)
+        return (FI.occlude_resident(s, g16, aabbs, live),)
 
     def _grid_on(self, key, scene, f, s):
         from rustic_tpu_torch.ops import flash_intersect as FI
@@ -1893,6 +1984,7 @@ class Smoke:
                     return self._grid_on(key, scene, f, s)
 
                 if main:
+                    self._bit_equal(f"{what} {key} against {grid_of[key]}", kern(), grid())
                     self.results[key]["max_abs_err"] = errs[key]
                     plain = {"K14": lambda f=f: FI.nearest_resident_plain(f, g16, aabbs),
                              "K15": lambda f=f, s=s: FI.nearest_shadow_resident_plain(
@@ -1911,8 +2003,9 @@ class Smoke:
 
     def _cluster_sweep(self, what, scene, case, plan, lanes):
         """K15 with the table spread over each cluster size from the plan's
-        up to the device's largest: the share of a ray's reads that leave
-        its SM grows as 1 - 1/c while the pair work stays the same."""
+        up to the device's largest: each rank tests a ray block against
+        fewer chunks, the ranks' running limits loosen, and a ray's merge
+        reads c - 1 other ranks' keys."""
         import statistics
 
         from rustic_tpu_torch.ops import flash_intersect as FI
@@ -1932,8 +2025,8 @@ class Smoke:
                 FI.use_resident = real
             active = FI.resident_active_clusters(name, forced, self.dev)
             log(f"{what} K15 at {lanes} lanes, cluster of {c} ({forced.chunks_per_rank} chunks a "
-                f"rank, {active} active clusters = {active * c} SMs, {1 - 1 / c:.3f} of reads "
-                f"remote): {ms:.3f} ms ({self.card})")
+                f"rank, {active} active clusters = {active * c} SMs, {c - 1} remote keys a ray "
+                f"at the merge): {ms:.3f} ms ({self.card})")
 
     def resident_render(self):
         import numpy as np

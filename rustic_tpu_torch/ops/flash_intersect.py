@@ -32,6 +32,9 @@ only those tiles, in ascending order:
   (bit 21).
 - `occlude_multi` (K7): the any-hit test alone.
 
+Given `tile_aabbs`, K5 and K6 also run each ray's own slab test (below)
+inside the listed tiles for the nearest set.
+
 The grid form (K9-K11: `nearest_grid`, `nearest_shadow_grid`,
 `occlude_grid`) computes what K5-K7 compute without lists: each block
 walks all NT tiles in ascending order, and each ray runs a tile's pair
@@ -45,16 +48,18 @@ The resident form (K14-K16: `nearest_resident`,
 `nearest_shadow_resident`, `occlude_resident`) computes the same again
 with the whole triangle table staged once into the shared memory of a
 thread-block cluster (`use_resident` says whether it fits and how it is
-spread) and each ray walking the tiles on its own; a scene that does not
-fit is refused.
+spread); each rank of the cluster tests a block of rays against its own
+chunks of the table only (`rank_scan` is that order of work in torch),
+and the ranks' winners are merged. A scene that does not fit is
+refused.
 
 Each wrapper runs the plain PyTorch version for CPU tensors and the
 CUDA kernel (csrc/flash_intersect.cu, csrc/flash_multi.cu,
 csrc/flash_resident.cu) for CUDA tensors; it counts its kernel launches
-in LAUNCHES. The one-tile and grid-form wrappers take `n_live`, the
-scene's live triangles (`SceneTensors.n_tris`; None: the whole table):
-their kernels walk only those columns, which they read from a copy of
-the table packed once (`packed_table`). Those kernels divide only for
+in LAUNCHES. The wrappers take `n_live`, the scene's live triangles
+(`SceneTensors.n_tris`; None: the whole table): their kernels walk only
+those columns, the one-tile, list and grid forms from a copy of the
+table packed once (`packed_table`). The kernels divide only for
 the pairs that `pair_skip` cannot prove irrelevant; `skip_scan` is their
 scan rebuilt in torch from it, bit for bit the plain versions' result.
 """
@@ -517,50 +522,73 @@ def _warp_any(mask: torch.Tensor) -> torch.Tensor:
     return mask.reshape(-1, 32, mask.shape[1]).any(dim=1)
 
 
-def skip_scan(feats_t, sh_t, g16, tile_aabbs=None, n_live=None, chunk: int = 32):
+def skip_scan(feats_t, sh_t, g16, tile_aabbs=None, n_live=None, chunk: int = 32, lists=None):
     """The kernels' scans rebuilt from `pair_skip` and the exact epilogue,
     on the plain versions' numerators: the nearest set `feats_t` and/or
     the any-hit set `sh_t` (either may be None) over the first `n_live`
     triangles, chunk by chunk with the running best t as the limit. One
-    tile (`tile_aabbs` None): K1-K3's fold from t = inf, no skip while the
-    best is above BIG. Many tiles: K9-K11's per-ray slab cull from (BIG,
-    0). -> (t, idx, occ, stats); stats [2 sets, 4] i64 = pairs tested,
-    pairs sent to the exact epilogue, warp iterations (32 consecutive rays
-    x one triangle) with a pair tested, and those with a pair sent to the
-    exact epilogue. Equal to the plain versions bit for bit where the skip
-    test is sound."""
+    tile (`tile_aabbs` and `lists` None): K1-K3's fold from t = inf, no
+    skip while the best is above BIG. Many tiles: from (BIG, 0), the tiles
+    the per-ray slab test against `tile_aabbs` admits (K9-K11), or with
+    `lists` = (lists, counts) of `block_tile_lists` the tiles its block's
+    row admits for the ray's set (K5-K7), within those also the nearest
+    set's per-ray slab test where `tile_aabbs` is given. -> (t, idx, occ,
+    stats); stats [2 sets, 4] i64 = pairs tested, pairs sent to the exact
+    epilogue, warp iterations (32 consecutive rays x one triangle) with a
+    pair tested, and those with a pair sent to the exact epilogue. Equal
+    to the plain versions bit for bit where the skip test is sound."""
+    key, occ, stats = _skip_walk(feats_t, sh_t, g16, tile_aabbs, n_live, chunk, lists)
+    t = win_t(key) if feats_t is not None else None
+    idx = win_idx(key) if feats_t is not None else None
+    return t, idx, (occ.to(torch.int32) if sh_t is not None else None), stats
+
+
+def _skip_walk(feats_t, sh_t, g16, tile_aabbs, n_live, chunk, lists=None, owned=None):
+    """`skip_scan`'s walk -> (win_key [B] i64, occ [B] bool, stats); `owned`
+    (tile -> [(c0, c1)] column ranges of the tile) limits it to part of
+    each tile's columns."""
     rays = feats_t if feats_t is not None else sh_t
     b, dev = rays.shape[1], rays.device
     t_pad, tt, nt = geometry(g16)
     live = live_count(n_live, t_pad)
-    grid = tile_aabbs is not None
-    if not grid and nt > 1:
+    many = tile_aabbs is not None or lists is not None
+    cull = tile_aabbs is not None
+    if not many and nt > 1:
         raise NotImplementedError("a one-tile scan takes a one-tile table")
-    start = BIG if grid else float("inf")
+    start = BIG if many else float("inf")
     key = win_key(torch.full((b,), start, dtype=torch.float32, device=dev),
                   torch.zeros(b, dtype=torch.int32, device=dev))
     occ = torch.zeros(b, dtype=torch.bool, device=dev)
     stats = torch.zeros((2, 4), dtype=torch.int64, device=dev)
     every = torch.ones(b, dtype=torch.bool, device=dev)
-    if grid and feats_t is not None:
+    listed = [every[:, None].expand(b, nt)] * 2
+    if lists is not None:
+        block = torch.arange(b, device=dev) // BT_MULTI
+        sets = (0, 1) if feats_t is not None else (None, 0)
+        listed = [every[:, None].expand(b, nt) if s is None
+                  else _admit_table(*lists, nt, s)[block] for s in sets]
+    if cull and feats_t is not None:
         n_min, n_max = _slab_spans(feats_t, tile_aabbs)
     if sh_t is not None:
         maxt = sh_t[SH_MAXT_COL]
         lim_s = skip_limit(maxt)
-        if grid:
+        if cull:
             s_min, s_max = _slab_spans(sh_t, tile_aabbs)
     for j, gj in _tiles(g16, tt, nt):
         n_j = min(max(live - j * tt, 0), tt)
-        near_ok = _slab_ok(n_min[:, j], n_max[:, j], win_t(key)) if grid and feats_t is not None \
-            else every
-        any_ok = ~occ & (_slab_ok(s_min[:, j], s_max[:, j], maxt) if grid and sh_t is not None
-                         else every)
+        near_ok = listed[0][:, j] & (_slab_ok(n_min[:, j], n_max[:, j], win_t(key))
+                                     if cull and feats_t is not None else every)
+        any_ok = listed[1][:, j] & ~occ & (_slab_ok(s_min[:, j], s_max[:, j], maxt)
+                                           if cull and lists is None and sh_t is not None
+                                           else every)
         raw_f = feats_t.T @ gj if feats_t is not None else None
         raw_s = sh_t.T @ gj if sh_t is not None else None
         # one tile: the first column alone (the fold from inf takes it exactly)
-        first = 0 if grid else 1
+        first = 0 if many else 1
         spans = [(0, first)] if first else []
-        spans += [(c0, min(c0 + chunk, n_j)) for c0 in range(first, n_j, chunk)]
+        for a, z in (owned(j) if owned is not None else [(first, n_j)]):
+            z = min(z, n_j)
+            spans += [(c0, min(c0 + chunk, z)) for c0 in range(a, z, chunk)]
         for c0, c1 in spans:
             cols = torch.arange(j * tt + c0, j * tt + c1, dtype=torch.int32, device=dev)
             if raw_f is not None:
@@ -579,9 +607,7 @@ def skip_scan(feats_t, sh_t, g16, tile_aabbs=None, n_live=None, chunk: int = 32)
                 t, valid = _exact(*num)
                 occ = occ | (test & valid & (t <= maxt[:, None])).any(dim=1)
                 _count(stats[1], ok[:, None].expand_as(test), test)
-    t = win_t(key) if feats_t is not None else None
-    idx = win_idx(key) if feats_t is not None else None
-    return t, idx, (occ.to(torch.int32) if sh_t is not None else None), stats
+    return key, occ, stats
 
 
 def _count(row, tested, exact) -> None:
@@ -609,7 +635,8 @@ class ResidentPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def _cuda_budget(index: int):
-    """(shared-memory bytes a block may opt in to, largest portable
+    """(shared-memory bytes a block may give to chunks of the table: what
+    it may opt in to, less what a rank keeps besides; largest portable
     cluster) of CUDA device `index`, asked of the device through
     csrc/flash_resident.cu."""
     out = (ctypes.c_int * 3)()
@@ -625,8 +652,9 @@ def _cuda_budget(index: int):
 
 def resident_budget(device):
     """What `device` offers the resident scans -> (shared-memory bytes of
-    one block, largest cluster), read from the device's properties; None
-    for the CPU, whose plain versions hold the table in no fast memory."""
+    one block for the table's chunks, largest cluster), read from the
+    device's properties; None for the CPU, whose plain versions hold the
+    table in no fast memory."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
@@ -687,6 +715,35 @@ def occlude_resident_plain(sh_t, g16, tile_aabbs):
     return _grid_scan(None, sh_t, g16, tile_aabbs)[2]
 
 
+def rank_scan(feats_t, sh_t, g16, tile_aabbs, cluster: int, n_live=None, chunk: int = 32):
+    """The resident scans' order of work (K14-K16, csrc/flash_resident.cu)
+    in torch: the table's CHUNK-triangle chunks dealt round robin to
+    `cluster` ranks (chunk k to rank k % cluster), each rank walking the
+    tiles in ascending order over its own live chunks only, with its own
+    running winner as its slab and skip limit, then the ranks' 64-bit keys
+    merged by their minimum and their any-hit flags by OR -> (t, idx, occ),
+    None where the scan has no such output. Equal to the grid form's plain
+    version bit for bit where the per-ray cull and the skip test are
+    exact."""
+    _, tt, nt = geometry(g16)
+    per_tile = tt // CHUNK
+    if tt % CHUNK or cluster < 1:
+        raise ValueError(f"a resident scan takes tiles of whole {CHUNK}-triangle chunks and a "
+                         f"cluster of 1 or more ranks, got tiles of {tt} and {cluster} ranks")
+    key = occ = None
+    for rank in range(cluster):
+        def owned(j, rank=rank):
+            return [(cc * CHUNK, (cc + 1) * CHUNK) for cc in range(per_tile)
+                    if (j * per_tile + cc) % cluster == rank]
+
+        k, o, _ = _skip_walk(feats_t, sh_t, g16, tile_aabbs, n_live, chunk, None, owned)
+        key = k if key is None else torch.minimum(key, k)
+        occ = o if occ is None else occ | o
+    return (win_t(key) if feats_t is not None else None,
+            win_idx(key) if feats_t is not None else None,
+            occ.to(torch.int32) if sh_t is not None else None)
+
+
 # ---- CUDA wrappers ------------------------------------------------------------
 
 # entry point of csrc/flash_intersect.cu: (C name, pointer count, int count)
@@ -701,9 +758,9 @@ _ENTRY = {
 
 # entry points of csrc/flash_multi.cu
 _ENTRY_MULTI = {
-    "nearest_multi": ("rt_nearest_multi", 6, 3),
-    "nearest_shadow_multi": ("rt_nearest_shadow_multi", 8, 3),
-    "occlude_multi": ("rt_occlude_multi", 5, 3),
+    "nearest_multi": ("rt_nearest_multi", 7, 4),
+    "nearest_shadow_multi": ("rt_nearest_shadow_multi", 9, 4),
+    "occlude_multi": ("rt_occlude_multi", 5, 4),
     "nearest_grid": ("rt_nearest_grid", 6, 4),
     "nearest_shadow_grid": ("rt_nearest_shadow_grid", 8, 4),
     "occlude_grid": ("rt_occlude_grid", 5, 4),
@@ -739,9 +796,9 @@ def packed_table(g16: torch.Tensor) -> torch.Tensor:
 
 # entry points of csrc/flash_resident.cu
 _ENTRY_RESIDENT = {
-    "nearest_resident": ("rt_nearest_resident", 5, 5),
-    "nearest_shadow_resident": ("rt_nearest_shadow_resident", 7, 5),
-    "occlude_resident": ("rt_occlude_resident", 4, 5),
+    "nearest_resident": ("rt_nearest_resident", 5, 6),
+    "nearest_shadow_resident": ("rt_nearest_shadow_resident", 7, 6),
+    "occlude_resident": ("rt_occlude_resident", 4, 6),
 }
 
 
@@ -851,7 +908,9 @@ def nearest_shadow(feats_t, sh_t, g16, n_live: Optional[int] = None):
     return t, idx, occ
 
 
-def _check_multi(feats_t, g16, lists, counts):
+def _check_multi(feats_t, g16, lists, counts, tile_aabbs):
+    """Check a list-form scan's operands; `tile_aabbs` None for K7, which
+    runs no per-ray slab test."""
     dev = feats_t.device
     b = feats_t.shape[1]
     t_pad, tt, nt = geometry(g16)
@@ -860,48 +919,69 @@ def _check_multi(feats_t, g16, lists, counts):
     _build.check(g16, "tri_feats16", torch.float32, (16, 4 * t_pad), dev)
     _build.check(lists, "lists", torch.int32, (nb, nt), dev)
     _build.check(counts, "counts", torch.int32, (nb,), dev)
+    if tile_aabbs is not None:
+        _build.check(tile_aabbs, "tile_aabbs", torch.float32, (nt, 8), dev)
     return b, nt, tt
 
 
-def nearest_multi(feats_t, g16, lists, counts):
-    """K5 (replaces _nearest_multi_dma): -> (t [B] f32, idx [B] i32)."""
+def _need_aabbs(tile_aabbs):
+    if tile_aabbs is None:
+        raise ValueError("K5 and K6 take tile_aabbs on a CUDA tensor (the nearest set's "
+                         "per-ray slab test inside the listed tiles)")
+
+
+def nearest_multi(feats_t, g16, lists, counts, tile_aabbs=None, n_live: Optional[int] = None):
+    """K5 (replaces _nearest_multi_dma): -> (t [B] f32, idx [B] i32).
+    On a CUDA tensor `tile_aabbs` is required: each ray's slab test inside
+    the listed tiles, for the nearest set only (K5, K6), keeps the list
+    form's bits there, while a shadow ray of a dead lane can find a hit in
+    a tile its slab test rules out. The plain version (CPU) walks the lists
+    alone. `n_live` (None: the whole table): the live triangles."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(feats_t):
         return nearest_multi_plain(feats_t, g16, lists, counts)
-    b, nt, tt = _check_multi(feats_t, g16, lists, counts)
+    _need_aabbs(tile_aabbs)
+    b, nt, tt = _check_multi(feats_t, g16, lists, counts, tile_aabbs)
     dev = feats_t.device
     t = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     if b:
-        _launch("nearest_multi", dev, (feats_t, g16, lists, counts, t, idx), (b, nt, tt))
+        _launch("nearest_multi", dev,
+                (feats_t, packed_table(g16), tile_aabbs, lists, counts, t, idx), (b, nt, tt, live))
     return t, idx
 
 
-def nearest_shadow_multi(feats_t, sh_t, g16, lists, counts):
+def nearest_shadow_multi(feats_t, sh_t, g16, lists, counts, tile_aabbs=None,
+                         n_live: Optional[int] = None):
     """K6 (replaces _nearest_shadow_multi_dma): -> (t, idx, occ [B] i32)."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(feats_t):
         return nearest_shadow_multi_plain(feats_t, sh_t, g16, lists, counts)
-    b, nt, tt = _check_multi(feats_t, g16, lists, counts)
+    _need_aabbs(tile_aabbs)
+    b, nt, tt = _check_multi(feats_t, g16, lists, counts, tile_aabbs)
     _build.check(sh_t, "shadow feats_t", torch.float32, feats_t.shape, feats_t.device)
     dev = feats_t.device
     t = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     occ = torch.empty(b, dtype=torch.int32, device=dev)
     if b:
-        _launch(
-            "nearest_shadow_multi", dev, (feats_t, sh_t, g16, lists, counts, t, idx, occ),
-            (b, nt, tt),
-        )
+        _launch("nearest_shadow_multi", dev,
+                (feats_t, sh_t, packed_table(g16), tile_aabbs, lists, counts, t, idx, occ),
+                (b, nt, tt, live))
     return t, idx, occ
 
 
-def occlude_multi(sh_t, g16, lists, counts):
-    """K7 (replaces _occlude_multi_dma): -> occ [B] i32."""
+def occlude_multi(sh_t, g16, lists, counts, n_live: Optional[int] = None):
+    """K7 (replaces _occlude_multi_dma): -> occ [B] i32. The lists are its
+    only cull (no per-ray slab test: see `nearest_multi`)."""
+    live = live_count(n_live, geometry(g16)[0])
     if _build.uses_plain(sh_t):
         return occlude_multi_plain(sh_t, g16, lists, counts)
-    b, nt, tt = _check_multi(sh_t, g16, lists, counts)
+    b, nt, tt = _check_multi(sh_t, g16, lists, counts, None)
     occ = torch.empty(b, dtype=torch.int32, device=sh_t.device)
     if b:
-        _launch("occlude_multi", sh_t.device, (sh_t, g16, lists, counts, occ), (b, nt, tt))
+        _launch("occlude_multi", sh_t.device, (sh_t, packed_table(g16), lists, counts, occ),
+                (b, nt, tt, live))
     return occ
 
 
@@ -979,10 +1059,12 @@ def occlude_grid(sh_t, g16, tile_aabbs, visits=None, n_live: Optional[int] = Non
     return _grid("occlude_grid", None, sh_t, g16, tile_aabbs, visits, n_live)[2]
 
 
-def _resident(name, feats_t, sh_t, g16, tile_aabbs):
+def _resident(name, feats_t, sh_t, g16, tile_aabbs, n_live):
     """Run resident-form scan `name` (K14-K16) on the nearest set
     `feats_t` and/or the any-hit set `sh_t` -> (t, idx, occ), None where
-    the scan has no such output. A table `use_resident` refuses raises."""
+    the scan has no such output. A table `use_resident` refuses raises;
+    `n_live` (None: the whole table) the live triangles."""
+    live = live_count(n_live, geometry(g16)[0])
     plan = use_resident(g16)
     if plan is None:
         t_pad, _, nt = geometry(g16)
@@ -997,20 +1079,20 @@ def _resident(name, feats_t, sh_t, g16, tile_aabbs):
     dev, b, nt, tt, out = _check_two_sets(feats_t, sh_t, g16, tile_aabbs)
     if b:
         _launch(name, dev, (*_present(feats_t, sh_t), g16, tile_aabbs, *_present(*out)),
-                (b, nt, tt, plan.cluster, plan.chunks_per_rank))
+                (b, nt, tt, live, plan.cluster, plan.chunks_per_rank))
     return out
 
 
-def nearest_resident(feats_t, g16, tile_aabbs):
+def nearest_resident(feats_t, g16, tile_aabbs, n_live: Optional[int] = None):
     """K14 (replaces _nearest_resident): -> (t [B] f32, idx [B] i32)."""
-    return _resident("nearest_resident", feats_t, None, g16, tile_aabbs)[:2]
+    return _resident("nearest_resident", feats_t, None, g16, tile_aabbs, n_live)[:2]
 
 
-def nearest_shadow_resident(feats_t, sh_t, g16, tile_aabbs):
+def nearest_shadow_resident(feats_t, sh_t, g16, tile_aabbs, n_live: Optional[int] = None):
     """K15 (replaces _nearest_shadow_resident): -> (t, idx, occ [B] i32)."""
-    return _resident("nearest_shadow_resident", feats_t, sh_t, g16, tile_aabbs)
+    return _resident("nearest_shadow_resident", feats_t, sh_t, g16, tile_aabbs, n_live)
 
 
-def occlude_resident(sh_t, g16, tile_aabbs):
+def occlude_resident(sh_t, g16, tile_aabbs, n_live: Optional[int] = None):
     """K16 (replaces _occlude_resident): -> occ [B] i32."""
-    return _resident("occlude_resident", None, sh_t, g16, tile_aabbs)[2]
+    return _resident("occlude_resident", None, sh_t, g16, tile_aabbs, n_live)[2]

@@ -239,16 +239,16 @@ def flash_scan(feats, pending_sh, scene, scan: str = MULTITILE_SCANS[0]):
         return t, idx, occ != 0
     if scan == "resident":
         if pending_sh is None:
-            t, idx = FI.nearest_resident(feats, g16, aabbs)
+            t, idx = FI.nearest_resident(feats, g16, aabbs, live)
             return t, idx, None
-        t, idx, occ = FI.nearest_shadow_resident(feats, pending_sh, g16, aabbs)
+        t, idx, occ = FI.nearest_shadow_resident(feats, pending_sh, g16, aabbs, live)
         return t, idx, occ != 0
     if pending_sh is None:
         lists, counts = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False,), feats)
-        t, idx = FI.nearest_multi(feats, g16, lists, counts)
+        t, idx = FI.nearest_multi(feats, g16, lists, counts, aabbs, live)
         return t, idx, None
     lists, counts = FI.block_tile_lists(aabbs, FI.BT_MULTI, (False, True), feats, pending_sh)
-    t, idx, occ = FI.nearest_shadow_multi(feats, pending_sh, g16, lists, counts)
+    t, idx, occ = FI.nearest_shadow_multi(feats, pending_sh, g16, lists, counts, aabbs, live)
     return t, idx, occ != 0
 
 
@@ -261,9 +261,9 @@ def flash_occlude_rows(sh, scene, scan: str = MULTITILE_SCANS[0]):
     if scan == "grid":
         return FI.occlude_grid(sh, g16, scene.tile_aabbs, n_live=scene.n_tris)
     if scan == "resident":
-        return FI.occlude_resident(sh, g16, scene.tile_aabbs)
+        return FI.occlude_resident(sh, g16, scene.tile_aabbs, scene.n_tris)
     lists, counts = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, (True,), sh)
-    return FI.occlude_multi(sh, g16, lists, counts)
+    return FI.occlude_multi(sh, g16, lists, counts, scene.n_tris)
 
 
 def intersect_flash_attrs(scene, ro, rd, scan: str = MULTITILE_SCANS[0]):

@@ -26,22 +26,30 @@ traced through the kernel-shade loop (4,194,304 lanes); the median of 10
 CUDA-event timings each, and whether the outputs equal the first
 version's bit for bit.
 
-`scans`: the one-tile scans K1-K3 (flash_intersect.cu) and the grid-form
-scans K9-K11 (flash_multi.cu) built from several versions of the
-sources, each DIR holding its flash_intersect.cu, flash_multi.cu and
-flash_common.cuh (an older version: `git show <commit>:rustic_tpu_torch/
-csrc/<file>` into a directory under build/). K1 on the bounce-0 rays, K2
-on bounces 1-3 and K3 on the last shadow rays of one traced DarkCornell
-group (1280x720x4 = 3,686,400 lanes); K9 on the bounce-0 rays, K10 on
-the sorted bounce-1 rays with the bounce-0 shadow rays and K11 on the
-sorted bounce-3 shadow rays of one BreakTime group (the first 1920x1080
-pixel chunk x 4 = 4,194,304 lanes, grid form, HDR sky, 4096^2 atlas):
-(t, idx, occ, attr rows, tiles visited per block) against the first
-version's bit for bit on every lane (NaN equal to NaN), and each
-kernel's versions timed in turns (median of 10 CUDA-event timings).
-Either table layout is taken: a version that exports `rt_scan_abi` reads
-the packed table and the live triangle count, an older one the JAX
-layout.
+`scans`: the one-tile scans K1-K3 (flash_intersect.cu), the list-form
+and grid-form scans K5-K7 and K9-K11 (flash_multi.cu) and the resident
+scans K14-K16 (flash_resident.cu) built from several versions of the
+sources, each DIR holding its flash_intersect.cu, flash_multi.cu,
+flash_resident.cu and flash_common.cuh, or some of the three sources (an
+older version: `git show <commit>:rustic_tpu_torch/csrc/<file>` into a
+directory under build/; the first DIR holds all three). K1
+on the bounce-0 rays, K2 on bounces 1-3 and K3 on the last shadow rays of
+one traced DarkCornell group (1280x720x4 = 3,686,400 lanes); K5 and K14 on
+the camera rays, K6 and K15 on the sorted bounce-1 rays with the bounce-0
+shadow rays, K7 and K16 on the sorted bounce-3 shadow rays of one
+VeachMIS group (1024x1024x4 = 4,194,304 lanes) traced through the
+kernel-shade loop, and K6 and K7 also on the same bounces of a group
+traced through the unsorted loop; K9 on the bounce-0 rays, K10 on the
+sorted bounce-1 rays with the bounce-0 shadow rays and K11 on the sorted
+bounce-3 shadow rays of one BreakTime group (the first 1920x1080 pixel
+chunk x 4 = 4,194,304 lanes, grid form, HDR sky, 4096^2 atlas). (t, idx,
+occ, attr rows, tiles visited per block) against the first version's bit
+for bit on every lane (NaN equal to NaN), and each kernel's versions
+timed in turns on every case (median of 10 CUDA-event timings). Each
+version's ABI is read from its `rt_scan_abi` (none: 1): from 2 the grid
+form, from 3 the list form and the resident form read the packed table
+or take the live triangle count, and K5 and K6 take the tiles' AABBs
+for each ray's slab test of the nearest set inside the listed tiles.
 
 All print the card's name and power limit first.
 """
@@ -147,12 +155,23 @@ SCANS = {
     "K9": ("flash_multi", "rt_nearest_grid", (True, False), ("t", "idx", "visits")),
     "K10": ("flash_multi", "rt_nearest_shadow_grid", (True, True), ("t", "idx", "occ", "visits")),
     "K11": ("flash_multi", "rt_occlude_grid", (False, True), ("occ", "visits")),
+    "K5": ("flash_multi", "rt_nearest_multi", (True, False), ("t", "idx")),
+    "K6": ("flash_multi", "rt_nearest_shadow_multi", (True, True), ("t", "idx", "occ")),
+    "K7": ("flash_multi", "rt_occlude_multi", (False, True), ("occ",)),
+    "K14": ("flash_resident", "rt_nearest_resident", (True, False), ("t", "idx")),
+    "K15": ("flash_resident", "rt_nearest_shadow_resident", (True, True), ("t", "idx", "occ")),
+    "K16": ("flash_resident", "rt_occlude_resident", (False, True), ("occ",)),
 }
+LIST_FORM = ("K5", "K6", "K7")
+RESIDENT = ("K14", "K15", "K16")
 
 
 def scan_abi(lib: str) -> int:
-    """2 for a build that reads the packed table and the live count
-    (`rt_scan_abi`), 1 for an older one (the JAX layout)."""
+    """The build's `rt_scan_abi`: 3 where the list form reads the packed
+    table (flash_multi.cu) or the resident form takes the live count
+    (flash_resident.cu), 2 where only the grid form and the one-tile scans
+    read the packed table and take the live count, 1 for a build without
+    it (the JAX layout, no live count)."""
     try:
         fn = ctypes.CDLL(lib).rt_scan_abi
     except AttributeError:
@@ -174,22 +193,36 @@ def scan_outputs(key, scene, b):
     return tuple(alloc[name]() for name in SCANS[key][3])
 
 
-def run_scan(lib, key, scene, f, s, outs=None):
+def run_scan(lib, key, scene, f, s, outs=None, lists=None):
     """Launch scan `key` of build `lib` on rays `f` (nearest set) and `s`
-    (any-hit set) -> its outputs, in SCANS order."""
+    (any-hit set) -> its outputs, in SCANS order. A list-form scan takes
+    its `lists` (lists, counts) and, from ABI 3 (K5, K6), the tiles'
+    AABBs."""
     _, fn, (near, anyhit), names = SCANS[key]
     b = (f if f is not None else s).shape[1]
     outs = scan_outputs(key, scene, b) if outs is None else outs
-    g16 = scene.tri_feats16
+    g16, aabbs, live = scene.tri_feats16, scene.tile_aabbs, scene.n_tris
     t_pad, tt, nt = FI.geometry(g16)
     abi = scan_abi(lib)
-    table = FI.packed_table(g16) if abi == 2 else g16
     rays = [x for x, on in ((f, near), (s, anyhit)) if on]
-    grid = "visits" in names
-    ptrs = (*rays, table, *((scene.tile_aabbs,) if grid else
-                            (scene.tri_attrs,) if "rows" in names else ()), *outs)
-    ints = (b, nt, tt) if grid else (b, tt, scene.tri_attrs.shape[1]) if "rows" in names else (b, tt)
-    ints += (scene.n_tris,) if abi == 2 else ()
+    if key in LIST_FORM:
+        new = abi >= 3
+        table = ((FI.packed_table(g16),) + ((aabbs,) if key != "K7" else ())
+                 if new else (g16,))
+        ptrs = (*rays, *table, *lists, *outs)
+        ints = (b, nt, tt) + ((live,) if new else ())
+    elif key in RESIDENT:
+        plan = FI.use_resident(g16)
+        ptrs = (*rays, g16, aabbs, *outs)
+        ints = (b, nt, tt) + ((live,) if abi >= 3 else ()) + (plan.cluster, plan.chunks_per_rank)
+    else:
+        table = FI.packed_table(g16) if abi >= 2 else g16
+        grid = "visits" in names
+        ptrs = (*rays, table, *((aabbs,) if grid else
+                                (scene.tri_attrs,) if "rows" in names else ()), *outs)
+        ints = ((b, nt, tt) if grid else (b, tt, scene.tri_attrs.shape[1]) if "rows" in names
+                else (b, tt))
+        ints += (live,) if abi >= 2 else ()
     entry = _build.load_entry(lib, fn, len(ptrs), len(ints))
     _build.launch(entry, key, g16.device, ptrs, ints)
     return outs
@@ -342,6 +375,45 @@ def darkcornell_cases(device):
     return scene, cases
 
 
+def veachmis_cases(device):
+    """K5-K7's and K14-K16's operands on one VeachMIS group traced through
+    the kernel-shade loop and, K6's and K7's on unsorted rays, through the
+    unsorted loop (both with the grid-form scans) -> (scene, cases)."""
+    config = TracingConfig(width=1024, height=1024, nee=NextEventEstimation.MIS, **VEACH_CAM)
+    scene, cfg, cam, px, py, off = group("assets/scenes/VeachMIS.glb", config, device)
+    kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+    st, feats_t, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+    cases = {key: [] for key in LIST_FORM + RESIDENT}
+    for key in ("K5", "K14"):
+        cases[key].append(("camera rays", feats_t, None))
+    pending = inv = rays = None
+    for bounce in range(cfg.max_bounces):
+        rays = feats_t if rays is None else rays
+        if bounce == 1:
+            for key in ("K6", "K15"):
+                cases[key].append(("sorted bounce 1", rays, pending))
+        t, i, occ = P._scan(rays, pending, scene, "grid")
+        t, i, occ, attrs_t = P.ks_resolve(scene, feats_t, t, i, occ, inv)
+        st, nf, sf = SK.shade_bounce_wide(cfg, bounce, params, scene.entry_rows, st, feats_t, t,
+                                          i, attrs_t, occ, sidx, off, **kw)
+        rays, pending, inv = P.ks_sort(scene, st, nf, sf)
+        feats_t = nf if nf is not None else feats_t
+    for key in ("K7", "K16"):
+        cases[key].append(("sorted bounce-3 shadow rays", None, pending))
+    st, feats, sidx = P.stage_init(cfg, cam, px, py, 0, off, FOLD)
+    pending = prev_nee = None
+    for bounce in range(cfg.max_bounces):
+        if bounce == 1:
+            cases["K6"].append(("unsorted bounce 1", feats, pending))
+        t, i, occ = P._scan(feats, pending, scene, "grid")
+        st, nf, nee = P.stage_pre(scene, cfg, cam, bounce, st, feats, prev_nee, occ, t, i, sidx,
+                                  off)
+        prev_nee, pending = nee if nee is not None else (None, None)
+        feats = nf if nf is not None else feats
+    cases["K7"].append(("unsorted bounce-3 shadow rays", None, pending))
+    return scene, cases
+
+
 def breaktime_cases(device):
     """K9-K11's operands on the first pixel chunk of BreakTime (folded 4
     times) traced through the kernel-shade loop in the grid form ->
@@ -377,53 +449,65 @@ def breaktime_cases(device):
     return scene, cases
 
 
-def _same(x, y) -> bool:
-    return bool(((x == y) | (x.isnan() & y.isnan())).all())
+# the ray sets that a list-form scan's lists are built for (maxt flags)
+LIST_FLAGS = {"K5": (False,), "K6": (False, True), "K7": (True,)}
 
 
 def scans(specs) -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     dirs = dict(spec.split("=", 1) for spec in specs)
-    jobs = [(label, name) for label in dirs for name in ("flash_intersect", "flash_multi")]
-    with ThreadPoolExecutor(8) as pool:  # one nvcc per source
+    # a variant directory may hold some of the scans only
+    jobs = [(label, name) for label in dirs for name in SCAN_SOURCES
+            if os.path.exists(os.path.join(dirs[label], f"{name}.cu"))]
+    with ThreadPoolExecutor(12) as pool:  # one nvcc per source
         built = pool.map(lambda job: _build.compile_source(
             os.path.join(dirs[job[0]], f"{job[1]}.cu")), jobs)
         libs = dict(zip(jobs, built))
     for (label, name), lib in libs.items():
         with open(lib[: -len(".so")] + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"{label} {name}: {line.strip()}")
     failed = False
-    for trace in (darkcornell_cases, breaktime_cases):
+    for trace in (darkcornell_cases, veachmis_cases, breaktime_cases):
         scene, cases = trace(device)
         torch.cuda.synchronize()
         for key, ops in cases.items():
             source = SCANS[key][0]
+            versions = [(label, libs[(label, source)]) for label in dirs
+                        if (label, source) in libs]  # (name, build)
             for what, f, s in ops:
-                outs = {label: run_scan(libs[label, source], key, scene, f, s) for label in dirs}
+                lists = None
+                if key in LIST_FORM:
+                    lists = FI.block_tile_lists(scene.tile_aabbs, FI.BT_MULTI, LIST_FLAGS[key],
+                                                *[x for x in (f, s) if x is not None])
+
+                def run(version, outs=None, f=f, s=s, lists=lists):
+                    return run_scan(version[1], key, scene, f, s, outs, lists)
+
+                outs = {v[0]: run(v) for v in versions}
                 torch.cuda.synchronize()
-                base = next(iter(dirs))
+                base = versions[0][0]
                 b = (f if f is not None else s).shape[1]
-                for label in dirs:
-                    same = all(_same(x, y) for x, y in zip(outs[label], outs[base]))
-                    failed |= not same
-                    print(f"{key} {what} at {b} lanes, {label}: (t, idx, occ, rows, visits) "
-                          f"{'equal' if same else 'DIFFER from'} {base}'s on every lane")
-            what, f, s = ops[0]
-            times = {label: [] for label in dirs}
-            for label in dirs:  # warm
-                run_scan(libs[label, source], key, scene, f, s, outs[label])
-            torch.cuda.synchronize()
-            for _ in range(10):  # in turns
-                for label in dirs:
-                    times[label].append(time_ms(
-                        lambda label=label: run_scan(libs[label, source], key, scene, f, s,
-                                                     outs[label])))
-            print(f"{key} {what}: " + ", ".join(
-                f"{label} {statistics.median(ts):.3f} ms (min {min(ts):.3f})"
-                for label, ts in times.items()) + f" ({card})")
+                for name, *_ in versions:
+                    diff = [int((~((x == y) | (x.isnan() & y.isnan()))).sum())
+                            for x, y in zip(outs[name], outs[base])]
+                    failed |= any(diff)
+                    print(f"{key} {what} at {b} lanes, {name}: ({', '.join(SCANS[key][3])}) "
+                          f"{'equal' if not any(diff) else 'DIFFER from'} {base}'s on every "
+                          f"lane" + (f" (lanes differing: {diff})" if any(diff) else ""))
+                times = {v[0]: [] for v in versions}
+                for v in versions:  # warm
+                    run(v, outs[v[0]])
+                torch.cuda.synchronize()
+                for _ in range(10):  # in turns
+                    for v in versions:
+                        times[v[0]].append(time_ms(lambda v=v: run(v, outs[v[0]])))
+                print(f"{key} {what}: " + ", ".join(
+                    f"{name} {statistics.median(ts):.3f} ms (min {min(ts):.3f})"
+                    for name, ts in times.items()) + f" ({card})")
+                del outs, lists
         del scene, cases
         torch.cuda.empty_cache()
     print("every version equals the first bit for bit" if not failed else

@@ -1,16 +1,20 @@
-"""What a read from another block of the cluster costs the resident scans.
+"""What spreading the table over a cluster costs the resident scans.
 
     python -m rustic_tpu_torch.probe_resident
 
 VeachMIS cut to two triangle tiles (1,024 triangles: the plates and the
 backdrop whole, the emissive spheres nearest the camera) fits the shared
 memory of one block, so the resident scans (K14-K16) can run on it with
-a cluster of 1, where every read is local, and with its table spread
-over clusters of 2, 4 and 8, where 1/2, 3/4 and 7/8 of a ray's reads go
-to another block's shared memory. The pair work is the same in all of
-them. One group of 1024x1024x4 lanes is traced through the kernel-shade
-loop; K14 runs on its camera rays, K15 on the sorted bounce-1 rays with
-the bounce-0 shadow rays, K16 on the sorted bounce-3 shadow rays, each
+a cluster of 1, where one block holds the whole table, and with its
+table spread over clusters of 2, 4 and 8. Each rank of a cluster tests a
+ray block against its own chunks only (csrc/flash_resident.cu), so no
+read of the table leaves its SM at any cluster size: what the cluster
+adds is a rank's looser running limits (its own winners only), the
+ranks' uneven shares of a ray block's work, one cluster barrier a ray
+block and c - 1 reads of other ranks' shared memory a ray at the merge.
+One group of 1024x1024x4 lanes is traced through the kernel-shade loop;
+K14 runs on its camera rays, K15 on the sorted bounce-1 rays with the
+bounce-0 shadow rays, K16 on the sorted bounce-3 shadow rays, each
 beside its grid-form twin (K9-K11) and held equal to it.
 
 Prints the card's name and power limit, then per scan the grid form's
@@ -118,23 +122,23 @@ def main() -> int:
     for key, (name, grid_key, resident, grid) in SCANS.items():
         rows = [x for x in cases[key] if x is not None]
         lanes = rows[0].shape[1]
-        want = grid(*rows, g16, aabbs)
+        want = grid(*rows, g16, aabbs, n_live=scene.n_tris)
         print(f"{grid_key} (grid form) at {lanes} lanes: "
-              f"{time_ms(lambda: grid(*rows, g16, aabbs)):.3f} ms ({card})")
+              f"{time_ms(lambda: grid(*rows, g16, aabbs, n_live=scene.n_tris)):.3f} ms ({card})")
         for c in (1, 2, 4, 8):
             plan = FI.ResidentPlan(c, -(-n_chunks // c))
             FI.use_resident = lambda table, plan=plan: plan
             try:
-                got = resident(*rows, g16, aabbs)
-                ms = time_ms(lambda: resident(*rows, g16, aabbs))
+                got = resident(*rows, g16, aabbs, scene.n_tris)
+                ms = time_ms(lambda: resident(*rows, g16, aabbs, scene.n_tris))
             finally:
                 FI.use_resident = planned
             pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
             if not all(torch.equal(a, b) for a, b in pairs):
                 raise SystemExit(f"{key} in a cluster of {c} differs from {grid_key}")
             active = FI.resident_active_clusters(name, plan, device)
-            print(f"{key} cluster of {c} ({1 - 1 / c:.3f} of reads remote, {active} clusters = "
-                  f"{active * c} SMs): {ms:.3f} ms, equal to {grid_key} ({card})")
+            print(f"{key} cluster of {c} ({active} clusters = {active * c} SMs): {ms:.3f} ms, "
+                  f"equal to {grid_key} ({card})")
     return 0
 
 

@@ -78,12 +78,12 @@ _KERNELS = {
     "scan_kernel<true,true,false>": "K13 nearest_shadow",
     "shade_kernel<false>": "K4 shade_bounce",
     "shade_kernel<true>": "K8 shade_bounce_wide",
-    "multi_kernel<true,false>": "K5 nearest_multi",
-    "multi_kernel<true,true>": "K6 nearest_shadow_multi",
-    "multi_kernel<false,true>": "K7 occlude_multi",
-    "grid_kernel<true,false>": "K9 nearest_grid",
-    "grid_kernel<true,true>": "K10 nearest_shadow_grid",
-    "grid_kernel<false,true>": "K11 occlude_grid",
+    "grid_kernel<true,false,true>": "K5 nearest_multi",
+    "grid_kernel<true,true,true>": "K6 nearest_shadow_multi",
+    "grid_kernel<false,true,true>": "K7 occlude_multi",
+    "grid_kernel<true,false,false>": "K9 nearest_grid",
+    "grid_kernel<true,true,false>": "K10 nearest_shadow_grid",
+    "grid_kernel<false,true,false>": "K11 occlude_grid",
     "resident_kernel<true,false>": "K14 nearest_resident",
     "resident_kernel<true,true>": "K15 nearest_shadow_resident",
     "resident_kernel<false,true>": "K16 occlude_resident",
