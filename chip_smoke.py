@@ -165,17 +165,22 @@ Phases, each of which must pass (the first that fails ends the run):
      entries: the WIDE flag) traced through K17 itself; on every bounce
      65,536 of its lanes (rows 480-543 of the frame's first sample)
      against the plain version as above and against K10's winner, a row
-     gather and K8, bit for bit.
+     gather and K8, bit for bit on every lane (the held occ where a shadow
+     ray is pending).
  25. fused-time: K17 and its plain version, then K17 against K2 then K4,
      in turns at 3,686,400 lanes (bounce 1), medians of 10 CUDA-event
-     timings; K17's bound.
+     timings; K17's bound. K17 on the VeachMIS group's bounce-1 operands
+     (4,194,304 lanes) beside its plain version (median of 3), then against
+     K10, the row gather and K8 in turns; its bound over the pairs each
+     ray's slab test admits (logged; the kernels line keeps the one-tile
+     row).
  26. fused-render: DarkCornell 1280x720 x 160 spp through
      single_tile_loop="fused" and through the kernel-shade loop, in turns
      (two each) after a warm-up; launch counts K17 160, K3 1 and no other
      kernel; the film mean within 2% of 0.03945; its 64x64x4 film equal to
      the kernel-shade loop's bit for bit and to the host CPU's within rtol
      1e-4, atol 1e-5. VeachMIS 1024x1024 x 16 spp through
-     multitile_loop="fused" (every pair tested: no cull), launch counts
+     multitile_loop="fused" (K10's scan inside K17), launch counts
      K17 16, K7 1; its 64x64x4 film against the kernel-shade loop's,
      rtol 1e-4, atol 1e-5.
  27. probe-check: K18 (FP32 FMAs; TF32, BF16 and int8 tensor cores through
@@ -254,8 +259,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TENSOR_OP_PER_S = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12}
 # FP32 operations of one (ray, triangle) pair test (csrc/flash_common.cuh
-# pair_test): 4 multiplies and 36 FMAs (2 each) for the four numerators,
-# one division, three multiplies and the u + v add
+# pair_accumulate, pair_epilogue): 4 multiplies and 36 FMAs (2 each) for
+# the four numerators, one division, three multiplies and the u + v add
 FLOPS_PER_PAIR = 4 + 36 * 2 + 1 + 3 + 1
 # the used rows of a [16, B] ray table: rd, ro x rd, ro, 1 (+ max_t)
 RAY_ROWS, SHADOW_ROWS = 10, 11
@@ -2097,11 +2102,12 @@ class Smoke:
         from rustic_tpu_torch.ops import shade_kernel as SK
 
         kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+        fkw = dict(kw, n_live=scene.n_tris, tile_aabbs=scene.tile_aabbs)
         g16, attrs = scene.tri_feats16, scene.tri_attrs
         n = st.shape[1]
         allowed = 0 if strict else int(1e-4 * n)
         args = (cfg, b, params, scene.entry_rows, st, feats, pending, g16, attrs, sidx, off)
-        outs_k = FB.fused_bounce(*args, **kw)
+        outs_k = FB.fused_bounce(*args, **fkw)
         if outs_k[3] is not None:
             self.fail(f"{what}: an occlusion row came back without hold_occ")
         t, i, occ, rows = ref_scan(feats, pending)
@@ -2112,7 +2118,7 @@ class Smoke:
             self.fail(f"{what}: K17 differs from the two launches on {n_diff} lanes")
         msg = f"{n_diff} lanes differ from scan then shade"
         if pending is not None:  # the held mode: occ handed back, nothing folded
-            outs_h = FB.fused_bounce(*args, **kw, hold_occ=True)
+            outs_h = FB.fused_bounce(*args, **fkw, hold_occ=True)
             # where a shadow ray is pending: elsewhere its rows are not a
             # ray, no consumer reads its occ, and a scan that culls may skip it
             n_occ = int(((outs_h[3] != occ) & (st[SK.SK_PEND_ELIG] > 0.5)).sum())
@@ -2154,6 +2160,20 @@ class Smoke:
             f"max |d| {worst:.3g}")
         return worst
 
+    def _scan_tiles(self, scene):
+        """The scan half of K17's many-tile composition: K9 or K10 in the
+        grid form, then the row gather -> (t, idx, occ i32 or None, rows)."""
+        import torch
+
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        def scan_tiles(feats, pending):
+            t, i, occ = P._scan(feats, pending, scene, "grid")
+            return (t, i, None if occ is None else occ.to(torch.int32),
+                    scene.tri_attrs[i.long()].T.contiguous())
+
+        return scan_tiles
+
     def fused_check(self):
         import torch
 
@@ -2194,23 +2214,21 @@ class Smoke:
         if scene.n_alias_entries <= SK.MAX_ALIAS:
             self.fail("VeachMIS would not run K17's wide alias mode")
         mg16, mattrs = scene.tri_feats16, scene.tri_attrs
-
-        def scan_tiles(feats, pending):
-            t, i, occ = P._scan(feats, pending, scene, "grid")
-            return (t, i, None if occ is None else occ.to(torch.int32),
-                    mattrs[i.long()].T.contiguous())
-
+        scan_tiles = self._scan_tiles(scene)
         st, feats, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
         lanes = slice(480 * MT_SIZE, 480 * MT_SIZE + CHECK_LANES)  # rows 480-543 of sample 0
         pending = None
-        kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+        kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries,
+                  n_live=scene.n_tris, tile_aabbs=scene.tile_aabbs)
         for b in range(cfg.max_bounces):
             def cut(x):
                 return None if x is None else x[..., lanes].contiguous()
 
             self._fused_case(
                 f"K17 VeachMIS bounce {b}", scene, cfg, b, params, cut(st), cut(feats),
-                cut(pending), cut(sidx), cut(off), scan_tiles, SK.shade_bounce_wide, strict=False)
+                cut(pending), cut(sidx), cut(off), scan_tiles, SK.shade_bounce_wide, strict=True)
+            if b == 1:  # phase 25 times K17 on these operands
+                self.mt_fused_b1 = (cfg, params, st, feats, pending, sidx, off)
             st, nf, pending, _ = FB.fused_bounce(
                 cfg, b, params, scene.entry_rows, st, feats, pending, mg16, mattrs, sidx, off, **kw)
             if nf is not None:
@@ -2231,7 +2249,7 @@ class Smoke:
                 attrs, self.sidx, self.off)
 
         def fused():
-            return FB.fused_bounce(*args, **kw)
+            return FB.fused_bounce(*args, **kw, n_live=live, tile_aabbs=scene.tile_aabbs)
 
         def two_launches():
             t, i, occ, rows = FI.nearest_shadow_attrs(b1["feats"], b1["pending"], g16, attrs, live)
@@ -2252,6 +2270,57 @@ class Smoke:
         self.set_bound("K17", bound(rows * 4 * n + table, 2 * n * scene.n_tris * FLOPS_PER_PAIR))
         self.bounces = None
         self.torch.cuda.empty_cache()
+        self._fused_time_many()
+
+    def _fused_time_many(self):
+        """K17 on many tiles: VeachMIS bounce-1 operands (phase 24's trace,
+        4,194,304 lanes) held bit for bit to K10 -> gather -> K8 (no lane may
+        differ), folded and held, and to its plain version; then timed beside
+        its plain version, and against K10, the row gather and K8 in turns;
+        its bound over the pairs each ray's slab test admits, as K10's bound
+        counts them (logged: the kernels line keeps K17's one-tile row)."""
+        import torch
+
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import fused_bounce as FB
+        from rustic_tpu_torch.ops import shade_kernel as SK
+
+        scene = self.mt_scene
+        cfg, params, st, feats, pending, sidx, off = self.mt_fused_b1
+        g16, attrs, aabbs, live = scene.tri_feats16, scene.tri_attrs, scene.tile_aabbs, scene.n_tris
+        kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+        args = (cfg, 1, params, scene.entry_rows, st, feats, pending, g16, attrs, sidx, off)
+        n = st.shape[1]
+
+        self._fused_case("K17 VeachMIS bounce 1", scene, cfg, 1, params, st, feats, pending,
+                         sidx, off, self._scan_tiles(scene), SK.shade_bounce_wide, strict=True)
+
+        def fused():
+            return FB.fused_bounce(*args, **kw, n_live=live, tile_aabbs=aabbs)
+
+        def three_launches():
+            t, i, occ = FI.nearest_shadow_grid(feats, pending, g16, aabbs, n_live=live)
+            rows = attrs[i.long()].T.contiguous()
+            return SK.shade_bounce_wide(cfg, 1, params, scene.entry_rows, st, feats, t, i, rows,
+                                        occ, sidx, off, **kw)
+
+        self.time_pair("K17 VeachMIS bounce 1", fused, lambda: FB.fused_bounce_plain(*args, **kw),
+                       n, reps=3, report=False)
+        self.time_turns(f"VeachMIS at {n} lanes", "K17", fused, "K10 then gather then K8",
+                        three_launches, reps=10)
+        _, nf, sf, _ = fused()
+        per_set = FI._grid_scan(feats, pending, g16, aabbs)[4].double()
+        _, tt, nt = FI.geometry(g16)
+        tile_tris = torch.clamp(live - torch.arange(nt, device=self.dev) * tt, 0, tt).double()
+        pairs = float((per_set @ tile_tris).sum())
+        rows = FB.rows_moved(True, False, nf.shape[0], sf.shape[0])
+        table = (g16.shape[1] * RAY_ROWS * 4 + aabbs.numel() * 4 + attrs.numel() * 4
+                 + scene.n_alias_entries * 48 * 4)
+        b = bound(rows * 4 * n + table, pairs * FLOPS_PER_PAIR)
+        log(f"K17 VeachMIS bound: {b[0]:.4f} ms ({b[1]}; {pairs:.4g} slab-admitted pairs, "
+            f"{pairs / (2 * n * live):.4f} of all)")
+        self.mt_fused_b1 = None
+        torch.cuda.empty_cache()
 
     def fused_render(self):
         import numpy as np

@@ -110,8 +110,9 @@ class RenderSettings:
     batch_pixels: int = 1 << 20  # wavefront megabatch size (pixels per chunk)
     # the loop a multi-tile scene takes (runtime/pipeline.py MULTITILE_LOOPS):
     # "kernel-shade", the reference loops "ray-sorted" and "unsorted", or
-    # "fused" (one launch of K17 a bounce, every tile scanned whole;
-    # untextured scenes under the procedural sky, ValueError on any other)
+    # "fused" (one launch of K17 a bounce, K10's scan and the shading in one
+    # kernel; untextured scenes under the procedural sky, ValueError on any
+    # other)
     multitile_loop: str = "kernel-shade"
     # the form of the multi-tile scans (ops/intersect.py MULTITILE_SCANS):
     # "lists" (tile lists, then K5-K7), "grid" (K9-K11, culling in the kernel)

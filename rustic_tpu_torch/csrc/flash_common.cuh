@@ -1,6 +1,7 @@
 // Device code shared by the flash scans of flash_intersect.cu (K1-K3,
 // K12-K13: one triangle tile), flash_multi.cu (K5-K7, K9-K11: many tiles)
-// and flash_resident.cu (K14-K16: many tiles, the table in shared memory).
+// and flash_resident.cu (K14-K16: many tiles, the table in shared memory),
+// and by the fused bounce kernel of fused_bounce.cu (K17).
 //
 // A (ray, triangle) pair: the ray's feature rows f[0..9] (rd, ro x rd, ro,
 // 1) against the triangle's ten G rows, one float4 (det, u, v, t
@@ -148,20 +149,145 @@ __device__ __forceinline__ void stage_packed(float4* sg, int stride,
   }
 }
 
-// One (ray, triangle) pair: triangle j of the staged chunk `sg`.
-__device__ __forceinline__ void pair_test(const float (&f)[NROWS], const float4* sg, int j,
-                                          float& t, bool& valid) {
-  float4 acc;
-#pragma unroll
-  for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, f[r], sg[r * CHUNK + j], r == 0);
-  pair_epilogue(acc, t, valid);
-}
-
 // A ray's feature rows from the [16, B] table (zeros when inactive).
 __device__ __forceinline__ void load_rows(const float* __restrict__ rows, int B, int ray,
                                           bool active, float (&f)[NROWS]) {
 #pragma unroll
   for (int r = 0; r < NROWS; ++r) f[r] = active ? rows[(size_t)r * B + ray] : 0.0f;
+}
+
+// ---- the one-tile loop of K1-K3, K12-K13 (flash_intersect.cu) and K17 ----
+//
+// RPT rays a thread against the L live columns of one tile, staged at
+// sg[row * L + j]: each broadcast float4 of G feeds the FMAs of every ray
+// of both sets. The caller sets best_t = inf, best_i = 0 and occ (true:
+// nothing to test). The nearest fold skips nothing while its best is above
+// BIG (the exact scan's first column always lands); elsewhere a pair goes
+// to the exact epilogue only where `pair_skip` cannot prove it rejected or
+// not closer (any-hit set: not within max t), so the result is the exact
+// scan's over every column, strict <, first index. UNROLL: the columns a
+// pass of the loop takes (the loop's code grows with it).
+template <bool NEAR, bool ANY, int RPT, int UNROLL>
+__device__ __forceinline__ void scan_tile(const float4* sg, int L, const float (&f)[RPT][NROWS],
+                                          const float (&s)[RPT][NROWS],
+                                          const float (&maxt)[RPT], float (&best_t)[RPT],
+                                          int (&best_i)[RPT], bool (&occ)[RPT]) {
+  float lim_n[RPT], lim_s[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    lim_n[k] = INFINITY;
+    lim_s[k] = skip_limit(maxt[k]);
+  }
+#pragma unroll UNROLL
+  for (int j = 0; j < L; ++j) {
+    float4 g[NROWS];
+#pragma unroll
+    for (int r = 0; r < NROWS; ++r) g[r] = sg[r * L + j];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      if (NEAR) {
+        float4 acc;
+#pragma unroll
+        for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, f[k][r], g[r], r == 0);
+        if (!(best_t[k] <= BIG) || !pair_skip(acc, lim_n[k])) {
+          float t;
+          bool valid;
+          pair_epilogue(acc, t, valid);
+          const float tm = valid ? t : BIG;
+          if (tm < best_t[k]) {
+            best_t[k] = tm;
+            best_i[k] = j;
+            lim_n[k] = skip_limit(tm);
+          }
+        }
+      }
+      if (ANY && !occ[k]) {
+        float4 acc;
+#pragma unroll
+        for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, s[k][r], g[r], r == 0);
+        if (!pair_skip(acc, lim_s[k])) {
+          float t;
+          bool valid;
+          pair_epilogue(acc, t, valid);
+          occ[k] = valid && t <= maxt[k];
+        }
+      }
+    }
+  }
+}
+
+// ---- the one-tile kernels' frame: K1-K3, K12-K13 and K17 ------------------
+//
+// A persistent block of THREADS threads stages the L live columns of the
+// packed table's one tile into sg (then a barrier, which also publishes
+// whatever the caller stored in shared memory before), and walks the blocks
+// of THREADS * RPT rays: thread tid takes rays rb THREADS RPT + k THREADS +
+// tid of both sets, scans them (`scan_tile`) and hands the results to
+// `emit(const TileRays<RPT>&)`.
+template <int RPT>
+struct TileRays {
+  int ray[RPT];
+  bool active[RPT];
+  float best_t[RPT];
+  int best_i[RPT];
+  bool occ[RPT];
+};
+
+template <bool NEAR, bool ANY, int THREADS, int RPT, int UNROLL, class Emit>
+__device__ __forceinline__ void scan_ray_blocks(float4* sg, const float4* __restrict__ pg, int TT,
+                                                int L, const float* __restrict__ feats,
+                                                const float* __restrict__ sh, int B,
+                                                Emit&& emit) {
+  stage_packed(sg, L, pg, TT, 0, 0, L);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  constexpr int RAYS = THREADS * RPT;
+  const int n_blocks = (B + RAYS - 1) / RAYS;
+  for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
+    TileRays<RPT> r;
+    float f[RPT][NROWS], s[RPT][NROWS], maxt[RPT];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      r.ray[k] = rb * RAYS + k * THREADS + threadIdx.x;
+      r.active[k] = r.ray[k] < B;
+      load_rows(feats, B, r.ray[k], NEAR && r.active[k], f[k]);
+      load_rows(sh, B, r.ray[k], ANY && r.active[k], s[k]);
+      maxt[k] = (ANY && r.active[k]) ? sh[(size_t)MAXT_ROW * B + r.ray[k]] : 0.0f;
+      r.best_t[k] = INFINITY;  // the exact scan's first column always lands
+      r.best_i[k] = 0;
+      r.occ[k] = !(ANY && r.active[k]);  // nothing to test
+    }
+    scan_tile<NEAR, ANY, RPT, UNROLL>(sg, L, f, s, maxt, r.best_t, r.best_i, r.occ);
+    emit(r);
+  }
+}
+
+// The dynamic shared-memory opt-in of `kernel` up to `most` bytes and the
+// device's SM count, at the first call (`sms`: the caller's static for the
+// kernel, 0 until then).
+template <class K>
+inline cudaError_t opt_in(K kernel, size_t most, int& sms) {
+  if (sms != 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)most);
+  if (e != cudaSuccess) return e;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// A persistent launch's grid: as many blocks as the device runs at once
+// (the occupancy query), at most one per ray block, at least one.
+template <class K>
+inline cudaError_t persistent_grid(K kernel, int threads, size_t smem, int sms, int n_blocks,
+                                   int& grid) {
+  int per_sm = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  grid = per_sm * sms < n_blocks ? per_sm * sms : n_blocks;
+  if (grid < 1) grid = 1;
+  return e;
 }
 
 // ---- the per-ray tile cull of the grid and resident forms ---------------

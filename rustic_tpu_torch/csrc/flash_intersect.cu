@@ -35,7 +35,8 @@
 // shared-memory order (`stage_packed`, 16-byte cp.async copies), into
 // 10 x n_live float4 (29 KB at 184 triangles), and then walks ray blocks
 // as a persistent block, two rays a thread, so each broadcast float4 of G
-// feeds the FMAs of both rays (and of both ray sets in the merged scan).
+// feeds the FMAs of both rays (and of both ray sets in the merged scan):
+// `scan_ray_blocks` of flash_common.cuh, which K17 runs too.
 // Most pairs never divide: `pair_skip` proves from the numerators alone
 // that the exact epilogue would reject the pair or that its t is not
 // below the ray's running best (or within its max t); only the rest take
@@ -66,82 +67,22 @@ scan_kernel(const float* __restrict__ feats, const float* __restrict__ sh,
             int* __restrict__ occ_out, float* __restrict__ attrs_out,
             int B, int TT, int W, int L) {
   extern __shared__ float4 sg[];  // [row][live triangle] -> (det, u, v, t)
-  stage_packed(sg, L, pg, TT, 0, 0, L);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int n_blocks = (B + RAYS - 1) / RAYS;
-  for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
-    int ray[RPT];
-    bool active[RPT];
-    float f[RPT][NROWS], s[RPT][NROWS];
-    float maxt[RPT], lim_s[RPT], best_t[RPT], lim_n[RPT];
-    int best_i[RPT];
-    bool occ[RPT];
+  scan_ray_blocks<NEAR, ANY, THREADS, RPT, 4>(sg, pg, TT, L, feats, sh, B,
+                                               [&](const TileRays<RPT>& r) {
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
-      ray[k] = rb * RAYS + k * THREADS + threadIdx.x;
-      active[k] = ray[k] < B;
-      load_rows(feats, B, ray[k], NEAR && active[k], f[k]);
-      load_rows(sh, B, ray[k], ANY && active[k], s[k]);
-      maxt[k] = (ANY && active[k]) ? sh[(size_t)MAXT_ROW * B + ray[k]] : 0.0f;
-      lim_s[k] = skip_limit(maxt[k]);
-      best_t[k] = INFINITY;  // the exact scan's first column always lands
-      lim_n[k] = INFINITY;
-      best_i[k] = 0;
-      occ[k] = !(ANY && active[k]);  // nothing to test
-    }
-#pragma unroll 4
-    for (int j = 0; j < L; ++j) {
-      float4 g[NROWS];
-#pragma unroll
-      for (int r = 0; r < NROWS; ++r) g[r] = sg[r * L + j];
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        if (NEAR) {
-          float4 acc;
-#pragma unroll
-          for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, f[k][r], g[r], r == 0);
-          if (!(best_t[k] <= BIG) || !pair_skip(acc, lim_n[k])) {
-            float t;
-            bool valid;
-            pair_epilogue(acc, t, valid);
-            const float tm = valid ? t : BIG;
-            if (tm < best_t[k]) {
-              best_t[k] = tm;
-              best_i[k] = j;
-              lim_n[k] = skip_limit(tm);
-            }
-          }
-        }
-        if (ANY && !occ[k]) {
-          float4 acc;
-#pragma unroll
-          for (int r = 0; r < NROWS; ++r) pair_accumulate(acc, s[k][r], g[r], r == 0);
-          if (!pair_skip(acc, lim_s[k])) {
-            float t;
-            bool valid;
-            pair_epilogue(acc, t, valid);
-            occ[k] = valid && t <= maxt[k];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      if (!active[k]) continue;
+      if (!r.active[k]) continue;
       if (NEAR) {
-        t_out[ray[k]] = best_t[k];
-        idx_out[ray[k]] = best_i[k];
+        t_out[r.ray[k]] = r.best_t[k];
+        idx_out[r.ray[k]] = r.best_i[k];
         if (ATTRS) {
-          const float* row = attrs + (size_t)best_i[k] * W;
-          for (int w = 0; w < W; ++w) attrs_out[(size_t)w * B + ray[k]] = row[w];
+          const float* row = attrs + (size_t)r.best_i[k] * W;
+          for (int w = 0; w < W; ++w) attrs_out[(size_t)w * B + r.ray[k]] = row[w];
         }
       }
-      if (ANY) occ_out[ray[k]] = occ[k] ? 1 : 0;
+      if (ANY) occ_out[r.ray[k]] = r.occ[k] ? 1 : 0;
     }
-  }
+  });
 }
 
 // Launch one scan: a persistent grid of as many blocks as the device runs
@@ -153,22 +94,13 @@ int launch_scan(const float* feats, const float* sh, const float* pg, const floa
   if (L < 1 || L > TT || TT > MAX_TT) return (int)cudaErrorInvalidValue;
   auto kernel = scan_kernel<NEAR, ANY, ATTRS>;
   const size_t smem = (size_t)NROWS * L * sizeof(float4);
-  static int sms = 0;  // per template, set at the first launch with the shared-memory opt-in
-  if (sms == 0) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(NROWS * MAX_TT * sizeof(float4)));
-    if (e != cudaSuccess) return (int)e;
-    int dev = 0;
-    cudaGetDevice(&dev);
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  static int sms = 0;  // per template
+  cudaError_t e = opt_in(kernel, NROWS * MAX_TT * sizeof(float4), sms);
   if (e != cudaSuccess) return (int)e;
-  const int n_blocks = (B + RAYS - 1) / RAYS;
-  const int grid = per_sm * sms < n_blocks ? per_sm * sms : n_blocks;
-  scan_kernel<NEAR, ANY, ATTRS><<<grid > 0 ? grid : 1, THREADS, smem, (cudaStream_t)stream>>>(
+  int grid = 0;
+  e = persistent_grid(kernel, THREADS, smem, sms, (B + RAYS - 1) / RAYS, grid);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       feats, sh, reinterpret_cast<const float4*>(pg), attrs, t, idx, occ, attrs_t, B, TT, W, L);
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,10 @@ bounce's shadow result, and the whole shading stage of
 ops/shade_kernel.py (emission and MIS, BSDF sample, NEE alias pick and
 shadow ray, roulette, the procedural sky on the last bounce).
 
-`fused_bounce` computes what a flash scan with the row (K2, or K1 without
-shadow rays; ops/flash_intersect.py) followed by the shade kernel (K4, or
-K8 for alias tables over 16 entries) computes, bit for bit, in one kernel
+`fused_bounce` computes what a flash scan with the row (one tile: K2, or
+K1 without shadow rays; many: K10 or K9 and a row gather;
+ops/flash_intersect.py) followed by the shade kernel (K4, or K8 for
+alias tables over 16 entries) computes, bit for bit, in one kernel
 (csrc/fused_bounce.cu): t, idx, occ and the winner's rows never reach
 device memory. The layouts are the shade kernel's: state [NST, B], ray
 rows [16, B], `sidx` and `offsets` as int32 bits from which the kernel
@@ -20,10 +21,18 @@ pass. At the first bounce of a group those rays belong to the group
 before it; `hold_occ` then returns their occlusion instead of folding it.
 
 The envelope is the archived kernel's (`supported`): untextured scenes
-under the procedural sky. Every tile is scanned whole, with no cull.
+under the procedural sky. The scan is K2's on one tile (live columns,
+`pair_skip` before the exact division) and K10's on many (each ray's
+slab test against the tiles' AABBs, both ray sets): the same winners as
+a scan of every pair of every tile, and the same occlusion where a
+shadow ray's NEE term is eligible (a dead lane's shadow ray may lose a
+hit its slab test rules out, and no fold reads it). The plain version
+scans every pair.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -66,7 +75,7 @@ def supported(scene, cfg: StaticConfig | None = None) -> bool:
 
 
 def scan_plain(feats_t, sh_t, g16):
-    """The scan K17 runs, in plain PyTorch: every (ray, triangle) pair of
+    """The scan of K17's plain version: every (ray, triangle) pair of
     every tile -> (t, idx, occ [B] i32 or None without shadow rays)."""
     nt = FI.geometry(g16)[2]
     if nt == 1:
@@ -93,9 +102,24 @@ def fused_bounce_plain(
     return st_out, nf, sf, occ if hold_occ else None
 
 
+def scan_operands(g16, n_live, tile_aabbs, device) -> int:
+    """Check the scan's operands of a K17 call on `device` -> the live
+    triangles it walks: `n_live` in 1..the table's width (None: the whole
+    width); on many tiles a CUDA call takes the tiles' AABBs [NT, 8]."""
+    t_pad, _, nt = FI.geometry(g16)
+    live = FI.live_count(n_live, t_pad)
+    if nt > 1 and device.type == "cuda" and tile_aabbs is None:
+        raise ValueError("K17 on many tiles takes tile_aabbs on a CUDA device (each ray's "
+                         "slab test)")
+    if tile_aabbs is not None:
+        _build.check(tile_aabbs, "tile_aabbs", torch.float32, (nt, 8), device)
+    return live
+
+
 def fused_bounce(
     cfg: StaticConfig, bounce: int, params, entry_rows, st, feats_t, sh_t, g16, attrs,
     sidx, offsets, has_glass: bool = False, n_alias: int = 0, hold_occ: bool = False,
+    n_live: Optional[int] = None, tile_aabbs=None,
 ):
     """K17 (replaces archive/fused_bounce `fused_bounce`): one bounce of
     scan and shading over B lanes.
@@ -106,12 +130,16 @@ def fused_bounce(
     in row SH_MAXT_COL), or None; g16 [16, NT*4*TT], the triangle table;
     attrs [NT*TT, SLIM_WIDTH], the slim shading rows. With `hold_occ` the
     shadow rays' occlusion is returned ([B] i32) and not folded into the
-    state. Returns (st_out, next rays or None on the last bounce, shadow
-    rays or None without NEE, occ or None)."""
+    state. `n_live`: the live triangles (the scene's `n_tris`; None: the
+    table's width); `tile_aabbs` [NT, 8]: the tiles' AABBs, required on
+    many tiles on a CUDA device (`scan_operands`). The plain version (CPU)
+    checks both and scans every pair. Returns (st_out, next rays or None
+    on the last bounce, shadow rays or None without NEE, occ or None)."""
     if hold_occ and sh_t is None:
         raise ValueError("hold_occ needs shadow rays")
     if cfg.has_skybox:
         raise ValueError("the fused bounce kernel renders the procedural sky only")
+    live = scan_operands(g16, n_live, tile_aabbs, st.device)
     if _build.uses_plain(st):
         return fused_bounce_plain(
             cfg, bounce, params, entry_rows, st, feats_t, sh_t, g16, attrs, sidx, offsets,
@@ -142,11 +170,12 @@ def fused_bounce(
     occ = torch.empty(b, dtype=torch.int32, device=dev) if hold_occ else None
     if b:
         _build.launch(
-            _build.entry_point("fused_bounce", "rt_fused_bounce", 14, 13), "fused_bounce", dev,
-            (params, entry_rows, st, feats_t, sh_t, g16, attrs, sidx, offsets,
-             SK._lds_primes(dev), st_out, nf, sf, occ),
-            (b, nt, tt, W.SLIM_WIDTH, bounce, cfg.min_bounces, cfg.max_bounces, int(cfg.nee),
-             int(uses_nee), int(has_glass), n_alias, entry_rows.shape[0],
+            _build.entry_point("fused_bounce", "rt_fused_bounce", 15, 14), "fused_bounce", dev,
+            (params, entry_rows, st, feats_t, sh_t, FI.packed_table(g16),
+             tile_aabbs if nt > 1 else None, attrs, sidx, offsets, SK._lds_primes(dev), st_out,
+             nf, sf, occ),
+            (b, nt, tt, W.SLIM_WIDTH, live, bounce, cfg.min_bounces, cfg.max_bounces,
+             int(cfg.nee), int(uses_nee), int(has_glass), n_alias, entry_rows.shape[0],
              int(n_alias > SK.MAX_ALIAS)),
         )
         LAUNCHES["fused_bounce"] += 1

@@ -1,8 +1,9 @@
-"""Three questions about how the kernels are built, asked on one CUDA device.
+"""Four questions about how the kernels are built, asked on one CUDA device.
 
     python -m rustic_tpu_torch.probe_kernel_builds contraction [DIR ...]
     python -m rustic_tpu_torch.probe_kernel_builds shade LABEL=SOURCE.cu [LABEL=SOURCE.cu ...]
     python -m rustic_tpu_torch.probe_kernel_builds scans LABEL=DIR [LABEL=DIR ...]
+    python -m rustic_tpu_torch.probe_kernel_builds fused LABEL=DIR [LABEL=DIR ...]
 
 `contraction`: do the scans round the same with and without nvcc's FMA
 contraction? K17 (csrc/fused_bounce.cu) runs the scans' pair test in a
@@ -50,6 +51,24 @@ version's ABI is read from its `rt_scan_abi` (none: 1): from 2 the grid
 form, from 3 the list form and the resident form read the packed table
 or take the live triangle count, and K5 and K6 take the tiles' AABBs
 for each ray's slab test of the nearest set inside the listed tiles.
+
+`fused`: K17 (fused_bounce.cu, built with -fmad=false from each DIR, its
+includes found beside it, then in csrc/) on every bounce of one traced
+DarkCornell group (1280x720x4 = 3,686,400 lanes, through K1/K2 and K4)
+and of one traced VeachMIS group (1024x1024x4 = 4,194,304 lanes, unsorted,
+through K9/K10, a row gather and K8): folded and, where shadow rays are
+pending, held; on DarkCornell with the alias entries in shared memory
+(narrow) and read from the global table (wide), on VeachMIS wide. The
+state, the next rays and the shadow rays against the first version's bit
+for bit on every lane (NaN equal to NaN), and the held occlusion on
+every lane on one tile, on many tiles on every lane whose NEE term is
+eligible (the count of the others that differ printed); each case timed
+in turns (median of 10 CUDA-event timings). Each version's ABI is read
+from its `rt_fused_abi` (none: 1, the JAX table layout and every pair;
+2: the packed table, the tiles' AABBs and the live count); from 2 the
+blocks an SM holds in each mode (`rt_fused_blocks_per_sm`; both alias
+modes, also the one the scene does not run). Registers and spills of
+every template from the build logs.
 
 All print the card's name and power limit first.
 """
@@ -348,6 +367,166 @@ def shade(sources) -> int:
     return 0
 
 
+# ---- fused ----------------------------------------------------------------------
+
+
+def fused_abi(lib: str) -> int:
+    """The build's `rt_fused_abi`: 2 where K17 reads the packed table and
+    takes the tiles' AABBs and the live count, 1 for a build without it."""
+    try:
+        fn = ctypes.CDLL(lib).rt_fused_abi
+    except AttributeError:
+        return 1
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def fused_trace(name, device):
+    """One group of `name` traced through the kernel-shade composition of
+    K17 (one tile: K1/K2 and K4; many: K9/K10 in the grid form, a row
+    gather and K8, unsorted) -> (scene, cfg, params, sidx, offsets,
+    [(st, feats, pending shadow rows)] a bounce)."""
+    from rustic_tpu_torch.ops import fused_bounce as FB
+
+    if name == "DarkCornell":
+        config = TracingConfig(width=1280, height=720, nee=NextEventEstimation.MIS)
+    else:
+        config = TracingConfig(width=1024, height=1024, nee=NextEventEstimation.MIS, **VEACH_CAM)
+    scene, cfg, cam, px, py, off = group(f"assets/scenes/{name}.glb", config, device)
+    if not FB.supported(scene, cfg):
+        raise ValueError(f"{name} is outside K17's envelope")
+    kw = dict(has_glass=scene.has_glass, n_alias=scene.n_alias_entries)
+    many = FI.geometry(scene.tri_feats16)[2] > 1
+    shade = SK.shade_bounce_wide if scene.n_alias_entries > SK.MAX_ALIAS else SK.shade_bounce
+    st, feats, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+    pending, bounces = None, []
+    for b in range(cfg.max_bounces):
+        bounces.append((st, feats, pending))
+        if many:
+            t, i, occ = P._scan(feats, pending, scene, "grid")
+            occ = None if occ is None else occ.to(torch.int32)
+            rows = scene.tri_attrs[i.long()].T.contiguous()
+        elif pending is None:
+            (t, i, rows), occ = FI.nearest_attrs(feats, scene.tri_feats16, scene.tri_attrs,
+                                                 scene.n_tris), None
+        else:
+            t, i, occ, rows = FI.nearest_shadow_attrs(feats, pending, scene.tri_feats16,
+                                                      scene.tri_attrs, scene.n_tris)
+        st, nf, pending = shade(cfg, b, params, scene.entry_rows, st, feats, t, i, rows, occ,
+                                sidx, off, **kw)
+        feats = nf if nf is not None else feats
+    return scene, cfg, params, sidx, off, bounces
+
+
+def run_fused(lib, scene, cfg, bounce, params, st, feats, pending, sidx, off, outs, wide):
+    """Launch K17 of build `lib` into `outs` (state, next rays or None,
+    shadow rays, occ or None: held when given)."""
+    g16, dev = scene.tri_feats16, st.device
+    _, tt, nt = FI.geometry(g16)
+    n_alias = scene.n_alias_entries
+    primes = SK._lds_primes(dev)
+    ints = (cfg.min_bounces, cfg.max_bounces, int(cfg.nee), int(n_alias > 0),
+            int(scene.has_glass), n_alias, scene.entry_rows.shape[0], int(wide))
+    head = (params, scene.entry_rows, st, feats, pending)
+    if fused_abi(lib) >= 2:
+        ptrs = (*head, FI.packed_table(g16), scene.tile_aabbs if nt > 1 else None,
+                scene.tri_attrs, sidx, off, primes, *outs)
+        ints = (st.shape[1], nt, tt, scene.tri_attrs.shape[1], scene.n_tris, bounce) + ints
+    else:
+        ptrs = (*head, g16, scene.tri_attrs, sidx, off, primes, *outs)
+        ints = (st.shape[1], nt, tt, scene.tri_attrs.shape[1], bounce) + ints
+    entry = _build.load_entry(lib, "rt_fused_bounce", len(ptrs), len(ints))
+    _build.launch(entry, "K17", dev, ptrs, ints)
+
+
+def fused(specs) -> int:
+    device = torch.device("cuda", 0)
+    card = card_line()
+    dirs = dict(spec.split("=", 1) for spec in specs)
+    with ThreadPoolExecutor(len(dirs)) as pool:  # one nvcc per source
+        libs = dict(zip(dirs, pool.map(lambda label: _build.compile_source(
+            os.path.join(dirs[label], "fused_bounce.cu"), _build.EXTRA_FLAGS["fused_bounce"]),
+            dirs)))
+    for label, lib in libs.items():
+        with open(lib[: -len(".so")] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"{label}: {line.strip()}")
+    failed = False
+    for name in ("DarkCornell", "VeachMIS"):
+        scene, cfg, params, sidx, off, bounces = fused_trace(name, device)
+        torch.cuda.synchronize()
+        many = FI.geometry(scene.tri_feats16)[2] > 1
+        wides = (True,) if scene.n_alias_entries > SK.MAX_ALIAS else (False, True)
+        for label, lib in libs.items():
+            if fused_abi(lib) < 2:
+                continue
+            fn = getattr(ctypes.CDLL(lib), "rt_fused_blocks_per_sm")
+            fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+            print(f"{label} {name}: blocks an SM holds (any-hit set, alias mode): " + ", ".join(
+                f"{'shadow' if any_ else 'none'} {'wide' if w else 'narrow'} "
+                f"{fn(int(many), int(any_), int(w), scene.n_tris)}"
+                for any_ in (False, True) for w in (False, True)))
+        for bounce, (st, feats, pending) in enumerate(bounces):
+            b = st.shape[1]
+            last = bounce == cfg.max_bounces - 1
+            eligible = st[SK.SK_PEND_ELIG] > 0.5
+            for hold in (False,) if pending is None else (False, True):
+                for wide in wides:
+                    what = (f"{name} bounce {bounce} {'held' if hold else 'folded'} "
+                            f"{'wide' if wide else 'narrow'}")
+
+                    def alloc():
+                        return (torch.empty((SK.NST, b), dtype=torch.float32, device=device),
+                                None if last else torch.empty((16, b), dtype=torch.float32,
+                                                              device=device),
+                                torch.empty((16, b), dtype=torch.float32, device=device),
+                                torch.empty(b, dtype=torch.int32, device=device) if hold else None)
+
+                    outs = {label: alloc() for label in libs}
+
+                    def run(label, bounce=bounce, st=st, feats=feats, pending=pending,
+                            wide=wide, outs=outs):
+                        run_fused(libs[label], scene, cfg, bounce, params, st, feats, pending,
+                                  sidx, off, outs[label], wide)
+
+                    for label in libs:
+                        run(label)
+                    torch.cuda.synchronize()
+                    base = next(iter(libs))
+                    for label in libs:
+                        diff = [int((~((x == y) | (x.isnan() & y.isnan()))).any(dim=0).sum())
+                                if x is not None else 0
+                                for x, y in zip(outs[label][:3], outs[base][:3])]
+                        msg = f"(state, next rays, shadow rays) lanes differing {diff}"
+                        bad = any(diff)
+                        if hold:
+                            occ_diff = outs[label][3] != outs[base][3]
+                            n_elig = int((occ_diff & eligible).sum())
+                            n_other = int((occ_diff & ~eligible).sum())
+                            bad |= n_elig > 0 or (not many and n_other > 0)
+                            msg += f"; held occ differing: {n_elig} eligible, {n_other} not"
+                        failed |= bad
+                        print(f"K17 {what} at {b} lanes, {label}: "
+                              f"{'DIFFERS from' if bad else 'equals'} {base}'s: {msg}")
+                    times = {label: [] for label in libs}
+                    for label in libs:  # warm
+                        run(label)
+                    torch.cuda.synchronize()
+                    for _ in range(10):  # in turns
+                        for label in libs:
+                            times[label].append(time_ms(lambda label=label: run(label)))
+                    print(f"K17 {what}: " + ", ".join(
+                        f"{label} {statistics.median(ts):.3f} ms (min {min(ts):.3f})"
+                        for label, ts in times.items()) + f" ({card})")
+                    del outs
+        del scene, bounces
+        torch.cuda.empty_cache()
+    print("every version equals the first bit for bit (held occ: on every lane of one tile, "
+          "on the eligible lanes of many)" if not failed else "a version DIFFERS from the first")
+    return int(failed)
+
+
 # ---- scans ----------------------------------------------------------------------
 
 
@@ -516,7 +695,7 @@ def scans(specs) -> int:
 
 
 def main(argv) -> int:
-    if not argv or argv[0] not in ("contraction", "shade", "scans"):
+    if not argv or argv[0] not in ("contraction", "shade", "scans", "fused"):
         print(__doc__)
         return 2
     print(card_line())
@@ -524,6 +703,8 @@ def main(argv) -> int:
         return contraction([_build.CSRC] + argv[1:])
     if argv[0] == "scans":
         return scans(argv[1:])
+    if argv[0] == "fused":
+        return fused(argv[1:])
     return shade(argv[1:])
 
 

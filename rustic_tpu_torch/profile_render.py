@@ -71,6 +71,8 @@ CONFIGS = {
 
 # demangled kernel names -> the port's kernel ids
 _KERNELS = {
+    "fused_tile_kernel<": "K17 fused_bounce",
+    "fused_grid_kernel<": "K17 fused_bounce",  # matched before the grid_kernel< keys
     "scan_kernel<true,false,true>": "K1 nearest_attrs",
     "scan_kernel<true,true,true>": "K2 nearest_shadow_attrs",
     "scan_kernel<false,true,false>": "K3 occlude",
@@ -87,7 +89,6 @@ _KERNELS = {
     "resident_kernel<true,false>": "K14 nearest_resident",
     "resident_kernel<true,true>": "K15 nearest_shadow_resident",
     "resident_kernel<false,true>": "K16 occlude_resident",
-    "fused_kernel<": "K17 fused_bounce",
 }
 
 

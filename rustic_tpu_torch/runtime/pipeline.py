@@ -641,7 +641,7 @@ def _render_batch_fused(scene, cfg, cam, px, py, offsets, sample_start, n_sample
     """The fused loop (the render loop of archive/fused_bounce): the
     single-tile kernel-shade loop with the two launches of a bounce, scan
     and shade, replaced by one launch of K17, which takes any number of
-    tiles. The last bounce's shadow rays of a group ride the next group's
+    tiles (K2's scan on one, K10's on many). The last bounce's shadow rays of a group ride the next group's
     first launch, which hands their occlusion back (`hold_occ`); the last
     group's go through the any-hit scan alone (K3 on one tile, else the
     form `scan` names). A scene outside K17's envelope raises ValueError."""
@@ -673,6 +673,7 @@ def _render_batch_fused(scene, cfg, cam, px, py, offsets, sample_start, n_sample
             st, nf, pending_sh, occ = FB.fused_bounce(
                 cfg, bounce, params, scene.entry_rows, st, feats_t, pending_sh, g16, attrs,
                 sidx, offg, has_glass=scene.has_glass, n_alias=n_alias, hold_occ=holding,
+                n_live=scene.n_tris, tile_aabbs=scene.tile_aabbs,
             )
             if holding:  # this occlusion result belongs to the held group
                 st_h, _sh, g_h = held
