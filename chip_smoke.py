@@ -12,8 +12,12 @@ BreakTime and VeachMIS) and DarkCornell through the torch-shade loop
 the kernel-shade loop with the resident scans (K14-K16, the triangle
 table in a thread-block cluster's shared memory); then the fused loop
 (K17: one launch a bounce, scan and shading in one kernel) on DarkCornell
-and VeachMIS, and the dot-rate probes (K18, K19) through their program,
-rustic_tpu_torch/probe_dot_floor.py.
+and VeachMIS; then FurnaceTest, GlassTest and PBRTest timed in each scan
+form (the grid form, K9-K11, is the default), the state-sorted driver
+(path compaction; the scans on whole-state-sorted rays, torch shading)
+and "auto" against the kernel-shade loop, and the DarkCornell, GlassTest
+and FurnaceTest reference films; and the dot-rate probes (K18, K19)
+through their program, rustic_tpu_torch/probe_dot_floor.py.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`--only PHASE[,PHASE...]` runs the device phase and the named ones.)
@@ -51,7 +55,8 @@ Phases, each of which must pass (the first that fails ends the run):
      equal to their plain versions (the lists alone) bit for bit (NaN
      equal to NaN); K7 index and occlusion equal on >= 99.99% of rays.
   7. multi-time: K5-K7 and their plain versions at 4,194,304 lanes, in
-     turns, as phase 3 (the lists are built before the timed launches);
+     turns, as phase 3 but medians of 3 (the lists are built before the
+     timed launches);
      each bound over the pairs its loop needs on this data (the nearest
      set: the listed tiles that each ray's slab test admits at its running
      best t; the any-hit set: the listed tiles a ray reaches before it is
@@ -81,14 +86,19 @@ Phases, each of which must pass (the first that fails ends the run):
      for the kernel-shade loop, K8 64; none of K1-K4 (nor K8 on the
      ray-sorted loop).
  12. multi-film: VeachMIS 256x144 x 1024 spp through the kernel-shade and
-     the ray-sorted loop against the committed reference film
+     the ray-sorted loop with tile lists and the state-sorted driver in
+     the default scan form against the committed reference film
      (assets/reference/veachmis_256x144_1024spp.npy): relative energy
-     within 1%, RMSE under the bound of tests/test_reference_films.py.
+     within 1%, RMSE under the bound of tests/test_reference_films.py;
+     each render's launch counts (the state-sorted driver: its pilot,
+     then per group the nearest scan once, the merged scan once a later
+     bounce and the any-hit scan once).
  13. multi-cross-device: VeachMIS 64x64x4 through the kernel-shade and
-     the ray-sorted loop (the unsorted loop's film is held to the JAX film
-     by the CPU tests), and
+     the ray-sorted loop and the state-sorted driver (the unsorted loop's
+     film is held to the JAX film by the CPU tests), and
      FurnaceTest 64x64x4 (5,120 alias entries) through the kernel-shade
-     loop, card against host CPU, rtol 1e-4, atol 1e-5.
+     loop, card against host CPU, rtol 1e-4, atol 1e-5; launch counts
+     as phase 12.
  14. breaktime-check: BreakTime (BASELINE.md config 5: 1920x1080, NEE+MIS,
      4 bounces, HDR sky, the camera of tools/quality_gate.py) loaded once
      (PNG decode, the 4096^2 atlas and the upload timed); one fold group
@@ -105,7 +115,7 @@ Phases, each of which must pass (the first that fails ends the run):
      BreakTime has 2 alias entries) and K8, both in HDR mode, bit-equal to
      their plain version on every bounce.
  15. breaktime-time: K9-K11 and their plain versions in turns as phase 7
-     (median of 3); the lane utilisation a loop of one thread a ray would
+     (2 turns: a plain version takes 3-6 s); the lane utilisation a loop of one thread a ray would
      have (admitted lanes over 32 x the warp-tiles with one), and the
      exact-epilogue shares of the skip test as phase 3; each form's whole
      scan, block_tile_lists plus K5-K7 against K9-K11 alone, and the list
@@ -116,9 +126,11 @@ Phases, each of which must pass (the first that fails ends the run):
      Mpaths/s; launch counts per the 2 pixel chunks x 8 groups x 4
      bounces (K9 2, K10 62, K11 2, K4 64 on the grid render, none of
      K5-K7 and no block_tile_lists call there); a finite film.
- 17. breaktime-film: BreakTime 256x144 x 1024 spp with each scan form
-     against assets/reference/breaktime_256x144_1024spp.npy: relative
-     energy within 1%, RMSE under the bound of tests/test_reference_films.py.
+ 17. breaktime-film: BreakTime 256x144 x 1024 spp with each scan form,
+     and through the state-sorted driver (default form), against
+     assets/reference/breaktime_256x144_1024spp.npy: relative energy
+     within 1%, RMSE under the bound of tests/test_reference_films.py;
+     launch counts as phase 12.
  18. breaktime-cross-device: BreakTime 64x64x4 with each scan form, card
      against host CPU (the resident form against the grid form's host
      film: on the host both run one plain version): entries outside rtol 1e-4 / atol 1e-5 no more than
@@ -183,7 +195,29 @@ Phases, each of which must pass (the first that fails ends the run):
      multitile_loop="fused" (K10's scan inside K17), launch counts
      K17 16, K7 1; its 64x64x4 film against the kernel-shade loop's,
      rtol 1e-4, atol 1e-5.
- 27. probe-check: K18 (FP32 FMAs; TF32, BF16 and int8 tensor cores through
+ 27. scenes-renders: FurnaceTest 256x256 x 64 spp (BASELINE.md config 1),
+     GlassTest 512x512 x 64 spp (config 3, 512 spp cut) and PBRTest
+     1280x720 x 16 spp, NEE+MIS, 4 bounces, through the kernel-shade loop
+     with each scan form the scene admits (PBRTest's table does not fit a
+     cluster: the resident form must raise ValueError): a one-group
+     warm-up each, then 3 renders of each form in turns; Mpaths/s (median
+     and spread) and each render's launch counts, checked.
+ 28. sorted-modes: one VeachMIS 1024x1024 group traced through the
+     state-sorted driver with its pilot's schedule (compacted: the
+     bounce-3 operands are a quarter of the lanes); each form's three
+     scans on its bounce-1 and bounce-3 operands against their plain
+     versions, at 65,613 lanes and at full length: K5/K6 bit for bit, the
+     others as phases 14 and 22. Then the state-sorted driver, "auto" and
+     the kernel-shade loop (default scan form) in turns on VeachMIS 64 spp
+     and the scenes of phase 27, a one-group warm-up each and 3 renders:
+     Mpaths/s, launch counts, each scene's pilot schedule, its work
+     fraction W and whether auto's pick (state-sorted where W <= 0.7) was
+     the faster driver; on VeachMIS the state-sorted driver also in the
+     other scan forms (launch counts).
+ 29. films: DarkCornell (2048 spp), GlassTest and FurnaceTest (NEE off,
+     1024 spp) 256x144 against assets/reference as phase 12, through the
+     default loop and (the multi-tile two) the state-sorted driver.
+ 30. probe-check: K18 (FP32 FMAs; TF32, BF16 and int8 tensor cores through
      mma.sync; BF16 through wgmma) and K19 (the six-term split dot at K =
      96, F pre-split or split in the kernel, and the three-term dot at K =
      48, through mma.sync and through wgmma) against their plain
@@ -216,6 +250,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -240,6 +275,32 @@ MT_REF = "assets/reference/veachmis_256x144_1024spp.npy"
 MT_REF_SPP = 1024
 MT_REF_RMSE_TPU = 1.55e-4  # QUALITY_r5.json, the TPU build at 256x144x1024 spp
 FURNACE = "assets/scenes/FurnaceTest.glb"
+GLASS_CAM = dict(cam_position=(0.0, 2.2, -6.5), cam_rotation=(0.15, 0.0))
+
+# the other multi-tile scenes, NEE+MIS, 4 bounces, default cameras where
+# tools/quality_gate.py names none: FurnaceTest (BASELINE.md config 1),
+# GlassTest (config 3, 512 spp cut to 64 for card time) and PBRTest at the
+# size of the JAX package's sort-mode crossover (rustic_tpu/runtime/pipeline.py:1714-1721)
+OTHER_SCENES = {
+    "FurnaceTest": dict(path=FURNACE, size=(256, 256), spp=64, cam={}),
+    "GlassTest": dict(path="assets/scenes/GlassTest.glb", size=(512, 512), spp=64, cam=GLASS_CAM),
+    "PBRTest": dict(path="assets/scenes/PBRTest.glb", size=(1280, 720), spp=16, cam={}),
+}
+# each scan form's (nearest, merged, any-hit) wrappers, by their launch-count names
+SCAN_KERNELS = {
+    "lists": ("nearest_multi", "nearest_shadow_multi", "occlude_multi"),
+    "grid": ("nearest_grid", "nearest_shadow_grid", "occlude_grid"),
+    "resident": ("nearest_resident", "nearest_shadow_resident", "occlude_resident"),
+}
+# the reference films phase 29 holds (tests/test_reference_films.py CASES):
+# (name, scene, film, spp, NEE+MIS, camera); FurnaceTest's is NEE off
+FILM_CASES = [
+    ("DarkCornell", "assets/scenes/DarkCornell.glb",
+     "assets/reference/darkcornell_256x144_2048spp.npy", 2048, True, {}),
+    ("GlassTest", "assets/scenes/GlassTest.glb", "assets/reference/glasstest_256x144_1024spp.npy",
+     1024, True, GLASS_CAM),
+    ("FurnaceTest", FURNACE, "assets/reference/furnacetest_256x144_1024spp.npy", 1024, False, {}),
+]
 
 # the full-pipeline configuration (BASELINE.md config 5, spp cut to 32)
 BT = "assets/scenes/BreakTime.glb"
@@ -968,7 +1029,8 @@ class Smoke:
             scene.n_tris - torch.arange(nt, device=self.dev) * tt, 0, tt).float()
         table = g16.shape[1] * RAY_ROWS * 4
         for key, (lists, rays, kern, plain) in cases.items():
-            self.time_pair(key, kern, plain, lanes, report=key in report)
+            # 3 turns: the plain versions take ~1-2 s a call at these lanes
+            self.time_pair(key, kern, plain, lanes, reps=3, report=key in report)
             b = rays[0].shape[1]
             nb = lists[0].shape[0]
             per_block = torch.full((nb,), float(FI.BT_MULTI), device=self.dev)
@@ -1230,38 +1292,24 @@ class Smoke:
 
     def mt_film(self, scans=None):
         """VeachMIS 256x144x1024 spp against the reference film, through
-        each loop with tile lists, or through the (loop, scan form) pairs
-        `scans`."""
+        each (loop, scan form) pair of `scans`: by default the kernel-shade
+        and ray-sorted loops with tile lists and the state-sorted driver
+        with the default form."""
         import numpy as np
 
         from rustic_tpu_torch.config import RenderSettings
-        from rustic_tpu_torch.runtime.render import render_image
 
+        self._mt_setup()
         ref = np.load(MT_REF)
-        h, w = ref.shape[:2]
-        config = dataclasses.replace(self.mt_config, width=w, height=h)
-        bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
+        config = dataclasses.replace(self.mt_config, width=ref.shape[1], height=ref.shape[0])
         if scans is None:  # the unsorted loop's film is held to these by the CPU tests
-            scans = [("kernel-shade", "lists"), ("ray-sorted", "lists")]
+            scans = [("kernel-shade", "lists"), ("ray-sorted", "lists"),
+                     ("state-sorted", RenderSettings.multitile_scan)]
         for loop, scan in scans:
-            t0 = time.time()
-            film = render_image(self.mt_scene, config,
-                                RenderSettings(samples=MT_REF_SPP, multitile_loop=loop,
-                                               multitile_scan=scan),
-                                device=self.dev)
-            wall = time.time() - t0
-            rel_energy = abs(float(film.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-9)
-            rmse = float(np.sqrt(np.mean((film - ref) ** 2)))
-            log(f"VeachMIS {w}x{h}x{MT_REF_SPP} spp, {loop} loop, {scan} scans: {wall:.2f} s, film mean "
-                f"{film.mean():.6f} vs reference {ref.mean():.6f} (relative energy "
-                f"{rel_energy:.6f}), RMSE {rmse:.6g} (bound {bound:.4g}; TPU build "
-                f"{MT_REF_RMSE_TPU:g}, QUALITY_r5.json)")
-            if not np.isfinite(film).all():
-                self.fail(f"{loop}: film is not finite")
-            if rel_energy > 0.01:
-                self.fail(f"{loop}: relative energy {rel_energy} is not within 1%")
-            if rmse >= bound:
-                self.fail(f"{loop}: RMSE {rmse} is not under {bound}")
+            self._film_gate(f"VeachMIS, {loop} loop, {scan} scans,", self.mt_scene, config, ref,
+                            RenderSettings(samples=MT_REF_SPP, multitile_loop=loop,
+                                           multitile_scan=scan),
+                            note=f"; TPU build {MT_REF_RMSE_TPU:g}, QUALITY_r5.json")
 
     def _cross(self, what, scene, config, loop):
         import numpy as np
@@ -1270,7 +1318,9 @@ class Smoke:
         from rustic_tpu_torch.runtime.render import render_image
 
         settings = RenderSettings(samples=4, multitile_loop=loop)
-        gpu = render_image(scene, config, settings, device=self.dev)
+        gpu, _, counts, pilots, _ = self._render_counted(scene, config, settings)
+        self._check_counts(what, counts, self._loop_counts(
+            loop, settings.multitile_scan, scene, config, settings.samples, pilots))
         cpu = render_image(scene.to("cpu"), config, settings, device="cpu")
         bad = ~np.isclose(gpu, cpu, rtol=1e-4, atol=1e-5)
         log(f"{what} 64x64x4 film, card vs host CPU: max |d| {np.abs(gpu - cpu).max():.3g}, "
@@ -1283,8 +1333,9 @@ class Smoke:
         from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
         from rustic_tpu_torch.scene.world import World
 
+        self._mt_setup()
         config = dataclasses.replace(self.mt_config, width=64, height=64)
-        for loop in ("kernel-shade", "ray-sorted"):
+        for loop in ("kernel-shade", "ray-sorted", "state-sorted"):
             self._cross(f"VeachMIS, {loop} loop,", self.mt_scene, config, loop)
         furnace = World.from_path(FURNACE).to_torch(self.dev)
         config = TracingConfig(width=64, height=64, nee=NextEventEstimation.MIS)
@@ -1518,7 +1569,7 @@ class Smoke:
                      "K10": lambda f=f, s=s: FI.nearest_shadow_grid_plain(f, s, g16, aabbs),
                      "K11": lambda s=s: FI.occlude_grid_plain(s, g16, aabbs)}[key]
             self.time_pair(key, lambda key=key, f=f, s=s: self._grid_call(key, f, s), plain,
-                           BT_LANES, reps=3)
+                           BT_LANES, reps=2)  # the plain versions take 3-6 s a call
             per_set, warp_tiles = (x.double() for x in FI._grid_scan(f, s, g16, aabbs)[4:6])
             pairs = float((per_set @ tile_tris).sum())
             for k, name in enumerate(("nearest", "any-hit")):
@@ -1617,33 +1668,21 @@ class Smoke:
                 self.fail("film is not finite or has the wrong shape")
 
     def bt_film(self):
+        """BreakTime 256x144x1024 spp against the reference film through the
+        kernel-shade loop with each scan form, and the state-sorted driver
+        with the default form."""
         import numpy as np
 
         from rustic_tpu_torch.config import RenderSettings
         from rustic_tpu_torch.runtime.pipeline import MULTITILE_SCANS
-        from rustic_tpu_torch.runtime.render import render_image
 
         ref = np.load(BT_REF)
-        h, w = ref.shape[:2]
-        config = dataclasses.replace(self.bt_config, width=w, height=h)
-        bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
-        for scan in MULTITILE_SCANS:
-            t0 = time.time()
-            film = render_image(self.bt_scene, config,
-                                RenderSettings(samples=MT_REF_SPP, multitile_scan=scan),
-                                device=self.dev)
-            wall = time.time() - t0
-            rel_energy = abs(float(film.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-9)
-            rmse = float(np.sqrt(np.mean((film - ref) ** 2)))
-            log(f"BreakTime {w}x{h}x{MT_REF_SPP} spp, {scan} scans: {wall:.2f} s, film mean "
-                f"{film.mean():.6f} vs reference {ref.mean():.6f} (relative energy "
-                f"{rel_energy:.6f}), RMSE {rmse:.6g} (bound {bound:.4g})")
-            if not np.isfinite(film).all():
-                self.fail(f"{scan}: film is not finite")
-            if rel_energy > 0.01:
-                self.fail(f"{scan}: relative energy {rel_energy} is not within 1%")
-            if rmse >= bound:
-                self.fail(f"{scan}: RMSE {rmse} is not under {bound}")
+        config = dataclasses.replace(self.bt_config, width=ref.shape[1], height=ref.shape[0])
+        runs = [("kernel-shade", scan) for scan in MULTITILE_SCANS]
+        for loop, scan in runs + [("state-sorted", RenderSettings.multitile_scan)]:
+            self._film_gate(f"BreakTime, {loop} loop, {scan} scans,", self.bt_scene, config, ref,
+                            RenderSettings(samples=MT_REF_SPP, multitile_loop=loop,
+                                           multitile_scan=scan))
 
     def bt_cross_device(self):
         """BreakTime 64x64x4, card against host CPU. Its normal-mapped
@@ -2397,6 +2436,360 @@ class Smoke:
 
     # ---- phase 27: the dot-rate probes (K18, K19) -------------------------------------
 
+    # ---- launch counts of a render ---------------------------------------------------------
+
+    def _loop_counts(self, loop, scan, scene, config, spp, pilots=0):
+        """The launches a render of `config`'s frame (one pixel chunk) x spp
+        through `loop` makes: the multi-tile loops' scans in the form `scan`
+        (the one-tile kernel-shade loop's K1-K3), the shade kernel of the
+        kernel-shade loops, and `pilots` runs of the state-sorted pilot
+        (bounces 0 .. max_bounces - 2 of one sample)."""
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops.nee import ENTRY_SELECT_MAX
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        n_px, nb = config.width * config.height, config.max_bounces
+        nee = config.nee.uses_nee and scene.has_lights
+        if FI.geometry(scene.tri_feats16)[2] == 1:
+            near, both, occl = "nearest_attrs", "nearest_shadow_attrs", "occlude"
+        else:
+            near, both, occl = SCAN_KERNELS[scan]
+        if loop == "state-sorted":  # no shadow rays held across groups
+            groups = -(-spp // P.pick_sample_fold(n_px, spp, sorted_path=True))
+            if not nee:
+                return {near: groups * nb + pilots * (nb - 1)}
+            return {near: groups + pilots, both: groups * (nb - 1) + pilots * (nb - 2),
+                    occl: groups}
+        groups = -(-spp // P.pick_sample_fold(n_px, spp))
+        out = {near: nb * groups} if not nee else {near: 1, both: nb * groups - 1, occl: 1}
+        if loop != "ray-sorted":
+            n_alias = scene.n_alias_entries if nee else 0
+            out["shade_bounce_wide" if n_alias > ENTRY_SELECT_MAX else "shade_bounce"] = nb * groups
+        return out
+
+    def _render_counted(self, scene, config, settings):
+        """render_image on the card -> (film, seconds, launch counts, state-sorted
+        pilots run, state-sorted groups finished). The pilots are counted
+        at `_quantize_schedule`, which each pilot calls once (the pilot
+        cache is keyed on `_pilot_schedule` itself, so that stays as it is)."""
+        from rustic_tpu_torch.runtime import pipeline as P
+        from rustic_tpu_torch.runtime.render import render_image
+
+        seen = {"_quantize_schedule": 0, "ss_finish": 0}
+        real = {name: getattr(P, name) for name in seen}
+
+        def counted(name):
+            def wrapper(*a, **k):
+                seen[name] += 1
+                return real[name](*a, **k)
+            return wrapper
+
+        for name in seen:
+            setattr(P, name, counted(name))
+        try:
+            self.torch.cuda.synchronize()
+            self.reset_counts()
+            t0 = time.time()
+            film = render_image(scene, config, settings, device=self.dev)
+            seconds = time.time() - t0
+            counts = self.counts()
+        finally:
+            for name, fn in real.items():
+                setattr(P, name, fn)
+        return film, seconds, counts, seen["_quantize_schedule"], seen["ss_finish"]
+
+    def _check_counts(self, what, counts, expect):
+        expect = dict.fromkeys(counts, 0) | expect
+        if counts != expect:
+            self.fail(f"{what}: launch counts {counts} != expected {expect}")
+
+    def _film_gate(self, what, scene, config, ref, settings, note=""):
+        """Render `config`'s frame at the reference's size and hold it to
+        the reference film: relative energy within 1%, RMSE under the bound
+        of tests/test_reference_films.py:84; the launch counts checked."""
+        import numpy as np
+
+        bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
+        film, wall, counts, pilots, _ = self._render_counted(scene, config, settings)
+        loop = settings.multitile_loop
+        self._check_counts(what, counts, self._loop_counts(
+            loop, settings.multitile_scan, scene, config, settings.samples, pilots))
+        rel_energy = abs(float(film.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-9)
+        rmse = float(np.sqrt(np.mean((film - ref) ** 2)))
+        log(f"{what} {config.width}x{config.height}x{settings.samples} spp: {wall:.2f} s, film "
+            f"mean {film.mean():.6f} vs reference {ref.mean():.6f} (relative energy "
+            f"{rel_energy:.6f}), RMSE {rmse:.6g} (bound {bound:.4g}{note})")
+        if not np.isfinite(film).all():
+            self.fail(f"{what}: film is not finite")
+        if rel_energy > 0.01:
+            self.fail(f"{what}: relative energy {rel_energy} is not within 1%")
+        if rmse >= bound:
+            self.fail(f"{what}: RMSE {rmse} is not under {bound}")
+
+    # ---- phases 27-29: the other scenes, the sort modes, the reference films --------
+
+    def _load(self, spec):
+        from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
+        from rustic_tpu_torch.scene.world import World
+
+        t0 = time.time()
+        scene = World.from_path(spec["path"]).to_torch(self.dev)
+        w, h = spec["size"]
+        config = TracingConfig(width=w, height=h, nee=NextEventEstimation.MIS, **spec["cam"])
+        log(f"{spec['path']}: {scene.n_tris} triangles in "
+            f"{scene.tile_aabbs.shape[0]} tiles, {scene.n_alias_entries} alias entries, "
+            f"loaded in {time.time() - t0:.2f} s")
+        return scene, config
+
+    def _in_turns(self, what, scene, config, spp, variants, reps=3):
+        """Each of `variants` ({label: RenderSettings at spp}) rendered once
+        at one group's samples, then `reps` times in turns; each render's
+        launch counts checked -> {label: [Mpaths/s, ...]}."""
+        import numpy as np
+
+        from rustic_tpu_torch.runtime import pipeline as P
+        from rustic_tpu_torch.runtime.render import render_image
+
+        n_px = config.width * config.height
+        for label, settings in variants.items():
+            sorted_path = settings.multitile_loop == "state-sorted"
+            warm = P.pick_sample_fold(n_px, spp, sorted_path=sorted_path)
+            render_image(scene, config, dataclasses.replace(settings, samples=warm),
+                         device=self.dev)
+        rates = {label: [] for label in variants}
+        for _ in range(reps):
+            for label, settings in variants.items():
+                film, s, counts, pilots, groups = self._render_counted(scene, config, settings)
+                loop = settings.multitile_loop
+                if loop == "auto":
+                    loop = "state-sorted" if groups else "kernel-shade"
+                self._check_counts(f"{what}, {label}", counts, self._loop_counts(
+                    loop, settings.multitile_scan, scene, config, spp, pilots))
+                if not np.isfinite(film).all() or not film.mean() > 0.0:
+                    self.fail(f"{what}, {label}: the film is not finite or is black")
+                rates[label].append(n_px * spp / s / 1e6)
+                used = {k: v for k, v in counts.items() if v}
+                log(f"render {what} {config.width}x{config.height}x{spp} spp, {label}: {s:.3f} s, "
+                    f"{rates[label][-1]:.2f} Mpaths/s, pilots {pilots}, launches {used}")
+        for label, r in rates.items():
+            log(f"{what}, {label}: median {statistics.median(r):.2f} Mpaths/s "
+                f"({min(r):.2f}-{max(r):.2f}, {len(r)} renders; {self.card})")
+        return rates
+
+    def scenes_renders(self):
+        """FurnaceTest, GlassTest and PBRTest through the kernel-shade loop
+        with each scan form the scene admits, in turns."""
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.runtime.pipeline import MULTITILE_SCANS
+        from rustic_tpu_torch.runtime.render import render_image
+
+        self.scan_rates = {}
+        for name, spec in OTHER_SCENES.items():
+            scene, config = self._load(spec)
+            forms = list(MULTITILE_SCANS)
+            if FI.use_resident(scene.tri_feats16) is None:
+                forms.remove("resident")
+                try:
+                    render_image(scene, config, RenderSettings(samples=1, multitile_scan="resident"),
+                                 device=self.dev)
+                except ValueError as e:
+                    log(f"{name}: the resident form is refused ({e})")
+                else:
+                    self.fail(f"{name}: the resident form took a table it does not fit")
+            rates = self._in_turns(name, scene, config, spec["spp"], {
+                scan: RenderSettings(samples=spec["spp"], multitile_loop="kernel-shade",
+                                     multitile_scan=scan) for scan in forms})
+            self.scan_rates[name] = rates
+            best = max(rates, key=lambda k: statistics.median(rates[k]))
+            log(f"{name}: fastest scan form {best}")
+            del scene
+            self.torch.cuda.empty_cache()
+
+    def _ss_trace(self, scan):
+        """One VeachMIS group (1,048,576 lanes: fold 1) traced through the
+        state-sorted driver's stages with the pilot's schedule (compacted)
+        -> per bounce the scan's operands; the last also its shadow rays."""
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.runtime import pipeline as P
+        from rustic_tpu_torch.runtime.render import pixel_offsets
+
+        scene = self.mt_scene
+        cfg, cam = self.mt_config.static_part(), self.mt_config.dynamic_part(self.dev)
+        y, x = np.mgrid[0:MT_SIZE, 0:MT_SIZE]
+        px = torch.from_numpy(x.reshape(-1).astype(np.int32)).to(self.dev)
+        py = torch.from_numpy(y.reshape(-1).astype(np.int32)).to(self.dev)
+        off = pixel_offsets(MT_SIZE, MT_SIZE, use_blue_noise=False).view(np.int32)
+        off = torch.from_numpy(off.copy()).to(self.dev)
+        lanes, schedule = P.sort_mode_pilot(scene, cfg, cam, px, py, off, 0, MT_SPP, scan)
+        if schedule is None:
+            self.fail("VeachMIS: the pilot gave no compaction schedule")
+        fold = lanes // px.shape[0]
+        film = torch.zeros((px.shape[0], 3), dtype=torch.float32, device=self.dev)
+        oflow = torch.zeros((), dtype=torch.bool, device=self.dev)
+        px, py, off = (a.repeat(fold) for a in (px, py, off))
+        st, feats, sidx, lane2px = P.ss_init(cfg, cam, px, py, 0, off, fold)
+        recs, pending, prev_nee = [], None, None
+        for b in range(cfg.max_bounces):
+            t, idx, occ = P._scan(feats, pending, scene, scan)
+            recs.append(dict(feats=feats, pending=pending))
+            window = (schedule[b], film, oflow) if b < cfg.max_bounces - 1 else None
+            st, feats, nee, sidx, off, lane2px, n = P.ss_pre(
+                scene, cfg, cam, b, st, prev_nee, occ, t, idx, sidx, off, lane2px, window)
+            if window is not None:
+                oflow = n
+            prev_nee, pending = nee if nee is not None else (None, None)
+        recs[-1]["shadow_out"] = pending
+        log(f"VeachMIS state-sorted group: {lanes} lanes, schedule {schedule}, scan lengths "
+            f"{[r['feats'].shape[1] for r in recs]}, overflow {bool(oflow)}")
+        if bool(oflow):
+            self.fail("VeachMIS: the traced group overflowed its schedule")
+        return recs
+
+    def _ss_compare(self, recs, n):
+        """Each form's three scans on the state-sorted operands (their first
+        n lanes) against their plain versions: the nearest scan on the
+        bounce-1 rays, the merged scan on bounce 1 (with the bounce-0
+        shadow rays) and on bounce 3, the any-hit scan on the bounce-3
+        shadow rays. K5/K6 bit for bit against the lists alone, as phase 6;
+        the grid and resident forms as phases 14 and 22."""
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        scene = self.mt_scene
+        g16, aabbs, live = scene.tri_feats16, scene.tile_aabbs, scene.n_tris
+
+        def cut(x):
+            return None if x is None else x[:, :n].contiguous()
+
+        cases = {
+            "bounce-1 rays": (cut(recs[1]["feats"]), None),
+            "bounce-1 rays + bounce-0 shadow rays": (cut(recs[1]["feats"]), cut(recs[1]["pending"])),
+            "bounce-3 rays + bounce-2 shadow rays": (cut(recs[3]["feats"]), cut(recs[3]["pending"])),
+            "bounce-3 shadow rays": (None, cut(recs[3]["shadow_out"])),
+        }
+        for (what, (f, s)), keys in zip(cases.items(), (("K5", "K9", "K14"), ("K6", "K10", "K15"),
+                                                        ("K6", "K10", "K15"), ("K7", "K11", "K16"))):
+            m = (f if f is not None else s).shape[1]
+            sets = [r for r in (f, s) if r is not None]
+            flags = (False,) if s is None else (True,) if f is None else (False, True)
+            lists = FI.block_tile_lists(aabbs, FI.BT_MULTI, flags, *sets)
+            if f is None:
+                out_l = (FI.occlude_multi(s, g16, *lists, live),)
+                plain_l = (FI.occlude_multi_plain(s, g16, *lists),)
+                agree, _ = self._cmp_occ(f"{keys[0]} on {what}", out_l[0], plain_l[0])
+                log(f"{keys[0]} n={m} on the state-sorted {what}: occ agree {agree:.6f}")
+            else:
+                if s is None:
+                    out_l = FI.nearest_multi(f, g16, *lists, aabbs, live)
+                    plain_l = FI.nearest_multi_plain(f, g16, *lists)
+                else:
+                    out_l = FI.nearest_shadow_multi(f, s, g16, *lists, aabbs, live)
+                    plain_l = FI.nearest_shadow_multi_plain(f, s, g16, *lists)
+                self._bit_equal(f"{keys[0]} n={m} on the state-sorted {what} against its plain "
+                                f"version", out_l, plain_l)
+            del out_l, plain_l
+            t_p, i_p, o_p = FI._grid_scan(f, s, g16, aabbs)[:3]
+            for key, call in zip(keys[1:], (self._grid_on, self._resident_call)):
+                out = call(keys[2], scene, f, s)  # both take the resident keys
+                msg = []
+                if f is not None:
+                    frac, e, _ = self._cmp_winner(f"{key} on {what}", out[0], out[1], t_p, i_p)
+                    msg.append(f"idx agree {frac:.6f}, max |dt| {e:.3g}")
+                if s is not None:
+                    agree, _ = self._cmp_occ(f"{key} on {what}", out[-1], o_p)
+                    msg.append(f"occ agree {agree:.6f}")
+                log(f"{key} n={m} on the state-sorted {what} against its plain version: "
+                    + "; ".join(msg))
+
+    def sorted_modes(self):
+        """The scans on the state-sorted driver's operands, then the
+        state-sorted driver (compacted), "auto" and the kernel-shade loop
+        in turns on VeachMIS and the scenes of phase 27, each scene's
+        pilot schedule and work fraction W, and whether auto's pick
+        (state-sorted where W <= 0.7) was the faster driver here; on
+        VeachMIS also the state-sorted driver in the other scan forms."""
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.runtime import pipeline as P
+        from rustic_tpu_torch.runtime.pipeline import MULTITILE_SCANS
+        from rustic_tpu_torch.runtime.render import pixel_offsets
+
+        self._mt_setup()
+        scan = RenderSettings.multitile_scan
+        recs = self._ss_trace(scan)
+        for n in (CHECK_LANES + RAGGED, None):
+            self._ss_compare(recs, n if n is not None else recs[1]["feats"].shape[1])
+        del recs
+        torch.cuda.empty_cache()
+        scenes = [("VeachMIS", lambda: (self.mt_scene, self.mt_config), MT_SPP)] + [
+            (name, lambda spec=spec: self._load(spec), spec["spp"])
+            for name, spec in OTHER_SCENES.items()]
+        for name, load, spp in scenes:
+            scene, config = load()
+            rates = self._in_turns(name, scene, config, spp, {
+                loop: RenderSettings(samples=spp, multitile_loop=loop, multitile_scan=scan)
+                for loop in ("state-sorted", "auto", "kernel-shade")})
+            cfg, cam = config.static_part(), config.dynamic_part(self.dev)
+            n_px = config.width * config.height
+            y, x = np.mgrid[0:config.height, 0:config.width]
+            px = torch.from_numpy(x.reshape(-1).astype(np.int32)).to(self.dev)
+            py = torch.from_numpy(y.reshape(-1).astype(np.int32)).to(self.dev)
+            off = torch.from_numpy(pixel_offsets(config.width, config.height, False).view(np.int32))
+            lanes, schedule = P.sort_mode_pilot(scene, cfg, cam, px, py, off.to(self.dev), 0, spp,
+                                                scan)
+            w = P.work_fraction(cfg, lanes, schedule)
+            pick = P._pick_sort_mode(scene, cfg, cam, px, py, off.to(self.dev), 0, spp, scan)
+            med = {k: statistics.median(v) for k, v in rates.items()}
+            faster = "state" if med["state-sorted"] > med["kernel-shade"] else "rays"
+            log(f"{name} {config.width}x{config.height}x{spp} spp, {scan} scans: pilot schedule "
+                f"{schedule} of {lanes} lanes ({n_px} pixels), W {w}, auto picks {pick!r}; "
+                f"state-sorted {med['state-sorted']:.2f}, auto {med['auto']:.2f}, kernel-shade "
+                f"{med['kernel-shade']:.2f} Mpaths/s: the pick was "
+                f"{'the faster' if pick == faster else 'the slower'} driver ({self.card})")
+            if name != "VeachMIS":
+                del scene
+                torch.cuda.empty_cache()
+                continue
+            for other in MULTITILE_SCANS:  # the state-sorted driver's launches in each form
+                if other == scan:
+                    continue
+                settings = RenderSettings(samples=spp, multitile_loop="state-sorted",
+                                          multitile_scan=other)
+                film, s, counts, pilots, _ = self._render_counted(scene, config, settings)
+                self._check_counts(f"{name}, state-sorted, {other} scans", counts, self._loop_counts(
+                    "state-sorted", other, scene, config, spp, pilots))
+                if not np.isfinite(film).all():
+                    self.fail(f"{name}, state-sorted, {other} scans: the film is not finite")
+                log(f"render {name} {config.width}x{config.height}x{spp} spp, state-sorted, {other} "
+                    f"scans: {s:.3f} s, {n_px * spp / s / 1e6:.2f} Mpaths/s, launches "
+                    f"{ {k: v for k, v in counts.items() if v} } ({self.card})")
+
+    def films(self):
+        """DarkCornell, GlassTest and FurnaceTest 256x144 against their
+        reference films through the default loop, and the multi-tile two
+        through the state-sorted driver."""
+        import numpy as np
+
+        from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.scene.world import World
+
+        for name, path, ref_file, spp, mis, cam in FILM_CASES:
+            ref = np.load(ref_file)
+            scene = World.from_path(path).to_torch(self.dev)
+            nee = NextEventEstimation.MIS if mis else NextEventEstimation.NONE
+            config = TracingConfig(width=ref.shape[1], height=ref.shape[0], nee=nee, **cam)
+            loops = ["kernel-shade"]
+            if FI.geometry(scene.tri_feats16)[2] > 1:
+                loops.append("state-sorted")
+            for loop in loops:
+                self._film_gate(f"{name}, {loop} loop,", scene, config, ref,
+                                RenderSettings(samples=spp, multitile_loop=loop))
+
     def probe_check(self):
         import torch
 
@@ -2542,6 +2935,9 @@ class Smoke:
             ("fused-check", self.fused_check),
             ("fused-time", self.fused_time),
             ("fused-render", self.fused_render),
+            ("scenes-renders", self.scenes_renders),
+            ("sorted-modes", self.sorted_modes),
+            ("films", self.films),
             ("probe-check", self.probe_check),
         ]
         if only:

@@ -31,6 +31,18 @@ class NextEventEstimation(enum.IntEnum):
         return self == NextEventEstimation.MIS
 
 
+class Tonemapping(enum.IntEnum):
+    """Display tonemap operators (reference: src/app.rs:18-42, render.wgsl:36-117)."""
+
+    NONE = 0
+    REINHARD = 1
+    ACES_NARKOWICZ = 2  # x0.6 pre-exposure (render.wgsl:136)
+    ACES_NARKOWICZ_OVEREXPOSED = 3  # no pre-exposure (render.wgsl:139-140)
+    ACES_HILL = 4
+    NEUTRAL = 5
+    UNCHARTED2 = 6
+
+
 def _default_sun() -> Tuple[float, float, float, float]:
     # normalize(0.5, 1.3, 1.0) with w = intensity 15
     n = math.sqrt(0.5 * 0.5 + 1.3 * 1.3 + 1.0 * 1.0)
@@ -109,16 +121,18 @@ class RenderSettings:
     use_blue_noise: bool = False
     batch_pixels: int = 1 << 20  # wavefront megabatch size (pixels per chunk)
     # the loop a multi-tile scene takes (runtime/pipeline.py MULTITILE_LOOPS):
-    # "kernel-shade", the reference loops "ray-sorted" and "unsorted", or
+    # "kernel-shade", the reference loops "ray-sorted" and "unsorted",
     # "fused" (one launch of K17 a bounce, K10's scan and the shading in one
     # kernel; untextured scenes under the procedural sky, ValueError on any
-    # other)
+    # other), "state-sorted" (the whole state re-sorted and compacted after
+    # each bounce) or "auto" (state-sorted or kernel-shade, by a pilot)
     multitile_loop: str = "kernel-shade"
-    # the form of the multi-tile scans (ops/intersect.py MULTITILE_SCANS):
-    # "lists" (tile lists, then K5-K7), "grid" (K9-K11, culling in the kernel)
-    # or "resident" (K14-K16, the triangle table held in a thread-block
-    # cluster's shared memory; a scene that does not fit there is refused)
-    multitile_scan: str = "lists"
+    # the form of the multi-tile scans (ops/intersect.py MULTITILE_SCANS, whose
+    # first is this default): "grid" (K9-K11, culling in the kernel), "lists"
+    # (tile lists, then K5-K7) or "resident" (K14-K16, the triangle table held
+    # in a thread-block cluster's shared memory; a scene that does not fit
+    # there is refused)
+    multitile_scan: str = "grid"
     # the loop a one-tile scene takes (runtime/pipeline.py SINGLE_TILE_LOOPS):
     # "kernel-shade" where the shade kernel takes the scene (untextured, an
     # alias table of at most 16 entries) and the torch-shade loop elsewhere,
@@ -126,3 +140,5 @@ class RenderSettings:
     # a bounce in place of a scan and a shade launch; untextured scenes under
     # the procedural sky, ValueError on any other)
     single_tile_loop: str = "kernel-shade"
+    # the display operator of image output (ops/tonemap.py, utils/image_io.py)
+    tonemap: Tonemapping = Tonemapping.NONE

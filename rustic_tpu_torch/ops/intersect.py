@@ -209,8 +209,9 @@ def occlude_brute(tri_feats: torch.Tensor, ro, rd, max_t) -> torch.Tensor:
 
 # ---- the flash engine ---------------------------------------------------------
 
-# the forms of the multi-tile scans; the first is the default
-MULTITILE_SCANS = ("lists", "grid", "resident")
+# the forms of the multi-tile scans; the first is the default (the fastest on
+# the H100 on each multi-tile scene measured, or tied within its spread)
+MULTITILE_SCANS = ("grid", "lists", "resident")
 
 
 def check_scan(scan: str) -> None:

@@ -1,7 +1,9 @@
 """Where the time of a render goes on one CUDA device.
 
-    python -m rustic_tpu_torch.profile_render [--scene darkcornell|veachmis|breaktime]
-        [--driver kernel-shade|ray-sorted|unsorted|fused] [--scan lists|grid|resident]
+    python -m rustic_tpu_torch.profile_render
+        [--scene darkcornell|veachmis|glasstest|breaktime]
+        [--driver kernel-shade|ray-sorted|unsorted|fused|state-sorted|auto]
+        [--scan lists|grid|resident]
         [--single-loop kernel-shade|torch-shade|fused] [--table PATH]
 
 `darkcornell` (the default, the headline render): DarkCornell 1280x720
@@ -9,14 +11,18 @@ NEE+MIS, 4 bounces, profiled at 32 spp, then timed at 160 spp.
 `veachmis` (the multi-tile render, BASELINE.md config 4 with the spp
 cut): VeachMIS 1024x1024 NEE+MIS with the camera of
 tools/quality_gate.py, profiled at 16 spp, then timed at 64 spp.
+`glasstest` (long glass chains, BASELINE.md config 3 with the spp cut):
+GlassTest 512x512 NEE+MIS with the camera of tools/quality_gate.py,
+profiled at 16 spp, then timed at 64 spp.
 `breaktime` (the full-pipeline render, BASELINE.md config 5 with the spp
 cut): BreakTime 1920x1080 NEE+MIS with its HDR sky and textures (4096^2
 atlas), profiled at 8 spp, then timed at 32 spp.
 `--driver` names the multi-tile loop (RenderSettings.multitile_loop):
 `kernel-shade` (the default), the reference loops `ray-sorted` and
-`unsorted`, or `fused` (K17: one launch a bounce); `--scan` the form of
-its scans (RenderSettings.multitile_scan): `lists` (the default), `grid`
-or `resident`. Neither changes the single-tile path, whose loop
+`unsorted`, `fused` (K17: one launch a bounce), `state-sorted` (the whole
+state re-sorted and compacted after each bounce) or `auto`; `--scan` the
+form of its scans (RenderSettings.multitile_scan): `lists`, `grid` or
+`resident` (the default is RenderSettings's). Neither changes the single-tile path, whose loop
 `--single-loop` names (RenderSettings.single_tile_loop): `kernel-shade`
 (the default), `torch-shade` or `fused`.
 
@@ -59,6 +65,12 @@ CONFIGS = {
         "assets/scenes/VeachMIS.glb", None,
         TracingConfig(width=1024, height=1024, nee=NextEventEstimation.MIS,
                       cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05)),
+        16, 64,
+    ),
+    "glasstest": (
+        "assets/scenes/GlassTest.glb", None,
+        TracingConfig(width=512, height=512, nee=NextEventEstimation.MIS,
+                      cam_position=(0.0, 2.2, -6.5), cam_rotation=(0.15, 0.0)),
         16, 64,
     ),
     "breaktime": (
@@ -113,7 +125,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=sorted(CONFIGS), default="darkcornell")
     ap.add_argument("--driver", choices=MULTITILE_LOOPS, default=MULTITILE_LOOPS[0])
-    ap.add_argument("--scan", choices=MULTITILE_SCANS, default=MULTITILE_SCANS[0])
+    ap.add_argument("--scan", choices=MULTITILE_SCANS, default=RenderSettings.multitile_scan)
     ap.add_argument("--single-loop", choices=SINGLE_TILE_LOOPS, default=SINGLE_TILE_LOOPS[0])
     ap.add_argument("--table", help="write the profiler's key_averages table here")
     args = ap.parse_args(argv)

@@ -12,8 +12,8 @@ single-tile scenes, and any for which the caller names it
 below at one tile, whose scans are K12 / K13 / K3 and whose shading stage
 gathers the winners' rows itself, at the width of the scene's table.
 
-Multi-tile scenes take one of three loops, named by the caller's
-`loop` argument (`MULTITILE_LOOPS`):
+Multi-tile scenes take the loop the caller's `loop` argument names
+(`MULTITILE_LOOPS`):
 
 - kernel-shade (the default): the loop of `_stages_ks_mt`. Per bounce a
   scan, the row resolve of ops/resolve.py and one shade kernel (K8 for
@@ -25,31 +25,43 @@ Multi-tile scenes take one of three loops, named by the caller's
   around the torch shading stage (`pre`, ops/trace.py bounce_pre).
 - unsorted: init -> K5 -> `pre` -> per later bounce K6 plus the previous
   bounce's shadow rays -> `pre` -> finish.
+- state-sorted (`_render_batch_sorted`): the torch shading stage, after
+  which the whole lane state is sorted, lanes that owe no more work last,
+  and compacted to the static keep count a pilot measured (path
+  compaction); the film is a scatter-add over each lane's pixel.
+- auto: the state-sorted driver where the pilot's schedule leaves at most
+  _STATE_SORT_MAX_W of the work, else the kernel-shade loop.
+- fused: one launch of K17 a bounce (`_render_batch_fused`).
 
 Each multi-tile scan takes the form the caller's `scan` argument names
-(`MULTITILE_SCANS`): "lists" (the default), `block_tile_lists` in torch
-and then K5/K6/K7; "grid", K9/K10/K11, which cull tiles per ray in the
-kernel and need no lists; or "resident", K14/K15/K16, the same cull with
-the whole triangle table held in a thread-block cluster's shared memory
-(a scene that does not fit there is refused).
+(`MULTITILE_SCANS`): "grid" (the default), K9/K10/K11, which cull tiles
+per ray in the kernel and need no lists; "lists", `block_tile_lists` in
+torch and then K5/K6/K7; or "resident", K14/K15/K16, the same cull as the
+grid form with the whole triangle table held in a thread-block cluster's
+shared memory (a scene that does not fit there is refused).
 
-The three give the same film; kernel-shade is the fastest on the card.
-The other two are the ports of the JAX package's XLA-shade drivers,
-kept as the references the tests hold the default to.
+They give the same film (the state-sorted driver up to the order of its
+scatter-adds); kernel-shade is the fastest on the card. The ray-sorted,
+unsorted and state-sorted loops are the ports of the JAX package's
+XLA-shade drivers.
 
-In every loop the last bounce's shadow rays of a group are held and ride
-the next group's bounce-0 scan (K2 / K13 / K6 / K10 / K15); the last
-group's are resolved by K3 / K7 / K11 / K16. With an HDR skybox (`cfg.has_skybox`) the
+In every loop but the state-sorted one the last bounce's shadow rays of a
+group are held and ride the next group's bounce-0 scan (K2 / K13 / K6 /
+K10 / K15); the last group's are resolved by K3 / K7 / K11 / K16, which
+the state-sorted driver runs once a group. With an HDR skybox (`cfg.has_skybox`) the
 kernel-shade loops add the image sky to the escaped lanes after a group's
 last bounce (`hdr_sky_payoff`), the reference loops in `bounce_pre`. All
-work is queued on the tensors' device; nothing waits for it.
+work is queued on the tensors' device; the host waits for it only in the
+state-sorted driver, for its pilot's keep counts (once per scene, camera
+and lane count) and for its overflow flag (once a window of groups).
 """
 
 from __future__ import annotations
 
-import os
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from rustic_tpu_torch.config import CameraParams, StaticConfig
@@ -73,14 +85,18 @@ from rustic_tpu_torch.ops.sampling import cross
 from rustic_tpu_torch.ops.skybox import image_sky
 from rustic_tpu_torch.scene.world import SceneTensors
 
-# Lane budget for sample folding: fold 4 at megabatch sizes (~1M pixels).
+# Lane budgets for sample folding: fold 4 at megabatch sizes (~1M pixels);
+# the state-sorted driver, which permutes the whole state, folds less.
 _FOLD_MAX_LANES = 1 << 22
+_FOLD_MAX_LANES_SORTED = 1 << 19
 
 
-def pick_sample_fold(batch: int, n_samples: int) -> int:
+def pick_sample_fold(batch: int, n_samples: int, sorted_path: bool = False) -> int:
     """How many consecutive samples to fold into one lane set: each
-    launch then serves `fold` samples of every pixel."""
-    f = max(1, _FOLD_MAX_LANES // max(batch, 1))
+    launch then serves `fold` samples of every pixel. `sorted_path`: the
+    state-sorted driver's budget."""
+    budget = _FOLD_MAX_LANES_SORTED if sorted_path else _FOLD_MAX_LANES
+    f = max(1, budget // max(batch, 1))
     return min(f, 8, max(n_samples, 1))
 
 
@@ -505,30 +521,291 @@ def _render_batch_ks_multitile(scene, cfg, cam, px, py, offsets, sample_start, n
     return film
 
 
-STATE_SORT_TODO = (
-    "RUSTIC_SORT_MODE=state (the state-sorted driver with its compaction "
-    "pilot) is not ported yet (ROADMAP.md queue 1 item 7)"
-)
+# ---- the state-sorted driver with path compaction (twin of `_stages_sorted`) --
+
+# fold groups a compaction window holds; its overflow flag is read once a window
+_THROTTLE_GROUPS_SORTED = 4
+# "auto" takes the state-sorted driver at or below this work fraction
+# (`_pick_sort_mode`); the JAX package's RUSTIC_STATE_SORT_MAX_W is not read
+_STATE_SORT_MAX_W = 0.7
+
+
+def _sort_perm(scene, st, dead):
+    """The lane order of the whole state: `sort_perm_rays` of its rays."""
+    return sort_perm_rays(scene, st.ro, st.rd, dead)
+
+
+def _permute_lanes(perm, tree):
+    """Index every lane-major tensor [B, ...] of `tree` (nested tuples and
+    NamedTuples; None stays None) with the same permutation. Each keeps
+    its dtype: the u32 offsets ride as int32 bit patterns, which an index
+    gather carries exactly. The JAX package packs every leaf into one f32
+    matrix for a single gather, a TPU device (gather cost there is linear
+    in the number of gathers)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[perm]
+    parts = (_permute_lanes(perm, x) for x in tree)
+    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+
+
+def ss_init(cfg: StaticConfig, cam: CameraParams, px, py, sample_idx: int, offsets, fold: int):
+    """Camera rays and the initial state, which keeps its rays (the state
+    itself is sorted) -> (st, ray rows [16, B], sidx, lane2px [B] int64:
+    each lane's pixel, where its radiance is scatter-added)."""
+    lanes = px.shape[0]
+    sidx = _fold_sample_idx(sample_idx, lanes, fold, px.device)
+    st = trace_mod.init_state(cfg, cam, px, py, sidx, offsets)
+    lane2px = torch.arange(lanes, dtype=torch.int64, device=px.device) % (lanes // fold)
+    return st, _ray_features16(st.ro, st.rd), sidx, lane2px
+
+
+def ss_pre(scene, cfg: StaticConfig, cam: CameraParams, bounce: int, st, prev_nee, prev_occ,
+           t, idx, sidx, offsets, lane2px, window=None):
+    """One bounce of the state-sorted driver: `_shade`, then (but on the
+    last bounce) the whole lane set sorted by `_sort_perm` with the lanes
+    that owe no more work (neither alive nor owed a shadow result) last,
+    and with `window` = (k_out, film, oflow) the tail past k_out dropped:
+    its radiance and owed deferred sky term scatter-added into `film` in
+    place, and `oflow` raised if a lane it dropped still owed work.
+    Returns (st, next ray rows, (slim NEE carry, shadow rows) or None,
+    sidx, offsets, lane2px, n) with n the keep count (a device scalar)
+    without a window and the window's overflow flag with one; on the last
+    bounce st is the radiance, nothing is sorted and n is None."""
+    st2, nee_pack = _shade(scene, cfg, cam, bounce, st, prev_nee, prev_occ, t, idx, sidx, offsets)
+    slim = shadow = None
+    keep = st2.alive
+    if nee_pack is not None:
+        slim = (nee_pack.eligible, nee_pack.contribution)
+        shadow = sentinel_feats(_shadow_feats16(nee_pack), ~nee_pack.eligible)
+        keep = keep | nee_pack.eligible
+    if bounce == cfg.max_bounces - 1:
+        nee = None if slim is None else (slim, shadow)
+        return st2.radiance, None, nee, sidx, offsets, lane2px, None
+    nxt = sentinel_feats(_ray_features16(st2.ro, st2.rd), ~st2.alive)
+    perm = _sort_perm(scene, st2, ~keep)
+    st2, slim, sidx, offsets, lane2px, keep = _permute_lanes(
+        perm, (st2, slim, sidx, offsets, lane2px, keep))
+    rows = (nxt if shadow is None else torch.cat([nxt, shadow], dim=0))[:, perm]
+    if window is None:
+        n = keep.sum()
+    else:
+        k_out, film, n = window
+        if k_out < keep.shape[0]:
+            tail = slice(k_out, None)
+            rad = st2.radiance[tail] + trace_mod.deferred_sky_term(
+                scene, cfg, cam, st2.ro[tail], st2.rd[tail], st2.throughput[tail],
+                st2.missed[tail])
+            film.index_add_(0, lane2px[tail], rad)
+            n = n | keep[tail].any()
+            st2, slim, sidx, offsets, lane2px = _permute_lanes(  # the head slice
+                slice(0, k_out), (st2, slim, sidx, offsets, lane2px))
+            rows = rows[:, :k_out].contiguous()  # the scans take contiguous rows
+    nxt, shadow = (rows, None) if shadow is None else rows.split(16, dim=0)
+    nee = None if slim is None else (slim, shadow)
+    return st2, nxt, nee, sidx, offsets, lane2px, n
+
+
+def ss_finish(radiance, prev_nee, prev_occ, film, lane2px):
+    """Scatter-add a finished group's radiance (with its last NEE carry)
+    into the film sum [B, 3] over lane2px."""
+    return film.index_add(0, lane2px, _fold_slim_nee(radiance, prev_nee, prev_occ))
+
+
+def _quantize_schedule(counts, lanes: int, bt: int, measured: int = None):
+    """Static per-bounce keep-lane counts from measured keep counts
+    (measured over `measured` lanes, scaled to `lanes`): a 10% + one-block
+    margin, rounded up to a coarse power-of-two grid of bt multiples, never
+    growing from one bounce to the next. None when compaction would not
+    drop at least half the lanes anywhere."""
+    scale = lanes / max(measured or lanes, 1)
+    levels = sorted(min(lanes, -(-(lanes // d) // bt) * bt) for d in (1, 2, 4, 8, 16, 32))
+    ks = []
+    for c in counts:
+        need = int(c * scale * 1.10) + bt
+        ks.append(next((lv for lv in levels if lv >= need), lanes))
+    for i in range(1, len(ks)):  # the keep set only shrinks
+        ks[i] = min(ks[i], ks[i - 1])
+    if min(ks) > lanes // 2:
+        return None
+    return tuple(ks)
+
+
+def _pilot_schedule(scene, cfg, cam, px, py, offsets, sample_start, lanes, bt, scan):
+    """Keep counts of bounces 0 .. max_bounces - 2 measured on a strided
+    subsample of about 8192 pixels (one sample, uncompacted, one host sync)
+    and quantized into the compaction schedule of `lanes` lanes."""
+    if cfg.max_bounces < 2:
+        return None
+    stride = max(1, px.shape[0] // 8192)
+    ppx, ppy, poff = px[::stride], py[::stride], offsets[::stride]
+    st, feats, sidx, lane2px = ss_init(cfg, cam, ppx, ppy, sample_start, poff, 1)
+    prev_nee = pending = None
+    counts = []
+    for bounce in range(cfg.max_bounces - 1):
+        t, idx, prev_occ = _scan(feats, pending, scene, scan)
+        st, feats, nee, sidx, poff, lane2px, n_keep = ss_pre(
+            scene, cfg, cam, bounce, st, prev_nee, prev_occ, t, idx, sidx, poff, lane2px)
+        counts.append(n_keep)
+        prev_nee = pending = None
+        if nee is not None:
+            prev_nee, pending = nee
+    host = torch.stack(counts).tolist()
+    return _quantize_schedule(host, lanes, bt, measured=ppx.shape[0])
+
+
+# (schedule, camera signature) per (scene table, cfg, lanes, block, pilot):
+# keep counts depend on the camera, so an entry serves only while the camera
+# matches. A stale schedule costs speed, never the film (the overflow redo).
+_PILOT_CACHE: dict = {}
+
+
+def _cached_pilot_schedule(scene, cfg, cam, px, py, offsets, sample_start, lanes, bt, scan):
+    # keyed on the pilot's identity too, so that a test which replaces
+    # _pilot_schedule never reads an entry another pilot made
+    key = (id(scene.tri_feats16), cfg, lanes, bt, id(_pilot_schedule))
+    sig = np.concatenate([
+        getattr(cam, f.name).detach().cpu().double().numpy().ravel()
+        for f in dataclasses.fields(cam)
+    ])
+    hit = _PILOT_CACHE.get(key)
+    if hit is not None and hit[1].shape == sig.shape and np.allclose(hit[1], sig, atol=1e-6):
+        return hit[0]
+    sched = _pilot_schedule(scene, cfg, cam, px, py, offsets, sample_start, lanes, bt, scan)
+    if len(_PILOT_CACHE) > 64:
+        _PILOT_CACHE.clear()
+    _PILOT_CACHE[key] = (sched, sig)
+    return sched
+
+
+def work_fraction(cfg: StaticConfig, lanes: int, schedule) -> Optional[float]:
+    """The share of full-width bounces a compacted group runs (bounce 0 at
+    `lanes`, then the schedule's), or None without a schedule."""
+    if schedule is None:
+        return None
+    return (lanes + sum(schedule)) / (cfg.max_bounces * lanes)
+
+
+def sort_mode_pilot(scene, cfg, cam, px, py, offsets, sample_start, n_samples,
+                    scan=MULTITILE_SCANS[0]):
+    """The state-sorted driver's lane count and (cached) pilot schedule for
+    this batch -> (lanes, schedule or None)."""
+    fold = pick_sample_fold(px.shape[0], n_samples, sorted_path=True)
+    lanes = px.shape[0] * fold
+    return lanes, _cached_pilot_schedule(
+        scene, cfg, cam, px, py, offsets, sample_start, lanes, FI.BT_MULTI, scan)
+
+
+def _pick_sort_mode(scene, cfg, cam, px, py, offsets, sample_start, n_samples,
+                    scan=MULTITILE_SCANS[0]) -> str:
+    """"state" (the state-sorted driver) when the pilot's schedule leaves
+    a work fraction of at most _STATE_SORT_MAX_W, else "rays"."""
+    lanes, schedule = sort_mode_pilot(scene, cfg, cam, px, py, offsets, sample_start,
+                                      n_samples, scan)
+    work = work_fraction(cfg, lanes, schedule)
+    return "state" if work is not None and work <= _STATE_SORT_MAX_W else "rays"
+
+
+def _render_batch_sorted(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
+                         scan=MULTITILE_SCANS[0]):
+    """The state-sorted driver (rustic_tpu/runtime/pipeline.py:1746-1866):
+    per bounce a scan in the form `scan` names on whole-state-sorted rays,
+    the torch shading stage, and the whole state re-sorted and compacted
+    by the pilot's schedule. Compacted groups add into a side film with an
+    overflow flag, read at the end of each window of
+    _THROTTLE_GROUPS_SORTED groups (one host sync): a clean window's side
+    film is added in, an overflowed one is rendered again uncompacted and
+    compaction stops, so the schedule never biases the film. Each group's
+    last shadow rays are resolved by the any-hit scan (K7 / K11 / K16)
+    before the next group starts: no shadow rays are held across groups."""
+    fold = pick_sample_fold(px.shape[0], n_samples, sorted_path=True)
+    lanes = px.shape[0] * fold
+
+    def run_group(k, g, schedule, film_g, oflow):
+        pxg, pyg, offg = (a.repeat(g) for a in (px, py, offsets))
+        st, feats, sidx, lane2px = ss_init(cfg, cam, pxg, pyg, sample_start + k, offg, g)
+        prev_nee = pending = None
+        for bounce in range(cfg.max_bounces):
+            t, idx, prev_occ = _scan(feats, pending, scene, scan)
+            window = None
+            if schedule is not None and bounce < cfg.max_bounces - 1:
+                window = (schedule[bounce], film_g, oflow)
+            st, feats, nee, sidx, offg, lane2px, n = ss_pre(
+                scene, cfg, cam, bounce, st, prev_nee, prev_occ, t, idx, sidx, offg, lane2px,
+                window)
+            if window is not None:
+                oflow = n
+            prev_nee = pending = None
+            if nee is not None:
+                prev_nee, pending = nee
+        final_occ = None if pending is None else _occlude(pending, scene, scan) != 0
+        return ss_finish(st, prev_nee, final_occ, film_g, lane2px), oflow
+
+    schedule = _cached_pilot_schedule(scene, cfg, cam, px, py, offsets, sample_start, lanes,
+                                      FI.BT_MULTI, scan)
+    window_film = window_oflow = None
+    window_ks = []
+
+    def flush_window():
+        nonlocal film, schedule, window_film, window_oflow, window_ks
+        if not window_ks:
+            return
+        if bool(window_oflow):  # the schedule under-predicted: redo uncompacted
+            schedule = None
+            for k2 in window_ks:
+                film, _ = run_group(k2, min(fold, n_samples - k2), None, film, None)
+        else:
+            film = film + window_film
+        window_film = window_oflow = None
+        window_ks = []
+
+    for k in range(0, n_samples, fold):
+        g = min(fold, n_samples - k)
+        if g != fold or schedule is None:
+            film, _ = run_group(k, g, None, film, None)
+            continue
+        if window_film is None:
+            window_film = torch.zeros_like(film)
+            window_oflow = torch.zeros((), dtype=torch.bool, device=film.device)
+        window_film, window_oflow = run_group(k, g, schedule, window_film, window_oflow)
+        window_ks.append(k)
+        if len(window_ks) >= _THROTTLE_GROUPS_SORTED:
+            flush_window()
+    flush_window()
+    return film
+
+
+def _render_batch_auto(scene, cfg, cam, px, py, offsets, sample_start, n_samples, film,
+                       scan=MULTITILE_SCANS[0]):
+    """The "auto" pick (rustic_tpu/runtime/pipeline.py:1034-1050):
+    `_pick_sort_mode` from the cached pilot; "state" takes the
+    state-sorted driver, "rays" the kernel-shade loop, the port's sorted-ray
+    loop on the card (where the JAX package takes its ray-sorted driver)."""
+    args = (scene, cfg, cam, px, py, offsets, sample_start, n_samples, film)
+    if _pick_sort_mode(*args[:-1], scan=scan) == "state":
+        return _render_batch_sorted(*args, scan=scan)
+    return _render_batch_ks_multitile(*args, scan=scan)
+
 
 # the names of the multi-tile loops; the first is the default
-MULTITILE_LOOPS = ("kernel-shade", "ray-sorted", "unsorted", "fused")
+MULTITILE_LOOPS = ("kernel-shade", "ray-sorted", "unsorted", "fused", "state-sorted", "auto")
 
 
 def multitile_loop(loop: str):
-    """The multi-tile loop named `loop` (one of MULTITILE_LOOPS). The JAX
-    package's RUSTIC_SORT_MODE=state asks for its state-sorted driver,
-    which the port lacks: that setting is refused rather than ignored."""
-    if os.environ.get("RUSTIC_SORT_MODE") == "state":
-        raise NotImplementedError(STATE_SORT_TODO)
-    if loop == "kernel-shade":
-        return _render_batch_ks_multitile
-    if loop == "ray-sorted":
-        return _render_batch_raysorted
-    if loop == "unsorted":
-        return _render_batch_unsorted
-    if loop == "fused":
-        return _render_batch_fused
-    raise ValueError(f"multi-tile loop {loop!r}: expected one of {MULTITILE_LOOPS}")
+    """The multi-tile loop named `loop` (one of MULTITILE_LOOPS). Dispatch
+    is by argument: no RUSTIC_* setting is read."""
+    loops = {
+        "kernel-shade": _render_batch_ks_multitile,
+        "ray-sorted": _render_batch_raysorted,
+        "unsorted": _render_batch_unsorted,
+        "fused": _render_batch_fused,
+        "state-sorted": _render_batch_sorted,
+        "auto": _render_batch_auto,
+    }
+    if loop not in loops:
+        raise ValueError(f"multi-tile loop {loop!r}: expected one of {MULTITILE_LOOPS}")
+    return loops[loop]
 
 
 # the loops of a one-tile scene; the first is the default
@@ -562,8 +839,7 @@ def render_batch_staged(
     Textured scenes and HDR skies render on all of them but one: the fused
     loop (`_render_batch_fused`, "fused" as `single_loop` or as `loop`)
     takes untextured scenes under the procedural sky and raises ValueError
-    on any other. The state-sorted driver is not ported and raises
-    NotImplementedError."""
+    on any other."""
     _check_scan(scan)
     if single_loop not in SINGLE_TILE_LOOPS:
         raise ValueError(f"single-tile loop {single_loop!r}: expected one of {SINGLE_TILE_LOOPS}")

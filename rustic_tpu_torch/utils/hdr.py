@@ -1,5 +1,6 @@
-"""Radiance RGBE (.hdr) reader: a copy of `read_hdr` of
-rustic_tpu/utils/hdr.py (NumPy only), which the port may not import.
+"""Radiance RGBE (.hdr) reader and writer: copies of `read_hdr` and
+`write_hdr` of rustic_tpu/utils/hdr.py (NumPy only), which the port may
+not import.
 
 Shared-exponent RGBE pixels, new-style per-component RLE scanlines,
 old-style repeat shifts and flat files; f = byte * 2^(e - 136), zero
@@ -20,6 +21,19 @@ def _rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
         rgbe[..., 3:4] == 0, 0.0, np.ldexp(1.0, rgbe[..., 3:4] - 136)
     ).astype(np.float32)
     return rgbe[..., :3].astype(np.float32) * scale
+
+
+def _float_to_rgbe(rgb: np.ndarray) -> np.ndarray:
+    """[..., 3] float radiance -> [..., 4] uint8 RGBE."""
+    rgb = np.maximum(rgb.astype(np.float32), 0.0)
+    v = rgb.max(axis=-1)
+    m, e = np.frexp(v)  # v = m * 2^e, m in [0.5, 1)
+    scale = np.where(v < 1e-32, 0.0, m * 256.0 / np.maximum(v, 1e-32))
+    out = np.zeros(rgb.shape[:-1] + (4,), np.uint8)
+    # +0.5: round like the Radiance reference encoder (half-quantum error)
+    out[..., :3] = np.clip(rgb * scale[..., None] + 0.5, 0, 255).astype(np.uint8)
+    out[..., 3] = np.where(v < 1e-32, 0, np.clip(e + 128, 0, 255)).astype(np.uint8)
+    return out
 
 
 def read_hdr(path: str) -> np.ndarray:
@@ -82,3 +96,16 @@ def read_hdr(path: str) -> np.ndarray:
                     x += 1
                     shift = 0
     return _rgbe_to_float(rows)
+
+
+def write_hdr(path: str, rgb: np.ndarray) -> None:
+    """Write float radiance [H, W, 3] as a flat (non-RLE) .hdr file."""
+    rgb = np.asarray(rgb)
+    if rgb.ndim != 3 or rgb.shape[-1] < 3:
+        raise ValueError("write_hdr expects [H, W, 3]")
+    h, w = rgb.shape[:2]
+    rgbe = _float_to_rgbe(rgb[..., :3])
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())

@@ -1,4 +1,5 @@
-"""A NumPy PNG decoder for scene textures and LDR skyboxes.
+"""A NumPy PNG decoder for scene textures and LDR skyboxes, and the
+encoder of image output.
 
 The JAX package decodes images with Pillow (`Image.open(...).convert("RGBA")`,
 rustic_tpu/scene/gltf.py `_decode_image`); the port runs where Pillow may
@@ -8,7 +9,8 @@ five scanline filters of the PNG specification (None, Sub, Up, Average,
 Paeth). The result is what Pillow's `convert("RGBA")` gives: uint8
 [H, W, 4], alpha 255 where the image has none. Anything else (palettes,
 other depths, interlacing, a tRNS key colour, JPEG) raises
-NotImplementedError.
+NotImplementedError. `encode_png` writes 8-bit RGB or RGBA with filter 0
+(None) on every scanline, which any decoder reads.
 """
 
 from __future__ import annotations
@@ -118,3 +120,23 @@ def decode_image_rgba(raw: bytes) -> np.ndarray:
     """An image file's bytes -> float32 [H, W, 4] in [0, 1], as the JAX
     package's `np.asarray(Image.open(...).convert("RGBA"), np.float32) / 255`."""
     return np.asarray(decode_png(raw), np.float32) / 255.0
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body) & 0xFFFFFFFF
+    )
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] (RGB) or [H, W, 4] (RGBA) -> PNG bytes: 8 bits a
+    sample, not interlaced, every scanline filter 0 (None)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"encode_png takes uint8 [H, W, 3 or 4], not {img.dtype} {img.shape}")
+    height, width, n = img.shape
+    rows = np.zeros((height, width * n + 1), np.uint8)  # column 0: the filter byte
+    rows[:, 1:] = img.reshape(height, width * n)
+    header = struct.pack(">IIBBBBB", width, height, 8, 2 if n == 3 else 6, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))

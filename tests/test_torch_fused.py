@@ -56,9 +56,12 @@ def config_of(name, **kw):
 
 
 def scan_then_gather(scene, feats, pending):
-    """The scans the other loops run, in their plain versions, and the
-    winners' rows -> (t, idx, occ i32 or None, rows [32, B])."""
-    t, idx, occ = P._scan(feats, pending, scene)
+    """The scans the other loops run in the list form, in their plain
+    versions, and the winners' rows -> (t, idx, occ i32 or None, rows
+    [32, B]). The list form's any-hit set culls per block, as K17's plain
+    scan (which culls nothing) gives on every lane; the grid form's per-ray
+    cull may differ on dead lanes (ROADMAP queue 3, "Culling is per ray")."""
+    t, idx, occ = P._scan(feats, pending, scene, "lists")
     rows = scene.tri_attrs[idx.long()].T.contiguous()
     return t, idx, None if occ is None else occ.to(torch.int32), rows
 

@@ -122,7 +122,7 @@ def test_multitile_group_structure(veach_port, monkeypatch, samples, expect):
     config = TracingConfig(
         width=16, height=4, nee=NextEventEstimation.MIS, **CASES["VeachMIS"]
     )
-    settings = RenderSettings(samples=samples, multitile_loop=UNSORTED)
+    settings = RenderSettings(samples=samples, multitile_loop=UNSORTED, multitile_scan="lists")
     film = render_image(veach_port, config, settings, device="cpu")
     assert film.shape == (4, 16, 3) and np.isfinite(film).all()
     assert calls == {
@@ -159,7 +159,7 @@ def test_multitile_without_nee_has_no_shadow_scans(veach_port, monkeypatch):
     calls = {}
     count_calls(monkeypatch, FI, SCANS, calls)
     config = TracingConfig(width=8, height=4, nee=NextEventEstimation.NONE, **CASES["VeachMIS"])
-    film = render_image(veach_port, config, RenderSettings(samples=2, multitile_loop=UNSORTED),
-                        device="cpu")
+    film = render_image(veach_port, config, RenderSettings(samples=2, multitile_loop=UNSORTED,
+                                                           multitile_scan="lists"), device="cpu")
     assert np.isfinite(film).all() and film.mean() > 0.0
     assert calls == dict.fromkeys(SCANS, 0) | {"nearest_multi": config.max_bounces}

@@ -363,7 +363,7 @@ def test_sorted_group_structure(scenes, monkeypatch, driver, samples, expect):
         stages = {"ks_resolve": 12, "ks_sort": 12, "shade_bounce_wide": 12, "shade_bounce": 0}
     monkeypatch.setattr(P, "_FOLD_MAX_LANES", 4 * 64)
     config = TracingConfig(width=16, height=4, nee=MIS, **CAMS["VeachMIS"])
-    settings = RenderSettings(samples=samples, multitile_loop=driver)
+    settings = RenderSettings(samples=samples, multitile_loop=driver, multitile_scan="lists")
     film = render_image(ts, config, settings, device="cpu")
     assert film.shape == (4, 16, 3) and np.isfinite(film).all()
     assert calls == {
@@ -381,8 +381,8 @@ def test_sorted_without_nee_has_no_shadow_scans(scenes, monkeypatch, driver):
     count_calls(monkeypatch, FI, SCANS, calls)
     count_calls(monkeypatch, SK, ("shade_bounce", "shade_bounce_wide"), calls)
     config = TracingConfig(width=8, height=4, nee=NextEventEstimation.NONE, **CAMS["VeachMIS"])
-    film = render_image(ts, config, RenderSettings(samples=2, multitile_loop=driver),
-                        device="cpu")
+    film = render_image(ts, config, RenderSettings(samples=2, multitile_loop=driver,
+                                                   multitile_scan="lists"), device="cpu")
     assert np.isfinite(film).all() and film.mean() > 0.0
     shades = config.max_bounces if driver == "kernel-shade" else 0
     assert calls == dict.fromkeys(SCANS, 0) | {
@@ -405,6 +405,8 @@ def test_kernel_shade_uses_k4_for_small_tables(scenes, monkeypatch):
     ("kernel-shade", "_render_batch_ks_multitile"),
     ("ray-sorted", "_render_batch_raysorted"),
     ("unsorted", "_render_batch_unsorted"),
+    ("state-sorted", "_render_batch_sorted"),
+    ("auto", "_render_batch_auto"),
 ])
 def test_multitile_loop_names(monkeypatch, loop, driver):
     monkeypatch.delenv("RUSTIC_SORT_MODE", raising=False)
@@ -429,13 +431,18 @@ def test_default_loop_is_kernel_shade(scenes, monkeypatch):
 
 
 def test_state_sort_mode_is_refused(monkeypatch):
-    monkeypatch.setenv("RUSTIC_SORT_MODE", "state")
-    for loop in P.MULTITILE_LOOPS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.multitile_loop(loop)
+    """The state-sorted driver is ported and named by argument: the JAX
+    package's RUSTIC_SORT_MODE is not read (each name gives its own loop
+    under any setting), and its values are no loop names."""
+    want = {loop: P.multitile_loop(loop) for loop in P.MULTITILE_LOOPS}
+    assert want["state-sorted"] is P._render_batch_sorted
+    for mode in ("state", "rays", "auto"):
+        monkeypatch.setenv("RUSTIC_SORT_MODE", mode)
+        assert {loop: P.multitile_loop(loop) for loop in P.MULTITILE_LOOPS} == want
     monkeypatch.delenv("RUSTIC_SORT_MODE")
-    with pytest.raises(ValueError, match="multi-tile loop"):
-        P.multitile_loop("rays")
+    for name in ("rays", "state"):
+        with pytest.raises(ValueError, match="multi-tile loop"):
+            P.multitile_loop(name)
 
 
 # the fused loop does refuse an HDR sky (tests/test_torch_fused.py)
