@@ -16,8 +16,10 @@ and VeachMIS; then FurnaceTest, GlassTest and PBRTest timed in each scan
 form (the grid form, K9-K11, is the default), the state-sorted driver
 (path compaction; the scans on whole-state-sorted rays, torch shading)
 and "auto" against the kernel-shade loop, and the DarkCornell, GlassTest
-and FurnaceTest reference films; and the dot-rate probes (K18, K19)
-through their program, rustic_tpu_torch/probe_dot_floor.py.
+and FurnaceTest reference films; the dot-rate probes (K18, K19)
+through their program, rustic_tpu_torch/probe_dot_floor.py; and the
+"bvh" engine's traversal, one thread a ray (K20), against its plain
+version and the tile scans, under compare_engines and backend="cpu".
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`--only PHASE[,PHASE...]` runs the device phase and the named ones.)
@@ -230,6 +232,24 @@ Phases, each of which must pass (the first that fails ends the run):
      bound by its unit's peak. Then the probes' program
      (probe_dot_floor.main: the case sweep and the accuracy table), with
      the launch counts read after it.
+ 31. bvh: the "bvh" engine's traversal, K20n (nearest) and K20a (any hit),
+     one thread a ray (csrc/bvh_traverse.cu). The bounce-1 operands of one
+     fold group of VeachMIS, BreakTime (its first pixel chunk) and PBRTest
+     (1024x1024 from its default camera: no emitter, so no shadow rays),
+     each 4,194,304 lanes, traced through the kernel-shade loop's bounce 0
+     in the grid form: K20n on the sorted bounce-1 rays, K20a on the
+     bounce-0 shadow rays, each equal to its plain version (the JAX
+     package's lockstep loop in torch) bit for bit on 65,536 lanes of
+     each scene; on VeachMIS on all 4,194,304 lanes too, whose per-ray
+     counters (internal nodes popped, triangles tested) give the bound.
+     K20n and K20a timed against their plain versions (65,536 lanes), and
+     in turns against K9, K10 and K11 on the same rays. Then
+     compare_engines at its default engines ("brute", "bvh", "flash") on
+     a VeachMIS 64x64x4 film on the card: every pair's RMSE under 1e-3,
+     K20n and K20a launched by the "bvh" render, the plain version never;
+     and render_pixels(backend="cpu") of the card's scene (a 32x32x2 film,
+     "auto" resolved to "bvh" on the host) against the card's
+     engine="bvh" film within rtol 1e-4, atol 1e-5.
 
 Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
 form by RenderSettings.multitile_scan, a one-tile scene's loop by
@@ -325,6 +345,17 @@ TENSOR_OP_PER_S = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989
 FLOPS_PER_PAIR = 4 + 36 * 2 + 1 + 3 + 1
 # the used rows of a [16, B] ray table: rd, ro x rd, ro, 1 (+ max_t)
 RAY_ROWS, SHADOW_ROWS = 10, 11
+# FP32 operations of the BVH traversal (csrc/bvh_traverse.cu): one slab test
+# (6 subtracts, 6 multiplies, 6 min/max, the 4 of the max/min of three, 3
+# compares), one Moller-Trumbore test (6 edge subtracts, 2 crosses of 9, 3
+# dots of 5, |det| and its compare, 1 division, 3 subtracts, 3 multiplies,
+# 6 window compares and the u + v add, the best-t compare) and a ray's
+# 1 / rd (3 divisions, 6 compares of the clamp)
+SLAB_FLOPS = 6 + 6 + 6 + 4 + 3
+MT_FLOPS = 6 + 2 * 9 + 3 * 5 + 2 + 1 + 3 + 3 + 6 + 1 + 1
+RAY_FLOPS = 3 + 6
+# a node (two boxes of 3 f32, left_first, count) and a triangle's vertices
+NODE_BYTES, TRI_BYTES = 32, 36
 
 KERNELS = {
     "K1": dict(
@@ -407,6 +438,15 @@ KERNELS = {
     "K19 bf16w": dict(
         name="dot_min_split_bf16w", source="rustic_tpu_torch/csrc/probe_dot.cu",
         replaces="tools/probe_k96.py:79",
+    ),
+    # not a Pallas site: the XLA while_loop of the "bvh" engine
+    "K20n": dict(
+        name="bvh_nearest", source="rustic_tpu_torch/csrc/bvh_traverse.cu",
+        replaces="rustic_tpu/ops/intersect.py:202",
+    ),
+    "K20a": dict(
+        name="bvh_occluded", source="rustic_tpu_torch/csrc/bvh_traverse.cu",
+        replaces="rustic_tpu/ops/intersect.py:202",
     ),
 }
 SINGLE_TILE = ("K1", "K2", "K3", "K4")
@@ -558,12 +598,13 @@ class Smoke:
             f"{statistics.median(tb):.3f} ms ({self.card})")
 
     def _counted(self):
+        from rustic_tpu_torch.ops import bvh_traverse as BV
         from rustic_tpu_torch.ops import flash_intersect as FI
         from rustic_tpu_torch.ops import fused_bounce as FB
         from rustic_tpu_torch.ops import probe_dot as PD
         from rustic_tpu_torch.ops import shade_kernel as SK
 
-        return (FI, SK, FB, PD)
+        return (FI, SK, FB, PD, BV)
 
     def reset_counts(self):
         for module in self._counted():
@@ -2905,6 +2946,223 @@ class Smoke:
                 if not counts[KERNELS[key]["name"]]:
                     self.fail(f"{key} was not launched by probe_dot_floor")
 
+
+    # ---- phase 31 --------------------------------------------------------------------------
+
+    def _ks_bounce1(self, scene, config, px, py, off):
+        """One fold group through bounce 0 of the kernel-shade loop in the
+        grid form -> the bounce-1 scan operands (the sorted next rays [16, B],
+        the sorted bounce-0 shadow rays or None)."""
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.runtime import pipeline as P
+
+        cfg, cam = config.static_part(), config.dynamic_part(self.dev)
+        n_alias = scene.n_alias_entries if cfg.nee.uses_nee and scene.has_lights else 0
+        shade = SK.shade_bounce_wide if n_alias > P.ENTRY_SELECT_MAX else SK.shade_bounce
+        st, feats_t, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+        t, i, occ = P._scan(feats_t, None, scene, "grid")
+        t, i, occ, attrs_t = P.ks_resolve(scene, feats_t, t, i, occ, None)
+        st, nf, sf = shade(cfg, 0, params, scene.entry_rows, st, feats_t, t, i, attrs_t, occ,
+                           sidx, off, has_glass=scene.has_glass, n_alias=n_alias)
+        f1, s1, _ = P.ks_sort(scene, st, nf, sf)
+        return f1, s1
+
+    def _bvh_operands(self):
+        """{scene name: (scene, bounce-1 ray rows, shadow rows or None)} at
+        4,194,304 lanes each."""
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.runtime.render import pixel_offsets
+
+        def frame(w, h, n_px):
+            y, x = np.mgrid[0:h, 0:w]
+            px = torch.from_numpy(x.reshape(-1)[:n_px].astype(np.int32)).to(self.dev)
+            py = torch.from_numpy(y.reshape(-1)[:n_px].astype(np.int32)).to(self.dev)
+            off = pixel_offsets(w, h, use_blue_noise=False)[:n_px].view(np.int32)
+            off = torch.from_numpy(off.copy()).to(self.dev)
+            return px.repeat(FOLD), py.repeat(FOLD), off.repeat(FOLD)
+
+        self._mt_setup()
+        if getattr(self, "bt_scene", None) is None:
+            self.bt_load()
+        pbr, pbr_config = self._load(dict(OTHER_SCENES["PBRTest"], size=(MT_SIZE, MT_SIZE)))
+        out = {}
+        for name, scene, config, (w, h), n_px in (
+            ("VeachMIS", self.mt_scene, self.mt_config, (MT_SIZE, MT_SIZE), MT_SIZE * MT_SIZE),
+            ("BreakTime", self.bt_scene, self.bt_config, (BT_W, BT_H), BT_CHUNK),
+            ("PBRTest", pbr, pbr_config, (MT_SIZE, MT_SIZE), MT_SIZE * MT_SIZE),
+        ):
+            f1, s1 = self._ks_bounce1(scene, config, *frame(w, h, n_px))
+            out[name] = (scene, f1, s1)
+            log(f"{name}: bounce-1 operands, {f1.shape[1]} lanes, "
+                f"{'no' if s1 is None else s1.shape[1]} shadow rays, "
+                f"{scene.bvh_count.shape[0]} BVH nodes")
+        torch.cuda.synchronize()
+        return out
+
+    @staticmethod
+    def _rays(rows, lanes=slice(None)):
+        """[16, B] ray rows -> (ro, rd, max_t) [B, 3], [B, 3], [B] contiguous."""
+        from rustic_tpu_torch.ops import flash_intersect as FI
+
+        r = rows[:, lanes]
+        return r[6:9].T.contiguous(), r[0:3].T.contiguous(), r[FI.SH_MAXT_COL].contiguous()
+
+    def _bvh_equal(self, what, got, want):
+        """Bit-for-bit equality of K20's outputs and the plain version's."""
+        torch = self.torch
+        for name, a, b in zip(("t", "tri_idx", "hit", "backface", "u", "v"), got, want):
+            if a is None:
+                continue
+            same = a.view(torch.int32) == b.view(torch.int32) if a.is_floating_point() else a == b
+            if not bool(same.all()):
+                lanes = (~same).nonzero()[:5, 0].tolist()
+                self.fail(f"{what}: {name} differs on {int((~same).sum())} lanes (e.g. {lanes})")
+
+    def bvh(self):
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.config import RenderSettings
+        from rustic_tpu_torch.ops import bvh_traverse as BV
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import intersect as I
+        from rustic_tpu_torch.runtime.render import pixel_offsets, render_pixels
+        from rustic_tpu_torch.utils.compare import compare_engines
+
+        ops = self._bvh_operands()
+        cut = slice(0, CHECK_LANES)
+        for name, (scene, f1, s1) in ops.items():
+            ro, rd, _ = self._rays(f1, cut)
+            got = BV.bvh_nearest(scene, ro, rd)
+            want, pops, tests = I.bvh_traverse_plain(scene, ro, rd, counters=True)
+            self._bvh_equal(f"K20n on {name}", got, want)
+            msg = (f"{name}: K20n bit-equal to its plain version on {CHECK_LANES} lanes, hit rate "
+                   f"{float(got.hit.float().mean()):.4f}, per ray {float(pops.float().mean()):.2f} "
+                   f"internal nodes, {float(tests.float().mean()):.2f} triangles "
+                   f"(max {int(pops.max())}, {int(tests.max())})")
+            if s1 is not None:
+                ro, rd, mt = self._rays(s1, cut)
+                got = BV.bvh_occluded(scene, ro, rd, mt)
+                want, pops, tests = I.bvh_traverse_plain(scene, ro, rd, mt, counters=True)
+                self._bvh_equal(f"K20a on {name}", (None, None, got), (None, None, want.hit))
+                msg += (f"; K20a bit-equal, occluded {float(got.float().mean()):.4f}, per ray "
+                        f"{float(pops.float().mean()):.2f} internal nodes, "
+                        f"{float(tests.float().mean()):.2f} triangles")
+            log(msg)
+        torch.cuda.synchronize()
+
+        # VeachMIS at full length: every lane, and the counters for the bound
+        scene, f1, s1 = ops["VeachMIS"]
+        n_nodes, lanes = scene.bvh_count.shape[0], f1.shape[1]
+        tables = n_nodes * NODE_BYTES + scene.n_tris * TRI_BYTES
+        for key, rows in (("K20n", f1), ("K20a", s1)):
+            ro, rd, mt = self._rays(rows)
+            t0 = time.time()
+            if key == "K20n":
+                got = BV.bvh_nearest(scene, ro, rd)
+                want, pops, tests = I.bvh_traverse_plain(scene, ro, rd, counters=True)
+                self._bvh_equal(f"{key} on all of VeachMIS", got, want)
+                err = float((got.t - want.t).abs().max())
+                n_bytes = lanes * (24 + 18) + tables
+            else:
+                got = BV.bvh_occluded(scene, ro, rd, mt)
+                want, pops, tests = I.bvh_traverse_plain(scene, ro, rd, mt, counters=True)
+                self._bvh_equal(f"{key} on all of VeachMIS", (None, None, got),
+                                (None, None, want.hit))
+                err = float((got != want.hit).any())
+                n_bytes = lanes * (28 + 1) + tables
+            flops = (int(pops.sum()) * 2 * SLAB_FLOPS + int(tests.sum()) * MT_FLOPS
+                     + lanes * RAY_FLOPS)
+            log(f"{key} on all {lanes} VeachMIS lanes: bit-equal to its plain version (plain "
+                f"{time.time() - t0:.1f} s); {int(pops.sum())} internal nodes, "
+                f"{int(tests.sum())} triangles: {flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB")
+            self.results[key]["max_abs_err"] = err
+            self.set_bound(key, bound(n_bytes, flops))
+            del got, want, pops, tests
+        torch.cuda.synchronize()
+
+        # timed: each against its plain version (65,536 lanes), then against the scans
+        ro, rd, _ = self._rays(f1)
+        ro_s, rd_s, mt_s = self._rays(s1)
+        small = [x[:CHECK_LANES] for x in (ro, rd, ro_s, rd_s, mt_s)]
+        self.time_pair("K20n", lambda: BV.bvh_nearest(scene, ro, rd),
+                       lambda: I.bvh_traverse_plain(scene, small[0], small[1]),
+                       f"{lanes} (plain: {CHECK_LANES})", reps=3)
+        self.time_pair("K20a", lambda: BV.bvh_occluded(scene, ro_s, rd_s, mt_s),
+                       lambda: I.bvh_traverse_plain(scene, small[2], small[3], small[4]),
+                       f"{lanes} (plain: {CHECK_LANES})", reps=3)
+        for name, (scene, f1, s1) in ops.items():
+            g16, aabbs, live = scene.tri_feats16, scene.tile_aabbs, scene.n_tris
+            ro, rd, _ = self._rays(f1)
+            self.time_turns(f"{name} bounce-1 rays, {f1.shape[1]} lanes",
+                            "K20n", lambda: BV.bvh_nearest(scene, ro, rd),
+                            "K9", lambda: FI.nearest_grid(f1, g16, aabbs, n_live=live))
+            if s1 is None:
+                continue
+            ro_s, rd_s, mt_s = self._rays(s1)
+            self.time_turns(f"{name} bounce-0 shadow rays, {s1.shape[1]} lanes",
+                            "K20a", lambda: BV.bvh_occluded(scene, ro_s, rd_s, mt_s),
+                            "K11", lambda: FI.occlude_grid(s1, g16, aabbs, n_live=live))
+            self.time_turns(f"{name} both sets (K10's operands)",
+                            "K20n + K20a", lambda: (BV.bvh_nearest(scene, ro, rd),
+                                                    BV.bvh_occluded(scene, ro_s, rd_s, mt_s)),
+                            "K10", lambda: FI.nearest_shadow_grid(f1, s1, g16, aabbs,
+                                                                  n_live=live))
+        del ops
+        torch.cuda.empty_cache()
+
+        # the engines on the card: compare_engines at its defaults; the plain
+        # traversal must not run on a CUDA scene
+        scene = self.mt_scene
+        config = dataclasses.replace(self.mt_config, width=64, height=64)
+        plain_calls = []
+        real_plain = I.bvh_traverse_plain
+
+        def watched(sc, *a, **k):
+            if sc.device.type == "cuda":
+                plain_calls.append(1)
+            return real_plain(sc, *a, **k)
+
+        I.bvh_traverse_plain = watched
+        try:
+            self.reset_counts()
+            t0 = time.time()
+            rmses = compare_engines(scene, config, 4, device=self.dev)
+            counts = self.counts()
+        finally:
+            I.bvh_traverse_plain = real_plain
+        log(f"compare_engines, VeachMIS 64x64x4 on the card ({time.time() - t0:.1f} s): {rmses}")
+        if plain_calls:
+            self.fail(f"the plain traversal ran {len(plain_calls)} times on a CUDA scene")
+        if list(rmses) != ["brute_vs_bvh", "brute_vs_flash", "bvh_vs_flash"]:
+            self.fail(f"compare_engines compared {list(rmses)}")
+        if not max(rmses.values()) < 1e-3:
+            self.fail(f"the engines disagree: {rmses}")
+        for key in ("K20n", "K20a"):
+            self.results[key]["launches"] = counts[KERNELS[key]["name"]]
+            if not counts[KERNELS[key]["name"]]:
+                self.fail(f"{key} was not launched by the bvh engine's render")
+        log(f"launches of compare_engines: { {k: v for k, v in counts.items() if v} }")
+
+        # backend="cpu" on the card's scene: "auto" resolves to "bvh" on the host
+        w = h = 32
+        y, x = np.mgrid[0:h, 0:w]
+        px, py = x.reshape(-1).astype(np.int32), y.reshape(-1).astype(np.int32)
+        off = pixel_offsets(w, h, use_blue_noise=False)
+        small_cfg = dataclasses.replace(self.mt_config, width=w, height=h)
+        card = render_pixels(scene, small_cfg, px, py, 2, offsets=off, engine="bvh").cpu()
+        t0 = time.time()
+        host = render_pixels(scene, small_cfg, px, py, 2, offsets=off, backend="cpu")
+        if host.device.type != "cpu":
+            self.fail(f"backend='cpu' rendered on {host.device}")
+        d = (card - host).abs()
+        log(f"backend='cpu' {w}x{h}x2 ({time.time() - t0:.1f} s on the host) against the card's "
+            f"engine='bvh' film: max |d| {float(d.max()):.3g}, mean {float(card.mean()):.6f}")
+        if not torch.allclose(card, host, rtol=1e-4, atol=1e-5):
+            self.fail("backend='cpu' and the card's bvh film disagree beyond rtol 1e-4, atol 1e-5")
+
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self, only=()) -> int:
@@ -2939,6 +3197,7 @@ class Smoke:
             ("sorted-modes", self.sorted_modes),
             ("films", self.films),
             ("probe-check", self.probe_check),
+            ("bvh", self.bvh),
         ]
         if only:
             unknown = set(only) - {name for name, _ in phases}

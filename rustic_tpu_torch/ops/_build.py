@@ -32,9 +32,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Per-source extra flags. shade.cu and fused_bounce.cu (the sources that
-# include shade_common.cuh) are compiled without FMA contraction so that
-# the shading rounds like its plain PyTorch twin, which runs one
-# operation per torch kernel; the scans' device code (flash_common.cuh)
+# include shade_common.cuh) and bvh_traverse.cu are compiled without FMA
+# contraction so that they round like their plain PyTorch twins, which
+# run one operation per torch kernel; the scans' device code (flash_common.cuh)
 # writes its roundings out, so it gives the same bits under either
 # setting. No source uses --use_fast_math: the sky march's exp(2.2 log x)
 # and the GGX terms need the precise functions.
@@ -45,6 +45,7 @@ EXTRA_FLAGS = {
     "shade": ["-fmad=false"],
     "fused_bounce": ["-fmad=false"],
     "probe_dot": [],
+    "bvh_traverse": ["-fmad=false"],
 }
 
 

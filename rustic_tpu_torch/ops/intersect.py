@@ -11,7 +11,14 @@
 - "brute": every (ray, triangle) pair as one matrix product per chunk of
   rays, from the triangles' vertices alone; the oracle the flash engine
   and the staged renderer are held to.
-- "bvh" (the JAX package's lockstep traversal) is not ported.
+- "bvh": the scene's BVH walked per ray (reference:
+  kernels/src/intersection.rs:177-234): a 32-entry stack, children pushed
+  far then near, a leaf's triangles tested one at a time, an early out
+  for shadow rays. On a CUDA scene one thread walks each ray (kernel
+  K20, ops/bvh_traverse.py); on the CPU `intersect_bvh` / `occlude_bvh`
+  run the JAX package's lockstep loop over masks (every ray advances one
+  step an iteration: one triangle tested or one node popped), which is
+  also the kernel's plain version.
 
 Unlike the JAX package, ray features are [16, B] rows (the layout the
 scan kernels read coalesced); everything else is lane-major.
@@ -32,10 +39,12 @@ BRUTE_FORCE_MAX_TRIS = 64
 # f32 elements of one [chunk, 4T] brute-force intermediate (64 MB)
 _CHUNK_BUDGET = 1 << 24
 
-BVH_TODO = (
-    'the "bvh" engine (the lockstep BVH traversal) is not ported '
-    "(ROADMAP.md queue 1 item 8); name \"flash\" or \"brute\""
-)
+# the BVH traversal's fixed stack (reference: kernels/src/intersection.rs:178):
+# a push onto a full stack is dropped
+STACK_DEPTH = 32
+# |rd| below this is clamped to it, keeping its sign (+ for -0.0), before the
+# reciprocal: the slab test never multiplies by inf
+RD_CLAMP = 1e-12
 ENGINES = ("auto", "flash", "brute", "bvh")
 
 
@@ -207,6 +216,143 @@ def occlude_brute(tri_feats: torch.Tensor, ro, rd, max_t) -> torch.Tensor:
     return torch.cat(parts)
 
 
+# ---- the BVH engine --------------------------------------------------------------
+
+
+def inv_direction(rd):
+    """1 / rd with |rd| < RD_CLAMP clamped to +-RD_CLAMP (the sign of rd;
+    -0.0 takes +)."""
+    small = rd.abs() < RD_CLAMP
+    return torch.reciprocal(torch.where(small, torch.where(rd < 0, -RD_CLAMP, RD_CLAMP), rd))
+
+
+def _slab_test(lo, hi, ro, inv_rd, prev_t):
+    """Slab entry distance of boxes [B, 3] for rays [B, 3], inf where the
+    ray misses the box or enters it at or beyond prev_t
+    (reference: kernels/src/intersection.rs:104-122)."""
+    t1 = (lo - ro) * inv_rd
+    t2 = (hi - ro) * inv_rd
+    tmin = torch.minimum(t1, t2).amax(dim=-1)
+    tmax = torch.maximum(t1, t2).amin(dim=-1)
+    ok = (tmax >= tmin) & (tmax > 0.0) & (tmin < prev_t)
+    return torch.where(ok, tmin, torch.inf)
+
+
+def has_bvh(scene) -> bool:
+    return scene.bvh_count.shape[0] > 0
+
+
+def bvh_traverse_plain(scene, ro, rd, max_t=None, counters: bool = False):
+    """The "bvh" engine's traversal in the JAX package's lockstep form
+    (rustic_tpu/ops/intersect.py `_intersect_bvh_impl`): nearest hit, or
+    with `max_t` any hit within (EPS, max_t] -> TraceResult; with
+    `counters` also (internal nodes popped, each with two slab tests;
+    triangles tested) [B] int64 per ray.
+
+    Each iteration every active lane does one step: a lane inside a leaf
+    tests its next triangle, any other lane pops a node; a leaf sets the
+    triangle cursor, an internal node pushes the children its slab test
+    admits at the lane's best t, far then near (a full stack drops the
+    push). A shadow ray stops at its first hit within max_t. No lane reads
+    another's state, so a thread that walks its own lane to the end gives
+    the same bits (kernel K20). Leaves index the rows of `tri_attrs`, whose
+    columns 0:9 hold the triangle's vertices."""
+    if not has_bvh(scene):
+        raise ValueError('the scene carries no BVH nodes: the "bvh" engine cannot trace it')
+    nearest = max_t is None
+    dev = ro.device
+    batch = ro.shape[0]
+    inv_rd = inv_direction(rd)
+    lane = torch.arange(batch, device=dev)
+    last_tri = scene.n_tris - 1
+
+    stack = torch.zeros((batch, STACK_DEPTH), dtype=torch.int32, device=dev)  # root pushed
+    sp = torch.ones(batch, dtype=torch.int32, device=dev)
+    leaf_ptr = torch.zeros(batch, dtype=torch.int32, device=dev)
+    leaf_end = torch.zeros(batch, dtype=torch.int32, device=dev)
+    best_t = torch.full((batch,), BIG, dtype=torch.float32, device=dev)
+    best_idx = torch.zeros(batch, dtype=torch.int32, device=dev)
+    best_back = torch.zeros(batch, dtype=torch.bool, device=dev)
+    best_u = torch.zeros(batch, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(batch, dtype=torch.float32, device=dev)
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    pops = torch.zeros(batch, dtype=torch.int64, device=dev)
+    tests = torch.zeros(batch, dtype=torch.int64, device=dev)
+
+    while True:
+        active = ~done & ((sp > 0) | (leaf_ptr < leaf_end))
+        if not bool(active.any()):
+            break
+        in_leaf = active & (leaf_ptr < leaf_end)
+
+        # leaf lanes: test one triangle
+        ti = torch.clamp(leaf_ptr, 0, last_tri)
+        verts = scene.tri_attrs[ti.long(), 0:9]
+        t, u, v, backface, valid = _mt_single(verts[:, 0:3], verts[:, 3:6], verts[:, 6:9], ro, rd)
+        better = in_leaf & valid & (t < best_t)
+        if not nearest:
+            better = better & (t <= max_t)
+        best_t = torch.where(better, t, best_t)
+        best_idx = torch.where(better, ti, best_idx)
+        best_back = torch.where(better, backface, best_back)
+        best_u = torch.where(better, u, best_u)
+        best_v = torch.where(better, v, best_v)
+        if not nearest:
+            done = done | better
+        leaf_ptr = leaf_ptr + in_leaf.int()
+
+        # the other lanes: pop a node
+        popping = active & ~in_leaf & (sp > 0)
+        sp = sp - popping.int()
+        node = stack[lane, torch.clamp(sp, 0, STACK_DEPTH - 1).long()]
+        node = torch.where(popping, node, 0).long()
+        n_count = scene.bvh_count[node]
+        n_left = scene.bvh_left_first[node]
+        is_leaf = popping & (n_count > 0)
+        leaf_ptr = torch.where(is_leaf, n_left, leaf_ptr)
+        leaf_end = torch.where(is_leaf, n_left + n_count, leaf_end)
+
+        # internal: ordered push of both children
+        # (reference: kernels/src/intersection.rs:206-230)
+        internal = popping & (n_count == 0)
+        li = n_left.long()
+        ri = li + 1
+        ld = _slab_test(scene.bvh_min[li], scene.bvh_max[li], ro, inv_rd, best_t)
+        rdist = _slab_test(scene.bvh_min[ri], scene.bvh_max[ri], ro, inv_rd, best_t)
+        swap = ld > rdist
+        near_i = torch.where(swap, ri, li).int()
+        far_i = torch.where(swap, li, ri).int()
+        near_d = torch.minimum(ld, rdist)
+        far_d = torch.maximum(ld, rdist)
+        for child, dist in ((far_i, far_d), (near_i, near_d)):
+            push = internal & torch.isfinite(dist) & (sp < STACK_DEPTH)
+            slot = torch.clamp(sp, 0, STACK_DEPTH - 1).long()
+            stack[lane, slot] = torch.where(push, child, stack[lane, slot])
+            sp = sp + push.int()
+        if counters:
+            pops += internal
+            tests += in_leaf
+
+    res = TraceResult(best_t, best_idx, best_t < BIG, best_back, best_u, best_v)
+    return (res, pops, tests) if counters else res
+
+
+def intersect_bvh(scene, ro, rd) -> TraceResult:
+    """Nearest hit through the BVH: K20n on a CUDA scene, else its plain
+    version."""
+    from rustic_tpu_torch.ops import bvh_traverse
+
+    return bvh_traverse.bvh_nearest(scene, ro.contiguous(), rd.contiguous())
+
+
+def occlude_bvh(scene, ro, rd, max_t) -> torch.Tensor:
+    """Any hit within (EPS, max_t] through the BVH -> [B] bool: K20a on a
+    CUDA scene, else its plain version."""
+    from rustic_tpu_torch.ops import bvh_traverse
+
+    return bvh_traverse.bvh_occluded(scene, ro.contiguous(), rd.contiguous(), max_t.contiguous())
+
+
 # ---- the flash engine ---------------------------------------------------------
 
 # the forms of the multi-tile scans; the first is the default (the fastest on
@@ -286,32 +432,39 @@ def occlude_flash(scene, ro, rd, max_t, scan: str = MULTITILE_SCANS[0]) -> torch
 # ---- dispatch -------------------------------------------------------------------
 
 
+def cpu_engine(n_tris: int) -> str:
+    """What "auto" is on the CPU: "brute" up to BRUTE_FORCE_MAX_TRIS
+    triangles, "bvh" beyond."""
+    return "brute" if n_tris <= BRUTE_FORCE_MAX_TRIS else "bvh"
+
+
 def _pick_engine(scene, engine: str) -> str:
-    """Resolve `engine` for `scene`: "auto" is "flash" on a CUDA device;
-    on the CPU it is "brute" up to BRUTE_FORCE_MAX_TRIS triangles and
-    "bvh" beyond, which is not ported and raises."""
+    """Resolve `engine` for `scene`: "auto" is "flash" on a CUDA device
+    and `cpu_engine` on the CPU."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r}: expected one of {ENGINES}")
     if engine == "auto":
-        if scene.device.type == "cuda":
-            return "flash"
-        engine = "brute" if scene.n_tris <= BRUTE_FORCE_MAX_TRIS else "bvh"
-    if engine == "bvh":
-        raise NotImplementedError(BVH_TODO)
+        return "flash" if scene.device.type == "cuda" else cpu_engine(scene.n_tris)
     return engine
 
 
 def intersect_nearest(scene, ro, rd, engine: str = "auto",
                       scan: str = MULTITILE_SCANS[0]) -> TraceResult:
     """Nearest hit (reference: kernels/src/intersection.rs:169-171)."""
-    if _pick_engine(scene, engine) == "flash":
+    engine = _pick_engine(scene, engine)
+    if engine == "flash":
         return intersect_flash(scene, ro, rd, scan)
-    return intersect_brute(scene_tri_feats(scene), ro, rd)
+    if engine == "brute":
+        return intersect_brute(scene_tri_feats(scene), ro, rd)
+    return intersect_bvh(scene, ro, rd)
 
 
 def intersect_any(scene, ro, rd, max_t, engine: str = "auto",
                   scan: str = MULTITILE_SCANS[0]) -> torch.Tensor:
     """Occlusion within (EPS, max_t] (reference: kernels/src/intersection.rs:173-175)."""
-    if _pick_engine(scene, engine) == "flash":
+    engine = _pick_engine(scene, engine)
+    if engine == "flash":
         return occlude_flash(scene, ro, rd, max_t, scan)
-    return occlude_brute(scene_tri_feats(scene), ro, rd, max_t)
+    if engine == "brute":
+        return occlude_brute(scene_tri_feats(scene), ro, rd, max_t)
+    return occlude_bvh(scene, ro, rd, max_t)

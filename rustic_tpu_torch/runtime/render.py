@@ -5,12 +5,17 @@
 their plain PyTorch versions when it is the CPU. A CUDA device that is
 absent is an error, never a silent fall back to the CPU.
 
-With no `engine` named, a render goes through the staged pipeline
-(runtime/pipeline.py). With one named (ops/intersect.py: "auto", "flash",
-"brute"), it goes through the staged pipeline when the engine resolves to
-"flash" on a CUDA device and through the single-program integrator
-(ops/trace.py `accumulate_samples`) otherwise, as in the JAX package;
-`engine="brute"` is the oracle.
+`engine` names the intersection engine (ops/intersect.py: "auto",
+"flash", "brute", "bvh") or None. None is the staged pipeline
+(runtime/pipeline.py) on the scene's device. An engine goes through the
+staged pipeline when it resolves to "flash" on a CUDA device and through
+the single-program integrator (ops/trace.py `accumulate_samples`)
+otherwise, as in the JAX package: "auto" is "flash" on a CUDA device and
+"brute" or "bvh" by triangle count on the CPU; `engine="brute"` and
+`engine="bvh"` are the oracles. `render_pixels` takes "auto" by default,
+as the JAX package's does; `render_image` takes None (the staged
+pipeline) unless an engine is named. `backend="cpu"` renders on the host
+whatever device the scene is on.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from rustic_tpu_torch.config import RenderSettings, TracingConfig
-from rustic_tpu_torch.ops.intersect import _pick_engine
+from rustic_tpu_torch.ops.intersect import _pick_engine, cpu_engine
 from rustic_tpu_torch.ops.rng import as_i32_bits, pcg_hash
 from rustic_tpu_torch.ops.trace import accumulate_samples
 from rustic_tpu_torch.runtime.pipeline import render_batch_staged
@@ -86,13 +91,25 @@ def render_pixels(
     loop: str = RenderSettings.multitile_loop,
     scan: str = RenderSettings.multitile_scan,
     single_loop: str = RenderSettings.single_tile_loop,
-    engine: Optional[str] = None,
+    engine: Optional[str] = "auto",
+    backend: str = "auto",
 ) -> torch.Tensor:
     """Render an arbitrary pixel set on the scene's device; returns the
     film *sum* [B, 3] there. `loop` names the multi-tile loop, `scan` the
-    form of its scans, `single_loop` the loop of a one-tile scene.
-    `engine`: None for the staged pipeline, or an intersection engine (see
-    the module docstring)."""
+    form of its scans, `single_loop` the loop of a one-tile scene (the
+    staged pipeline's arguments). `engine`: an intersection engine, or
+    None for the staged pipeline (see the module docstring).
+    `backend="cpu"` moves the scene and `film_in` to the CPU first and
+    there resolves "auto" and "flash" to "brute" or "bvh" by triangle
+    count, as the JAX package's `backend="cpu"` does; the film is then on
+    the CPU."""
+    if backend not in ("auto", "cpu"):
+        raise ValueError(f"backend {backend!r}: expected 'auto' or 'cpu'")
+    if backend == "cpu" and scene.device.type != "cpu":
+        scene = scene.to("cpu")
+        film_in = None if film_in is None else film_in.cpu()
+        if engine in ("auto", "flash"):
+            engine = cpu_engine(scene.n_tris)
     device = scene.device
     cfg = config.static_part()
     cam = config.dynamic_part(device)

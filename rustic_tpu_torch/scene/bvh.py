@@ -1,20 +1,41 @@
-"""Binned-SAH BVH builder: a NumPy port of
-rustic_tpu/scene/bvh.py:_build_bvh_numpy.
+"""Binned-SAH BVH builder: a NumPy port of rustic_tpu/scene/bvh.py
+(`BVH`, `_build_bvh_numpy`, `validate_bvh`).
 
-The port needs the builder for its triangle permutation, which fixes
-the flash tile layout and every winner index, so this is the same
-algorithm step for step and gives the same permutation as the JAX
-NumPy builder. The JAX package prefers its C++ builder (native/bvh.cpp)
-when that library is built, and that one gives a different permutation.
-The node arrays built on the way are not returned: no port stage
-traverses the BVH yet.
+The triangle permutation fixes the flash tile layout and every winner
+index, and the nodes are what the "bvh" engine traverses
+(ops/intersect.py `intersect_bvh`, kernel K20), so this is the same
+algorithm step for step and gives the same permutation and nodes as the
+JAX NumPy builder. The JAX package prefers its C++ builder
+(native/bvh.cpp) when that library is built, and that one gives a
+different permutation.
+
+Nodes are a struct of arrays (aabb_min [N, 3], aabb_max [N, 3],
+left_first [N], count [N]), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 _INF = np.float32(np.inf)
+
+
+@dataclasses.dataclass
+class BVH:
+    """Flattened binary BVH. Node 0 is the root; children are (left,
+    left + 1). A node is a leaf iff count > 0, and then left_first is the
+    index of its first triangle in the reordered triangle buffer."""
+
+    aabb_min: np.ndarray  # [N, 3] float32
+    aabb_max: np.ndarray  # [N, 3] float32
+    left_first: np.ndarray  # [N] int32: left child (internal) / first triangle (leaf)
+    count: np.ndarray  # [N] int32: 0 for internal nodes
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.count)
 
 
 def _node_area(lo: np.ndarray, hi: np.ndarray) -> float:
@@ -26,10 +47,10 @@ def _node_area(lo: np.ndarray, hi: np.ndarray) -> float:
 
 def build_bvh(
     vertices: np.ndarray, triangles: np.ndarray, sah_samples: int = 128
-) -> np.ndarray:
+) -> tuple[BVH, np.ndarray]:
     """Build a binned-SAH BVH over [T, 4] (i0, i1, i2, material) triangles
-    -> the permutation mapping the BVH triangle order to the old triangle
-    index (reference: src/bvh.rs:178-324)."""
+    -> (the nodes, the permutation mapping the BVH triangle order to the
+    old triangle index) (reference: src/bvh.rs:178-324)."""
     verts = np.asarray(vertices, np.float32)[:, :3]
     tris = np.asarray(triangles, np.int64)
     n_tris = len(tris)
@@ -136,4 +157,37 @@ def build_bvh(
         stack.append(right)
         stack.append(left)
 
-    return perm
+    bvh = BVH(
+        aabb_min=aabb_min[:node_count].copy(),
+        aabb_max=aabb_max[:node_count].copy(),
+        left_first=left_first[:node_count].copy(),
+        count=count[:node_count].copy(),
+    )
+    return bvh, perm
+
+
+def validate_bvh(bvh: BVH, tri_min: np.ndarray, tri_max: np.ndarray) -> None:
+    """Check the BVH's invariants: every leaf's box contains its
+    triangles, internal boxes contain their children, and the leaves
+    partition the triangle array exactly. Raises ValueError."""
+    seen = np.zeros(len(tri_min), bool)
+    stack = [0]
+    while stack:
+        node = stack.pop()
+        lo, hi = bvh.aabb_min[node], bvh.aabb_max[node]
+        if bvh.count[node] > 0:
+            sl = slice(int(bvh.left_first[node]), int(bvh.left_first[node] + bvh.count[node]))
+            if seen[sl].any():
+                raise ValueError(f"node {node}: leaf ranges overlap")
+            seen[sl] = True
+            if not (np.all(tri_min[sl] >= lo - 1e-4) and np.all(tri_max[sl] <= hi + 1e-4)):
+                raise ValueError(f"node {node}: leaf box does not contain its triangles")
+        else:
+            left = int(bvh.left_first[node])
+            for child in (left, left + 1):
+                if not (np.all(bvh.aabb_min[child] >= lo - 1e-4)
+                        and np.all(bvh.aabb_max[child] <= hi + 1e-4)):
+                    raise ValueError(f"node {child}: box not inside its parent's")
+                stack.append(child)
+    if not seen.all():
+        raise ValueError("some triangles are not referenced by any leaf")

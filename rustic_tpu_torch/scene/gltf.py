@@ -212,6 +212,32 @@ def _smooth_normals(positions: np.ndarray, tris: np.ndarray) -> np.ndarray:
     return normals / np.maximum(norm, 1e-12)
 
 
+def _shininess_to_roughness(ns: float) -> float:
+    """Classic Phong shininess -> GGX roughness (Beckmann fit), shared
+    by the OBJ (Ns) and FBX (Shininess) material paths."""
+    return float(np.sqrt(2.0 / (max(ns, 0.0) + 2.0)))
+
+
+def _renderer_space_scene(positions, normals, tangents, uv0, tris4, materials) -> "GltfScene":
+    """Shared tail of the OBJ, STL, PLY and FBX loaders: the
+    renderer-space swizzle (x, z, y) and winding reorder (i0, i2, i1)
+    (reference: src/asset.rs:102-114) -> GltfScene. `tris4` is [T, 4]
+    (i0, i1, i2, material) in source winding."""
+    triangles = np.empty((len(tris4), 4), np.int32)
+    triangles[:, 0] = tris4[:, 0]
+    triangles[:, 1] = tris4[:, 2]
+    triangles[:, 2] = tris4[:, 1]
+    triangles[:, 3] = tris4[:, 3]
+    return GltfScene(
+        positions=np.asarray(positions)[:, [0, 2, 1]].astype(np.float32),
+        normals=np.asarray(normals)[:, [0, 2, 1]].astype(np.float32),
+        tangents=np.asarray(tangents)[:, [0, 2, 1]].astype(np.float32),
+        uv0=np.asarray(uv0).astype(np.float32),
+        triangles=triangles,
+        materials=materials,
+    )
+
+
 def _smooth_tangents(positions, uv, normals, tris):
     """UV-gradient tangents averaged per vertex, Gram-Schmidt against the
     normal (assimp CalculateTangentSpace analog)."""

@@ -1,6 +1,6 @@
-"""World assembly: GLB -> BVH order, light table, material atlas, flash
-features and shading rows, uploaded as a `SceneTensors` (twin of
-rustic_tpu/scene/world.py).
+"""World assembly: a scene file -> BVH order and nodes, light table,
+material atlas, flash features and shading rows, uploaded as a
+`SceneTensors` (twin of rustic_tpu/scene/world.py).
 
 The triangle-feature packing of rustic_tpu/ops/flash_intersect.py
 (`padded_tri_count`, `tile_size`, `pack_tri_feats16`) lives here too:
@@ -203,6 +203,12 @@ class SceneTensors:
     tile_aabbs: torch.Tensor  # [NT, 8] f32
     atlas: torch.Tensor  # [Ha, Wa, 9] f32 co-located material maps (scene/atlas.py CH_*)
     skybox: torch.Tensor  # [Hs, Ws, 4] f32 equirect sky image
+    # BVH nodes (scene/bvh.py; leaf iff count > 0, a leaf's left_first
+    # indexes the rows of tri_attrs); zero nodes on a scene made without them
+    bvh_min: torch.Tensor  # [N, 3] f32
+    bvh_max: torch.Tensor  # [N, 3] f32
+    bvh_left_first: torch.Tensor  # [N] i32
+    bvh_count: torch.Tensor  # [N] i32
     n_tris: int
     n_alias_entries: int
     has_lights: bool
@@ -232,17 +238,24 @@ def _empty_atlas() -> np.ndarray:
     return np.zeros((4, 4, atlas_mod.ATLAS_CHANNELS), np.float32)
 
 
-def _scene_tensors(tri_feats16, attrs, entry_rows, tile_aabbs, atlas, skybox, device, **meta):
-    def f32(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
+def _scene_tensors(tri_feats16, attrs, entry_rows, tile_aabbs, atlas, skybox, bvh, device,
+                   **meta):
+    def up(a, dtype=np.float32):
+        return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(device)
 
+    if bvh is None:
+        bvh = bvh_mod.BVH(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0), np.zeros(0))
     return SceneTensors(
-        tri_feats16=f32(tri_feats16),
-        tri_attrs=f32(attrs),
-        entry_rows=f32(entry_rows),
-        tile_aabbs=f32(tile_aabbs),
-        atlas=f32(atlas),
-        skybox=f32(fallback_skybox() if skybox is None else skybox),
+        tri_feats16=up(tri_feats16),
+        tri_attrs=up(attrs),
+        entry_rows=up(entry_rows),
+        tile_aabbs=up(tile_aabbs),
+        atlas=up(atlas),
+        skybox=up(fallback_skybox() if skybox is None else skybox),
+        bvh_min=up(bvh.aabb_min).reshape(-1, 3),
+        bvh_max=up(bvh.aabb_max).reshape(-1, 3),
+        bvh_left_first=up(bvh.left_first, np.int32),
+        bvh_count=up(bvh.count, np.int32),
         **meta,
     )
 
@@ -250,18 +263,25 @@ def _scene_tensors(tri_feats16, attrs, entry_rows, tile_aabbs, atlas, skybox, de
 def scene_from_arrays(fields: dict, device) -> SceneTensors:
     """SceneTensors from the JAX package's SceneArrays fields as numpy
     arrays (`tri_feats16`, `tri_attrs` [T_pad, 64], `entry_rows`,
-    `tile_aabbs`, and for textured scenes or an image sky `atlas` and
-    `skybox`) plus its static metadata (`n_tris`, `n_alias_entries`,
-    `has_lights`, `has_glass`, `has_textures`), so one scene can feed
-    both packages. Untextured rows are slimmed; textured rows stay full."""
+    `tile_aabbs`, for textured scenes or an image sky `atlas` and
+    `skybox`, and for the "bvh" engine the nodes `bvh_min`, `bvh_max`,
+    `bvh_left_first`, `bvh_count`) plus its static metadata (`n_tris`,
+    `n_alias_entries`, `has_lights`, `has_glass`, `has_textures`), so one
+    scene can feed both packages. Untextured rows are slimmed; textured
+    rows stay full. Without the nodes the scene has none, and the "bvh"
+    engine refuses it."""
     attrs = np.asarray(fields["tri_attrs"], np.float32)
     has_textures = bool(fields["has_textures"])
     if not has_textures and attrs.shape[-1] != SLIM_WIDTH:
         attrs = slim_attr_table(attrs)
     atlas = fields.get("atlas")
+    bvh = None
+    if "bvh_count" in fields:
+        bvh = bvh_mod.BVH(*(fields[k] for k in ("bvh_min", "bvh_max", "bvh_left_first",
+                                                "bvh_count")))
     return _scene_tensors(
         fields["tri_feats16"], attrs, fields["entry_rows"], fields["tile_aabbs"],
-        _empty_atlas() if atlas is None else atlas, fields.get("skybox"),
+        _empty_atlas() if atlas is None else atlas, fields.get("skybox"), bvh,
         device,
         n_tris=int(fields["n_tris"]),
         n_alias_entries=int(fields["n_alias_entries"]),
@@ -344,7 +364,7 @@ class World:
 
         # BVH order first, then the light table on the reordered
         # triangles (reference: src/asset.rs:194-203)
-        perm = bvh_mod.build_bvh(self.positions, gltf.triangles)
+        self.bvh, perm = bvh_mod.build_bvh(self.positions, gltf.triangles)
         self.triangles = gltf.triangles[perm]
         mask = lt_mod.compute_emissive_mask(self.triangles, self.mat_emissive)
         self.light_table = lt_mod.build_light_table(
@@ -409,10 +429,26 @@ class World:
 
     @classmethod
     def from_path(cls, path: str, atlas_size: int = ATLAS_SIZE) -> "World":
-        if not path.lower().endswith((".glb", ".gltf")):
-            raise NotImplementedError(
-                f"{path}: only .glb/.gltf scenes are ported (ROADMAP.md queue 1)"
-            )
+        """Load a scene by its extension, as the JAX package's
+        `World.from_path`: .obj (with its .mtl), .stl, .ply, .fbx, and
+        glTF (.glb/.gltf) for anything else."""
+        low = path.lower()
+        if low.endswith(".obj"):
+            from rustic_tpu_torch.scene.obj import load_obj
+
+            return cls(load_obj(path), atlas_size)
+        if low.endswith(".stl"):
+            from rustic_tpu_torch.scene.mesh_formats import load_stl
+
+            return cls(load_stl(path), atlas_size)
+        if low.endswith(".ply"):
+            from rustic_tpu_torch.scene.mesh_formats import load_ply
+
+            return cls(load_ply(path), atlas_size)
+        if low.endswith(".fbx"):
+            from rustic_tpu_torch.scene.fbx import load_fbx
+
+            return cls(load_fbx(path), atlas_size)
         return cls(load_glb(path), atlas_size)
 
     def to_torch(self, device, skybox: Optional[np.ndarray] = None) -> SceneTensors:
@@ -420,7 +456,7 @@ class World:
         (`load_skybox_image`) that configs with has_skybox read."""
         return _scene_tensors(
             self.tri_feats16, self.tri_attrs, self.entry_rows, self.tile_aabbs,
-            self.atlas, skybox, device,
+            self.atlas, skybox, self.bvh, device,
             n_tris=len(self.triangles),
             n_alias_entries=len(self.light_table),
             has_lights=not self.light_table.is_sentinel,

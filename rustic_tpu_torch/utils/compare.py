@@ -4,7 +4,8 @@ on-disk reference film rendered once that later renders are held to.
 
 The functions take the JAX package's arguments and one more, `device`,
 the render device (`runtime/render.py` `render_image`): the card unless
-the caller names the CPU. The "bvh" engine is not ported and raises.
+the caller names the CPU. `compare_engines`' default engines are the JAX
+package's, "brute", "bvh" and "flash".
 """
 
 from __future__ import annotations

@@ -3,12 +3,17 @@ encoder of image output.
 
 The JAX package decodes images with Pillow (`Image.open(...).convert("RGBA")`,
 rustic_tpu/scene/gltf.py `_decode_image`); the port runs where Pillow may
-be absent, so it carries this decoder for the PNGs it renders: 8-bit,
-non-interlaced, grey (0), RGB (2), grey + alpha (4) or RGBA (6), with the
-five scanline filters of the PNG specification (None, Sub, Up, Average,
-Paeth). The result is what Pillow's `convert("RGBA")` gives: uint8
-[H, W, 4], alpha 255 where the image has none. Anything else (palettes,
-other depths, interlacing, a tRNS key colour, JPEG) raises
+be absent, so it carries this decoder, which reads every PNG the
+specification defines: grey (colour type 0) at 1, 2, 4, 8 or 16 bits,
+RGB (2), palette (3) at 1-8 bits with its PLTE and tRNS alphas, grey +
+alpha (4) and RGBA (6) at 8 or 16 bits, a tRNS key colour, Adam7
+interlacing, and the five scanline filters (None, Sub, Up, Average,
+Paeth). The result is what Pillow 12's `convert("RGBA")` gives: uint8
+[H, W, 4], alpha 255 where the image has none; grey below 8 bits scaled
+to 0-255; 16-bit samples cut to their high byte, except 16-bit grey
+without alpha, which Pillow reads as a 32-bit integer image and clips to
+255; a key colour compared, by its low byte, with the converted 8-bit
+pixel (a 1-bit grey key of 1 is white). JPEG and other formats raise
 NotImplementedError. `encode_png` writes 8-bit RGB or RGBA with filter 0
 (None) on every scanline, which any decoder reads.
 """
@@ -22,7 +27,11 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FORMATS_TODO = "ROADMAP.md queue 3: image formats the port does not decode"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _unfilter_sequential(kind: int, filt: bytes, prev: bytes, bpp: int) -> bytearray:
@@ -47,9 +56,9 @@ def _unfilter_sequential(kind: int, filt: bytes, prev: bytes, bpp: int) -> bytea
     return out
 
 
-def _unfilter(data: bytes, height: int, width: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline filters -> uint8 [height, width * bpp]."""
-    stride = width * bpp
+def _unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters of `height` rows of `stride` bytes
+    (`bpp`: bytes a pixel, at least 1) -> uint8 [height, stride]."""
     if len(data) < height * (stride + 1):
         raise ValueError("PNG image data is truncated")
     rows = np.frombuffer(data, np.uint8, count=height * (stride + 1)).reshape(height, stride + 1)
@@ -59,8 +68,8 @@ def _unfilter(data: bytes, height: int, width: int, bpp: int) -> np.ndarray:
         kind, filt = int(rows[y, 0]), rows[y, 1:]
         if kind == 0:
             cur = filt.copy()
-        elif kind == 1:  # Sub: a running sum per channel, mod 256
-            cur = np.cumsum(filt.reshape(width, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 1:  # Sub: a running sum per byte of the pixel, mod 256
+            cur = np.cumsum(filt.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
         elif kind == 2:  # Up
             cur = filt + prev
         elif kind in (3, 4):
@@ -74,12 +83,41 @@ def _unfilter(data: bytes, height: int, width: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(data: bytes, height: int, width: int, n: int, depth: int):
+    """One image (or one Adam7 pass) -> (samples [height, width, n] as
+    uint16 or uint8, the bytes it took)."""
+    stride = (width * n * depth + 7) // 8
+    raw = _unfilter(data, height, stride, max(1, n * depth // 8))
+    if depth == 16:
+        px = raw.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        px = raw
+    else:  # several samples a byte, most significant first
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        px = ((raw[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(height, -1)
+    return px[:, : width * n].reshape(height, width, n), height * (stride + 1)
+
+
+def _interlaced(data: bytes, height: int, width: int, n: int, depth: int) -> np.ndarray:
+    """The seven Adam7 passes, scattered into the full image."""
+    out = np.zeros((height, width, n), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        px, used = _samples(data[pos:], ph, pw, n, depth)
+        out[y0::dy, x0::dx] = px
+        pos += used
+    return out
+
+
 def decode_png(raw: bytes) -> np.ndarray:
     """PNG bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
     if raw[:8] != PNG_SIGNATURE:
         raise NotImplementedError(f"only PNG images are decoded ({FORMATS_TODO})")
     pos = 8
-    header = None
+    header = palette = trns = None
     idat = []
     while pos + 8 <= len(raw):
         length, kind = struct.unpack(">I4s", raw[pos : pos + 8])
@@ -87,32 +125,59 @@ def decode_png(raw: bytes) -> np.ndarray:
         pos += 12 + length  # length, type, data, CRC
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
-        elif kind in (b"PLTE", b"tRNS"):
-            raise NotImplementedError(
-                f"PNG {kind.decode()} chunks (palettes, key colours) are not decoded "
-                f"({FORMATS_TODO})"
-            )
         elif kind == b"IEND":
             break
     if header is None:
         raise ValueError("PNG has no IHDR chunk")
     width, height, depth, colour, _compression, _filter, interlace = header
-    if depth != 8 or colour not in _CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"PNG bit depth {depth}, colour type {colour}, interlace {interlace}: only 8-bit "
-            f"non-interlaced grey, RGB, grey+alpha and RGBA are decoded ({FORMATS_TODO})"
-        )
+    if colour not in _CHANNELS or depth not in _DEPTHS[colour] or interlace not in (0, 1):
+        raise ValueError(f"PNG bit depth {depth}, colour type {colour}, interlace {interlace} "
+                         "is not defined")
     n = _CHANNELS[colour]
-    px = _unfilter(zlib.decompress(b"".join(idat)), height, width, n).reshape(height, width, n)
-    out = np.full((height, width, 4), 255, np.uint8)
-    if colour in (0, 4):
-        out[..., 0:3] = px[..., 0:1]
+    data = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = _interlaced(data, height, width, n, depth)
     else:
-        out[..., 0:3] = px[..., 0:3]
+        px = _samples(data, height, width, n, depth)[0]
+
+    out = np.full((height, width, 4), 255, np.uint8)
+    if colour == 3:
+        if palette is None:
+            raise ValueError("PNG palette image has no PLTE chunk")
+        idx = px[..., 0].astype(np.int64)
+        if idx.max(initial=0) >= len(palette):
+            raise ValueError("PNG palette index beyond the palette")
+        out[..., 0:3] = palette[idx]
+        if trns is not None:
+            alpha = np.full(256, 255, np.uint8)
+            alpha[: len(trns)] = np.frombuffer(trns[:256], np.uint8)
+            out[..., 3] = alpha[idx]
+        return out
+    if depth == 16 and colour == 0:
+        eight = np.minimum(px, 255).astype(np.uint8)
+    elif depth == 16:
+        eight = (px >> 8).astype(np.uint8)
+    elif depth < 8:
+        eight = (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    else:
+        eight = px
+    if colour in (0, 4):
+        out[..., 0:3] = eight[..., 0:1]
+    else:
+        out[..., 0:3] = eight[..., 0:3]
     if colour in (4, 6):
-        out[..., 3] = px[..., -1]
+        out[..., 3] = eight[..., -1]
+    elif trns is not None:  # a key colour: grey (0) or RGB (2), 16 bits a sample
+        key = np.frombuffer(trns[: 2 * n], ">u2").astype(np.int64)
+        if depth == 1:
+            key = key * 255
+        out[..., 3] = np.where((eight == (key & 0xFF)).all(axis=-1), 0, 255)
     return out
 
 

@@ -89,7 +89,7 @@ def port_film(ts, loop, scan):
     config = TracingConfig(width=FILM_W, height=FILM_H, nee=NextEventEstimation.MIS, **CAM)
     x, y = pixels()
     return render_pixels(ts, config, x, y, SPP, offsets=pixel_offsets(FILM_W, FILM_H),
-                         loop=loop, scan=scan).numpy()
+                         loop=loop, scan=scan, engine=None).numpy()
 
 
 def assert_film_close(got, want):
@@ -208,7 +208,8 @@ def test_single_tile_hdr_sky_matches_jax(tmp_path, monkeypatch):
     ))
     assert calls, "the JAX single-tile kernel-shade driver was not dispatched"
     config = TracingConfig(width=FILM_W, height=FILM_H, nee=NextEventEstimation.MIS, **cam)
-    got = render_pixels(ts, config, x, y, SPP, offsets=pixel_offsets(FILM_W, FILM_H)).numpy()
+    got = render_pixels(ts, config, x, y, SPP, offsets=pixel_offsets(FILM_W, FILM_H),
+                        engine=None).numpy()
     assert np.isfinite(got).all() and got.max() > 0.5  # the sky is seen
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 

@@ -177,7 +177,7 @@ def test_fused_film_matches_jax_kernelshade(cornell_scene, port_scenes):
         )
     )
     got = render_pixels(port_scenes["DarkCornell"], config_of("DarkCornell"), px, py, spp,
-                        offsets=off, single_loop="fused").numpy()
+                        offsets=off, single_loop="fused", engine=None).numpy()
     assert got.shape == (w * h, 3) and np.isfinite(got).all() and got.mean() > 0.01
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 

@@ -182,13 +182,15 @@ def cornell():
 
 
 def test_engines_rmse_near_zero(cornell):
-    """brute and flash agree on the CPU (tests/test_compare.py); "bvh",
-    part of the JAX default set, is not ported and raises."""
+    """brute and flash agree on the CPU (tests/test_compare.py), and with
+    the default engines ("brute", "bvh", "flash", as the JAX package's)
+    all three do."""
     config = TracingConfig(width=16, height=16, nee=NextEventEstimation.MIS)
     out = C.compare_engines(cornell, config, 2, engines=("brute", "flash"), device="cpu")
     assert list(out) == ["brute_vs_flash"] and out["brute_vs_flash"] < 1e-3
-    with pytest.raises(NotImplementedError, match="bvh"):
-        C.compare_engines(cornell, config, 1, device="cpu")
+    out = C.compare_engines(cornell, config, 1, device="cpu")
+    assert list(out) == ["brute_vs_bvh", "brute_vs_flash", "bvh_vs_flash"]
+    assert max(out.values()) < 1e-3, out
 
 
 def test_reference_compare_roundtrip(cornell, tmp_path):
@@ -226,15 +228,15 @@ def test_furnace(furnace, nee, samples):
     4x the samples for its single-pixel variance."""
     cfg = TracingConfig(width=SIZE, height=SIZE, nee=nee)
     film = render_pixels(furnace, cfg, np.array([COORD[0]], np.int32),
-                         np.array([COORD[1]], np.int32), samples).numpy()
+                         np.array([COORD[1]], np.int32), samples, engine=None).numpy()
     pixel = (film[0] / samples) ** (1.0 / 2.2)
     assert np.all(np.abs(pixel - ALBEDO) < 0.02), pixel
 
 
 def test_dls_matches_mis_on_black_emitters(tmp_path):
-    """tests/test_furnace.py's DLS test: its scene written by the JAX
-    package's `write_glb`, loaded and rendered (brute) by the port."""
-    from rustic_tpu.scene.glb_write import MaterialSpec, MeshSpec, write_glb
+    """tests/test_furnace.py's DLS test: its scene written by the port's
+    `write_glb`, loaded and rendered (brute) by the port."""
+    from rustic_tpu_torch.scene.glb_write import MaterialSpec, MeshSpec, write_glb
 
     quad = np.array([[-4, 0, -4], [4, 0, -4], [4, 0, 4], [-4, 0, 4]], np.float32)
     lamp = quad * 0.25 + np.array([0, 3, 0], np.float32)

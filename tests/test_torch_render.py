@@ -64,7 +64,7 @@ def test_slice_film_matches_jax_kernelshade(cornell_scene, port_scene):
         )
     )
     config = TracingConfig(width=W_, height=H_, nee=NextEventEstimation.MIS)
-    got = render_pixels(port_scene, config, px, py, spp, offsets=off).numpy()
+    got = render_pixels(port_scene, config, px, py, spp, offsets=off, engine=None).numpy()
     assert got.shape == (W_ * H_, 3) and np.isfinite(got).all()
     assert got.mean() > 0.01
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
@@ -121,8 +121,8 @@ def test_default_offsets_hash_the_pixel_id(port_scene):
     py = np.full(8, 5, np.int32)
     seeded = pcg_hash_np((py * W_ + px).astype(np.uint32))
     assert torch.equal(
-        render_pixels(port_scene, config, px, py, 1),
-        render_pixels(port_scene, config, px, py, 1, offsets=seeded),
+        render_pixels(port_scene, config, px, py, 1, engine=None),
+        render_pixels(port_scene, config, px, py, 1, offsets=seeded, engine=None),
     )
 
 

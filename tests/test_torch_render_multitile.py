@@ -73,7 +73,7 @@ def test_multitile_film_matches_jax_unsorted(name, monkeypatch):
         )
     )
     config = TracingConfig(width=W_, height=H_, nee=NextEventEstimation.MIS, **CASES[name])
-    got = render_pixels(ts, config, px, py, spp, offsets=off, loop=UNSORTED).numpy()
+    got = render_pixels(ts, config, px, py, spp, offsets=off, loop=UNSORTED, engine=None).numpy()
     assert got.shape == (W_ * H_, 3) and np.isfinite(got).all()
     assert got.mean() > 0.01
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

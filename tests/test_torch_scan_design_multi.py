@@ -198,7 +198,7 @@ def test_dead_lanes_occlusion_is_never_read(scenes, scan, monkeypatch):
     for form in ("lists", scan):
         folds[form] = []
         films[form] = render_pixels(ts, config, px, py, spp, offsets=pixel_offsets(w, h),
-                                    loop="unsorted", scan=form)
+                                    loop="unsorted", scan=form, engine=None)
     assert len(folds["lists"]) == len(folds[scan]) > 0
     differ = 0
     for (elig, occ), (elig_c, occ_c) in zip(folds["lists"], folds[scan]):

@@ -90,13 +90,15 @@ def test_scene_from_arrays_round_trips(worlds):
     _, jscene, tworld = worlds
     fields = {
         k: np.asarray(getattr(jscene, k))
-        for k in ("tri_feats16", "tri_attrs", "entry_rows", "tile_aabbs")
+        for k in ("tri_feats16", "tri_attrs", "entry_rows", "tile_aabbs", "bvh_min", "bvh_max",
+                  "bvh_left_first", "bvh_count")
     }
     for k in ("n_tris", "n_alias_entries", "has_lights", "has_glass", "has_textures"):
         fields[k] = getattr(jscene, k)
     got = TW.scene_from_arrays(fields, "cpu")
     want = tworld.to_torch("cpu")
-    for name in ("tri_feats16", "tri_attrs", "entry_rows", "tile_aabbs"):
+    for name in ("tri_feats16", "tri_attrs", "entry_rows", "tile_aabbs", "bvh_min", "bvh_max",
+                 "bvh_left_first", "bvh_count"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     for name in ("n_tris", "n_alias_entries", "has_lights", "has_glass", "has_textures"):
         assert getattr(got, name) == getattr(want, name), name
@@ -111,7 +113,7 @@ def test_bvh_permutation_matches_numpy_builder(name):
     from conftest import scene_path
 
     g = load_glb(scene_path(f"{name}.glb"))
-    perm = port_bvh.build_bvh(g.positions, g.triangles)
+    _, perm = port_bvh.build_bvh(g.positions, g.triangles)
     _, jperm = jax_bvh._build_bvh_numpy(g.positions, g.triangles, 128)
     np.testing.assert_array_equal(perm, jperm)
 

@@ -86,10 +86,11 @@ def jax_staged_film(js, name):
     ))
 
 
-def port_film(ts, name, **kw):
+def port_film(ts, name, engine=None, **kw):
+    """The staged pipeline's film (engine None), or the integrator's."""
     x, y = pixels()
     return render_pixels(ts, port_config(name), x, y, SPP, offsets=pixel_offsets(FILM_W, FILM_H),
-                         **kw).numpy()
+                         engine=engine, **kw).numpy()
 
 
 def assert_close(name, got, want):
@@ -285,10 +286,8 @@ def test_brute_chunks_agree_with_one_pass(scenes, monkeypatch):
 def test_pick_engine(scenes):
     _, ts = scenes("cornell")
     assert I._pick_engine(ts, "flash") == "flash" and I._pick_engine(ts, "brute") == "brute"
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        I._pick_engine(ts, "bvh")
-    with pytest.raises(NotImplementedError, match="bvh"):
-        I._pick_engine(ts, "auto")  # 184 triangles on the CPU: the JAX package takes its BVH
+    assert I._pick_engine(ts, "bvh") == "bvh"
+    assert I._pick_engine(ts, "auto") == "bvh"  # 184 triangles on the CPU, as the JAX package
     with pytest.raises(ValueError, match="expected one of"):
         I._pick_engine(ts, "embree")
     import dataclasses

@@ -289,7 +289,7 @@ def port_film(ts, name, spp, loop):
     config = TracingConfig(width=FILM_W, height=FILM_H, nee=MIS, **CAMS[name])
     y, x = np.mgrid[0:FILM_H, 0:FILM_W]
     return render_pixels(ts, config, x.reshape(-1), y.reshape(-1), spp,
-                         offsets=pixel_offsets(FILM_W, FILM_H), loop=loop).numpy()
+                         offsets=pixel_offsets(FILM_W, FILM_H), loop=loop, engine=None).numpy()
 
 
 def spy(monkeypatch, mod, name):

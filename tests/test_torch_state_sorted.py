@@ -242,7 +242,7 @@ def port_film(ts, name, loop, scan="lists"):
     config = TracingConfig(width=FILM_W, height=FILM_H, nee=MIS, **CAMS[name])
     x, y = pixels()
     return render_pixels(ts, config, x, y, SPP, offsets=pixel_offsets(FILM_W, FILM_H),
-                         loop=loop, scan=scan).numpy()
+                         loop=loop, scan=scan, engine=None).numpy()
 
 
 def assert_film(got, want):
@@ -293,7 +293,8 @@ def film_of(ts, name, n_px, spp, seed=11, loop="state-sorted", scan="lists"):
     px = rng.integers(0, 64, n_px).astype(np.int32)
     py = rng.integers(0, 64, n_px).astype(np.int32)
     off = rng.integers(0, 1 << 31, n_px).astype(np.uint32)
-    return render_pixels(ts, config, px, py, spp, offsets=off, loop=loop, scan=scan).numpy()
+    return render_pixels(ts, config, px, py, spp, offsets=off, loop=loop, scan=scan,
+                         engine=None).numpy()
 
 
 def watch_windows(monkeypatch):
@@ -431,7 +432,7 @@ def test_default_scan_form_is_grid(scenes, monkeypatch):
                                   "nearest_shadow_grid", "occlude_grid"), calls)
     config = TracingConfig(width=8, height=4, nee=MIS, **CAMS["VeachMIS"])
     x, y = pixels(8, 4)
-    film = render_pixels(ts, config, x, y, 2)
+    film = render_pixels(ts, config, x, y, 2, engine=None)
     assert torch.isfinite(film).all()
     nb = config.max_bounces  # one group of 2 folded samples
     assert calls == {"block_tile_lists": 0, "nearest_multi": 0, "nearest_grid": 1,
