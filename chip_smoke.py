@@ -19,7 +19,9 @@ and "auto" against the kernel-shade loop, and the DarkCornell, GlassTest
 and FurnaceTest reference films; the dot-rate probes (K18, K19)
 through their program, rustic_tpu_torch/probe_dot_floor.py; and the
 "bvh" engine's traversal, one thread a ray (K20), against its plain
-version and the tile scans, under compare_engines and backend="cpu".
+version and the tile scans, under compare_engines and backend="cpu"; and
+the product surface (the CLI, progressive state and checkpoints, the
+viewer's core, the denoiser) at the headline configuration.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`--only PHASE[,PHASE...]` runs the device phase and the named ones.)
@@ -250,6 +252,25 @@ Phases, each of which must pass (the first that fails ends the run):
      and render_pixels(backend="cpu") of the card's scene (a 32x32x2 film,
      "auto" resolved to "bvh" on the host) against the card's
      engine="bvh" film within rtol 1e-4, atol 1e-5.
+ 32. product: the entry points a user calls, at DarkCornell 1280x720,
+     NEE+MIS, 4 bounces. `python -m rustic_tpu_torch.cli render` (its
+     main(), on the card) at 160 spp twice, in turns with render_image on
+     the same scene: Mpaths/s from its stats line beside render_image's
+     and phase 4's (the CLI must reach 80% of render_image), the stats
+     line (backend "cuda", engine "flash", scene_build_s), the launch
+     counts as phase 4 checks them, the film mean within 2% of 0.03945.
+     `--progressive --checkpoint` at sync rate 32: 64 spp, then resumed to
+     160 (launch counts: K1 and K3 once a step, K2 31 and K4 32 times),
+     against an uninterrupted progressive 160 spp film within rtol 1e-5,
+     atol 1e-6; the checkpoint's load and save times. The viewer's step()
+     at sync rate 4 and 1 (spp/s against the reference's ~66), and one
+     step under device_trace (its chrome trace must hold the render's
+     kernels). denoise of
+     the 1280x720 film on the card (ms, with the copies) against the host's
+     (99.99% of entries within rtol 1e-4, atol 1e-5). At 64x64: the
+     viewer's 'c' toggle (a step on the card, one on the host with no
+     kernel launched, one on the card) against 6 spp on the card within
+     rtol 1e-4, atol 1e-5; `cli compare` at 64x64x4, every RMSE under 1e-3.
 
 Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
 form by RenderSettings.multitile_scan, a one-tile scene's loop by
@@ -910,7 +931,7 @@ class Smoke:
         film = render_image(self.scene, self.config, RenderSettings(samples=spp), device=self.dev)
         render_s = time.time() - t0
         counts = {**FI.LAUNCHES, **SK.LAUNCHES}
-        mpaths = WIDTH * HEIGHT * spp / render_s / 1e6
+        mpaths = self.render_mpaths = WIDTH * HEIGHT * spp / render_s / 1e6
         log(f"render {WIDTH}x{HEIGHT}x{spp} spp NEE+MIS: {render_s:.3f} s, {mpaths:.2f} Mpaths/s "
             f"({self.card}); reference GPU yardstick 61.2 Mpaths/s")
         log(f"launch counts: {counts}")
@@ -3163,6 +3184,215 @@ class Smoke:
         if not torch.allclose(card, host, rtol=1e-4, atol=1e-5):
             self.fail("backend='cpu' and the card's bvh film disagree beyond rtol 1e-4, atol 1e-5")
 
+    # ---- phase 32: the product surface ------------------------------------------------
+
+    def product(self):
+        """The CLI, progressive state and checkpoints, the viewer's core and
+        the denoiser on the card (DarkCornell 1280x720, NEE+MIS, 4 bounces);
+        the CLI's files go to a temporary directory."""
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            self._product(tmp)
+
+    def _product(self, tmp):
+        import contextlib
+        import io
+        import os
+        import statistics
+
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch import cli
+        from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+        from rustic_tpu_torch.runtime.denoise import denoise
+        from rustic_tpu_torch.runtime.render import render_image
+        from rustic_tpu_torch.runtime.state import Checkpoint
+        from rustic_tpu_torch.runtime.viewer import Viewer
+        from rustic_tpu_torch.scene.world import World
+        from rustic_tpu_torch.utils.profiling import device_trace
+
+        scene_path = "assets/scenes/DarkCornell.glb"
+
+        def render(tag, *extra, spp=SPP):
+            """`python -m rustic_tpu_torch.cli render` at the headline
+            configuration -> (its stats line, its film)."""
+            stats, npy = os.path.join(tmp, f"{tag}.jsonl"), os.path.join(tmp, f"{tag}.npy")
+            argv = ["render", scene_path, "--out", os.path.join(tmp, f"{tag}.png"),
+                    "--save-hdr", npy, "--spp", str(spp), "--size", f"{WIDTH}x{HEIGHT}",
+                    "--nee", "mis", "--stats-json", stats, *extra]
+            with contextlib.redirect_stderr(io.StringIO()):
+                if cli.main(argv) != 0:
+                    self.fail(f"cli render {tag} exited non-zero")
+            with open(stats) as f:
+                rec = json.loads(f.read().splitlines()[-1])
+            if rec["backend"] != "cuda" or rec["engine"] != "flash":
+                self.fail(f"cli render {tag} ran on {rec['backend']} with {rec['engine']}")
+            return rec, np.load(npy)
+
+        # the one-shot render, in turns with render_image on the same scene
+        render("warm", spp=FOLD)
+        scene = World.from_path(scene_path).to_torch(self.dev)
+        config = TracingConfig(width=WIDTH, height=HEIGHT, nee=NextEventEstimation.MIS)
+        cli_rates, lib_rates = [], []
+        for turn in range(2):
+            self.reset_counts()
+            rec, film = render(f"one{turn}")
+            counts = self.counts()
+            cli_rates.append(rec["mpaths_per_s"])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            render_image(scene, config, RenderSettings(samples=SPP), device=self.dev)
+            lib_rates.append(WIDTH * HEIGHT * SPP / (time.time() - t0) / 1e6)
+        cli_mp, lib_mp = statistics.median(cli_rates), statistics.median(lib_rates)
+        phase4 = getattr(self, "render_mpaths", None)
+        log(f"cli render {WIDTH}x{HEIGHT}x{SPP} spp: {cli_rates} Mpaths/s (stats line), "
+            f"render_image in turns {[round(r, 2) for r in lib_rates]}, ratio "
+            f"{cli_mp / lib_mp:.4f}; phase 4 {phase4 if phase4 is None else round(phase4, 2)} "
+            f"({self.card})")
+        log(f"cli stats line: {rec}")
+        groups, nb = SPP // FOLD, config.max_bounces
+        expect = dict.fromkeys(counts, 0) | {
+            "nearest_attrs": 1, "nearest_shadow_attrs": nb * groups - 1, "occlude": 1,
+            "shade_bounce": nb * groups,
+        }
+        log(f"cli render launch counts: { {k: v for k, v in counts.items() if v} }")
+        if counts != expect:
+            self.fail(f"cli render launch counts {counts} != expected {expect}")
+        mean = float(film.mean())
+        if film.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(film).all():
+            self.fail("the cli film is not finite or has the wrong shape")
+        if abs(mean / FILM_MEAN_REF - 1.0) > 0.02:
+            self.fail(f"cli film mean {mean} is not within 2% of {FILM_MEAN_REF}")
+        if cli_mp < 0.8 * lib_mp:
+            self.fail(f"the cli renders at {cli_mp:.2f} Mpaths/s, render_image at {lib_mp:.2f}")
+
+        # progressive with a checkpoint: 64 spp, resumed to 160, against 160 straight
+        ck = os.path.join(tmp, "prog.npz")
+        prog = ("--progressive", "--sync-rate", "32")
+        first, _ = render("prog64", *prog, "--checkpoint", ck, spp=64)
+        if Checkpoint.load(ck).samples != 64:
+            self.fail("the checkpoint does not hold 64 samples")
+        self.reset_counts()
+        resumed, film_res = render("prog160", *prog, "--checkpoint", ck)
+        counts = self.counts()
+        straight, film_str = render("prog-straight", *prog)
+        if resumed["samples_resumed"] != 64 or Checkpoint.load(ck).samples != SPP:
+            self.fail(f"resume: {resumed}")
+        d = np.abs(film_res - film_str)
+        log(f"progressive (sync rate 32): 64 spp {first['mpaths_per_s']} Mpaths/s, resumed to "
+            f"{SPP} ({SPP - 64} rendered) {resumed['mpaths_per_s']}, {SPP} straight "
+            f"{straight['mpaths_per_s']} ({self.card}); resumed against straight: max |d| "
+            f"{float(d.max()):.3g}, {int((d == 0).sum())} of {d.size} entries equal")
+        log(f"resumed render launch counts: { {k: v for k, v in counts.items() if v} }")
+        if not np.allclose(film_res, film_str, rtol=1e-5, atol=1e-6):
+            self.fail("the resumed film differs from the uninterrupted one beyond rtol 1e-5")
+        steps, per_step = (SPP - 64) // 32, 32 // FOLD * nb  # a step: 8 groups, K1 once
+        expect = dict.fromkeys(counts, 0) | {
+            "nearest_attrs": steps, "nearest_shadow_attrs": steps * (per_step - 1),
+            "occlude": steps, "shade_bounce": steps * per_step,
+        }
+        if counts != expect:
+            self.fail(f"resumed render launch counts {counts} != expected {expect}")
+        t0 = time.time()
+        ckpt = Checkpoint.load(ck)
+        load_s = time.time() - t0
+        t0 = time.time()
+        ckpt.save(os.path.join(tmp, "again.npz"))
+        log(f"checkpoint of the {WIDTH}x{HEIGHT} film (inside the cli's render time): load "
+            f"{load_s:.3f} s, save {time.time() - t0:.3f} s, {os.path.getsize(ck)} bytes")
+        log(f"scene_build_s (stats line): one-shot {rec['scene_build_s']}, "
+            f"progressive {straight['scene_build_s']}")
+
+        # the viewer's step at the full frame, sync rate 4 and 1
+        for sync, steps in ((4, 10), (1, 20)):
+            v = Viewer(scene, config, RenderSettings(sync_rate=sync))
+            v.step()  # warm
+            v.state.reset()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(steps):
+                frame = v.step()
+            wall = time.time() - t0
+            if frame.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(frame).all():
+                self.fail("the viewer's frame is not finite or has the wrong shape")
+            log(f"viewer step {WIDTH}x{HEIGHT}, sync rate {sync}: {steps} steps in {wall:.3f} s, "
+                f"{v.state.samples / wall:.2f} spp/s, {steps / wall:.2f} frames/s "
+                f"(reference ~66 spp/s; {self.card})")
+
+        # device_trace (utils/profiling.py) around one viewer step: a chrome
+        # trace with the card's kernels in it
+        trace_dir = os.path.join(tmp, "trace")
+        with device_trace(trace_dir):
+            v.step()
+            torch.cuda.synchronize()
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        log(f"device_trace of one viewer step: {len(events)} events, {len(kernels)} kernels "
+            f"({len(set(kernels))} names)")
+        if not all(any(name in k for k in kernels) for name in ("scan_kernel", "shade_kernel")):
+            self.fail(f"device_trace recorded none of the render's kernels: {sorted(set(kernels))}")
+
+        # the denoiser on the card against the host's, on the one-shot film
+        den = denoise(film, device=self.dev)  # warm
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            den = denoise(film, device=self.dev)
+            times.append((time.time() - t0) * 1e3)
+        t0 = time.time()
+        host = denoise(film, device="cpu")
+        host_s = time.time() - t0
+        d = np.abs(den - host)
+        close = np.isclose(den, host, rtol=1e-4, atol=1e-5)
+        log(f"denoise {WIDTH}x{HEIGHT} on the card: median {statistics.median(times):.3f} ms "
+            f"(min {min(times):.3f}, numpy in and out; {self.card}); the host {host_s:.2f} s; "
+            f"max |card - host| {float(d.max()):.3g}, {float(close.mean()):.6f} of entries "
+            f"within rtol 1e-4 / atol 1e-5")
+        if not np.isfinite(den).all() or close.mean() < 0.9999:
+            self.fail("the card's denoised film differs from the host's")
+
+        # 'c': the viewer steps on the card, the host, the card; 64x64 x 2 a step
+        small = dataclasses.replace(config, width=64, height=64)
+        v = Viewer(scene, small, RenderSettings(sync_rate=2))
+        v.step()
+        v.handle_key("c")
+        self.reset_counts()
+        t0 = time.time()
+        v.step()
+        host_s = time.time() - t0
+        on_host = {k: n for k, n in self.counts().items() if n}
+        if v.settings.backend != "cpu" or on_host:
+            self.fail(f"the 'c' step launched kernels: {on_host}")
+        v.handle_key("c")
+        v.step()
+        if v.state._film_sum.device != scene.device:
+            self.fail(f"the film sum stayed on {v.state._film_sum.device}")
+        straight = Viewer(scene, small, RenderSettings(sync_rate=2))
+        for _ in range(3):
+            straight.step()
+        d = np.abs(v.state.framebuffer - straight.state.framebuffer)
+        log(f"'c' toggle 64x64 (card, host {host_s:.2f} s, card; 2 spp a step) against 6 spp "
+            f"on the card: max |d| {float(d.max()):.3g}, samples {v.state.samples}")
+        if v.state.samples != 6 or not np.allclose(v.state.framebuffer, straight.state.framebuffer,
+                                                   rtol=1e-4, atol=1e-5):
+            self.fail("the toggled film differs from the card's beyond rtol 1e-4, atol 1e-5")
+
+        # compare at 64x64x4
+        out = io.StringIO()
+        self.reset_counts()
+        with contextlib.redirect_stdout(out):
+            if cli.main(["compare", scene_path, "--size", "64x64", "--spp", "4"]) != 0:
+                self.fail("cli compare exited non-zero")
+        counts = {k: n for k, n in self.counts().items() if n}
+        engines = json.loads(out.getvalue())["engines"]
+        log(f"cli compare 64x64x4: {engines}; launches {counts}")
+        if not max(engines.values()) < 1e-3:
+            self.fail(f"the engines disagree: {engines}")
+
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self, only=()) -> int:
@@ -3198,6 +3428,7 @@ class Smoke:
             ("films", self.films),
             ("probe-check", self.probe_check),
             ("bvh", self.bvh),
+            ("product", self.product),
         ]
         if only:
             unknown = set(only) - {name for name, _ in phases}

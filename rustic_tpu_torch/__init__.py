@@ -18,7 +18,11 @@ bounce (K17), the dot-rate probes (K18, K19) and the BVH traversal, one
 thread a ray (K20). Each has a plain PyTorch twin in the same module; a
 wrapper runs the twin for CPU tensors and the kernel for CUDA tensors.
 Scenes load from glTF, OBJ, STL, PLY and FBX (scene/); the quality-gate
-programs are make_reference_films.py and quality_gate.py.
+programs are make_reference_films.py and quality_gate.py. The product
+surface: the CLI (cli.py), progressive state and checkpoints
+(runtime/state.py), the denoiser (runtime/denoise.py), the viewer's core
+(runtime/viewer.py) and throughput counters and traces
+(utils/profiling.py).
 """
 
 __version__ = "0.1.0"

@@ -88,6 +88,9 @@ class TracingConfig:
     )
     specular_weight_clamp: Tuple[float, float] = (0.1, 0.9)
 
+    def replace(self, **kw) -> "TracingConfig":
+        return dataclasses.replace(self, **kw)
+
     def static_part(self) -> StaticConfig:
         return StaticConfig(
             width=self.width,
@@ -112,10 +115,12 @@ class TracingConfig:
 
 @dataclasses.dataclass
 class RenderSettings:
-    """Knobs of a synchronous render (the subset of
-    rustic_tpu.config.RenderSettings that render_image reads)."""
+    """Render knobs (twin of rustic_tpu.config.RenderSettings, plus the
+    loops and the scan form of the staged pipeline)."""
 
-    samples: int = 32
+    samples: int = 32  # target sample count for synchronous renders
+    sync_rate: int = 32  # samples folded into one progressive step
+    denoise: bool = False
     # Pixel-seed mode: False hashes the pixel id (the default), True
     # tiles the committed blue-noise rank table.
     use_blue_noise: bool = False
@@ -142,3 +147,9 @@ class RenderSettings:
     single_tile_loop: str = "kernel-shade"
     # the display operator of image output (ops/tonemap.py, utils/image_io.py)
     tonemap: Tonemapping = Tonemapping.NONE
+    # the intersection engine of progressive rendering (TracingState, the
+    # viewer; ops/intersect.py ENGINES); render_image takes it as an argument
+    engine: str = "auto"
+    # compute placement of progressive rendering: "auto" renders on the
+    # scene's device, "cpu" on the host (render_pixels' `backend`)
+    backend: str = "auto"

@@ -102,7 +102,8 @@ def render_pixels(
     `backend="cpu"` moves the scene and `film_in` to the CPU first and
     there resolves "auto" and "flash" to "brute" or "bvh" by triangle
     count, as the JAX package's `backend="cpu"` does; the film is then on
-    the CPU."""
+    the CPU. `film_in` must lie on the device the render runs on
+    (ValueError otherwise)."""
     if backend not in ("auto", "cpu"):
         raise ValueError(f"backend {backend!r}: expected 'auto' or 'cpu'")
     if backend == "cpu" and scene.device.type != "cpu":
@@ -111,6 +112,9 @@ def render_pixels(
         if engine in ("auto", "flash"):
             engine = cpu_engine(scene.n_tris)
     device = scene.device
+    if film_in is not None and film_in.device != device:
+        raise ValueError(f"film_in is on {film_in.device}, the render on {device}: "
+                         "move the film sum to the scene's device first")
     cfg = config.static_part()
     cam = config.dynamic_part(device)
     if offsets is None:

@@ -463,3 +463,14 @@ class World:
             has_glass=bool((self.mat_transmission[:, 0] > 0.0).any()),
             has_textures=self.has_textures,
         )
+
+
+def load_scene(scene_path: str, skybox_path: Optional[str] = None, device="cuda") -> SceneTensors:
+    """A scene file (+ optional sky image) on `device` (twin of the JAX
+    package's `load_scene`)."""
+    from rustic_tpu_torch.runtime.render import resolve_device
+
+    device = resolve_device(device)
+    world = World.from_path(scene_path)
+    skybox = load_skybox_image(skybox_path) if skybox_path else None
+    return world.to_torch(device, skybox)
