@@ -21,7 +21,10 @@ through their program, rustic_tpu_torch/probe_dot_floor.py; and the
 "bvh" engine's traversal, one thread a ray (K20), against its plain
 version and the tile scans, under compare_engines and backend="cpu"; and
 the product surface (the CLI, progressive state and checkpoints, the
-viewer's core, the denoiser) at the headline configuration.
+viewer's core, the denoiser) at the headline configuration; and the
+multi-GPU layer (rustic_tpu_torch/parallel/: a world of one through
+NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
+torchrun) at the headline configuration.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`--only PHASE[,PHASE...]` runs the device phase and the named ones.)
@@ -271,6 +274,26 @@ Phases, each of which must pass (the first that fails ends the run):
      viewer's 'c' toggle (a step on the card, one on the host with no
      kernel launched, one on the card) against 6 spp on the card within
      rtol 1e-4, atol 1e-5; `cli compare` at 64x64x4, every RMSE under 1e-3.
+ 33. sharded: rustic_tpu_torch/parallel/ at DarkCornell 1280x720, NEE+MIS,
+     4 bounces, 160 spp. A world of one through NCCL (a process group of
+     one rank in this process): render_sharded on a (1, 1) mesh and
+     render_sharded_staged on a (1,) mesh, 3 turns with render_image;
+     Mpaths/s, each render's launch counts as phase 4 checks them, both
+     films equal to render_image's bit for bit. Two gloo ranks sharing
+     cuda:0 (spawned), on ('px', 'spp') meshes (2, 1) and (1, 2):
+     render_sharded and render_sharded_staged on DarkCornell, each film
+     within rtol 2e-5 / atol 2e-6 of the world of one's (a split changes
+     the sample fold and the order of the sums) and its mean within 2% of
+     0.03945, and render_sharded_staged on VeachMIS 256x256x16 against
+     its one-device film likewise; each rank's launch counts against its
+     shard's fold and bounce structure (K1-K4; VeachMIS K9-K11 and K8);
+     the wall time, which is no scaling number (the two ranks share one
+     card). Then `torchrun --standalone --nproc-per-node 1 -m
+     rustic_tpu_torch.cli render ... --sharded`: its stats line's keys
+     and its film against the one-shot cli's, bit for bit (on a host of
+     several cards also one rank a card through NCCL, its film within
+     rtol 2e-5 / atol 2e-6); and one rank more than the host has cards: a
+     non-zero exit with the LOCAL_RANK message and no image.
 
 Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
 form by RenderSettings.multitile_scan, a one-tile scene's loop by
@@ -470,6 +493,15 @@ KERNELS = {
         replaces="rustic_tpu/ops/intersect.py:202",
     ),
 }
+# phase 33: the multi-GPU layer (rustic_tpu_torch/parallel/) on the one card
+CORNELL = "assets/scenes/DarkCornell.glb"
+SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_parallel
+SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
+SHARD_TOL = dict(rtol=2e-5, atol=2e-6)  # a split's bound, tests/test_parallel.py:140
+SHARD_TIMEOUT_S = 300  # a rank's wait at a collective, a child's whole run
+SINGLE_TILE_NAMES = ("nearest_attrs", "nearest_shadow_attrs", "occlude", "shade_bounce")
+GRID_WIDE_NAMES = ("nearest_grid", "nearest_shadow_grid", "occlude_grid", "shade_bounce_wide")
+
 SINGLE_TILE = ("K1", "K2", "K3", "K4")
 MULTI_TILE = ("K5", "K6", "K7")
 GRID = ("K9", "K10", "K11")
@@ -554,6 +586,96 @@ def log(*a):
     print(*a, flush=True)
 
 
+def _counted():
+    from rustic_tpu_torch.ops import bvh_traverse as BV
+    from rustic_tpu_torch.ops import flash_intersect as FI
+    from rustic_tpu_torch.ops import fused_bounce as FB
+    from rustic_tpu_torch.ops import probe_dot as PD
+    from rustic_tpu_torch.ops import shade_kernel as SK
+
+    return (FI, SK, FB, PD, BV)
+
+
+def fold_counts(names, pixels, spp, bounces):
+    """The launches of a kernel-shade render of `pixels` pixels x `spp` in
+    one chunk, as phase 4 counts them: names = (the first scan, the merged
+    scan, the last any-hit scan, the shade kernel) -> {name: launches}."""
+    from rustic_tpu_torch.runtime.pipeline import pick_sample_fold
+
+    fold = pick_sample_fold(pixels, spp)
+    groups = -(-spp // fold)
+    edge = 1 if spp % fold == 0 or groups == 1 else 2
+    first, merged, last, shade = names
+    return {first: edge, merged: bounces * groups - edge, last: edge, shade: bounces * groups}
+
+
+def _sharded_rank(rank: int, tmp: str) -> None:
+    """One of phase 33's two gloo ranks, both on cuda:0: on each mesh of
+    SHARD_MESHES, DarkCornell at the headline configuration through
+    render_sharded and render_sharded_staged, and VeachMIS through
+    render_sharded_staged; each render's wall time and launch counts into
+    <tmp>/rank<r>.json, rank 0's films into <tmp>/<mesh>-<what>.npy."""
+    import datetime
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+    from rustic_tpu_torch.parallel.shard import make_mesh, render_sharded, render_sharded_staged
+    from rustic_tpu_torch.scene.world import World
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        cornell = World.from_path(CORNELL).to_torch(dev)
+        veach = World.from_path(VEACH).to_torch(dev)
+        config = TracingConfig(width=WIDTH, height=HEIGHT, nee=NextEventEstimation.MIS)
+        w, h, veach_spp = SHARD_VEACH
+        veach_config = TracingConfig(width=w, height=h, nee=NextEventEstimation.MIS, **VEACH_CAM)
+        meshes = {name: make_mesh([dev, dev], spp_parallel=k) for name, k in SHARD_MESHES.items()}
+        for scene, cfg in ((cornell, config), (veach, veach_config)):  # warm
+            render_sharded_staged(scene, cfg, RenderSettings(samples=2 * FOLD), meshes["1x2"])
+        out = {}
+        for name, mesh in meshes.items():
+            for what, fn, scene, cfg, spp in (
+                ("render_sharded", render_sharded, cornell, config, SPP),
+                ("render_sharded_staged", render_sharded_staged, cornell, config, SPP),
+                ("veach", render_sharded_staged, veach, veach_config, veach_spp),
+            ):
+                dist.barrier()
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.time()
+                film = fn(scene, cfg, RenderSettings(samples=spp), mesh=mesh)  # numpy: synced
+                out[f"{name} {what}"] = dict(
+                    wall_s=time.time() - t0,
+                    counts={k: n for k, n in launch_counts().items() if n},
+                )
+                if rank == 0:
+                    np.save(os.path.join(tmp, f"{name}-{what}.npy"), film)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def reset_launch_counts():
+    for module in _counted():
+        module.reset_launch_counts()
+
+
+def launch_counts():
+    """The launch counts of every kernel's wrapper in this process."""
+    out = {}
+    for module in _counted():
+        out |= module.LAUNCHES
+    return out
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -618,25 +740,12 @@ class Smoke:
         log(f"{what}: {label_a} {statistics.median(ta):.3f} ms, {label_b} "
             f"{statistics.median(tb):.3f} ms ({self.card})")
 
-    def _counted(self):
-        from rustic_tpu_torch.ops import bvh_traverse as BV
-        from rustic_tpu_torch.ops import flash_intersect as FI
-        from rustic_tpu_torch.ops import fused_bounce as FB
-        from rustic_tpu_torch.ops import probe_dot as PD
-        from rustic_tpu_torch.ops import shade_kernel as SK
-
-        return (FI, SK, FB, PD, BV)
-
     def reset_counts(self):
-        for module in self._counted():
-            module.reset_launch_counts()
+        reset_launch_counts()
 
     def counts(self):
         """The launch counts of every kernel's wrapper."""
-        out = {}
-        for module in self._counted():
-            out |= module.LAUNCHES
-        return out
+        return launch_counts()
 
     def time_ms(self, fn, reps=10):
         """Per-launch times (ms) of `fn` by CUDA events."""
@@ -3393,6 +3502,263 @@ class Smoke:
         if not max(engines.values()) < 1e-3:
             self.fail(f"the engines disagree: {engines}")
 
+    # ---- phase 33: the multi-GPU layer -----------------------------------------------------
+
+    def sharded(self):
+        """rustic_tpu_torch/parallel/ on the one card: a world of one through
+        NCCL, two gloo ranks sharing the card, and the CLI's --sharded under
+        torchrun; files go to a temporary directory."""
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            self._sharded(tmp)
+
+    @staticmethod
+    def _torchrun(tmp, tag, n_proc):
+        """Start `torchrun --standalone --nproc-per-node n_proc -m
+        rustic_tpu_torch.cli render DarkCornell --sharded` at the headline
+        configuration, its files named by `tag`, in a session of its own ->
+        wait() -> (exit code, output, seconds). wait() kills the whole
+        session if it outlives SHARD_TIMEOUT_S, or if the caller leaves
+        before it is called (use the result as a context manager)."""
+        import contextlib
+        import os
+        import signal
+
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                str(n_proc), "-m", "rustic_tpu_torch.cli", "render", CORNELL, "--sharded",
+                "--spp", str(SPP), "--nee", "mis", "--out", f"{tmp}/{tag}.png",
+                "--save-hdr", f"{tmp}/{tag}.npy", "--stats-json", f"{tmp}/{tag}.jsonl"]
+        env = dict(os.environ, PYTHONPATH=os.getcwd())
+        t0 = time.time()
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                env=env, start_new_session=True)
+
+        def kill():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+
+        def wait():
+            try:
+                out, _ = proc.communicate(timeout=SHARD_TIMEOUT_S)
+            finally:
+                kill()
+            return proc.returncode, out, time.time() - t0
+
+        @contextlib.contextmanager
+        def run():
+            try:
+                yield wait
+            finally:
+                kill()
+
+        return run()
+
+    def _sharded(self, tmp):
+        import contextlib
+        import datetime
+        import io
+        import os
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from rustic_tpu_torch import cli
+        from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+        from rustic_tpu_torch.parallel.shard import (
+            make_mesh,
+            make_px_mesh,
+            render_sharded,
+            render_sharded_staged,
+        )
+        from rustic_tpu_torch.runtime.render import render_image
+        from rustic_tpu_torch.scene.world import World
+
+        scene = World.from_path(CORNELL).to_torch(self.dev)
+        config = TracingConfig(width=WIDTH, height=HEIGHT, nee=NextEventEstimation.MIS)
+        nb = config.max_bounces
+        settings = RenderSettings(samples=SPP)
+        pixels = WIDTH * HEIGHT
+
+        def counted(fn, expect, what):
+            """fn() with the counts set to 0 before and checked after."""
+            torch.cuda.synchronize()
+            self.reset_counts()
+            t0 = time.time()
+            out = fn()
+            wall = time.time() - t0
+            counts = {k: n for k, n in self.counts().items() if n}
+            if counts != expect:
+                self.fail(f"{what}: launch counts {counts} != expected {expect}")
+            return out, wall
+
+        def check_mean(what, film):
+            mean = float(film.mean())
+            if film.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(film).all():
+                self.fail(f"{what}: the film is not finite or has the wrong shape")
+            if abs(mean / FILM_MEAN_REF - 1.0) > 0.02:
+                self.fail(f"{what}: film mean {mean} is not within 2% of {FILM_MEAN_REF}")
+            return mean
+
+        # a world of one through NCCL: render_sharded and render_sharded_staged
+        # in turns with render_image, bit for bit
+        render_image(scene, config, RenderSettings(samples=FOLD), device=self.dev)  # warm
+        expect = fold_counts(SINGLE_TILE_NAMES, pixels, SPP, nb)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            t0 = time.time()
+            mesh, px_mesh = make_mesh([self.dev]), make_px_mesh([self.dev])
+            runs = {
+                "render_image": lambda: render_image(scene, config, settings, device=self.dev),
+                "render_sharded": lambda: render_sharded(scene, config, settings, mesh=mesh),
+                "render_sharded_staged": lambda: render_sharded_staged(scene, config, settings,
+                                                                       mesh=px_mesh),
+            }
+            runs["render_sharded"](), runs["render_sharded_staged"]()  # NCCL's first collectives
+            log(f"world of one (NCCL): meshes {mesh.shape} and {px_mesh.shape} and their first "
+                f"collectives in {time.time() - t0:.2f} s")
+            rates = {name: [] for name in runs}
+            films = {}
+            for _ in range(3):  # in turns
+                for name, fn in runs.items():
+                    films[name], wall = counted(fn, expect, f"world of one, {name}")
+                    rates[name].append(pixels * SPP / wall / 1e6)
+        finally:
+            dist.destroy_process_group()
+        one = films["render_image"]
+        for name in ("render_sharded", "render_sharded_staged"):
+            same = int((films[name] == one).sum())
+            log(f"world of one, {name} against render_image: {same} of {one.size} entries equal")
+            if not np.array_equal(films[name], one):
+                self.fail(f"world of one: {name}'s film differs from render_image's")
+        mean = check_mean("world of one", one)
+        med = {name: statistics.median(r) for name, r in rates.items()}
+        log(f"world of one {WIDTH}x{HEIGHT}x{SPP} spp, Mpaths/s in turns: "
+            + "; ".join(f"{name} {[round(r, 2) for r in rates[name]]}" for name in runs)
+            + f"; ratios to render_image {med['render_sharded'] / med['render_image']:.4f}, "
+            f"{med['render_sharded_staged'] / med['render_image']:.4f} ({self.card})")
+        log(f"launch counts of each: {expect}; film mean {mean:.6f}")
+
+        # VeachMIS on one device: the reference of the two ranks' multi-tile case
+        w, h, veach_spp = SHARD_VEACH
+        veach = World.from_path(VEACH).to_torch(self.dev)
+        veach_config = TracingConfig(width=w, height=h, nee=NextEventEstimation.MIS, **VEACH_CAM)
+        veach_one, _ = counted(
+            lambda: render_image(veach, veach_config, RenderSettings(samples=veach_spp),
+                                 device=self.dev),
+            fold_counts(GRID_WIDE_NAMES, w * h, veach_spp, nb), "VeachMIS on one device")
+
+        # the CLI on one rank more than this host has cards, which must
+        # refuse, runs beside the two gloo ranks: it renders nothing
+        n_cards = torch.cuda.device_count()
+        with self._torchrun(tmp, "refused", n_cards + 1) as refused:
+            ranks = self._two_ranks(tmp)
+            rc, out, secs = refused()
+        refusal = f"LOCAL_RANK {n_cards} has no card of its own"
+        log(f"torchrun --nproc-per-node {n_cards + 1} on {n_cards} card(s): exit {rc} in "
+            f"{secs:.1f} s; refusal printed: {refusal in out}")
+        if rc == 0 or refusal not in out:
+            log(out[-4000:])
+            self.fail("more ranks than cards were not refused with the LOCAL_RANK message")
+        if os.path.exists(f"{tmp}/refused.png"):
+            self.fail("the refused torchrun run wrote its image")
+
+        for name, spp_parallel in SHARD_MESHES.items():
+            px_parallel = 2 // spp_parallel
+            cases = (
+                ("render_sharded", one, SINGLE_TILE_NAMES, pixels, SPP),
+                ("render_sharded_staged", one, SINGLE_TILE_NAMES, pixels, SPP),
+                ("veach", veach_one, GRID_WIDE_NAMES, w * h, veach_spp),
+            )
+            for what, ref, names, n_px, spp in cases:
+                film = np.load(os.path.join(tmp, f"{name}-{what}.npy"))
+                expect = fold_counts(names, n_px // px_parallel, spp // spp_parallel, nb)
+                runs = [r[f"{name} {what}"] for r in ranks]
+                for rank, run in enumerate(runs):
+                    if run["counts"] != expect:
+                        self.fail(f"two ranks {name} {what}: rank {rank}'s launch counts "
+                                  f"{run['counts']} != expected {expect}")
+                d = np.abs(film - ref)
+                wall = max(run["wall_s"] for run in runs)
+                log(f"two ranks, mesh {name} (px {px_parallel}, spp {spp_parallel}), {what}: wall "
+                    f"{wall:.3f} s ({n_px * spp / wall / 1e6:.2f} Mpaths/s: both ranks on one "
+                    f"card, not a scaling number; {self.card}); against one device max |d| "
+                    f"{float(d.max()):.3g}, {int((d == 0).sum())} of {d.size} entries equal; "
+                    f"each rank's launches {expect}")
+                if not np.allclose(film, ref, **SHARD_TOL):
+                    self.fail(f"two ranks {name} {what}: film beyond rtol 2e-5 / atol 2e-6")
+                if what != "veach":
+                    check_mean(f"two ranks {name} {what}", film)
+
+        # the CLI under torchrun, a world of one, against the one-shot cli
+        def one_shot():
+            argv = ["render", CORNELL, "--spp", str(SPP), "--nee", "mis", "--out",
+                    f"{tmp}/one.png", "--save-hdr", f"{tmp}/one.npy", "--stats-json",
+                    f"{tmp}/one.jsonl"]
+            with contextlib.redirect_stderr(io.StringIO()):
+                if cli.main(argv) != 0:
+                    self.fail("the one-shot cli render exited non-zero")
+
+        counted(one_shot, expect=fold_counts(SINGLE_TILE_NAMES, pixels, SPP, nb),
+                what="one-shot cli")
+        with open(f"{tmp}/one.jsonl") as f:
+            want = json.loads(f.read().splitlines()[-1])
+        ref = np.load(f"{tmp}/one.npy")
+        # a world of one, bit for bit; on a host of several cards also one
+        # rank a card through NCCL, within a split's bound
+        for n_proc in sorted({1, n_cards}):
+            tag = f"torchrun{n_proc}"
+            with self._torchrun(tmp, tag, n_proc) as run:
+                rc, out, secs = run()
+            if rc != 0:
+                log(out[-4000:])
+                self.fail(f"torchrun --nproc-per-node {n_proc} exited {rc}")
+            with open(f"{tmp}/{tag}.jsonl") as f:
+                lines = f.read().splitlines()
+            rec, film = json.loads(lines[-1]), np.load(f"{tmp}/{tag}.npy")
+            log(f"torchrun --nproc-per-node {n_proc} cli render --sharded: {secs:.1f} s of "
+                f"command, stats line {rec} ({self.card}); the one-shot's "
+                f"{want['mpaths_per_s']} Mpaths/s; max |d| {float(np.abs(film - ref).max()):.3g}, "
+                f"{int((film == ref).sum())} of {ref.size} entries equal to the one-shot's film")
+            if len(lines) != 1 or set(rec) != set(want) or (
+                    rec["backend"], rec["engine"]) != ("cuda", "flash"):
+                self.fail(f"the torchrun stats lines {lines} against the one-shot's {want}")
+            if n_proc == 1 and not np.array_equal(film, ref):
+                self.fail("the torchrun film differs from the one-shot cli's")
+            if not np.allclose(film, ref, **SHARD_TOL):
+                self.fail(f"the {n_proc}-rank torchrun film is beyond rtol 2e-5 / atol 2e-6")
+
+    def _two_ranks(self, tmp):
+        """Phase 33's two gloo ranks (`_sharded_rank`), spawned: this process
+        holds a CUDA context -> each rank's record."""
+        import multiprocessing
+        import os
+
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_sharded_rank, args=(rank, tmp)) for rank in range(2)]
+        t0 = time.time()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(SHARD_TIMEOUT_S)
+        hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung or [p.exitcode for p in procs] != [0, 0]:
+            self.fail(f"two ranks: exit codes {[p.exitcode for p in procs]}, hung {hung}")
+        log(f"two gloo ranks on {self.dev}: the job in {time.time() - t0:.1f} s (start, scene "
+            "loads, warm-up and renders)")
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        return ranks
+
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self, only=()) -> int:
@@ -3429,6 +3795,7 @@ class Smoke:
             ("probe-check", self.probe_check),
             ("bvh", self.bvh),
             ("product", self.product),
+            ("sharded", self.sharded),
         ]
         if only:
             unknown = set(only) - {name for name, _ in phases}

@@ -7,15 +7,21 @@ as flags.
 
 Subcommands: `render` (one-shot; `--progressive` republishes the frame
 every sync-rate samples; `--checkpoint` saves the film and resumes from
-it when the file exists; `--interactive` opens the viewer), `info` and
-`compare`. Renders run on the card. `main(argv, device=...)` takes
-another render device from a Python caller; the command line has no
-such flag.
+it when the file exists; `--interactive` opens the viewer; `--sharded`
+splits the frame over the ranks torchrun starts, one card a rank, and
+is a world of one without torchrun), `info` and `compare`. Renders run
+on the card. `main(argv, device=...)` takes another render device from
+a Python caller; the command line has no such flag.
+
+  torchrun --nproc-per-node 8 -m rustic_tpu_torch.cli render \
+      assets/scenes/DarkCornell.glb --sharded --spp 160 --nee mis
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import json
 import os
 import sys
@@ -86,6 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="open the progressive viewer (requires a display)",
     )
+    r.add_argument("--sharded", action="store_true", help="use all devices (torch.distributed)")
     r.add_argument("--checkpoint", default=None, help="save/resume .npz checkpoint")
 
     c = sub.add_parser("compare", help="RMSE between intersection engines / vs a reference film")
@@ -121,12 +128,57 @@ def _make_config(args) -> TracingConfig:
     )
 
 
+# how long a rank waits for the others at a collective
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+@contextlib.contextmanager
+def _launched_group(device):
+    """The process group of a `render --sharded` that torchrun started
+    (WORLD_SIZE in the environment), initialized from the environment:
+    NCCL on the card, each rank on cuda:LOCAL_RANK, gloo on the CPU.
+    Yields (the rank's device, its rank); without torchrun a world of one,
+    (device, 0). The group is destroyed on the way out."""
+    if "WORLD_SIZE" not in os.environ:
+        yield device, 0
+        return
+    import torch
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        local_rank = int(os.environ["LOCAL_RANK"])
+        n_cards = torch.cuda.device_count()
+        if local_rank >= n_cards:
+            raise RuntimeError(
+                f"LOCAL_RANK {local_rank} has no card of its own: this host has {n_cards}, and "
+                "ranks do not share one (start at most that many processes a node)"
+            )
+        device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method="env://",
+                            timeout=GROUP_TIMEOUT)
+    try:
+        yield device, dist.get_rank()
+    finally:
+        dist.destroy_process_group()
+
+
 def cmd_render(args, device) -> int:
     from rustic_tpu_torch.runtime.render import resolve_device
+
+    device = resolve_device(device)
+    if not args.sharded:
+        return _render(args, device, rank=0)
+    with _launched_group(device) as (device, rank):
+        return _render(args, device, rank)
+
+
+def _render(args, device, rank: int) -> int:
+    """The render command on `device`; only rank 0 writes files and the
+    stats line."""
     from rustic_tpu_torch.scene.world import World, load_skybox_image
     from rustic_tpu_torch.utils.image_io import save_hdr, save_png
 
-    device = resolve_device(device)
     t0 = time.time()
     world = World.from_path(args.scene)
     sky = load_skybox_image(args.skybox) if args.skybox else None
@@ -169,8 +221,12 @@ def cmd_render(args, device) -> int:
             )
 
         film = state.run(scene, target_samples=args.spp, on_frame=on_frame)
-        if args.checkpoint:
+        if args.checkpoint and rank == 0:
             Checkpoint.from_state(state).save(args.checkpoint)
+    elif args.sharded:
+        from rustic_tpu_torch.parallel.shard import render_sharded
+
+        film = render_sharded(scene, config, settings, engine=args.engine)
     else:
         from rustic_tpu_torch.runtime.render import render_image
 
@@ -189,6 +245,9 @@ def cmd_render(args, device) -> int:
         f"({paths / dt / 1e6:.1f} Mpaths/s)",
         file=sys.stderr,
     )
+
+    if rank != 0:
+        return 0
 
     # one JSON line per render with the throughput counters
     if args.stats_json:

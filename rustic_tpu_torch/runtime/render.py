@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rustic_tpu_torch.config import RenderSettings, TracingConfig
+from rustic_tpu_torch.config import CameraParams, RenderSettings, StaticConfig, TracingConfig
 from rustic_tpu_torch.ops.intersect import _pick_engine, cpu_engine
 from rustic_tpu_torch.ops.rng import as_i32_bits, pcg_hash
 from rustic_tpu_torch.ops.trace import accumulate_samples
@@ -75,10 +75,6 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _u32_bits(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
-
-
 def render_pixels(
     scene: SceneTensors,
     config: TracingConfig,
@@ -115,26 +111,58 @@ def render_pixels(
     if film_in is not None and film_in.device != device:
         raise ValueError(f"film_in is on {film_in.device}, the render on {device}: "
                          "move the film sum to the scene's device first")
-    cfg = config.static_part()
-    cam = config.dynamic_part(device)
     if offsets is None:
         ids = torch.from_numpy(
             (np.asarray(py, np.int64) * config.width + np.asarray(px, np.int64))
         )
         offsets_t = as_i32_bits(pcg_hash(ids)).to(device)
     else:
-        offsets_t = _u32_bits(offsets, device)
-    px_t = torch.from_numpy(np.asarray(px, np.int32)).to(device)
-    py_t = torch.from_numpy(np.asarray(py, np.int32)).to(device)
+        offsets_t = u32_bits(offsets, device)
+    return render_lanes(
+        scene, config.static_part(), config.dynamic_part(device), pixel_tensor(px, device),
+        pixel_tensor(py, device), offsets_t, sample_start, samples, film_in=film_in, loop=loop,
+        scan=scan, single_loop=single_loop, engine=engine,
+    )
+
+
+def u32_bits(a: np.ndarray, device) -> torch.Tensor:
+    """u32 values (pixel offsets) as the int32 bits the renderers take."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
+
+
+def pixel_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """Pixel coordinates as the int32 tensor the renderers take."""
+    return torch.from_numpy(np.asarray(a, np.int32)).to(device)
+
+
+def render_lanes(
+    scene: SceneTensors,
+    cfg: StaticConfig,
+    cam: CameraParams,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    offsets: torch.Tensor,
+    sample_start: int,
+    samples: int,
+    film_in: Optional[torch.Tensor] = None,
+    loop: str = RenderSettings.multitile_loop,
+    scan: str = RenderSettings.multitile_scan,
+    single_loop: str = RenderSettings.single_tile_loop,
+    engine: Optional[str] = "auto",
+) -> torch.Tensor:
+    """`render_pixels` on lanes already on the scene's device (px, py and
+    offsets as int32 tensors, the camera as CameraParams): the engine's
+    integrator, or the staged pipeline where `engine` is None or resolves
+    to "flash" on a CUDA device -> film sum [B, 3]."""
     if engine is not None:
         resolved = _pick_engine(scene, engine)
-        if resolved != "flash" or device.type != "cuda":
+        if resolved != "flash" or scene.device.type != "cuda":
             return accumulate_samples(
-                scene, cfg, cam, px_t, py_t, offsets_t, int(sample_start), int(samples),
+                scene, cfg, cam, px, py, offsets, int(sample_start), int(samples),
                 engine=resolved, film_in=film_in, scan=scan,
             )
     return render_batch_staged(
-        scene, cfg, cam, px_t, py_t, offsets_t, int(sample_start), int(samples),
+        scene, cfg, cam, px, py, offsets, int(sample_start), int(samples),
         film_in=film_in, loop=loop, scan=scan, single_loop=single_loop,
     )
 

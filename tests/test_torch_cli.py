@@ -14,6 +14,8 @@ resolves to on the CPU, and the stats test renders "auto" on the port.
 
 import json
 import os
+import socket
+import sys
 
 import numpy as np
 import pytest
@@ -198,15 +200,54 @@ def test_cli_zero_sun_rejected():
 
 @pytest.mark.parametrize("argv", [
     ["render", "x.glb", "--dot", "f32"],
-    ["render", "x.glb", "--sharded"],
     ["render", "x.glb", "--device", "cpu"],
     ["bench"],
 ])
 def test_cli_has_no_tpu_flags(argv):
-    """The MXU precision plan, the sharded path, a device flag and the JAX
-    benchmark are not the port's: the parser refuses them."""
+    """The MXU precision plan, a device flag and the JAX benchmark are not
+    the port's: the parser refuses them."""
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(argv)
+
+
+def test_cli_sharded_world_of_one(tmp_path):
+    """`--sharded` without torchrun is a world of one: the one-shot's film
+    bit for bit, and the JAX CLI's `--sharded` film (its 8-device mesh)."""
+    got, want = both(tmp_path, "sharded", "--sharded")
+    one_shot = both(tmp_path, "one-shot")[0]
+    np.testing.assert_array_equal(got, one_shot)
+    np.testing.assert_allclose(got, want, **FILM_TOL)
+
+
+def _cli_rank(rank: int, world: int, port: int, argv) -> None:
+    """One rank of a `render --sharded` job as torchrun would start it."""
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    sys.exit(cli.main(argv, device="cpu"))
+
+
+def test_cli_sharded_two_ranks(tmp_path):
+    """Two gloo ranks started as torchrun starts them: one 'spp' pair, each
+    rank renders one of the two samples; rank 0 alone writes the PNG, the
+    film and the stats line, and the film is the one-shot's within rtol
+    1e-4 (the two samples summed in another order)."""
+    from tests.test_torch_parallel import run_ranks
+
+    with socket.socket() as s:  # a free port on this host for the rendezvous
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    npy, stats = os.path.join(tmp_path, "film.npy"), os.path.join(tmp_path, "stats.jsonl")
+    argv = render_args(str(tmp_path), "ranks", "--sharded", "--save-hdr", npy, "--stats-json",
+                       stats)
+    run_ranks(_cli_rank, 2, (2, port, argv))
+    assert sorted(os.listdir(tmp_path)) == ["film.npy", "ranks.png", "stats.jsonl"]
+    lines = [json.loads(line) for line in open(stats)]
+    assert len(lines) == 1 and set(lines[0]) == STATS_KEYS
+    assert lines[0]["backend"] == "cpu" and lines[0]["engine"] == "brute"
+    one_shot = os.path.join(tmp_path, "one.npy")
+    assert cli.main(render_args(str(tmp_path), "one", "--save-hdr", one_shot), device="cpu") == 0
+    np.testing.assert_allclose(np.load(npy), np.load(one_shot), **FILM_TOL)
 
 
 def test_cli_render_refuses_an_absent_card(tmp_path):
