@@ -24,7 +24,10 @@ the product surface (the CLI, progressive state and checkpoints, the
 viewer's core, the denoiser) at the headline configuration; and the
 multi-GPU layer (rustic_tpu_torch/parallel/: a world of one through
 NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
-torchrun) at the headline configuration.
+torchrun) at the headline configuration; and the image decoders
+(rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, exr.py) on the fixtures of
+tests/data_torch/formats, then BreakTime with JPEG textures under an
+OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`--only PHASE[,PHASE...]` runs the device phase and the named ones.)
@@ -100,10 +103,10 @@ Phases, each of which must pass (the first that fails ends the run):
      each render's launch counts (the state-sorted driver: its pilot,
      then per group the nearest scan once, the merged scan once a later
      bounce and the any-hit scan once).
- 13. multi-cross-device: VeachMIS 64x64x4 through the kernel-shade and
+ 13. multi-cross-device: VeachMIS 32x32x4 through the kernel-shade and
      the ray-sorted loop and the state-sorted driver (the unsorted loop's
      film is held to the JAX film by the CPU tests), and
-     FurnaceTest 64x64x4 (5,120 alias entries) through the kernel-shade
+     FurnaceTest 32x32x4 (5,120 alias entries) through the kernel-shade
      loop, card against host CPU, rtol 1e-4, atol 1e-5; launch counts
      as phase 12.
  14. breaktime-check: BreakTime (BASELINE.md config 5: 1920x1080, NEE+MIS,
@@ -138,13 +141,13 @@ Phases, each of which must pass (the first that fails ends the run):
      assets/reference/breaktime_256x144_1024spp.npy: relative energy
      within 1%, RMSE under the bound of tests/test_reference_films.py;
      launch counts as phase 12.
- 18. breaktime-cross-device: BreakTime 64x64x4 with each scan form, card
+ 18. breaktime-cross-device: BreakTime 32x32x4 with each scan form, card
      against host CPU (the resident form against the grid form's host
      film: on the host both run one plain version): entries outside rtol 1e-4 / atol 1e-5 no more than
      the card's own film moves under a one-ulp camera shift (an ulp of a
      direction changes a path under the HDR sun; the card's sin, cos,
-     atan2 and asin are not the host's to the ulp), at most 1%, and film
-     means within 1e-4 relative.
+     atan2 and asin are not the host's to the ulp; the shift's count
+     taken at this size), at most 1%, and film means within 1e-4 relative.
  19. single-check: one DarkCornell group traced again; K12 and K13 against
      their plain versions as phase 2 checks K1 and K2, and equal to K1's
      and K2's (t, idx, occ) bit for bit, at 65,536, 65,613 and 3,686,400
@@ -294,6 +297,20 @@ Phases, each of which must pass (the first that fails ends the run):
      several cards also one rank a card through NCCL, its film within
      rtol 2e-5 / atol 2e-6); and one rank more than the host has cards: a
      non-zero exit with the LOCAL_RANK message and no image.
+ 34. formats: every image of tests/data_torch/formats (JPEG baseline,
+     extended and progressive at 4:4:4, 4:2:2, 4:2:0 and 4:4:0, grey,
+     restarts, Adobe RGB; BMP; TGA; a 1024x1024 4:2:0 JPEG) decoded on the
+     host, equal to Pillow 12.1.0's decode stored beside it (.npy, or the
+     SHA-256 of its RGBA bytes), and the half-float ZIP EXR sky equal to
+     BreakTimeSky.npy in half floats; ms per megapixel of each decoder.
+     BreakTime-JPEG (each texture a quality-90 4:2:0 JPEG, the EXR sky)
+     and its twin (each texture a PNG of Pillow's decode of that JPEG, the
+     sky as .npy) through load_scene on the card: the load split into
+     decode, atlas and the rest; every SceneTensors field equal. Both at
+     1920x1080 x 32 spp, NEE+MIS, 4 bounces, through the default loop
+     (kernel-shade, grid scans), a warm-up each, then two renders each in
+     turns: Mpaths/s beside phase 16's PNG BreakTime, launch counts K9 2,
+     K10 62, K11 2, K4 64 and no other kernel, films equal bit for bit.
 
 Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
 form by RenderSettings.multitile_scan, a one-tile scene's loop by
@@ -495,6 +512,8 @@ KERNELS = {
 }
 # phase 33: the multi-GPU layer (rustic_tpu_torch/parallel/) on the one card
 CORNELL = "assets/scenes/DarkCornell.glb"
+CROSS_SIDE = 32  # phases 13 and 18's card-vs-host films: their host renders take most of the time
+FORMATS = "tests/data_torch/formats"  # the image fixtures and their manifest
 SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_parallel
 SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
 SHARD_TOL = dict(rtol=2e-5, atol=2e-6)  # a split's bound, tests/test_parallel.py:140
@@ -1494,7 +1513,8 @@ class Smoke:
             loop, settings.multitile_scan, scene, config, settings.samples, pilots))
         cpu = render_image(scene.to("cpu"), config, settings, device="cpu")
         bad = ~np.isclose(gpu, cpu, rtol=1e-4, atol=1e-5)
-        log(f"{what} 64x64x4 film, card vs host CPU: max |d| {np.abs(gpu - cpu).max():.3g}, "
+        log(f"{what} {config.width}x{config.height}x4 film, card vs host CPU: max |d| "
+            f"{np.abs(gpu - cpu).max():.3g}, "
             f"{int(bad.sum())} entries outside rtol 1e-4 / atol 1e-5, mean {gpu.mean():.6f}")
         if bad.any():
             px = np.argwhere(bad.any(axis=-1))[:5].tolist()
@@ -1505,11 +1525,11 @@ class Smoke:
         from rustic_tpu_torch.scene.world import World
 
         self._mt_setup()
-        config = dataclasses.replace(self.mt_config, width=64, height=64)
+        config = dataclasses.replace(self.mt_config, width=CROSS_SIDE, height=CROSS_SIDE)
         for loop in ("kernel-shade", "ray-sorted", "state-sorted"):
             self._cross(f"VeachMIS, {loop} loop,", self.mt_scene, config, loop)
         furnace = World.from_path(FURNACE).to_torch(self.dev)
-        config = TracingConfig(width=64, height=64, nee=NextEventEstimation.MIS)
+        config = TracingConfig(width=CROSS_SIDE, height=CROSS_SIDE, nee=NextEventEstimation.MIS)
         self._cross("FurnaceTest (5,120 alias entries), kernel-shade loop,", furnace, config,
                     "kernel-shade")
 
@@ -1828,6 +1848,7 @@ class Smoke:
             if counts != expect:
                 self.fail(f"launch counts {counts} != expected {expect}")
             if scan == "grid":
+                self.bt_grid_mpaths = mpaths
                 if list_calls:
                     self.fail(f"the grid render built tile lists {len(list_calls)} times")
                 for key in GRID:  # the main path's render of K9-K11
@@ -1856,7 +1877,7 @@ class Smoke:
                                            multitile_scan=scan))
 
     def bt_cross_device(self):
-        """BreakTime 64x64x4, card against host CPU. Its normal-mapped
+        """BreakTime 32x32x4, card against host CPU. Its normal-mapped
         glossy surfaces under the HDR sun turn an ulp of a direction into a
         visible change of a path, and the card's transcendental functions
         are not the host's to the ulp, so the gate is calibrated in the run:
@@ -1870,7 +1891,7 @@ class Smoke:
         from rustic_tpu_torch.runtime.pipeline import MULTITILE_SCANS
         from rustic_tpu_torch.runtime.render import render_image
 
-        config = dataclasses.replace(self.bt_config, width=64, height=64)
+        config = dataclasses.replace(self.bt_config, width=CROSS_SIDE, height=CROSS_SIDE)
         x, y, z = config.cam_position
         shifted = dataclasses.replace(
             config, cam_position=(x, float(np.nextafter(np.float32(y), np.float32(2 * y))), z))
@@ -1892,7 +1913,8 @@ class Smoke:
             ulp = outside(gpu, render_image(self.bt_scene, shifted, settings, device=self.dev))
             bad = outside(gpu, cpu)
             energy = abs(float(gpu.mean()) / float(cpu.mean()) - 1.0)
-            log(f"BreakTime, {scan} scans, 64x64x4 film, card vs host CPU: max |d| "
+            log(f"BreakTime, {scan} scans, {config.width}x{config.height}x4 film, card vs host "
+                f"CPU: max |d| "
                 f"{np.abs(gpu - cpu).max():.3g}, {bad} of {gpu.size} entries outside rtol 1e-4 / "
                 f"atol 1e-5 (a one-ulp camera shift on the card: {ulp}), relative energy "
                 f"{energy:.3g}, mean {gpu.mean():.6f}")
@@ -3759,6 +3781,152 @@ class Smoke:
                 ranks.append(json.load(f))
         return ranks
 
+    # ---- phase 34: image formats -------------------------------------------------------------
+
+    def formats(self):
+        """Every fixture of tests/data_torch/formats decoded on the host
+        against Pillow's decode stored beside it (ms per megapixel of each
+        decoder); BreakTime-JPEG (JPEG textures, EXR sky) and its lossless
+        twin loaded on the card (the load split), their SceneTensors equal,
+        and both rendered at 1920x1080x32 spp in turns through the default
+        loop: launch counts of the grid path, films equal bit for bit."""
+        import hashlib
+        import os
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+        from rustic_tpu_torch.ops import flash_intersect as FI
+        from rustic_tpu_torch.ops import shade_kernel as SK
+        from rustic_tpu_torch.runtime import pipeline as P
+        from rustic_tpu_torch.runtime.render import render_image
+        from rustic_tpu_torch.scene import atlas as atlas_mod
+        from rustic_tpu_torch.scene import gltf as gltf_mod
+        from rustic_tpu_torch.scene import world as world_mod
+        from rustic_tpu_torch.utils.exr import read_exr
+        from rustic_tpu_torch.utils.png import decode_image_u8
+
+        with open(os.path.join(FORMATS, "manifest.json")) as f:
+            manifest = json.load(f)
+        per = {}  # decoder -> [seconds, pixels]
+        for entry in manifest["images"]:
+            with open(os.path.join(FORMATS, entry["file"]), "rb") as f:
+                raw = f.read()
+            t0 = time.perf_counter()
+            got = decode_image_u8(raw, entry["file"])
+            dt = time.perf_counter() - t0
+            if "expect" in entry:
+                ok = np.array_equal(got, np.load(os.path.join(FORMATS, entry["expect"])))
+            else:
+                ok = (list(got.shape) == entry["shape"] and entry["sha256"]
+                      == hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest())
+            if not ok:
+                self.fail(f"{entry['file']}: the decode differs from Pillow's")
+            kind = {"jpg": "jpeg"}.get(entry["file"].rsplit(".", 1)[1], entry["file"][-3:])
+            acc = per.setdefault(kind, [0.0, 0])
+            acc[0] += dt
+            acc[1] += got.shape[0] * got.shape[1]
+            if got.shape[0] * got.shape[1] >= 1 << 20:
+                log(f"{entry['file']} {got.shape[1]}x{got.shape[0]}: {dt * 1e3:.1f} ms, "
+                    f"{dt * 1e3 / (got.size / 4e6):.1f} ms per megapixel")
+        sky_path = os.path.join(FORMATS, manifest["scene"]["sky"])
+        with open(sky_path, "rb") as f:
+            raw = f.read()
+        t0 = time.perf_counter()
+        sky = read_exr(raw)
+        per["exr"] = [time.perf_counter() - t0, sky.shape[0] * sky.shape[1]]
+        half = np.load(BT_SKY).astype(np.float16).astype(np.float32)
+        if not np.array_equal(sky, half):
+            self.fail("the EXR sky differs from BreakTimeSky.npy in half floats")
+        log(f"{len(manifest['images'])} fixtures and the EXR sky equal to their expectations")
+        for kind, (sec, px) in per.items():
+            log(f"decode {kind}: {px} pixels in {sec * 1e3:.1f} ms, "
+                f"{sec * 1e3 / (px / 1e6):.1f} ms per megapixel (host CPU)")
+
+        real_decode, real_exr = gltf_mod.decode_image_rgba, world_mod.read_exr
+        real_pack = atlas_mod.pack_material_textures
+
+        def timed(fn, key, split):
+            def wrapped(*a, **k):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    split[key] += time.perf_counter() - t1
+            return wrapped
+
+        scenes = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            np.save(os.path.join(tmp, "sky.npy"), half)
+            for name, glb, sky_file in (
+                    ("JPEG + EXR", manifest["scene"]["jpeg"], sky_path),
+                    ("twin (PNG + .npy)", manifest["scene"]["twin"], os.path.join(tmp, "sky.npy"))):
+                split = {"decode": 0.0, "atlas": 0.0}
+                gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)
+                world_mod.read_exr = timed(real_exr, "decode", split)
+                atlas_mod.pack_material_textures = timed(real_pack, "atlas", split)
+                try:
+                    t0 = time.perf_counter()
+                    scenes[name] = world_mod.load_scene(os.path.join(FORMATS, glb), sky_file,
+                                                        device=self.dev)
+                    torch.cuda.synchronize()
+                    total = time.perf_counter() - t0
+                finally:
+                    gltf_mod.decode_image_rgba, world_mod.read_exr = real_decode, real_exr
+                    atlas_mod.pack_material_textures = real_pack
+                log(f"load_scene BreakTime {name}: {total:.2f} s: decode {split['decode']:.2f} s "
+                    f"(6 textures and the sky), the {scenes[name].atlas.shape[0]}^2 atlas "
+                    f"{split['atlas']:.2f} s, the rest (glTF, World, upload) "
+                    f"{total - split['decode'] - split['atlas']:.2f} s")
+        a, b = scenes.values()
+        for field in dataclasses.fields(a):
+            x, y = getattr(a, field.name), getattr(b, field.name)
+            same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            if not same:
+                self.fail(f"SceneTensors.{field.name} differs between the JPEG scene and its twin")
+        log("SceneTensors of the JPEG + EXR scene equal to the twin's, atlas and sky included")
+
+        config = TracingConfig(width=BT_W, height=BT_H, nee=NextEventEstimation.MIS, **BT_CAM)
+        chunk = min(RenderSettings().batch_pixels, BT_W * BT_H)
+        chunks = -(-BT_W * BT_H // chunk)
+        groups = chunks * -(-BT_SPP // P.pick_sample_fold(chunk, BT_SPP))
+        nb = config.max_bounces
+        near, merged, occl = SCAN_KERNELS["grid"]
+        expect = {near: chunks, merged: nb * groups - chunks, occl: chunks, "shade_bounce": nb * groups}
+        for name, scene in scenes.items():  # warm-up: each scene's packed table
+            render_image(scene, config, RenderSettings(samples=FOLD), device=self.dev)
+        films, rates = {}, {name: [] for name in scenes}
+        for turn in range(2):
+            for name, scene in scenes.items():
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                film = render_image(scene, config, RenderSettings(samples=BT_SPP), device=self.dev)
+                dt = time.perf_counter() - t0
+                counts = {k: n for k, n in launch_counts().items() if n}
+                if counts != expect:
+                    self.fail(f"{name}: launch counts {counts} != expected {expect}")
+                rates[name].append(BT_W * BT_H * BT_SPP / dt / 1e6)
+                if turn == 0:
+                    films[name] = film
+                elif not np.array_equal(film, films[name]):
+                    self.fail(f"{name}: two renders of one scene differ")
+        log(f"launch counts of each render: {expect}")
+        png = getattr(self, "bt_grid_mpaths", None)
+        log(f"render BreakTime {BT_W}x{BT_H}x{BT_SPP} spp NEE+MIS, HDR sky, kernel-shade loop, "
+            f"grid scans, Mpaths/s in turns: "
+            + "; ".join(f"{name} " + ", ".join(f"{r:.2f}" for r in v) for name, v in rates.items())
+            + f"; the PNG BreakTime of phase breaktime-renders "
+            + (f"{png:.2f}" if png else "not run") + f" ({self.card})")
+        a, b = films.values()
+        if a.shape != (BT_H, BT_W, 3) or not np.isfinite(a).all():
+            self.fail("the JPEG scene's film is not finite or has the wrong shape")
+        if not np.array_equal(a, b):
+            self.fail(f"the films differ at {int((a != b).any(axis=-1).sum())} pixels")
+        log(f"films equal bit for bit, mean {float(a.mean()):.6f}")
+
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self, only=()) -> int:
@@ -3796,6 +3964,7 @@ class Smoke:
             ("bvh", self.bvh),
             ("product", self.product),
             ("sharded", self.sharded),
+            ("formats", self.formats),
         ]
         if only:
             unknown = set(only) - {name for name, _ in phases}

@@ -182,7 +182,8 @@ def _node_local_matrix(node: dict) -> np.ndarray:
 
 
 def _decode_image(gltf: dict, buffers: List[bytes], image_index: int, base_dir: str) -> np.ndarray:
-    """A glTF image -> float32 [H, W, 4] in [0, 1] (no colour transform)."""
+    """A glTF image -> float32 [H, W, 4] in [0, 1] (no colour transform);
+    its mimeType, else its uri, names a TGA, which has no signature."""
     img = gltf["images"][image_index]
     if "bufferView" in img:
         bv = gltf["bufferViews"][img["bufferView"]]
@@ -192,7 +193,7 @@ def _decode_image(gltf: dict, buffers: List[bytes], image_index: int, base_dir: 
         raw = _resolve_uri(img["uri"], base_dir)
     else:
         raise ValueError("glTF image has neither bufferView nor uri")
-    return decode_image_rgba(raw)
+    return decode_image_rgba(raw, img.get("mimeType") or img.get("uri", ""))
 
 
 def _smooth_normals(positions: np.ndarray, tris: np.ndarray) -> np.ndarray:

@@ -52,7 +52,7 @@ def _load_image(path: str) -> Optional[np.ndarray]:
     if not os.path.exists(path):
         return None
     with open(path, "rb") as f:
-        return decode_image_rgba(f.read())
+        return decode_image_rgba(f.read(), path)
 
 
 def _parse_mtl(path: str) -> Dict[str, GltfMaterial]:

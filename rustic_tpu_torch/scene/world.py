@@ -24,7 +24,9 @@ from rustic_tpu_torch.scene import atlas as atlas_mod
 from rustic_tpu_torch.scene import bvh as bvh_mod
 from rustic_tpu_torch.scene import light_table as lt_mod
 from rustic_tpu_torch.scene.gltf import GltfScene, load_glb
-from rustic_tpu_torch.utils.png import FORMATS_TODO
+from rustic_tpu_torch.utils.exr import read_exr
+from rustic_tpu_torch.utils.hdr import read_hdr
+from rustic_tpu_torch.utils.png import decode_image_rgba
 
 DEF_TT = 512  # triangles per flash tile
 ATLAS_SIZE = 4096  # reference: src/asset.rs:177
@@ -294,7 +296,9 @@ def scene_from_arrays(fields: dict, device) -> SceneTensors:
 def load_skybox_image(path: str) -> np.ndarray:
     """An equirect sky image -> float32 [H, W, 4] (twin of the JAX
     package's `load_skybox_image`): .npy ([H, W, 3] or [H, W, 4]
-    radiance), Radiance .hdr, or PNG (LDR, scaled to [0, 1])."""
+    radiance), Radiance .hdr, OpenEXR .exr (radiance; a grey Y image
+    repeated to RGB, alpha 1 unless the file has A), or an LDR image
+    (PNG, JPEG, BMP, TGA; scaled to [0, 1])."""
     low = path.lower()
     if low.endswith(".npy"):
         img = np.asarray(np.load(path), np.float32)
@@ -302,16 +306,18 @@ def load_skybox_image(path: str) -> np.ndarray:
             img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
         return img
     if low.endswith(".hdr"):
-        from rustic_tpu_torch.utils.hdr import read_hdr
-
         img = read_hdr(path)
         return np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
-    if low.endswith(".exr"):
-        raise NotImplementedError(f"{path}: OpenEXR skyboxes are not read ({FORMATS_TODO})")
-    from rustic_tpu_torch.utils.png import decode_image_rgba
-
     with open(path, "rb") as f:
-        return decode_image_rgba(f.read())
+        raw = f.read()
+    if low.endswith(".exr"):
+        img = read_exr(raw)
+        if img.shape[-1] == 1:
+            img = img.repeat(3, axis=-1)
+        if img.shape[-1] == 3:
+            img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
+        return img
+    return decode_image_rgba(raw, path)
 
 
 class World:

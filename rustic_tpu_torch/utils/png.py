@@ -13,9 +13,12 @@ Paeth). The result is what Pillow 12's `convert("RGBA")` gives: uint8
 to 0-255; 16-bit samples cut to their high byte, except 16-bit grey
 without alpha, which Pillow reads as a 32-bit integer image and clips to
 255; a key colour compared, by its low byte, with the converted 8-bit
-pixel (a 1-bit grey key of 1 is white). JPEG and other formats raise
-NotImplementedError. `encode_png` writes 8-bit RGB or RGBA with filter 0
-(None) on every scanline, which any decoder reads.
+pixel (a 1-bit grey key of 1 is white). `decode_image_u8` (and its float
+form `decode_image_rgba`) reads a texture or sky of any format the port
+decodes: PNG, JPEG (utils/jpeg.py)
+and BMP (utils/bmp_tga.py) by their signatures, TGA by the name it is
+given; others raise NotImplementedError. `encode_png` writes 8-bit RGB or
+RGBA with filter 0 (None) on every scanline, which any decoder reads.
 """
 
 from __future__ import annotations
@@ -25,8 +28,15 @@ import zlib
 
 import numpy as np
 
+from rustic_tpu_torch.utils import FORMATS_TODO
+from rustic_tpu_torch.utils.bmp_tga import decode_bmp, decode_tga
+from rustic_tpu_torch.utils.jpeg import decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-FORMATS_TODO = "ROADMAP.md queue 3: image formats the port does not decode"
+# signatures of formats Pillow reads and the port refuses
+_REFUSED_SIGNATURES = {b"GIF8": "GIF", b"RIFF": "WebP", b"II*\x00": "TIFF", b"MM\x00*": "TIFF",
+                       b"\x00\x00\x00\x0c": "JPEG 2000", b"\xff\x4f\xff\x51": "JPEG 2000"}
+_TGA_NAMES = (".tga", "image/x-tga", "image/x-targa", "image/tga")  # file names, MIME types
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # Adam7 passes: (x0, y0, dx, dy)
@@ -115,7 +125,7 @@ def _interlaced(data: bytes, height: int, width: int, n: int, depth: int) -> np.
 def decode_png(raw: bytes) -> np.ndarray:
     """PNG bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
     if raw[:8] != PNG_SIGNATURE:
-        raise NotImplementedError(f"only PNG images are decoded ({FORMATS_TODO})")
+        raise ValueError("not a PNG file")
     pos = 8
     header = palette = trns = None
     idat = []
@@ -181,10 +191,28 @@ def decode_png(raw: bytes) -> np.ndarray:
     return out
 
 
-def decode_image_rgba(raw: bytes) -> np.ndarray:
+def decode_image_u8(raw: bytes, name: str = "") -> np.ndarray:
+    """An image file's bytes -> uint8 [H, W, 4], as Pillow's
+    `Image.open(...).convert("RGBA")`. `name` (a file name or a MIME type)
+    picks TGA, which has no signature."""
+    raw = bytes(raw)
+    if raw[:8] == PNG_SIGNATURE:
+        return decode_png(raw)
+    if raw[:2] == b"\xff\xd8":
+        return decode_jpeg(raw)
+    if raw[:2] == b"BM":
+        return decode_bmp(raw)
+    if name.lower().endswith(_TGA_NAMES):
+        return decode_tga(raw)
+    kind = next((k for sig, k in _REFUSED_SIGNATURES.items() if raw.startswith(sig)),
+                f"an image of unknown format (name {name!r}, first bytes {raw[:4].hex()})")
+    raise NotImplementedError(f"{kind} is not decoded ({FORMATS_TODO})")
+
+
+def decode_image_rgba(raw: bytes, name: str = "") -> np.ndarray:
     """An image file's bytes -> float32 [H, W, 4] in [0, 1], as the JAX
     package's `np.asarray(Image.open(...).convert("RGBA"), np.float32) / 255`."""
-    return np.asarray(decode_png(raw), np.float32) / 255.0
+    return np.asarray(decode_image_u8(raw, name), np.float32) / 255.0
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

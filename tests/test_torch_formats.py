@@ -189,8 +189,8 @@ def test_png_kinds_decode_as_pillow(colour, depth, interlace):
 
 
 def test_png_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        png.decode_png(b"\xff\xd8\xff\xe0" + bytes(16))  # JPEG stays refused
+    with pytest.raises(ValueError, match="not a PNG"):
+        png.decode_png(b"\xff\xd8\xff\xe0" + bytes(16))  # a JPEG goes to utils/jpeg.py
     rng = np.random.default_rng(0)
     bad_depth = make_png(np.zeros((2, 2, 3), np.int64), 2, 8, rng).replace(
         struct.pack(">IIBB", 2, 2, 8, 2), struct.pack(">IIBB", 2, 2, 4, 2))

@@ -1,0 +1,771 @@
+"""The port's image decoders against Pillow 12.1.0 (libjpeg-turbo 3.1.3)
+and the OpenEXR reader against this module's own writer.
+
+JPEG (rustic_tpu_torch/utils/jpeg.py), BMP and TGA (utils/bmp_tga.py)
+files are written by Pillow, or by Pillow and then rewritten here (a SOF1
+marker, other table ids, a 4:4:0 sampling, RGB without an Adobe segment,
+BMP V4/V5 bit fields, TGA colour maps), and `decode_image_u8` must give
+Pillow's `np.asarray(Image.open(...).convert("RGBA"))` bit for bit: no
+tolerance. OpenEXR files (utils/exr.py) are written by `write_exr` below,
+which follows OpenEXR's scanline layout and its RLE and ZIP compressors
+(byte split, predictor, zlib; a block that does not shrink stored as it
+is): `read_exr` must return the written values exactly (half to float32
+is exact). Every refused variant raises NotImplementedError naming it.
+
+The fixtures of tests/data_torch/formats/ (read by chip_smoke.py's
+`formats` phase on the card's host, which has no Pillow) are written by
+`make_fixtures`: `python -m tests.test_torch_image_formats` rewrites
+them. Each committed expectation is held here to Pillow's decode of the
+committed file, so a stale fixture fails on the CPU.
+"""
+
+import hashlib
+import io
+import json
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from PIL import Image
+
+from rustic_tpu_torch.utils import bmp_tga, exr, jpeg
+from rustic_tpu_torch.utils.png import decode_image_rgba, decode_image_u8
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch", "formats")
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+                      "scenes")
+
+
+def pillow(raw: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(raw)).convert("RGBA"))
+
+
+def picture(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """uint8 [h, w, 3]: gradients, a ripple and noise, so that every
+    frequency and colour channel carries signal."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    base = np.stack([(x * 7 + y * 3) % 256, (x * y) % 256,
+                     128 + 100 * np.sin(x / 5.0 + y / 7.0)], -1)
+    return np.clip(base + rng.normal(0, 30, base.shape), 0, 255).astype(np.uint8)
+
+
+def save(img: Image.Image, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def jpeg_file(h, w, mode="RGB", seed=0, **kw) -> bytes:
+    px = picture(h, w, seed)
+    return save(Image.fromarray(px if mode == "RGB" else px[..., 1], mode), "JPEG", **kw)
+
+
+def assert_pillow_equal(raw: bytes, name: str = ""):
+    want = pillow(raw)
+    got = decode_image_u8(raw, name)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+# ---- rewriting JPEG files -------------------------------------------------------------------
+
+def segments(raw: bytes):
+    """A JPEG's marker segments up to its first SOS -> [(marker, body)]
+    and the rest of the file (the SOS segment onwards)."""
+    out, pos = [], 2
+    while True:
+        marker = raw[pos + 1]
+        (length,) = struct.unpack(">H", raw[pos + 2 : pos + 4])
+        if marker == 0xDA:
+            return out, raw[pos:]
+        out.append((marker, raw[pos + 4 : pos + 2 + length]))
+        pos += 2 + length
+
+
+def join(segs, rest: bytes) -> bytes:
+    return b"\xff\xd8" + b"".join(
+        bytes([0xFF, m]) + struct.pack(">H", len(b) + 2) + b for m, b in segs) + rest
+
+
+def with_sof(raw: bytes, marker: int) -> bytes:
+    """The file with its SOF0/SOF2 marker byte replaced."""
+    segs, rest = segments(raw)
+    return join([(marker if m in (0xC0, 0xC2) else m, b) for m, b in segs], rest)
+
+
+def remap_tables(raw: bytes) -> bytes:
+    """The file with quantisation tables 0, 1 renamed 3, 2 and Huffman
+    tables 0, 1 renamed 2, 3 in every segment that names them (a
+    sequential file: one SOS)."""
+    segs, rest = segments(raw)
+    q, h = {0: 3, 1: 2}, {0: 2, 1: 3}
+    out = []
+    for m, b in segs:
+        b = bytearray(b)
+        if m == 0xDB:
+            pos = 0
+            while pos < len(b):
+                b[pos] = (b[pos] & 0xF0) | q[b[pos] & 15]
+                pos += 129 if b[pos] >> 4 else 65
+        elif m == 0xC4:
+            pos = 0
+            while pos < len(b):
+                b[pos] = (b[pos] & 0xF0) | h[b[pos] & 15]
+                pos += 17 + sum(b[pos + 1 : pos + 17])
+        elif m in (0xC0, 0xC1, 0xC2):
+            for i in range(b[5]):
+                b[8 + 3 * i] = q[b[8 + 3 * i]]
+        out.append((m, bytes(b)))
+    sos = bytearray(rest)
+    for i in range(sos[4]):
+        t = sos[6 + 2 * i]
+        sos[6 + 2 * i] = h[t >> 4] << 4 | h[t & 15]
+    return join(out, bytes(sos))
+
+
+def transpose_sampling(raw: bytes) -> bytes:
+    """A 4:2:2 (h2v1) file with width and height and each component's h
+    and v swapped: the same entropy data read as a 4:4:0 (h1v2) image of
+    as many MCUs."""
+    segs, rest = segments(raw)
+    out = []
+    for m, b in segs:
+        if m == 0xC0:
+            b = bytearray(b)
+            b[1:5] = b[3:5] + b[1:3]
+            for i in range(b[5]):
+                hv = b[7 + 3 * i]
+                b[7 + 3 * i] = (hv & 15) << 4 | hv >> 4
+            b = bytes(b)
+        out.append((m, b))
+    return join(out, rest)
+
+
+def with_adobe(raw: bytes, transform: int) -> bytes:
+    """The file with an Adobe APP14 segment of this colour transform
+    first (version 100, no flags)."""
+    segs, rest = segments(raw)
+    return join([(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform))] + segs, rest)
+
+
+def strip_app(raw: bytes, marker: int) -> bytes:
+    segs, rest = segments(raw)
+    return join([(m, b) for m, b in segs if m != marker], rest)
+
+
+# ---- JPEG against Pillow --------------------------------------------------------------------
+
+SIZES = [(23, 37), (37, 23), (3, 4)]  # odd sizes; 3x4 at 4:2:0 has chroma 2 samples wide
+JPEG_GRID = [("RGB", s, p, o, r, hw) for s in (0, 1, 2) for p in (False, True)
+             for o in (False, True) for r in (0, 2) for hw in SIZES] + [
+    ("L", 0, p, o, r, hw) for p in (False, True) for o in (False, True) for r in (0, 2)
+    for hw in SIZES]
+
+
+@pytest.mark.parametrize("mode, sampling, progressive, optimize, restart, size", JPEG_GRID)
+def test_jpeg_grid_matches_pillow(mode, sampling, progressive, optimize, restart, size):
+    kw = dict(subsampling=sampling) if mode == "RGB" else {}
+    raw = jpeg_file(*size, mode, progressive=progressive, optimize=optimize,
+                    restart_marker_blocks=restart, **kw)
+    assert (raw.find(b"\xff\xdd") >= 0) == bool(restart)
+    assert (raw.find(b"\xff\xc2") >= 0) == progressive
+    assert_pillow_equal(raw)
+
+
+JPEG_CASES = {
+    # sizes where edge rules show: one pixel, chroma planes 1 and 2 samples wide
+    # (replicated, not filtered), a width of one MCU plus one column
+    "1x1 4:2:0": lambda: jpeg_file(1, 1, subsampling=2),
+    "2x2 4:2:0": lambda: jpeg_file(2, 2, subsampling=2),
+    "5x5 4:2:0": lambda: jpeg_file(5, 5, subsampling=2),
+    "9x17 4:2:2": lambda: jpeg_file(9, 17, subsampling=1),
+    "4x3 4:2:2": lambda: jpeg_file(4, 3, subsampling=1),
+    "64x48 4:2:0 q100": lambda: jpeg_file(64, 48, quality=100, subsampling=2),
+    "33x65 q5 progressive": lambda: jpeg_file(33, 65, quality=5, progressive=True),
+    "grey 1x9 progressive": lambda: jpeg_file(1, 9, "L", progressive=True),
+    "restart rows": lambda: jpeg_file(40, 30, restart_marker_rows=1, subsampling=2),
+    "restart every block, progressive": lambda: jpeg_file(
+        17, 29, restart_marker_blocks=1, progressive=True, subsampling=1),
+    "RGB (Adobe transform 0)": lambda: jpeg_file(19, 21, keep_rgb=True),
+    "RGB by component ids": lambda: strip_app(jpeg_file(19, 21, keep_rgb=True), 0xEE),
+    "YCbCr under Adobe transform 1, ids R G B": lambda: with_adobe(
+        strip_app(jpeg_file(19, 21, keep_rgb=True), 0xEE), 1),
+    "YCbCr under Adobe transform 2": lambda: with_adobe(
+        strip_app(jpeg_file(19, 21, subsampling=1), 0xE0), 2),
+    "extended SOF1": lambda: with_sof(jpeg_file(23, 37, subsampling=2), 0xC1),
+    "table ids 2 and 3": lambda: remap_tables(jpeg_file(23, 37, subsampling=1, optimize=True)),
+    "4:4:0 (h1v2)": lambda: transpose_sampling(jpeg_file(21, 35, subsampling=1)),
+    "4:4:0 (h1v2) 1 wide": lambda: transpose_sampling(jpeg_file(1, 3, subsampling=1)),
+    "16-bit quantisation tables": lambda: jpeg_file(
+        24, 24, qtables=[[300] * 64, [2] * 64], subsampling=0),
+    "bytes after EOI": lambda: jpeg_file(23, 37, progressive=True) + b"\x00trailing",
+    "COM and APPn skipped": lambda: jpeg_file(
+        20, 20, comment=b"a comment", icc_profile=b"\x00" * 300, exif=b"Exif\x00\x00" + bytes(40)),
+}
+
+
+@pytest.mark.parametrize("case", list(JPEG_CASES))
+def test_jpeg_case_matches_pillow(case):
+    assert_pillow_equal(JPEG_CASES[case]())
+
+
+def test_jpeg_cases_reach_their_variant():
+    """The rewritten files are what their names say."""
+    assert JPEG_CASES["extended SOF1"]().find(b"\xff\xc1") >= 0
+    d = jpeg._Decoder(JPEG_CASES["4:4:0 (h1v2)"]())
+    d.run()
+    assert [(c.h, c.v) for c in d.comps] == [(1, 2), (1, 1), (1, 1)]
+    d = jpeg._Decoder(JPEG_CASES["table ids 2 and 3"]())
+    d.run()
+    assert sorted(d.dc) == sorted(d.ac) == [2, 3] and sorted(d.qt) == [2, 3]
+    d = jpeg._Decoder(JPEG_CASES["RGB by component ids"]())
+    d.run()
+    assert d.adobe is None and not d.jfif and d._is_rgb()
+    segs, _ = segments(JPEG_CASES["16-bit quantisation tables"]())
+    assert any(m == 0xDB and b[0] >> 4 for m, b in segs)
+
+
+@settings(max_examples=30, deadline=None, derandomize=True)
+@given(h=st.integers(1, 40), w=st.integers(1, 40), quality=st.integers(1, 100),
+       sampling=st.sampled_from([0, 1, 2]), progressive=st.booleans(),
+       optimize=st.booleans(), grey=st.booleans(), seed=st.integers(0, 2**16))
+def test_jpeg_random_matches_pillow(h, w, quality, sampling, progressive, optimize, grey, seed):
+    raw = jpeg_file(h, w, "L" if grey else "RGB", seed, quality=quality, subsampling=sampling,
+                    progressive=progressive, optimize=optimize)
+    assert_pillow_equal(raw)
+
+
+def test_truncated_jpeg_is_refused_as_pillow_refuses_it():
+    raw = jpeg_file(23, 37, subsampling=2)[:-2]  # no EOI
+    with pytest.raises(OSError, match="truncated"):
+        pillow(raw)
+    with pytest.raises(ValueError, match="past the end"):
+        decode_image_u8(raw)
+
+
+def cmyk_jpeg():
+    return save(Image.fromarray(picture(8, 8)).convert("CMYK"), "JPEG")
+
+
+def twelve_bit():
+    segs, rest = segments(jpeg_file(8, 8))
+    return join([(m, bytes([12]) + b[1:] if m == 0xC0 else b) for m, b in segs], rest)
+
+
+def dnl_height():
+    segs, rest = segments(jpeg_file(8, 8))
+    return join([(m, b[:1] + b"\x00\x00" + b[3:] if m == 0xC0 else b) for m, b in segs], rest)
+
+
+JPEG_REFUSALS = {
+    "arithmetic-coded": lambda: with_sof(jpeg_file(8, 8), 0xC9),
+    "arithmetic-coded progressive": lambda: with_sof(jpeg_file(8, 8, progressive=True), 0xCA),
+    "12-bit": twelve_bit,
+    "lossless": lambda: with_sof(jpeg_file(8, 8), 0xC3),
+    "hierarchical": lambda: with_sof(jpeg_file(8, 8), 0xC5),
+    "4-component": cmyk_jpeg,
+    "DNL": dnl_height,
+}
+
+
+@pytest.mark.parametrize("variant", list(JPEG_REFUSALS))
+def test_jpeg_refusals(variant):
+    with pytest.raises(NotImplementedError, match=f"{variant}.*ROADMAP"):
+        decode_image_u8(JPEG_REFUSALS[variant]())
+
+
+# ---- BMP and TGA against Pillow -------------------------------------------------------------
+
+def rgba(h, w, seed=0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return np.concatenate([picture(h, w, seed), rng.integers(0, 256, (h, w, 1), np.uint8)], -1)
+
+
+def pillow_modes(h, w, seed=0):
+    px = rgba(h, w, seed)
+    rgb = Image.fromarray(px[..., :3])
+    return {"1": rgb.convert("1"), "L": rgb.convert("L"), "P": rgb.quantize(7),
+            "RGB": rgb, "RGBA": Image.fromarray(px), "LA": Image.fromarray(px).convert("LA")}
+
+
+def bmp_bitfields(px, header=124, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000), top_down=False,
+                  compression=3, bits=32):
+    """A 32-bit BMP with an info header of `header` bytes: each channel
+    of px [H, W, 4] at its mask (the masks after a 40-byte header, inside
+    a longer one)."""
+    h, w, _ = px.shape
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    val = np.zeros((h, w), np.uint32)
+    for ch, m in enumerate(masks):
+        if m:
+            val |= px[..., ch].astype(np.uint32) << (m.bit_length() - 8)
+    rows[:, : w * 4] = val.view(np.uint8).reshape(h, w * 4)
+    if not top_down:
+        rows = rows[::-1]
+    info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits, compression,
+                       rows.size, 2835, 2835, 0, 0)
+    extra = struct.pack("<IIII", *masks)[: header - 40] if header > 40 else b""
+    info = info + extra + bytes(header - len(info) - len(extra))
+    if header == 40 and compression == 3:
+        info += struct.pack("<III", *masks[:3])
+    off = 14 + len(info)
+    return b"BM" + struct.pack("<IHHI", off + rows.size, 0, 0, off) + info + rows.tobytes()
+
+
+def tga_mapped(idx, pal, flags=0x20, rle=False, start=2, depth=24):
+    """A colour-mapped TGA (type 1, or 9 with one raw packet a pixel)
+    whose map of `depth`-bit BGR(A) entries starts at index `start`."""
+    h, w = idx.shape
+    head = struct.pack("<BBBHHBHHHHBB", 0, 1, 9 if rle else 1, start, len(pal), depth, 0, 0, w,
+                       h, 8, flags)
+    body = idx.tobytes() if not rle else b"".join(b"\x00" + bytes([v]) for v in idx.reshape(-1))
+    order = [2, 1, 0, 3][: depth // 8]
+    return head + pal[:, order].tobytes() + body
+
+
+BMP_MASKS = [(0xFF0000, 0xFF00, 0xFF, 0xFF000000), (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+             (0xFF000000, 0xFF0000, 0xFF00, 0xFF), (0xFF0000, 0xFF00, 0xFF, 0),
+             (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0, 0, 0, 0)]
+BMP_CASES = {f"Pillow {mode} {h}x{w}": (lambda mode=mode, h=h, w=w: save(
+    pillow_modes(h, w)[mode], "BMP")) for mode in ("1", "L", "P", "RGB", "RGBA")
+    for h, w in ((1, 1), (5, 7), (8, 3))}
+BMP_CASES.update({
+    f"{header}-byte header, masks {i}, {'top-down' if td else 'bottom-up'}": (
+        lambda header=header, m=m, td=td: bmp_bitfields(rgba(5, 7), header, m, td))
+    for header in (56, 108, 124) for i, m in enumerate(BMP_MASKS) for td in (False, True)})
+BMP_CASES.update({
+    f"{header}-byte header, three masks": (lambda header=header: bmp_bitfields(
+        rgba(6, 3), header, (0xFF0000, 0xFF00, 0xFF, 0)))
+    for header in (40, 52)})
+BMP_CASES["32-bit BI_RGB, top-down"] = lambda: bmp_bitfields(
+    rgba(4, 6), 40, (0xFF0000, 0xFF00, 0xFF, 0xFF000000), True, compression=0)
+
+
+@pytest.mark.parametrize("case", list(BMP_CASES))
+def test_bmp_matches_pillow(case):
+    assert_pillow_equal(BMP_CASES[case]())
+
+
+TGA_CASES = {f"Pillow {mode} {kw} {h}x{w}": (lambda mode=mode, kw=kw, h=h, w=w: save(
+    pillow_modes(h, w)[mode], "TGA", **kw)) for mode in ("L", "LA", "P", "RGB", "RGBA")
+    for kw in ({}, {"compression": "tga_rle"}, {"orientation": 1})
+    for h, w in ((1, 1), (5, 7))}
+TGA_CASES.update({
+    f"24-bit map, flags {flags:#x}, rle {rle}": (lambda flags=flags, rle=rle: tga_mapped(
+        np.random.default_rng(1).integers(2, 8, (4, 5), dtype=np.uint8),
+        np.random.default_rng(2).integers(0, 256, (6, 3), dtype=np.uint8), flags, rle))
+    for flags in (0x00, 0x10, 0x20, 0x30) for rle in (False, True)})
+
+
+@pytest.mark.parametrize("case", list(TGA_CASES))
+def test_tga_matches_pillow(case):
+    raw = TGA_CASES[case]()
+    assert_pillow_equal(raw, "texture.TGA")
+    assert_pillow_equal(raw, "image/x-tga")
+
+
+def os2_bmp():
+    info = struct.pack("<IHHHH", 12, 2, 2, 1, 24)
+    return b"BM" + struct.pack("<IHHI", 26 + 16, 0, 0, 26) + info + bytes(16)
+
+
+def bmp_header(bits, compression):
+    raw = bytearray(save(Image.fromarray(picture(4, 4)), "BMP"))
+    raw[28:30] = struct.pack("<H", bits)
+    raw[30:34] = struct.pack("<I", compression)
+    return bytes(raw)
+
+
+IMAGE_REFUSALS = {
+    "RLE8-compressed BMP": (lambda: bmp_header(8, 1), ""),
+    "RLE4-compressed BMP": (lambda: bmp_header(4, 2), ""),
+    "16-bit BMP": (lambda: bmp_header(16, 0), ""),
+    "12-byte header": (os2_bmp, ""),
+    "BMP bit fields": (lambda: bmp_bitfields(rgba(2, 2), 124, (0xFF00, 0xFF, 0xFF0000, 0)), ""),
+    "16-bit TGA": (lambda: save(pillow_modes(2, 2)["RGB"], "TGA")[:16] + b"\x10\x00", "a.tga"),
+    "32-bit colour map": (lambda: tga_mapped(np.zeros((2, 2), np.uint8),
+                                             np.zeros((4, 4), np.uint8), depth=32), "a.tga"),
+    "TGA image type 32": (lambda: b"\x00\x00\x20" + bytes(9) + b"\x02\x00\x02\x00\x08\x00",
+                          "a.tga"),
+    "GIF": (lambda: save(pillow_modes(2, 2)["P"], "GIF"), ""),
+    "WebP": (lambda: b"RIFF\x00\x00\x00\x00WEBPVP8 ", ""),
+    "TIFF": (lambda: save(pillow_modes(2, 2)["RGB"], "TIFF"), ""),
+    "unknown format": (lambda: save(pillow_modes(2, 2)["RGB"], "TGA"), "no-extension"),
+}
+
+
+@pytest.mark.parametrize("variant", list(IMAGE_REFUSALS))
+def test_image_refusals(variant):
+    make, name = IMAGE_REFUSALS[variant]
+    with pytest.raises(NotImplementedError, match=f"{variant}.*ROADMAP"):
+        decode_image_u8(make(), name)
+
+
+def test_decode_image_rgba_scales_to_unit_floats():
+    raw = jpeg_file(5, 6)
+    got = decode_image_rgba(raw)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, pillow(raw).astype(np.float32) / 255.0)
+
+
+# ---- OpenEXR --------------------------------------------------------------------------------
+
+EXR_TYPES = {"uint": (0, np.dtype("<u4")), "half": (1, np.dtype("<f2")),
+             "float": (2, np.dtype("<f4"))}
+EXR_COMPRESSIONS = {"NONE": 0, "RLE": 1, "ZIPS": 2, "ZIP": 3}
+
+
+def _attr(name: str, kind: str, value: bytes) -> bytes:
+    return name.encode() + b"\x00" + kind.encode() + b"\x00" + struct.pack("<i", len(value)) + value
+
+
+def _rle(data: bytes) -> bytes:
+    """OpenEXR run-length packets: runs of 3 or more equal bytes (at most
+    128) as (n - 1, byte), the rest as literal runs of at most 127 (-n, bytes)."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i - 1, data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 127 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([(256 - (j - i)) & 0xFF]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _predict(data: bytes) -> bytes:
+    """OpenEXR's byte split (even bytes, then odd) and predictor (each
+    byte as its difference from the one before, + 128)."""
+    b = np.frombuffer(data, np.uint8)
+    t = np.concatenate([b[0::2], b[1::2]]).astype(np.int64)
+    d = t.copy()
+    d[1:] = (t[1:] - t[:-1] + 128) & 0xFF
+    return d.astype(np.uint8).tobytes()
+
+
+def write_exr(channels: dict, compression: str = "ZIP", origin=(0, 0), version_flags=0,
+              compression_code=None) -> bytes:
+    """A single-part scanline OpenEXR file: {name: [H, W] array of
+    uint32, float16 or float32}, its data window at `origin`."""
+    names = sorted(channels)
+    h, w = channels[names[0]].shape
+    types = {n: {"u": "uint", "f": "float"}[channels[n].dtype.kind]
+             if channels[n].dtype != np.float16 else "half" for n in names}
+    chlist = b"".join(n.encode() + b"\x00" + struct.pack("<iB3xii", EXR_TYPES[types[n]][0], 0, 1, 1)
+                      for n in names) + b"\x00"
+    x0, y0 = origin
+    box = struct.pack("<iiii", x0, y0, x0 + w - 1, y0 + h - 1)
+    code = EXR_COMPRESSIONS.get(compression) if compression_code is None else compression_code
+    header = (_attr("channels", "chlist", chlist) + _attr("compression", "compression",
+              bytes([code])) + _attr("dataWindow", "box2i", box)
+              + _attr("displayWindow", "box2i", box) + _attr("lineOrder", "lineOrder", b"\x00")
+              + _attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + _attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
+              + _attr("screenWindowWidth", "float", struct.pack("<f", 1.0)) + b"\x00")
+    lines = 16 if compression == "ZIP" else 1
+    blocks = []
+    for y in range(0, h, lines):
+        raw = b"".join(np.ascontiguousarray(channels[n][r], EXR_TYPES[types[n]][1]).tobytes()
+                       for r in range(y, min(h, y + lines)) for n in names)
+        if compression in ("ZIP", "ZIPS"):
+            packed = zlib.compress(_predict(raw), 9)
+        elif compression == "RLE":
+            packed = _rle(_predict(raw))
+        else:
+            packed = raw
+        data = packed if len(packed) < len(raw) else raw
+        blocks.append(struct.pack("<ii", y0 + y, len(data)) + data)
+    start = 8 + len(header) + 8 * len(blocks)
+    offsets, at = [], start
+    for b in blocks:
+        offsets.append(at)
+        at += len(b)
+    return (exr.EXR_MAGIC + struct.pack("<I", 2 | version_flags) + header
+            + struct.pack(f"<{len(offsets)}Q", *offsets) + b"".join(blocks))
+
+
+def exr_values(layout, kind, h=19, w=13, seed=0) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i, name in enumerate(layout):
+        if kind == "uint":
+            v = rng.integers(0, 2**32, (h, w), dtype=np.uint32)
+            v.flat[:3] = (0, 1, 2**32 - 1)
+        else:
+            v = rng.lognormal(0, 3, (h, w)) * rng.choice([-1, 1], (h, w))
+            v.flat[:4] = (0.0, 65504.0, 6e-8, 1.0 + i)  # zero, the largest half, a subnormal
+            if i == 0:
+                v[-1] = 1.0  # a long equal run for RLE
+            v = v.astype(np.float16 if kind == "half" else np.float32)
+        out[name] = v
+    return out
+
+
+EXR_GRID = [(c, k, layout) for c in EXR_COMPRESSIONS for k in EXR_TYPES
+            for layout in ("RGB", "RGBA", "Y")]
+
+
+@pytest.mark.parametrize("compression, kind, layout", EXR_GRID)
+def test_read_exr_returns_the_written_values(compression, kind, layout):
+    values = exr_values(layout, kind)
+    got = exr.read_exr(write_exr(values, compression))
+    want = np.stack([values[c].astype(np.float32) for c in layout], -1)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("compression", list(EXR_COMPRESSIONS))
+def test_read_exr_data_window_and_mixed_types(compression):
+    """A data window away from the origin (negative x, y = 5), 37 rows
+    (a last ZIP block of 5), channels of three types."""
+    rng = np.random.default_rng(3)
+    values = {"R": rng.normal(0, 10, (37, 6)).astype(np.float32),
+              "G": rng.normal(0, 10, (37, 6)).astype(np.float16),
+              "B": rng.integers(0, 1000, (37, 6), dtype=np.uint32)}
+    got = exr.read_exr(write_exr(values, compression, origin=(-3, 5)))
+    np.testing.assert_array_equal(got, np.stack([values[c].astype(np.float32) for c in "RGB"], -1))
+
+
+def test_read_exr_stores_incompressible_blocks_as_they_are():
+    """Random float32 bits do not shrink under ZIP: such blocks are stored
+    raw, and a smooth channel beside them is compressed."""
+    rng = np.random.default_rng(4)
+    noise = rng.integers(0, 2**32, (16, 64), dtype=np.uint32).view(np.float32)
+    noise = np.where(np.isfinite(noise), noise, 1.0).astype(np.float32)
+    values = {"Y": noise}
+    raw = write_exr(values, "ZIP")
+    (size,) = struct.unpack("<i", raw[-(16 * 64 * 4) - 4 : -(16 * 64 * 4)])
+    assert size == 16 * 64 * 4  # stored as it is
+    np.testing.assert_array_equal(exr.read_exr(raw)[..., 0], noise)
+    smooth = {"Y": np.ones((16, 64), np.float32)}
+    assert len(write_exr(smooth, "ZIP")) < 1000
+    np.testing.assert_array_equal(exr.read_exr(write_exr(smooth, "ZIP"))[..., 0], smooth["Y"])
+
+
+EXR_REFUSALS = {
+    **{name: dict(compression="NONE", compression_code=code) for code, name in
+       enumerate(("PIZ", "PXR24", "B44", "B44A", "DWAA", "DWAB"), start=4)},
+    "tiled": dict(version_flags=0x200),
+    "deep": dict(version_flags=0x800),
+    "multi-part": dict(version_flags=0x1000),
+}
+
+
+@pytest.mark.parametrize("variant", list(EXR_REFUSALS))
+def test_read_exr_refusals(variant):
+    raw = write_exr(exr_values("RGB", "half", 2, 2), **EXR_REFUSALS[variant])
+    with pytest.raises(NotImplementedError, match=f"{variant}.*ROADMAP"):
+        exr.read_exr(raw)
+
+
+def test_read_exr_refuses_other_channels():
+    with pytest.raises(NotImplementedError, match="channel set.*ROADMAP"):
+        exr.read_exr(write_exr(exr_values("XYZ", "half", 2, 2)))
+    sub = write_exr(exr_values("RGB", "half", 2, 2)).replace(
+        struct.pack("<iB3xii", 1, 0, 1, 1), struct.pack("<iB3xii", 1, 0, 2, 2), 1)
+    with pytest.raises(NotImplementedError, match="subsampled.*ROADMAP"):
+        exr.read_exr(sub)
+
+
+# ---- the fixtures of tests/data_torch/formats -----------------------------------------------
+
+BIG = "photo-1024-420.jpg"
+BT_JPEG = "BreakTime-JPEG.glb"
+BT_TWIN = "BreakTime-JPEG-twin.glb"
+BT_SKY_EXR = "BreakTimeSky.exr"
+
+
+def small_fixtures() -> dict:
+    """name -> the bytes of each small fixture image."""
+    px = pillow_modes(21, 35, seed=5)
+    return {
+        "baseline-444.jpg": jpeg_file(23, 37, subsampling=0, seed=6),
+        "baseline-422-optimized.jpg": jpeg_file(37, 23, subsampling=1, optimize=True, seed=7),
+        "baseline-420-restart.jpg": jpeg_file(31, 45, subsampling=2, restart_marker_blocks=3,
+                                              seed=8),
+        "progressive-420.jpg": jpeg_file(45, 33, subsampling=2, progressive=True, seed=9),
+        "progressive-grey-restart.jpg": jpeg_file(17, 29, "L", progressive=True,
+                                                  restart_marker_rows=1, seed=10),
+        "extended-440.jpg": with_sof(transpose_sampling(jpeg_file(19, 27, subsampling=1,
+                                                                  seed=11)), 0xC1),
+        "rgb-adobe.jpg": jpeg_file(13, 11, keep_rgb=True, seed=12),
+        "palette-8bit.bmp": save(px["P"], "BMP"),
+        "rgb-24bit.bmp": save(px["RGB"], "BMP"),
+        "bgra-v5-topdown.bmp": bmp_bitfields(rgba(21, 35, 5), 124, top_down=True),
+        "rgba-rle-bottomup.tga": save(px["RGBA"], "TGA", compression="tga_rle"),
+        "grey-topdown.tga": save(px["L"], "TGA", orientation=1),
+        "mapped-rle.tga": tga_mapped(
+            np.random.default_rng(13).integers(2, 8, (21, 35), dtype=np.uint8),
+            np.random.default_rng(14).integers(0, 256, (6, 3), dtype=np.uint8), 0x10, True),
+    }
+
+
+def big_photo() -> bytes:
+    """A 1024x1024 4:2:0 JPEG at quality 90, as a texture: smooth shading,
+    edges and fine noise."""
+    rng = np.random.default_rng(15)
+    y, x = np.mgrid[0:1024, 0:1024].astype(np.float64)
+    base = np.stack([(x * 0.2 + y * 0.1) % 256, 128 + 100 * np.sin(x / 40.0) * np.cos(y / 30.0),
+                     128 + 90 * np.sin((x + y) / 25.0)], -1)
+    base[(x // 128 + y // 128) % 2 == 0] *= 0.6
+    px = np.clip(base + rng.normal(0, 6, base.shape), 0, 255).astype(np.uint8)
+    return save(Image.fromarray(px), "JPEG", quality=90, subsampling=2)
+
+
+def read_glb(raw: bytes):
+    (json_len,) = struct.unpack("<I", raw[12:16])
+    doc = json.loads(raw[20 : 20 + json_len])
+    (bin_len,) = struct.unpack("<I", raw[20 + json_len : 24 + json_len])
+    return doc, raw[28 + json_len : 28 + json_len + bin_len]
+
+
+def glb_images(raw: bytes):
+    """The bytes of each image of a GLB, in order."""
+    doc, blob = read_glb(raw)
+    out = []
+    for img in doc["images"]:
+        bv = doc["bufferViews"][img["bufferView"]]
+        start = bv.get("byteOffset", 0)
+        out.append(blob[start : start + bv["byteLength"]])
+    return out
+
+
+def replace_glb_images(raw: bytes, images, mime: str) -> bytes:
+    """The GLB with image i's bytes replaced by images[i] (its bufferView
+    re-laid at 4-byte alignment, every other view kept)."""
+    doc, blob = read_glb(raw)
+    new = {doc["images"][i]["bufferView"]: b for i, b in enumerate(images)}
+    out = bytearray()
+    for k, bv in enumerate(doc["bufferViews"]):
+        start = bv.get("byteOffset", 0)
+        data = new.get(k, blob[start : start + bv["byteLength"]])
+        out += bytes(-len(out) % 4)
+        bv["byteOffset"], bv["byteLength"] = len(out), len(data)
+        out += data
+    out += bytes(-len(out) % 4)
+    for img in doc["images"]:
+        img["mimeType"] = mime
+    doc["buffers"][0]["byteLength"] = len(out)
+    body = json.dumps(doc, separators=(",", ":")).encode()
+    body += b" " * (-len(body) % 4)
+    chunks = (struct.pack("<II", len(body), 0x4E4F534A) + body
+              + struct.pack("<II", len(out), 0x004E4942) + bytes(out))
+    return struct.pack("<III", 0x46546C67, 2, 12 + len(chunks)) + chunks
+
+
+def breaktime_jpeg_pair():
+    """BreakTime with each texture re-encoded by Pillow as JPEG (quality
+    90, 4:2:0), and its lossless twin: each texture a PNG of Pillow's
+    decode of that JPEG."""
+    with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
+        raw = f.read()
+    jpegs = [save(Image.open(io.BytesIO(b)).convert("RGB"), "JPEG", quality=90, subsampling=2)
+             for b in glb_images(raw)]
+    pngs = [save(Image.open(io.BytesIO(b)).convert("RGB"), "PNG", optimize=True) for b in jpegs]
+    return (replace_glb_images(raw, jpegs, "image/jpeg"),
+            replace_glb_images(raw, pngs, "image/png"))
+
+
+def breaktime_sky_half() -> np.ndarray:
+    """BreakTimeSky.npy rounded to half floats (the EXR sky's values)."""
+    return np.load(os.path.join(SCENES, "BreakTimeSky.npy")).astype(np.float16)
+
+
+def sha256_rgba(img: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(img, np.uint8).tobytes()).hexdigest()
+
+
+def make_fixtures(out_dir: str) -> dict:
+    """Write every fixture and the manifest that lists them into `out_dir`
+    -> the manifest."""
+    os.makedirs(out_dir, exist_ok=True)
+
+    def put(name, data):
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+
+    images = []
+    for name, raw in small_fixtures().items():
+        put(name, raw)
+        expect = name.rsplit(".", 1)[0] + ".rgba.npy"
+        np.save(os.path.join(out_dir, expect), pillow(raw))
+        images.append(dict(file=name, expect=expect))
+    big = big_photo()
+    put(BIG, big)
+    images.append(dict(file=BIG, shape=[1024, 1024, 4], sha256=sha256_rgba(pillow(big))))
+    jpeg_glb, twin_glb = breaktime_jpeg_pair()
+    put(BT_JPEG, jpeg_glb)
+    put(BT_TWIN, twin_glb)
+    sky = breaktime_sky_half()
+    put(BT_SKY_EXR, write_exr({c: sky[..., i] for i, c in enumerate("RGB")}, "ZIP"))
+    manifest = dict(images=images, scene=dict(jpeg=BT_JPEG, twin=BT_TWIN, sky=BT_SKY_EXR))
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+    return manifest
+
+
+def committed_manifest() -> dict:
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def fixture(name: str) -> bytes:
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def test_fixture_writer_makes_the_committed_set(tmp_path):
+    """make_fixtures runs, and writes the committed files' names and
+    expectations."""
+    made = make_fixtures(str(tmp_path))
+    assert made == committed_manifest()
+    for entry in made["images"]:
+        if "expect" in entry:
+            np.testing.assert_array_equal(np.load(tmp_path / entry["expect"]),
+                                          np.load(os.path.join(FIXTURES, entry["expect"])))
+    total = sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in os.listdir(FIXTURES))
+    assert total <= 3 * 2**20
+
+
+@pytest.mark.parametrize("entry", committed_manifest()["images"], ids=lambda e: e["file"])
+def test_committed_fixture_matches_pillow(entry):
+    """Each committed expectation is Pillow's decode of the committed file,
+    and the port's decode equals it."""
+    raw = fixture(entry["file"])
+    want = pillow(raw)
+    got = decode_image_u8(raw, entry["file"])
+    if "expect" in entry:
+        np.testing.assert_array_equal(np.load(os.path.join(FIXTURES, entry["expect"])), want)
+    else:
+        assert list(want.shape) == entry["shape"] and sha256_rgba(want) == entry["sha256"]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_committed_breaktime_pair():
+    """The JPEG GLB's textures are JPEGs whose Pillow decodes are the
+    twin's PNGs; the EXR sky holds BreakTimeSky.npy in half floats."""
+    scene = committed_manifest()["scene"]
+    jpegs, pngs = glb_images(fixture(scene["jpeg"])), glb_images(fixture(scene["twin"]))
+    assert len(jpegs) == len(pngs) == 6
+    for j, p in zip(jpegs, pngs):
+        assert j[:2] == b"\xff\xd8" and p[:4] == b"\x89PNG"
+        np.testing.assert_array_equal(pillow(j), pillow(p))
+    sky = exr.read_exr(fixture(scene["sky"]))
+    np.testing.assert_array_equal(sky, breaktime_sky_half().astype(np.float32))
+
+
+if __name__ == "__main__":
+    print(json.dumps(make_fixtures(FIXTURES), indent=1))

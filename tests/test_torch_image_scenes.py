@@ -1,0 +1,176 @@
+"""Scenes and skies in the image formats the port now decodes, through the
+port and through the JAX package (which decodes them with Pillow).
+
+- BreakTime with JPEG textures (tests/data_torch/formats, written by
+  tests/test_torch_image_formats.py `make_fixtures`): the port's World
+  equals the JAX World bit for bit in its atlas, shading rows and every
+  other scene tensor, at a 64-texel atlas (`same_world` of
+  tests/test_torch_formats.py), and equals the World of its lossless twin
+  (each texture a PNG of Pillow's decode of the JPEG).
+- An OBJ whose MTL names JPEG, TGA and BMP maps, against
+  rustic_tpu/scene/obj.py, exactly.
+- JPEG, BMP and TGA skies through `load_skybox_image`, against the JAX
+  function, exactly. The JAX package reads .exr through imageio, which
+  has no backend here: the EXR sky is held to the .npy of its half-float
+  values, which the JAX function reads.
+- A 32x16x2 film of the JPEG BreakTime's one-tile cut
+  (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
+  the .npy sky on JAX, both staged pipelines: the film rule of
+  tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
+  the pixels, every pixel within rtol 2e-2 / atol 1e-4).
+- The viewer's `load_path` on a .jpg, .exr, .tga and .bmp sky.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rustic_tpu.runtime import pipeline as JP
+from rustic_tpu.scene import bvh_native
+from rustic_tpu.scene import gltf as JG
+from rustic_tpu.scene import obj as JO
+from rustic_tpu.scene import world as JW
+from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic_tpu_torch.runtime.render import pixel_offsets, render_pixels
+from rustic_tpu_torch.runtime.viewer import Viewer
+from rustic_tpu_torch.scene import cuts
+from rustic_tpu_torch.scene import gltf as TG
+from rustic_tpu_torch.scene import obj as TO
+from rustic_tpu_torch.scene import world as TW
+from tests.conftest import scene_path
+from tests.test_torch_breaktime import assert_film_close
+from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
+from tests.test_torch_formats import same_gltf, same_world
+from tests.test_torch_image_formats import (BT_JPEG, BT_SKY_EXR, BT_TWIN, FIXTURES,
+                                            breaktime_sky_half, pillow_modes, save, write_exr)
+
+torch.set_num_threads(2)
+
+ATLAS = 256
+FILM_W, FILM_H, SPP = 32, 16, 2
+CAM = dict(cam_position=(0.0, 1.8, -3.2), has_skybox=True)
+
+
+def fixture_path(name):
+    return os.path.join(FIXTURES, name)
+
+
+@pytest.fixture(scope="module")
+def half_sky(tmp_path_factory):
+    """The EXR sky's values as a .npy (the JAX function's way in)."""
+    path = tmp_path_factory.mktemp("sky") / "sky.npy"
+    np.save(path, breaktime_sky_half().astype(np.float32))
+    return str(path)
+
+
+def test_breaktime_jpeg_world_matches_jax(monkeypatch):
+    ts = same_world(fixture_path(BT_JPEG), monkeypatch)
+    assert ts.has_textures
+    twin = TW.World.from_path(fixture_path(BT_TWIN), SAME_WORLD_ATLAS).to_torch("cpu")
+    for name in ("atlas", "tri_attrs"):
+        np.testing.assert_array_equal(getattr(twin, name).numpy(), getattr(ts, name).numpy())
+
+
+def write_obj_with_maps(tmp_path):
+    """A quad and a lamp; the floor's albedo map a JPEG, its roughness
+    map a TGA and its normal map a BMP."""
+    modes = pillow_modes(9, 14, seed=3)
+    (tmp_path / "albedo.jpg").write_bytes(save(modes["RGB"], "JPEG", quality=85))
+    (tmp_path / "rough.tga").write_bytes(save(modes["L"], "TGA", compression="tga_rle"))
+    (tmp_path / "normal.bmp").write_bytes(save(modes["RGB"], "BMP"))
+    (tmp_path / "tex.mtl").write_text(
+        "newmtl floor\nKd 1 1 1\nmap_Kd albedo.jpg\nmap_Pr rough.tga\nnorm normal.bmp\nNs 30\n"
+        "newmtl lamp\nKd 0 0 0\nKe 0.2 0.2 0.2\n")
+    lines = ["mtllib tex.mtl"]
+    lines += [f"v {x} 0 {z}" for x, z in ((-2, -2), (2, -2), (2, 2), (-2, 2))]
+    lines += [f"v {x} 3 {z}" for x, z in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
+    lines += ["vt 0 0", "vt 1 0", "vt 1 1", "vt 0 1", "vn 0 1 0"]
+    lines += ["usemtl floor", "f 1/1/1 2/2/1 3/3/1 4/4/1", "usemtl lamp", "f 7 6 5", "f -1 7 5"]
+    (tmp_path / "tex.obj").write_text("\n".join(lines) + "\n")
+    return str(tmp_path / "tex.obj")
+
+
+def test_obj_with_jpeg_tga_bmp_maps_matches_jax(tmp_path, monkeypatch):
+    path = write_obj_with_maps(tmp_path)
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.roughness_texture is not None
+    assert floor.normal_texture is not None
+    ts = same_world(path, monkeypatch)
+    assert ts.has_textures
+
+
+@pytest.mark.parametrize("ext, kw", [("jpg", dict(quality=80)), ("jpeg", dict(progressive=True)),
+                                     ("bmp", {}), ("tga", dict(compression="tga_rle"))])
+def test_ldr_skies_match_jax(tmp_path, ext, kw):
+    path = str(tmp_path / f"sky.{ext}")
+    with open(path, "wb") as f:
+        f.write(save(pillow_modes(8, 16, seed=4)["RGB"], "JPEG" if ext.startswith("jp") else
+                     ext.upper(), **kw))
+    got = TW.load_skybox_image(path)
+    assert got.dtype == np.float32 and got.shape == (8, 16, 4)
+    np.testing.assert_array_equal(got, JW.load_skybox_image(path))
+
+
+def test_exr_skies_reshape_as_jax(tmp_path, half_sky):
+    """The BreakTime EXR (RGB, half) gets an alpha of 1 as the JAX
+    function gives its .npy; a grey Y sky is repeated to RGB; an RGBA sky
+    keeps its A."""
+    np.testing.assert_array_equal(TW.load_skybox_image(fixture_path(BT_SKY_EXR)),
+                                  JW.load_skybox_image(half_sky))
+    rng = np.random.default_rng(5)
+    y = rng.uniform(0, 30, (4, 8)).astype(np.float32)
+    (tmp_path / "grey.exr").write_bytes(write_exr({"Y": y}, "ZIPS"))
+    got = TW.load_skybox_image(str(tmp_path / "grey.exr"))
+    np.testing.assert_array_equal(got, np.stack([y, y, y, np.ones_like(y)], -1))
+    rgba = {c: rng.uniform(0, 2, (4, 8)).astype(np.float16) for c in "RGBA"}
+    (tmp_path / "rgba.exr").write_bytes(write_exr(rgba, "RLE"))
+    got = TW.load_skybox_image(str(tmp_path / "rgba.exr"))
+    np.testing.assert_array_equal(got, np.stack([rgba[c].astype(np.float32) for c in "RGBA"], -1))
+
+
+def test_jpeg_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of the JPEG BreakTime: the port's decoders and EXR
+    reader against Pillow and the .npy sky, through both staged pipelines."""
+    from rustic_tpu.config import TracingConfig as JaxTracingConfig
+
+    path = fixture_path(BT_JPEG)
+    jcut = cuts.one_tile(JG.load_glb(path), cuts.BREAKTIME_ONE_TILE)
+    js = JW.World(jcut, ATLAS).to_device(JW.load_skybox_image(half_sky))
+    tcut = cuts.one_tile(TG.load_glb(path), cuts.BREAKTIME_ONE_TILE)
+    ts = TW.World(tcut, ATLAS).to_torch("cpu", TW.load_skybox_image(fixture_path(BT_SKY_EXR)))
+    assert ts.n_tris == js.n_tris and ts.has_textures
+    y, x = np.mgrid[0:FILM_H, 0:FILM_W]
+    x, y = x.reshape(-1).astype(np.int32), y.reshape(-1).astype(np.int32)
+    config = JaxTracingConfig(width=FILM_W, height=FILM_H, nee=NextEventEstimation.MIS, **CAM)
+    want = np.asarray(JP.render_batch_staged(
+        js, config.static_part(), config.dynamic_part(), jnp.asarray(x), jnp.asarray(y),
+        jnp.asarray(pixel_offsets(FILM_W, FILM_H)), 0, SPP))
+    got = render_pixels(ts, TracingConfig(width=FILM_W, height=FILM_H,
+                                          nee=NextEventEstimation.MIS, **CAM), x, y, SPP,
+                        offsets=pixel_offsets(FILM_W, FILM_H), engine=None).numpy()
+    assert_film_close(got, want)
+
+
+@pytest.mark.parametrize("name", ["sky.jpg", "sky.exr", "sky.tga", "sky.bmp"])
+def test_viewer_loads_each_sky_format(tmp_path, name):
+    world = TW.World.from_path(scene_path("DarkCornell.glb"))
+    v = Viewer(world.to_torch("cpu"), TracingConfig(width=8, height=8, max_bounces=2),
+               RenderSettings(sync_rate=1), world=world)
+    path = tmp_path / name
+    ext = name.rsplit(".", 1)[1]
+    if ext == "exr":
+        path.write_bytes(write_exr({c: np.full((4, 8), 0.5 + i, np.float16)
+                                    for i, c in enumerate("RGB")}))
+    else:
+        path.write_bytes(save(pillow_modes(4, 8, seed=6)["RGB"],
+                              "JPEG" if ext == "jpg" else ext.upper()))
+    assert v.load_path(str(path))
+    assert v.state.config.has_skybox and v.skybox.shape == (4, 8, 4)
+    np.testing.assert_array_equal(v.scene.skybox.numpy(), TW.load_skybox_image(str(path)))
+    assert np.isfinite(v.step()).all()

@@ -119,8 +119,10 @@ def test_png_decoder_matches_pillow(i):
 
 
 def test_png_decoder_refuses_other_formats():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"\xff\xd8\xff\xe0" + bytes(16))  # a JPEG header
+    with pytest.raises(NotImplementedError, match="GIF.*ROADMAP"):
+        png.decode_image_rgba(b"GIF89a" + bytes(16))  # a format no decoder of the port reads
 
 
 def texture_kinds():
@@ -201,7 +203,11 @@ def test_skybox_images_match_jax(tmp_path):
     Image.fromarray(ldr, "RGB").save(tmp_path / "sky.png")
     np.testing.assert_array_equal(TW.load_skybox_image(str(tmp_path / "sky.png")),
                                   JW.load_skybox_image(str(tmp_path / "sky.png")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from tests.test_torch_image_formats import write_exr
+
+    piz = write_exr({c: np.ones((2, 2), np.float16) for c in "RGB"}, compression_code=4)
+    (tmp_path / "sky.exr").write_bytes(piz)
+    with pytest.raises(NotImplementedError, match="PIZ.*ROADMAP"):
         TW.load_skybox_image(str(tmp_path / "sky.exr"))
 
 
