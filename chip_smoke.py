@@ -27,7 +27,9 @@ NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
 torchrun) at the headline configuration; and the image decoders
 (rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, exr.py) on the fixtures of
 tests/data_torch/formats, then BreakTime with JPEG textures under an
-OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4).
+OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4);
+and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
+`bench`, and rustic_tpu_torch/bench_suite.py on the five BASELINE configs).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (`--only PHASE[,PHASE...]` runs the device phase and the named ones.)
@@ -218,8 +220,10 @@ Phases, each of which must pass (the first that fails ends the run):
      scans on its bounce-1 and bounce-3 operands against their plain
      versions, at 65,613 lanes and at full length: K5/K6 bit for bit, the
      others as phases 14 and 22. Then the state-sorted driver, "auto" and
-     the kernel-shade loop (default scan form) in turns on VeachMIS 64 spp
-     and the scenes of phase 27, a one-group warm-up each and 3 renders:
+     the kernel-shade loop (default scan form) in turns on VeachMIS and the
+     scenes of phase 27, each at a quarter of its spp there (VeachMIS 16,
+     FurnaceTest and GlassTest 16, PBRTest 4), a one-group warm-up each
+     and 3 renders:
      Mpaths/s, launch counts, each scene's pilot schedule, its work
      fraction W and whether auto's pick (state-sorted where W <= 0.7) was
      the faster driver; on VeachMIS the state-sorted driver also in the
@@ -311,6 +315,19 @@ Phases, each of which must pass (the first that fails ends the run):
      (kernel-shade, grid scans), a warm-up each, then two renders each in
      turns: Mpaths/s beside phase 16's PNG BreakTime, launch counts K9 2,
      K10 62, K11 2, K4 64 and no other kernel, films equal bit for bit.
+ 35. bench: the benchmark programs, each in a process of its own. `python
+     -m rustic_tpu_torch.cli bench` (rustic_tpu_torch/bench.py: DarkCornell
+     1280x720x160 spp, the median of 3 renders after a one-fold warm-up;
+     the furnace probe; PBRTest 256x144x8): its value finite and positive,
+     the film mean within 2% of 0.03945, furnace_ok true, a PBRTest rate,
+     the last render's launch counts as phase 4 checks them, its record in
+     build/bench_torch_last.json; Mpaths/s beside phase 4's. Then `python -m
+     rustic_tpu_torch.bench_suite --scale 64` (BASELINE.md configs 1-5 with
+     their spp divided by 64): each config without an error, a finite film
+     mean, and launch counts per pixel chunk of its fold and bounce
+     structure (DarkCornell K1-K4; the others K9-K11 and K4, or K8 above 16
+     alias entries; FurnaceTest, NEE off, K9 and K4 each bounce). The JAX
+     package's bench_last.json and bench_history.jsonl stay as they were.
 
 Each multi-tile loop is named by RenderSettings.multitile_loop, its scan
 form by RenderSettings.multitile_scan, a one-tile scene's loop by
@@ -518,6 +535,10 @@ SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_pa
 SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
 SHARD_TOL = dict(rtol=2e-5, atol=2e-6)  # a split's bound, tests/test_parallel.py:140
 SHARD_TIMEOUT_S = 300  # a rank's wait at a collective, a child's whole run
+SORTED_MODES_SPP_DIV = 4  # phase 28 renders each scene at this fraction of its spp
+BENCH_TIMEOUT_S = 600  # each benchmark program's whole run (phase 35)
+BENCH_SUITE_SCALE = 64  # the BASELINE configs' spp divided by this (phase 35)
+STARTUP_REF_S = 3.021  # the reference's startup bench (BASELINE.md:13)
 SINGLE_TILE_NAMES = ("nearest_attrs", "nearest_shadow_attrs", "occlude", "shade_bounce")
 GRID_WIDE_NAMES = ("nearest_grid", "nearest_shadow_grid", "occlude_grid", "shade_bounce_wide")
 
@@ -2918,8 +2939,9 @@ class Smoke:
             self._ss_compare(recs, n if n is not None else recs[1]["feats"].shape[1])
         del recs
         torch.cuda.empty_cache()
-        scenes = [("VeachMIS", lambda: (self.mt_scene, self.mt_config), MT_SPP)] + [
-            (name, lambda spec=spec: self._load(spec), spec["spp"])
+        scenes = [("VeachMIS", lambda: (self.mt_scene, self.mt_config),
+                   MT_SPP // SORTED_MODES_SPP_DIV)] + [
+            (name, lambda spec=spec: self._load(spec), spec["spp"] // SORTED_MODES_SPP_DIV)
             for name, spec in OTHER_SCENES.items()]
         for name, load, spp in scenes:
             scene, config = load()
@@ -3927,6 +3949,125 @@ class Smoke:
             self.fail(f"the films differ at {int((a != b).any(axis=-1).sum())} pixels")
         log(f"films equal bit for bit, mean {float(a.mean()):.6f}")
 
+    # ---- phase 35: the benchmark programs ------------------------------------------------
+
+    def _program(self, what, args):
+        """`python -m <args>` from the checkout's root -> (seconds, the JSON
+        objects of its standard output); its error output is logged when it
+        fails."""
+        import os
+
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              timeout=BENCH_TIMEOUT_S)
+        seconds = time.time() - t0
+        if proc.returncode != 0:
+            for line in (proc.stdout + proc.stderr).splitlines()[-40:]:
+                log(f"  {what}: {line}")
+            self.fail(f"{what} exited with {proc.returncode} after {seconds:.1f} s")
+        return seconds, [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+
+    def _suite_counts(self, rec):
+        """The launches of a suite config's timed render: per pixel chunk
+        the fold and bounce structure of phase 4 (one tile: K1-K4) or of the
+        grid form (K9-K11 and K4, or K8 above 16 alias entries); without
+        NEE the nearest scan each bounce and the shade kernel."""
+        from rustic_tpu_torch.bench_suite import CONFIGS
+        from rustic_tpu_torch.config import RenderSettings, TracingConfig
+        from rustic_tpu_torch.ops.nee import ENTRY_SELECT_MAX
+        from rustic_tpu_torch.runtime.pipeline import pick_sample_fold
+
+        w, h = (int(v) for v in rec["size"].split("x"))
+        spp, nb = rec["spp"], TracingConfig.max_bounces
+        chunk = min(RenderSettings.batch_pixels, w * h)
+        nee = CONFIGS[rec["config"]]["nee"] != "off" and rec["has_lights"]
+        scans = SINGLE_TILE_NAMES[:3] if rec["tiles"] == 1 else SCAN_KERNELS["grid"]
+        wide = nee and rec["alias_entries"] > ENTRY_SELECT_MAX
+        shade = "shade_bounce_wide" if wide else "shade_bounce"
+        if nee:
+            per_chunk = fold_counts((*scans, shade), chunk, spp, nb)
+        else:
+            groups = -(-spp // pick_sample_fold(chunk, spp))
+            per_chunk = {scans[0]: nb * groups, shade: nb * groups}
+        return {k: n * -(-(w * h) // chunk) for k, n in per_chunk.items()}
+
+    def bench(self):
+        """The headline benchmark through the CLI (`python -m
+        rustic_tpu_torch.cli bench`: DarkCornell 1280x720x160 spp, the
+        furnace probe, PBRTest) and the BASELINE suite at --scale 64, each
+        in a process of its own; their JSON lines gated, their launch
+        counts checked against each render's fold and bounce structure; the
+        JAX package's bench_last.json and bench_history.jsonl untouched."""
+        import hashlib
+        import math
+        import os
+
+        from rustic_tpu_torch.config import TracingConfig
+
+        root = os.path.dirname(os.path.abspath(__file__))
+
+        def digests():
+            out = {}
+            for name in ("bench_last.json", "bench_history.jsonl"):
+                path = os.path.join(root, name)
+                with open(path, "rb") as f:
+                    out[name] = hashlib.sha256(f.read()).hexdigest()
+            return out
+
+        jax_records = digests()
+        self.torch.cuda.empty_cache()
+        seconds, lines = self._program("bench", ["rustic_tpu_torch.cli", "bench"])
+        if len(lines) != 1:
+            self.fail(f"bench printed {len(lines)} JSON lines, not 1")
+        r = lines[0]
+        log(json.dumps(r))
+        value = r["value"]
+        if not (isinstance(value, float) and math.isfinite(value) and value > 0.0):
+            self.fail(f"bench value {value!r} is not a finite positive number")
+        if not abs(r["film_mean"] / FILM_MEAN_REF - 1.0) <= 0.02:
+            self.fail(f"bench film mean {r['film_mean']} is not within 2% of {FILM_MEAN_REF}")
+        if r["furnace_ok"] is not True:
+            self.fail(f"bench furnace probe {r['furnace_value']} is not within 0.02 of 0.8")
+        pbr = r["pbr_multitile_mpaths"]
+        if not isinstance(pbr, float) or not math.isfinite(pbr):
+            self.fail(f"bench PBRTest rate {pbr!r} is not a number ({r['pbr_skipped']})")
+        self._check_counts("bench", r["launches"], fold_counts(
+            SINGLE_TILE_NAMES, WIDTH * HEIGHT, SPP, TracingConfig.max_bounces))
+        phase4 = getattr(self, "render_mpaths", None)
+        beside = (f"phase 4 {phase4:.2f} Mpaths/s, bench {(value / phase4 - 1) * 100:+.2f}% of it"
+                  if phase4 else "phase 4 not run")
+        log(f"bench: {value:.2f} Mpaths/s (renders {r['render_s_all']} s), {beside}; startup "
+            f"{r['startup_s']:.3f} s (scene {r['scene_build_s']:.3f} + warm-up "
+            f"{r['compile_s']:.3f}; reference {STARTUP_REF_S} s), {r['compile_regime']} "
+            f"({r['cache_entries_added']} libraries built), furnace {r['furnace_value']:.6f}, "
+            f"PBRTest 256x144x8 {pbr:.2f} Mpaths/s, process {seconds:.1f} s ({self.card})")
+        with open(os.path.join(root, "build", "bench_torch_last.json")) as f:
+            last = json.load(f)
+        if last["value"] != value or last["card"] != self.card:
+            self.fail(f"build/bench_torch_last.json holds {last['value']} on {last['card']}")
+
+        seconds, lines = self._program("bench_suite", [
+            "rustic_tpu_torch.bench_suite", "--scale", str(BENCH_SUITE_SCALE),
+            "--configs", "1,2,3,4,5"])
+        records = [x for x in lines if "config" in x]
+        if [x["config"] for x in records] != [1, 2, 3, 4, 5]:
+            self.fail(f"bench_suite reported configs {[x['config'] for x in records]}")
+        for rec in records:
+            what = f"suite config {rec['config']} ({rec['scene']})"
+            if "error" in rec:
+                self.fail(f"{what}: {rec['error']}")
+            if not math.isfinite(rec["film_mean"]):
+                self.fail(f"{what}: film mean {rec['film_mean']}")
+            self._check_counts(what, rec["launches"], self._suite_counts(rec))
+            log(f"{what} {rec['size']}x{rec['spp']} spp: {rec['mpaths_per_s']:.2f} Mpaths/s "
+                f"({rec['wall_s']:.3f} s), startup {rec['startup_s']:.2f} s, warm-up "
+                f"{rec['warmup_s']:.2f} s, film mean {rec['film_mean']:.6f}, {rec['tiles']} tiles, "
+                f"{rec['alias_entries']} alias entries, launches {rec['launches']} ({self.card})")
+        log(f"bench_suite --scale {BENCH_SUITE_SCALE}: process {seconds:.1f} s")
+        if digests() != jax_records:
+            self.fail("bench_last.json or bench_history.jsonl changed")
+
     # ---- phases ----------------------------------------------------------------------------
 
     def run(self, only=()) -> int:
@@ -3965,6 +4106,7 @@ class Smoke:
             ("product", self.product),
             ("sharded", self.sharded),
             ("formats", self.formats),
+            ("bench", self.bench),
         ]
         if only:
             unknown = set(only) - {name for name, _ in phases}

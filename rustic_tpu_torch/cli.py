@@ -9,9 +9,10 @@ Subcommands: `render` (one-shot; `--progressive` republishes the frame
 every sync-rate samples; `--checkpoint` saves the film and resumes from
 it when the file exists; `--interactive` opens the viewer; `--sharded`
 splits the frame over the ranks torchrun starts, one card a rank, and
-is a world of one without torchrun), `info` and `compare`. Renders run
-on the card. `main(argv, device=...)` takes another render device from
-a Python caller; the command line has no such flag.
+is a world of one without torchrun), `info`, `compare` and `bench` (the
+headline benchmark, rustic_tpu_torch/bench.py, on the card only).
+Renders run on the card. `main(argv, device=...)` takes another render
+device from a Python caller; the command line has no such flag.
 
   torchrun --nproc-per-node 8 -m rustic_tpu_torch.cli render \
       assets/scenes/DarkCornell.glb --sharded --spp 160 --nee mis
@@ -105,6 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     i = sub.add_parser("info", help="print scene statistics")
     i.add_argument("scene")
+
+    b = sub.add_parser("bench", help="run the headline benchmark (rustic_tpu_torch/bench.py)")
+    b.add_argument("--spp", type=int, default=160)
     return p
 
 
@@ -328,6 +332,10 @@ def main(argv=None, device="cuda") -> int:
         return cmd_render(args, device)
     if args.command == "info":
         return cmd_info(args)
+    if args.command == "bench":
+        from rustic_tpu_torch import bench
+
+        return bench.main(["--spp", str(args.spp)])
     return cmd_compare(args, device)
 
 

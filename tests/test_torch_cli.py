@@ -201,11 +201,12 @@ def test_cli_zero_sun_rejected():
 @pytest.mark.parametrize("argv", [
     ["render", "x.glb", "--dot", "f32"],
     ["render", "x.glb", "--device", "cpu"],
-    ["bench"],
+    ["bench", "--device", "cpu"],
 ])
 def test_cli_has_no_tpu_flags(argv):
-    """The MXU precision plan, a device flag and the JAX benchmark are not
-    the port's: the parser refuses them."""
+    """The MXU precision plan and a device flag are not the port's: the
+    parser refuses them, on `render` and on `bench` (which runs on the card
+    only; tests/test_torch_bench.py drives it)."""
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(argv)
 
