@@ -37,7 +37,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which must pass (the first that fails ends the run):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; the kernel sources of rustic_tpu_torch/csrc built by nvcc,
-     one process per source, all started together.
+     one process per source, and the BVH builder (csrc/bvh_build.cpp) by
+     g++, all started together.
   2. check: each kernel against its plain PyTorch version on the card, on
      real DarkCornell lanes of the main path, at the main path's shape
      (3,686,400 lanes) and on its first 65,536 lanes (K1-K3 also at
@@ -230,20 +231,26 @@ Phases, each of which must pass (the first that fails ends the run):
      other scan forms (launch counts).
  29. films: DarkCornell (2048 spp), GlassTest and FurnaceTest (NEE off,
      1024 spp) 256x144 against assets/reference as phase 12, through the
-     default loop and (the multi-tile two) the state-sorted driver.
+     default loop and (the multi-tile two) the state-sorted driver; the
+     default loop's GlassTest film also under the quality gate's RMSE <
+     1e-3 (its row in rustic_tpu_torch/quality_gate.py, at GLASS_CAM).
  30. probe-check: K18 (FP32 FMAs; TF32, BF16 and int8 tensor cores through
-     mma.sync; BF16 through wgmma) and K19 (the six-term split dot at K =
-     96, F pre-split or split in the kernel, and the three-term dot at K =
-     48, through mma.sync and through wgmma) against their plain
-     versions at B = 1,048,576 and 65,613 rays, N = 1024, reps = 8: int8
-     equal; the others within rtol 1e-5, atol 1e-5 on the same operands (TF32 and
-     BF16 operands rounded to the type beforehand; the plain versions
-     multiply in full f32, allow_tf32 off); K19 also within 1e-5 x
-     sum_k |F_k| max_n |G_kn| of the float64 dot. Each timed beside its
-     plain version and a torch.matmul + amin of the operand type, and
-     bound by its unit's peak. Then the probes' program
-     (probe_dot_floor.main: the case sweep and the accuracy table), with
-     the launch counts read after it.
+     mma.sync; BF16 and TF32 through wgmma) and K19 (the six-term split
+     dot at K = 96, F pre-split or split in the kernel, and the three-term
+     dot at K = 48, through mma.sync and through wgmma) against their
+     plain versions at B = 1,048,576 and 65,613 rays, N = 1024, reps = 8:
+     int8 equal; the others within rtol 1e-5, atol 1e-5 on the same
+     operands (TF32 and BF16 operands rounded to the type beforehand; the
+     plain versions multiply in full f32, allow_tf32 off); K19 also within
+     1e-5 x sum_k |F_k| max_n |G_kn| of the float64 dot; K19's wgmma
+     form equal to its mma.sync form bit for bit, and K18 tf32w equal to
+     K18 tf32. Each timed beside its plain version and the library call of
+     the same function, chunked + amin (torch.mm in f32, with allow_tf32
+     for TF32; for BF16 with f32 out, aten::mm.dtype, beside bf16 out;
+     torch._int_mm; K19 the f32-out product of the cat6 blocks), and bound
+     by its unit's peak, the fold's minima at the FP32 rate beside it.
+     Then the probes' program (probe_dot_floor.main: the case sweep and
+     the accuracy table), with the launch counts read after it.
  31. bvh: the "bvh" engine's traversal, K20n (nearest) and K20a (any hit),
      one thread a ray (csrc/bvh_traverse.cu). The bounce-1 operands of one
      fold group of VeachMIS, BreakTime (its first pixel chunk) and PBRTest
@@ -348,6 +355,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -391,13 +399,17 @@ SCAN_KERNELS = {
     "resident": ("nearest_resident", "nearest_shadow_resident", "occlude_resident"),
 }
 # the reference films phase 29 holds (tests/test_reference_films.py CASES):
-# (name, scene, film, spp, NEE+MIS, camera); FurnaceTest's is NEE off
+# (name, scene, film, spp, NEE+MIS, camera, the quality gate's RMSE target for
+# the default loop's film or None); FurnaceTest's is NEE off. GlassTest's
+# target is its row of rustic_tpu_torch/quality_gate.py (FILM_CASES, RMSE <
+# 1e-3 at GLASS_CAM, the gate's camera).
 FILM_CASES = [
     ("DarkCornell", "assets/scenes/DarkCornell.glb",
-     "assets/reference/darkcornell_256x144_2048spp.npy", 2048, True, {}),
+     "assets/reference/darkcornell_256x144_2048spp.npy", 2048, True, {}, None),
     ("GlassTest", "assets/scenes/GlassTest.glb", "assets/reference/glasstest_256x144_1024spp.npy",
-     1024, True, GLASS_CAM),
-    ("FurnaceTest", FURNACE, "assets/reference/furnacetest_256x144_1024spp.npy", 1024, False, {}),
+     1024, True, GLASS_CAM, 1e-3),
+    ("FurnaceTest", FURNACE, "assets/reference/furnacetest_256x144_1024spp.npy", 1024, False, {},
+     None),
 ]
 
 # the full-pipeline configuration (BASELINE.md config 5, spp cut to 32)
@@ -416,7 +428,8 @@ ONE_TILE_SPP = 16
 # published peaks of one H100 SXM (NVIDIA H100 datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-TENSOR_OP_PER_S = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12}
+TENSOR_OP_PER_S = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12,
+                   "tf32w": 495e12}
 # FP32 operations of one (ray, triangle) pair test (csrc/flash_common.cuh
 # pair_accumulate, pair_epilogue): 4 multiplies and 36 FMAs (2 each) for
 # the four numerators, one division, three multiplies and the u + v add
@@ -504,11 +517,11 @@ KERNELS = {
         name="fused_bounce", source="rustic_tpu_torch/csrc/fused_bounce.cu",
         replaces="archive/fused_bounce/fused_bounce.py:376",
     ),
-    # K18 by the unit its dot runs on ("bf16w": BF16 through wgmma)
+    # K18 by the unit its dot runs on ("bf16w", "tf32w": BF16, TF32 through wgmma)
     **{f"K18 {v}": dict(
         name=f"dot_min_{v}", source="rustic_tpu_torch/csrc/probe_dot.cu",
         replaces="tools/mxu_floor.py:38",
-    ) for v in ("fp32", "tf32", "bf16", "int8", "bf16w")},
+    ) for v in ("fp32", "tf32", "bf16", "int8", "bf16w", "tf32w")},
     "K19": dict(
         name="dot_min_split", source="rustic_tpu_torch/csrc/probe_dot.cu",
         replaces="tools/probe_k96.py:79",
@@ -553,6 +566,20 @@ def bound(n_bytes, flops, peak=FP32_FLOP_PER_S):
     operations per second of the unit the work runs on."""
     ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     ms_ops = flops / peak * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def dot_bound(n_bytes, outputs, k, unit):
+    """Bound of a dot probe (K18, K19): its bytes, its `outputs` x `k` MACs
+    on `unit` and the fold's minima, one an output, at the FP32 pipe's rate:
+    on the FP32 pipe beside the FMAs ("fp32"), else beside the tensor cores
+    (another unit: the larger of the two times)."""
+    ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    ms_fold = outputs / FP32_FLOP_PER_S * 1e3
+    if unit == "fp32":
+        ms_ops = 2 * outputs * k / FP32_FLOP_PER_S * 1e3 + ms_fold
+    else:
+        ms_ops = max(2 * outputs * k / TENSOR_OP_PER_S[unit] * 1e3, ms_fold)
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
 
 
@@ -821,8 +848,10 @@ class Smoke:
 
         t0 = time.time()
         names = sorted({k["source"].rsplit("/", 1)[1][: -len(".cu")] for k in KERNELS.values()})
-        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per source, and g++
+            bvh = pool.submit(_build.compile_host, os.path.join(_build.CSRC, "bvh_build.cpp"))
             paths = dict(zip(names, pool.map(_build.build, names)))
+            log(f"the BVH builder (g++ {' '.join(_build.HOST_FLAGS)}): {bvh.result()}")
         for name, path in paths.items():
             with open(path[: -len(".so")] + ".log") as f:
                 for line in f:
@@ -2717,10 +2746,11 @@ class Smoke:
         if counts != expect:
             self.fail(f"{what}: launch counts {counts} != expected {expect}")
 
-    def _film_gate(self, what, scene, config, ref, settings, note=""):
+    def _film_gate(self, what, scene, config, ref, settings, note="", max_rmse=None):
         """Render `config`'s frame at the reference's size and hold it to
         the reference film: relative energy within 1%, RMSE under the bound
-        of tests/test_reference_films.py:84; the launch counts checked."""
+        of tests/test_reference_films.py:84 (and under `max_rmse`, the
+        quality gate's target, where given); the launch counts checked."""
         import numpy as np
 
         bound = 0.35 * max(float(ref.mean()), 0.05) + 0.05  # tests/test_reference_films.py:84
@@ -2739,6 +2769,11 @@ class Smoke:
             self.fail(f"{what}: relative energy {rel_energy} is not within 1%")
         if rmse >= bound:
             self.fail(f"{what}: RMSE {rmse} is not under {bound}")
+        if max_rmse is not None:
+            log(f"{what} RMSE {rmse:.6g} against the quality gate's target {max_rmse:g} "
+                f"({self.card})")
+            if rmse >= max_rmse:
+                self.fail(f"{what}: RMSE {rmse} is not under the quality gate's {max_rmse}")
 
     # ---- phases 27-29: the other scenes, the sort modes, the reference films --------
 
@@ -2993,7 +3028,7 @@ class Smoke:
         from rustic_tpu_torch.ops import flash_intersect as FI
         from rustic_tpu_torch.scene.world import World
 
-        for name, path, ref_file, spp, mis, cam in FILM_CASES:
+        for name, path, ref_file, spp, mis, cam, max_rmse in FILM_CASES:
             ref = np.load(ref_file)
             scene = World.from_path(path).to_torch(self.dev)
             nee = NextEventEstimation.MIS if mis else NextEventEstimation.NONE
@@ -3003,7 +3038,8 @@ class Smoke:
                 loops.append("state-sorted")
             for loop in loops:
                 self._film_gate(f"{name}, {loop} loop,", scene, config, ref,
-                                RenderSettings(samples=spp, multitile_loop=loop))
+                                RenderSettings(samples=spp, multitile_loop=loop),
+                                max_rmse=max_rmse if loop == "kernel-shade" else None)
 
     def probe_check(self):
         import torch
@@ -3027,10 +3063,44 @@ class Smoke:
                           f"atol 1e-5 (max |d| {err:.3g})")
             return err
 
-        def library(f, g):
-            """One matmul and one amin in the operands' type, a chunk of rays at a time."""
+        def same_bits(key, got, other, what):
+            if not torch.equal(got.view(torch.int32), other.view(torch.int32)):
+                diff = int((got.view(torch.int32) != other.view(torch.int32)).sum())
+                self.fail(f"{key} {what}: {diff} rays differ")
+            log(f"{key} {what}: equal bit for bit")
+
+        def chunked(mm, f, g):
+            """One product and one amin a chunk of rays."""
             for lo in range(0, f.shape[1], 1 << 15):
-                (f[:, lo : lo + (1 << 15)].T @ g).amin(dim=1)
+                mm(f[:, lo : lo + (1 << 15)].T, g).amin(dim=1)
+
+        def library(key, what, mms, f, g, tf32=False):
+            """Median time (ms) of the first of `mms` (products) this build of
+            torch runs on these operands, as `chunked`; None if it runs none."""
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                for mm in mms:
+                    try:
+                        chunked(mm, f[:, : 1 << 15], g)
+                    except (RuntimeError, TypeError) as e:
+                        log(f"{key}: {what} refused in torch {torch.__version__}: "
+                            f"{str(e).splitlines()[0][:160]}")
+                        continue
+                    ms = statistics.median(self.time_ms(lambda: chunked(mm, f, g), reps=5))
+                    log(f"{key}: {what} + amin {ms:.3f} ms ({self.card})")
+                    return ms
+                return None
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+
+        def mm_f32_out(a, b):  # aten::mm.dtype: bf16 operands, f32 products
+            return torch.mm(a, b, out_dtype=torch.float32)
+
+        def int_mm(a, b):
+            return torch._int_mm(a.contiguous(), b)
+
+        def int_mm_cols(a, b):  # mat2 column-major, where the build wants it so
+            return torch._int_mm(a.contiguous(), b.T.contiguous().T)
 
         for b in (CHECK_LANES + RAGGED, PF.RAYS):
             f32, g32 = PF.operands("fp32", k, b, n * reps, self.dev)
@@ -3041,35 +3111,39 @@ class Smoke:
                 "bf16": (f32.to(torch.bfloat16), g32.to(torch.bfloat16)),
                 "int8": (f8, g8),
             }
-            operands["bf16w"] = operands["bf16"]
+            operands["bf16w"], operands["tf32w"] = operands["bf16"], operands["tf32"]
+            outs = {}
             for v, (f, g) in operands.items():
                 key = f"K18 {v}"
-                for acc_min in (True, False) if v != "bf16w" else (True,):
-                    e = close(key, PD.dot_min(f, g, n, reps, v, acc_min=acc_min),
-                              PD.dot_min_plain(f, g, n, reps, v, acc_min=acc_min),
+                for acc_min in (True, False) if v not in PD.WGMMA else (True,):
+                    got = PD.dot_min(f, g, n, reps, v, acc_min=acc_min)
+                    e = close(key, got, PD.dot_min_plain(f, g, n, reps, v, acc_min=acc_min),
                               f"B={b} acc_min={acc_min}")
                     if acc_min:
-                        err = e
+                        err, outs[v] = e, got
                 log(f"{key} B={b}: within rtol 1e-5 of its plain version (equal for int8), "
                     f"max |d| {err:.3g}")
+                if v == "tf32w":  # the same rounded operands through mma.sync
+                    same_bits(key, outs[v], outs["tf32"], f"B={b} against K18 tf32 (mma.sync)")
                 if b != PF.RAYS:
                     continue
                 self.results[key]["max_abs_err"] = err
                 self.time_pair(key, lambda: PD.dot_min(f, g, n, reps, v),
                                lambda: PD.dot_min_plain(f, g, n, reps, v), b, reps=5)
-                if v != "int8":  # torch has no public int8 product on the card
-                    torch.backends.cuda.matmul.allow_tf32 = v == "tf32"
-                    try:
-                        lib = self.time_ms(lambda: library(f, g), reps=5)
-                    finally:
-                        torch.backends.cuda.matmul.allow_tf32 = False
-                    self.results[key]["library_ms"] = sorted(lib)[len(lib) // 2]
-                    log(f"{key}: torch.matmul + amin in {f.dtype}"
-                        f"{' with allow_tf32' if v == 'tf32' else ''} "
-                        f"{self.results[key]['library_ms']:.3f} ms")
+                if v == "int8":
+                    lib = library(key, "torch._int_mm", (int_mm, int_mm_cols), f, g)
+                elif v in ("bf16", "bf16w"):
+                    lib = library(key, "torch.mm in bf16, f32 out (aten::mm.dtype)",
+                                  (mm_f32_out,), f, g)
+                    bf16_out = library(key, "torch.mm in bf16, bf16 out", (torch.mm,), f, g)
+                    lib = bf16_out if lib is None else lib
+                else:
+                    what = f"torch.mm in f32{' with allow_tf32' if 'tf32' in v else ''}"
+                    lib = library(key, what, (torch.mm,), f, g, tf32="tf32" in v)
+                self.results[key]["library_ms"] = lib
                 n_bytes = f.numel() * f.element_size() + g.numel() * g.element_size() + 4 * b
-                peak = FP32_FLOP_PER_S if v == "fp32" else TENSOR_OP_PER_S[v]
-                self.set_bound(key, bound(n_bytes, 2 * b * n * reps * k, peak))
+                self.set_bound(key, dot_bound(n_bytes, b * n * reps, k, v))
+            del outs
 
             # K19: the split dots against their plain versions and float64
             g96, f96 = PD.cat6_g(g32), PD.cat6_f(f32)
@@ -3087,23 +3161,31 @@ class Smoke:
                 "in-kernel split K=96": (f32, g96, ref),
                 "pre-split K=48": (f96[:48].contiguous(), g96[:48].contiguous(), ref48),
             }
-            for (what, (f, g, r64)), (key, v) in itertools.product(
-                    cases.items(), (("K19", "bf16"), ("K19 bf16w", "bf16w"))):
-                got = PD.dot_min_split(f, g, n, reps, variant=v)
-                plain = PD.dot_min_split_plain(f, g, n, reps)
-                e = close(key, got, plain, f"{what} B={b}")
-                rel = float(((got.double() - r64).abs() / scale).max())
-                log(f"{key} {what} B={b}: within rtol 1e-5 of its plain version (max |d| {e:.3g}); "
-                    f"|d| against float64 at most {rel:.3g} x sum_k |F_k| max_n |G_kn|")
-                if rel > 1e-5:
-                    self.fail(f"{key} {what}: {rel:.3g} x the term scale from the float64 dot")
-                if b == PF.RAYS and what == "in-kernel split K=96":
-                    self.results[key]["max_abs_err"] = e
-                    self.time_pair(key, lambda: PD.dot_min_split(f, g, n, reps, variant=v),
-                                   lambda: PD.dot_min_split_plain(f, g, n, reps), b, reps=5)
-                    n_bytes = f.numel() * 4 + g.numel() * 2 + 4 * b
-                    self.set_bound(key, bound(n_bytes, 2 * b * n * reps * 6 * k,
-                                              TENSOR_OP_PER_S["bf16"]))
+            for what, (f, g, r64) in cases.items():
+                split = {}
+                for key, v in (("K19", "bf16"), ("K19 bf16w", "bf16w")):
+                    got = split[v] = PD.dot_min_split(f, g, n, reps, variant=v)
+                    plain = PD.dot_min_split_plain(f, g, n, reps)
+                    e = close(key, got, plain, f"{what} B={b}")
+                    rel = float(((got.double() - r64).abs() / scale).max())
+                    log(f"{key} {what} B={b}: within rtol 1e-5 of its plain version (max |d| "
+                        f"{e:.3g}); |d| against float64 at most {rel:.3g} x sum_k |F_k| max_n "
+                        f"|G_kn|")
+                    if rel > 1e-5:
+                        self.fail(f"{key} {what}: {rel:.3g} x the term scale from the float64 dot")
+                    if b == PF.RAYS and what == "in-kernel split K=96":
+                        self.results[key]["max_abs_err"] = e
+                        self.time_pair(key, lambda: PD.dot_min_split(f, g, n, reps, variant=v),
+                                       lambda: PD.dot_min_split_plain(f, g, n, reps), b, reps=5)
+                        # the same function in one library call: the blocks of cat6_f and
+                        # cat6_g, f32 products (the kernel splits F itself)
+                        self.results[key]["library_ms"] = library(
+                            key, "torch.mm of the [96, B] and [96, N] blocks, f32 out "
+                            "(aten::mm.dtype)", (mm_f32_out,), f96, g)
+                        n_bytes = f.numel() * 4 + g.numel() * 2 + 4 * b
+                        self.set_bound(key, dot_bound(n_bytes, b * n * reps, 6 * k, "bf16"))
+                same_bits("K19 bf16w", split["bf16w"], split["bf16"],
+                          f"{what} B={b} against K19 (mma.sync)")
             del operands, cases, f32, g32, f8, g8, g96, f96, ref, ref48, ha, scale
             torch.cuda.empty_cache()
 

@@ -13,8 +13,8 @@
 // same. This is the shape of the flash scans' pair test (rays against
 // triangle columns, reduced per ray) without its epilogue, so its rate says
 // how fast that dot can go on each arithmetic unit of the card:
-//   variant 0  FP32 FMAs, one thread a ray, G staged in shared memory and
-//              read as broadcast float4: what kernels K1-K17 do;
+//   variant 0  FP32 FMAs, a few rays a thread, G staged in shared memory
+//              and read as broadcast float4: what kernels K1-K17 do;
 //   variant 1  TF32 tensor cores, mma.sync m16n8k8, FP32 accumulate;
 //   variant 2  BF16 tensor cores, mma.sync m16n8k16, FP32 accumulate
 //              (K = 8 is padded with zeros to 16);
@@ -23,7 +23,10 @@
 //   variant 4  BF16 tensor cores, wgmma.mma_async m64n128k16 (the warpgroup
 //              instruction, Hopper's way to the full tensor-core rate), FP32
 //              accumulate, the rays' operand in registers, G's in shared
-//              memory; acc_min only.
+//              memory fed by bulk copies; acc_min only;
+//   variant 5  TF32 tensor cores, wgmma.mma_async m64n128k8, as variant 4.
+// (int8 has no wgmma form here: wgmma's int8 K step is 32, so at K = 16
+// half its work would be zeros.)
 // K19 emulates an f32 dot of depth 16 as one BF16 pass of depth 96: each
 // f32 value a is split into bf16 hi = bf16(a), mid = bf16(a - hi), lo =
 // bf16(a - hi - mid); G arrives split, its blocks [hb mb lb hb mb hb] along
@@ -34,19 +37,22 @@
 // What bounds them: operations. At B = 2^20, N = 1024, reps = 8 and K = 16
 // there are 2^33 outputs and 137 GMAC: 4.10 ms at 67 TFLOP/s FP32, 0.56 ms
 // at 495 TF32, 0.28 ms at 989 BF16 (K = 96: 1.67 ms), 0.14 ms at 1,979
-// int8; the bytes (64 MB of F) are negligible.
+// int8; the bytes (64 MB of F) are negligible. Beside them the fold: one
+// FP32 min an output, 2^33 of them, 0.13 ms at 67 T operations/s, on the
+// FP32 pipe beside the tensor cores (on the same pipe as the FMAs).
 //
-// Design: a block takes M rays (the TPU kernels' ray block) and walks the
-// reps slices of G, each staged into shared memory in chunks of at most 256
-// columns, packed along K as the mma's B fragment wants it (rows of 2 bf16,
-// 1 tf32 or 4 int8 values, row stride = chunk + 8 words so the fragment
-// loads hit 32 banks). A warp owns 64 rays (32 at K > 48) whose A fragments
-// stay in registers for the whole launch; per 8 columns it loads the B
-// fragments once, issues one mma per 16 rays and K step, and folds the
-// accumulator fragment into a running min in registers: no [B, N] product
-// exists anywhere. The four lanes that share a ray reduce at the end. The
-// TPU kernels' M up to 4096 has no counterpart: a block has at most 1024
-// rays here (512 at K > 48), since the rays' fragments live in registers.
+// Design of the mma.sync variants: a block takes M rays (the TPU kernels'
+// ray block) and walks the reps slices of G, each staged into shared memory
+// in chunks of at most 256 columns, packed along K as the mma's B fragment
+// wants it (rows of 2 bf16, 1 tf32 or 4 int8 values, row stride = chunk + 8
+// words so the fragment loads hit 32 banks). A warp owns 64 rays (32 at K >
+// 48) whose A fragments stay in registers for the whole launch; per 8
+// columns it loads the B fragments once, issues one mma per 16 rays and K
+// step, and folds the accumulator fragment into a running min in registers:
+// no [B, N] product exists anywhere. The four lanes that share a ray reduce
+// at the end. The TPU kernels' M up to 4096 has no counterpart: a block has
+// at most 1024 rays here (512 at K > 48), since the rays' fragments live in
+// registers. The wgmma and FP32 variants' designs stand above their kernels.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -268,205 +274,456 @@ mma_dot_min(const void* __restrict__ Fv, const typename T::elem* __restrict__ G,
   }
 }
 
-// ---- variant 4: BF16 tensor cores through wgmma ---------------------------
+// ---- variants 4 and 5: BF16 and TF32 tensor cores through wgmma ------------
 //
 // A warpgroup (four warps) owns 64 * MT rays, their A fragments in registers
-// (wgmma's register operand has mma.sync's layout, 16 rays a warp). G is
-// read K-major without swizzle, as wgmma's shared-memory operand wants it:
-// core matrices of 8 columns x 8 K values (128 contiguous bytes, a column's
-// 8 values together), the two (or more) along K 128 bytes apart (the
-// descriptor's leading byte offset), 8-column groups KS * 256 bytes apart
-// (its stride byte offset). A first launch (pack_g) writes the whole of G
-// in that order to a scratch buffer, so that a block stages a chunk of
-// columns as one contiguous copy of 16 bytes a thread instead of packing
-// it again for every 64 * MT rays. One wgmma.mma_async m64n128k16 per K
-// step accumulates a 64 x 128 block of products in 64 registers a thread;
-// after the group is waited for, the min runs over them as in the mma.sync
-// kernel (d[4j], d[4j+1]: ray gid; d[4j+2], d[4j+3]: ray gid + 8).
+// (wgmma's register operand has mma.sync's layout, 16 rays a warp), and
+// runs one wgmma.mma_async m64n128k16 (BF16) or m64n128k8 (TF32) per K step
+// on a 64 x 128 tile of products, 64 FP32 registers a thread (d[4j],
+// d[4j+1]: ray gid; d[4j+2], d[4j+3]: ray gid + 8), then folds the tile
+// into the running min.
+//
+// The first form (PR 6) reached 45% of the bound at K = 96: all threads of
+// the block copied each chunk of G between two block barriers, and the
+// tensor cores waited for the copy and for each tile's fold (wait_group 0
+// after every tile). This form keeps them fed:
+//  - a producer warpgroup, one lane of it, keeps a ring of stages of G in
+//    flight, one 1-D bulk copy (cp.async.bulk, the TMA's raw-bytes form) a
+//    stage of 128 columns (a block), each signalled on an mbarrier
+//    ("full"); the consumer warps hand a stage back on another ("empty")
+//    once the wgmmas that read it are complete. It gives most of its registers to the
+//    consumers (setmaxnreg);
+//  - two accumulator sets a consumer warpgroup: it issues the wgmmas of its
+//    next tile into one set, waits for the tile before (wait_group 1) and
+//    folds that one's min out of the other set, as a tree of FMNMX, while
+//    the tensor cores run. Up to three K steps (BF16 K <= 48, TF32 K <= 24)
+//    the fold, 2^33 FMNMX at B = 2^20, weighs as much as the MMAs: there
+//    four warpgroups of one set each wait for every tile, and a stage is
+//    four blocks of 128 columns;
+//  - one block an SM, persistent over the ray tiles, so that the ring runs
+//    on from one tile to the next;
+//  - a first launch (pack_g) writes G as a stage is read: K-major, each
+//    column's KS * 32 bytes cut into swizzled regions of 128, 64 and 32
+//    bytes from the front (BF16 K = 96: 128 + 64; K = 16: 32; TF32 K = 32:
+//    128), the 16-byte chunks of a region's rows permuted as the
+//    descriptor's swizzle mode reads them, so the bulk copy moves the
+//    bytes as they are.
+// The work per output is the first form's: the same K steps in the same
+// order on the same fragments, so the outputs are the same bits. What
+// kept the compiler from serializing the wgmmas (ptxas C7512, C7518): the
+// warp index made warp-uniform by a shuffle, the mbarrier wait loop inside
+// one asm statement, and every register array indexed by constants.
 
-constexpr int WG_THREADS = 256;  // most threads of a wgmma block: two warpgroups
+constexpr int WG_COLS = 128;              // columns of a tile and of a block of G
+constexpr int WG_RING_BYTES = 96 * 1024;  // shared memory of the ring
 
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
-                                              uint32_t sbo_bytes) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
-         ((uint64_t)(sbo_bytes >> 4) << 32);  // layout type 0: no swizzle
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// d (+)= A (registers) x B (shared memory, K-major); scale_d 0 overwrites d
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t desc_b, int scale_d) {
+// The swizzled regions of a column's kb bytes: widths 128, 64, 32 from the front.
+__host__ __device__ constexpr int region_width(int kb, int at) {
+  return kb - at >= 128 ? 128 : kb - at >= 64 ? 64 : 32;
+}
+__host__ __device__ constexpr int region_start(int kb, int byte) {
+  int at = 0;
+  while (at + region_width(kb, at) <= byte) at += region_width(kb, at);
+  return at;
+}
+// Offset in a block of WG_COLS columns of byte `byte` of column c: a region
+// of width w holds its WG_COLS rows of w bytes, 16-byte chunk x of row c at
+// x ^ (c's row bits), the swizzle of w bytes on a 1024-aligned block.
+__host__ __device__ constexpr uint32_t block_offset(int kb, int c, int byte) {
+  const int at = region_start(kb, byte), w = region_width(kb, at);
+  const uint32_t off = (uint32_t)(WG_COLS * at + c * w + (byte - at));
+  return off ^ (((off >> 7) & (uint32_t)(w / 16 - 1)) << 4);
+}
+__host__ __device__ constexpr int wg_ring(int stage_bytes) {
+  return WG_RING_BYTES / stage_bytes > 8 ? 8 : WG_RING_BYTES / stage_bytes < 2 ? 2
+                                                : WG_RING_BYTES / stage_bytes;
+}
+
+// The descriptor of K step ks (32 bytes of each column) of the block at shared
+// address sb: K-major, leading offset unused (1), stride 8 rows of the region.
+template <int KB>
+__device__ __forceinline__ uint64_t block_desc(uint32_t sb, int ks) {
+  const int at = region_start(KB, ks * 32), w = region_width(KB, at);
+  const uint32_t addr = sb + WG_COLS * at + (ks * 32 - at);
+  const uint64_t mode = w == 128 ? 1 : w == 64 ? 2 : 3;  // swizzle of 128, 64, 32 bytes
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         ((uint64_t)((8 * w) >> 4) << 32) | (mode << 62);
+}
+
+#define WG_D64                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "      \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "     \
+  "{%64, %65, %66, %67}, %68, p"
+#define WG_OUT64                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),              \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),           \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),           \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),           \
+  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),           \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),           \
+  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),           \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),           \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),           \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A (registers) x B (shared memory, K-major); scale_d 0 overwrites d.
+// One K step: m64n128k16 for BF16, m64n128k8 for TF32 (which has no
+// transpose argument: its operands are K-major only).
+template <class T>
+__device__ __forceinline__ void wgmma_step(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  if constexpr (T::PACK == 2) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64 ", 1, 1, 0;\n}\n"
+                 : WG_OUT64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+                 : "memory");
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D64 ", 1, 1;\n}\n"
+                 : WG_OUT64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+                 : "memory");
+  }
+}
+
+// Orders a register's reads and writes against the asynchronous wgmmas
+// around it (the compiler sees the wgmma write its accumulators at issue).
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+// Wait for the phase of `parity` to complete: one asm loop, which the
+// compiler sees as straight-line code (a loop of its own would put the
+// wgmmas after it on a divergent path and serialize them). A ring that
+// stays empty for 2^35 clocks (over 15 s) is a fault: trap, so that the
+// launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d)
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, %2;\n"
+      "@p bra LAB_WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity), "l"(1ull << 35)
       : "memory");
 }
-
-// G [K, cols] -> gp: per 8 columns, KB = 2 * KS core matrices of 128 bytes
-// (zeros beyond K); one thread a (column, pair of K values)
-__global__ void pack_g(const uint16_t* __restrict__ G, uint32_t* __restrict__ gp, int K, int KB,
-                       size_t cols) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= cols * KB * 4) return;
-  const size_t col = e % cols;  // col fastest: coalesced reads of G
-  const int k = (int)(e / cols) * 2;
-  gp[(((col >> 3) * KB + (k >> 3)) * 128 + (col & 7) * 16 + (k & 7) * 2) >> 2] =
-      Bf16::pack(G, cols, k, K, col);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-template <int KS, int MT, bool SPLIT>
-__global__ void __launch_bounds__(WG_THREADS)
-wgmma_dot_min(const void* __restrict__ Fv, const uint4* __restrict__ gp,
-              float* __restrict__ out, int B, int K, int N, int reps) {
-  constexpr int KB = KS * 2;                // core matrices along K
-  constexpr int NCH = KS <= 2 ? 512 : 128;  // columns of a staged chunk
-  __shared__ __align__(128) uint4 sg[NCH * KS * 2];
+// The tile of 64 * 128 products of one m-tile and the block at sb: every K
+// step, committed as one group.
+template <class T, int KS, bool SPLIT>
+__device__ __forceinline__ void wg_issue(float (&d)[64], const uint32_t (&a)[SPLIT ? 3 : KS][4],
+                                         uint32_t sb) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_reg(d[i]);
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_step<T>(d, a[SPLIT ? split_part(ks) : ks], block_desc<KS * 32>(sb, ks), ks > 0);
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// The tile's min into lo (ray gid) and hi (ray gid + 8): a tree of FMNMX, so
+// that the 64 of a thread do not wait on each other (a min is exact: any
+// order gives the same bits).
+__device__ __forceinline__ void wg_fold(float (&d)[64], float& lo, float& hi) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_reg(d[i]);
+  float x[16], y[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    x[j] = fminf(d[4 * j], d[4 * j + 1]);
+    y[j] = fminf(d[4 * j + 2], d[4 * j + 3]);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = fminf(x[j], x[j + 8]), y[j] = fminf(y[j], y[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = fminf(x[j], x[j + 4]), y[j] = fminf(y[j], y[j + 4]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) x[j] = fminf(x[j], x[j + 2]), y[j] = fminf(y[j], y[j + 2]);
+  lo = fminf(lo, fminf(x[0], x[1]));
+  hi = fminf(hi, fminf(y[0], y[1]));
+}
+
+// G [K, cols] -> gp, the blocks of WG_COLS columns in order, each as
+// block_offset lays it out (zeros beyond K); one thread a (column, 32-bit
+// word of K values).
+template <class T, int KS>
+__global__ void pack_g(const typename T::elem* __restrict__ G, uint32_t* __restrict__ gp, int K,
+                       size_t cols) {
+  constexpr int KB = KS * 32;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= cols * (KB / 4)) return;
+  const size_t col = e % cols;  // col fastest: coalesced reads of G
+  const int w = (int)(e / cols);
+  const size_t at = col / WG_COLS * (WG_COLS * KB) + block_offset(KB, (int)(col % WG_COLS), w * 4);
+  gp[at >> 2] = T::pack(G, cols, w * T::PACK, K, col);
+}
+
+// The registers a producer thread keeps (setmaxnreg's least), and those a
+// consumer thread may then take: the block holds what the launch bound gives
+// every thread (65536 over the threads, in steps of 8), and an increase
+// beyond what the producer hands back would wait forever. Two consumer
+// warpgroups: 240; four: 112.
+constexpr int WG_PRODUCER_REGS = 24;
+__host__ __device__ constexpr int wg_consumer_regs(int wgs) {
+  return ((65536 / (wgs * 128 + 128)) / 8 * 8 * (wgs * 128 + 128) - WG_PRODUCER_REGS * 128) /
+         (wgs * 128) / 8 * 8;
+}
+
+// WGS consumer warpgroups (warps 0 .. 4 WGS - 1) of MT m-tiles each, then the
+// producer warpgroup, whose first lane issues the copies. One block an SM,
+// persistent: it takes the ray tiles blockIdx.x, + gridDim.x, ... of
+// WGS * 64 * MT rays, and the ring runs on from one tile's stages to the
+// next's, so a tile's first stages are in flight while the one before ends.
+// NACC accumulator sets of 64 registers a thread: with two, a warpgroup
+// folds one 64 x 128 tile while the next runs; with one (up to three K
+// steps, where the fold weighs as much as the MMAs) it waits for each, four
+// warpgroups keep the tensor cores busy between them, and a stage holds
+// four blocks of 128 columns, so that the barriers come four times as
+// rarely. The producer hands registers to the consumers (setmaxnreg).
+template <class T, int KS, int MT, int WGS, int NACC, bool SPLIT>
+__global__ void __launch_bounds__(WGS * 128 + 128, 1)
+wgmma_dot_min(const void* __restrict__ Fv, const uint8_t* __restrict__ gp,
+              float* __restrict__ out, int B, int K, int n_blocks) {
+  static_assert(NACC == 1 || MT % 2 == 0, "tiles alternate between the two accumulator sets");
+  constexpr int BLOCK = WG_COLS * KS * 32, SB = NACC == 1 ? 4 : 1;  // bytes, blocks of a stage
+  constexpr int STAGE = SB * BLOCK, RING = wg_ring(STAGE), M = WGS * 64 * MT;
+  const int n_stages = (n_blocks + SB - 1) / SB;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * RING];  // full[s] = bars[s], empty[s] = bars[RING + s]
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's alignment
+  const uint32_t full = smem_u32(bars), empty = full + 8 * RING;
+  const int n_tiles = (B + M - 1) / M;
+  // the warp index through a shuffle: warp-uniform to the compiler, so that the
+  // roles below are no divergent paths to it (wgmma and setmaxnreg need that)
+  const int lane = threadIdx.x & 31, warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WGS * 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= WGS * 4) {  // the producer: one lane keeps the ring in flight
+    if constexpr (WGS > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(WG_PRODUCER_REGS));
+    if (warp == WGS * 4 && lane == 0) {
+      int g = 0;  // stages through the ring so far
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int q = 0; q < n_stages; ++q, ++g) {
+          const int s = g % RING;
+          const uint32_t bytes = (uint32_t)(min(SB, n_blocks - q * SB) * BLOCK);
+          if (g >= RING) mbar_wait(empty + 8 * s, (g / RING - 1) & 1);
+          asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(full + 8 * s),
+                       "r"(bytes)
+                       : "memory");
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+              "[%3];" ::"r"(ring + s * STAGE),
+              "l"(gp + (size_t)q * STAGE), "r"(bytes), "r"(full + 8 * s)
+              : "memory");
+        }
+      }
+    }
+    return;
+  }
+
+  static_assert(wg_consumer_regs(2) == 240 && wg_consumer_regs(4) == 112, "");
+  if constexpr (WGS > 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(wg_consumer_regs(WGS)));
   const int gid = lane >> 2, tig = lane & 3;
-  const int rays_block = (blockDim.x >> 7) * 64 * MT;
-  // this warp's 16 rays of its warpgroup's m-tile mt start at ray0 + mt * 64
-  const int ray0 = blockIdx.x * rays_block + (warp >> 2) * 64 * MT + (warp & 3) * 16;
-
-  uint32_t a[MT][SPLIT ? 3 : KS][4];
+  int g = 0;  // stages through the ring so far
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, g += n_stages) {
+    // this warp's 16 rays of its warpgroup's m-tile mt start at ray0 + mt * 64
+    const int ray0 = tile * M + (warp >> 2) * 64 * MT + (warp & 3) * 16;
+    uint32_t a[MT][SPLIT ? 3 : KS][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-    load_a<Bf16, KS, SPLIT>(a[mt], Fv, B, K, ray0 + mt * 64, gid, tig);
-
-  float mlo[MT], mhi[MT];
+    for (int mt = 0; mt < MT; ++mt)
+      load_a<T, KS, SPLIT>(a[mt], Fv, B, K, ray0 + mt * 64, gid, tig);
+    float mlo[MT], mhi[MT];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) mlo[mt] = mhi[mt] = INFINITY;
-  float d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+    for (int mt = 0; mt < MT; ++mt) mlo[mt] = mhi[mt] = INFINITY;
+    float acc[NACC][64];
 
-  for (int rep = 0; rep < reps; ++rep) {
-    for (int c0 = 0; c0 < N; c0 += NCH) {
-      const int n = min(NCH, N - c0);
-      __syncthreads();  // the previous chunk is consumed
-      // 8 columns are KB * 8 uint4; the chunk is contiguous in gp
-      const uint4* src = gp + (((size_t)rep * N + c0) >> 3) * KB * 8;
-      for (int e = threadIdx.x; e < (n >> 3) * KB * 8; e += blockDim.x) sg[e] = src[e];
-      // the stores above are read through the async proxy
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      __syncthreads();
-      for (int n0 = 0; n0 < n; n0 += 128) {
-        const uint64_t desc = smem_desc(sg + (n0 >> 3) * KB * 8, 128, KB * 128);
+    if constexpr (NACC == 1) {
+      for (int q = 0; q < n_stages; ++q) {
+        const int s = (g + q) % RING, nb = min(SB, n_blocks - q * SB);
+        mbar_wait(full + 8 * s, ((g + q) / RING) & 1);
+        for (int b = 0; b < nb; ++b) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            wg_issue<T, KS, SPLIT>(acc[0], a[mt], ring + s * STAGE + b * BLOCK);
+            wg_wait<0>();
+            if (b == nb - 1 && mt == MT - 1 && lane == 0) mbar_arrive(empty + 8 * s);  // read
+            wg_fold(acc[0], mlo[mt], mhi[mt]);
+          }
+        }
+      }
+    } else {
+      mbar_wait(full + 8 * (g % RING), (g / RING) & 1);
+      wg_issue<T, KS, SPLIT>(acc[0], a[0], ring + (g % RING) * STAGE);
+      for (int q = 0; q < n_stages; ++q) {
+        const int s = (g + q) % RING;
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
-            wgmma_m64n128k16(d, a[mt][SPLIT ? split_part(ks) : ks], desc + ks * 16, ks > 0);
-          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            mlo[mt] = fminf(mlo[mt], fminf(d[4 * j], d[4 * j + 1]));
-            mhi[mt] = fminf(mhi[mt], fminf(d[4 * j + 2], d[4 * j + 3]));
+          // issue the next tile, then wait for this one (tile mt, set mt & 1)
+          if (mt + 1 < MT) {
+            wg_issue<T, KS, SPLIT>(acc[(mt + 1) % NACC], a[(mt + 1) % MT], ring + s * STAGE);
+            wg_wait<1>();
+          } else if (q + 1 < n_stages) {
+            const int s1 = (g + q + 1) % RING;
+            mbar_wait(full + 8 * s1, ((g + q + 1) / RING) & 1);
+            wg_issue<T, KS, SPLIT>(acc[0], a[0], ring + s1 * STAGE);
+            wg_wait<1>();
+          } else {
+            wg_wait<0>();
           }
+          if (mt == MT - 1 && lane == 0) mbar_arrive(empty + 8 * s);  // the stage is read
+          wg_fold(acc[mt % NACC], mlo[mt], mhi[mt]);
         }
       }
     }
-  }
 
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float lo = mlo[mt], hi = mhi[mt];
+    for (int mt = 0; mt < MT; ++mt) {
+      float lo = mlo[mt], hi = mhi[mt];
 #pragma unroll
-    for (int x = 1; x < 4; x <<= 1) {
-      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, x));
-      hi = fminf(hi, __shfl_xor_sync(0xffffffffu, hi, x));
-    }
-    const int r = ray0 + mt * 64 + gid;
-    if (tig == 0) {
-      if (r < B) out[r] = lo;
-      if (r + 8 < B) out[r + 8] = hi;
+      for (int x = 1; x < 4; x <<= 1) {
+        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, x));
+        hi = fminf(hi, __shfl_xor_sync(0xffffffffu, hi, x));
+      }
+      const int r = ray0 + mt * 64 + gid;
+      if (tig == 0) {
+        if (r < B) out[r] = lo;
+        if (r + 8 < B) out[r + 8] = hi;
+      }
     }
   }
 }
 
-// ---- variant 0: FP32 FMAs, one thread a ray -----------------------------
+// ---- variant 0: FP32 FMAs, R rays a thread ---------------------------------
+//
+// The first form (PR 6) reached 44% of the FP32 bound: a thread owned one
+// ray, so each broadcast float4 of G read from shared memory fed 4 FMAs (16
+// LDS.128 to 64 FFMA at K = 16), and the block copied each chunk of G, with
+// a division per element, between two barriers with nothing to compute
+// meanwhile. Here a thread owns R rays (FMA_RAYS, fewer where the block's
+// rays do not divide into whole warps of R), so a float4 read once feeds 4 R
+// FMAs, and the next chunk is copied with cp.async (16 bytes a copy) into
+// the other half of a double buffer while this one is computed. Each ray's
+// dot keeps the first form's order (an FMUL of k = 0, then fmaf k = 1 ..
+// K - 1) and its min the same columns, so the outputs are the same bits.
 
-constexpr int FMA_NCH = 256;  // columns of a staged chunk
+constexpr int FMA_RAYS = 4;
+constexpr int FMA_CHUNK = 4096;  // floats of a chunk: K rows of 4096 / K columns
 
-template <int K>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <int K, int R>
+__global__ void __launch_bounds__(1024 / R)
 fma_dot_min(const float* __restrict__ F, const float* __restrict__ G, float* __restrict__ out,
             int B, int N, int reps, int acc_min) {
-  __shared__ float4 sg[K * FMA_NCH / 4];  // [k][column]
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = ray < B;
-  float f[K];
+  constexpr int NCH = FMA_CHUNK / K, NCH4 = NCH / 4;  // columns of a chunk, in float4
+  __shared__ __align__(16) float4 sg[2][K * NCH4];     // [buffer][k][column]
+  const int nt = blockDim.x;
+  const int ray0 = blockIdx.x * nt * R + threadIdx.x;  // ray r: ray0 + r * nt
+  float f[R][K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) f[k] = active ? F[(size_t)k * B + ray] : 0.0f;
+  for (int r = 0; r < R; ++r) {
+    const int ray = ray0 + r * nt;
+#pragma unroll
+    for (int k = 0; k < K; ++k) f[r][k] = ray < B ? F[(size_t)k * B + ray] : 0.0f;
+  }
+  float best[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) best[r] = INFINITY;
 
-  float best = INFINITY;
   const size_t cols = (size_t)N * reps;
-  float* sgf = reinterpret_cast<float*>(sg);
-  for (int rep = 0; rep < reps; ++rep) {
-    for (int c0 = 0; c0 < N; c0 += FMA_NCH) {
-      const int n = min(FMA_NCH, N - c0);
-      __syncthreads();  // the previous chunk is consumed
-      for (int e = threadIdx.x; e < K * FMA_NCH; e += blockDim.x) {
-        const int col = e % FMA_NCH, k = e / FMA_NCH;
-        if (col < n) sgf[e] = G[(size_t)k * cols + (size_t)rep * N + c0 + col];
-      }
-      __syncthreads();
-      if (!active) continue;
-      for (int n4 = 0; n4 < n / 4; ++n4) {
-        float4 acc;
+  const int per_rep = (N + NCH - 1) / NCH, n_chunks = reps * per_rep;
+  auto copy = [&](int i) {  // chunk i into buffer i & 1
+    const int c0 = i % per_rep * NCH, n4 = min(NCH, N - c0) / 4;
+    const float* src = G + (size_t)(i / per_rep) * N + c0;
+    for (int e = threadIdx.x; e < K * NCH4; e += nt) {
+      const int k = e / NCH4, p = e % NCH4;
+      if (p < n4) cp_async16(&sg[i & 1][e], src + (size_t)k * cols + 4 * p);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  copy(0);
+  for (int i = 0; i < n_chunks; ++i) {
+    if (i + 1 < n_chunks) {
+      copy(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk i has landed for every thread
+    const int c0 = i % per_rep * NCH, n4 = min(NCH, N - c0) / 4;
+    const float4* sgi = sg[i & 1];
+    for (int q = 0; q < n4; ++q) {
+      float4 acc[R];
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float4 g = sg[k * (FMA_NCH / 4) + n4];  // the same address for the whole warp
+      for (int k = 0; k < K; ++k) {
+        const float4 g = sgi[k * NCH4 + q];  // the same address for the whole warp
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
           if (k == 0) {
-            acc.x = f[0] * g.x, acc.y = f[0] * g.y, acc.z = f[0] * g.z, acc.w = f[0] * g.w;
+            acc[r].x = f[r][0] * g.x, acc[r].y = f[r][0] * g.y;
+            acc[r].z = f[r][0] * g.z, acc[r].w = f[r][0] * g.w;
           } else {
-            acc.x = fmaf(f[k], g.x, acc.x), acc.y = fmaf(f[k], g.y, acc.y);
-            acc.z = fmaf(f[k], g.z, acc.z), acc.w = fmaf(f[k], g.w, acc.w);
+            acc[r].x = fmaf(f[r][k], g.x, acc[r].x), acc[r].y = fmaf(f[r][k], g.y, acc[r].y);
+            acc[r].z = fmaf(f[r][k], g.z, acc[r].z), acc[r].w = fmaf(f[r][k], g.w, acc[r].w);
           }
         }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
         if (acc_min) {
-          best = fminf(best, fminf(fminf(acc.x, acc.y), fminf(acc.z, acc.w)));
+          best[r] = fminf(best[r], fminf(fminf(acc[r].x, acc[r].y), fminf(acc[r].z, acc[r].w)));
         } else {
           // the dots are done all the same: the compiler may not drop them
-          asm volatile("" ::"f"(acc.x), "f"(acc.y), "f"(acc.z), "f"(acc.w));
-          if (c0 == 0 && n4 == 0) best = fminf(best, acc.x);
+          asm volatile("" ::"f"(acc[r].x), "f"(acc[r].y), "f"(acc[r].z), "f"(acc[r].w));
+          if (c0 == 0 && q == 0) best[r] = fminf(best[r], acc[r].x);
         }
       }
     }
+    __syncthreads();  // chunk i is consumed before chunk i + 2 lands there
   }
-  if (active) out[ray] = best;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (ray0 + r * nt < B) out[ray0 + r * nt] = best[r];
 }
 
 template <class T, int KS, int MT, bool SPLIT>
@@ -480,33 +737,72 @@ int launch_mma(const void* F, const void* G, void* out, int B, int K, int N, int
   return (int)cudaGetLastError();
 }
 
-// scratch: N * reps * KS * 32 bytes for G in wgmma's order
-template <int KS, bool SPLIT>
+template <class T, int KS, int MT, int WGS, int NACC, bool SPLIT>
+int launch_wgmma_blocks(const void* F, const void* gp, void* out, int B, int K, size_t cols,
+                        cudaStream_t stream) {
+  constexpr int STAGE = WG_COLS * KS * 32 * (NACC == 1 ? 4 : 1);  // as the kernel's
+  constexpr int SMEM = wg_ring(STAGE) * STAGE + 1024;  // + the swizzle's alignment
+  auto kernel = wgmma_dot_min<T, KS, MT, WGS, NACC, SPLIT>;
+  const int rc =
+      (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return (int)cudaGetLastError();
+  const int M = WGS * 64 * MT, tiles = (B + M - 1) / M;
+  kernel<<<tiles < sms ? tiles : sms, WGS * 128 + 128, SMEM, stream>>>(
+      F, static_cast<const uint8_t*>(gp), static_cast<float*>(out), B, K, (int)(cols / WG_COLS));
+  return (int)cudaGetLastError();
+}
+
+// scratch: N * reps * KS * 32 bytes for G in the ring's order. M rays a block:
+// two warpgroups of MT_MAX m-tiles (the most), or of MT_MAX / 2 (MT_MAX 4) or
+// one warpgroup of 2 (MT_MAX 2); up to three K steps four warpgroups of one
+// set and of MT_MAX / 2 or MT_MAX / 4 m-tiles.
+template <class T, int KS, bool SPLIT>
 int launch_wgmma(const void* F, const void* G, void* out, void* scratch, int B, int K, int N,
                  int reps, int M, cudaStream_t stream) {
-  // 64 * MT rays a warpgroup: their A fragments and 64 accumulators in registers
-  constexpr int MT = (SPLIT || KS <= 3) ? 4 : 2;
-  const int wgs = M / (64 * MT);
-  if (M % (64 * MT) || wgs < 1 || wgs * 128 > WG_THREADS || N % 128 || scratch == nullptr)
+  constexpr int MT_MAX = (SPLIT || KS <= 3) ? 4 : 2;  // A fragments and two accumulator sets
+  if ((M != 128 * MT_MAX && M != 64 * MT_MAX) || N % WG_COLS || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   const size_t cols = (size_t)N * reps, words = cols * KS * 8;
-  pack_g<<<(unsigned)((words + 255) / 256), 256, 0, stream>>>(
-      static_cast<const uint16_t*>(G), static_cast<uint32_t*>(scratch), K, KS * 2, cols);
+  pack_g<T, KS><<<(unsigned)((words + 255) / 256), 256, 0, stream>>>(
+      static_cast<const typename T::elem*>(G), static_cast<uint32_t*>(scratch), K, cols);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  wgmma_dot_min<KS, MT, SPLIT><<<(B + M - 1) / M, wgs * 128, 0, stream>>>(
-      F, static_cast<const uint4*>(scratch), static_cast<float*>(out), B, K, N, reps);
+  if constexpr (KS <= 3) {  // the fold weighs as much as the MMAs: one set, four warpgroups
+    if (M == 512)
+      return launch_wgmma_blocks<T, KS, 2, 4, 1, SPLIT>(F, scratch, out, B, K, cols, stream);
+    return launch_wgmma_blocks<T, KS, 1, 4, 1, SPLIT>(F, scratch, out, B, K, cols, stream);
+  }
+  if (M == 128 * MT_MAX)
+    return launch_wgmma_blocks<T, KS, MT_MAX, 2, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
+  if constexpr (MT_MAX == 4)
+    return launch_wgmma_blocks<T, KS, 2, 2, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
+  else
+    return launch_wgmma_blocks<T, KS, 2, 1, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
+}
+
+template <int K, int R>
+int launch_fma_rays(const void* F, const void* G, void* out, int B, int N, int reps, int M,
+                    int acc_min, cudaStream_t stream) {
+  fma_dot_min<K, R><<<(B + M - 1) / M, M / R, 0, stream>>>(
+      static_cast<const float*>(F), static_cast<const float*>(G), static_cast<float*>(out), B, N,
+      reps, acc_min);
   return (int)cudaGetLastError();
 }
 
 template <int K>
 int launch_fma(const void* F, const void* G, void* out, int B, int N, int reps, int M,
                int acc_min, cudaStream_t stream) {
-  if (M % 32 || M > 1024) return (int)cudaErrorInvalidValue;
-  fma_dot_min<K><<<(B + M - 1) / M, M, 0, stream>>>(
-      static_cast<const float*>(F), static_cast<const float*>(G), static_cast<float*>(out), B, N,
-      reps, acc_min);
-  return (int)cudaGetLastError();
+  // cp.async copies 16 aligned bytes: G's rows start on them (N * reps % 8 == 0)
+  if (M % 32 || M > 1024 || reinterpret_cast<uintptr_t>(G) % 16) return (int)cudaErrorInvalidValue;
+  if constexpr (FMA_RAYS >= 4)
+    if (M % 128 == 0) return launch_fma_rays<K, 4>(F, G, out, B, N, reps, M, acc_min, stream);
+  if constexpr (FMA_RAYS >= 2)
+    if (M % 64 == 0) return launch_fma_rays<K, 2>(F, G, out, B, N, reps, M, acc_min, stream);
+  return launch_fma_rays<K, 1>(F, G, out, B, N, reps, M, acc_min, stream);
 }
 
 }  // namespace
@@ -514,14 +810,16 @@ int launch_fma(const void* F, const void* G, void* out, int B, int N, int reps, 
 // F [K, B], G [K, N * reps], out [B]; N a multiple of 8; M rays a block;
 // variant as above. FP32: K 8, 16 or 32, M a multiple of 32 up to 1024.
 // mma.sync: M a multiple of 64 up to 1024 (K <= 48; TF32 K <= 16) or of 32
-// up to 512. wgmma: K 16 to 128, M 256 or 512 (K <= 48) or 128 or 256, N a
-// multiple of 128, scratch of N * reps * 2 * (K rounded up to 16) bytes
-// (null for the other variants).
+// up to 512. wgmma (acc_min only): BF16 K 16 to 128, TF32 K 8, 16 or 32; M
+// 256 or 512 up to three K steps (BF16 K <= 48, TF32 K <= 16), else 128 or
+// 256; N a multiple of 128; scratch of N * reps * 32 bytes a K step (null
+// for the other variants).
 extern "C" int rt_dot_min(const void* F, const void* G, void* out, void* scratch, int B, int K,
                           int N, int reps, int M, int acc_min, int variant, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (B < 1 || N < 1 || N % 8 || reps < 1) return (int)cudaErrorInvalidValue;
 #define MMA(T, KS, MT) return launch_mma<T, KS, MT, false>(F, G, out, B, K, N, reps, M, acc_min, s)
+#define WGMMA(T, KS) return launch_wgmma<T, KS, false>(F, G, out, scratch, B, K, N, reps, M, s)
   if (variant == 0) {
     if (K == 8) return launch_fma<8>(F, G, out, B, N, reps, M, acc_min, s);
     if (K == 16) return launch_fma<16>(F, G, out, B, N, reps, M, acc_min, s);
@@ -542,15 +840,18 @@ extern "C" int rt_dot_min(const void* F, const void* G, void* out, void* scratch
   } else if (variant == 3) {
     if (K == 16 || K == 32) MMA(Int8, 1, 4);
   } else if (variant == 4 && acc_min) {
-#define WGMMA(KS) return launch_wgmma<KS, false>(F, G, out, scratch, B, K, N, reps, M, s)
-    if (K == 16) WGMMA(1);
-    if (K == 32) WGMMA(2);
-    if (K == 48) WGMMA(3);
-    if (K == 64) WGMMA(4);
-    if (K == 96) WGMMA(6);
-    if (K == 128) WGMMA(8);
-#undef WGMMA
+    if (K == 16) WGMMA(Bf16, 1);
+    if (K == 32) WGMMA(Bf16, 2);
+    if (K == 48) WGMMA(Bf16, 3);
+    if (K == 64) WGMMA(Bf16, 4);
+    if (K == 96) WGMMA(Bf16, 6);
+    if (K == 128) WGMMA(Bf16, 8);
+  } else if (variant == 5 && acc_min) {
+    if (K == 8) WGMMA(Tf32, 1);
+    if (K == 16) WGMMA(Tf32, 2);
+    if (K == 32) WGMMA(Tf32, 4);
   }
+#undef WGMMA
 #undef MMA
   return (int)cudaErrorInvalidValue;
 }
@@ -562,6 +863,7 @@ extern "C" int rt_dot_min_split(const void* F, const void* G, void* out, void* s
                                 int N, int reps, int M, int wgmma, void* stream) {
   if (B < 1 || N < 1 || reps < 1 || N % 8) return (int)cudaErrorInvalidValue;
   if (wgmma)
-    return launch_wgmma<6, true>(F, G, out, scratch, B, 96, N, reps, M, (cudaStream_t)stream);
+    return launch_wgmma<Bf16, 6, true>(F, G, out, scratch, B, 96, N, reps, M,
+                                       (cudaStream_t)stream);
   return launch_mma<Bf16, 6, 4, true>(F, G, out, B, 96, N, reps, M, 1, (cudaStream_t)stream);
 }

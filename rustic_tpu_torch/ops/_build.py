@@ -5,7 +5,9 @@ library, `build/lib<name>-<hash>.so` at the root of the checkout, built
 by nvcc at first use; the hash covers the source and the flags, so an
 edited source is rebuilt. The library is loaded with ctypes. Every entry
 point takes its pointers, then its ints, then the CUDA stream, and
-returns the `cudaError_t` of its launch.
+returns the `cudaError_t` of its launch. The one host source,
+csrc/bvh_build.cpp (the BVH builder), is built the same way by g++
+(`compile_host`).
 
 The wrappers of ops/ share one rule (`uses_plain`): a CPU tensor runs
 the kernel's plain PyTorch version, a CUDA tensor runs the kernel, and
@@ -77,18 +79,51 @@ def compile_source(src: str, extra_flags=()) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(flags).encode())
+    return _compile(src, h.hexdigest(), [_nvcc(), *flags], "nvcc")
+
+
+# the JAX package's command for its native BVH builder (native/build.sh,
+# rustic_tpu/scene/bvh_native.py): the same flags give the same bits
+HOST_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
+
+
+def compile_host(src: str) -> str:
+    """Compile the host C++ source `src` with g++ and HOST_FLAGS into
+    build/lib<stem>-<hash>.so unless that library is current: the hash
+    covers the source, the flags and the target that -march=native names
+    on this host (a checkout copied to another machine builds anew).
+    Returns the library path; raises RuntimeError with the compiler's
+    message when g++ is missing or fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ is not on PATH: the port builds {os.path.basename(src)} with it "
+                           f"({' '.join(HOST_FLAGS)})")
+    # g++ -v prints the target options -march=native expands to
+    probe = subprocess.run([gxx, "-march=native", "-E", "-v", "-x", "c++", os.devnull, "-o",
+                            os.devnull], capture_output=True, text=True)
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update("".join(ln for ln in probe.stderr.splitlines() if "cc1" in ln).encode())
+    return _compile(src, h.hexdigest(), [gxx, *HOST_FLAGS], "g++")
+
+
+def _compile(src: str, digest: str, cmd, tool: str) -> str:
+    """`cmd -o LIB src` into build/lib<stem>-<digest>.so unless it is
+    there; the compiler's output goes to a .log beside it."""
     stem = os.path.splitext(os.path.basename(src))[0]
-    out = os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:12]}.so")
+    out = os.path.join(BUILD_DIR, f"lib{stem}-{digest[:12]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"  # builds may race in threads
-    cmd = [_nvcc(), *flags, "-o", tmp, src]
+    cmd = [*cmd, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(out[: -len(".so")] + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src} (exit {proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"{tool} failed to build {src} (exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     return out
 

@@ -10,12 +10,13 @@ Both compute, for F [K, B] and G [K, N*reps],
 the flash scans' pair test, rays against triangle columns reduced per
 ray, without its epilogue. What differs is the unit the dot runs on:
 
-- `dot_min` (K18), by `variant`: "fp32", FP32 FMAs with one thread a
-  ray, what the scans do; "tf32", "bf16" and "int8", tensor cores
-  (`mma.sync`, FP32 or int32 accumulate); "bf16w", the BF16 tensor cores
-  through the warpgroup instruction `wgmma.mma_async`. "tf32" takes
-  float32 operands and rounds them to TF32 (`round_tf32`); "bf16" and
-  "bf16w" take bfloat16, "int8" int8 operands and returns int32.
+- `dot_min` (K18), by `variant`: "fp32", FP32 FMAs with a few rays a
+  thread, what the scans do; "tf32", "bf16" and "int8", tensor cores
+  (`mma.sync`, FP32 or int32 accumulate); "bf16w" and "tf32w", the BF16
+  and TF32 tensor cores through the warpgroup instruction
+  `wgmma.mma_async`. "tf32" and "tf32w" take float32 operands and round
+  them to TF32 (`round_tf32`); "bf16" and "bf16w" take bfloat16, "int8"
+  int8 operands and returns int32.
 - `dot_min_split` (K19): an f32 dot of depth 16 as one BF16 pass of depth
   96. Each f32 value a is split into three bfloat16 parts (`split3`: hi =
   bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid)); G arrives as the
@@ -37,9 +38,11 @@ import torch
 
 from rustic_tpu_torch.ops import _build
 
-VARIANTS = ("fp32", "tf32", "bf16", "int8", "bf16w")  # the kernel's variant numbers
+VARIANTS = ("fp32", "tf32", "bf16", "int8", "bf16w", "tf32w")  # the kernel's variant numbers
+WGMMA = ("bf16w", "tf32w")  # through wgmma: whole 128-column tiles, acc_min only
 _OPERAND = {"fp32": torch.float32, "tf32": torch.float32, "bf16": torch.bfloat16,
-            "int8": torch.int8, "bf16w": torch.bfloat16}
+            "int8": torch.int8, "bf16w": torch.bfloat16, "tf32w": torch.float32}
+_K_STEP = {"tf32": 8, "bf16": 16, "int8": 32, "bf16w": 16, "tf32w": 8}  # an instruction's depth
 SPLIT_K = 16  # depth of the f32 dot K19 emulates
 # f32 elements of one [chunk, N*reps] product of the plain versions (1 GiB)
 _PLAIN_CHUNK = 1 << 28
@@ -110,13 +113,13 @@ def _min_of_dots(f32, g32, n: int, acc_min: bool) -> torch.Tensor:
 
 
 def dot_min_plain(f, g, n: int, reps: int, variant: str = "fp32", acc_min: bool = True):
-    """`dot_min` in plain PyTorch: the operands upcast to float32 ("tf32":
-    rounded to TF32 first), one float32 product, the min. int8 sums of at
+    """`dot_min` in plain PyTorch: the operands upcast to float32 ("tf32",
+    "tf32w": rounded to TF32 first), one float32 product, the min. int8 sums of at
     most 32 products stay below 2^24, so float32 holds them exactly; the
     result is returned as int32."""
     _check_shapes(f, g, n, reps)
     f32, g32 = f.float(), g.float()
-    if variant == "tf32":
+    if variant in ("tf32", "tf32w"):
         f32, g32 = round_tf32(f32), round_tf32(g32)
     out = _min_of_dots(f32, g32, n, acc_min)
     return out.to(torch.int32) if variant == "int8" else out
@@ -139,19 +142,20 @@ def max_block_rays(variant: str, k: int) -> int:
     """The most rays a block of `dot_min` takes: a warp of the `mma.sync`
     variants holds its rays' fragments in registers, 64 rays up to three K
     steps (of 8 TF32, 16 BF16 or 32 int8 values) and 32 rays beyond, in
-    blocks of at most 16 warps; the FP32 variant runs 1024 threads; a
-    `wgmma` block is at most two warpgroups of 128 rays."""
+    blocks of at most 16 warps; the FP32 variant takes 1024 rays; a
+    `wgmma` block is at most two warpgroups of 256 rays up to three K
+    steps, of 128 beyond."""
     if variant == "fp32":
         return 1024
-    if variant == "bf16w":  # 256 rays a warpgroup up to three K steps, else 128
-        return 512 if k <= 48 else 256
-    steps = -(-k // {"tf32": 8, "bf16": 16, "int8": 32}[variant])
+    steps = -(-k // _K_STEP[variant])
+    if variant in WGMMA:
+        return 512 if steps <= 3 else 256
     return 1024 if steps <= 3 else 512
 
 
 # the depths K each unit's kernel is built for (csrc/probe_dot.cu rt_dot_min)
 _DEPTHS = {"fp32": (8, 16, 32), "tf32": (8, 16, 32), "bf16": (8, 16, 32, 48, 64, 96, 128),
-           "int8": (16, 32), "bf16w": (16, 32, 48, 64, 96, 128)}
+           "int8": (16, 32), "bf16w": (16, 32, 48, 64, 96, 128), "tf32w": (8, 16, 32)}
 
 
 def _check_operands(f, g, n, reps, dtype_f, dtype_g, variant, m):
@@ -164,23 +168,25 @@ def _check_operands(f, g, n, reps, dtype_f, dtype_g, variant, m):
     k = g.shape[0]
     if k not in _DEPTHS[variant]:
         raise ValueError(f"K = {k}: the {variant} kernel is built for K in {_DEPTHS[variant]}")
-    width = 128 if variant == "bf16w" else 8  # columns of one tensor-core instruction
+    width = 128 if variant in WGMMA else 8  # columns of one tensor-core instruction
     if f.shape[1] < 1 or n < 1 or n % width or reps < 1:
         raise ValueError(
             f"B = {f.shape[1]}, N = {n}, reps = {reps}: N must be a multiple of {width}")
     most = max_block_rays(variant, k)
-    # rays a warp (for "bf16w" a warpgroup) holds
-    step = most // 2 if variant == "bf16w" else 32 if variant == "fp32" or most < 1024 else 64
+    # rays a warp (through wgmma a warpgroup) holds
+    step = most // 2 if variant in WGMMA else 32 if variant == "fp32" or most < 1024 else 64
     if m < step or m % step or m > most:
         raise ValueError(f"{m} rays a block: expected a multiple of {step} up to {most}")
 
 
 def _wgmma_scratch(variant: str, k: int, cols: int, device):
-    """Room for G in the order `wgmma` reads it ("bf16w": the kernel packs
-    it there before its main launch), else None."""
-    if variant != "bf16w":
+    """Room for G in the order `wgmma` reads it ("bf16w", "tf32w": the
+    kernel packs it there before its main launch, 32 bytes a column and K
+    step), else None."""
+    if variant not in WGMMA:
         return None
-    return torch.empty(cols * 16 * -(-k // 16), dtype=torch.bfloat16, device=device)
+    step = _K_STEP[variant]
+    return torch.empty(cols * step * -(-k // step), dtype=_OPERAND[variant], device=device)
 
 
 def dot_min(f, g, n: int, reps: int, variant: str = "fp32", m: int | None = None,
@@ -188,14 +194,15 @@ def dot_min(f, g, n: int, reps: int, variant: str = "fp32", m: int | None = None
     """K18 (replaces tools/mxu_floor.py `_case_kernel` and its int8
     kernel): F [K, B], G [K, n*reps] in the operand type of `variant` ->
     out [B] float32 (int32 for "int8"); `m` rays a block, a multiple of 64
-    (of 32 for "fp32" and where a block holds 512, of 128 for "bf16w") up
-    to `max_block_rays`, the default. K: 8, 16 or 32 ("fp32", "tf32"); 8,
-    16, 32, 48, 64, 96 or 128 ("bf16"; "bf16w" from 16); 16 or 32 ("int8").
-    n: a multiple of 8 (of 128 for "bf16w", which has no `acc_min` off)."""
+    (of 32 for "fp32" and where a block holds 512, of a warpgroup's rays
+    for "bf16w" and "tf32w") up to `max_block_rays`, the default. K: 8, 16
+    or 32 ("fp32", "tf32", "tf32w"); 8, 16, 32, 48, 64, 96 or 128 ("bf16";
+    "bf16w" from 16); 16 or 32 ("int8"). n: a multiple of 8 (of 128 for
+    "bf16w" and "tf32w", which have no `acc_min` off)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: expected one of {VARIANTS}")
-    if variant == "bf16w" and not acc_min:
-        raise ValueError('the "bf16w" kernel reduces over every column (acc_min)')
+    if variant in WGMMA and not acc_min:
+        raise ValueError(f'the "{variant}" kernel reduces over every column (acc_min)')
     if _build.uses_plain(f):
         return dot_min_plain(f, g, n, reps, variant, acc_min)
     dtype = _OPERAND[variant]

@@ -9,8 +9,9 @@ FMAs. `dot_min` (K18) and `dot_min_split` (K19, ops/probe_dot.py) do the
 same shape of work, rays [K, B] against columns [K, N*reps] reduced by a
 min per ray, on FP32 FMAs and on the tensor cores (`mma.sync`: TF32
 m16n8k8, BF16 m16n8k16, int8 m16n8k32; `wgmma.mma_async`: BF16
-m64n128k16, the cases named "bf16w"), so their rates say what a pair
-test on each unit could reach and what depth K costs there.
+m64n128k16 and TF32 m64n128k8, the cases named "bf16w" and "tf32w"), so
+their rates say what a pair test on each unit could reach and what depth
+K costs there.
 
 Cases, at B = 2^20 rays (the sweep of mxu_floor.main): K from 8 to 128 at
 N = 1024; N from 128 to 2048; 256, 512 and 1024 rays a block (the TPU
@@ -50,7 +51,8 @@ from rustic_tpu_torch.scene.world import World
 
 RAYS = 1 << 20
 # operations per second of each unit (NVIDIA H100 SXM datasheet, dense)
-PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12}
+PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12,
+        "tf32w": 495e12}
 
 # name, variant, K, N, reps, rays a block, acc_min
 CASES = [
@@ -83,6 +85,9 @@ CASES = [
     ("bf16w k128 n1024 m256", "bf16w", 128, 1024, 8, 256, True),
     ("bf16w k16 n128 m512", "bf16w", 16, 128, 8, 512, True),
     ("bf16w k16 n1024 m256", "bf16w", 16, 1024, 8, 256, True),
+    ("tf32w k16 n1024 m512", "tf32w", 16, 1024, 8, 512, True),
+    ("tf32w k8 n1024 m512", "tf32w", 8, 1024, 8, 512, True),
+    ("tf32w k32 n1024 m256", "tf32w", 32, 1024, 8, 256, True),
 ]
 QUICK = 7  # --quick: the K sweep in BF16 and the two f32 operand cases
 

@@ -1,9 +1,10 @@
-"""Four questions about how the kernels are built, asked on one CUDA device.
+"""Five questions about how the kernels are built, asked on one CUDA device.
 
     python -m rustic_tpu_torch.probe_kernel_builds contraction [DIR ...]
     python -m rustic_tpu_torch.probe_kernel_builds shade LABEL=SOURCE.cu [LABEL=SOURCE.cu ...]
     python -m rustic_tpu_torch.probe_kernel_builds scans LABEL=DIR [LABEL=DIR ...]
     python -m rustic_tpu_torch.probe_kernel_builds fused LABEL=DIR [LABEL=DIR ...]
+    python -m rustic_tpu_torch.probe_kernel_builds dots LABEL=DIR [LABEL=DIR ...]
 
 `contraction`: do the scans round the same with and without nvcc's FMA
 contraction? K17 (csrc/fused_bounce.cu) runs the scans' pair test in a
@@ -69,6 +70,19 @@ from its `rt_fused_abi` (none: 1, the JAX table layout and every pair;
 blocks an SM holds in each mode (`rt_fused_blocks_per_sm`; both alias
 modes, also the one the scene does not run). Registers and spills of
 every template from the build logs.
+
+`dots`: the dot-rate probes K18 (`rt_dot_min`) and K19
+(`rt_dot_min_split`) built from several versions of probe_dot.cu (one in
+each DIR; an older one: `git show <commit>:rustic_tpu_torch/csrc/probe_dot.cu`
+into a directory under build/), each run on every case of
+probe_dot_floor's sweep (CASES) and of its split sweep (the six-term split
+dot at K = 96, F pre-split or split in the kernel, and the three-term dot
+at K = 48, through mma.sync and through wgmma), at B = 2^20 rays on
+`probe_dot_floor.operands`: the outputs against the first version's bit
+for bit, and the versions timed in turns (median of 10 CUDA-event
+timings). A case a version is not built for (a variant it lacks) is
+skipped for it. Registers, spills and the compiler's wgmma notes of every
+build from its log.
 
 All print the card's name and power limit first.
 """
@@ -694,8 +708,101 @@ def scans(specs) -> int:
     return int(failed)
 
 
+# ---- dots ------------------------------------------------------------------------
+
+
+def dot_cases(device):
+    """[(name, entry point, (F, G), ints after the pointers)] of every K18
+    and K19 case the probes time, at B = 2^20 rays."""
+    from rustic_tpu_torch import probe_dot_floor as PF
+    from rustic_tpu_torch.ops import probe_dot as PD
+
+    b = PF.RAYS
+    cases, ops = [], {}
+    for name, variant, k, n, reps, m, acc_min in PF.CASES:
+        key = (variant, k, n * reps)
+        if key not in ops:
+            ops[key] = PF.operands(variant, k, b, n * reps, device)
+        cases.append((name, "rt_dot_min", ops[key],
+                      (b, k, n, reps, m, int(acc_min), PD.VARIANTS.index(variant))))
+    n, reps = 1024, 8
+    f32, g32 = PF.operands("fp32", PD.SPLIT_K, b, n * reps, device)
+    f96, g96 = PD.cat6_f(f32), PD.cat6_g(g32)
+    f48, g48 = f96[:48].contiguous(), g96[:48].contiguous()
+    for variant in ("bf16", "bf16w"):  # the wrappers' default blocks
+        code, m = PD.VARIANTS.index(variant), 512
+        cases += [
+            (f"K19 {variant} k96 presplit", "rt_dot_min", (f96, g96),
+             (b, 96, n, reps, min(m, PD.max_block_rays(variant, 96)), 1, code)),
+            (f"K19 {variant} k96 in-kernel F split", "rt_dot_min_split", (f32, g96),
+             (b, n, reps, m, int(variant == "bf16w"))),
+            (f"K19 {variant} k48 (x3)", "rt_dot_min", (f48, g48),
+             (b, 48, n, reps, min(m, PD.max_block_rays(variant, 48)), 1, code)),
+        ]
+    return cases
+
+
+def dots(specs) -> int:
+    device = torch.device("cuda", 0)
+    card = card_line()
+    dirs = dict(spec.split("=", 1) for spec in specs)
+    with ThreadPoolExecutor(len(dirs)) as pool:  # one nvcc per version
+        libs = dict(zip(dirs, pool.map(lambda label: _build.compile_source(
+            os.path.join(dirs[label], "probe_dot.cu"), _build.EXTRA_FLAGS["probe_dot"]), dirs)))
+    for label, lib in libs.items():
+        with open(lib[: -len(".so")] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line or "wgmma" in line.lower():
+                    print(f"{label}: {line.strip()}")
+    entries = {(label, fn): _build.load_entry(lib, fn, 4, n_ints)
+               for label, lib in libs.items()
+               for fn, n_ints in (("rt_dot_min", 7), ("rt_dot_min_split", 5))}
+    scratch = torch.empty(8 << 20, dtype=torch.uint8, device=device)  # wgmma's G, K <= 128
+    stream = torch.cuda.current_stream(device).cuda_stream
+    failed = False
+    for name, fn, (f, g), ints in dot_cases(device):
+        out_dtype = torch.int32 if f.dtype == torch.int8 else torch.float32
+        outs = {}
+        for label in dirs:
+            out = torch.empty(f.shape[1], dtype=out_dtype, device=device)
+            rc = entries[label, fn](f.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                    scratch.data_ptr(), *ints, stream)
+            if rc == 0:
+                outs[label] = out
+            else:
+                print(f"{name}: {label} refuses it (cudaError {rc}): skipped")
+        torch.cuda.synchronize()
+        if not outs:
+            continue
+        base = next(iter(outs))
+        for label, out in outs.items():
+            same = out.view(torch.int32) == outs[base].view(torch.int32)
+            diff = int((~same).sum())
+            failed |= diff > 0
+            print(f"{name}, {label}: {'equal to' if not diff else 'DIFFERS from'} {base}'s on "
+                  f"every ray" + (f" ({diff} rays differ, max |d| "
+                                  f"{float((out.double() - outs[base].double()).abs().max()):.3g})"
+                                  if diff else ""))
+
+        def run(label, name=name, fn=fn, f=f, g=g, ints=ints):
+            entries[label, fn](f.data_ptr(), g.data_ptr(), outs[label].data_ptr(),
+                               scratch.data_ptr(), *ints, stream)
+
+        times = {label: [] for label in outs}
+        for _ in range(10):  # in turns
+            for label in outs:
+                times[label].append(time_ms(lambda label=label: run(label)))
+        print(f"{name}: " + ", ".join(
+            f"{label} {statistics.median(ts):.3f} ms (min {min(ts):.3f})"
+            for label, ts in times.items()) + f" ({card})")
+        del outs
+    print("every version equals the first bit for bit" if not failed else
+          "a version DIFFERS from the first")
+    return int(failed)
+
+
 def main(argv) -> int:
-    if not argv or argv[0] not in ("contraction", "shade", "scans", "fused"):
+    if not argv or argv[0] not in ("contraction", "shade", "scans", "fused", "dots"):
         print(__doc__)
         return 2
     print(card_line())
@@ -705,6 +812,8 @@ def main(argv) -> int:
         return scans(argv[1:])
     if argv[0] == "fused":
         return fused(argv[1:])
+    if argv[0] == "dots":
+        return dots(argv[1:])
     return shade(argv[1:])
 
 

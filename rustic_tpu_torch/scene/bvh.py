@@ -1,13 +1,19 @@
-"""Binned-SAH BVH builder: a NumPy port of rustic_tpu/scene/bvh.py
-(`BVH`, `_build_bvh_numpy`, `validate_bvh`).
+"""Binned-SAH BVH builder: the port of rustic_tpu/scene/bvh.py (`BVH`,
+`build_bvh`, `_build_bvh_numpy`, `validate_bvh`) and of
+rustic_tpu/scene/bvh_native.py.
 
 The triangle permutation fixes the flash tile layout and every winner
 index, and the nodes are what the "bvh" engine traverses
-(ops/intersect.py `intersect_bvh`, kernel K20), so this is the same
-algorithm step for step and gives the same permutation and nodes as the
-JAX NumPy builder. The JAX package prefers its C++ builder
-(native/bvh.cpp) when that library is built, and that one gives a
-different permutation.
+(ops/intersect.py `intersect_bvh`, kernel K20). The JAX package builds
+them with its C++ builder (native/bvh.cpp) by default and with NumPy
+otherwise; the two give different permutations. The port carries both:
+`build_bvh` runs csrc/bvh_build.cpp, a copy of native/bvh.cpp built by
+g++ at first use with the JAX package's flags (ops/_build.py
+`compile_host`), and with `use_native=False` `_build_bvh_numpy`, the
+same algorithm step for step as the JAX NumPy builder. One departure:
+where JAX falls back to NumPy without a word when the C++ builder cannot
+be built, the port raises with the compiler's message (a silent fallback
+would change every film).
 
 Nodes are a struct of arrays (aabb_min [N, 3], aabb_max [N, 3],
 left_first [N], count [N]), as in the JAX package.
@@ -15,9 +21,14 @@ left_first [N], count [N]), as in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+import os
 
 import numpy as np
+
+from rustic_tpu_torch.ops import _build
 
 _INF = np.float32(np.inf)
 
@@ -46,16 +57,66 @@ def _node_area(lo: np.ndarray, hi: np.ndarray) -> float:
 
 
 def build_bvh(
-    vertices: np.ndarray, triangles: np.ndarray, sah_samples: int = 128
+    vertices: np.ndarray, triangles: np.ndarray, sah_samples: int = 128, use_native: bool = True
 ) -> tuple[BVH, np.ndarray]:
     """Build a binned-SAH BVH over [T, 4] (i0, i1, i2, material) triangles
     -> (the nodes, the permutation mapping the BVH triangle order to the
-    old triangle index) (reference: src/bvh.rs:178-324)."""
+    old triangle index) (reference: src/bvh.rs:178-324). `use_native`:
+    the C++ builder (the JAX package's default order), else NumPy."""
+    if len(triangles) == 0:
+        raise ValueError("scene has no triangle geometry (cameras/lights only?)")
+    if use_native:
+        return _build_bvh_native(vertices, triangles, sah_samples)
+    return _build_bvh_numpy(vertices, triangles, sah_samples)
+
+
+@functools.lru_cache(maxsize=None)
+def _native_library() -> ctypes.CDLL:
+    """csrc/bvh_build.cpp, built if needed, with `bvh_build` declared as
+    rustic_tpu/scene/bvh_native.py declares it."""
+    lib = ctypes.CDLL(_build.compile_host(os.path.join(_build.CSRC, "bvh_build.cpp")))
+    f32, i32 = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+    lib.bvh_build.restype = ctypes.c_int
+    # vertices [V*3], V, triangle vertex indices [T*3], T, sah_samples, out aabb_min
+    # [(2T-1)*3], aabb_max, left_first, count, permutation [T]
+    lib.bvh_build.argtypes = [f32, ctypes.c_int, i32, ctypes.c_int, ctypes.c_int, f32, f32, i32,
+                              i32, i32]
+    return lib
+
+
+def _build_bvh_native(vertices, triangles, sah_samples: int) -> tuple[BVH, np.ndarray]:
+    """`build_bvh` through the C++ builder (rustic_tpu/scene/bvh_native.py
+    `build_bvh`)."""
+    lib = _native_library()
+    verts = np.ascontiguousarray(np.asarray(vertices, np.float32)[:, :3])
+    tri = np.ascontiguousarray(np.asarray(triangles, np.int32)[:, :3])
+    n_tris = len(tri)
+    max_nodes = max(2 * n_tris - 1, 1)
+    aabb_min = np.empty((max_nodes, 3), np.float32)
+    aabb_max = np.empty((max_nodes, 3), np.float32)
+    left_first = np.empty(max_nodes, np.int32)
+    count = np.empty(max_nodes, np.int32)
+    perm = np.empty(n_tris, np.int32)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(
+            ctypes.c_float if a.dtype == np.float32 else ctypes.c_int))
+
+    n_nodes = lib.bvh_build(ptr(verts), len(verts), ptr(tri), n_tris, sah_samples, ptr(aabb_min),
+                            ptr(aabb_max), ptr(left_first), ptr(count), ptr(perm))
+    if n_nodes <= 0:
+        raise RuntimeError(f"the native BVH builder failed ({n_nodes}) on {n_tris} triangles, "
+                           f"{sah_samples} SAH bins")
+    bvh = BVH(aabb_min=aabb_min[:n_nodes].copy(), aabb_max=aabb_max[:n_nodes].copy(),
+              left_first=left_first[:n_nodes].copy(), count=count[:n_nodes].copy())
+    return bvh, perm.astype(np.int64)
+
+
+def _build_bvh_numpy(vertices, triangles, sah_samples: int) -> tuple[BVH, np.ndarray]:
+    """`build_bvh` in NumPy (rustic_tpu/scene/bvh.py `_build_bvh_numpy`)."""
     verts = np.asarray(vertices, np.float32)[:, :3]
     tris = np.asarray(triangles, np.int64)
     n_tris = len(tris)
-    if n_tris == 0:
-        raise ValueError("scene has no triangle geometry (cameras/lights only?)")
 
     va = verts[tris[:, 0]]
     vb = verts[tris[:, 1]]

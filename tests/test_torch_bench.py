@@ -38,12 +38,12 @@ import rustic_tpu.runtime.render as jax_render
 from rustic_tpu.config import NextEventEstimation as JaxNEE
 from rustic_tpu.config import RenderSettings as JaxRenderSettings
 from rustic_tpu.config import TracingConfig as JaxTracingConfig
-from rustic_tpu.scene import bvh_native
 from rustic_tpu.scene.gltf import load_glb as jax_load_glb
 from rustic_tpu.scene.world import World as JaxWorld
 from rustic_tpu_torch import bench, bench_suite, cli
 from rustic_tpu_torch.scene.world import World
 from tests.conftest import scene_path
+from tests.test_torch_bvh_native import require_jax_native
 
 torch.set_num_threads(2)
 
@@ -56,8 +56,9 @@ PORT_KEYS = {"furnace_value", "launches", "pbr_skipped"}
 
 
 @pytest.fixture(autouse=True)
-def numpy_bvh_builder(monkeypatch):
-    monkeypatch.setattr(bvh_native, "available", lambda: False)
+def native_bvh_builder():
+    """Both packages build their scenes in the default, native BVH order."""
+    require_jax_native()
 
 
 def load_tool(name, path):

@@ -3,8 +3,9 @@ nodes, the traversal (`intersect_bvh` / `occlude_bvh`, the plain version
 of kernel K20), and the renders that take it ("auto" on the CPU above 64
 triangles, `backend="cpu"`, `compare_engines`' default engines).
 
-The JAX World is built with its NumPy builder (bvh_native.available
-patched to False): the port carries that builder, not the C++ one.
+Both packages build their Worlds by default, with their C++ builders
+(native/bvh.cpp, and the port's copy csrc/bvh_build.cpp); the builder
+tests hold each of the port's two builders to its JAX twin.
 
 Tolerances. Nodes and permutation: equal. Traversal: `hit` and
 `backface` equal on every lane; t, u and v within rtol 1e-5 (u and v
@@ -42,6 +43,7 @@ from rustic_tpu_torch.scene import bvh as TB
 from rustic_tpu_torch.scene.gltf import load_glb
 from rustic_tpu_torch.scene.world import World, scene_from_arrays
 from tests.conftest import scene_path
+from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_flash_multi import VEACH_CAM
 
 torch.set_num_threads(2)
@@ -60,9 +62,8 @@ def scenes():
 
     def get(name):
         if name not in cache:
-            with pytest.MonkeyPatch.context() as mp:
-                mp.setattr(bvh_native, "available", lambda: False)
-                js = JaxWorld.from_path(scene_path(f"{name}.glb")).to_device()
+            require_jax_native()
+            js = JaxWorld.from_path(scene_path(f"{name}.glb")).to_device()
             fields = {k: np.asarray(getattr(js, k)) for k in (
                 "tri_feats16", "tri_attrs", "entry_rows", "tile_aabbs", "bvh_min", "bvh_max",
                 "bvh_left_first", "bvh_count")}
@@ -109,8 +110,26 @@ def test_nodes_match_the_jax_numpy_builder(case):
     else:
         g = load_glb(scene_path(f"{case}.glb"))
         verts, tris = g.positions, g.triangles
-    bvh, perm = TB.build_bvh(verts, tris)
+    bvh, perm = TB.build_bvh(verts, tris, use_native=False)
     jbvh, jperm = JB._build_bvh_numpy(verts, tris, 128)
+    np.testing.assert_array_equal(perm, jperm)
+    for name in ("aabb_min", "aabb_max", "left_first", "count"):
+        got, want = getattr(bvh, name), getattr(jbvh, name)
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert bvh.n_nodes == jbvh.n_nodes > 1
+
+
+@pytest.mark.parametrize("case", ["DarkCornell", "VeachMIS", "soup0", "soup1"])
+def test_nodes_match_the_jax_native_builder(case):
+    require_jax_native()
+    if case.startswith("soup"):
+        verts, tris = soup(int(case[-1]))
+    else:
+        g = load_glb(scene_path(f"{case}.glb"))
+        verts, tris = g.positions, g.triangles
+    bvh, perm = TB.build_bvh(verts, tris)
+    jbvh, jperm = bvh_native.build_bvh(verts, tris, 128)
     np.testing.assert_array_equal(perm, jperm)
     for name in ("aabb_min", "aabb_max", "left_first", "count"):
         got, want = getattr(bvh, name), getattr(jbvh, name)

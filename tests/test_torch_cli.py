@@ -22,11 +22,11 @@ import pytest
 import torch
 
 from rustic_tpu import cli as jax_cli
-from rustic_tpu.scene import bvh_native
 from rustic_tpu_torch import cli
 from rustic_tpu_torch.runtime.state import Checkpoint
 from rustic_tpu_torch.utils.hdr import read_hdr
 from tests.conftest import scene_path
+from tests.test_torch_bvh_native import require_jax_native
 
 torch.set_num_threads(2)
 
@@ -38,8 +38,9 @@ STATS_KEYS = {"scene", "backend", "engine", "samples_resumed", "mpaths_per_s", "
 
 
 @pytest.fixture(autouse=True)
-def numpy_bvh_builder(monkeypatch):
-    monkeypatch.setattr(bvh_native, "available", lambda: False)
+def native_bvh_builder():
+    """Both CLIs build their scenes in the default, native BVH order."""
+    require_jax_native()
 
 
 def render_args(tmp, tag, *extra, spp=2, scene="DarkCornell.glb"):

@@ -5,9 +5,8 @@ binary little- and big-endian) and FBX (binary and ASCII), each written
 by the test itself as tests/test_formats.py and tests/test_fbx.py write
 theirs, load through both packages' loaders to equal `GltfScene` arrays
 and materials, and through both packages' `World.from_path` to equal
-scene tensors (the JAX World with its NumPy BVH builder, as the port
-carries). `write_glb` scenes read back equal through both `load_glb`s.
-PNG files of every colour type, bit depth, key colour, palette alpha and
+scene tensors (both with their C++ BVH builders, the default).
+`write_glb` scenes read back equal through both `load_glb`s. PNG files of every colour type, bit depth, key colour, palette alpha and
 interlacing decode equal to Pillow's `convert("RGBA")`. All comparisons
 are exact: both sides run the same NumPy arithmetic.
 """
@@ -20,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from rustic_tpu.scene import bvh_native
 from rustic_tpu.scene import fbx as JF
 from rustic_tpu.scene import glb_write as JGW
 from rustic_tpu.scene import gltf as JG
@@ -36,6 +34,7 @@ from rustic_tpu_torch.scene import world as TW
 from rustic_tpu_torch.utils import png
 from tests.test_fbx import ASCII_FBX, _cube_fbx
 from tests.test_formats import MTL_RED, OBJ_QUAD, _stl_binary
+from tests.test_torch_bvh_native import require_jax_native
 
 torch.set_num_threads(2)
 
@@ -69,10 +68,10 @@ JAX_LOADERS = {".obj": JO.load_obj, ".stl": JM.load_stl, ".ply": JM.load_ply,
                ".fbx": JF.load_fbx, ".glb": JG.load_glb}
 
 
-def same_world(path, monkeypatch):
+def same_world(path):
     """The port's World.from_path(path) and the JAX World of the JAX
     loader's scene (both with an ATLAS-texel atlas) -> equal scene tensors."""
-    monkeypatch.setattr(bvh_native, "available", lambda: False)
+    require_jax_native()
     js = JW.World(JAX_LOADERS[os.path.splitext(path)[1]](path), ATLAS).to_device()
     ts = TW.World.from_path(path, ATLAS).to_torch("cpu")
     want_attrs = np.asarray(js.tri_attrs)
@@ -227,18 +226,18 @@ def write_textured_obj(tmp_path):
     return _write(tmp_path, "tex.obj", "\n".join(lines) + "\n")
 
 
-def test_obj_with_textures_matches_jax(tmp_path, monkeypatch):
+def test_obj_with_textures_matches_jax(tmp_path):
     path = write_textured_obj(tmp_path)
     got, want = TO.load_obj(path), JO.load_obj(path)
     same_gltf(got, want)
     floor = got.materials[got.triangles[0, 3]]
     assert floor.albedo_texture is not None and floor.normal_texture is not None
-    ts = same_world(path, monkeypatch)
+    ts = same_world(path)
     assert ts.has_textures and ts.has_lights
 
 
 @pytest.mark.parametrize("variant", ["quad", "pbr", "negative", "two_libs"])
-def test_obj_matches_jax(tmp_path, monkeypatch, variant):
+def test_obj_matches_jax(tmp_path, variant):
     _write(tmp_path, "quad.mtl", MTL_RED)
     if variant == "quad":
         text = OBJ_QUAD
@@ -253,7 +252,7 @@ def test_obj_matches_jax(tmp_path, monkeypatch, variant):
                 "usemtl red\nf 1 2 3\nusemtl blue\nf 1 2 4\n")
     path = _write(tmp_path, f"{variant}.obj", text)
     same_gltf(TO.load_obj(path), JO.load_obj(path))
-    same_world(path, monkeypatch)
+    same_world(path)
 
 
 # ---- STL, PLY ------------------------------------------------------------------------
@@ -262,7 +261,7 @@ TRIS = np.array([[[0, 0, 0], [1, 0, 0], [0, 2, 0]], [[0, 0, 0], [0, 2, 0], [-1, 
                  [[0, 0, 0], [0, 2, 0], [0, 0, 1.5]]], np.float32)
 
 
-def test_stl_matches_jax(tmp_path, monkeypatch):
+def test_stl_matches_jax(tmp_path):
     binary = _write(tmp_path, "t.stl", _stl_binary(TRIS))
     lines = ["solid t"]
     for t in TRIS:
@@ -272,7 +271,7 @@ def test_stl_matches_jax(tmp_path, monkeypatch):
     ascii_ = _write(tmp_path, "a.stl", "\n".join(lines + ["endsolid t"]) + "\n")
     for path in (binary, ascii_):
         same_gltf(TM.load_stl(path), JM.load_stl(path))
-        same_world(path, monkeypatch)
+        same_world(path)
 
 
 def _ply(fmt, uv):
@@ -297,20 +296,20 @@ def _ply(fmt, uv):
 
 
 @pytest.mark.parametrize("fmt", ["ascii", "binary_little_endian", "binary_big_endian"])
-def test_ply_matches_jax(tmp_path, monkeypatch, fmt):
+def test_ply_matches_jax(tmp_path, fmt):
     for uv in (False, True):
         path = _write(tmp_path, f"q{int(uv)}.ply", _ply(fmt, uv))
         got = TM.load_ply(path)
         same_gltf(got, JM.load_ply(path))
         assert got.triangles.shape == (3, 4)
-        same_world(path, monkeypatch)
+        same_world(path)
 
 
 # ---- FBX ---------------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("kind", ["binary", "binary_moved", "ascii"])
-def test_fbx_matches_jax(tmp_path, monkeypatch, kind):
+def test_fbx_matches_jax(tmp_path, kind):
     path = str(tmp_path / "s.fbx")
     if kind == "ascii":
         _write(tmp_path, "s.fbx", ASCII_FBX)
@@ -319,7 +318,7 @@ def test_fbx_matches_jax(tmp_path, monkeypatch, kind):
     got = TF.load_fbx(path)
     same_gltf(got, JF.load_fbx(path))
     assert len(got.triangles) >= 1
-    same_world(path, monkeypatch)
+    same_world(path)
     with pytest.raises(ValueError):
         TF.load_fbx(_write(tmp_path, "bad.fbx", b"not an fbx at all" * 4))
 
@@ -353,7 +352,7 @@ def glb_specs(mod, textured):
 
 
 @pytest.mark.parametrize("textured", [False, True])
-def test_write_glb_round_trips(tmp_path, monkeypatch, textured):
+def test_write_glb_round_trips(tmp_path, textured):
     path = str(tmp_path / "w.glb")
     TGW.write_glb(path, *glb_specs(TGW, textured))
     got = TG.load_glb(path)
@@ -366,7 +365,7 @@ def test_write_glb_round_trips(tmp_path, monkeypatch, textured):
         with open(path, "rb") as a, open(jpath, "rb") as b:
             assert a.read() == b.read()
     same_gltf(got, TG.load_glb(jpath))  # the PNGs of two encoders decode the same
-    ts = same_world(path, monkeypatch)
+    ts = same_world(path)
     assert ts.has_glass and ts.has_lights
 
 

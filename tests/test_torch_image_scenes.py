@@ -30,7 +30,6 @@ import torch
 import jax.numpy as jnp
 
 from rustic_tpu.runtime import pipeline as JP
-from rustic_tpu.scene import bvh_native
 from rustic_tpu.scene import gltf as JG
 from rustic_tpu.scene import obj as JO
 from rustic_tpu.scene import world as JW
@@ -43,6 +42,7 @@ from rustic_tpu_torch.scene import obj as TO
 from rustic_tpu_torch.scene import world as TW
 from tests.conftest import scene_path
 from tests.test_torch_breaktime import assert_film_close
+from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
 from tests.test_torch_image_formats import (BT_JPEG, BT_SKY_EXR, BT_TWIN, FIXTURES,
@@ -67,8 +67,8 @@ def half_sky(tmp_path_factory):
     return str(path)
 
 
-def test_breaktime_jpeg_world_matches_jax(monkeypatch):
-    ts = same_world(fixture_path(BT_JPEG), monkeypatch)
+def test_breaktime_jpeg_world_matches_jax():
+    ts = same_world(fixture_path(BT_JPEG))
     assert ts.has_textures
     twin = TW.World.from_path(fixture_path(BT_TWIN), SAME_WORLD_ATLAS).to_torch("cpu")
     for name in ("atlas", "tri_attrs"):
@@ -94,14 +94,14 @@ def write_obj_with_maps(tmp_path):
     return str(tmp_path / "tex.obj")
 
 
-def test_obj_with_jpeg_tga_bmp_maps_matches_jax(tmp_path, monkeypatch):
+def test_obj_with_jpeg_tga_bmp_maps_matches_jax(tmp_path):
     path = write_obj_with_maps(tmp_path)
     got, want = TO.load_obj(path), JO.load_obj(path)
     same_gltf(got, want)
     floor = got.materials[got.triangles[0, 3]]
     assert floor.albedo_texture is not None and floor.roughness_texture is not None
     assert floor.normal_texture is not None
-    ts = same_world(path, monkeypatch)
+    ts = same_world(path)
     assert ts.has_textures
 
 
@@ -140,6 +140,7 @@ def test_jpeg_breaktime_film_matches_jax(half_sky):
     from rustic_tpu.config import TracingConfig as JaxTracingConfig
 
     path = fixture_path(BT_JPEG)
+    require_jax_native()
     jcut = cuts.one_tile(JG.load_glb(path), cuts.BREAKTIME_ONE_TILE)
     js = JW.World(jcut, ATLAS).to_device(JW.load_skybox_image(half_sky))
     tcut = cuts.one_tile(TG.load_glb(path), cuts.BREAKTIME_ONE_TILE)

@@ -239,3 +239,53 @@ def test_probe_operands_are_seeded():
         assert m <= PD.max_block_rays(variant, k) and n % 8 == 0 and PF.RAYS % m == 0
         f, g = PF.operands(variant, k, m, n * reps, "cpu")
         PD._check_operands(f, g, n, reps, f.dtype, g.dtype, variant, m)  # what the kernels take
+
+
+def test_tf32_wgmma_variant_shares_the_tf32_plain_version(operands):
+    """ "tf32w" (TF32 through wgmma) computes what "tf32" computes: both
+    operands rounded to TF32, then the float32 dot. Held to the TPU case
+    at its lower precision: within the TF32 rounding of both operands,
+    2^-10 of the summed term magnitudes of the worst column."""
+    f, g = operands
+    tf, tg = torch.from_numpy(f), torch.from_numpy(g)
+    got = PD.dot_min(tf, tg, N, REPS, "tf32w")
+    assert torch.equal(got, PD.dot_min(tf, tg, N, REPS, "tf32"))
+    assert torch.equal(got, PD.dot_min_plain(tf, tg, N, REPS, "tf32w"))
+    want = interpret(_case_kernel(16, N, REPS, DEFAULT, True), f, g)
+    terms = (np.abs(f).astype(np.float64).T @ np.abs(g).astype(np.float64)).max(axis=1)
+    assert np.all(np.abs(got.numpy() - want) <= 2.0**-10 * 1.01 * terms + 1e-5)
+    assert np.abs(got.numpy() - want).max() > 1e-5  # and TF32 is seen
+    with pytest.raises(ValueError, match="acc_min"):
+        PD.dot_min(tf, tg, N, REPS, "tf32w", acc_min=False)
+    assert [PD.max_block_rays("tf32w", k) for k in (8, 16, 32)] == [512, 512, 256]
+    PD._check_operands(tf, tg, N, REPS, torch.float32, torch.float32, "tf32w", 256)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        PD._check_operands(tf, tg, N, REPS, torch.float32, torch.float32, "tf32w", 128)
+    with pytest.raises(ValueError, match="built for K"):
+        PD._check_operands(tf[:12], tg[:12], N, REPS, torch.float32, torch.float32, "tf32w", 512)
+    scratch = PD._wgmma_scratch("tf32w", 16, 256, "cpu")
+    assert scratch.dtype == torch.float32 and scratch.numel() * 4 == 256 * 32 * 2  # 2 K steps
+
+
+def test_tf32_wgmma_launch_is_counted(operands, monkeypatch):
+    """The wrapper's path to the card, with the launch itself replaced:
+    the operands checked, the variant's number and block passed, the
+    scratch for G's ring order allocated, and one launch counted."""
+    tf, tg = (torch.from_numpy(a) for a in operands)
+    calls = []
+    monkeypatch.setattr(PD._build, "uses_plain", lambda x: False)
+    monkeypatch.setattr(PD._build, "entry_point", lambda *a: a)
+    monkeypatch.setattr(PD._build, "launch", lambda fn, label, dev, tensors, ints:
+                        calls.append((fn, label, tensors, ints)))
+    PD.reset_launch_counts()
+    PD.dot_min(tf, tg, N, REPS, "tf32w")
+    assert PD.LAUNCHES["dot_min_tf32w"] == 1
+    assert sum(PD.LAUNCHES.values()) == 1
+    (fn, label, tensors, ints), = calls
+    assert fn == ("probe_dot", "rt_dot_min", 4, 7) and label == "dot_min_tf32w"
+    assert ints == (B, 16, N, REPS, 512, 1, PD.VARIANTS.index("tf32w")) == (B, 16, N, REPS, 512, 1, 5)
+    assert tensors[3].dtype == torch.float32 and tensors[3].numel() == N * REPS * 16
+    with pytest.raises(ValueError, match="rays a block"):
+        PD.dot_min(tf, tg, N, REPS, "tf32w", m=384)
+    assert PD.LAUNCHES["dot_min_tf32w"] == 1
+    PD.reset_launch_counts()

@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from rustic_tpu.scene import bvh_native
 from rustic_tpu_torch.config import NextEventEstimation, RenderSettings, TracingConfig
 from rustic_tpu_torch.runtime import state as state_mod
 from rustic_tpu_torch.runtime.render import render_pixels
@@ -28,6 +27,7 @@ from rustic_tpu_torch.runtime.state import Checkpoint, TracingState
 from rustic_tpu_torch.scene.world import World
 from rustic_tpu_torch.utils import profiling as P
 from tests.conftest import scene_path
+from tests.test_torch_bvh_native import require_jax_native
 
 torch.set_num_threads(2)
 
@@ -37,15 +37,12 @@ FILM_TOL = dict(rtol=1e-4, atol=1e-5)
 
 @functools.lru_cache(maxsize=None)
 def jax_world(name):
-    """The JAX World of a committed scene, built with the NumPy BVH builder."""
+    """The JAX World of a committed scene, built by default (the native
+    BVH order, as the port's)."""
     from rustic_tpu.scene.world import World as JaxWorld
 
-    real = bvh_native.available
-    bvh_native.available = lambda: False
-    try:
-        return JaxWorld.from_path(scene_path(f"{name}.glb"))
-    finally:
-        bvh_native.available = real
+    require_jax_native()
+    return JaxWorld.from_path(scene_path(f"{name}.glb"))
 
 
 @functools.lru_cache(maxsize=None)

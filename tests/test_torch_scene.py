@@ -1,22 +1,21 @@
 """The port's scene build (NumPy loader, BVH, light table, flash tables,
 slim shading rows) against the JAX package's World.
 
-The JAX World prefers its C++ BVH builder when native/libbvh.so is
-built, and that builder orders triangles differently from the NumPy
-builder the port carries; the JAX side is therefore built with the
-NumPy builder (bvh_native.available patched to False). Every compared
-table must be equal exactly: both sides run the same NumPy arithmetic."""
+Both Worlds are built by default: the JAX package with its C++ BVH
+builder (native/bvh.cpp), the port with its copy (csrc/bvh_build.cpp),
+the same triangle order. Every compared table must be equal exactly:
+both sides run the same C++ and NumPy arithmetic."""
 
 import numpy as np
 import pytest
 import torch
 
 from rustic_tpu.scene import bvh as jax_bvh
-from rustic_tpu.scene import bvh_native
 from rustic_tpu.scene import world as JW
 from rustic_tpu_torch.scene import bvh as port_bvh
 from rustic_tpu_torch.scene import world as TW
 from rustic_tpu_torch.scene.gltf import load_glb
+from tests.test_torch_bvh_native import require_jax_native
 
 torch.set_num_threads(2)
 
@@ -47,7 +46,7 @@ def write_glass_sky(path):
 
 
 @pytest.fixture(params=["DarkCornell", "glass_sky"])
-def worlds(request, tmp_path_factory, monkeypatch):
+def worlds(request, tmp_path_factory):
     if request.param == "glass_sky":
         path = str(tmp_path_factory.mktemp("glass") / "glass_sky.glb")
         write_glass_sky(path)
@@ -55,7 +54,7 @@ def worlds(request, tmp_path_factory, monkeypatch):
         from conftest import scene_path
 
         path = scene_path(f"{request.param}.glb")
-    monkeypatch.setattr(bvh_native, "available", lambda: False)
+    require_jax_native()
     jworld = JW.World.from_path(path)
     return jworld, jworld.to_device(), TW.World.from_path(path)
 
@@ -113,7 +112,7 @@ def test_bvh_permutation_matches_numpy_builder(name):
     from conftest import scene_path
 
     g = load_glb(scene_path(f"{name}.glb"))
-    _, perm = port_bvh.build_bvh(g.positions, g.triangles)
+    _, perm = port_bvh.build_bvh(g.positions, g.triangles, use_native=False)
     _, jperm = jax_bvh._build_bvh_numpy(g.positions, g.triangles, 128)
     np.testing.assert_array_equal(perm, jperm)
 

@@ -18,9 +18,8 @@ Tolerances:
   time, so no contraction): sample_atlas exactly, the textured material
   and the resolved rows to rtol 1e-5, atol 1e-6.
 
-The JAX World is built with the NumPy BVH construction (bvh_native.available
-patched to False), as tests/test_torch_scene.py does, and with a
-256-texel atlas."""
+Both Worlds are built by default (the native BVH order), as in
+tests/test_torch_scene.py, with a 256-texel atlas."""
 
 import io
 
@@ -41,7 +40,6 @@ from rustic_tpu.ops import skybox as JS
 from rustic_tpu.ops import texture as JT
 from rustic_tpu.ops import trace as JTR
 from rustic_tpu.scene import atlas as JA
-from rustic_tpu.scene import bvh_native
 from rustic_tpu.scene import gltf as JG
 from rustic_tpu.scene import world as JW
 from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
@@ -58,6 +56,7 @@ from rustic_tpu_torch.scene import atlas as TA
 from rustic_tpu_torch.scene import world as TW
 from rustic_tpu_torch.utils import png
 from tests.conftest import scene_path
+from tests.test_torch_bvh_native import require_jax_native
 
 torch.set_num_threads(2)
 
@@ -92,12 +91,8 @@ def breaktime_images():
 def worlds():
     """(JAX World, JAX scene, port World, port scene): BreakTime with a
     256-texel atlas and its HDR sky."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(bvh_native, "available", lambda: False)
-    try:
-        jworld = JW.World(JG.load_glb(BREAKTIME), ATLAS)
-    finally:
-        mp.undo()
+    require_jax_native()
+    jworld = JW.World(JG.load_glb(BREAKTIME), ATLAS)
     jscene = jworld.to_device(JW.load_skybox_image(SKY))
     tworld = TW.World.from_path(BREAKTIME, ATLAS)
     return jworld, jscene, tworld, tworld.to_torch("cpu", TW.load_skybox_image(SKY))
