@@ -18,8 +18,9 @@ form (the grid form, K9-K11, is the default), the state-sorted driver
 and "auto" against the kernel-shade loop, and the DarkCornell, GlassTest
 and FurnaceTest reference films; the dot-rate probes (K18, K19)
 through their program, rustic_tpu_torch/probe_dot_floor.py; and the
-"bvh" engine's traversal, one thread a ray (K20), against its plain
-version and the tile scans, under compare_engines and backend="cpu"; and
+"bvh" engine's traversal (K20: persistent warps over packed records),
+against its plain version and the tile scans, on sorted rays and on the
+oracle's, under compare_engines and backend="cpu"; and
 the product surface (the CLI, progressive state and checkpoints, the
 viewer's core, the denoiser) at the headline configuration; and the
 multi-GPU layer (rustic_tpu_torch/parallel/: a world of one through
@@ -67,9 +68,9 @@ Phases, each of which must pass (the first that fails ends the run):
      ray's own slab test inside the listed tiles for the nearest set,
      equal to their plain versions (the lists alone) bit for bit (NaN
      equal to NaN); K7 index and occlusion equal on >= 99.99% of rays.
-  7. multi-time: K5-K7 and their plain versions at 4,194,304 lanes, in
-     turns, as phase 3 but medians of 3 (the lists are built before the
-     timed launches);
+  7. multi-time: K5-K7 at 4,194,304 lanes and their plain versions on
+     the first 65,536 of them, in turns, as phase 3 (the lists are built
+     before the timed launches);
      each bound over the pairs its loop needs on this data (the nearest
      set: the listed tiles that each ray's slab test admits at its running
      best t; the any-hit set: the listed tiles a ray reaches before it is
@@ -128,7 +129,8 @@ Phases, each of which must pass (the first that fails ends the run):
      BreakTime has 2 alias entries) and K8, both in HDR mode, bit-equal to
      their plain version on every bounce.
  15. breaktime-time: K9-K11 and their plain versions in turns as phase 7
-     (2 turns: a plain version takes 3-6 s); the lane utilisation a loop of one thread a ray would
+     (the plain versions on 65,536 lanes: at full length one takes 3-6
+     s); the lane utilisation a loop of one thread a ray would
      have (admitted lanes over 32 x the warp-tiles with one), and the
      exact-epilogue shares of the skip test as phase 3; each form's whole
      scan, block_tile_lists plus K5-K7 against K9-K11 alone, and the list
@@ -252,7 +254,8 @@ Phases, each of which must pass (the first that fails ends the run):
      Then the probes' program (probe_dot_floor.main: the case sweep and
      the accuracy table), with the launch counts read after it.
  31. bvh: the "bvh" engine's traversal, K20n (nearest) and K20a (any hit),
-     one thread a ray (csrc/bvh_traverse.cu). The bounce-1 operands of one
+     persistent warps over the packed node and triangle records
+     (csrc/bvh_traverse.cu). The bounce-1 operands of one
      fold group of VeachMIS, BreakTime (its first pixel chunk) and PBRTest
      (1024x1024 from its default camera: no emitter, so no shadow rays),
      each 4,194,304 lanes, traced through the kernel-shade loop's bounce 0
@@ -262,7 +265,11 @@ Phases, each of which must pass (the first that fails ends the run):
      each scene; on VeachMIS on all 4,194,304 lanes too, whose per-ray
      counters (internal nodes popped, triangles tested) give the bound.
      K20n and K20a timed against their plain versions (65,536 lanes), and
-     in turns against K9, K10 and K11 on the same rays. Then
+     in turns against K9, K10 and K11 on the same rays. The oracle's own
+     operands (make_reference_films `k20_operands`: the unsorted rays of
+     bounces 0-3 of its first trace_paths call on VeachMIS 1024^2,
+     1,048,576 lanes a launch): each launch bit-equal to its plain version
+     on every lane, and timed. Then
      compare_engines at its default engines ("brute", "bvh", "flash") on
      a VeachMIS 64x64x4 film on the card: every pair's RMSE under 1e-3,
      K20n and K20a launched by the "bvh" render, the plain version never;
@@ -1252,12 +1259,14 @@ class Smoke:
             f"admitted tiles per block {admitted['K7']:.3f}")
         return {"K5": e5, "K6": e6, "K7": e7}
 
-    def _mt_time(self, cases, lanes, report):
+    def _mt_time(self, cases, lanes, report, plain_cut=None):
         """Time the kernels of `cases` and their plain versions and bound
         each by the pairs its loop needs on this data (`list_form_pairs`);
         beside it, the bound over every pair the lists admit (each block's
         rays x the real triangles of each admitted tile). The kernels line
-        takes the numbers of the keys in `report`."""
+        takes the numbers of the keys in `report`. With `plain_cut` (the
+        same cases on the first CHECK_LANES lanes) the plain versions are
+        timed there, in 10 turns."""
         import torch
 
         from rustic_tpu_torch.ops import flash_intersect as FI
@@ -1269,8 +1278,11 @@ class Smoke:
             scene.n_tris - torch.arange(nt, device=self.dev) * tt, 0, tt).float()
         table = g16.shape[1] * RAY_ROWS * 4
         for key, (lists, rays, kern, plain) in cases.items():
-            # 3 turns: the plain versions take ~1-2 s a call at these lanes
-            self.time_pair(key, kern, plain, lanes, reps=3, report=key in report)
+            if plain_cut is None:  # 3 turns: the plain versions take ~1-2 s a call at these lanes
+                self.time_pair(key, kern, plain, lanes, reps=3, report=key in report)
+            else:
+                self.time_pair(key, kern, plain_cut[key][3], f"{lanes} (plain: {CHECK_LANES})",
+                               report=key in report)
             b = rays[0].shape[1]
             nb = lists[0].shape[0]
             per_block = torch.full((nb,), float(FI.BT_MULTI), device=self.dev)
@@ -1314,7 +1326,8 @@ class Smoke:
         )
         log(f"block_tile_lists at {MT_LANES} lanes (one ray set): "
             f"{statistics.median(lists_ms):.3f} ms")
-        self._mt_time(self._mt_cases(self.mt_bounces, slice(None)), MT_LANES, ("K5",))
+        self._mt_time(self._mt_cases(self.mt_bounces, slice(None)), MT_LANES, ("K5",),
+                      plain_cut=self._mt_cases(self.mt_bounces, slice(0, CHECK_LANES)))
         self.mt_bounces = None  # free the traced group
         self.torch.cuda.empty_cache()
 
@@ -1805,12 +1818,14 @@ class Smoke:
             scene.n_tris - torch.arange(nt, device=self.dev) * tt, 0, tt).double()
         table = g16.shape[1] * RAY_ROWS * 4 + aabbs.numel() * 4
         cases = self._bt_cases(self.bt_bounces, slice(None))
+        cut = self._bt_cases(self.bt_bounces, slice(0, CHECK_LANES))
         for key, (f, s) in cases.items():
-            plain = {"K9": lambda f=f: FI.nearest_grid_plain(f, g16, aabbs),
-                     "K10": lambda f=f, s=s: FI.nearest_shadow_grid_plain(f, s, g16, aabbs),
-                     "K11": lambda s=s: FI.occlude_grid_plain(s, g16, aabbs)}[key]
+            fc, sc = cut[key]  # the plain versions take 3-6 s a call at full length
+            plain = {"K9": lambda: FI.nearest_grid_plain(fc, g16, aabbs),
+                     "K10": lambda: FI.nearest_shadow_grid_plain(fc, sc, g16, aabbs),
+                     "K11": lambda: FI.occlude_grid_plain(sc, g16, aabbs)}[key]
             self.time_pair(key, lambda key=key, f=f, s=s: self._grid_call(key, f, s), plain,
-                           BT_LANES, reps=2)  # the plain versions take 3-6 s a call
+                           f"{BT_LANES} (plain: {CHECK_LANES})")
             per_set, warp_tiles = (x.double() for x in FI._grid_scan(f, s, g16, aabbs)[4:6])
             pairs = float((per_set @ tile_tris).sum())
             for k, name in enumerate(("nearest", "any-hit")):
@@ -3205,51 +3220,25 @@ class Smoke:
 
     # ---- phase 31 --------------------------------------------------------------------------
 
-    def _ks_bounce1(self, scene, config, px, py, off):
-        """One fold group through bounce 0 of the kernel-shade loop in the
-        grid form -> the bounce-1 scan operands (the sorted next rays [16, B],
-        the sorted bounce-0 shadow rays or None)."""
-        from rustic_tpu_torch.ops import shade_kernel as SK
-        from rustic_tpu_torch.runtime import pipeline as P
-
-        cfg, cam = config.static_part(), config.dynamic_part(self.dev)
-        n_alias = scene.n_alias_entries if cfg.nee.uses_nee and scene.has_lights else 0
-        shade = SK.shade_bounce_wide if n_alias > P.ENTRY_SELECT_MAX else SK.shade_bounce
-        st, feats_t, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
-        t, i, occ = P._scan(feats_t, None, scene, "grid")
-        t, i, occ, attrs_t = P.ks_resolve(scene, feats_t, t, i, occ, None)
-        st, nf, sf = shade(cfg, 0, params, scene.entry_rows, st, feats_t, t, i, attrs_t, occ,
-                           sidx, off, has_glass=scene.has_glass, n_alias=n_alias)
-        f1, s1, _ = P.ks_sort(scene, st, nf, sf)
-        return f1, s1
-
     def _bvh_operands(self):
         """{scene name: (scene, bounce-1 ray rows, shadow rows or None)} at
-        4,194,304 lanes each."""
-        import numpy as np
+        4,194,304 lanes each (probe_kernel_builds `ks_bounce1_rows`: one fold
+        group through bounce 0 of the kernel-shade loop in the grid form)."""
         import torch
 
-        from rustic_tpu_torch.runtime.render import pixel_offsets
-
-        def frame(w, h, n_px):
-            y, x = np.mgrid[0:h, 0:w]
-            px = torch.from_numpy(x.reshape(-1)[:n_px].astype(np.int32)).to(self.dev)
-            py = torch.from_numpy(y.reshape(-1)[:n_px].astype(np.int32)).to(self.dev)
-            off = pixel_offsets(w, h, use_blue_noise=False)[:n_px].view(np.int32)
-            off = torch.from_numpy(off.copy()).to(self.dev)
-            return px.repeat(FOLD), py.repeat(FOLD), off.repeat(FOLD)
+        from rustic_tpu_torch.probe_kernel_builds import ks_bounce1_rows
 
         self._mt_setup()
         if getattr(self, "bt_scene", None) is None:
             self.bt_load()
         pbr, pbr_config = self._load(dict(OTHER_SCENES["PBRTest"], size=(MT_SIZE, MT_SIZE)))
         out = {}
-        for name, scene, config, (w, h), n_px in (
-            ("VeachMIS", self.mt_scene, self.mt_config, (MT_SIZE, MT_SIZE), MT_SIZE * MT_SIZE),
-            ("BreakTime", self.bt_scene, self.bt_config, (BT_W, BT_H), BT_CHUNK),
-            ("PBRTest", pbr, pbr_config, (MT_SIZE, MT_SIZE), MT_SIZE * MT_SIZE),
+        for name, scene, config, n_px in (
+            ("VeachMIS", self.mt_scene, self.mt_config, MT_SIZE * MT_SIZE),
+            ("BreakTime", self.bt_scene, self.bt_config, BT_CHUNK),
+            ("PBRTest", pbr, pbr_config, MT_SIZE * MT_SIZE),
         ):
-            f1, s1 = self._ks_bounce1(scene, config, *frame(w, h, n_px))
+            f1, s1 = ks_bounce1_rows(scene, config, n_px, self.dev)
             out[name] = (scene, f1, s1)
             log(f"{name}: bounce-1 operands, {f1.shape[1]} lanes, "
                 f"{'no' if s1 is None else s1.shape[1]} shadow rays, "
@@ -3275,6 +3264,46 @@ class Smoke:
             if not bool(same.all()):
                 lanes = (~same).nonzero()[:5, 0].tolist()
                 self.fail(f"{what}: {name} differs on {int((~same).sum())} lanes (e.g. {lanes})")
+
+    def _bvh_oracle(self):
+        """K20 on the oracle's own operands (make_reference_films
+        `k20_operands`: the rays of bounces 0-3 of its first trace_paths call
+        on VeachMIS 1024^2, pixel order): each launch bit-equal to the plain
+        version on every lane, and timed (median of 10 CUDA-event timings)."""
+        import statistics
+
+        import torch
+
+        from rustic_tpu_torch import make_reference_films as MR
+        from rustic_tpu_torch.ops import bvh_traverse as BV
+        from rustic_tpu_torch.ops import intersect as I
+
+        scene = self.mt_scene
+        total = 0.0
+        for what, rays in MR.k20_operands(scene, self.mt_config, MT_SIZE * MT_SIZE):
+            b = rays[0].shape[0]
+            t0 = time.time()
+            if what.startswith("K20n"):
+                got = BV.bvh_nearest(scene, *rays)
+                self._bvh_equal(f"{what} of the oracle", got, I.bvh_traverse_plain(scene, *rays))
+                rate = f"hit rate {float(got.hit.float().mean()):.4f}"
+                fn = lambda rays=rays: BV.bvh_nearest(scene, *rays)  # noqa: E731
+            else:
+                got = BV.bvh_occluded(scene, *rays)
+                self._bvh_equal(f"{what} of the oracle", (None, None, got),
+                                (None, None, I.bvh_traverse_plain(scene, *rays).hit))
+                rate = f"occluded {float(got.float().mean()):.4f}"
+                fn = lambda rays=rays: BV.bvh_occluded(scene, *rays)  # noqa: E731
+            plain_s = time.time() - t0
+            fn()  # warm
+            ms = self.time_ms(fn)
+            total += statistics.median(ms)
+            log(f"oracle VeachMIS {what}, {b} lanes in pixel order: bit-equal to its plain "
+                f"version (plain {plain_s:.1f} s), {rate}; {statistics.median(ms):.3f} ms (min "
+                f"{min(ms):.3f}) ({self.card})")
+            del got
+        log(f"oracle VeachMIS: K20 over one trace_paths call's launches {total:.3f} ms")
+        torch.cuda.empty_cache()
 
     def bvh(self):
         import numpy as np
@@ -3368,6 +3397,7 @@ class Smoke:
                                                                   n_live=live))
         del ops
         torch.cuda.empty_cache()
+        self._bvh_oracle()
 
         # the engines on the card: compare_engines at its defaults; the plain
         # traversal must not run on a CUDA scene

@@ -4,8 +4,8 @@
 The committed ground truths (assets/reference/) are 256x144 only, while
 BASELINE.md's RMSE gate is defined at the configurations' resolutions
 (512^2 for configs 2-3, 1024^2 for config 4, 1920x1080 for config 5).
-This renders those films through the "bvh" engine, one thread a ray
-(kernel K20, ops/bvh_traverse.py) under the torch integrator
+This renders those films through the "bvh" engine (kernel K20,
+ops/bvh_traverse.py) under the torch integrator
 (ops/trace.py `accumulate_samples`), not through the scan kernels of the
 production pipeline, and saves them as
 `<scene>_<W>x<H>_<spp>spp_bvh_torch.npy`: names that say the engine and
@@ -21,14 +21,19 @@ rendered in pixel chunks and sample chunks, each folded into the chunk's
 film on the card.
 
 Four f32 films come to ~44 MB, so they are written to build/reference/
-(ignored by git) by default; each film's mean and the sha256 of its
-bytes are printed, so that a later run can show it reproduced them.
+(ignored by git) by default; each film's mean, the sha256 of its bytes
+and K20's launch counts (`bvh_traverse.LAUNCHES`) are printed, so that a
+later run can show it reproduced them.
 
 Usage (from the root of a checkout, on a machine with the card):
   python -m rustic_tpu_torch.make_reference_films [--cases darkcornell,...]
-      [--size 256x144] [--out-dir build/reference]
+      [--size 256x144] [--out-dir build/reference] [--profile]
 `--size` renders the cases at another size (to time them); the name
-then says that size.
+then says that size. `--profile` also prints, for each case, K20's share
+of the device time of its first render_pixels call (`k20_share`).
+`k20_operands` gives the rays K20 takes in the oracle's first call, in
+pixel order, to the kernel probes (probe_kernel_builds `bvh`,
+chip_smoke.py's phase 31).
 """
 
 from __future__ import annotations
@@ -94,14 +99,100 @@ def render_oracle_chunked(scene, config, spp):
     return (out / max(spp, 1)).reshape(h, w, 3)
 
 
+def k20_operands(scene, config, n_px):
+    """K20's operands in the oracle's first `trace_paths` call (sample 0
+    of the frame's first n_px pixels, render_oracle_chunked's first chunk)
+    -> [(label, (ro, rd) or (ro, rd, max_t))] in launch order: "K20n bounce
+    b" for the nearest-hit rays of bounce b, "K20a bounce b" for its shadow
+    rays (a bounce without NEE launches no K20a). The rays are in pixel
+    order, as the oracle traces them."""
+    from rustic_tpu_torch.ops import bvh_traverse as BV
+    from rustic_tpu_torch.runtime.render import pixel_offsets, render_pixels
+
+    w, h = config.width, config.height
+    y, x = np.mgrid[0:h, 0:w]
+    px = x.reshape(-1)[:n_px].astype(np.int32)
+    py = y.reshape(-1)[:n_px].astype(np.int32)
+    offsets = pixel_offsets(w, h, use_blue_noise=False)[:n_px]
+    calls, real = [], (BV.bvh_nearest, BV.bvh_occluded)
+
+    def nearest(sc, ro, rd):
+        calls.append((f"K20n bounce {sum(k.startswith('K20n') for k, _ in calls)}",
+                      (ro.clone(), rd.clone())))
+        return real[0](sc, ro, rd)
+
+    def occluded(sc, ro, rd, max_t):
+        calls.append((f"K20a bounce {sum(k.startswith('K20n') for k, _ in calls) - 1}",
+                      (ro.clone(), rd.clone(), max_t.clone())))
+        return real[1](sc, ro, rd, max_t)
+
+    BV.bvh_nearest, BV.bvh_occluded = nearest, occluded
+    try:
+        render_pixels(scene, config, px, py, 1, offsets=offsets, sample_start=0, engine="bvh")
+    finally:
+        BV.bvh_nearest, BV.bvh_occluded = real
+    return calls
+
+
+def k20_share(scene, config):
+    """K20's share of the device time of the oracle's first render_pixels
+    call (SPP_CHUNK samples of the frame's first PX_CHUNK pixels) under
+    torch.profiler -> {"device_ms", "k20_ms", "k20_share", "wall_ms",
+    "k20_launches"}: the device time of every kernel and copy, K20's of
+    the kernels named bvh_kernel; "wall_ms" is the same call's host time
+    without the profiler, so "device_ms" over "wall_ms" is the busy
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rustic_tpu_torch.runtime.render import pixel_offsets, render_pixels
+
+    w, h = config.width, config.height
+    n = min(PX_CHUNK, w * h)
+    y, x = np.mgrid[0:h, 0:w]
+    px, py = x.reshape(-1)[:n].astype(np.int32), y.reshape(-1)[:n].astype(np.int32)
+    offsets = pixel_offsets(w, h, use_blue_noise=False)[:n]
+
+    def run():
+        return render_pixels(scene, config, px, py, SPP_CHUNK, offsets=offsets, sample_start=0,
+                             engine="bvh")
+
+    run()  # warm: the kernels built and loaded
+    torch.cuda.synchronize()
+    t0 = time.time()  # the wall time without the profiler, which slows the host
+    run()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_us = k20_us = 0.0
+    launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # host events; their kernels are listed apart
+            continue
+        us = ev.self_device_time_total
+        device_us += us
+        if "bvh_kernel" in ev.key:
+            k20_us += us
+            launches += ev.count
+    return {"device_ms": device_us / 1e3, "k20_ms": k20_us / 1e3,
+            "k20_share": k20_us / device_us if device_us else None, "wall_ms": wall,
+            "k20_launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", default="all", help="comma-separated scene names, or all")
     ap.add_argument("--size", default=None, help="WxH to render instead of each case's size")
     ap.add_argument("--out-dir", default=OUT_DIR)
+    ap.add_argument("--profile", action="store_true",
+                    help="also print K20's share of the device time of each case's first "
+                         "render_pixels call (torch.profiler)")
     args = ap.parse_args(argv)
 
     from rustic_tpu_torch.config import NextEventEstimation, TracingConfig
+    from rustic_tpu_torch.ops import bvh_traverse as BV
     from rustic_tpu_torch.runtime.render import resolve_device
     from rustic_tpu_torch.scene.world import World, load_skybox_image
 
@@ -122,9 +213,11 @@ def main(argv=None) -> int:
         scene = World.from_path(os.path.join(SCENES, name)).to_torch(device, skybox)
         load = time.time() - t0
         config = TracingConfig(width=w, height=h, nee=NextEventEstimation.MIS, **cam)
+        BV.reset_launch_counts()
         t0 = time.time()
         film = render_oracle_chunked(scene, config, spp)
         wall = time.time() - t0
+        launches = dict(BV.LAUNCHES)
         if not np.isfinite(film).all():
             raise RuntimeError(f"{out}: non-finite radiance")
         np.save(out, film)
@@ -132,7 +225,11 @@ def main(argv=None) -> int:
             "film": os.path.basename(out), "engine": "bvh", "device": str(device),
             "load_s": round(load, 2), "wall_s": round(wall, 2), "mean": float(film.mean()),
             "mpaths_per_s": w * h * spp / wall / 1e6, "sha256": film_digest(film),
+            "launches": launches,
         }), flush=True)
+        if args.profile:
+            print(json.dumps({"film": os.path.basename(out), "profile": k20_share(scene, config)}),
+                  flush=True)
         del scene
         torch.cuda.empty_cache()
     return 0

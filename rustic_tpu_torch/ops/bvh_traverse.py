@@ -1,12 +1,15 @@
 """The "bvh" engine's traversal on the card: kernels K20n (nearest hit)
-and K20a (any hit), csrc/bvh_traverse.cu, one thread a ray.
+and K20a (any hit), csrc/bvh_traverse.cu: persistent warps over the
+scene's packed node and triangle records (`SceneTensors.bvh_nodes`,
+`bvh_tris`, built at upload by scene/bvh.py `node_records` and
+scene/world.py `triangle_records`).
 
 Counterpart of the XLA while_loop of rustic_tpu/ops/intersect.py
 `_intersect_bvh_impl` (not a Pallas kernel). Its plain version is
 ops/intersect.py `bvh_traverse_plain`, the JAX package's lockstep loop
 over masks in torch, which the wrappers run on a CPU tensor; the kernel
 gives its results bit for bit (each lane's steps depend on that lane
-alone).
+alone, and the kernel keeps their order).
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ LAUNCHES = {"bvh_nearest": 0, "bvh_occluded": 0}
 
 # entry points of csrc/bvh_traverse.cu: (name, pointers, ints)
 _ENTRY = {
-    "bvh_nearest": ("rt_bvh_nearest", 13, 3),
-    "bvh_occluded": ("rt_bvh_occluded", 9, 3),
+    "bvh_nearest": ("rt_bvh_nearest", 11, 4),
+    "bvh_occluded": ("rt_bvh_occluded", 7, 4),
 }
+_ALIGN = 64  # bytes: a child pair of node records is one aligned line
 
 
 def reset_launch_counts() -> None:
@@ -30,25 +34,27 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _checked_scene(scene, ro, rd):
-    """The node and row tensors the kernel reads, checked against the rays."""
+def _checked_tables(scene, ro, rd):
+    """(node records, triangle records, ints after the pointers' batch)
+    that the kernel reads, checked against the rays."""
     if not I.has_bvh(scene):
         raise ValueError('the scene carries no BVH nodes: the "bvh" engine cannot trace it')
+    nodes, tris = getattr(scene, "bvh_nodes", None), getattr(scene, "bvh_tris", None)
+    n = scene.bvh_count.shape[0]
+    if nodes is None or tris is None or nodes.shape[0] != scene.bvh_node_base + n:
+        raise ValueError("the scene carries no packed BVH tables for its nodes "
+                         "(SceneTensors.bvh_nodes, bvh_tris: built at upload)")
     dev = ro.device
     b = ro.shape[0]
-    n = scene.bvh_count.shape[0]
     _build.check(ro, "ro", torch.float32, (b, 3), dev)
     _build.check(rd, "rd", torch.float32, (b, 3), dev)
-    _build.check(scene.bvh_min, "bvh_min", torch.float32, (n, 3), dev)
-    _build.check(scene.bvh_max, "bvh_max", torch.float32, (n, 3), dev)
-    _build.check(scene.bvh_left_first, "bvh_left_first", torch.int32, (n,), dev)
-    _build.check(scene.bvh_count, "bvh_count", torch.int32, (n,), dev)
-    rows = scene.tri_attrs
-    _build.check(rows, "tri_attrs", torch.float32, tuple(rows.shape), dev)
-    if rows.shape[0] < scene.n_tris or rows.shape[1] < 9:
-        raise ValueError(f"tri_attrs {tuple(rows.shape)} lacks the vertices of "
-                         f"{scene.n_tris} triangles")
-    return (scene.bvh_min, scene.bvh_max, scene.bvh_left_first, scene.bvh_count, rows)
+    _build.check(nodes, "bvh_nodes", torch.float32, (scene.bvh_node_base + n, 8), dev)
+    _build.check(tris, "bvh_tris", torch.float32, (scene.n_tris, 12), dev)
+    if nodes.data_ptr() % _ALIGN:
+        raise ValueError(f"bvh_nodes must be {_ALIGN}-byte aligned")
+    if b >= 1 << 30:
+        raise ValueError(f"{b} rays: the kernel's ray counter takes fewer than 2^30")
+    return nodes, tris, (scene.bvh_node_base, scene.bvh_count_bits, scene.n_tris)
 
 
 def _launch(name, dev, tensors, ints):
@@ -61,7 +67,7 @@ def bvh_nearest(scene, ro, rd) -> "I.TraceResult":
     -> TraceResult (t, tri_idx, hit, backface, u, v)."""
     if _build.uses_plain(ro):
         return I.bvh_traverse_plain(scene, ro, rd)
-    nodes = _checked_scene(scene, ro, rd)
+    nodes, tris, ints = _checked_tables(scene, ro, rd)
     b = ro.shape[0]
     dev = ro.device
     t = torch.empty(b, dtype=torch.float32, device=dev)
@@ -71,8 +77,9 @@ def bvh_nearest(scene, ro, rd) -> "I.TraceResult":
     u = torch.empty(b, dtype=torch.float32, device=dev)
     v = torch.empty(b, dtype=torch.float32, device=dev)
     if b:
-        _launch("bvh_nearest", dev, (ro, rd, *nodes, t, idx, hit, back, u, v),
-                (b, nodes[-1].shape[1], scene.n_tris))
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        _launch("bvh_nearest", dev, (ro, rd, nodes, tris, counter, t, idx, hit, back, u, v),
+                (b, *ints))
     return I.TraceResult(t, idx, hit, back, u, v)
 
 
@@ -81,12 +88,12 @@ def bvh_occluded(scene, ro, rd, max_t) -> torch.Tensor:
     bool."""
     if _build.uses_plain(ro):
         return I.bvh_traverse_plain(scene, ro, rd, max_t).hit
-    nodes = _checked_scene(scene, ro, rd)
+    nodes, tris, ints = _checked_tables(scene, ro, rd)
     b = ro.shape[0]
     dev = ro.device
     _build.check(max_t, "max_t", torch.float32, (b,), dev)
     hit = torch.empty(b, dtype=torch.bool, device=dev)
     if b:
-        _launch("bvh_occluded", dev, (ro, rd, max_t, *nodes, hit),
-                (b, nodes[-1].shape[1], scene.n_tris))
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        _launch("bvh_occluded", dev, (ro, rd, max_t, nodes, tris, counter, hit), (b, *ints))
     return hit

@@ -1,10 +1,11 @@
-"""Five questions about how the kernels are built, asked on one CUDA device.
+"""Six questions about how the kernels are built, asked on one CUDA device.
 
     python -m rustic_tpu_torch.probe_kernel_builds contraction [DIR ...]
     python -m rustic_tpu_torch.probe_kernel_builds shade LABEL=SOURCE.cu [LABEL=SOURCE.cu ...]
     python -m rustic_tpu_torch.probe_kernel_builds scans LABEL=DIR [LABEL=DIR ...]
     python -m rustic_tpu_torch.probe_kernel_builds fused LABEL=DIR [LABEL=DIR ...]
     python -m rustic_tpu_torch.probe_kernel_builds dots LABEL=DIR [LABEL=DIR ...]
+    python -m rustic_tpu_torch.probe_kernel_builds bvh LABEL=DIR [LABEL=DIR ...]
 
 `contraction`: do the scans round the same with and without nvcc's FMA
 contraction? K17 (csrc/fused_bounce.cu) runs the scans' pair test in a
@@ -83,6 +84,25 @@ for bit, and the versions timed in turns (median of 10 CUDA-event
 timings). A case a version is not built for (a variant it lacks) is
 skipped for it. Registers, spills and the compiler's wgmma notes of every
 build from its log.
+
+`bvh`: the BVH traversal K20n (`rt_bvh_nearest`) and K20a
+(`rt_bvh_occluded`) built from several versions of bvh_traverse.cu (one
+in each DIR, with -fmad=false; an older one: `git show
+<commit>:rustic_tpu_torch/csrc/bvh_traverse.cu` into a directory under
+build/, or an edited copy there), each run on two operand sets: phase 31's
+of chip_smoke.py (the sorted bounce-1 rays and the bounce-0 shadow rays
+of one fold group of VeachMIS 1024^2, BreakTime's first pixel chunk and
+PBRTest 1024^2, 4,194,304 lanes each), and the oracle's
+(make_reference_films `k20_operands`: the rays of bounces 0-3 of its
+first trace_paths call on VeachMIS 1024^2 and on BreakTime's first pixel
+chunk, 1,048,576 lanes a launch, in pixel order). Every output against
+the first version's bit for bit, and the versions timed in turns (median
+of 10 CUDA-event timings; a packed build's launch includes the zeroing
+of its ray counter, as its wrapper's does). Each version's ABI is read
+from its `rt_bvh_abi` (none: 1, the struct of arrays and the shading
+rows; 2: the packed records and a ray counter), so each takes its own
+layout of the same scene. Registers and spills of every build from its
+log, and from ABI 2 the blocks an SM holds.
 
 All print the card's name and power limit first.
 """
@@ -801,8 +821,156 @@ def dots(specs) -> int:
     return int(failed)
 
 
+# ---- bvh -------------------------------------------------------------------------
+
+
+def bvh_abi(lib: str) -> int:
+    """The build's `rt_bvh_abi`: 2 where K20 reads the packed node and
+    triangle records and a ray counter, 1 for a build without it (the
+    struct of arrays and the shading rows, one thread a ray)."""
+    try:
+        fn = ctypes.CDLL(lib).rt_bvh_abi
+    except AttributeError:
+        return 1
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def run_bvh(lib, scene, ops, outs=None):
+    """Launch K20n (ops = (ro, rd)) or K20a (ops = (ro, rd, max_t)) of
+    build `lib` -> its outputs: (t, idx, hit, backface, u, v) or (hit,).
+    ABI 2 zeroes its ray counter in the launch, as the wrapper does."""
+    nearest = len(ops) == 2
+    b, dev = ops[0].shape[0], ops[0].device
+    if outs is None:
+        outs = ((torch.empty(b, dtype=torch.float32, device=dev),
+                 torch.empty(b, dtype=torch.int32, device=dev),
+                 torch.empty(b, dtype=torch.bool, device=dev),
+                 torch.empty(b, dtype=torch.bool, device=dev),
+                 torch.empty(b, dtype=torch.float32, device=dev),
+                 torch.empty(b, dtype=torch.float32, device=dev)) if nearest
+                else (torch.empty(b, dtype=torch.bool, device=dev),))
+    if bvh_abi(lib) >= 2:
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        tables = (scene.bvh_nodes, scene.bvh_tris, counter)
+        ints = (b, scene.bvh_node_base, scene.bvh_count_bits, scene.n_tris)
+    else:
+        tables = (scene.bvh_min, scene.bvh_max, scene.bvh_left_first, scene.bvh_count,
+                  scene.tri_attrs)
+        ints = (b, scene.tri_attrs.shape[1], scene.n_tris)
+    ptrs = (*ops, *tables, *outs)
+    fn = "rt_bvh_nearest" if nearest else "rt_bvh_occluded"
+    _build.launch(_build.load_entry(lib, fn, len(ptrs), len(ints)), fn, dev, ptrs, ints)
+    return outs
+
+
+def ks_bounce1_rows(scene, config, n_px, device):
+    """The sorted bounce-1 ray rows [16, B] and the bounce-0 shadow rows or
+    None of one fold group of the frame's first n_px pixels traced through
+    bounce 0 of the kernel-shade loop in the grid form (the operands of
+    chip_smoke.py's phase 31)."""
+    h, w = config.height, config.width
+    y, x = np.mgrid[0:h, 0:w]
+    px = torch.from_numpy(x.reshape(-1)[:n_px].astype(np.int32)).to(device).repeat(FOLD)
+    py = torch.from_numpy(y.reshape(-1)[:n_px].astype(np.int32)).to(device).repeat(FOLD)
+    off = pixel_offsets(w, h, use_blue_noise=False)[:n_px].view(np.int32)
+    off = torch.from_numpy(off.copy()).to(device).repeat(FOLD)
+    cfg, cam = config.static_part(), config.dynamic_part(device)
+    n_alias = scene.n_alias_entries if cfg.nee.uses_nee and scene.has_lights else 0
+    shade = SK.shade_bounce_wide if n_alias > P.ENTRY_SELECT_MAX else SK.shade_bounce
+    st, feats_t, sidx, params = P.initk(cfg, cam, px, py, 0, off, FOLD)
+    t, i, occ = P._scan(feats_t, None, scene, "grid")
+    t, i, occ, attrs_t = P.ks_resolve(scene, feats_t, t, i, occ, None)
+    st, nf, sf = shade(cfg, 0, params, scene.entry_rows, st, feats_t, t, i, attrs_t, occ, sidx,
+                       off, has_glass=scene.has_glass, n_alias=n_alias)
+    f1, s1, _ = P.ks_sort(scene, st, nf, sf)
+    return f1, s1
+
+
+def bvh_cases(device):
+    """[(scene name, scene, [(what, operands)])]: phase 31's sorted
+    operands (4,194,304 lanes) of VeachMIS, BreakTime and PBRTest, then the
+    oracle's: the rays of bounces 0-3 of its first trace_paths call on
+    VeachMIS at 1024^2 and on BreakTime's first pixel chunk (1,048,576
+    lanes a launch, pixel order)."""
+    from rustic_tpu_torch import make_reference_films as MR
+
+    sky = W.load_skybox_image("assets/scenes/BreakTimeSky.npy")
+    scenes = {
+        "VeachMIS": (World.from_path("assets/scenes/VeachMIS.glb").to_torch(device),
+                     TracingConfig(width=1024, height=1024, nee=NextEventEstimation.MIS,
+                                   **VEACH_CAM)),
+        "BreakTime": (World.from_path("assets/scenes/BreakTime.glb").to_torch(device, sky),
+                      TracingConfig(width=1920, height=1080, nee=NextEventEstimation.MIS,
+                                    **MR.BREAK_CAM)),
+        "PBRTest": (World.from_path("assets/scenes/PBRTest.glb").to_torch(device),
+                    TracingConfig(width=1024, height=1024, nee=NextEventEstimation.MIS)),
+    }
+    out = []
+    for name, (scene, config) in scenes.items():
+        f1, s1 = ks_bounce1_rows(scene, config, 1 << 20, device)
+        ops = [("K20n sorted bounce-1 rays", (f1[6:9].T.contiguous(), f1[0:3].T.contiguous()))]
+        if s1 is not None:
+            ops.append(("K20a bounce-0 shadow rays", (
+                s1[6:9].T.contiguous(), s1[0:3].T.contiguous(), s1[FI.SH_MAXT_COL].contiguous())))
+        out.append((name, scene, ops))
+    for name in ("VeachMIS", "BreakTime"):
+        scene, config = scenes[name]
+        ops = [(f"oracle {what}", rays) for what, rays in MR.k20_operands(
+            scene, config, MR.PX_CHUNK)]
+        out.append((name, scene, ops))
+    torch.cuda.synchronize()
+    return out
+
+
+def bvh(specs) -> int:
+    device = torch.device("cuda", 0)
+    card = card_line()
+    dirs = dict(spec.split("=", 1) for spec in specs)
+    with ThreadPoolExecutor(len(dirs)) as pool:  # one nvcc per version
+        libs = dict(zip(dirs, pool.map(lambda label: _build.compile_source(
+            os.path.join(dirs[label], "bvh_traverse.cu"), _build.EXTRA_FLAGS["bvh_traverse"]),
+            dirs)))
+    for label, lib in libs.items():
+        with open(lib[: -len(".so")] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"{label}: {line.strip()}")
+        if bvh_abi(lib) >= 2:
+            fn = ctypes.CDLL(lib).rt_bvh_blocks_per_sm
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+            print(f"{label}: blocks of 128 threads an SM holds: K20n {fn(1)}, K20a {fn(0)}")
+    failed = False
+    for name, scene, ops in bvh_cases(device):
+        for what, rays in ops:
+            outs = {label: run_bvh(lib, scene, rays) for label, lib in libs.items()}
+            torch.cuda.synchronize()
+            base = next(iter(outs))
+            b = rays[0].shape[0]
+            for label, got in outs.items():
+                diff = [int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                        if x.is_floating_point() else int((x != y).sum())
+                        for x, y in zip(got, outs[base])]
+                failed |= any(diff)
+                print(f"{name} {what} at {b} lanes, {label}: "
+                      f"{'equal to' if not any(diff) else 'DIFFERS from'} {base}'s on every lane"
+                      + (f" (lanes differing, by output: {diff})" if any(diff) else ""))
+            times = {label: [] for label in libs}
+            for _ in range(10):  # in turns
+                for label, lib in libs.items():
+                    times[label].append(time_ms(
+                        lambda lib=lib, label=label: run_bvh(lib, scene, rays, outs[label])))
+            print(f"{name} {what}: " + ", ".join(
+                f"{label} {statistics.median(ts):.3f} ms (min {min(ts):.3f})"
+                for label, ts in times.items()) + f" ({card})")
+            del outs
+    print("every version equals the first bit for bit" if not failed else
+          "a version DIFFERS from the first")
+    return int(failed)
+
+
 def main(argv) -> int:
-    if not argv or argv[0] not in ("contraction", "shade", "scans", "fused", "dots"):
+    if not argv or argv[0] not in ("contraction", "shade", "scans", "fused", "dots", "bvh"):
         print(__doc__)
         return 2
     print(card_line())
@@ -814,6 +982,8 @@ def main(argv) -> int:
         return fused(argv[1:])
     if argv[0] == "dots":
         return dots(argv[1:])
+    if argv[0] == "bvh":
+        return bvh(argv[1:])
     return shade(argv[1:])
 
 

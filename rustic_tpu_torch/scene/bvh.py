@@ -16,7 +16,8 @@ be built, the port raises with the compiler's message (a silent fallback
 would change every film).
 
 Nodes are a struct of arrays (aabb_min [N, 3], aabb_max [N, 3],
-left_first [N], count [N]), as in the JAX package.
+left_first [N], count [N]), as in the JAX package; `node_records` packs
+them into the traversal kernel's records.
 """
 
 from __future__ import annotations
@@ -252,3 +253,43 @@ def validate_bvh(bvh: BVH, tri_min: np.ndarray, tri_max: np.ndarray) -> None:
                 stack.append(child)
     if not seen.all():
         raise ValueError("some triangles are not referenced by any leaf")
+
+
+def node_records(bvh: BVH) -> tuple[np.ndarray, int, int]:
+    """The node table of the traversal kernel (csrc/bvh_traverse.cu, K20)
+    -> (records [base + N, 8] float32, base, cbits).
+
+    Node n is record base + n, {lo.xyz, left_first, hi.xyz, count}, a bit
+    copy of the struct of arrays (the two ints' bits stored as they are).
+    Children come in pairs (left, left + 1), and both builders put the
+    first pair at node 1: then base = 1, a pad record of zeros ahead of
+    the root, so that every pair starts at an even record and is one
+    64-byte line of the (64-byte aligned) table; base = 0 where the pairs
+    start at even nodes. A node's stack entry is left_first << cbits |
+    count in 32 bits, cbits the width of the largest count. Raises
+    ValueError where a count or left_first is negative or the entry does
+    not fit, where the pairs are not all of one parity, or where a pair
+    lies beyond the nodes."""
+    lf = np.asarray(bvh.left_first, np.int32).reshape(-1)
+    cnt = np.asarray(bvh.count, np.int32).reshape(-1)
+    n = len(cnt)
+    if n == 0:
+        return np.zeros((0, 8), np.float32), 0, 1
+    if (lf < 0).any() or (cnt < 0).any():
+        raise ValueError("a BVH node has a negative left_first or count")
+    cbits = max(1, int(cnt.max()).bit_length())
+    if int(lf.max()) >= 1 << (32 - cbits) or int((lf.astype(np.int64) + cnt).max()) >= 1 << 31:
+        raise ValueError(f"the BVH's sizes overflow the traversal's 32-bit stack entry: "
+                         f"left_first up to {int(lf.max())} << {cbits} bits of count")
+    lefts = lf[cnt == 0].astype(np.int64)
+    if (lefts + 1 >= n).any():
+        raise ValueError("a BVH child pair lies beyond the nodes")
+    base = int(lefts[0] % 2) if len(lefts) else 0
+    if ((lefts + base) % 2).any():
+        raise ValueError("the BVH's child pairs do not all start at nodes of one parity")
+    rec = np.zeros((base + n, 8), np.float32)
+    rec[base:, 0:3] = np.asarray(bvh.aabb_min, np.float32).reshape(n, 3)
+    rec[base:, 3] = lf.view(np.float32)
+    rec[base:, 4:7] = np.asarray(bvh.aabb_max, np.float32).reshape(n, 3)
+    rec[base:, 7] = cnt.view(np.float32)
+    return rec, base, cbits

@@ -211,11 +211,20 @@ class SceneTensors:
     bvh_max: torch.Tensor  # [N, 3] f32
     bvh_left_first: torch.Tensor  # [N] i32
     bvh_count: torch.Tensor  # [N] i32
+    # the same nodes and the triangles packed for the traversal kernel
+    # (csrc/bvh_traverse.cu, K20): node n at record bvh_node_base + n of
+    # [R, 8] f32 (scene/bvh.py `node_records`), stack entries with
+    # bvh_count_bits of count; triangles [n_tris, 12] f32 {a, e1, e2}
+    # (`triangle_records`); zero rows on a scene made without nodes
+    bvh_nodes: torch.Tensor
+    bvh_tris: torch.Tensor
     n_tris: int
     n_alias_entries: int
     has_lights: bool
     has_glass: bool
     has_textures: bool
+    bvh_node_base: int
+    bvh_count_bits: int
 
     @property
     def device(self) -> torch.device:
@@ -240,6 +249,21 @@ def _empty_atlas() -> np.ndarray:
     return np.zeros((4, 4, atlas_mod.ATLAS_CHANNELS), np.float32)
 
 
+def triangle_records(tri_attrs: torch.Tensor, n_tris: int) -> torch.Tensor:
+    """The triangle table of the traversal kernel (csrc/bvh_traverse.cu,
+    K20): [n_tris, 12] f32, row i {a, 0, e1, 0, e2, 0} of the vertices a,
+    b, c in columns 0:9 of shading row i (the BVH's triangle order), with
+    e1 = b - a and e2 = c - a by the IEEE f32 subtraction of the plain
+    version's Moller-Trumbore test, on the rows' device."""
+    v = tri_attrs[:n_tris, 0:9]
+    a = v[:, 0:3]
+    rec = torch.zeros((v.shape[0], 12), dtype=torch.float32, device=tri_attrs.device)
+    rec[:, 0:3] = a
+    rec[:, 4:7] = v[:, 3:6] - a
+    rec[:, 8:11] = v[:, 6:9] - a
+    return rec
+
+
 def _scene_tensors(tri_feats16, attrs, entry_rows, tile_aabbs, atlas, skybox, bvh, device,
                    **meta):
     def up(a, dtype=np.float32):
@@ -247,9 +271,11 @@ def _scene_tensors(tri_feats16, attrs, entry_rows, tile_aabbs, atlas, skybox, bv
 
     if bvh is None:
         bvh = bvh_mod.BVH(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0), np.zeros(0))
+    records, base, cbits = bvh_mod.node_records(bvh)
+    tri_attrs = up(attrs)
     return SceneTensors(
         tri_feats16=up(tri_feats16),
-        tri_attrs=up(attrs),
+        tri_attrs=tri_attrs,
         entry_rows=up(entry_rows),
         tile_aabbs=up(tile_aabbs),
         atlas=up(atlas),
@@ -258,6 +284,10 @@ def _scene_tensors(tri_feats16, attrs, entry_rows, tile_aabbs, atlas, skybox, bv
         bvh_max=up(bvh.aabb_max).reshape(-1, 3),
         bvh_left_first=up(bvh.left_first, np.int32),
         bvh_count=up(bvh.count, np.int32),
+        bvh_nodes=up(records),
+        bvh_tris=triangle_records(tri_attrs, meta["n_tris"] if bvh.n_nodes else 0),
+        bvh_node_base=base,
+        bvh_count_bits=cbits,
         **meta,
     )
 
