@@ -236,23 +236,30 @@ Phases, each of which must pass (the first that fails ends the run):
      default loop and (the multi-tile two) the state-sorted driver; the
      default loop's GlassTest film also under the quality gate's RMSE <
      1e-3 (its row in rustic_tpu_torch/quality_gate.py, at GLASS_CAM).
- 30. probe-check: K18 (FP32 FMAs; TF32, BF16 and int8 tensor cores through
-     mma.sync; BF16 and TF32 through wgmma) and K19 (the six-term split
-     dot at K = 96, F pre-split or split in the kernel, and the three-term
-     dot at K = 48, through mma.sync and through wgmma) against their
-     plain versions at B = 1,048,576 and 65,613 rays, N = 1024, reps = 8:
-     int8 equal; the others within rtol 1e-5, atol 1e-5 on the same
+ 30. probe-check: first the card's rate of the fold's min instructions
+     (probe_dot_floor.min_rates: FMNMX, IMNMX, the DPX min of three), on a
+     line of its own, each at least 90% of the 64 a clock an SM that the
+     bounds count (probe_dot_floor.FOLD_PER_S). Then K18 (FP32 FMAs; TF32,
+     BF16 and int8 tensor cores through mma.sync; BF16, TF32 and int8
+     through wgmma) and K19 (the six-term split dot at K = 96, F pre-split
+     or split in the kernel, and the three-term dot at K = 48, through
+     mma.sync and through wgmma) against their plain versions at B =
+     1,048,576 and 65,613 rays, N = 1024, reps = 8, K = 16 (int8 also K =
+     32): int8 equal; the others within rtol 1e-5, atol 1e-5 on the same
      operands (TF32 and BF16 operands rounded to the type beforehand; the
      plain versions multiply in full f32, allow_tf32 off); K19 also within
-     1e-5 x sum_k |F_k| max_n |G_kn| of the float64 dot; K19's wgmma
-     form equal to its mma.sync form bit for bit, and K18 tf32w equal to
-     K18 tf32. Each timed beside its plain version and the library call of
-     the same function, chunked + amin (torch.mm in f32, with allow_tf32
-     for TF32; for BF16 with f32 out, aten::mm.dtype, beside bf16 out;
-     torch._int_mm; K19 the f32-out product of the cat6 blocks), and bound
-     by its unit's peak, the fold's minima at the FP32 rate beside it.
-     Then the probes' program (probe_dot_floor.main: the case sweep and
-     the accuracy table), with the launch counts read after it.
+     1e-5 x sum_k |F_k| max_n |G_kn| of the float64 dot; K19's wgmma form
+     equal to its mma.sync form bit for bit, K18 tf32w equal to K18 tf32 and
+     K18 int8w to K18 int8 (at both K). Each timed beside its plain version
+     and the library call of the same function, chunked + amin (torch.mm in
+     f32, with allow_tf32 for TF32; for BF16 with f32 out, aten::mm.dtype,
+     beside bf16 out; torch._int_mm; K19 the f32-out product of the cat6
+     blocks); int8w also in turns with int8 at both K. Bound by its unit's
+     peak and the fold's minima at the peak of the fastest min of its
+     accumulator type (FOLD_PER_S), the larger time (FP32 FMAs: FFMAs and
+     minima share the issue slots). Then the probes' program
+     (probe_dot_floor.main: the min rates, the case sweep and the accuracy
+     table), with the launch counts read after it.
  31. bvh: the "bvh" engine's traversal, K20n (nearest) and K20a (any hit),
      persistent warps over the packed node and triangle records
      (csrc/bvh_traverse.cu). The bounce-1 operands of one
@@ -436,7 +443,7 @@ ONE_TILE_SPP = 16
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TENSOR_OP_PER_S = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12,
-                   "tf32w": 495e12}
+                   "tf32w": 495e12, "int8w": 1979e12}
 # FP32 operations of one (ray, triangle) pair test (csrc/flash_common.cuh
 # pair_accumulate, pair_epilogue): 4 multiplies and 36 FMAs (2 each) for
 # the four numerators, one division, three multiplies and the u + v add
@@ -524,11 +531,12 @@ KERNELS = {
         name="fused_bounce", source="rustic_tpu_torch/csrc/fused_bounce.cu",
         replaces="archive/fused_bounce/fused_bounce.py:376",
     ),
-    # K18 by the unit its dot runs on ("bf16w", "tf32w": BF16, TF32 through wgmma)
+    # K18 by the unit its dot runs on ("bf16w", "tf32w", "int8w": BF16, TF32 and
+    # int8 through wgmma); the int8 ones replace mxu_floor.py's int8 kernel k8
     **{f"K18 {v}": dict(
         name=f"dot_min_{v}", source="rustic_tpu_torch/csrc/probe_dot.cu",
-        replaces="tools/mxu_floor.py:38",
-    ) for v in ("fp32", "tf32", "bf16", "int8", "bf16w", "tf32w")},
+        replaces="tools/mxu_floor.py:153" if v.startswith("int8") else "tools/mxu_floor.py:38",
+    ) for v in ("fp32", "tf32", "bf16", "int8", "bf16w", "tf32w", "int8w")},
     "K19": dict(
         name="dot_min_split", source="rustic_tpu_torch/csrc/probe_dot.cu",
         replaces="tools/probe_k96.py:79",
@@ -576,15 +584,19 @@ def bound(n_bytes, flops, peak=FP32_FLOP_PER_S):
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
 
 
-def dot_bound(n_bytes, outputs, k, unit):
-    """Bound of a dot probe (K18, K19): its bytes, its `outputs` x `k` MACs
-    on `unit` and the fold's minima, one an output, at the FP32 pipe's rate:
-    on the FP32 pipe beside the FMAs ("fp32"), else beside the tensor cores
-    (another unit: the larger of the two times)."""
+def dot_bound(n_bytes, outputs, k, unit, fold_per_s):
+    """Bound of a dot probe (K18, K19): its bytes; its `outputs` x `k` MACs
+    on `unit`; the fold's minima, one an output, at `fold_per_s` (the
+    peak of the fastest min of the unit's accumulator type,
+    probe_dot_floor `FOLD_PER_S`). The tensor cores and the min's
+    pipe run beside each other: the larger of the two times. On "fp32" the
+    minima also take issue slots beside the FFMAs (an SM issues as many
+    warp instructions a clock as its FFMA rate fills): FFMAs and minima at
+    the FFMA rate, or the minima at theirs, the larger."""
     ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    ms_fold = outputs / FP32_FLOP_PER_S * 1e3
+    ms_fold = outputs / fold_per_s * 1e3
     if unit == "fp32":
-        ms_ops = 2 * outputs * k / FP32_FLOP_PER_S * 1e3 + ms_fold
+        ms_ops = max((outputs * k + outputs) / (FP32_FLOP_PER_S / 2) * 1e3, ms_fold)
     else:
         ms_ops = max(2 * outputs * k / TENSOR_OP_PER_S[unit] * 1e3, ms_fold)
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
@@ -3065,6 +3077,19 @@ class Smoke:
         n, reps, k = 1024, 8, PD.SPLIT_K
         if torch.backends.cuda.matmul.allow_tf32:
             self.fail("the plain versions need full-f32 products (allow_tf32 off)")
+        # the fold's instructions first: the bounds below count the minima at
+        # PF.MIN_PER_CLK_SM a clock an SM, which the card must come near
+        rates = PF.min_rates(self.dev)
+        log("min rates (G results/s, a clock an SM): " + "; ".join(
+            f"{r['what']} {r['g_per_s']:.1f}, {r['per_clk_sm']:.2f} at {r['mhz']:.0f} MHz"
+            for r in rates.values()) + f" ({self.card})")
+        slow = [r["what"] for r in rates.values() if r["per_clk_sm"] < 0.9 * PF.MIN_PER_CLK_SM]
+        if slow:
+            self.fail(f"{', '.join(slow)} below 90% of the {PF.MIN_PER_CLK_SM} a clock an SM "
+                      "that the fold's bound counts")
+        fold = PF.FOLD_PER_S
+        log(f"fold peaks (G minima/s): FP32 {fold['float'] / 1e9:.1f}, int32 "
+            f"{fold['int'] / 1e9:.1f}")
 
         def close(key, got, want, what):
             if got.dtype == torch.int32:
@@ -3108,6 +3133,12 @@ class Smoke:
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
 
+        def int8_pair(k8, f, g):
+            """int8w in turns with int8 (mma.sync)."""
+            self.time_turns(f"K18 at K={k8} B={f.shape[1]}", "int8w",
+                            lambda: PD.dot_min(f, g, n, reps, "int8w"), "int8 (mma.sync)",
+                            lambda: PD.dot_min(f, g, n, reps, "int8"))
+
         def mm_f32_out(a, b):  # aten::mm.dtype: bf16 operands, f32 products
             return torch.mm(a, b, out_dtype=torch.float32)
 
@@ -3127,6 +3158,7 @@ class Smoke:
                 "int8": (f8, g8),
             }
             operands["bf16w"], operands["tf32w"] = operands["bf16"], operands["tf32"]
+            operands["int8w"] = operands["int8"]
             outs = {}
             for v, (f, g) in operands.items():
                 key = f"K18 {v}"
@@ -3140,13 +3172,17 @@ class Smoke:
                     f"max |d| {err:.3g}")
                 if v == "tf32w":  # the same rounded operands through mma.sync
                     same_bits(key, outs[v], outs["tf32"], f"B={b} against K18 tf32 (mma.sync)")
+                if v == "int8w":
+                    same_bits(key, outs[v], outs["int8"], f"B={b} against K18 int8 (mma.sync)")
                 if b != PF.RAYS:
                     continue
                 self.results[key]["max_abs_err"] = err
                 self.time_pair(key, lambda: PD.dot_min(f, g, n, reps, v),
                                lambda: PD.dot_min_plain(f, g, n, reps, v), b, reps=5)
-                if v == "int8":
+                if v in PD.INT8:
                     lib = library(key, "torch._int_mm", (int_mm, int_mm_cols), f, g)
+                    if v == "int8w":
+                        int8_pair(k, f, g)
                 elif v in ("bf16", "bf16w"):
                     lib = library(key, "torch.mm in bf16, f32 out (aten::mm.dtype)",
                                   (mm_f32_out,), f, g)
@@ -3157,8 +3193,24 @@ class Smoke:
                     lib = library(key, what, (torch.mm,), f, g, tf32="tf32" in v)
                 self.results[key]["library_ms"] = lib
                 n_bytes = f.numel() * f.element_size() + g.numel() * g.element_size() + 4 * b
-                self.set_bound(key, dot_bound(n_bytes, b * n * reps, k, v))
+                self.set_bound(key, dot_bound(n_bytes, b * n * reps, k, v,
+                                              fold["int" if v in PD.INT8 else "float"]))
             del outs
+
+            # int8 at its full K step, K = 32: int8w against int8 and the plain version
+            f8, g8 = PF.operands("int8", 2 * k, b, n * reps, self.dev)
+            got = {v: PD.dot_min(f8, g8, n, reps, v) for v in PD.INT8}
+            for v in PD.INT8:
+                close(f"K18 {v}", got[v], PD.dot_min_plain(f8, g8, n, reps, v), f"K=32 B={b}")
+            log(f"K18 int8 and int8w K=32 B={b}: equal to their plain version")
+            same_bits("K18 int8w", got["int8w"], got["int8"], f"K=32 B={b} against K18 int8 "
+                      f"(mma.sync)")
+            if b == PF.RAYS:
+                int8_pair(2 * k, f8, g8)
+                self.set_bound("K18 int8w at K=32", dot_bound(
+                    f8.numel() + g8.numel() + 4 * b, b * n * reps, 2 * k, "int8w", fold["int"]),
+                    report=False)
+            del got
 
             # K19: the split dots against their plain versions and float64
             g96, f96 = PD.cat6_g(g32), PD.cat6_f(f32)
@@ -3198,7 +3250,8 @@ class Smoke:
                             key, "torch.mm of the [96, B] and [96, N] blocks, f32 out "
                             "(aten::mm.dtype)", (mm_f32_out,), f96, g)
                         n_bytes = f.numel() * 4 + g.numel() * 2 + 4 * b
-                        self.set_bound(key, dot_bound(n_bytes, b * n * reps, 6 * k, "bf16"))
+                        self.set_bound(key, dot_bound(n_bytes, b * n * reps, 6 * k, "bf16",
+                                                      fold["float"]))
                 same_bits("K19 bf16w", split["bf16w"], split["bf16"],
                           f"{what} B={b} against K19 (mma.sync)")
             del operands, cases, f32, g32, f8, g8, g96, f96, ref, ref48, ha, scale

@@ -24,9 +24,14 @@
 //              instruction, Hopper's way to the full tensor-core rate), FP32
 //              accumulate, the rays' operand in registers, G's in shared
 //              memory fed by bulk copies; acc_min only;
-//   variant 5  TF32 tensor cores, wgmma.mma_async m64n128k8, as variant 4.
-// (int8 has no wgmma form here: wgmma's int8 K step is 32, so at K = 16
-// half its work would be zeros.)
+//   variant 5  TF32 tensor cores, wgmma.mma_async m64n128k8, as variant 4;
+//   variant 6  int8 tensor cores, wgmma.mma_async m64n128k32.s32.s8.s8, as
+//              variant 4 with int32 accumulators (K = 16 padded with zeros
+//              to 32, as variant 3 pads it), the fold a tree of the
+//              three-input DPX min __vimin3_s32; out int32.
+// (Variant 3 pads K = 16 to its K step of 32 just as variant 6 does: the
+// zeros do not tell the two instructions apart. Variant 3 stays as
+// mma.sync's probe, variant 6 is the way to the full int8 rate.)
 // K19 emulates an f32 dot of depth 16 as one BF16 pass of depth 96: each
 // f32 value a is split into bf16 hi = bf16(a), mid = bf16(a - hi), lo =
 // bf16(a - hi - mid); G arrives split, its blocks [hb mb lb hb mb hb] along
@@ -38,8 +43,19 @@
 // there are 2^33 outputs and 137 GMAC: 4.10 ms at 67 TFLOP/s FP32, 0.56 ms
 // at 495 TF32, 0.28 ms at 989 BF16 (K = 96: 1.67 ms), 0.14 ms at 1,979
 // int8; the bytes (64 MB of F) are negligible. Beside them the fold: one
-// FP32 min an output, 2^33 of them, 0.13 ms at 67 T operations/s, on the
-// FP32 pipe beside the tensor cores (on the same pipe as the FMAs).
+// min an output, 2^33 of them. A min is one instruction, not two of the
+// 67 T operations a second that count an FFMA twice, and it runs on
+// another pipe than the FFMAs: FMNMX (fminf), IMNMX (int min) and the DPX
+// min of three (__vimin3_s32, one VIMNMX3, two minima an instruction) each
+// issue 64 a clock an SM on cc 9.0, half the FFMA lane rate. A tensor-core
+// variant's bound is the larger of its MMAs' time and the fold's at that
+// peak for the fastest min of its accumulator type (FP32: FMNMX; int32:
+// the min of three), at the 1.98 GHz the FP32 figure counts; the FMA
+// variant's minima also take issue slots beside its FFMAs. The fold then
+// takes 0.51 ms on FP32 accumulators and 0.26 ms on int32, more than the
+// MMAs of BF16 and int8 at K = 16. rt_min_rate measures the three rates:
+// on an H100 SXM at 700 W about 63 a clock an SM at 1,980 MHz, and ptxas
+// also makes one VIMNMX3 of min(min(a, b), c).
 //
 // Design of the mma.sync variants: a block takes M rays (the TPU kernels'
 // ray block) and walks the reps slices of G, each staged into shared memory
@@ -58,6 +74,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -274,14 +292,14 @@ mma_dot_min(const void* __restrict__ Fv, const typename T::elem* __restrict__ G,
   }
 }
 
-// ---- variants 4 and 5: BF16 and TF32 tensor cores through wgmma ------------
+// ---- variants 4, 5 and 6: BF16, TF32 and int8 tensor cores through wgmma ---
 //
 // A warpgroup (four warps) owns 64 * MT rays, their A fragments in registers
 // (wgmma's register operand has mma.sync's layout, 16 rays a warp), and
-// runs one wgmma.mma_async m64n128k16 (BF16) or m64n128k8 (TF32) per K step
-// on a 64 x 128 tile of products, 64 FP32 registers a thread (d[4j],
-// d[4j+1]: ray gid; d[4j+2], d[4j+3]: ray gid + 8), then folds the tile
-// into the running min.
+// runs one wgmma.mma_async m64n128k16 (BF16), m64n128k8 (TF32) or
+// m64n128k32 (int8) per K step on a 64 x 128 tile of products, 64 FP32 (int8:
+// int32) registers a thread (d[4j], d[4j+1]: ray gid; d[4j+2], d[4j+3]: ray
+// gid + 8), then folds the tile into the running min.
 //
 // The first form (PR 6) reached 45% of the bound at K = 96: all threads of
 // the block copied each chunk of G between two block barriers, and the
@@ -305,11 +323,20 @@ mma_dot_min(const void* __restrict__ Fv, const typename T::elem* __restrict__ G,
 //  - a first launch (pack_g) writes G as a stage is read: K-major, each
 //    column's KS * 32 bytes cut into swizzled regions of 128, 64 and 32
 //    bytes from the front (BF16 K = 96: 128 + 64; K = 16: 32; TF32 K = 32:
-//    128), the 16-byte chunks of a region's rows permuted as the
-//    descriptor's swizzle mode reads them, so the bulk copy moves the
-//    bytes as they are.
+//    128; int8 K = 16 or 32: 32, the region of BF16 K = 16, so the same
+//    descriptors read it), the 16-byte chunks of a region's rows permuted
+//    as the descriptor's swizzle mode reads them, so the bulk copy moves
+//    the bytes as they are.
+// Variant 6 runs this pipeline as BF16 K = 16 does (one K step: one set,
+// four warpgroups), its fold a tree of VIMNMX3. At K = 16 it takes about
+// twice its bound: without the fold the same launch takes 0.33 ms, with it
+// 0.53, so the fold's 0.26 ms hardly overlaps the MMAs. Neither a second
+// accumulator set (two warpgroups of two sets: slower) nor half tiles of 64
+// columns, one folded while the other runs (ptxas C7514 serializes those
+// wgmmas: no faster), changed that.
 // The work per output is the first form's: the same K steps in the same
-// order on the same fragments, so the outputs are the same bits. What
+// order on the same fragments, so the outputs are the same bits (int8:
+// integer sums, so variant 6 equals variant 3 whatever the order). What
 // kept the compiler from serializing the wgmmas (ptxas C7512, C7518): the
 // warp index made warp-uniform by a shuffle, the mbarrier wait loop inside
 // one asm statement, and every register array indexed by constants.
@@ -360,35 +387,40 @@ __device__ __forceinline__ uint64_t block_desc(uint32_t sb, int ks) {
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "     \
   "{%64, %65, %66, %67}, %68, p"
-#define WG_OUT64                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),              \
-  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),           \
-  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),           \
-  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),           \
-  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),           \
-  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),           \
-  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),           \
-  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),           \
-  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),           \
-  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+// the 64 accumulators as asm operands of constraint C ("+f" FP32, "+r" int32)
+#define WG_OUT64(C)                                                                       \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]), C(d[8]),        \
+  C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]),          \
+  C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), C(d[24]),         \
+  C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31]), C(d[32]),         \
+  C(d[33]), C(d[34]), C(d[35]), C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]),         \
+  C(d[41]), C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), C(d[48]),         \
+  C(d[49]), C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]), C(d[56]),         \
+  C(d[57]), C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63])
 
 // d (+)= A (registers) x B (shared memory, K-major); scale_d 0 overwrites d.
-// One K step: m64n128k16 for BF16, m64n128k8 for TF32 (which has no
-// transpose argument: its operands are K-major only).
+// One K step: m64n128k16 for BF16, m64n128k8 for TF32, m64n128k32 for int8
+// (TF32 and int8 have no transpose argument, and int8 no scale of A or B:
+// their operands are K-major only).
 template <class T>
-__device__ __forceinline__ void wgmma_step(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
-                                           int scale_d) {
+__device__ __forceinline__ void wgmma_step(typename T::acc_t (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
   if constexpr (T::PACK == 2) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64 ", 1, 1, 0;\n}\n"
-                 : WG_OUT64
+                 : WG_OUT64("+f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+                 : "memory");
+  } else if constexpr (T::PACK == 1) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D64 ", 1, 1;\n}\n"
+                 : WG_OUT64("+f")
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
                  : "memory");
   } else {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D64 ", 1, 1;\n}\n"
-                 : WG_OUT64
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_D64 ";\n}\n"
+                 : WG_OUT64("+r")
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
                  : "memory");
   }
@@ -397,6 +429,7 @@ __device__ __forceinline__ void wgmma_step(float (&d)[64], const uint32_t (&a)[4
 // Orders a register's reads and writes against the asynchronous wgmmas
 // around it (the compiler sees the wgmma write its accumulators at issue).
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
@@ -429,8 +462,8 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // The tile of 64 * 128 products of one m-tile and the block at sb: every K
 // step, committed as one group.
 template <class T, int KS, bool SPLIT>
-__device__ __forceinline__ void wg_issue(float (&d)[64], const uint32_t (&a)[SPLIT ? 3 : KS][4],
-                                         uint32_t sb) {
+__device__ __forceinline__ void wg_issue(typename T::acc_t (&d)[64],
+                                         const uint32_t (&a)[SPLIT ? 3 : KS][4], uint32_t sb) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) fence_reg(d[i]);
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -465,6 +498,34 @@ __device__ __forceinline__ void wg_fold(float (&d)[64], float& lo, float& hi) {
   for (int j = 0; j < 2; ++j) x[j] = fminf(x[j], x[j + 2]), y[j] = fminf(y[j], y[j + 2]);
   lo = fminf(lo, fminf(x[0], x[1]));
   hi = fminf(hi, fminf(y[0], y[1]));
+}
+
+// The same for int32 accumulators, as a tree of the DPX min of three
+// (__vimin3_s32): a row half's 32 values and its running min, 33 values,
+// in 16 instructions where pairs take 32. The fold is exact, so the order
+// does not matter.
+__device__ __forceinline__ void wg_fold(int (&d)[64], int& lo, int& hi) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_reg(d[i]);
+  // value q of a row half: d[at(q)] (ray gid), d[at(q) + 2] (ray gid + 8)
+  auto at = [](int q) { return 4 * (q / 2) + q % 2; };
+  int x[11], y[11];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) {
+    x[j] = __vimin3_s32(d[at(3 * j)], d[at(3 * j + 1)], d[at(3 * j + 2)]);
+    y[j] = __vimin3_s32(d[at(3 * j) + 2], d[at(3 * j + 1) + 2], d[at(3 * j + 2) + 2]);
+  }
+  x[10] = __vimin3_s32(d[60], d[61], lo);  // values 30, 31 and the running min
+  y[10] = __vimin3_s32(d[62], d[63], hi);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {  // 11 -> 5: x[0..2], x[9], x[10]
+    x[j] = __vimin3_s32(x[3 * j], x[3 * j + 1], x[3 * j + 2]);
+    y[j] = __vimin3_s32(y[3 * j], y[3 * j + 1], y[3 * j + 2]);
+  }
+  x[0] = __vimin3_s32(x[0], x[1], x[2]);  // 5 -> 3
+  y[0] = __vimin3_s32(y[0], y[1], y[2]);
+  lo = __vimin3_s32(x[0], x[9], x[10]);  // 3 -> 1
+  hi = __vimin3_s32(y[0], y[9], y[10]);
 }
 
 // G [K, cols] -> gp, the blocks of WG_COLS columns in order, each as
@@ -507,7 +568,8 @@ __host__ __device__ constexpr int wg_consumer_regs(int wgs) {
 template <class T, int KS, int MT, int WGS, int NACC, bool SPLIT>
 __global__ void __launch_bounds__(WGS * 128 + 128, 1)
 wgmma_dot_min(const void* __restrict__ Fv, const uint8_t* __restrict__ gp,
-              float* __restrict__ out, int B, int K, int n_blocks) {
+              typename T::acc_t* __restrict__ out, int B, int K, int n_blocks) {
+  using acc_t = typename T::acc_t;
   static_assert(NACC == 1 || MT % 2 == 0, "tiles alternate between the two accumulator sets");
   constexpr int BLOCK = WG_COLS * KS * 32, SB = NACC == 1 ? 4 : 1;  // bytes, blocks of a stage
   constexpr int STAGE = SB * BLOCK, RING = wg_ring(STAGE), M = WGS * 64 * MT;
@@ -565,10 +627,10 @@ wgmma_dot_min(const void* __restrict__ Fv, const uint8_t* __restrict__ gp,
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
       load_a<T, KS, SPLIT>(a[mt], Fv, B, K, ray0 + mt * 64, gid, tig);
-    float mlo[MT], mhi[MT];
+    acc_t mlo[MT], mhi[MT];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) mlo[mt] = mhi[mt] = INFINITY;
-    float acc[NACC][64];
+    for (int mt = 0; mt < MT; ++mt) mlo[mt] = mhi[mt] = T::big();
+    acc_t acc[NACC][64];
 
     if constexpr (NACC == 1) {
       for (int q = 0; q < n_stages; ++q) {
@@ -611,11 +673,11 @@ wgmma_dot_min(const void* __restrict__ Fv, const uint8_t* __restrict__ gp,
 
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      float lo = mlo[mt], hi = mhi[mt];
+      acc_t lo = mlo[mt], hi = mhi[mt];
 #pragma unroll
       for (int x = 1; x < 4; x <<= 1) {
-        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, x));
-        hi = fminf(hi, __shfl_xor_sync(0xffffffffu, hi, x));
+        lo = T::lower(lo, __shfl_xor_sync(0xffffffffu, lo, x));
+        hi = T::lower(hi, __shfl_xor_sync(0xffffffffu, hi, x));
       }
       const int r = ray0 + mt * 64 + gid;
       if (tig == 0) {
@@ -752,7 +814,8 @@ int launch_wgmma_blocks(const void* F, const void* gp, void* out, int B, int K, 
     return (int)cudaGetLastError();
   const int M = WGS * 64 * MT, tiles = (B + M - 1) / M;
   kernel<<<tiles < sms ? tiles : sms, WGS * 128 + 128, SMEM, stream>>>(
-      F, static_cast<const uint8_t*>(gp), static_cast<float*>(out), B, K, (int)(cols / WG_COLS));
+      F, static_cast<const uint8_t*>(gp), static_cast<typename T::acc_t*>(out), B, K,
+      (int)(cols / WG_COLS));
   return (int)cudaGetLastError();
 }
 
@@ -775,13 +838,14 @@ int launch_wgmma(const void* F, const void* G, void* out, void* scratch, int B, 
     if (M == 512)
       return launch_wgmma_blocks<T, KS, 2, 4, 1, SPLIT>(F, scratch, out, B, K, cols, stream);
     return launch_wgmma_blocks<T, KS, 1, 4, 1, SPLIT>(F, scratch, out, B, K, cols, stream);
+  } else {
+    if (M == 128 * MT_MAX)
+      return launch_wgmma_blocks<T, KS, MT_MAX, 2, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
+    if constexpr (MT_MAX == 4)
+      return launch_wgmma_blocks<T, KS, 2, 2, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
+    else
+      return launch_wgmma_blocks<T, KS, 2, 1, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
   }
-  if (M == 128 * MT_MAX)
-    return launch_wgmma_blocks<T, KS, MT_MAX, 2, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
-  if constexpr (MT_MAX == 4)
-    return launch_wgmma_blocks<T, KS, 2, 2, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
-  else
-    return launch_wgmma_blocks<T, KS, 2, 1, 2, SPLIT>(F, scratch, out, B, K, cols, stream);
 }
 
 template <int K, int R>
@@ -805,15 +869,88 @@ int launch_fma(const void* F, const void* G, void* out, int B, int N, int reps, 
   return launch_fma_rays<K, 1>(F, G, out, B, N, reps, M, acc_min, stream);
 }
 
+// ---- the fold's instructions: how many minima a second the card takes -------
+//
+// Each thread keeps MR_CHAINS values in registers and, a step at a time,
+// replaces value c by the min of values c and c + 1 (op 0: fminf, FMNMX;
+// op 1: int min, IMNMX) or of values c, c + 1 and c + 2 (op 2:
+// __vimin3_s32), indices mod MR_CHAINS: MR_CHAINS independent mins a step,
+// each step's inputs the step before's outputs, so that the compiler can
+// neither drop nor merge one (every value is a new min of distinct ones) and
+// enough are in flight to cover the pipe's latency. Block 0's thread 0
+// writes the clocks and nanoseconds (%globaltimer) its loop took, from which
+// the caller reads the SM clock of the run.
+constexpr int MR_CHAINS = 16, MR_UNROLL = 4, MR_THREADS = 1024;
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+template <int OP>
+__global__ void __launch_bounds__(MR_THREADS)
+min_rate(int* __restrict__ out, long long* __restrict__ clk, int iters) {
+  using V = typename std::conditional<OP == 0, float, int>::type;
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  V x[MR_CHAINS];
+#pragma unroll
+  for (int c = 0; c < MR_CHAINS; ++c)  // distinct values below 2^23 in magnitude
+    x[c] = (V)((int)(((t * MR_CHAINS + c) * 2654435761u) >> 9) - (1 << 21));
+  const long long c0 = clock64();
+  const uint64_t n0 = global_ns();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < MR_UNROLL; ++u) {
+      V y[MR_CHAINS];
+#pragma unroll
+      for (int c = 0; c < MR_CHAINS; ++c) {
+        const V a = x[c], b = x[(c + 1) % MR_CHAINS];
+        if constexpr (OP == 0) y[c] = fminf(a, b);
+        else if constexpr (OP == 1) y[c] = min(a, b);
+        else y[c] = __vimin3_s32(a, b, x[(c + 2) % MR_CHAINS]);
+      }
+#pragma unroll
+      for (int c = 0; c < MR_CHAINS; ++c) x[c] = y[c];
+    }
+  }
+  const long long c1 = clock64();
+  const uint64_t n1 = global_ns();
+  int h = 0;
+#pragma unroll
+  for (int c = 0; c < MR_CHAINS; ++c) {
+    if constexpr (OP == 0) h ^= __float_as_int(x[c]);
+    else h ^= x[c];
+  }
+  out[t] = h;
+  if (t == 0) clk[0] = c1 - c0, clk[1] = (long long)(n1 - n0);
+}
+
 }  // namespace
+
+// The fold's instruction rate: op 0 fminf (FMNMX), 1 int min (IMNMX), 2
+// __vimin3_s32; `blocks` blocks of MR_THREADS threads each run `iters` x
+// MR_UNROLL x MR_CHAINS of them; out [blocks * MR_THREADS] int32 (a digest,
+// so that nothing is dropped), clk [2] int64: block 0's clocks and
+// nanoseconds.
+extern "C" int rt_min_rate(void* out, void* clk, int op, int iters, int blocks, void* stream) {
+  if (op < 0 || op > 2 || iters < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int* o = static_cast<int*>(out);
+  long long* c = static_cast<long long*>(clk);
+  if (op == 0) min_rate<0><<<blocks, MR_THREADS, 0, s>>>(o, c, iters);
+  if (op == 1) min_rate<1><<<blocks, MR_THREADS, 0, s>>>(o, c, iters);
+  if (op == 2) min_rate<2><<<blocks, MR_THREADS, 0, s>>>(o, c, iters);
+  return (int)cudaGetLastError();
+}
 
 // F [K, B], G [K, N * reps], out [B]; N a multiple of 8; M rays a block;
 // variant as above. FP32: K 8, 16 or 32, M a multiple of 32 up to 1024.
 // mma.sync: M a multiple of 64 up to 1024 (K <= 48; TF32 K <= 16) or of 32
-// up to 512. wgmma (acc_min only): BF16 K 16 to 128, TF32 K 8, 16 or 32; M
-// 256 or 512 up to three K steps (BF16 K <= 48, TF32 K <= 16), else 128 or
-// 256; N a multiple of 128; scratch of N * reps * 32 bytes a K step (null
-// for the other variants).
+// up to 512. wgmma (acc_min only): BF16 K 16 to 128, TF32 K 8, 16 or 32,
+// int8 K 16 or 32 (one K step); M 256 or 512 up to three K steps (BF16 K <=
+// 48, TF32 K <= 16, int8), else 128 or 256; N a multiple of 128; scratch of
+// N * reps * 32 bytes a K step (null for the other variants).
 extern "C" int rt_dot_min(const void* F, const void* G, void* out, void* scratch, int B, int K,
                           int N, int reps, int M, int acc_min, int variant, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
@@ -850,6 +987,8 @@ extern "C" int rt_dot_min(const void* F, const void* G, void* out, void* scratch
     if (K == 8) WGMMA(Tf32, 1);
     if (K == 16) WGMMA(Tf32, 2);
     if (K == 32) WGMMA(Tf32, 4);
+  } else if (variant == 6 && acc_min) {
+    if (K == 16 || K == 32) WGMMA(Int8, 1);
   }
 #undef WGMMA
 #undef MMA

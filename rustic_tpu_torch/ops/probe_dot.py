@@ -12,11 +12,11 @@ ray, without its epilogue. What differs is the unit the dot runs on:
 
 - `dot_min` (K18), by `variant`: "fp32", FP32 FMAs with a few rays a
   thread, what the scans do; "tf32", "bf16" and "int8", tensor cores
-  (`mma.sync`, FP32 or int32 accumulate); "bf16w" and "tf32w", the BF16
-  and TF32 tensor cores through the warpgroup instruction
+  (`mma.sync`, FP32 or int32 accumulate); "bf16w", "tf32w" and "int8w",
+  the BF16, TF32 and int8 tensor cores through the warpgroup instruction
   `wgmma.mma_async`. "tf32" and "tf32w" take float32 operands and round
   them to TF32 (`round_tf32`); "bf16" and "bf16w" take bfloat16, "int8"
-  int8 operands and returns int32.
+  and "int8w" int8 operands and return int32.
 - `dot_min_split` (K19): an f32 dot of depth 16 as one BF16 pass of depth
   96. Each f32 value a is split into three bfloat16 parts (`split3`: hi =
   bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid)); G arrives as the
@@ -38,11 +38,14 @@ import torch
 
 from rustic_tpu_torch.ops import _build
 
-VARIANTS = ("fp32", "tf32", "bf16", "int8", "bf16w", "tf32w")  # the kernel's variant numbers
-WGMMA = ("bf16w", "tf32w")  # through wgmma: whole 128-column tiles, acc_min only
+VARIANTS = ("fp32", "tf32", "bf16", "int8", "bf16w", "tf32w", "int8w")  # the kernel's numbers
+WGMMA = ("bf16w", "tf32w", "int8w")  # through wgmma: whole 128-column tiles, acc_min only
+INT8 = ("int8", "int8w")  # int8 operands, int32 sums
 _OPERAND = {"fp32": torch.float32, "tf32": torch.float32, "bf16": torch.bfloat16,
-            "int8": torch.int8, "bf16w": torch.bfloat16, "tf32w": torch.float32}
-_K_STEP = {"tf32": 8, "bf16": 16, "int8": 32, "bf16w": 16, "tf32w": 8}  # an instruction's depth
+            "int8": torch.int8, "bf16w": torch.bfloat16, "tf32w": torch.float32,
+            "int8w": torch.int8}
+_K_STEP = {"tf32": 8, "bf16": 16, "int8": 32, "bf16w": 16, "tf32w": 8,
+           "int8w": 32}  # an instruction's depth
 SPLIT_K = 16  # depth of the f32 dot K19 emulates
 # f32 elements of one [chunk, N*reps] product of the plain versions (1 GiB)
 _PLAIN_CHUNK = 1 << 28
@@ -116,13 +119,13 @@ def dot_min_plain(f, g, n: int, reps: int, variant: str = "fp32", acc_min: bool 
     """`dot_min` in plain PyTorch: the operands upcast to float32 ("tf32",
     "tf32w": rounded to TF32 first), one float32 product, the min. int8 sums of at
     most 32 products stay below 2^24, so float32 holds them exactly; the
-    result is returned as int32."""
+    result of "int8" and "int8w" is returned as int32."""
     _check_shapes(f, g, n, reps)
     f32, g32 = f.float(), g.float()
     if variant in ("tf32", "tf32w"):
         f32, g32 = round_tf32(f32), round_tf32(g32)
     out = _min_of_dots(f32, g32, n, acc_min)
-    return out.to(torch.int32) if variant == "int8" else out
+    return out.to(torch.int32) if variant in INT8 else out
 
 
 def dot_min_split_plain(f, g, n: int, reps: int):
@@ -155,7 +158,8 @@ def max_block_rays(variant: str, k: int) -> int:
 
 # the depths K each unit's kernel is built for (csrc/probe_dot.cu rt_dot_min)
 _DEPTHS = {"fp32": (8, 16, 32), "tf32": (8, 16, 32), "bf16": (8, 16, 32, 48, 64, 96, 128),
-           "int8": (16, 32), "bf16w": (16, 32, 48, 64, 96, 128), "tf32w": (8, 16, 32)}
+           "int8": (16, 32), "bf16w": (16, 32, 48, 64, 96, 128), "tf32w": (8, 16, 32),
+           "int8w": (16, 32)}
 
 
 def _check_operands(f, g, n, reps, dtype_f, dtype_g, variant, m):
@@ -180,9 +184,9 @@ def _check_operands(f, g, n, reps, dtype_f, dtype_g, variant, m):
 
 
 def _wgmma_scratch(variant: str, k: int, cols: int, device):
-    """Room for G in the order `wgmma` reads it ("bf16w", "tf32w": the
-    kernel packs it there before its main launch, 32 bytes a column and K
-    step), else None."""
+    """Room for G in the order `wgmma` reads it ("bf16w", "tf32w",
+    "int8w": the kernel packs it there before its main launch, 32 bytes a
+    column and K step), else None."""
     if variant not in WGMMA:
         return None
     step = _K_STEP[variant]
@@ -192,13 +196,14 @@ def _wgmma_scratch(variant: str, k: int, cols: int, device):
 def dot_min(f, g, n: int, reps: int, variant: str = "fp32", m: int | None = None,
             acc_min: bool = True):
     """K18 (replaces tools/mxu_floor.py `_case_kernel` and its int8
-    kernel): F [K, B], G [K, n*reps] in the operand type of `variant` ->
-    out [B] float32 (int32 for "int8"); `m` rays a block, a multiple of 64
-    (of 32 for "fp32" and where a block holds 512, of a warpgroup's rays
-    for "bf16w" and "tf32w") up to `max_block_rays`, the default. K: 8, 16
-    or 32 ("fp32", "tf32", "tf32w"); 8, 16, 32, 48, 64, 96 or 128 ("bf16";
-    "bf16w" from 16); 16 or 32 ("int8"). n: a multiple of 8 (of 128 for
-    "bf16w" and "tf32w", which have no `acc_min` off)."""
+    kernel `k8`): F [K, B], G [K, n*reps] in the operand type of `variant`
+    -> out [B] float32 (int32 for "int8" and "int8w"); `m` rays a block, a
+    multiple of 64 (of 32 for "fp32" and where a block holds 512, of a
+    warpgroup's rays for the `wgmma` variants) up to `max_block_rays`, the
+    default. K: 8, 16 or 32 ("fp32", "tf32", "tf32w"); 8, 16, 32, 48, 64, 96
+    or 128 ("bf16"; "bf16w" from 16); 16 or 32 ("int8", "int8w"). n: a
+    multiple of 8 (of 128 for "bf16w", "tf32w" and "int8w", which have no
+    `acc_min` off)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: expected one of {VARIANTS}")
     if variant in WGMMA and not acc_min:
@@ -209,7 +214,7 @@ def dot_min(f, g, n: int, reps: int, variant: str = "fp32", m: int | None = None
     k, b = f.shape
     m = max_block_rays(variant, k) if m is None else m
     _check_operands(f, g, n, reps, dtype, dtype, variant, m)
-    out = torch.empty(b, dtype=torch.int32 if variant == "int8" else torch.float32,
+    out = torch.empty(b, dtype=torch.int32 if variant in INT8 else torch.float32,
                       device=f.device)
     name = f"dot_min_{variant}"
     _build.launch(

@@ -9,9 +9,14 @@ FMAs. `dot_min` (K18) and `dot_min_split` (K19, ops/probe_dot.py) do the
 same shape of work, rays [K, B] against columns [K, N*reps] reduced by a
 min per ray, on FP32 FMAs and on the tensor cores (`mma.sync`: TF32
 m16n8k8, BF16 m16n8k16, int8 m16n8k32; `wgmma.mma_async`: BF16
-m64n128k16 and TF32 m64n128k8, the cases named "bf16w" and "tf32w"), so
-their rates say what a pair test on each unit could reach and what depth
-K costs there.
+m64n128k16, TF32 m64n128k8 and int8 m64n128k32, the cases named "bf16w",
+"tf32w" and "int8w"), so their rates say what a pair test on each unit
+could reach and what depth K costs there.
+
+First `min_rates`: the card's rate of the fold's instructions (FMNMX,
+IMNMX and the DPX min of three, `rt_min_rate` of csrc/probe_dot.cu), in G
+results/s and per clock per SM at the SM clock the run read, beside the
+64 a clock an SM that the fold's bound counts (`FOLD_PER_S`).
 
 Cases, at B = 2^20 rays (the sweep of mxu_floor.main): K from 8 to 128 at
 N = 1024; N from 128 to 2048; 256, 512 and 1024 rays a block (the TPU
@@ -45,6 +50,7 @@ import subprocess
 import numpy as np
 import torch
 
+from rustic_tpu_torch.ops import _build
 from rustic_tpu_torch.ops import probe_dot as PD
 from rustic_tpu_torch.ops.intersect import _ray_features16
 from rustic_tpu_torch.scene.world import World
@@ -52,7 +58,7 @@ from rustic_tpu_torch.scene.world import World
 RAYS = 1 << 20
 # operations per second of each unit (NVIDIA H100 SXM datasheet, dense)
 PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bf16w": 989e12,
-        "tf32w": 495e12}
+        "tf32w": 495e12, "int8w": 1979e12}
 
 # name, variant, K, N, reps, rays a block, acc_min
 CASES = [
@@ -88,6 +94,8 @@ CASES = [
     ("tf32w k16 n1024 m512", "tf32w", 16, 1024, 8, 512, True),
     ("tf32w k8 n1024 m512", "tf32w", 8, 1024, 8, 512, True),
     ("tf32w k32 n1024 m256", "tf32w", 32, 1024, 8, 256, True),
+    ("int8w k16 n1024 m512", "int8w", 16, 1024, 8, 512, True),
+    ("int8w k32 n1024 m512", "int8w", 32, 1024, 8, 512, True),
 ]
 QUICK = 7  # --quick: the K sweep in BF16 and the two f32 operand cases
 
@@ -104,7 +112,7 @@ def operands(variant: str, k: int, b: int, cols: int, device, seed: int = 0):
     """F [k, b] and G [k, cols] in the operand type of `variant`: standard
     normal values (int8: uniform over the type), from `seed`."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    if variant == "int8":
+    if variant in PD.INT8:
         def draw(n):
             return torch.randint(-128, 128, (k, n), generator=gen, device=device).to(torch.int8)
     else:
@@ -112,6 +120,49 @@ def operands(variant: str, k: int, b: int, cols: int, device, seed: int = 0):
             x = torch.randn((k, n), generator=gen, device=device, dtype=torch.float32)
             return x.to(torch.bfloat16) if variant in ("bf16", "bf16w") else x
     return draw(b), draw(cols)
+
+
+# the rate kernels of csrc/probe_dot.cu rt_min_rate: op -> (what, minima a result)
+MIN_OPS = {0: ("fminf (FMNMX)", 1), 1: ("int min (IMNMX)", 1), 2: ("__vimin3_s32", 2)}
+MR_THREADS, MR_STEP = 1024, 16 * 4  # threads a block; mins a thread per iteration
+# The fold's peak, one min an output: FMNMX and IMNMX issue 64 a clock an SM
+# on the ALU pipe (cc 9.0), here at the clock PEAK["fp32"] counts (128 FFMA
+# lanes a clock an SM, two operations each); on int32 the DPX min of three
+# (one VIMNMX3) folds two minima a result at that rate. Minima a second by
+# accumulator type.
+MIN_PER_CLK_SM = 64
+FOLD_PER_S = {"float": PEAK["fp32"] / 256 * MIN_PER_CLK_SM,
+              "int": PEAK["fp32"] / 256 * MIN_PER_CLK_SM * MIN_OPS[2][1]}
+
+
+def min_rates(device, iters: int = 8192, blocks_per_sm: int = 2) -> dict:
+    """The card's rate of each min of MIN_OPS: {op: dict(what, ms, g_per_s
+    (results a second / 1e9), per_clk_sm, mhz)}; the median of 5 CUDA-event
+    timings of `blocks_per_sm` x SMs blocks of MR_THREADS threads, `iters` x
+    MR_STEP mins a thread; the SM clock from block 0's clock64 and
+    %globaltimer over its loop. Prints one line a min."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = blocks_per_sm * sms
+    fn = _build.entry_point("probe_dot", "rt_min_rate", 2, 3)
+    out = torch.empty(blocks * MR_THREADS, dtype=torch.int32, device=device)
+    clk = torch.zeros(2, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rates = {}
+    for op, (what, folds) in MIN_OPS.items():
+        def run(op=op):
+            rc = fn(out.data_ptr(), clk.data_ptr(), op, iters, blocks, stream)
+            if rc != 0:
+                raise RuntimeError(f"rt_min_rate op {op} failed to launch: cudaError {rc}")
+        ms = time_ms(run)
+        cycles, ns = clk.tolist()
+        mhz = cycles / ns * 1e3
+        results = blocks * MR_THREADS * iters * MR_STEP / (ms * 1e-3)
+        rates[op] = dict(what=what, ms=ms, g_per_s=results / 1e9, mhz=mhz,
+                         per_clk_sm=results / (mhz * 1e6 * sms))
+        print(f"min rate {what:16s} {ms:8.3f} ms  {results / 1e9:9.1f} G results/s  "
+              f"{rates[op]['per_clk_sm']:6.2f} a clock an SM (the bound counts "
+              f"{MIN_PER_CLK_SM}) at {mhz:.0f} MHz  ({folds} minima a result)")
+    return rates
 
 
 def time_ms(fn, iters: int = 5) -> float:
@@ -235,6 +286,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(card)
     if not args.accuracy_only:
+        min_rates(device)
         sweep(device, quick=args.quick)
         split_sweep(device)
         print()

@@ -82,8 +82,12 @@ at K = 48, through mma.sync and through wgmma), at B = 2^20 rays on
 `probe_dot_floor.operands`: the outputs against the first version's bit
 for bit, and the versions timed in turns (median of 10 CUDA-event
 timings). A case a version is not built for (a variant it lacks) is
-skipped for it. Registers, spills and the compiler's wgmma notes of every
-build from its log.
+skipped for it. The int8 `wgmma` cases ("int8w") are also held to the
+first version's int8 `mma.sync` case of the same K, bit for bit.
+Registers, spills and the compiler's wgmma notes of every build from its
+log, each under its kernel's name, and the min instructions (FMNMX,
+IMNMX, the DPX min of three) in the SASS of each build's int8 `wgmma`
+kernels and of its rate kernels (`rt_min_rate`).
 
 `bvh`: the BVH traversal K20n (`rt_bvh_nearest`) and K20a
 (`rt_bvh_occluded`) built from several versions of bvh_traverse.cu (one
@@ -117,6 +121,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -305,6 +310,13 @@ def sass_by_kernel(lib: str) -> dict:
         if m and name is not None:
             kernels[name].append(m.group(1).strip())
     return kernels
+
+
+def min_opcodes(body) -> dict:
+    """{opcode: count} of the min and max instructions (FMNMX, VIMNMX,
+    VIMNMX3, ...) in one kernel's SASS (`sass_by_kernel`)."""
+    return dict(Counter(next(w for w in ins.split() if not w.startswith("@"))  # after a predicate
+                        for ins in body if "MNMX" in ins))
 
 
 def contraction(dirs) -> int:
@@ -740,7 +752,7 @@ def dot_cases(device):
     b = PF.RAYS
     cases, ops = [], {}
     for name, variant, k, n, reps, m, acc_min in PF.CASES:
-        key = (variant, k, n * reps)
+        key = (PD._OPERAND[variant], k, n * reps)  # the same draws for each operand type
         if key not in ops:
             ops[key] = PF.operands(variant, k, b, n * reps, device)
         cases.append((name, "rt_dot_min", ops[key],
@@ -763,6 +775,9 @@ def dot_cases(device):
 
 
 def dots(specs) -> int:
+    from rustic_tpu_torch.ops import probe_dot as PD
+
+    int8, int8w = PD.VARIANTS.index("int8"), PD.VARIANTS.index("int8w")
     device = torch.device("cuda", 0)
     card = card_line()
     dirs = dict(spec.split("=", 1) for spec in specs)
@@ -770,16 +785,26 @@ def dots(specs) -> int:
         libs = dict(zip(dirs, pool.map(lambda label: _build.compile_source(
             os.path.join(dirs[label], "probe_dot.cu"), _build.EXTRA_FLAGS["probe_dot"]), dirs)))
     for label, lib in libs.items():
+        kernel = None
         with open(lib[: -len(".so")] + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line or "wgmma" in line.lower():
+                m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+                if m:
+                    kernel = m.group(1)
+                elif re.search(r"\(C75\d\d\)", line):  # the compiler's wgmma notes name their kernel
                     print(f"{label}: {line.strip()}")
+                elif "Used" in line and "registers" in line or "spill" in line:
+                    print(f"{label}: {kernel}: {line.strip()}")
+        for name, body in sass_by_kernel(lib).items():
+            if "min_rate" in name or ("wgmma_dot_min" in name and "Int8" in name):
+                print(f"{label}: {name}: min instructions in its SASS {min_opcodes(body)}")
     entries = {(label, fn): _build.load_entry(lib, fn, 4, n_ints)
                for label, lib in libs.items()
                for fn, n_ints in (("rt_dot_min", 7), ("rt_dot_min_split", 5))}
     scratch = torch.empty(8 << 20, dtype=torch.uint8, device=device)  # wgmma's G, K <= 128
     stream = torch.cuda.current_stream(device).cuda_stream
     failed = False
+    int8_outs = {}  # (K, N, reps) -> the first version's int8 mma.sync output
     for name, fn, (f, g), ints in dot_cases(device):
         out_dtype = torch.int32 if f.dtype == torch.int8 else torch.float32
         outs = {}
@@ -803,15 +828,31 @@ def dots(specs) -> int:
                   f"every ray" + (f" ({diff} rays differ, max |d| "
                                   f"{float((out.double() - outs[base].double()).abs().max()):.3g})"
                                   if diff else ""))
+        runs = {label: (label, ints) for label in outs}  # what is timed: (version, ints)
+        shape = ints[1:4]  # K, N, reps of an rt_dot_min case
+        if fn == "rt_dot_min" and ints[6] == int8:
+            int8_outs[shape] = outs[base]
+        elif fn == "rt_dot_min" and ints[6] == int8w and shape in int8_outs:
+            for label, out in outs.items():
+                diff = int((out != int8_outs[shape]).sum())
+                failed |= diff > 0
+                print(f"{name}, {label}: {'equal to' if not diff else 'DIFFERS from'} the int8 "
+                      f"mma.sync case's output" + (f" ({diff} rays differ)" if diff else ""))
+            # and timed in turns with every version's int8 mma.sync kernel at its widest block
+            m8 = PD.max_block_rays("int8", shape[0])
+            for label in dirs:
+                runs[f"{label} int8 mma.sync m{m8}"] = (label, ints[:4] + (m8, 1, int8))
+                outs[f"{label} int8 mma.sync m{m8}"] = torch.empty_like(outs[base])
 
-        def run(label, name=name, fn=fn, f=f, g=g, ints=ints):
-            entries[label, fn](f.data_ptr(), g.data_ptr(), outs[label].data_ptr(),
-                               scratch.data_ptr(), *ints, stream)
+        def run(key, fn=fn, f=f, g=g):
+            label, args = runs[key]
+            entries[label, fn](f.data_ptr(), g.data_ptr(), outs[key].data_ptr(),
+                               scratch.data_ptr(), *args, stream)
 
-        times = {label: [] for label in outs}
+        times = {key: [] for key in runs}
         for _ in range(10):  # in turns
-            for label in outs:
-                times[label].append(time_ms(lambda label=label: run(label)))
+            for key in runs:
+                times[key].append(time_ms(lambda key=key: run(key)))
         print(f"{name}: " + ", ".join(
             f"{label} {statistics.median(ts):.3f} ms (min {min(ts):.3f})"
             for label, ts in times.items()) + f" ({card})")

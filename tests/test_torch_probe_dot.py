@@ -83,13 +83,16 @@ def test_bf16_dot_min_matches_the_tpu_kernel(operands):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("variant", ["int8", "int8w"])
 @pytest.mark.parametrize("k", [16, 32])
-def test_int8_dot_min_equals_the_tpu_kernel(k):
+def test_int8_dot_min_equals_the_tpu_kernel(k, variant):
+    """Integer sums: "int8" (mma.sync) and "int8w" (wgmma) equal to the TPU
+    kernel body and to the int64 product's min."""
     rng = np.random.default_rng(1)
     f = rng.integers(-128, 128, (k, B)).astype(np.int8)
     g = rng.integers(-128, 128, (k, N * REPS)).astype(np.int8)
     want = interpret(_case_kernel(k, N, REPS, None, True, out_dtype=jnp.int32), f, g)
-    got = PD.dot_min(torch.from_numpy(f), torch.from_numpy(g), N, REPS, "int8")
+    got = PD.dot_min(torch.from_numpy(f), torch.from_numpy(g), N, REPS, variant)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want.astype(np.int32))
     exact = (f.astype(np.int64).T @ g.astype(np.int64)).min(axis=1)
@@ -289,3 +292,85 @@ def test_tf32_wgmma_launch_is_counted(operands, monkeypatch):
         PD.dot_min(tf, tg, N, REPS, "tf32w", m=384)
     assert PD.LAUNCHES["dot_min_tf32w"] == 1
     PD.reset_launch_counts()
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_int8_wgmma_variant_shares_the_int8_plain_version(k):
+    """ "int8w" (int8 through wgmma, K = 16 padded to its K step of 32 as
+    "int8" pads it) has "int8"'s plain version (its results:
+    test_int8_dot_min_equals_the_tpu_kernel). Its kernel takes 128 columns
+    an instruction, whole warpgroups of 256 rays (one K step: 512 a block),
+    one K step of 32 bytes a column of G's scratch, and has no form
+    without the min."""
+    rng = np.random.default_rng(2)
+    tf = torch.from_numpy(rng.integers(-128, 128, (k, B)).astype(np.int8))
+    tg = torch.from_numpy(rng.integers(-128, 128, (k, N * REPS)).astype(np.int8))
+    assert torch.equal(PD.dot_min_plain(tf, tg, N, REPS, "int8w"),
+                       PD.dot_min_plain(tf, tg, N, REPS, "int8"))
+    i8 = torch.int8
+    with pytest.raises(ValueError, match="acc_min"):
+        PD.dot_min(tf, tg, N, REPS, "int8w", acc_min=False)
+    assert PD.max_block_rays("int8w", k) == 512
+    PD._check_operands(tf, tg, N, REPS, i8, i8, "int8w", 512)
+    PD._check_operands(tf, tg, N, REPS, i8, i8, "int8w", 256)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        PD._check_operands(tf, tg, N, REPS, i8, i8, "int8w", 128)
+    with pytest.raises(ValueError, match="up to 512"):
+        PD._check_operands(tf, tg, N, REPS, i8, i8, "int8w", 768)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        PD._check_operands(tf, tg[:, :128].contiguous(), 64, 2, i8, i8, "int8w", 512)
+    with pytest.raises(ValueError, match="built for K"):
+        PD._check_operands(tf[:8], tg[:8], N, REPS, i8, i8, "int8w", 512)
+    with pytest.raises(ValueError, match="built for K"):
+        wide = torch.zeros((48, B), dtype=i8)
+        PD._check_operands(wide, torch.zeros((48, N), dtype=i8), N, 1, i8, i8, "int8w", 512)
+    with pytest.raises(ValueError, match="dtype"):
+        PD._check_operands(tf.float(), tg, N, REPS, i8, i8, "int8w", 512)
+    scratch = PD._wgmma_scratch("int8w", k, N * REPS, "cpu")
+    assert scratch.dtype == i8 and scratch.numel() == N * REPS * 32  # one K step of 32 bytes
+
+
+def test_int8_wgmma_launch_is_counted(monkeypatch):
+    """The wrapper's path to the card for "int8w", with the launch itself
+    replaced: variant number 6, an int32 output, the scratch for G's ring
+    order, one launch counted under its own label."""
+    rng = np.random.default_rng(3)
+    tf = torch.from_numpy(rng.integers(-128, 128, (16, B)).astype(np.int8))
+    tg = torch.from_numpy(rng.integers(-128, 128, (16, N * REPS)).astype(np.int8))
+    calls = []
+    monkeypatch.setattr(PD._build, "uses_plain", lambda x: False)
+    monkeypatch.setattr(PD._build, "entry_point", lambda *a: a)
+    monkeypatch.setattr(PD._build, "launch", lambda fn, label, dev, tensors, ints:
+                        calls.append((fn, label, tensors, ints)))
+    PD.reset_launch_counts()
+    out = PD.dot_min(tf, tg, N, REPS, "int8w")
+    assert out.dtype == torch.int32 and out.shape == (B,)
+    assert PD.LAUNCHES["dot_min_int8w"] == 1
+    assert sum(PD.LAUNCHES.values()) == 1
+    (fn, label, tensors, ints), = calls
+    assert fn == ("probe_dot", "rt_dot_min", 4, 7) and label == "dot_min_int8w"
+    assert ints == (B, 16, N, REPS, 512, 1, PD.VARIANTS.index("int8w")) == (B, 16, N, REPS, 512, 1, 6)
+    assert tensors[2] is out
+    assert tensors[3].dtype == torch.int8 and tensors[3].numel() == N * REPS * 32
+    with pytest.raises(ValueError, match="rays a block"):
+        PD.dot_min(tf, tg, N, REPS, "int8w", m=384)
+    assert PD.LAUNCHES["dot_min_int8w"] == 1
+    PD.reset_launch_counts()
+
+
+def test_fold_peak_and_min_opcodes():
+    """The fold's peak: 64 mins a clock an SM at the clock of the FP32 peak
+    (132 SMs x 128 FFMA lanes x 2 operations), the min of three folding
+    two minima a result on int32; 2^33 minima then take about 0.513 ms on
+    FP32 and 0.256 on int32 accumulators. And the min opcodes of a
+    kernel's SASS, predicates skipped."""
+    from rustic_tpu_torch.probe_kernel_builds import min_opcodes
+
+    clock = PF.PEAK["fp32"] / (132 * 128 * 2)
+    assert PF.FOLD_PER_S["float"] == pytest.approx(PF.MIN_PER_CLK_SM * 132 * clock)
+    assert PF.FOLD_PER_S["int"] == PF.MIN_OPS[2][1] * PF.FOLD_PER_S["float"]
+    assert (1 << 33) / PF.FOLD_PER_S["float"] * 1e3 == pytest.approx(0.5128, abs=1e-4)
+    assert (1 << 33) / PF.FOLD_PER_S["int"] * 1e3 == pytest.approx(0.2564, abs=1e-4)
+    body = ["@P0 VIMNMX3 R1, R2, R3, R4", "FMNMX R0, R1, R2, PT", "IADD3 R1, R2, R3, RZ",
+            "VIMNMX3 R5, R6, R7, R8", "VIMNMX R0, R1, R2, PT"]
+    assert min_opcodes(body) == {"VIMNMX3": 2, "FMNMX": 1, "VIMNMX": 1}
