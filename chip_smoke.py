@@ -26,9 +26,11 @@ viewer's core, the denoiser) at the headline configuration; and the
 multi-GPU layer (rustic_tpu_torch/parallel/: a world of one through
 NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
 torchrun) at the headline configuration; and the image decoders
-(rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, exr.py) on the fixtures of
-tests/data_torch/formats, then BreakTime with JPEG textures under an
-OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4);
+(rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, gif.py, tiff.py, webp.py,
+vp8.py, exr.py) on the fixtures of
+tests/data_torch/formats, then BreakTime with JPEG textures, and with
+WebP, TIFF and GIF textures, under an OpenEXR sky through the grid form
+of the kernel-shade loop (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
 `bench`, and rustic_tpu_torch/bench_suite.py on the five BASELINE configs).
 
@@ -324,18 +326,23 @@ Phases, each of which must pass (the first that fails ends the run):
      non-zero exit with the LOCAL_RANK message and no image.
  34. formats: every image of tests/data_torch/formats (JPEG baseline,
      extended and progressive at 4:4:4, 4:2:2, 4:2:0 and 4:4:0, grey,
-     restarts, Adobe RGB; BMP; TGA; a 1024x1024 4:2:0 JPEG) decoded on the
-     host, equal to Pillow 12.1.0's decode stored beside it (.npy, or the
-     SHA-256 of its RGBA bytes), and the half-float ZIP EXR sky equal to
-     BreakTimeSky.npy in half floats; ms per megapixel of each decoder.
-     BreakTime-JPEG (each texture a quality-90 4:2:0 JPEG, the EXR sky)
-     and its twin (each texture a PNG of Pillow's decode of that JPEG, the
-     sky as .npy) through load_scene on the card: the load split into
-     decode, atlas and the rest; every SceneTensors field equal. Both at
-     1920x1080 x 32 spp, NEE+MIS, 4 bounces, through the default loop
-     (kernel-shade, grid scans), a warm-up each, then two renders each in
-     turns: Mpaths/s beside phase 16's PNG BreakTime, launch counts K9 2,
-     K10 62, K11 2, K4 64 and no other kernel, films equal bit for bit.
+     restarts, Adobe RGB; BMP; TGA; GIF, TIFF and WebP lossy, lossy with
+     alpha and lossless; a 1024x1024 4:2:0 JPEG and a 1024x1024 lossy
+     WebP) decoded on the host, equal to Pillow 12.1.0's decode stored
+     beside it (.npy, or the SHA-256 of its RGBA bytes), and the
+     half-float ZIP EXR sky equal to BreakTimeSky.npy in half floats; ms
+     per megapixel of each decoder (gif, tif, webp lossy and lossless
+     apart). BreakTime-JPEG (each texture a quality-90 4:2:0 JPEG, the EXR
+     sky) and its twin (each texture a PNG of Pillow's decode of that
+     JPEG, the sky as .npy), and BreakTime-mixed (two lossy WebP, a
+     lossless WebP, a Deflate and an LZW TIFF, a GIF; the EXR sky) and its
+     twin (PNGs of Pillow's decodes, the EXR sky) through load_scene on the
+     card: the load split into decode, atlas and the rest; every
+     SceneTensors field equal to the twin's. All four at 1920x1080 x 32
+     spp, NEE+MIS, 4 bounces, through the default loop (kernel-shade, grid
+     scans), a warm-up each, then two renders each in turns: Mpaths/s
+     beside phase 16's PNG BreakTime, launch counts K9 2, K10 62, K11 2,
+     K4 64 and no other kernel, each film equal bit for bit to its twin's.
  35. bench: the benchmark programs, each in a process of its own. `python
      -m rustic_tpu_torch.cli bench` (rustic_tpu_torch/bench.py: DarkCornell
      1280x720x160 spp, the median of 3 renders after a one-fold warm-up;
@@ -3973,12 +3980,15 @@ class Smoke:
     def formats(self):
         """Every fixture of tests/data_torch/formats decoded on the host
         against Pillow's decode stored beside it (ms per megapixel of each
-        decoder); BreakTime-JPEG (JPEG textures, EXR sky) and its lossless
-        twin loaded on the card (the load split), their SceneTensors equal,
-        and both rendered at 1920x1080x32 spp in turns through the default
-        loop: launch counts of the grid path, films equal bit for bit."""
+        decoder); BreakTime-JPEG (JPEG textures, EXR sky), BreakTime-mixed
+        (WebP, TIFF and GIF textures, EXR sky) and their lossless twins
+        loaded on the card (the load split), each SceneTensors equal to its
+        twin's, and all four rendered at 1920x1080x32 spp in turns through
+        the default loop: launch counts of the grid path, each film equal
+        bit for bit to its twin's."""
         import hashlib
         import os
+        import struct
         import tempfile
 
         import numpy as np
@@ -3992,8 +4002,21 @@ class Smoke:
         from rustic_tpu_torch.scene import atlas as atlas_mod
         from rustic_tpu_torch.scene import gltf as gltf_mod
         from rustic_tpu_torch.scene import world as world_mod
+        from rustic_tpu_torch.utils import _entropy
         from rustic_tpu_torch.utils.exr import read_exr
         from rustic_tpu_torch.utils.png import decode_image_u8
+        from rustic_tpu_torch.utils.webp import riff_chunks
+
+        def decoder(ext, raw):
+            if ext == "webp":
+                lossless = any(k == b"VP8L" for k, _ in riff_chunks(raw))
+                return "webp lossless" if lossless else "webp lossy"
+            return {"jpg": "jpeg", "tiff": "tif"}.get(ext, ext)
+
+        t0 = time.perf_counter()
+        _entropy.library()  # csrc/image_entropy.cpp, built before any decode is timed
+        log(f"csrc/image_entropy.cpp (the WebP entropy loops) built or loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
 
         with open(os.path.join(FORMATS, "manifest.json")) as f:
             manifest = json.load(f)
@@ -4011,8 +4034,7 @@ class Smoke:
                       == hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest())
             if not ok:
                 self.fail(f"{entry['file']}: the decode differs from Pillow's")
-            kind = {"jpg": "jpeg"}.get(entry["file"].rsplit(".", 1)[1], entry["file"][-3:])
-            acc = per.setdefault(kind, [0.0, 0])
+            acc = per.setdefault(decoder(entry["file"].rsplit(".", 1)[1], raw), [0.0, 0])
             acc[0] += dt
             acc[1] += got.shape[0] * got.shape[1]
             if got.shape[0] * got.shape[1] >= 1 << 20:
@@ -4031,6 +4053,26 @@ class Smoke:
         for kind, (sec, px) in per.items():
             log(f"decode {kind}: {px} pixels in {sec * 1e3:.1f} ms, "
                 f"{sec * 1e3 / (px / 1e6):.1f} ms per megapixel (host CPU)")
+        # the mixed BreakTime's six 256x256 textures, each decoded 3 times: the best time
+        with open(os.path.join(FORMATS, manifest["scene"]["mixed"]), "rb") as f:
+            glb = f.read()
+        (json_len,) = struct.unpack("<I", glb[12:16])
+        doc = json.loads(glb[20 : 20 + json_len])
+        blob = glb[28 + json_len :]
+        texture_rates = {}
+        for img in doc["images"]:
+            view = doc["bufferViews"][img["bufferView"]]
+            data = blob[view.get("byteOffset", 0) : view.get("byteOffset", 0) + view["byteLength"]]
+            kind = decoder(img["mimeType"].split("/")[1], data)
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = decode_image_u8(data, img["mimeType"])
+                best = min(best, time.perf_counter() - t0)
+            texture_rates.setdefault(kind, []).append(best * 1e3 / (got.shape[0] * got.shape[1] / 1e6))
+        log("decode of BreakTime-mixed's 256x256 textures, ms per megapixel (host CPU, best of "
+            "3): " + "; ".join(f"{k} " + ", ".join(f"{r:.1f}" for r in v)
+                               for k, v in texture_rates.items()))
 
         real_decode, real_exr = gltf_mod.decode_image_rgba, world_mod.read_exr
         real_pack = atlas_mod.pack_material_textures
@@ -4049,7 +4091,9 @@ class Smoke:
             np.save(os.path.join(tmp, "sky.npy"), half)
             for name, glb, sky_file in (
                     ("JPEG + EXR", manifest["scene"]["jpeg"], sky_path),
-                    ("twin (PNG + .npy)", manifest["scene"]["twin"], os.path.join(tmp, "sky.npy"))):
+                    ("twin (PNG + .npy)", manifest["scene"]["twin"], os.path.join(tmp, "sky.npy")),
+                    ("mixed + EXR", manifest["scene"]["mixed"], sky_path),
+                    ("mixed twin (PNG + EXR)", manifest["scene"]["mixed_twin"], sky_path)):
                 split = {"decode": 0.0, "atlas": 0.0}
                 gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)
                 world_mod.read_exr = timed(real_exr, "decode", split)
@@ -4067,13 +4111,15 @@ class Smoke:
                     f"(6 textures and the sky), the {scenes[name].atlas.shape[0]}^2 atlas "
                     f"{split['atlas']:.2f} s, the rest (glTF, World, upload) "
                     f"{total - split['decode'] - split['atlas']:.2f} s")
-        a, b = scenes.values()
-        for field in dataclasses.fields(a):
-            x, y = getattr(a, field.name), getattr(b, field.name)
-            same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
-            if not same:
-                self.fail(f"SceneTensors.{field.name} differs between the JPEG scene and its twin")
-        log("SceneTensors of the JPEG + EXR scene equal to the twin's, atlas and sky included")
+        pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"))
+        for one, two in pairs:
+            a, b = scenes[one], scenes[two]
+            for field in dataclasses.fields(a):
+                x, y = getattr(a, field.name), getattr(b, field.name)
+                same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                if not same:
+                    self.fail(f"SceneTensors.{field.name} differs between {one} and {two}")
+            log(f"SceneTensors of {one} equal to those of {two}, atlas and sky included")
 
         config = TracingConfig(width=BT_W, height=BT_H, nee=NextEventEstimation.MIS, **BT_CAM)
         chunk = min(RenderSettings().batch_pixels, BT_W * BT_H)
@@ -4107,12 +4153,14 @@ class Smoke:
             + "; ".join(f"{name} " + ", ".join(f"{r:.2f}" for r in v) for name, v in rates.items())
             + f"; the PNG BreakTime of phase breaktime-renders "
             + (f"{png:.2f}" if png else "not run") + f" ({self.card})")
-        a, b = films.values()
-        if a.shape != (BT_H, BT_W, 3) or not np.isfinite(a).all():
-            self.fail("the JPEG scene's film is not finite or has the wrong shape")
-        if not np.array_equal(a, b):
-            self.fail(f"the films differ at {int((a != b).any(axis=-1).sum())} pixels")
-        log(f"films equal bit for bit, mean {float(a.mean()):.6f}")
+        for one, two in pairs:
+            a, b = films[one], films[two]
+            if a.shape != (BT_H, BT_W, 3) or not np.isfinite(a).all():
+                self.fail(f"the film of {one} is not finite or has the wrong shape")
+            if not np.array_equal(a, b):
+                self.fail(f"the films of {one} and {two} differ at "
+                          f"{int((a != b).any(axis=-1).sum())} pixels")
+            log(f"films of {one} and {two} equal bit for bit, mean {float(a.mean()):.6f}")
 
     # ---- phase 35: the benchmark programs ------------------------------------------------
 

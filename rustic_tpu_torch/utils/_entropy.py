@@ -1,0 +1,28 @@
+"""The host C++ entropy loops of the WebP decoder (csrc/image_entropy.cpp),
+built by g++ at first use (ops/_build.py `compile_host`; a missing or
+failing g++ raises with the compiler's message) and loaded with ctypes."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+from rustic_tpu_torch.ops import _build
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build.compile_host(os.path.join(_build.CSRC, "image_entropy.cpp")))
+    p, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
+    lib.vp8_macroblocks.restype = i32
+    lib.vp8_macroblocks.argtypes = [p, i64, i64, u64, i32, i32, p, p, i32, i32, i32, i32, p, i32,
+                                    i32, p, p, p] + [p] * 8
+    lib.vp8l_pixels.restype = i64
+    lib.vp8l_pixels.argtypes = [p, i64, i64, i32, i32, p, p, p, p, i32, i32, i32, p]
+    return lib
+
+
+def ptr(a) -> int:
+    """The address of a C-contiguous NumPy array (or None)."""
+    return None if a is None else a.ctypes.data

@@ -17,7 +17,9 @@ these give the same uint8 [H, W, 4]:
 
 RLE-compressed BMPs, 16-bit pixels and maps, OS/2 headers and other
 layouts raise NotImplementedError naming the variant. TGA has no
-signature: `decode_image_rgba` (utils/png.py) takes a TGA by its name.
+signature: `decode_image_rgba` (utils/png.py) takes a TGA by its name,
+and every other format it reads (PNG, JPEG, BMP, GIF, TIFF, WebP) by
+its signature.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ Only the entropy decode is a Python loop: a 16-bit window of the bit
 stream, read from a table of 56-bit words (one for each byte), indexes a
 lookup table of (code length, symbol), so one symbol costs one lookup.
 Dequantisation, the IDCT, upsampling and colour conversion run over all
-blocks at once.
+blocks at once. `decode_image_u8` (utils/png.py) picks this decoder by
+the SOI marker, beside PNG, BMP, TGA, GIF, TIFF and WebP.
 """
 
 from __future__ import annotations

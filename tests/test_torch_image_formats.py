@@ -12,11 +12,19 @@ which follows OpenEXR's scanline layout and its RLE and ZIP compressors
 is): `read_exr` must return the written values exactly (half to float32
 is exact). Every refused variant raises NotImplementedError naming it.
 
+The module also holds the writers the GIF, TIFF and WebP tests use
+(tests/test_torch_image_formats_tiff_gif.py, _webp.py): `gif_raw`,
+`write_tiff` (with `tiff_lzw` and `packbits`), `riff`, `webp_chunks` and
+`lossy_with_alpha`.
+
 The fixtures of tests/data_torch/formats/ (read by chip_smoke.py's
 `formats` phase on the card's host, which has no Pillow) are written by
 `make_fixtures`: `python -m tests.test_torch_image_formats` rewrites
 them. Each committed expectation is held here to Pillow's decode of the
-committed file, so a stale fixture fails on the CPU.
+committed file, so a stale fixture fails on the CPU. Beside the JPEG,
+BMP and TGA files they hold GIF, TIFF and WebP files of each kind the
+decoders read, a 1024x1024 lossy WebP, and BreakTime-mixed (WebP, TIFF
+and GIF textures) with its PNG twin.
 """
 
 import hashlib
@@ -393,9 +401,10 @@ IMAGE_REFUSALS = {
                                              np.zeros((4, 4), np.uint8), depth=32), "a.tga"),
     "TGA image type 32": (lambda: b"\x00\x00\x20" + bytes(9) + b"\x02\x00\x02\x00\x08\x00",
                           "a.tga"),
-    "GIF": (lambda: save(pillow_modes(2, 2)["P"], "GIF"), ""),
-    "WebP": (lambda: b"RIFF\x00\x00\x00\x00WEBPVP8 ", ""),
-    "TIFF": (lambda: save(pillow_modes(2, 2)["RGB"], "TIFF"), ""),
+    "JPEG 2000": (lambda: save(pillow_modes(2, 2)["RGB"], "JPEG2000"), ""),
+    "WebP": (lambda: save(pillow_modes(2, 2)["RGB"], "WEBP", save_all=True,
+                          append_images=[pillow_modes(2, 2, seed=1)["RGB"]]), ""),
+    "TIFF": (lambda: save(pillow_modes(8, 8)["RGB"], "TIFF", compression="jpeg"), ""),
     "unknown format": (lambda: save(pillow_modes(2, 2)["RGB"], "TGA"), "no-extension"),
 }
 
@@ -579,11 +588,272 @@ def test_read_exr_refuses_other_channels():
         exr.read_exr(sub)
 
 
+# ---- writing GIF, TIFF and WebP files -------------------------------------------------------
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i : i + 255])]) + data[i : i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def gif_raw(idx, palette=None, min_bits=8, transparency=None, interlace=False, screen=None,
+            offset=(0, 0), local=False) -> bytes:
+    """A GIF89a of one image: indices [h, w] (any values below 2^min_bits,
+    also past the colour table), coded as LZW literals with a clear code
+    before the table would widen the codes; the colour table `palette`
+    ([2^k, 3]) global or local; the image at `offset` on a logical screen
+    of `screen` (w, h)."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+    flags = 0
+    table = b""
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        bits = int(np.log2(len(palette)))
+        flags = 0x80 | (bits - 1)
+        table = palette.tobytes()
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, 0 if local else flags, 0, 0)
+    if not local:
+        out += table
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 0, transparency) + b"\x00"
+    rows = idx
+    if interlace:
+        rows = idx[np.concatenate([np.arange(a, h, b) for a, b in ((0, 8), (4, 8), (2, 4),
+                                                                   (1, 2))])]
+    iflags = (0x40 if interlace else 0) | (flags if local else 0)
+    out += b"\x2c" + struct.pack("<HHHHB", offset[0], offset[1], w, h, iflags)
+    if local:
+        out += table
+    clear, width = 1 << min_bits, min_bits + 1
+    codes = []
+    for k, v in enumerate(rows.reshape(-1).tolist()):
+        if k % (clear - 2) == 0:
+            codes.append(clear)
+        codes.append(v)
+    codes.append(clear + 1)
+    acc = nbits = 0
+    data = bytearray()
+    for c in codes:
+        acc |= c << nbits
+        nbits += width
+        while nbits >= 8:
+            data.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        data.append(acc & 255)
+    return out + bytes([min_bits]) + _sub_blocks(bytes(data)) + b"\x3b"
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW: codes most significant bit first, widened as libtiff's
+    encoder widens them (the decoder's early change), a clear code before
+    the table fills."""
+    def fresh():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    table, nxt, width = fresh()
+    codes = [(256, 9)]
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], width))
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 1 << width and width < 12:
+            width += 1
+        if nxt >= 4093:
+            codes.append((256, width))
+            table, nxt, width = fresh()
+        w = bytes([c])
+    if w:
+        codes.append((table[w], width))
+        nxt += 1
+        if nxt >= 1 << width and width < 12:
+            width += 1
+    codes.append((257, width))
+    acc = nbits = 0
+    out = bytearray()
+    for code, n in codes:
+        acc = (acc << n) | code
+        nbits += n
+        while nbits >= 8:
+            out.append((acc >> (nbits - 8)) & 255)
+            nbits -= 8
+    if nbits:
+        out.append((acc << (8 - nbits)) & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 1 < n and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_rows(px: np.ndarray, bps: int, order: str) -> bytes:
+    """[rows, w, n] samples -> bytes, each row padded to a byte."""
+    rows, w, n = px.shape
+    if bps == 16:
+        return np.ascontiguousarray(px, order + "u2").tobytes()
+    if bps == 8:
+        return np.ascontiguousarray(px, np.uint8).tobytes()
+    flat = px.reshape(rows, w * n).astype(np.uint8)
+    per = 8 // bps
+    flat = np.concatenate([flat, np.zeros((rows, -flat.shape[1] % per), np.uint8)], 1)
+    shifts = np.arange(8 - bps, -1, -bps, dtype=np.uint8)
+    return (flat.reshape(rows, -1, per) << shifts).sum(-1).astype(np.uint8).tobytes()
+
+
+TIFF_COMPRESSIONS = {"none": 1, "LZW": 5, "Deflate": 8, "PackBits": 32773, "old Deflate": 32946}
+
+
+def write_tiff(px, photometric, bps=8, extra=(), compression="none", predictor=1, planar=1,
+               tile=None, rows_per_strip=None, order="<", colour_map=None, tags=None) -> bytes:
+    """A classic TIFF of samples px [h, w, n] (uint8 or uint16): strips of
+    `rows_per_strip` rows or tiles of `tile` (w, h); planar configuration
+    1 or 2; horizontal differencing where predictor is 2; extra `tags`
+    {tag: (type, values)} override the written ones."""
+    px = np.asarray(px)
+    px = px[..., None] if px.ndim == 2 else px
+    h, w, n = px.shape
+    code = TIFF_COMPRESSIONS[compression]
+
+    def encode(block):
+        if predictor == 2:
+            d = block.astype(np.int64)
+            d[:, 1:] -= block[:, :-1].astype(np.int64)
+            block = (d & (0xFFFF if bps == 16 else 0xFF)).astype(block.dtype)
+        if code == 32773:  # PackBits packs each row apart
+            return b"".join(packbits(_tiff_rows(r[None], bps, order)) for r in block)
+        data = _tiff_rows(block, bps, order)
+        if code == 1:
+            return data
+        return tiff_lzw(data) if code == 5 else zlib.compress(data, 6)
+
+    planes = [px] if planar == 1 else [px[..., i : i + 1] for i in range(n)]
+    blocks = []
+    for plane in planes:
+        if tile:
+            tw, tl = tile
+            for y in range(0, h, tl):
+                for x in range(0, w, tw):
+                    t = np.zeros((tl, tw, plane.shape[2]), plane.dtype)
+                    part = plane[y : y + tl, x : x + tw]
+                    t[: part.shape[0], : part.shape[1]] = part
+                    blocks.append(encode(t))
+        else:
+            rps = rows_per_strip or h
+            blocks += [encode(plane[y : y + rps]) for y in range(0, h, rps)]
+    offsets, data = [], b""
+    for b in blocks:
+        offsets.append(8 + len(data))
+        data += b + b"\x00" * (len(b) % 2)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * n), 259: (3, [code]),
+               262: (3, [photometric]), 277: (3, [n]), 284: (3, [planar])}
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if extra:
+        entries[338] = (3, list(extra))
+    if colour_map is not None:
+        entries[320] = (3, list(colour_map))
+    if tile:
+        entries.update({322: (4, [tile[0]]), 323: (4, [tile[1]]), 324: (4, offsets),
+                        325: (4, [len(b) for b in blocks])})
+    else:
+        entries.update({273: (4, offsets), 278: (4, [rows_per_strip or h]),
+                        279: (4, [len(b) for b in blocks])})
+    entries.update(tags or {})
+    ifd = 8 + len(data)
+    at = ifd + 2 + 12 * len(entries) + 4
+    body, spill = b"", b""
+    for tag, (kind, vals) in sorted(entries.items()):
+        value = struct.pack(order + {3: "H", 4: "I"}[kind] * len(vals), *vals)
+        if len(value) <= 4:
+            body += struct.pack(order + "HHI", tag, kind, len(vals)) + value.ljust(4, b"\x00")
+        else:
+            body += struct.pack(order + "HHII", tag, kind, len(vals), at + len(spill))
+            spill += value + b"\x00" * (len(value) % 2)
+    head = (b"II*\x00" if order == "<" else b"MM\x00*") + struct.pack(order + "I", ifd)
+    return head + data + struct.pack(order + "H", len(entries)) + body + bytes(4) + spill
+
+
+def webp_chunks(raw: bytes) -> list:
+    out, pos = [], 12
+    while pos + 8 <= len(raw):
+        (size,) = struct.unpack("<I", raw[pos + 4 : pos + 8])
+        out.append((raw[pos : pos + 4], raw[pos + 8 : pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def riff(chunks) -> bytes:
+    body = b"WEBP" + b"".join(k + struct.pack("<I", len(d)) + d + b"\x00" * (len(d) & 1)
+                              for k, d in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def alpha_filtered(alpha: np.ndarray, kind: int) -> np.ndarray:
+    """libwebp's forward alpha filters: 0 none, 1 horizontal, 2 vertical,
+    3 gradient (each row's first pixel from the one above; the first row
+    from the left)."""
+    a = alpha.astype(np.int64)
+    d = a.copy()
+    d[0, 1:] = a[0, 1:] - a[0, :-1]
+    if kind == 0:
+        return alpha.copy()
+    d[1:, 0] = a[1:, 0] - a[:-1, 0]
+    if kind == 1:
+        d[1:, 1:] = a[1:, 1:] - a[1:, :-1]
+    elif kind == 2:
+        d[1:, 1:] = a[1:, 1:] - a[:-1, 1:]
+    else:
+        d[1:, 1:] = a[1:, 1:] - np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return (d & 255).astype(np.uint8)
+
+
+def lossy_with_alpha(rgb: np.ndarray, alpha: np.ndarray, quality=80, compressed=True,
+                     kind=0) -> bytes:
+    """A VP8X file: Pillow's lossy RGB, and an ALPH chunk written here
+    with filter `kind`, raw or as a headerless VP8L stream (Pillow's
+    lossless encoding of the filtered plane in green)."""
+    h, w = alpha.shape
+    vp8 = dict(webp_chunks(save(Image.fromarray(rgb), "WEBP", quality=quality)))[b"VP8 "]
+    plane = alpha_filtered(alpha, kind)
+    if compressed:
+        grey = np.repeat(plane[..., None], 3, -1)
+        vp8l = dict(webp_chunks(save(Image.fromarray(grey), "WEBP", lossless=True)))[b"VP8L"]
+        data = bytes([1 | kind << 2]) + vp8l[5:]  # the stream after its 5-byte header
+    else:
+        data = bytes([kind << 2]) + plane.tobytes()
+    head = struct.pack("<B3x", 0x10) + struct.pack("<I", w - 1)[:3] + struct.pack("<I", h - 1)[:3]
+    return riff([(b"VP8X", head), (b"ALPH", data), (b"VP8 ", vp8)])
+
+
 # ---- the fixtures of tests/data_torch/formats -----------------------------------------------
 
 BIG = "photo-1024-420.jpg"
+BIG_WEBP = "photo-1024-q90.webp"
 BT_JPEG = "BreakTime-JPEG.glb"
 BT_TWIN = "BreakTime-JPEG-twin.glb"
+BT_MIXED = "BreakTime-mixed.glb"
+BT_MIXED_TWIN = "BreakTime-mixed-twin.glb"
 BT_SKY_EXR = "BreakTimeSky.exr"
 
 
@@ -609,6 +879,43 @@ def small_fixtures() -> dict:
         "mapped-rle.tga": tga_mapped(
             np.random.default_rng(13).integers(2, 8, (21, 35), dtype=np.uint8),
             np.random.default_rng(14).integers(0, 256, (6, 3), dtype=np.uint8), 0x10, True),
+        **gif_tiff_webp_fixtures(px),
+    }
+
+
+def gif_tiff_webp_fixtures(px) -> dict:
+    """The GIF, TIFF and WebP fixtures, from Pillow's modes of one 21x35
+    picture (`pillow_modes(21, 35, seed=5)`) and this module's writers."""
+    rgb, rgba16 = np.asarray(px["RGB"]), rgba(21, 35, 16)
+    rng = np.random.default_rng(17)
+    return {
+        "palette-interlaced.gif": save(px["P"], "GIF", interlace=True),
+        "grey-transparent.gif": save(px["L"], "GIF", transparency=40),
+        "placed-local-table.gif": gif_raw(rng.integers(0, 9, (13, 17)), rng.integers(
+            0, 256, (8, 3)), min_bits=4, transparency=3, screen=(29, 19), offset=(7, 5),
+            local=True),
+        "rgb-lzw-predictor.tif": save(px["RGB"], "TIFF", compression="tiff_lzw",
+                                      tiffinfo={317: 2}),
+        "rgba-deflate-tiles-mm.tif": write_tiff(rgba16, 2, extra=(2,), compression="Deflate",
+                                                predictor=2, tile=(16, 16), order=">"),
+        "rgb16-planar-lzw.tif": write_tiff(rng.integers(0, 65536, (21, 35, 3)).astype(
+            np.uint16), 2, 16, compression="LZW", planar=2, rows_per_strip=8),
+        "grey16-packbits.tif": write_tiff(rng.integers(0, 700, (21, 35)).astype(np.uint16), 1, 16,
+                                          compression="PackBits", rows_per_strip=5),
+        "bilevel-miniswhite.tif": write_tiff(rng.integers(0, 2, (21, 35)), 0, 1,
+                                             compression="PackBits"),
+        "palette4-deflate.tif": write_tiff(rng.integers(0, 16, (21, 35)), 3, 4,
+                                           compression="old Deflate",
+                                           colour_map=rng.integers(0, 65536, 48).tolist()),
+        "rgba-associated.tif": write_tiff(rgba16, 2, extra=(1,), compression="LZW",
+                                          rows_per_strip=7),
+        "lossy-q75-odd.webp": save(px["RGB"], "WEBP", quality=75),
+        "lossy-alpha-m6.webp": save(Image.fromarray(rgba16), "WEBP", quality=60, method=6,
+                                    alpha_quality=70),
+        "lossy-alpha-raw-gradient.webp": lossy_with_alpha(rgb, rgba16[..., 3], 85, False, 3),
+        "lossless-rgba.webp": save(Image.fromarray(rgba16), "WEBP", lossless=True, exact=True),
+        "lossless-palette.webp": save(px["P"].convert("RGB"), "WEBP", lossless=True, quality=100,
+                                      method=6),
     }
 
 
@@ -622,6 +929,11 @@ def big_photo() -> bytes:
     base[(x // 128 + y // 128) % 2 == 0] *= 0.6
     px = np.clip(base + rng.normal(0, 6, base.shape), 0, 255).astype(np.uint8)
     return save(Image.fromarray(px), "JPEG", quality=90, subsampling=2)
+
+
+def big_photo_webp() -> bytes:
+    """big_photo's decode as a quality-90 lossy WebP."""
+    return save(Image.open(io.BytesIO(big_photo())).convert("RGB"), "WEBP", quality=90)
 
 
 def read_glb(raw: bytes):
@@ -642,9 +954,10 @@ def glb_images(raw: bytes):
     return out
 
 
-def replace_glb_images(raw: bytes, images, mime: str) -> bytes:
+def replace_glb_images(raw: bytes, images, mime) -> bytes:
     """The GLB with image i's bytes replaced by images[i] (its bufferView
-    re-laid at 4-byte alignment, every other view kept)."""
+    re-laid at 4-byte alignment, every other view kept) and its mimeType
+    set to `mime` (one for all, or a list: one an image)."""
     doc, blob = read_glb(raw)
     new = {doc["images"][i]["bufferView"]: b for i, b in enumerate(images)}
     out = bytearray()
@@ -655,8 +968,9 @@ def replace_glb_images(raw: bytes, images, mime: str) -> bytes:
         bv["byteOffset"], bv["byteLength"] = len(out), len(data)
         out += data
     out += bytes(-len(out) % 4)
-    for img in doc["images"]:
-        img["mimeType"] = mime
+    mimes = [mime] * len(doc["images"]) if isinstance(mime, str) else mime
+    for img, m in zip(doc["images"], mimes):
+        img["mimeType"] = m
     doc["buffers"][0]["byteLength"] = len(out)
     body = json.dumps(doc, separators=(",", ":")).encode()
     body += b" " * (-len(body) % 4)
@@ -675,6 +989,36 @@ def breaktime_jpeg_pair():
              for b in glb_images(raw)]
     pngs = [save(Image.open(io.BytesIO(b)).convert("RGB"), "PNG", optimize=True) for b in jpegs]
     return (replace_glb_images(raw, jpegs, "image/jpeg"),
+            replace_glb_images(raw, pngs, "image/png"))
+
+
+MIXED_FORMATS = ["webp lossy", "webp lossy", "webp lossless", "tiff deflate", "tiff lzw", "gif"]
+MIXED_MIMES = ["image/webp", "image/webp", "image/webp", "image/tiff", "image/tiff", "image/gif"]
+
+
+def mixed_texture(img: Image.Image, kind: str) -> bytes:
+    if kind == "webp lossy":
+        return save(img, "WEBP", quality=90)
+    if kind == "webp lossless":
+        return save(img, "WEBP", lossless=True)
+    if kind == "tiff deflate":
+        return save(img, "TIFF", compression="tiff_adobe_deflate", tiffinfo={317: 2})
+    if kind == "tiff lzw":
+        return save(img, "TIFF", compression="tiff_lzw")
+    return save(img, "GIF")
+
+
+def breaktime_mixed_pair():
+    """BreakTime with its six textures re-encoded by Pillow as two lossy
+    WebP (quality 90), a lossless WebP, a Deflate TIFF with the horizontal
+    predictor, an LZW TIFF and a GIF (MIXED_FORMATS, in the GLB's image
+    order), and its lossless twin: each texture a PNG of Pillow's decode."""
+    with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
+        raw = f.read()
+    files = [mixed_texture(Image.open(io.BytesIO(b)).convert("RGB"), kind)
+             for b, kind in zip(glb_images(raw), MIXED_FORMATS)]
+    pngs = [save(Image.open(io.BytesIO(b)).convert("RGB"), "PNG", optimize=True) for b in files]
+    return (replace_glb_images(raw, files, MIXED_MIMES),
             replace_glb_images(raw, pngs, "image/png"))
 
 
@@ -705,12 +1049,19 @@ def make_fixtures(out_dir: str) -> dict:
     big = big_photo()
     put(BIG, big)
     images.append(dict(file=BIG, shape=[1024, 1024, 4], sha256=sha256_rgba(pillow(big))))
+    big = big_photo_webp()
+    put(BIG_WEBP, big)
+    images.append(dict(file=BIG_WEBP, shape=[1024, 1024, 4], sha256=sha256_rgba(pillow(big))))
     jpeg_glb, twin_glb = breaktime_jpeg_pair()
     put(BT_JPEG, jpeg_glb)
     put(BT_TWIN, twin_glb)
+    mixed_glb, mixed_twin = breaktime_mixed_pair()
+    put(BT_MIXED, mixed_glb)
+    put(BT_MIXED_TWIN, mixed_twin)
     sky = breaktime_sky_half()
     put(BT_SKY_EXR, write_exr({c: sky[..., i] for i, c in enumerate("RGB")}, "ZIP"))
-    manifest = dict(images=images, scene=dict(jpeg=BT_JPEG, twin=BT_TWIN, sky=BT_SKY_EXR))
+    manifest = dict(images=images, scene=dict(jpeg=BT_JPEG, twin=BT_TWIN, mixed=BT_MIXED,
+                                              mixed_twin=BT_MIXED_TWIN, sky=BT_SKY_EXR))
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
         f.write("\n")
@@ -752,6 +1103,26 @@ def test_committed_fixture_matches_pillow(entry):
     else:
         assert list(want.shape) == entry["shape"] and sha256_rgba(want) == entry["sha256"]
     np.testing.assert_array_equal(got, want)
+
+
+def test_committed_breaktime_mixed_pair():
+    """The mixed GLB's textures are, in order, the formats MIXED_FORMATS
+    names (the Deflate TIFF with predictor 2), and their Pillow decodes are
+    the twin's PNGs."""
+    scene = committed_manifest()["scene"]
+    files = glb_images(fixture(scene["mixed"]))
+    pngs = glb_images(fixture(scene["mixed_twin"]))
+    assert len(files) == len(pngs) == 6
+    heads = [f[:4] + f[8:12] if f[:4] == b"RIFF" else f[:4] for f in files]
+    assert heads == [b"RIFFWEBP"] * 3 + [b"II*\x00"] * 2 + [b"GIF8"]
+    assert [dict(webp_chunks(f)).keys() for f in files[:3]] == [{b"VP8 "}, {b"VP8 "}, {b"VP8L"}]
+    tags = [Image.open(io.BytesIO(f)).tag_v2 for f in files[3:5]]
+    assert (tags[0][259], tags[0][317], tags[1][259]) == (8, 2, 5)
+    doc, _ = read_glb(fixture(scene["mixed"]))
+    assert [img["mimeType"] for img in doc["images"]] == MIXED_MIMES
+    for f, png in zip(files, pngs):
+        assert png[:4] == b"\x89PNG"
+        np.testing.assert_array_equal(pillow(f), pillow(png))
 
 
 def test_committed_breaktime_pair():

@@ -1,19 +1,20 @@
 """Scenes and skies in the image formats the port now decodes, through the
 port and through the JAX package (which decodes them with Pillow).
 
-- BreakTime with JPEG textures (tests/data_torch/formats, written by
-  tests/test_torch_image_formats.py `make_fixtures`): the port's World
-  equals the JAX World bit for bit in its atlas, shading rows and every
-  other scene tensor, at a 64-texel atlas (`same_world` of
-  tests/test_torch_formats.py), and equals the World of its lossless twin
-  (each texture a PNG of Pillow's decode of the JPEG).
-- An OBJ whose MTL names JPEG, TGA and BMP maps, against
-  rustic_tpu/scene/obj.py, exactly.
-- JPEG, BMP and TGA skies through `load_skybox_image`, against the JAX
-  function, exactly. The JAX package reads .exr through imageio, which
-  has no backend here: the EXR sky is held to the .npy of its half-float
-  values, which the JAX function reads.
-- A 32x16x2 film of the JPEG BreakTime's one-tile cut
+- BreakTime with JPEG textures, and BreakTime-mixed with WebP (lossy and
+  lossless), TIFF (Deflate with the predictor, LZW) and GIF textures
+  (tests/data_torch/formats, written by tests/test_torch_image_formats.py
+  `make_fixtures`): the port's World equals the JAX World bit for bit in
+  its atlas, shading rows and every other scene tensor, at a 64-texel
+  atlas (`same_world` of tests/test_torch_formats.py), and equals the
+  World of its lossless twin (each texture a PNG of Pillow's decode).
+- An OBJ whose MTL names JPEG, TGA and BMP maps, and one whose MTL names
+  TIFF, WebP and GIF maps, against rustic_tpu/scene/obj.py, exactly.
+- JPEG, BMP, TGA, WebP, TIFF and GIF skies through `load_skybox_image`,
+  against the JAX function, exactly. The JAX package reads .exr through
+  imageio, which has no backend here: the EXR sky is held to the .npy of
+  its half-float values, which the JAX function reads.
+- 32x16x2 films of the JPEG and the mixed BreakTime's one-tile cuts
   (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
   the .npy sky on JAX, both staged pipelines: the film rule of
   tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
@@ -45,8 +46,9 @@ from tests.test_torch_breaktime import assert_film_close
 from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
-from tests.test_torch_image_formats import (BT_JPEG, BT_SKY_EXR, BT_TWIN, FIXTURES,
-                                            breaktime_sky_half, pillow_modes, save, write_exr)
+from tests.test_torch_image_formats import (BT_JPEG, BT_MIXED, BT_MIXED_TWIN, BT_SKY_EXR, BT_TWIN,
+                                            FIXTURES, breaktime_sky_half, pillow_modes, save,
+                                            write_exr)
 
 torch.set_num_threads(2)
 
@@ -67,24 +69,35 @@ def half_sky(tmp_path_factory):
     return str(path)
 
 
-def test_breaktime_jpeg_world_matches_jax():
-    ts = same_world(fixture_path(BT_JPEG))
+def assert_world_and_twin(path, twin_path):
+    ts = same_world(path)
     assert ts.has_textures
-    twin = TW.World.from_path(fixture_path(BT_TWIN), SAME_WORLD_ATLAS).to_torch("cpu")
+    twin = TW.World.from_path(twin_path, SAME_WORLD_ATLAS).to_torch("cpu")
     for name in ("atlas", "tri_attrs"):
         np.testing.assert_array_equal(getattr(twin, name).numpy(), getattr(ts, name).numpy())
 
 
-def write_obj_with_maps(tmp_path):
+def test_breaktime_jpeg_world_matches_jax():
+    assert_world_and_twin(fixture_path(BT_JPEG), fixture_path(BT_TWIN))
+
+
+def test_breaktime_mixed_world_matches_jax():
+    assert_world_and_twin(fixture_path(BT_MIXED), fixture_path(BT_MIXED_TWIN))
+
+
+def write_obj_with_maps(tmp_path, maps=None):
     """A quad and a lamp; the floor's albedo map a JPEG, its roughness
-    map a TGA and its normal map a BMP."""
+    map a TGA and its normal map a BMP, or the files `maps` gives
+    ({"albedo": (name, bytes), "rough": ..., "normal": ...})."""
     modes = pillow_modes(9, 14, seed=3)
-    (tmp_path / "albedo.jpg").write_bytes(save(modes["RGB"], "JPEG", quality=85))
-    (tmp_path / "rough.tga").write_bytes(save(modes["L"], "TGA", compression="tga_rle"))
-    (tmp_path / "normal.bmp").write_bytes(save(modes["RGB"], "BMP"))
+    maps = maps or {"albedo": ("albedo.jpg", save(modes["RGB"], "JPEG", quality=85)),
+                    "rough": ("rough.tga", save(modes["L"], "TGA", compression="tga_rle")),
+                    "normal": ("normal.bmp", save(modes["RGB"], "BMP"))}
+    for name, data in maps.values():
+        (tmp_path / name).write_bytes(data)
     (tmp_path / "tex.mtl").write_text(
-        "newmtl floor\nKd 1 1 1\nmap_Kd albedo.jpg\nmap_Pr rough.tga\nnorm normal.bmp\nNs 30\n"
-        "newmtl lamp\nKd 0 0 0\nKe 0.2 0.2 0.2\n")
+        f"newmtl floor\nKd 1 1 1\nmap_Kd {maps['albedo'][0]}\nmap_Pr {maps['rough'][0]}\n"
+        f"norm {maps['normal'][0]}\nNs 30\nnewmtl lamp\nKd 0 0 0\nKe 0.2 0.2 0.2\n")
     lines = ["mtllib tex.mtl"]
     lines += [f"v {x} 0 {z}" for x, z in ((-2, -2), (2, -2), (2, 2), (-2, 2))]
     lines += [f"v {x} 3 {z}" for x, z in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
@@ -105,8 +118,26 @@ def test_obj_with_jpeg_tga_bmp_maps_matches_jax(tmp_path):
     assert ts.has_textures
 
 
+def test_obj_with_tiff_webp_gif_maps_matches_jax(tmp_path):
+    """The albedo map an LZW TIFF, the roughness map a lossy WebP with
+    alpha, the normal map a GIF."""
+    modes = pillow_modes(9, 14, seed=8)
+    path = write_obj_with_maps(tmp_path, {
+        "albedo": ("albedo.tif", save(modes["RGB"], "TIFF", compression="tiff_lzw")),
+        "rough": ("rough.webp", save(modes["RGBA"], "WEBP", quality=70)),
+        "normal": ("normal.gif", save(modes["RGB"], "GIF"))})
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert same_world(path).has_textures
+
+
 @pytest.mark.parametrize("ext, kw", [("jpg", dict(quality=80)), ("jpeg", dict(progressive=True)),
-                                     ("bmp", {}), ("tga", dict(compression="tga_rle"))])
+                                     ("bmp", {}), ("tga", dict(compression="tga_rle")),
+                                     ("webp", dict(quality=80)), ("tiff", dict(
+                                         compression="tiff_adobe_deflate", tiffinfo={317: 2})),
+                                     ("gif", {})])
 def test_ldr_skies_match_jax(tmp_path, ext, kw):
     path = str(tmp_path / f"sky.{ext}")
     with open(path, "wb") as f:
@@ -137,9 +168,18 @@ def test_exr_skies_reshape_as_jax(tmp_path, half_sky):
 def test_jpeg_breaktime_film_matches_jax(half_sky):
     """The one-tile cut of the JPEG BreakTime: the port's decoders and EXR
     reader against Pillow and the .npy sky, through both staged pipelines."""
+    assert_one_tile_film(fixture_path(BT_JPEG), half_sky)
+
+
+def test_mixed_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of BreakTime-mixed (WebP, TIFF and GIF textures),
+    as the JPEG one."""
+    assert_one_tile_film(fixture_path(BT_MIXED), half_sky)
+
+
+def assert_one_tile_film(path, half_sky):
     from rustic_tpu.config import TracingConfig as JaxTracingConfig
 
-    path = fixture_path(BT_JPEG)
     require_jax_native()
     jcut = cuts.one_tile(JG.load_glb(path), cuts.BREAKTIME_ONE_TILE)
     js = JW.World(jcut, ATLAS).to_device(JW.load_skybox_image(half_sky))
