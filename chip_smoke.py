@@ -27,10 +27,10 @@ multi-GPU layer (rustic_tpu_torch/parallel/: a world of one through
 NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
 torchrun) at the headline configuration; and the image decoders
 (rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, gif.py, tiff.py, webp.py,
-vp8.py, exr.py) on the fixtures of
-tests/data_torch/formats, then BreakTime with JPEG textures, and with
-WebP, TIFF and GIF textures, under an OpenEXR sky through the grid form
-of the kernel-shade loop (K9-K11, K4);
+vp8.py, jpeg2000.py, exr.py) on the fixtures of
+tests/data_torch/formats, then BreakTime with JPEG textures, with WebP,
+TIFF and GIF textures, and with JPEG 2000 textures, under an OpenEXR sky
+through the grid form of the kernel-shade loop (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
 `bench`, and rustic_tpu_torch/bench_suite.py on the five BASELINE configs).
 
@@ -327,22 +327,31 @@ Phases, each of which must pass (the first that fails ends the run):
  34. formats: every image of tests/data_torch/formats (JPEG baseline,
      extended and progressive at 4:4:4, 4:2:2, 4:2:0 and 4:4:0, grey,
      restarts, Adobe RGB; BMP; TGA; GIF, TIFF and WebP lossy, lossy with
-     alpha and lossless; a 1024x1024 4:2:0 JPEG and a 1024x1024 lossy
-     WebP) decoded on the host, equal to Pillow 12.1.0's decode stored
-     beside it (.npy, or the SHA-256 of its RGBA bytes), and the
-     half-float ZIP EXR sky equal to BreakTimeSky.npy in half floats; ms
-     per megapixel of each decoder (gif, tif, webp lossy and lossless
-     apart). BreakTime-JPEG (each texture a quality-90 4:2:0 JPEG, the EXR
-     sky) and its twin (each texture a PNG of Pillow's decode of that
-     JPEG, the sky as .npy), and BreakTime-mixed (two lossy WebP, a
-     lossless WebP, a Deflate and an LZW TIFF, a GIF; the EXR sky) and its
-     twin (PNGs of Pillow's decodes, the EXR sky) through load_scene on the
-     card: the load split into decode, atlas and the rest; every
-     SceneTensors field equal to the twin's. All four at 1920x1080 x 32
-     spp, NEE+MIS, 4 bounces, through the default loop (kernel-shade, grid
-     scans), a warm-up each, then two renders each in turns: Mpaths/s
-     beside phase 16's PNG BreakTime, launch counts K9 2, K10 62, K11 2,
-     K4 64 and no other kernel, each film equal bit for bit to its twin's.
+     alpha and lossless; JPEG 2000 5/3 and 9/7, JP2 and raw, each mode,
+     tiles at odd offsets, precincts, the five progression orders with
+     rate layers, a palette JP2; a 1024x1024 4:2:0 JPEG, a 1024x1024
+     lossy WebP and two 1024x1024 JP2s, 5/3 lossless and 9/7 at 20:1)
+     decoded on the host, equal to Pillow 12.1.0's decode stored beside
+     it (.npy, or the SHA-256 of its RGBA bytes), and the half-float ZIP
+     EXR sky equal to BreakTimeSky.npy in half floats; ms per megapixel
+     of each decoder (gif, tif, webp lossy and lossless, jpeg2000 5/3 and
+     9/7 apart), and on BreakTime-mixed's and BreakTime-J2K's 256x256
+     textures (best of 3). BreakTime-JPEG (each texture a quality-90
+     4:2:0 JPEG, the EXR sky) and its twin (each texture a PNG of Pillow's
+     decode of that JPEG, the sky as .npy), BreakTime-mixed (two lossy
+     WebP, a lossless WebP, a Deflate and an LZW TIFF, a GIF; the EXR sky)
+     and BreakTime-J2K (two 5/3 JP2, two 9/7 JP2 at a rate, a tiled RPCL
+     raw codestream, three rate layers with precincts; the EXR sky), each
+     with its twin (PNGs of Pillow's decodes, the EXR sky), through
+     load_scene on the card: the load split into decode, atlas and the
+     rest; every SceneTensors field equal to the twin's. NEE+MIS, 4
+     bounces, through the default loop (kernel-shade, grid scans), a
+     warm-up each, then two renders each in turns: BreakTime-JPEG,
+     BreakTime-mixed and their twins at FORMATS_CUT_W x FORMATS_CUT_H x
+     32 spp, BreakTime-J2K and its twin at 1920x1080 x 32 spp (Mpaths/s
+     beside phase 16's PNG BreakTime); launch counts of the grid path (at
+     1920x1080: K9 2, K10 62, K11 2, K4 64) and no other kernel, each
+     film equal bit for bit to its twin's.
  35. bench: the benchmark programs, each in a process of its own. `python
      -m rustic_tpu_torch.cli bench` (rustic_tpu_torch/bench.py: DarkCornell
      1280x720x160 spp, the median of 3 renders after a one-fold warm-up;
@@ -566,6 +575,9 @@ KERNELS = {
 CORNELL = "assets/scenes/DarkCornell.glb"
 CROSS_SIDE = 32  # phases 13 and 18's card-vs-host films: their host renders take most of the time
 FORMATS = "tests/data_torch/formats"  # the image fixtures and their manifest
+# phase 34 renders BreakTime-JPEG, BreakTime-mixed and their twins at this cut of the frame
+# (BT_SPP spp), BreakTime-J2K and its twin at BT_W x BT_H
+FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
 SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_parallel
 SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
 SHARD_TOL = dict(rtol=2e-5, atol=2e-6)  # a split's bound, tests/test_parallel.py:140
@@ -3981,11 +3993,12 @@ class Smoke:
         """Every fixture of tests/data_torch/formats decoded on the host
         against Pillow's decode stored beside it (ms per megapixel of each
         decoder); BreakTime-JPEG (JPEG textures, EXR sky), BreakTime-mixed
-        (WebP, TIFF and GIF textures, EXR sky) and their lossless twins
-        loaded on the card (the load split), each SceneTensors equal to its
-        twin's, and all four rendered at 1920x1080x32 spp in turns through
-        the default loop: launch counts of the grid path, each film equal
-        bit for bit to its twin's."""
+        (WebP, TIFF and GIF textures, EXR sky), BreakTime-J2K (JPEG 2000
+        textures, EXR sky) and their lossless twins loaded on the card (the
+        load split), each SceneTensors equal to its twin's, and all six
+        rendered at 32 spp in turns through the default loop (the J2K pair
+        at 1920x1080, the others at the FORMATS_CUT frame): launch counts
+        of the grid path, each film equal bit for bit to its twin's."""
         import hashlib
         import os
         import struct
@@ -4007,16 +4020,26 @@ class Smoke:
         from rustic_tpu_torch.utils.png import decode_image_u8
         from rustic_tpu_torch.utils.webp import riff_chunks
 
+        def wavelet(raw):
+            """A JPEG 2000 file's wavelet, from its COD's transform byte."""
+            pos = raw.index(b"\xff\x4f\xff\x51") + 2
+            while raw[pos : pos + 2] != b"\xff\x52":
+                pos += 2 + struct.unpack(">H", raw[pos + 2 : pos + 4])[0]
+            return "5/3" if raw[pos + 13] == 1 else "9/7"
+
         def decoder(ext, raw):
             if ext == "webp":
                 lossless = any(k == b"VP8L" for k, _ in riff_chunks(raw))
                 return "webp lossless" if lossless else "webp lossy"
+            if ext in ("jp2", "j2k"):
+                return f"jpeg2000 {wavelet(raw)}"
             return {"jpg": "jpeg", "tiff": "tif"}.get(ext, ext)
 
-        t0 = time.perf_counter()
-        _entropy.library()  # csrc/image_entropy.cpp, built before any decode is timed
-        log(f"csrc/image_entropy.cpp (the WebP entropy loops) built or loaded in "
-            f"{time.perf_counter() - t0:.2f} s")
+        for build, src, what in ((_entropy.library, "image_entropy.cpp", "the WebP entropy loops"),
+                                 (_entropy.j2k_library, "jpeg2000_t1.cpp", "JPEG 2000 tier-1")):
+            t0 = time.perf_counter()
+            build()  # built before any decode is timed
+            log(f"csrc/{src} ({what}) built by g++ or loaded in {time.perf_counter() - t0:.2f} s")
 
         with open(os.path.join(FORMATS, "manifest.json")) as f:
             manifest = json.load(f)
@@ -4053,26 +4076,29 @@ class Smoke:
         for kind, (sec, px) in per.items():
             log(f"decode {kind}: {px} pixels in {sec * 1e3:.1f} ms, "
                 f"{sec * 1e3 / (px / 1e6):.1f} ms per megapixel (host CPU)")
-        # the mixed BreakTime's six 256x256 textures, each decoded 3 times: the best time
-        with open(os.path.join(FORMATS, manifest["scene"]["mixed"]), "rb") as f:
-            glb = f.read()
-        (json_len,) = struct.unpack("<I", glb[12:16])
-        doc = json.loads(glb[20 : 20 + json_len])
-        blob = glb[28 + json_len :]
-        texture_rates = {}
-        for img in doc["images"]:
-            view = doc["bufferViews"][img["bufferView"]]
-            data = blob[view.get("byteOffset", 0) : view.get("byteOffset", 0) + view["byteLength"]]
-            kind = decoder(img["mimeType"].split("/")[1], data)
-            best = float("inf")
-            for _ in range(3):
-                t0 = time.perf_counter()
-                got = decode_image_u8(data, img["mimeType"])
-                best = min(best, time.perf_counter() - t0)
-            texture_rates.setdefault(kind, []).append(best * 1e3 / (got.shape[0] * got.shape[1] / 1e6))
-        log("decode of BreakTime-mixed's 256x256 textures, ms per megapixel (host CPU, best of "
-            "3): " + "; ".join(f"{k} " + ", ".join(f"{r:.1f}" for r in v)
-                               for k, v in texture_rates.items()))
+        # the mixed and the J2K BreakTime's six 256x256 textures, each decoded 3 times: the best
+        for scene_key, label in (("mixed", "BreakTime-mixed"), ("j2k", "BreakTime-J2K")):
+            with open(os.path.join(FORMATS, manifest["scene"][scene_key]), "rb") as f:
+                glb = f.read()
+            (json_len,) = struct.unpack("<I", glb[12:16])
+            doc = json.loads(glb[20 : 20 + json_len])
+            blob = glb[28 + json_len :]
+            texture_rates = {}
+            for img in doc["images"]:
+                view = doc["bufferViews"][img["bufferView"]]
+                start = view.get("byteOffset", 0)
+                data = blob[start : start + view["byteLength"]]
+                kind = decoder(img["mimeType"].split("/")[1], data)
+                best = float("inf")
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    got = decode_image_u8(data, img["mimeType"])
+                    best = min(best, time.perf_counter() - t0)
+                texture_rates.setdefault(kind, []).append(
+                    best * 1e3 / (got.shape[0] * got.shape[1] / 1e6))
+            log(f"decode of {label}'s 256x256 textures, ms per megapixel (host CPU, best of 3): "
+                + "; ".join(f"{k} " + ", ".join(f"{r:.1f}" for r in v)
+                            for k, v in texture_rates.items()))
 
         real_decode, real_exr = gltf_mod.decode_image_rgba, world_mod.read_exr
         real_pack = atlas_mod.pack_material_textures
@@ -4093,7 +4119,9 @@ class Smoke:
                     ("JPEG + EXR", manifest["scene"]["jpeg"], sky_path),
                     ("twin (PNG + .npy)", manifest["scene"]["twin"], os.path.join(tmp, "sky.npy")),
                     ("mixed + EXR", manifest["scene"]["mixed"], sky_path),
-                    ("mixed twin (PNG + EXR)", manifest["scene"]["mixed_twin"], sky_path)):
+                    ("mixed twin (PNG + EXR)", manifest["scene"]["mixed_twin"], sky_path),
+                    ("J2K + EXR", manifest["scene"]["j2k"], sky_path),
+                    ("J2K twin (PNG + EXR)", manifest["scene"]["j2k_twin"], sky_path)):
                 split = {"decode": 0.0, "atlas": 0.0}
                 gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)
                 world_mod.read_exr = timed(real_exr, "decode", split)
@@ -4111,7 +4139,8 @@ class Smoke:
                     f"(6 textures and the sky), the {scenes[name].atlas.shape[0]}^2 atlas "
                     f"{split['atlas']:.2f} s, the rest (glTF, World, upload) "
                     f"{total - split['decode'] - split['atlas']:.2f} s")
-        pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"))
+        pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"),
+                 ("J2K + EXR", "J2K twin (PNG + EXR)"))
         for one, two in pairs:
             a, b = scenes[one], scenes[two]
             for field in dataclasses.fields(a):
@@ -4121,18 +4150,30 @@ class Smoke:
                     self.fail(f"SceneTensors.{field.name} differs between {one} and {two}")
             log(f"SceneTensors of {one} equal to those of {two}, atlas and sky included")
 
-        config = TracingConfig(width=BT_W, height=BT_H, nee=NextEventEstimation.MIS, **BT_CAM)
-        chunk = min(RenderSettings().batch_pixels, BT_W * BT_H)
-        chunks = -(-BT_W * BT_H // chunk)
-        groups = chunks * -(-BT_SPP // P.pick_sample_fold(chunk, BT_SPP))
-        nb = config.max_bounces
         near, merged, occl = SCAN_KERNELS["grid"]
-        expect = {near: chunks, merged: nb * groups - chunks, occl: chunks, "shade_bounce": nb * groups}
+
+        def frame(width, height):
+            """The config of a BT_SPP render at width x height and the
+            launches the grid path makes for it."""
+            config = TracingConfig(width=width, height=height, nee=NextEventEstimation.MIS,
+                                   **BT_CAM)
+            chunk = min(RenderSettings().batch_pixels, width * height)
+            chunks = -(-width * height // chunk)
+            groups = chunks * -(-BT_SPP // P.pick_sample_fold(chunk, BT_SPP))
+            nb = config.max_bounces
+            return config, {near: chunks, merged: nb * groups - chunks, occl: chunks,
+                            "shade_bounce": nb * groups}
+
+        full, cut = frame(BT_W, BT_H), frame(FORMATS_CUT_W, FORMATS_CUT_H)
+        if full[1] != {near: 2, merged: 62, occl: 2, "shade_bounce": 64}:
+            self.fail(f"the grid path's launches at {BT_W}x{BT_H}x{BT_SPP}: {full[1]}")
+        frames = {name: full if name.startswith("J2K") else cut for name in scenes}
         for name, scene in scenes.items():  # warm-up: each scene's packed table
-            render_image(scene, config, RenderSettings(samples=FOLD), device=self.dev)
+            render_image(scene, frames[name][0], RenderSettings(samples=FOLD), device=self.dev)
         films, rates = {}, {name: [] for name in scenes}
         for turn in range(2):
             for name, scene in scenes.items():
+                config, expect = frames[name]
                 reset_launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -4141,21 +4182,24 @@ class Smoke:
                 counts = {k: n for k, n in launch_counts().items() if n}
                 if counts != expect:
                     self.fail(f"{name}: launch counts {counts} != expected {expect}")
-                rates[name].append(BT_W * BT_H * BT_SPP / dt / 1e6)
+                rates[name].append(config.width * config.height * BT_SPP / dt / 1e6)
                 if turn == 0:
                     films[name] = film
                 elif not np.array_equal(film, films[name]):
                     self.fail(f"{name}: two renders of one scene differ")
-        log(f"launch counts of each render: {expect}")
         png = getattr(self, "bt_grid_mpaths", None)
-        log(f"render BreakTime {BT_W}x{BT_H}x{BT_SPP} spp NEE+MIS, HDR sky, kernel-shade loop, "
-            f"grid scans, Mpaths/s in turns: "
-            + "; ".join(f"{name} " + ", ".join(f"{r:.2f}" for r in v) for name, v in rates.items())
-            + f"; the PNG BreakTime of phase breaktime-renders "
-            + (f"{png:.2f}" if png else "not run") + f" ({self.card})")
+        for (config, expect), names in ((full, [n for n in scenes if n.startswith("J2K")]),
+                                        (cut, [n for n in scenes if not n.startswith("J2K")])):
+            log(f"render BreakTime {config.width}x{config.height}x{BT_SPP} spp NEE+MIS, HDR sky, "
+                f"kernel-shade loop, grid scans, launch counts {expect}, Mpaths/s in turns: "
+                + "; ".join(f"{name} " + ", ".join(f"{r:.2f}" for r in rates[name])
+                            for name in names) + f" ({self.card})")
+        log(f"the PNG BreakTime of phase breaktime-renders at {BT_W}x{BT_H}x{BT_SPP}: "
+            + (f"{png:.2f} Mpaths/s" if png else "not run"))
         for one, two in pairs:
             a, b = films[one], films[two]
-            if a.shape != (BT_H, BT_W, 3) or not np.isfinite(a).all():
+            config = frames[one][0]
+            if a.shape != (config.height, config.width, 3) or not np.isfinite(a).all():
                 self.fail(f"the film of {one} is not finite or has the wrong shape")
             if not np.array_equal(a, b):
                 self.fail(f"the films of {one} and {two} differ at "

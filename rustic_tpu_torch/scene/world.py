@@ -328,7 +328,7 @@ def load_skybox_image(path: str) -> np.ndarray:
     package's `load_skybox_image`): .npy ([H, W, 3] or [H, W, 4]
     radiance), Radiance .hdr, OpenEXR .exr (radiance; a grey Y image
     repeated to RGB, alpha 1 unless the file has A), or an LDR image
-    (PNG, JPEG, BMP, TGA, GIF, TIFF, WebP; scaled to [0, 1])."""
+    (PNG, JPEG, BMP, TGA, GIF, TIFF, WebP, JPEG 2000; scaled to [0, 1])."""
     low = path.lower()
     if low.endswith(".npy"):
         img = np.asarray(np.load(path), np.float32)

@@ -1,6 +1,7 @@
-"""The host C++ entropy loops of the WebP decoder (csrc/image_entropy.cpp),
-built by g++ at first use (ops/_build.py `compile_host`; a missing or
-failing g++ raises with the compiler's message) and loaded with ctypes."""
+"""The host C++ entropy loops of the WebP decoder (csrc/image_entropy.cpp)
+and the JPEG 2000 tier-1 decoder (csrc/jpeg2000_t1.cpp), each built by g++
+at first use (ops/_build.py `compile_host`; a missing or failing g++
+raises with the compiler's message) and loaded with ctypes."""
 
 from __future__ import annotations
 
@@ -20,6 +21,15 @@ def library() -> ctypes.CDLL:
                                     i32, p, p, p] + [p] * 8
     lib.vp8l_pixels.restype = i64
     lib.vp8l_pixels.argtypes = [p, i64, i64, i32, i32, p, p, p, p, i32, i32, i32, p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def j2k_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build.compile_host(os.path.join(_build.CSRC, "jpeg2000_t1.cpp")))
+    p = ctypes.c_void_p
+    lib.j2k_codeblocks.restype = ctypes.c_int
+    lib.j2k_codeblocks.argtypes = [p, ctypes.c_int64, p, p]
     return lib
 
 

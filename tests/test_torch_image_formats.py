@@ -22,9 +22,13 @@ The fixtures of tests/data_torch/formats/ (read by chip_smoke.py's
 `make_fixtures`: `python -m tests.test_torch_image_formats` rewrites
 them. Each committed expectation is held here to Pillow's decode of the
 committed file, so a stale fixture fails on the CPU. Beside the JPEG,
-BMP and TGA files they hold GIF, TIFF and WebP files of each kind the
-decoders read, a 1024x1024 lossy WebP, and BreakTime-mixed (WebP, TIFF
-and GIF textures) with its PNG twin.
+BMP and TGA files they hold GIF, TIFF, WebP and JPEG 2000 files of each
+kind the decoders read, a 1024x1024 lossy WebP, two 1024x1024 JP2s (5/3
+lossless, 9/7 at 20:1), BreakTime-mixed (WebP, TIFF and GIF textures)
+and BreakTime-J2K (JPEG 2000 textures), each with its PNG twin. The
+JPEG 2000 writers (`j2k`, `j2k_parse`/`j2k_join`/`j2k_with` for
+codestream edits, `jp2_wrap`, `palette_jp2`) serve
+tests/test_torch_image_formats_jpeg2000.py and the refusals here.
 """
 
 import hashlib
@@ -40,7 +44,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image
 
-from rustic_tpu_torch.utils import bmp_tga, exr, jpeg
+from rustic_tpu_torch.utils import bmp_tga, exr, jpeg, jpeg2000
 from rustic_tpu_torch.utils.png import decode_image_rgba, decode_image_u8
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch", "formats")
@@ -401,7 +405,36 @@ IMAGE_REFUSALS = {
                                              np.zeros((4, 4), np.uint8), depth=32), "a.tga"),
     "TGA image type 32": (lambda: b"\x00\x00\x20" + bytes(9) + b"\x02\x00\x02\x00\x08\x00",
                           "a.tga"),
-    "JPEG 2000": (lambda: save(pillow_modes(2, 2)["RGB"], "JPEG2000"), ""),
+    "JPEG 2000": (lambda: j2k_with(j2k_small(), [(0xFF50, struct.pack(">IH", 1 << 17, 0))]),
+                  ""),
+    "JPEG 2000 HT block coder": (lambda: j2k_with(j2k_small(), cod=cod_style(0x40)), ""),
+    "JPEG 2000 code-block bypass": (lambda: j2k_with(j2k_small(), cod=cod_style(0x01)), ""),
+    "JPEG 2000 code-block context reset": (lambda: j2k_with(j2k_small(), cod=cod_style(0x02)),
+                                           ""),
+    "JPEG 2000 code-block termination on each pass": (
+        lambda: j2k_with(j2k_small(), cod=cod_style(0x04)), ""),
+    "JPEG 2000 code-block vertically causal context": (
+        lambda: j2k_with(j2k_small(), cod=cod_style(0x08)), ""),
+    "JPEG 2000 code-block predictable termination": (
+        lambda: j2k_with(j2k_small(), cod=cod_style(0x10)), ""),
+    "JPEG 2000 code-block segmentation symbols": (
+        lambda: j2k_with(j2k_small(), cod=cod_style(0x20)), ""),
+    "JPEG 2000 RGN": (lambda: j2k_with(j2k_small(), [(0xFF5E, bytes([0, 0, 3]))]), ""),
+    "JPEG 2000 POC": (lambda: j2k_with(j2k_small(), [(0xFF5F, bytes([0, 0, 0, 1, 3, 3, 0]))]),
+                      ""),
+    "JPEG 2000 PPM": (lambda: j2k_with(j2k_small(), [(0xFF60, bytes([0, 0, 0, 0, 1, 0]))]), ""),
+    "JPEG 2000 PPT": (lambda: j2k_with(j2k_small(), part_extra=[(0xFF61, bytes([0, 0]))]), ""),
+    "JPEG 2000 component subsampling": (
+        lambda: j2k_with(j2k_small(), siz=siz_component(1, dx=2)), ""),
+    "JPEG 2000 image of 5 components": (lambda: j2k_with(j2k_small(), siz=siz_components(5)),
+                                        ""),
+    "JPEG 2000 precision 32": (lambda: j2k_with(j2k_small(), siz=siz_component(0, ssiz=31)),
+                               ""),
+    "JPEG 2000 sYCC colour space": (
+        lambda: jp2_wrap(j2k_small(), colr=struct.pack(">BBBI", 1, 0, 0, 18)), ""),
+    "JPEG 2000 ICC profile colour space": (
+        lambda: jp2_wrap(j2k_small(), colr=struct.pack(">BBB", 2, 0, 0) + bytes(128)), ""),
+    "DDS": (lambda: b"DDS " + struct.pack("<I", 124) + bytes(120), "texture.dds"),
     "WebP": (lambda: save(pillow_modes(2, 2)["RGB"], "WEBP", save_all=True,
                           append_images=[pillow_modes(2, 2, seed=1)["RGB"]]), ""),
     "TIFF": (lambda: save(pillow_modes(8, 8)["RGB"], "TIFF", compression="jpeg"), ""),
@@ -846,6 +879,123 @@ def lossy_with_alpha(rgb: np.ndarray, alpha: np.ndarray, quality=80, compressed=
     return riff([(b"VP8X", head), (b"ALPH", data), (b"VP8 ", vp8)])
 
 
+# ---- writing JPEG 2000 files ----------------------------------------------------------------
+
+def j2k(img: Image.Image, **kw) -> bytes:
+    """Pillow's JPEG 2000 file of `img` (JP2, or with no_jp2=True a raw
+    codestream)."""
+    return save(img, "JPEG2000", **kw)
+
+
+def j2k_parse(cs: bytes):
+    """A raw codestream -> (main-header segments [(marker, body)], tile-parts
+    [dict(tile, part, parts, segs, data)])."""
+    assert cs[:2] == b"\xff\x4f"
+    pos, main = 2, []
+    while cs[pos : pos + 2] != b"\xff\x90":
+        marker, length = struct.unpack(">HH", cs[pos : pos + 4])
+        main.append((marker, cs[pos + 4 : pos + 2 + length]))
+        pos += 2 + length
+    parts = []
+    while cs[pos : pos + 2] == b"\xff\x90":
+        _l, tile, psot, part, n = struct.unpack(">HHIBB", cs[pos + 2 : pos + 12])
+        end = pos + psot if psot else len(cs) - 2
+        q, segs = pos + 12, []
+        while cs[q : q + 2] != b"\xff\x93":
+            marker, length = struct.unpack(">HH", cs[q : q + 4])
+            segs.append((marker, cs[q + 4 : q + 2 + length]))
+            q += 2 + length
+        parts.append(dict(tile=tile, part=part, parts=n, segs=segs, data=cs[q + 2 : end]))
+        pos = end
+    return main, parts
+
+
+def j2k_join(main, parts) -> bytes:
+    """The inverse of j2k_parse, each Psot recomputed."""
+    out = bytearray(b"\xff\x4f")
+    for marker, body in main:
+        out += struct.pack(">HH", marker, len(body) + 2) + body
+    for tp in parts:
+        head = b"".join(struct.pack(">HH", m, len(b) + 2) + b for m, b in tp["segs"])
+        out += struct.pack(">HHHIBB", 0xFF90, 10, tp["tile"], 14 + len(head) + len(tp["data"]),
+                           tp["part"], tp["parts"]) + head + b"\xff\x93" + tp["data"]
+    return bytes(out + b"\xff\xd9")
+
+
+def j2k_with(cs: bytes, main_extra=(), part_extra=(), cod=None, siz=None) -> bytes:
+    """The codestream with marker segments added to the main header and to
+    the first tile-part's, the COD body passed through `cod` and the SIZ
+    body through `siz`."""
+    main, parts = j2k_parse(cs)
+    main = [(m, cod(b) if cod and m == 0xFF52 else siz(b) if siz and m == 0xFF51 else b)
+            for m, b in main] + list(main_extra)
+    parts[0]["segs"] = parts[0]["segs"] + list(part_extra)
+    return j2k_join(main, parts)
+
+
+def cod_style(style: int):
+    """A COD editor setting the code-block style byte."""
+    return lambda body: body[:8] + bytes([style]) + body[9:]
+
+
+def siz_component(c: int, ssiz=None, dx=None):
+    """A SIZ editor setting component c's Ssiz byte or its XRsiz."""
+    def edit(body):
+        b = bytearray(body)
+        at = 36 + 3 * c
+        if ssiz is not None:
+            b[at] = ssiz
+        if dx is not None:
+            b[at + 1] = dx
+        return bytes(b)
+    return edit
+
+
+def siz_components(n: int):
+    """A SIZ editor declaring n components, the last one repeated."""
+    def edit(body):
+        comps = body[36:]
+        return body[:34] + struct.pack(">H", n) + comps + comps[-3:] * (n - len(comps) // 3)
+    return edit
+
+
+def box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def jp2_wrap(cs: bytes, extra: bytes = b"", colr: bytes = None) -> bytes:
+    """A JP2 file around a raw codestream, its ihdr from the SIZ: `colr`
+    (the colr box's body, default enumerated sRGB) and `extra` boxes after
+    it in jp2h."""
+    main, _parts = j2k_parse(cs)
+    siz = dict(main)[0xFF51]
+    xsiz, ysiz, xo, yo = struct.unpack(">IIII", siz[2:18])
+    (nc,) = struct.unpack(">H", siz[34:36])
+    ihdr = struct.pack(">IIHBBBB", ysiz - yo, xsiz - xo, nc, siz[36], 7, 0, 0)
+    colr = struct.pack(">BBBI", 1, 0, 0, 16) if colr is None else colr
+    return (box(b"jP  ", b"\r\n\x87\n") + box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + box(b"jp2h", box(b"ihdr", ihdr) + box(b"colr", colr) + extra) + box(b"jp2c", cs))
+
+
+def palette_jp2(idx: np.ndarray, palette: np.ndarray, alpha=None, **kw) -> bytes:
+    """A palette JP2: Pillow's raw 5/3 codestream of the uint8 index image
+    `idx` (and of `alpha`, an LA image's second component), wrapped with
+    a pclr box of `palette` ([n, 3] or [n, 4] uint8) and a cmap box."""
+    img = Image.fromarray(idx) if alpha is None else Image.fromarray(
+        np.stack([idx, alpha], -1), "LA")
+    cs = j2k(img, no_jp2=True, **kw)
+    npc = palette.shape[1]
+    pclr = struct.pack(">HB", len(palette), npc) + bytes([7] * npc) + palette.astype(
+        np.uint8).tobytes()
+    cmap = b"".join(struct.pack(">HBB", 0, 1, k) for k in range(npc))
+    return jp2_wrap(cs, box(b"pclr", pclr) + box(b"cmap", cmap))
+
+
+def j2k_small(**kw) -> bytes:
+    """A 5x7 RGB raw codestream of Pillow's."""
+    return j2k(pillow_modes(5, 7)["RGB"], no_jp2=True, **kw)
+
+
 # ---- the fixtures of tests/data_torch/formats -----------------------------------------------
 
 BIG = "photo-1024-420.jpg"
@@ -855,6 +1005,10 @@ BT_TWIN = "BreakTime-JPEG-twin.glb"
 BT_MIXED = "BreakTime-mixed.glb"
 BT_MIXED_TWIN = "BreakTime-mixed-twin.glb"
 BT_SKY_EXR = "BreakTimeSky.exr"
+BIG_J2K_53 = "photo-1024-53.jp2"
+BIG_J2K_97 = "photo-1024-97.jp2"
+BT_J2K = "BreakTime-J2K.glb"
+BT_J2K_TWIN = "BreakTime-J2K-twin.glb"
 
 
 def small_fixtures() -> dict:
@@ -880,6 +1034,7 @@ def small_fixtures() -> dict:
             np.random.default_rng(13).integers(2, 8, (21, 35), dtype=np.uint8),
             np.random.default_rng(14).integers(0, 256, (6, 3), dtype=np.uint8), 0x10, True),
         **gif_tiff_webp_fixtures(px),
+        **jpeg2000_fixtures(px),
     }
 
 
@@ -919,21 +1074,63 @@ def gif_tiff_webp_fixtures(px) -> dict:
     }
 
 
-def big_photo() -> bytes:
-    """A 1024x1024 4:2:0 JPEG at quality 90, as a texture: smooth shading,
-    edges and fine noise."""
+def jpeg2000_fixtures(px) -> dict:
+    """The JPEG 2000 fixtures: Pillow's files of one 21x35 picture
+    (`pillow_modes(21, 35, seed=5)`), each a distinct path through the
+    decoder, and a palette JP2 of this module's writer."""
+    rgb, rng = px["RGB"], np.random.default_rng(18)
+    deep = Image.fromarray((np.asarray(px["L"]).astype(np.uint16) * 257).astype("<u2"))
+    layers = dict(quality_mode="rates", quality_layers=[40, 20, 8], codeblock_size=(16, 16),
+                  precinct_size=(16, 16), num_resolutions=3)
+    return {
+        "j2k-rgb-53.jp2": j2k(rgb),
+        "j2k-rgb-53-mct.j2k": j2k(rgb, no_jp2=True, mct=1),
+        "j2k-rgb-97.jp2": j2k(rgb, irreversible=True),
+        "j2k-rgb-97-mct.jp2": j2k(rgb, irreversible=True, mct=1),
+        "j2k-rgba-53.jp2": j2k(px["RGBA"]),
+        "j2k-l-53.jp2": j2k(px["L"]),
+        "j2k-la-97.jp2": j2k(px["LA"], irreversible=True),
+        "j2k-i16-53.jp2": j2k(deep),
+        "j2k-rgb-53-signed.jp2": j2k(rgb, signed=True),
+        "j2k-rgb-53-comment-plt.j2k": j2k(rgb, no_jp2=True, comment="rustic", plt=True),
+        "j2k-rgb-53-odd-tiles.jp2": j2k(rgb, tile_size=(16, 16), tile_offset=(1, 1),
+                                         offset=(2, 2)),
+        "j2k-rgb-53-cb16-precincts.jp2": j2k(rgb, codeblock_size=(16, 16),
+                                              precinct_size=(16, 16), num_resolutions=3),
+        **{f"j2k-rgb-53-{p.lower()}-layers.j2k": j2k(rgb, no_jp2=True, progression=p, **layers)
+           for p in jpeg2000.PROGRESSIONS},
+        "j2k-palette.jp2": palette_jp2(rng.integers(0, 9, (21, 35)).astype(np.uint8),
+                                       rng.integers(0, 256, (9, 3)).astype(np.uint8)),
+    }
+
+
+def big_picture() -> np.ndarray:
+    """uint8 [1024, 1024, 3], as a texture: smooth shading, edges and fine
+    noise."""
     rng = np.random.default_rng(15)
     y, x = np.mgrid[0:1024, 0:1024].astype(np.float64)
     base = np.stack([(x * 0.2 + y * 0.1) % 256, 128 + 100 * np.sin(x / 40.0) * np.cos(y / 30.0),
                      128 + 90 * np.sin((x + y) / 25.0)], -1)
     base[(x // 128 + y // 128) % 2 == 0] *= 0.6
-    px = np.clip(base + rng.normal(0, 6, base.shape), 0, 255).astype(np.uint8)
-    return save(Image.fromarray(px), "JPEG", quality=90, subsampling=2)
+    return np.clip(base + rng.normal(0, 6, base.shape), 0, 255).astype(np.uint8)
+
+
+def big_photo() -> bytes:
+    """big_picture as a 1024x1024 4:2:0 JPEG at quality 90."""
+    return save(Image.fromarray(big_picture()), "JPEG", quality=90, subsampling=2)
 
 
 def big_photo_webp() -> bytes:
     """big_photo's decode as a quality-90 lossy WebP."""
     return save(Image.open(io.BytesIO(big_photo())).convert("RGB"), "WEBP", quality=90)
+
+
+def big_photo_j2k() -> tuple:
+    """big_photo's decode as JP2: 5/3 lossless, and 9/7 at 20:1 (RCT and
+    ICT)."""
+    img = Image.open(io.BytesIO(big_photo())).convert("RGB")
+    return (j2k(img, mct=1),
+            j2k(img, irreversible=True, mct=1, quality_mode="rates", quality_layers=[20]))
 
 
 def read_glb(raw: bytes):
@@ -1022,6 +1219,29 @@ def breaktime_mixed_pair():
             replace_glb_images(raw, pngs, "image/png"))
 
 
+J2K_TEXTURES = [dict(mct=1), dict(mct=1),
+                dict(irreversible=True, mct=1, quality_layers=[20]),
+                dict(irreversible=True, quality_layers=[12]),
+                dict(no_jp2=True, tile_size=(64, 64), progression="RPCL", mct=1),
+                dict(quality_mode="rates", quality_layers=[40, 20, 8], precinct_size=(32, 32),
+                     codeblock_size=(16, 16), progression="LRCP")]
+
+
+def breaktime_j2k_pair():
+    """BreakTime with its six textures re-encoded by Pillow as JPEG 2000
+    (J2K_TEXTURES, in the GLB's image order: two 5/3 JP2, two 9/7 at a
+    rate, a tiled RPCL raw codestream, three rate layers with precincts),
+    all under the MIME type image/jp2, and its lossless twin: each
+    texture a PNG of Pillow's decode."""
+    with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
+        raw = f.read()
+    files = [j2k(Image.open(io.BytesIO(b)).convert("RGB"), **kw)
+             for b, kw in zip(glb_images(raw), J2K_TEXTURES)]
+    pngs = [save(Image.open(io.BytesIO(b)).convert("RGB"), "PNG", optimize=True) for b in files]
+    return (replace_glb_images(raw, files, "image/jp2"),
+            replace_glb_images(raw, pngs, "image/png"))
+
+
 def breaktime_sky_half() -> np.ndarray:
     """BreakTimeSky.npy rounded to half floats (the EXR sky's values)."""
     return np.load(os.path.join(SCENES, "BreakTimeSky.npy")).astype(np.float16)
@@ -1052,16 +1272,23 @@ def make_fixtures(out_dir: str) -> dict:
     big = big_photo_webp()
     put(BIG_WEBP, big)
     images.append(dict(file=BIG_WEBP, shape=[1024, 1024, 4], sha256=sha256_rgba(pillow(big))))
+    for name, big in zip((BIG_J2K_53, BIG_J2K_97), big_photo_j2k()):
+        put(name, big)
+        images.append(dict(file=name, shape=[1024, 1024, 4], sha256=sha256_rgba(pillow(big))))
     jpeg_glb, twin_glb = breaktime_jpeg_pair()
     put(BT_JPEG, jpeg_glb)
     put(BT_TWIN, twin_glb)
     mixed_glb, mixed_twin = breaktime_mixed_pair()
     put(BT_MIXED, mixed_glb)
     put(BT_MIXED_TWIN, mixed_twin)
+    j2k_glb, j2k_twin = breaktime_j2k_pair()
+    put(BT_J2K, j2k_glb)
+    put(BT_J2K_TWIN, j2k_twin)
     sky = breaktime_sky_half()
     put(BT_SKY_EXR, write_exr({c: sky[..., i] for i, c in enumerate("RGB")}, "ZIP"))
     manifest = dict(images=images, scene=dict(jpeg=BT_JPEG, twin=BT_TWIN, mixed=BT_MIXED,
-                                              mixed_twin=BT_MIXED_TWIN, sky=BT_SKY_EXR))
+                                              mixed_twin=BT_MIXED_TWIN, j2k=BT_J2K,
+                                              j2k_twin=BT_J2K_TWIN, sky=BT_SKY_EXR))
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
         f.write("\n")
@@ -1088,7 +1315,7 @@ def test_fixture_writer_makes_the_committed_set(tmp_path):
             np.testing.assert_array_equal(np.load(tmp_path / entry["expect"]),
                                           np.load(os.path.join(FIXTURES, entry["expect"])))
     total = sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in os.listdir(FIXTURES))
-    assert total <= 3 * 2**20
+    assert total <= 5 * 2**20
 
 
 @pytest.mark.parametrize("entry", committed_manifest()["images"], ids=lambda e: e["file"])
@@ -1123,6 +1350,29 @@ def test_committed_breaktime_mixed_pair():
     for f, png in zip(files, pngs):
         assert png[:4] == b"\x89PNG"
         np.testing.assert_array_equal(pillow(f), pillow(png))
+
+
+def test_committed_breaktime_j2k_pair():
+    """The J2K GLB's textures are JPEG 2000 files of the kinds J2K_TEXTURES
+    names (wavelet, component transform, layers, progression, JP2 or raw),
+    and their Pillow decodes are the twin's PNGs."""
+    scene = committed_manifest()["scene"]
+    files = glb_images(fixture(scene["j2k"]))
+    pngs = glb_images(fixture(scene["j2k_twin"]))
+    assert len(files) == len(pngs) == 6
+    for f, png, kw in zip(files, pngs, J2K_TEXTURES):
+        raw = kw.get("no_jp2", False)
+        assert f[:4] == (b"\xff\x4f\xff\x51" if raw else b"\0\0\0\x0c") and png[:4] == b"\x89PNG"
+        cs = f[f.index(b"\xff\x4f\xff\x51"):]
+        main, parts = j2k_parse(cs)
+        cod = dict(main)[0xFF52]
+        assert cod[9] == (0 if kw.get("irreversible") else 1) and cod[4] == kw.get("mct", 0)
+        assert cod[1] == jpeg2000.PROGRESSIONS.index(kw.get("progression", "LRCP"))
+        assert struct.unpack(">H", cod[2:4])[0] == len(kw.get("quality_layers", [0]))
+        assert len(parts) == (16 if "tile_size" in kw else 1)
+        np.testing.assert_array_equal(pillow(f), pillow(png))
+    doc, _ = read_glb(fixture(scene["j2k"]))
+    assert {img["mimeType"] for img in doc["images"]} == {"image/jp2"}
 
 
 def test_committed_breaktime_pair():

@@ -1,20 +1,23 @@
 """Scenes and skies in the image formats the port now decodes, through the
 port and through the JAX package (which decodes them with Pillow).
 
-- BreakTime with JPEG textures, and BreakTime-mixed with WebP (lossy and
-  lossless), TIFF (Deflate with the predictor, LZW) and GIF textures
+- BreakTime with JPEG textures, BreakTime-mixed with WebP (lossy and
+  lossless), TIFF (Deflate with the predictor, LZW) and GIF textures, and
+  BreakTime-J2K with JPEG 2000 textures (5/3 and 9/7, JP2 and raw)
   (tests/data_torch/formats, written by tests/test_torch_image_formats.py
   `make_fixtures`): the port's World equals the JAX World bit for bit in
   its atlas, shading rows and every other scene tensor, at a 64-texel
   atlas (`same_world` of tests/test_torch_formats.py), and equals the
   World of its lossless twin (each texture a PNG of Pillow's decode).
-- An OBJ whose MTL names JPEG, TGA and BMP maps, and one whose MTL names
-  TIFF, WebP and GIF maps, against rustic_tpu/scene/obj.py, exactly.
-- JPEG, BMP, TGA, WebP, TIFF and GIF skies through `load_skybox_image`,
+- An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
+  TIFF, WebP and GIF maps, and one with .jp2 and .j2k maps, against
+  rustic_tpu/scene/obj.py, exactly.
+- JPEG, BMP, TGA, WebP, TIFF, GIF and JPEG 2000 (.jp2, .j2k) skies through
+  `load_skybox_image`,
   against the JAX function, exactly. The JAX package reads .exr through
   imageio, which has no backend here: the EXR sky is held to the .npy of
   its half-float values, which the JAX function reads.
-- 32x16x2 films of the JPEG and the mixed BreakTime's one-tile cuts
+- 32x16x2 films of the JPEG, the mixed and the J2K BreakTime's one-tile cuts
   (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
   the .npy sky on JAX, both staged pipelines: the film rule of
   tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
@@ -46,9 +49,9 @@ from tests.test_torch_breaktime import assert_film_close
 from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
-from tests.test_torch_image_formats import (BT_JPEG, BT_MIXED, BT_MIXED_TWIN, BT_SKY_EXR, BT_TWIN,
-                                            FIXTURES, breaktime_sky_half, pillow_modes, save,
-                                            write_exr)
+from tests.test_torch_image_formats import (BT_J2K, BT_J2K_TWIN, BT_JPEG, BT_MIXED, BT_MIXED_TWIN,
+                                            BT_SKY_EXR, BT_TWIN, FIXTURES, breaktime_sky_half, j2k,
+                                            pillow_modes, save, write_exr)
 
 torch.set_num_threads(2)
 
@@ -83,6 +86,10 @@ def test_breaktime_jpeg_world_matches_jax():
 
 def test_breaktime_mixed_world_matches_jax():
     assert_world_and_twin(fixture_path(BT_MIXED), fixture_path(BT_MIXED_TWIN))
+
+
+def test_breaktime_j2k_world_matches_jax():
+    assert_world_and_twin(fixture_path(BT_J2K), fixture_path(BT_J2K_TWIN))
 
 
 def write_obj_with_maps(tmp_path, maps=None):
@@ -133,16 +140,34 @@ def test_obj_with_tiff_webp_gif_maps_matches_jax(tmp_path):
     assert same_world(path).has_textures
 
 
+def test_obj_with_jpeg2000_maps_matches_jax(tmp_path):
+    """The albedo map a 9/7 JP2, the roughness map a 5/3 raw codestream
+    with alpha (LA), the normal map a tiled 5/3 JP2."""
+    modes = pillow_modes(9, 14, seed=9)
+    path = write_obj_with_maps(tmp_path, {
+        "albedo": ("albedo.jp2", j2k(modes["RGB"], irreversible=True, mct=1)),
+        "rough": ("rough.j2k", j2k(modes["LA"], no_jp2=True)),
+        "normal": ("normal.jp2", j2k(modes["RGB"], tile_size=(8, 8), tile_offset=(1, 1),
+                                     offset=(3, 2)))})
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert same_world(path).has_textures
+
+
 @pytest.mark.parametrize("ext, kw", [("jpg", dict(quality=80)), ("jpeg", dict(progressive=True)),
                                      ("bmp", {}), ("tga", dict(compression="tga_rle")),
                                      ("webp", dict(quality=80)), ("tiff", dict(
                                          compression="tiff_adobe_deflate", tiffinfo={317: 2})),
-                                     ("gif", {})])
+                                     ("gif", {}), ("jp2", dict(irreversible=True, mct=1)),
+                                     ("j2k", dict(no_jp2=True))])
 def test_ldr_skies_match_jax(tmp_path, ext, kw):
     path = str(tmp_path / f"sky.{ext}")
+    fmt = {"jpg": "JPEG", "jpeg": "JPEG", "jp2": "JPEG2000", "j2k": "JPEG2000"}.get(ext,
+                                                                                 ext.upper())
     with open(path, "wb") as f:
-        f.write(save(pillow_modes(8, 16, seed=4)["RGB"], "JPEG" if ext.startswith("jp") else
-                     ext.upper(), **kw))
+        f.write(save(pillow_modes(8, 16, seed=4)["RGB"], fmt, **kw))
     got = TW.load_skybox_image(path)
     assert got.dtype == np.float32 and got.shape == (8, 16, 4)
     np.testing.assert_array_equal(got, JW.load_skybox_image(path))
@@ -175,6 +200,12 @@ def test_mixed_breaktime_film_matches_jax(half_sky):
     """The one-tile cut of BreakTime-mixed (WebP, TIFF and GIF textures),
     as the JPEG one."""
     assert_one_tile_film(fixture_path(BT_MIXED), half_sky)
+
+
+def test_j2k_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of BreakTime-J2K (JPEG 2000 textures), as the JPEG
+    one."""
+    assert_one_tile_film(fixture_path(BT_J2K), half_sky)
 
 
 def assert_one_tile_film(path, half_sky):
