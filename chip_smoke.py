@@ -27,10 +27,11 @@ multi-GPU layer (rustic_tpu_torch/parallel/: a world of one through
 NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
 torchrun) at the headline configuration; and the image decoders
 (rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, gif.py, tiff.py, webp.py,
-vp8.py, jpeg2000.py, exr.py) on the fixtures of
-tests/data_torch/formats, then BreakTime with JPEG textures, with WebP,
-TIFF and GIF textures, and with JPEG 2000 textures, under an OpenEXR sky
-through the grid form of the kernel-shade loop (K9-K11, K4);
+vp8.py, jpeg2000.py, dds.py, psd.py, exr.py) on the fixtures of
+tests/data_torch/formats and formats_dds_psd, then BreakTime with JPEG
+textures, with WebP, TIFF and GIF textures, with JPEG 2000 textures, and
+with DDS and PSD textures, under an OpenEXR sky through the grid form of
+the kernel-shade loop (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
 `bench`, and rustic_tpu_torch/bench_suite.py on the five BASELINE configs).
 
@@ -331,27 +332,38 @@ Phases, each of which must pass (the first that fails ends the run):
      tiles at odd offsets, precincts, the five progression orders with
      rate layers, a palette JP2; a 1024x1024 4:2:0 JPEG, a 1024x1024
      lossy WebP and two 1024x1024 JP2s, 5/3 lossless and 9/7 at 20:1)
-     decoded on the host, equal to Pillow 12.1.0's decode stored beside
-     it (.npy, or the SHA-256 of its RGBA bytes), and the half-float ZIP
-     EXR sky equal to BreakTimeSky.npy in half floats; ms per megapixel
-     of each decoder (gif, tif, webp lossy and lossless, jpeg2000 5/3 and
-     9/7 apart), and on BreakTime-mixed's and BreakTime-J2K's 256x256
-     textures (best of 3). BreakTime-JPEG (each texture a quality-90
-     4:2:0 JPEG, the EXR sky) and its twin (each texture a PNG of Pillow's
-     decode of that JPEG, the sky as .npy), BreakTime-mixed (two lossy
+     and of tests/data_torch/formats_dds_psd (DDS: DXT1, DXT3, DXT5,
+     BC4, BC5 unsigned and signed, BC6H unsigned and signed, BC7, masked,
+     luminance, palette and DX10 RGBA surfaces; PSD: bitmap, grey,
+     indexed, RGB, RGBA and CMYK, raw and PackBits; a 1024x1024 DXT1 and
+     a 1024x1024 BC7) decoded on the host, equal to Pillow 12.1.0's
+     decode stored beside it (.npy, or the SHA-256 of its RGBA bytes),
+     and the half-float ZIP EXR sky equal to BreakTimeSky.npy in half
+     floats; ms per megapixel of each decoder (gif, tif, webp lossy and
+     lossless, jpeg2000 5/3 and 9/7 apart, dds raw and each block kind
+     apart, psd), and on BreakTime-mixed's, BreakTime-J2K's and
+     BreakTime-DDS's 256x256 textures (best of 3). BreakTime-JPEG (each
+     texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
+     texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
+     BreakTime-mixed (two lossy
      WebP, a lossless WebP, a Deflate and an LZW TIFF, a GIF; the EXR sky)
      and BreakTime-J2K (two 5/3 JP2, two 9/7 JP2 at a rate, a tiled RPCL
-     raw codestream, three rate layers with precincts; the EXR sky), each
-     with its twin (PNGs of Pillow's decodes, the EXR sky), through
-     load_scene on the card: the load split into decode, atlas and the
-     rest; every SceneTensors field equal to the twin's. NEE+MIS, 4
-     bounces, through the default loop (kernel-shade, grid scans), a
-     warm-up each, then two renders each in turns: BreakTime-JPEG,
-     BreakTime-mixed and their twins at FORMATS_CUT_W x FORMATS_CUT_H x
-     32 spp, BreakTime-J2K and its twin at 1920x1080 x 32 spp (Mpaths/s
-     beside phase 16's PNG BreakTime); launch counts of the grid path (at
-     1920x1080: K9 2, K10 62, K11 2, K4 64) and no other kernel, each
-     film equal bit for bit to its twin's.
+     raw codestream, three rate layers with precincts; the EXR sky) and
+     BreakTime-DDS (DXT1, BC5, DXT5 and BC7 DDS, a PackBits RGB and a raw
+     indexed PSD; the EXR sky), each with its twin (PNGs of Pillow's
+     decodes, the EXR sky), through load_scene on the card: the load
+     split into decode, atlas and the rest; a twin's decoded textures
+     equal, array by array, to its partner's, which lets the twin take
+     the partner's packed atlas (pack_material_textures memoised within
+     the phase on a hash of its input arrays); every SceneTensors field
+     equal to the twin's. NEE+MIS, 4 bounces, through the default loop
+     (kernel-shade, grid scans), a warm-up each, then two renders each in
+     turns: BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K and their twins
+     at FORMATS_CUT_W x FORMATS_CUT_H x 32 spp, BreakTime-DDS and its
+     twin at 1920x1080 x 32 spp (Mpaths/s beside phase 16's PNG
+     BreakTime); launch counts of the grid path (at 1920x1080: K9 2, K10
+     62, K11 2, K4 64) and no other kernel, each film equal bit for bit
+     to its twin's.
  35. bench: the benchmark programs, each in a process of its own. `python
      -m rustic_tpu_torch.cli bench` (rustic_tpu_torch/bench.py: DarkCornell
      1280x720x160 spp, the median of 3 renders after a one-fold warm-up;
@@ -575,8 +587,9 @@ KERNELS = {
 CORNELL = "assets/scenes/DarkCornell.glb"
 CROSS_SIDE = 32  # phases 13 and 18's card-vs-host films: their host renders take most of the time
 FORMATS = "tests/data_torch/formats"  # the image fixtures and their manifest
-# phase 34 renders BreakTime-JPEG, BreakTime-mixed and their twins at this cut of the frame
-# (BT_SPP spp), BreakTime-J2K and its twin at BT_W x BT_H
+FORMATS_DDS_PSD = "tests/data_torch/formats_dds_psd"  # the DDS and PSD ones and theirs
+# phase 34 renders BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K and their twins at this cut
+# of the frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
 FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
 SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_parallel
 SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
@@ -3990,15 +4003,18 @@ class Smoke:
     # ---- phase 34: image formats -------------------------------------------------------------
 
     def formats(self):
-        """Every fixture of tests/data_torch/formats decoded on the host
-        against Pillow's decode stored beside it (ms per megapixel of each
-        decoder); BreakTime-JPEG (JPEG textures, EXR sky), BreakTime-mixed
-        (WebP, TIFF and GIF textures, EXR sky), BreakTime-J2K (JPEG 2000
-        textures, EXR sky) and their lossless twins loaded on the card (the
-        load split), each SceneTensors equal to its twin's, and all six
-        rendered at 32 spp in turns through the default loop (the J2K pair
-        at 1920x1080, the others at the FORMATS_CUT frame): launch counts
-        of the grid path, each film equal bit for bit to its twin's."""
+        """Every fixture of tests/data_torch/formats and formats_dds_psd
+        decoded on the host against Pillow's decode stored beside it (ms
+        per megapixel of each decoder); BreakTime-JPEG (JPEG textures, EXR
+        sky), BreakTime-mixed (WebP, TIFF and GIF textures, EXR sky),
+        BreakTime-J2K (JPEG 2000 textures, EXR sky), BreakTime-DDS (DDS and
+        PSD textures, EXR sky) and their lossless twins loaded on the card
+        (the load split; a twin takes its partner's packed atlas once its
+        decoded textures are found equal to the partner's), each
+        SceneTensors equal to its twin's, and all eight rendered at 32 spp
+        in turns through the default loop (the DDS pair at 1920x1080, the
+        others at the FORMATS_CUT frame): launch counts of the grid path,
+        each film equal bit for bit to its twin's."""
         import hashlib
         import os
         import struct
@@ -4016,6 +4032,7 @@ class Smoke:
         from rustic_tpu_torch.scene import gltf as gltf_mod
         from rustic_tpu_torch.scene import world as world_mod
         from rustic_tpu_torch.utils import _entropy
+        from rustic_tpu_torch.utils import dds as dds_mod
         from rustic_tpu_torch.utils.exr import read_exr
         from rustic_tpu_torch.utils.png import decode_image_u8
         from rustic_tpu_torch.utils.webp import riff_chunks
@@ -4028,6 +4045,17 @@ class Smoke:
             return "5/3" if raw[pos + 13] == 1 else "9/7"
 
         def decoder(ext, raw):
+            if raw[:4] == b"DDS ":  # raw (masked, luminance, palette, DX10 RGBA) or a block kind
+                (flags,) = struct.unpack("<I", raw[80:84])
+                if raw[84:88] == b"DX10":
+                    kind = dds_mod._DXGI[struct.unpack("<I", raw[128:132])[0]]
+                else:
+                    kind = dds_mod._FOURCCS.get(raw[84:88], "RGBA")
+                if flags & 0x20060 or kind == "RGBA":  # DDPF_RGB, _LUMINANCE, _PALETTEINDEXED8
+                    return "dds raw"
+                return "dds " + kind[:4].lower().rstrip("s")  # BC5S with BC5, BC6HS with BC6H
+            if raw[:4] == b"8BPS":
+                return "psd"
             if ext == "webp":
                 lossless = any(k == b"VP8L" for k, _ in riff_chunks(raw))
                 return "webp lossless" if lossless else "webp lossy"
@@ -4036,22 +4064,27 @@ class Smoke:
             return {"jpg": "jpeg", "tiff": "tif"}.get(ext, ext)
 
         for build, src, what in ((_entropy.library, "image_entropy.cpp", "the WebP entropy loops"),
-                                 (_entropy.j2k_library, "jpeg2000_t1.cpp", "JPEG 2000 tier-1")):
+                                 (_entropy.j2k_library, "jpeg2000_t1.cpp", "JPEG 2000 tier-1"),
+                                 (_entropy.bcn_library, "bcn_decode.cpp",
+                                  "DDS BC6H / BC7 blocks, PSD PackBits rows")):
             t0 = time.perf_counter()
             build()  # built before any decode is timed
             log(f"csrc/{src} ({what}) built by g++ or loaded in {time.perf_counter() - t0:.2f} s")
 
-        with open(os.path.join(FORMATS, "manifest.json")) as f:
-            manifest = json.load(f)
+        manifests = {}
+        for folder in (FORMATS, FORMATS_DDS_PSD):
+            with open(os.path.join(folder, "manifest.json")) as f:
+                manifests[folder] = json.load(f)
+        manifest = manifests[FORMATS]
         per = {}  # decoder -> [seconds, pixels]
-        for entry in manifest["images"]:
-            with open(os.path.join(FORMATS, entry["file"]), "rb") as f:
+        for folder, entry in ((d, e) for d, m in manifests.items() for e in m["images"]):
+            with open(os.path.join(folder, entry["file"]), "rb") as f:
                 raw = f.read()
             t0 = time.perf_counter()
             got = decode_image_u8(raw, entry["file"])
             dt = time.perf_counter() - t0
             if "expect" in entry:
-                ok = np.array_equal(got, np.load(os.path.join(FORMATS, entry["expect"])))
+                ok = np.array_equal(got, np.load(os.path.join(folder, entry["expect"])))
             else:
                 ok = (list(got.shape) == entry["shape"] and entry["sha256"]
                       == hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest())
@@ -4072,13 +4105,16 @@ class Smoke:
         half = np.load(BT_SKY).astype(np.float16).astype(np.float32)
         if not np.array_equal(sky, half):
             self.fail("the EXR sky differs from BreakTimeSky.npy in half floats")
-        log(f"{len(manifest['images'])} fixtures and the EXR sky equal to their expectations")
+        log(f"{sum(len(m['images']) for m in manifests.values())} fixtures and the EXR sky equal "
+            "to their expectations")
         for kind, (sec, px) in per.items():
             log(f"decode {kind}: {px} pixels in {sec * 1e3:.1f} ms, "
                 f"{sec * 1e3 / (px / 1e6):.1f} ms per megapixel (host CPU)")
-        # the mixed and the J2K BreakTime's six 256x256 textures, each decoded 3 times: the best
-        for scene_key, label in (("mixed", "BreakTime-mixed"), ("j2k", "BreakTime-J2K")):
-            with open(os.path.join(FORMATS, manifest["scene"][scene_key]), "rb") as f:
+        # the mixed, J2K and DDS BreakTime's six 256x256 textures, each decoded 3 times: the best
+        for folder, scene_key, label in ((FORMATS, "mixed", "BreakTime-mixed"),
+                                         (FORMATS, "j2k", "BreakTime-J2K"),
+                                         (FORMATS_DDS_PSD, "dds", "BreakTime-DDS")):
+            with open(os.path.join(folder, manifests[folder]["scene"][scene_key]), "rb") as f:
                 glb = f.read()
             (json_len,) = struct.unpack("<I", glb[12:16])
             doc = json.loads(glb[20 : 20 + json_len])
@@ -4102,6 +4138,39 @@ class Smoke:
 
         real_decode, real_exr = gltf_mod.decode_image_rgba, world_mod.read_exr
         real_pack = atlas_mod.pack_material_textures
+        packed = {}  # the hash of a pack's input arrays -> (those arrays, the packed result)
+
+        def texture_maps_equal(one, two):
+            """Two packs' input maps equal, material by material, array by array."""
+            return len(one) == len(two) and all(
+                a.keys() == b.keys() and all(
+                    (a[f] is None and b[f] is None) or (a[f] is not None and b[f] is not None
+                                                        and np.array_equal(a[f], b[f]))
+                    for f in a) for a, b in zip(one, two))
+
+        def memo_pack(split):
+            """pack_material_textures memoised within the phase on a hash of
+            its input arrays: a pack whose hash was seen takes the earlier
+            result once its maps are found equal to the earlier ones."""
+            def pack(mat_maps, *a, **k):
+                h = hashlib.sha256(repr((a, sorted(k.items()))).encode())
+                for maps in mat_maps:
+                    for field in sorted(maps):
+                        tex = maps[field]
+                        h.update(f"{field} {None if tex is None else (tex.shape, tex.dtype.str)}"
+                                 .encode())
+                        if tex is not None:
+                            h.update(np.ascontiguousarray(tex).tobytes())
+                key = h.hexdigest()
+                if key not in packed:
+                    packed[key] = ([dict(m) for m in mat_maps], real_pack(mat_maps, *a, **k))
+                    return packed[key][1]
+                maps, (atlas, uvsts) = packed[key]
+                if not texture_maps_equal(mat_maps, maps):
+                    self.fail("two packs' texture maps share a hash and differ")
+                split["reused"] = True
+                return atlas.copy(), [None if u is None else u.copy() for u in uvsts]
+            return pack
 
         def timed(fn, key, split):
             def wrapped(*a, **k):
@@ -4113,34 +4182,46 @@ class Smoke:
             return wrapped
 
         scenes = {}
+        dds_scene = manifests[FORMATS_DDS_PSD]["scene"]
+        pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"),
+                 ("J2K + EXR", "J2K twin (PNG + EXR)"), ("DDS + EXR", "DDS twin (PNG + EXR)"))
         with tempfile.TemporaryDirectory() as tmp:
             np.save(os.path.join(tmp, "sky.npy"), half)
-            for name, glb, sky_file in (
-                    ("JPEG + EXR", manifest["scene"]["jpeg"], sky_path),
-                    ("twin (PNG + .npy)", manifest["scene"]["twin"], os.path.join(tmp, "sky.npy")),
-                    ("mixed + EXR", manifest["scene"]["mixed"], sky_path),
-                    ("mixed twin (PNG + EXR)", manifest["scene"]["mixed_twin"], sky_path),
-                    ("J2K + EXR", manifest["scene"]["j2k"], sky_path),
-                    ("J2K twin (PNG + EXR)", manifest["scene"]["j2k_twin"], sky_path)):
-                split = {"decode": 0.0, "atlas": 0.0}
+            for name, (folder, glb), sky_file in (
+                    ("JPEG + EXR", (FORMATS, manifest["scene"]["jpeg"]), sky_path),
+                    ("twin (PNG + .npy)", (FORMATS, manifest["scene"]["twin"]),
+                     os.path.join(tmp, "sky.npy")),
+                    ("mixed + EXR", (FORMATS, manifest["scene"]["mixed"]), sky_path),
+                    ("mixed twin (PNG + EXR)", (FORMATS, manifest["scene"]["mixed_twin"]),
+                     sky_path),
+                    ("J2K + EXR", (FORMATS, manifest["scene"]["j2k"]), sky_path),
+                    ("J2K twin (PNG + EXR)", (FORMATS, manifest["scene"]["j2k_twin"]), sky_path),
+                    ("DDS + EXR", (FORMATS_DDS_PSD, dds_scene["dds"]), sky_path),
+                    ("DDS twin (PNG + EXR)", (FORMATS_DDS_PSD, dds_scene["dds_twin"]), sky_path)):
+                split = {"decode": 0.0, "atlas": 0.0, "reused": False}
                 gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)
                 world_mod.read_exr = timed(real_exr, "decode", split)
-                atlas_mod.pack_material_textures = timed(real_pack, "atlas", split)
+                atlas_mod.pack_material_textures = timed(memo_pack(split), "atlas", split)
                 try:
                     t0 = time.perf_counter()
-                    scenes[name] = world_mod.load_scene(os.path.join(FORMATS, glb), sky_file,
+                    scenes[name] = world_mod.load_scene(os.path.join(folder, glb), sky_file,
                                                         device=self.dev)
                     torch.cuda.synchronize()
                     total = time.perf_counter() - t0
                 finally:
                     gltf_mod.decode_image_rgba, world_mod.read_exr = real_decode, real_exr
                     atlas_mod.pack_material_textures = real_pack
+                twin_of = next((one for one, two in pairs if two == name), None)
+                if split["reused"] != (twin_of is not None):
+                    self.fail(f"{name}: its decoded textures "
+                              + (f"differ from those of {twin_of}" if twin_of else
+                                 "equal those of a scene loaded before it"))
+                atlas_how = (f"taken from {twin_of}'s, its textures found equal array by array, in"
+                             if twin_of else "packed in")
                 log(f"load_scene BreakTime {name}: {total:.2f} s: decode {split['decode']:.2f} s "
                     f"(6 textures and the sky), the {scenes[name].atlas.shape[0]}^2 atlas "
-                    f"{split['atlas']:.2f} s, the rest (glTF, World, upload) "
+                    f"{atlas_how} {split['atlas']:.2f} s, the rest (glTF, World, upload) "
                     f"{total - split['decode'] - split['atlas']:.2f} s")
-        pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"),
-                 ("J2K + EXR", "J2K twin (PNG + EXR)"))
         for one, two in pairs:
             a, b = scenes[one], scenes[two]
             for field in dataclasses.fields(a):
@@ -4167,7 +4248,7 @@ class Smoke:
         full, cut = frame(BT_W, BT_H), frame(FORMATS_CUT_W, FORMATS_CUT_H)
         if full[1] != {near: 2, merged: 62, occl: 2, "shade_bounce": 64}:
             self.fail(f"the grid path's launches at {BT_W}x{BT_H}x{BT_SPP}: {full[1]}")
-        frames = {name: full if name.startswith("J2K") else cut for name in scenes}
+        frames = {name: full if name.startswith("DDS") else cut for name in scenes}
         for name, scene in scenes.items():  # warm-up: each scene's packed table
             render_image(scene, frames[name][0], RenderSettings(samples=FOLD), device=self.dev)
         films, rates = {}, {name: [] for name in scenes}
@@ -4188,8 +4269,8 @@ class Smoke:
                 elif not np.array_equal(film, films[name]):
                     self.fail(f"{name}: two renders of one scene differ")
         png = getattr(self, "bt_grid_mpaths", None)
-        for (config, expect), names in ((full, [n for n in scenes if n.startswith("J2K")]),
-                                        (cut, [n for n in scenes if not n.startswith("J2K")])):
+        for (config, expect), names in ((full, [n for n in scenes if n.startswith("DDS")]),
+                                        (cut, [n for n in scenes if not n.startswith("DDS")])):
             log(f"render BreakTime {config.width}x{config.height}x{BT_SPP} spp NEE+MIS, HDR sky, "
                 f"kernel-shade loop, grid scans, launch counts {expect}, Mpaths/s in turns: "
                 + "; ".join(f"{name} " + ", ".join(f"{r:.2f}" for r in rates[name])

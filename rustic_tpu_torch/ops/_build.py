@@ -5,9 +5,9 @@ library, `build/lib<name>-<hash>.so` at the root of the checkout, built
 by nvcc at first use; the hash covers the source and the flags, so an
 edited source is rebuilt. The library is loaded with ctypes. Every entry
 point takes its pointers, then its ints, then the CUDA stream, and
-returns the `cudaError_t` of its launch. The one host source,
-csrc/bvh_build.cpp (the BVH builder), is built the same way by g++
-(`compile_host`).
+returns the `cudaError_t` of its launch. The host sources, csrc/*.cpp
+(the BVH builder and the image decoders' loops), are built the same way
+by g++ (`compile_host`).
 
 The wrappers of ops/ share one rule (`uses_plain`): a CPU tensor runs
 the kernel's plain PyTorch version, a CUDA tensor runs the kernel, and

@@ -1,5 +1,7 @@
-"""The host C++ entropy loops of the WebP decoder (csrc/image_entropy.cpp)
-and the JPEG 2000 tier-1 decoder (csrc/jpeg2000_t1.cpp), each built by g++
+"""The host C++ loops of the image decoders: the WebP decoder's entropy
+loops (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
+(csrc/jpeg2000_t1.cpp), and the BC6H / BC7 blocks of the DDS decoder and
+the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), each built by g++
 at first use (ops/_build.py `compile_host`; a missing or failing g++
 raises with the compiler's message) and loaded with ctypes."""
 
@@ -30,6 +32,17 @@ def j2k_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.j2k_codeblocks.restype = ctypes.c_int
     lib.j2k_codeblocks.argtypes = [p, ctypes.c_int64, p, p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bcn_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build.compile_host(os.path.join(_build.CSRC, "bcn_decode.cpp")))
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.bcn_blocks.restype = ctypes.c_int
+    lib.bcn_blocks.argtypes = [p, i64, ctypes.c_int, p]
+    lib.packbits_rows.restype = i64
+    lib.packbits_rows.argtypes = [p, i64, i64, i64, p]
     return lib
 
 

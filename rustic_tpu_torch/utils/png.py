@@ -16,10 +16,10 @@ without alpha, which Pillow reads as a 32-bit integer image and clips to
 pixel (a 1-bit grey key of 1 is white). `decode_image_u8` (and its float
 form `decode_image_rgba`) reads a texture or sky of any format the port
 decodes: PNG, JPEG (utils/jpeg.py), BMP (utils/bmp_tga.py), GIF
-(utils/gif.py), WebP (utils/webp.py, utils/vp8.py), TIFF (utils/tiff.py)
-and JPEG 2000, JP2 or a raw codestream (utils/jpeg2000.py), by their
-signatures, TGA by the name it is given; DDS and unknown formats raise
-NotImplementedError. `encode_png` writes
+(utils/gif.py), WebP (utils/webp.py, utils/vp8.py), TIFF (utils/tiff.py),
+JPEG 2000, JP2 or a raw codestream (utils/jpeg2000.py), DDS
+(utils/dds.py) and PSD (utils/psd.py), by their signatures, TGA by the
+name it is given; unknown formats raise NotImplementedError. `encode_png` writes
 8-bit RGB or RGBA with filter 0 (None) on every scanline, which any
 decoder reads.
 """
@@ -33,15 +33,15 @@ import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO
 from rustic_tpu_torch.utils.bmp_tga import decode_bmp, decode_tga
+from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds
 from rustic_tpu_torch.utils.gif import decode_gif
 from rustic_tpu_torch.utils.jpeg import decode_jpeg
 from rustic_tpu_torch.utils.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
+from rustic_tpu_torch.utils.psd import PSD_SIGNATURE, decode_psd
 from rustic_tpu_torch.utils.tiff import decode_tiff
 from rustic_tpu_torch.utils.webp import decode_webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# signatures of formats Pillow reads and the port refuses
-_REFUSED_SIGNATURES = {b"DDS ": "DDS"}
 _TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")  # classic, then BigTIFF
 _TGA_NAMES = (".tga", "image/x-tga", "image/x-targa", "image/tga")  # file names, MIME types
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
@@ -217,11 +217,14 @@ def decode_image_u8(raw: bytes, name: str = "") -> np.ndarray:
         return decode_tiff(raw)
     if raw[:12] == JP2_SIGNATURE or raw[:4] == J2K_SIGNATURE:
         return decode_jpeg2000(raw)
+    if raw[:4] == DDS_SIGNATURE:
+        return decode_dds(raw)
+    if raw[:4] == PSD_SIGNATURE:
+        return decode_psd(raw)
     if name.lower().endswith(_TGA_NAMES):
         return decode_tga(raw)
-    kind = next((k for sig, k in _REFUSED_SIGNATURES.items() if raw.startswith(sig)),
-                f"an image of unknown format (name {name!r}, first bytes {raw[:4].hex()})")
-    raise NotImplementedError(f"{kind} is not decoded ({FORMATS_TODO})")
+    raise NotImplementedError(f"an image of unknown format (name {name!r}, first bytes "
+                              f"{raw[:4].hex()}) is not decoded ({FORMATS_TODO})")
 
 
 def decode_image_rgba(raw: bytes, name: str = "") -> np.ndarray:

@@ -996,6 +996,104 @@ def j2k_small(**kw) -> bytes:
     return j2k(pillow_modes(5, 7)["RGB"], no_jp2=True, **kw)
 
 
+# ---- DDS and PSD writers (tests/test_torch_image_formats_dds.py, _psd.py) -------------------
+
+DDPF_ALPHAPIXELS, DDPF_FOURCC, DDPF_PALETTE, DDPF_RGB, DDPF_LUMINANCE = (0x1, 0x4, 0x20, 0x40,
+                                                                        0x20000)
+
+
+def dds_file(w, h, data, fourcc=None, dxgi=None, pfflags=DDPF_FOURCC, bitcount=0,
+             masks=(0, 0, 0, 0), extra=b"", header_size=124, mipmaps=0) -> bytes:
+    """A DDS file: the 124-byte header (a FourCC, or DX10 with a DXGI
+    format and its 20-byte extension), `extra` (a palette), then `data`."""
+    code = fourcc or (b"DX10" if dxgi is not None else bytes(4))
+    head = struct.pack("<7I", header_size, 0x1007 | (0x20000 if mipmaps else 0), h, w, 0, 0,
+                       mipmaps) + bytes(44)
+    head += struct.pack("<2I", 32, pfflags) + code + struct.pack("<5I", bitcount, *masks)
+    head += struct.pack("<5I", 0x1000 | (0x400008 if mipmaps else 0), 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return b"DDS " + head + extra + data
+
+
+def bc7_mode6(px: np.ndarray) -> bytes:
+    """uint8 [H, W, 4] (H and W multiples of 4) -> BC7 blocks of mode 6,
+    row by row: each block's endpoints the per-channel minimum and maximum
+    (7 bits and an endpoint's p-bit, the low bit most of its channels
+    have), each pixel's 4-bit index its projection on the segment, swapped
+    so that pixel 0's index is below 8 (the anchor drops its top bit)."""
+    h, w, _ = px.shape
+    blk = px.reshape(h // 4, 4, w // 4, 4, 4).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 4)
+    blk = blk.astype(np.int64)
+    ends = np.stack([blk.min(1), blk.max(1)], 1)  # [nb, 2, 4]
+    pbit = ((ends & 1).sum(-1) >= 2).astype(np.int64)  # [nb, 2]
+    q = np.clip((ends - pbit[..., None] + 1) >> 1, 0, 127)
+    e = (q << 1) | pbit[..., None]  # the decoder's 8-bit endpoints
+    d = (e[:, 1] - e[:, 0])[:, None, :]
+    num = ((blk - e[:, 0][:, None, :]) * d).sum(-1)
+    den = np.maximum((d * d).sum(-1), 1)
+    idx = np.clip(np.rint(num * 15 / den), 0, 15).astype(np.int64)
+    swap = idx[:, 0] >= 8
+    q[swap] = q[swap][:, ::-1]
+    pbit[swap] = pbit[swap][:, ::-1]
+    idx[swap] = 15 - idx[swap]
+    # the mode (bit 6), R0 R1 G0 G1 B0 B1 A0 A1, the two p-bits, the indices
+    fields = [np.full((len(blk), 1), 1 << 6)] + [q[:, k, c:c + 1] for c in range(4) for k in (0, 1)]
+    fields += [pbit[:, 0:1], pbit[:, 1:2]] + [idx[:, i:i + 1] for i in range(16)]
+    widths = [7] * 9 + [1, 1, 3] + [4] * 15
+    bits = np.concatenate([(f >> np.arange(n)) & 1 for f, n in zip(fields, widths)], 1)
+    return np.packbits(bits.astype(np.uint8), axis=1, bitorder="little").tobytes()
+
+
+def write_psd(planes, colour, depth=8, compression=1, colour_data=b"", resources=(),
+              layers=b"", version=1, channels=None, counts=None, width=None) -> bytes:
+    """A PSD of uint8 planes [C, H, row bytes] (1-bit rows packed most
+    significant bit first, `width` pixels of them): the header (`channels`
+    in it, C by default),
+    the colour-mode data, image resources ((id, name, data), names and
+    data padded to even lengths), the layer and mask section, then the
+    planes raw (0) or PackBits (1) row by row with their byte counts
+    (`counts` replaces them)."""
+    planes = np.asarray(planes, np.uint8)
+    c, h, row = planes.shape
+    w = width or (row * 8 if depth == 1 else row)
+    out = b"8BPS" + struct.pack(">H", version) + bytes(6)
+    out += struct.pack(">HIIHH", channels or c, h, w, depth, colour)
+    out += struct.pack(">I", len(colour_data)) + colour_data
+    res = b""
+    for rid, name, data in resources:
+        pascal = bytes([len(name)]) + name
+        res += b"8BIM" + struct.pack(">H", rid) + pascal + bytes(len(pascal) & 1)
+        res += struct.pack(">I", len(data)) + data + bytes(len(data) & 1)
+    out += struct.pack(">I", len(res)) + res + struct.pack(">I", len(layers)) + layers
+    out += struct.pack(">H", compression)
+    if compression != 1:
+        return out + planes.tobytes()
+    rows = [packbits(planes[i, y].tobytes()) for i in range(c) for y in range(h)]
+    counts = [len(r) for r in rows] if counts is None else counts
+    return out + b"".join(struct.pack(">H", n) for n in counts) + b"".join(rows)
+
+
+def psd_of(img: Image.Image, compression=1, **kw) -> bytes:
+    """A Pillow image as a PSD (write_psd): 1 as packed bits, L, P (its
+    palette as 256 reds, greens, blues), RGB, RGBA, CMYK (stored
+    inverted)."""
+    a = np.asarray(img)
+    if img.mode == "1":
+        return write_psd(np.packbits(a, axis=1)[None], 0, 1, compression, width=img.width, **kw)
+    if img.mode == "L":
+        return write_psd(a[None], 1, 8, compression, **kw)
+    if img.mode == "P":
+        pal = np.zeros((256, 3), np.uint8)
+        got = np.asarray(img.getpalette("RGB"), np.uint8).reshape(-1, 3)
+        pal[: len(got)] = got
+        return write_psd(a[None], 2, 8, compression, pal.T.tobytes(), **kw)
+    planes = a.transpose(2, 0, 1)
+    if img.mode == "CMYK":
+        return write_psd(255 - planes, 4, 8, compression, **kw)
+    return write_psd(planes, 3, 8, compression, **kw)
+
+
 # ---- the fixtures of tests/data_torch/formats -----------------------------------------------
 
 BIG = "photo-1024-420.jpg"
@@ -1295,6 +1393,129 @@ def make_fixtures(out_dir: str) -> dict:
     return manifest
 
 
+# ---- the fixtures of tests/data_torch/formats_dds_psd ---------------------------------------
+
+DDS_PSD_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "formats_dds_psd")
+BIG_BC1 = "photo-1024-bc1.dds"
+BIG_BC7 = "photo-1024-bc7.dds"
+BT_DDS = "BreakTime-DDS.glb"
+BT_DDS_TWIN = "BreakTime-DDS-twin.glb"
+DDS_MIME, PSD_MIME = "image/vnd-ms.dds", "image/vnd.adobe.photoshop"
+# BreakTime-DDS's textures, in the GLB's image order (0 and 1 the floor's albedo and normal
+# maps, 2 and 3 the wood's, 4 the metal's metallic-roughness map, 5 the poster)
+DDS_TEXTURES = ["DXT1", "BC5", "DXT5", "BC7", "PSD PackBits RGB", "PSD raw indexed"]
+
+
+def random_blocks(n: int, size: int, seed: int) -> bytes:
+    return np.random.default_rng(seed).integers(0, 256, n * size, np.uint8).tobytes()
+
+
+def dds_psd_small_fixtures() -> dict:
+    """name -> the bytes of each small DDS and PSD fixture: Pillow's DDS
+    files of one 21x35 picture (`pillow_modes(21, 35, seed=5)`), masked,
+    palette and DX10 RGBA surfaces, random BC4, BC5 SNORM and BC6H blocks,
+    BC7 of `bc7_mode6`, and PSDs of each mode and compression
+    (`psd_of`)."""
+    px = pillow_modes(21, 35, seed=5)
+    rng = np.random.default_rng(19)
+    blocks = 6 * 9  # 21x35 in 4x4 blocks
+    quad = Image.fromarray(rgba(24, 36, 20))  # BC7 wants whole blocks: cropped by the header
+    pal = rng.integers(0, 256, 1024, np.uint8).tobytes()
+    res = [(1039, b"", bytes(rng.integers(0, 256, 131, np.uint8))), (1005, b"res", b"\0\1\2")]
+    return {
+        "dds-dxt1.dds": save(px["RGBA"], "DDS", pixel_format="DXT1"),
+        "dds-dxt3.dds": save(px["RGBA"], "DDS", pixel_format="DXT3"),
+        "dds-dxt5.dds": save(px["RGBA"], "DDS", pixel_format="DXT5"),
+        "dds-bc5-dx10.dds": save(px["RGB"], "DDS", pixel_format="BC5"),
+        "dds-bc4-ati1.dds": dds_file(35, 21, random_blocks(blocks, 8, 21), b"ATI1"),
+        "dds-bc5s.dds": dds_file(35, 21, random_blocks(blocks, 16, 22), dxgi=84),
+        "dds-bc6h-uf16.dds": dds_file(35, 21, random_blocks(blocks, 16, 23), dxgi=95),
+        "dds-bc6h-sf16.dds": dds_file(35, 21, random_blocks(blocks, 16, 24), dxgi=96),
+        "dds-bc7-srgb.dds": dds_file(35, 21, bc7_mode6(np.asarray(quad)), dxgi=99),
+        "dds-rgba8.dds": save(px["RGBA"], "DDS"),
+        "dds-l8.dds": save(px["L"], "DDS"),
+        "dds-la8.dds": save(px["LA"], "DDS"),
+        "dds-rgb565.dds": dds_file(35, 21, random_blocks(35 * 21, 2, 25), pfflags=DDPF_RGB,
+                                   bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0)),
+        "dds-a2b10g10r10.dds": dds_file(35, 21, random_blocks(35 * 21, 4, 26),
+                                        pfflags=DDPF_RGB | DDPF_ALPHAPIXELS, bitcount=32,
+                                        masks=(0x3FF, 0xFFC00, 0x3FF00000, 0xC0000000)),
+        "dds-palette.dds": dds_file(35, 21, random_blocks(35 * 21, 1, 27), pfflags=DDPF_PALETTE,
+                                    bitcount=8, extra=pal),
+        "dds-r8g8b8a8-dx10.dds": dds_file(35, 21, random_blocks(35 * 21, 4, 28), dxgi=28),
+        "psd-bitmap-raw.psd": psd_of(px["1"], 0),
+        "psd-grey-packbits.psd": psd_of(px["L"], 1, resources=res, layers=bytes(10)),
+        "psd-indexed-packbits.psd": psd_of(px["P"], 1),
+        "psd-rgb-packbits.psd": psd_of(px["RGB"], 1, resources=res),
+        "psd-rgba-raw.psd": psd_of(px["RGBA"], 0, layers=b"\0\0\0\4abcd"),
+        "psd-cmyk-packbits.psd": psd_of(px["RGB"].convert("CMYK"), 1),
+    }
+
+
+def big_bcn() -> tuple:
+    """big_picture as a 1024x1024 DDS of Pillow's DXT1 and one of BC7
+    (`bc7_mode6`, opaque)."""
+    img = Image.fromarray(big_picture())
+    opaque = np.asarray(img.convert("RGBA"))
+    return (save(img, "DDS", pixel_format="DXT1"),
+            dds_file(1024, 1024, bc7_mode6(opaque), dxgi=98))
+
+
+def dds_texture(img: Image.Image, kind: str) -> bytes:
+    if kind in ("DXT1", "DXT5", "BC5"):
+        return save(img.convert("RGB" if kind == "BC5" else "RGBA"), "DDS", pixel_format=kind)
+    if kind == "BC7":
+        return dds_file(img.width, img.height, bc7_mode6(np.asarray(img.convert("RGBA"))),
+                        dxgi=98)
+    if kind == "PSD PackBits RGB":
+        return psd_of(img.convert("RGB"), 1)
+    return psd_of(img.convert("RGB").quantize(256), 0)
+
+
+def breaktime_dds_pair():
+    """BreakTime with its six textures re-encoded as DDS_TEXTURES names
+    them, in the GLB's image order: Pillow's DXT1, BC5 (on the floor's
+    normal map) and DXT5, BC7 of `bc7_mode6`, a PackBits RGB PSD and a raw
+    indexed PSD (Pillow's 256-colour quantisation), under the MIME types
+    image/vnd-ms.dds and image/vnd.adobe.photoshop; and its lossless twin:
+    each texture a PNG of Pillow's decode."""
+    with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
+        raw = f.read()
+    files = [dds_texture(Image.open(io.BytesIO(b)), kind)
+             for b, kind in zip(glb_images(raw), DDS_TEXTURES)]
+    pngs = [save(Image.open(io.BytesIO(b)).convert("RGBA"), "PNG", optimize=True) for b in files]
+    mimes = [PSD_MIME if k.startswith("PSD") else DDS_MIME for k in DDS_TEXTURES]
+    return replace_glb_images(raw, files, mimes), replace_glb_images(raw, pngs, "image/png")
+
+
+def make_dds_psd_fixtures(out_dir: str) -> dict:
+    """Write the DDS and PSD fixtures and their manifest (the form of
+    make_fixtures') into `out_dir` -> the manifest."""
+    os.makedirs(out_dir, exist_ok=True)
+
+    def put(name, data):
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+
+    images = []
+    for name, raw in dds_psd_small_fixtures().items():
+        put(name, raw)
+        expect = name.rsplit(".", 1)[0] + ".rgba.npy"
+        np.save(os.path.join(out_dir, expect), pillow(raw))
+        images.append(dict(file=name, expect=expect))
+    for name, big in zip((BIG_BC1, BIG_BC7), big_bcn()):
+        put(name, big)
+        images.append(dict(file=name, shape=[1024, 1024, 4], sha256=sha256_rgba(pillow(big))))
+    dds_glb, dds_twin = breaktime_dds_pair()
+    put(BT_DDS, dds_glb)
+    put(BT_DDS_TWIN, dds_twin)
+    manifest = dict(images=images, scene=dict(dds=BT_DDS, dds_twin=BT_DDS_TWIN))
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+    return manifest
+
+
 def committed_manifest() -> dict:
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         return json.load(f)
@@ -1375,6 +1596,70 @@ def test_committed_breaktime_j2k_pair():
     assert {img["mimeType"] for img in doc["images"]} == {"image/jp2"}
 
 
+def dds_psd_manifest() -> dict:
+    with open(os.path.join(DDS_PSD_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def dds_psd_fixture(name: str) -> bytes:
+    with open(os.path.join(DDS_PSD_FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def test_dds_psd_fixture_writer_makes_the_committed_set(tmp_path):
+    """make_dds_psd_fixtures runs, and writes the committed files' names,
+    expectations and bytes (its own 3 MiB beside the 5 of formats/)."""
+    made = make_dds_psd_fixtures(str(tmp_path))
+    assert made == dds_psd_manifest()
+    for name in os.listdir(tmp_path):
+        assert (tmp_path / name).read_bytes() == dds_psd_fixture(name), name
+    total = sum(os.path.getsize(os.path.join(DDS_PSD_FIXTURES, n))
+                for n in os.listdir(DDS_PSD_FIXTURES))
+    assert total <= 3 * 2**20
+
+
+@pytest.mark.parametrize("entry", dds_psd_manifest()["images"], ids=lambda e: e["file"])
+def test_committed_dds_psd_fixture_matches_pillow(entry):
+    """Each committed expectation is Pillow's decode of the committed file,
+    and the port's decode equals it."""
+    raw = dds_psd_fixture(entry["file"])
+    want = pillow(raw)
+    if "expect" in entry:
+        np.testing.assert_array_equal(np.load(os.path.join(DDS_PSD_FIXTURES, entry["expect"])),
+                                      want)
+    else:
+        assert list(want.shape) == entry["shape"] and sha256_rgba(want) == entry["sha256"]
+    np.testing.assert_array_equal(decode_image_u8(raw, entry["file"]), want)
+
+
+def test_committed_breaktime_dds_pair():
+    """The DDS GLB's textures are, in order, the kinds DDS_TEXTURES names
+    (FourCC or DXGI format, PSD colour mode and compression) under their
+    MIME types, and their Pillow decodes are the twin's PNGs."""
+    scene = dds_psd_manifest()["scene"]
+    files = glb_images(dds_psd_fixture(scene["dds"]))
+    pngs = glb_images(dds_psd_fixture(scene["dds_twin"]))
+    assert len(files) == len(pngs) == 6
+    dds_kinds = {b"DXT1": "DXT1", b"DXT5": "DXT5"}
+    for f, png, kind in zip(files, pngs, DDS_TEXTURES):
+        if kind.startswith("PSD"):
+            pos = 26
+            for _ in range(3):  # colour-mode data, image resources, layers and masks
+                pos += 4 + struct.unpack(">I", f[pos : pos + 4])[0]
+            colour, compression = struct.unpack(">H", f[24:26])[0], struct.unpack(
+                ">H", f[pos : pos + 2])[0]
+            assert f[:4] == b"8BPS" and (colour, compression) == (
+                (3, 1) if kind == "PSD PackBits RGB" else (2, 0))
+        elif f[84:88] == b"DX10":
+            assert {82: "BC5", 98: "BC7"}[struct.unpack("<I", f[128:132])[0]] == kind
+        else:
+            assert dds_kinds[f[84:88]] == kind
+        assert png[:4] == b"\x89PNG"
+        np.testing.assert_array_equal(pillow(f), pillow(png))
+    doc, _ = read_glb(dds_psd_fixture(scene["dds"]))
+    assert [img["mimeType"] for img in doc["images"]] == [DDS_MIME] * 4 + [PSD_MIME] * 2
+
+
 def test_committed_breaktime_pair():
     """The JPEG GLB's textures are JPEGs whose Pillow decodes are the
     twin's PNGs; the EXR sky holds BreakTimeSky.npy in half floats."""
@@ -1390,3 +1675,4 @@ def test_committed_breaktime_pair():
 
 if __name__ == "__main__":
     print(json.dumps(make_fixtures(FIXTURES), indent=1))
+    print(json.dumps(make_dds_psd_fixtures(DDS_PSD_FIXTURES), indent=1))

@@ -9,15 +9,18 @@ port and through the JAX package (which decodes them with Pillow).
   its atlas, shading rows and every other scene tensor, at a 64-texel
   atlas (`same_world` of tests/test_torch_formats.py), and equals the
   World of its lossless twin (each texture a PNG of Pillow's decode).
+- BreakTime-DDS with DXT1, BC5, DXT5 and BC7 DDS textures and two PSD
+  textures (tests/data_torch/formats_dds_psd, written by `make_dds_psd_fixtures`),
+  the same way.
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
-  TIFF, WebP and GIF maps, and one with .jp2 and .j2k maps, against
-  rustic_tpu/scene/obj.py, exactly.
-- JPEG, BMP, TGA, WebP, TIFF, GIF and JPEG 2000 (.jp2, .j2k) skies through
+  TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, and one with
+  .dds and .psd maps, against rustic_tpu/scene/obj.py, exactly.
+- JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k) and DDS skies through
   `load_skybox_image`,
   against the JAX function, exactly. The JAX package reads .exr through
   imageio, which has no backend here: the EXR sky is held to the .npy of
   its half-float values, which the JAX function reads.
-- 32x16x2 films of the JPEG, the mixed and the J2K BreakTime's one-tile cuts
+- 32x16x2 films of the JPEG, the mixed, the J2K and the DDS BreakTime's one-tile cuts
   (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
   the .npy sky on JAX, both staged pipelines: the film rule of
   tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
@@ -49,9 +52,11 @@ from tests.test_torch_breaktime import assert_film_close
 from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
-from tests.test_torch_image_formats import (BT_J2K, BT_J2K_TWIN, BT_JPEG, BT_MIXED, BT_MIXED_TWIN,
-                                            BT_SKY_EXR, BT_TWIN, FIXTURES, breaktime_sky_half, j2k,
-                                            pillow_modes, save, write_exr)
+from tests.test_torch_image_formats import (BT_DDS, BT_DDS_TWIN, BT_J2K, BT_J2K_TWIN, BT_JPEG,
+                                            BT_MIXED, BT_MIXED_TWIN, BT_SKY_EXR, BT_TWIN,
+                                            DDS_PSD_FIXTURES, FIXTURES, bc7_mode6,
+                                            breaktime_sky_half, dds_file, j2k, pillow_modes,
+                                            psd_of, save, write_exr)
 
 torch.set_num_threads(2)
 
@@ -90,6 +95,11 @@ def test_breaktime_mixed_world_matches_jax():
 
 def test_breaktime_j2k_world_matches_jax():
     assert_world_and_twin(fixture_path(BT_J2K), fixture_path(BT_J2K_TWIN))
+
+
+def test_breaktime_dds_world_matches_jax():
+    dds_path = os.path.join(DDS_PSD_FIXTURES, BT_DDS)
+    assert_world_and_twin(dds_path, os.path.join(DDS_PSD_FIXTURES, BT_DDS_TWIN))
 
 
 def write_obj_with_maps(tmp_path, maps=None):
@@ -156,12 +166,30 @@ def test_obj_with_jpeg2000_maps_matches_jax(tmp_path):
     assert same_world(path).has_textures
 
 
+def test_obj_with_dds_and_psd_maps_matches_jax(tmp_path):
+    """The albedo map a BC7 DDS, the roughness map a raw greyscale PSD
+    (which Pillow reads by name, through a memory map), the normal map a
+    PackBits RGB PSD."""
+    modes = pillow_modes(12, 16, seed=10)
+    path = write_obj_with_maps(tmp_path, {
+        "albedo": ("albedo.dds", dds_file(16, 12, bc7_mode6(np.asarray(modes["RGBA"])),
+                                          dxgi=98)),
+        "rough": ("rough.psd", psd_of(modes["L"], 0)),
+        "normal": ("normal.psd", psd_of(modes["RGB"], 1))})
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert same_world(path).has_textures
+
+
 @pytest.mark.parametrize("ext, kw", [("jpg", dict(quality=80)), ("jpeg", dict(progressive=True)),
                                      ("bmp", {}), ("tga", dict(compression="tga_rle")),
                                      ("webp", dict(quality=80)), ("tiff", dict(
                                          compression="tiff_adobe_deflate", tiffinfo={317: 2})),
                                      ("gif", {}), ("jp2", dict(irreversible=True, mct=1)),
-                                     ("j2k", dict(no_jp2=True))])
+                                     ("j2k", dict(no_jp2=True)),
+                                     ("dds", dict(pixel_format="DXT1"))])
 def test_ldr_skies_match_jax(tmp_path, ext, kw):
     path = str(tmp_path / f"sky.{ext}")
     fmt = {"jpg": "JPEG", "jpeg": "JPEG", "jp2": "JPEG2000", "j2k": "JPEG2000"}.get(ext,
@@ -206,6 +234,12 @@ def test_j2k_breaktime_film_matches_jax(half_sky):
     """The one-tile cut of BreakTime-J2K (JPEG 2000 textures), as the JPEG
     one."""
     assert_one_tile_film(fixture_path(BT_J2K), half_sky)
+
+
+def test_dds_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of BreakTime-DDS (DDS and PSD textures), as the
+    JPEG one."""
+    assert_one_tile_film(os.path.join(DDS_PSD_FIXTURES, BT_DDS), half_sky)
 
 
 def assert_one_tile_film(path, half_sky):

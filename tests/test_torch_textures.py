@@ -117,7 +117,7 @@ def test_png_decoder_refuses_other_formats():
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"\xff\xd8\xff\xe0" + bytes(16))  # a JPEG header
     with pytest.raises(NotImplementedError, match="DDS.*ROADMAP"):
-        # a DDS header: a format no decoder of the port reads
+        # a DDS header of size 0, which Pillow refuses too
         png.decode_image_rgba(b"DDS " + bytes(124))
 
 
