@@ -27,11 +27,12 @@ multi-GPU layer (rustic_tpu_torch/parallel/: a world of one through
 NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
 torchrun) at the headline configuration; and the image decoders
 (rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, gif.py, tiff.py, webp.py,
-vp8.py, jpeg2000.py, dds.py, psd.py, exr.py) on the fixtures of
-tests/data_torch/formats and formats_dds_psd, then BreakTime with JPEG
-textures, with WebP, TIFF and GIF textures, with JPEG 2000 textures, and
-with DDS and PSD textures, under an OpenEXR sky through the grid form of
-the kernel-shade loop (K9-K11, K4);
+vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
+sgi.py, exr.py) on the fixtures of tests/data_torch/formats,
+formats_dds_psd and formats_classic, then BreakTime with JPEG textures,
+with WebP, TIFF and GIF textures, with JPEG 2000 textures, with DDS and
+PSD textures, and with PPM, QOI, SGI, PCX, ICO and DCX textures, under an
+OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
 `bench`, and rustic_tpu_torch/bench_suite.py on the five BASELINE configs).
 
@@ -336,13 +337,20 @@ Phases, each of which must pass (the first that fails ends the run):
      BC4, BC5 unsigned and signed, BC6H unsigned and signed, BC7, masked,
      luminance, palette and DX10 RGBA surfaces; PSD: bitmap, grey,
      indexed, RGB, RGBA and CMYK, raw and PackBits; a 1024x1024 DXT1 and
-     a 1024x1024 BC7) decoded on the host, equal to Pillow 12.1.0's
-     decode stored beside it (.npy, or the SHA-256 of its RGBA bytes),
+     a 1024x1024 BC7) and of tests/data_torch/formats_classic (PNM: plain
+     and raw P1-P6 at several maxvals, 16-bit, PFM, P0CMYK, PyRGBA; QOI
+     RGB and RGBA; ICO with PNG and DIB payloads at 1, 4, 8, 24 and 32
+     bits, CUR; PCX 1-bit, planar, grey, palette and RGB, a DCX; SGI
+     verbatim and RLE at 8 and 16 bits; bare DIBs) decoded on the host,
+     equal to Pillow 12.1.0's decode stored beside it (.npy, or the
+     SHA-256 of its RGBA bytes), each file's format as image_format names
+     it equal to Pillow's (stored in formats_classic's manifest),
      and the half-float ZIP EXR sky equal to BreakTimeSky.npy in half
      floats; ms per megapixel of each decoder (gif, tif, webp lossy and
      lossless, jpeg2000 5/3 and 9/7 apart, dds raw and each block kind
-     apart, psd), and on BreakTime-mixed's, BreakTime-J2K's and
-     BreakTime-DDS's 256x256 textures (best of 3). BreakTime-JPEG (each
+     apart, psd, pnm, qoi, ico, cur, pcx, dcx, sgi rle and verbatim apart,
+     dib), and on BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's and
+     BreakTime-classic's 256x256 textures (best of 3). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
      BreakTime-mixed (two lossy
@@ -350,7 +358,9 @@ Phases, each of which must pass (the first that fails ends the run):
      and BreakTime-J2K (two 5/3 JP2, two 9/7 JP2 at a rate, a tiled RPCL
      raw codestream, three rate layers with precincts; the EXR sky) and
      BreakTime-DDS (DXT1, BC5, DXT5 and BC7 DDS, a PackBits RGB and a raw
-     indexed PSD; the EXR sky), each with its twin (PNGs of Pillow's
+     indexed PSD; the EXR sky) and BreakTime-classic (a P6 PPM, a QOI with
+     alpha, an RLE SGI, a 24-bit RLE PCX, an ICO of one 32-bit DIB, a DCX;
+     the EXR sky), each with its twin (PNGs of Pillow's
      decodes, the EXR sky), through load_scene on the card: the load
      split into decode, atlas and the rest; a twin's decoded textures
      equal, array by array, to its partner's, which lets the twin take
@@ -358,8 +368,9 @@ Phases, each of which must pass (the first that fails ends the run):
      the phase on a hash of its input arrays); every SceneTensors field
      equal to the twin's. NEE+MIS, 4 bounces, through the default loop
      (kernel-shade, grid scans), a warm-up each, then two renders each in
-     turns: BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K and their twins
-     at FORMATS_CUT_W x FORMATS_CUT_H x 32 spp, BreakTime-DDS and its
+     turns: BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K,
+     BreakTime-classic and their twins at FORMATS_CUT_W x FORMATS_CUT_H x
+     32 spp, BreakTime-DDS and its
      twin at 1920x1080 x 32 spp (Mpaths/s beside phase 16's PNG
      BreakTime); launch counts of the grid path (at 1920x1080: K9 2, K10
      62, K11 2, K4 64) and no other kernel, each film equal bit for bit
@@ -588,8 +599,9 @@ CORNELL = "assets/scenes/DarkCornell.glb"
 CROSS_SIDE = 32  # phases 13 and 18's card-vs-host films: their host renders take most of the time
 FORMATS = "tests/data_torch/formats"  # the image fixtures and their manifest
 FORMATS_DDS_PSD = "tests/data_torch/formats_dds_psd"  # the DDS and PSD ones and theirs
-# phase 34 renders BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K and their twins at this cut
-# of the frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
+FORMATS_CLASSIC = "tests/data_torch/formats_classic"  # PNM, QOI, ICO, CUR, PCX, DCX, SGI, DIB
+# phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic and their twins at this cut of the
+# frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
 FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
 SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_parallel
 SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
@@ -4003,15 +4015,18 @@ class Smoke:
     # ---- phase 34: image formats -------------------------------------------------------------
 
     def formats(self):
-        """Every fixture of tests/data_torch/formats and formats_dds_psd
-        decoded on the host against Pillow's decode stored beside it (ms
-        per megapixel of each decoder); BreakTime-JPEG (JPEG textures, EXR
-        sky), BreakTime-mixed (WebP, TIFF and GIF textures, EXR sky),
+        """Every fixture of tests/data_torch/formats, formats_dds_psd and
+        formats_classic decoded on the host against Pillow's decode stored
+        beside it (ms per megapixel of each decoder; a classic fixture's
+        format as image_format names it against Pillow's, in its
+        manifest); BreakTime-JPEG (JPEG textures, EXR sky),
+        BreakTime-mixed (WebP, TIFF and GIF textures, EXR sky),
         BreakTime-J2K (JPEG 2000 textures, EXR sky), BreakTime-DDS (DDS and
-        PSD textures, EXR sky) and their lossless twins loaded on the card
-        (the load split; a twin takes its partner's packed atlas once its
-        decoded textures are found equal to the partner's), each
-        SceneTensors equal to its twin's, and all eight rendered at 32 spp
+        PSD textures, EXR sky), BreakTime-classic (PPM, QOI, SGI, PCX, ICO
+        and DCX textures, EXR sky) and their lossless twins loaded on the
+        card (the load split; a twin takes its partner's packed atlas once
+        its decoded textures are found equal to the partner's), each
+        SceneTensors equal to its twin's, and all ten rendered at 32 spp
         in turns through the default loop (the DDS pair at 1920x1080, the
         others at the FORMATS_CUT frame): launch counts of the grid path,
         each film equal bit for bit to its twin's."""
@@ -4034,7 +4049,7 @@ class Smoke:
         from rustic_tpu_torch.utils import _entropy
         from rustic_tpu_torch.utils import dds as dds_mod
         from rustic_tpu_torch.utils.exr import read_exr
-        from rustic_tpu_torch.utils.png import decode_image_u8
+        from rustic_tpu_torch.utils.png import decode_image_u8, image_format
         from rustic_tpu_torch.utils.webp import riff_chunks
 
         def wavelet(raw):
@@ -4045,6 +4060,14 @@ class Smoke:
             return "5/3" if raw[pos + 13] == 1 else "9/7"
 
         def decoder(ext, raw):
+            try:
+                fmt = image_format(raw, "." + ext)
+            except NotImplementedError:
+                fmt = None
+            if fmt in ("PPM", "QOI", "ICO", "CUR", "PCX", "DCX", "DIB"):
+                return {"PPM": "pnm"}.get(fmt, fmt.lower())
+            if fmt == "SGI":
+                return "sgi rle" if raw[2] == 1 else "sgi verbatim"
             if raw[:4] == b"DDS ":  # raw (masked, luminance, palette, DX10 RGBA) or a block kind
                 (flags,) = struct.unpack("<I", raw[80:84])
                 if raw[84:88] == b"DX10":
@@ -4063,7 +4086,8 @@ class Smoke:
                 return f"jpeg2000 {wavelet(raw)}"
             return {"jpg": "jpeg", "tiff": "tif"}.get(ext, ext)
 
-        for build, src, what in ((_entropy.library, "image_entropy.cpp", "the WebP entropy loops"),
+        for build, src, what in ((_entropy.library, "image_entropy.cpp",
+                                  "the WebP entropy loops, the QOI op loop"),
                                  (_entropy.j2k_library, "jpeg2000_t1.cpp", "JPEG 2000 tier-1"),
                                  (_entropy.bcn_library, "bcn_decode.cpp",
                                   "DDS BC6H / BC7 blocks, PSD PackBits rows")):
@@ -4072,7 +4096,7 @@ class Smoke:
             log(f"csrc/{src} ({what}) built by g++ or loaded in {time.perf_counter() - t0:.2f} s")
 
         manifests = {}
-        for folder in (FORMATS, FORMATS_DDS_PSD):
+        for folder in (FORMATS, FORMATS_DDS_PSD, FORMATS_CLASSIC):
             with open(os.path.join(folder, "manifest.json")) as f:
                 manifests[folder] = json.load(f)
         manifest = manifests[FORMATS]
@@ -4090,6 +4114,9 @@ class Smoke:
                       == hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest())
             if not ok:
                 self.fail(f"{entry['file']}: the decode differs from Pillow's")
+            if "format" in entry and image_format(raw, entry["file"]) != entry["format"]:
+                self.fail(f"{entry['file']}: image_format names it "
+                          f"{image_format(raw, entry['file'])}, Pillow {entry['format']}")
             acc = per.setdefault(decoder(entry["file"].rsplit(".", 1)[1], raw), [0.0, 0])
             acc[0] += dt
             acc[1] += got.shape[0] * got.shape[1]
@@ -4113,7 +4140,8 @@ class Smoke:
         # the mixed, J2K and DDS BreakTime's six 256x256 textures, each decoded 3 times: the best
         for folder, scene_key, label in ((FORMATS, "mixed", "BreakTime-mixed"),
                                          (FORMATS, "j2k", "BreakTime-J2K"),
-                                         (FORMATS_DDS_PSD, "dds", "BreakTime-DDS")):
+                                         (FORMATS_DDS_PSD, "dds", "BreakTime-DDS"),
+                                         (FORMATS_CLASSIC, "classic", "BreakTime-classic")):
             with open(os.path.join(folder, manifests[folder]["scene"][scene_key]), "rb") as f:
                 glb = f.read()
             (json_len,) = struct.unpack("<I", glb[12:16])
@@ -4183,8 +4211,10 @@ class Smoke:
 
         scenes = {}
         dds_scene = manifests[FORMATS_DDS_PSD]["scene"]
+        classic_scene = manifests[FORMATS_CLASSIC]["scene"]
         pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"),
-                 ("J2K + EXR", "J2K twin (PNG + EXR)"), ("DDS + EXR", "DDS twin (PNG + EXR)"))
+                 ("J2K + EXR", "J2K twin (PNG + EXR)"), ("DDS + EXR", "DDS twin (PNG + EXR)"),
+                 ("classic + EXR", "classic twin (PNG + EXR)"))
         with tempfile.TemporaryDirectory() as tmp:
             np.save(os.path.join(tmp, "sky.npy"), half)
             for name, (folder, glb), sky_file in (
@@ -4197,7 +4227,10 @@ class Smoke:
                     ("J2K + EXR", (FORMATS, manifest["scene"]["j2k"]), sky_path),
                     ("J2K twin (PNG + EXR)", (FORMATS, manifest["scene"]["j2k_twin"]), sky_path),
                     ("DDS + EXR", (FORMATS_DDS_PSD, dds_scene["dds"]), sky_path),
-                    ("DDS twin (PNG + EXR)", (FORMATS_DDS_PSD, dds_scene["dds_twin"]), sky_path)):
+                    ("DDS twin (PNG + EXR)", (FORMATS_DDS_PSD, dds_scene["dds_twin"]), sky_path),
+                    ("classic + EXR", (FORMATS_CLASSIC, classic_scene["classic"]), sky_path),
+                    ("classic twin (PNG + EXR)", (FORMATS_CLASSIC, classic_scene["classic_twin"]),
+                     sky_path)):
                 split = {"decode": 0.0, "atlas": 0.0, "reused": False}
                 gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)
                 world_mod.read_exr = timed(real_exr, "decode", split)

@@ -12,6 +12,9 @@
 //   entropy-coded image (libwebp's DecodeImageData), its Huffman tables
 //   built by the caller.
 //
+// - qoi_pixels: the op loop of a QOI image (INDEX, DIFF, LUMA, RUN, RGB,
+//   RGBA), as Pillow 12.1.0's QoiImagePlugin.QoiDecoder runs it.
+//
 // Everything else of the decoders (headers, tables, transforms,
 // prediction, filtering, colour) stays in NumPy.
 
@@ -339,6 +342,59 @@ int64_t vp8l_pixels(const uint8_t* data, int64_t size, int64_t pos, int width, i
     }
   }
   return br.pos;
+}
+
+// The pixels of a QOI image from `pos`: `n_pixels` pixels of `bands` (3
+// or 4) bytes into `out`, as Pillow's QoiDecoder reads them. The previous
+// pixel starts as (0, 0, 0, 255); the table of 64 seen pixels starts
+// empty, an INDEX of an empty slot reads (0, 0, 0, 0), and a RUN repeats
+// the previous pixel without touching the table (so the starting pixel is
+// never in it); a RUN that overshoots the image is cut. Returns the
+// position after the last op read, or -1 where the ops run past the end.
+int64_t qoi_pixels(const uint8_t* data, int64_t size, int64_t pos, int64_t n_pixels, int bands,
+                   uint8_t* out) {
+  uint8_t seen[64][4];
+  bool have[64] = {};
+  uint8_t prev[4] = {0, 0, 0, 255};
+  int64_t done = 0;
+  while (done < n_pixels) {
+    if (pos >= size) return -1;
+    const int op = data[pos++];
+    uint8_t px[4];
+    if (op == 0xFE || op == 0xFF) {  // RGB, RGBA
+      const int n = op == 0xFE ? 3 : 4;
+      if (pos + n > size) return -1;
+      for (int c = 0; c < 4; ++c) px[c] = c < n ? data[pos + c] : prev[3];
+      pos += n;
+    } else if (op >> 6 == 0) {  // INDEX
+      const int i = op & 63;
+      for (int c = 0; c < 4; ++c) px[c] = have[i] ? seen[i][c] : 0;
+    } else if (op >> 6 == 1) {  // DIFF
+      px[0] = uint8_t(prev[0] + ((op >> 4) & 3) - 2);
+      px[1] = uint8_t(prev[1] + ((op >> 2) & 3) - 2);
+      px[2] = uint8_t(prev[2] + (op & 3) - 2);
+      px[3] = prev[3];
+    } else if (op >> 6 == 2) {  // LUMA
+      if (pos >= size) return -1;
+      const int second = data[pos++];
+      const int dg = (op & 63) - 32;
+      px[0] = uint8_t(prev[0] + dg + (second >> 4) - 8);
+      px[1] = uint8_t(prev[1] + dg);
+      px[2] = uint8_t(prev[2] + dg + (second & 15) - 8);
+      px[3] = prev[3];
+    } else {  // RUN
+      for (int64_t k = (op & 63) + 1; k > 0 && done < n_pixels; --k, ++done)
+        std::memcpy(out + done * bands, prev, bands);
+      continue;
+    }
+    std::memcpy(prev, px, 4);
+    const int h = (px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64;
+    std::memcpy(seen[h], px, 4);
+    have[h] = true;
+    std::memcpy(out + done * bands, px, bands);
+    ++done;
+  }
+  return pos;
 }
 
 }  // extern "C"

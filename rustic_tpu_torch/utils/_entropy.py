@@ -1,5 +1,5 @@
 """The host C++ loops of the image decoders: the WebP decoder's entropy
-loops (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
+loops and the QOI op loop (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
 (csrc/jpeg2000_t1.cpp), and the BC6H / BC7 blocks of the DDS decoder and
 the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), each built by g++
 at first use (ops/_build.py `compile_host`; a missing or failing g++
@@ -23,6 +23,8 @@ def library() -> ctypes.CDLL:
                                     i32, p, p, p] + [p] * 8
     lib.vp8l_pixels.restype = i64
     lib.vp8l_pixels.argtypes = [p, i64, i64, i32, i32, p, p, p, p, i32, i32, i32, p]
+    lib.qoi_pixels.restype = i64
+    lib.qoi_pixels.argtypes = [p, i64, i64, i64, i32, p]
     return lib
 
 

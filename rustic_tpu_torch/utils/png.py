@@ -15,13 +15,22 @@ without alpha, which Pillow reads as a 32-bit integer image and clips to
 255; a key colour compared, by its low byte, with the converted 8-bit
 pixel (a 1-bit grey key of 1 is white). `decode_image_u8` (and its float
 form `decode_image_rgba`) reads a texture or sky of any format the port
-decodes: PNG, JPEG (utils/jpeg.py), BMP (utils/bmp_tga.py), GIF
-(utils/gif.py), WebP (utils/webp.py, utils/vp8.py), TIFF (utils/tiff.py),
-JPEG 2000, JP2 or a raw codestream (utils/jpeg2000.py), DDS
-(utils/dds.py) and PSD (utils/psd.py), by their signatures, TGA by the
-name it is given; unknown formats raise NotImplementedError. `encode_png` writes
-8-bit RGB or RGBA with filter 0 (None) on every scanline, which any
-decoder reads.
+decodes: PNG, JPEG (utils/jpeg.py), BMP and the bare DIB
+(utils/bmp_tga.py), GIF (utils/gif.py), PNM and PFM (utils/pnm.py), ICO
+and CUR (utils/ico.py), PCX and DCX (utils/pcx.py), DDS (utils/dds.py),
+JPEG 2000, JP2 or a raw codestream (utils/jpeg2000.py), TIFF
+(utils/tiff.py), PSD (utils/psd.py), QOI (utils/qoi.py), SGI
+(utils/sgi.py), TGA and WebP (utils/webp.py, utils/vp8.py).
+`image_format` finds the format as Pillow's `Image.open` does: it tries
+the plugins in Pillow's order (PILLOW_ORDER), each one whose test of the
+first 16 bytes takes the file, and goes on to the next where the
+plugin's header reader turns the file away (NotThisFormat: what Pillow
+refuses with SyntaxError, IndexError, TypeError, KeyError, EOFError or
+struct.error); any other refusal ends the decode. The plugins the port
+does not carry are not tried. TGA, which has no signature, is tried at
+its place in the order only where the name given is a TGA's; unknown
+formats raise NotImplementedError. `encode_png` writes 8-bit RGB or RGBA
+with filter 0 (None) on every scanline, which any decoder reads.
 """
 
 from __future__ import annotations
@@ -31,8 +40,9 @@ import zlib
 
 import numpy as np
 
-from rustic_tpu_torch.utils import FORMATS_TODO
-from rustic_tpu_torch.utils.bmp_tga import decode_bmp, decode_tga
+from rustic_tpu_torch.utils import FORMATS_TODO, NotThisFormat, ico, pcx, pnm, qoi, sgi
+from rustic_tpu_torch.utils.bmp_tga import (DIB_HEADERS, dib_rgba, open_bmp, open_dib,
+                                            decode_tga, tga_refusal)
 from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds
 from rustic_tpu_torch.utils.gif import decode_gif
 from rustic_tpu_torch.utils.jpeg import decode_jpeg
@@ -198,33 +208,99 @@ def decode_png(raw: bytes) -> np.ndarray:
     return out
 
 
+# the order Pillow 12.1.0's Image.open tries its plugins in: Image.ID after its first call
+# (preinit's six, then the rest as init registers them)
+PILLOW_ORDER = (
+    "BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF", "BLP", "BUFR", "CUR", "PCX", "DCX", "DDS",
+    "EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5", "JPEG2000", "ICNS", "ICO", "IM", "IMT",
+    "IPTC", "MCIDAS", "MPEG", "TIFF", "MSP", "PCD", "PIXAR", "PSD", "QOI", "SGI", "SPIDER", "SUN",
+    "TGA", "WEBP", "WMF", "XBM", "XPM", "XVTHUMB")
+
+
+def _opened(header, decode):
+    """A plugin whose header reader runs at the open: the decode of what it read."""
+    def reader(raw):
+        h = header(raw)
+        return lambda: decode(raw, h)
+    return reader
+
+
+def _whole(decode):
+    """A plugin taken by its signature alone: its header is read with the rest."""
+    return lambda raw: (lambda: decode(raw))
+
+
+def _loaded(load):
+    """A plugin whose open loads the image (ICO)."""
+    def reader(raw):
+        img = load(raw)
+        return lambda: img
+    return reader
+
+
+def _tga(raw):
+    why = tga_refusal(raw)
+    if why:
+        raise NotThisFormat(why)
+    return lambda: decode_tga(raw)
+
+
+# format -> (Pillow's test of the first 16 bytes and the name, its reader): a reader
+# returns the decode, or raises NotThisFormat where Pillow tries the next plugin
+_PLUGINS = {
+    "BMP": (lambda p, n: p[:2] == b"BM", _opened(open_bmp, dib_rgba)),
+    "DIB": (lambda p, n: len(p) >= 4 and struct.unpack_from("<I", p)[0] in DIB_HEADERS,
+            _opened(open_dib, dib_rgba)),
+    "GIF": (lambda p, n: p[:6] in (b"GIF87a", b"GIF89a"), _whole(decode_gif)),
+    "JPEG": (lambda p, n: p[:3] == b"\xff\xd8\xff", _whole(decode_jpeg)),
+    "PPM": (lambda p, n: pnm.accept(p), _opened(pnm.open_pnm, pnm.decode_pnm)),
+    "PNG": (lambda p, n: p[:8] == PNG_SIGNATURE, _whole(decode_png)),
+    "CUR": (lambda p, n: p[:4] == ico.CUR_SIGNATURE,
+            _opened(ico.open_cur, lambda raw, h: dib_rgba(raw, *h))),
+    "PCX": (lambda p, n: pcx.accept_pcx(p), _opened(pcx.read_pcx, pcx.decode_pcx)),
+    "DCX": (lambda p, n: pcx.accept_dcx(p), _opened(pcx.open_dcx, pcx.decode_pcx)),
+    "DDS": (lambda p, n: p[:4] == DDS_SIGNATURE, _whole(decode_dds)),
+    "JPEG2000": (lambda p, n: p[:4] == J2K_SIGNATURE or p[:12] == JP2_SIGNATURE,
+                 _whole(decode_jpeg2000)),
+    "ICO": (lambda p, n: p[:4] == ico.ICO_SIGNATURE, _loaded(ico.open_ico)),
+    "TIFF": (lambda p, n: p[:4] in _TIFF_SIGNATURES, _whole(decode_tiff)),
+    "PSD": (lambda p, n: p[:4] == PSD_SIGNATURE, _whole(decode_psd)),
+    "QOI": (lambda p, n: p[:4] == qoi.QOI_SIGNATURE, _opened(qoi.open_qoi, qoi.decode_qoi)),
+    "SGI": (lambda p, n: sgi.accept(p), _opened(sgi.open_sgi, sgi.decode_sgi)),
+    "TGA": (lambda p, n: n.lower().endswith(_TGA_NAMES), _tga),
+    "WEBP": (lambda p, n: p[:4] == b"RIFF" and p[8:12] == b"WEBP", _whole(decode_webp)),
+}
+
+
+def _identify(raw: bytes, name: str):
+    """-> (Pillow's format name, the decode) of the first plugin in Pillow's
+    order that takes the file."""
+    prefix, passed = raw[:16], []
+    for fmt in PILLOW_ORDER:
+        plugin = _PLUGINS.get(fmt)
+        if plugin is None or not plugin[0](prefix, name):
+            continue
+        try:
+            return fmt, plugin[1](raw)
+        except NotThisFormat as e:
+            passed.append(f"{fmt}: {e}")
+    seen = f"; passed on by {', '.join(passed)}" if passed else ""
+    raise NotImplementedError(f"an image of unknown format (name {name!r}, first bytes "
+                              f"{raw[:4].hex()}{seen}) is not decoded ({FORMATS_TODO})")
+
+
+def image_format(raw: bytes, name: str = "") -> str:
+    """The Pillow format name (`Image.open(...).format`) the port decodes
+    an image file's bytes as; NotImplementedError where it takes none.
+    An ICO is decoded to be found, as Pillow's open loads it."""
+    return _identify(bytes(raw), name)[0]
+
+
 def decode_image_u8(raw: bytes, name: str = "") -> np.ndarray:
     """An image file's bytes -> uint8 [H, W, 4], as Pillow's
     `Image.open(...).convert("RGBA")`. `name` (a file name or a MIME type)
-    picks TGA, which has no signature."""
-    raw = bytes(raw)
-    if raw[:8] == PNG_SIGNATURE:
-        return decode_png(raw)
-    if raw[:2] == b"\xff\xd8":
-        return decode_jpeg(raw)
-    if raw[:2] == b"BM":
-        return decode_bmp(raw)
-    if raw[:4] == b"GIF8":
-        return decode_gif(raw)
-    if raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
-        return decode_webp(raw)
-    if raw[:4] in _TIFF_SIGNATURES:
-        return decode_tiff(raw)
-    if raw[:12] == JP2_SIGNATURE or raw[:4] == J2K_SIGNATURE:
-        return decode_jpeg2000(raw)
-    if raw[:4] == DDS_SIGNATURE:
-        return decode_dds(raw)
-    if raw[:4] == PSD_SIGNATURE:
-        return decode_psd(raw)
-    if name.lower().endswith(_TGA_NAMES):
-        return decode_tga(raw)
-    raise NotImplementedError(f"an image of unknown format (name {name!r}, first bytes "
-                              f"{raw[:4].hex()}) is not decoded ({FORMATS_TODO})")
+    lets TGA, which has no signature, be tried."""
+    return _identify(bytes(raw), name)[1]()
 
 
 def decode_image_rgba(raw: bytes, name: str = "") -> np.ndarray:

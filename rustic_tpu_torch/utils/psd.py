@@ -41,6 +41,7 @@ import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, _entropy
 from rustic_tpu_torch.utils._entropy import ptr
+from rustic_tpu_torch.utils.modes import muldiv255
 
 PSD_SIGNATURE = b"8BPS"
 # (colour mode, depth) -> (Pillow mode, channels it reads)
@@ -113,11 +114,6 @@ def _planes(r: _Reader, compression: int, channels: int, rows: int, row_bytes: i
     return out
 
 
-def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    t = a * b + 128
-    return ((t >> 8) + t) >> 8
-
-
 def decode_psd(raw: bytes) -> np.ndarray:
     """PSD bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
     raw = bytes(raw)
@@ -164,7 +160,7 @@ def decode_psd(raw: bytes) -> np.ndarray:
         ink = 255 - planes.astype(np.int64)  # stored inverted
         nk = 255 - ink[3]
         for i in range(3):
-            out[..., i] = np.clip(nk - _muldiv255(ink[i], nk), 0, 255)
+            out[..., i] = np.clip(nk - muldiv255(ink[i], nk), 0, 255)
     else:
         out[..., :channels] = planes.transpose(1, 2, 0)
     return out

@@ -1094,6 +1094,190 @@ def psd_of(img: Image.Image, compression=1, **kw) -> bytes:
     return write_psd(planes, 3, 8, compression, **kw)
 
 
+# ---- the classic formats: PNM, ICO / CUR, PCX / DCX, SGI -----------------------------------
+
+def pnm(px: np.ndarray, magic: bytes, maxval: int = 255, sep: bytes = b"\n",
+        comment: bytes = b"") -> bytes:
+    """A PNM of `magic`: P1 / P4 of px [H, W] bits (1 black); P2, P3 (plain)
+    and P5, P6, P0CMYK, PyP, PyRGBA, PyCMYK (raw) of px [H, W] or [H, W, n]
+    samples at `maxval` (two big-endian bytes a raw sample above 255), the
+    header's tokens `sep` apart, `comment` ("# ..." and its line end) after
+    the magic number and in the plain samples."""
+    h, w = px.shape[:2]
+    head = magic + sep + comment + b"%d%s%d" % (w, sep, h)
+    if magic not in (b"P1", b"P4"):
+        head += sep + b"%d" % maxval
+    head += b"\n"
+    if magic == b"P1":
+        return head + b"".join(b"".join(b"%d" % v for v in row) + b"\n" + comment
+                               for row in px)
+    if magic == b"P4":
+        return head + np.packbits(px.astype(np.uint8), axis=1).tobytes()
+    if magic in (b"P2", b"P3"):
+        rows = px.reshape(h, -1)
+        return head + b"".join(b" ".join(b"%d" % v for v in row) + b"\n" + comment
+                               for row in rows)
+    return head + px.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def pfm(values: np.ndarray, scale: float = -1.0) -> bytes:
+    """A grey PFM (Pf): float32 values [H, W], rows bottom-up, little-endian
+    where the scale is negative."""
+    h, w = values.shape
+    order = "<f4" if scale < 0 else ">f4"
+    return b"Pf\n%d %d\n%r\n" % (w, h, scale) + values[::-1].astype(order).tobytes()
+
+
+def dib_of(px: np.ndarray, bits: int, palette: np.ndarray = None, rows: int = None,
+           height: int = None, top_down: bool = False) -> bytes:
+    """A bare DIB (40-byte header, BI_RGB): px [H, W] palette indices at
+    1, 4 or 8 bits with `palette` [n, 3] RGB, or [H, W, 3] (24 bits) or
+    [H, W, 4] (32 bits, BGRA) pixels; `height` the header's (an icon's is
+    twice its image's), rows bottom-up unless `top_down`."""
+    h, w = px.shape[:2]
+    stride = ((w * bits + 31) >> 3) & ~3
+    if bits <= 8:
+        shift = np.arange(8 // bits)[::-1] * bits
+        padded = np.zeros((h, -(-w // (8 // bits)) * (8 // bits)), np.uint8)
+        padded[:, :w] = px
+        packed = (padded.reshape(h, -1, 8 // bits) << shift).sum(-1).astype(np.uint8)
+    else:
+        packed = px[..., [2, 1, 0, 3][: bits // 8]].reshape(h, -1)
+    data = np.zeros((h, stride), np.uint8)
+    data[:, : packed.shape[1]] = packed
+    if not top_down:
+        data = data[::-1]
+    n = 0 if palette is None else len(palette)
+    hf = height if height is not None else h
+    info = struct.pack("<IiiHHIIiiII", 40, w, -hf if top_down else hf, 1, bits, 0, data.size, 0,
+                       0, n, 0)
+    pal = b"" if palette is None else np.concatenate(
+        [np.asarray(palette, np.uint8)[:, ::-1], np.zeros((n, 1), np.uint8)], 1).tobytes()
+    return info + pal + data.tobytes()
+
+
+def and_mask(mask: np.ndarray) -> bytes:
+    """An icon's AND mask: mask [H, W] bool (True transparent), 1 bit a
+    pixel, rows padded to 32 bits, bottom-up."""
+    h, w = mask.shape
+    stride = -(-w // 32) * 4
+    rows = np.zeros((h, stride), np.uint8)
+    packed = np.packbits(mask.astype(np.uint8), axis=1)
+    rows[:, : packed.shape[1]] = packed
+    return rows[::-1].tobytes()
+
+
+def icon_dib(px: np.ndarray, bits: int, palette=None, mask=None) -> bytes:
+    """An ICO / CUR bitmap: the DIB at twice the height, then the AND mask
+    (all opaque where `mask` is None; none at 32 bits unless given)."""
+    h, w = px.shape[:2]
+    out = dib_of(px, bits, palette, height=2 * h)
+    if mask is not None or bits != 32:
+        out += and_mask(np.zeros((h, w), bool) if mask is None else mask)
+    return out
+
+
+def icon_file(entries, cursor: bool = False) -> bytes:
+    """An ICO (or CUR) of entries (payload, width, height, bit count, colour
+    count) -- for a cursor the last two are the hotspot -- payloads in order
+    after the directory."""
+    out = (b"\0\0\2\0" if cursor else b"\0\0\1\0") + struct.pack("<H", len(entries))
+    offset = 6 + 16 * len(entries)
+    for payload, w, h, bits, colours in entries:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, 0 if cursor else colours, 0,
+                           0 if not cursor else bits, colours if cursor else bits, len(payload),
+                           offset)
+        offset += len(payload)
+    return out + b"".join(e[0] for e in entries)
+
+
+def pcx_rle(line: bytes) -> bytes:
+    """A PCX line coded: runs of up to 63 equal bytes, single bytes below
+    0xC0 as they are."""
+    out, i = bytearray(), 0
+    while i < len(line):
+        n = 1
+        while i + n < len(line) and line[i + n] == line[i] and n < 63:
+            n += 1
+        if n > 1 or line[i] >= 0xC0:
+            out += bytes([0xC0 | n, line[i]])
+        else:
+            out.append(line[i])
+        i += n
+    return bytes(out)
+
+
+def pcx_header(width: int, height: int, bits: int, planes: int, stride: int, version: int = 5,
+               palette16: bytes = bytes(48)) -> bytes:
+    """A PCX's 128-byte header."""
+    return (bytes([10, version, 1, bits])
+            + struct.pack("<HHHHHH", 0, 0, width - 1, height - 1, 72, 72) + palette16 + b"\0"
+            + bytes([planes]) + struct.pack("<HHHH", stride, 1, width, height) + bytes(54))
+
+
+def pcx_file(lines: np.ndarray, width: int, bits: int, planes: int, version: int = 5,
+             palette16: bytes = bytes(48), tail: bytes = b"", stride: int = None) -> bytes:
+    """A PCX of `lines` [H, planes x stride] decoded bytes (each plane's
+    bytes one after the other), RLE coded line by line, the header's stride
+    `stride` (default: the line's), then `tail` (a 256-colour palette)."""
+    stride = lines.shape[1] // planes if stride is None else stride
+    return (pcx_header(width, len(lines), bits, planes, stride, version, palette16)
+            + b"".join(pcx_rle(bytes(row)) for row in lines) + tail)
+
+
+def dcx_file(images) -> bytes:
+    """A DCX of the PCX files `images`."""
+    offset = 4 + 4 * (len(images) + 1)
+    table = []
+    for img in images:
+        table.append(offset)
+        offset += len(img)
+    return struct.pack("<I", 0x3ADE68B1) + struct.pack(f"<{len(table) + 1}I", *table, 0) + b"".join(
+        images)
+
+
+def sgi_rle_row(values: np.ndarray, bpc: int) -> bytes:
+    """One SGI RLE row: runs of 2 or more equal samples as repeats, the
+    rest as copies (at most 127 samples an op), then the end marker."""
+    out, i, n = bytearray(), 0, len(values)
+    word = (lambda v: struct.pack(">H", int(v))) if bpc == 2 else (lambda v: bytes([int(v)]))
+    op = (lambda c: struct.pack(">H", c)) if bpc == 2 else (lambda c: bytes([c]))
+    while i < n:
+        k = 1
+        while i + k < n and values[i + k] == values[i] and k < 127:
+            k += 1
+        if k > 1:
+            out += op(k) + word(values[i])
+        else:
+            while i + k < n and k < 127 and values[i + k] != values[i + k - 1]:
+                k += 1
+            out += op(0x80 | k) + b"".join(word(v) for v in values[i : i + k])
+        i += k
+    return bytes(out + op(0))
+
+
+def sgi_file(planes: np.ndarray, bpc: int = 1, rle: bool = True, dimension: int = None) -> bytes:
+    """An SGI of planes [channels, H, W] (top row first; written
+    bottom-up), verbatim or RLE (each row of each channel a stream, the
+    streams in row order)."""
+    z, h, w = planes.shape
+    dimension = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">hBBHHHHll", 474, int(rle), bpc, dimension, w, h, z, 0,
+                       255 if bpc == 1 else 65535).ljust(512, b"\0")
+    rows = planes[:, ::-1]
+    if not rle:
+        return head + rows.astype(">u2" if bpc == 2 else np.uint8).tobytes()
+    streams = {(r, c): sgi_rle_row(rows[c, r], bpc) for r in range(h) for c in range(z)}
+    start, pos = {}, 512 + 8 * z * h
+    for key in sorted(streams):
+        start[key] = pos
+        pos += len(streams[key])
+    keys = [(r, c) for c in range(z) for r in range(h)]
+    return (head + struct.pack(f">{z * h}I", *(start[k] for k in keys))
+            + struct.pack(f">{z * h}I", *(len(streams[k]) for k in keys))
+            + b"".join(streams[k] for k in sorted(streams)))
+
+
 # ---- the fixtures of tests/data_torch/formats -----------------------------------------------
 
 BIG = "photo-1024-420.jpg"
@@ -1516,6 +1700,145 @@ def make_dds_psd_fixtures(out_dir: str) -> dict:
     return manifest
 
 
+# ---- the fixtures of tests/data_torch/formats_classic ---------------------------------------
+
+CLASSIC_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "formats_classic")
+BT_CLASSIC = "BreakTime-classic.glb"
+BT_CLASSIC_TWIN = "BreakTime-classic-twin.glb"
+# BreakTime-classic's textures, in the GLB's image order (0 and 1 the floor's albedo and normal
+# maps, 2 and 3 the wood's, 4 the metal's metallic-roughness map, 5 the poster), with MIME types
+CLASSIC_TEXTURES = ["PPM P6", "QOI RGBA", "SGI RLE", "PCX RLE 24-bit", "ICO 32-bit DIB", "DCX"]
+CLASSIC_MIMES = ["image/x-portable-pixmap", "image/qoi", "image/sgi", "image/x-pcx",
+                 "image/x-icon", "image/x-dcx"]
+
+
+def classic_small_fixtures() -> dict:
+    """name -> the bytes of each small fixture of the classic formats: of
+    one 21x35 picture (`pillow_modes(21, 35, seed=7)`), Pillow's PPM, QOI,
+    ICO (PNG and BMP payloads), PCX, SGI (verbatim, 8 and 16 bits) and DIB
+    files, and this module's writers' plain and odd-maxval PNMs, PFM,
+    CMYK and RGBA PNMs, ICO bitmaps at 1, 4 and 24 bits with AND masks,
+    CURs, planar PCXs, a PCX without its palette, a DCX and RLE SGIs."""
+    px = pillow_modes(21, 35, seed=7)
+    rgba_px = np.asarray(px["RGBA"])
+    grey = np.asarray(px["L"])
+    rng = np.random.default_rng(31)
+    mask = rng.random((21, 35)) < 0.3
+    pal16 = rng.integers(0, 256, (16, 3), np.uint8)
+    idx16 = rng.integers(0, 16, (21, 35), np.uint8)
+    idx4 = idx16 & 3
+    quad = Image.fromarray(rgba(32, 32, 8))  # an icon Pillow writes at its own size
+    planes3 = rgba_px[..., :3].transpose(2, 0, 1)
+    return {
+        "pnm-p1-plain-comments.pbm": pnm(np.asarray(px["1"]) == 0, b"P1", comment=b"# 1\n"),
+        "pnm-p2-plain-maxval-1000.pgm": pnm(grey.astype(np.int64) * 1000 // 255, b"P2", 1000,
+                                            sep=b" \t", comment=b"#c\r"),
+        "pnm-p3-plain.ppm": pnm(rgba_px[..., :3], b"P3"),
+        "pnm-p4.pbm": save(px["1"], "PPM"),
+        "pnm-p5.pgm": save(px["L"], "PPM"),
+        "pnm-p5-16bit.pgm": save(Image.fromarray(grey.astype(np.uint16) * 3 + 100), "PPM"),
+        "pnm-p6.ppm": save(px["RGB"], "PPM"),
+        "pnm-p6-maxval-100.ppm": pnm(rgba_px[..., :3] // 3, b"P6", 100),
+        "pnm-p6-maxval-4095.ppm": pnm(rgba_px[..., :3].astype(np.uint16) * 16, b"P6", 4095),
+        "pnm-pf.pfm": save(Image.fromarray(grey.astype(np.float32) * 1.3 - 20, "F"), "PPM"),
+        "pnm-p0cmyk.pnm": pnm(np.asarray(px["RGB"].convert("CMYK")), b"P0CMYK"),
+        "pnm-pyrgba.pnm": pnm(rgba_px, b"PyRGBA"),
+        "qoi-rgb.qoi": save(px["RGB"], "QOI"),
+        "qoi-rgba.qoi": save(px["RGBA"], "QOI"),
+        "ico-png.ico": save(quad, "ICO", sizes=[(16, 16), (32, 32)]),
+        "ico-bmp-rgba.ico": save(quad, "ICO", sizes=[(32, 32)], bitmap_format="bmp"),
+        "ico-bmp-palette.ico": save(quad.convert("RGB").quantize(50), "ICO", sizes=[(32, 32)],
+                                    bitmap_format="bmp"),
+        "ico-dib-1bit-mask.ico": icon_file([(icon_dib(idx16 & 1, 1, pal16[:2], mask), 35, 21,
+                                             1, 2)]),
+        "ico-dib-4bit-mask.ico": icon_file([(icon_dib(idx16, 4, pal16, mask), 35, 21, 4, 16)]),
+        "ico-dib-24bit-mask.ico": icon_file([(icon_dib(rgba_px[..., :3], 24, mask=mask), 35,
+                                              21, 24, 0)]),
+        "ico-two-depths.ico": icon_file([(icon_dib(rgba_px, 32), 35, 21, 32, 0),
+                                         (icon_dib(idx16, 8, pal16, mask), 35, 21, 8, 0)]),
+        "cur-32bit.cur": icon_file([(icon_dib(rgba_px, 32), 35, 21, 3, 4)], cursor=True),
+        "cur-two-4bit.cur": icon_file([(icon_dib(idx16[:5, :6], 4, pal16), 6, 5, 1, 1),
+                                       (icon_dib(idx16, 4, pal16, mask), 35, 21, 2, 2)],
+                                      cursor=True),
+        "pcx-1.pcx": save(px["1"], "PCX"),
+        "pcx-l.pcx": save(px["L"], "PCX"),
+        "pcx-p.pcx": save(px["P"], "PCX"),
+        "pcx-rgb.pcx": save(px["RGB"], "PCX"),
+        "pcx-2planes.pcx": pcx_file(np.concatenate([np.packbits((idx4 >> k) & 1, axis=1)
+                                                    for k in range(2)], 1), 35, 1, 2,
+                                    palette16=pal16.tobytes()),
+        "pcx-4planes.pcx": pcx_file(np.concatenate([np.packbits((idx16 >> k) & 1, axis=1)
+                                                    for k in range(4)], 1), 35, 1, 4,
+                                    palette16=pal16.tobytes()),
+        "pcx-l-no-palette.pcx": pcx_file(np.pad(grey, ((0, 0), (0, 1))), 35, 8, 1),
+        "dcx-two.dcx": dcx_file([save(px["RGB"], "PCX"), save(px["L"], "PCX")]),
+        "sgi-l.bw": save(px["L"], "SGI"),
+        "sgi-rgb.rgb": save(px["RGB"], "SGI"),
+        "sgi-rgba-16.sgi": save(px["RGBA"], "SGI", bpc=2),
+        "sgi-rle-rgb.rgb": sgi_file(planes3 // 16 * 16, 1, True),
+        "sgi-rle-rgba.rgba": sgi_file(rgba_px.transpose(2, 0, 1) // 32 * 32, 1, True),
+        "sgi-rle-l-16.sgi": sgi_file(grey[None].astype(np.uint16) // 8 * 2056, 2, True),
+        "dib-1.dib": save(px["1"], "DIB"),
+        "dib-p.dib": save(px["P"], "DIB"),
+        "dib-rgb.dib": save(px["RGB"], "DIB"),
+        "dib-rgba.dib": save(px["RGBA"], "DIB"),
+    }
+
+
+def classic_texture(img: Image.Image, kind: str) -> bytes:
+    rgb = img.convert("RGB")
+    if kind == "PPM P6":
+        return save(rgb, "PPM")
+    if kind == "QOI RGBA":
+        return save(rgb.convert("RGBA"), "QOI")
+    if kind == "SGI RLE":
+        return sgi_file(np.asarray(rgb).transpose(2, 0, 1), 1, True)
+    if kind == "PCX RLE 24-bit":
+        return save(rgb, "PCX")
+    if kind == "ICO 32-bit DIB":
+        return save(rgb.convert("RGBA"), "ICO", sizes=[img.size], bitmap_format="bmp")
+    return dcx_file([save(rgb, "PCX"), save(rgb.convert("L"), "PCX")])
+
+
+def breaktime_classic_pair():
+    """BreakTime with its six textures re-encoded as CLASSIC_TEXTURES names
+    them, in the GLB's image order (a P6 PPM, a QOI with alpha, an RLE SGI,
+    Pillow's 24-bit RLE PCX, Pillow's ICO of one 32-bit DIB, a DCX of two
+    PCX images), under CLASSIC_MIMES; and its lossless twin: each texture a
+    PNG of Pillow's decode."""
+    with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
+        raw = f.read()
+    files = [classic_texture(Image.open(io.BytesIO(b)), kind)
+             for b, kind in zip(glb_images(raw), CLASSIC_TEXTURES)]
+    pngs = [save(Image.open(io.BytesIO(b)).convert("RGBA"), "PNG", optimize=True) for b in files]
+    return replace_glb_images(raw, files, CLASSIC_MIMES), replace_glb_images(raw, pngs, "image/png")
+
+
+def make_classic_fixtures(out_dir: str) -> dict:
+    """Write the classic formats' fixtures and their manifest (the form of
+    make_fixtures') into `out_dir` -> the manifest."""
+    os.makedirs(out_dir, exist_ok=True)
+
+    def put(name, data):
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+
+    images = []
+    for name, raw in classic_small_fixtures().items():
+        put(name, raw)
+        expect = name.rsplit(".", 1)[0] + ".rgba.npy"
+        np.save(os.path.join(out_dir, expect), pillow(raw))
+        images.append(dict(file=name, expect=expect, format=Image.open(io.BytesIO(raw)).format))
+    glb, twin = breaktime_classic_pair()
+    put(BT_CLASSIC, glb)
+    put(BT_CLASSIC_TWIN, twin)
+    manifest = dict(images=images, scene=dict(classic=BT_CLASSIC, classic_twin=BT_CLASSIC_TWIN))
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+    return manifest
+
+
 def committed_manifest() -> dict:
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         return json.load(f)
@@ -1676,3 +1999,4 @@ def test_committed_breaktime_pair():
 if __name__ == "__main__":
     print(json.dumps(make_fixtures(FIXTURES), indent=1))
     print(json.dumps(make_dds_psd_fixtures(DDS_PSD_FIXTURES), indent=1))
+    print(json.dumps(make_classic_fixtures(CLASSIC_FIXTURES), indent=1))

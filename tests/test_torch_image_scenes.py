@@ -11,16 +11,20 @@ port and through the JAX package (which decodes them with Pillow).
   World of its lossless twin (each texture a PNG of Pillow's decode).
 - BreakTime-DDS with DXT1, BC5, DXT5 and BC7 DDS textures and two PSD
   textures (tests/data_torch/formats_dds_psd, written by `make_dds_psd_fixtures`),
-  the same way.
+  the same way; BreakTime-classic with a P6 PPM, a QOI, an RLE SGI, a
+  24-bit PCX, an ICO and a DCX texture (tests/data_torch/formats_classic,
+  `make_classic_fixtures`), the same way.
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
-  TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, and one with
-  .dds and .psd maps, against rustic_tpu/scene/obj.py, exactly.
-- JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k) and DDS skies through
-  `load_skybox_image`,
+  TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, one with .dds
+  and .psd maps, and two with .ppm, .qoi, .ico, .pcx, .sgi, .pgm, .rgb,
+  .dib and .cur maps, against rustic_tpu/scene/obj.py, exactly.
+- JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k), DDS, PNM,
+  PFM, QOI, ICO, PCX, DCX, SGI and DIB skies through `load_skybox_image`,
   against the JAX function, exactly. The JAX package reads .exr through
   imageio, which has no backend here: the EXR sky is held to the .npy of
   its half-float values, which the JAX function reads.
-- 32x16x2 films of the JPEG, the mixed, the J2K and the DDS BreakTime's one-tile cuts
+- 32x16x2 films of the JPEG, the mixed, the J2K, the DDS and the classic BreakTime's
+  one-tile cuts
   (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
   the .npy sky on JAX, both staged pipelines: the film rule of
   tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
@@ -52,11 +56,14 @@ from tests.test_torch_breaktime import assert_film_close
 from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
-from tests.test_torch_image_formats import (BT_DDS, BT_DDS_TWIN, BT_J2K, BT_J2K_TWIN, BT_JPEG,
-                                            BT_MIXED, BT_MIXED_TWIN, BT_SKY_EXR, BT_TWIN,
-                                            DDS_PSD_FIXTURES, FIXTURES, bc7_mode6,
-                                            breaktime_sky_half, dds_file, j2k, pillow_modes,
-                                            psd_of, save, write_exr)
+from tests.test_torch_image_formats import (BT_CLASSIC, BT_CLASSIC_TWIN, BT_DDS, BT_DDS_TWIN,
+                                            BT_J2K, BT_J2K_TWIN, BT_JPEG, BT_MIXED,
+                                            BT_MIXED_TWIN, BT_SKY_EXR, BT_TWIN,
+                                            CLASSIC_FIXTURES, DDS_PSD_FIXTURES, FIXTURES,
+                                            bc7_mode6, breaktime_sky_half, dcx_file, dds_file,
+                                            dib_of, icon_dib, icon_file, j2k, pfm,
+                                            pillow_modes, pnm, psd_of, save, sgi_file,
+                                            write_exr)
 
 torch.set_num_threads(2)
 
@@ -102,10 +109,16 @@ def test_breaktime_dds_world_matches_jax():
     assert_world_and_twin(dds_path, os.path.join(DDS_PSD_FIXTURES, BT_DDS_TWIN))
 
 
+def test_breaktime_classic_world_matches_jax():
+    assert_world_and_twin(os.path.join(CLASSIC_FIXTURES, BT_CLASSIC),
+                          os.path.join(CLASSIC_FIXTURES, BT_CLASSIC_TWIN))
+
+
 def write_obj_with_maps(tmp_path, maps=None):
     """A quad and a lamp; the floor's albedo map a JPEG, its roughness
     map a TGA and its normal map a BMP, or the files `maps` gives
-    ({"albedo": (name, bytes), "rough": ..., "normal": ...})."""
+    ({"albedo": (name, bytes), "rough": ..., "normal": ..., and, where
+    given, "metal": its metallic map})."""
     modes = pillow_modes(9, 14, seed=3)
     maps = maps or {"albedo": ("albedo.jpg", save(modes["RGB"], "JPEG", quality=85)),
                     "rough": ("rough.tga", save(modes["L"], "TGA", compression="tga_rle")),
@@ -114,7 +127,9 @@ def write_obj_with_maps(tmp_path, maps=None):
         (tmp_path / name).write_bytes(data)
     (tmp_path / "tex.mtl").write_text(
         f"newmtl floor\nKd 1 1 1\nmap_Kd {maps['albedo'][0]}\nmap_Pr {maps['rough'][0]}\n"
-        f"norm {maps['normal'][0]}\nNs 30\nnewmtl lamp\nKd 0 0 0\nKe 0.2 0.2 0.2\n")
+        f"norm {maps['normal'][0]}\n"
+        + (f"map_Pm {maps['metal'][0]}\n" if "metal" in maps else "")
+        + "Ns 30\nnewmtl lamp\nKd 0 0 0\nKe 0.2 0.2 0.2\n")
     lines = ["mtllib tex.mtl"]
     lines += [f"v {x} 0 {z}" for x, z in ((-2, -2), (2, -2), (2, 2), (-2, 2))]
     lines += [f"v {x} 3 {z}" for x, z in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
@@ -183,6 +198,67 @@ def test_obj_with_dds_and_psd_maps_matches_jax(tmp_path):
     assert same_world(path).has_textures
 
 
+def classic_maps(seed):
+    """Two sets of OBJ maps in the classic formats, of `pillow_modes(9, 14)`."""
+    modes = pillow_modes(9, 14, seed=seed)
+    rgb, grey = np.asarray(modes["RGB"]), np.asarray(modes["L"])
+    pal = np.random.default_rng(seed).integers(0, 256, (16, 3), np.uint8)
+    return [
+        {"albedo": ("albedo.ppm", save(modes["RGB"], "PPM")),
+         "rough": ("rough.qoi", save(modes["RGBA"], "QOI")),
+         "normal": ("normal.ico", icon_file([(icon_dib(np.asarray(modes["RGBA"]), 32), 14, 9, 32,
+                                               0)])),
+         "metal": ("metal.pcx", save(modes["P"], "PCX"))},
+        {"albedo": ("albedo.sgi", sgi_file(rgb.transpose(2, 0, 1) // 16 * 16, 1, True)),
+         "rough": ("rough.pgm", pnm(grey.astype(np.int64) * 4, b"P2", 1020,
+                                    comment=b"# grey\n")),
+         "normal": ("normal.rgb", save(modes["RGB"], "SGI", bpc=2)),
+         "metal": ("metal.cur", icon_file([(icon_dib(grey % 16, 4, pal), 14, 9, 0, 0)],
+                                          cursor=True))},
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_obj_with_classic_maps_matches_jax(tmp_path, which):
+    """An OBJ whose MTL names .ppm, .qoi, .ico and .pcx maps, and one with
+    .sgi (RLE and 16-bit), plain .pgm and .cur maps: the textures through
+    both loaders (the JAX one opens each by its path)."""
+    path = write_obj_with_maps(tmp_path, classic_maps(12)[which])
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert floor.metallic_texture is not None
+    assert same_world(path).has_textures
+
+
+def classic_skies():
+    modes = pillow_modes(8, 16, seed=13)
+    rgb = np.asarray(modes["RGB"])
+    return {
+        "sky.ppm": save(modes["RGB"], "PPM"),
+        "sky.pnm": pnm(rgb.astype(np.int64) * 3, b"P3", 765),
+        "sky.pfm": pfm(np.asarray(modes["L"], np.float32) * 1.5 - 10),
+        "sky.qoi": save(modes["RGBA"], "QOI"),
+        "sky.ico": save(modes["RGBA"].resize((16, 16)), "ICO", sizes=[(16, 16)],
+                        bitmap_format="bmp"),
+        "sky.pcx": save(modes["RGB"], "PCX"),
+        "sky.dcx": dcx_file([save(modes["P"], "PCX")]),
+        "sky.sgi": sgi_file(rgb.transpose(2, 0, 1), 1, True),
+        "sky.dib": dib_of(rgb, 24),
+    }
+
+
+@pytest.mark.parametrize("name", list(classic_skies()))
+def test_classic_skies_match_jax(tmp_path, name):
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(classic_skies()[name])
+    got = TW.load_skybox_image(path)
+    assert got.dtype == np.float32 and got.ndim == 3 and got.shape[2] == 4
+    np.testing.assert_array_equal(got, JW.load_skybox_image(path))
+
+
 @pytest.mark.parametrize("ext, kw", [("jpg", dict(quality=80)), ("jpeg", dict(progressive=True)),
                                      ("bmp", {}), ("tga", dict(compression="tga_rle")),
                                      ("webp", dict(quality=80)), ("tiff", dict(
@@ -240,6 +316,12 @@ def test_dds_breaktime_film_matches_jax(half_sky):
     """The one-tile cut of BreakTime-DDS (DDS and PSD textures), as the
     JPEG one."""
     assert_one_tile_film(os.path.join(DDS_PSD_FIXTURES, BT_DDS), half_sky)
+
+
+def test_classic_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of BreakTime-classic (PPM, QOI, SGI, PCX, ICO and
+    DCX textures), as the JPEG one."""
+    assert_one_tile_film(os.path.join(CLASSIC_FIXTURES, BT_CLASSIC), half_sky)
 
 
 def assert_one_tile_film(path, half_sky):
