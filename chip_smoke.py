@@ -28,11 +28,13 @@ NCCL, two gloo ranks sharing the one card, the CLI's --sharded under
 torchrun) at the headline configuration; and the image decoders
 (rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, gif.py, tiff.py, webp.py,
 vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
-sgi.py, exr.py) on the fixtures of tests/data_torch/formats,
-formats_dds_psd and formats_classic, then BreakTime with JPEG textures,
+sgi.py, im.py, iptc.py, pcd.py, spider.py, blp.py, fits.py, fli.py,
+ftex.py, gbr.py, icns.py, msp.py, pixar.py, sun.py, xbm.py, xpm.py,
+exr.py) on the fixtures of tests/data_torch/formats, formats_dds_psd,
+formats_classic and formats_legacy, then BreakTime with JPEG textures,
 with WebP, TIFF and GIF textures, with JPEG 2000 textures, with DDS and
-PSD textures, and with PPM, QOI, SGI, PCX, ICO and DCX textures, under an
-OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4);
+PSD textures, with PPM, QOI, SGI, PCX, ICO and DCX textures, and with
+BLP, IM, FTEX, ICNS and Sun raster textures, under an OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
 `bench`, and rustic_tpu_torch/bench_suite.py on the five BASELINE configs).
 
@@ -341,16 +343,26 @@ Phases, each of which must pass (the first that fails ends the run):
      and raw P1-P6 at several maxvals, 16-bit, PFM, P0CMYK, PyRGBA; QOI
      RGB and RGBA; ICO with PNG and DIB payloads at 1, 4, 8, 24 and 32
      bits, CUR; PCX 1-bit, planar, grey, palette and RGB, a DCX; SGI
-     verbatim and RLE at 8 and 16 bits; bare DIBs) decoded on the host,
+     verbatim and RLE at 8 and 16 bits; bare DIBs) and of
+     tests/data_torch/formats_legacy (IM of several modes, IMT, IPTC raw
+     and JPEG, a rotated 768x512 PCD, SPIDER both byte orders and a
+     stack, BLP1 palette and JPEG, BLP2 palette and DXT1/3/5, FITS 16-bit,
+     float64 and GZIP_1, an FLC, FTEX DXT1 and RGB, GBR v1 and v2, ICNS
+     of PNGs and of an it32 RLE entry, MSP v1 and v2, PIXAR, SUN RLE,
+     colour-mapped and 1-bit, XBM, XPM P and RGB) decoded on the host,
      equal to Pillow 12.1.0's decode stored beside it (.npy, or the
      SHA-256 of its RGBA bytes), each file's format as image_format names
-     it equal to Pillow's (stored in formats_classic's manifest),
+     it equal to Pillow's (stored in formats_classic's and
+     formats_legacy's manifests),
      and the half-float ZIP EXR sky equal to BreakTimeSky.npy in half
      floats; ms per megapixel of each decoder (gif, tif, webp lossy and
      lossless, jpeg2000 5/3 and 9/7 apart, dds raw and each block kind
      apart, psd, pnm, qoi, ico, cur, pcx, dcx, sgi rle and verbatim apart,
-     dib), and on BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's and
-     BreakTime-classic's 256x256 textures (best of 3). BreakTime-JPEG (each
+     dib, and each legacy decoder: im, imt, iptc, pcd, spider, blp jpeg,
+     palette and dxt apart, fits, fli, ftex, gbr, icns, msp, pixar, sun
+     rle and raw apart, xbm, xpm), and on BreakTime-mixed's,
+     BreakTime-J2K's, BreakTime-DDS's, BreakTime-classic's and
+     BreakTime-legacy's 256x256 textures (best of 3). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
      BreakTime-mixed (two lossy
@@ -360,7 +372,9 @@ Phases, each of which must pass (the first that fails ends the run):
      BreakTime-DDS (DXT1, BC5, DXT5 and BC7 DDS, a PackBits RGB and a raw
      indexed PSD; the EXR sky) and BreakTime-classic (a P6 PPM, a QOI with
      alpha, an RLE SGI, a 24-bit RLE PCX, an ICO of one 32-bit DIB, a DCX;
-     the EXR sky), each with its twin (PNGs of Pillow's
+     the EXR sky) and BreakTime-legacy (a BLP1 JPEG, an IM, a BLP2 DXT5,
+     an FTEX DXT1, a 128x128 ICNS of an it32 RLE entry and its t8mk
+     mask, a 24-bit RLE Sun raster; the EXR sky), each with its twin (PNGs of Pillow's
      decodes, the EXR sky), through load_scene on the card: the load
      split into decode, atlas and the rest; a twin's decoded textures
      equal, array by array, to its partner's, which lets the twin take
@@ -369,7 +383,7 @@ Phases, each of which must pass (the first that fails ends the run):
      equal to the twin's. NEE+MIS, 4 bounces, through the default loop
      (kernel-shade, grid scans), a warm-up each, then two renders each in
      turns: BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K,
-     BreakTime-classic and their twins at FORMATS_CUT_W x FORMATS_CUT_H x
+     BreakTime-classic, BreakTime-legacy and their twins at FORMATS_CUT_W x FORMATS_CUT_H x
      32 spp, BreakTime-DDS and its
      twin at 1920x1080 x 32 spp (Mpaths/s beside phase 16's PNG
      BreakTime); launch counts of the grid path (at 1920x1080: K9 2, K10
@@ -600,9 +614,13 @@ CROSS_SIDE = 32  # phases 13 and 18's card-vs-host films: their host renders tak
 FORMATS = "tests/data_torch/formats"  # the image fixtures and their manifest
 FORMATS_DDS_PSD = "tests/data_torch/formats_dds_psd"  # the DDS and PSD ones and theirs
 FORMATS_CLASSIC = "tests/data_torch/formats_classic"  # PNM, QOI, ICO, CUR, PCX, DCX, SGI, DIB
-# phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic and their twins at this cut of the
+FORMATS_LEGACY = "tests/data_torch/formats_legacy"  # IM ... XPM: Pillow's other plugins
+# phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy and their twins at this cut of the
 # frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
 FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
+# the formats whose decoders the legacy fixtures time, each under its own name
+LEGACY_DECODERS = ("IM", "IMT", "IPTC", "PCD", "SPIDER", "FITS", "FLI", "FTEX", "GBR", "ICNS",
+                   "MSP", "PIXAR", "XBM", "XPM")
 SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_parallel
 SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
 SHARD_TOL = dict(rtol=2e-5, atol=2e-6)  # a split's bound, tests/test_parallel.py:140
@@ -4015,18 +4033,19 @@ class Smoke:
     # ---- phase 34: image formats -------------------------------------------------------------
 
     def formats(self):
-        """Every fixture of tests/data_torch/formats, formats_dds_psd and
-        formats_classic decoded on the host against Pillow's decode stored
-        beside it (ms per megapixel of each decoder; a classic fixture's
-        format as image_format names it against Pillow's, in its
-        manifest); BreakTime-JPEG (JPEG textures, EXR sky),
+        """Every fixture of tests/data_torch/formats, formats_dds_psd,
+        formats_classic and formats_legacy decoded on the host against
+        Pillow's decode stored beside it (ms per megapixel of each decoder;
+        a classic or legacy fixture's format as image_format names it
+        against Pillow's, in its manifest); BreakTime-JPEG (JPEG textures, EXR sky),
         BreakTime-mixed (WebP, TIFF and GIF textures, EXR sky),
         BreakTime-J2K (JPEG 2000 textures, EXR sky), BreakTime-DDS (DDS and
         PSD textures, EXR sky), BreakTime-classic (PPM, QOI, SGI, PCX, ICO
-        and DCX textures, EXR sky) and their lossless twins loaded on the
-        card (the load split; a twin takes its partner's packed atlas once
-        its decoded textures are found equal to the partner's), each
-        SceneTensors equal to its twin's, and all ten rendered at 32 spp
+        and DCX textures, EXR sky), BreakTime-legacy (BLP, IM, FTEX, ICNS
+        and Sun raster textures, EXR sky) and their lossless twins loaded
+        on the card (the load split; a twin takes its partner's packed
+        atlas once its decoded textures are found equal to the partner's),
+        each SceneTensors equal to its twin's, and all twelve rendered at 32 spp
         in turns through the default loop (the DDS pair at 1920x1080, the
         others at the FORMATS_CUT frame): launch counts of the grid path,
         each film equal bit for bit to its twin's."""
@@ -4066,6 +4085,14 @@ class Smoke:
                 fmt = None
             if fmt in ("PPM", "QOI", "ICO", "CUR", "PCX", "DCX", "DIB"):
                 return {"PPM": "pnm"}.get(fmt, fmt.lower())
+            if fmt == "BLP":  # BLP1 JPEG, a palette (either version) or BLP2's DXT blocks
+                if raw[3:4] == b"1":
+                    return "blp jpeg" if struct.unpack_from("<i", raw, 4)[0] == 0 else "blp palette"
+                return "blp dxt" if raw[8] == 2 else "blp palette"  # BLP2's encoding byte
+            if fmt == "SUN":
+                return "sun rle" if struct.unpack_from(">I", raw, 20)[0] == 2 else "sun raw"
+            if fmt in LEGACY_DECODERS:
+                return fmt.lower()
             if fmt == "SGI":
                 return "sgi rle" if raw[2] == 1 else "sgi verbatim"
             if raw[:4] == b"DDS ":  # raw (masked, luminance, palette, DX10 RGBA) or a block kind
@@ -4087,7 +4114,8 @@ class Smoke:
             return {"jpg": "jpeg", "tiff": "tif"}.get(ext, ext)
 
         for build, src, what in ((_entropy.library, "image_entropy.cpp",
-                                  "the WebP entropy loops, the QOI op loop"),
+                                  "the WebP entropy loops, the QOI op loop, the FLI, SUN, ICNS "
+                                  "and MSP run-length loops, IM's n-bit samples"),
                                  (_entropy.j2k_library, "jpeg2000_t1.cpp", "JPEG 2000 tier-1"),
                                  (_entropy.bcn_library, "bcn_decode.cpp",
                                   "DDS BC6H / BC7 blocks, PSD PackBits rows")):
@@ -4096,7 +4124,7 @@ class Smoke:
             log(f"csrc/{src} ({what}) built by g++ or loaded in {time.perf_counter() - t0:.2f} s")
 
         manifests = {}
-        for folder in (FORMATS, FORMATS_DDS_PSD, FORMATS_CLASSIC):
+        for folder in (FORMATS, FORMATS_DDS_PSD, FORMATS_CLASSIC, FORMATS_LEGACY):
             with open(os.path.join(folder, "manifest.json")) as f:
                 manifests[folder] = json.load(f)
         manifest = manifests[FORMATS]
@@ -4137,11 +4165,12 @@ class Smoke:
         for kind, (sec, px) in per.items():
             log(f"decode {kind}: {px} pixels in {sec * 1e3:.1f} ms, "
                 f"{sec * 1e3 / (px / 1e6):.1f} ms per megapixel (host CPU)")
-        # the mixed, J2K and DDS BreakTime's six 256x256 textures, each decoded 3 times: the best
+        # each BreakTime's six textures (256x256; the ICNS 128x128), each decoded 3 times: the best
         for folder, scene_key, label in ((FORMATS, "mixed", "BreakTime-mixed"),
                                          (FORMATS, "j2k", "BreakTime-J2K"),
                                          (FORMATS_DDS_PSD, "dds", "BreakTime-DDS"),
-                                         (FORMATS_CLASSIC, "classic", "BreakTime-classic")):
+                                         (FORMATS_CLASSIC, "classic", "BreakTime-classic"),
+                                         (FORMATS_LEGACY, "legacy", "BreakTime-legacy")):
             with open(os.path.join(folder, manifests[folder]["scene"][scene_key]), "rb") as f:
                 glb = f.read()
             (json_len,) = struct.unpack("<I", glb[12:16])
@@ -4160,7 +4189,7 @@ class Smoke:
                     best = min(best, time.perf_counter() - t0)
                 texture_rates.setdefault(kind, []).append(
                     best * 1e3 / (got.shape[0] * got.shape[1] / 1e6))
-            log(f"decode of {label}'s 256x256 textures, ms per megapixel (host CPU, best of 3): "
+            log(f"decode of {label}'s textures, ms per megapixel (host CPU, best of 3): "
                 + "; ".join(f"{k} " + ", ".join(f"{r:.1f}" for r in v)
                             for k, v in texture_rates.items()))
 
@@ -4212,9 +4241,11 @@ class Smoke:
         scenes = {}
         dds_scene = manifests[FORMATS_DDS_PSD]["scene"]
         classic_scene = manifests[FORMATS_CLASSIC]["scene"]
+        legacy_scene = manifests[FORMATS_LEGACY]["scene"]
         pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"),
                  ("J2K + EXR", "J2K twin (PNG + EXR)"), ("DDS + EXR", "DDS twin (PNG + EXR)"),
-                 ("classic + EXR", "classic twin (PNG + EXR)"))
+                 ("classic + EXR", "classic twin (PNG + EXR)"),
+                 ("legacy + EXR", "legacy twin (PNG + EXR)"))
         with tempfile.TemporaryDirectory() as tmp:
             np.save(os.path.join(tmp, "sky.npy"), half)
             for name, (folder, glb), sky_file in (
@@ -4230,6 +4261,9 @@ class Smoke:
                     ("DDS twin (PNG + EXR)", (FORMATS_DDS_PSD, dds_scene["dds_twin"]), sky_path),
                     ("classic + EXR", (FORMATS_CLASSIC, classic_scene["classic"]), sky_path),
                     ("classic twin (PNG + EXR)", (FORMATS_CLASSIC, classic_scene["classic_twin"]),
+                     sky_path),
+                    ("legacy + EXR", (FORMATS_LEGACY, legacy_scene["legacy"]), sky_path),
+                    ("legacy twin (PNG + EXR)", (FORMATS_LEGACY, legacy_scene["legacy_twin"]),
                      sky_path)):
                 split = {"decode": 0.0, "atlas": 0.0, "reused": False}
                 gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)

@@ -14,11 +14,17 @@
 //
 // - qoi_pixels: the op loop of a QOI image (INDEX, DIFF, LUMA, RUN, RGB,
 //   RGBA), as Pillow 12.1.0's QoiImagePlugin.QoiDecoder runs it.
+// - fli_frame, sun_rle, icns_rle and msp_rows: the run-length loops of
+//   the legacy formats' decoders (utils/fli.py, sun.py, icns.py, msp.py),
+//   as Pillow 12.1.0's FliDecode.c, SunRleDecode.c, IcnsImagePlugin
+//   read_32 and MspImagePlugin.MspDecoder run them; im_bits: the n-bit
+//   samples of an IM image (utils/im.py), as its BitDecode.c reads them.
 //
 // Everything else of the decoders (headers, tables, transforms,
 // prediction, filtering, colour) stays in NumPy.
 
 #include <cstdint>
+#include <algorithm>
 #include <cstring>
 #include <vector>
 
@@ -395,6 +401,310 @@ int64_t qoi_pixels(const uint8_t* data, int64_t size, int64_t pos, int64_t n_pix
     ++done;
   }
   return pos;
+}
+
+// One FLI/FLC frame (`bytes` bytes from its size field) onto the 8-bit
+// image `im` (xsize x ysize, row-major), as FliDecode.c: COLOR (4, 11) and
+// PSTAMP (18) chunks are skipped, SS2 (7) word deltas, LC (12) byte
+// deltas, BLACK (13), BRUN (15) byte runs and COPY (16) are drawn. Returns
+// 0 at the frame's end; 1 where the buffer holds less than the frame (the
+// file is truncated); 2 where a chunk overruns its data or the image
+// (IMAGING_CODEC_OVERRUN); 3 for a chunk that is not a frame or of an
+// unknown type (IMAGING_CODEC_UNKNOWN); 4 for a chunk of size 0
+// (IMAGING_CODEC_BROKEN).
+int fli_frame(const uint8_t* buf, int64_t bytes, int xsize, int ysize, uint8_t* im) {
+  auto i16 = [](const uint8_t* p) { return int(p[0]) | int(p[1]) << 8; };
+  auto i32 = [](const uint8_t* p) {
+    return int32_t(uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 |
+                   uint32_t(p[3]) << 24);
+  };
+  if (bytes < 4) return 1;
+  const uint8_t* ptr = buf;
+  const int64_t framesize = i32(ptr);
+  if (bytes + (bytes % 2) < framesize) return 1;
+  if (bytes < 8) return 2;
+  if (i16(ptr + 4) != 0xF1FA) return 3;
+  const int chunks = i16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+#define OOB(offset) \
+  if ((data + (offset)) > ptr + bytes) return 2;
+  for (int c = 0; c < chunks; ++c) {
+    if (bytes < 10) return 2;
+    const uint8_t* data = ptr + 6;
+    int x, y, i;
+    switch (i16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {  // SS2
+        const int lines = i16(data);
+        data += 2;
+        int l;
+        for (l = y = 0; l < lines && y < ysize; ++l, ++y) {
+          uint8_t* row = im + int64_t(y) * xsize;
+          OOB(2)
+          int packets = i16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= ysize) return 2;
+              row = im + int64_t(y) * xsize;
+            } else {
+              row[xsize - 1] = uint8_t(packets);
+            }
+            OOB(2)
+            packets = i16(data);
+            data += 2;
+          }
+          int p;
+          for (p = x = 0; p < packets; ++p) {
+            OOB(2)
+            x += data[0];
+            if (data[1] >= 128) {
+              OOB(4)
+              i = 256 - data[1];
+              if (x + i + i > xsize) break;
+              for (int j = 0; j < i; ++j) {
+                row[x++] = data[2];
+                row[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * int(data[1]);
+              if (x + i > xsize) break;
+              OOB(2 + i)
+              std::memcpy(row + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return 2;
+        break;
+      }
+      case 12: {  // LC
+        y = i16(data);
+        const int ymax = y + i16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ysize; ++y) {
+          uint8_t* row = im + int64_t(y) * xsize;
+          OOB(1)
+          const int packets = *data++;
+          int p;
+          for (p = x = 0; p < packets; ++p, x += i) {
+            OOB(2)
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xsize) break;
+              OOB(3)
+              std::memset(row + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xsize) break;
+              OOB(2 + i)
+              std::memcpy(row + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return 2;
+        break;
+      }
+      case 13:  // BLACK
+        std::memset(im, 0, int64_t(xsize) * ysize);
+        break;
+      case 15:  // BRUN
+        for (y = 0; y < ysize; ++y) {
+          uint8_t* row = im + int64_t(y) * xsize;
+          data += 1;  // the packet count, ignored
+          for (x = 0; x < xsize; x += i) {
+            OOB(2)
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xsize) break;
+              OOB(i + 1)
+              std::memcpy(row + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xsize) break;
+              std::memset(row + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != xsize) return 2;
+        }
+        break;
+      case 16:  // COPY
+        if (data + int64_t(xsize) * ysize > ptr + bytes) return 1;
+        std::memcpy(im, data, int64_t(xsize) * ysize);
+        break;
+      default:
+        return 3;
+    }
+    const int64_t advance = i32(ptr);
+    if (advance == 0) return 4;
+    if (advance < 0 || advance > bytes) return 2;
+    ptr += advance;
+    bytes -= advance;
+  }
+#undef OOB
+  return 0;
+}
+
+// Sun raster RLE (SunRleDecode.c) into `rows` lines of `line` bytes: 0x80
+// 0x00 is a literal 0x80, 0x80 n v a run of n + 1 bytes v (which carries
+// on into the next lines), any other byte itself. Returns 0, or -1 where
+// the data ends first.
+int sun_rle(const uint8_t* data, int64_t size, int64_t line, int64_t rows, uint8_t* out) {
+  const int64_t total = line * rows;
+  int64_t pos = 0, done = 0;
+  while (done < total) {
+    if (pos >= size) return -1;
+    if (data[pos] == 0x80) {
+      if (pos + 2 > size) return -1;
+      if (data[pos + 1] == 0) {
+        out[done++] = 0x80;
+        pos += 2;
+      } else {
+        if (pos + 3 > size) return -1;
+        const int64_t n = std::min<int64_t>(int64_t(data[pos + 1]) + 1, total - done);
+        std::memset(out + done, data[pos + 2], n);
+        done += n;
+        pos += 3;
+      }
+    } else {
+      out[done++] = data[pos++];
+    }
+  }
+  return 0;
+}
+
+// The three run-length channels of an ICNS 32-bit icon (read_32): from
+// `pos`, each channel's `n` bytes as runs (a byte b >= 0x80: b - 125
+// copies of the next byte; else b + 1 literal bytes), written to out[c * n
+// ...]. Pillow joins what it read, so a run or literal cut by the file's
+// end is short: `got[c]` counts the bytes a channel received. Returns the
+// position after the last channel, or -1 where a channel's counts do not
+// add up to n (Pillow's "Error reading channel").
+int64_t icns_rle(const uint8_t* data, int64_t size, int64_t pos, int64_t n, uint8_t* out,
+                 int64_t* got) {
+  for (int c = 0; c < 3; ++c) {
+    int64_t left = n, k = 0;
+    uint8_t* o = out + c * n;
+    while (left > 0) {
+      if (pos >= size) break;
+      const int b = data[pos++];
+      int64_t count;
+      if (b & 0x80) {
+        count = b - 125;
+        if (pos < size) {
+          const int64_t m = std::min(count, n - k);
+          std::memset(o + k, data[pos], std::max<int64_t>(m, 0));
+          k += count;
+          ++pos;
+        }
+      } else {
+        count = b + 1;
+        const int64_t avail = std::min(count, size - pos);
+        const int64_t m = std::min(avail, n - k);
+        if (m > 0) std::memcpy(o + k, data + pos, m);
+        k += avail;
+        pos += avail;
+      }
+      left -= count;
+      if (left <= 0) break;
+    }
+    if (left != 0) return -1;
+    got[c] = k;
+  }
+  return pos;
+}
+
+// The RLE rows of an MSP version 2 image (MspDecoder): for each of `rows`
+// rows, `rowlen[y]` bytes from `pos` (0: a blank row of `stride` 0xFF
+// bytes), each a run (0, count, value) or a literal (count, then count
+// bytes). Rows are joined as they come, whatever their length; the first
+// `cap` bytes are written to `out`. Returns the bytes the rows made, -1
+// where a row is cut short by the file's end, -2 where a run lacks its
+// count or value (Pillow's "Corrupted MSP file").
+int64_t msp_rows(const uint8_t* data, int64_t size, int64_t pos, const uint16_t* rowlen,
+                 int64_t rows, int64_t stride, uint8_t* out, int64_t cap) {
+  int64_t made = 0;
+  auto put = [&](const uint8_t* src, int64_t n, int fill) {
+    const int64_t m = std::min(n, cap - made);
+    if (m > 0) {
+      if (src)
+        std::memcpy(out + made, src, m);
+      else
+        std::memset(out + made, fill, m);
+    }
+    made += n;
+  };
+  for (int64_t y = 0; y < rows; ++y) {
+    const int64_t len = rowlen[y];
+    if (len == 0) {
+      put(nullptr, stride, 0xFF);
+      continue;
+    }
+    if (pos + len > size) return -1;
+    const uint8_t* row = data + pos;
+    pos += len;
+    int64_t idx = 0;
+    while (idx < len) {
+      const int type = row[idx++];
+      if (type == 0) {
+        if (idx + 2 > len) return -2;
+        put(nullptr, row[idx], row[idx + 1]);
+        idx += 2;
+      } else {
+        put(row + idx, std::min<int64_t>(type, len - idx), 0);
+        idx += type;
+      }
+    }
+  }
+  return made;
+}
+
+// The n-bit samples (1 <= bits < 32) of an IM "L*n" image, as Pillow's
+// BitDecode.c reads them with the plugin's arguments (pad 8, fill 3, no
+// sign, bottom-up): bytes enter a 64-bit buffer above the bits it holds,
+// samples leave from its low end; at each row's end the count of held
+// bits is reset but the buffer is not, so its leftover bits are OR-ed
+// into the next row's first byte (the decoder's own quirk). `out` is the
+// float32 image, row-major; rows are filled from the bottom. Returns 0, or
+// -1 where the data ends first.
+int im_bits(const uint8_t* data, int64_t size, int bits, int xsize, int ysize, float* out) {
+  const unsigned long mask = (1ul << bits) - 1;
+  unsigned long buffer = 0;
+  int count = 0, x = 0, y = ysize - 1;
+  for (int64_t pos = 0; pos < size; ++pos) {
+    const uint8_t byte = data[pos];
+    buffer |= static_cast<unsigned long>(byte) << count;
+    count += 8;
+    while (count >= bits) {
+      const unsigned long v = buffer & mask;
+      if (count > 32)
+        buffer = byte >> (8 - (count - bits));
+      else
+        buffer >>= bits;
+      count -= bits;
+      out[int64_t(y) * xsize + x] = static_cast<float>(v);
+      if (++x >= xsize) {
+        if (--y < 0) return 0;
+        x = 0;
+        count = 0;
+      }
+    }
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """The host C++ loops of the image decoders: the WebP decoder's entropy
-loops and the QOI op loop (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
+loops, the QOI op loop, the FLI, SUN, ICNS and MSP run-length loops and
+IM's n-bit samples (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
 (csrc/jpeg2000_t1.cpp), and the BC6H / BC7 blocks of the DDS decoder and
 the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), each built by g++
 at first use (ops/_build.py `compile_host`; a missing or failing g++
@@ -25,6 +26,16 @@ def library() -> ctypes.CDLL:
     lib.vp8l_pixels.argtypes = [p, i64, i64, i32, i32, p, p, p, p, i32, i32, i32, p]
     lib.qoi_pixels.restype = i64
     lib.qoi_pixels.argtypes = [p, i64, i64, i64, i32, p]
+    lib.fli_frame.restype = i32
+    lib.fli_frame.argtypes = [p, i64, i32, i32, p]
+    lib.sun_rle.restype = i32
+    lib.sun_rle.argtypes = [p, i64, i64, i64, p]
+    lib.icns_rle.restype = i64
+    lib.icns_rle.argtypes = [p, i64, i64, i64, p, p]
+    lib.msp_rows.restype = i64
+    lib.msp_rows.argtypes = [p, i64, i64, p, i64, i64, p, i64]
+    lib.im_bits.restype = i32
+    lib.im_bits.argtypes = [p, i64, i32, i32, i32, p]
     return lib
 
 

@@ -612,5 +612,10 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 def decode_jpeg(raw: bytes) -> np.ndarray:
-    """JPEG bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
-    return _Decoder(bytes(raw)).run()
+    """JPEG bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA"). Data
+    the parser cannot follow (a table id or segment past its end) raises
+    ValueError."""
+    try:
+        return _Decoder(bytes(raw)).run()
+    except (IndexError, KeyError, struct.error) as e:
+        raise ValueError(f"JPEG data is corrupt: {type(e).__name__}: {e}") from e

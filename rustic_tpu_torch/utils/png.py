@@ -20,16 +20,19 @@ decodes: PNG, JPEG (utils/jpeg.py), BMP and the bare DIB
 and CUR (utils/ico.py), PCX and DCX (utils/pcx.py), DDS (utils/dds.py),
 JPEG 2000, JP2 or a raw codestream (utils/jpeg2000.py), TIFF
 (utils/tiff.py), PSD (utils/psd.py), QOI (utils/qoi.py), SGI
-(utils/sgi.py), TGA and WebP (utils/webp.py, utils/vp8.py).
+(utils/sgi.py), TGA, WebP (utils/webp.py, utils/vp8.py), and IM and IMT
+(utils/im.py), IPTC, PCD, SPIDER, BLP, FITS, FLI/FLC, FTEX, GBR, ICNS,
+MSP, PIXAR, SUN, XBM and XPM (a module each, named after the format).
 `image_format` finds the format as Pillow's `Image.open` does: it tries
 the plugins in Pillow's order (PILLOW_ORDER), each one whose test of the
-first 16 bytes takes the file, and goes on to the next where the
-plugin's header reader turns the file away (NotThisFormat: what Pillow
-refuses with SyntaxError, IndexError, TypeError, KeyError, EOFError or
-struct.error); any other refusal ends the decode. The plugins the port
-does not carry are not tried. TGA, which has no signature, is tried at
-its place in the order only where the name given is a TGA's; unknown
-formats raise NotImplementedError. `encode_png` writes 8-bit RGB or RGBA
+first 16 bytes takes the file (IM, IMT, IPTC, PCD and SPIDER have none:
+they are tried on every file that reaches them, as in Pillow), and goes
+on to the next where the plugin's header reader turns the file away
+(NotThisFormat: what Pillow refuses with SyntaxError, IndexError,
+TypeError, KeyError, EOFError or struct.error); any other refusal ends
+the decode. The plugins the port does not carry are not tried. TGA,
+which has no signature, is tried at its place in the order only where
+the name given is a TGA's; unknown formats raise NotImplementedError. `encode_png` writes 8-bit RGB or RGBA
 with filter 0 (None) on every scanline, which any decoder reads.
 """
 
@@ -40,7 +43,9 @@ import zlib
 
 import numpy as np
 
-from rustic_tpu_torch.utils import FORMATS_TODO, NotThisFormat, ico, pcx, pnm, qoi, sgi
+from rustic_tpu_torch.utils import (FORMATS_TODO, NotThisFormat, blp, fits, fli, ftex, gbr, icns, ico,
+                                    im, iptc, msp, pcd, pcx, pixar, pnm, qoi, read_header, sgi,
+                                    spider, sun, xbm, xpm)
 from rustic_tpu_torch.utils.bmp_tga import (DIB_HEADERS, dib_rgba, open_bmp, open_dib,
                                             decode_tga, tga_refusal)
 from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds
@@ -139,8 +144,10 @@ def _interlaced(data: bytes, height: int, width: int, n: int, depth: int) -> np.
     return out
 
 
-def decode_png(raw: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
+def decode_png(raw: bytes, transparency: bool = True) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA"); without
+    `transparency`, a tRNS chunk is dropped (Pillow's image of a PNG
+    embedded in another file, whose info it does not keep)."""
     if raw[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
@@ -162,12 +169,17 @@ def decode_png(raw: bytes) -> np.ndarray:
             break
     if header is None:
         raise ValueError("PNG has no IHDR chunk")
+    if not transparency:
+        trns = None
     width, height, depth, colour, _compression, _filter, interlace = header
     if colour not in _CHANNELS or depth not in _DEPTHS[colour] or interlace not in (0, 1):
         raise ValueError(f"PNG bit depth {depth}, colour type {colour}, interlace {interlace} "
                          "is not defined")
     n = _CHANNELS[colour]
-    data = zlib.decompress(b"".join(idat))
+    try:
+        data = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data is corrupt: {e}") from e
     if interlace:
         px = _interlaced(data, height, width, n, depth)
     else:
@@ -218,9 +230,11 @@ PILLOW_ORDER = (
 
 
 def _opened(header, decode):
-    """A plugin whose header reader runs at the open: the decode of what it read."""
+    """A plugin whose header reader runs at the open, its errors passing
+    the file on or ending the open as in Pillow (`read_header`): the
+    decode of what it read."""
     def reader(raw):
-        h = header(raw)
+        h = read_header(header, raw)
         return lambda: decode(raw, h)
     return reader
 
@@ -245,6 +259,12 @@ def _tga(raw):
     return lambda: decode_tga(raw)
 
 
+def _always(prefix: bytes, name: str) -> bool:
+    """The test of a plugin registered without one (IM, IMT, IPTC, PCD,
+    SPIDER): `Image.open` runs its reader on every file that reaches it."""
+    return True
+
+
 # format -> (Pillow's test of the first 16 bytes and the name, its reader): a reader
 # returns the decode, or raises NotThisFormat where Pillow tries the next plugin
 _PLUGINS = {
@@ -255,20 +275,36 @@ _PLUGINS = {
     "JPEG": (lambda p, n: p[:3] == b"\xff\xd8\xff", _whole(decode_jpeg)),
     "PPM": (lambda p, n: pnm.accept(p), _opened(pnm.open_pnm, pnm.decode_pnm)),
     "PNG": (lambda p, n: p[:8] == PNG_SIGNATURE, _whole(decode_png)),
+    "BLP": (lambda p, n: blp.accept(p), _opened(blp.open_blp, blp.decode_blp)),
     "CUR": (lambda p, n: p[:4] == ico.CUR_SIGNATURE,
             _opened(ico.open_cur, lambda raw, h: dib_rgba(raw, *h))),
     "PCX": (lambda p, n: pcx.accept_pcx(p), _opened(pcx.read_pcx, pcx.decode_pcx)),
     "DCX": (lambda p, n: pcx.accept_dcx(p), _opened(pcx.open_dcx, pcx.decode_pcx)),
     "DDS": (lambda p, n: p[:4] == DDS_SIGNATURE, _whole(decode_dds)),
+    "FITS": (lambda p, n: fits.accept(p), _opened(fits.open_fits, fits.decode_fits)),
+    "FLI": (lambda p, n: fli.accept(p), _opened(fli.open_fli, fli.decode_fli)),
+    "FTEX": (lambda p, n: p.startswith(ftex.MAGIC), _opened(ftex.open_ftex, ftex.decode_ftex)),
+    "GBR": (lambda p, n: gbr.accept(p), _opened(gbr.open_gbr, gbr.decode_gbr)),
     "JPEG2000": (lambda p, n: p[:4] == J2K_SIGNATURE or p[:12] == JP2_SIGNATURE,
                  _whole(decode_jpeg2000)),
+    "ICNS": (lambda p, n: p.startswith(icns.MAGIC), _opened(icns.open_icns, icns.decode_icns)),
     "ICO": (lambda p, n: p[:4] == ico.ICO_SIGNATURE, _loaded(ico.open_ico)),
+    "IM": (_always, _opened(im.open_im, im.decode_im)),
+    "IMT": (_always, _opened(im.open_imt, im.decode_imt)),
+    "IPTC": (_always, _opened(iptc.open_iptc, iptc.decode_iptc)),
     "TIFF": (lambda p, n: p[:4] in _TIFF_SIGNATURES, _whole(decode_tiff)),
+    "MSP": (lambda p, n: msp.accept(p), _opened(msp.open_msp, msp.decode_msp)),
+    "PCD": (_always, _opened(pcd.open_pcd, pcd.decode_pcd)),
+    "PIXAR": (lambda p, n: p.startswith(pixar.MAGIC), _opened(pixar.open_pixar, pixar.decode_pixar)),
     "PSD": (lambda p, n: p[:4] == PSD_SIGNATURE, _whole(decode_psd)),
     "QOI": (lambda p, n: p[:4] == qoi.QOI_SIGNATURE, _opened(qoi.open_qoi, qoi.decode_qoi)),
     "SGI": (lambda p, n: sgi.accept(p), _opened(sgi.open_sgi, sgi.decode_sgi)),
+    "SPIDER": (_always, _opened(spider.open_spider, spider.decode_spider)),
+    "SUN": (lambda p, n: sun.accept(p), _opened(sun.open_sun, sun.decode_sun)),
     "TGA": (lambda p, n: n.lower().endswith(_TGA_NAMES), _tga),
     "WEBP": (lambda p, n: p[:4] == b"RIFF" and p[8:12] == b"WEBP", _whole(decode_webp)),
+    "XBM": (lambda p, n: xbm.accept(p), _opened(xbm.open_xbm, xbm.decode_xbm)),
+    "XPM": (lambda p, n: p.startswith(xpm.MAGIC), _opened(xpm.open_xpm, xpm.decode_xpm)),
 }
 
 

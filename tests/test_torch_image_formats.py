@@ -31,6 +31,7 @@ codestream edits, `jp2_wrap`, `palette_jp2`) serve
 tests/test_torch_image_formats_jpeg2000.py and the refusals here.
 """
 
+import gzip
 import hashlib
 import io
 import json
@@ -1839,6 +1840,480 @@ def make_classic_fixtures(out_dir: str) -> dict:
     return manifest
 
 
+# ---- the legacy formats' writers and the fixtures of tests/data_torch/formats_legacy ---------
+
+LEGACY_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "formats_legacy")
+BT_LEGACY = "BreakTime-legacy.glb"
+BT_LEGACY_TWIN = "BreakTime-legacy-twin.glb"
+# BreakTime-legacy's textures, in the GLB's image order, with MIME types
+LEGACY_TEXTURES = ["BLP1 JPEG", "IM RGB", "BLP2 DXT5", "FTEX DXT1", "ICNS it32 RLE + t8mk",
+                   "SUN RLE 24-bit"]
+LEGACY_MIMES = ["image/x-blp", "image/x-im", "image/x-blp", "image/x-ftex", "image/icns",
+                "image/x-sun-raster"]
+
+
+def im_file(data: bytes, image_type: str, size, lut: bytes = None, extra: bytes = b"",
+            eol: bytes = b"\r\n") -> bytes:
+    """An IM file: the header lines, NULs to byte 511, ^Z, the palette
+    (`lut`, 768 bytes) and the data."""
+    head = (b"Image type: %s%s" % (image_type.encode(), eol) + extra
+            + b"Image size (x*y): %d*%d%s" % (size[0], size[1], eol))
+    if lut is not None:
+        head += b"Lut: 1" + eol
+    return head + b"\0" * (511 - len(head)) + b"\x1a" + (lut or b"") + data
+
+
+def imt_file(px: np.ndarray, comment: bytes = b"*made by the suite\n") -> bytes:
+    return (comment + b"width %d\nheight %d\npixel n8\n" % (px.shape[1], px.shape[0]) + b"\x0c"
+            + px.tobytes())
+
+
+def iptc_field(record: int, dataset: int, data: bytes, long: bool = False) -> bytes:
+    """One IPTC field: 0x1C, the tag, and a 15-bit size, or (`long`, or a
+    size of 2**15 and over) 0x80 + 4 and a 32-bit size."""
+    if long or len(data) >= 0x8000:
+        return bytes([0x1C, record, dataset, 0x84]) + struct.pack(">I", len(data)) + data
+    return bytes([0x1C, record, dataset]) + struct.pack(">H", len(data)) + data
+
+
+def iptc_file(data: bytes, size, layers: int = 1, component: int = 0, band: int = None,
+              compression: int = 1, chunk: int = 0x7FFF) -> bytes:
+    """An IPTC image: the record 3 fields Pillow reads, then the data in
+    image fields (8, 10) of at most `chunk` bytes."""
+    head = (iptc_field(2, 5, b"suite") + iptc_field(3, 60, bytes([layers, component]))
+            + iptc_field(3, 20, struct.pack(">H", size[0])) + iptc_field(3, 30, struct.pack(
+                ">H", size[1])) + iptc_field(3, 120, bytes([compression])))
+    if band is not None:
+        head += iptc_field(3, 65, bytes([band]))
+    body = b"".join(iptc_field(8, 10, data[i : i + chunk]) for i in range(0, len(data), chunk))
+    return head + body
+
+
+def pcd_file(ycc: np.ndarray, orientation: int = 0) -> bytes:
+    """A PhotoCD file of its base image: `ycc` uint8 [256, 2304], each row
+    a pair of luma rows and their shared Cb and Cr samples."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    return bytes(head) + np.ascontiguousarray(ycc, np.uint8).tobytes()
+
+
+def spider_file(values: np.ndarray, big: bool = True, stack: int = 0) -> bytes:
+    """A SPIDER 2D image of float32 `values`, or (`stack` > 0) a stack of
+    that many copies after a stack header."""
+    h, w = values.shape
+    lenbyt = w * 4
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    dt = ">f4" if big else "<f4"
+
+    def header(istack, imgnum):
+        hdr = np.zeros(labbyt // 4, np.float64)
+        hdr[[0, 1, 2, 4, 11, 12, 21, 22]] = [1, h, h, 1, w, labrec, labbyt, lenbyt]
+        hdr[23], hdr[25], hdr[26] = istack, stack, imgnum
+        return hdr.astype(dt).tobytes()
+
+    data = values.astype(dt).tobytes()
+    if not stack:
+        return header(0, 0) + data
+    return header(stack, 0) + b"".join(header(0, k + 1) + data for k in range(stack))
+
+
+def blp_file(version: int, w: int, h: int, mip0: bytes, compression: int = 1, encoding: int = 1,
+             alpha: int = 0, alpha_encoding: int = 0, palette: bytes = b"",
+             jpeg_header: bytes = None, gap: int = 0) -> bytes:
+    """A BLP1 or BLP2 file of mipmap 0: the header, the 16 offsets and
+    lengths, the palette (BLP2, or BLP1's indexed kinds) or the JPEG
+    header (BLP1 compression 0, with `gap` bytes before the data)."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, w, h, encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 0,
+                                     w, h)
+    start = len(head) + 128
+    if jpeg_header is not None:
+        body = struct.pack("<I", len(jpeg_header)) + jpeg_header + bytes(gap)
+    else:
+        body = palette.ljust(1024, b"\0") if palette is not None else b""
+    offset = start + len(body)
+    tables = struct.pack("<16I", offset, *[0] * 15) + struct.pack("<16I", len(mip0), *[0] * 15)
+    return head + tables + body + mip0
+
+
+def blp1_jpeg(img: Image.Image, quality: int = 90, alpha: int = 0, gap: int = 0) -> bytes:
+    """BLP1 compression 0: a Pillow JPEG split at its SOS segment into the
+    shared header and mipmap 0's data."""
+    jpg = save(img, "JPEG", quality=quality)
+    sos = jpg.index(b"\xff\xda")
+    return blp_file(1, img.width, img.height, jpg[sos:], 0, 5, alpha, jpeg_header=jpg[:sos],
+                    gap=gap)
+
+
+def dxt_blocks_of(img: Image.Image, kind: str) -> bytes:
+    """The DXT1/DXT3/DXT5 blocks Pillow's DDS writer makes of `img`."""
+    return save(img, "DDS", pixel_format=kind)[128:]
+
+
+def fits_card(key: str, value) -> bytes:
+    return f"{key:<8}= {value:>20}".ljust(80).encode()
+
+
+def fits_file(bitpix: int, w: int, h: int, data: bytes, extra=(), naxis: int = 2) -> bytes:
+    """A FITS primary image of big-endian samples, its header padded to
+    2880 bytes (the data is not padded)."""
+    cards = [fits_card("SIMPLE", "T"), fits_card("BITPIX", bitpix), fits_card("NAXIS", naxis)]
+    cards += [fits_card("NAXIS1", w)] + ([fits_card("NAXIS2", h)] if naxis > 1 else [])
+    head = b"".join(cards) + b"".join(extra) + b"END".ljust(80)
+    return head + b" " * (-len(head) % 2880) + data
+
+
+def fits_gzip_file(bitpix: int, w: int, h: int, samples: np.ndarray) -> bytes:
+    """A tile-compressed FITS: an empty primary unit, then a binary table
+    with ZIMAGE = T and ZCMPTYPE 'GZIP_1' whose heap is one gzip stream of
+    4-byte big-endian words, one a sample."""
+    primary = fits_file(8, 0, 0, b"", naxis=0)
+    payload = gzip.compress(np.asarray(samples, ">i4").tobytes(), mtime=0)
+    cards = [fits_card("XTENSION", "'BINTABLE'"), fits_card("BITPIX", 8), fits_card("NAXIS", 2),
+             fits_card("NAXIS1", 8), fits_card("NAXIS2", 1), fits_card("ZIMAGE", "T"),
+             fits_card("ZCMPTYPE", "'GZIP_1  '"), fits_card("ZBITPIX", bitpix),
+             fits_card("ZNAXIS", 2), fits_card("ZNAXIS1", w), fits_card("ZNAXIS2", h)]
+    head = b"".join(cards) + b"END".ljust(80)
+    return primary + head + b" " * (-len(head) % 2880) + bytes(8) + payload
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    body += bytes(len(body) % 2)
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_colour(entries, shift: int = 0) -> bytes:
+    """A COLOR256 (4) chunk, or a COLOR (11) chunk of 6-bit levels where
+    `shift` is 2: `entries` a list of (skip, [[r, g, b], ...])."""
+    body = struct.pack("<H", len(entries))
+    for skip, rgb in entries:
+        body += bytes([skip, len(rgb) % 256]) + np.asarray(rgb, np.uint8).tobytes()
+    return fli_chunk(11 if shift else 4, body)
+
+
+def fli_brun(idx: np.ndarray) -> bytes:
+    """A BRUN chunk of `idx`: each row a packet count byte and runs of up
+    to 127 equal bytes, or literals of differing ones (negative counts)."""
+    body = bytearray()
+    for row in idx:
+        body.append(0)
+        x = 0
+        while x < len(row):
+            n = 1
+            while x + n < len(row) and n < 127 and row[x + n] == row[x]:
+                n += 1
+            if n >= 3 or x + n == len(row):
+                body += bytes([n, row[x]])
+            else:
+                n = min(len(row) - x, 127)
+                body += bytes([256 - n]) + bytes(row[x : x + n])
+            x += n
+    return fli_chunk(15, bytes(body))
+
+
+def fli_file(w: int, h: int, chunks, magic: int = 0xAF12, prefix: bytes = None) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) of one frame of `chunks`, after a
+    prefix chunk where given."""
+    frame_body = b"".join(chunks)
+    frame = struct.pack("<IHH", 16 + len(frame_body), 0xF1FA, len(chunks)) + bytes(8) + frame_body
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(frame), magic, 1, w, h, 8, 0, 5)
+    pre = b"" if prefix is None else struct.pack("<IHH", 16 + len(prefix), 0xF100, 0) + bytes(
+        8) + prefix
+    return bytes(head) + pre + frame
+
+
+def ftex_file(fmt: int, w: int, h: int, data: bytes) -> bytes:
+    return b"FTEX" + struct.pack("<7i", 1, w, h, 1, 1, fmt, 32) + struct.pack("<i", len(
+        data)) + data
+
+
+def gbr_file(px: np.ndarray, version: int = 2, comment: bytes = b"suite brush\0") -> bytes:
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else 4
+    if version == 1:
+        head = struct.pack(">5I", 20 + len(comment), 1, w, h, depth)
+    else:
+        head = struct.pack(">5I", 28 + len(comment), 2, w, h, depth) + b"GIMP" + struct.pack(
+            ">I", 25)
+    return head + comment + px.tobytes()
+
+
+def icns_rle(plane: bytes) -> bytes:
+    """ICNS's run-length form of one channel: runs of 3-130 equal bytes
+    (0x80 + n - 3, the byte), literals of up to 128 (n - 1, the bytes)."""
+    out, i, n = bytearray(), 0, len(plane)
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and plane[j] == plane[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([0x80 + j - i - 3, plane[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and plane[j] == plane[j + 1] == plane[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + plane[i:j]
+        i = j
+    return bytes(out)
+
+
+def icns_file(blocks) -> bytes:
+    """An icns file of (type, data) blocks."""
+    body = b"".join(t + struct.pack(">I", 8 + len(d)) + d for t, d in blocks)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb32(rgb: np.ndarray, rle: bool = True) -> bytes:
+    if not rle:
+        return rgb.tobytes()
+    return b"".join(icns_rle(rgb[..., c].tobytes()) for c in range(3))
+
+
+def msp_header(w: int, h: int, magic: bytes) -> bytes:
+    words = [*struct.unpack("<2H", magic), w, h, 1, 1, 1, 1, w, h, 0, 0, 0, 0, 0, 0]
+    check = 0
+    for v in words:
+        check ^= v
+    words[12] = check
+    return struct.pack("<16H", *words)
+
+
+def msp2_file(bits: np.ndarray, rows=None) -> bytes:
+    """An MSP version 2 of the 1-bit image `bits` (rows of 0/1): each row
+    packed, then run-length coded (a run of 3+ equal bytes 0, n, v; else a
+    literal n, bytes), or `rows` given as they are."""
+    h, w = bits.shape
+    if rows is None:
+        rows = []
+        for r in np.packbits(bits.astype(np.uint8), axis=1):
+            out, i = bytearray(), 0
+            r = r.tobytes()
+            while i < len(r):
+                j = i
+                while j < len(r) and j - i < 255 and r[j] == r[i]:
+                    j += 1
+                if j - i >= 3:
+                    out += bytes([0, j - i, r[i]])
+                    i = j
+                    continue
+                j = min(i + 255, len(r))
+                k = i
+                while k < j and not (k + 2 < len(r) and r[k] == r[k + 1] == r[k + 2]):
+                    k += 1
+                k = max(k, i + 1)
+                out += bytes([k - i]) + r[i:k]
+                i = k
+            rows.append(bytes(out))
+    return (msp_header(w, h, b"LinS") + struct.pack(f"<{h}H", *[len(r) for r in rows])
+            + b"".join(rows))
+
+
+def pixar_file(rgb: np.ndarray, kind=(14, 2)) -> bytes:
+    head = bytearray(1024)
+    head[0:4] = b"\200\350\000\000"
+    struct.pack_into("<HHHHHH", head, 416, rgb.shape[0], rgb.shape[1], 0, 0, *kind)
+    return bytes(head) + rgb.tobytes()
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun raster RLE: runs of 2-256 equal bytes as 0x80, n - 1, v; a
+    single 0x80 as 0x80, 0; any other byte as itself."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 256 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3 or data[i] == 0x80 and j - i >= 2:
+            out += bytes([0x80, j - i - 1, data[i]])
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            j = i + 1
+        else:
+            out.append(data[i])
+            j = i + 1
+        i = j
+    return bytes(out)
+
+
+def sun_file(rows: np.ndarray, w: int, depth: int, file_type: int = 1, colour_map: bytes = b"",
+             rle: bool = False) -> bytes:
+    """A Sun raster: `rows` uint8 [H, row bytes] (padded to 16 bits for
+    raw data; unpadded for RLE, as Pillow reads it)."""
+    h = rows.shape[0]
+    data = sun_rle(rows.tobytes()) if rle else rows.tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), 2 if rle else file_type,
+                       1 if colour_map else 0, len(colour_map))
+    return head + colour_map + data
+
+
+def sun_rows(px: np.ndarray, depth: int, pad: bool = True) -> np.ndarray:
+    """uint8 [H, W, bytes] or [H, W] of values below 2**depth -> the rows."""
+    h, w = px.shape[:2]
+    if depth < 8:
+        rows = np.packbits(np.unpackbits(px[..., None].astype(np.uint8), axis=-1)[..., -depth:]
+                           .reshape(h, -1), axis=1)
+    else:
+        rows = px.reshape(h, -1)
+    if pad:
+        stride = ((w * depth + 15) // 16) * 2
+        rows = np.pad(rows, ((0, 0), (0, stride - rows.shape[1])))
+    return rows
+
+
+def xpm_file(idx: np.ndarray, colours, keys=None, none_key=None, pixel_header: bool = True,
+             bpp: int = None) -> bytes:
+    """An XPM of indices into `colours` (hex strings, "None" allowed); its
+    keys, `bpp` characters each, from a fixed alphabet unless given."""
+    alphabet = b".#abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789+@$%&*=-;:>,<1"
+    n = len(colours)
+    bpp = bpp or (1 if n <= len(alphabet) else 2)
+    if keys is None:
+        keys = [bytes([alphabet[k % len(alphabet)]]) if bpp == 1 else
+                bytes([alphabet[k // len(alphabet)], alphabet[k % len(alphabet)]])
+                for k in range(n)]
+    h, w = idx.shape
+    lines = [b"/* XPM */", b"static char *suite[] = {", b'"%d %d %d %d",' % (w, h, n, bpp)]
+    lines += [b'"%s c %s",' % (k, c.encode()) for k, c in zip(keys, colours)]
+    if pixel_header:
+        lines.append(b"/* pixels */")
+    lines += [b'"' + b"".join(keys[i] for i in row) + b'",' for row in idx]
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def legacy_small_fixtures() -> dict:
+    """name -> the bytes of each small fixture of the legacy formats: of
+    one 21x35 picture (`pillow_modes(21, 35, seed=9)`), Pillow's IM,
+    SPIDER, BLP, MSP, XBM and ICNS files, and this module's writers'
+    IMT, IPTC (raw and JPEG), PCD, BLP (JPEG and DXT), FITS (raw and
+    GZIP_1), FLC, FTEX, GBR, ICNS (it32 RLE with its mask), MSP version 2,
+    PIXAR, SUN (RLE and raw) and XPM files."""
+    px = pillow_modes(21, 35, seed=9)
+    rgb, grey = np.asarray(px["RGB"]), np.asarray(px["L"])
+    rgba_px = np.asarray(px["RGBA"])
+    rng = np.random.default_rng(41)
+    pal = rng.integers(0, 256, 1024, np.uint8).tobytes()
+    cols = ["#%06x" % v for v in rng.integers(0, 2**24, 300)]
+    rgb128 = np.asarray(Image.fromarray(rgb).resize((128, 128)))
+    mask128 = np.asarray(Image.fromarray(grey).resize((128, 128)))
+    ycc = rng.integers(0, 256, (256, 2304), np.uint8)
+    ycc[:, :1536] = np.repeat(np.asarray(Image.fromarray(grey).resize((768, 512))), 1,
+                              axis=0).reshape(256, 1536)
+    return {
+        "im-rgb.im": save(px["RGB"], "IM"),
+        "im-p-lut.im": save(px["P"], "IM"),
+        "im-la.im": save(px["LA"], "IM"),
+        "im-f.im": save(Image.fromarray(grey.astype(np.float32) * 1.7 - 30), "IM"),
+        "im-ycc.im": save(px["RGB"].convert("YCbCr"), "IM"),
+        "imt-grey.imt": imt_file(grey),
+        "iptc-raw-rgb-band.iim": iptc_file(grey.tobytes(), (35, 21), 3, 1, band=2),
+        "iptc-jpeg.iim": iptc_file(save(px["RGB"], "JPEG", quality=85), (35, 21), compression=5),
+        "pcd-rotated.pcd": pcd_file(ycc, 3),
+        "spider-big.spi": save(Image.fromarray(grey.astype(np.float32) * 0.9 + 5), "SPIDER"),
+        "spider-little-stack.spi": spider_file(grey.astype(np.float32) - 20, False, 2),
+        "blp1-palette.blp": save(px["P"], "BLP", blp_version="BLP1"),
+        "blp2-palette-alpha.blp": save(px["RGBA"].quantize(60), "BLP", blp_version="BLP2"),
+        "blp1-jpeg.blp": blp1_jpeg(px["RGB"]),
+        "blp2-dxt1.blp": blp_file(2, 35, 21, dxt_blocks_of(px["RGBA"], "DXT1"), 1, 2, 1, 0,
+                                  palette=pal),
+        "blp2-dxt3.blp": blp_file(2, 36, 20, dxt_blocks_of(px["RGBA"].resize((36, 20)), "DXT3"),
+                                  1, 2, 8, 1, palette=pal),
+        "blp2-dxt5.blp": blp_file(2, 35, 21, dxt_blocks_of(px["RGBA"], "DXT5"), 1, 2, 8, 7,
+                                  palette=pal),
+        "fits-16.fits": fits_file(16, 35, 21, (grey.astype(">i2") * 3).tobytes()),
+        "fits-float64.fits": fits_file(-64, 35, 21, (grey.astype(">f8") / 3).tobytes()),
+        "fits-gzip.fits": fits_gzip_file(8, 35, 21, grey.astype(np.int64)),
+        "flc-brun.flc": fli_file(35, 21, [fli_colour([(0, rng.integers(0, 256, (256, 3)))]),
+                                          fli_brun(grey // 8)]),
+        "ftex-dxt1.ftex": ftex_file(0, 35, 21, dxt_blocks_of(px["RGB"], "DXT1")),
+        "ftex-rgb.ftex": ftex_file(1, 35, 21, rgb.tobytes()),
+        "gbr-v1-grey.gbr": gbr_file(grey, 1),
+        "gbr-v2-rgba.gbr": gbr_file(rgba_px, 2),
+        "icns-png.icns": icns_file([(b"icp4", save(Image.fromarray(rgba_px).resize((16, 16)),
+                                                   "PNG")),
+                                    (b"ic07", save(Image.fromarray(rgb128), "PNG"))]),
+        "icns-it32.icns": icns_file([(b"it32", b"\0" * 4 + icns_rgb32(rgb128)),
+                                     (b"t8mk", mask128.tobytes())]),
+        "msp-v1.msp": save(px["1"], "MSP"),
+        "msp-v2.msp": msp2_file(np.asarray(px["1"]).astype(np.uint8)),
+        "pixar.pxr": pixar_file(rgb),
+        "sun-rle-24.ras": sun_file(sun_rows(rgb[..., ::-1], 24, False), 35, 24, rle=True),
+        "sun-8-colour-map.ras": sun_file(sun_rows(grey % 60, 8), 35, 8, 1, pal[:180]),
+        "sun-1.ras": sun_file(sun_rows(np.asarray(px["1"]).astype(np.uint8) & 1, 1), 35, 1),
+        "xbm.xbm": save(px["1"], "XBM"),
+        "xpm-p.xpm": xpm_file(np.asarray(px["P"]) % 40, cols[:40]),
+        "xpm-rgb.xpm": xpm_file(grey.astype(np.int64) + 40, cols),
+    }
+
+
+def legacy_texture(img: Image.Image, kind: str) -> bytes:
+    rgb = img.convert("RGB")
+    if kind == "BLP1 JPEG":
+        return blp1_jpeg(rgb, quality=90)
+    if kind == "IM RGB":
+        return save(rgb, "IM")
+    if kind == "BLP2 DXT5":
+        return blp_file(2, rgb.width, rgb.height, dxt_blocks_of(rgb.convert("RGBA"), "DXT5"), 1,
+                        2, 8, 7, palette=bytes(1024))
+    if kind == "FTEX DXT1":
+        return ftex_file(0, rgb.width, rgb.height, dxt_blocks_of(rgb, "DXT1"))
+    if kind.startswith("ICNS"):
+        small = np.asarray(rgb.resize((128, 128)))
+        return icns_file([(b"it32", b"\0" * 4 + icns_rgb32(small)),
+                          (b"t8mk", np.full((128, 128), 255, np.uint8).tobytes())])
+    return sun_file(sun_rows(np.asarray(rgb)[..., ::-1], 24, False), rgb.width, 24, rle=True)
+
+
+def breaktime_legacy_pair():
+    """BreakTime with its six textures re-encoded as LEGACY_TEXTURES names
+    them, in the GLB's image order (a BLP1 JPEG, Pillow's IM of the normal
+    map, a BLP2 DXT5, an FTEX DXT1, a 128x128 ICNS of an it32 RLE entry and
+    its t8mk mask, a 24-bit RLE Sun raster), under LEGACY_MIMES; and its
+    lossless twin: each texture a PNG of Pillow's decode."""
+    with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
+        raw = f.read()
+    files = [legacy_texture(Image.open(io.BytesIO(b)), kind)
+             for b, kind in zip(glb_images(raw), LEGACY_TEXTURES)]
+    pngs = [save(Image.open(io.BytesIO(b)).convert("RGBA"), "PNG", optimize=True) for b in files]
+    return replace_glb_images(raw, files, LEGACY_MIMES), replace_glb_images(raw, pngs, "image/png")
+
+
+def make_legacy_fixtures(out_dir: str) -> dict:
+    """Write the legacy formats' fixtures and their manifest (the form of
+    make_classic_fixtures'; an expectation over 256 KiB, PCD's 768x512, as
+    the sha256 of Pillow's RGBA bytes) into `out_dir` -> the manifest."""
+    os.makedirs(out_dir, exist_ok=True)
+
+    def put(name, data):
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+
+    images = []
+    for name, raw in legacy_small_fixtures().items():
+        put(name, raw)
+        want = pillow(raw)
+        entry = dict(file=name, format=Image.open(io.BytesIO(raw)).format)
+        if want.nbytes > 256 * 1024:
+            entry.update(shape=list(want.shape), sha256=sha256_rgba(want))
+        else:
+            entry["expect"] = name.rsplit(".", 1)[0] + ".rgba.npy"
+            np.save(os.path.join(out_dir, entry["expect"]), want)
+        images.append(entry)
+    glb, twin = breaktime_legacy_pair()
+    put(BT_LEGACY, glb)
+    put(BT_LEGACY_TWIN, twin)
+    manifest = dict(images=images, scene=dict(legacy=BT_LEGACY, legacy_twin=BT_LEGACY_TWIN))
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+    return manifest
+
+
 def committed_manifest() -> dict:
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         return json.load(f)
@@ -2000,3 +2475,4 @@ if __name__ == "__main__":
     print(json.dumps(make_fixtures(FIXTURES), indent=1))
     print(json.dumps(make_dds_psd_fixtures(DDS_PSD_FIXTURES), indent=1))
     print(json.dumps(make_classic_fixtures(CLASSIC_FIXTURES), indent=1))
+    print(json.dumps(make_legacy_fixtures(LEGACY_FIXTURES), indent=1))

@@ -13,18 +13,23 @@ port and through the JAX package (which decodes them with Pillow).
   textures (tests/data_torch/formats_dds_psd, written by `make_dds_psd_fixtures`),
   the same way; BreakTime-classic with a P6 PPM, a QOI, an RLE SGI, a
   24-bit PCX, an ICO and a DCX texture (tests/data_torch/formats_classic,
-  `make_classic_fixtures`), the same way.
+  `make_classic_fixtures`), the same way; BreakTime-legacy with a BLP1
+  JPEG, an IM, a BLP2 DXT5, an FTEX DXT1, an ICNS (it32 RLE and its
+  mask) and an RLE Sun raster texture (tests/data_torch/formats_legacy,
+  `make_legacy_fixtures`), the same way.
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
   TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, one with .dds
   and .psd maps, and two with .ppm, .qoi, .ico, .pcx, .sgi, .pgm, .rgb,
-  .dib and .cur maps, against rustic_tpu/scene/obj.py, exactly.
+  .dib and .cur maps, and two with .blp, .im, .icns, .ras, .xpm and
+  .fits maps, against rustic_tpu/scene/obj.py, exactly.
 - JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k), DDS, PNM,
-  PFM, QOI, ICO, PCX, DCX, SGI and DIB skies through `load_skybox_image`,
+  PFM, QOI, ICO, PCX, DCX, SGI, DIB, IM and SPIDER skies through
+  `load_skybox_image`,
   against the JAX function, exactly. The JAX package reads .exr through
   imageio, which has no backend here: the EXR sky is held to the .npy of
   its half-float values, which the JAX function reads.
-- 32x16x2 films of the JPEG, the mixed, the J2K, the DDS and the classic BreakTime's
-  one-tile cuts
+- 32x16x2 films of the JPEG, the mixed, the J2K, the DDS, the classic and
+  the legacy BreakTime's one-tile cuts
   (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
   the .npy sky on JAX, both staged pipelines: the film rule of
   tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
@@ -57,13 +62,16 @@ from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
 from tests.test_torch_image_formats import (BT_CLASSIC, BT_CLASSIC_TWIN, BT_DDS, BT_DDS_TWIN,
-                                            BT_J2K, BT_J2K_TWIN, BT_JPEG, BT_MIXED,
-                                            BT_MIXED_TWIN, BT_SKY_EXR, BT_TWIN,
-                                            CLASSIC_FIXTURES, DDS_PSD_FIXTURES, FIXTURES,
-                                            bc7_mode6, breaktime_sky_half, dcx_file, dds_file,
-                                            dib_of, icon_dib, icon_file, j2k, pfm,
+                                            BT_J2K, BT_J2K_TWIN, BT_JPEG, BT_LEGACY,
+                                            BT_LEGACY_TWIN, BT_MIXED, BT_MIXED_TWIN, BT_SKY_EXR,
+                                            BT_TWIN, CLASSIC_FIXTURES, DDS_PSD_FIXTURES,
+                                            FIXTURES, LEGACY_FIXTURES, bc7_mode6, blp1_jpeg,
+                                            blp_file, breaktime_sky_half, dcx_file, dds_file,
+                                            dib_of, dxt_blocks_of, fits_file, icns_file,
+                                            icns_rgb32, icon_dib, icon_file, j2k, pfm,
                                             pillow_modes, pnm, psd_of, save, sgi_file,
-                                            write_exr)
+                                            spider_file, sun_file, sun_rows, write_exr,
+                                            xpm_file)
 
 torch.set_num_threads(2)
 
@@ -112,6 +120,11 @@ def test_breaktime_dds_world_matches_jax():
 def test_breaktime_classic_world_matches_jax():
     assert_world_and_twin(os.path.join(CLASSIC_FIXTURES, BT_CLASSIC),
                           os.path.join(CLASSIC_FIXTURES, BT_CLASSIC_TWIN))
+
+
+def test_breaktime_legacy_world_matches_jax():
+    assert_world_and_twin(os.path.join(LEGACY_FIXTURES, BT_LEGACY),
+                          os.path.join(LEGACY_FIXTURES, BT_LEGACY_TWIN))
 
 
 def write_obj_with_maps(tmp_path, maps=None):
@@ -232,6 +245,65 @@ def test_obj_with_classic_maps_matches_jax(tmp_path, which):
     assert same_world(path).has_textures
 
 
+def legacy_maps(seed):
+    """Two sets of OBJ maps in the legacy formats, of `pillow_modes(9, 14)`
+    (the ICNS one 16x16, its only size)."""
+    modes = pillow_modes(9, 14, seed=seed)
+    rgb, grey = np.asarray(modes["RGB"]), np.asarray(modes["L"])
+    rng = np.random.default_rng(seed)
+    cols = ["#%06x" % v for v in rng.integers(0, 2**24, 30)]
+    rgb16 = np.asarray(modes["RGB"].resize((16, 16)))
+    return [
+        {"albedo": ("albedo.blp", blp1_jpeg(modes["RGB"])),
+         "rough": ("rough.im", save(modes["L"], "IM")),
+         "normal": ("normal.icns", icns_file([(b"is32", icns_rgb32(rgb16)),
+                                              (b"s8mk", bytes(range(0, 256)))])),
+         "metal": ("metal.ras", sun_file(sun_rows(rgb[..., ::-1], 24, False), 14, 24, rle=True))},
+        {"albedo": ("albedo.xpm", xpm_file(grey.astype(np.int64) % 30, cols)),
+         "rough": ("rough.fits", fits_file(8, 14, 9, grey.tobytes() + bytes(200))),
+         "normal": ("normal.blp", blp_file(2, 14, 9, dxt_blocks_of(modes["RGBA"], "DXT5"), 1, 2,
+                                           8, 7, palette=bytes(1024))),
+         "metal": ("metal.im", save(modes["P"], "IM"))},
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_obj_with_legacy_maps_matches_jax(tmp_path, which):
+    """An OBJ whose MTL names .blp (BLP1 JPEG), .im, .icns (is32 RLE with a
+    mask) and .ras (RLE) maps, and one with .xpm, .fits, .blp (BLP2 DXT5)
+    and palette .im maps: the textures through both loaders."""
+    path = write_obj_with_maps(tmp_path, legacy_maps(21)[which])
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert floor.metallic_texture is not None
+    assert same_world(path).has_textures
+
+
+def legacy_skies():
+    modes = pillow_modes(8, 16, seed=23)
+    grey = np.asarray(modes["L"], np.float32)
+    return {
+        "sky.im": save(modes["RGB"], "IM"),
+        "sky-ycc.im": save(modes["RGB"].convert("YCbCr"), "IM"),
+        "sky.spi": spider_file(grey * 1.3 - 20),
+        "sky-little.spider": spider_file(grey * 0.7 + 3, big=False),
+    }
+
+
+@pytest.mark.parametrize("name", list(legacy_skies()))
+def test_legacy_skies_match_jax(tmp_path, name):
+    """IM and SPIDER skies (no test of their first bytes: found by their
+    readers, as Pillow finds them) through `load_skybox_image`."""
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(legacy_skies()[name])
+    got = TW.load_skybox_image(path)
+    assert got.dtype == np.float32 and got.ndim == 3 and got.shape[2] == 4
+    np.testing.assert_array_equal(got, JW.load_skybox_image(path))
+
+
 def classic_skies():
     modes = pillow_modes(8, 16, seed=13)
     rgb = np.asarray(modes["RGB"])
@@ -322,6 +394,12 @@ def test_classic_breaktime_film_matches_jax(half_sky):
     """The one-tile cut of BreakTime-classic (PPM, QOI, SGI, PCX, ICO and
     DCX textures), as the JPEG one."""
     assert_one_tile_film(os.path.join(CLASSIC_FIXTURES, BT_CLASSIC), half_sky)
+
+
+def test_legacy_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of BreakTime-legacy (BLP, IM, FTEX, ICNS and SUN
+    textures), as the JPEG one."""
+    assert_one_tile_film(os.path.join(LEGACY_FIXTURES, BT_LEGACY), half_sky)
 
 
 def assert_one_tile_film(path, half_sky):
