@@ -31,10 +31,13 @@ vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
 sgi.py, im.py, iptc.py, pcd.py, spider.py, blp.py, fits.py, fli.py,
 ftex.py, gbr.py, icns.py, msp.py, pixar.py, sun.py, xbm.py, xpm.py,
 exr.py) on the fixtures of tests/data_torch/formats, formats_dds_psd,
-formats_classic and formats_legacy, then BreakTime with JPEG textures,
-with WebP, TIFF and GIF textures, with JPEG 2000 textures, with DDS and
-PSD textures, with PPM, QOI, SGI, PCX, ICO and DCX textures, and with
-BLP, IM, FTEX, ICNS and Sun raster textures, under an OpenEXR sky through the grid form of the kernel-shade loop (K9-K11, K4);
+formats_classic, formats_legacy and formats_jpeg, then BreakTime with
+JPEG textures, with WebP, TIFF and GIF textures, with JPEG 2000
+textures, with DDS and PSD textures, with PPM, QOI, SGI, PCX, ICO and
+DCX textures, with BLP, IM, FTEX, ICNS and Sun raster textures, and
+with CMYK, YCCK, arithmetic-coded, lossless and repaired JPEG textures,
+under an OpenEXR sky through the grid form of the kernel-shade loop
+(K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
 `bench`, and rustic_tpu_torch/bench_suite.py on the five BASELINE configs).
 
@@ -98,8 +101,11 @@ Phases, each of which must pass (the first that fails ends the run):
      (the main path); K8 against its plain version on all 4,194,304 lanes
      of every bounce, bit for bit (NaN equal to NaN), and K8 and its plain
      version timed on bounce 1 as phase 3; the admitted tiles of its
-     sorted operands, and K6 and K7 on them checked as phase 6 and timed
-     as phase 7; K6 equal to K10 bit for bit on its operands.
+     sorted operands, and K6 and K7 on them against their plain versions
+     as phase 6 checks them, on the last 65,613 lanes and the first
+     65,536, and timed as phase 7 (the kernels at 4,194,304 lanes, their
+     plain versions at 65,536); K6 equal to K10 bit for bit on all its
+     operands.
  11. sorted-renders: VeachMIS 1024x1024, NEE+MIS, 64 spp through the
      kernel-shade loop (the default) and the ray-sorted loop, each after
      a one-group warm-up; Mpaths/s; launch counts K5 1, K6 63, K7 1 and,
@@ -349,20 +355,28 @@ Phases, each of which must pass (the first that fails ends the run):
      stack, BLP1 palette and JPEG, BLP2 palette and DXT1/3/5, FITS 16-bit,
      float64 and GZIP_1, an FLC, FTEX DXT1 and RGB, GBR v1 and v2, ICNS
      of PNGs and of an it32 RLE entry, MSP v1 and v2, PIXAR, SUN RLE,
-     colour-mapped and 1-bit, XBM, XPM P and RGB) decoded on the host,
+     colour-mapped and 1-bit, XBM, XPM P and RGB) and of
+     tests/data_torch/formats_jpeg (CMYK and YCCK, arithmetic-coded
+     sequential and progressive with restarts and DAC conditioning,
+     lossless at several predictors and point transforms, files libjpeg
+     repairs: junk before a marker, cut scans, a flipped bit, dropped and
+     renumbered RSTs, progressive files missing scans; a 1024x1024
+     arithmetic-coded and a 512x512 lossless photo) decoded on the host,
      equal to Pillow 12.1.0's decode stored beside it (.npy, or the
      SHA-256 of its RGBA bytes), each file's format as image_format names
-     it equal to Pillow's (stored in formats_classic's and
-     formats_legacy's manifests),
+     it equal to Pillow's (stored in formats_classic's, formats_legacy's
+     and formats_jpeg's manifests),
      and the half-float ZIP EXR sky equal to BreakTimeSky.npy in half
      floats; ms per megapixel of each decoder (gif, tif, webp lossy and
      lossless, jpeg2000 5/3 and 9/7 apart, dds raw and each block kind
      apart, psd, pnm, qoi, ico, cur, pcx, dcx, sgi rle and verbatim apart,
      dib, and each legacy decoder: im, imt, iptc, pcd, spider, blp jpeg,
      palette and dxt apart, fits, fli, ftex, gbr, icns, msp, pixar, sun
-     rle and raw apart, xbm, xpm), and on BreakTime-mixed's,
-     BreakTime-J2K's, BreakTime-DDS's, BreakTime-classic's and
-     BreakTime-legacy's 256x256 textures (best of 3). BreakTime-JPEG (each
+     rle and raw apart, xbm, xpm; jpeg arithmetic sequential, arithmetic
+     progressive, lossless, cmyk/ycck and recovery apart), and on
+     BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's,
+     BreakTime-classic's, BreakTime-legacy's and BreakTime-JPEG-ext's
+     256x256 textures (best of 3). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
      BreakTime-mixed (two lossy
@@ -374,7 +388,10 @@ Phases, each of which must pass (the first that fails ends the run):
      alpha, an RLE SGI, a 24-bit RLE PCX, an ICO of one 32-bit DIB, a DCX;
      the EXR sky) and BreakTime-legacy (a BLP1 JPEG, an IM, a BLP2 DXT5,
      an FTEX DXT1, a 128x128 ICNS of an it32 RLE entry and its t8mk
-     mask, a 24-bit RLE Sun raster; the EXR sky), each with its twin (PNGs of Pillow's
+     mask, a 24-bit RLE Sun raster; the EXR sky) and BreakTime-JPEG-ext (a
+     CMYK, a YCCK, an arithmetic-coded progressive with restarts, a
+     lossless, a baseline with junk before a marker and a dropped RST, an
+     arithmetic-coded sequential JPEG; the EXR sky), each with its twin (PNGs of Pillow's
      decodes, the EXR sky), through load_scene on the card: the load
      split into decode, atlas and the rest; a twin's decoded textures
      equal, array by array, to its partner's, which lets the twin take
@@ -383,7 +400,8 @@ Phases, each of which must pass (the first that fails ends the run):
      equal to the twin's. NEE+MIS, 4 bounces, through the default loop
      (kernel-shade, grid scans), a warm-up each, then two renders each in
      turns: BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K,
-     BreakTime-classic, BreakTime-legacy and their twins at FORMATS_CUT_W x FORMATS_CUT_H x
+     BreakTime-classic, BreakTime-legacy, BreakTime-JPEG-ext and their
+     twins at FORMATS_CUT_W x FORMATS_CUT_H x
      32 spp, BreakTime-DDS and its
      twin at 1920x1080 x 32 spp (Mpaths/s beside phase 16's PNG
      BreakTime); launch counts of the grid path (at 1920x1080: K9 2, K10
@@ -615,8 +633,9 @@ FORMATS = "tests/data_torch/formats"  # the image fixtures and their manifest
 FORMATS_DDS_PSD = "tests/data_torch/formats_dds_psd"  # the DDS and PSD ones and theirs
 FORMATS_CLASSIC = "tests/data_torch/formats_classic"  # PNM, QOI, ICO, CUR, PCX, DCX, SGI, DIB
 FORMATS_LEGACY = "tests/data_torch/formats_legacy"  # IM ... XPM: Pillow's other plugins
-# phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy and their twins at this cut of the
-# frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
+FORMATS_JPEG = "tests/data_torch/formats_jpeg"  # CMYK, YCCK, arithmetic, lossless, repaired JPEGs
+# phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy, -JPEG-ext and their twins at
+# this cut of the frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
 FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
 # the formats whose decoders the legacy fixtures time, each under its own name
 LEGACY_DECODERS = ("IM", "IMT", "IPTC", "PCD", "SPIDER", "FITS", "FLI", "FTEX", "GBR", "ICNS",
@@ -1457,6 +1476,7 @@ class Smoke:
 
         from rustic_tpu_torch.runtime.render import pixel_offsets
 
+        self._mt_setup()
         y, x = np.mgrid[0:MT_SIZE, 0:MT_SIZE]
         px = torch.from_numpy(x.reshape(-1).astype(np.int32)).to(self.dev).repeat(FOLD)
         py = torch.from_numpy(y.reshape(-1).astype(np.int32)).to(self.dev).repeat(FOLD)
@@ -1492,12 +1512,14 @@ class Smoke:
                 f"{dead} of {nb} blocks all sentinel, "
                 f"{int((lists[1] == 0).sum())} blocks admit no tile")
 
-    def _sorted_compare(self, bounces):
+    def _sorted_compare(self, bounces, full=True):
         """K5 (on the sorted bounce-1 rays), K6 and K7 against their plain
         versions on a sorted group's last 65,613 lanes, where the sentinel
-        blocks lie, and on all of them -> the errors at all lanes."""
+        blocks lie, and on all of them (without `full`, on the first
+        65,536) -> the errors at the last lanes compared."""
         tail = slice(MT_LANES - CHECK_LANES - RAGGED, MT_LANES)
-        for lanes, n in ((tail, CHECK_LANES + RAGGED), (slice(None), MT_LANES)):
+        rest = (slice(None), MT_LANES) if full else (slice(0, CHECK_LANES), CHECK_LANES)
+        for lanes, n in ((tail, CHECK_LANES + RAGGED), rest):
             errs = self._mt_compare(self._mt_cases(bounces, lanes, k5_bounce=1), n)
         return errs
 
@@ -1587,11 +1609,13 @@ class Smoke:
         del timed, args, nf, sf
 
         self._sorted_tiles("kernel-shade", bounces)
-        errs = self._sorted_compare(bounces)
+        errs = self._sorted_compare(bounces, full=False)
         for k in ("K6", "K7"):  # the main path's operands
             self.results[k]["max_abs_err"] = errs[k]
         cases = self._mt_cases(bounces, slice(None), k5_bounce=1)
-        self._mt_time({k: cases[k] for k in ("K6", "K7")}, MT_LANES, ("K6", "K7"))
+        cut = self._mt_cases(bounces, slice(0, CHECK_LANES), k5_bounce=1)
+        self._mt_time({k: cases[k] for k in ("K6", "K7")}, MT_LANES, ("K6", "K7"),
+                      plain_cut={k: cut[k] for k in ("K6", "K7")})
         # the list form and the grid form compute the same winner and occlusion on these
         # sorted operands (a dead lane is a sentinel here, which no slab test admits)
         self._bit_equal(
@@ -4034,18 +4058,21 @@ class Smoke:
 
     def formats(self):
         """Every fixture of tests/data_torch/formats, formats_dds_psd,
-        formats_classic and formats_legacy decoded on the host against
-        Pillow's decode stored beside it (ms per megapixel of each decoder;
-        a classic or legacy fixture's format as image_format names it
-        against Pillow's, in its manifest); BreakTime-JPEG (JPEG textures, EXR sky),
+        formats_classic, formats_legacy and formats_jpeg decoded on the
+        host against Pillow's decode stored beside it (ms per megapixel of
+        each decoder; a classic, legacy or JPEG fixture's format as
+        image_format names it against Pillow's, in its manifest);
+        BreakTime-JPEG (JPEG textures, EXR sky),
         BreakTime-mixed (WebP, TIFF and GIF textures, EXR sky),
         BreakTime-J2K (JPEG 2000 textures, EXR sky), BreakTime-DDS (DDS and
         PSD textures, EXR sky), BreakTime-classic (PPM, QOI, SGI, PCX, ICO
         and DCX textures, EXR sky), BreakTime-legacy (BLP, IM, FTEX, ICNS
-        and Sun raster textures, EXR sky) and their lossless twins loaded
+        and Sun raster textures, EXR sky), BreakTime-JPEG-ext (CMYK, YCCK,
+        arithmetic-coded, lossless and repaired JPEG textures, EXR sky) and
+        their lossless twins loaded
         on the card (the load split; a twin takes its partner's packed
         atlas once its decoded textures are found equal to the partner's),
-        each SceneTensors equal to its twin's, and all twelve rendered at 32 spp
+        each SceneTensors equal to its twin's, and all fourteen rendered at 32 spp
         in turns through the default loop (the DDS pair at 1920x1080, the
         others at the FORMATS_CUT frame): launch counts of the grid path,
         each film equal bit for bit to its twin's."""
@@ -4115,7 +4142,8 @@ class Smoke:
 
         for build, src, what in ((_entropy.library, "image_entropy.cpp",
                                   "the WebP entropy loops, the QOI op loop, the FLI, SUN, ICNS "
-                                  "and MSP run-length loops, IM's n-bit samples"),
+                                  "and MSP run-length loops, IM's n-bit samples, the JPEG "
+                                  "entropy loops"),
                                  (_entropy.j2k_library, "jpeg2000_t1.cpp", "JPEG 2000 tier-1"),
                                  (_entropy.bcn_library, "bcn_decode.cpp",
                                   "DDS BC6H / BC7 blocks, PSD PackBits rows")):
@@ -4124,7 +4152,7 @@ class Smoke:
             log(f"csrc/{src} ({what}) built by g++ or loaded in {time.perf_counter() - t0:.2f} s")
 
         manifests = {}
-        for folder in (FORMATS, FORMATS_DDS_PSD, FORMATS_CLASSIC, FORMATS_LEGACY):
+        for folder in (FORMATS, FORMATS_DDS_PSD, FORMATS_CLASSIC, FORMATS_LEGACY, FORMATS_JPEG):
             with open(os.path.join(folder, "manifest.json")) as f:
                 manifests[folder] = json.load(f)
         manifest = manifests[FORMATS]
@@ -4145,7 +4173,8 @@ class Smoke:
             if "format" in entry and image_format(raw, entry["file"]) != entry["format"]:
                 self.fail(f"{entry['file']}: image_format names it "
                           f"{image_format(raw, entry['file'])}, Pillow {entry['format']}")
-            acc = per.setdefault(decoder(entry["file"].rsplit(".", 1)[1], raw), [0.0, 0])
+            kind = entry.get("kind") or decoder(entry["file"].rsplit(".", 1)[1], raw)
+            acc = per.setdefault(kind, [0.0, 0])
             acc[0] += dt
             acc[1] += got.shape[0] * got.shape[1]
             if got.shape[0] * got.shape[1] >= 1 << 20:
@@ -4170,18 +4199,20 @@ class Smoke:
                                          (FORMATS, "j2k", "BreakTime-J2K"),
                                          (FORMATS_DDS_PSD, "dds", "BreakTime-DDS"),
                                          (FORMATS_CLASSIC, "classic", "BreakTime-classic"),
-                                         (FORMATS_LEGACY, "legacy", "BreakTime-legacy")):
+                                         (FORMATS_LEGACY, "legacy", "BreakTime-legacy"),
+                                         (FORMATS_JPEG, "ext", "BreakTime-JPEG-ext")):
             with open(os.path.join(folder, manifests[folder]["scene"][scene_key]), "rb") as f:
                 glb = f.read()
             (json_len,) = struct.unpack("<I", glb[12:16])
             doc = json.loads(glb[20 : 20 + json_len])
             blob = glb[28 + json_len :]
             texture_rates = {}
-            for img in doc["images"]:
+            kinds = manifests[folder]["scene"].get(scene_key + "_kinds")
+            for i, img in enumerate(doc["images"]):
                 view = doc["bufferViews"][img["bufferView"]]
                 start = view.get("byteOffset", 0)
                 data = blob[start : start + view["byteLength"]]
-                kind = decoder(img["mimeType"].split("/")[1], data)
+                kind = kinds[i] if kinds else decoder(img["mimeType"].split("/")[1], data)
                 best = float("inf")
                 for _ in range(3):
                     t0 = time.perf_counter()
@@ -4242,10 +4273,12 @@ class Smoke:
         dds_scene = manifests[FORMATS_DDS_PSD]["scene"]
         classic_scene = manifests[FORMATS_CLASSIC]["scene"]
         legacy_scene = manifests[FORMATS_LEGACY]["scene"]
+        jpeg_scene = manifests[FORMATS_JPEG]["scene"]
         pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"),
                  ("J2K + EXR", "J2K twin (PNG + EXR)"), ("DDS + EXR", "DDS twin (PNG + EXR)"),
                  ("classic + EXR", "classic twin (PNG + EXR)"),
-                 ("legacy + EXR", "legacy twin (PNG + EXR)"))
+                 ("legacy + EXR", "legacy twin (PNG + EXR)"),
+                 ("JPEG-ext + EXR", "JPEG-ext twin (PNG + EXR)"))
         with tempfile.TemporaryDirectory() as tmp:
             np.save(os.path.join(tmp, "sky.npy"), half)
             for name, (folder, glb), sky_file in (
@@ -4264,6 +4297,9 @@ class Smoke:
                      sky_path),
                     ("legacy + EXR", (FORMATS_LEGACY, legacy_scene["legacy"]), sky_path),
                     ("legacy twin (PNG + EXR)", (FORMATS_LEGACY, legacy_scene["legacy_twin"]),
+                     sky_path),
+                    ("JPEG-ext + EXR", (FORMATS_JPEG, jpeg_scene["ext"]), sky_path),
+                    ("JPEG-ext twin (PNG + EXR)", (FORMATS_JPEG, jpeg_scene["ext_twin"]),
                      sky_path)):
                 split = {"decode": 0.0, "atlas": 0.0, "reused": False}
                 gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)

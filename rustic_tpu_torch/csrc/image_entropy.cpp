@@ -19,6 +19,11 @@
 //   as Pillow 12.1.0's FliDecode.c, SunRleDecode.c, IcnsImagePlugin
 //   read_32 and MspImagePlugin.MspDecoder run them; im_bits: the n-bit
 //   samples of an IM image (utils/im.py), as its BitDecode.c reads them.
+// - jpeg_scan and jpeg_lossless_scan: the entropy decode of one JPEG scan
+//   (utils/jpeg.py) as libjpeg-turbo 3.1.3 runs it under Pillow 12.1.0:
+//   Huffman (jdhuff.c, jdphuff.c, jdlhuff.c) and arithmetic (jdarith.c)
+//   coding, with libjpeg's recovery from corrupt data, fed 64 KiB at a
+//   time as Pillow's ImageFile.load feeds it.
 //
 // Everything else of the decoders (headers, tables, transforms,
 // prediction, filtering, colour) stays in NumPy.
@@ -705,6 +710,913 @@ int im_bits(const uint8_t* data, int64_t size, int bits, int xsize, int ysize, f
     }
   }
   return -1;
+}
+
+}  // extern "C"
+
+// ---- JPEG: libjpeg-turbo 3.1.3's entropy decoders, fed as Pillow feeds them ----------------
+//
+// Pillow hands libjpeg the file 64 KiB at a time (ImageFile.MAXBLOCK): a
+// decoder that needs a byte past what it was given suspends, and Pillow
+// gives it the next 64 KiB; at the end of the file that is the error
+// "image file is truncated". The arithmetic decoder cannot suspend
+// (jdarith.c get_byte), so a byte it needs past what Pillow has given is
+// an error ("broken data stream"). The Huffman decoder of a sequential
+// scan without restart interval runs its fast path (decode_mcu_fast) where
+// 512 bytes a block of the MCU are buffered and no marker is pending; it
+// decodes what the slow path decodes but reads the stream ahead in other
+// steps, which only shows where a file ends without a marker.
+
+namespace {
+
+constexpr int64_t kFeed = 65536;  // Pillow's ImageFile.MAXBLOCK
+constexpr int kMinGetBits = 57;   // jdhuff.h MIN_GET_BITS, a 64-bit bit buffer
+constexpr int kTableInts = 256 + 18 + 18 + 256;  // lookup, maxcode, valoffset, huffval
+
+enum JpegStatus { kTruncated = -1, kCannotSuspend = -2 };
+
+struct JpegStop {
+  int code;
+};
+
+// jpeg_source_mgr as Pillow's JpegDecode.c fills it, with libjpeg's unread_marker
+struct Source {
+  const uint8_t* d;
+  int64_t size, pos, fed;
+  int marker = 0;
+  bool can_suspend = true;
+  bool suspended = false;  // a suspension happened since it was last cleared
+
+  int byte() {
+    if (pos >= fed) {
+      if (!can_suspend) throw JpegStop{kCannotSuspend};
+      if (fed >= size) throw JpegStop{kTruncated};
+      fed = std::min(size, fed + kFeed);
+      suspended = true;
+    }
+    return d[pos++];
+  }
+
+  // jdmarker.c next_marker: skip to the next FF xx (xx not 0, not FF)
+  void next_marker() {
+    for (;;) {
+      int c = byte();
+      while (c != 0xFF) c = byte();
+      do c = byte();
+      while (c == 0xFF);
+      if (c != 0) {
+        marker = c;
+        return;
+      }
+    }
+  }
+
+  // jdmarker.c read_restart_marker with jpeg_resync_to_restart
+  void read_restart_marker(int& next_restart_num) {
+    if (marker == 0) next_marker();
+    if (marker == 0xD0 + next_restart_num) {
+      marker = 0;
+    } else {
+      const int desired = next_restart_num;
+      for (;;) {
+        int action;
+        if (marker < 0xC0)
+          action = 2;
+        else if (marker < 0xD0 || marker > 0xD7)
+          action = 3;
+        else if (marker == 0xD0 + ((desired + 1) & 7) || marker == 0xD0 + ((desired + 2) & 7))
+          action = 3;
+        else if (marker == 0xD0 + ((desired - 1) & 7) || marker == 0xD0 + ((desired - 2) & 7))
+          action = 2;
+        else
+          action = 1;
+        if (action == 1) {
+          marker = 0;
+          break;
+        }
+        if (action == 3) break;
+        next_marker();
+      }
+    }
+    next_restart_num = (next_restart_num + 1) & 7;
+  }
+};
+
+struct Table {  // jdhuff.c d_derived_tbl, built by utils/jpeg.py
+  const int32_t* lookup;  // [256] nb << 8 | symbol, nb 9 where the code is longer
+  const int32_t* maxcode;  // [18]
+  const int32_t* valoffset;  // [18]
+  const int32_t* huffval;  // [256]
+  explicit Table(const int32_t* t)
+      : lookup(t), maxcode(t + 256), valoffset(t + 274), huffval(t + 292) {}
+  int symbol(int64_t code, int l) const { return huffval[int(code + valoffset[l]) & 0xFF]; }
+};
+
+// the slow path's bit reader (jdhuff.c jpeg_fill_bit_buffer, HUFF_DECODE)
+struct HuffBits {
+  Source* src;
+  uint64_t buf = 0;
+  int left = 0;
+  bool insufficient = false;
+
+  void fill(int nbits) {
+    if (src->marker == 0) {
+      while (left < kMinGetBits) {
+        int c = src->byte();
+        if (c == 0xFF) {
+          do c = src->byte();
+          while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            src->marker = c;
+            goto no_more;
+          }
+        }
+        buf = (buf << 8) | uint64_t(c);
+        left += 8;
+      }
+      return;
+    }
+  no_more:
+    if (nbits > left) {  // past the data: zero bits, and the segment is out of data
+      insufficient = true;
+      buf <<= kMinGetBits - left;
+      left = kMinGetBits;
+    }
+  }
+
+  int get(int n) {  // CHECK_BIT_BUFFER then GET_BITS
+    if (left < n) fill(n);
+    left -= n;
+    return int((buf >> left) & ((uint64_t(1) << n) - 1));
+  }
+
+  int decode(const Table& t) {
+    int nb;
+    if (left < 8) {
+      fill(0);
+      if (left < 8) {
+        nb = 1;
+        goto slow;
+      }
+    }
+    {
+      const int e = t.lookup[(buf >> (left - 8)) & 0xFF];
+      nb = e >> 8;
+      if (nb <= 8) {
+        left -= nb;
+        return e & 0xFF;
+      }
+    }
+  slow: {  // jpeg_huff_decode
+    int l = nb;
+    int64_t code = get(l);
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | get(1);
+      ++l;
+    }
+    if (l > 16) return 0;  // a code not in the table: a zero, 16 bits read
+    return t.symbol(code, l);
+  }
+  }
+};
+
+inline int extend(int x, int s) { return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x; }
+
+inline int natural(int k) { return k < 64 ? k : 63; }  // jpeg_natural_order's 16 extra 63s
+
+struct Scan {
+  int kind, restart, ss, se, ah, al, blocks, n_mcu, ncomp;
+  int dc_tbl[4], ac_tbl[4];
+  int dc_l[16], dc_u[16], ac_k[16];  // arithmetic conditioning of each table id
+};
+
+// ---- Huffman, sequential ---------------------------------------------------------------------
+
+struct Saved {
+  int64_t pos;
+  uint64_t buf;
+  int left, marker;
+  bool insufficient;
+  int last_dc[4];
+};
+
+// decode_mcu_fast: 1 where it decoded the MCU, 0 where it met a marker (the slow path redoes it)
+int huff_mcu_fast(const Scan& s, Source& src, HuffBits& br, int* last_dc, const int32_t* comp,
+                  const int64_t* offs, int16_t* coef, const Table* dc, const Table* ac) {
+  const uint8_t* d = src.d;
+  int64_t pos = src.pos;
+  uint64_t buf = br.buf;
+  int left = br.left;
+  int hit = 0;
+  int dcv[4];
+  for (int c = 0; c < s.ncomp; ++c) dcv[c] = last_dc[c];
+  auto get_byte = [&]() {
+    const int c0 = pos < src.size ? d[pos] : 0;
+    ++pos;
+    const int c1 = pos < src.size ? d[pos] : 0;
+    buf = (buf << 8) | uint64_t(c0);
+    left += 8;
+    if (c0 == 0xFF) {
+      ++pos;
+      if (c1 != 0) {
+        hit = c1;
+        pos -= 2;
+        buf &= ~uint64_t(0xFF);
+      }
+    }
+  };
+  auto fill = [&]() {
+    if (left <= 16)
+      for (int i = 0; i < 6; ++i) get_byte();
+  };
+  auto get = [&](int n) {
+    left -= n;
+    return int((buf >> left) & ((uint64_t(1) << n) - 1));
+  };
+  auto decode = [&](const Table& t) {
+    fill();
+    const int e = t.lookup[(buf >> (left - 8)) & 0xFF];
+    int nb = e >> 8;
+    left -= nb;
+    int v = e & 0xFF;
+    if (nb > 8) {
+      int64_t code = int64_t((buf >> left) & ((uint64_t(1) << nb) - 1));
+      while (code > t.maxcode[nb]) {
+        code = (code << 1) | get(1);
+        ++nb;
+      }
+      v = nb > 16 ? 0 : t.symbol(code, nb);
+    }
+    return v;
+  };
+  for (int b = 0; b < s.blocks; ++b) {
+    const int ci = comp[b];
+    int16_t* blk = coef + offs[b];
+    int v = decode(dc[ci]);
+    if (v) {
+      fill();
+      v = extend(get(v), v);
+    }
+    dcv[ci] = int(unsigned(dcv[ci]) + unsigned(v));
+    blk[0] = int16_t(dcv[ci]);
+    for (int k = 1; k < 64; ++k) {
+      int rs = decode(ac[ci]);
+      const int r = rs >> 4;
+      int sz = rs & 15;
+      if (sz) {
+        k += r;
+        fill();
+        blk[natural(k)] = int16_t(extend(get(sz), sz));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+  if (hit) return 0;
+  src.pos = pos;
+  br.buf = buf;
+  br.left = left;
+  for (int c = 0; c < s.ncomp; ++c) last_dc[c] = dcv[c];
+  return 1;
+}
+
+void huff_mcu_slow(const Scan& s, HuffBits& br, int* last_dc, const int32_t* comp,
+                   const int64_t* offs, int16_t* coef, const Table* dc, const Table* ac) {
+  for (int b = 0; b < s.blocks; ++b) {
+    const int ci = comp[b];
+    int16_t* blk = coef + offs[b];
+    int v = br.decode(dc[ci]);
+    if (v) v = extend(br.get(v), v);
+    last_dc[ci] = int(unsigned(last_dc[ci]) + unsigned(v));
+    blk[0] = int16_t(last_dc[ci]);
+    for (int k = 1; k < 64; ++k) {
+      const int rs = br.decode(ac[ci]);
+      const int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        blk[natural(k)] = int16_t(extend(br.get(sz), sz));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+}
+
+// ---- Huffman, progressive (jdphuff.c) ----------------------------------------------------------
+
+void dc_first(const Scan& s, HuffBits& br, int* last_dc, const int32_t* comp, const int64_t* offs,
+              int16_t* coef, const Table* dc) {
+  for (int b = 0; b < s.blocks; ++b) {
+    const int ci = comp[b];
+    int v = br.decode(dc[ci]);
+    if (v) v = extend(br.get(v), v);
+    last_dc[ci] = int(unsigned(last_dc[ci]) + unsigned(v));
+    coef[offs[b]] = int16_t(unsigned(last_dc[ci]) << s.al);
+  }
+}
+
+void dc_refine(const Scan& s, HuffBits& br, const int64_t* offs, int16_t* coef) {
+  for (int b = 0; b < s.blocks; ++b)
+    if (br.get(1)) coef[offs[b]] = int16_t(coef[offs[b]] | (1 << s.al));
+}
+
+void ac_first(const Scan& s, HuffBits& br, int& eobrun, int16_t* blk, const Table& ac) {
+  if (eobrun > 0) {
+    --eobrun;
+    return;
+  }
+  for (int k = s.ss; k <= s.se; ++k) {
+    const int rs = br.decode(ac);
+    int r = rs >> 4;
+    const int sz = rs & 15;
+    if (sz) {
+      k += r;
+      blk[natural(k)] = int16_t(unsigned(extend(br.get(sz), sz)) << s.al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      eobrun = 1 << r;
+      if (r) eobrun += br.get(r);
+      --eobrun;
+      break;
+    }
+  }
+}
+
+void ac_refine(const Scan& s, HuffBits& br, int& eobrun, int16_t* blk, const Table& ac) {
+  const int p1 = 1 << s.al, m1 = -1 * (1 << s.al);
+  int k = s.ss;
+  auto correct = [&](int16_t* c) {
+    if (br.get(1) && (*c & p1) == 0) *c = int16_t(*c >= 0 ? *c + p1 : *c + m1);
+  };
+  if (eobrun == 0) {
+    for (; k <= s.se; ++k) {
+      const int rs = br.decode(ac);
+      int r = rs >> 4, v = rs & 15;
+      if (v) {
+        v = br.get(1) ? p1 : m1;
+      } else if (r != 15) {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        break;
+      }
+      do {
+        int16_t* c = blk + k;
+        if (*c != 0) {
+          correct(c);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= s.se);
+      if (v) blk[natural(k)] = int16_t(v);
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= s.se; ++k)
+      if (blk[k] != 0) correct(blk + k);
+    --eobrun;
+  }
+}
+
+// ---- arithmetic (jdarith.c) ----------------------------------------------------------------------
+
+#define V(i, a, b, c, d) ((int64_t(a) << 16) | (int64_t(c) << 8) | (int64_t(d) << 7) | (b))
+// T.81 Table D.2: Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS; the last entry the fixed 0.5
+const int64_t kAritab[114] = {
+    V(0, 0x5a1d, 1, 1, 1),       V(1, 0x2586, 14, 2, 0),      V(2, 0x1114, 16, 3, 0),
+    V(3, 0x080b, 18, 4, 0),      V(4, 0x03d8, 20, 5, 0),      V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0),      V(7, 0x006f, 28, 8, 0),      V(8, 0x0036, 30, 9, 0),
+    V(9, 0x001a, 33, 10, 0),     V(10, 0x000d, 35, 11, 0),    V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0),    V(13, 0x0001, 12, 13, 0),    V(14, 0x5a7f, 15, 15, 1),
+    V(15, 0x3f25, 36, 16, 0),    V(16, 0x2cf2, 38, 17, 0),    V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0),    V(19, 0x1182, 42, 20, 0),    V(20, 0x0cef, 43, 21, 0),
+    V(21, 0x09a1, 45, 22, 0),    V(22, 0x072f, 46, 23, 0),    V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0),    V(25, 0x0303, 51, 26, 0),    V(26, 0x0240, 52, 27, 0),
+    V(27, 0x01b1, 54, 28, 0),    V(28, 0x0144, 56, 29, 0),    V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0),    V(31, 0x008a, 60, 32, 0),    V(32, 0x0068, 62, 33, 0),
+    V(33, 0x004e, 63, 34, 0),    V(34, 0x003b, 32, 35, 0),    V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1),    V(37, 0x484c, 64, 38, 0),    V(38, 0x3a0d, 65, 39, 0),
+    V(39, 0x2ef1, 67, 40, 0),    V(40, 0x261f, 68, 41, 0),    V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0),    V(43, 0x1518, 72, 44, 0),    V(44, 0x1177, 73, 45, 0),
+    V(45, 0x0e74, 74, 46, 0),    V(46, 0x0bfb, 75, 47, 0),    V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0),    V(49, 0x0706, 79, 50, 0),    V(50, 0x05cd, 48, 51, 0),
+    V(51, 0x04de, 50, 52, 0),    V(52, 0x040f, 50, 53, 0),    V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0),    V(55, 0x025c, 53, 56, 0),    V(56, 0x01f8, 54, 57, 0),
+    V(57, 0x01a4, 55, 58, 0),    V(58, 0x0160, 56, 59, 0),    V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0),    V(61, 0x00cb, 59, 62, 0),    V(62, 0x00ab, 61, 63, 0),
+    V(63, 0x008f, 61, 32, 0),    V(64, 0x5b12, 65, 65, 1),    V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0),    V(67, 0x37d8, 82, 68, 0),    V(68, 0x2fe8, 83, 69, 0),
+    V(69, 0x293c, 84, 70, 0),    V(70, 0x2379, 86, 71, 0),    V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0),    V(73, 0x174e, 72, 74, 0),    V(74, 0x1424, 72, 75, 0),
+    V(75, 0x119c, 74, 76, 0),    V(76, 0x0f6b, 74, 77, 0),    V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0),    V(79, 0x0a40, 77, 48, 0),    V(80, 0x5832, 80, 81, 1),
+    V(81, 0x4d1c, 88, 82, 0),    V(82, 0x438e, 89, 83, 0),    V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0),    V(85, 0x2eae, 92, 86, 0),    V(86, 0x299a, 93, 87, 0),
+    V(87, 0x2516, 86, 71, 0),    V(88, 0x5570, 88, 89, 1),    V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0),    V(91, 0x3e22, 97, 92, 0),    V(92, 0x3824, 99, 93, 0),
+    V(93, 0x32b4, 99, 94, 0),    V(94, 0x2e17, 93, 86, 0),    V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0),   V(97, 0x47e5, 102, 98, 0),   V(98, 0x41cf, 103, 99, 0),
+    V(99, 0x3c3d, 104, 100, 0),  V(100, 0x375e, 99, 93, 0),   V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0), V(104, 0x415e, 103, 99, 0),
+    V(105, 0x5627, 105, 106, 1), V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0), V(110, 0x5a10, 110, 111, 1),
+    V(111, 0x5522, 112, 109, 0), V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
+
+struct Arith {
+  Source* src;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read; -1: a bad code stopped the interval
+  uint8_t dc_stats[16][64];  // by table id: libjpeg's NUM_ARITH_TBLS is 16
+  uint8_t ac_stats[16][256];
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
+  int last_dc[4] = {0, 0, 0, 0}, dc_context[4] = {0, 0, 0, 0};
+
+  int decode(uint8_t* st) {  // arith_decode
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (src->marker == 0) {
+          data = src->byte();
+          if (data == 0xFF) {
+            do data = src->byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {  // a marker ends the data: zeros from here
+              src->marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = int(qe & 0xFF);
+    qe >>= 8;
+    const int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  void reset(const Scan& s, bool progressive) {  // start_pass / process_restart
+    for (int ci = 0; ci < s.ncomp; ++ci) {
+      if (!progressive || (s.ss == 0 && s.ah == 0)) {
+        std::memset(dc_stats[s.dc_tbl[ci]], 0, 64);
+        last_dc[ci] = 0;
+        dc_context[ci] = 0;
+      }
+      if (!progressive || s.ss) std::memset(ac_stats[s.ac_tbl[ci]], 0, 256);
+    }
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  // Figures F.19-F.24: a DC difference into last_dc[ci]; false on a magnitude overflow
+  bool dc_diff(const Scan& s, int ci) {
+    const int tbl = s.dc_tbl[ci];
+    uint8_t* st = dc_stats[tbl] + dc_context[ci];
+    if (decode(st) == 0) {
+      dc_context[ci] = 0;
+      return true;
+    }
+    const int sign = decode(st + 1);
+    st += 2 + sign;
+    int m = decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ct = -1;
+          return false;
+        }
+        st += 1;
+      }
+    }
+    if (m < int((1L << s.dc_l[tbl]) >> 1))
+      dc_context[ci] = 0;
+    else if (m > int((1L << s.dc_u[tbl]) >> 1))
+      dc_context[ci] = 12 + sign * 4;
+    else
+      dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[ci] = (last_dc[ci] + v) & 0xFFFF;
+    return true;
+  }
+
+  // an AC value after its nonzero flag (sign, category, bits); false on an overflow
+  bool ac_value(uint8_t* st, uint8_t* stats, int k, int kx, int& value) {
+    const int sign = decode(fixed_bin);
+    st += 2;
+    int m = decode(st);
+    if (m != 0) {
+      if (decode(st)) {
+        m <<= 1;
+        st = stats + (k <= kx ? 189 : 217);
+        while (decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ct = -1;
+            return false;
+          }
+          st += 1;
+        }
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (decode(st)) v |= m;
+    v += 1;
+    value = sign ? -v : v;
+    return true;
+  }
+};
+
+void arith_sequential(const Scan& s, Arith& ar, const int32_t* comp, const int64_t* offs,
+                      int16_t* coef) {
+  for (int b = 0; b < s.blocks; ++b) {
+    const int ci = comp[b];
+    int16_t* blk = coef + offs[b];
+    if (!ar.dc_diff(s, ci)) return;
+    blk[0] = int16_t(ar.last_dc[ci]);
+    const int tbl = s.ac_tbl[ci];
+    int k = 0;
+    do {
+      uint8_t* st = ar.ac_stats[tbl] + 3 * k;
+      if (ar.decode(st)) break;  // EOB
+      for (;;) {
+        ++k;
+        if (ar.decode(st + 1)) break;
+        st += 3;
+        if (k >= 63) {
+          ar.ct = -1;
+          return;
+        }
+      }
+      int v;
+      if (!ar.ac_value(st, ar.ac_stats[tbl], k, s.ac_k[tbl], v)) return;
+      blk[k] = int16_t(v);
+    } while (k < 63);
+  }
+}
+
+void arith_progressive(const Scan& s, Arith& ar, const int32_t* comp, const int64_t* offs,
+                       int16_t* coef) {
+  if (s.ss == 0 && s.ah == 0) {  // DC first
+    for (int b = 0; b < s.blocks; ++b) {
+      const int ci = comp[b];
+      if (!ar.dc_diff(s, ci)) return;
+      coef[offs[b]] = int16_t(unsigned(ar.last_dc[ci]) << s.al);
+    }
+    return;
+  }
+  if (s.ss == 0) {  // DC refine: no check of a stopped interval
+    for (int b = 0; b < s.blocks; ++b)
+      if (ar.decode(ar.fixed_bin)) coef[offs[b]] = int16_t(coef[offs[b]] | (1 << s.al));
+    return;
+  }
+  const int tbl = s.ac_tbl[0];
+  int16_t* blk = coef + offs[0];
+  if (s.ah == 0) {  // AC first
+    for (int k = s.ss; k <= s.se; ++k) {
+      uint8_t* st = ar.ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > s.se) {
+          ar.ct = -1;
+          return;
+        }
+      }
+      int v;
+      if (!ar.ac_value(st, ar.ac_stats[tbl], k, s.ac_k[tbl], v)) return;
+      blk[k] = int16_t(unsigned(v) << s.al);
+    }
+    return;
+  }
+  const int p1 = 1 << s.al, m1 = -1 * (1 << s.al);  // AC refine
+  int kex = s.se;
+  for (; kex > 0; --kex)
+    if (blk[kex]) break;
+  for (int k = s.ss; k <= s.se; ++k) {
+    uint8_t* st = ar.ac_stats[tbl] + 3 * (k - 1);
+    if (k > kex)
+      if (ar.decode(st)) break;
+    for (;;) {
+      int16_t* c = blk + k;
+      if (*c) {
+        if (ar.decode(st + 2)) *c = int16_t(*c < 0 ? *c + m1 : *c + p1);
+        break;
+      }
+      if (ar.decode(st + 1)) {
+        *c = int16_t(ar.decode(ar.fixed_bin) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > s.se) {
+        ar.ct = -1;
+        return;
+      }
+    }
+  }
+}
+
+Scan read_scan(const int32_t* p) {
+  Scan s;
+  s.kind = p[0];
+  s.restart = p[1];
+  s.ss = p[2];
+  s.se = p[3];
+  s.ah = p[4];
+  s.al = p[5];
+  s.blocks = p[6];
+  s.n_mcu = p[7];
+  s.ncomp = p[8];
+  for (int i = 0; i < 4; ++i) {
+    s.dc_tbl[i] = p[9 + i];
+    s.ac_tbl[i] = p[13 + i];
+  }
+  for (int i = 0; i < 16; ++i) {
+    s.dc_l[i] = p[17 + i];
+    s.dc_u[i] = p[33 + i];
+    s.ac_k[i] = p[49 + i];
+  }
+  return s;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One DCT scan's entropy decode from `pos` (after its SOS segment) into the
+// zigzag-ordered int16 coefficient blocks `coef`: `offsets` holds, for each
+// of the scan's MCUs, the offset of each of its blocks; `block_comp` the
+// scan component of each block of an MCU. `p` holds the scan (see
+// read_scan: kind 0 Huffman sequential, 1 Huffman progressive, 2 arithmetic
+// sequential, 3 arithmetic progressive; restart interval; Ss, Se, Ah, Al;
+// blocks an MCU; MCUs; components; their DC and AC table ids; the
+// arithmetic conditioning L, U and Kx of each table id) and `tables` the
+// eight Huffman tables (DC 0-3, AC 0-3) as utils/jpeg.py builds them. io[0]
+// is the bytes Pillow has fed on entry and on return; io[1] returns the
+// marker the decoder read (0 if none), io[2] the last MCU begun while the
+// segment had data (libjpeg's last_good_iMCU_row, as an MCU). Returns the
+// position where libjpeg's marker reader goes on, -1 where the file ends
+// without a marker (Pillow: truncated), -2 where the arithmetic decoder
+// needs a byte Pillow has not fed.
+int64_t jpeg_scan(const uint8_t* data, int64_t size, int64_t pos, int64_t* io, const int32_t* p,
+                  const int32_t* block_comp, const int64_t* offsets, int16_t* coef,
+                  const int32_t* tables) {
+  const Scan s = read_scan(p);
+  Source src{data, size, pos, io[0]};
+  int64_t last_good = -1;
+  try {
+    if (s.kind >= 2) {
+      src.can_suspend = false;
+      Arith ar;
+      ar.src = &src;
+      ar.reset(s, s.kind == 3);
+      int restarts_to_go = s.restart, next_restart_num = 0;
+      for (int64_t m = 0; m < s.n_mcu; ++m) {
+        last_good = m;
+        if (s.restart) {
+          if (restarts_to_go == 0) {
+            src.read_restart_marker(next_restart_num);
+            ar.reset(s, s.kind == 3);
+            restarts_to_go = s.restart;
+          }
+          --restarts_to_go;
+        }
+        const int64_t* offs = offsets + m * s.blocks;
+        if (s.kind == 3 && s.ss == 0 && s.ah != 0)
+          arith_progressive(s, ar, block_comp, offs, coef);
+        else if (ar.ct != -1)
+          (s.kind == 2 ? arith_sequential : arith_progressive)(s, ar, block_comp, offs, coef);
+      }
+    } else {
+      std::vector<Table> dc, ac;
+      for (int i = 0; i < 4; ++i) {
+        dc.emplace_back(tables + kTableInts * (s.dc_tbl[i] & 3));
+        ac.emplace_back(tables + kTableInts * (4 + (s.ac_tbl[i] & 3)));
+      }
+      HuffBits br;
+      br.src = &src;
+      int last_dc[4] = {0, 0, 0, 0};
+      int eobrun = 0, restarts_to_go = s.restart, next_restart_num = 0;
+      const int usefast_bytes = 512 * s.blocks;
+      for (int64_t m = 0; m < s.n_mcu; ++m) {
+        const int64_t* offs = offsets + m * s.blocks;
+        if (!br.insufficient) last_good = m;
+        Saved sv{src.pos, br.buf, br.left, src.marker, br.insufficient,
+                 {last_dc[0], last_dc[1], last_dc[2], last_dc[3]}};
+        for (;;) {  // an MCU, again from its start where libjpeg suspended within it
+          src.suspended = false;
+          if (s.restart && restarts_to_go == 0) {
+            br.left = 0;
+            src.read_restart_marker(next_restart_num);
+            for (int c = 0; c < 4; ++c) last_dc[c] = 0;
+            eobrun = 0;
+            restarts_to_go = s.restart;
+            if (src.marker == 0) br.insufficient = false;
+          }
+          if (s.kind == 0) {
+            const bool usefast = !s.restart && src.fed - src.pos >= usefast_bytes &&
+                                 src.marker == 0;
+            if (!br.insufficient &&
+                !(usefast && huff_mcu_fast(s, src, br, last_dc, block_comp, offs, coef,
+                                           dc.data(), ac.data())))
+              huff_mcu_slow(s, br, last_dc, block_comp, offs, coef, dc.data(), ac.data());
+          } else if (s.ss == 0 && s.ah == 0) {
+            if (!br.insufficient) dc_first(s, br, last_dc, block_comp, offs, coef, dc.data());
+          } else if (s.ss == 0) {
+            dc_refine(s, br, offs, coef);
+          } else if (!br.insufficient) {
+            (s.ah ? ac_refine : ac_first)(s, br, eobrun, coef + offs[0], ac[0]);
+          }
+          if (!src.suspended || s.kind != 0 || s.restart) break;
+          src.pos = sv.pos;  // the fast path may take the retried MCU
+          br.buf = sv.buf;
+          br.left = sv.left;
+          src.marker = sv.marker;
+          br.insufficient = sv.insufficient;
+          for (int c = 0; c < 4; ++c) last_dc[c] = sv.last_dc[c];
+        }
+        if (s.restart) --restarts_to_go;
+      }
+    }
+  } catch (const JpegStop& e) {
+    io[0] = src.fed;
+    return e.code;
+  }
+  io[0] = src.fed;
+  io[1] = src.marker;
+  io[2] = last_good;
+  return src.pos;
+}
+
+// One lossless (SOF3) scan's Huffman decode and undifferencing from `pos`,
+// as jdlhuff.c, jddiffct.c and jdlossls.c: `p` is [restart interval, the
+// predictor (Ss), Se, Ah, the point transform (Al), components, MCUs a
+// row, iMCU rows, interleaved, the DC table id of each component]; `geom`
+// for each scan component [h, v, samples wide, samples high, rows of the
+// last iMCU row, offset of its plane in `planes`, the plane's row
+// stride]. A restart or a row begun out of data starts the predictors
+// again at the next iMCU row's first row, as libjpeg's undifferencer
+// does. Samples are written as uint8 (the value << Pt). io and the
+// return value as jpeg_scan's.
+int64_t jpeg_lossless_scan(const uint8_t* data, int64_t size, int64_t pos, int64_t* io,
+                           const int32_t* p, const int64_t* geom, const int32_t* tables,
+                           uint8_t* planes) {
+  const int restart = p[0], psv = p[1], pt = p[4], ncomp = p[5], mcus_per_row = p[6];
+  const int imcu_rows = p[7], interleaved = p[8];
+  Source src{data, size, pos, io[0]};
+  std::vector<Table> dc;
+  for (int i = 0; i < ncomp; ++i) dc.emplace_back(tables + kTableInts * p[9 + i]);
+  struct Comp {
+    int h, v, w, ht, last_rows;
+    int64_t off, stride;
+    std::vector<int> diff, prev, cur;  // diffs of an iMCU row; undifferenced rows
+    bool first = true;
+  };
+  std::vector<Comp> comps(ncomp);
+  for (int c = 0; c < ncomp; ++c) {
+    const int64_t* g = geom + 7 * c;
+    Comp& k = comps[c];
+    k.h = int(g[0]);
+    k.v = int(g[1]);
+    k.w = int(g[2]);
+    k.ht = int(g[3]);
+    k.last_rows = int(g[4]);
+    k.off = g[5];
+    k.stride = g[6];
+    const int row_len = interleaved ? mcus_per_row * k.h : k.w;
+    k.diff.assign(size_t(row_len) * k.v, 0);
+    k.prev.assign(k.w, 0);
+    k.cur.assign(k.w, 0);
+  }
+  HuffBits br;
+  br.src = &src;
+  int rows_to_go = restart ? restart / mcus_per_row : 0, next_restart_num = 0;
+  auto reset = [&]() {
+    for (Comp& k : comps) k.first = true;
+  };
+  try {
+    for (int r = 0; r < imcu_rows; ++r) {
+      const bool last = r == imcu_rows - 1;
+      const int mcu_rows = interleaved ? 1 : (last ? comps[0].last_rows : comps[0].v);
+      for (Comp& k : comps) std::fill(k.diff.begin(), k.diff.end(), 0);
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart) {
+          if (rows_to_go == 0) {
+            br.left = 0;
+            src.read_restart_marker(next_restart_num);
+            if (src.marker == 0) br.insufficient = false;
+            reset();
+            rows_to_go = restart / mcus_per_row;
+          }
+        }
+        if (br.insufficient) {
+          reset();  // the row's differences stay zero
+        } else {
+          for (int m = 0; m < mcus_per_row; ++m) {
+            for (int c = 0; c < ncomp; ++c) {
+              Comp& k = comps[c];
+              const int row_len = interleaved ? mcus_per_row * k.h : k.w;
+              for (int dy = 0; dy < (interleaved ? k.v : 1); ++dy)
+                for (int dx = 0; dx < (interleaved ? k.h : 1); ++dx) {
+                  int s = br.decode(dc[c]);
+                  if (s) s = s == 16 ? 32768 : extend(br.get(s), s);
+                  const int row = interleaved ? dy : y;
+                  const int col = interleaved ? m * k.h + dx : m;
+                  k.diff[size_t(row) * row_len + col] = s;
+                }
+            }
+          }
+        }
+        if (restart) --rows_to_go;
+      }
+      for (Comp& k : comps) {  // undifference and scale the iMCU row's rows
+        const int row_len = interleaved ? mcus_per_row * k.h : k.w;
+        const int rows = last ? k.last_rows : k.v;
+        for (int row = 0; row < rows; ++row) {
+          const int* d = k.diff.data() + size_t(row) * row_len;
+          int* u = k.cur.data();
+          const int* b = k.prev.data();
+          if (k.first) {
+            int ra = (d[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+            u[0] = ra;
+            for (int x = 1; x < k.w; ++x) u[x] = ra = (d[x] + ra) & 0xFFFF;
+            k.first = false;
+          } else {
+            int rb = b[0], ra = (d[0] + rb) & 0xFFFF, rc;
+            u[0] = ra;
+            for (int x = 1; x < k.w; ++x) {
+              rc = rb;
+              rb = b[x];
+              int pred;
+              switch (psv) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+              }
+              u[x] = ra = (d[x] + pred) & 0xFFFF;
+            }
+          }
+          const int64_t yy = int64_t(r) * k.v + row;
+          uint8_t* out = planes + k.off + yy * k.stride;
+          for (int x = 0; x < k.w; ++x) out[x] = uint8_t(u[x] << pt);
+          std::swap(k.prev, k.cur);
+        }
+      }
+    }
+  } catch (const JpegStop& e) {
+    io[0] = src.fed;
+    return e.code;
+  }
+  io[0] = src.fed;
+  io[1] = src.marker;
+  io[2] = -1;
+  return src.pos;
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Host-side image codecs of the port: NumPy, and in host C++ the WebP
-decoder's entropy loops, the QOI op loop and the run-length loops of the
-legacy formats (csrc/image_entropy.cpp), the JPEG 2000 decoder's tier-1
-(csrc/jpeg2000_t1.cpp), and the DDS decoder's BC6H and BC7 blocks with
+and JPEG decoders' entropy loops, the QOI op loop and the run-length
+loops of the legacy formats (csrc/image_entropy.cpp), the JPEG 2000
+decoder's tier-1 (csrc/jpeg2000_t1.cpp), and the DDS decoder's BC6H and BC7 blocks with
 the PSD decoder's PackBits rows (csrc/bcn_decode.cpp). The DDS (dds.py)
 and PSD (psd.py) decoders sit beside the others, with PNM (pnm.py), QOI
 (qoi.py), ICO and CUR (ico.py), PCX and DCX (pcx.py), SGI (sgi.py), and

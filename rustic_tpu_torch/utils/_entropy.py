@@ -1,6 +1,7 @@
 """The host C++ loops of the image decoders: the WebP decoder's entropy
 loops, the QOI op loop, the FLI, SUN, ICNS and MSP run-length loops and
-IM's n-bit samples (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
+IM's n-bit samples and the JPEG decoder's entropy loops
+(csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
 (csrc/jpeg2000_t1.cpp), and the BC6H / BC7 blocks of the DDS decoder and
 the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), each built by g++
 at first use (ops/_build.py `compile_host`; a missing or failing g++
@@ -36,6 +37,10 @@ def library() -> ctypes.CDLL:
     lib.msp_rows.argtypes = [p, i64, i64, p, i64, i64, p, i64]
     lib.im_bits.restype = i32
     lib.im_bits.argtypes = [p, i64, i32, i32, i32, p]
+    lib.jpeg_scan.restype = i64
+    lib.jpeg_scan.argtypes = [p, i64, i64, p, p, p, p, p, p]
+    lib.jpeg_lossless_scan.restype = i64
+    lib.jpeg_lossless_scan.argtypes = [p, i64, i64, p, p, p, p, p]
     return lib
 
 

@@ -5,8 +5,9 @@ The header gives the size and whether the image has alpha ("RGBA" if so,
 else "RGB"); then 16 mipmap offsets and 16 lengths. BLP1 (its data read
 from byte 156):
 - compression 0: a JPEG, its shared header (a length and that many
-  bytes) joined to mipmap 0's bytes, decoded (utils/jpeg.py), taken as
-  RGB bytes and read back as BGR: red and blue swap, as in Pillow;
+  bytes) joined to mipmap 0's bytes, decoded (utils/jpeg.py; four
+  components as CMYK, never YCCK, as Pillow forces), taken as RGB bytes
+  and read back as BGR: red and blue swap, as in Pillow;
 - compression 1, encoding 4 or 5: a 256-entry BGRA palette, then
   mipmap 0's bytes (read straight after the palette) as indices.
 BLP2 (data at mipmap 0's offset, after the palette at byte 148):
@@ -38,9 +39,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-from rustic_tpu_torch.utils import FORMATS_TODO
+from rustic_tpu_torch.utils import FORMATS_TODO, PASSED_ON, jpeg
 from rustic_tpu_torch.utils.dds import _bc2_alpha, _bc3_channel, _bits, _le
-from rustic_tpu_torch.utils.jpeg import decode_jpeg
 from rustic_tpu_torch.utils.modes import check_pixels, to_rgba
 
 
@@ -91,6 +91,17 @@ def _read(raw: bytes, pos: int, n: int) -> bytes:
         raise ValueError(f"BLP file is truncated: {n} bytes from {pos}, the file ends at "
                          f"{len(raw)}")
     return raw[pos : pos + n]
+
+
+def _jpeg_rgb(data: bytes) -> np.ndarray:
+    """A BLP1 JPEG as Pillow reads it: a JpegImageFile of its bytes (its
+    header errors end the load), four components read as CMYK whatever the
+    file's Adobe segment says, converted to RGB."""
+    try:
+        jpeg.open_jpeg(data)
+    except (*PASSED_ON, OSError) as e:
+        raise ValueError(f"BLP1 JPEG: {type(e).__name__}: {e}") from e
+    return jpeg.decode_jpeg(data, cmyk=True)[..., :3]
 
 
 def _palette(raw: bytes, pos: int) -> np.ndarray:
@@ -165,7 +176,7 @@ def decode_blp(raw: bytes, b: Blp = None) -> np.ndarray:
             header = _read(raw, pos + 4, header_size)
             pos += 4 + header_size
             pos += len(_read(raw, pos, offset0 - pos))
-            rgb = decode_jpeg(header + _read(raw, pos, length0))[..., :3]
+            rgb = _jpeg_rgb(header + _read(raw, pos, length0))
             data, rawmode = rgb.tobytes(), "BGR"
         elif b.compression == 1:
             if b.encoding not in (4, 5):

@@ -15,8 +15,8 @@ without alpha, which Pillow reads as a 32-bit integer image and clips to
 255; a key colour compared, by its low byte, with the converted 8-bit
 pixel (a 1-bit grey key of 1 is white). `decode_image_u8` (and its float
 form `decode_image_rgba`) reads a texture or sky of any format the port
-decodes: PNG, JPEG (utils/jpeg.py), BMP and the bare DIB
-(utils/bmp_tga.py), GIF (utils/gif.py), PNM and PFM (utils/pnm.py), ICO
+decodes: PNG, JPEG and MPO's first frame (utils/jpeg.py), BMP and the
+bare DIB (utils/bmp_tga.py), GIF (utils/gif.py), PNM and PFM (utils/pnm.py), ICO
 and CUR (utils/ico.py), PCX and DCX (utils/pcx.py), DDS (utils/dds.py),
 JPEG 2000, JP2 or a raw codestream (utils/jpeg2000.py), TIFF
 (utils/tiff.py), PSD (utils/psd.py), QOI (utils/qoi.py), SGI
@@ -50,7 +50,7 @@ from rustic_tpu_torch.utils.bmp_tga import (DIB_HEADERS, dib_rgba, open_bmp, ope
                                             decode_tga, tga_refusal)
 from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds
 from rustic_tpu_torch.utils.gif import decode_gif
-from rustic_tpu_torch.utils.jpeg import decode_jpeg
+from rustic_tpu_torch.utils.jpeg import decode_jpeg, open_jpeg
 from rustic_tpu_torch.utils.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
 from rustic_tpu_torch.utils.psd import PSD_SIGNATURE, decode_psd
 from rustic_tpu_torch.utils.tiff import decode_tiff
@@ -252,6 +252,15 @@ def _loaded(load):
     return reader
 
 
+def _jpeg(raw):
+    """JPEG: Pillow's header walk at the open; the format "MPO" where
+    Pillow's jpeg_factory adopts a multi-picture file."""
+    h = read_header(open_jpeg, raw)
+    decode = lambda: decode_jpeg(raw, h)  # noqa: E731
+    decode.format = h.format
+    return decode
+
+
 def _tga(raw):
     why = tga_refusal(raw)
     if why:
@@ -272,7 +281,7 @@ _PLUGINS = {
     "DIB": (lambda p, n: len(p) >= 4 and struct.unpack_from("<I", p)[0] in DIB_HEADERS,
             _opened(open_dib, dib_rgba)),
     "GIF": (lambda p, n: p[:6] in (b"GIF87a", b"GIF89a"), _whole(decode_gif)),
-    "JPEG": (lambda p, n: p[:3] == b"\xff\xd8\xff", _whole(decode_jpeg)),
+    "JPEG": (lambda p, n: p[:3] == b"\xff\xd8\xff", _jpeg),
     "PPM": (lambda p, n: pnm.accept(p), _opened(pnm.open_pnm, pnm.decode_pnm)),
     "PNG": (lambda p, n: p[:8] == PNG_SIGNATURE, _whole(decode_png)),
     "BLP": (lambda p, n: blp.accept(p), _opened(blp.open_blp, blp.decode_blp)),
@@ -317,9 +326,11 @@ def _identify(raw: bytes, name: str):
         if plugin is None or not plugin[0](prefix, name):
             continue
         try:
-            return fmt, plugin[1](raw)
+            decode = plugin[1](raw)
         except NotThisFormat as e:
             passed.append(f"{fmt}: {e}")
+            continue
+        return getattr(decode, "format", fmt), decode
     seen = f"; passed on by {', '.join(passed)}" if passed else ""
     raise NotImplementedError(f"an image of unknown format (name {name!r}, first bytes "
                               f"{raw[:4].hex()}{seen}) is not decoded ({FORMATS_TODO})")

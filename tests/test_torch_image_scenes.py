@@ -16,7 +16,11 @@ port and through the JAX package (which decodes them with Pillow).
   `make_classic_fixtures`), the same way; BreakTime-legacy with a BLP1
   JPEG, an IM, a BLP2 DXT5, an FTEX DXT1, an ICNS (it32 RLE and its
   mask) and an RLE Sun raster texture (tests/data_torch/formats_legacy,
-  `make_legacy_fixtures`), the same way.
+  `make_legacy_fixtures`), the same way; BreakTime-JPEG-ext with CMYK,
+  YCCK, arithmetic-coded (progressive with restarts, and sequential),
+  lossless and repaired (junk before a marker, a dropped RST) JPEG
+  textures (tests/data_torch/formats_jpeg, `make_jpeg_fixtures` of
+  tests/test_torch_image_formats_jpeg.py), the same way.
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
   TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, one with .dds
   and .psd maps, and two with .ppm, .qoi, .ico, .pcx, .sgi, .pgm, .rgb,
@@ -28,8 +32,8 @@ port and through the JAX package (which decodes them with Pillow).
   against the JAX function, exactly. The JAX package reads .exr through
   imageio, which has no backend here: the EXR sky is held to the .npy of
   its half-float values, which the JAX function reads.
-- 32x16x2 films of the JPEG, the mixed, the J2K, the DDS, the classic and
-  the legacy BreakTime's one-tile cuts
+- 32x16x2 films of the JPEG, the mixed, the J2K, the DDS, the classic,
+  the legacy and the JPEG-ext BreakTime's one-tile cuts
   (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
   the .npy sky on JAX, both staged pipelines: the film rule of
   tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
@@ -61,6 +65,7 @@ from tests.test_torch_breaktime import assert_film_close
 from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
+from tests.test_torch_image_formats_jpeg import BT_EXT, BT_EXT_TWIN, JPEG_FIXTURES
 from tests.test_torch_image_formats import (BT_CLASSIC, BT_CLASSIC_TWIN, BT_DDS, BT_DDS_TWIN,
                                             BT_J2K, BT_J2K_TWIN, BT_JPEG, BT_LEGACY,
                                             BT_LEGACY_TWIN, BT_MIXED, BT_MIXED_TWIN, BT_SKY_EXR,
@@ -125,6 +130,13 @@ def test_breaktime_classic_world_matches_jax():
 def test_breaktime_legacy_world_matches_jax():
     assert_world_and_twin(os.path.join(LEGACY_FIXTURES, BT_LEGACY),
                           os.path.join(LEGACY_FIXTURES, BT_LEGACY_TWIN))
+
+
+def test_breaktime_jpeg_ext_world_matches_jax():
+    """BreakTime-JPEG-ext (CMYK, YCCK, arithmetic-coded, lossless and
+    repaired JPEG textures) as the JAX package builds it, and as its twin."""
+    assert_world_and_twin(os.path.join(JPEG_FIXTURES, BT_EXT),
+                          os.path.join(JPEG_FIXTURES, BT_EXT_TWIN))
 
 
 def write_obj_with_maps(tmp_path, maps=None):
@@ -400,6 +412,11 @@ def test_legacy_breaktime_film_matches_jax(half_sky):
     """The one-tile cut of BreakTime-legacy (BLP, IM, FTEX, ICNS and SUN
     textures), as the JPEG one."""
     assert_one_tile_film(os.path.join(LEGACY_FIXTURES, BT_LEGACY), half_sky)
+
+
+def test_jpeg_ext_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of BreakTime-JPEG-ext, as the JPEG one."""
+    assert_one_tile_film(os.path.join(JPEG_FIXTURES, BT_EXT), half_sky)
 
 
 def assert_one_tile_film(path, half_sky):

@@ -150,9 +150,10 @@ def test_textured_scene_is_refused():
     assert not SK.supported(scene)
     film = render_image(scene, TracingConfig(width=4, height=4), device="cpu")
     assert film.shape == (4, 4, 3) and np.isfinite(film).all() and film.mean() > 0.0
-    # an arithmetic-coded JPEG (SOF9), a variant the port refuses
-    sof9 = b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x01\x00\x01\x01\x01\x11\x00"
+    # a hierarchical JPEG (SOF5), a variant the port refuses (as Pillow's libjpeg does)
+    sof5 = (b"\xff\xd8\xff\xc5\x00\x0b\x08\x00\x01\x00\x01\x01\x01\x11\x00"
+            b"\xff\xda\x00\x08\x01\x01\x00\x00\x3f\x00\xff\xd9")
     jpeg = {"images": [{"bufferView": 0}],
-            "bufferViews": [{"buffer": 0, "byteLength": len(sof9)}]}
-    with pytest.raises(NotImplementedError, match="arithmetic.*ROADMAP"):
-        TG._decode_image(jpeg, [sof9], 0, "")
+            "bufferViews": [{"buffer": 0, "byteLength": len(sof5)}]}
+    with pytest.raises(NotImplementedError, match="hierarchical.*ROADMAP"):
+        TG._decode_image(jpeg, [sof5], 0, "")
