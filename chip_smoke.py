@@ -361,7 +361,12 @@ Phases, each of which must pass (the first that fails ends the run):
      lossless at several predictors and point transforms, files libjpeg
      repairs: junk before a marker, cut scans, a flipped bit, dropped and
      renumbered RSTs, progressive files missing scans; a 1024x1024
-     arithmetic-coded and a 512x512 lossless photo) decoded on the host,
+     arithmetic-coded and a 512x512 lossless photo) and of
+     tests/data_torch/formats_variants (RLE8 and RLE4 BMP, 16-bit and OS/2
+     bitmaps, 16-bit TGA, CCITT RLE, Group 3 1-D and 2-D and Group 4 TIFF,
+     JPEG-compressed TIFF in RGB, L, CMYK and 4:2:0 YCbCr strips and
+     tiles, YCbCr TIFF under LZW, Deflate and none, CMYK and CIELab TIFF,
+     animated WebP) decoded on the host,
      equal to Pillow 12.1.0's decode stored beside it (.npy, or the
      SHA-256 of its RGBA bytes), each file's format as image_format names
      it equal to Pillow's (stored in formats_classic's, formats_legacy's
@@ -373,14 +378,20 @@ Phases, each of which must pass (the first that fails ends the run):
      dib, and each legacy decoder: im, imt, iptc, pcd, spider, blp jpeg,
      palette and dxt apart, fits, fli, ftex, gbr, icns, msp, pixar, sun
      rle and raw apart, xbm, xpm; jpeg arithmetic sequential, arithmetic
-     progressive, lossless, cmyk/ycck and recovery apart), and on
+     progressive, lossless, cmyk/ycck and recovery apart; and each kind of
+     formats_variants -- bmp rle, bmp 16-bit, bmp os/2, tga 16-bit, tiff
+     fax, tiff jpeg, tiff ycbcr, tiff cmyk, tiff cielab, webp animated --
+     timed in turns with the committed 1024x1024 4:2:0 Huffman photo, best
+     of 5 each, beside it and as a ratio to it), and on
      BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's,
      BreakTime-classic's, BreakTime-legacy's and BreakTime-JPEG-ext's
      256x256 textures (best of 3). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
-     BreakTime-mixed (two lossy
-     WebP, a lossless WebP, a Deflate and an LZW TIFF, a GIF; the EXR sky)
+     BreakTime-mixed (a JPEG-compressed 4:2:0 YCbCr TIFF, a CMYK LZW TIFF,
+     a CIELab TIFF, an animated lossy WebP with its first frame offset on
+     the canvas, a Group 4 TIFF as the metallic-roughness map, an RLE8
+     BMP; the EXR sky)
      and BreakTime-J2K (two 5/3 JP2, two 9/7 JP2 at a rate, a tiled RPCL
      raw codestream, three rate layers with precincts; the EXR sky) and
      BreakTime-DDS (DXT1, BC5, DXT5 and BC7 DDS, a PackBits RGB and a raw
@@ -634,6 +645,8 @@ FORMATS_DDS_PSD = "tests/data_torch/formats_dds_psd"  # the DDS and PSD ones and
 FORMATS_CLASSIC = "tests/data_torch/formats_classic"  # PNM, QOI, ICO, CUR, PCX, DCX, SGI, DIB
 FORMATS_LEGACY = "tests/data_torch/formats_legacy"  # IM ... XPM: Pillow's other plugins
 FORMATS_JPEG = "tests/data_torch/formats_jpeg"  # CMYK, YCCK, arithmetic, lossless, repaired JPEGs
+FORMATS_VARIANTS = "tests/data_torch/formats_variants"  # RLE/16-bit BMP, fax/JPEG/YCbCr TIFF...
+VARIANT_TURNS = 5  # phase 34 times each formats_variants kind in turns with the 1024^2 photo
 # phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy, -JPEG-ext and their twins at
 # this cut of the frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
 FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
@@ -4063,7 +4076,8 @@ class Smoke:
         each decoder; a classic, legacy or JPEG fixture's format as
         image_format names it against Pillow's, in its manifest);
         BreakTime-JPEG (JPEG textures, EXR sky),
-        BreakTime-mixed (WebP, TIFF and GIF textures, EXR sky),
+        BreakTime-mixed (JPEG, CMYK, CIELab and Group 4 TIFF, animated WebP
+        and RLE8 BMP textures, EXR sky),
         BreakTime-J2K (JPEG 2000 textures, EXR sky), BreakTime-DDS (DDS and
         PSD textures, EXR sky), BreakTime-classic (PPM, QOI, SGI, PCX, ICO
         and DCX textures, EXR sky), BreakTime-legacy (BLP, IM, FTEX, ICNS
@@ -4143,7 +4157,7 @@ class Smoke:
         for build, src, what in ((_entropy.library, "image_entropy.cpp",
                                   "the WebP entropy loops, the QOI op loop, the FLI, SUN, ICNS "
                                   "and MSP run-length loops, IM's n-bit samples, the JPEG "
-                                  "entropy loops"),
+                                  "entropy loops, the CCITT fax rows, the BMP RLE loop"),
                                  (_entropy.j2k_library, "jpeg2000_t1.cpp", "JPEG 2000 tier-1"),
                                  (_entropy.bcn_library, "bcn_decode.cpp",
                                   "DDS BC6H / BC7 blocks, PSD PackBits rows")):
@@ -4152,7 +4166,8 @@ class Smoke:
             log(f"csrc/{src} ({what}) built by g++ or loaded in {time.perf_counter() - t0:.2f} s")
 
         manifests = {}
-        for folder in (FORMATS, FORMATS_DDS_PSD, FORMATS_CLASSIC, FORMATS_LEGACY, FORMATS_JPEG):
+        for folder in (FORMATS, FORMATS_DDS_PSD, FORMATS_CLASSIC, FORMATS_LEGACY, FORMATS_JPEG,
+                       FORMATS_VARIANTS):
             with open(os.path.join(folder, "manifest.json")) as f:
                 manifests[folder] = json.load(f)
         manifest = manifests[FORMATS]
@@ -4194,6 +4209,32 @@ class Smoke:
         for kind, (sec, px) in per.items():
             log(f"decode {kind}: {px} pixels in {sec * 1e3:.1f} ms, "
                 f"{sec * 1e3 / (px / 1e6):.1f} ms per megapixel (host CPU)")
+        # each variant kind in turns with one fixed decode, so that the host's speed is not read
+        # as a decoder's: best of VARIANT_TURNS of each, ms per megapixel
+        with open(os.path.join(FORMATS, "photo-1024-420.jpg"), "rb") as f:
+            photo = f.read()
+        by_kind = {}
+        for entry in manifests[FORMATS_VARIANTS]["images"]:
+            with open(os.path.join(FORMATS_VARIANTS, entry["file"]), "rb") as f:
+                by_kind.setdefault(entry["kind"], []).append((entry["file"], f.read()))
+        for kind, files in by_kind.items():
+            best_kind, best_photo, px = float("inf"), float("inf"), 0
+            for _ in range(VARIANT_TURNS):
+                t0 = time.perf_counter()
+                px = 0
+                for name, raw in files:
+                    got = decode_image_u8(raw, name)
+                    px += got.shape[0] * got.shape[1]
+                best_kind = min(best_kind, time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                decode_image_u8(photo, "photo-1024-420.jpg")
+                best_photo = min(best_photo, time.perf_counter() - t0)
+            kind_ms = best_kind * 1e3 / (px / 1e6)
+            photo_ms = best_photo * 1e3 / (1024 * 1024 / 1e6)
+            log(f"decode {kind} in turns with the 1024^2 Huffman photo ({len(files)} files, "
+                f"{px} pixels, best of {VARIANT_TURNS}): {kind_ms:.1f} ms per megapixel, the "
+                f"photo {photo_ms:.1f} ms per megapixel, ratio {kind_ms / photo_ms:.2f} "
+                "(host CPU)")
         # each BreakTime's six textures (256x256; the ICNS 128x128), each decoded 3 times: the best
         for folder, scene_key, label in ((FORMATS, "mixed", "BreakTime-mixed"),
                                          (FORMATS, "j2k", "BreakTime-J2K"),

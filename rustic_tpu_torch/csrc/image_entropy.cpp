@@ -24,6 +24,15 @@
 //   Huffman (jdhuff.c, jdphuff.c, jdlhuff.c) and arithmetic (jdarith.c)
 //   coding, with libjpeg's recovery from corrupt data, fed 64 KiB at a
 //   time as Pillow's ImageFile.load feeds it.
+// - ccitt_rows: the rows of one TIFF strip or tile of CCITT modified
+//   Huffman (compression 2), T.4 one- and two-dimensional (3) and T.6 (4)
+//   data, as libtiff 4.7.1's tif_fax3.c decodes it under Pillow 12.1.0:
+//   its 7-, 12- and 13-bit lookup tables built from the ITU-T T.4 code
+//   lists (mkg3states' FillTable), its bit reader padding zeros while any
+//   bit is left, its repair of a bad row (CLEANUP_RUNS, then the runs cut
+//   at the row's end as _TIFFFax3fillruns cuts them, in place, so that
+//   the repaired runs are the next row's reference).
+// - bmp_rle: the run loop of Pillow's Python BmpRleDecoder (RLE8, RLE4).
 //
 // Everything else of the decoders (headers, tables, transforms,
 // prediction, filtering, colour) stays in NumPy.
@@ -1381,6 +1390,354 @@ Scan read_scan(const int32_t* p) {
   return s;
 }
 
+
+// ---- CCITT fax (libtiff tif_fax3.c / tif_fax3.h) ------------------------------------------------
+
+namespace fax {
+
+enum { S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW, S_TermB, S_MakeUpW, S_MakeUpB,
+       S_MakeUp, S_EOL };
+
+struct Ent {
+  uint8_t state, width;
+  uint32_t param;
+};
+
+struct Code {
+  const char* bits;  // in the order they are sent
+  uint32_t param;
+};
+
+// ITU-T T.4 tables 2 and 3 (terminating and make-up codes), table 4 (2-D modes)
+const char* const kTermW[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111", "10011", "10100",
+    "00111", "01000", "001000", "000011", "110100", "110101", "101010", "101011", "0100111",
+    "0001100", "0001000", "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011", "00010010",
+    "00010011", "00010100", "00010101", "00010110", "00010111", "00101000", "00101001",
+    "00101010", "00101011", "00101100", "00101101", "00000100", "00000101", "00001010",
+    "00001011", "01010010", "01010011", "01010100", "01010101", "00100100", "00100101",
+    "01011000", "01011001", "01011010", "01011011", "01001010", "01001011", "00110010",
+    "00110011", "00110100"};
+const char* const kTermB[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101", "000100",
+    "0000100", "0000101", "0000111", "00000100", "00000111", "000011000", "0000010111",
+    "0000011000", "0000001000", "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010", "000011001011",
+    "000011001100", "000011001101", "000001101000", "000001101001", "000001101010",
+    "000001101011", "000011010010", "000011010011", "000011010100", "000011010101",
+    "000011010110", "000011010111", "000001101100", "000001101101", "000011011010",
+    "000011011011", "000001010100", "000001010101", "000001010110", "000001010111",
+    "000001100100", "000001100101", "000001010010", "000001010011", "000000100100",
+    "000000110111", "000000111000", "000000100111", "000000101000", "000001011000",
+    "000001011001", "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111"};
+const char* const kMakeW[27] = {
+    "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100", "01100101",
+    "01101000", "01100111", "011001100", "011001101", "011010010", "011010011", "011010100",
+    "011010101", "011010110", "011010111", "011011000", "011011001", "011011010", "011011011",
+    "010011000", "010011001", "010011010", "011000", "010011011"};
+const char* const kMakeB[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011", "000000110011",
+    "000000110100", "000000110101", "0000001101100", "0000001101101", "0000001001010",
+    "0000001001011", "0000001001100", "0000001001101", "0000001110010", "0000001110011",
+    "0000001110100", "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010", "0000001011011",
+    "0000001100100", "0000001100101"};
+const char* const kMakeX[13] = {  // 1792-2560, white and black alike
+    "00000001000", "00000001100", "00000001101", "000000010010", "000000010011",
+    "000000010100", "000000010101", "000000010110", "000000010111", "000000011100",
+    "000000011101", "000000011110", "000000011111"};
+
+// mkg3states' FillTable: every entry whose low `width` bits (the first bits sent, read
+// least significant first) are the code
+void fill(Ent* t, int size, const char* bits, int state, uint32_t param) {
+  const int w = int(std::strlen(bits));
+  uint32_t code = 0;
+  for (int i = 0; i < w; ++i) code |= uint32_t(bits[i] - '0') << i;
+  for (uint32_t hi = 0; hi < (1u << (size - w)); ++hi) {
+    Ent& e = t[(hi << w) | code];
+    e.state = uint8_t(state);
+    e.width = uint8_t(w);
+    e.param = param;
+  }
+}
+
+struct Tables {
+  Ent main[128], white[4096], black[8192];
+  Tables() {
+    std::memset(this, 0, sizeof(*this));
+    fill(main, 7, "0001", S_Pass, 0);
+    fill(main, 7, "001", S_Horiz, 0);
+    fill(main, 7, "1", S_V0, 0);
+    fill(main, 7, "011", S_VR, 1);
+    fill(main, 7, "000011", S_VR, 2);
+    fill(main, 7, "0000011", S_VR, 3);
+    fill(main, 7, "010", S_VL, 1);
+    fill(main, 7, "000010", S_VL, 2);
+    fill(main, 7, "0000010", S_VL, 3);
+    fill(main, 7, "0000001", S_Ext, 0);
+    fill(main, 7, "0000000", S_EOL, 0);
+    for (int i = 0; i < 27; ++i) fill(white, 12, kMakeW[i], S_MakeUpW, 64u * (i + 1));
+    for (int i = 0; i < 13; ++i) fill(white, 12, kMakeX[i], S_MakeUp, 1792u + 64u * i);
+    for (int i = 0; i < 64; ++i) fill(white, 12, kTermW[i], S_TermW, uint32_t(i));
+    fill(white, 12, "00000000000", S_EOL, 0);
+    for (int i = 0; i < 27; ++i) fill(black, 13, kMakeB[i], S_MakeUpB, 64u * (i + 1));
+    for (int i = 0; i < 13; ++i) fill(black, 13, kMakeX[i], S_MakeUp, 1792u + 64u * i);
+    for (int i = 0; i < 64; ++i) fill(black, 13, kTermB[i], S_TermB, uint32_t(i));
+    fill(black, 13, "00000000000", S_EOL, 0);
+  }
+};
+
+const Tables& tables() {
+  static const Tables t;
+  return t;
+}
+
+struct Eof {};       // the data ran out with no bit left (prematureEOF)
+struct Overflow {};  // more runs than the run arrays hold (libtiff: "Buffer overflow")
+
+struct Bits {
+  const uint8_t* cp;
+  const uint8_t* ep;
+  uint32_t acc = 0;
+  int avail = 0;
+  void need(int n) {  // NeedBits8 / NeedBits16: zeros pad while any bit is left
+    while (avail < n) {
+      if (cp >= ep) {
+        if (avail == 0) throw Eof();
+        avail = n;
+        return;
+      }
+      uint8_t b = *cp++, r = 0;  // FillOrder 1: reversed, so the first bit is the lowest
+      for (int i = 0; i < 8; ++i) r |= uint8_t(((b >> i) & 1) << (7 - i));
+      acc |= uint32_t(r) << avail;
+      avail += 8;
+    }
+  }
+  uint32_t get(int n) const { return acc & ((1u << n) - 1); }
+  void clr(int n) {
+    avail -= n;
+    acc >>= n;
+  }
+  const Ent& look(const Ent* t, int n) {
+    need(n);
+    const Ent& e = t[get(n)];
+    clr(e.width);
+    return e;
+  }
+};
+
+// _TIFFFax3fillruns: the runs from white, each cut (in place) at the row's end
+void fill_row(uint8_t* row, uint32_t* runs, uint32_t* erun, int64_t lastx) {
+  if ((erun - runs) & 1) *erun++ = 0;
+  int64_t x = 0;
+  for (uint32_t* r = runs; r < erun; r += 2) {
+    for (int k = 0; k < 2; ++k) {
+      int64_t run = r[k];
+      if (x + run > lastx || run > lastx) run = r[k] = uint32_t(lastx - x);
+      if (run) {
+        for (int64_t i = x; i < x + run; ++i) {
+          if (k) row[i >> 3] |= uint8_t(0x80 >> (i & 7));
+          else row[i >> 3] &= uint8_t(~(0x80 >> (i & 7)));
+        }
+        x += r[k];
+      }
+    }
+  }
+}
+
+struct Row {
+  uint32_t* thisrun;
+  uint32_t* pa;
+  uint32_t* limit;
+  int64_t a0 = 0, run_length = 0, lastx;
+  void set(int64_t x) {  // SETVALUE
+    if (pa >= limit) throw Overflow();
+    *pa++ = uint32_t(run_length + x);
+    a0 += x;
+    run_length = 0;
+  }
+  void cleanup() {  // CLEANUP_RUNS
+    if (run_length) set(0);
+    if (a0 != lastx) {
+      while (a0 > lastx && pa > thisrun) a0 -= *--pa;
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if ((pa - thisrun) & 1) set(0);
+        set(lastx - a0);
+      } else if (a0 > lastx) {
+        set(lastx);
+        set(0);
+      }
+    }
+  }
+};
+
+struct Decoder {
+  Bits b;
+  const Tables& t = tables();
+  int eol = 0;  // EOLcnt
+
+  // SYNC_EOL -> false where the data ends while the zeros before an EOL's 1 are skipped:
+  // libtiff then reads the strip again from its start with no EOL before a row
+  bool sync_eol() {
+    if (eol == 0) {
+      for (;;) {
+        b.need(11);
+        if (b.get(11) == 0) break;
+        b.clr(1);
+      }
+    }
+    for (;;) {
+      try {
+        b.need(8);
+      } catch (const Eof&) {
+        return false;
+      }
+      if (b.get(8)) break;
+      b.clr(8);
+    }
+    while (b.get(1) == 0) b.clr(1);
+    b.clr(1);
+    eol = 0;
+    return true;
+  }
+
+  // one colour's run (make-up codes then a terminating code) -> false on a bad code
+  bool run(Row& r, bool black, bool& is_eol) {
+    for (;;) {
+      const Ent& e = black ? b.look(t.black, 13) : b.look(t.white, 12);
+      if (e.state == S_EOL) {
+        is_eol = true;
+        return true;
+      }
+      if (e.state == (black ? S_TermB : S_TermW)) {
+        r.set(e.param);
+        return true;
+      }
+      if (e.state == (black ? S_MakeUpB : S_MakeUpW) || e.state == S_MakeUp) {
+        r.a0 += e.param;
+        r.run_length += e.param;
+        continue;
+      }
+      return false;
+    }
+  }
+
+  void expand_1d(Row& r) {  // EXPAND1D; Eof propagates after the row's cleanup
+    try {
+      for (;;) {
+        bool is_eol = false;
+        if (!run(r, false, is_eol) || is_eol) {
+          if (is_eol) eol = 1;
+          break;
+        }
+        if (r.a0 >= r.lastx) break;
+        if (!run(r, true, is_eol) || is_eol) {
+          if (is_eol) eol = 1;
+          break;
+        }
+        if (r.a0 >= r.lastx) break;
+        if (r.pa - r.thisrun >= 2 && r.pa[-1] == 0 && r.pa[-2] == 0) r.pa -= 2;
+      }
+    } catch (const Eof&) {
+      r.cleanup();
+      throw;
+    }
+    r.cleanup();
+  }
+
+  void expand_2d(Row& r, uint32_t* pb, uint32_t* ref_limit) {  // EXPAND2D
+    int64_t b1 = *pb++;
+    auto check_b1 = [&]() {
+      if (r.pa != r.thisrun)
+        while (b1 <= r.a0 && b1 < r.lastx) {
+          if (pb + 1 >= ref_limit) throw Overflow();
+          b1 += int64_t(pb[0]) + pb[1];
+          pb += 2;
+        }
+    };
+    try {
+      bool bad = false;
+      while (r.a0 < r.lastx) {
+        if (r.pa >= r.limit) throw Overflow();
+        const Ent& e = b.look(t.main, 7);
+        switch (e.state) {
+          case S_Pass:
+            check_b1();
+            if (pb >= ref_limit) throw Overflow();
+            b1 += *pb++;
+            r.run_length += b1 - r.a0;
+            r.a0 = b1;
+            b1 += *pb++;
+            break;
+          case S_Horiz: {
+            const bool black_first = (r.pa - r.thisrun) & 1;
+            bool is_eol = false;
+            if (!run(r, black_first, is_eol) || is_eol || !run(r, !black_first, is_eol) ||
+                is_eol) {
+              bad = true;  // an EOL in a run's table is a bad code here
+              break;
+            }
+            check_b1();
+            break;
+          }
+          case S_V0:
+            check_b1();
+            r.set(b1 - r.a0);
+            if (pb >= ref_limit) throw Overflow();
+            b1 += *pb++;
+            break;
+          case S_VR:
+            check_b1();
+            r.set(b1 - r.a0 + e.param);
+            if (pb >= ref_limit) throw Overflow();
+            b1 += *pb++;
+            break;
+          case S_VL:
+            check_b1();
+            if (b1 < r.a0 + int64_t(e.param)) {
+              bad = true;
+              break;
+            }
+            r.set(b1 - r.a0 - e.param);
+            b1 -= *--pb;
+            break;
+          case S_Ext:
+            *r.pa++ = uint32_t(r.lastx - r.a0);
+            bad = true;
+            break;
+          case S_EOL:
+            *r.pa++ = uint32_t(r.lastx - r.a0);
+            b.need(4);
+            b.clr(4);
+            eol = 1;
+            bad = true;
+            break;
+          default:
+            bad = true;
+        }
+        if (bad) break;
+      }
+      if (!bad && r.run_length) {
+        if (r.run_length + r.a0 < r.lastx) {  // a final V0 is expected
+          b.need(1);
+          if (!b.get(1)) bad = true;
+          else b.clr(1);
+        }
+        if (!bad) r.set(0);
+      }
+    } catch (const Eof&) {
+      r.cleanup();
+      throw;
+    }
+    r.cleanup();
+  }
+};
+
+}  // namespace fax
+
 }  // namespace
 
 extern "C" {
@@ -1617,6 +1974,144 @@ int64_t jpeg_lossless_scan(const uint8_t* data, int64_t size, int64_t pos, int64
   io[1] = src.marker;
   io[2] = -1;
   return src.pos;
+}
+
+// Fax3SetupState's run array length (each of the current and the reference row's)
+int64_t ccitt_nruns(int32_t width, int32_t ref) {
+  return (int64_t(width) + 1 + 31) / 32 * 32 * (ref ? 2 : 1);
+}
+
+// One strip or tile of `rows` rows of `width` pixels -> packed rows (MSB first, black 1) in
+// `out`, whose rows the caller keeps from the strip before (libtiff leaves a row it does not
+// reach as it was). kind: 2 modified Huffman (rows byte-aligned), 3 T.4 (`two_d`: Group3Options
+// bit 0), 4 T.6. `no_eol` is libtiff's mode bit for T.4 data without EOLs and `runs` its run
+// arrays (2 x ccitt_nruns + 2, zeroed once), both kept by the caller from strip to strip, as
+// libtiff keeps them: a pass code past the reference row's end reads what an earlier row left
+// there. Returns the rows written (fewer where T.6 data ends or meets an EOL after its first
+// row: libtiff leaves the rest as they were), or -1 where libtiff's decode fails (data that
+// ends with no bit left in a kind that fails on it, a first T.6 row cut by an EOL, too many
+// runs).
+int ccitt_rows(const uint8_t* data, int64_t size, int32_t width, int32_t rows, int32_t kind,
+               int32_t two_d, uint8_t* out, int32_t* no_eol, uint32_t* runs) {
+  using namespace fax;
+  const int64_t rowbytes = (int64_t(width) + 7) >> 3;
+  const bool ref = kind == 4 || (kind == 3 && two_d);
+  const int64_t nruns = ccitt_nruns(width, ref);
+  uint32_t* cur = runs;  // Fax3PreDecode: the arrays at their places, their contents as they were
+  uint32_t* refr = ref ? runs + nruns : nullptr;
+  if (ref) {
+    refr[0] = uint32_t(width);
+    refr[1] = 0;
+  }
+  Decoder d;
+  d.b.cp = data;
+  d.b.ep = data + size;
+  int line = 0;
+  for (int32_t y = 0; y < rows; ++y) {
+    uint8_t* row = out + y * rowbytes;
+    Row r;
+    r.thisrun = r.pa = cur;
+    r.limit = cur + nruns;
+    r.lastx = width;
+    try {
+      if (kind == 2) {
+        d.expand_1d(r);
+      } else if (kind == 3) {
+        bool is1d = true;
+        try {
+          if (!*no_eol && !d.sync_eol()) {  // Fax3Decode1D/2D: the state cached at the call
+            *no_eol = 1;                     // again, the strip's first bit; the flag stays set
+            d.b = fax::Bits{data, data + size};
+            d.eol = 0;
+          }
+          if (two_d) {
+            d.b.need(1);
+            is1d = d.b.get(1);
+            d.b.clr(1);
+          }
+        } catch (const Eof&) {
+          r.cleanup();
+          throw;
+        }
+        if (is1d) d.expand_1d(r);
+        else d.expand_2d(r, refr, refr + nruns);
+      } else {
+        d.expand_2d(r, refr, refr + nruns);
+        if (d.eol) {  // an EOL (EOFB) ends the strip: Fax4Decode's EOFG4
+          fill_row(row, r.thisrun, r.pa, width);
+          return line ? line + 1 : -1;
+        }
+      }
+    } catch (const Eof&) {
+      fill_row(row, r.thisrun, r.pa, width);
+      return kind == 4 && line ? line + 1 : -1;  // Fax4Decode: "don't error on badly-terminated strips"
+    } catch (const Overflow&) {
+      return -1;
+    }
+    fill_row(row, r.thisrun, r.pa, width);
+    if (kind == 2) {  // FAXMODE_BYTEALIGN: the rest of the byte dropped
+      d.b.clr(d.b.avail & 7);
+    }
+    if (ref) {
+      if (r.pa < r.thisrun + nruns) r.set(0);  // the imaginary change for the reference
+      std::swap(cur, refr);
+    }
+    ++line;
+  }
+  return rows;
+}
+
+// Pillow's BmpRleDecoder from byte `pos` of the whole file (`size` bytes) -> the first
+// `room` of its samples in `out` (zeroed by the caller). Returns the samples it made, at
+// least `want` unless the stream ended first, or -1 where a delta's (right, up) is cut short
+// (Pillow's ValueError).
+int64_t bmp_rle(const uint8_t* raw, int64_t size, int64_t pos, int64_t width, int64_t want,
+                int32_t rle4, uint8_t* out, int64_t room) {
+  int64_t n = 0, x = 0;
+  auto put = [&](uint8_t v) {
+    if (n < room) out[n] = v;
+    ++n;
+  };
+  while (n < want) {
+    if (pos + 2 > size) break;
+    int count = raw[pos], byte = raw[pos + 1];
+    pos += 2;
+    if (count) {
+      int64_t c = std::max<int64_t>(0, std::min<int64_t>(count, width - x));
+      for (int64_t i = 0; i < c; ++i)
+        put(rle4 ? uint8_t(i & 1 ? byte & 15 : byte >> 4) : uint8_t(byte));
+      x += c;
+    } else if (byte == 0) {
+      while (n % width) put(0);
+      x = 0;
+    } else if (byte == 1) {
+      break;
+    } else if (byte == 2) {
+      if (pos + 2 > size) break;
+      pos += 2;
+      if (pos + 2 > size) return -1;
+      n += raw[pos] + int64_t(raw[pos + 1]) * width;  // zeros: `out` starts zeroed
+      pos += 2;
+      x = n % width;
+    } else {
+      const int64_t m = rle4 ? byte / 2 : byte;
+      const int64_t got = std::min(m, size - pos);
+      for (int64_t i = 0; i < got; ++i) {
+        const uint8_t v = raw[pos + i];
+        if (rle4) {
+          put(v >> 4);
+          put(v & 15);
+        } else {
+          put(v);
+        }
+      }
+      pos += got;
+      if (got < m) break;
+      x += byte;
+      pos += pos & 1;
+    }
+  }
+  return n;
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """The host C++ loops of the image decoders: the WebP decoder's entropy
 loops, the QOI op loop, the FLI, SUN, ICNS and MSP run-length loops and
-IM's n-bit samples and the JPEG decoder's entropy loops
-(csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
+IM's n-bit samples, the JPEG decoder's entropy loops, the CCITT fax rows
+of TIFF and the BMP RLE8 / RLE4 loop (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
 (csrc/jpeg2000_t1.cpp), and the BC6H / BC7 blocks of the DDS decoder and
 the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), each built by g++
 at first use (ops/_build.py `compile_host`; a missing or failing g++
@@ -41,6 +41,12 @@ def library() -> ctypes.CDLL:
     lib.jpeg_scan.argtypes = [p, i64, i64, p, p, p, p, p, p]
     lib.jpeg_lossless_scan.restype = i64
     lib.jpeg_lossless_scan.argtypes = [p, i64, i64, p, p, p, p, p]
+    lib.ccitt_rows.restype = i32
+    lib.ccitt_rows.argtypes = [p, i64, i32, i32, i32, i32, p, p, p]
+    lib.ccitt_nruns.restype = i64
+    lib.ccitt_nruns.argtypes = [i32, i32]
+    lib.bmp_rle.restype = i64
+    lib.bmp_rle.argtypes = [p, i64, i64, i64, i64, i32, p, i64]
     return lib
 
 

@@ -40,7 +40,9 @@ of luminance, FourCCs and DXGI formats Pillow does not list, unknown
 pixel-format flags. Those Pillow calls unimplemented raise
 NotImplementedError naming the variant and FORMATS_TODO; a truncated or
 malformed file raises ValueError (Pillow reads a truncated DDPF_RGB
-surface as if it ended in zeros).
+surface as if it ended in zeros, and so does the port); a size of zero
+raises NotThisFormat (Image.open passes the file on), a decompression
+bomb ValueError.
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ import struct
 
 import numpy as np
 
-from rustic_tpu_torch.utils import FORMATS_TODO, _entropy
+from rustic_tpu_torch.utils import FORMATS_TODO, NotThisFormat, _entropy
 from rustic_tpu_torch.utils._entropy import ptr
+from rustic_tpu_torch.utils.modes import check_pixels
 
 DDS_SIGNATURE = b"DDS "
 _ALPHAPIXELS, _FOURCC, _PALETTE, _RGB, _LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
@@ -69,6 +72,31 @@ _CPP_KINDS = {"BC6H": 0, "BC6HS": 1, "BC7": 2}
 
 def _refuse(variant: str):
     raise NotImplementedError(f"DDS {variant} is not decoded ({FORMATS_TODO})")
+
+
+class _Opened(Exception):
+    """The header is read (`open_dds`)."""
+
+
+def _opened(width: int, height: int, stop: bool):
+    """What Image.open checks once DdsImageFile._open has read the header:
+    a size of zero passes the file on (ImageFile's SyntaxError for an
+    empty size), a decompression bomb ends the open; `stop`: the open is all
+    that was asked for."""
+    if width <= 0 or height <= 0:
+        raise NotThisFormat(f"DDS of size {width}x{height}")
+    check_pixels(width, height, "DDS")
+    if stop:
+        raise _Opened
+
+
+def open_dds(raw: bytes):
+    """DdsImageFile._open and Image.open's checks after it (utils/png.py
+    runs it at the open, as Pillow does)."""
+    try:
+        decode_dds(raw, _stop=True)
+    except _Opened:
+        return None
 
 
 def _bytes(raw: bytes, start: int, count: int) -> np.ndarray:
@@ -185,8 +213,13 @@ def _masked(raw: bytes, width: int, height: int, bitcount: int, masks) -> np.nda
     if nbytes == 0:
         value = np.zeros(n, np.uint64)
     else:
-        px = _bytes(raw, _HEADER_END, n * nbytes).reshape(n, nbytes)
-        value = _le(px[:, :8])  # masks are 32 bits: the bytes above never count
+        # each pixel's first 4 bytes (the masks are 32 bits: the bytes above never count); a
+        # surface cut short reads on in zeros (Pillow: a missing read is int.from_bytes(b""))
+        k = min(nbytes, 4)
+        at = _HEADER_END + np.arange(n, dtype=np.int64)[:, None] * nbytes + np.arange(k)
+        data = np.concatenate([np.frombuffer(raw, np.uint8), np.zeros(1, np.uint8)])
+        px = data[np.minimum(at, len(raw))]
+        value = _le(px)
     out = np.full((height, width, 4), 255, np.uint8)
     for i, mask in enumerate(masks):
         if mask == 0:
@@ -199,7 +232,7 @@ def _masked(raw: bytes, width: int, height: int, bitcount: int, masks) -> np.nda
     return out
 
 
-def decode_dds(raw: bytes) -> np.ndarray:
+def decode_dds(raw: bytes, _stop: bool = False) -> np.ndarray:
     """DDS bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
     raw = bytes(raw)
     if raw[:4] != DDS_SIGNATURE:
@@ -217,27 +250,33 @@ def decode_dds(raw: bytes) -> np.ndarray:
     bitcount, = struct.unpack("<I", raw[88:92])
     if pfflags & _RGB:
         count = 4 if pfflags & _ALPHAPIXELS else 3
+        _opened(width, height, _stop)
         return _masked(raw, width, height, bitcount, struct.unpack(f"<{count}I",
                                                                  raw[92 : 92 + 4 * count]))
     n = width * height
     if pfflags & _LUMINANCE:
         if bitcount == 8:
+            _opened(width, height, _stop)
             grey, alpha = _bytes(raw, _HEADER_END, n).reshape(height, width), 255
         elif bitcount == 16 and pfflags & _ALPHAPIXELS:
+            _opened(width, height, _stop)
             la = _bytes(raw, _HEADER_END, 2 * n).reshape(height, width, 2)
             grey, alpha = la[..., 0], la[..., 1]
         else:
             _refuse(f"luminance at {bitcount} bits (pixel-format flags {pfflags:#x})")
+        _opened(width, height, _stop)
         out = np.empty((height, width, 4), np.uint8)
         out[..., 0:3] = grey[..., None]
         out[..., 3] = alpha
         return out
     if pfflags & _PALETTE:
+        _opened(width, height, _stop)
         palette = _bytes(raw, _HEADER_END, 1024).reshape(256, 4)
         return palette[_bytes(raw, _HEADER_END + 1024, n).reshape(height, width)]
     if not pfflags & _FOURCC:
         _refuse(f"pixel-format flags {pfflags:#x}")
     if fourcc in _FOURCCS:
+        _opened(width, height, _stop)
         return _surface(_FOURCCS[fourcc], raw, _HEADER_END, width, height)
     if fourcc != b"DX10":
         _refuse(f"pixel format {fourcc!r}")
@@ -247,6 +286,7 @@ def decode_dds(raw: bytes) -> np.ndarray:
     if dxgi not in _DXGI:
         _refuse(f"DXGI format {dxgi}")
     start = _HEADER_END + 20
+    _opened(width, height, _stop)
     if _DXGI[dxgi] == "RGBA":
         return _bytes(raw, start, 4 * n).reshape(height, width, 4).copy()
     return _surface(_DXGI[dxgi], raw, start, width, height)

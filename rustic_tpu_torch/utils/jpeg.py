@@ -327,9 +327,9 @@ class _Decoder:
     (jdinput.c, the entropy decoders), and output (jdcoefct.c, jidctint,
     jdsample.c, jdcolor.c)."""
 
-    def __init__(self, raw: bytes, cmyk: bool = False):
+    def __init__(self, raw: bytes, cmyk: bool = False, whole: bool = False):
         self.raw = raw
-        self.fed = min(len(raw), FEED)
+        self.fed = len(raw) if whole else min(len(raw), FEED)
         self.finishing = False  # a one-pass image is output: a suspension ends the decode
         self.cmyk = cmyk  # Pillow's jpegmode "CMYK" (BLP): no YCCK conversion
         self.qt = {}
@@ -343,6 +343,7 @@ class _Decoder:
         self.scans = 0
         self.multiscan = None
         self.last_good = 0  # jdmaster last_good_iMCU_row
+        self.output_ends = False  # libtiff: a one-scan image ends with its last row
 
     # ---- the source ----------------------------------------------------------------------
 
@@ -429,6 +430,15 @@ class _Decoder:
                              "truncated)") from None
 
     def _run(self) -> np.ndarray:
+        self._markers()
+        if self.frame is None or not self.scans:
+            raise ValueError("JPEG has no image (no frame, or no scan)")
+        return self._image()
+
+    def _markers(self, tables_only: bool = False):
+        """jdmarker.c read_markers from SOI to EOI (each scan decoded as it
+        comes); `tables_only`: an abbreviated stream of tables, which
+        may hold no frame and no scan."""
         raw = self.raw
         if raw[:2] != b"\xff\xd8":
             raise ValueError("not a JPEG file (no SOI marker)")
@@ -446,9 +456,14 @@ class _Decoder:
                     continue
                 if m in _REFUSED_SOF:
                     _refuse(_REFUSED_SOF[m])
+                if tables_only and (m == 0xDA or m in _FRAMES):
+                    raise ValueError("JPEG tables hold a frame or a scan (libtiff: bogus "
+                                     "JPEGTables field)")
                 if m == 0xDA:
                     body, pos = self._sos_header(pos)
                     pos, marker = self._scan(body, pos)
+                    if self.output_ends and self.finishing:
+                        break
                 elif m in _FRAMES:
                     pos = self._frame(m, pos)
                 elif m == 0xC4:
@@ -465,9 +480,6 @@ class _Decoder:
                     raise ValueError(f"JPEG marker 0x{m:02x} is unknown to libjpeg")
         except _Finished:
             pass
-        if self.frame is None or not self.scans:
-            raise ValueError("JPEG has no image (no frame, or no scan)")
-        return self._image()
 
     def _frame(self, marker, pos):
         """jdmarker.c get_sof from `pos` (after the marker) -> the position
@@ -720,6 +732,21 @@ class _Decoder:
     # ---- pixels ---------------------------------------------------------------------------
 
     def _image(self) -> np.ndarray:
+        planes = self._planes()
+        if len(planes) == 1:
+            return to_rgba("L", planes[0])
+        if len(planes) == 4:
+            px = np.stack(planes, -1)
+            if not self.cmyk and self.adobe is not None and self.adobe != 0:
+                px[..., :3] = np.clip(255 - _ycc_sums(*planes[:3]), 0, 255)  # YCCK -> CMYK
+            return to_rgba("CMYK", 255 - px)  # Pillow's "CMYK;I" rawmode
+        if self._is_rgb():
+            return to_rgba("RGB", np.stack(planes, -1))
+        return to_rgba("RGB", _ycc_to_rgb(*planes))
+
+    def _planes(self) -> list:
+        """Each component's samples at the frame's full size (jdcoefct.c,
+        jidctint, jdsample.c), before any colour conversion."""
         _, height, width = self.frame
         lossless = self.kind == "lossless"
         if lossless and (len(self.comps) == 3 and not self._is_rgb() or len(self.comps) == 4 and (
@@ -747,16 +774,7 @@ class _Decoder:
             planes.append(_upsample(plane[:dh, :dw], self.hmax // c.h, self.vmax // c.v,
                                     c.h, c.v, self.hmax, self.vmax,
                                     fancy=not lossless)[:height, :width])
-        if len(planes) == 1:
-            return to_rgba("L", planes[0])
-        if len(planes) == 4:
-            px = np.stack(planes, -1)
-            if not self.cmyk and self.adobe is not None and self.adobe != 0:
-                px[..., :3] = np.clip(255 - _ycc_sums(*planes[:3]), 0, 255)  # YCCK -> CMYK
-            return to_rgba("CMYK", 255 - px)  # Pillow's "CMYK;I" rawmode
-        if self._is_rgb():
-            return to_rgba("RGB", np.stack(planes, -1))
-        return to_rgba("RGB", _ycc_to_rgb(*planes))
+        return planes
 
     def _is_rgb(self) -> bool:
         """libjpeg's guess of a 3-component colour space (jdapimin.c
@@ -1003,3 +1021,53 @@ def decode_jpeg(raw: bytes, header: JpegHeader = None, cmyk: bool = False) -> np
         raise ValueError(f"JPEG frame of {out.shape[1]}x{out.shape[0]} where Pillow's header "
                          f"reader saw {header.width}x{header.height}")
     return out
+
+
+def tiff_jpeg_tables(tables: bytes):
+    """A TIFF's JPEGTables (tag 347), an abbreviated stream of DQT and DHT
+    segments, as jpeg_read_header(FALSE) loads it -> the quantisation and
+    Huffman tables, which persist into each strip's stream."""
+    dec = _Decoder(bytes(tables) + _EOI_FILL, whole=True)
+    try:
+        dec._markers(tables_only=True)
+    except _Truncated:
+        raise ValueError("TIFF JPEGTables run past their end") from None
+    except (IndexError, KeyError, struct.error) as e:
+        raise ValueError(f"TIFF JPEGTables are corrupt: {type(e).__name__}: {e}") from e
+    return dec.qt, dec.dc, dec.ac
+
+
+# libtiff's source manager hands libjpeg an EOI marker wherever a strip's data ends early
+_EOI_FILL = b"\xff\xd9" * 32768
+
+
+def decode_tiff_jpeg(stream: bytes, tables, ycbcr_to_rgb: bool):
+    """One strip or tile of a JPEG-compressed TIFF (compression 7) as
+    libtiff 4.7.1's tif_jpeg.c decodes it under Pillow -> (uint8 [H, W, n]
+    at the stream's frame size, each component's (h, v) sampling).
+    `tables` come from `tiff_jpeg_tables` (or None). With `ycbcr_to_rgb`
+    (photometric YCbCr, chunky: Pillow sets JPEGCOLORMODE_RGB) libjpeg
+    upsamples and converts YCbCr to RGB whatever the markers say; any
+    other photometric turns libjpeg's colour handling off (JCS_UNKNOWN):
+    the components as they are."""
+    dec = _Decoder(bytes(stream) + _EOI_FILL, whole=True)
+    dec.output_ends = True  # what follows a one-scan image's scan only reaches
+    # jpeg_finish_decompress, whose errors libtiff's JPEGDecode ignores
+    if tables is not None:
+        qt, dc, ac = tables
+        dec.qt, dec.dc, dec.ac = dict(qt), dict(dc), dict(ac)
+    try:
+        dec._markers()
+        if dec.frame is None or not dec.scans:
+            raise ValueError("TIFF JPEG strip has no image (no frame, or no scan)")
+        if dec.kind == "lossless":
+            _refuse("lossless JPEG in a TIFF strip")
+        planes = dec._planes()
+    except _Truncated:
+        raise ValueError("TIFF JPEG strip runs past its end") from None
+    except (IndexError, KeyError, struct.error) as e:
+        raise ValueError(f"TIFF JPEG strip is corrupt: {type(e).__name__}: {e}") from e
+    sampling = [(c.h, c.v) for c in dec.comps]
+    if ycbcr_to_rgb and len(planes) == 3:
+        return _ycc_to_rgb(*planes), sampling
+    return np.stack(planes, -1), sampling

@@ -21,11 +21,23 @@ arrays:
   tests/derive_ycc_tables.py: dR and dB exactly, gCb and gCr as integer
   tables that give its g on all 2**24 inputs (the suite holds them to
   it).
+- "LAB" (a and b signed bytes): Pillow's `convert` sends it through
+  LittleCMS 2.17 (ImageCms, its built-in Lab V2 profile to sRGB,
+  perceptual): a and b offset by 128, each 8-bit band widened to 16 bits
+  (x * 257), then LittleCMS's optimised transform: the pipeline Lab ->
+  XYZ (D50) -> the inverse of sRGB's colorant matrix (Rec. 709 primaries
+  and D65 adapted to D50 by Bradford) -> the inverse sRGB curve, sampled
+  on a 33^3 grid of 16-bit nodes (float stages, each node rounded as
+  _cmsQuickSaturateWord rounds), read by tetrahedral interpolation in
+  16-bit fixed point (TetrahedralInterp16) and cut to 8 bits
+  ((x * 65281 + 2^23) >> 24). `lab_nodes` computes the grid; the suite
+  holds the result to Pillow's on every L and a against a spread of b.
 """
 
 from __future__ import annotations
 
 import base64
+import functools
 import zlib
 
 import numpy as np
@@ -96,6 +108,118 @@ def ycbcr_to_rgb(px: np.ndarray) -> np.ndarray:
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
+# ---- LAB -> RGB as LittleCMS 2.17 computes it under Pillow 12.1.0 ------------------------------
+
+_MAX_XYZ = 1.0 + 32767.0 / 32768.0  # LittleCMS's XYZ encoding (MAX_ENCODEABLE_XYZ)
+_D50 = (0.9642, 1.0, 0.8249)
+_LAB_GRID = 33  # _cmsReasonableGridpointsByColorspace for three channels
+
+
+def _inv3(a):
+    """_cmsMAT3inverse, in its order of operations."""
+    c0 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
+    c1 = -a[1][0] * a[2][2] + a[1][2] * a[2][0]
+    c2 = a[1][0] * a[2][1] - a[1][1] * a[2][0]
+    det = a[0][0] * c0 + a[0][1] * c1 + a[0][2] * c2
+    return [[c0 / det, (a[0][2] * a[2][1] - a[0][1] * a[2][2]) / det,
+             (a[0][1] * a[1][2] - a[0][2] * a[1][1]) / det],
+            [c1 / det, (a[0][0] * a[2][2] - a[0][2] * a[2][0]) / det,
+             (a[0][2] * a[1][0] - a[0][0] * a[1][2]) / det],
+            [c2 / det, (a[0][1] * a[2][0] - a[0][0] * a[2][1]) / det,
+             (a[0][0] * a[1][1] - a[0][1] * a[1][0]) / det]]
+
+
+def _mul3(a, b):
+    return [[a[i][0] * b[0][j] + a[i][1] * b[1][j] + a[i][2] * b[2][j] for j in range(3)]
+            for i in range(3)]
+
+
+def _eval3(a, v):
+    return [a[i][0] * v[0] + a[i][1] * v[1] + a[i][2] * v[2] for i in range(3)]
+
+
+def _srgb_to_xyz_d50():
+    """cmsCreate_sRGBProfile's colorants: _cmsBuildRGB2XYZtransferMatrix of
+    Rec. 709 under D65, adapted to D50 by Bradford (_cmsAdaptMatrixToD50)."""
+    xn, yn = 0.3127, 0.3290
+    (xr, yr), (xg, yg), (xb, yb) = (0.64, 0.33), (0.30, 0.60), (0.15, 0.06)
+    coef = _eval3(_inv3([[xr, xg, xb], [yr, yg, yb], [1 - xr - yr, 1 - xg - yg, 1 - xb - yb]]),
+                  [xn / yn, 1.0, (1.0 - xn - yn) / yn])
+    m = [[coef[0] * xr, coef[1] * xg, coef[2] * xb], [coef[0] * yr, coef[1] * yg, coef[2] * yb],
+         [coef[0] * (1.0 - xr - yr), coef[1] * (1.0 - xg - yg), coef[2] * (1.0 - xb - yb)]]
+    brad = [[0.8951, 0.2664, -0.1614], [-0.7502, 1.7135, 0.0367], [0.0389, -0.0685, 1.0296]]
+    src = _eval3(brad, [(xn / yn) * 1.0, 1.0, ((1 - xn - yn) / yn) * 1.0])
+    dst = _eval3(brad, list(_D50))
+    cone = [[dst[0] / src[0], 0.0, 0.0], [0.0, dst[1] / src[1], 0.0], [0.0, 0.0, dst[2] / src[2]]]
+    return _mul3(_mul3(_inv3(brad), _mul3(cone, brad)), m)
+
+
+def _saturate_word(d: np.ndarray) -> np.ndarray:
+    """_cmsQuickSaturateWord: d + 0.5, clipped, floored at the 2^-16 its
+    magic-number floor keeps."""
+    d = np.asarray(d, np.float64) + 0.5
+    magic = 68719476736.0 * 1.5
+    floor = np.floor(((d - 32767.0) + magic - magic) * 65536.0).astype(np.int64) >> 16
+    return np.where(d <= 0, 0, np.where(d >= 65535.0, 65535, floor + 32767))
+
+
+@functools.lru_cache(maxsize=None)
+def lab_nodes() -> np.ndarray:
+    """The 33^3 grid LittleCMS samples its Lab -> sRGB pipeline on -> int64
+    [33, 33, 33, 3] (L, a, b -> R, G, B, 16-bit)."""
+    f32 = np.float32
+    q = _saturate_word(np.arange(_LAB_GRID) * 65535.0 / (_LAB_GRID - 1))  # _cmsQuantizeVal
+    planes = [(x.astype(f32) / f32(65535.0)).astype(np.float64)
+              for x in np.meshgrid(q, q, q, indexing="ij")]  # From16ToFloat
+    y = (planes[0] * 100.0 + 16.0) / 116.0  # EvaluateLab2XYZ, cmsLab2XYZ
+    xyz = []
+    for t, white in ((y + 0.002 * (planes[1] * 255.0 - 128.0), _D50[0]), (y, _D50[1]),
+                     (y - 0.005 * (planes[2] * 255.0 - 128.0), _D50[2])):
+        f = np.where(t <= 24.0 / 116.0, (108.0 / 841.0) * (t - 16.0 / 116.0), t * t * t)
+        xyz.append((f * white / _MAX_XYZ).astype(f32).astype(np.float64))
+    inv = _inv3(_srgb_to_xyz_d50())
+    g, a, b, c, d = 2.4, 1.0 / 1.055, 0.055 / 1.055, 1.0 / 12.92, 0.04045
+    disc = (a * d + b) ** g
+    out = []
+    for i in range(3):  # the matrix (float out), then the inverse curve (parametric type -4)
+        r = (xyz[0] * (inv[i][0] * _MAX_XYZ) + xyz[1] * (inv[i][1] * _MAX_XYZ)
+             + xyz[2] * (inv[i][2] * _MAX_XYZ)).astype(f32).astype(np.float64)
+        v = np.where(r >= disc, (np.power(np.maximum(r, 0.0), 1.0 / g) - b) / a, r / c)
+        out.append(_saturate_word(v.astype(f32).astype(np.float64) * 65535.0))
+    return np.stack(out, -1)
+
+
+def lab_to_rgb(px: np.ndarray) -> np.ndarray:
+    """uint8 [..., 3] of Pillow's "LAB" (a and b signed) -> uint8 [..., 3]
+    RGB, as its convert computes it (TetrahedralInterp16 on `lab_nodes`)."""
+    shape = px.shape[:-1]
+    v = px.reshape(-1, 3).astype(np.int64)
+    v[:, 1:] ^= 128
+    v *= 257
+    g = _LAB_GRID
+    table = lab_nodes().reshape(-1, 3)
+    f = v * (g - 1)
+    f += (f + 0x7FFF) // 0xFFFF  # _cmsToFixedDomain
+    r = f & 0xFFFF
+    rx, ry, rz = r[:, 0], r[:, 1], r[:, 2]
+    base = (f[:, 0] >> 16) * g * g + (f[:, 1] >> 16) * g + (f[:, 2] >> 16)
+    step = np.where(v == 0xFFFF, 0, np.array([g * g, g, 1]))
+    x, y, z = step[:, 0], step[:, 1], step[:, 2]
+    # the six tetrahedra: the vertices after the first, in the order the weights take them
+    case = np.select([(rx >= ry) & (ry >= rz), (rx >= ry) & (rz >= rx), rx >= ry, rx >= rz,
+                      ry >= rz], [0, 1, 2, 3, 4], 5)
+    order = np.array([[0, 1, 2], [2, 0, 1], [0, 2, 1], [1, 0, 2], [1, 2, 0], [2, 1, 0]])[case]
+    w = np.take_along_axis(r, order, 1)  # the weights, largest first
+    steps = np.take_along_axis(np.stack([x, y, z], 1), order, 1)
+    p0 = table[base]
+    p1 = table[base + steps[:, 0]]
+    p2 = table[base + steps[:, 0] + steps[:, 1]]
+    p3 = table[base + steps[:, 0] + steps[:, 1] + steps[:, 2]]
+    rest = (p1 - p0) * w[:, :1] + (p2 - p1) * w[:, 1:2] + (p3 - p2) * w[:, 2:] + 0x8001
+    out16 = (p0 + ((rest + (rest >> 16)) >> 16)) & 0xFFFF
+    return ((out16 * 65281 + 8388608) >> 24).astype(np.uint8).reshape(shape + (3,))
+
+
 def to_rgba(mode: str, px: np.ndarray, palette: np.ndarray = None,
             transparency=None) -> np.ndarray:
     """An image of Pillow mode `mode` ([H, W] for one band, [H, W, n] for
@@ -123,6 +247,8 @@ def to_rgba(mode: str, px: np.ndarray, palette: np.ndarray = None,
             out[..., 3] = alpha[idx]
     elif mode == "YCbCr":
         out[..., :3] = ycbcr_to_rgb(px)
+    elif mode == "LAB":
+        out[..., :3] = lab_to_rgb(px)
     elif mode == "I;16":
         out[..., :3] = np.minimum(px, 255).astype(np.uint8)[..., None]
     elif mode in ("RGB", "RGBA"):

@@ -48,11 +48,11 @@ from rustic_tpu_torch.utils import (FORMATS_TODO, NotThisFormat, blp, fits, fli,
                                     spider, sun, xbm, xpm)
 from rustic_tpu_torch.utils.bmp_tga import (DIB_HEADERS, dib_rgba, open_bmp, open_dib,
                                             decode_tga, tga_refusal)
-from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds
+from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds, open_dds
 from rustic_tpu_torch.utils.gif import decode_gif
 from rustic_tpu_torch.utils.jpeg import decode_jpeg, open_jpeg
 from rustic_tpu_torch.utils.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
-from rustic_tpu_torch.utils.psd import PSD_SIGNATURE, decode_psd
+from rustic_tpu_torch.utils.psd import PSD_SIGNATURE, decode_psd, open_psd
 from rustic_tpu_torch.utils.tiff import decode_tiff
 from rustic_tpu_torch.utils.webp import decode_webp
 
@@ -289,7 +289,7 @@ _PLUGINS = {
             _opened(ico.open_cur, lambda raw, h: dib_rgba(raw, *h))),
     "PCX": (lambda p, n: pcx.accept_pcx(p), _opened(pcx.read_pcx, pcx.decode_pcx)),
     "DCX": (lambda p, n: pcx.accept_dcx(p), _opened(pcx.open_dcx, pcx.decode_pcx)),
-    "DDS": (lambda p, n: p[:4] == DDS_SIGNATURE, _whole(decode_dds)),
+    "DDS": (lambda p, n: p[:4] == DDS_SIGNATURE, _opened(open_dds, lambda r, h: decode_dds(r))),
     "FITS": (lambda p, n: fits.accept(p), _opened(fits.open_fits, fits.decode_fits)),
     "FLI": (lambda p, n: fli.accept(p), _opened(fli.open_fli, fli.decode_fli)),
     "FTEX": (lambda p, n: p.startswith(ftex.MAGIC), _opened(ftex.open_ftex, ftex.decode_ftex)),
@@ -305,7 +305,7 @@ _PLUGINS = {
     "MSP": (lambda p, n: msp.accept(p), _opened(msp.open_msp, msp.decode_msp)),
     "PCD": (_always, _opened(pcd.open_pcd, pcd.decode_pcd)),
     "PIXAR": (lambda p, n: p.startswith(pixar.MAGIC), _opened(pixar.open_pixar, pixar.decode_pixar)),
-    "PSD": (lambda p, n: p[:4] == PSD_SIGNATURE, _whole(decode_psd)),
+    "PSD": (lambda p, n: p[:4] == PSD_SIGNATURE, _opened(open_psd, lambda r, h: decode_psd(r))),
     "QOI": (lambda p, n: p[:4] == qoi.QOI_SIGNATURE, _opened(qoi.open_qoi, qoi.decode_qoi)),
     "SGI": (lambda p, n: sgi.accept(p), _opened(sgi.open_sgi, sgi.decode_sgi)),
     "SPIDER": (_always, _opened(spider.open_spider, spider.decode_spider)),

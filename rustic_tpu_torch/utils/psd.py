@@ -39,9 +39,9 @@ import struct
 
 import numpy as np
 
-from rustic_tpu_torch.utils import FORMATS_TODO, _entropy
+from rustic_tpu_torch.utils import FORMATS_TODO, NotThisFormat, _entropy
 from rustic_tpu_torch.utils._entropy import ptr
-from rustic_tpu_torch.utils.modes import muldiv255
+from rustic_tpu_torch.utils.modes import check_pixels, muldiv255
 
 PSD_SIGNATURE = b"8BPS"
 # (colour mode, depth) -> (Pillow mode, channels it reads)
@@ -75,18 +75,36 @@ class _Reader:
 
 
 def _skip_resources(r: _Reader):
-    """Step over the image resources entry by entry, as Pillow does (a
-    last entry that overruns the section's length moves the image data
-    with it)."""
-    end = r.pos + r.u32()
+    """Step over the image resources entry by entry, as Pillow does: the
+    section ends its length after that length's own 4 bytes, a last entry
+    that overruns it moves the image data with it, and a read past the
+    file's end stops there (a file read), except where a number is cut
+    short (Pillow's struct.error, or IndexError for the name's length:
+    Image.open passes the file on)."""
+    end = r.pos + 4
+    end += r.u32()
+    raw = r.raw
+
+    def read(n):
+        out = raw[r.pos : r.pos + n]
+        r.pos += len(out)
+        return out
+
+    def number(n):
+        b = read(n)
+        if len(b) < n:
+            raise NotThisFormat("PSD image resource is cut short")
+        return int.from_bytes(b, "big")
+
     while r.pos < end:
-        r.take(4 + 2)  # signature, id
-        name = r.take(r.take(1)[0])
+        read(4)  # signature
+        number(2)  # id
+        name = read(number(1))
         if not len(name) & 1:
-            r.take(1)
-        data = r.take(r.u32())
+            read(1)
+        data = read(number(4))
         if len(data) & 1:
-            r.take(1)
+            read(1)
 
 
 def _planes(r: _Reader, compression: int, channels: int, rows: int, row_bytes: int,
@@ -114,7 +132,14 @@ def _planes(r: _Reader, compression: int, channels: int, rows: int, row_bytes: i
     return out
 
 
-def decode_psd(raw: bytes) -> np.ndarray:
+def open_psd(raw: bytes):
+    """PsdImageFile._open and Image.open's checks after it (utils/png.py
+    runs it at the open, as Pillow does): a size of zero passes the file
+    on, a decompression bomb ends the open."""
+    decode_psd(raw, _stop=True)
+
+
+def decode_psd(raw: bytes, _stop: bool = False) -> np.ndarray:
     """PSD bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
     raw = bytes(raw)
     r = _Reader(raw)
@@ -142,6 +167,11 @@ def decode_psd(raw: bytes) -> np.ndarray:
     compression = r.u16()
     if compression not in (0, 1):
         _refuse(_COMPRESSIONS.get(compression, f"compression {compression}"))
+    if width <= 0 or height <= 0:  # ImageFile's SyntaxError for an empty size
+        raise NotThisFormat(f"PSD of size {width}x{height}")
+    check_pixels(width, height, "PSD")
+    if _stop:
+        return None
     row_bytes = (width + 7) // 8 if mode == "1" else width
     planes = _planes(r, compression, channels, height, row_bytes, width)
 

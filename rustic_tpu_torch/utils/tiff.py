@@ -1,15 +1,18 @@
 """A NumPy TIFF decoder for scene textures and LDR skyboxes.
 
 The JAX package reads TIFFs through Pillow (`Image.open(...).convert("RGBA")`,
-libtiff underneath for compressed files); `decode_tiff` gives the same
-uint8 [H, W, 4]. It reads classic TIFF, little-endian (II) and big-endian
-(MM), its first IFD (page 0): strips or tiles; compression none (1),
-PackBits (32773), LZW (5: most significant bit first, codes widened one
-code early) and Deflate (8, and the old code 32946); predictor 1, and
-horizontal differencing (predictor 2) at 8 and 16 bits; planar
-configuration 1 (chunky) and 2 (one plane a sample). Pixels follow
-Pillow's table of modes (TiffImagePlugin.OPEN_INFO) and its conversions
-to RGBA:
+libtiff 4.7.1 underneath for compressed files); `decode_tiff` gives the
+same uint8 [H, W, 4]. It reads classic TIFF, little-endian (II) and
+big-endian (MM), its first IFD (page 0, as Pillow's directory reader
+reads it: it stops at an entry or value past the file's end): strips or
+tiles; compression none (1), PackBits (32773), LZW (5: most significant
+bit first, codes widened one code early), Deflate (8, and the old code
+32946), CCITT modified Huffman (2), T.4 (3: one-dimensional, or
+two-dimensional where Group3Options' bit 0 is set) and T.6 (4), and JPEG
+(7); predictor 1, and horizontal differencing (predictor 2) at 8 and 16
+bits; planar configuration 1 (chunky) and 2 (one plane a sample). Pixels
+follow Pillow's table of modes (TiffImagePlugin.OPEN_INFO) and its
+conversions to RGBA:
 
 - grey, min-is-black or min-is-white, at 1, 2, 4 and 8 bits (scaled to
   0-255; min-is-white inverted), with an unassociated alpha at 8 bits;
@@ -22,19 +25,45 @@ to RGBA:
   min(255, c * 255 // a), all zero where a is 0) or unspecified (0:
   dropped);
 - palette at 1, 2, 4 and 8 bits, each 16-bit colour map entry cut to its
-  high byte.
+  high byte;
+- CMYK at 8 bits (with up to two unspecified extra samples) and 16 (cut
+  to the high byte), converted as Pillow's "CMYK" (not inverted);
+- CIELab at 8 bits, a and b signed, through LittleCMS's transform as
+  Pillow's convert runs it (utils/modes.py `lab_to_rgb`);
+- YCbCr at 8 bits, chunky: with JPEG compression libjpeg converts it to
+  RGB (Pillow sets JPEGCOLORMODE_RGB); with LZW, Deflate or PackBits
+  through libtiff's RGBA interface (TIFFRGBAImage: each data unit's h x v
+  luma samples with its Cb and Cr, subsamplings 1x1, 1x2, 2x1, 2x2, 4x1,
+  4x2 and 4x4, ReferenceBlackWhite and YCbCrCoefficients in tif_color.c's
+  float and 16.16 fixed-point tables); uncompressed, as Pillow reads it
+  without libtiff: rawmode "RGBX", 4 bytes a pixel from each strip's
+  offset, nothing converted.
+
+CCITT data goes through csrc/image_entropy.cpp `ccitt_rows`, libtiff's
+decoder (its repairs of a bad row, its reading of T.4 data without EOLs,
+run arrays and Pillow's strip buffer kept from strip to strip). JPEG
+strips and tiles go through utils/jpeg.py `decode_tiff_jpeg`, libtiff's
+use of libjpeg: JPEGTables loaded first, then each abbreviated stream;
+YCbCr converted to RGB and upsampled, any other photometric's components
+taken as they are; each strip's sampling held to the first's; a JPEG
+smaller than its strip or tile fills what it reaches.
 
 An uncompressed strip or tile is read from its offset as far as its
 pixels need, whatever its byte count says (as Pillow reads it); a strip
 or tile that holds fewer bytes than its pixels raises ValueError, as
-Pillow refuses it.
+Pillow refuses it; tags and data that do not hold together raise
+ValueError.
 
-JPEG-compressed (7) and old-JPEG (6) files, other compressions, YCbCr,
-CMYK, CIELab and mask images, signed or floating-point samples, the
-floating-point predictor, bit-reversed fill order, an orientation other
-than 1, old-style LZW and BigTIFF raise NotImplementedError naming the
-variant; so do three layouts Pillow misreads, which the port refuses
-rather than copy: planar configuration 2 with an extra sample (Pillow
+These raise NotImplementedError naming the variant: old-JPEG (6),
+RLE-word (32771), ThunderScan, SGILog, JPEG 2000, LZMA, Zstandard and
+WebP compression, signed or floating-point samples, the floating-point
+predictor, mask, ICCLab, ITULab and LogLuv images, old-style LZW and
+BigTIFF, bit-reversed fill order, an orientation other than 1, YCbCr in
+planar configuration 2 or with the predictor. Of these Pillow reads the
+fill order and the orientation, and LZMA where a file has it (its libtiff
+has the codec; its writer here falls back to no compression, so no such
+file is made to test against). Three layouts Pillow misreads are refused
+rather than copied: planar configuration 2 with an extra sample (Pillow
 reads the alpha as 0), uncompressed planar configuration 2 at 16 bits
 (Pillow reads 8 of the 16) and the horizontal predictor without
 compression or with PackBits (libtiff and Pillow ignore it there).
@@ -51,19 +80,19 @@ import zlib
 
 import numpy as np
 
-from rustic_tpu_torch.utils import FORMATS_TODO
+from rustic_tpu_torch.utils import FORMATS_TODO, jpeg
+from rustic_tpu_torch.utils.modes import to_rgba
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
           11: "f", 12: "d", 13: "I"}  # field type -> struct codes of one value
-_COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32773: "PackBits", 32946: "Deflate"}
-_REFUSED_COMPRESSIONS = {2: "CCITT RLE (2)", 3: "CCITT Group 3 (3)", 4: "CCITT Group 4 (4)",
-                         6: "old-JPEG-compressed (6)", 7: "JPEG-compressed (7)",
-                         32771: "RLE-word (32771)", 32809: "ThunderScan (32809)",
+_COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
+                 7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate"}
+_REFUSED_COMPRESSIONS = {6: "old-JPEG-compressed (6)", 32771: "RLE-word (32771)", 32809: "ThunderScan (32809)",
                          34676: "SGILog (34676)", 34677: "SGILog24 (34677)",
                          34712: "JPEG 2000-compressed (34712)", 34925: "LZMA-compressed (34925)",
                          50000: "Zstandard-compressed (50000)", 50001: "WebP-compressed (50001)"}
-_REFUSED_PHOTOMETRIC = {4: "transparency-mask", 5: "CMYK", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
-                        10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+_REFUSED_PHOTOMETRIC = {4: "transparency-mask", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
+                        32845: "LogLuv"}
 
 
 def _refuse(variant: str):
@@ -71,23 +100,30 @@ def _refuse(variant: str):
 
 
 def _ifd(raw: bytes, order: str, pos: int) -> dict:
-    """The IFD at `pos` -> {tag: tuple of its values}."""
-    (n,) = struct.unpack(order + "H", raw[pos : pos + 2])
+    """The IFD at `pos` -> {tag: tuple of its values}, as Pillow's
+    ImageFileDirectory_v2.load reads it: an entry of an unknown type or of
+    no values is skipped, and the reading stops (the tags so far kept)
+    where the count, an entry or a value runs past the file's end."""
     tags = {}
+    if pos + 2 > len(raw):
+        return tags
+    (n,) = struct.unpack(order + "H", raw[pos : pos + 2])
     for i in range(n):
-        tag, kind, count, inline = struct.unpack(order + "HHI4s", raw[pos + 2 + 12 * i :
-                                                                     pos + 14 + 12 * i])
-        if kind not in _TYPES:
+        entry = raw[pos + 2 + 12 * i : pos + 14 + 12 * i]
+        if len(entry) < 12:
+            break
+        tag, kind, count, inline = struct.unpack(order + "HHI4s", entry)
+        if kind not in _TYPES or count == 0:
             continue
-        fmt = _TYPES[kind] * count
-        size = struct.calcsize(order + fmt)
+        size = struct.calcsize(order + _TYPES[kind]) * count
         if size <= 4:
             data = inline[:size]
         else:
             (off,) = struct.unpack(order + "I", inline)
             data = raw[off : off + size]
-        if len(data) == size:
-            tags[tag] = struct.unpack(order + fmt, data)
+            if len(data) < size:
+                break
+        tags[tag] = struct.unpack(order + _TYPES[kind] * count, data)
     return tags
 
 
@@ -186,8 +222,15 @@ def _samples(block: bytes, rows: int, width: int, n: int, bps: int, order: str,
 
 def decode_tiff(raw: bytes) -> np.ndarray:
     """TIFF bytes -> uint8 [H, W, 4] of the first page, as Pillow's
-    convert("RGBA")."""
-    raw = bytes(raw)
+    convert("RGBA"). A file whose tags or data do not hold together raises
+    ValueError."""
+    try:
+        return _decode_tiff(bytes(raw))
+    except (IndexError, KeyError, TypeError, struct.error, zlib.error) as e:
+        raise ValueError(f"TIFF file is corrupt: {type(e).__name__}: {e}") from e
+
+
+def _decode_tiff(raw: bytes) -> np.ndarray:
     if raw[:4] in (b"II+\x00", b"MM\x00+"):
         _refuse("BigTIFF")
     if raw[:4] not in (b"II*\x00", b"MM\x00*"):
@@ -214,7 +257,7 @@ def decode_tiff(raw: bytes) -> np.ndarray:
         _refuse(f"compression {compression}")
     if photometric in _REFUSED_PHOTOMETRIC:
         _refuse(_REFUSED_PHOTOMETRIC[photometric])
-    if photometric not in (0, 1, 2, 3):
+    if photometric not in _PHOTOMETRIC:
         _refuse(f"photometric interpretation {photometric}")
     formats = set(tag(339, (1,)))
     if formats != {1}:
@@ -238,48 +281,273 @@ def decode_tiff(raw: bytes) -> np.ndarray:
                 + " compression")
     if planar not in (1, 2):
         raise ValueError(f"TIFF planar configuration {planar}")
-    colours = 3 if photometric == 2 else 1
+    colours = _PHOTOMETRIC[photometric]
     if planar == 2 and n > colours:
         _refuse("planar configuration 2 with extra samples")  # Pillow reads the alpha as 0
     if planar == 2 and compression == 1 and bps == 16:
         _refuse("uncompressed planar configuration 2 at 16 bits")  # Pillow reads it as 8-bit
     if n != colours + len(extra) and not (photometric == 2 and n == 4 and not extra):
         _refuse(f"{n} samples a pixel with extra samples {extra}")
+    if photometric in (5, 6, 8):
+        _check_layout(photometric, bps, extra, planar, compression, predictor)
+    if compression in _FAX and (bps != 1 or n != 1 or photometric not in (0, 1)):
+        _refuse(f"{_COMPRESSIONS[compression]} of {n} samples at {bps} bits")
+    if compression == 7 and bps != 8:
+        _refuse(f"JPEG-compressed samples of {bps} bits")
+
+    tiled = 324 in tags
+    if tiled:
+        bw, bh = tag(322)[0], tag(323)[0]  # tiles
+        offsets, counts = tag(324), tag(325)
+        across, down = -(-width // bw), -(-height // bh)
+        segments = [(ty * bh, tx * bw, bh) for ty in range(down) for tx in range(across)]
+    else:
+        rps = min(tag(278, (height,))[0], height)
+        bw, bh = width, rps
+        offsets, counts = tag(273), tag(279)
+        segments = [(y, 0, min(rps, height - y)) for y in range(0, height, rps)]
+    if photometric == 6 and compression == 1:  # Pillow's own reader: YCbCr bytes read as RGBX
+        return _ycbcr_raw(raw, offsets, tiled, width, height, bw, bh)
+    if photometric == 6 and compression != 7:  # libtiff's TIFFRGBAImage
+        return _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compression)
 
     per = n if planar == 1 else 1  # samples in each strip or tile
     planes = 1 if planar == 1 else n
     dtype = np.uint16 if bps == 16 else np.uint8
     px = np.zeros((height, width, n), dtype)
-    if 324 in tags:  # tiles
-        tw, tl = tag(322)[0], tag(323)[0]
-        offsets, counts = tag(324), tag(325)
-        across, down = -(-width // tw), -(-height // tl)
-        for i, (off, count) in enumerate(zip(offsets, counts)):
-            plane, k = divmod(i, across * down)
-            if plane >= planes:
-                break
-            ty, tx = divmod(k, across)
-            size = tl * ((tw * per * bps + 7) // 8)
-            block = _samples(_inflate(raw, off, count, compression, size), tl, tw, per, bps,
-                             order, predictor)
-            y0, x0 = ty * tl, tx * tw
-            h, w = min(tl, height - y0), min(tw, width - x0)
-            px[y0 : y0 + h, x0 : x0 + w, plane : plane + per] = block[:h, :w]
-    else:
-        rps = min(tag(278, (height,))[0], height)
-        offsets, counts = tag(273), tag(279)
-        strips = -(-height // rps)
-        for i, (off, count) in enumerate(zip(offsets, counts)):
-            plane, k = divmod(i, strips)
-            if plane >= planes:
-                break
-            y0 = k * rps
-            rows = min(rps, height - y0)
-            size = rows * ((width * per * bps + 7) // 8)
-            block = _samples(_inflate(raw, off, count, compression, size), rows, width, per,
-                             bps, order, predictor)
-            px[y0 : y0 + rows, :, plane : plane + per] = block
+    tables = None
+    if compression == 7 and 347 in tags:
+        tables = jpeg.tiff_jpeg_tables(bytes(tag(347)))
+    ycbcr_jpeg = compression == 7 and photometric == 6
+    jpeg_state = _JpegState(bh, bw, per) if compression == 7 else None
+    fax = _FaxState(bw, bh, compression, tags) if compression in _FAX else None
+    for i, (off, count) in enumerate(zip(offsets, counts)):
+        plane, k = divmod(i, len(segments))
+        if plane >= planes:
+            break
+        y0, x0, rows = segments[k]
+        if not tiled and rows <= 0:
+            break
+        if compression in _FAX:
+            block = _fax(raw, off, count, bw, bh if tiled else rows, compression, fax)
+        elif compression == 7:
+            block = _jpeg_block(raw, off, count, tables, ycbcr_jpeg, bh if tiled else rows,
+                                height - y0, jpeg_state)
+        else:
+            size = (bh if tiled else rows) * ((bw * per * bps + 7) // 8)
+            block = _inflate(raw, off, count, compression, size)
+        if compression != 7:
+            block = _samples(block, bh if tiled else rows, bw, per, bps, order, predictor)
+        h, w = min(bh, height - y0), min(bw, width - x0)
+        px[y0 : y0 + h, x0 : x0 + w, plane : plane + per] = block[:h, :w]
+    if ycbcr_jpeg:
+        photometric = 2  # libjpeg gave RGB
     return _to_rgba(px, photometric, bps, extra, order, tag(320))
+
+
+_PHOTOMETRIC = {0: 1, 1: 1, 2: 3, 3: 1, 5: 4, 6: 3, 8: 3}  # photometric -> its colour samples
+_FAX = (2, 3, 4)
+
+
+def _check_layout(photometric, bps, extra, planar, compression, predictor):
+    """The CMYK, YCbCr and CIELab layouts of Pillow's OPEN_INFO that the
+    port reads; the rest raise NotImplementedError naming them."""
+    name = {5: "CMYK", 6: "YCbCr", 8: "CIELab"}[photometric]
+    ok = {5: bps == 8 and extra in ((), (0,), (0, 0)) or bps == 16 and not extra,
+          6: bps == 8 and not extra, 8: bps == 8 and not extra}[photometric]
+    if not ok:
+        _refuse(f"{name} at {bps} bits with extra samples {extra}")
+    if photometric == 6 and planar != 1:
+        _refuse("YCbCr in planar configuration 2")
+    if photometric == 6 and predictor != 1 and compression != 7:
+        _refuse("YCbCr with the horizontal predictor")
+
+
+class _FaxState:
+    """What libtiff's fax decoder keeps from one strip or tile to the next
+    of an image: Pillow's strip buffer (a row libtiff stops before keeps
+    the strip before's, zero in the first: Pillow's own buffer holds
+    whatever its memory held, which no decoder can reproduce), the flag
+    for T.4 data without EOLs and the run arrays (a pass code past the
+    reference row's end reads what an earlier row left there)."""
+
+    def __init__(self, width, rows, compression, tags):
+        from rustic_tpu_torch.utils import _entropy
+
+        self.two_d = int(compression == 4 or compression == 3 and tags.get(292, (0,))[0] & 1)
+        self.rows = np.zeros(rows * ((width + 7) // 8), np.uint8)
+        self.no_eol = np.zeros(1, np.int32)
+        self.runs = np.zeros(2 * _entropy.library().ccitt_nruns(width, self.two_d) + 2, np.uint32)
+        self.short = False  # a T.6 strip ended early: Pillow's rows below it are its memory's
+
+
+def _fax(raw, off, count, width, rows, compression, state) -> bytes:
+    """One strip or tile of CCITT data -> its packed rows (black 1), through
+    csrc/image_entropy.cpp `ccitt_rows`, with the image's `_FaxState`."""
+    from rustic_tpu_torch.utils import _entropy
+
+    data = np.frombuffer(raw, np.uint8, count=max(0, min(count, len(raw) - off)), offset=off)
+    if count <= 0 or len(data) < count:
+        raise ValueError("TIFF fax strip or tile is empty or cut short (libtiff: read error)")
+    buf = state.rows
+    rowbytes = (width + 7) // 8
+    got = _entropy.library().ccitt_rows(_entropy.ptr(data), len(data), width, rows, compression,
+                                        state.two_d & (compression == 3), _entropy.ptr(buf),
+                                        _entropy.ptr(state.no_eol), _entropy.ptr(state.runs))
+    if got < 0:
+        raise ValueError(f"TIFF {_COMPRESSIONS[compression]} data is corrupt (libtiff: the "
+                         "strip or tile does not decode)")
+    state.short |= got < rows
+    return buf[: rows * rowbytes].tobytes()
+
+
+class _JpegState:
+    """What libtiff's JPEG codec and Pillow keep from one strip or tile to
+    the next: the sampling every strip is held to (the first strip's, as
+    JPEGFixupTags reads YCbCrSubsampling from it) and Pillow's buffer,
+    whose rows and columns a smaller JPEG does not reach keep what they
+    held (zero before the first strip: Pillow's own buffer holds whatever
+    its memory held, which no decoder reproduces)."""
+
+    def __init__(self, rows, width, per):
+        self.sampling = None
+        self.buf = np.zeros((rows, width, per), np.uint8)
+        self.short = False
+
+
+def _jpeg_block(raw, off, count, tables, ycbcr, rows, left, state) -> np.ndarray:
+    """One JPEG-compressed strip or tile -> uint8 [rows, width, per]."""
+    width, per = state.buf.shape[1:]
+    block, got = jpeg.decode_tiff_jpeg(raw[off : off + count], tables, ycbcr)
+    if block.shape[2] != per:
+        raise ValueError(f"TIFF JPEG strip of {block.shape[2]} components where the image has "
+                         f"{per} (libtiff: improper JPEG component count)")
+    state.sampling = state.sampling or got
+    want = [state.sampling[0]] + [(1, 1)] * (len(got) - 1) if ycbcr else [(1, 1)] * len(got)
+    if got != want:
+        raise ValueError(f"TIFF JPEG strip sampled {got} (libtiff: improper JPEG sampling "
+                         "factors)")
+    h, w = block.shape[:2]
+    if w > width or h > rows and not (w == width and rows == left):
+        raise ValueError(f"TIFF JPEG strip of {w}x{h} exceeds its {width}x{rows} (libtiff)")
+    n = min(h, rows)  # JPEGDecode reads no more rows than the JPEG has
+    state.buf[:n, :w] = block[:n]
+    state.short |= n < rows or w < width
+    return state.buf[:rows].copy()
+
+
+def _ycbcr_raw(raw, offsets, tiled, width, height, bw, bh) -> np.ndarray:
+    """Uncompressed YCbCr as Pillow 12.1.0 reads it without libtiff:
+    OPEN_INFO maps it to rawmode "RGBX", so each strip or tile's bytes
+    from its offset are read 4 a pixel as R, G, B and a padding byte,
+    whatever the subsampling, and nothing is converted."""
+    out = np.full((height, width, 4), 255, np.uint8)
+    if not tiled and bw == width and bh >= height:
+        offsets = offsets[-1:]  # Pillow: a strip that covers the image takes the last offset
+    x = y = 0
+    for off in offsets:
+        h, w = min(bh, height - y), min(bw, width - x)
+        stride = 4 * bw if x + bw > width else 4 * w
+        need = stride * (h - 1) + 4 * w
+        if off + need > len(raw):
+            raise ValueError("TIFF strip or tile runs past the end of the file (Pillow: image "
+                             "file is truncated)")
+        rows = np.frombuffer(raw, np.uint8, count=need, offset=off)
+        rows = np.concatenate([rows, np.zeros(stride * h - need, np.uint8)]).reshape(h, stride)
+        out[y : y + h, x : x + w, :3] = rows[:, : 4 * w].reshape(h, w, 4)[..., :3]
+        x += bw
+        if x >= width:
+            x, y = 0, y + bh
+            if y >= height:
+                break
+    return out
+
+
+def _ycbcr_tables(luma, refbw):
+    """libtiff 4.7.1 tif_color.c TIFFYCbCrToRGBInit in its float and
+    16.16 fixed-point arithmetic -> (Y, Cr->R, Cb->B, Cr->G, Cb->G) tables
+    of 256 int64 each."""
+    f32 = np.float32
+    red, green, blue = (f32(v) for v in luma)
+    one_half = 1 << 15
+
+    def fix(v):
+        return int(np.float64(v) * 65536.0 + 0.5)
+
+    def clamp(v, lo, hi):
+        return lo if v < lo else hi if v > hi else v
+
+    f1 = f32(2) - f32(2) * red
+    d1 = fix(clamp(f1, f32(0), f32(2)))
+    f2 = f32(red * f1 / green)
+    d2 = -fix(clamp(f2, f32(0), f32(2)))
+    f3 = f32(2) - f32(2) * blue
+    d3 = fix(clamp(f3, f32(0), f32(2)))
+    f4 = f32(blue * f3 / green)
+    d4 = -fix(clamp(f4, f32(0), f32(2)))
+    x = np.arange(-128, 128).astype(f32)
+    rbw = [f32(v) for v in refbw]
+
+    def code2v(c, rb, rw, cr):
+        span = rw - rb if rw - rb != 0 else f32(1)
+        return ((c - rb) * f32(cr)) / span
+
+    def clampw(v):  # CLAMPw to +-4096, then (int32_t): toward zero
+        v = np.where(v < f32(-4096), f32(-4096), np.where(v > f32(4096), f32(4096), v))
+        return np.trunc(v).astype(np.int64)
+
+    with np.errstate(all="ignore"):
+        cr = clampw(code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127))
+        cb = clampw(code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127))
+        y = clampw(code2v(x + f32(128), rbw[0], rbw[1], 255))
+    return (y, (d1 * cr + one_half) >> 16, (d3 * cb + one_half) >> 16, d2 * cr,
+            d4 * cb + one_half)
+
+
+# the subsamplings libtiff's TIFFRGBAImage has a put routine for (PickContigCase)
+_YCBCR_SUBSAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+
+
+def _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compression):
+    """Compressed YCbCr through libtiff's RGBA interface (Pillow's
+    _decodeAsRGBA): the data units of each strip or tile (h x v luma
+    samples, then Cb and Cr), each pixel converted by TIFFYCbCrtoRGB with
+    its unit's chroma (tif_getimage.c putcontig8bitYCbCr*tile)."""
+    hs, vs = tags.get(530, (2, 2))[:2]  # libtiff's default subsampling is 2x2
+    if (hs, vs) not in _YCBCR_SUBSAMPLINGS:
+        raise ValueError(f"TIFF YCbCr subsampling {hs}x{vs} (libtiff: can not handle format)")
+    luma = tags.get(529, (299, 1000, 587, 1000, 114, 1000))
+    luma = [np.float32(np.float32(luma[2 * i]) / np.float32(luma[2 * i + 1])) if luma[2 * i + 1]
+            else np.float32(0) for i in range(3)]
+    refbw = tags.get(532)
+    refbw = ([np.float32(np.float32(refbw[2 * i]) / np.float32(refbw[2 * i + 1]))
+              if refbw[2 * i + 1] else np.float32(0) for i in range(6)] if refbw
+             else [0, 255, 128, 255, 128, 255])
+    if luma[1] == 0:
+        raise ValueError("TIFF YCbCrCoefficients with a green of 0 (libtiff refuses them)")
+    y_tab, cr_r, cb_b, cr_g, cb_g = _ycbcr_tables(luma, refbw)
+    units_x = -(-bw // hs)
+    unit = hs * vs + 2
+    out = np.full((height, width, 4), 255, np.uint8)
+    for i, (off, count) in enumerate(zip(offsets, counts)):
+        if i >= len(segments):
+            break
+        y0, x0, rows = segments[i]
+        units_y = -(-rows // vs)
+        size = units_y * units_x * unit
+        data = _inflate(raw, off, count, compression, size)
+        if len(data) < size:
+            raise ValueError("TIFF YCbCr strip or tile holds fewer bytes than its data units")
+        u = np.frombuffer(data, np.uint8, count=size).reshape(units_y, units_x, unit)
+        lum = u[..., : hs * vs].reshape(units_y, units_x, vs, hs).transpose(0, 2, 1, 3)
+        lum = lum.reshape(units_y * vs, units_x * hs).astype(np.int64)
+        cb = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1).astype(np.int64)
+        cr = np.repeat(np.repeat(u[..., -1], vs, 0), hs, 1).astype(np.int64)
+        yv = y_tab[lum]
+        rgb = np.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> 16), yv + cb_b[cb]], -1)
+        h, w = min(rows, height - y0), min(bw, width - x0)
+        out[y0 : y0 + h, x0 : x0 + w, :3] = np.clip(rgb, 0, 255)[:h, :w]
+    return out
 
 
 def _to_rgba(px, photometric, bps, extra, order, colour_map) -> np.ndarray:
@@ -287,6 +555,10 @@ def _to_rgba(px, photometric, bps, extra, order, colour_map) -> np.ndarray:
     convert("RGBA")."""
     height, width, n = px.shape
     out = np.full((height, width, 4), 255, np.uint8)
+    if photometric in (5, 8):  # CMYK (16-bit samples cut to their high byte), CIELab
+        eight = (px >> 8).astype(np.uint8) if bps == 16 else px
+        return to_rgba("CMYK" if photometric == 5 else "LAB",
+                       eight[..., : 4 if photometric == 5 else 3])
     if photometric == 3:
         if extra:
             _refuse(f"palette image with extra samples {extra}")

@@ -9,7 +9,14 @@ The JAX package reads WebP through Pillow, which decodes with libwebp
 and XMP chunks skipped, an ALPH chunk beside a lossy image: raw or
 VP8L-coded, under its none, horizontal, vertical or gradient filter).
 Where the file says it has no alpha, Pillow opens it as "RGB" and the
-alpha is 255. Animated files (ANIM/ANMF) raise NotImplementedError.
+alpha is 255. An animated file (VP8X's animation flag, ANIM, ANMF
+frames) shows its first frame as `WebPAnimDecoder` composes it: a key
+frame on a canvas of VP8X's size that starts transparent black, decoded
+into its rectangle (at twice the stored X and Y offsets, of the stored
+size plus one) with its own alpha (ALPH or VP8L's), the background colour
+and the blending and disposal flags unused by a first frame. ANMF chunks
+in a file without the animation flag raise NotImplementedError; so does
+a lossy frame that is not a key frame (utils/vp8.py).
 
 VP8L is read in full: the predictor transform with its 14 modes, the
 cross-colour, subtract-green and colour-indexing transforms (pixel
@@ -404,9 +411,54 @@ def decode_webp(raw: bytes) -> np.ndarray:
     has_alpha = None
     if kinds[0] == b"VP8X":
         flags = chunks[0][1][0]
-        if flags & 0x02 or b"ANIM" in kinds or b"ANMF" in kinds:
-            _refuse("animation (ANIM/ANMF)")
         has_alpha = bool(flags & 0x10)
+        if flags & 0x02:
+            return _first_frame(chunks, has_alpha)
+        if b"ANIM" in kinds or b"ANMF" in kinds:
+            _refuse("animation (ANIM/ANMF) without VP8X's animation flag")
+    out, has_alpha = _still(chunks, has_alpha)
+    if not has_alpha:
+        out[..., 3] = 255
+    return out
+
+
+def _u24(b: bytes, pos: int) -> int:
+    return b[pos] | b[pos + 1] << 8 | b[pos + 2] << 16
+
+
+def _first_frame(chunks, has_alpha: bool) -> np.ndarray:
+    """An animated file's first frame on its canvas (WebPAnimDecoder's key
+    frame: ZeroFillCanvas, then WebPDecode into the frame's rectangle)."""
+    vp8x = chunks[0][1]
+    if len(vp8x) < 10:
+        raise ValueError("WebP VP8X chunk is cut short")
+    width, height = _u24(vp8x, 4) + 1, _u24(vp8x, 7) + 1
+    if not any(k == b"ANIM" for k, _ in chunks):
+        raise ValueError("WebP animation has no ANIM chunk")
+    frame = next((b for k, b in chunks if k == b"ANMF"), None)
+    if frame is None or len(frame) < 16:
+        raise ValueError("WebP animation has no frame")
+    x, y = 2 * _u24(frame, 0), 2 * _u24(frame, 3)
+    fw, fh = _u24(frame, 6) + 1, _u24(frame, 9) + 1
+    if x + fw > width or y + fh > height:
+        raise ValueError(f"WebP frame of {fw}x{fh} at ({x}, {y}) is outside its "
+                         f"{width}x{height} canvas")
+    sub = riff_chunks(b"RIFF" + struct.pack("<I", len(frame) - 12) + b"WEBP" + frame[16:])
+    got, _ = _still(sub, True)
+    if got.shape[:2] != (fh, fw):
+        raise ValueError(f"WebP frame of {got.shape[1]}x{got.shape[0]} where its ANMF says "
+                         f"{fw}x{fh}")
+    out = np.zeros((height, width, 4), np.uint8)
+    out[y : y + fh, x : x + fw] = got
+    if not has_alpha:
+        out[..., 3] = 255
+    return out
+
+
+def _still(chunks, has_alpha):
+    """One image's "VP8 " (with its ALPH where `has_alpha`) or "VP8L" chunk
+    -> (uint8 [H, W, 4] with its own alpha, whether the file has alpha:
+    `has_alpha`, or where it is None VP8L's header hint)."""
     image = next(((k, b) for k, b in chunks if k in (b"VP8 ", b"VP8L")), None)
     if image is None:
         raise ValueError("WebP file has no image chunk")
@@ -420,6 +472,4 @@ def decode_webp(raw: bytes) -> np.ndarray:
         alph = next((b for k, b in chunks if k == b"ALPH"), None)
         if alph is not None and has_alpha:
             out[..., 3] = unfilter_alpha(alph, out.shape[1], out.shape[0])
-    if not has_alpha:
-        out[..., 3] = 255
-    return out
+    return out, bool(has_alpha)

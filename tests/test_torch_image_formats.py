@@ -24,8 +24,8 @@ them. Each committed expectation is held here to Pillow's decode of the
 committed file, so a stale fixture fails on the CPU. Beside the JPEG,
 BMP and TGA files they hold GIF, TIFF, WebP and JPEG 2000 files of each
 kind the decoders read, a 1024x1024 lossy WebP, two 1024x1024 JP2s (5/3
-lossless, 9/7 at 20:1), BreakTime-mixed (WebP, TIFF and GIF textures)
-and BreakTime-J2K (JPEG 2000 textures), each with its PNG twin. The
+lossless, 9/7 at 20:1), BreakTime-mixed (JPEG-in-TIFF, CMYK, CIELab and
+Group 4 TIFF, animated WebP and RLE8 BMP textures) and BreakTime-J2K (JPEG 2000 textures), each with its PNG twin. The
 JPEG 2000 writers (`j2k`, `j2k_parse`/`j2k_join`/`j2k_with` for
 codestream edits, `jp2_wrap`, `palette_jp2`) serve
 tests/test_torch_image_formats_jpeg2000.py and the refusals here.
@@ -410,13 +410,55 @@ def bmp_header(bits, compression):
     return bytes(raw)
 
 
-IMAGE_REFUSALS = {
-    "RLE8-compressed BMP": (lambda: bmp_header(8, 1), ""),
-    "RLE4-compressed BMP": (lambda: bmp_header(4, 2), ""),
+def rle_bmp_header(bits, compression, stream):
+    """A 4x4 BMP whose header says RLE8 (1) or RLE4 (2) at `bits` bits, its
+    rows the run-length `stream` after a grey-free palette."""
+    raw = bmp_header(bits, compression)
+    colours = 1 << bits
+    off = 14 + 40 + 4 * colours
+    palette = bytes((i * 37) & 255 for i in range(4 * colours))
+    return raw[:10] + struct.pack("<I", off) + raw[14:54] + palette + stream
+
+
+def inter_frame_vp8() -> bytes:
+    """A lossy WebP's VP8 frame with its key-frame bit cleared (an inter
+    frame, which no still WebP holds and libwebp refuses)."""
+    frame = bytearray(dict(webp_chunks(save(pillow_modes(16, 16)["RGB"], "WEBP")))[b"VP8 "])
+    frame[0] |= 1
+    return bytes(frame)
+
+
+def tga16(flags=0x20):
+    """A 2x2 16-bit true-colour TGA (type 2), some pixels with the top bit set."""
+    head = struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, 2, 2, 16, flags)
+    return head + struct.pack("<4H", 0x7C1F, 0x83E0, 0x0421, 0xFFFF)
+
+
+# the variants the port refused until it read them: each now decodes as Pillow's
+IMAGE_READ_NOW = {
+    "RLE8-compressed BMP": (lambda: rle_bmp_header(8, 1, b"\x04\x05\x00\x00\x00\x04\x01\x02"
+                                                   b"\x03\x04\x00\x00\x02\x07\x02\x09\x00\x00"
+                                                   b"\x01\x03\x00\x00\x00\x01"), ""),
+    "RLE4-compressed BMP": (lambda: rle_bmp_header(4, 2, b"\x04\x12\x00\x00\x00\x04\x34\x56"
+                                                   b"\x00\x00\x03\x7a\x00\x00\x04\xbc\x00\x01"),
+                            ""),
     "16-bit BMP": (lambda: bmp_header(16, 0), ""),
     "12-byte header": (os2_bmp, ""),
+    "16-bit TGA": (tga16, "a.tga"),
+    "WebP": (lambda: save(pillow_modes(2, 2)["RGB"], "WEBP", save_all=True,
+                          append_images=[pillow_modes(2, 2, seed=1)["RGB"]]), ""),
+    "TIFF": (lambda: save(pillow_modes(8, 8)["RGB"], "TIFF", compression="jpeg"), ""),
+}
+
+
+@pytest.mark.parametrize("variant", list(IMAGE_READ_NOW))
+def test_image_variants_once_refused_match_pillow(variant):
+    make, name = IMAGE_READ_NOW[variant]
+    assert_pillow_equal(make(), name)
+
+
+IMAGE_REFUSALS = {
     "BMP bit fields": (lambda: bmp_bitfields(rgba(2, 2), 124, (0xFF00, 0xFF, 0xFF0000, 0)), ""),
-    "16-bit TGA": (lambda: save(pillow_modes(2, 2)["RGB"], "TGA")[:16] + b"\x10\x00", "a.tga"),
     "32-bit colour map": (lambda: tga_mapped(np.zeros((2, 2), np.uint8),
                                              np.zeros((4, 4), np.uint8), depth=32), "a.tga"),
     "TGA image type 32": (lambda: b"\x00\x00\x20" + bytes(9) + b"\x02\x00\x02\x00\x08\x00",
@@ -451,9 +493,8 @@ IMAGE_REFUSALS = {
     "JPEG 2000 ICC profile colour space": (
         lambda: jp2_wrap(j2k_small(), colr=struct.pack(">BBB", 2, 0, 0) + bytes(128)), ""),
     "DDS": (lambda: b"DDS " + struct.pack("<I", 124) + bytes(120), "texture.dds"),
-    "WebP": (lambda: save(pillow_modes(2, 2)["RGB"], "WEBP", save_all=True,
-                          append_images=[pillow_modes(2, 2, seed=1)["RGB"]]), ""),
-    "TIFF": (lambda: save(pillow_modes(8, 8)["RGB"], "TIFF", compression="jpeg"), ""),
+    "WebP": (lambda: riff([(b"VP8 ", inter_frame_vp8())]), ""),
+    "TIFF": (lambda: write_tiff(np.zeros((4, 4, 3), np.uint8), 2, tags={259: (3, [6])}), ""),
     "unknown format": (lambda: save(pillow_modes(2, 2)["RGB"], "TGA"), "no-extension"),
 }
 
@@ -1487,27 +1528,45 @@ def breaktime_jpeg_pair():
             replace_glb_images(raw, pngs, "image/png"))
 
 
-MIXED_FORMATS = ["webp lossy", "webp lossy", "webp lossless", "tiff deflate", "tiff lzw", "gif"]
-MIXED_MIMES = ["image/webp", "image/webp", "image/webp", "image/tiff", "image/tiff", "image/gif"]
+MIXED_FORMATS = ["tiff jpeg ycbcr 2x2", "tiff cmyk lzw", "tiff cielab", "webp animated",
+                 "tiff group 4", "bmp rle8"]
+MIXED_MIMES = ["image/tiff", "image/tiff", "image/tiff", "image/webp", "image/tiff", "image/bmp"]
 
 
 def mixed_texture(img: Image.Image, kind: str) -> bytes:
-    if kind == "webp lossy":
-        return save(img, "WEBP", quality=90)
-    if kind == "webp lossless":
-        return save(img, "WEBP", lossless=True)
-    if kind == "tiff deflate":
-        return save(img, "TIFF", compression="tiff_adobe_deflate", tiffinfo={317: 2})
-    if kind == "tiff lzw":
-        return save(img, "TIFF", compression="tiff_lzw")
-    return save(img, "GIF")
+    """One texture of BreakTime-mixed as a file of `kind` (the writers of
+    tests/test_torch_image_formats_variants.py where Pillow writes none)."""
+    from tests import test_torch_image_formats_variants as V
+
+    rgb = np.asarray(img.convert("RGB"))
+    if kind == "tiff jpeg ycbcr 2x2":  # 4:2:0 strips of 64 rows, the tables in JPEGTables
+        return V.jpeg_tiff(rgb, rows_per_strip=64, quality=90)
+    if kind == "tiff cmyk lzw":
+        return save(img.convert("CMYK"), "TIFF", compression="tiff_lzw")
+    if kind == "tiff cielab":  # L from the grey, a and b (signed) from colour differences
+        lab = np.dstack([rgb.mean(-1), (rgb[..., 0].astype(int) - rgb[..., 1]) // 2 & 255,
+                         (rgb[..., 1].astype(int) - rgb[..., 2]) // 2 & 255]).astype(np.uint8)
+        return save(Image.frombytes("LAB", img.size, lab.tobytes()), "TIFF",
+                    compression="tiff_lzw")
+    if kind == "webp animated":  # a lossy first frame 16 px in and 8 down, then a second
+        h, w = rgb.shape[:2]
+        first = save(Image.fromarray(rgb[8:, 16:]), "WEBP", quality=90)
+        second = save(Image.fromarray(rgb[:16, :16]), "WEBP", quality=90)
+        return V.anim_webp((w, h), [(16, 8, first, 0), (0, 0, second, 0)], False)
+    if kind == "tiff group 4":  # a 1-bit map, strips of 32 rows
+        return save(img.convert("1"), "TIFF", compression="group4", tiffinfo={278: 32})
+    quant = img.quantize(256)  # "bmp rle8"
+    pal = np.array(quant.getpalette()[:768], np.uint8).reshape(-1, 3)
+    return V.rle_bmp(np.asarray(quant), pal)
 
 
 def breaktime_mixed_pair():
-    """BreakTime with its six textures re-encoded by Pillow as two lossy
-    WebP (quality 90), a lossless WebP, a Deflate TIFF with the horizontal
-    predictor, an LZW TIFF and a GIF (MIXED_FORMATS, in the GLB's image
-    order), and its lossless twin: each texture a PNG of Pillow's decode."""
+    """BreakTime with its six textures re-encoded (MIXED_FORMATS, in the
+    GLB's image order) as a JPEG-compressed 4:2:0 YCbCr TIFF, a CMYK LZW
+    TIFF, a CIELab TIFF, an animated lossy WebP whose first frame is offset
+    on its canvas, a Group 4 TIFF (the 1-bit metallic-roughness map) and an
+    RLE8 BMP, and its lossless twin: each texture a PNG of Pillow's
+    decode."""
     with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
         raw = f.read()
     files = [mixed_texture(Image.open(io.BytesIO(b)).convert("RGB"), kind)
@@ -1585,6 +1644,7 @@ def make_fixtures(out_dir: str) -> dict:
     sky = breaktime_sky_half()
     put(BT_SKY_EXR, write_exr({c: sky[..., i] for i, c in enumerate("RGB")}, "ZIP"))
     manifest = dict(images=images, scene=dict(jpeg=BT_JPEG, twin=BT_TWIN, mixed=BT_MIXED,
+                                              mixed_kinds=MIXED_FORMATS,
                                               mixed_twin=BT_MIXED_TWIN, j2k=BT_J2K,
                                               j2k_twin=BT_J2K_TWIN, sky=BT_SKY_EXR))
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
@@ -2367,18 +2427,20 @@ def test_committed_fixture_matches_pillow(entry):
 
 
 def test_committed_breaktime_mixed_pair():
-    """The mixed GLB's textures are, in order, the formats MIXED_FORMATS
-    names (the Deflate TIFF with predictor 2), and their Pillow decodes are
-    the twin's PNGs."""
+    """The mixed GLB's textures are, in order, the kinds MIXED_FORMATS
+    names, and their Pillow decodes are the twin's PNGs."""
     scene = committed_manifest()["scene"]
     files = glb_images(fixture(scene["mixed"]))
     pngs = glb_images(fixture(scene["mixed_twin"]))
     assert len(files) == len(pngs) == 6
     heads = [f[:4] + f[8:12] if f[:4] == b"RIFF" else f[:4] for f in files]
-    assert heads == [b"RIFFWEBP"] * 3 + [b"II*\x00"] * 2 + [b"GIF8"]
-    assert [dict(webp_chunks(f)).keys() for f in files[:3]] == [{b"VP8 "}, {b"VP8 "}, {b"VP8L"}]
-    tags = [Image.open(io.BytesIO(f)).tag_v2 for f in files[3:5]]
-    assert (tags[0][259], tags[0][317], tags[1][259]) == (8, 2, 5)
+    assert heads[:5] == [b"II*\x00"] * 3 + [b"RIFFWEBP", b"II*\x00"]
+    assert files[5][:2] == b"BM" and struct.unpack_from("<HI", files[5], 28) == (8, 1)  # RLE8
+    tags = [Image.open(io.BytesIO(files[i])).tag_v2 for i in (0, 1, 2, 4)]
+    assert [(t[259], t[262]) for t in tags] == [(7, 6), (5, 5), (5, 8), (4, 1)]
+    assert tags[0][530] == (2, 2) and 347 in tags[0]
+    chunks = webp_chunks(files[3])
+    assert [k for k, _ in chunks][:2] == [b"VP8X", b"ANIM"] and chunks[2][1][:3] == b"\x08\x00\x00"
     doc, _ = read_glb(fixture(scene["mixed"]))
     assert [img["mimeType"] for img in doc["images"]] == MIXED_MIMES
     for f, png in zip(files, pngs):

@@ -10,8 +10,9 @@ build for what Pillow does not write, and random streams under hypothesis:
 `decode_image_u8` must give Pillow's `np.asarray(Image.open(...).convert(
 "RGBA"))` bit for bit, and raise (ValueError or NotImplementedError)
 exactly where Pillow raises. Every variant Pillow refuses raises
-NotImplementedError naming it and FORMATS_TODO, as do the BMP variants
-Pillow reads and the port does not (queue 3 item 6).
+NotImplementedError naming it and FORMATS_TODO; the BMP variants the port
+once refused (RLE, 16-bit, OS/2 headers in DIB, ICO and CUR) decode as
+Pillow's.
 
 `image_format` must name the format Pillow's `Image.open(...).format`
 names, on every committed fixture of tests/data_torch/formats,
@@ -504,8 +505,8 @@ PILLOW_REFUSES = {
         np.zeros((5, 7), np.uint8), 4, np.repeat(np.arange(16, dtype=np.uint8)[:, None], 3, 1)),
         ""),
 }
-# the BMP variants Pillow reads and the port does not (queue 3 item 6)
-PORT_REFUSES = {
+# the BMP variants the port refused until it read them: each now decodes as Pillow's
+PORT_READS_NOW = {
     "16-bit DIB": (dib_kind(16), ""),
     "RLE8-compressed DIB": (struct.pack("<IiiHHIIiiII", 40, 2, 2, 1, 8, 1, 0, 0, 0, 2, 0)
                             + bytes(8) + b"\x02\x05\x00\x00\x02\x07\x00\x01", ""),
@@ -524,12 +525,11 @@ def test_variants_pillow_refuses_are_refused_by_name(variant):
         decode_image_u8(raw, name)
 
 
-@pytest.mark.parametrize("variant", list(PORT_REFUSES))
-def test_variants_the_port_does_not_read_are_refused_by_name(variant):
-    raw, name = PORT_REFUSES[variant]
+@pytest.mark.parametrize("variant", list(PORT_READS_NOW))
+def test_variants_the_port_once_refused_match_pillow(variant):
+    raw, name = PORT_READS_NOW[variant]
     assert not refused_by_pillow(raw)
-    with pytest.raises(NotImplementedError, match=f"{variant}.*ROADMAP"):
-        decode_image_u8(raw, name)
+    assert_as_pillow(raw, name)
 
 
 MALFORMED = {
@@ -742,10 +742,6 @@ def test_random_dibs_match_pillow(w, h, bits, header, compression, masks, colour
     if bmp:
         off = 14 + header + len(extra) + len(pal)
         dib = b"BM" + struct.pack("<IHHI", 14 + len(dib), 0, 0, off) + dib
-    if bits == 16 and not refused_by_pillow(dib):  # read by Pillow, refused by the port (queue 3 item 6)
-        with pytest.raises(NotImplementedError, match="16-bit"):
-            decode_image_u8(dib)
-        return
     assert_as_pillow(dib)
 
 

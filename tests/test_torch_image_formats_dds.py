@@ -234,9 +234,9 @@ def test_dds_refusals(variant):
 
 @pytest.mark.parametrize("kind", ["DXT1", "BC7_UNORM", "luminance", "RGB masks", "palette"])
 def test_truncated_files_raise_value_error(kind):
-    """A surface shorter than its pixels raises ValueError (Pillow raises
-    for each of these but the masked one, which it reads as if it ended in
-    zeros)."""
+    """A surface shorter than its pixels raises ValueError where Pillow
+    raises; the masked one Pillow reads as if it ended in zeros, and so
+    does the port."""
     if kind in BLOCK_KINDS:
         raw = blocks_file(kind, 8, 8, bytes(4 * BLOCK_KINDS[kind][2] - 1))
     elif kind == "luminance":
@@ -246,13 +246,14 @@ def test_truncated_files_raise_value_error(kind):
     else:
         raw = dds_file(8, 8, bytes(127), pfflags=DDPF_RGB, bitcount=16,
                        masks=(0xF800, 0x7E0, 0x1F, 0))
-    with pytest.raises(ValueError, match="truncated"):
-        decode_image_u8(raw)
     if kind == "RGB masks":
         assert (pillow(raw)[-1, -1] == [0, 0, 0, 255]).all()
-    else:
-        with pytest.raises(OSError):
-            pillow(raw)
+        np.testing.assert_array_equal(decode_image_u8(raw), pillow(raw))
+        return
+    with pytest.raises(ValueError, match="truncated"):
+        decode_image_u8(raw)
+    with pytest.raises(OSError):
+        pillow(raw)
     with pytest.raises(ValueError, match="truncated"):
         decode_image_u8(raw[:100])
 
@@ -307,3 +308,76 @@ def test_block_decoders_have_no_block_loop():
         finally:
             sys.setprofile(None)
         assert got.shape == (1024, 1024, 4) and calls[0] < 2000, (kind, calls[0])
+
+
+# ---- edits of the committed fixtures against Pillow (queue 3's fuzz) --------------------------
+
+def dds_psd_small(suffix: str) -> list:
+    """The small committed fixtures of tests/data_torch/formats_dds_psd
+    ending in `suffix`."""
+    from tests.test_torch_image_formats import dds_psd_manifest
+
+    return [e["file"] for e in dds_psd_manifest()["images"]
+            if "expect" in e and e["file"].endswith(suffix)]
+
+
+def dds_psd_fuzz(suffix: str, n: int, seed: int = 0) -> dict:
+    """`n` random edits (tests/test_torch_image_formats_variants.py EDITS:
+    a bit flipped, a byte set, zeros over a run, a cut, bytes inserted,
+    anywhere after the signature) of every small fixture ending in
+    `suffix`, each decoded by the port and by Pillow -> counts of (kind,
+    outcome); raises AssertionError at the first edit they disagree on."""
+    from tests.test_torch_image_formats import dds_psd_fixture
+    from tests.test_torch_image_formats_variants import EDITS, edit, outcome, port_outcome, same
+
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for name in dds_psd_small(suffix):
+        raw = dds_psd_fixture(name)
+        for _ in range(n):
+            kind = str(rng.choice(EDITS))
+            where, value = float(rng.random()), int(rng.integers(0, 2**16))
+            edited = edit(raw, kind, where, value)
+            want, got = outcome(edited), port_outcome(edited)
+            if not same(want, got):
+                raise AssertionError(f"{name} {kind} at {where} ({value}): Pillow "
+                                     f"{type(want).__name__}, port {type(got).__name__}")
+            key = f"{kind}: {'refused' if isinstance(want, Exception) else 'decoded'}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_edited_dds_fixtures_decode_as_pillow_decodes_them(seed):
+    """A fixed 4 x 5 edits of each DDS fixture (`--fuzz` runs more)."""
+    assert sum(dds_psd_fuzz(".dds", 5, seed).values()) == 5 * len(dds_psd_small(".dds"))
+
+
+def masked_dds(w, h, data, bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0)):
+    return dds_file(w, h, data, pfflags=DDPF_RGB, bitcount=bitcount, masks=masks)
+
+
+DDS_EDITED = {  # what the fuzz found, each now as Pillow reads it
+    "zero height": lambda: masked_dds(4, 0, bytes(32)),
+    "zero width of a block kind": lambda: blocks_file("DXT1", 0, 4, bytes(8)),
+    "decompression bomb": lambda: masked_dds(40000, 9000, bytes(64)),
+    "masked surface cut mid-pixel": lambda: masked_dds(3, 3, bytes(range(13))),
+    "masked pixels of 2^20 bits": lambda: masked_dds(2, 2, bytes(range(200)),
+                                                     bitcount=1 << 20),
+}
+
+
+@pytest.mark.parametrize("case", list(DDS_EDITED))
+def test_dds_edits_the_fuzz_found(case):
+    from tests.test_torch_image_formats_variants import assert_as_pillow
+
+    assert_as_pillow(DDS_EDITED[case]())
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    if sys.argv[1:2] == ["--fuzz"]:  # --fuzz N [SEED]: edits of each DDS fixture
+        print(json.dumps(dds_psd_fuzz(".dds", int(sys.argv[2]),
+                                      int(sys.argv[3]) if sys.argv[3:] else 0)))

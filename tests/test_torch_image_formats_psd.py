@@ -171,3 +171,52 @@ def test_psd_is_taken_by_its_signature():
     np.testing.assert_array_equal(psd.decode_psd(raw), want)
     with pytest.raises(ValueError, match="not a PSD"):
         psd.decode_psd(b"8BPX" + raw[4:])
+
+
+# ---- edits of the committed fixtures against Pillow (queue 3's fuzz) --------------------------
+
+@pytest.mark.parametrize("seed", range(4))
+def test_edited_psd_fixtures_decode_as_pillow_decodes_them(seed):
+    """A fixed 4 x 8 edits of each PSD fixture (`--fuzz` runs more)."""
+    from tests.test_torch_image_formats_dds import dds_psd_fuzz, dds_psd_small
+
+    assert sum(dds_psd_fuzz(".psd", 8, seed).values()) == 8 * len(dds_psd_small(".psd"))
+
+
+def psd_resources_past_their_entries(extra: int) -> bytes:
+    """A PSD whose image resource section says `extra` bytes more than its
+    one entry holds: Pillow's section ends its length after the length's
+    own 4 bytes, so it reads on from the layer section as another entry."""
+    raw = bytearray(write_psd(np.arange(15, dtype=np.uint8).reshape(1, 3, 5), 1,
+                              compression=0, resources=[(1005, b"res", b"")],
+                              layers=bytes(range(40, 60))))
+    pos = 26 + 4
+    size = struct.unpack(">I", raw[pos : pos + 4])[0]
+    raw[pos : pos + 4] = struct.pack(">I", size + extra)
+    return bytes(raw)
+
+
+PSD_EDITED = {  # what the fuzz found, each now as Pillow reads it
+    "zero height": lambda: write_psd(np.zeros((1, 0, 4), np.uint8), 1, compression=0),
+    "zero width": lambda: write_psd(np.zeros((1, 4, 0), np.uint8), 1, compression=0),
+    "resource section 2 bytes past its entries": lambda: psd_resources_past_their_entries(2),
+    "resource section 4 bytes past its entries": lambda: psd_resources_past_their_entries(4),
+}
+
+
+@pytest.mark.parametrize("case", list(PSD_EDITED))
+def test_psd_edits_the_fuzz_found(case):
+    from tests.test_torch_image_formats_variants import assert_as_pillow
+
+    assert_as_pillow(PSD_EDITED[case]())
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    from tests.test_torch_image_formats_dds import dds_psd_fuzz
+
+    if sys.argv[1:2] == ["--fuzz"]:  # --fuzz N [SEED]: edits of each PSD fixture
+        print(json.dumps(dds_psd_fuzz(".psd", int(sys.argv[2]),
+                                      int(sys.argv[3]) if sys.argv[3:] else 0)))

@@ -587,9 +587,16 @@ def inter_frame() -> bytes:
     return riff([(b"VP8 ", bytes(frame))])
 
 
+def test_webp_animation_once_refused_matches_pillow():
+    """An animated file (Pillow's own writer): its first frame, as Pillow shows it."""
+    raw = save(pillow_modes(4, 4)["RGB"], "WEBP", save_all=True,
+               append_images=[pillow_modes(4, 4, seed=1)["RGB"]])
+    assert_pillow_equal(raw)
+
+
 WEBP_REFUSALS = {
-    "animation": lambda: save(pillow_modes(4, 4)["RGB"], "WEBP", save_all=True,
-                              append_images=[pillow_modes(4, 4, seed=1)["RGB"]]),
+    "without VP8X's animation flag": lambda: riff(
+        [(b"VP8X", bytes([0x10, 0, 0, 0, 3, 0, 0, 3, 0, 0])), (b"ANMF", bytes(16))]),
     "inter frame": inter_frame,
 }
 

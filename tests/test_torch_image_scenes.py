@@ -1,9 +1,10 @@
 """Scenes and skies in the image formats the port now decodes, through the
 port and through the JAX package (which decodes them with Pillow).
 
-- BreakTime with JPEG textures, BreakTime-mixed with WebP (lossy and
-  lossless), TIFF (Deflate with the predictor, LZW) and GIF textures, and
-  BreakTime-J2K with JPEG 2000 textures (5/3 and 9/7, JP2 and raw)
+- BreakTime with JPEG textures, BreakTime-mixed with a JPEG-compressed
+  4:2:0 YCbCr TIFF, a CMYK LZW TIFF, a CIELab TIFF, an animated lossy WebP
+  (its first frame offset on the canvas), a Group 4 TIFF and an RLE8 BMP
+  texture, and BreakTime-J2K with JPEG 2000 textures (5/3 and 9/7, JP2 and raw)
   (tests/data_torch/formats, written by tests/test_torch_image_formats.py
   `make_fixtures`): the port's World equals the JAX World bit for bit in
   its atlas, shading rows and every other scene tensor, at a 64-texel
@@ -24,8 +25,10 @@ port and through the JAX package (which decodes them with Pillow).
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
   TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, one with .dds
   and .psd maps, and two with .ppm, .qoi, .ico, .pcx, .sgi, .pgm, .rgb,
-  .dib and .cur maps, and two with .blp, .im, .icns, .ras, .xpm and
-  .fits maps, against rustic_tpu/scene/obj.py, exactly.
+  .dib and .cur maps, two with .blp, .im, .icns, .ras, .xpm and
+  .fits maps, and three with the variants the port once refused (RLE8,
+  16-bit and OS/2 bitmaps, 16-bit TGA, JPEG, fax, YCbCr, CMYK and CIELab
+  TIFF, an animated WebP), against rustic_tpu/scene/obj.py, exactly.
 - JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k), DDS, PNM,
   PFM, QOI, ICO, PCX, DCX, SGI, DIB, IM and SPIDER skies through
   `load_skybox_image`,
@@ -46,6 +49,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from PIL import Image as PILImage
 
 import jax.numpy as jnp
 
@@ -293,6 +297,53 @@ def test_obj_with_legacy_maps_matches_jax(tmp_path, which):
     assert same_world(path).has_textures
 
 
+def variant_maps(seed):
+    """Three sets of OBJ maps in the variants Pillow reads that the port
+    once refused (tests/test_torch_image_formats_variants.py), of
+    `pillow_modes(9, 14)`."""
+    from tests import test_torch_image_formats_variants as V
+
+    modes = pillow_modes(9, 14, seed=seed)
+    rgb = np.asarray(modes["RGB"])
+    rgb16 = (rgb[..., 0].astype(np.uint16) >> 3 << 10 | rgb[..., 1].astype(np.uint16) >> 3 << 5
+             | rgb[..., 2].astype(np.uint16) >> 3)
+    quant = modes["RGB"].quantize(64)
+    pal = np.array(quant.getpalette()[:192], np.uint8).reshape(-1, 3)
+    lab = PILImage.frombytes("LAB", (14, 9), rgb.tobytes())  # the same bytes as L, a and b
+    return [
+        {"albedo": ("albedo.bmp", V.rle_bmp(np.asarray(quant), pal)),
+         "rough": ("rough.tga", V.tga16(rgb16 | 0x8000)),
+         "normal": ("normal.bmp", V.bmp16(rgb16, (0x7C00, 0x3E0, 0x1F))),
+         "metal": ("metal.dib", V.os2_bmp(np.asarray(quant), 8, np.resize(pal, (256, 3)),
+                                          bmp=False))},
+        {"albedo": ("albedo.tif", V.jpeg_tiff(rgb, rows_per_strip=8)),
+         "rough": ("rough.tif", save(modes["1"], "TIFF", compression="group4")),
+         "normal": ("normal.tif", V.ycbcr_tiff(rgb, (2, 1), "LZW")),
+         "metal": ("metal.tiff", save(modes["1"], "TIFF", compression="group3",
+                                      tiffinfo={292: 1}))},
+        {"albedo": ("albedo.tif", save(lab, "TIFF", compression="tiff_lzw")),
+         "rough": ("rough.tif", save(modes["RGB"].convert("CMYK"), "TIFF")),
+         "normal": ("normal.webp", V.anim_webp((16, 12), [(2, 2, save(modes["RGB"], "WEBP"), 0)],
+                                               False)),
+         "metal": ("metal.tif", save(modes["1"], "TIFF", compression="tiff_ccitt"))},
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_obj_with_variant_maps_matches_jax(tmp_path, which):
+    """An OBJ whose MTL names an RLE8 BMP, a 16-bit TGA, a 16-bit bit-field
+    BMP and an OS/2 DIB; one with JPEG-compressed, Group 4, YCbCr (LZW,
+    2x1) and 2-D Group 3 TIFF maps; one with CIELab, CMYK and CCITT RLE TIFF
+    and an animated WebP map: the textures through both loaders."""
+    path = write_obj_with_maps(tmp_path, variant_maps(31)[which])
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert floor.metallic_texture is not None
+    assert same_world(path).has_textures
+
+
 def legacy_skies():
     modes = pillow_modes(8, 16, seed=23)
     grey = np.asarray(modes["L"], np.float32)
@@ -385,8 +436,8 @@ def test_jpeg_breaktime_film_matches_jax(half_sky):
 
 
 def test_mixed_breaktime_film_matches_jax(half_sky):
-    """The one-tile cut of BreakTime-mixed (WebP, TIFF and GIF textures),
-    as the JPEG one."""
+    """The one-tile cut of BreakTime-mixed (JPEG, CMYK, CIELab and Group 4
+    TIFF, animated WebP and RLE8 BMP textures), as the JPEG one."""
     assert_one_tile_film(fixture_path(BT_MIXED), half_sky)
 
 
