@@ -29,12 +29,13 @@ torchrun) at the headline configuration; and the image decoders
 (rustic_tpu_torch/utils/jpeg.py, bmp_tga.py, gif.py, tiff.py, webp.py,
 vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
 sgi.py, im.py, iptc.py, pcd.py, spider.py, blp.py, fits.py, fli.py,
-ftex.py, gbr.py, icns.py, msp.py, pixar.py, sun.py, xbm.py, xpm.py,
-exr.py) on the fixtures of tests/data_torch/formats, formats_dds_psd,
-formats_classic, formats_legacy and formats_jpeg, then BreakTime with
-JPEG textures, with WebP, TIFF and GIF textures, with JPEG 2000
-textures, with DDS and PSD textures, with PPM, QOI, SGI, PCX, ICO and
-DCX textures, with BLP, IM, FTEX, ICNS and Sun raster textures, and
+ftex.py, gbr.py, icns.py, mcidas.py, msp.py, pixar.py, sun.py, xbm.py,
+xpm.py, xvthumb.py, exr.py) on the fixtures of tests/data_torch/formats,
+formats_dds_psd, formats_classic, formats_legacy, formats_jpeg and
+formats_variants, then BreakTime with JPEG textures, with TIFF and Lab
+PSD textures, with JPEG 2000 textures, with DDS and PSD textures, with
+PPM, QOI, SGI, PCX, ICO and DCX textures, with IPTC, IM, BLP, XPM,
+McIdas and XV thumbnail textures, and
 with CMYK, YCCK, arithmetic-coded, lossless and repaired JPEG textures,
 under an OpenEXR sky through the grid form of the kernel-shade loop
 (K9-K11, K4);
@@ -366,7 +367,10 @@ Phases, each of which must pass (the first that fails ends the run):
      bitmaps, 16-bit TGA, CCITT RLE, Group 3 1-D and 2-D and Group 4 TIFF,
      JPEG-compressed TIFF in RGB, L, CMYK and 4:2:0 YCbCr strips and
      tiles, YCbCr TIFF under LZW, Deflate and none, CMYK and CIELab TIFF,
-     animated WebP) decoded on the host,
+     animated WebP; TIFF of fill order 2 and of orientations 2-8 (one by
+     its XMP packet), planar and predicted YCbCr TIFF, LZMA TIFF, McIdas
+     areas at 8, 16 and 32 bits, an XV thumbnail, Lab PSDs, IPTC records
+     holding PNGs, XPMs of 8- and 11-byte keys) decoded on the host,
      equal to Pillow 12.1.0's decode stored beside it (.npy, or the
      SHA-256 of its RGBA bytes), each file's format as image_format names
      it equal to Pillow's (stored in formats_classic's, formats_legacy's
@@ -380,7 +384,10 @@ Phases, each of which must pass (the first that fails ends the run):
      rle and raw apart, xbm, xpm; jpeg arithmetic sequential, arithmetic
      progressive, lossless, cmyk/ycck and recovery apart; and each kind of
      formats_variants -- bmp rle, bmp 16-bit, bmp os/2, tga 16-bit, tiff
-     fax, tiff jpeg, tiff ycbcr, tiff cmyk, tiff cielab, webp animated --
+     fax, tiff jpeg, tiff ycbcr, tiff cmyk, tiff cielab, webp animated,
+     tiff fill order 2, tiff orientation, tiff ycbcr planar, tiff ycbcr
+     predicted, tiff lzma, mcidas, xvthumb, psd lab, iptc png, xpm long
+     keys --
      timed in turns with the committed 1024x1024 4:2:0 Huffman photo, best
      of 5 each, beside it and as a ratio to it), and on
      BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's,
@@ -388,18 +395,18 @@ Phases, each of which must pass (the first that fails ends the run):
      256x256 textures (best of 3). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
-     BreakTime-mixed (a JPEG-compressed 4:2:0 YCbCr TIFF, a CMYK LZW TIFF,
-     a CIELab TIFF, an animated lossy WebP with its first frame offset on
-     the canvas, a Group 4 TIFF as the metallic-roughness map, an RLE8
-     BMP; the EXR sky)
+     BreakTime-mixed (a planar YCbCr TIFF, an LZMA 4:2:0 YCbCr TIFF with
+     the predictor, a Lab PSD, an orientation-6 LZW TIFF, a fill-order-2
+     Group 4 TIFF as the metallic-roughness map, a fill-order-2 LZMA RGB
+     TIFF; the EXR sky)
      and BreakTime-J2K (two 5/3 JP2, two 9/7 JP2 at a rate, a tiled RPCL
      raw codestream, three rate layers with precincts; the EXR sky) and
      BreakTime-DDS (DXT1, BC5, DXT5 and BC7 DDS, a PackBits RGB and a raw
      indexed PSD; the EXR sky) and BreakTime-classic (a P6 PPM, a QOI with
      alpha, an RLE SGI, a 24-bit RLE PCX, an ICO of one 32-bit DIB, a DCX;
-     the EXR sky) and BreakTime-legacy (a BLP1 JPEG, an IM, a BLP2 DXT5,
-     an FTEX DXT1, a 128x128 ICNS of an it32 RLE entry and its t8mk
-     mask, a 24-bit RLE Sun raster; the EXR sky) and BreakTime-JPEG-ext (a
+     the EXR sky) and BreakTime-legacy (an IPTC record holding a PNG, an
+     IM, a BLP2 DXT5, a 128x128 XPM of 8-byte keys, a 16-bit McIdas area,
+     an XV thumbnail; the EXR sky) and BreakTime-JPEG-ext (a
      CMYK, a YCCK, an arithmetic-coded progressive with restarts, a
      lossless, a baseline with junk before a marker and a dropped RST, an
      arithmetic-coded sequential JPEG; the EXR sky), each with its twin (PNGs of Pillow's
@@ -652,7 +659,7 @@ VARIANT_TURNS = 5  # phase 34 times each formats_variants kind in turns with the
 FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
 # the formats whose decoders the legacy fixtures time, each under its own name
 LEGACY_DECODERS = ("IM", "IMT", "IPTC", "PCD", "SPIDER", "FITS", "FLI", "FTEX", "GBR", "ICNS",
-                   "MSP", "PIXAR", "XBM", "XPM")
+                   "MSP", "PIXAR", "XBM", "XPM", "MCIDAS", "XVThumb")
 SHARD_MESHES = {"2x1": 1, "1x2": 2}  # two ranks' ('px', 'spp') meshes by spp_parallel
 SHARD_VEACH = (256, 256, 16)  # VeachMIS width, height and spp of the multi-tile case
 SHARD_TOL = dict(rtol=2e-5, atol=2e-6)  # a split's bound, tests/test_parallel.py:140
@@ -4076,13 +4083,14 @@ class Smoke:
         each decoder; a classic, legacy or JPEG fixture's format as
         image_format names it against Pillow's, in its manifest);
         BreakTime-JPEG (JPEG textures, EXR sky),
-        BreakTime-mixed (JPEG, CMYK, CIELab and Group 4 TIFF, animated WebP
-        and RLE8 BMP textures, EXR sky),
+        BreakTime-mixed (planar and predicted LZMA YCbCr, orientation-6 and
+        fill-order-2 TIFF and Lab PSD textures, EXR sky),
         BreakTime-J2K (JPEG 2000 textures, EXR sky), BreakTime-DDS (DDS and
         PSD textures, EXR sky), BreakTime-classic (PPM, QOI, SGI, PCX, ICO
-        and DCX textures, EXR sky), BreakTime-legacy (BLP, IM, FTEX, ICNS
-        and Sun raster textures, EXR sky), BreakTime-JPEG-ext (CMYK, YCCK,
-        arithmetic-coded, lossless and repaired JPEG textures, EXR sky) and
+        and DCX textures, EXR sky), BreakTime-legacy (IPTC holding a PNG,
+        IM, BLP, long-key XPM, McIdas and XV thumbnail textures, EXR sky),
+        BreakTime-JPEG-ext (CMYK, YCCK, arithmetic-coded, lossless and
+        repaired JPEG textures, EXR sky) and
         their lossless twins loaded
         on the card (the load split; a twin takes its partner's packed
         atlas once its decoded textures are found equal to the partner's),
@@ -4235,7 +4243,7 @@ class Smoke:
                 f"{px} pixels, best of {VARIANT_TURNS}): {kind_ms:.1f} ms per megapixel, the "
                 f"photo {photo_ms:.1f} ms per megapixel, ratio {kind_ms / photo_ms:.2f} "
                 "(host CPU)")
-        # each BreakTime's six textures (256x256; the ICNS 128x128), each decoded 3 times: the best
+        # each BreakTime's six textures (256x256; the XPM 128x128), each decoded 3 times: the best
         for folder, scene_key, label in ((FORMATS, "mixed", "BreakTime-mixed"),
                                          (FORMATS, "j2k", "BreakTime-J2K"),
                                          (FORMATS_DDS_PSD, "dds", "BreakTime-DDS"),

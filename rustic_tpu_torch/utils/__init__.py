@@ -7,9 +7,9 @@ and PSD (psd.py) decoders sit beside the others, with PNM (pnm.py), QOI
 (qoi.py), ICO and CUR (ico.py), PCX and DCX (pcx.py), SGI (sgi.py), and
 the legacy formats: IM and IMT (im.py), IPTC (iptc.py), PCD (pcd.py),
 SPIDER (spider.py), BLP (blp.py), FITS (fits.py), FLI and FLC (fli.py),
-FTEX (ftex.py), GBR (gbr.py), ICNS (icns.py), MSP (msp.py), PIXAR
-(pixar.py), SUN (sun.py), XBM (xbm.py) and XPM (xpm.py); utils/png.py
-tries them in Pillow's order."""
+FTEX (ftex.py), GBR (gbr.py), ICNS (icns.py), MCIDAS (mcidas.py), MSP
+(msp.py), PIXAR (pixar.py), SUN (sun.py), XBM (xbm.py), XPM (xpm.py) and
+XVThumb (xvthumb.py); utils/png.py tries them in Pillow's order."""
 
 import struct
 

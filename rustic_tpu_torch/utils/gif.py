@@ -99,10 +99,13 @@ def _grey_ramp(palette: bytes) -> bool:
     return bool((p == np.arange(len(p))[:, None]).all())
 
 
-def decode_gif(raw: bytes) -> np.ndarray:
+def decode_gif(raw: bytes, transparency: bool = True) -> np.ndarray:
     """GIF bytes -> uint8 [H, W, 4] of the first frame, as Pillow's
-    convert("RGBA")."""
+    convert("RGBA"); without `transparency`, the transparency index makes
+    no pixel transparent (Pillow's image of a GIF embedded in another
+    file, whose info it does not keep)."""
     raw = bytes(raw)
+    keep = transparency  # the name below holds the transparency index
     if raw[:6] not in (b"GIF87a", b"GIF89a"):
         raise ValueError("not a GIF file")
     width, height, flags = struct.unpack("<HHB", raw[6:11])
@@ -158,7 +161,7 @@ def decode_gif(raw: bytes) -> np.ndarray:
     out = np.empty((height, width, 4), np.uint8)
     out[..., :3] = colours[canvas]
     out[..., 3] = 255
-    if transparency is not None:
+    if transparency is not None and keep:
         out[..., 3] = np.where(canvas == transparency, 0, 255)
     return out
 

@@ -13,17 +13,24 @@ image holds the band (3, 65) names), (3, 20) and (3, 30) the size, and
 
 The image fields' data is joined. Raw data gets a "P5" header of the
 size and is read as a PGM (utils/pnm.py); compression 5 data is opened
-as Pillow opens any file, and the port reads it where it is a JPEG
-(utils/jpeg.py). A grey image is that image; a colour one is the merge
-of that image (which must be grey) as its band and zero bands, so the
-result has the embedded image's size.
+as Pillow opens any file (utils/png.py's walk, TGA tried at its place as
+Pillow tries it on a file without a name). A grey image is that image,
+converted as Pillow converts the core image it takes (nothing of the
+embedded file's info: a PNG's or GIF's transparency is dropped; 16-bit
+grey and float pixels are refused as Pillow's C convert refuses them); a
+colour one is the merge of that image as its band and zero bands, so the
+result has the embedded image's size: the bands after the first must be
+"L", the first any one-band image ("1" reads 0 and 255).
 
 A field that is not an IPTC field (or cut short) before the image, or a
 header without the fields Pillow reads, raises an error of PASSED_ON and the
 file passes on; a field length over 132, a band Pillow cannot place, or
 an embedded image Pillow cannot read ends the decode (ValueError); a
-compression other than 1 and 5 (Pillow refuses it) and an embedded file
-of another format than JPEG raise NotImplementedError naming them.
+compression other than 1 and 5 (Pillow refuses it), an embedded file of
+a format in REFUSED_INSIDE, and a first band of a format other than JPEG,
+PNM and PNG or of a one-band mode other than "L" and "1" (Pillow merges
+raw palette indices or 16-bit words there) raise NotImplementedError
+naming them.
 """
 
 from __future__ import annotations
@@ -139,19 +146,74 @@ def decode_iptc(raw: bytes, t: Iptc = None) -> np.ndarray:
             break
         out.write(fp.read(size))
     data = out.getvalue()
-    fmt, decode = png._identify(data, "")
-    if fmt not in ("PPM", "JPEG"):
+    fmt, decode = png._identify(data, ".tga")  # Pillow's open tries TGA on any file
+    if fmt in REFUSED_INSIDE:
         raise NotImplementedError(f"IPTC image record holding a {fmt} file is not decoded "
                                   f"({FORMATS_TODO})")
-    img = decode()
     if t.band is None:
-        return img
-    if fmt == "JPEG" and not _grey_jpeg(data):
-        raise ValueError(f"IPTC {t.mode} band must be a grey image (Pillow's merge: mode "
+        return _as_iptc(fmt, data, decode)
+    mode = _band_mode(fmt, data)
+    if mode is None:
+        raise NotImplementedError(f"IPTC {t.mode} image whose band is a {fmt} file is not "
+                                  f"decoded ({FORMATS_TODO})")
+    first = -len(t.mode) <= t.band < len(t.mode) and t.band % len(t.mode) == 0
+    if mode != "L" and not first:  # Image.merge holds the bands after the first to "L"
+        raise ValueError(f"IPTC {t.mode} band of a {mode} image (Pillow's merge: mode "
                          "mismatch)")
+    if mode in _MULTI_BAND:
+        raise ValueError(f"IPTC {t.mode} band of a {mode} image (Pillow's merge: image has "
+                         "wrong mode)")
+    if mode not in ("L", "1"):
+        raise NotImplementedError(f"IPTC {t.mode} image whose band is a {fmt} file of mode "
+                                  f"{mode} is not decoded ({FORMATS_TODO})")
+    img = decode()
     bands = [np.zeros(img.shape[:2], np.uint8)] * len(t.mode)
     try:
         bands[t.band] = img[..., 0]
     except IndexError as e:
         raise ValueError(f"IPTC band {t.band} of a {t.mode} image") from e
     return to_rgba(t.mode, np.stack(bands, -1))
+
+
+# formats whose images can take a mode Pillow's C convert has no way to RGBA from (I;16, F,
+# LAB, YCbCr) or keep a transparency in their info, which the IPTC image does not carry: the
+# port does not tell those apart from the rest inside an IPTC record, and refuses them there
+REFUSED_INSIDE = ("TIFF", "PSD", "JPEG2000", "MCIDAS", "FITS", "IM", "SPIDER", "XPM")
+_MULTI_BAND = ("LA", "RGB", "RGBA", "CMYK")
+
+
+def _as_iptc(fmt: str, data: bytes, decode) -> np.ndarray:
+    """The embedded image as the IPTC image converts it: Pillow's IPTC
+    load takes the embedded file's core image and nothing of its info, so
+    convert("RGBA") is the C conversion alone: a PNG's tRNS or a GIF's
+    transparency index is dropped, and 16-bit grey or floating-point
+    pixels, which only Python-side steps convert, are refused."""
+    from rustic_tpu_torch.utils import gif, png, pnm
+
+    if fmt == "PNG":
+        if data[24:26] == b"\x10\x00":  # 16-bit grey: "I;16"
+            raise ValueError("IPTC image holding a 16-bit grey PNG (Pillow: conversion from "
+                             "I;16 to RGBA not supported)")
+        return png.decode_png(data, transparency=False)
+    if fmt == "GIF":
+        return gif.decode_gif(data, transparency=False)
+    if fmt == "PPM" and pnm.open_pnm(data).mode == "F":
+        raise ValueError("IPTC image holding a PFM (Pillow: conversion from F to RGBA not "
+                         "supported)")
+    return decode()
+
+
+def _band_mode(fmt: str, data: bytes):
+    """Pillow's mode of an embedded JPEG, PNM or PNG, which Image.merge
+    checks; None for another format."""
+    from rustic_tpu_torch.utils import pnm
+
+    if fmt == "JPEG":
+        return "L" if _grey_jpeg(data) else "RGB"
+    if fmt == "PPM":
+        return pnm.open_pnm(data).mode
+    if fmt == "PNG" and len(data) >= 26:
+        depth, colour = data[24], data[25]
+        return {0: {1: "1", 16: "I;16"}.get(depth, "L"), 2: "RGB", 3: "P", 4: "LA",
+                6: "RGBA"}.get(colour)
+    return None

@@ -21,8 +21,9 @@ and CUR (utils/ico.py), PCX and DCX (utils/pcx.py), DDS (utils/dds.py),
 JPEG 2000, JP2 or a raw codestream (utils/jpeg2000.py), TIFF
 (utils/tiff.py), PSD (utils/psd.py), QOI (utils/qoi.py), SGI
 (utils/sgi.py), TGA, WebP (utils/webp.py, utils/vp8.py), and IM and IMT
-(utils/im.py), IPTC, PCD, SPIDER, BLP, FITS, FLI/FLC, FTEX, GBR, ICNS,
-MSP, PIXAR, SUN, XBM and XPM (a module each, named after the format).
+(utils/im.py), IPTC, MCIDAS, PCD, SPIDER, BLP, FITS, FLI/FLC, FTEX, GBR,
+ICNS, MSP, PIXAR, SUN, XBM, XPM and XVThumb (a module each, named after
+the format).
 `image_format` finds the format as Pillow's `Image.open` does: it tries
 the plugins in Pillow's order (PILLOW_ORDER), each one whose test of the
 first 16 bytes takes the file (IM, IMT, IPTC, PCD and SPIDER have none:
@@ -38,14 +39,15 @@ with filter 0 (None) on every scanline, which any decoder reads.
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
 import numpy as np
 
 from rustic_tpu_torch.utils import (FORMATS_TODO, NotThisFormat, blp, fits, fli, ftex, gbr, icns, ico,
-                                    im, iptc, msp, pcd, pcx, pixar, pnm, qoi, read_header, sgi,
-                                    spider, sun, xbm, xpm)
+                                    im, iptc, mcidas, msp, pcd, pcx, pixar, pnm, qoi, read_header,
+                                    sgi, spider, sun, xbm, xpm, xvthumb)
 from rustic_tpu_torch.utils.bmp_tga import (DIB_HEADERS, dib_rgba, open_bmp, open_dib,
                                             decode_tga, tga_refusal)
 from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds, open_dds
@@ -144,54 +146,222 @@ def _interlaced(data: bytes, height: int, width: int, n: int, depth: int) -> np.
     return out
 
 
+_CID = re.compile(rb"\w\w\w\w")  # PngImagePlugin.is_cid
+_SAFEBLOCK = 1024 * 1024  # ImageFile.SAFEBLOCK: PngImagePlugin.MAX_TEXT_CHUNK
+_PIECE = 65536  # ImageFile.load's decodermaxblock: the IDAT data is read this much at a time
+
+
+class _PngStream:
+    """Pillow 12.1.0's PngStream over bytes: each chunk's handler as
+    PngImagePlugin runs it, raising where it raises (a chunk's data cut
+    short: Truncated File Read; a field too short for its value; the
+    checks of IHDR, sRGB, pHYs, acTL, fcTL, iCCP and zTXt), each as
+    ValueError naming Pillow's error."""
+
+    def __init__(self, raw: bytes, pos: int):
+        self.raw, self.pos = raw, pos
+        self.size = self.mode = None
+        self.interlace = 0
+        self.palette = self.trns = None
+        self.seq = None
+
+    def header(self):
+        """ChunkStream.read -> (type, length) or None where Pillow's read
+        raises struct.error (fewer than 4 bytes left); a type that is not 4
+        word characters raises."""
+        s = self.raw[self.pos : self.pos + 8]
+        self.pos += len(s)
+        if len(s) < 4:
+            return None
+        cid = s[4:]
+        if not _CID.match(cid):
+            raise ValueError(f"broken PNG file (chunk {cid!r})")
+        return cid, struct.unpack(">I", s[:4])[0]
+
+    def read(self, length: int) -> bytes:  # ImageFile._safe_read
+        s = self.raw[self.pos : self.pos + length] if length > 0 else b""
+        self.pos += len(s)
+        if len(s) < length:
+            raise ValueError("PNG: Truncated File Read")
+        return s
+
+    def call(self, cid: bytes, length: int):
+        """The chunk's handler -> its data; None where Pillow's handler raises
+        EOFError (IDAT, IEND, and fdAT after its sequence number)."""
+        if cid in (b"IDAT", b"IEND"):
+            return None
+        if cid == b"fdAT":
+            if length < 4:
+                raise ValueError("APNG contains truncated fDAT chunk")
+            self._sequence(self.read(4), True)
+            return None
+        s = self.read(length)
+        try:
+            self._handle(cid, s, length)
+        except (struct.error, IndexError) as e:
+            raise ValueError(f"PNG {cid!r} chunk: {type(e).__name__}: {e}") from e
+        return s
+
+    def _sequence(self, s: bytes, data: bool):
+        seq = struct.unpack(">I", s[:4])[0]
+        if (self.seq != seq - 1) if data else (self.seq is None and seq != 0 or self.seq is not
+                                                None and self.seq != seq - 1):
+            raise ValueError("APNG contains frame sequence errors")
+        self.seq = seq
+
+    def _handle(self, cid: bytes, s: bytes, length: int):
+        u32 = lambda at: struct.unpack_from(">I", s, at)[0]  # noqa: E731
+        if cid == b"IHDR":
+            if length < 13:
+                raise ValueError("Truncated IHDR chunk")
+            self.size = u32(0), u32(4)
+            self.mode = (s[8], s[9]) if (s[8], s[9]) in _PILLOW_MODES else self.mode
+            self.interlace |= bool(s[12])
+            if s[11]:
+                raise ValueError("PNG: unknown filter category")
+        elif cid == b"PLTE":
+            if self.mode and self.mode[1] == 3:
+                self.palette = s
+        elif cid == b"tRNS":
+            if self.mode and self.mode[1] in (0, 2):  # a key: struct.error where it is cut short
+                struct.unpack_from(">" + "H" * (3 if self.mode[1] == 2 else 1), s)
+            if self.mode and self.mode[1] in (0, 2, 3):
+                self.trns = s
+        elif cid == b"gAMA":
+            u32(0)
+        elif cid == b"cHRM":
+            struct.unpack(f">{len(s) // 4}I", s)
+        elif cid in (b"sRGB", b"pHYs", b"acTL", b"fcTL") and length < {
+                b"sRGB": 1, b"pHYs": 9, b"acTL": 8, b"fcTL": 26}[cid]:
+            raise ValueError(f"Truncated {cid.decode()} chunk")
+        elif cid == b"fcTL":
+            self._sequence(s, False)
+            width, height = self.size or (0, 0)
+            if u32(12) + u32(4) > width or u32(16) + u32(8) > height:
+                raise ValueError("APNG contains invalid frames")
+        elif cid in (b"iCCP", b"zTXt"):
+            i = s.find(b"\0")
+            if cid == b"iCCP":
+                method, text = s[i + 1], s[i + 2 :]
+            else:
+                method, text = (s[i + 1], s[i + 2 :]) if i >= 0 and i + 1 < len(s) else (0, b"")
+            if method != 0:
+                raise ValueError(f"Unknown compression method {method} in {cid.decode()} chunk")
+            d = zlib.decompressobj()
+            try:
+                d.decompress(text, _SAFEBLOCK)
+            except zlib.error:
+                return
+            if d.unconsumed_tail:
+                raise ValueError("Decompressed data too large for PngImagePlugin.MAX_TEXT_CHUNK")
+        elif cid == b"iTXt":
+            k, _, r = s.partition(b"\0")
+            if _ and len(r) >= 2 and r[0] != 0 and r[1] == 0 and r[2:].count(b"\0") >= 2:
+                d = zlib.decompressobj()
+                try:
+                    d.decompress(r[2:].split(b"\0", 2)[2], _SAFEBLOCK)
+                except zlib.error:
+                    return
+                if d.unconsumed_tail:
+                    raise ValueError("Decompressed data too large for "
+                                     "PngImagePlugin.MAX_TEXT_CHUNK")
+
+
+# (depth, colour type) -> the pairs PngImagePlugin._MODES opens
+_PILLOW_MODES = {(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2), (1, 3), (2, 3), (4, 3),
+                 (8, 3), (8, 4), (16, 4), (8, 6), (16, 6)}
+
+
+def _png_open(raw: bytes) -> tuple:
+    """PngImageFile._open and load, as Pillow 12.1.0 walks the chunks ->
+    (the stream, the image's inflated rows): the chunks before the first
+    IDAT each checked against its CRC; the image data the IDAT chunks that
+    follow one another, read 64 KiB at a time and inflated no further than
+    the rows need (what follows them, the checksum too, is not read); then
+    load_end's walk of the chunks after, whose handlers still raise."""
+    st = _PngStream(raw, 8)
+    while True:
+        head = st.header()
+        if head is None:
+            raise ValueError("PNG: a chunk header is cut short")
+        cid, length = head
+        s = st.call(cid, length)
+        if s is None:  # IDAT, IEND, fdAT
+            break
+        crc = raw[st.pos : st.pos + 4]
+        st.pos += len(crc)
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(s, zlib.crc32(cid)):
+            raise ValueError(f"broken PNG file (bad header checksum in {cid!r})")
+    if st.mode is None or not st.size or 0 in st.size:
+        raise ValueError("PNG of no mode Pillow opens, or of an empty size (Pillow: not "
+                         "identified)")
+    if cid == b"IEND":
+        raise ValueError("PNG: cannot load this image (no IDAT chunk)")
+    (width, height), (depth, colour) = st.size, st.mode
+    n = _CHANNELS[colour]
+    passes = _ADAM7 if st.interlace else ((0, 0, 1, 1),)
+    need = sum(-(-(height - y0) // dy) * (((width - x0 + dx - 1) // dx * n * depth + 7) // 8 + 1)
+               for x0, y0, dx, dy in passes if width > x0 and height > y0)
+    left = length - 4 if cid == b"fdAT" else length
+    d, parts, got = zlib.decompressobj(), [], 0
+    while got < need:
+        if left == 0:  # load_read: past the CRC, the next chunk must carry image data too
+            st.pos += 4
+            head = st.header()
+            if head is None or head[0] not in (b"IDAT", b"DDAT", b"fdAT"):
+                raise ValueError("PNG image file is truncated")
+            left = head[1]
+            if head[0] == b"fdAT":
+                st._sequence(st.read(4), True)
+                left -= 4
+            continue
+        piece = raw[st.pos : st.pos + min(_PIECE, left)]
+        st.pos += len(piece)
+        left -= min(_PIECE, left)
+        if not piece:
+            raise ValueError("PNG image file is truncated")
+        try:
+            parts.append(d.decompress(d.unconsumed_tail + piece, need - got))
+        except zlib.error as e:
+            raise ValueError(f"PNG image data is corrupt: {e}") from e
+        got += len(parts[-1])
+    while True:  # load_end
+        st.pos += 4
+        try:
+            head = st.header()
+        except ValueError:
+            break
+        if head is None or head[0] == b"IEND":
+            break
+        if st.call(*head) is None:  # IDAT or fdAT: skipped
+            st.read(head[1] - 4 if head[0] == b"fdAT" else head[1])
+    return st, b"".join(parts)
+
+
 def decode_png(raw: bytes, transparency: bool = True) -> np.ndarray:
     """PNG bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA"); without
     `transparency`, a tRNS chunk is dropped (Pillow's image of a PNG
-    embedded in another file, whose info it does not keep)."""
+    embedded in another file, whose info it does not keep). The chunks
+    are walked as Pillow walks them (`_png_open`); a palette shorter than
+    an index, or none, reads black."""
     if raw[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
-    pos = 8
-    header = palette = trns = None
-    idat = []
-    while pos + 8 <= len(raw):
-        length, kind = struct.unpack(">I4s", raw[pos : pos + 8])
-        body = raw[pos + 8 : pos + 8 + length]
-        pos += 12 + length  # length, type, data, CRC
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
-            trns = body
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError("PNG has no IHDR chunk")
-    if not transparency:
-        trns = None
-    width, height, depth, colour, _compression, _filter, interlace = header
-    if colour not in _CHANNELS or depth not in _DEPTHS[colour] or interlace not in (0, 1):
-        raise ValueError(f"PNG bit depth {depth}, colour type {colour}, interlace {interlace} "
-                         "is not defined")
+    st, data = _png_open(bytes(raw))
+    (width, height), (depth, colour) = st.size, st.mode
     n = _CHANNELS[colour]
-    try:
-        data = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise ValueError(f"PNG image data is corrupt: {e}") from e
-    if interlace:
+    trns = st.trns if transparency else None
+    palette = np.zeros((256, 3), np.uint8)
+    if st.palette is not None:
+        entries = st.palette[: min(len(st.palette), 768) // 3 * 3]
+        palette[: len(entries) // 3] = np.frombuffer(entries, np.uint8).reshape(-1, 3)
+    if st.interlace:
         px = _interlaced(data, height, width, n, depth)
     else:
         px = _samples(data, height, width, n, depth)[0]
 
     out = np.full((height, width, 4), 255, np.uint8)
     if colour == 3:
-        if palette is None:
-            raise ValueError("PNG palette image has no PLTE chunk")
         idx = px[..., 0].astype(np.int64)
-        if idx.max(initial=0) >= len(palette):
-            raise ValueError("PNG palette index beyond the palette")
         out[..., 0:3] = palette[idx]
         if trns is not None:
             alpha = np.full(256, 255, np.uint8)
@@ -214,8 +384,8 @@ def decode_png(raw: bytes, transparency: bool = True) -> np.ndarray:
         out[..., 3] = eight[..., -1]
     elif trns is not None:  # a key colour: grey (0) or RGB (2), 16 bits a sample
         key = np.frombuffer(trns[: 2 * n], ">u2").astype(np.int64)
-        if depth == 1:
-            key = key * 255
+        if depth == 1:  # Pillow's "1": 255 for any key but 0
+            key = np.where(key != 0, 255, 0)
         out[..., 3] = np.where((eight == (key & 0xFF)).all(axis=-1), 0, 255)
     return out
 
@@ -261,6 +431,12 @@ def _jpeg(raw):
     return decode
 
 
+def _xvthumb(raw):
+    decode = _opened(xvthumb.open_xvthumb, xvthumb.decode_xvthumb)(raw)
+    decode.format = xvthumb.FORMAT
+    return decode
+
+
 def _tga(raw):
     why = tga_refusal(raw)
     if why:
@@ -301,6 +477,8 @@ _PLUGINS = {
     "IM": (_always, _opened(im.open_im, im.decode_im)),
     "IMT": (_always, _opened(im.open_imt, im.decode_imt)),
     "IPTC": (_always, _opened(iptc.open_iptc, iptc.decode_iptc)),
+    "MCIDAS": (lambda p, n: p.startswith(mcidas.MAGIC), _opened(mcidas.open_mcidas,
+                                                                 mcidas.decode_mcidas)),
     "TIFF": (lambda p, n: p[:4] in _TIFF_SIGNATURES, _whole(decode_tiff)),
     "MSP": (lambda p, n: msp.accept(p), _opened(msp.open_msp, msp.decode_msp)),
     "PCD": (_always, _opened(pcd.open_pcd, pcd.decode_pcd)),
@@ -314,6 +492,7 @@ _PLUGINS = {
     "WEBP": (lambda p, n: p[:4] == b"RIFF" and p[8:12] == b"WEBP", _whole(decode_webp)),
     "XBM": (lambda p, n: xbm.accept(p), _opened(xbm.open_xbm, xbm.decode_xbm)),
     "XPM": (lambda p, n: p.startswith(xpm.MAGIC), _opened(xpm.open_xpm, xpm.decode_xpm)),
+    "XVTHUMB": (lambda p, n: p.startswith(xvthumb.MAGIC), _xvthumb),
 }
 
 

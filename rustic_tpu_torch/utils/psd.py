@@ -16,7 +16,13 @@ pixel):
   black);
 - RGB: 3 channels, 4 -> RGBA, 5 or more -> RGB (the rest ignored);
 - CMYK: 4 channels, each stored inverted, then Pillow's CMYK -> RGB
-  (255 - k - c * (255 - k) / 255, in its fixed-point MULDIV255).
+  (255 - k - c * (255 - k) / 255, in its fixed-point MULDIV255);
+- Lab: 3 channels, a and b stored with 128 for 0 (the planes go into
+  Pillow's "LAB" bands as they are), then LittleCMS's Lab -> sRGB as
+  Pillow's convert runs it: utils/modes.py `lab_to_rgb`, the transform of
+  a CIELab TIFF, whose a and b are signed. Alpha is 0: the transform
+  copies the fourth byte of each LAB pixel, which Pillow's chunky TIFF
+  unpacker sets to 255 and its plane-by-plane PSD reading leaves at 0.
 
 Both compressions are read: raw (0), each channel a plane at its
 offset, and PackBits (1), with the per-row byte counts of the channels
@@ -27,10 +33,8 @@ Pillow reads it) and rows decoded as PackDecode.c decodes them
 Pillow raises for, and this module refuses by name with
 NotImplementedError citing FORMATS_TODO: 16- and 32-bit depths and any
 other (mode, depth) pair, PSB (version 2), ZIP compression (2, 3), and
-fewer channels than the mode needs. Lab is refused too, although Pillow
-reads it: its `convert("RGBA")` goes through LittleCMS (ImageCms, a
-D50 Lab profile to sRGB), which the port does not carry. A truncated or
-malformed file raises ValueError.
+fewer channels than the mode needs. A truncated or malformed file raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, NotThisFormat, _entropy
 from rustic_tpu_torch.utils._entropy import ptr
-from rustic_tpu_torch.utils.modes import check_pixels, muldiv255
+from rustic_tpu_torch.utils.modes import check_pixels, lab_to_rgb, muldiv255
 
 PSD_SIGNATURE = b"8BPS"
 # (colour mode, depth) -> (Pillow mode, channels it reads)
@@ -157,8 +161,6 @@ def decode_psd(raw: bytes, _stop: bool = False) -> np.ndarray:
     mode, channels = _MODES[(colour, depth)]
     if channels > psd_channels:
         _refuse(f"{mode} with {psd_channels} channels (it needs {channels})")
-    if mode == "LAB":
-        _refuse("Lab colour (Pillow converts it through LittleCMS)")
     if mode == "RGB" and psd_channels == 4:
         mode, channels = "RGBA", 4
     colour_data = r.take(r.u32())
@@ -191,6 +193,9 @@ def decode_psd(raw: bytes, _stop: bool = False) -> np.ndarray:
         nk = 255 - ink[3]
         for i in range(3):
             out[..., i] = np.clip(nk - muldiv255(ink[i], nk), 0, 255)
+    elif mode == "LAB":  # 128 for a and b of 0: lab_to_rgb takes them signed
+        out[..., :3] = lab_to_rgb(planes.transpose(1, 2, 0) ^ np.array([0, 128, 128], np.uint8))
+        out[..., 3] = 0  # the fourth byte of Pillow's LAB pixel, which no plane fills
     else:
         out[..., :channels] = planes.transpose(1, 2, 0)
     return out

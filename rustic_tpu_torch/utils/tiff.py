@@ -8,10 +8,22 @@ reads it: it stops at an entry or value past the file's end): strips or
 tiles; compression none (1), PackBits (32773), LZW (5: most significant
 bit first, codes widened one code early), Deflate (8, and the old code
 32946), CCITT modified Huffman (2), T.4 (3: one-dimensional, or
-two-dimensional where Group3Options' bit 0 is set) and T.6 (4), and JPEG
-(7); predictor 1, and horizontal differencing (predictor 2) at 8 and 16
-bits; planar configuration 1 (chunky) and 2 (one plane a sample). Pixels
-follow Pillow's table of modes (TiffImagePlugin.OPEN_INFO) and its
+two-dimensional where Group3Options' bit 0 is set) and T.6 (4), JPEG (7)
+and LZMA (34925: one .xz stream a strip, through Python's lzma; an error
+once the strip's bytes are all out goes unseen, as in libtiff's
+LZMADecode); predictor 1, and horizontal differencing (predictor 2) at 8
+and 16 bits; planar configuration 1 (chunky) and 2 (one plane a sample);
+fill order 1, and 2 where Pillow's OPEN_INFO has the layout with it
+(grey and palette at 1-8 bits, little-endian grey at 16, RGB at 8): every
+byte of the strips bit-reversed, as libtiff reverses them (its fax decoder
+reads them least significant bit first) and Pillow's ";R" raw modes read
+them, except under JPEG, whose codec does not reverse bits; the raw modes
+Pillow lacks (P;1R, P;2R, P;4R, L;IR) refuse an uncompressed file as
+Pillow does. The image is then turned by its orientation as
+TiffImageFile.load_end turns it (ImageOps.exif_transpose on both of
+Pillow's paths): tag 274's first value of a numeric type, else the first
+tiff:Orientation digit of the XMP packet (tag 700); 5-8 swap the sides.
+Pixels follow Pillow's table of modes (TiffImagePlugin.OPEN_INFO) and its
 conversions to RGBA:
 
 - grey, min-is-black or min-is-white, at 1, 2, 4 and 8 bits (scaled to
@@ -31,13 +43,24 @@ conversions to RGBA:
 - CIELab at 8 bits, a and b signed, through LittleCMS's transform as
   Pillow's convert runs it (utils/modes.py `lab_to_rgb`);
 - YCbCr at 8 bits, chunky: with JPEG compression libjpeg converts it to
-  RGB (Pillow sets JPEGCOLORMODE_RGB); with LZW, Deflate or PackBits
-  through libtiff's RGBA interface (TIFFRGBAImage: each data unit's h x v
-  luma samples with its Cb and Cr, subsamplings 1x1, 1x2, 2x1, 2x2, 4x1,
-  4x2 and 4x4, ReferenceBlackWhite and YCbCrCoefficients in tif_color.c's
-  float and 16.16 fixed-point tables); uncompressed, as Pillow reads it
-  without libtiff: rawmode "RGBX", 4 bytes a pixel from each strip's
-  offset, nothing converted.
+  RGB (Pillow sets JPEGCOLORMODE_RGB); with LZW, Deflate, LZMA or
+  PackBits through libtiff's RGBA interface (TIFFRGBAImage: each data
+  unit's h x v luma samples with its Cb and Cr, subsamplings 1x1, 1x2,
+  2x1, 2x2, 4x1, 4x2 and 4x4, ReferenceBlackWhite and YCbCrCoefficients in
+  tif_color.c's float and 16.16 fixed-point tables; the strip read as
+  ceil(rows / v) x v rows of TIFFScanlineSize, its last bytes 0 where v
+  does not divide a row of units; a tile cut at the image's right edge
+  stepped over as the put routine steps, 10 bytes a 4x4 unit; the
+  horizontal predictor undone 3 bytes apart over each such row, or the
+  tile width x 3, and not at all where they are not whole, as horAcc8
+  errs; a strip the codec fails on put from what it wrote into a zeroed
+  buffer, as TIFFRGBAImage goes on with stoponerr 0); uncompressed, as
+  Pillow reads it without libtiff: rawmode "RGBX", 4 bytes a pixel from
+  each strip's offset, nothing converted;
+- YCbCr at 8 bits in planar configuration 2: compressed, through
+  TIFFRGBAImage's putseparate8bitYCbCr11tile, which only a YCbCrSubsampling
+  of 1x1 reaches (others, and the default 2x2, libtiff refuses);
+  uncompressed, Pillow's reader takes the planes as R, G and B.
 
 CCITT data goes through csrc/image_entropy.cpp `ccitt_rows`, libtiff's
 decoder (its repairs of a bad row, its reading of T.4 data without EOLs,
@@ -51,22 +74,25 @@ smaller than its strip or tile fills what it reaches.
 An uncompressed strip or tile is read from its offset as far as its
 pixels need, whatever its byte count says (as Pillow reads it); a strip
 or tile that holds fewer bytes than its pixels raises ValueError, as
-Pillow refuses it; tags and data that do not hold together raise
-ValueError.
+Pillow refuses it, and so does one its codec fails on (an LZW strip that
+does not start with a clear code among them; Deflate and LZMA inflated
+no further than the strip's bytes, so an error after them goes unseen);
+tags and data that do not hold together raise ValueError, as does an
+image over Pillow's decompression-bomb limit.
 
 These raise NotImplementedError naming the variant: old-JPEG (6),
-RLE-word (32771), ThunderScan, SGILog, JPEG 2000, LZMA, Zstandard and
-WebP compression, signed or floating-point samples, the floating-point
+RLE-word (32771), ThunderScan, SGILog, JPEG 2000, Zstandard and WebP
+compression, signed or floating-point samples, the floating-point
 predictor, mask, ICCLab, ITULab and LogLuv images, old-style LZW and
-BigTIFF, bit-reversed fill order, an orientation other than 1, YCbCr in
-planar configuration 2 or with the predictor. Of these Pillow reads the
-fill order and the orientation, and LZMA where a file has it (its libtiff
-has the codec; its writer here falls back to no compression, so no such
-file is made to test against). Three layouts Pillow misreads are refused
-rather than copied: planar configuration 2 with an extra sample (Pillow
-reads the alpha as 0), uncompressed planar configuration 2 at 16 bits
-(Pillow reads 8 of the 16) and the horizontal predictor without
-compression or with PackBits (libtiff and Pillow ignore it there).
+BigTIFF, JPEG-compressed YCbCr in planar configuration 2. Five layouts
+Pillow misreads are refused rather than copied: planar configuration 2
+with an extra sample (Pillow reads the alpha as 0), CIELab in planar
+configuration 2 (Pillow's band unpackers leave its LAB pixels' fourth
+byte 0, which the conversion takes as alpha), uncompressed planar
+configuration 2 at 16 bits (Pillow reads 8 of the 16) and the horizontal
+predictor without compression or with PackBits (libtiff and Pillow
+ignore it there). A fill order Pillow has no mode for raises ValueError,
+as Pillow refuses the file.
 
 The LZW and PackBits decoders are Python loops (LZW a code at a time,
 PackBits a run at a time); unpacking, the predictor, tile placement and
@@ -75,21 +101,24 @@ the colour conversion run over whole strips, tiles or images at once.
 
 from __future__ import annotations
 
+import lzma
+import re
 import struct
 import zlib
+from fractions import Fraction
 
 import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, jpeg
-from rustic_tpu_torch.utils.modes import to_rgba
+from rustic_tpu_torch.utils.modes import check_pixels, to_rgba
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
           11: "f", 12: "d", 13: "I"}  # field type -> struct codes of one value
 _COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
-                 7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate"}
+                 7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate", 34925: "LZMA"}
 _REFUSED_COMPRESSIONS = {6: "old-JPEG-compressed (6)", 32771: "RLE-word (32771)", 32809: "ThunderScan (32809)",
                          34676: "SGILog (34676)", 34677: "SGILog24 (34677)",
-                         34712: "JPEG 2000-compressed (34712)", 34925: "LZMA-compressed (34925)",
+                         34712: "JPEG 2000-compressed (34712)",
                          50000: "Zstandard-compressed (50000)", 50001: "WebP-compressed (50001)"}
 _REFUSED_PHOTOMETRIC = {4: "transparency-mask", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
                         32845: "LogLuv"}
@@ -99,12 +128,14 @@ def _refuse(variant: str):
     raise NotImplementedError(f"TIFF {variant} is not decoded ({FORMATS_TODO})")
 
 
-def _ifd(raw: bytes, order: str, pos: int) -> dict:
+def _ifd(raw: bytes, order: str, pos: int, kinds: dict = None) -> dict:
     """The IFD at `pos` -> {tag: tuple of its values}, as Pillow's
     ImageFileDirectory_v2.load reads it: an entry of an unknown type or of
     no values is skipped, and the reading stops (the tags so far kept)
-    where the count, an entry or a value runs past the file's end."""
+    where the count, an entry or a value runs past the file's end. Each
+    tag's field type goes into `kinds` where given."""
     tags = {}
+    kinds = {} if kinds is None else kinds
     if pos + 2 > len(raw):
         return tags
     (n,) = struct.unpack(order + "H", raw[pos : pos + 2])
@@ -124,6 +155,7 @@ def _ifd(raw: bytes, order: str, pos: int) -> dict:
             if len(data) < size:
                 break
         tags[tag] = struct.unpack(order + _TYPES[kind] * count, data)
+        kinds[tag] = kind
     return tags
 
 
@@ -142,10 +174,21 @@ def _packbits(data: bytes, size: int) -> bytes:
     return bytes(out)
 
 
+class _StripError(ValueError):
+    """A strip or tile libtiff's codec fails on, with the bytes it wrote
+    before the failure (`partial`): Pillow refuses the image, except where
+    libtiff's RGBA interface puts the strip anyway (YCbCr)."""
+
+    def __init__(self, message: str, partial: bytes):
+        super().__init__(message)
+        self.partial = partial
+
+
 def _lzw(data: bytes, size: int) -> bytes:
     """TIFF LZW: codes read most significant bit first, 9 bits wide after
     a clear code (256) and one bit wider as soon as the next free code
-    reaches 2^width - 1, up to 12; 257 ends the strip."""
+    reaches 2^width - 1, up to 12; 257 ends the strip. The first code must
+    be a clear code (libtiff: corrupted LZW table)."""
     if len(data) >= 2 and data[0] == 0 and data[1] & 1:
         _refuse("old-style LZW")
     base = [bytes([i]) for i in range(256)] + [b"", b""]
@@ -159,6 +202,9 @@ def _lzw(data: bytes, size: int) -> bytes:
     p = 0
     while p + width <= nbits and len(out) < size:
         code = (words[p >> 3] >> (32 - (p & 7) - width)) & ((1 << width) - 1)
+        if p == 0 and code != 256:
+            raise _StripError("TIFF LZW strip does not start with a clear code (libtiff: "
+                              "corrupted LZW table)", b"")
         p += width
         if code == 256:
             table = list(base)
@@ -168,6 +214,9 @@ def _lzw(data: bytes, size: int) -> bytes:
         if code == 257:
             break
         if prev is None:
+            if code > 257:
+                raise _StripError(f"TIFF LZW code {code} after a clear code (libtiff: corrupted "
+                                  "LZW table)", bytes(out))
             entry = table[code]
         else:
             if code < len(table):
@@ -175,7 +224,7 @@ def _lzw(data: bytes, size: int) -> bytes:
             elif code == len(table):
                 entry = prev + prev[:1]
             else:
-                raise ValueError(f"TIFF LZW code {code} is not defined yet")
+                raise _StripError(f"TIFF LZW code {code} is not defined yet", bytes(out))
             if len(table) < 4096:
                 table.append(prev + entry[:1])
         out += entry
@@ -196,7 +245,55 @@ def _inflate(raw: bytes, off: int, count: int, compression: int, size: int) -> b
         return _packbits(data, size)
     if compression == 5:
         return _lzw(data, size)
-    return zlib.decompressobj().decompress(data)
+    if compression == 34925:
+        return _unxz(data, size)
+    try:  # no further than libtiff's ZIPDecode reads
+        return zlib.decompressobj().decompress(data, size)
+    except zlib.error as e:
+        raise _StripError(f"TIFF Deflate data is corrupt: {e}",
+                          _until_error(zlib.decompressobj, data, size)) from e
+
+
+def _unxz(data: bytes, size: int) -> bytes:
+    """libtiff's LZMADecode: one .xz stream decoded as far as the strip's
+    `size` bytes; an error once they are all out (a bad check, junk after)
+    goes unseen, one before leaves the strip short."""
+    try:
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size)
+    except lzma.LZMAError:
+        return _until_error(lambda: lzma.LZMADecompressor(lzma.FORMAT_XZ), data, size)
+
+
+def _until_error(new, data: bytes, size: int) -> bytes:
+    """The bytes (at most `size`) a decompressor made by `new` gives from
+    `data` before its first error, as libtiff's codec, handed all of it at
+    once, leaves them in its buffer. Python drops a failing call's output:
+    so the input is fed a byte a call to find the byte the error comes
+    with, then, from a fresh decompressor, the bytes before it at once and
+    that byte's output a byte a call."""
+    errors = (zlib.error, lzma.LZMAError)
+    d, out, bad = new(), bytearray(), len(data)
+    for i in range(len(data)):
+        try:
+            out += d.decompress(data[i : i + 1], size - len(out))
+        except errors:
+            bad = i
+            break
+        if len(out) >= size:  # only then can zlib hold input back (unconsumed_tail)
+            return bytes(out)
+    d = new()
+    out = bytearray(d.decompress(data[:bad], size))
+    pending = getattr(d, "unconsumed_tail", b"") + data[bad : bad + 1]  # lzma keeps its own
+    while len(out) < size:
+        try:
+            chunk = d.decompress(pending, 1)
+        except errors:
+            break
+        if not chunk:
+            break
+        out += chunk
+        pending = getattr(d, "unconsumed_tail", b"")
+    return bytes(out)
 
 
 def _samples(block: bytes, rows: int, width: int, n: int, bps: int, order: str,
@@ -226,7 +323,7 @@ def decode_tiff(raw: bytes) -> np.ndarray:
     ValueError."""
     try:
         return _decode_tiff(bytes(raw))
-    except (IndexError, KeyError, TypeError, struct.error, zlib.error) as e:
+    except (IndexError, KeyError, TypeError, struct.error, zlib.error, lzma.LZMAError) as e:
         raise ValueError(f"TIFF file is corrupt: {type(e).__name__}: {e}") from e
 
 
@@ -237,12 +334,73 @@ def _decode_tiff(raw: bytes) -> np.ndarray:
         raise ValueError("not a TIFF file")
     order = "<" if raw[:2] == b"II" else ">"
     (first,) = struct.unpack(order + "I", raw[4:8])
-    tags = _ifd(raw, order, first)
+    kinds = {}
+    tags = _ifd(raw, order, first, kinds)
+    out = _decode_page(raw, order, tags, _first(tags, kinds, 266, 1))
+    turn = _TRANSPOSES.get(_orientation(tags, kinds))
+    return np.ascontiguousarray(turn(out)) if turn else out
 
+
+def _first(tags: dict, kinds: dict, number: int, default=None):
+    """A tag of one value as Pillow's ImageFileDirectory_v2 gives it: the
+    first of its values (more are dropped with a warning), a rational as a
+    Fraction (None where its denominator is 0: Pillow's NaN); a BYTE,
+    ASCII or UNDEFINED field is bytes or text there, which equals no
+    number: None."""
+    if number not in tags:
+        return default
+    kind, v = kinds[number], tags[number]
+    if kind in (1, 2, 7):
+        return None
+    if kind in (5, 10):
+        return Fraction(v[0], v[1]) if v[1] else None
+    return v[0]
+
+
+# ImageOps.exif_transpose's methods (FLIP_LEFT_RIGHT, ROTATE_180, FLIP_TOP_BOTTOM, TRANSPOSE,
+# ROTATE_270, TRANSVERSE, ROTATE_90) by orientation
+_TRANSPOSES = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+               5: lambda a: a.transpose(1, 0, 2), 6: lambda a: a[::-1].transpose(1, 0, 2),
+               7: lambda a: a[::-1, ::-1].transpose(1, 0, 2),
+               8: lambda a: a[:, ::-1].transpose(1, 0, 2)}
+_XMP_ORIENTATION = re.compile(rb'tiff:Orientation(="|>)([0-9])')
+
+
+def _orientation(tags: dict, kinds: dict):
+    """The orientation TiffImageFile.load_end transposes the image by
+    (ImageOps.exif_transpose, the same on Pillow's own and libtiff's
+    paths): tag 274, else the first tiff:Orientation digit of the XMP
+    packet (tag 700) as Image.getexif reads it, where a packet that is
+    text, or numbers other than one 0, makes Pillow's search raise."""
+    if 274 in tags:
+        return _first(tags, kinds, 274)
+    if 700 not in tags:
+        return None
+    kind, v = kinds[700], tags[700]
+    if kind in (1, 7):  # bytes: searched
+        match = _XMP_ORIENTATION.search(bytes(v))
+        return int(match[2]) if match else None
+    one = len(v) == (2 if kind in (5, 10) else 1)
+    if kind == 2 and bytes(v) == b"\0" or kind != 2 and one and _first(tags, kinds, 700) == 0:
+        return None  # an empty packet (text of one NUL, a single 0): Pillow does not search it
+    raise ValueError("TIFF XMP packet that is not bytes (Pillow: TypeError in getexif)")
+
+
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+# (photometric, bits, samples) of Pillow's OPEN_INFO keys with fill order 2 (none with extra
+# samples; 16 bits only little-endian), and those its own reader has no raw mode for
+_FILL_ORDER_2 = {(p, b, 1) for p in (0, 1, 3) for b in (1, 2, 4, 8)} | {(1, 16, 1), (2, 8, 3)}
+_NO_RAW_MODE = {(3, 1, 1), (3, 2, 1), (3, 4, 1), (0, 8, 1)}  # P;1R, P;2R, P;4R, L;IR
+
+
+def _decode_page(raw: bytes, order: str, tags: dict, fill) -> np.ndarray:
+    """The first page's pixels as stored (before the orientation) -> uint8
+    [H, W, 4]."""
     def tag(number, default=None):
         return tags.get(number, default)
 
     width, height = tag(256)[0], tag(257)[0]
+    check_pixels(width, height, "TIFF")  # Image.open's decompression-bomb check
     compression = tag(259, (1,))[0]
     photometric = tag(262, (0,))[0]
     n = tag(277, (1,))[0]
@@ -263,13 +421,18 @@ def _decode_tiff(raw: bytes) -> np.ndarray:
     if formats != {1}:
         _refuse({2: "signed samples", 3: "floating-point samples"}.get(max(formats),
                                                                       f"sample format {formats}"))
-    if tag(266, (1,))[0] != 1:
-        _refuse("bit-reversed fill order (2)")
-    if tag(274, (1,))[0] != 1:
-        _refuse(f"orientation {tag(274)[0]}")
+    if fill not in (1, 2):
+        raise ValueError(f"TIFF fill order {fill} (Pillow: unknown pixel mode)")
     if len(set(bps)) != 1 or bps[0] not in (1, 2, 4, 8, 16):
         _refuse(f"{'/'.join(map(str, bps))} bits a sample")
     bps = bps[0]
+    if fill == 2 and ((photometric, bps, n) not in _FILL_ORDER_2 or extra
+                      or bps == 16 and order == ">"):
+        raise ValueError(f"TIFF fill order 2 of photometric {photometric} at {bps} bits, {n} "
+                         "samples (Pillow: unknown pixel mode)")
+    if fill == 2 and compression == 1 and (photometric, bps, n) in _NO_RAW_MODE:
+        raise ValueError("uncompressed TIFF fill order 2 of this mode (Pillow: unknown raw mode)")
+    data = raw.translate(_REVERSED) if fill == 2 and compression != 7 else raw  # not JPEG's
     if predictor == 3:
         _refuse("floating-point predictor (3)")
     if predictor == 2 and bps not in (8, 16):
@@ -284,6 +447,8 @@ def _decode_tiff(raw: bytes) -> np.ndarray:
     colours = _PHOTOMETRIC[photometric]
     if planar == 2 and n > colours:
         _refuse("planar configuration 2 with extra samples")  # Pillow reads the alpha as 0
+    if planar == 2 and photometric == 8:  # Pillow unpacks the planes as L, alpha and B
+        _refuse("CIELab in planar configuration 2")
     if planar == 2 and compression == 1 and bps == 16:
         _refuse("uncompressed planar configuration 2 at 16 bits")  # Pillow reads it as 8-bit
     if n != colours + len(extra) and not (photometric == 2 and n == 4 and not extra):
@@ -306,10 +471,14 @@ def _decode_tiff(raw: bytes) -> np.ndarray:
         bw, bh = width, rps
         offsets, counts = tag(273), tag(279)
         segments = [(y, 0, min(rps, height - y)) for y in range(0, height, rps)]
-    if photometric == 6 and compression == 1:  # Pillow's own reader: YCbCr bytes read as RGBX
+    if photometric == 6 and compression == 1 and planar == 1:  # Pillow's reader: read as RGBX
         return _ycbcr_raw(raw, offsets, tiled, width, height, bw, bh)
-    if photometric == 6 and compression != 7:  # libtiff's TIFFRGBAImage
-        return _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compression)
+    if photometric == 6 and compression != 7 and planar == 1:  # libtiff's TIFFRGBAImage
+        return _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compression,
+                           predictor, tiled)
+    if photometric == 6 and planar == 2 and compression != 1 and tag(530, (2, 2))[:2] != (1, 1):
+        raise ValueError("TIFF YCbCr in planar configuration 2 subsampled (libtiff's "
+                         "TIFFRGBAImage has no routine: can not handle format)")
 
     per = n if planar == 1 else 1  # samples in each strip or tile
     planes = 1 if planar == 1 else n
@@ -321,6 +490,8 @@ def _decode_tiff(raw: bytes) -> np.ndarray:
     ycbcr_jpeg = compression == 7 and photometric == 6
     jpeg_state = _JpegState(bh, bw, per) if compression == 7 else None
     fax = _FaxState(bw, bh, compression, tags) if compression in _FAX else None
+    ycbcr_planes = photometric == 6 and compression != 1  # planar: chunky YCbCr left above
+    whole = True
     for i, (off, count) in enumerate(zip(offsets, counts)):
         plane, k = divmod(i, len(segments))
         if plane >= planes:
@@ -329,19 +500,27 @@ def _decode_tiff(raw: bytes) -> np.ndarray:
         if not tiled and rows <= 0:
             break
         if compression in _FAX:
-            block = _fax(raw, off, count, bw, bh if tiled else rows, compression, fax)
+            block = _fax(data, off, count, bw, bh if tiled else rows, compression, fax)
         elif compression == 7:
             block = _jpeg_block(raw, off, count, tables, ycbcr_jpeg, bh if tiled else rows,
                                 height - y0, jpeg_state)
+        elif ycbcr_planes:  # through TIFFRGBAImage, which puts a strip its codec fails on
+            size = (bh if tiled else rows) * ((bw * per * bps + 7) // 8)
+            block, whole = _rgba_strip(data, off, count, compression, size)
         else:
             size = (bh if tiled else rows) * ((bw * per * bps + 7) // 8)
-            block = _inflate(raw, off, count, compression, size)
+            block = _inflate(data, off, count, compression, size)
         if compression != 7:
-            block = _samples(block, bh if tiled else rows, bw, per, bps, order, predictor)
+            block = _samples(block, bh if tiled else rows, bw, per, bps, order,
+                             predictor if whole else 1)
         h, w = min(bh, height - y0), min(bw, width - x0)
         px[y0 : y0 + h, x0 : x0 + w, plane : plane + per] = block[:h, :w]
-    if ycbcr_jpeg:
-        photometric = 2  # libjpeg gave RGB
+    if ycbcr_jpeg or photometric == 6 and compression == 1:
+        photometric = 2  # libjpeg gave RGB; Pillow's reader takes the planes as R, G and B
+    elif photometric == 6:  # one plane each, through TIFFRGBAImage's putseparate8bitYCbCr11tile
+        out = np.full((height, width, 4), 255, np.uint8)
+        out[..., :3] = _ycbcr_to_rgb(_ycbcr_conversion(tags), px[..., 0], px[..., 1], px[..., 2])
+        return out
     return _to_rgba(px, photometric, bps, extra, order, tag(320))
 
 
@@ -357,10 +536,8 @@ def _check_layout(photometric, bps, extra, planar, compression, predictor):
           6: bps == 8 and not extra, 8: bps == 8 and not extra}[photometric]
     if not ok:
         _refuse(f"{name} at {bps} bits with extra samples {extra}")
-    if photometric == 6 and planar != 1:
-        _refuse("YCbCr in planar configuration 2")
-    if photometric == 6 and predictor != 1 and compression != 7:
-        _refuse("YCbCr with the horizontal predictor")
+    if photometric == 6 and planar != 1 and compression == 7:
+        _refuse("JPEG-compressed YCbCr in planar configuration 2")
 
 
 class _FaxState:
@@ -508,14 +685,23 @@ def _ycbcr_tables(luma, refbw):
 _YCBCR_SUBSAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 
 
-def _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compression):
-    """Compressed YCbCr through libtiff's RGBA interface (Pillow's
-    _decodeAsRGBA): the data units of each strip or tile (h x v luma
-    samples, then Cb and Cr), each pixel converted by TIFFYCbCrtoRGB with
-    its unit's chroma (tif_getimage.c putcontig8bitYCbCr*tile)."""
-    hs, vs = tags.get(530, (2, 2))[:2]  # libtiff's default subsampling is 2x2
-    if (hs, vs) not in _YCBCR_SUBSAMPLINGS:
-        raise ValueError(f"TIFF YCbCr subsampling {hs}x{vs} (libtiff: can not handle format)")
+def _rgba_strip(raw, off, count, compression, size):
+    """A strip or tile as libtiff's TIFFRGBAImage reads it for Pillow
+    (stoponerr 0) -> (its `size` bytes, whether the codec wrote them all):
+    where the codec fails or comes up short, what it wrote into a zeroed
+    buffer, the predictor not undone (it runs only after a whole decode);
+    a strip past the file's end is not read at all."""
+    try:
+        data = _inflate(raw, off, count, compression, size) if off + count <= len(raw) else b""
+        whole = len(data) >= size
+    except _StripError as e:
+        data, whole = e.partial, False
+    return data[:size] + bytes(max(0, size - len(data))), whole
+
+
+def _ycbcr_conversion(tags):
+    """TIFFYCbCrToRGBInit's tables for the image's YCbCrCoefficients and
+    ReferenceBlackWhite."""
     luma = tags.get(529, (299, 1000, 587, 1000, 114, 1000))
     luma = [np.float32(np.float32(luma[2 * i]) / np.float32(luma[2 * i + 1])) if luma[2 * i + 1]
             else np.float32(0) for i in range(3)]
@@ -525,7 +711,34 @@ def _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compres
              else [0, 255, 128, 255, 128, 255])
     if luma[1] == 0:
         raise ValueError("TIFF YCbCrCoefficients with a green of 0 (libtiff refuses them)")
-    y_tab, cr_r, cb_b, cr_g, cb_g = _ycbcr_tables(luma, refbw)
+    return _ycbcr_tables(luma, refbw)
+
+
+def _ycbcr_to_rgb(tables, lum, cb, cr) -> np.ndarray:
+    """TIFFYCbCrtoRGB of each pixel's Y, Cb and Cr (uint8 arrays of one
+    shape) -> uint8 [..., 3]."""
+    y_tab, cr_r, cb_b, cr_g, cb_g = tables
+    yv = y_tab[lum.astype(np.int64)]
+    cb, cr = cb.astype(np.int64), cr.astype(np.int64)
+    rgb = np.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> 16), yv + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compression,
+                predictor, tiled):
+    """Compressed YCbCr through libtiff's RGBA interface (Pillow's
+    _decodeAsRGBA): the data units of each strip or tile (h x v luma
+    samples, then Cb and Cr), each pixel converted by TIFFYCbCrtoRGB with
+    its unit's chroma (tif_getimage.c putcontig8bitYCbCr*tile). The
+    horizontal predictor is undone as libtiff's horAcc8 runs, 3 bytes
+    apart over rows of TIFFScanlineSize (a row of data units over v; the
+    tile width x 3 in a tile), and not at all where that row is not a
+    whole number of 3 bytes or the strip or tile of its rows (libtiff's
+    error there leaves the bytes as they came)."""
+    hs, vs = tags.get(530, (2, 2))[:2]  # libtiff's default subsampling is 2x2
+    if (hs, vs) not in _YCBCR_SUBSAMPLINGS:
+        raise ValueError(f"TIFF YCbCr subsampling {hs}x{vs} (libtiff: can not handle format)")
+    tables = _ycbcr_conversion(tags)
     units_x = -(-bw // hs)
     unit = hs * vs + 2
     out = np.full((height, width, 4), 255, np.uint8)
@@ -535,18 +748,30 @@ def _ycbcr_rgba(raw, tags, offsets, counts, segments, width, height, bw, compres
         y0, x0, rows = segments[i]
         units_y = -(-rows // vs)
         size = units_y * units_x * unit
-        data = _inflate(raw, off, count, compression, size)
-        if len(data) < size:
-            raise ValueError("TIFF YCbCr strip or tile holds fewer bytes than its data units")
-        u = np.frombuffer(data, np.uint8, count=size).reshape(units_y, units_x, unit)
-        lum = u[..., : hs * vs].reshape(units_y, units_x, vs, hs).transpose(0, 2, 1, 3)
-        lum = lum.reshape(units_y * vs, units_x * hs).astype(np.int64)
-        cb = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1).astype(np.int64)
-        cr = np.repeat(np.repeat(u[..., -1], vs, 0), hs, 1).astype(np.int64)
-        yv = y_tab[lum]
-        rgb = np.stack([yv + cr_r[cr], yv + ((cb_g[cb] + cr_g[cr]) >> 16), yv + cb_b[cb]], -1)
+        data, whole = _rgba_strip(raw, off, count, compression, size)
+        u = np.frombuffer(data, np.uint8)
+        # TIFFReadEncodedStrip decodes ceil(rows / v) x v rows of TIFFScanlineSize (a row of
+        # data units over v): where v does not divide that row, a strip's last bytes stay 0
+        occ = size if tiled else units_y * vs * (units_x * unit // vs)
+        u = np.concatenate([u[:occ], np.zeros(size - occ, np.uint8)])
+        if predictor == 2 and whole:
+            rowsize = bw * 3 if tiled else units_x * unit // vs
+            if rowsize and rowsize % 3 == 0 and occ % rowsize == 0:
+                u[:occ] = np.cumsum(u[:occ].reshape(-1, rowsize // 3, 3), axis=1,
+                                    dtype=np.uint8).reshape(-1)
         h, w = min(rows, height - y0), min(bw, width - x0)
-        out[y0 : y0 + h, x0 : x0 + w, :3] = np.clip(rgb, 0, 255)[:h, :w]
+        # the put routine reads the units that cover the w columns of each row of units, then
+        # steps over the rest of the tile's row: (bw - w) // h units, of 10 bytes each in
+        # putcontig8bitYCbCr44tile (its skip is the 4x2 routine's)
+        used, uy = -(-w // hs), -(-h // vs)
+        rowbytes = used * unit + (bw - w) // hs * (10 if (hs, vs) == (4, 4) else unit)
+        u = np.concatenate([u, np.zeros(max(0, uy * rowbytes - size), np.uint8)])
+        u = u[: uy * rowbytes].reshape(uy, rowbytes)[:, : used * unit].reshape(uy, used, unit)
+        lum = u[..., : hs * vs].reshape(uy, used, vs, hs).transpose(0, 2, 1, 3)
+        lum = lum.reshape(uy * vs, used * hs)
+        cb = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1)
+        cr = np.repeat(np.repeat(u[..., -1], vs, 0), hs, 1)
+        out[y0 : y0 + h, x0 : x0 + w, :3] = _ycbcr_to_rgb(tables, lum, cb, cr)[:h, :w]
     return out
 
 

@@ -102,15 +102,18 @@ def open_xpm(raw: bytes) -> Xpm:
     return Xpm(width, height, bpp, palette_length, list(palette), colours, transparency, fp.tell())
 
 
-def _code(keys: np.ndarray, tail: bytes = b"") -> np.ndarray:
-    """uint8 [k, bpp] keys (or one shorter `tail` key) -> int64 codes that
-    tell keys of any length apart."""
-    if tail:
-        return np.array([int.from_bytes(tail, "big") * 256 + len(tail)], np.int64)
-    codes = np.zeros(len(keys), np.int64)
-    for k in range(keys.shape[1]):
-        codes = codes * 256 + keys[:, k]
-    return codes * 256 + keys.shape[1]
+def _indices(text: bytes, bpp: int, lut: dict) -> np.ndarray:
+    """One pixel line's keys (the last one shorter where the line's length
+    is not a whole number of keys) -> their palette indices; a key not in
+    `lut` raises ValueError."""
+    whole = len(text) // bpp
+    keys, inverse = np.unique(np.frombuffer(text, f"V{bpp}", count=whole), return_inverse=True)
+    tail = [text[whole * bpp :]] if len(text) % bpp else []
+    try:
+        found = np.array([lut[bytes(k)] for k in keys] + [lut[k] for k in tail], np.int64)
+    except KeyError as e:
+        raise ValueError("XPM pixel key not in the palette") from e
+    return np.concatenate([found[inverse.reshape(-1)], found[len(keys) :]])
 
 
 def _pixel_lines(raw: bytes, x: Xpm):
@@ -129,33 +132,23 @@ def decode_xpm(raw: bytes, x: Xpm = None) -> np.ndarray:
     raw = bytes(raw)
     x = x or open_xpm(raw)
     n, bpp = x.width * x.height, x.bpp
-    if bpp <= 0 or bpp > 7:
-        raise NotImplementedError(f"XPM keys of {bpp} bytes are not decoded ({FORMATS_TODO})")
+    if bpp <= 0:
+        raise ValueError(f"XPM keys of {bpp} bytes (Pillow: range() arg 3 must not be zero)")
     if x.palette_length > 256 and x.transparency is not None:
         raise NotImplementedError(f"XPM of {x.palette_length} colours (RGB) with a 'None' colour "
                                   f"(Pillow's convert raises TypeError on its key) is not decoded "
                                   f"({FORMATS_TODO})")
     if not x.keys:
         raise ValueError("XPM has no colours: a pixel key is not in the palette")
-    table = np.concatenate([_code(None, k) if len(k) != bpp else
-                            _code(np.frombuffer(k, np.uint8)[None]) for k in x.keys])
-    order = np.argsort(table)
-    table = table[order]
+    lut = {k: i for i, k in enumerate(x.keys)}
     indices, got = [], 0
     for text in _pixel_lines(raw, x):
         if got >= n:
             break
         if not text:
             continue
-        whole = len(text) // bpp
-        codes = _code(np.frombuffer(text, np.uint8, count=whole * bpp).reshape(whole, bpp))
-        if len(text) % bpp:
-            codes = np.concatenate([codes, _code(None, text[whole * bpp :])])
-        pos = np.minimum(np.searchsorted(table, codes), len(table) - 1)
-        if (table[pos] != codes).any():
-            raise ValueError("XPM pixel key not in the palette")
-        indices.append(order[pos])
-        got += len(codes)
+        indices.append(_indices(text, bpp, lut))
+        got += len(indices[-1])
     if got < n:
         raise ValueError("XPM image data: not enough image data")
     idx = np.concatenate(indices)[:n].reshape(x.height, x.width)

@@ -188,16 +188,28 @@ def test_png_kinds_decode_as_pillow(colour, depth, interlace):
 
 
 def test_png_refusals():
+    """What Pillow refuses (a changed IHDR without its CRC, a depth its
+    _MODES lacks) raises; a palette image without PLTE is not refused:
+    Pillow reads it black, and so does the port."""
+    import io
+    import zlib
+
+    from PIL import Image
+
     with pytest.raises(ValueError, match="not a PNG"):
         png.decode_png(b"\xff\xd8\xff\xe0" + bytes(16))  # a JPEG goes to utils/jpeg.py
     rng = np.random.default_rng(0)
     bad_depth = make_png(np.zeros((2, 2, 3), np.int64), 2, 8, rng).replace(
         struct.pack(">IIBB", 2, 2, 8, 2), struct.pack(">IIBB", 2, 2, 4, 2))
-    with pytest.raises(ValueError, match="not defined"):
+    with pytest.raises(ValueError, match="checksum"):
+        png.decode_png(bad_depth)
+    ihdr = bad_depth[12:29]
+    bad_depth = bad_depth[:29] + struct.pack(">I", zlib.crc32(ihdr)) + bad_depth[33:]
+    with pytest.raises(ValueError, match="no mode Pillow opens"):
         png.decode_png(bad_depth)
     no_palette = make_png(np.zeros((2, 2, 1), np.int64), 3, 8, rng)
-    with pytest.raises(ValueError, match="PLTE"):
-        png.decode_png(no_palette)
+    np.testing.assert_array_equal(png.decode_png(no_palette),
+                                  np.asarray(Image.open(io.BytesIO(no_palette)).convert("RGBA")))
 
 
 # ---- OBJ ---------------------------------------------------------------------------

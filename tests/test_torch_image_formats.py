@@ -35,6 +35,7 @@ import gzip
 import hashlib
 import io
 import json
+import lzma
 import os
 import struct
 import zlib
@@ -811,15 +812,24 @@ def _tiff_rows(px: np.ndarray, bps: int, order: str) -> bytes:
     return (flat.reshape(rows, -1, per) << shifts).sum(-1).astype(np.uint8).tobytes()
 
 
-TIFF_COMPRESSIONS = {"none": 1, "LZW": 5, "Deflate": 8, "PackBits": 32773, "old Deflate": 32946}
+TIFF_COMPRESSIONS = {"none": 1, "LZW": 5, "Deflate": 8, "PackBits": 32773, "old Deflate": 32946,
+                     "LZMA": 34925}
+REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def xz(data: bytes) -> bytes:
+    """An .xz stream, as libtiff's LZMA codec writes a strip."""
+    return lzma.compress(data, format=lzma.FORMAT_XZ)
 
 
 def write_tiff(px, photometric, bps=8, extra=(), compression="none", predictor=1, planar=1,
-               tile=None, rows_per_strip=None, order="<", colour_map=None, tags=None) -> bytes:
+               tile=None, rows_per_strip=None, order="<", colour_map=None, tags=None,
+               fill_order=1) -> bytes:
     """A classic TIFF of samples px [h, w, n] (uint8 or uint16): strips of
     `rows_per_strip` rows or tiles of `tile` (w, h); planar configuration
-    1 or 2; horizontal differencing where predictor is 2; extra `tags`
-    {tag: (type, values)} override the written ones."""
+    1 or 2; horizontal differencing where predictor is 2; fill order 2
+    reverses the bits of every byte written (FillOrder written where it is
+    not 1); extra `tags` {tag: (type, values)} override the written ones."""
     px = np.asarray(px)
     px = px[..., None] if px.ndim == 2 else px
     h, w, n = px.shape
@@ -835,8 +845,11 @@ def write_tiff(px, photometric, bps=8, extra=(), compression="none", predictor=1
         data = _tiff_rows(block, bps, order)
         if code == 1:
             return data
-        return tiff_lzw(data) if code == 5 else zlib.compress(data, 6)
+        return {5: tiff_lzw, 34925: xz}.get(code, lambda b: zlib.compress(b, 6))(data)
 
+    if fill_order != 1:
+        plain = encode
+        encode = lambda block: plain(block).translate(REVERSED_BITS)  # noqa: E731
     planes = [px] if planar == 1 else [px[..., i : i + 1] for i in range(n)]
     blocks = []
     for plane in planes:
@@ -859,6 +872,8 @@ def write_tiff(px, photometric, bps=8, extra=(), compression="none", predictor=1
                262: (3, [photometric]), 277: (3, [n]), 284: (3, [planar])}
     if predictor != 1:
         entries[317] = (3, [predictor])
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
     if extra:
         entries[338] = (3, list(extra))
     if colour_map is not None:
@@ -874,7 +889,7 @@ def write_tiff(px, photometric, bps=8, extra=(), compression="none", predictor=1
     at = ifd + 2 + 12 * len(entries) + 4
     body, spill = b"", b""
     for tag, (kind, vals) in sorted(entries.items()):
-        value = struct.pack(order + {3: "H", 4: "I"}[kind] * len(vals), *vals)
+        value = struct.pack(order + {3: "H", 4: "I", 7: "B"}[kind] * len(vals), *vals)
         if len(value) <= 4:
             body += struct.pack(order + "HHI", tag, kind, len(vals)) + value.ljust(4, b"\x00")
         else:
@@ -1528,9 +1543,10 @@ def breaktime_jpeg_pair():
             replace_glb_images(raw, pngs, "image/png"))
 
 
-MIXED_FORMATS = ["tiff jpeg ycbcr 2x2", "tiff cmyk lzw", "tiff cielab", "webp animated",
-                 "tiff group 4", "bmp rle8"]
-MIXED_MIMES = ["image/tiff", "image/tiff", "image/tiff", "image/webp", "image/tiff", "image/bmp"]
+MIXED_FORMATS = ["tiff ycbcr planar", "tiff ycbcr lzma predicted", "psd lab", "tiff orientation 6",
+                 "tiff fill order 2 group 4", "tiff lzma fill order 2"]
+MIXED_MIMES = ["image/tiff", "image/tiff", "image/vnd.adobe.photoshop", "image/tiff", "image/tiff",
+               "image/tiff"]
 
 
 def mixed_texture(img: Image.Image, kind: str) -> bytes:
@@ -1539,41 +1555,44 @@ def mixed_texture(img: Image.Image, kind: str) -> bytes:
     from tests import test_torch_image_formats_variants as V
 
     rgb = np.asarray(img.convert("RGB"))
-    if kind == "tiff jpeg ycbcr 2x2":  # 4:2:0 strips of 64 rows, the tables in JPEGTables
-        return V.jpeg_tiff(rgb, rows_per_strip=64, quality=90)
-    if kind == "tiff cmyk lzw":
-        return save(img.convert("CMYK"), "TIFF", compression="tiff_lzw")
-    if kind == "tiff cielab":  # L from the grey, a and b (signed) from colour differences
-        lab = np.dstack([rgb.mean(-1), (rgb[..., 0].astype(int) - rgb[..., 1]) // 2 & 255,
-                         (rgb[..., 1].astype(int) - rgb[..., 2]) // 2 & 255]).astype(np.uint8)
-        return save(Image.frombytes("LAB", img.size, lab.tobytes()), "TIFF",
-                    compression="tiff_lzw")
-    if kind == "webp animated":  # a lossy first frame 16 px in and 8 down, then a second
-        h, w = rgb.shape[:2]
-        first = save(Image.fromarray(rgb[8:, 16:]), "WEBP", quality=90)
-        second = save(Image.fromarray(rgb[:16, :16]), "WEBP", quality=90)
-        return V.anim_webp((w, h), [(16, 8, first, 0), (0, 0, second, 0)], False)
-    if kind == "tiff group 4":  # a 1-bit map, strips of 32 rows
-        return save(img.convert("1"), "TIFF", compression="group4", tiffinfo={278: 32})
-    quant = img.quantize(256)  # "bmp rle8"
-    pal = np.array(quant.getpalette()[:768], np.uint8).reshape(-1, 3)
-    return V.rle_bmp(np.asarray(quant), pal)
+    if kind == "tiff ycbcr lzma predicted":  # 4:2:0 strips of 64 rows, differenced, LZMA
+        return V.ycbcr_tiff(rgb, (2, 2), "LZMA", rows_per_strip=64, predictor=2)
+    if kind == "tiff ycbcr planar":  # one plane each at 1x1, Deflate with the predictor
+        return write_tiff(np.asarray(img.convert("YCbCr")), 6, compression="Deflate", planar=2,
+                          predictor=2, rows_per_strip=64, tags={530: (3, [1, 1])})
+    if kind == "psd lab":  # L from the grey, a and b (128 for 0) from colour differences
+        planes = np.stack([rgb.mean(-1), (rgb[..., 0].astype(int) - rgb[..., 1]) // 2 + 128,
+                           (rgb[..., 1].astype(int) - rgb[..., 2]) // 2 + 128])
+        return write_psd(planes.astype(np.uint8), 9, 8, 1)
+    if kind == "tiff orientation 6":  # stored turned a quarter the other way, LZW strips
+        return write_tiff(np.ascontiguousarray(np.rot90(rgb)), 2, compression="LZW",
+                          rows_per_strip=32, tags={274: (3, [6])})
+    if kind == "tiff fill order 2 group 4":  # a 1-bit map, strips of 32 rows, bits reversed
+        return save(img.convert("1"), "TIFF", compression="group4", tiffinfo={266: 2, 278: 32})
+    # "tiff lzma fill order 2": RGB strips of 64 rows, differenced, LZMA, bits reversed
+    return write_tiff(rgb, 2, compression="LZMA", predictor=2, rows_per_strip=64, fill_order=2)
+
+
+def twin_png(raw: bytes) -> bytes:
+    """A texture's lossless twin: a PNG of Pillow's decode, RGB where it is
+    opaque (a Lab PSD's alpha is 0)."""
+    rgba = pillow(raw)
+    return save(Image.fromarray(rgba if (rgba[..., 3] != 255).any() else rgba[..., :3]), "PNG",
+                optimize=True)
 
 
 def breaktime_mixed_pair():
     """BreakTime with its six textures re-encoded (MIXED_FORMATS, in the
-    GLB's image order) as a JPEG-compressed 4:2:0 YCbCr TIFF, a CMYK LZW
-    TIFF, a CIELab TIFF, an animated lossy WebP whose first frame is offset
-    on its canvas, a Group 4 TIFF (the 1-bit metallic-roughness map) and an
-    RLE8 BMP, and its lossless twin: each texture a PNG of Pillow's
-    decode."""
+    GLB's image order) as a planar YCbCr TIFF, an LZMA 4:2:0 YCbCr TIFF
+    with the predictor, a Lab PSD, an LZW TIFF of orientation 6, a Group 4
+    TIFF of fill order 2 (the 1-bit metallic-roughness map) and an LZMA
+    RGB TIFF of fill order 2, and its lossless twin (`twin_png`)."""
     with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
         raw = f.read()
     files = [mixed_texture(Image.open(io.BytesIO(b)).convert("RGB"), kind)
              for b, kind in zip(glb_images(raw), MIXED_FORMATS)]
-    pngs = [save(Image.open(io.BytesIO(b)).convert("RGB"), "PNG", optimize=True) for b in files]
     return (replace_glb_images(raw, files, MIXED_MIMES),
-            replace_glb_images(raw, pngs, "image/png"))
+            replace_glb_images(raw, [twin_png(b) for b in files], "image/png"))
 
 
 J2K_TEXTURES = [dict(mct=1), dict(mct=1),
@@ -1921,10 +1940,10 @@ LEGACY_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "formats_legacy")
 BT_LEGACY = "BreakTime-legacy.glb"
 BT_LEGACY_TWIN = "BreakTime-legacy-twin.glb"
 # BreakTime-legacy's textures, in the GLB's image order, with MIME types
-LEGACY_TEXTURES = ["BLP1 JPEG", "IM RGB", "BLP2 DXT5", "FTEX DXT1", "ICNS it32 RLE + t8mk",
-                   "SUN RLE 24-bit"]
-LEGACY_MIMES = ["image/x-blp", "image/x-im", "image/x-blp", "image/x-ftex", "image/icns",
-                "image/x-sun-raster"]
+LEGACY_TEXTURES = ["IPTC holding a PNG", "IM RGB", "BLP2 DXT5", "XPM 8-byte keys",
+                   "McIdas 16-bit", "XVThumb"]
+LEGACY_MIMES = ["image/x-iptc", "image/x-im", "image/x-blp", "image/x-xpixmap", "image/x-mcidas",
+                "image/x-xvthumb"]
 
 
 def im_file(data: bytes, image_type: str, size, lut: bytes = None, extra: bytes = b"",
@@ -2261,6 +2280,55 @@ def xpm_file(idx: np.ndarray, colours, keys=None, none_key=None, pixel_header: b
     return b"\n".join(lines) + b"\n};\n"
 
 
+def mcidas_file(px: np.ndarray, depth: int = 1, prefix: int = 0, gap: int = 0) -> bytes:
+    """A McIdas area of [h, w] samples, `depth` bytes each (1, 2 or 4, big
+    endian): the 256-byte directory (w[9] lines, w[10] elements, w[11]
+    bytes an element, w[14] bands, w[15] the prefix of each line, w[34]
+    the data's offset), `gap` bytes before the data, then each line its
+    `prefix` bytes and its samples."""
+    h, w = px.shape
+    words = [0] * 65
+    words[2], words[9], words[10], words[11], words[14] = 4, h, w, depth, 1
+    words[15], words[34] = prefix, 256 + gap
+    rows = np.ascontiguousarray(px, {1: np.uint8, 2: ">u2", 4: ">i4"}[depth]).view(np.uint8)
+    pad = np.tile(np.arange(prefix, dtype=np.uint8), (h, 1))
+    return (struct.pack(">64i", *words[1:]) + bytes(range(gap))
+            + np.concatenate([pad, rows.reshape(h, -1)], 1).tobytes())
+
+
+def xvthumb_file(idx: np.ndarray, comments=(b"#XVVERSION:Version 2.28 (suite)",
+                                            b"#BUILTIN:STIPPLE"), head: bytes = b"\n") -> bytes:
+    """An XV thumbnail of [h, w] indices into the 3-3-2 palette: "P7 332",
+    the rest of its line `head`, comment lines, the size line, the bytes."""
+    h, w = idx.shape
+    return (b"P7 332" + head + b"".join(c + b"\n" for c in comments)
+            + b"%d %d 255\n" % (w, h) + np.asarray(idx, np.uint8).tobytes())
+
+
+def rgb332(img: Image.Image) -> np.ndarray:
+    """An image's pixels as indices of the 3-3-2 palette (r << 5 | g << 2 | b)."""
+    rgb = np.asarray(img.convert("RGB")).astype(np.int64)
+    return ((rgb[..., 0] * 7 + 127) // 255 << 5 | (rgb[..., 1] * 7 + 127) // 255 << 2
+            | (rgb[..., 2] * 3 + 127) // 255).astype(np.uint8)
+
+
+def long_key_xpm(img: Image.Image, colours: int = 64, bpp: int = 8) -> bytes:
+    """An image as an XPM of `bpp`-byte keys: quantized to `colours` up to
+    256 ("P"); above, its own colours and unused ones up to `colours`
+    ("RGB": the palette length decides), at least its own."""
+    if colours <= 256:
+        quant = img.convert("RGB").quantize(colours)
+        pal = np.array(quant.getpalette()[: 3 * colours], np.uint8).reshape(-1, 3)
+        idx = np.asarray(quant)
+    else:
+        rgb = np.asarray(img.convert("RGB"))
+        pal, idx = np.unique(rgb.reshape(-1, 3), axis=0, return_inverse=True)
+        pal = np.concatenate([pal, np.full((max(0, colours - len(pal)), 3), 7, np.uint8)])
+        idx = idx.reshape(rgb.shape[:2])
+    keys = [b"c%0*d" % (bpp - 1, k) for k in range(len(pal))]
+    return xpm_file(idx, ["#%02x%02x%02x" % tuple(c) for c in pal], keys=keys, bpp=bpp)
+
+
 def legacy_small_fixtures() -> dict:
     """name -> the bytes of each small fixture of the legacy formats: of
     one 21x35 picture (`pillow_modes(21, 35, seed=9)`), Pillow's IM,
@@ -2328,28 +2396,27 @@ def legacy_small_fixtures() -> dict:
 
 def legacy_texture(img: Image.Image, kind: str) -> bytes:
     rgb = img.convert("RGB")
-    if kind == "BLP1 JPEG":
-        return blp1_jpeg(rgb, quality=90)
+    if kind == "IPTC holding a PNG":  # a grey IPTC image: the PNG's own colours
+        return iptc_file(save(rgb, "PNG"), rgb.size, compression=5)
     if kind == "IM RGB":
         return save(rgb, "IM")
     if kind == "BLP2 DXT5":
         return blp_file(2, rgb.width, rgb.height, dxt_blocks_of(rgb.convert("RGBA"), "DXT5"), 1,
                         2, 8, 7, palette=bytes(1024))
-    if kind == "FTEX DXT1":
-        return ftex_file(0, rgb.width, rgb.height, dxt_blocks_of(rgb, "DXT1"))
-    if kind.startswith("ICNS"):
-        small = np.asarray(rgb.resize((128, 128)))
-        return icns_file([(b"it32", b"\0" * 4 + icns_rgb32(small)),
-                          (b"t8mk", np.full((128, 128), 255, np.uint8).tobytes())])
-    return sun_file(sun_rows(np.asarray(rgb)[..., ::-1], 24, False), rgb.width, 24, rle=True)
+    if kind == "XPM 8-byte keys":  # 128x128 in 256 colours
+        return long_key_xpm(rgb.resize((128, 128)), 256, 8)
+    if kind == "McIdas 16-bit":  # grey words below 256 (Pillow clips the rest), a line prefix
+        return mcidas_file(np.asarray(rgb.convert("L")), 2, prefix=4, gap=12)
+    return xvthumb_file(rgb332(rgb))  # "XVThumb"
 
 
 def breaktime_legacy_pair():
     """BreakTime with its six textures re-encoded as LEGACY_TEXTURES names
-    them, in the GLB's image order (a BLP1 JPEG, Pillow's IM of the normal
-    map, a BLP2 DXT5, an FTEX DXT1, a 128x128 ICNS of an it32 RLE entry and
-    its t8mk mask, a 24-bit RLE Sun raster), under LEGACY_MIMES; and its
-    lossless twin: each texture a PNG of Pillow's decode."""
+    them, in the GLB's image order (an IPTC record holding a PNG, Pillow's
+    IM of the normal map, a BLP2 DXT5, a 128x128 XPM of 8-byte keys, a
+    16-bit McIdas area of the metallic-roughness map, an XV thumbnail of
+    the poster), under LEGACY_MIMES; and its lossless twin: each texture a
+    PNG of Pillow's decode."""
     with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
         raw = f.read()
     files = [legacy_texture(Image.open(io.BytesIO(b)), kind)
@@ -2433,14 +2500,12 @@ def test_committed_breaktime_mixed_pair():
     files = glb_images(fixture(scene["mixed"]))
     pngs = glb_images(fixture(scene["mixed_twin"]))
     assert len(files) == len(pngs) == 6
-    heads = [f[:4] + f[8:12] if f[:4] == b"RIFF" else f[:4] for f in files]
-    assert heads[:5] == [b"II*\x00"] * 3 + [b"RIFFWEBP", b"II*\x00"]
-    assert files[5][:2] == b"BM" and struct.unpack_from("<HI", files[5], 28) == (8, 1)  # RLE8
-    tags = [Image.open(io.BytesIO(files[i])).tag_v2 for i in (0, 1, 2, 4)]
-    assert [(t[259], t[262]) for t in tags] == [(7, 6), (5, 5), (5, 8), (4, 1)]
-    assert tags[0][530] == (2, 2) and 347 in tags[0]
-    chunks = webp_chunks(files[3])
-    assert [k for k, _ in chunks][:2] == [b"VP8X", b"ANIM"] and chunks[2][1][:3] == b"\x08\x00\x00"
+    assert [f[:4] for f in files] == [b"II*\x00"] * 2 + [b"8BPS"] + [b"II*\x00"] * 3
+    assert struct.unpack_from(">H", files[2], 24)[0] == 9  # Lab
+    tags = [Image.open(io.BytesIO(files[i])).tag_v2 for i in (0, 1, 3, 4, 5)]
+    assert [(t[259], t[262]) for t in tags] == [(8, 6), (34925, 6), (5, 2), (4, 1), (34925, 2)]
+    assert tags[1][530] == (2, 2) and tags[1][317] == 2 and tags[0][284] == 2
+    assert tags[2][274] == 6 and tags[3][266] == 2 and tags[4][266] == 2 and tags[4][317] == 2
     doc, _ = read_glb(fixture(scene["mixed"]))
     assert [img["mimeType"] for img in doc["images"]] == MIXED_MIMES
     for f, png in zip(files, pngs):

@@ -21,6 +21,9 @@ whose first bytes pass CUR's, PCX's or DIB's test, read under their .tga
 name (Pillow tries those plugins first), each decoded as Pillow decodes it
 or refused where Pillow refuses it. The fixtures of formats_classic are
 written by `make_classic_fixtures` (`python -m tests.test_torch_image_formats`).
+`python -m tests.test_torch_image_formats_classic --fuzz N SEED` runs N byte
+edits of each of them against Pillow (the suite keeps a fixed 4 x 5 each,
+and the edits the fuzz found faults with: an ICO's PNG).
 """
 
 import io
@@ -826,3 +829,43 @@ def test_pnm_module_reads_pillows_magic_numbers():
 
     assert pnm_mod.MODES == PpmImagePlugin.MODES and pnm_mod.WHITESPACE == PpmImagePlugin.b_whitespace
     assert pnm_mod.SAFEBLOCK == ImageFile.SAFEBLOCK
+
+
+# ---- edits of the committed fixtures against Pillow (queue 3's fuzz) --------------------------
+
+def classic_fuzz(n: int, seed: int = 0) -> dict:
+    """`n` random edits of every committed fixture of formats_classic
+    (tests/test_torch_image_formats_variants.py `edit_fuzz`) -> counts of
+    (kind, outcome); raises AssertionError at the first disagreement."""
+    from tests.test_torch_image_formats_variants import edit_fuzz
+
+    names = [e["file"] for e in classic_manifest()["images"]]
+    return edit_fuzz([(name, classic_fixture(name)) for name in names], n, seed)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_edited_classic_fixtures_decode_as_pillow_decodes_them(seed):
+    """A fixed 4 x 5 edits of each classic fixture (`--fuzz` runs more)."""
+    assert sum(classic_fuzz(5, seed).values()) == 5 * len(classic_manifest()["images"])
+
+
+CLASSIC_EDITED = {  # what the fuzz found (an ICO's PNG), each now as Pillow reads it
+    "PNG zlib check broken: Pillow inflates no further than the rows":
+        ("ico-png.ico", "byte", 0.9744756345842079, 12318),
+    "PNG stream cut before its check": ("ico-png.ico", "zero", 0.9962633250360021, 30957),
+    "PNG chunk before IDAT with a bad CRC: refused": ("ico-png.ico", "zero", 0.21974365098939053,
+                                                      23622),
+}
+
+
+@pytest.mark.parametrize("case", list(CLASSIC_EDITED))
+def test_classic_edits_the_fuzz_found(case):
+    from tests.test_torch_image_formats_variants import assert_as_pillow, edit
+
+    name, kind, where, value = CLASSIC_EDITED[case]
+    assert_as_pillow(edit(classic_fixture(name), kind, where, value), name)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fuzz"]:  # --fuzz N [SEED]: edits of each classic fixture
+        print(json.dumps(classic_fuzz(int(sys.argv[2]), int(sys.argv[3]) if sys.argv[3:] else 0)))

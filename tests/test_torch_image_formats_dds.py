@@ -328,23 +328,9 @@ def dds_psd_fuzz(suffix: str, n: int, seed: int = 0) -> dict:
     `suffix`, each decoded by the port and by Pillow -> counts of (kind,
     outcome); raises AssertionError at the first edit they disagree on."""
     from tests.test_torch_image_formats import dds_psd_fixture
-    from tests.test_torch_image_formats_variants import EDITS, edit, outcome, port_outcome, same
+    from tests.test_torch_image_formats_variants import edit_fuzz
 
-    rng = np.random.default_rng(seed)
-    counts = {}
-    for name in dds_psd_small(suffix):
-        raw = dds_psd_fixture(name)
-        for _ in range(n):
-            kind = str(rng.choice(EDITS))
-            where, value = float(rng.random()), int(rng.integers(0, 2**16))
-            edited = edit(raw, kind, where, value)
-            want, got = outcome(edited), port_outcome(edited)
-            if not same(want, got):
-                raise AssertionError(f"{name} {kind} at {where} ({value}): Pillow "
-                                     f"{type(want).__name__}, port {type(got).__name__}")
-            key = f"{kind}: {'refused' if isinstance(want, Exception) else 'decoded'}"
-            counts[key] = counts.get(key, 0) + 1
-    return counts
+    return edit_fuzz([(name, dds_psd_fixture(name)) for name in dds_psd_small(suffix)], n, seed)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -21,7 +21,12 @@ through them to TGA. The RGBA conversions the new modes need
 (utils/modes.py `to_rgba`) are held to Pillow's `convert("RGBA")` on
 random arrays, YCbCr on all 2**24 inputs. The fixtures of
 tests/data_torch/formats_legacy are written by `make_legacy_fixtures`
-(`python -m tests.test_torch_image_formats`).
+(`python -m tests.test_torch_image_formats`); `python -m
+tests.test_torch_image_formats_legacy --fuzz N SEED` runs N byte edits of
+each of them against Pillow (the suite keeps a fixed 4 x 5 each, and the
+edits the fuzz found faults with: an ICNS entry's PNG). An IPTC record
+holding a file of another format, and XPM keys of any length, as Pillow
+reads them.
 """
 
 import io
@@ -263,10 +268,64 @@ def test_iptc_cases_reach_their_variant():
 
 
 def test_iptc_holding_another_format_is_refused_by_name():
-    png = save(Image.fromarray(picture(4, 5)), "PNG")
-    raw = iptc_file(png, (5, 4), compression=5)
+    """A format whose images may take a mode Pillow's C convert cannot take
+    to RGBA (TIFF: I;16, LAB...) stays refused inside an IPTC record."""
+    tif = save(Image.fromarray(picture(4, 5)), "TIFF")
+    raw = iptc_file(tif, (5, 4), compression=5)
     assert pillow_open(raw)[0] == "IPTC"
-    assert_refused_by_name(raw, "IPTC image record holding a PNG")
+    assert_refused_by_name(raw, "IPTC image record holding a TIFF")
+
+
+def iptc_embedded_cases():
+    """IPTC records (compression 5) holding files of other formats, grey
+    ("L": the file's image as Pillow's C convert takes it) and as a band
+    of an RGB image."""
+    rgb = picture(9, 13, 2)
+    img = pillow_modes(9, 13, seed=2)
+    p = Image.fromarray(rgb).quantize(16)
+    files = {
+        "PNG": save(Image.fromarray(rgb), "PNG"),
+        "PNG RGBA": save(img["RGBA"], "PNG"),
+        "PNG palette with tRNS": save(p, "PNG", transparency=3),
+        "PNG grey with a key": save(img["L"], "PNG", transparency=7),
+        "PNG 16-bit grey": save(Image.fromarray(rgb[..., 0].astype(np.uint16) * 200), "PNG"),
+        "PNG 1-bit": save(img["1"], "PNG"),
+        "GIF with transparency": save(p, "GIF", transparency=3),
+        "BMP": save(Image.fromarray(rgb), "BMP"),
+        "WebP": save(img["RGBA"], "WEBP", lossless=True),
+        "TGA": save(Image.fromarray(rgb), "TGA"),
+        "QOI": save(img["RGBA"], "QOI"),
+        "PFM": b"Pf\n13 9\n-1.0\n" + np.linspace(0, 300, 117, dtype="<f4").tobytes(),
+    }
+    cases = {}
+    for name, data in files.items():
+        cases[name] = iptc_file(data, (13, 9), compression=5)
+        if name != "PFM":  # Pillow's merge of an "F" first band ends the process
+            cases[name + " as band 1"] = iptc_file(data, (13, 9), 3, 1, band=1, compression=5)
+            cases[name + " as band 2"] = iptc_file(data, (13, 9), 3, 1, band=2, compression=5)
+    return cases
+
+
+IPTC_BAND_REFUSALS = ("PNG palette with tRNS as band 1", "PNG 16-bit grey as band 1") + tuple(
+    f"{f} as band {b}" for f in ("GIF with transparency", "BMP", "WebP", "TGA", "QOI")
+    for b in (1, 2))
+
+
+@pytest.mark.parametrize("case", list(iptc_embedded_cases()))
+def test_iptc_holding_any_format_matches_pillow(case):
+    """Pillow's IPTC load opens the record's file with Image.open and takes
+    its core image, none of its info: a PNG's or GIF's transparency is
+    dropped, 16-bit grey and PFM floats are refused by the C convert; a
+    band must be "L" after the first, and one band of any mode first. A
+    first band of a mode whose raw values Pillow merges (palette indices,
+    16-bit words), or a band of a format whose mode the port does not
+    tell, stays refused by name."""
+    raw = iptc_embedded_cases()[case]
+    if case in IPTC_BAND_REFUSALS:
+        assert_refused_by_name(raw, "whose band is")
+    else:
+        assert_as_pillow(raw)
+    assert pillow_open(raw)[0] == "IPTC"
 
 
 # ---- PCD -------------------------------------------------------------------------------------
@@ -887,6 +946,26 @@ def test_rgb_xpm_with_none_is_refused_by_name(case):
     assert_refused_by_name(raw, "with a 'None' colour")
 
 
+@pytest.mark.parametrize("none", [False, True])
+@pytest.mark.parametrize("colours", [12, 300])
+@pytest.mark.parametrize("bpp", [7, 8, 9, 12, 16])
+def test_xpm_keys_of_any_length_match_pillow(bpp, colours, none):
+    """Keys longer than 7 bytes, as Pillow 12.1.0 reads them ("P" up to 256
+    palette lines, "RGB" above; an RGB image with "None" stays refused by
+    name, as Pillow's convert raises TypeError on it)."""
+    rng = np.random.default_rng(bpp * 10 + colours + none)
+    cols = ["#%06x" % v for v in rng.integers(0, 1 << 24, colours)]
+    keys = [b"%0*d" % (bpp, k) for k in range(colours)]
+    if none:
+        cols, keys = ["None"] + cols, [b"N" * bpp] + keys
+    raw = xpm_file(rng.integers(0, len(cols), (5, 7)), cols, keys=keys, bpp=bpp)
+    if none and colours > 256:
+        assert_refused_by_name(raw, "with a 'None' colour")
+    else:
+        assert_as_pillow(raw)
+        assert isinstance(pillow_open(raw)[1], np.ndarray) or none  # "None" used: refused
+
+
 def test_xpm_none_sets_alphas_from_the_key_bytes():
     """Pillow's transparency is the "None" key's bytes, which its convert
     reads as the alphas of palette entries 0, 1, ...: key "." (46) makes
@@ -1039,12 +1118,12 @@ def test_committed_breaktime_legacy_pair():
     pngs = glb_images(legacy_fixture(scene["legacy_twin"]))
     assert len(files) == len(pngs) == 6
     kinds = [Image.open(io.BytesIO(f)).format for f in files]
-    assert kinds == ["BLP", "IM", "BLP", "FTEX", "ICNS", "SUN"]
-    assert files[0][:4] == b"BLP1" and struct.unpack_from("<i", files[0], 4)[0] == 0
+    assert kinds == ["IPTC", "IM", "BLP", "XPM", "MCIDAS", "XVThumb"]
+    assert b"\x89PNG" in files[0][:64]  # the record holds a PNG
     assert files[2][:4] == b"BLP2" and files[2][8:11] == bytes([2, 8, 7])  # DXT5 with alpha
-    assert struct.unpack_from("<i", files[3], 24)[0] == 0  # FTEX DXT1
-    assert b"it32" in files[4] and b"t8mk" in files[4]
-    assert struct.unpack_from(">I", files[5], 20)[0] == 2  # RLE
+    assert b'"128 128 256 8"' in files[3]  # 8-byte keys
+    assert struct.unpack_from(">i", files[4], 40)[0] == 2  # 16-bit words
+    assert files[5][:6] == b"P7 332"
     for f, png in zip(files, pngs):
         assert png[:4] == b"\x89PNG"
         np.testing.assert_array_equal(pillow(f), pillow(png))
@@ -1052,3 +1131,45 @@ def test_committed_breaktime_legacy_pair():
     doc, _ = read_glb(legacy_fixture(scene["legacy"]))
     assert [img["mimeType"] for img in doc["images"]] == LEGACY_MIMES
     assert LEGACY_TEXTURES[1] == "IM RGB"
+
+
+# ---- edits of the committed fixtures against Pillow (queue 3's fuzz) --------------------------
+
+def legacy_fuzz(n: int, seed: int = 0) -> dict:
+    """`n` random edits of every committed fixture of formats_legacy
+    (tests/test_torch_image_formats_variants.py `edit_fuzz`) -> counts of
+    (kind, outcome); raises AssertionError at the first disagreement."""
+    from tests.test_torch_image_formats_variants import edit_fuzz
+
+    names = [e["file"] for e in legacy_manifest()["images"]]
+    return edit_fuzz([(name, legacy_fixture(name)) for name in names], n, seed)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_edited_legacy_fixtures_decode_as_pillow_decodes_them(seed):
+    """A fixed 4 x 5 edits of each legacy fixture (`--fuzz` runs more)."""
+    assert sum(legacy_fuzz(5, seed).values()) == 5 * len(legacy_manifest()["images"])
+
+
+LEGACY_EDITED = {  # what the fuzz found (an ICNS entry's PNG), each now as Pillow reads it
+    "PNG stream run on past its rows into other bytes":
+        ("icns-png.icns", "insert", 0.8814343059906473, 53284),
+    "PNG IHDR of fewer than 13 bytes: refused": ("icns-png.icns", "flip", 0.03892571614388596,
+                                                 49913),
+    "PNG cut inside IHDR: refused": ("icns-png.icns", "cut", 0.03961777792918686, 47969),
+}
+
+
+@pytest.mark.parametrize("case", list(LEGACY_EDITED))
+def test_legacy_edits_the_fuzz_found(case):
+    from tests.test_torch_image_formats_variants import assert_as_pillow, edit
+
+    name, kind, where, value = LEGACY_EDITED[case]
+    assert_as_pillow(edit(legacy_fixture(name), kind, where, value), name)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:2] == ["--fuzz"]:  # --fuzz N [SEED]: edits of each legacy fixture
+        print(json.dumps(legacy_fuzz(int(sys.argv[2]), int(sys.argv[3]) if sys.argv[3:] else 0)))

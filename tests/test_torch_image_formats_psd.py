@@ -9,8 +9,8 @@ byte counts that lie, random PackBits streams). CMYK pixels come from
 Pillow's `convert`, so every file is held as the loaders read it:
 `decode_image_u8` must give Pillow's
 `np.asarray(Image.open(...).convert("RGBA"))` bit for bit. Each variant
-Pillow refuses raises NotImplementedError naming it; Lab, which Pillow
-converts through LittleCMS, is refused too.
+Pillow refuses raises NotImplementedError naming it; Lab is read through
+utils/modes.py `lab_to_rgb`, alpha 0 as Pillow gives it.
 """
 
 import io
@@ -118,7 +118,7 @@ def test_random_packbits_streams_match_pillow(h, w, channels, ops, counts):
     np.testing.assert_array_equal(decode_image_u8(raw), want)
 
 
-# variant -> a file Pillow refuses (or, for Lab, converts through LittleCMS), and the port by name
+# variant -> a file Pillow refuses, and the port by name
 PSD_REFUSALS = {
     "PSD colour mode 3 at 16 bits": lambda: write_psd(np.zeros((3, 2, 8), np.uint8), 3, 16, 0),
     "PSD colour mode 1 at 32 bits": lambda: write_psd(np.zeros((1, 2, 16), np.uint8), 1, 32, 0),
@@ -130,24 +130,30 @@ PSD_REFUSALS = {
     "PSD ZIP with prediction": lambda: write_psd(np.zeros((3, 2, 4), np.uint8), 3, 8, 3),
     "PSD RGB with 2 channels": lambda: write_psd(np.zeros((2, 2, 4), np.uint8), 3, 8, 0),
     "PSD CMYK with 3 channels": lambda: write_psd(np.zeros((3, 2, 4), np.uint8), 4, 8, 0),
+}
+
+# the variants the port refused until it read them: each now decodes as Pillow's
+PSD_READ_NOW = {
     "PSD Lab colour": lambda: write_psd(np.full((3, 2, 4), 128, np.uint8), 9, 8, 1),
 }
+
+
+@pytest.mark.parametrize("variant", list(PSD_READ_NOW))
+def test_psd_variants_once_refused_match_pillow(variant):
+    raw = PSD_READ_NOW[variant]()
+    assert Image.open(io.BytesIO(raw)).mode == "LAB"
+    np.testing.assert_array_equal(decode_image_u8(raw, "texture.psd"), pillow(raw))
 
 
 @pytest.mark.parametrize("variant", list(PSD_REFUSALS))
 def test_psd_refusals(variant):
     """Each refused variant raises NotImplementedError naming it and
-    FORMATS_TODO. Pillow raises for each but Lab, which its convert takes
-    through LittleCMS (a kept divergence)."""
+    FORMATS_TODO; Pillow raises for each."""
     raw = PSD_REFUSALS[variant]()
     with pytest.raises(NotImplementedError, match=f"{variant}.*ROADMAP"):
         decode_image_u8(raw, "texture.psd")
-    if variant == "PSD Lab colour":
-        assert Image.open(io.BytesIO(raw)).mode == "LAB"
-        assert pillow(raw).shape == (2, 4, 4)
-    else:
-        with pytest.raises((OSError, KeyError)):
-            pillow(raw)
+    with pytest.raises((OSError, KeyError)):
+        pillow(raw)
 
 
 @pytest.mark.parametrize("compression", [0, 1])

@@ -225,6 +225,9 @@ TIFF_READ_NOW = {
     "CMYK": lambda: save(Image.new("CMYK", (4, 4)), "TIFF"),
     "YCbCr": lambda: write_tiff(np.zeros((4, 4, 3), np.uint8), 6),
     "CIELab": lambda: save(Image.new("LAB", (4, 4)), "TIFF"),
+    "LZMA-compressed": lambda: write_tiff(picture(4, 5, 1), 2, compression="LZMA"),
+    "bit-reversed fill order": lambda: write_tiff(picture(4, 5, 2), 2, fill_order=2),
+    "orientation 6": lambda: write_tiff(picture(4, 5, 3), 2, tags={274: (3, [6])}),
 }
 
 
@@ -236,12 +239,13 @@ def test_tiff_variants_once_refused_match_pillow(variant):
 
 TIFF_REFUSALS = {
     "old-JPEG-compressed": lambda: rgb_tiff(tags={259: (3, [6])}),
-    "LZMA-compressed": lambda: rgb_tiff(tags={259: (3, [34925])}),
     "floating-point samples": lambda: save(Image.new("F", (4, 4)), "TIFF"),
     "signed samples": lambda: rgb_tiff(tags={339: (3, [2, 2, 2])}),
     "BigTIFF": lambda: save(pillow_modes(4, 4)["RGB"], "TIFF", big_tiff=True),
-    "bit-reversed fill order": lambda: rgb_tiff(tags={266: (3, [2])}),
-    "orientation 6": lambda: rgb_tiff(tags={274: (3, [6])}),
+    "CIELab in planar configuration 2": lambda: write_tiff(np.zeros((4, 4, 3), np.uint8), 8,
+                                                           compression="LZW", planar=2),
+    "JPEG-compressed YCbCr in planar configuration 2": lambda: write_tiff(
+        np.zeros((4, 4, 3), np.uint8), 6, planar=2, tags={259: (3, [7])}),
     "old-style LZW": old_style_lzw,
     "floating-point predictor": lambda: rgb_tiff(compression="Deflate", tags={317: (3, [3])}),
     "horizontal predictor with no compression": lambda: rgb_tiff(predictor=2),

@@ -18,12 +18,24 @@ refused, held to Pillow's `Image.open(...).convert("RGBA")` bit for bit:
   Pillow's convert runs it) on every L and a against a spread of b.
 - WebP (utils/webp.py): an animated file's first frame (`anim_webp` writes
   ANIM and ANMF; Pillow's own animated writer too).
+- Then: TIFF of fill order 2 at every compression and layout (refused
+  where Pillow's OPEN_INFO or its raw modes lack it), of orientations 0-9
+  (by tag of any type and by XMP), YCbCr in planar configuration 2 and
+  with the predictor (libtiff's row sizes, its 4x4 put routine's skip),
+  LZMA (`write_tiff(..., compression="LZMA")`, `ycbcr_tiff(..., "LZMA")`);
+  McIdas areas (`mcidas_file`), XV thumbnails (`xvthumb_file`), Lab PSDs
+  (the PSD and CIELab TIFF branches one conversion in Pillow), IPTC
+  records holding PNGs and long-key XPMs among the fixtures.
 
 The fixtures of tests/data_torch/formats_variants (read by chip_smoke.py's
 `formats` phase on the card's host, which has no Pillow) are written by
 `make_variant_fixtures`: `python -m tests.test_torch_image_formats_variants`
 rewrites them; `--fuzz N SEED` runs N byte edits of each fax, RLE-BMP and
-JPEG-in-TIFF fixture against Pillow (the suite keeps a fixed few hundred).
+JPEG-in-TIFF fixture against Pillow (the suite keeps a fixed few hundred);
+`--time` prints each fixture kind's ms per megapixel on this host, in turns
+with the 1024x1024 Huffman photo as phase 34 times them on the card's.
+`edit_fuzz` is the fuzz of tests/test_torch_image_formats_dds.py, _psd.py,
+_classic.py and _legacy.py (`--fuzz N SEED` in each).
 """
 
 import io
@@ -41,8 +53,10 @@ from PIL import Image
 from rustic_tpu_torch.utils import tiff as tiff_mod
 from rustic_tpu_torch.utils.modes import lab_to_rgb
 from rustic_tpu_torch.utils.png import decode_image_u8, image_format
-from tests.test_torch_image_formats import (icon_dib, icon_file, picture, pillow, riff, save,
-                                            tiff_lzw, webp_chunks)
+from tests.test_torch_image_formats import (icon_dib, icon_file, iptc_file, long_key_xpm,
+                                            mcidas_file, picture, pillow, rgb332,
+                                            riff, save, tiff_lzw, webp_chunks, write_psd,
+                                            write_tiff, xvthumb_file, xz)
 
 VARIANT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch",
                                 "formats_variants")
@@ -511,7 +525,7 @@ def test_edited_fax_data_decodes_as_libtiff_repairs_it(kind, t4, edit_kind, wher
 def ifd_tiff(width: int, height: int, blocks, tags: dict, tile=None, order: str = "<") -> bytes:
     """A classic TIFF of the strips or tiles `blocks` (bytes) and `tags`
     {tag: (type, values)}: types 3, 4, 5 (rationals as (num, den) pairs)
-    and 7 (bytes)."""
+    and 1, 2 and 7 (bytes)."""
     offsets, data = [], b""
     for b in blocks:
         offsets.append(8 + len(data))
@@ -527,7 +541,7 @@ def ifd_tiff(width: int, height: int, blocks, tags: dict, tile=None, order: str 
     at = ifd + 2 + 12 * len(entries) + 4
     body, spill = b"", b""
     for tag, (kind, vals) in sorted(entries.items()):
-        if kind == 7:
+        if kind in (1, 2, 7):
             value, count = bytes(vals), len(vals)
         elif kind == 5:
             value = b"".join(struct.pack(order + "II", n, d) for n, d in vals)
@@ -656,16 +670,27 @@ def ycbcr_units(ycc: np.ndarray, hs: int, vs: int) -> np.ndarray:
 
 
 def ycbcr_tiff(rgb: np.ndarray, sub=(2, 2), compression: str = "LZW", rows_per_strip=None,
-               tile=None, refbw=None, coefs=None, tags=None) -> bytes:
+               tile=None, refbw=None, coefs=None, tags=None, predictor: int = 1) -> bytes:
     """A YCbCr TIFF (photometric 6) of Pillow's YCbCr of `rgb`, subsampled
     (hs, vs) by taking each block's first chroma; compression "none",
-    "LZW" or "Deflate"; ReferenceBlackWhite / YCbCrCoefficients as
-    rationals where given."""
+    "LZW", "Deflate" or "LZMA"; ReferenceBlackWhite / YCbCrCoefficients as
+    rationals where given; with predictor 2 each row of libtiff's
+    predictor (a row of data units over v in a strip, the tile width x 3
+    in a tile) differenced 3 bytes apart, where the strip or tile holds
+    whole such rows of whole 3 bytes (as libtiff's horAcc8 undoes it)."""
     ycc = np.asarray(Image.fromarray(rgb).convert("YCbCr"))
     h, w = ycc.shape[:2]
     hs, vs = sub
-    pack = {"none": lambda b: b, "LZW": tiff_lzw, "Deflate": lambda b: zlib.compress(b, 6)}[
-        compression]
+    code = {"none": lambda b: b, "LZW": tiff_lzw, "Deflate": lambda b: zlib.compress(b, 6),
+            "LZMA": xz}[compression]
+
+    def pack(data, rowsize):
+        if predictor == 2 and rowsize % 3 == 0 and len(data) % rowsize == 0:
+            d = np.frombuffer(data, np.uint8).reshape(-1, rowsize).astype(np.int64)
+            d[:, 3:] -= d[:, :-3].copy()
+            data = (d & 255).astype(np.uint8).tobytes()
+        return code(data)
+
     if tile:
         tw, tl = tile
         blocks = []
@@ -674,12 +699,17 @@ def ycbcr_tiff(rgb: np.ndarray, sub=(2, 2), compression: str = "LZW", rows_per_s
                 part = ycc[y : y + tl, x : x + tw]
                 part = np.pad(part, [(0, tl - part.shape[0]), (0, tw - part.shape[1]), (0, 0)],
                               mode="edge")
-                blocks.append(pack(ycbcr_units(part, hs, vs).tobytes()))
+                blocks.append(pack(ycbcr_units(part, hs, vs).tobytes(), tw * 3))
     else:
         rps = rows_per_strip or h
-        blocks = [pack(ycbcr_units(ycc[y : y + rps], hs, vs).tobytes()) for y in range(0, h, rps)]
-    entries = {258: (3, [8, 8, 8]), 259: (3, [{"none": 1, "LZW": 5, "Deflate": 8}[compression]]),
+        rowsize = -(-w // hs) * (hs * vs + 2) // vs
+        blocks = [pack(ycbcr_units(ycc[y : y + rps], hs, vs).tobytes(), rowsize)
+                  for y in range(0, h, rps)]
+    entries = {258: (3, [8, 8, 8]), 259: (3, [{"none": 1, "LZW": 5, "Deflate": 8,
+                                               "LZMA": 34925}[compression]]),
                262: (3, [6]), 277: (3, [3]), 530: (3, [hs, vs])}
+    if predictor != 1:
+        entries[317] = (3, [predictor])
     if not tile:
         entries[278] = (4, [rows_per_strip or h])
     if refbw is not None:
@@ -847,6 +877,354 @@ def test_a_frame_outside_its_canvas_is_refused_as_pillow_refuses_it():
     assert_as_pillow(anim_webp((8, 8), [(4, 0, still("lossy", 8, 8, 1), 0)], False))
 
 
+# ---- TIFF: fill order 2, orientations, planar and predicted YCbCr, LZMA ----------------------
+
+# (photometric, bits, samples) -> the layouts Pillow's OPEN_INFO has with fill order 2, and some
+# it has not (RGBA, CMYK, CIELab, 16-bit RGB, grey + alpha, big-endian 16-bit grey)
+FILL_LAYOUTS = [(1, 1, 1), (0, 1, 1), (1, 2, 1), (0, 2, 1), (1, 4, 1), (0, 4, 1), (1, 8, 1),
+                (0, 8, 1), (1, 16, 1), (2, 8, 3), (3, 1, 1), (3, 2, 1), (3, 4, 1), (3, 8, 1),
+                (2, 8, 4), (5, 8, 4), (8, 8, 3), (2, 16, 3), (1, 8, 2)]
+
+
+def layout_tiff(photometric, bits, n, seed=0, **kw) -> bytes:
+    """A 5 x 11 TIFF (write_tiff) of random samples of the layout."""
+    rng = np.random.default_rng(seed)
+    top = 300 if bits == 16 else 1 << bits
+    px = rng.integers(0, top, (5, 11, n)).astype(np.uint16 if bits == 16 else np.uint8)
+    if photometric == 3:
+        kw["colour_map"] = list(rng.integers(0, 65536, 3 << bits))
+    if n == 2 or photometric == 2 and n == 4:
+        kw["extra"] = (2,)
+    return write_tiff(px, photometric, bits, rows_per_strip=2, **kw)
+
+
+@pytest.mark.parametrize("order", ["<", ">"])
+@pytest.mark.parametrize("compression", ["none", "LZW", "Deflate", "PackBits", "LZMA"])
+@pytest.mark.parametrize("layout", FILL_LAYOUTS, ids=str)
+def test_fill_order_2_matches_pillow(layout, compression, order):
+    """Fill order 2: every byte of a strip bit-reversed, at every
+    compression (libtiff reverses the bits; Pillow's own reader takes the
+    ";R" raw modes, of which P;1R, P;2R, P;4R and L;IR do not exist); a
+    layout OPEN_INFO has no fill-order-2 key for is refused as Pillow
+    refuses it. With the predictor where the bits allow it."""
+    predictor = 2 if compression in ("LZW", "Deflate", "LZMA") and layout[1] >= 8 else 1
+    assert_as_pillow(layout_tiff(*layout, compression=compression, order=order,
+                                 predictor=predictor, fill_order=2))
+
+
+@pytest.mark.parametrize("kind", ["tiff_ccitt", "group3", "group4"])
+@pytest.mark.parametrize("fill_order", [1, 2])
+def test_fax_and_jpeg_fill_order_2_match_pillow(kind, fill_order):
+    """libtiff's fax decoder reads fill order 2 least significant bit first
+    (Pillow's writer stores it so); its JPEG codec does not reverse bits."""
+    bits = fax_bits(9, 30, fill_order)
+    assert_pillow_equal(save(Image.fromarray(bits), "TIFF", compression=kind,
+                             tiffinfo={266: fill_order, 278: 4}))
+    for mode in ("RGB", "L"):
+        assert_pillow_equal(save(Image.fromarray(picture(12, 9, 3)).convert(mode), "TIFF",
+                                 compression="jpeg", tiffinfo={266: fill_order}))
+
+
+@pytest.mark.parametrize("fill_order", [0, 3, 255])
+def test_fill_orders_pillow_has_no_mode_for_are_refused(fill_order):
+    assert_as_pillow(write_tiff(picture(4, 5, 1), 2, tags={266: (3, [fill_order])}))
+
+
+ORIENTED = {
+    "none": lambda rgb, o: write_tiff(rgb, 2, tags={274: (3, [o])}),
+    "LZW strips": lambda rgb, o: write_tiff(rgb, 2, compression="LZW", rows_per_strip=3,
+                                            tags={274: (3, [o])}),
+    "Deflate tiles": lambda rgb, o: write_tiff(rgb, 2, compression="Deflate", tile=(16, 16),
+                                               tags={274: (3, [o])}),
+    "PackBits grey": lambda rgb, o: write_tiff(rgb[..., 0], 1, compression="PackBits",
+                                               tags={274: (3, [o])}),
+    "LZMA": lambda rgb, o: write_tiff(rgb, 2, compression="LZMA", tags={274: (3, [o])}),
+    "JPEG": lambda rgb, o: save(Image.fromarray(rgb), "TIFF", compression="jpeg",
+                                tiffinfo={274: o}),
+    "Group 4": lambda rgb, o: save(Image.fromarray(rgb[..., 0] > 128), "TIFF",
+                                   compression="group4", tiffinfo={274: o}),
+    "YCbCr LZW": lambda rgb, o: ycbcr_tiff(rgb, (2, 2), "LZW", tags={274: (3, [o])}),
+    "YCbCr none": lambda rgb, o: ycbcr_tiff(rgb, (1, 1), "none", tags={274: (3, [o])}),
+}
+
+
+@pytest.mark.parametrize("kind, orientation", [(k, o) for k in ORIENTED for o in range(10)
+                                               if 0 < o < 9 or k not in ("JPEG", "Group 4")])
+def test_orientations_match_pillow(kind, orientation):
+    """TiffImageFile.load_end transposes the image by its orientation
+    (ImageOps.exif_transpose) on Pillow's own reader and on libtiff's
+    alike; 5-8 swap the sides. 0 and 9 are no orientation (Pillow's
+    libtiff writer takes neither)."""
+    raw = ORIENTED[kind](picture(9, 13, orientation), orientation)
+    assert_pillow_equal(raw)
+
+
+@pytest.mark.parametrize("entry", [(3, [6, 1]), (4, [8]), (5, [(6, 1)]), (5, [(6, 0)]),
+                                   (7, [6]), (1, [6])], ids=str)
+def test_orientation_tag_types_match_pillow(entry):
+    """The tag's first value counts, of any numeric type (a rational too);
+    a BYTE or UNDEFINED field is bytes to Pillow, which no orientation
+    equals."""
+    kind, vals = entry
+    assert_as_pillow(ifd_tiff(13, 9, [picture(9, 13, 4).tobytes()],
+                              {258: (3, [8, 8, 8]), 262: (3, [2]), 277: (3, [3]),
+                               274: (kind, vals)}))
+
+
+@pytest.mark.parametrize("xmp", [b'<x tiff:Orientation="6"/>', b"<tiff:Orientation>3</tiff:",
+                                 b'tiff:Orientation="8" tiff:Orientation="2"', b"none here"])
+@pytest.mark.parametrize("tag", [False, True])
+def test_xmp_orientation_matches_pillow(xmp, tag):
+    """Without tag 274, Image.getexif takes the XMP packet's first
+    tiff:Orientation digit; with it, the tag."""
+    tags = {258: (3, [8, 8, 8]), 262: (3, [2]), 277: (3, [3]), 700: (7, list(xmp))}
+    if tag:
+        tags[274] = (3, [1])
+    assert_pillow_equal(ifd_tiff(13, 9, [picture(9, 13, 5).tobytes()], tags))
+
+
+@pytest.mark.parametrize("kind, value", [(2, b"tiff:Orientation=\"6\""), (2, b"\0"),
+                                         (3, [0]), (3, [6])], ids=str)
+def test_xmp_packets_pillow_cannot_search_match_pillow(kind, value):
+    """A text or numeric XMP packet makes Pillow's search raise, but an empty
+    one or a single 0, which it does not search."""
+    tags = {258: (3, [8, 8, 8]), 262: (3, [2]), 277: (3, [3]), 700: (kind, list(value))}
+    assert_as_pillow(ifd_tiff(13, 9, [picture(9, 13, 6).tobytes()], tags))
+
+
+@pytest.mark.parametrize("predictor", [1, 2])
+@pytest.mark.parametrize("sub", [None, (1, 1), (2, 2), (2, 1)], ids=str)
+@pytest.mark.parametrize("layout", [dict(rows_per_strip=4), dict(tile=(16, 16))], ids=str)
+@pytest.mark.parametrize("compression", ["none", "LZW", "Deflate", "LZMA"])
+def test_planar_ycbcr_matches_pillow(compression, layout, sub, predictor):
+    """One plane each: compressed, through TIFFRGBAImage's
+    putseparate8bitYCbCr11tile (a subsampling other than 1x1, the default
+    2x2 too, has no routine: refused as libtiff refuses it); uncompressed,
+    Pillow's reader takes the planes as R, G and B."""
+    if predictor == 2 and compression == "none":
+        return
+    ycc = np.asarray(Image.fromarray(picture(13, 10, 5)).convert("YCbCr"))
+    assert_as_pillow(write_tiff(ycc, 6, compression=compression, planar=2, predictor=predictor,
+                                tags={530: (3, list(sub))} if sub else None, **layout))
+
+
+@pytest.mark.parametrize("layout", [dict(), dict(rows_per_strip=4), dict(tile=(16, 16))],
+                         ids=str)
+@pytest.mark.parametrize("width", [9, 10, 12, 17])
+@pytest.mark.parametrize("sub", [(1, 1), (2, 1), (2, 2), (1, 2), (4, 2), (4, 1), (4, 4)],
+                         ids=str)
+@pytest.mark.parametrize("compression", ["LZW", "LZMA"])
+def test_predicted_ycbcr_matches_pillow(compression, sub, width, layout):
+    """The predictor undone as horAcc8 runs (3 bytes apart over rows of
+    TIFFScanlineSize, or of the tile width x 3), or not at all where such a
+    row is not whole; also without the predictor, 4x4 strips whose row of
+    units does not split in 4 (the strip's last bytes stay 0) and 4x4
+    tiles cut at the image's right edge (libtiff's put routine steps 10
+    bytes over a unit, not 18)."""
+    rgb = picture(11, width, width + sub[0])
+    for predictor in (1, 2):
+        assert_pillow_equal(ycbcr_tiff(rgb, sub, compression, predictor=predictor, **layout))
+
+
+@pytest.mark.parametrize("planar", [1, 2])
+@pytest.mark.parametrize("predictor", [1, 2])
+@pytest.mark.parametrize("layout", [(1, 8, 1), (1, 16, 1), (2, 8, 3), (2, 16, 3), (3, 8, 1),
+                                    (1, 1, 1), (5, 8, 4), (8, 8, 3), (2, 8, 4)], ids=str)
+def test_lzma_tiff_matches_pillow(layout, predictor, planar):
+    """LZMA (34925): each strip one .xz stream (Python's lzma, as libtiff's
+    codec reads it), with and without the predictor, chunky and planar."""
+    if predictor == 2 and layout[1] < 8:
+        return
+    raw = layout_tiff(*layout, seed=sum(layout), compression="LZMA", predictor=predictor,
+                      planar=planar)
+    if planar == 2 and layout in ((2, 8, 4), (8, 8, 3)):  # layouts Pillow misreads: refused
+        with pytest.raises(NotImplementedError, match="planar configuration 2"):
+            decode_image_u8(raw)
+    else:
+        assert_as_pillow(raw)
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(kind=st.sampled_from(EDITS), where=st.floats(0, 1), value=st.integers(0, 2**16))
+def test_edited_lzma_strips_decode_as_libtiff_reads_them(kind, where, value):
+    """An error once the strip's bytes are all out (a bad check, junk after
+    the stream) goes unseen; one before leaves the strip short: refused."""
+    raw = layout_tiff(2, 8, 3, seed=9, compression="LZMA")
+    assert_as_pillow(edit(raw, kind, where, value, strip_span(raw)))
+
+
+@pytest.mark.parametrize("extra", [0, 200])
+def test_deflate_strips_are_inflated_no_further_than_their_rows(extra):
+    """libtiff's ZIPDecode stops once the strip's bytes are out: a stream
+    that runs on past them with a broken check decodes (the fuzz of the
+    fill-order-2 fixtures found the port inflating the whole stream and
+    refusing it); one whose check comes right after the rows is refused,
+    as zlib reads the check in the same call."""
+    px = picture(6, 10, 3)
+    z = zlib.compress(px.tobytes() + bytes(range(extra)), 6)
+    raw = ifd_tiff(10, 6, [z[:-1] + bytes([z[-1] ^ 1])],
+                   {258: (3, [8, 8, 8]), 259: (3, [8]), 262: (3, [2]), 277: (3, [3])})
+    assert_as_pillow(raw)
+    assert isinstance(outcome(raw), np.ndarray) == bool(extra)
+
+
+@pytest.mark.parametrize("photometric", [2, 6])
+def test_an_lzw_strip_must_start_with_a_clear_code(photometric):
+    """libtiff's LZWDecode refuses a strip whose first code is not a clear
+    code: Pillow refuses the image, except through TIFFRGBAImage (YCbCr),
+    which puts the strip as the zeroed buffer it left."""
+    px = picture(4, 6, 2)
+    bits = "".join(f"{b:08b}" for b in tiff_lzw(px.tobytes()))[9:]  # the clear code dropped
+    bits += "0" * (-len(bits) % 8)
+    data = bytes(int(bits[i : i + 8], 2) for i in range(0, len(bits), 8))
+    raw = ifd_tiff(6, 4, [data], {258: (3, [8, 8, 8]), 259: (3, [5]), 262: (3, [photometric]),
+                                  277: (3, [3]), 530: (3, [1, 1])})
+    assert_as_pillow(raw)
+    assert isinstance(outcome(raw), np.ndarray) == (photometric == 6)
+
+
+BROKEN_YCBCR = {
+    "LZW 2x2 strips": lambda rgb: ycbcr_tiff(rgb, (2, 2), "LZW", rows_per_strip=8),
+    "Deflate 2x1 predicted": lambda rgb: ycbcr_tiff(rgb, (2, 1), "Deflate", rows_per_strip=4,
+                                                    predictor=2),
+    "LZW planar": lambda rgb: write_tiff(np.asarray(Image.fromarray(rgb).convert("YCbCr")), 6,
+                                         compression="LZW", planar=2, rows_per_strip=8,
+                                         tags={530: (3, [1, 1])}),
+    "Deflate planar predicted": lambda rgb: write_tiff(
+        np.asarray(Image.fromarray(rgb).convert("YCbCr")), 6, compression="Deflate", planar=2,
+        predictor=2, rows_per_strip=8, tags={530: (3, [1, 1])}),
+}
+
+
+@settings(max_examples=120, deadline=None, derandomize=True)
+@given(kind=st.sampled_from(list(BROKEN_YCBCR)), edit_kind=st.sampled_from(EDITS),
+       where=st.floats(0, 1), value=st.integers(0, 2**16))
+def test_broken_ycbcr_strips_are_put_as_libtiff_puts_them(kind, edit_kind, where, value):
+    """TIFFRGBAImage (stoponerr 0, Pillow's YCbCr path) puts a strip its
+    codec fails on from what the codec wrote into a zeroed buffer, the
+    predictor not undone (the fuzz of the YCbCr fixtures found the port
+    refusing such files)."""
+    raw = BROKEN_YCBCR[kind](picture(16, 20, 7))
+    assert_as_pillow(edit(raw, edit_kind, where, value, strip_span(raw)))
+
+
+def test_a_tiff_of_too_many_pixels_is_refused_before_it_is_allocated():
+    """Image.open's decompression-bomb check (the fuzz found an edited
+    height of 859,266,369 rows, which the port tried to allocate)."""
+    raw = write_tiff(picture(4, 5, 1), 2, tags={257: (4, [859266369])})
+    with pytest.raises(ValueError, match="decompression bomb"):
+        decode_image_u8(raw)
+    assert_as_pillow(raw)
+
+
+# ---- McIdas areas and XV thumbnails ----------------------------------------------------------
+
+@pytest.mark.parametrize("gap", [0, 7])
+@pytest.mark.parametrize("prefix", [0, 5])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_mcidas_matches_pillow(depth, prefix, gap):
+    """8 bits ("L"), 16 ("I;16B", clipped to 255) and 32 ("I", signed,
+    clipped to 0..255), a prefix on each line (w[15]), data after a gap."""
+    rng = np.random.default_rng(depth * 10 + prefix + gap)
+    lo, hi = {1: (0, 256), 2: (0, 600), 4: (-300, 600)}[depth]
+    raw = mcidas_file(rng.integers(lo, hi, (7, 11)), depth, prefix, gap)
+    assert_pillow_equal(raw)
+    assert image_format(raw) == Image.open(io.BytesIO(raw)).format == "MCIDAS"
+
+
+def mcidas_with(raw: bytes, word: int, value: int) -> bytes:
+    return raw[: 4 * (word - 1)] + struct.pack(">i", value) + raw[4 * word :]
+
+
+MCIDAS_EDITS = {  # (word, value) of the directory, each as Pillow reads or refuses it
+    "depth 3": (11, 3), "no lines": (9, 0), "negative elements": (10, -4), "stride 0": (14, 0),
+    "stride short of a row": (15, -3), "negative offset": (34, -300), "offset past the end":
+    (34, 10**6), "more lines than data": (9, 40), "two bands' stride": (14, 2)}
+
+
+@pytest.mark.parametrize("case", list(MCIDAS_EDITS))
+def test_mcidas_directories_match_pillow(case):
+    raw = mcidas_file(picture(7, 11, 1)[..., 0], 1, prefix=2)
+    assert_as_pillow(mcidas_with(raw, *MCIDAS_EDITS[case]))
+
+
+def test_short_mcidas_directories_pass_on():
+    raw = mcidas_file(picture(7, 11, 1)[..., 0])
+    for cut in (8, 100, 255):
+        assert_as_pillow(raw[:cut])
+
+
+XV_CASES = {
+    "comments": lambda idx: xvthumb_file(idx),
+    "no comments": lambda idx: xvthumb_file(idx, ()),
+    "words after the size": lambda idx: xvthumb_file(idx)[:-idx.size].replace(
+        b" 255\n", b" 255 junk words\n") + idx.tobytes(),
+    "a comment line is the last": lambda idx: b"P7 332\n#only\n",
+    "an empty size line": lambda idx: b"P7 332\n#c\n\n" + idx.tobytes(),
+    "one number": lambda idx: b"P7 332\n9\n" + idx.tobytes(),
+    "not numbers": lambda idx: b"P7 332\nab cd\n" + idx.tobytes(),
+    "zero width": lambda idx: b"P7 332\n0 6\n" + idx.tobytes(),
+    "cut short": lambda idx: xvthumb_file(idx)[:-5],
+    "magic's line runs on": lambda idx: xvthumb_file(idx, head=b" XV thumbnail\n"),
+}
+
+
+@pytest.mark.parametrize("case", list(XV_CASES))
+def test_xvthumb_matches_pillow(case):
+    """P7 332: comments, the size line's first two words, then the 3-3-2
+    palette's indices (every one of the 256)."""
+    idx = np.arange(6 * 9 * 5, dtype=np.uint8)[: 6 * 9].reshape(6, 9)
+    raw = XV_CASES[case](idx)
+    assert_as_pillow(raw)
+    if case == "comments":
+        assert image_format(raw) == Image.open(io.BytesIO(raw)).format == "XVThumb"
+        assert_pillow_equal(xvthumb_file(np.arange(256, dtype=np.uint8).reshape(16, 16)))
+
+
+@settings(max_examples=80, deadline=None, derandomize=True)
+@given(kind=st.sampled_from(EDITS), where=st.floats(0, 1), value=st.integers(0, 2**16),
+       fmt=st.sampled_from(["mcidas", "xvthumb"]))
+def test_edited_mcidas_and_xvthumb_files_match_pillow(kind, where, value, fmt):
+    px = picture(6, 9, 7)[..., 0]
+    raw = mcidas_file(px, 2, prefix=3) if fmt == "mcidas" else xvthumb_file(px)
+    assert_as_pillow(edit(raw, kind, where, value))
+
+
+# ---- PSD Lab ---------------------------------------------------------------------------------
+
+def lab_planes(h, w, seed) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, (3, h, w), np.uint8)
+
+
+def test_lab_psd_and_cielab_tiff_are_one_conversion_in_pillow():
+    """Pillow reads a Lab PSD's planes as its "LAB" bands (a and b with 128
+    for 0) and a CIELab TIFF's signed a and b into the same bands: on the
+    same Lab data its convert("RGBA") gives the same RGB bytes both ways,
+    the ones utils/modes.py `lab_to_rgb` gives. Alpha differs: the
+    transform copies the LAB pixel's fourth byte, which the TIFF's chunky
+    unpacker sets to 255 and the PSD's plane-by-plane reading leaves 0."""
+    from rustic_tpu_torch.utils.modes import lab_to_rgb
+
+    planes = lab_planes(16, 16, 0)
+    signed = planes.transpose(1, 2, 0) ^ np.array([0, 128, 128], np.uint8)
+    psd_rgba = pillow(write_psd(planes, 9, 8, 0))
+    tif_rgba = pillow(save(Image.frombytes("LAB", (16, 16), signed.tobytes()), "TIFF"))
+    np.testing.assert_array_equal(psd_rgba[..., :3], tif_rgba[..., :3])
+    np.testing.assert_array_equal(psd_rgba[..., :3], lab_to_rgb(signed))
+    assert (psd_rgba[..., 3] == 0).all() and (tif_rgba[..., 3] == 255).all()
+
+
+@pytest.mark.parametrize("size", [(1, 1), (7, 3), (16, 21)], ids=str)
+@pytest.mark.parametrize("channels", [3, 4, 5])
+@pytest.mark.parametrize("compression", [0, 1])
+def test_lab_psd_matches_pillow(compression, channels, size):
+    """Raw and PackBits, with extra channels Pillow skips (for PackBits it
+    reads the byte counts of its three channels only, as the port does)."""
+    planes = lab_planes(*size, channels * 10 + compression)
+    planes = np.concatenate([planes, planes[:1].repeat(channels - 3, 0)])
+    assert_as_pillow(write_psd(planes, 9, 8, compression))
+
+
 # ---- the fixtures of tests/data_torch/formats_variants --------------------------------------
 
 def fixture_files() -> dict:
@@ -904,6 +1282,96 @@ def fixture_files() -> dict:
         "webp-anim-lossless-alpha.webp": (anim_webp((64, 48), [(2, 4, still("lossless", 40, 60,
                                                                             43), 2)], True),
                                           "webp animated"),
+        **later_fixture_files(rgb),
+    }
+
+
+def later_fixture_files(rgb: np.ndarray) -> dict:
+    """The kinds the port read next (name -> (bytes, kind)): TIFF in fill
+    order 2 and orientations 2-8, YCbCr planar and predicted, LZMA;
+    McIdas areas at 8, 16 and 32 bits, an XV thumbnail, Lab PSDs, IPTC
+    records holding PNGs, XPMs of long keys; of the picture's top-left
+    24 x 32 (40 wide for the 4x4 tiles, two across)."""
+    wide, rgb = rgb[:24, :40], rgb[:24, :32]
+    img = Image.fromarray(rgb)
+    grey = np.asarray(img.convert("L"))
+    bits = np.asarray(img.convert("1"))
+    ycc = np.asarray(img.convert("YCbCr"))
+    lab = np.stack([grey, rgb[..., 0] // 2 + 64, rgb[..., 2] // 2 + 64]).astype(np.uint8)
+    idx16 = np.asarray(img.quantize(16))
+    pal16 = np.array(img.quantize(16).getpalette()[:48], np.uint16).reshape(-1, 3) * 257
+    cmap16 = list(pal16.T.reshape(-1)) + [0] * (3 * 16 - pal16.size)
+    fill, orient = "tiff fill order 2", "tiff orientation"
+    return {
+        "tiff-fill2-g4.tif": (save(img.convert("1"), "TIFF", compression="group4",
+                                   tiffinfo={266: 2, 278: 8}), fill),
+        "tiff-fill2-g3-2d.tif": (save(img.convert("1"), "TIFF", compression="group3",
+                                      tiffinfo={266: 2, 292: 5}), fill),
+        "tiff-fill2-rgb-lzw-pred.tif": (write_tiff(rgb, 2, compression="LZW", predictor=2,
+                                                   rows_per_strip=8, fill_order=2), fill),
+        "tiff-fill2-l-none.tif": (write_tiff(grey, 1, fill_order=2, rows_per_strip=10),
+                                  fill),
+        "tiff-fill2-p4-packbits.tif": (write_tiff(idx16, 3, 4, compression="PackBits",
+                                                  colour_map=cmap16, fill_order=2), fill),
+        "tiff-fill2-1-none.tif": (write_tiff(bits.astype(np.uint8), 0, 1, fill_order=2,
+                                             tile=(16, 16)), fill),
+        "tiff-fill2-16-deflate.tif": (write_tiff(grey.astype(np.uint16) * 3 // 2, 1, 16,
+                                                 compression="Deflate", fill_order=2),
+                                      fill),
+        "tiff-orient-2-none.tif": (write_tiff(rgb, 2, tags={274: (3, [2])}), orient),
+        "tiff-orient-3-lzw.tif": (write_tiff(rgb, 2, compression="LZW", rows_per_strip=8,
+                                             tags={274: (3, [3])}), orient),
+        "tiff-orient-4-packbits.tif": (write_tiff(grey, 1, compression="PackBits",
+                                                  tags={274: (3, [4])}), orient),
+        "tiff-orient-5-deflate-tiles.tif": (write_tiff(rgb, 2, compression="Deflate",
+                                                       tile=(16, 16), tags={274: (3, [5])}),
+                                            orient),
+        "tiff-orient-6-jpeg.tif": (save(img, "TIFF", compression="jpeg", tiffinfo={274: 6}),
+                                   orient),
+        "tiff-orient-7-g4.tif": (save(img.convert("1"), "TIFF", compression="group4",
+                                      tiffinfo={274: 7}), orient),
+        "tiff-orient-8-ycbcr-lzw.tif": (ycbcr_tiff(rgb, (2, 2), "LZW", rows_per_strip=8,
+                                                   tags={274: (3, [8])}), orient),
+        "tiff-orient-xmp-6.tif": (write_tiff(rgb, 2, tags={700: (7, list(
+            b'<x:xmpmeta><rdf:Description tiff:Orientation="6"/></x:xmpmeta>'))}), orient),
+        "tiff-ycbcr-planar-lzw.tif": (write_tiff(ycc, 6, compression="LZW", planar=2,
+                                                 rows_per_strip=8, tags={530: (3, [1, 1])}),
+                                      "tiff ycbcr planar"),
+        "tiff-ycbcr-planar-deflate-pred.tif": (write_tiff(ycc, 6, compression="Deflate",
+                                                          planar=2, predictor=2, tile=(16, 16),
+                                                          tags={530: (3, [1, 1])}),
+                                               "tiff ycbcr planar"),
+        "tiff-ycbcr-planar-none.tif": (write_tiff(ycc, 6, planar=2), "tiff ycbcr planar"),
+        "tiff-ycbcr-pred-lzw-22.tif": (ycbcr_tiff(rgb, (2, 2), "LZW", rows_per_strip=8,
+                                                  predictor=2), "tiff ycbcr predicted"),
+        "tiff-ycbcr-pred-deflate-21.tif": (ycbcr_tiff(rgb, (2, 1), "Deflate", predictor=2),
+                                           "tiff ycbcr predicted"),
+        "tiff-ycbcr-pred-lzma-44-tiles.tif": (ycbcr_tiff(wide, (4, 4), "LZMA",
+                                                         tile=(32, 32), predictor=2),
+                                              "tiff ycbcr predicted"),
+        "tiff-lzma-rgb.tif": (write_tiff(rgb, 2, compression="LZMA", rows_per_strip=8),
+                              "tiff lzma"),
+        "tiff-lzma-rgba-pred.tif": (write_tiff(np.dstack([rgb, grey]), 2, compression="LZMA",
+                                               predictor=2, extra=(2,), tile=(16, 16)),
+                                    "tiff lzma"),
+        "tiff-lzma-cmyk-planar.tif": (write_tiff(np.asarray(img.convert("CMYK")), 5,
+                                                 compression="LZMA", planar=2),
+                                      "tiff lzma"),
+        "mcidas-8.area": (mcidas_file(grey, 1), "mcidas"),
+        "mcidas-16-prefix.area": (mcidas_file(grey.astype(np.uint16) * 5 // 4, 2, prefix=6,
+                                              gap=10), "mcidas"),
+        "mcidas-32.area": (mcidas_file(grey.astype(np.int32) * 3 - 200, 4), "mcidas"),
+        "xvthumb.xv": (xvthumb_file(rgb332(img)), "xvthumb"),
+        "psd-lab.psd": (write_psd(lab, 9, 8, 0), "psd lab"),
+        "psd-lab-packbits-alpha.psd": (write_psd(np.concatenate([lab, grey[None]]), 9, 8, 1),
+                                       "psd lab"),
+        "iptc-png.iim": (iptc_file(save(img, "PNG"), (32, 24), compression=5), "iptc png"),
+        "iptc-png-palette-trns.iim": (iptc_file(save(img.quantize(32), "PNG", transparency=5),
+                                                (32, 24), compression=5), "iptc png"),
+        "iptc-png-grey-band.iim": (iptc_file(save(img.convert("L"), "PNG"), (32, 24), 3, 1,
+                                             band=2, compression=5), "iptc png"),
+        "xpm-keys-8.xpm": (long_key_xpm(img, 64, 8), "xpm long keys"),
+        "xpm-keys-11-rgb.xpm": (long_key_xpm(img.resize((16, 12)), 300, 11), "xpm long keys"),
     }
 
 
@@ -1029,10 +1497,62 @@ def fuzz(n: int, seed: int = 0) -> dict:
     return counts
 
 
+def edit_fuzz(fixtures, n: int, seed: int = 0) -> dict:
+    """`n` random edits (EDITS' kinds, anywhere after the first 4 bytes) of
+    each (name, bytes) in `fixtures`, each decoded by Pillow and by the
+    port (given the name, as TGA needs) -> counts of (kind, outcome);
+    raises AssertionError at the first edit they disagree on."""
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for name, raw in fixtures:
+        for _ in range(n):
+            kind = str(rng.choice(EDITS))
+            where, value = float(rng.random()), int(rng.integers(0, 2**16))
+            edited = edit(raw, kind, where, value)
+            want, got = outcome(edited), port_outcome(edited, name)
+            if not same(want, got):
+                raise AssertionError(f"{name} {kind} at {where} ({value}): Pillow "
+                                     f"{type(want).__name__}, port {type(got).__name__}")
+            key = f"{kind}: {'refused' if isinstance(want, Exception) else 'decoded'}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def time_kinds(turns: int = 5) -> dict:
+    """This host's decode of each formats_variants kind in turns with the
+    committed 1024x1024 Huffman photo, as chip_smoke.py's phase 34 times
+    it on the card's host: kind -> (ms per megapixel of the kind's files,
+    the photo's, their ratio), best of `turns` each."""
+    import time
+
+    with open(os.path.join(os.path.dirname(VARIANT_FIXTURES), "formats",
+                           "photo-1024-420.jpg"), "rb") as f:
+        photo = f.read()
+    by_kind = {}
+    for entry in variant_manifest()["images"]:
+        by_kind.setdefault(entry["kind"], []).append((entry["file"],
+                                                      variant_fixture(entry["file"])))
+    out = {}
+    for kind, files in by_kind.items():
+        best_kind = best_photo = float("inf")
+        for _ in range(turns):
+            t0 = time.perf_counter()
+            px = sum(np.prod(decode_image_u8(raw, name).shape[:2]) for name, raw in files)
+            best_kind = min(best_kind, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            decode_image_u8(photo, "photo-1024-420.jpg")
+            best_photo = min(best_photo, time.perf_counter() - t0)
+        ms, photo_ms = best_kind * 1e3 / (px / 1e6), best_photo * 1e3 / (1024 * 1024 / 1e6)
+        out[kind] = (round(ms, 1), round(photo_ms, 1), round(ms / photo_ms, 2))
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
     if sys.argv[1:2] == ["--fuzz"]:  # --fuzz N [SEED]: edits of each fuzzed fixture
         print(json.dumps(fuzz(int(sys.argv[2]), int(sys.argv[3]) if sys.argv[3:] else 0)))
+    elif sys.argv[1:2] == ["--time"]:  # each kind's ms per megapixel on this host
+        print(json.dumps(time_kinds(), indent=1))
     else:
         print(json.dumps(make_variant_fixtures(VARIANT_FIXTURES), indent=1))

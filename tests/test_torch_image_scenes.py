@@ -1,10 +1,10 @@
 """Scenes and skies in the image formats the port now decodes, through the
 port and through the JAX package (which decodes them with Pillow).
 
-- BreakTime with JPEG textures, BreakTime-mixed with a JPEG-compressed
-  4:2:0 YCbCr TIFF, a CMYK LZW TIFF, a CIELab TIFF, an animated lossy WebP
-  (its first frame offset on the canvas), a Group 4 TIFF and an RLE8 BMP
-  texture, and BreakTime-J2K with JPEG 2000 textures (5/3 and 9/7, JP2 and raw)
+- BreakTime with JPEG textures, BreakTime-mixed with a planar YCbCr TIFF,
+  an LZMA 4:2:0 YCbCr TIFF with the predictor, a Lab PSD, an
+  orientation-6 TIFF, a fill-order-2 Group 4 TIFF and a fill-order-2 LZMA
+  RGB TIFF texture, and BreakTime-J2K with JPEG 2000 textures (5/3 and 9/7, JP2 and raw)
   (tests/data_torch/formats, written by tests/test_torch_image_formats.py
   `make_fixtures`): the port's World equals the JAX World bit for bit in
   its atlas, shading rows and every other scene tensor, at a 64-texel
@@ -14,9 +14,9 @@ port and through the JAX package (which decodes them with Pillow).
   textures (tests/data_torch/formats_dds_psd, written by `make_dds_psd_fixtures`),
   the same way; BreakTime-classic with a P6 PPM, a QOI, an RLE SGI, a
   24-bit PCX, an ICO and a DCX texture (tests/data_torch/formats_classic,
-  `make_classic_fixtures`), the same way; BreakTime-legacy with a BLP1
-  JPEG, an IM, a BLP2 DXT5, an FTEX DXT1, an ICNS (it32 RLE and its
-  mask) and an RLE Sun raster texture (tests/data_torch/formats_legacy,
+  `make_classic_fixtures`), the same way; BreakTime-legacy with an IPTC
+  record holding a PNG, an IM, a BLP2 DXT5, an XPM of 8-byte keys, a
+  16-bit McIdas area and an XV thumbnail (tests/data_torch/formats_legacy,
   `make_legacy_fixtures`), the same way; BreakTime-JPEG-ext with CMYK,
   YCCK, arithmetic-coded (progressive with restarts, and sequential),
   lossless and repaired (junk before a marker, a dropped RST) JPEG
@@ -28,7 +28,10 @@ port and through the JAX package (which decodes them with Pillow).
   .dib and .cur maps, two with .blp, .im, .icns, .ras, .xpm and
   .fits maps, and three with the variants the port once refused (RLE8,
   16-bit and OS/2 bitmaps, 16-bit TGA, JPEG, fax, YCbCr, CMYK and CIELab
-  TIFF, an animated WebP), against rustic_tpu/scene/obj.py, exactly.
+  TIFF, an animated WebP), and three with the kinds read next (TIFF fill
+  order 2, orientations, planar and predicted YCbCr, LZMA; McIdas, XV
+  thumbnail, Lab PSD, IPTC holding a PNG, long-key XPM), against
+  rustic_tpu/scene/obj.py, exactly.
 - JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k), DDS, PNM,
   PFM, QOI, ICO, PCX, DCX, SGI, DIB, IM and SPIDER skies through
   `load_skybox_image`,
@@ -329,6 +332,56 @@ def variant_maps(seed):
     ]
 
 
+def later_maps(seed):
+    """Three sets of OBJ maps in the kinds the port read next (TIFF fill
+    order 2, orientations, planar and predicted YCbCr, LZMA; McIdas, XV
+    thumbnails, Lab PSDs, IPTC records holding PNGs, XPMs of long keys),
+    of `pillow_modes(9, 14)`."""
+    from tests import test_torch_image_formats as F
+    from tests import test_torch_image_formats_variants as V
+
+    modes = pillow_modes(9, 14, seed=seed)
+    rgb, grey = np.asarray(modes["RGB"]), np.asarray(modes["L"])
+    ycc = np.asarray(modes["RGB"].convert("YCbCr"))
+    lab = np.stack([grey, rgb[..., 0] // 2 + 64, rgb[..., 1] // 2 + 64]).astype(np.uint8)
+    return [
+        {"albedo": ("albedo.tif", F.write_tiff(rgb, 2, compression="LZW", predictor=2,
+                                               fill_order=2)),
+         "rough": ("rough.tif", F.write_tiff(grey, 1, compression="Deflate",
+                                             tags={274: (3, [5])})),
+         "normal": ("normal.tif", F.write_tiff(ycc, 6, compression="LZW", planar=2,
+                                               tags={530: (3, [1, 1])})),
+         "metal": ("metal.tif", V.ycbcr_tiff(rgb, (2, 2), "LZMA", predictor=2))},
+        {"albedo": ("albedo.xpm", F.long_key_xpm(modes["RGB"], 40, 9)),
+         "rough": ("rough.area", F.mcidas_file(grey, 1, prefix=3)),
+         "normal": ("normal.xv", F.xvthumb_file(F.rgb332(modes["RGB"]))),
+         "metal": ("metal.iim", F.iptc_file(save(modes["RGB"], "PNG"), (14, 9),
+                                            compression=5))},
+        {"albedo": ("albedo.psd", F.write_psd(lab, 9, 8, 1)),
+         "rough": ("rough.tif", F.write_tiff(grey, 1, compression="LZMA")),
+         "normal": ("normal.tif", save(modes["RGB"], "TIFF", compression="jpeg",
+                                       tiffinfo={274: 8})),
+         "metal": ("metal.tif", save(modes["1"], "TIFF", compression="group4",
+                                     tiffinfo={266: 2}))},
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_obj_with_later_maps_matches_jax(tmp_path, which):
+    """An OBJ whose MTL names a fill-order-2 LZW TIFF, an orientation-5
+    TIFF, a planar YCbCr TIFF and a predicted LZMA YCbCr TIFF; one with a
+    long-key XPM, a McIdas area, an XV thumbnail and an IPTC record holding
+    a PNG; one with a Lab PSD, an LZMA TIFF, an orientation-8 JPEG TIFF and
+    a fill-order-2 Group 4 TIFF: the textures through both loaders."""
+    path = write_obj_with_maps(tmp_path, later_maps(41)[which])
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert floor.metallic_texture is not None
+    assert same_world(path).has_textures
+
+
 @pytest.mark.parametrize("which", [0, 1, 2])
 def test_obj_with_variant_maps_matches_jax(tmp_path, which):
     """An OBJ whose MTL names an RLE8 BMP, a 16-bit TGA, a 16-bit bit-field
@@ -436,8 +489,9 @@ def test_jpeg_breaktime_film_matches_jax(half_sky):
 
 
 def test_mixed_breaktime_film_matches_jax(half_sky):
-    """The one-tile cut of BreakTime-mixed (JPEG, CMYK, CIELab and Group 4
-    TIFF, animated WebP and RLE8 BMP textures), as the JPEG one."""
+    """The one-tile cut of BreakTime-mixed (LZMA, planar and predicted
+    YCbCr, orientation-6 and fill-order-2 TIFF and Lab PSD textures), as
+    the JPEG one."""
     assert_one_tile_film(fixture_path(BT_MIXED), half_sky)
 
 
@@ -460,8 +514,8 @@ def test_classic_breaktime_film_matches_jax(half_sky):
 
 
 def test_legacy_breaktime_film_matches_jax(half_sky):
-    """The one-tile cut of BreakTime-legacy (BLP, IM, FTEX, ICNS and SUN
-    textures), as the JPEG one."""
+    """The one-tile cut of BreakTime-legacy (IPTC holding a PNG, IM, BLP,
+    long-key XPM, McIdas and XV thumbnail textures), as the JPEG one."""
     assert_one_tile_film(os.path.join(LEGACY_FIXTURES, BT_LEGACY), half_sky)
 
 
