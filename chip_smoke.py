@@ -30,12 +30,12 @@ torchrun) at the headline configuration; and the image decoders
 vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
 sgi.py, im.py, iptc.py, pcd.py, spider.py, blp.py, fits.py, fli.py,
 ftex.py, gbr.py, icns.py, mcidas.py, msp.py, pixar.py, sun.py, xbm.py,
-xpm.py, xvthumb.py, exr.py) on the fixtures of tests/data_torch/formats,
-formats_dds_psd, formats_classic, formats_legacy, formats_jpeg and
-formats_variants, then BreakTime with JPEG textures, with TIFF and Lab
-PSD textures, with JPEG 2000 textures, with DDS and PSD textures, with
+xpm.py, xvthumb.py, exr.py, and avif.py down to the AV1 tile data) on the
+fixtures of tests/data_torch/formats, formats_dds_psd, formats_classic,
+formats_legacy, formats_jpeg, formats_variants and formats_avif, then
+BreakTime with JPEG textures, with TIFF and Lab PSD textures, with JPEG 2000 textures, with DDS and PSD textures, with
 PPM, QOI, SGI, PCX, ICO and DCX textures, with IPTC, IM, BLP, XPM,
-McIdas and XV thumbnail textures, and
+McIdas and APNG textures, and
 with CMYK, YCCK, arithmetic-coded, lossless and repaired JPEG textures,
 under an OpenEXR sky through the grid form of the kernel-shade loop
 (K9-K11, K4);
@@ -370,7 +370,10 @@ Phases, each of which must pass (the first that fails ends the run):
      animated WebP; TIFF of fill order 2 and of orientations 2-8 (one by
      its XMP packet), planar and predicted YCbCr TIFF, LZMA TIFF, McIdas
      areas at 8, 16 and 32 bits, an XV thumbnail, Lab PSDs, IPTC records
-     holding PNGs, XPMs of 8- and 11-byte keys) decoded on the host,
+     holding PNGs, XPMs of 8- and 11-byte keys; JPEG-compressed YCbCr TIFF
+     in planar configuration 2, LZMA TIFF strips liblzma stops in, IPTC
+     records holding TIFF, PSD, XPM and McIdas files, APNG frame 0)
+     decoded on the host,
      equal to Pillow 12.1.0's decode stored beside it (.npy, or the
      SHA-256 of its RGBA bytes), each file's format as image_format names
      it equal to Pillow's (stored in formats_classic's, formats_legacy's
@@ -387,7 +390,8 @@ Phases, each of which must pass (the first that fails ends the run):
      fax, tiff jpeg, tiff ycbcr, tiff cmyk, tiff cielab, webp animated,
      tiff fill order 2, tiff orientation, tiff ycbcr planar, tiff ycbcr
      predicted, tiff lzma, mcidas, xvthumb, psd lab, iptc png, xpm long
-     keys --
+     keys, tiff jpeg ycbcr planar, tiff lzma kept, iptc once refused, apng
+     --
      timed in turns with the committed 1024x1024 4:2:0 Huffman photo, best
      of 5 each, beside it and as a ratio to it), and on
      BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's,
@@ -395,8 +399,9 @@ Phases, each of which must pass (the first that fails ends the run):
      256x256 textures (best of 3). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
-     BreakTime-mixed (a planar YCbCr TIFF, an LZMA 4:2:0 YCbCr TIFF with
-     the predictor, a Lab PSD, an orientation-6 LZW TIFF, a fill-order-2
+     BreakTime-mixed (a JPEG-compressed planar YCbCr TIFF, an LZMA 4:2:0
+     YCbCr TIFF with the predictor whose last strip liblzma stops in, a
+     Lab PSD, an orientation-6 LZW TIFF, a fill-order-2
      Group 4 TIFF as the metallic-roughness map, a fill-order-2 LZMA RGB
      TIFF; the EXR sky)
      and BreakTime-J2K (two 5/3 JP2, two 9/7 JP2 at a rate, a tiled RPCL
@@ -404,9 +409,9 @@ Phases, each of which must pass (the first that fails ends the run):
      BreakTime-DDS (DXT1, BC5, DXT5 and BC7 DDS, a PackBits RGB and a raw
      indexed PSD; the EXR sky) and BreakTime-classic (a P6 PPM, a QOI with
      alpha, an RLE SGI, a 24-bit RLE PCX, an ICO of one 32-bit DIB, a DCX;
-     the EXR sky) and BreakTime-legacy (an IPTC record holding a PNG, an
+     the EXR sky) and BreakTime-legacy (an IPTC record holding a TIFF, an
      IM, a BLP2 DXT5, a 128x128 XPM of 8-byte keys, a 16-bit McIdas area,
-     an XV thumbnail; the EXR sky) and BreakTime-JPEG-ext (a
+     frame 0 of an APNG; the EXR sky) and BreakTime-JPEG-ext (a
      CMYK, a YCCK, an arithmetic-coded progressive with restarts, a
      lossless, a baseline with junk before a marker and a dropped RST, an
      arithmetic-coded sequential JPEG; the EXR sky), each with its twin (PNGs of Pillow's
@@ -653,6 +658,7 @@ FORMATS_CLASSIC = "tests/data_torch/formats_classic"  # PNM, QOI, ICO, CUR, PCX,
 FORMATS_LEGACY = "tests/data_torch/formats_legacy"  # IM ... XPM: Pillow's other plugins
 FORMATS_JPEG = "tests/data_torch/formats_jpeg"  # CMYK, YCCK, arithmetic, lossless, repaired JPEGs
 FORMATS_VARIANTS = "tests/data_torch/formats_variants"  # RLE/16-bit BMP, fax/JPEG/YCbCr TIFF...
+FORMATS_AVIF = "tests/data_torch/formats_avif"  # AVIF files, their headers' records, dav1d's planes
 VARIANT_TURNS = 5  # phase 34 times each formats_variants kind in turns with the 1024^2 photo
 # phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy, -JPEG-ext and their twins at
 # this cut of the frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
@@ -4076,19 +4082,131 @@ class Smoke:
 
     # ---- phase 34: image formats -------------------------------------------------------------
 
+    def avif(self, photo: bytes):
+        """Phase 34's AVIF part (utils/avif.py): every fixture of
+        tests/data_torch/formats_avif identified as AVIF with Pillow's size,
+        mode, n_frames and orientation, its container and AV1 headers equal
+        to the committed record and to dav1d's parse of the same payloads
+        (CodedLossless on the quality-100 files), the colour stage on
+        dav1d's committed planes equal to Pillow's RGBA (the odd-sized 4:2:0
+        and 4:2:2 fixtures among them), the tile data refused by name;
+        then, in turns with the 1024^2 Huffman photo (best of
+        VARIANT_TURNS), the colour stage at 4:2:0 (the 1024^2 photo's dav1d
+        planes) and at 4:4:4 (the same chroma repeated to full size), and
+        the LZMA2 decoder (csrc/image_entropy.cpp `xz_strip`) on an .xz
+        stream of the photo's decoded RGBA bytes, in ms per megapixel."""
+        import hashlib
+        import os
+
+        import numpy as np
+
+        from rustic_tpu_torch.utils import avif as avif_mod
+        from rustic_tpu_torch.utils import tiff as tiff_mod
+        from rustic_tpu_torch.utils.png import decode_image_u8, image_format
+
+        with open(os.path.join(FORMATS_AVIF, "manifest.json")) as f:
+            entries = json.load(f)["images"]
+        photo_planes = None
+        t0 = time.perf_counter()
+        for entry in entries:
+            with open(os.path.join(FORMATS_AVIF, entry["file"]), "rb") as f:
+                raw = f.read()
+            h = avif_mod.open_avif(raw)
+            got = dict(format=image_format(raw, entry["file"]), size=[h.width, h.height],
+                       mode=h.mode, n_frames=h.n_frames, orientation=h.orientation)
+            if any(got[k] != entry[k] for k in got):
+                self.fail(f"{entry['file']}: header {got} differs from Pillow's")
+            record = avif_mod.header_record(raw)
+            if record != entry["headers"]:
+                self.fail(f"{entry['file']}: the AV1 headers differ from their record")
+            for name, want in entry["dav1d"].items():
+                frame = dict(record[name]["frame"])
+                if frame["tiles"]["cols"] * frame["tiles"]["rows"] == 1:  # dav1d keeps 0
+                    frame["tiles"] = dict(frame["tiles"], size_bytes=0)
+                if record[name]["sequence"] != want["sequence"] or frame != want["frame"]:
+                    self.fail(f"{entry['file']}: the {name} AV1 headers differ from dav1d's")
+            frames = [record[k] for k in ("colour", "alpha") if k in record]
+            if all(f["frame"]["coded_lossless"] for f in frames) != entry["lossless"]:
+                self.fail(f"{entry['file']}: CodedLossless is not its record's")
+            kind = "lossless" if entry["lossless"] else "lossy"
+            try:
+                decode_image_u8(raw, entry["file"])
+                self.fail(f"{entry['file']}: the tile data was not refused")
+            except NotImplementedError as e:
+                if f"AVIF AV1 tile data ({kind})" not in str(e):
+                    self.fail(f"{entry['file']}: refused otherwise: {e}")
+            with np.load(os.path.join(FORMATS_AVIF, entry["planes"])) as z:
+                planes = {k: z[k] for k in z.files}
+            full, matrix, primaries = avif_mod.colour_description(raw, h)
+            rgba = avif_mod.yuv_to_rgba(planes["y"], planes.get("u"), planes.get("v"),
+                                        planes.get("a"), full_range=bool(full), matrix=matrix,
+                                        primaries=primaries,
+                                        premultiplied=bool(planes["colour"][6]))
+            if "expect" in entry:
+                ok = np.array_equal(rgba, np.load(os.path.join(FORMATS_AVIF, entry["expect"])))
+            else:
+                photo_planes = planes
+                ok = (list(rgba.shape) == entry["shape"] and entry["sha256"]
+                      == hashlib.sha256(np.ascontiguousarray(rgba).tobytes()).hexdigest())
+            if not ok:
+                self.fail(f"{entry['file']}: the colour stage differs from Pillow's RGBA")
+        log(f"{len(entries)} AVIF fixtures: headers as Pillow's, AV1 headers as recorded and "
+            f"as dav1d parses them, the "
+            f"colour stage equal to Pillow's RGBA, the tile data refused by name "
+            f"({time.perf_counter() - t0:.2f} s)")
+        y, u, v = photo_planes["y"], photo_planes["u"], photo_planes["v"]
+        u444, v444 = (np.repeat(np.repeat(c, 2, 0), 2, 1)[: y.shape[0], : y.shape[1]]
+                      for c in (u, v))
+        try:
+            import lzma
+
+            rgba = decode_image_u8(photo, "photo-1024-420.jpg").tobytes()
+            stream = lzma.compress(rgba, format=lzma.FORMAT_XZ)
+        except ImportError:  # a Python without its lzma module: nothing to make the stream with
+            stream = None
+        mp = y.size / 1e6
+        jobs = {"avif colour stage 4:2:0": lambda: avif_mod.yuv_to_rgba(y, u, v, full_range=True),
+                "avif colour stage 4:4:4": lambda: avif_mod.yuv_to_rgba(y, u444, v444,
+                                                                        full_range=True)}
+        if stream is not None:
+            jobs["tiff lzma2 decoder (xz_strip)"] = lambda: tiff_mod._unxz(stream, len(rgba))
+        best = {k: float("inf") for k in jobs}
+        best_photo = float("inf")
+        for _ in range(VARIANT_TURNS):
+            for k, job in jobs.items():
+                t1 = time.perf_counter()
+                job()
+                best[k] = min(best[k], time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            decode_image_u8(photo, "photo-1024-420.jpg")
+            best_photo = min(best_photo, time.perf_counter() - t1)
+        if stream is not None and tiff_mod._unxz(stream, len(rgba)) != rgba:
+            self.fail("the LZMA2 decoder does not give back the photo's bytes")
+        photo_ms = best_photo * 1e3 / (1024 * 1024 / 1e6)
+        for k, sec in best.items():
+            ms = sec * 1e3 / mp
+            log(f"{k} in turns with the 1024^2 Huffman photo (1024x1024, best of "
+                f"{VARIANT_TURNS}): {ms:.1f} ms per megapixel, the photo {photo_ms:.1f} ms per "
+                f"megapixel, ratio {ms / photo_ms:.2f} (host CPU)")
+        if stream is None:
+            log("tiff lzma2 decoder: not measured (this Python has no lzma module to write the "
+                "stream with)")
+
     def formats(self):
         """Every fixture of tests/data_torch/formats, formats_dds_psd,
-        formats_classic, formats_legacy and formats_jpeg decoded on the
+        formats_classic, formats_legacy, formats_jpeg and formats_variants
+        decoded on the
         host against Pillow's decode stored beside it (ms per megapixel of
         each decoder; a classic, legacy or JPEG fixture's format as
-        image_format names it against Pillow's, in its manifest);
+        image_format names it against Pillow's, in its manifest); the AVIF
+        fixtures (`avif`);
         BreakTime-JPEG (JPEG textures, EXR sky),
-        BreakTime-mixed (planar and predicted LZMA YCbCr, orientation-6 and
-        fill-order-2 TIFF and Lab PSD textures, EXR sky),
+        BreakTime-mixed (JPEG planar YCbCr, a broken predicted LZMA YCbCr,
+        orientation-6 and fill-order-2 TIFF and Lab PSD textures, EXR sky),
         BreakTime-J2K (JPEG 2000 textures, EXR sky), BreakTime-DDS (DDS and
         PSD textures, EXR sky), BreakTime-classic (PPM, QOI, SGI, PCX, ICO
-        and DCX textures, EXR sky), BreakTime-legacy (IPTC holding a PNG,
-        IM, BLP, long-key XPM, McIdas and XV thumbnail textures, EXR sky),
+        and DCX textures, EXR sky), BreakTime-legacy (IPTC holding a TIFF,
+        IM, BLP, long-key XPM, McIdas and APNG textures, EXR sky),
         BreakTime-JPEG-ext (CMYK, YCCK, arithmetic-coded, lossless and
         repaired JPEG textures, EXR sky) and
         their lossless twins loaded
@@ -4243,6 +4361,7 @@ class Smoke:
                 f"{px} pixels, best of {VARIANT_TURNS}): {kind_ms:.1f} ms per megapixel, the "
                 f"photo {photo_ms:.1f} ms per megapixel, ratio {kind_ms / photo_ms:.2f} "
                 "(host CPU)")
+        self.avif(photo)
         # each BreakTime's six textures (256x256; the XPM 128x128), each decoded 3 times: the best
         for folder, scene_key, label in ((FORMATS, "mixed", "BreakTime-mixed"),
                                          (FORMATS, "j2k", "BreakTime-J2K"),

@@ -40,6 +40,7 @@
 #include <cstdint>
 #include <algorithm>
 #include <cstring>
+#include <memory>
 #include <vector>
 
 namespace {
@@ -2112,6 +2113,336 @@ int64_t bmp_rle(const uint8_t* raw, int64_t size, int64_t pos, int64_t width, in
     }
   }
   return n;
+}
+
+}  // extern "C"
+
+// ---- xz_strip: one .xz stream of a TIFF LZMA strip (compression 34925) ---------------------
+//
+// libtiff 4.7.1's LZMADecode hands liblzma the strip's bytes and an output buffer of the
+// strip's size in one lzma_code loop, and keeps what liblzma wrote there when it stops: a
+// strip whose bytes all came out decodes, whatever liblzma finds after them (a bad check,
+// junk after the stream); one it stops short of fails. liblzma copies what its LZMA decoder
+// wrote to the dictionary out before it reports an error, so the strip holds every byte
+// decoded before the error. This decoder is written from the .xz and LZMA2 formats and
+// liblzma's checks: the stream header (magic, flags, CRC32), one block header (CRC32, flags,
+// sizes, the LZMA2 filter and its dictionary size), LZMA2 chunks (control bytes, dictionary,
+// state and property resets, uncompressed chunks), and in each LZMA chunk the range decoder
+// (first byte 0, normalised before each bit), the literal, match and rep coders, a distance
+// past what the dictionary holds, a match cut by the chunk's end and, at the chunk's end, the
+// range decoder finished and the chunk's compressed size used up. Where the block ends, the
+// stream ends short of the strip: what follows it (padding, check, index, footer) is not read.
+
+namespace xz {
+
+uint32_t crc32(const uint8_t* p, int64_t n) {
+  static uint32_t table[256];
+  static bool made = false;
+  if (!made) {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = c & 1 ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      table[i] = c;
+    }
+    made = true;
+  }
+  uint32_t c = 0xFFFFFFFFu;
+  for (int64_t i = 0; i < n; ++i) c = table[(c ^ p[i]) & 0xFF] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
+
+uint32_t le32(const uint8_t* p) {
+  return uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 | uint32_t(p[3]) << 24;
+}
+
+// a variable-length integer of the .xz format (at most 9 bytes, no trailing zero byte)
+bool vli(const uint8_t* p, int64_t end, int64_t& pos, uint64_t& v) {
+  v = 0;
+  for (int i = 0; i < 9; ++i) {
+    if (pos >= end) return false;
+    const uint8_t b = p[pos++];
+    v |= uint64_t(b & 0x7F) << (7 * i);
+    if (!(b & 0x80)) return !(b == 0 && i > 0);
+  }
+  return false;
+}
+
+struct Stop {};  // liblzma stopped: an error, or the input ran out
+
+struct Decoder {
+  const uint8_t* in;
+  int64_t n, pos = 0;
+  uint8_t* out;
+  int64_t size, got = 0;
+  int64_t dict_start = 0;  // where the dictionary was last reset
+  uint64_t dict_size = 0;  // liblzma's buffer: at least 4 KiB, a multiple of 16
+  // the LZMA state
+  uint32_t range = 0, code = 0;
+  int lc = 0, lp = 0, pb = 0;
+  uint32_t state = 0, rep[4] = {0, 0, 0, 0};
+  std::vector<uint16_t> literal;
+  uint16_t is_match[12 << 4], is_rep[12], is_rep0[12], is_rep1[12], is_rep2[12],
+      is_rep0_long[12 << 4], dist_slot[4][64], dist_special[115], dist_align[16];
+  struct Len {
+    uint16_t choice, choice2, low[16][8], mid[16][8], high[256];
+  } len_dec, rep_len_dec;
+
+  uint8_t byte() {
+    if (pos >= n) throw Stop();
+    return in[pos++];
+  }
+  int64_t full() const {
+    const int64_t f = got - dict_start;
+    return f < int64_t(dict_size) ? f : int64_t(dict_size);
+  }
+  void normalize() {
+    if (range < (1u << 24)) {
+      range <<= 8;
+      code = code << 8 | byte();
+    }
+  }
+  int bit(uint16_t& p) {
+    normalize();
+    const uint32_t bound = (range >> 11) * p;
+    if (code < bound) {
+      range = bound;
+      p += (2048 - p) >> 5;
+      return 0;
+    }
+    range -= bound;
+    code -= bound;
+    p -= p >> 5;
+    return 1;
+  }
+  uint32_t tree(uint16_t* p, int bits) {
+    uint32_t m = 1;
+    for (int i = 0; i < bits; ++i) m = m << 1 | bit(p[m]);
+    return m - (1u << bits);
+  }
+  uint32_t reverse(uint16_t* p, int bits) {
+    uint32_t m = 1, v = 0;
+    for (int i = 0; i < bits; ++i) {
+      const int b = bit(p[m]);
+      m = m << 1 | b;
+      v |= uint32_t(b) << i;
+    }
+    return v;
+  }
+  uint32_t direct(int bits) {
+    uint32_t v = 0;
+    for (int i = 0; i < bits; ++i) {
+      normalize();
+      range >>= 1;
+      const uint32_t b = code >= range;
+      if (b) code -= range;
+      v = v << 1 | b;
+    }
+    return v;
+  }
+  uint32_t length(Len& l, uint32_t ps) {
+    if (!bit(l.choice)) return 2 + tree(l.low[ps], 3);
+    if (!bit(l.choice2)) return 10 + tree(l.mid[ps], 3);
+    return 18 + tree(l.high, 8);
+  }
+  void reset_state() {
+    auto init = [](uint16_t* p, size_t k) { std::fill(p, p + k, uint16_t(1024)); };
+    literal.assign(size_t(0x300) << (lc + lp), 1024);
+    init(is_match, sizeof(is_match) / 2);
+    init(is_rep, 12);
+    init(is_rep0, 12);
+    init(is_rep1, 12);
+    init(is_rep2, 12);
+    init(is_rep0_long, sizeof(is_rep0_long) / 2);
+    init(&dist_slot[0][0], sizeof(dist_slot) / 2);
+    init(dist_special, 115);
+    init(dist_align, 16);
+    init(reinterpret_cast<uint16_t*>(&len_dec), sizeof(Len) / 2);
+    init(reinterpret_cast<uint16_t*>(&rep_len_dec), sizeof(Len) / 2);
+    state = 0;
+    rep[0] = rep[1] = rep[2] = rep[3] = 0;
+  }
+  // writes one byte; false once the strip is full
+  bool put(uint8_t v) {
+    out[got++] = v;
+    return got < size;
+  }
+  // one LZMA chunk of `usize` bytes from `csize` bytes of input -> false once the strip is full
+  bool lzma_chunk(uint32_t usize, uint32_t csize) {
+    const int64_t in_start = pos, end = got + usize;
+    if (byte() != 0) throw Stop();  // liblzma: the range decoder's first byte must be 0
+    range = 0xFFFFFFFFu;
+    code = 0;
+    for (int i = 0; i < 4; ++i) code = code << 8 | byte();
+    const uint32_t pb_mask = (1u << pb) - 1, lp_mask = (1u << lp) - 1;
+    while (got < end) {
+      const uint32_t at = uint32_t(got - dict_start), ps = at & pb_mask;
+      if (!bit(is_match[state << 4 | ps])) {  // a literal
+        const uint8_t prev = got > dict_start ? out[got - 1] : 0;
+        uint16_t* p = &literal[0x300 * (((at & lp_mask) << lc) + (prev >> (8 - lc)))];
+        uint32_t sym = 1;
+        if (state >= 7) {  // matched: the byte at rep0 steers the first bits
+          uint32_t match = out[got - rep[0] - 1];
+          while (sym < 0x100) {
+            const uint32_t mb = (match >> 7) & 1;
+            match <<= 1;
+            const int b = bit(p[0x100 + (mb << 8) + sym]);
+            sym = sym << 1 | b;
+            if (mb != uint32_t(b)) break;
+          }
+        }
+        while (sym < 0x100) sym = sym << 1 | bit(p[sym]);
+        state = state < 4 ? 0 : state < 10 ? state - 3 : state - 6;
+        if (!put(uint8_t(sym))) return false;
+        continue;
+      }
+      uint32_t len;
+      if (bit(is_rep[state])) {
+        if (full() == 0) throw Stop();
+        if (!bit(is_rep0[state])) {
+          if (!bit(is_rep0_long[state << 4 | ps])) {  // a short rep: one byte at rep0
+            state = state < 7 ? 9 : 11;
+            if (!put(out[got - rep[0] - 1])) return false;
+            continue;
+          }
+        } else {
+          uint32_t d;
+          if (!bit(is_rep1[state])) {
+            d = rep[1];
+          } else {
+            if (!bit(is_rep2[state])) {
+              d = rep[2];
+            } else {
+              d = rep[3];
+              rep[3] = rep[2];
+            }
+            rep[2] = rep[1];
+          }
+          rep[1] = rep[0];
+          rep[0] = d;
+        }
+        len = length(rep_len_dec, ps);
+        state = state < 7 ? 8 : 11;
+      } else {
+        rep[3] = rep[2];
+        rep[2] = rep[1];
+        rep[1] = rep[0];
+        len = length(len_dec, ps);
+        state = state < 7 ? 7 : 10;
+        const uint32_t slot = tree(dist_slot[len < 6 ? len - 2 : 3], 6);
+        uint32_t dist;
+        if (slot < 4) {
+          dist = slot;
+        } else {
+          const int bits = int(slot >> 1) - 1;
+          dist = (2 | (slot & 1)) << bits;
+          if (slot < 14) {
+            dist += reverse(dist_special + dist - slot, bits);
+          } else {
+            dist += direct(bits - 4) << 4;
+            dist += reverse(dist_align, 4);
+          }
+        }
+        rep[0] = dist;
+        if (dist == 0xFFFFFFFFu) throw Stop();  // an end marker: LZMA2 has none
+      }
+      if (int64_t(rep[0]) >= full()) throw Stop();  // past what the dictionary holds
+      for (uint32_t i = 0; i < len; ++i) {
+        if (got == end) throw Stop();  // the match runs past the chunk
+        if (!put(out[got - rep[0] - 1])) return false;
+      }
+    }
+    if (code != 0 || pos - in_start != int64_t(csize)) throw Stop();
+    return true;
+  }
+  // the LZMA2 chunks of the block -> false once the strip is full
+  bool lzma2() {
+    bool need_dict = true, need_props = true;
+    while (true) {
+      const uint8_t c = byte();
+      if (c == 0) return true;  // the end of the block's data
+      if (c >= 0xE0 || c == 1) {  // a dictionary reset, which wants new properties
+        need_props = true;
+        need_dict = false;
+        dict_start = got;
+      } else if (need_dict) {
+        throw Stop();
+      }
+      if (c >= 0x80) {
+        uint32_t usize = uint32_t(c & 0x1F) << 16;
+        usize += uint32_t(byte()) << 8;
+        usize += byte() + 1u;
+        uint32_t csize = uint32_t(byte()) << 8;
+        csize += byte() + 1u;
+        if (c >= 0xC0) {
+          uint32_t d = byte();
+          if (d > (4 * 5 + 4) * 9 + 8) throw Stop();
+          lc = int(d % 9);
+          d /= 9;
+          lp = int(d % 5);
+          pb = int(d / 5);
+          if (lc + lp > 4) throw Stop();
+          need_props = false;
+          reset_state();
+        } else if (need_props) {
+          throw Stop();
+        } else if (c >= 0xA0) {
+          reset_state();
+        }
+        if (!lzma_chunk(usize, csize)) return false;
+      } else {
+        if (c > 2) throw Stop();
+        uint32_t csize = uint32_t(byte()) << 8;
+        csize += byte() + 1u;
+        for (uint32_t i = 0; i < csize; ++i)
+          if (!put(byte())) return false;
+      }
+    }
+  }
+};
+
+}  // namespace xz
+
+extern "C" {
+
+// One .xz stream (`n` bytes) -> at most `size` bytes into `out`. Returns the bytes written:
+// `size` where the strip came out whole, fewer where liblzma would have stopped first.
+int64_t xz_strip(const uint8_t* in, int64_t n, uint8_t* out, int64_t size) {
+  if (size <= 0) return 0;
+  auto dec = std::make_unique<xz::Decoder>();
+  dec->in = in;
+  dec->n = n;
+  dec->out = out;
+  dec->size = size;
+  static const uint8_t magic[6] = {0xFD, '7', 'z', 'X', 'Z', 0};
+  if (n < 12 || std::memcmp(in, magic, 6) != 0 || xz::crc32(in + 6, 2) != xz::le32(in + 8) ||
+      in[6] != 0 || (in[7] & 0xF0))
+    return 0;
+  int64_t pos = 12;
+  if (pos >= n || in[pos] == 0) return 0;  // no block: the index
+  const int64_t head = (int64_t(in[pos]) + 1) * 4, end = pos + head;
+  if (end > n || xz::crc32(in + pos, head - 4) != xz::le32(in + end - 4)) return 0;
+  const uint8_t flags = in[pos + 1];
+  if (flags & 0x3C) return 0;
+  int64_t p = pos + 2;
+  uint64_t v, id, psize;
+  if ((flags & 0x40) && (!xz::vli(in, end - 4, p, v) || v == 0)) return 0;
+  if ((flags & 0x80) && !xz::vli(in, end - 4, p, v)) return 0;
+  if ((flags & 3) != 0) return 0;  // a filter before LZMA2: none is written here
+  if (!xz::vli(in, end - 4, p, id) || !xz::vli(in, end - 4, p, psize) || id != 0x21 ||
+      psize != 1 || p >= end - 4 || in[p] > 40)
+    return 0;
+  const uint32_t bits = in[p++];
+  uint64_t dict = bits == 40 ? 0xFFFFFFFFull : uint64_t(2 | (bits & 1)) << (bits / 2 + 11);
+  dict = std::max<uint64_t>(dict, 4096);
+  dec->dict_size = (dict + 15) & ~uint64_t(15);
+  for (; p < end - 4; ++p)
+    if (in[p]) return 0;
+  dec->pos = end;
+  try {
+    dec->lzma2();
+  } catch (const xz::Stop&) {
+  }
+  return dec->got;
 }
 
 }  // extern "C"

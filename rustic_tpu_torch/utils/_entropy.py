@@ -1,7 +1,7 @@
 """The host C++ loops of the image decoders: the WebP decoder's entropy
 loops, the QOI op loop, the FLI, SUN, ICNS and MSP run-length loops and
 IM's n-bit samples, the JPEG decoder's entropy loops, the CCITT fax rows
-of TIFF and the BMP RLE8 / RLE4 loop (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
+and the .xz / LZMA2 strips of TIFF and the BMP RLE8 / RLE4 loop (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
 (csrc/jpeg2000_t1.cpp), and the BC6H / BC7 blocks of the DDS decoder and
 the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), each built by g++
 at first use (ops/_build.py `compile_host`; a missing or failing g++
@@ -47,6 +47,8 @@ def library() -> ctypes.CDLL:
     lib.ccitt_nruns.argtypes = [i32, i32]
     lib.bmp_rle.restype = i64
     lib.bmp_rle.argtypes = [p, i64, i64, i64, i64, i32, p, i64]
+    lib.xz_strip.restype = i64
+    lib.xz_strip.argtypes = [p, i64, p, i64]
     return lib
 
 

@@ -63,7 +63,7 @@ from typing import NamedTuple
 import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, NotThisFormat
-from rustic_tpu_torch.utils.modes import check_pixels, to_rgba, unpack_bits
+from rustic_tpu_torch.utils.modes import check_pixels, note_core, to_rgba, unpack_bits
 
 _BI_RGB, _BI_RLE8, _BI_RLE4, _BI_BITFIELDS = 0, 1, 2, 3
 _BMP_HEADERS = (40, 52, 56, 64, 108, 124)
@@ -241,6 +241,7 @@ def dib_rgba(raw: bytes, dib: Dib, rows: int = None) -> np.ndarray:
             idx = np.where(idx != 0, 255, 0).astype(np.uint8)
         return to_rgba(dib.mode, idx, dib.palette)
     px = px[:, : width * bits // 8].reshape(rows, width, bits // 8)
+    note_core(dib.mode)
     out = np.full((rows, width, 4), 255, np.uint8)
     if bits == 24:
         out[..., :3] = px[..., ::-1]
@@ -324,6 +325,17 @@ def _tga_rle(raw: bytes, pos: int, n: int, size: int) -> np.ndarray:
     return np.frombuffer(bytes(out[:want]), np.uint8).reshape(n, size)
 
 
+def _tga_core(base, depth, px, palette):
+    """Pillow's mode of a TGA image and its one band's samples."""
+    if base == 2:
+        return ("RGBA" if depth in (16, 32) else "RGB"),
+    if base == 3:
+        return ("LA",) if depth == 16 else ("1" if depth == 1 else "L", px[..., 0])
+    if palette is None:
+        return "L", px[..., 0]
+    return "P", px[..., 0], palette[:, :3]
+
+
 def decode_tga(raw: bytes) -> np.ndarray:
     """TGA bytes -> uint8 [H, W, 4], as Pillow's convert("RGBA")."""
     if len(raw) < 18:
@@ -368,6 +380,7 @@ def decode_tga(raw: bytes) -> np.ndarray:
         px = px[::-1]
     if flags & 0x10:  # right-to-left
         px = px[:, ::-1]
+    note_core(*_tga_core(base, depth, px, palette))
     out = np.full((height, width, 4), 255, np.uint8)
     if base == 2 and depth == 16:
         out[:] = _rgb16(np.ascontiguousarray(px).view("<u2")[..., 0], alpha=True)

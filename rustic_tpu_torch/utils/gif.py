@@ -25,6 +25,8 @@ import struct
 
 import numpy as np
 
+from rustic_tpu_torch.utils.modes import note_core
+
 _PASSES = ((0, 8), (4, 8), (2, 4), (1, 2))  # interlaced rows: (first, step)
 
 
@@ -158,6 +160,7 @@ def decode_gif(raw: bytes, transparency: bool = True) -> np.ndarray:
         table = np.frombuffer(palette, np.uint8).reshape(-1, 3)
         colours[:] = 0
         colours[: len(table)] = table
+    note_core("L" if palette is None else "P", canvas, colours, transparency)
     out = np.empty((height, width, 4), np.uint8)
     out[..., :3] = colours[canvas]
     out[..., 3] = 255

@@ -222,7 +222,7 @@ def decode_im(raw: bytes, im: Im = None) -> np.ndarray:
     if mode == "I":
         return to_rgba("I", px[..., 0])
     if mode.startswith("I;16"):
-        return to_rgba("I;16", px[..., 0])
+        return to_rgba(mode, px[..., 0])
     if rawmode == "RGBX;L":
         px = px[..., :3]
     return to_rgba(mode, px[..., 0] if px.shape[2] == 1 else px, im.palette)

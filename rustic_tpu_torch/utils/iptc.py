@@ -14,23 +14,26 @@ image holds the band (3, 65) names), (3, 20) and (3, 30) the size, and
 The image fields' data is joined. Raw data gets a "P5" header of the
 size and is read as a PGM (utils/pnm.py); compression 5 data is opened
 as Pillow opens any file (utils/png.py's walk, TGA tried at its place as
-Pillow tries it on a file without a name). A grey image is that image,
-converted as Pillow converts the core image it takes (nothing of the
-embedded file's info: a PNG's or GIF's transparency is dropped; 16-bit
-grey and float pixels are refused as Pillow's C convert refuses them); a
-colour one is the merge of that image as its band and zero bands, so the
-result has the embedded image's size: the bands after the first must be
-"L", the first any one-band image ("1" reads 0 and 255).
+Pillow tries it on a file without a name). Pillow's IPTC load keeps that
+file's core image and nothing of its info, so the decoders note the core
+they make (utils/modes.py `note_core`, `core_of`: its mode, samples and
+palette). A grey image is that core through Pillow's C convert: a
+transparency kept in the info (a PNG's tRNS, a GIF's or an XPM's index)
+is dropped, and a mode the C convert has no way from (16-bit grey, "F",
+LAB) raises ValueError as Pillow's does. A colour image is the merge of
+that image as its band and zero bands, so the result has the embedded
+image's size: the bands after the first must be "L", the first any
+one-band image, whose bytes Image.merge takes ("1" as 0 and 255, "P"
+its indices, 16-bit words the first row bytes of each row).
 
 A field that is not an IPTC field (or cut short) before the image, or a
 header without the fields Pillow reads, raises an error of PASSED_ON and the
 file passes on; a field length over 132, a band Pillow cannot place, or
 an embedded image Pillow cannot read ends the decode (ValueError); a
-compression other than 1 and 5 (Pillow refuses it), an embedded file of
-a format in REFUSED_INSIDE, and a first band of a format other than JPEG,
-PNM and PNG or of a one-band mode other than "L" and "1" (Pillow merges
-raw palette indices or 16-bit words there) raise NotImplementedError
-naming them.
+compression other than 1 and 5 (Pillow refuses it), a band of a file
+whose mode the port does not tell (one no decoder notes, and not a JPEG,
+PNM or PNG), and a first band of mode "I" or "F" (Pillow's merge of
+32-bit samples ends its process) raise NotImplementedError naming them.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from rustic_tpu_torch.utils import FORMATS_TODO
+from rustic_tpu_torch.utils import FORMATS_TODO, xpm
 from rustic_tpu_torch.utils.modes import check_pixels, to_rgba
 
 COMPRESSION = {1: "raw", 5: "jpeg"}
@@ -147,12 +150,13 @@ def decode_iptc(raw: bytes, t: Iptc = None) -> np.ndarray:
         out.write(fp.read(size))
     data = out.getvalue()
     fmt, decode = png._identify(data, ".tga")  # Pillow's open tries TGA on any file
-    if fmt in REFUSED_INSIDE:
-        raise NotImplementedError(f"IPTC image record holding a {fmt} file is not decoded "
-                                  f"({FORMATS_TODO})")
+    if fmt == "XPM":  # the "None" colour is kept in the info, which the record drops
+        decode = lambda: xpm.decode_xpm(data, xpm.open_xpm(data)._replace(  # noqa: E731
+            transparency=None))
     if t.band is None:
         return _as_iptc(fmt, data, decode)
-    mode = _band_mode(fmt, data)
+    rgba, core = _core(fmt, data, decode)
+    mode = core[0] if core else _band_mode(fmt, data)
     if mode is None:
         raise NotImplementedError(f"IPTC {t.mode} image whose band is a {fmt} file is not "
                                   f"decoded ({FORMATS_TODO})")
@@ -160,47 +164,73 @@ def decode_iptc(raw: bytes, t: Iptc = None) -> np.ndarray:
     if mode != "L" and not first:  # Image.merge holds the bands after the first to "L"
         raise ValueError(f"IPTC {t.mode} band of a {mode} image (Pillow's merge: mode "
                          "mismatch)")
-    if mode in _MULTI_BAND:
+    if mode not in _ONE_BAND:
         raise ValueError(f"IPTC {t.mode} band of a {mode} image (Pillow's merge: image has "
                          "wrong mode)")
-    if mode not in ("L", "1"):
+    band = _merged_band(mode, rgba, core)
+    if band is None:
         raise NotImplementedError(f"IPTC {t.mode} image whose band is a {fmt} file of mode "
                                   f"{mode} is not decoded ({FORMATS_TODO})")
-    img = decode()
-    bands = [np.zeros(img.shape[:2], np.uint8)] * len(t.mode)
+    bands = [np.zeros(band.shape, np.uint8)] * len(t.mode)
     try:
-        bands[t.band] = img[..., 0]
+        bands[t.band] = band
     except IndexError as e:
         raise ValueError(f"IPTC band {t.band} of a {t.mode} image") from e
     return to_rgba(t.mode, np.stack(bands, -1))
 
 
-# formats whose images can take a mode Pillow's C convert has no way to RGBA from (I;16, F,
-# LAB, YCbCr) or keep a transparency in their info, which the IPTC image does not carry: the
-# port does not tell those apart from the rest inside an IPTC record, and refuses them there
-REFUSED_INSIDE = ("TIFF", "PSD", "JPEG2000", "MCIDAS", "FITS", "IM", "SPIDER", "XPM")
-_MULTI_BAND = ("LA", "RGB", "RGBA", "CMYK")
+# the modes Pillow's C convert takes to RGBA (ImagingConvert); from the rest it raises
+# ValueError, and the IPTC image's own mode ("L", "RGB", "CMYK") gives it no second way
+_C_CONVERT = ("1", "L", "P", "PA", "LA", "RGB", "RGBA", "RGBa", "CMYK", "I")
+_ONE_BAND = ("1", "L", "P", "I", "F", "I;16", "I;16L", "I;16B", "I;16N")
+
+
+def _core(fmt: str, data: bytes, decode):
+    """The embedded file's decode and Pillow's core image of it, as its
+    decoder noted it (utils/modes.py `core_of`): (mode, samples, palette,
+    transparency) or None."""
+    from rustic_tpu_torch.utils.modes import core_of
+
+    if fmt == "PNG":
+        from rustic_tpu_torch.utils import png
+
+        decode = lambda: png.decode_png(data, transparency=False)  # noqa: E731
+    return core_of(decode)
 
 
 def _as_iptc(fmt: str, data: bytes, decode) -> np.ndarray:
     """The embedded image as the IPTC image converts it: Pillow's IPTC
     load takes the embedded file's core image and nothing of its info, so
-    convert("RGBA") is the C conversion alone: a PNG's tRNS or a GIF's
-    transparency index is dropped, and 16-bit grey or floating-point
-    pixels, which only Python-side steps convert, are refused."""
-    from rustic_tpu_torch.utils import gif, png, pnm
+    convert("RGBA") is the C conversion alone: a transparency kept in the
+    info (a PNG's tRNS, a GIF's or an XPM's index) is dropped, and a mode
+    only Python-side steps convert (16-bit grey, floats, LAB, YCbCr) is
+    refused as the C convert refuses it."""
+    rgba, core = _core(fmt, data, decode)
+    if core is None:
+        return rgba
+    mode, px, palette, transparency = core
+    if mode not in _C_CONVERT:
+        raise ValueError(f"IPTC image holding a {fmt} file of mode {mode} (Pillow: conversion "
+                         f"from {mode} to RGBA not supported)")
+    if transparency is not None and px is not None:
+        return to_rgba(mode, px, palette)
+    return rgba
 
-    if fmt == "PNG":
-        if data[24:26] == b"\x10\x00":  # 16-bit grey: "I;16"
-            raise ValueError("IPTC image holding a 16-bit grey PNG (Pillow: conversion from "
-                             "I;16 to RGBA not supported)")
-        return png.decode_png(data, transparency=False)
-    if fmt == "GIF":
-        return gif.decode_gif(data, transparency=False)
-    if fmt == "PPM" and pnm.open_pnm(data).mode == "F":
-        raise ValueError("IPTC image holding a PFM (Pillow: conversion from F to RGBA not "
-                         "supported)")
-    return decode()
+
+def _merged_band(mode: str, rgba: np.ndarray, core):
+    """The bytes Image.merge takes from a one-band image: its samples
+    where they are bytes ("1" as 0 and 255, "P" its indices), the first
+    row bytes of each row of 16-bit words; None where the port does not
+    hold them (or Pillow's merge of 32-bit samples ends its process)."""
+    px = core[1] if core else None
+    if mode in ("1", "L"):
+        return rgba[..., 0]
+    if mode == "P" and px is not None:
+        return px.astype(np.uint8)
+    if mode.startswith("I;16") and px is not None:
+        words = px.astype(">u2" if mode == "I;16B" else "<u2")
+        return words.view(np.uint8).reshape(px.shape[0], -1)[:, : px.shape[1]]
+    return None
 
 
 def _band_mode(fmt: str, data: bytes):

@@ -60,6 +60,7 @@ import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, _entropy
 from rustic_tpu_torch.utils._entropy import ptr
+from rustic_tpu_torch.utils.modes import note_core
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
@@ -825,6 +826,8 @@ def decode_jpeg2000(raw: bytes) -> np.ndarray:
     eight = [_pillow_bits(p, stream.precision[c], stream.signed[c], 8)
              for c, p in enumerate(planes)]
     h, w = planes[0].shape
+    note_core(mode, _pillow_bits(planes[0], stream.precision[0], stream.signed[0], 16)
+              if mode == "I;16" else eight[0] if mode in ("L", "P") else None)
     out = np.full((h, w, 4), 255, np.uint8)
     if mode == "I;16":
         out[..., :3] = np.minimum(_pillow_bits(planes[0], stream.precision[0], stream.signed[0],

@@ -23,7 +23,7 @@ import numpy as np
 from rustic_tpu_torch.utils.modes import check_pixels, to_rgba
 
 MAGIC = b"\x00\x00\x00\x00\x00\x00\x00\x04"
-_MODES = {1: ("L", np.uint8), 2: ("I;16", ">u2"), 4: ("I", ">i4")}  # w[11] -> mode, sample type
+_MODES = {1: ("L", np.uint8), 2: ("I;16B", ">u2"), 4: ("I", ">i4")}  # w[11] -> mode, sample type
 
 
 class McIdas(NamedTuple):

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import base64
 import functools
+import threading
 import zlib
 
 import numpy as np
@@ -220,11 +221,59 @@ def lab_to_rgb(px: np.ndarray) -> np.ndarray:
     return ((out16 * 65281 + 8388608) >> 24).astype(np.uint8).reshape(shape + (3,))
 
 
+_CAPTURES = threading.local()  # each thread's captures open (core_of), innermost last
+
+
+def _captures() -> list:
+    stack = getattr(_CAPTURES, "stack", None)
+    if stack is None:
+        stack = _CAPTURES.stack = []
+    return stack
+
+
+def note_core(mode: str, px: np.ndarray = None, palette: np.ndarray = None, transparency=None):
+    """Record the image a decoder has made as Pillow's core holds it: its
+    mode, its samples (None where only the mode is told), a "P" image's
+    palette and the transparency Pillow keeps in its info. to_rgba notes
+    every image it converts; decoders that convert on their own note
+    theirs. Nothing is kept unless a `core_of` is open in this thread."""
+    stack = _captures()
+    if stack:
+        stack[-1].append((mode, px, palette, transparency))
+
+
+def turn_core(turn):
+    """Apply a decoder's last step (a transposition of the image) to the
+    samples it noted last."""
+    stack = _captures()
+    if stack and stack[-1] and stack[-1][-1][1] is not None:
+        mode, px, palette, transparency = stack[-1][-1]
+        stack[-1][-1] = (mode, np.ascontiguousarray(turn(px)), palette, transparency)
+
+
+def core_of(decode):
+    """Run `decode` -> (its RGBA, the last (mode, samples, palette,
+    transparency) noted in this thread while it ran whose samples are of
+    the decode's size (or untold), or None): Pillow's core image of a
+    file, which utils/iptc.py takes as Pillow's IPTC load takes it."""
+    stack = _captures()
+    stack.append([])
+    try:
+        rgba = decode()
+    finally:
+        noted = stack.pop()
+    for note in reversed(noted):
+        if note[1] is None or note[1].shape[:2] == rgba.shape[:2]:
+            return rgba, note
+    return rgba, None
+
+
 def to_rgba(mode: str, px: np.ndarray, palette: np.ndarray = None,
             transparency=None) -> np.ndarray:
     """An image of Pillow mode `mode` ([H, W] for one band, [H, W, n] for
     more) -> uint8 [H, W, 4]. `transparency` is a "P" image's: an index,
     or bytes of alphas."""
+    note_core(mode, px, palette, transparency)
     h, w = px.shape[:2]
     out = np.full((h, w, 4), 255, np.uint8)
     if mode in ("1", "L"):
@@ -249,7 +298,7 @@ def to_rgba(mode: str, px: np.ndarray, palette: np.ndarray = None,
         out[..., :3] = ycbcr_to_rgb(px)
     elif mode == "LAB":
         out[..., :3] = lab_to_rgb(px)
-    elif mode == "I;16":
+    elif mode.startswith("I;16"):  # any byte order: the samples are values here
         out[..., :3] = np.minimum(px, 255).astype(np.uint8)[..., None]
     elif mode in ("RGB", "RGBA"):
         out[..., : px.shape[2]] = px

@@ -45,15 +45,16 @@ import zlib
 
 import numpy as np
 
-from rustic_tpu_torch.utils import (FORMATS_TODO, NotThisFormat, blp, fits, fli, ftex, gbr, icns, ico,
-                                    im, iptc, mcidas, msp, pcd, pcx, pixar, pnm, qoi, read_header,
-                                    sgi, spider, sun, xbm, xpm, xvthumb)
+from rustic_tpu_torch.utils import (FORMATS_TODO, NotThisFormat, avif, blp, fits, fli, ftex, gbr,
+                                    icns, ico, im, iptc, mcidas, msp, pcd, pcx, pixar, pnm, qoi,
+                                    read_header, sgi, spider, sun, xbm, xpm, xvthumb)
 from rustic_tpu_torch.utils.bmp_tga import (DIB_HEADERS, dib_rgba, open_bmp, open_dib,
                                             decode_tga, tga_refusal)
 from rustic_tpu_torch.utils.dds import DDS_SIGNATURE, decode_dds, open_dds
 from rustic_tpu_torch.utils.gif import decode_gif
 from rustic_tpu_torch.utils.jpeg import decode_jpeg, open_jpeg
 from rustic_tpu_torch.utils.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
+from rustic_tpu_torch.utils.modes import note_core
 from rustic_tpu_torch.utils.psd import PSD_SIGNATURE, decode_psd, open_psd
 from rustic_tpu_torch.utils.tiff import decode_tiff
 from rustic_tpu_torch.utils.webp import decode_webp
@@ -164,6 +165,8 @@ class _PngStream:
         self.interlace = 0
         self.palette = self.trns = None
         self.seq = None
+        self.n_frames = None  # acTL's frame count, None where there is none or it is invalid
+        self.bbox = None  # the last fcTL's region (x0, y0, x1, y1)
 
     def header(self):
         """ChunkStream.read -> (type, length) or None where Pillow's read
@@ -234,11 +237,17 @@ class _PngStream:
         elif cid in (b"sRGB", b"pHYs", b"acTL", b"fcTL") and length < {
                 b"sRGB": 1, b"pHYs": 9, b"acTL": 8, b"fcTL": 26}[cid]:
             raise ValueError(f"Truncated {cid.decode()} chunk")
+        elif cid == b"acTL":  # a second acTL makes the APNG invalid (a third counts again)
+            if self.n_frames is not None:
+                self.n_frames = None
+            elif 0 < u32(0) <= 0x80000000:
+                self.n_frames = u32(0)
         elif cid == b"fcTL":
             self._sequence(s, False)
             width, height = self.size or (0, 0)
             if u32(12) + u32(4) > width or u32(16) + u32(8) > height:
                 raise ValueError("APNG contains invalid frames")
+            self.bbox = (u32(12), u32(16), u32(12) + u32(4), u32(16) + u32(8))
         elif cid in (b"iCCP", b"zTXt"):
             i = s.find(b"\0")
             if cid == b"iCCP":
@@ -278,7 +287,13 @@ def _png_open(raw: bytes) -> tuple:
     IDAT each checked against its CRC; the image data the IDAT chunks that
     follow one another, read 64 KiB at a time and inflated no further than
     the rows need (what follows them, the checksum too, is not read); then
-    load_end's walk of the chunks after, whose handlers still raise."""
+    load_end's walk of the chunks after, whose handlers still raise. An
+    APNG's frame 0: where an fcTL comes before the image data, the data is
+    that frame's region (the stream's `region`, x0, y0, width, height) of
+    a canvas Pillow leaves zero, and the frame is not blended or disposed
+    of; where none does, the image data is the default image, itself a
+    frame. Where there are more frames than one (Pillow's is_animated),
+    load_end stops at the next fcTL."""
     st = _PngStream(raw, 8)
     while True:
         head = st.header()
@@ -298,6 +313,11 @@ def _png_open(raw: bytes) -> tuple:
     if cid == b"IEND":
         raise ValueError("PNG: cannot load this image (no IDAT chunk)")
     (width, height), (depth, colour) = st.size, st.mode
+    if st.bbox is not None:
+        x0, y0, x1, y1 = st.bbox
+        width, height = x1 - x0, y1 - y0
+    st.region = (0, 0) + st.size if st.bbox is None else (x0, y0, width, height)
+    animated = (st.n_frames or 1) + (st.n_frames is not None and st.bbox is None) > 1
     n = _CHANNELS[colour]
     passes = _ADAM7 if st.interlace else ((0, 0, 1, 1),)
     need = sum(-(-(height - y0) // dy) * (((width - x0 + dx - 1) // dx * n * depth + 7) // 8 + 1)
@@ -331,7 +351,7 @@ def _png_open(raw: bytes) -> tuple:
             head = st.header()
         except ValueError:
             break
-        if head is None or head[0] == b"IEND":
+        if head is None or head[0] == b"IEND" or head[0] == b"fcTL" and animated:
             break
         if st.call(*head) is None:  # IDAT or fdAT: skipped
             st.read(head[1] - 4 if head[0] == b"fdAT" else head[1])
@@ -347,7 +367,8 @@ def decode_png(raw: bytes, transparency: bool = True) -> np.ndarray:
     if raw[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     st, data = _png_open(bytes(raw))
-    (width, height), (depth, colour) = st.size, st.mode
+    x0, y0, width, height = st.region
+    (depth, colour) = st.mode
     n = _CHANNELS[colour]
     trns = st.trns if transparency else None
     palette = np.zeros((256, 3), np.uint8)
@@ -358,9 +379,15 @@ def decode_png(raw: bytes, transparency: bool = True) -> np.ndarray:
         px = _interlaced(data, height, width, n, depth)
     else:
         px = _samples(data, height, width, n, depth)[0]
+    if (width, height) != st.size:  # an APNG frame's region of a zero canvas
+        canvas = np.zeros((st.size[1], st.size[0]) + px.shape[2:], px.dtype)
+        canvas[y0 : y0 + height, x0 : x0 + width] = px
+        px = canvas
+        width, height = st.size
 
     out = np.full((height, width, 4), 255, np.uint8)
     if colour == 3:
+        note_core("P", px[..., 0], palette, trns)
         idx = px[..., 0].astype(np.int64)
         out[..., 0:3] = palette[idx]
         if trns is not None:
@@ -368,6 +395,8 @@ def decode_png(raw: bytes, transparency: bool = True) -> np.ndarray:
             alpha[: len(trns)] = np.frombuffer(trns[:256], np.uint8)
             out[..., 3] = alpha[idx]
         return out
+    note_core({0: {1: "1", 16: "I;16"}.get(depth, "L"), 2: "RGB", 4: "LA", 6: "RGBA"}[colour],
+              px[..., 0] if colour == 0 else None, None, trns)
     if depth == 16 and colour == 0:
         eight = np.minimum(px, 255).astype(np.uint8)
     elif depth == 16:
@@ -460,6 +489,7 @@ _PLUGINS = {
     "JPEG": (lambda p, n: p[:3] == b"\xff\xd8\xff", _jpeg),
     "PPM": (lambda p, n: pnm.accept(p), _opened(pnm.open_pnm, pnm.decode_pnm)),
     "PNG": (lambda p, n: p[:8] == PNG_SIGNATURE, _whole(decode_png)),
+    "AVIF": (lambda p, n: avif.accept(p), _opened(avif.open_avif, avif.decode_avif)),
     "BLP": (lambda p, n: blp.accept(p), _opened(blp.open_blp, blp.decode_blp)),
     "CUR": (lambda p, n: p[:4] == ico.CUR_SIGNATURE,
             _opened(ico.open_cur, lambda raw, h: dib_rgba(raw, *h))),

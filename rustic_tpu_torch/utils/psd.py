@@ -45,7 +45,7 @@ import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, NotThisFormat, _entropy
 from rustic_tpu_torch.utils._entropy import ptr
-from rustic_tpu_torch.utils.modes import check_pixels, lab_to_rgb, muldiv255
+from rustic_tpu_torch.utils.modes import check_pixels, lab_to_rgb, muldiv255, note_core
 
 PSD_SIGNATURE = b"8BPS"
 # (colour mode, depth) -> (Pillow mode, channels it reads)
@@ -176,7 +176,7 @@ def decode_psd(raw: bytes, _stop: bool = False) -> np.ndarray:
         return None
     row_bytes = (width + 7) // 8 if mode == "1" else width
     planes = _planes(r, compression, channels, height, row_bytes, width)
-
+    note_core(mode)
     out = np.full((height, width, 4), 255, np.uint8)
     if mode == "1":
         bits = np.unpackbits(planes[0], axis=1)[:, :width]
@@ -188,6 +188,7 @@ def decode_psd(raw: bytes, _stop: bool = False) -> np.ndarray:
         if len(colour_data) == 768:
             palette = np.frombuffer(colour_data, np.uint8).reshape(3, 256).T
         out[..., 0:3] = palette[planes[0]]
+        note_core(mode, planes[0], palette)
     elif mode == "CMYK":
         ink = 255 - planes.astype(np.int64)  # stored inverted
         nk = 255 - ink[3]

@@ -9,9 +9,10 @@ tiles; compression none (1), PackBits (32773), LZW (5: most significant
 bit first, codes widened one code early), Deflate (8, and the old code
 32946), CCITT modified Huffman (2), T.4 (3: one-dimensional, or
 two-dimensional where Group3Options' bit 0 is set) and T.6 (4), JPEG (7)
-and LZMA (34925: one .xz stream a strip, through Python's lzma; an error
-once the strip's bytes are all out goes unseen, as in libtiff's
-LZMADecode); predictor 1, and horizontal differencing (predictor 2) at 8
+and LZMA (34925: one .xz stream a strip, through csrc/image_entropy.cpp
+`xz_strip`, which keeps what liblzma writes before an error, as libtiff's
+LZMADecode keeps it; an error once the strip's bytes are all out goes
+unseen); predictor 1, and horizontal differencing (predictor 2) at 8
 and 16 bits; planar configuration 1 (chunky) and 2 (one plane a sample);
 fill order 1, and 2 where Pillow's OPEN_INFO has the layout with it
 (grey and palette at 1-8 bits, little-endian grey at 16, RGB at 8): every
@@ -59,7 +60,9 @@ conversions to RGBA:
   each strip's offset, nothing converted;
 - YCbCr at 8 bits in planar configuration 2: compressed, through
   TIFFRGBAImage's putseparate8bitYCbCr11tile, which only a YCbCrSubsampling
-  of 1x1 reaches (others, and the default 2x2, libtiff refuses);
+  of 1x1 reaches (others, and the default 2x2, libtiff refuses); under
+  JPEG each plane's strip a one-component JPEG whose samples libtiff takes
+  as they are (it converts colour only in planar configuration 1);
   uncompressed, Pillow's reader takes the planes as R, G and B.
 
 CCITT data goes through csrc/image_entropy.cpp `ccitt_rows`, libtiff's
@@ -84,7 +87,7 @@ These raise NotImplementedError naming the variant: old-JPEG (6),
 RLE-word (32771), ThunderScan, SGILog, JPEG 2000, Zstandard and WebP
 compression, signed or floating-point samples, the floating-point
 predictor, mask, ICCLab, ITULab and LogLuv images, old-style LZW and
-BigTIFF, JPEG-compressed YCbCr in planar configuration 2. Five layouts
+BigTIFF. Five layouts
 Pillow misreads are refused rather than copied: planar configuration 2
 with an extra sample (Pillow reads the alpha as 0), CIELab in planar
 configuration 2 (Pillow's band unpackers leave its LAB pixels' fourth
@@ -101,7 +104,6 @@ the colour conversion run over whole strips, tiles or images at once.
 
 from __future__ import annotations
 
-import lzma
 import re
 import struct
 import zlib
@@ -110,7 +112,8 @@ from fractions import Fraction
 import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, jpeg
-from rustic_tpu_torch.utils.modes import check_pixels, to_rgba
+from rustic_tpu_torch.utils import modes
+from rustic_tpu_torch.utils.modes import check_pixels, note_core, to_rgba
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
           11: "f", 12: "d", 13: "I"}  # field type -> struct codes of one value
@@ -256,43 +259,46 @@ def _inflate(raw: bytes, off: int, count: int, compression: int, size: int) -> b
 
 def _unxz(data: bytes, size: int) -> bytes:
     """libtiff's LZMADecode: one .xz stream decoded as far as the strip's
-    `size` bytes; an error once they are all out (a bad check, junk after)
-    goes unseen, one before leaves the strip short."""
-    try:
-        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size)
-    except lzma.LZMAError:
-        return _until_error(lambda: lzma.LZMADecompressor(lzma.FORMAT_XZ), data, size)
+    `size` bytes through csrc/image_entropy.cpp `xz_strip`, which keeps
+    every byte liblzma writes before it stops: an error once they are all
+    out (a bad check, junk after) goes unseen, one before leaves the strip
+    short."""
+    from rustic_tpu_torch.utils import _entropy
+
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(size, np.uint8)
+    got = _entropy.library().xz_strip(_entropy.ptr(src), len(src), _entropy.ptr(out), size)
+    return out[:got].tobytes()
 
 
 def _until_error(new, data: bytes, size: int) -> bytes:
-    """The bytes (at most `size`) a decompressor made by `new` gives from
-    `data` before its first error, as libtiff's codec, handed all of it at
-    once, leaves them in its buffer. Python drops a failing call's output:
-    so the input is fed a byte a call to find the byte the error comes
-    with, then, from a fresh decompressor, the bytes before it at once and
-    that byte's output a byte a call."""
-    errors = (zlib.error, lzma.LZMAError)
+    """The bytes (at most `size`) a zlib decompressor made by `new` gives
+    from `data` before its first error, as libtiff's codec, handed all of
+    it at once, leaves them in its buffer. Python drops a failing call's
+    output: so the input is fed a byte a call to find the byte the error
+    comes with, then, from a fresh decompressor, the bytes before it at
+    once and that byte's output a byte a call."""
     d, out, bad = new(), bytearray(), len(data)
     for i in range(len(data)):
         try:
             out += d.decompress(data[i : i + 1], size - len(out))
-        except errors:
+        except zlib.error:
             bad = i
             break
         if len(out) >= size:  # only then can zlib hold input back (unconsumed_tail)
             return bytes(out)
     d = new()
     out = bytearray(d.decompress(data[:bad], size))
-    pending = getattr(d, "unconsumed_tail", b"") + data[bad : bad + 1]  # lzma keeps its own
+    pending = d.unconsumed_tail + data[bad : bad + 1]
     while len(out) < size:
         try:
             chunk = d.decompress(pending, 1)
-        except errors:
+        except zlib.error:
             break
         if not chunk:
             break
         out += chunk
-        pending = getattr(d, "unconsumed_tail", b"")
+        pending = d.unconsumed_tail
     return bytes(out)
 
 
@@ -323,7 +329,7 @@ def decode_tiff(raw: bytes) -> np.ndarray:
     ValueError."""
     try:
         return _decode_tiff(bytes(raw))
-    except (IndexError, KeyError, TypeError, struct.error, zlib.error, lzma.LZMAError) as e:
+    except (IndexError, KeyError, TypeError, struct.error, zlib.error) as e:
         raise ValueError(f"TIFF file is corrupt: {type(e).__name__}: {e}") from e
 
 
@@ -338,6 +344,8 @@ def _decode_tiff(raw: bytes) -> np.ndarray:
     tags = _ifd(raw, order, first, kinds)
     out = _decode_page(raw, order, tags, _first(tags, kinds, 266, 1))
     turn = _TRANSPOSES.get(_orientation(tags, kinds))
+    if turn:
+        modes.turn_core(turn)
     return np.ascontiguousarray(turn(out)) if turn else out
 
 
@@ -471,6 +479,8 @@ def _decode_page(raw: bytes, order: str, tags: dict, fill) -> np.ndarray:
         bw, bh = width, rps
         offsets, counts = tag(273), tag(279)
         segments = [(y, 0, min(rps, height - y)) for y in range(0, height, rps)]
+    if photometric == 6:
+        note_core("RGB")  # Pillow's mode of every YCbCr layout it reads
     if photometric == 6 and compression == 1 and planar == 1:  # Pillow's reader: read as RGBX
         return _ycbcr_raw(raw, offsets, tiled, width, height, bw, bh)
     if photometric == 6 and compression != 7 and planar == 1:  # libtiff's TIFFRGBAImage
@@ -487,10 +497,11 @@ def _decode_page(raw: bytes, order: str, tags: dict, fill) -> np.ndarray:
     tables = None
     if compression == 7 and 347 in tags:
         tables = jpeg.tiff_jpeg_tables(bytes(tag(347)))
-    ycbcr_jpeg = compression == 7 and photometric == 6
-    jpeg_state = _JpegState(bh, bw, per) if compression == 7 else None
+    ycbcr_jpeg = compression == 7 and photometric == 6 and planar == 1
+    jpeg_state = _JpegState(bh, bw, per, photometric == 6 and planar == 2) if compression == 7 \
+        else None
     fax = _FaxState(bw, bh, compression, tags) if compression in _FAX else None
-    ycbcr_planes = photometric == 6 and compression != 1  # planar: chunky YCbCr left above
+    ycbcr_planes = photometric == 6 and compression not in (1, 7)  # chunky YCbCr left above
     whole = True
     for i, (off, count) in enumerate(zip(offsets, counts)):
         plane, k = divmod(i, len(segments))
@@ -503,7 +514,7 @@ def _decode_page(raw: bytes, order: str, tags: dict, fill) -> np.ndarray:
             block = _fax(data, off, count, bw, bh if tiled else rows, compression, fax)
         elif compression == 7:
             block = _jpeg_block(raw, off, count, tables, ycbcr_jpeg, bh if tiled else rows,
-                                height - y0, jpeg_state)
+                                height - y0, plane, jpeg_state)
         elif ycbcr_planes:  # through TIFFRGBAImage, which puts a strip its codec fails on
             size = (bh if tiled else rows) * ((bw * per * bps + 7) // 8)
             block, whole = _rgba_strip(data, off, count, compression, size)
@@ -517,7 +528,8 @@ def _decode_page(raw: bytes, order: str, tags: dict, fill) -> np.ndarray:
         px[y0 : y0 + h, x0 : x0 + w, plane : plane + per] = block[:h, :w]
     if ycbcr_jpeg or photometric == 6 and compression == 1:
         photometric = 2  # libjpeg gave RGB; Pillow's reader takes the planes as R, G and B
-    elif photometric == 6:  # one plane each, through TIFFRGBAImage's putseparate8bitYCbCr11tile
+    elif photometric == 6:  # one plane each (a JPEG's one component taken as it is, libtiff's
+        # JCS_UNKNOWN), through TIFFRGBAImage's putseparate8bitYCbCr11tile
         out = np.full((height, width, 4), 255, np.uint8)
         out[..., :3] = _ycbcr_to_rgb(_ycbcr_conversion(tags), px[..., 0], px[..., 1], px[..., 2])
         return out
@@ -536,8 +548,6 @@ def _check_layout(photometric, bps, extra, planar, compression, predictor):
           6: bps == 8 and not extra, 8: bps == 8 and not extra}[photometric]
     if not ok:
         _refuse(f"{name} at {bps} bits with extra samples {extra}")
-    if photometric == 6 and planar != 1 and compression == 7:
-        _refuse("JPEG-compressed YCbCr in planar configuration 2")
 
 
 class _FaxState:
@@ -584,33 +594,51 @@ class _JpegState:
     JPEGFixupTags reads YCbCrSubsampling from it) and Pillow's buffer,
     whose rows and columns a smaller JPEG does not reach keep what they
     held (zero before the first strip: Pillow's own buffer holds whatever
-    its memory held, which no decoder reproduces)."""
+    its memory held, which no decoder reproduces). Through TIFFRGBAImage
+    (YCbCr in planar configuration 2) each plane has a buffer of its own,
+    and a strip the codec fails on leaves it as it was (stoponerr 0),
+    except the first read: its buffer is allocated only once the strip's
+    JPEG header has been read (JPEGPreDecode), so a failure there ends
+    TIFFRGBAImageGet."""
 
-    def __init__(self, rows, width, per):
+    def __init__(self, rows, width, per, rgba=False):
         self.sampling = None
-        self.buf = np.zeros((rows, width, per), np.uint8)
+        self.shape = (rows, width, per)
+        self.bufs = {}
+        self.rgba = rgba
+        self.first = True
         self.short = False
 
+    def buf(self, plane):
+        return self.bufs.setdefault(plane if self.rgba else 0, np.zeros(self.shape, np.uint8))
 
-def _jpeg_block(raw, off, count, tables, ycbcr, rows, left, state) -> np.ndarray:
+
+def _jpeg_block(raw, off, count, tables, ycbcr, rows, left, plane, state) -> np.ndarray:
     """One JPEG-compressed strip or tile -> uint8 [rows, width, per]."""
-    width, per = state.buf.shape[1:]
-    block, got = jpeg.decode_tiff_jpeg(raw[off : off + count], tables, ycbcr)
-    if block.shape[2] != per:
-        raise ValueError(f"TIFF JPEG strip of {block.shape[2]} components where the image has "
-                         f"{per} (libtiff: improper JPEG component count)")
-    state.sampling = state.sampling or got
-    want = [state.sampling[0]] + [(1, 1)] * (len(got) - 1) if ycbcr else [(1, 1)] * len(got)
-    if got != want:
-        raise ValueError(f"TIFF JPEG strip sampled {got} (libtiff: improper JPEG sampling "
-                         "factors)")
-    h, w = block.shape[:2]
-    if w > width or h > rows and not (w == width and rows == left):
-        raise ValueError(f"TIFF JPEG strip of {w}x{h} exceeds its {width}x{rows} (libtiff)")
+    buf = state.buf(plane)
+    width, per = buf.shape[1:]
+    first, state.first = state.first, False
+    try:
+        block, got = jpeg.decode_tiff_jpeg(raw[off : off + count], tables, ycbcr)
+        if block.shape[2] != per:
+            raise ValueError(f"TIFF JPEG strip of {block.shape[2]} components where the image "
+                             f"has {per} (libtiff: improper JPEG component count)")
+        state.sampling = state.sampling or got
+        want = [state.sampling[0]] + [(1, 1)] * (len(got) - 1) if ycbcr else [(1, 1)] * len(got)
+        if got != want:
+            raise ValueError(f"TIFF JPEG strip sampled {got} (libtiff: improper JPEG sampling "
+                             "factors)")
+        h, w = block.shape[:2]
+        if w > width or h > rows and not (w == width and rows == left):
+            raise ValueError(f"TIFF JPEG strip of {w}x{h} exceeds its {width}x{rows} (libtiff)")
+    except ValueError:
+        if not state.rgba or first:
+            raise
+        return buf[:rows].copy()
     n = min(h, rows)  # JPEGDecode reads no more rows than the JPEG has
-    state.buf[:n, :w] = block[:n]
+    buf[:n, :w] = block[:n]
     state.short |= n < rows or w < width
-    return state.buf[:rows].copy()
+    return buf[:rows].copy()
 
 
 def _ycbcr_raw(raw, offsets, tiled, width, height, bw, bh) -> np.ndarray:
@@ -793,12 +821,15 @@ def _to_rgba(px, photometric, bps, extra, order, colour_map) -> np.ndarray:
         idx = px[..., 0].astype(np.int64)
         if idx.max(initial=0) >= len(palette):
             raise ValueError("TIFF palette index beyond the colour map")
+        note_core("P", px[..., 0].astype(np.uint8), palette)
         out[..., :3] = palette[idx]
         return out
     if photometric in (0, 1):
         if extra not in ((), (2,)) or (extra and (bps != 8 or photometric == 0)):
             _refuse(f"grey image at {bps} bits with extra samples {extra}")
         grey = px[..., 0]
+        note_core("LA" if extra else "I;16B" if bps == 16 and order == ">" else "I;16"
+                  if bps == 16 else "1" if bps == 1 else "L", grey if bps == 16 else None)
         if bps == 16:
             if order == ">" and photometric == 0:
                 _refuse("big-endian min-is-white grey at 16 bits")
@@ -815,9 +846,10 @@ def _to_rgba(px, photometric, bps, extra, order, colour_map) -> np.ndarray:
     if bps not in (8, 16):
         _refuse(f"RGB at {bps} bits")
     out[..., :3] = eight[..., :3]
+    kind = extra[0] if extra else 2  # no ExtraSamples tag: the fourth sample is alpha
+    note_core("RGB" if n == 3 or kind == 0 else "RGBA")
     if n == 3:
         return out
-    kind = extra[0] if extra else 2  # no ExtraSamples tag: the fourth sample is alpha
     if any(extra[1:]):
         _refuse(f"RGB with extra samples {extra}")
     if kind == 0:

@@ -38,6 +38,7 @@ import numpy as np
 
 from rustic_tpu_torch.utils import FORMATS_TODO, _entropy
 from rustic_tpu_torch.utils._entropy import ptr
+from rustic_tpu_torch.utils.modes import note_core
 from rustic_tpu_torch.utils.vp8 import decode_vp8
 
 # the distance map of VP8L back-references: (dx, dy) of the 120 short codes
@@ -413,10 +414,12 @@ def decode_webp(raw: bytes) -> np.ndarray:
         flags = chunks[0][1][0]
         has_alpha = bool(flags & 0x10)
         if flags & 0x02:
+            note_core("RGBA" if has_alpha else "RGB")
             return _first_frame(chunks, has_alpha)
         if b"ANIM" in kinds or b"ANMF" in kinds:
             _refuse("animation (ANIM/ANMF) without VP8X's animation flag")
     out, has_alpha = _still(chunks, has_alpha)
+    note_core("RGBA" if has_alpha else "RGB")
     if not has_alpha:
         out[..., 3] = 255
     return out

@@ -212,6 +212,119 @@ def test_png_refusals():
                                   np.asarray(Image.open(io.BytesIO(no_palette)).convert("RGBA")))
 
 
+# ---- APNG: frame 0 -------------------------------------------------------------------
+
+APNG_MODES = ["RGBA", "RGB", "P", "L", "LA", "1", "I;16"]
+
+
+def apng_file(mode: str, default_image: bool = False, disposal: int = 0, blend: int = 0,
+              **kw) -> bytes:
+    """Three frames of one mode through Pillow's APNG writer (save_all),
+    frame 0 the default image (inside the animation) or, with
+    `default_image`, an IDAT image of its own before the frames."""
+    import io
+
+    from PIL import Image
+
+    from tests.test_torch_image_formats import picture
+
+    frames = [Image.fromarray(picture(20, 24, seed)) for seed in (1, 2, 3)]
+    frames[1].paste((0, 0, 0), (3, 4, 10, 12))
+    if mode == "P":
+        first = frames[0].quantize(12)
+        frames = [first] + [f.quantize(palette=first) for f in frames[1:]]
+    else:
+        frames = [f.convert(mode) for f in frames]
+    out = io.BytesIO()
+    frames[0].save(out, "PNG", save_all=True, append_images=frames[1:], disposal=disposal,
+                   blend=blend, default_image=default_image, duration=40, **kw)
+    return out.getvalue()
+
+
+def assert_png_as_pillow(raw: bytes):
+    import io
+
+    from PIL import Image
+
+    try:
+        want = np.asarray(Image.open(io.BytesIO(raw)).convert("RGBA"))
+    except Exception:  # noqa: BLE001 - a refusal of Pillow's
+        with pytest.raises((ValueError, NotImplementedError)):
+            png.decode_image_u8(raw)
+        return
+    np.testing.assert_array_equal(png.decode_image_u8(raw), want)
+
+
+# (mode, disposal, blend, default image): Pillow's writer disposes of frames other than by
+# none only in RGB and RGBA ("images do not match"), and writes no "1" default image
+APNG_CASES = [(m, d, b, i) for m in APNG_MODES for d in (0, 1, 2) for b in (0, 1)
+              for i in (False, True) if not (d and m not in ("RGBA", "RGB") or m == "1" and i)]
+
+
+@pytest.mark.parametrize("mode, disposal, blend, default_image", APNG_CASES, ids=str)
+def test_apng_frame_0_matches_pillow(mode, disposal, blend, default_image):
+    """Frame 0 of Pillow's own APNGs, the default image inside the
+    animation (frame 0) or outside it (its own frame 0): dispose and blend
+    ops do not touch frame 0, and load_end stops at frame 1's fcTL."""
+    assert_png_as_pillow(apng_file(mode, default_image, disposal, blend))
+
+
+def png_chunks(raw: bytes) -> list:
+    pos, out = 8, []
+    while pos < len(raw):
+        n = struct.unpack(">I", raw[pos : pos + 4])[0]
+        out.append((raw[pos + 4 : pos + 8], raw[pos + 8 : pos + 8 + n]))
+        pos += 12 + n
+    return out
+
+
+def apng_region(mode: str, actl, region=(10, 8, 5, 3), size=(20, 16), interlace=0) -> bytes:
+    """A PNG whose canvas is `size` and whose image data is frame 0 of
+    `region` (w, h, x, y), named by an fcTL before IDAT, after acTL chunks
+    of the frame counts `actl` (none: no acTL)."""
+    import io
+
+    from PIL import Image
+
+    from tests.test_torch_image_formats import picture
+
+    w, h = region[:2]
+    img = Image.fromarray(picture(h, w, 4))
+    img = img.quantize(8) if mode == "P" else img.convert(mode)
+    out = io.BytesIO()
+    img.save(out, "PNG", interlace=interlace, **({"transparency": 2} if mode == "P" else {}))
+    chunks = png_chunks(out.getvalue())
+    head = [(b"IHDR", struct.pack(">II", *size) + chunks[0][1][8:])]
+    head += [(b"acTL", struct.pack(">II", n, 0)) for n in actl]
+    head += [c for c in chunks[1:] if c[0] not in (b"IDAT", b"IEND")]
+    fctl = struct.pack(">IIIIIHHBB", 0, w, h, region[2], region[3], 1, 10, 0, 0)
+    body = head + [(b"fcTL", fctl)] + [c for c in chunks if c[0] == b"IDAT"] + [(b"IEND", b"")]
+    return png.PNG_SIGNATURE + b"".join(_chunk(c, d) for c, d in body)
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("actl", [(), (1,), (2,), (3, 3), (0,)], ids=str)
+@pytest.mark.parametrize("mode", ["RGBA", "RGB", "P", "L", "LA"])
+def test_apng_frame_0_region_matches_pillow(mode, actl, interlace):
+    """An fcTL before the image data makes frame 0 its region of a zero
+    canvas (Pillow reads any region inside the canvas, with or without an
+    acTL; two acTLs, or a count of 0, make it no animation)."""
+    assert_png_as_pillow(apng_region(mode, actl, interlace=interlace))
+
+
+@pytest.mark.parametrize("case", range(60))
+def test_edited_apngs_match_pillow(case):
+    """Byte edits of Pillow's APNGs (the variants suite's `edit`), 60 drawn
+    from a fixed seed: chunk checks, sequence numbers, cuts after frame 0."""
+    from tests.test_torch_image_formats_variants import EDITS, edit
+
+    rng = np.random.default_rng(case)
+    mode = ["RGBA", "RGB", "L", "P"][case % 4]
+    raw = apng_file(mode, bool(case % 3 == 0), disposal=int(rng.integers(0, 3)) * (case % 4 < 2))
+    kind = EDITS[int(rng.integers(0, len(EDITS)))]
+    assert_png_as_pillow(edit(raw, kind, float(rng.random()), int(rng.integers(0, 2**16))))
+
+
 # ---- OBJ ---------------------------------------------------------------------------
 
 

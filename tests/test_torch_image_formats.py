@@ -1543,7 +1543,7 @@ def breaktime_jpeg_pair():
             replace_glb_images(raw, pngs, "image/png"))
 
 
-MIXED_FORMATS = ["tiff ycbcr planar", "tiff ycbcr lzma predicted", "psd lab", "tiff orientation 6",
+MIXED_FORMATS = ["tiff jpeg ycbcr planar", "tiff lzma kept", "psd lab", "tiff orientation 6",
                  "tiff fill order 2 group 4", "tiff lzma fill order 2"]
 MIXED_MIMES = ["image/tiff", "image/tiff", "image/vnd.adobe.photoshop", "image/tiff", "image/tiff",
                "image/tiff"]
@@ -1555,11 +1555,10 @@ def mixed_texture(img: Image.Image, kind: str) -> bytes:
     from tests import test_torch_image_formats_variants as V
 
     rgb = np.asarray(img.convert("RGB"))
-    if kind == "tiff ycbcr lzma predicted":  # 4:2:0 strips of 64 rows, differenced, LZMA
-        return V.ycbcr_tiff(rgb, (2, 2), "LZMA", rows_per_strip=64, predictor=2)
-    if kind == "tiff ycbcr planar":  # one plane each at 1x1, Deflate with the predictor
-        return write_tiff(np.asarray(img.convert("YCbCr")), 6, compression="Deflate", planar=2,
-                          predictor=2, rows_per_strip=64, tags={530: (3, [1, 1])})
+    if kind == "tiff lzma kept":  # 4:2:0 strips of 64 rows, differenced, LZMA, the last broken
+        return V.lzma_kept_tiff(rgb, 64, predictor=2)
+    if kind == "tiff jpeg ycbcr planar":  # one plane each at 1x1, strips of 64 rows, JPEG
+        return V.planar_jpeg_tiff(rgb, rows_per_strip=64)
     if kind == "psd lab":  # L from the grey, a and b (128 for 0) from colour differences
         planes = np.stack([rgb.mean(-1), (rgb[..., 0].astype(int) - rgb[..., 1]) // 2 + 128,
                            (rgb[..., 1].astype(int) - rgb[..., 2]) // 2 + 128])
@@ -1583,8 +1582,9 @@ def twin_png(raw: bytes) -> bytes:
 
 def breaktime_mixed_pair():
     """BreakTime with its six textures re-encoded (MIXED_FORMATS, in the
-    GLB's image order) as a planar YCbCr TIFF, an LZMA 4:2:0 YCbCr TIFF
-    with the predictor, a Lab PSD, an LZW TIFF of orientation 6, a Group 4
+    GLB's image order) as a JPEG-compressed YCbCr TIFF in planar
+    configuration 2, an LZMA 4:2:0 YCbCr TIFF with the predictor whose last
+    strip liblzma stops in, a Lab PSD, an LZW TIFF of orientation 6, a Group 4
     TIFF of fill order 2 (the 1-bit metallic-roughness map) and an LZMA
     RGB TIFF of fill order 2, and its lossless twin (`twin_png`)."""
     with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
@@ -1940,10 +1940,10 @@ LEGACY_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "formats_legacy")
 BT_LEGACY = "BreakTime-legacy.glb"
 BT_LEGACY_TWIN = "BreakTime-legacy-twin.glb"
 # BreakTime-legacy's textures, in the GLB's image order, with MIME types
-LEGACY_TEXTURES = ["IPTC holding a PNG", "IM RGB", "BLP2 DXT5", "XPM 8-byte keys",
-                   "McIdas 16-bit", "XVThumb"]
+LEGACY_TEXTURES = ["IPTC holding a TIFF", "IM RGB", "BLP2 DXT5", "XPM 8-byte keys",
+                   "McIdas 16-bit", "APNG frame 0"]
 LEGACY_MIMES = ["image/x-iptc", "image/x-im", "image/x-blp", "image/x-xpixmap", "image/x-mcidas",
-                "image/x-xvthumb"]
+                "image/apng"]
 
 
 def im_file(data: bytes, image_type: str, size, lut: bytes = None, extra: bytes = b"",
@@ -2396,8 +2396,12 @@ def legacy_small_fixtures() -> dict:
 
 def legacy_texture(img: Image.Image, kind: str) -> bytes:
     rgb = img.convert("RGB")
-    if kind == "IPTC holding a PNG":  # a grey IPTC image: the PNG's own colours
-        return iptc_file(save(rgb, "PNG"), rgb.size, compression=5)
+    if kind == "IPTC holding a TIFF":  # a grey IPTC image: the LZW TIFF's own colours
+        return iptc_file(save(rgb, "TIFF", compression="tiff_lzw"), rgb.size, compression=5)
+    if kind == "APNG frame 0":  # frame 0 of two, blended over and disposed of to background
+        out = io.BytesIO()
+        rgb.save(out, "PNG", save_all=True, append_images=[rgb.rotate(90)], disposal=1, blend=1)
+        return out.getvalue()
     if kind == "IM RGB":
         return save(rgb, "IM")
     if kind == "BLP2 DXT5":
@@ -2407,15 +2411,15 @@ def legacy_texture(img: Image.Image, kind: str) -> bytes:
         return long_key_xpm(rgb.resize((128, 128)), 256, 8)
     if kind == "McIdas 16-bit":  # grey words below 256 (Pillow clips the rest), a line prefix
         return mcidas_file(np.asarray(rgb.convert("L")), 2, prefix=4, gap=12)
-    return xvthumb_file(rgb332(rgb))  # "XVThumb"
+    raise ValueError(kind)
 
 
 def breaktime_legacy_pair():
     """BreakTime with its six textures re-encoded as LEGACY_TEXTURES names
-    them, in the GLB's image order (an IPTC record holding a PNG, Pillow's
-    IM of the normal map, a BLP2 DXT5, a 128x128 XPM of 8-byte keys, a
-    16-bit McIdas area of the metallic-roughness map, an XV thumbnail of
-    the poster), under LEGACY_MIMES; and its lossless twin: each texture a
+    them, in the GLB's image order (an IPTC record holding an LZW TIFF,
+    Pillow's IM of the normal map, a BLP2 DXT5, a 128x128 XPM of 8-byte
+    keys, a 16-bit McIdas area of the metallic-roughness map, frame 0 of
+    an APNG of the poster), under LEGACY_MIMES; and its lossless twin: each texture a
     PNG of Pillow's decode."""
     with open(os.path.join(SCENES, "BreakTime.glb"), "rb") as f:
         raw = f.read()
@@ -2503,7 +2507,7 @@ def test_committed_breaktime_mixed_pair():
     assert [f[:4] for f in files] == [b"II*\x00"] * 2 + [b"8BPS"] + [b"II*\x00"] * 3
     assert struct.unpack_from(">H", files[2], 24)[0] == 9  # Lab
     tags = [Image.open(io.BytesIO(files[i])).tag_v2 for i in (0, 1, 3, 4, 5)]
-    assert [(t[259], t[262]) for t in tags] == [(8, 6), (34925, 6), (5, 2), (4, 1), (34925, 2)]
+    assert [(t[259], t[262]) for t in tags] == [(7, 6), (34925, 6), (5, 2), (4, 1), (34925, 2)]
     assert tags[1][530] == (2, 2) and tags[1][317] == 2 and tags[0][284] == 2
     assert tags[2][274] == 6 and tags[3][266] == 2 and tags[4][266] == 2 and tags[4][317] == 2
     doc, _ = read_glb(fixture(scene["mixed"]))

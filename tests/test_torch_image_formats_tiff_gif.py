@@ -26,6 +26,7 @@ from PIL import Image
 from rustic_tpu_torch.utils.png import decode_image_u8
 from tests.test_torch_image_formats import (assert_pillow_equal, gif_raw, picture, pillow,
                                             pillow_modes, rgba, save, write_tiff)
+from tests.test_torch_image_formats_variants import planar_jpeg_tiff
 
 # ---- GIF ------------------------------------------------------------------------------------
 
@@ -228,6 +229,8 @@ TIFF_READ_NOW = {
     "LZMA-compressed": lambda: write_tiff(picture(4, 5, 1), 2, compression="LZMA"),
     "bit-reversed fill order": lambda: write_tiff(picture(4, 5, 2), 2, fill_order=2),
     "orientation 6": lambda: write_tiff(picture(4, 5, 3), 2, tags={274: (3, [6])}),
+    "JPEG-compressed YCbCr in planar configuration 2": lambda: planar_jpeg_tiff(
+        picture(9, 11, 4), rows_per_strip=4),
 }
 
 
@@ -244,8 +247,6 @@ TIFF_REFUSALS = {
     "BigTIFF": lambda: save(pillow_modes(4, 4)["RGB"], "TIFF", big_tiff=True),
     "CIELab in planar configuration 2": lambda: write_tiff(np.zeros((4, 4, 3), np.uint8), 8,
                                                            compression="LZW", planar=2),
-    "JPEG-compressed YCbCr in planar configuration 2": lambda: write_tiff(
-        np.zeros((4, 4, 3), np.uint8), 6, planar=2, tags={259: (3, [7])}),
     "old-style LZW": old_style_lzw,
     "floating-point predictor": lambda: rgb_tiff(compression="Deflate", tags={317: (3, [3])}),
     "horizontal predictor with no compression": lambda: rgb_tiff(predictor=2),

@@ -40,6 +40,7 @@ _classic.py and _legacy.py (`--fuzz N SEED` in each).
 
 import io
 import json
+import lzma
 import os
 import struct
 import zlib
@@ -1053,6 +1054,106 @@ def test_edited_lzma_strips_decode_as_libtiff_reads_them(kind, where, value):
     assert_as_pillow(edit(raw, kind, where, value, strip_span(raw)))
 
 
+def xz_streams() -> dict:
+    """.xz streams of Python's lzma (the same liblzma as libtiff's codec)
+    that reach every part of csrc/image_entropy.cpp `xz_strip`: literals,
+    matches and reps under each lc/lp/pb, several LZMA2 chunks (over 2 MiB
+    of output, 64 KiB of input), uncompressed chunks (data that does not
+    compress), each check kind, and a dictionary of 4 KiB."""
+    rng = np.random.default_rng(7)
+    runs = (np.arange(300_000) // 7 % 11).astype(np.uint8).tobytes()
+    noise = rng.integers(0, 256, 150_000, dtype=np.uint8).tobytes()
+    text = b"".join(b"row %d of the strip; " % (i * i % 97) for i in range(4000))
+    out = {}
+    for name, data in (("runs", runs), ("noise", noise), ("text", text),
+                       ("mixed", text[:20_000] + noise[:70_000] + runs[:90_000]),
+                       ("one byte", b"\x07"), ("small", text[:300])):
+        out[name] = (data, lzma.compress(data, format=lzma.FORMAT_XZ))
+    for lc, lp, pb in ((0, 0, 0), (4, 0, 2), (1, 3, 4), (0, 4, 1)):
+        f = [{"id": lzma.FILTER_LZMA2, "preset": 1, "lc": lc, "lp": lp, "pb": pb}]
+        out[f"lc{lc} lp{lp} pb{pb}"] = (text, lzma.compress(text, lzma.FORMAT_XZ, filters=f))
+    for check in (lzma.CHECK_NONE, lzma.CHECK_CRC32, lzma.CHECK_SHA256):
+        out[f"check {check}"] = (text[:5000], lzma.compress(text[:5000], lzma.FORMAT_XZ, check))
+    f = [{"id": lzma.FILTER_LZMA2, "dict_size": 4096}]
+    out["4 KiB dictionary"] = (text, lzma.compress(text, lzma.FORMAT_XZ, filters=f))
+    out["two chunks, empty output"] = (b"", lzma.compress(b"", format=lzma.FORMAT_XZ))
+    return out
+
+
+@pytest.mark.parametrize("name", list(xz_streams()))
+def test_xz_strip_decodes_every_clean_stream_as_python_lzma(name):
+    """The port's LZMA2 decoder against Python's lzma on whole streams: the
+    same bytes, and no more than the strip's (a size cut anywhere in)."""
+    data, xz_stream = xz_streams()[name]
+    assert tiff_mod._unxz(xz_stream, len(data)) == data
+    if len(data) > 2:
+        cut = len(data) * 2 // 3
+        assert tiff_mod._unxz(xz_stream, cut) == data[:cut]
+
+
+def lzma_ycbcr() -> bytes:
+    rgb = np.random.default_rng(1).integers(0, 256, (16, 20, 3)).astype(np.uint8)
+    return ycbcr_tiff(rgb, (1, 1), "LZMA")
+
+
+# edits of an LZMA strip that liblzma finds corrupt after writing some of the strip's bytes:
+# libtiff keeps them and TIFFRGBAImage puts the strip; Python's lzma dropped the bytes of the
+# call that failed, so the port read them short (found by a fuzz of lzma_ycbcr)
+KEPT_BEFORE_ERROR = [("byte", 0.929205516160431, 29348), ("byte", 0.7774686433301689, 37141),
+                     ("zero", 0.8964059679926287, 53666), ("flip", 0.8802131913296977, 65181),
+                     ("flip", 0.8861147408234264, 21152), ("zero", 0.9675338545077754, 57794),
+                     ("flip", 0.6565250824196842, 22296)]
+
+
+@pytest.mark.parametrize("kind, where, value", KEPT_BEFORE_ERROR, ids=str)
+def test_lzma_strips_keep_what_liblzma_wrote_before_its_error(kind, where, value):
+    raw = lzma_ycbcr()
+    edited = edit(raw, kind, where, value, strip_span(raw))
+    assert not isinstance(outcome(edited), Exception)  # Pillow puts the strip
+    assert_as_pillow(edited)
+
+
+def planar_jpeg_tiff(rgb: np.ndarray, sub=(1, 1), rows_per_strip: int = None,
+                     quality: int = 90) -> bytes:
+    """A JPEG-compressed YCbCr TIFF in planar configuration 2: each strip
+    of each plane (Pillow's YCbCr of `rgb`) a one-component JPEG of
+    Pillow's encoder; YCbCrSubsampling `sub` (None: no tag, libtiff's 2x2)."""
+    h, w = rgb.shape[:2]
+    ycc = np.asarray(Image.fromarray(rgb).convert("YCbCr"))
+    rps = rows_per_strip or h
+    streams = [save(Image.fromarray(np.ascontiguousarray(ycc[y : y + rps, :, c])), "JPEG",
+                    quality=quality) for c in range(3) for y in range(0, h, rps)]
+    tags = {258: (3, [8, 8, 8]), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]), 284: (3, [2]),
+            278: (4, [rps])}
+    if sub is not None:
+        tags[530] = (3, list(sub))
+    return ifd_tiff(w, h, streams, tags)
+
+
+@pytest.mark.parametrize("sub", [(1, 1), (2, 2), (2, 1), None], ids=str)
+@pytest.mark.parametrize("rps", [4, 9, 64])
+def test_planar_jpeg_ycbcr_matches_pillow(sub, rps):
+    """libtiff takes each plane's one JPEG component as it is (it converts
+    colour only in planar configuration 1) and puts the planes through
+    TIFFRGBAImage's putseparate8bitYCbCr11tile: 1x1 only, other
+    subsamplings refused as libtiff refuses them."""
+    assert_as_pillow(planar_jpeg_tiff(picture(19, 23, 3), sub, rps, quality=75))
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(kind=st.sampled_from(EDITS), where=st.floats(0, 1), value=st.integers(0, 2**16),
+       rps=st.sampled_from([8, 32]))
+def test_edited_planar_jpeg_ycbcr_strips_match_pillow(kind, where, value, rps):
+    """A plane's strip the codec fails on leaves that plane's buffer as it
+    was (stoponerr 0), except the first read: libtiff allocates its
+    buffer only after JPEGPreDecode, so a header it fails on there ends the
+    decode."""
+    raw = planar_jpeg_tiff(picture(20, 28, 5), rows_per_strip=rps)
+    edited = edit(raw, kind, where, value, strip_span(raw))
+    if not rows_left_unwritten(edited):
+        assert_as_pillow(edited)
+
+
 @pytest.mark.parametrize("extra", [0, 200])
 def test_deflate_strips_are_inflated_no_further_than_their_rows(extra):
     """libtiff's ZIPDecode stops once the strip's bytes are out: a stream
@@ -1283,6 +1384,53 @@ def fixture_files() -> dict:
                                                                             43), 2)], True),
                                           "webp animated"),
         **later_fixture_files(rgb),
+        **repaired_fixture_files(rgb),
+    }
+
+
+def lzma_kept_tiff(rgb: np.ndarray, rows_per_strip: int = None, predictor: int = 1,
+                   at: float = 0.125) -> bytes:
+    """An LZMA YCbCr TIFF (4:2:0) whose last strip has one bit flipped at
+    `at` of its data: liblzma stops after writing part of the strip, which
+    libtiff keeps and TIFFRGBAImage puts."""
+    raw = bytearray(ycbcr_tiff(rgb, (2, 2), "LZMA", rows_per_strip=rows_per_strip,
+                               predictor=predictor))
+    tags = Image.open(io.BytesIO(bytes(raw))).tag_v2
+    off, count = tags[273][-1], tags[279][-1]
+    raw[off + int(count * at)] ^= 1
+    return bytes(raw)
+
+
+def repaired_fixture_files(rgb: np.ndarray) -> dict:
+    """The kinds the port read after: JPEG-compressed YCbCr TIFF in planar
+    configuration 2, LZMA strips liblzma stops in, IPTC records holding
+    files of the formats once refused inside them, APNG frame 0 (of the
+    picture's top-left 24 x 32)."""
+    from tests.test_torch_formats import apng_file, apng_region
+    from tests.test_torch_image_formats_legacy import iptc_inside_files
+
+    rgb = rgb[:24, :32]
+    inside = iptc_inside_files()
+    planar, kept = "tiff jpeg ycbcr planar", "tiff lzma kept"
+    return {
+        "tiff-jpeg-ycbcr-planar.tif": (planar_jpeg_tiff(rgb, rows_per_strip=8), planar),
+        "tiff-jpeg-ycbcr-planar-one-strip.tif": (planar_jpeg_tiff(rgb, quality=60), planar),
+        "tiff-lzma-kept.tif": (edit(lzma_ycbcr(), *KEPT_BEFORE_ERROR[0], strip_span(lzma_ycbcr())),
+                               kept),
+        "tiff-lzma-kept-flip.tif": (edit(lzma_ycbcr(), *KEPT_BEFORE_ERROR[3],
+                                         strip_span(lzma_ycbcr())), kept),
+        "iptc-tiff-p-band.iim": (iptc_file(inside["TIFF P"], (13, 9), 3, 1, band=1, compression=5),
+                              "iptc once refused"),
+        "iptc-psd-cmyk.iim": (iptc_file(inside["PSD CMYK"], (13, 9), compression=5),
+                              "iptc once refused"),
+        "iptc-xpm-none.iim": (iptc_file(inside["XPM with an unused None"], (13, 9),
+                                        compression=5),
+                              "iptc once refused"),
+        "iptc-mcidas-16-band.iim": (iptc_file(inside["MCIDAS 16"], (13, 9), 3, 1, band=1,
+                                              compression=5), "iptc once refused"),
+        "apng-frame0-region.png": (apng_region("P", (2,)), "apng"),
+        "apng-default-image.png": (apng_file("RGBA", True, 2, 1), "apng"),
+        "apng-dispose-blend.png": (apng_file("RGB", False, 1, 1), "apng"),
     }
 
 
