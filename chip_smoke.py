@@ -30,13 +30,15 @@ torchrun) at the headline configuration; and the image decoders
 vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
 sgi.py, im.py, iptc.py, pcd.py, spider.py, blp.py, fits.py, fli.py,
 ftex.py, gbr.py, icns.py, mcidas.py, msp.py, pixar.py, sun.py, xbm.py,
-xpm.py, xvthumb.py, exr.py, and avif.py down to the AV1 tile data) on the
+xpm.py, xvthumb.py, exr.py, and avif.py with csrc/av1_intra.cpp, the AV1
+tile decoder of lossless key frames) on the
 fixtures of tests/data_torch/formats, formats_dds_psd, formats_classic,
 formats_legacy, formats_jpeg, formats_variants and formats_avif, then
 BreakTime with JPEG textures, with TIFF and Lab PSD textures, with JPEG 2000 textures, with DDS and PSD textures, with
 PPM, QOI, SGI, PCX, ICO and DCX textures, with IPTC, IM, BLP, XPM,
-McIdas and APNG textures, and
-with CMYK, YCCK, arithmetic-coded, lossless and repaired JPEG textures,
+McIdas and APNG textures,
+with CMYK, YCCK, arithmetic-coded, lossless and repaired JPEG textures, and
+with lossless AVIF textures (palette, intra block copy, 2x2 tiles),
 under an OpenEXR sky through the grid form of the kernel-shade loop
 (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
@@ -395,8 +397,12 @@ Phases, each of which must pass (the first that fails ends the run):
      timed in turns with the committed 1024x1024 4:2:0 Huffman photo, best
      of 5 each, beside it and as a ratio to it), and on
      BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's,
-     BreakTime-classic's, BreakTime-legacy's and BreakTime-JPEG-ext's
-     256x256 textures (best of 3). BreakTime-JPEG (each
+     BreakTime-classic's, BreakTime-legacy's, BreakTime-JPEG-ext's and
+     BreakTime-AVIF's 256x256 textures (best of 3); AVIF's fixtures as the
+     `avif` part of the phase holds them (each lossless file's planes equal
+     to dav1d's, its RGBA to Pillow's, the lossy ones refused by name; the
+     lossless decode of BreakTime-AVIF's textures timed in turns with the
+     photo). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
      BreakTime-mixed (a JPEG-compressed planar YCbCr TIFF, an LZMA 4:2:0
@@ -414,7 +420,9 @@ Phases, each of which must pass (the first that fails ends the run):
      frame 0 of an APNG; the EXR sky) and BreakTime-JPEG-ext (a
      CMYK, a YCCK, an arithmetic-coded progressive with restarts, a
      lossless, a baseline with junk before a marker and a dropped RST, an
-     arithmetic-coded sequential JPEG; the EXR sky), each with its twin (PNGs of Pillow's
+     arithmetic-coded sequential JPEG; the EXR sky) and BreakTime-AVIF (six
+     lossless AVIFs: 4:4:4 and 4:2:0, one of 2x2 tiles, two with palette
+     and intra block copy; the EXR sky), each with its twin (PNGs of Pillow's
      decodes, the EXR sky), through load_scene on the card: the load
      split into decode, atlas and the rest; a twin's decoded textures
      equal, array by array, to its partner's, which lets the twin take
@@ -423,8 +431,8 @@ Phases, each of which must pass (the first that fails ends the run):
      equal to the twin's. NEE+MIS, 4 bounces, through the default loop
      (kernel-shade, grid scans), a warm-up each, then two renders each in
      turns: BreakTime-JPEG, BreakTime-mixed, BreakTime-J2K,
-     BreakTime-classic, BreakTime-legacy, BreakTime-JPEG-ext and their
-     twins at FORMATS_CUT_W x FORMATS_CUT_H x
+     BreakTime-classic, BreakTime-legacy, BreakTime-JPEG-ext,
+     BreakTime-AVIF and their twins at FORMATS_CUT_W x FORMATS_CUT_H x
      32 spp, BreakTime-DDS and its
      twin at 1920x1080 x 32 spp (Mpaths/s beside phase 16's PNG
      BreakTime); launch counts of the grid path (at 1920x1080: K9 2, K10
@@ -659,8 +667,10 @@ FORMATS_LEGACY = "tests/data_torch/formats_legacy"  # IM ... XPM: Pillow's other
 FORMATS_JPEG = "tests/data_torch/formats_jpeg"  # CMYK, YCCK, arithmetic, lossless, repaired JPEGs
 FORMATS_VARIANTS = "tests/data_torch/formats_variants"  # RLE/16-bit BMP, fax/JPEG/YCbCr TIFF...
 FORMATS_AVIF = "tests/data_torch/formats_avif"  # AVIF files, their headers' records, dav1d's planes
+PHOTO_AVIF = "photo-1024-q50-420.avif"  # its 1024^2 photo: the colour stage's timing
 VARIANT_TURNS = 5  # phase 34 times each formats_variants kind in turns with the 1024^2 photo
-# phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy, -JPEG-ext and their twins at
+# phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy, -JPEG-ext, -AVIF and their
+# twins at
 # this cut of the frame (BT_SPP spp), BreakTime-DDS and its twin at BT_W x BT_H
 FORMATS_CUT_W, FORMATS_CUT_H = 960, 540
 # the formats whose decoders the legacy fixtures time, each under its own name
@@ -4089,24 +4099,43 @@ class Smoke:
         to the committed record and to dav1d's parse of the same payloads
         (CodedLossless on the quality-100 files), the colour stage on
         dav1d's committed planes equal to Pillow's RGBA (the odd-sized 4:2:0
-        and 4:2:2 fixtures among them), the tile data refused by name;
-        then, in turns with the 1024^2 Huffman photo (best of
+        and 4:2:2 fixtures among them); each lossless file's payloads
+        decoded by the AV1 tile decoder (csrc/av1_intra.cpp) to dav1d's
+        planes, plane for plane (arrays, or sha256 for the 256^2 files), and
+        through decode_image_u8 to Pillow's RGBA; lossy tile data refused
+        by name; then, in turns with the 1024^2 Huffman photo (best of
         VARIANT_TURNS), the colour stage at 4:2:0 (the 1024^2 photo's dav1d
-        planes) and at 4:4:4 (the same chroma repeated to full size), and
-        the LZMA2 decoder (csrc/image_entropy.cpp `xz_strip`) on an .xz
-        stream of the photo's decoded RGBA bytes, in ms per megapixel."""
+        planes) and at 4:4:4 (the same chroma repeated to full size), the
+        lossless decode of BreakTime-AVIF's six textures, and the LZMA2
+        decoder (csrc/image_entropy.cpp `xz_strip`) on an .xz stream of the
+        photo's decoded RGBA bytes, in ms per megapixel."""
         import hashlib
         import os
 
         import numpy as np
 
+        from rustic_tpu_torch.utils import _entropy
         from rustic_tpu_torch.utils import avif as avif_mod
         from rustic_tpu_torch.utils import tiff as tiff_mod
         from rustic_tpu_torch.utils.png import decode_image_u8, image_format
 
+        def sha(a):
+            return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+        def matches(entry, rgba):
+            """Equal to Pillow's committed RGBA (.rgba.npy or its sha256)."""
+            if "expect" in entry:
+                return np.array_equal(rgba, np.load(os.path.join(FORMATS_AVIF, entry["expect"])))
+            return list(rgba.shape) == entry["shape"] and sha(rgba) == entry["sha256"]
+
+        t0 = time.perf_counter()
+        _entropy.av1_library()  # built before any decode is timed
+        log(f"csrc/av1_intra.cpp (the AV1 tile decoder of lossless AVIF) built by g++ or loaded "
+            f"in {time.perf_counter() - t0:.2f} s")
         with open(os.path.join(FORMATS_AVIF, "manifest.json")) as f:
-            entries = json.load(f)["images"]
-        photo_planes = None
+            avif_manifest = json.load(f)
+        entries = avif_manifest["images"]
+        photo_planes, n_lossless = None, 0
         t0 = time.perf_counter()
         for entry in entries:
             with open(os.path.join(FORMATS_AVIF, entry["file"]), "rb") as f:
@@ -4128,13 +4157,33 @@ class Smoke:
             frames = [record[k] for k in ("colour", "alpha") if k in record]
             if all(f["frame"]["coded_lossless"] for f in frames) != entry["lossless"]:
                 self.fail(f"{entry['file']}: CodedLossless is not its record's")
-            kind = "lossless" if entry["lossless"] else "lossy"
-            try:
-                decode_image_u8(raw, entry["file"])
-                self.fail(f"{entry['file']}: the tile data was not refused")
-            except NotImplementedError as e:
-                if f"AVIF AV1 tile data ({kind})" not in str(e):
-                    self.fail(f"{entry['file']}: refused otherwise: {e}")
+            if entry["lossless"]:  # the tile decoder: dav1d's planes, then Pillow's RGBA
+                n_lossless += 1
+                parsed = avif_mod.headers(raw, h)
+                for name in ("colour", "alpha"):
+                    for payload, p in zip(getattr(h, name), parsed[name]):
+                        got, _ = avif_mod.decode_av1(avif_mod._payload(raw, h.idat, payload), p)
+                        got = dict(got) if name == "colour" else {"a": got["y"]}
+                        if "planes" in entry:
+                            with np.load(os.path.join(FORMATS_AVIF, entry["planes"])) as z:
+                                ok = all(np.array_equal(v, z[k]) for k, v in got.items())
+                        else:
+                            ok = all([list(v.shape), sha(v)] == entry["planes_sha256"][k]
+                                     for k, v in got.items())
+                        if not ok:
+                            self.fail(f"{entry['file']}: the {name} planes differ from dav1d's")
+                rgba = decode_image_u8(raw, entry["file"])
+                if not matches(entry, rgba):
+                    self.fail(f"{entry['file']}: the decode differs from Pillow's RGBA")
+            else:
+                try:
+                    decode_image_u8(raw, entry["file"])
+                    self.fail(f"{entry['file']}: the lossy tile data was not refused")
+                except NotImplementedError as e:
+                    if "AVIF AV1 tile data (lossy)" not in str(e):
+                        self.fail(f"{entry['file']}: refused otherwise: {e}")
+            if "planes" not in entry:
+                continue
             with np.load(os.path.join(FORMATS_AVIF, entry["planes"])) as z:
                 planes = {k: z[k] for k in z.files}
             full, matrix, primaries = avif_mod.colour_description(raw, h)
@@ -4142,17 +4191,14 @@ class Smoke:
                                         planes.get("a"), full_range=bool(full), matrix=matrix,
                                         primaries=primaries,
                                         premultiplied=bool(planes["colour"][6]))
-            if "expect" in entry:
-                ok = np.array_equal(rgba, np.load(os.path.join(FORMATS_AVIF, entry["expect"])))
-            else:
+            if entry["file"] == PHOTO_AVIF:
                 photo_planes = planes
-                ok = (list(rgba.shape) == entry["shape"] and entry["sha256"]
-                      == hashlib.sha256(np.ascontiguousarray(rgba).tobytes()).hexdigest())
-            if not ok:
+            if not matches(entry, rgba):
                 self.fail(f"{entry['file']}: the colour stage differs from Pillow's RGBA")
         log(f"{len(entries)} AVIF fixtures: headers as Pillow's, AV1 headers as recorded and "
-            f"as dav1d parses them, the "
-            f"colour stage equal to Pillow's RGBA, the tile data refused by name "
+            f"as dav1d parses them, the colour stage on dav1d's planes equal to Pillow's RGBA; "
+            f"{n_lossless} lossless files decoded (csrc/av1_intra.cpp) to dav1d's planes and "
+            f"Pillow's RGBA, the lossy tile data refused by name "
             f"({time.perf_counter() - t0:.2f} s)")
         y, u, v = photo_planes["y"], photo_planes["u"], photo_planes["v"]
         u444, v444 = (np.repeat(np.repeat(c, 2, 0), 2, 1)[: y.shape[0], : y.shape[1]]
@@ -4170,6 +4216,13 @@ class Smoke:
                                                                         full_range=True)}
         if stream is not None:
             jobs["tiff lzma2 decoder (xz_strip)"] = lambda: tiff_mod._unxz(stream, len(rgba))
+        textures = []  # BreakTime-AVIF's six lossless textures, 256^2 each
+        for name in avif_manifest["scene"]["textures"]:
+            with open(os.path.join(FORMATS_AVIF, name), "rb") as f:
+                textures.append((name, f.read()))
+        jobs["avif lossless decode (BreakTime-AVIF's six textures)"] = lambda: [
+            decode_image_u8(raw, name) for name, raw in textures]
+        pixels = {"avif lossless decode (BreakTime-AVIF's six textures)": 6 * 256 * 256}
         best = {k: float("inf") for k in jobs}
         best_photo = float("inf")
         for _ in range(VARIANT_TURNS):
@@ -4184,10 +4237,10 @@ class Smoke:
             self.fail("the LZMA2 decoder does not give back the photo's bytes")
         photo_ms = best_photo * 1e3 / (1024 * 1024 / 1e6)
         for k, sec in best.items():
-            ms = sec * 1e3 / mp
-            log(f"{k} in turns with the 1024^2 Huffman photo (1024x1024, best of "
-                f"{VARIANT_TURNS}): {ms:.1f} ms per megapixel, the photo {photo_ms:.1f} ms per "
-                f"megapixel, ratio {ms / photo_ms:.2f} (host CPU)")
+            ms = sec * 1e3 / (pixels.get(k, y.size) / 1e6)
+            log(f"{k} in turns with the 1024^2 Huffman photo (best of {VARIANT_TURNS}): "
+                f"{ms:.1f} ms per megapixel, the photo {photo_ms:.1f} ms per megapixel, ratio "
+                f"{ms / photo_ms:.2f} (host CPU)")
         if stream is None:
             log("tiff lzma2 decoder: not measured (this Python has no lzma module to write the "
                 "stream with)")
@@ -4208,11 +4261,13 @@ class Smoke:
         and DCX textures, EXR sky), BreakTime-legacy (IPTC holding a TIFF,
         IM, BLP, long-key XPM, McIdas and APNG textures, EXR sky),
         BreakTime-JPEG-ext (CMYK, YCCK, arithmetic-coded, lossless and
-        repaired JPEG textures, EXR sky) and
+        repaired JPEG textures, EXR sky), BreakTime-AVIF (lossless AVIF
+        textures: 4:4:4 and 4:2:0, 2x2 tiles, palette and intra block copy;
+        EXR sky) and
         their lossless twins loaded
         on the card (the load split; a twin takes its partner's packed
         atlas once its decoded textures are found equal to the partner's),
-        each SceneTensors equal to its twin's, and all fourteen rendered at 32 spp
+        each SceneTensors equal to its twin's, and all sixteen rendered at 32 spp
         in turns through the default loop (the DDS pair at 1920x1080, the
         others at the FORMATS_CUT frame): launch counts of the grid path,
         each film equal bit for bit to its twin's."""
@@ -4362,20 +4417,24 @@ class Smoke:
                 f"photo {photo_ms:.1f} ms per megapixel, ratio {kind_ms / photo_ms:.2f} "
                 "(host CPU)")
         self.avif(photo)
+        scenes_of = {folder: m.get("scene", {}) for folder, m in manifests.items()}
+        with open(os.path.join(FORMATS_AVIF, "manifest.json")) as f:
+            scenes_of[FORMATS_AVIF] = json.load(f)["scene"]
         # each BreakTime's six textures (256x256; the XPM 128x128), each decoded 3 times: the best
         for folder, scene_key, label in ((FORMATS, "mixed", "BreakTime-mixed"),
                                          (FORMATS, "j2k", "BreakTime-J2K"),
                                          (FORMATS_DDS_PSD, "dds", "BreakTime-DDS"),
                                          (FORMATS_CLASSIC, "classic", "BreakTime-classic"),
                                          (FORMATS_LEGACY, "legacy", "BreakTime-legacy"),
-                                         (FORMATS_JPEG, "ext", "BreakTime-JPEG-ext")):
-            with open(os.path.join(folder, manifests[folder]["scene"][scene_key]), "rb") as f:
+                                         (FORMATS_JPEG, "ext", "BreakTime-JPEG-ext"),
+                                         (FORMATS_AVIF, "breaktime", "BreakTime-AVIF")):
+            with open(os.path.join(folder, scenes_of[folder][scene_key]), "rb") as f:
                 glb = f.read()
             (json_len,) = struct.unpack("<I", glb[12:16])
             doc = json.loads(glb[20 : 20 + json_len])
             blob = glb[28 + json_len :]
             texture_rates = {}
-            kinds = manifests[folder]["scene"].get(scene_key + "_kinds")
+            kinds = scenes_of[folder].get(scene_key + "_kinds")
             for i, img in enumerate(doc["images"]):
                 view = doc["bufferViews"][img["bufferView"]]
                 start = view.get("byteOffset", 0)
@@ -4442,11 +4501,13 @@ class Smoke:
         classic_scene = manifests[FORMATS_CLASSIC]["scene"]
         legacy_scene = manifests[FORMATS_LEGACY]["scene"]
         jpeg_scene = manifests[FORMATS_JPEG]["scene"]
+        avif_scene = scenes_of[FORMATS_AVIF]
         pairs = (("JPEG + EXR", "twin (PNG + .npy)"), ("mixed + EXR", "mixed twin (PNG + EXR)"),
                  ("J2K + EXR", "J2K twin (PNG + EXR)"), ("DDS + EXR", "DDS twin (PNG + EXR)"),
                  ("classic + EXR", "classic twin (PNG + EXR)"),
                  ("legacy + EXR", "legacy twin (PNG + EXR)"),
-                 ("JPEG-ext + EXR", "JPEG-ext twin (PNG + EXR)"))
+                 ("JPEG-ext + EXR", "JPEG-ext twin (PNG + EXR)"),
+                 ("AVIF + EXR", "AVIF twin (PNG + EXR)"))
         with tempfile.TemporaryDirectory() as tmp:
             np.save(os.path.join(tmp, "sky.npy"), half)
             for name, (folder, glb), sky_file in (
@@ -4468,7 +4529,9 @@ class Smoke:
                      sky_path),
                     ("JPEG-ext + EXR", (FORMATS_JPEG, jpeg_scene["ext"]), sky_path),
                     ("JPEG-ext twin (PNG + EXR)", (FORMATS_JPEG, jpeg_scene["ext_twin"]),
-                     sky_path)):
+                     sky_path),
+                    ("AVIF + EXR", (FORMATS_AVIF, avif_scene["breaktime"]), sky_path),
+                    ("AVIF twin (PNG + EXR)", (FORMATS_AVIF, avif_scene["twin"]), sky_path)):
                 split = {"decode": 0.0, "atlas": 0.0, "reused": False}
                 gltf_mod.decode_image_rgba = timed(real_decode, "decode", split)
                 world_mod.read_exr = timed(real_exr, "decode", split)

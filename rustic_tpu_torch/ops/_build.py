@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -90,8 +91,9 @@ HOST_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 def compile_host(src: str) -> str:
     """Compile the host C++ source `src` with g++ and HOST_FLAGS into
     build/lib<stem>-<hash>.so unless that library is current: the hash
-    covers the source, the flags and the target that -march=native names
-    on this host (a checkout copied to another machine builds anew).
+    covers the source, the headers it includes with quotes, the flags and
+    the target that -march=native names on this host (a checkout copied to
+    another machine builds anew).
     Returns the library path; raises RuntimeError with the compiler's
     message when g++ is missing or fails."""
     gxx = shutil.which("g++")
@@ -103,7 +105,11 @@ def compile_host(src: str) -> str:
                             os.devnull], capture_output=True, text=True)
     h = hashlib.sha256()
     with open(src, "rb") as f:
-        h.update(f.read())
+        source = f.read()
+    h.update(source)
+    for name in re.findall(rb'#include "([^"]+)"', source):  # the headers beside it
+        with open(os.path.join(os.path.dirname(src), name.decode()), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(HOST_FLAGS).encode())
     h.update("".join(ln for ln in probe.stderr.splitlines() if "cc1" in ln).encode())
     return _compile(src, h.hexdigest(), [gxx, *HOST_FLAGS], "g++")

@@ -2,8 +2,9 @@
 loops, the QOI op loop, the FLI, SUN, ICNS and MSP run-length loops and
 IM's n-bit samples, the JPEG decoder's entropy loops, the CCITT fax rows
 and the .xz / LZMA2 strips of TIFF and the BMP RLE8 / RLE4 loop (csrc/image_entropy.cpp), the JPEG 2000 tier-1 decoder
-(csrc/jpeg2000_t1.cpp), and the BC6H / BC7 blocks of the DDS decoder and
-the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), each built by g++
+(csrc/jpeg2000_t1.cpp), the BC6H / BC7 blocks of the DDS decoder and
+the PackBits rows of the PSD decoder (csrc/bcn_decode.cpp), and the AV1
+tile decoder of AVIF's lossless key frames (csrc/av1_intra.cpp), each built by g++
 at first use (ops/_build.py `compile_host`; a missing or failing g++
 raises with the compiler's message) and loaded with ctypes."""
 
@@ -69,6 +70,16 @@ def bcn_library() -> ctypes.CDLL:
     lib.bcn_blocks.argtypes = [p, i64, ctypes.c_int, p]
     lib.packbits_rows.restype = i64
     lib.packbits_rows.argtypes = [p, i64, i64, i64, p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def av1_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build.compile_host(os.path.join(_build.CSRC, "av1_intra.cpp")))
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.av1_decode_tiles.restype = i32
+    lib.av1_decode_tiles.argtypes = [p, i64, p, p, i32, p, p, p, p, ctypes.c_char_p, i32]
+    lib.av1_counter_count.restype = i32
     return lib
 
 

@@ -1,5 +1,6 @@
 """AVIF as Pillow 12.1.0 opens it (PIL/AvifImagePlugin.py over its
-bundled libavif 1.3.0 with dav1d 1.5.1), down to the AV1 tile data.
+bundled libavif 1.3.0 with dav1d 1.5.1): lossless key frames decoded,
+lossy tile data refused by name.
 
 Identification is Pillow's `_accept`: "ftyp" at bytes 4-8 and a major
 brand "avif", "avis", "mif1" or "msf1". The header reader `open_avif`
@@ -44,10 +45,13 @@ the payload's), and the key frame's uncompressed_header (frame and render
 size, superres, intrabc, tile_info, quantisation with delta-q and
 segmentation, loop filter, CDEF, loop restoration, tx_mode,
 reduced_tx_set, film grain), checked to end where the tile group's data
-begins; `CodedLossless` follows the AV1 specification. Samples of other
-than 8 bits raise NotImplementedError naming them (nothing here writes
-them), and so does the tile data, "AVIF AV1 tile data (lossless)" or
-"(lossy)".
+begins; `CodedLossless` follows the AV1 specification. The tile data of
+a CodedLossless frame is decoded by `decode_av1` (csrc/av1_intra.cpp, an
+AV1 intra tile decoder held to dav1d 1.5.1's planes; a grid's tiles placed
+as libavif places them); lossy tile data raises NotImplementedError
+naming it ("AVIF AV1 tile data (lossy)"), and so do samples of other than
+8 bits (nothing here writes them) and lossless frames with superres or
+film grain.
 
 `yuv_to_rgba` is libavif's avifImageYUVToRGB as Pillow calls it (8-bit
 RGB, or RGBA where there is alpha, chroma upsampling automatic): where
@@ -61,6 +65,7 @@ out by libyuv's ARGBUnattenuate table as its SIMD rows apply it.
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from typing import NamedTuple
 
@@ -1236,7 +1241,7 @@ def frame_header(b: _Bits, sh: dict, tid: int = 0, sid: int = 0) -> dict:
         raise ValueError(f"AVIF AV1 payload whose first frame is of type {frame_type}, not a key "
                          "frame (dav1d refuses it)")
     fh.update(frame_type=frame_type, show_frame=show_frame, showable=showable)
-    disable_cdf_update = b.f(1)
+    fh["disable_cdf_update"] = disable_cdf_update = b.f(1)
     screen = b.f(1) if sh["screen_content"] == 2 else sh["screen_content"]
     if screen and sh["integer_mv"] == 2:
         b.f(1)
@@ -1274,7 +1279,7 @@ def frame_header(b: _Bits, sh: dict, tid: int = 0, sid: int = 0) -> dict:
     if not (sh["reduced"] or disable_cdf_update):
         b.f(1)  # disable_frame_end_update_cdf
     mi_cols, mi_rows = 2 * ((width + 7) >> 3), 2 * ((height + 7) >> 3)
-    fh["tiles"] = _tile_info(b, sh, mi_cols, mi_rows)
+    fh["tiles"], fh["tile_starts"] = _tile_info(b, sh, mi_cols, mi_rows)
     planes = 1 if sh["mono"] else 3
     q = fh["quant"] = dict(base=b.f(8))
 
@@ -1321,7 +1326,8 @@ def frame_header(b: _Bits, sh: dict, tid: int = 0, sid: int = 0) -> dict:
     return fh
 
 
-def _tile_info(b: _Bits, sh: dict, mi_cols: int, mi_rows: int) -> dict:
+def _tile_info(b: _Bits, sh: dict, mi_cols: int, mi_rows: int):
+    """tile_info() -> (the fields of the record, (MiColStarts, MiRowStarts))."""
     shift = 5 if sh["sb128"] else 4
     sb_cols, sb_rows = (mi_cols + (1 << shift) - 1) >> shift, (mi_rows + (1 << shift) - 1) >> shift
     sb_size = shift + 2
@@ -1334,31 +1340,37 @@ def _tile_info(b: _Bits, sh: dict, mi_cols: int, mi_rows: int) -> dict:
         while cols_log2 < max_cols and b.f(1):
             cols_log2 += 1
         width_sb = (sb_cols + (1 << cols_log2) - 1) >> cols_log2
-        cols = -(-sb_cols // width_sb)
+        col_starts = list(range(0, sb_cols, width_sb))
         rows_log2 = max(min_tiles - cols_log2, 0)
         while rows_log2 < max_rows and b.f(1):
             rows_log2 += 1
         height_sb = (sb_rows + (1 << rows_log2) - 1) >> rows_log2
-        rows = -(-sb_rows // height_sb)
+        row_starts = list(range(0, sb_rows, height_sb))
     else:
-        widest = start = cols = 0
+        widest = start = 0
+        col_starts = []
         while start < sb_cols:
             size = b.ns(min(sb_cols - start, max_width_sb)) + 1
-            widest, start, cols = max(size, widest), start + size, cols + 1
-        cols_log2 = _tile_log2(1, cols)
+            col_starts.append(start)
+            widest, start = max(size, widest), start + size
+        cols_log2 = _tile_log2(1, len(col_starts))
         area = (sb_rows * sb_cols) >> (min_tiles + 1) if min_tiles > 0 else sb_rows * sb_cols
         max_height_sb = max(area // widest, 1)
-        start = rows = 0
+        start = 0
+        row_starts = []
         while start < sb_rows:
+            row_starts.append(start)
             start += b.ns(min(sb_rows - start, max_height_sb)) + 1
-            rows += 1
-        rows_log2 = _tile_log2(1, rows)
+        rows_log2 = _tile_log2(1, len(row_starts))
+    cols, rows = len(col_starts), len(row_starts)
     size_bytes = 4
     if cols_log2 or rows_log2:
         b.f(rows_log2 + cols_log2)  # context_update_tile_id
         size_bytes = b.f(2) + 1
+    starts = ([min(c << shift, mi_cols) for c in col_starts] + [mi_cols],
+              [min(r << shift, mi_rows) for r in row_starts] + [mi_rows])
     return dict(cols=cols, rows=rows, cols_log2=cols_log2, rows_log2=rows_log2,
-                size_bytes=size_bytes)
+                size_bytes=size_bytes), starts
 
 
 _SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
@@ -1443,11 +1455,13 @@ def _film_grain(b: _Bits, sh: dict, shown: bool):
 def parse_av1(data: bytes, config_obus: bytes = b"") -> dict:
     """An AV1 payload -> {"sequence": its sequence header, "frame": the
     first frame's uncompressed header, "tile_data": (start, end) of the
-    tile group that follows}. The sequence header of av1C's configOBUs,
+    tile group that follows, "tile_groups": (start, end) of it and of each
+    tile group OBU after it}. The sequence header of av1C's configOBUs,
     where there are any, must equal the payload's; the frame header must
     end (after its trailing or alignment bits) where the tile group
     starts."""
     seq = frame = tile = None
+    groups = []
     for kind, tid, sid, start, end in obus(data):
         if kind == OBU_SEQUENCE_HEADER:
             seq = _sequence_header(_Bits(data[:end], start))
@@ -1462,12 +1476,14 @@ def parse_av1(data: bytes, config_obus: bytes = b"") -> dict:
                 if any(b.f(1) for _ in range(-b.bit % 8)):
                     raise ValueError("AVIF AV1 frame header's alignment bits are not zero")
                 tile = (header_end, end)
+                groups.append(tile)
             else:
                 if b.f(1) != 1 or any(b.f(1) for _ in range(8 * end - b.bit)):
                     raise ValueError("AVIF AV1 frame header OBU's trailing bits are wrong")
                 tile = None
-        elif kind == OBU_TILE_GROUP and frame is not None and tile is None:
-            tile = (start, end)
+        elif kind == OBU_TILE_GROUP and frame is not None:
+            tile = tile or (start, end)
+            groups.append((start, end))
     if frame is None or tile is None:
         raise ValueError("AVIF AV1 payload without a frame (dav1d: no picture)")
     if config_obus:
@@ -1476,7 +1492,7 @@ def parse_av1(data: bytes, config_obus: bytes = b"") -> dict:
             raise ValueError("AVIF av1C's sequence header differs from the payload's")
     if frame["tiles"]["cols"] * frame["tiles"]["rows"] > 1 and tile[1] <= tile[0]:
         raise ValueError("AVIF AV1 tile group of no data")
-    return dict(sequence=seq, frame=frame, tile_data=tile)
+    return dict(sequence=seq, frame=frame, tile_data=tile, tile_groups=groups)
 
 
 def sequence_header_obu(data: bytes):
@@ -1571,9 +1587,13 @@ def header_record(raw: bytes) -> dict:
 
 
 def decode_avif(raw: bytes, h: Avif = None) -> np.ndarray:
-    """AVIF bytes (or their `open_avif` header): the payloads read and
-    their AV1 headers parsed; the tile data, which the port does not decode
-    yet, raises NotImplementedError naming it."""
+    """AVIF bytes (or their `open_avif` header) -> uint8 [H, W, 4], Pillow's
+    convert("RGBA"): the payloads read, their AV1 headers parsed, the tile
+    data of a CodedLossless frame decoded (`decode_av1`; a grid's tiles
+    placed as libavif places them), then `yuv_to_rgba` with the container's
+    colour description. Lossy tile data raises NotImplementedError naming
+    it, and so do the lossless frames this decoder does not take (superres,
+    film grain)."""
     raw = bytes(raw)
     h = h or open_avif(raw)
     try:
@@ -1585,8 +1605,131 @@ def decode_avif(raw: bytes, h: Avif = None) -> np.ndarray:
     frames = parsed["colour"] + parsed["alpha"]
     if h.depth != 8 or any(f["sequence"]["depth"] != 8 for f in frames):
         _refuse(f"{h.depth}-bit samples")
-    lossless = all(f["frame"]["coded_lossless"] for f in frames)
-    _refuse(f"AV1 tile data ({'lossless' if lossless else 'lossy'})")
+    if not all(f["frame"]["coded_lossless"] for f in frames):
+        _refuse("AV1 tile data (lossy)")
+    for f in frames:
+        if f["frame"]["frame_width"] != f["frame"]["upscaled_width"]:
+            _refuse("AV1 tile data (lossless, superres)")
+        if f["frame"]["film_grain"] is not None:
+            _refuse("AV1 tile data (lossless, film grain)")
+    payloads = {name: [_payload(raw, h.idat, p) for p in getattr(h, name)]
+                for name in ("colour", "alpha")}
+    colour = _placed(h, [decode_av1(d, p)[0] for d, p in zip(payloads["colour"],
+                                                              parsed["colour"])],
+                     parsed["colour"][0]["sequence"])
+    alpha = None
+    if payloads["alpha"]:
+        alpha = _placed(h, [decode_av1(d, p)[0] for d, p in zip(payloads["alpha"],
+                                                                parsed["alpha"])],
+                        parsed["alpha"][0]["sequence"])["y"]
+    full, matrix, primaries = colour_description(raw, h)
+    return yuv_to_rgba(colour["y"], colour.get("u"), colour.get("v"), alpha,
+                       full_range=bool(full), matrix=matrix, primaries=primaries,
+                       premultiplied=h.premultiplied)
+
+
+def _placed(h: Avif, tiles: list, seq: dict) -> dict:
+    """The decoded planes of the payload, or a grid's tiles placed row by
+    row into the output size and cropped to it (libavif's
+    avifDecoderDataFillImageGrid)."""
+    if h.grid is None:
+        return tiles[0]
+    rows, cols, width, height = h.grid
+    th, tw = tiles[0]["y"].shape
+    out = {}
+    for name in tiles[0]:
+        sx, sy = (seq["ssx"], seq["ssy"]) if name != "y" else (0, 0)
+        canvas = np.zeros(((height + sy) >> sy, (width + sx) >> sx), np.uint8)
+        for k, t in enumerate(tiles):
+            r, c = divmod(k, cols)
+            y0, x0 = (r * th) >> sy, (c * tw) >> sx
+            part = t[name][: canvas.shape[0] - y0, : canvas.shape[1] - x0]
+            canvas[y0 : y0 + part.shape[0], x0 : x0 + part.shape[1]] = part
+        out[name] = canvas
+    return out
+
+
+# csrc/av1_intra.cpp's counters: name -> slot (the y and uv modes: 13 and 14 slots)
+AV1_COUNTERS = {"y modes": slice(0, 13), "angle delta": 13, "upsampled edge": 14,
+                "filter intra": 15, "cfl": 16, "palette y": 17, "palette uv": 18, "intrabc": 19,
+                "tiles": 20, "edge filter": 21, "blocks": 22, "padding": 23,
+                "uv modes": slice(24, 38)}
+
+
+def _tiles(data: bytes, parsed: dict) -> list:
+    """tile_group_obu() of the frame's tile groups -> per tile (offset,
+    size, MiRowStart, MiRowEnd, MiColStart, MiColEnd) in `data`."""
+    fh = parsed["frame"]
+    t = fh["tiles"]
+    col_starts, row_starts = fh["tile_starts"]
+    n = t["cols"] * t["rows"]
+    out = []
+    for start, end in parsed["tile_groups"]:
+        b = _Bits(data[:end], start)
+        first, last = 0, n - 1
+        if n > 1 and b.f(1):  # tile_start_and_end_present_flag
+            bits = t["cols_log2"] + t["rows_log2"]
+            first, last = b.f(bits), b.f(bits)
+        if first != len(out) or not first <= last < n:
+            raise ValueError("AVIF AV1 tile group out of order (dav1d refuses it)")
+        pos = (b.bit + 7) >> 3
+        for tile in range(first, last + 1):
+            if tile == last:
+                size = end - pos
+            else:
+                k = t["size_bytes"]
+                size = int.from_bytes(data[pos : pos + k], "little") + 1
+                pos += k
+                if pos + size > end:
+                    raise ValueError("AVIF AV1 tile larger than its tile group (dav1d refuses "
+                                     "it)")
+            row, col = divmod(tile, t["cols"])
+            out.append((pos, size, row_starts[row], row_starts[row + 1], col_starts[col],
+                        col_starts[col + 1]))
+            pos += size
+        if last == n - 1:
+            return out
+    raise ValueError("AVIF AV1 frame whose tile groups end before its last tile (dav1d: no "
+                     "picture)")
+
+
+def decode_av1(data: bytes, parsed: dict = None) -> tuple:
+    """One AV1 payload whose first frame is CodedLossless -> ({"y", and "u",
+    "v" unless 4:0:0: uint8 planes of the frame's size}, {counter: count of
+    the blocks that took each tool}) through csrc/av1_intra.cpp; corrupt
+    tile data raises ValueError."""
+    from rustic_tpu_torch.utils._entropy import av1_library, ptr
+
+    parsed = parsed or parse_av1(data)
+    seq, fh = parsed["sequence"], parsed["frame"]
+    if not fh["coded_lossless"]:
+        _refuse("AV1 tile data (lossy)")
+    seg = fh["segmentation"]
+    features = seg["features"] if seg["enabled"] else [[None] * 8] * 8
+    active = [i for i in range(8) if any(v is not None for v in features[i])]
+    params = np.array([
+        fh["frame_width"], fh["frame_height"], seq["mono"], seq["ssx"], seq["ssy"],
+        seq["sb128"], seq["filter_intra"], seq["intra_edge"], fh["screen_content_tools"],
+        fh["intrabc"], fh["disable_cdf_update"], fh["quant"]["base"], seg["enabled"],
+        any(f[j] is not None for f in features for j in range(5, 8)), max(active, default=0),
+        sum(1 << i for i in range(8) if features[i][6] is not None)], np.int32)
+    tiles = np.array(_tiles(data, parsed), np.int64)
+    width, height = fh["frame_width"], fh["frame_height"]
+    planes = dict(y=np.zeros((height, width), np.uint8))
+    if not seq["mono"]:
+        cw, ch = (width + seq["ssx"]) >> seq["ssx"], (height + seq["ssy"]) >> seq["ssy"]
+        planes["u"] = np.zeros((ch, cw), np.uint8)
+        planes["v"] = np.zeros((ch, cw), np.uint8)
+    lib = av1_library()
+    counters = np.zeros(lib.av1_counter_count(), np.int64)
+    error = ctypes.create_string_buffer(256)
+    buf = np.frombuffer(bytes(data), np.uint8)
+    rc = lib.av1_decode_tiles(ptr(buf), len(buf), ptr(params), ptr(tiles), len(tiles),
+                              ptr(planes["y"]), ptr(planes.get("u")), ptr(planes.get("v")),
+                              ptr(counters), error, len(error))
+    if rc:
+        raise ValueError(f"AVIF {error.value.decode()} (dav1d refuses it)")
+    return planes, {k: counters[v].tolist() for k, v in AV1_COUNTERS.items()}
 
 
 # ---- libavif's YUV -> RGB ------------------------------------------------------------------

@@ -1,0 +1,196 @@
+"""The AV1 tile decoder of AVIF's lossless key frames
+(rustic_tpu_torch/csrc/av1_intra.cpp, through utils/avif.py `decode_av1`)
+against dav1d 1.5.1 and Pillow 12.1.0 (its bundled libavif 1.3.0):
+
+- csrc/av1_tables.h is what tests/av1_cdf_tables.py generates from dav1d's
+  copy of the default CDFs in Pillow's libavif, and every CDF in it equals
+  libaom's copy in the same library too; the specification's other tables
+  the decoder uses are found in libaom's copy;
+- every lossless fixture of tests/data_torch/formats_avif (every layout,
+  odd sizes, alpha, 2x2 tiles, BreakTime's textures with palette and intra
+  block copy) decodes to dav1d's planes, plane for plane, and through
+  decode_image_u8 to Pillow's RGBA;
+- summed over the fixtures, the decoder's counters show every tool it
+  claims: each y mode, angle deltas, upsampled edges, filter intra, CfL,
+  palette (Y and UV), intra block copy and a frame of several tiles;
+- lossless grids and 128x128 superblocks, encoded here, decode to
+  Pillow's pixels;
+- edits inside the tile data (bit flips, bytes, zeros, cuts) decode to
+  Pillow's pixels or are refused where Pillow refuses them.
+
+Run on the CPU (the decoder is host C++, built by g++ at first use):
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_av1_lossless.py -q -n 6
+"""
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from rustic_tpu_torch.utils import avif
+from rustic_tpu_torch.utils.png import decode_image_u8
+from tests import av1_cdf_tables as tables
+from tests.test_torch_image_formats import picture
+from tests.test_torch_image_formats_avif import (MANIFEST, TILE_EDITS, breaktime_textures,
+                                                 encode, expected_rgba_matches, fixture,
+                                                 grid_file, planes_of, sha256_of, tile_case)
+from tests.test_torch_image_formats_variants import outcome, port_outcome, same
+
+LOSSLESS = [e for e in MANIFEST if e["lossless"]]
+LOSSY = [e for e in MANIFEST if not e["lossless"]]
+
+
+@pytest.fixture(scope="module")
+def library():
+    return tables.library_bytes()
+
+
+@pytest.fixture(scope="module")
+def dav1d_tables(library):
+    return tables.read_tables(library)
+
+
+def test_av1_tables_header_is_generated_from_dav1d(library):
+    """The committed header is the generator's output on this host's
+    library, byte for byte (dav1d's copy, each table's rows checked to be
+    CDFs of its symbol count)."""
+    with open(tables.HEADER) as f:
+        assert f.read() == tables.header_text(tables.read_tables(library))
+
+
+@pytest.mark.parametrize("name", list(tables.DAV1D) + list(tables.COEF))
+def test_av1_cdf_equals_both_copies(name, library, dav1d_tables):
+    """Each CDF table of the header equals dav1d's copy and libaom's copy in
+    Pillow's libavif (libaom's laid out as its arrays are)."""
+    with open(tables.HEADER) as f:
+        header = tables.parse_header(f.read())
+    table = dav1d_tables[name]
+    assert header[name] == table.reshape(-1).tolist()
+    assert (table[..., -1] == 0).all() and (table[..., -2] == 32768).all()
+    for block in tables.libaom_bytes(name, table):
+        assert library.find(block) >= 0, name
+
+
+OTHER_IN_LIBAOM = {  # name -> libaom's layout of the same values
+    "Sm_Weights": (sum((tables.SM_WEIGHTS[n] for n in (4, 8, 16, 32, 64)), []), np.uint8),
+    "Dr_Intra_Derivative": (tables.DR_INTRA_DERIVATIVE, np.uint16),
+    "Mode_To_Angle": (tables.MODE_TO_ANGLE, np.uint8),
+    "Intra_Filter_Taps": ([[r + [0] for r in m] for m in tables.INTRA_FILTER_TAPS], np.int8),
+    "Intra_Edge_Kernel": (tables.INTRA_EDGE_KERNEL, np.int32),
+    "Default_Scan_4x4": (tables.DEFAULT_SCAN_4X4, np.int16),
+    "Coeff_Base_Ctx_Offset_4x4": ([r[:4] for r in tables.COEFF_BASE_CTX_OFFSET_4X4[:4]],
+                                  np.int8),
+}
+
+
+@pytest.mark.parametrize("name", list(OTHER_IN_LIBAOM))
+def test_av1_other_tables_are_libaoms(name, library):
+    """The specification's tables the header carries, as libaom keeps them
+    in the same library."""
+    values, dtype = OTHER_IN_LIBAOM[name]
+    assert library.find(np.array(values, dtype).tobytes()) >= 0
+
+
+def decoded_payloads(raw: bytes):
+    """(name, decode_av1's planes, its counters) of each payload."""
+    h = avif.open_avif(raw)
+    parsed = avif.headers(raw, h)
+    for name in ("colour", "alpha"):
+        for payload, p in zip(getattr(h, name), parsed[name]):
+            planes, counts = avif.decode_av1(avif._payload(raw, h.idat, payload), p)
+            yield name, planes, counts
+
+
+@pytest.mark.parametrize("entry", LOSSLESS, ids=lambda e: e["file"])
+def test_lossless_planes_equal_dav1d(entry):
+    """Each payload's planes equal dav1d's (the committed arrays, or their
+    sha256 for the 256^2 files), alpha's Y as libavif's alpha plane."""
+    for name, planes, _ in decoded_payloads(fixture(entry["file"])):
+        got = dict(planes) if name == "colour" else {"a": planes["y"]}
+        if "planes" in entry:
+            want = planes_of(entry)
+            for k, v in got.items():
+                np.testing.assert_array_equal(v, want[k], err_msg=f"{name} {k}")
+        else:
+            for k, v in got.items():
+                assert [list(v.shape), sha256_of(v)] == entry["planes_sha256"][k], (name, k)
+
+
+@pytest.mark.parametrize("entry", LOSSLESS, ids=lambda e: e["file"])
+def test_lossless_rgba_equals_pillow(entry):
+    assert expected_rgba_matches(entry, decode_image_u8(fixture(entry["file"]), entry["file"]))
+
+
+def test_tool_counters_reach_every_tool():
+    """Summed over the lossless fixtures, the decoder took every tool it
+    claims at least once."""
+    total, tiled = {}, 0
+    for entry in LOSSLESS:
+        for _, _, counts in decoded_payloads(fixture(entry["file"])):
+            for k, v in counts.items():
+                if isinstance(v, list):
+                    total[k] = [a + b for a, b in zip(total.get(k, [0] * len(v)), v)]
+                else:
+                    total[k] = total.get(k, 0) + v
+            tiled = max(tiled, counts["tiles"])
+    assert all(n > 0 for n in total["y modes"]), total["y modes"]
+    for tool in ("angle delta", "upsampled edge", "edge filter", "filter intra", "cfl",
+                 "palette y", "palette uv", "intrabc"):
+        assert total[tool] > 0, tool
+    assert tiled == 4
+    assert total["padding"] == 0
+
+
+@pytest.mark.parametrize("h, w, rows, cols, sub", [(100, 120, 2, 2, "4:2:0"),
+                                                   (130, 70, 3, 2, "4:4:4"),
+                                                   (64, 64, 1, 1, "4:2:0")])
+def test_lossless_grid_decodes_as_pillow(h, w, rows, cols, sub):
+    """A grid of lossless 64x64 tiles (the suite's `grid_file`), each
+    decoded and placed as libavif places them, cropped to the grid's size."""
+    raw = grid_file(Image.fromarray(picture(h, w, 7)), rows, cols, 64, quality=100,
+                    subsampling=sub)
+    want, got = outcome(raw), port_outcome(raw, "grid.avif")
+    assert not isinstance(want, Exception) and same(want, got)
+
+
+@pytest.mark.parametrize("texture", [1, 3])
+def test_128_superblocks_decode_as_pillow(texture):
+    """aom's 128x128 superblocks (`sb-size`) on a screen-content texture
+    (palette and intra block copy) and a natural one."""
+    raw = encode(breaktime_textures()[1][texture], quality=100, advanced={"sb-size": "128"})
+    assert avif.header_record(raw)["colour"]["sequence"]["sb128"] == 1
+    want, got = outcome(raw), port_outcome(raw, "sb128.avif")
+    assert not isinstance(want, Exception) and same(want, got)
+
+
+@pytest.mark.parametrize("entry", LOSSY[:8], ids=lambda e: e["file"])
+def test_lossy_payload_is_refused_by_name(entry):
+    raw = fixture(entry["file"])
+    h = avif.open_avif(raw)
+    with pytest.raises(NotImplementedError, match=r"AVIF AV1 tile data \(lossy\)"):
+        avif.decode_av1(avif._payload(raw, h.idat, h.colour[0]))
+
+
+EDIT_CASES = [(e["file"], k) for e in LOSSLESS for k in range(3 if "planes" in e else 1)]
+
+
+@pytest.mark.parametrize("name, k", EDIT_CASES, ids=str)
+def test_edited_tile_data_decodes_as_pillow(name, k):
+    """A fixed, derandomised edit inside the tile data (seeded by the name
+    and k): Pillow's pixels, or a refusal where Pillow refuses."""
+    rng = np.random.default_rng([k, 7] + list(name.encode()))
+    kind = TILE_EDITS[int(rng.integers(0, len(TILE_EDITS)))]
+    where, value = float(rng.random()), int(rng.integers(0, 2**16))
+    want, got = tile_case(fixture(name), kind, where, value)
+    assert same(want, got), (kind, where, value, want if isinstance(want, Exception) else "",
+                             got if isinstance(got, Exception) else "")
+
+
+def test_block_copy_in_a_tiles_first_superblock_is_refused():
+    """The edit the fuzz found: an intra block copy in the tile's first
+    superblock, whose source no clamp takes out of it. dav1d refuses the
+    frame (Pillow raises), and so does the port."""
+    want, got = tile_case(fixture("q100-breaktime-1-420.avif"), "zero", 0.013777585287118144,
+                          4123)
+    assert isinstance(want, Exception) and isinstance(got, ValueError)
+    assert "intra block copy" in str(got)

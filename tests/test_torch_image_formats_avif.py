@@ -10,7 +10,8 @@ bundled libavif 1.3.0 (dav1d 1.5.1 decoding, aom 3.12.1 encoding):
   the tile data begins, `CodedLossless` exactly on the quality-100 files;
 - the colour stage `yuv_to_rgba` on dav1d's own planes, committed beside
   each file (`.yuv.npz`), equal to Pillow's convert("RGBA") (`.rgba.npy`);
-- the decode's named refusal of the AV1 tile data.
+- the decode: a lossless file (CodedLossless, csrc/av1_intra.cpp) to
+  Pillow's RGBA, lossy tile data refused by name.
 
 The fixtures of tests/data_torch/formats_avif are Pillow's writer at
 qualities 100, 90 and 50, every subsampling, both ranges, with and without
@@ -22,7 +23,12 @@ configOBUs). `python -m tests.test_torch_image_formats_avif --make`
 rewrites them on a host with Pillow's libavif: the planes are dumped
 through ctypes from that libavif (`dav1d_planes`); the card's host has
 neither. `--fuzz N SEED` runs N edits of each fixture against Pillow and
-prints the counts by kind and outcome.
+prints the counts by kind and outcome; `--fuzz-tiles N SEED` runs N edits
+inside the tile data of each lossless fixture against Pillow's decode;
+`--tables` rewrites rustic_tpu_torch/csrc/av1_tables.h (tests/av1_cdf_tables.py).
+The lossless 256^2 fixtures (BreakTime's textures) keep each dav1d plane's
+sha256 in the manifest, not a .yuv.npz, and BreakTime-AVIF.glb with its twin
+sits beside them (tests/test_torch_image_scenes.py renders the pair).
 """
 
 import hashlib
@@ -38,7 +44,8 @@ from PIL import Image, UnidentifiedImageError
 
 from rustic_tpu_torch.utils import FORMATS_TODO, avif
 from rustic_tpu_torch.utils.png import decode_image_u8, image_format
-from tests.test_torch_image_formats import picture, rgba
+from tests.conftest import scene_path
+from tests.test_torch_image_formats import glb_images, picture, replace_glb_images, rgba
 
 AVIF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_torch",
                              "formats_avif")
@@ -318,7 +325,68 @@ def avif_sources() -> dict:
     out["container-mif1-major.avif"] = (rebuilt(base, major=b"mif1"), "avif 420")
     out["container-grid-1x1.avif"] = (grid_file(Image.fromarray(picture(56, 60, 7)), 1, 1, 64,
                                                 quality=90), "avif 420")
+    for (w, h), rng in (((23, 17), "full"), ((17, 23), "limited")):  # lossless odd 4:2:2
+        out[f"q100-422-{w}x{h}-{rng}.avif"] = (
+            encode(Image.fromarray(picture(h, w, 11)), quality=100, subsampling="4:2:2",
+                   range=rng), "avif 422")
+    # aom's slowest search, which also takes SMOOTH_V and SMOOTH_H in lossless blocks
+    out["q100-420-64x64-speed0.avif"] = (encode(Image.fromarray(picture(64, 64, 3)),
+                                                quality=100, speed=0), "avif 420")
+    out.update(breaktime_sources())
     return out
+
+
+# BreakTime-AVIF: texture i of BreakTime.glb as the fixture BT_AVIF_TEXTURES[i] names (aom
+# finds screen content in textures 0 and 1: palette and intra block copy)
+BT_AVIF = "BreakTime-AVIF.glb"
+BT_AVIF_TWIN = "BreakTime-AVIF-twin.glb"
+BT_AVIF_TEXTURES = ["q100-breaktime-0-444.avif", "q100-breaktime-1-420.avif",
+                    "q100-breaktime-2-420-tiles-2x2.avif", "q100-breaktime-3-444.avif",
+                    "q100-breaktime-4-420.avif", "q100-breaktime-5-444.avif"]
+
+
+def breaktime_textures():
+    """BreakTime.glb's bytes and its six textures (RGB)."""
+    with open(scene_path("BreakTime.glb"), "rb") as f:
+        raw = f.read()
+    return raw, [Image.open(io.BytesIO(b)).convert("RGB") for b in glb_images(raw)]
+
+
+def breaktime_sources() -> dict:
+    """The lossless 256^2 fixtures: BreakTime's six textures at quality 100
+    at 4:4:4 and at 4:2:0, texture 2 as 2x2 tiles, and texture 1 with an
+    alpha item (a radial ramp)."""
+    _, textures = breaktime_textures()
+    out = {}
+    for i, tex in enumerate(textures):
+        for sub in ("4:4:4", "4:2:0"):
+            tag = sub.replace(":", "")
+            out[f"q100-breaktime-{i}-{tag}.avif"] = (encode(tex, quality=100, subsampling=sub),
+                                                     f"avif {tag}")
+    out["q100-breaktime-2-420-tiles-2x2.avif"] = (
+        encode(textures[2], quality=100, subsampling="4:2:0", tile_rows=1, tile_cols=1),
+        "avif 420")
+    y, x = np.mgrid[0:256, 0:256]
+    ramp = np.clip(np.hypot(y - 128, x - 100) * 2, 0, 255).astype(np.uint8)
+    with_alpha = np.dstack([np.asarray(textures[1]), 255 - ramp])
+    out["q100-breaktime-1-444-alpha.avif"] = (encode(Image.fromarray(with_alpha), quality=100,
+                                                     subsampling="4:4:4"), "avif 444")
+    return out
+
+
+def breaktime_avif_pair(sources: dict = None):
+    """BreakTime-AVIF (its textures the BT_AVIF_TEXTURES fixtures) and its
+    twin: each texture a PNG of Pillow's decode of its partner's."""
+    raw, _ = breaktime_textures()
+    sources = sources or breaktime_sources()
+    files = [sources[name][0] for name in BT_AVIF_TEXTURES]
+    pngs = []
+    for b in files:
+        png = io.BytesIO()
+        Image.open(io.BytesIO(b)).convert("RGB").save(png, "PNG", optimize=True)
+        pngs.append(png.getvalue())
+    return (replace_glb_images(raw, files, "image/avif"),
+            replace_glb_images(raw, pngs, "image/png"))
 
 
 PHOTO = "photo-1024-q50-420.avif"  # the one fixture over 64x64: the colour stage's timing
@@ -430,10 +498,11 @@ def dav1d_records(raw: bytes) -> dict:
 
 
 def make_avif_fixtures(out_dir: str) -> dict:
-    """Write every fixture, Pillow's decode (.rgba.npy; the photo's as a
-    sha256), dav1d's planes (.yuv.npz) and the manifest (Pillow's header,
-    the port's AV1 header record, dav1d's parse of the same headers) into
-    `out_dir`."""
+    """Write every fixture, Pillow's decode (.rgba.npy, or its sha256 over
+    64x64), dav1d's planes (.yuv.npz, or each plane's sha256 for the
+    lossless 256^2 files), the manifest (Pillow's header, the port's AV1
+    header record, dav1d's parse of the same headers) and BreakTime-AVIF
+    with its twin into `out_dir`."""
     os.makedirs(out_dir, exist_ok=True)
     images = []
     sources = dict(avif_sources())
@@ -444,22 +513,35 @@ def make_avif_fixtures(out_dir: str) -> dict:
         stem = name.rsplit(".", 1)[0]
         want = np.asarray(Image.open(io.BytesIO(raw)).convert("RGBA"))
         planes = dav1d_planes(raw)
-        np.savez_compressed(os.path.join(out_dir, stem + ".yuv.npz"), **planes)
-        entry = dict(file=name, kind=kind, planes=stem + ".yuv.npz", **pillow_header(raw),
+        entry = dict(file=name, kind=kind, **pillow_header(raw),
                      headers=avif.header_record(raw), dav1d=dav1d_records(raw),
                      lossless=name.startswith("q100"))
-        if name == PHOTO:
-            entry.update(shape=list(want.shape),
-                         sha256=hashlib.sha256(np.ascontiguousarray(want).tobytes()).hexdigest())
+        if name.startswith("q100-breaktime"):
+            entry.update(colour=planes["colour"].tolist(), planes_sha256={
+                k: [list(v.shape), sha256_of(v)] for k, v in planes.items() if k != "colour"})
+        else:
+            entry["planes"] = stem + ".yuv.npz"
+            np.savez_compressed(os.path.join(out_dir, entry["planes"]), **planes)
+        if want.shape[0] * want.shape[1] > 64 * 64:
+            entry.update(shape=list(want.shape), sha256=sha256_of(want))
         else:
             entry["expect"] = stem + ".rgba.npy"
             np.save(os.path.join(out_dir, entry["expect"]), want)
         images.append(entry)
-    manifest = dict(images=images)
+    glb, twin = breaktime_avif_pair({k: sources[k] for k in BT_AVIF_TEXTURES})
+    for name, data in ((BT_AVIF, glb), (BT_AVIF_TWIN, twin)):
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(data)
+    manifest = dict(images=images, scene=dict(breaktime=BT_AVIF, twin=BT_AVIF_TWIN,
+                                              textures=BT_AVIF_TEXTURES))
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
         f.write("\n")
     return manifest
+
+
+def sha256_of(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def timeless(raw: bytes) -> bytes:
@@ -490,21 +572,45 @@ def planes_of(entry: dict) -> dict:
         return {k: z[k] for k in z.files}
 
 
+def plane_record(entry: dict) -> tuple:
+    """dav1d's planes of a fixture as recorded: ({plane: shape}, libavif's
+    colour description [depth, yuvFormat, range, CICP, premultiplied])."""
+    if "planes" in entry:
+        planes = planes_of(entry)
+        return ({k: v.shape for k, v in planes.items() if k != "colour"},
+                planes["colour"])
+    return ({k: tuple(v[0]) for k, v in entry["planes_sha256"].items()},
+            np.array(entry["colour"], np.int64))
+
+
+def expected_rgba_matches(entry: dict, rgba: np.ndarray) -> bool:
+    """`rgba` equals Pillow's committed decode of the fixture."""
+    if "expect" in entry:
+        want = np.load(os.path.join(AVIF_FIXTURES, entry["expect"]))
+        return want.shape == rgba.shape and np.array_equal(want, rgba)
+    return list(rgba.shape) == entry["shape"] and sha256_of(rgba) == entry["sha256"]
+
+
 MANIFEST = avif_manifest()["images"] if os.path.exists(
     os.path.join(AVIF_FIXTURES, "manifest.json")) else []
-SMALL = [e for e in MANIFEST if e["file"] != PHOTO]
+SMALL = [e for e in MANIFEST if "expect" in e]
 
 
 # ---- Tier-1 -----------------------------------------------------------------------------------
 
 def test_avif_fixture_writer_makes_the_committed_set():
     """The committed files are what Pillow's writer and `heif` make here,
-    byte for byte; the folder stays within 3 MiB."""
+    byte for byte, BreakTime-AVIF and its twin included; the folder stays
+    within 3 MiB."""
     sources = avif_sources()
     assert {e["file"] for e in MANIFEST} == set(sources) | {PHOTO}
     for name, (raw, kind) in sources.items():
         assert timeless(fixture(name)) == timeless(raw), name
         assert next(e["kind"] for e in MANIFEST if e["file"] == name) == kind
+    glb, twin = breaktime_avif_pair({k: sources[k] for k in BT_AVIF_TEXTURES})
+    assert fixture(BT_AVIF) == glb and fixture(BT_AVIF_TWIN) == twin
+    assert avif_manifest()["scene"] == dict(breaktime=BT_AVIF, twin=BT_AVIF_TWIN,
+                                            textures=BT_AVIF_TEXTURES)
     total = sum(os.path.getsize(os.path.join(AVIF_FIXTURES, n)) for n in os.listdir(AVIF_FIXTURES))
     assert total <= 3 * 2**20
 
@@ -558,16 +664,16 @@ def test_avif_av1_headers_match_libavif(entry):
     overrides the sequence header's, the frame's size (upscaled) as the
     image's or as a grid's tile that the image covers, and an alpha frame
     of the alpha plane's size exactly where libavif has an alpha plane."""
-    raw, planes = fixture(entry["file"]), planes_of(entry)
+    raw, (shapes, colour) = fixture(entry["file"]), plane_record(entry)
     h, record = avif.open_avif(raw), avif.header_record(raw)
-    depth, fmt, full, cp, tc, mc = (int(x) for x in planes["colour"][:6])
+    depth, fmt, full, cp, tc, mc = (int(x) for x in colour[:6])
     seq, fh = record["colour"]["sequence"], record["colour"]["frame"]
     assert seq["depth"] == depth
     assert (4 if seq["mono"] else {(0, 0): 1, (1, 0): 2, (1, 1): 3}[seq["ssx"], seq["ssy"]]) == fmt
     if h.nclx is None:
         assert (seq["full_range"], seq["primaries"], seq["transfer"], seq["matrix"]) == (
             full, cp, tc, mc)
-    height, width = planes["y"].shape
+    height, width = shapes["y"]
     size = [fh["upscaled_width"], fh["size"][1]]
     if h.grid is None:
         assert size == [width, height]
@@ -575,7 +681,7 @@ def test_avif_av1_headers_match_libavif(entry):
         rows, cols = h.grid[:2]
         assert size[0] * cols >= width > size[0] * (cols - 1)
         assert size[1] * rows >= height > size[1] * (rows - 1)
-    assert ("alpha" in record) == ("a" in planes)
+    assert ("alpha" in record) == ("a" in shapes)
     if "alpha" in record:
         fa = record["alpha"]["frame"]
         assert [fa["upscaled_width"], fa["size"][1]] == [width, height]
@@ -584,9 +690,13 @@ def test_avif_av1_headers_match_libavif(entry):
 
 @pytest.mark.parametrize("entry", MANIFEST, ids=lambda e: e["file"])
 def test_avif_decode_refuses_the_tile_data_by_name(entry):
+    """Lossy tile data is refused by name; a lossless file decodes to
+    Pillow's RGBA (csrc/av1_intra.cpp, then the colour stage)."""
     raw = fixture(entry["file"])
-    kind = "lossless" if entry["lossless"] else "lossy"
-    with pytest.raises(NotImplementedError, match=rf"AVIF AV1 tile data \({kind}\).*"
+    if entry["lossless"]:
+        assert expected_rgba_matches(entry, decode_image_u8(raw, entry["file"]))
+        return
+    with pytest.raises(NotImplementedError, match=r"AVIF AV1 tile data \(lossy\).*"
                                                   + FORMATS_TODO.split(":")[0]):
         decode_image_u8(raw, entry["file"])
 
@@ -605,9 +715,7 @@ def test_colour_stage_on_dav1d_planes_matches_pillow(entry):
 
 def test_colour_stage_on_the_photo_matches_pillow():
     entry = next(e for e in MANIFEST if e["file"] == PHOTO)
-    got = stage(planes_of(entry), fixture(PHOTO))
-    assert list(got.shape) == entry["shape"]
-    assert hashlib.sha256(got.tobytes()).hexdigest() == entry["sha256"]
+    assert expected_rgba_matches(entry, stage(planes_of(entry), fixture(PHOTO)))
 
 
 def route(entry: dict) -> str:
@@ -660,10 +768,10 @@ def test_convert_does_not_turn_an_oriented_avif():
 EDITS = ["flip", "byte", "zero", "cut", "insert"]
 
 
-def edit(raw: bytes, kind: str, where: float, value: int) -> bytes:
+def edit(raw: bytes, kind: str, where: float, value: int, span=None) -> bytes:
     from tests.test_torch_image_formats_variants import edit as edit_bytes
 
-    return edit_bytes(raw, kind, where, value)
+    return edit_bytes(raw, kind, where, value, span)
 
 
 def pillow_open_outcome(raw: bytes):
@@ -733,9 +841,61 @@ def test_edited_avif_opens_as_pillow_opens_it(name, k):
     assert want == got, (kind, where, value)
 
 
+# ---- edits of the lossless tile data against Pillow's decode ----------------------------------
+
+TILE_EDITS = ["flip", "flip", "byte", "zero", "cut"]
+
+
+def tile_span(raw: bytes) -> tuple:
+    """(file offset, length) of the colour payload's first tile group data."""
+    h = avif.open_avif(raw)
+    _, extents = h.colour[0]
+    start, end = avif.headers(raw, h)["colour"][0]["tile_data"]
+    return extents[0][0] + start, end - start
+
+
+def tile_case(raw: bytes, kind: str, where: float, value: int) -> tuple:
+    """One edit inside the tile data -> (Pillow's RGBA or its error, the
+    port's decode_image_u8 or its error)."""
+    from tests.test_torch_image_formats_variants import outcome, port_outcome
+
+    edited = edit(raw, kind, where, value, tile_span(raw))
+    return outcome(edited), port_outcome(edited, "edited.avif")
+
+
+def fuzz_tiles(n: int, seed: int = 0, names=None) -> dict:
+    """`n` edits (bit flips, bytes, zeros, cuts) inside the tile data of
+    each lossless fixture -> counts of (kind, outcome); raises
+    AssertionError at the first edit where the pixels differ or only one
+    side refuses."""
+    from tests.test_torch_image_formats_variants import same
+
+    counts = {}
+    for name in names or [e["file"] for e in MANIFEST if e["lossless"]]:
+        raw = fixture(name)
+        rng = np.random.default_rng([seed] + list(name.encode()))  # each file's own edits
+        for _ in range(n):
+            kind = str(rng.choice(TILE_EDITS))
+            where, value = float(rng.random()), int(rng.integers(0, 2**16))
+            want, got = tile_case(raw, kind, where, value)
+            if not same(want, got):
+                raise AssertionError(f"{name} {kind} at {where} ({value}): Pillow "
+                                     f"{type(want).__name__}, port {type(got).__name__}")
+            key = f"{kind}: {'refused' if isinstance(want, Exception) else 'decoded'}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--make"]:
         print(json.dumps(make_avif_fixtures(AVIF_FIXTURES)["images"][-1], indent=1))
+    elif sys.argv[1:2] == ["--fuzz-tiles"]:  # --fuzz-tiles N [SEED]
+        print(json.dumps(fuzz_tiles(int(sys.argv[2]), int(sys.argv[3]) if sys.argv[3:] else 0),
+                         indent=1, sort_keys=True))
+    elif sys.argv[1:2] == ["--tables"]:
+        from tests.av1_cdf_tables import write_header
+
+        print(write_header())
     elif sys.argv[1:2] == ["--fuzz"]:  # --fuzz N [SEED]
         print(json.dumps(fuzz(int(sys.argv[2]), int(sys.argv[3]) if sys.argv[3:] else 0),
                          indent=1, sort_keys=True))

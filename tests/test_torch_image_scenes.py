@@ -21,7 +21,10 @@ port and through the JAX package (which decodes them with Pillow).
   YCCK, arithmetic-coded (progressive with restarts, and sequential),
   lossless and repaired (junk before a marker, a dropped RST) JPEG
   textures (tests/data_torch/formats_jpeg, `make_jpeg_fixtures` of
-  tests/test_torch_image_formats_jpeg.py), the same way.
+  tests/test_torch_image_formats_jpeg.py), the same way; BreakTime-AVIF
+  with six lossless AVIF textures (4:4:4 and 4:2:0, one of 2x2 tiles,
+  two with palette and intra block copy; tests/data_torch/formats_avif,
+  `make_avif_fixtures`), the same way.
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
   TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, one with .dds
   and .psd maps, and two with .ppm, .qoi, .ico, .pcx, .sgi, .pgm, .rgb,
@@ -30,16 +33,16 @@ port and through the JAX package (which decodes them with Pillow).
   16-bit and OS/2 bitmaps, 16-bit TGA, JPEG, fax, YCbCr, CMYK and CIELab
   TIFF, an animated WebP), and three with the kinds read next (TIFF fill
   order 2, orientations, planar and predicted YCbCr, LZMA; McIdas, XV
-  thumbnail, Lab PSD, IPTC holding a PNG, long-key XPM), against
-  rustic_tpu/scene/obj.py, exactly.
+  thumbnail, Lab PSD, IPTC holding a PNG, long-key XPM), and one with
+  lossless .avif maps, against rustic_tpu/scene/obj.py, exactly.
 - JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k), DDS, PNM,
-  PFM, QOI, ICO, PCX, DCX, SGI, DIB, IM and SPIDER skies through
+  PFM, QOI, ICO, PCX, DCX, SGI, DIB, IM, SPIDER and lossless AVIF skies through
   `load_skybox_image`,
   against the JAX function, exactly. The JAX package reads .exr through
   imageio, which has no backend here: the EXR sky is held to the .npy of
   its half-float values, which the JAX function reads.
 - 32x16x2 films of the JPEG, the mixed, the J2K, the DDS, the classic,
-  the legacy and the JPEG-ext BreakTime's one-tile cuts
+  the legacy, the JPEG-ext and the AVIF BreakTime's one-tile cuts
   (rustic_tpu_torch/scene/cuts.py; a 256-texel atlas) under the EXR sky on the port and
   the .npy sky on JAX, both staged pipelines: the film rule of
   tests/test_torch_breaktime.py (rtol 1e-4 / atol 1e-5 on at least 98% of
@@ -72,6 +75,7 @@ from tests.test_torch_breaktime import assert_film_close
 from tests.test_torch_bvh_native import require_jax_native
 from tests.test_torch_formats import ATLAS as SAME_WORLD_ATLAS
 from tests.test_torch_formats import same_gltf, same_world
+from tests.test_torch_image_formats_avif import AVIF_FIXTURES, BT_AVIF, BT_AVIF_TWIN
 from tests.test_torch_image_formats_jpeg import BT_EXT, BT_EXT_TWIN, JPEG_FIXTURES
 from tests.test_torch_image_formats import (BT_CLASSIC, BT_CLASSIC_TWIN, BT_DDS, BT_DDS_TWIN,
                                             BT_J2K, BT_J2K_TWIN, BT_JPEG, BT_LEGACY,
@@ -144,6 +148,14 @@ def test_breaktime_jpeg_ext_world_matches_jax():
     repaired JPEG textures) as the JAX package builds it, and as its twin."""
     assert_world_and_twin(os.path.join(JPEG_FIXTURES, BT_EXT),
                           os.path.join(JPEG_FIXTURES, BT_EXT_TWIN))
+
+
+def test_breaktime_avif_world_matches_jax():
+    """BreakTime-AVIF (six lossless AVIF textures: 4:4:4 and 4:2:0, one of
+    2x2 tiles, two with palette and intra block copy) as the JAX package
+    builds it, and as its twin."""
+    assert_world_and_twin(os.path.join(AVIF_FIXTURES, BT_AVIF),
+                          os.path.join(AVIF_FIXTURES, BT_AVIF_TWIN))
 
 
 def write_obj_with_maps(tmp_path, maps=None):
@@ -397,6 +409,32 @@ def test_obj_with_variant_maps_matches_jax(tmp_path, which):
     assert same_world(path).has_textures
 
 
+def test_obj_with_avif_maps_matches_jax(tmp_path):
+    """The albedo map a lossless 4:4:4 AVIF, the roughness map a lossless
+    4:2:0 AVIF with alpha, the normal map a lossless 4:2:2 AVIF (9x14)."""
+    modes = pillow_modes(9, 14, seed=31)
+    path = write_obj_with_maps(tmp_path, {
+        "albedo": ("albedo.avif", save(modes["RGB"], "AVIF", quality=100, subsampling="4:4:4")),
+        "rough": ("rough.avif", save(modes["RGBA"], "AVIF", quality=100)),
+        "normal": ("normal.avif", save(modes["RGB"], "AVIF", quality=100,
+                                       subsampling="4:2:2"))})
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert same_world(path).has_textures
+
+
+@pytest.mark.parametrize("mode, sub", [("RGB", "4:4:4"), ("RGBA", "4:2:0"), ("L", "4:0:0")])
+def test_lossless_avif_skies_match_jax(tmp_path, mode, sub):
+    path = str(tmp_path / "sky.avif")
+    with open(path, "wb") as f:
+        f.write(save(pillow_modes(8, 16, seed=6)[mode], "AVIF", quality=100, subsampling=sub))
+    got = TW.load_skybox_image(path)
+    assert got.dtype == np.float32 and got.shape == (8, 16, 4)
+    np.testing.assert_array_equal(got, JW.load_skybox_image(path))
+
+
 def legacy_skies():
     modes = pillow_modes(8, 16, seed=23)
     grey = np.asarray(modes["L"], np.float32)
@@ -522,6 +560,12 @@ def test_legacy_breaktime_film_matches_jax(half_sky):
 def test_jpeg_ext_breaktime_film_matches_jax(half_sky):
     """The one-tile cut of BreakTime-JPEG-ext, as the JPEG one."""
     assert_one_tile_film(os.path.join(JPEG_FIXTURES, BT_EXT), half_sky)
+
+
+def test_avif_breaktime_film_matches_jax(half_sky):
+    """The one-tile cut of BreakTime-AVIF (lossless AVIF textures through
+    csrc/av1_intra.cpp), as the JPEG one."""
+    assert_one_tile_film(os.path.join(AVIF_FIXTURES, BT_AVIF), half_sky)
 
 
 def assert_one_tile_film(path, half_sky):

@@ -28,10 +28,11 @@ def test_every_port_package_is_listed():
 def test_kernel_sources_and_scripts_are_shipped():
     project = pyproject()
     data = project["tool"]["setuptools"]["package-data"]["rustic_tpu_torch"]
-    assert {"csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"} <= set(data)  # .cpp: the BVH builder
+    # .cpp: the BVH builder and the image decoders' loops; .h: the AV1 tables they include
+    assert {"csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp", "csrc/*.h"} <= set(data)
     csrc = os.listdir(os.path.join(REPO, "rustic_tpu_torch", "csrc"))
-    assert all(name.endswith((".cu", ".cuh", ".cpp")) for name in csrc), csrc
-    assert "bvh_build.cpp" in csrc
+    assert all(name.endswith((".cu", ".cuh", ".cpp", ".h")) for name in csrc), csrc
+    assert "bvh_build.cpp" in csrc and "av1_tables.h" in csrc
     assert project["project"]["scripts"] == {
         "rustic-tpu": "rustic_tpu.cli:main",
         "rustic-tpu-torch": "rustic_tpu_torch.cli:main",
