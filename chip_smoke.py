@@ -31,14 +31,15 @@ vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
 sgi.py, im.py, iptc.py, pcd.py, spider.py, blp.py, fits.py, fli.py,
 ftex.py, gbr.py, icns.py, mcidas.py, msp.py, pixar.py, sun.py, xbm.py,
 xpm.py, xvthumb.py, exr.py, and avif.py with csrc/av1_intra.cpp, the AV1
-tile decoder of lossless key frames) on the
+tile decoder of key frames with no in-loop filter, lossless and lossy) on the
 fixtures of tests/data_torch/formats, formats_dds_psd, formats_classic,
 formats_legacy, formats_jpeg, formats_variants and formats_avif, then
 BreakTime with JPEG textures, with TIFF and Lab PSD textures, with JPEG 2000 textures, with DDS and PSD textures, with
 PPM, QOI, SGI, PCX, ICO and DCX textures, with IPTC, IM, BLP, XPM,
 McIdas and APNG textures,
 with CMYK, YCCK, arithmetic-coded, lossless and repaired JPEG textures, and
-with lossless AVIF textures (palette, intra block copy, 2x2 tiles),
+with lossy and lossless AVIF textures (palette, intra block copy, 2x2
+tiles),
 under an OpenEXR sky through the grid form of the kernel-shade loop
 (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
@@ -399,9 +400,10 @@ Phases, each of which must pass (the first that fails ends the run):
      BreakTime-mixed's, BreakTime-J2K's, BreakTime-DDS's,
      BreakTime-classic's, BreakTime-legacy's, BreakTime-JPEG-ext's and
      BreakTime-AVIF's 256x256 textures (best of 3); AVIF's fixtures as the
-     `avif` part of the phase holds them (each lossless file's planes equal
-     to dav1d's, its RGBA to Pillow's, the lossy ones refused by name; the
-     lossless decode of BreakTime-AVIF's textures timed in turns with the
+     `avif` part of the phase holds them (each lossless file's planes, and
+     each filter-free lossy file's, equal to dav1d's, its RGBA to Pillow's,
+     the deblocked and CDEF ones refused by name; the lossless and the
+     lossy decode of BreakTime-AVIF's textures timed in turns with the
      photo). BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
@@ -421,8 +423,9 @@ Phases, each of which must pass (the first that fails ends the run):
      CMYK, a YCCK, an arithmetic-coded progressive with restarts, a
      lossless, a baseline with junk before a marker and a dropped RST, an
      arithmetic-coded sequential JPEG; the EXR sky) and BreakTime-AVIF (six
-     lossless AVIFs: 4:4:4 and 4:2:0, one of 2x2 tiles, two with palette
-     and intra block copy; the EXR sky), each with its twin (PNGs of Pillow's
+     AVIFs, three lossy with no in-loop filter and three lossless: 4:4:4
+     and 4:2:0, one of 2x2 tiles, two with palette and intra block copy,
+     one under TX_MODE_LARGEST; the EXR sky), each with its twin (PNGs of Pillow's
      decodes, the EXR sky), through load_scene on the card: the load
      split into decode, atlas and the rest; a twin's decoded textures
      equal, array by array, to its partner's, which lets the twin take
@@ -4099,16 +4102,18 @@ class Smoke:
         to the committed record and to dav1d's parse of the same payloads
         (CodedLossless on the quality-100 files), the colour stage on
         dav1d's committed planes equal to Pillow's RGBA (the odd-sized 4:2:0
-        and 4:2:2 fixtures among them); each lossless file's payloads
-        decoded by the AV1 tile decoder (csrc/av1_intra.cpp) to dav1d's
-        planes, plane for plane (arrays, or sha256 for the 256^2 files), and
-        through decode_image_u8 to Pillow's RGBA; lossy tile data refused
-        by name; then, in turns with the 1024^2 Huffman photo (best of
-        VARIANT_TURNS), the colour stage at 4:2:0 (the 1024^2 photo's dav1d
-        planes) and at 4:4:4 (the same chroma repeated to full size), the
-        lossless decode of BreakTime-AVIF's six textures, and the LZMA2
-        decoder (csrc/image_entropy.cpp `xz_strip`) on an .xz stream of the
-        photo's decoded RGBA bytes, in ms per megapixel."""
+        and 4:2:2 fixtures among them); each lossless file's payloads, and
+        each lossy file's that no in-loop filter touches, decoded by the AV1
+        tile decoder (csrc/av1_intra.cpp) to dav1d's planes, plane for plane
+        (arrays, or sha256 for the 256^2 files), and through decode_image_u8
+        to Pillow's RGBA; deblocked and CDEF tile data refused by the
+        filter's name; then, in turns with the 1024^2 Huffman photo (best
+        of VARIANT_TURNS), the colour stage at 4:2:0 (the 1024^2 photo's
+        dav1d planes) and at 4:4:4 (the same chroma repeated to full size),
+        the lossless decode of BreakTime-AVIF's three lossless textures, the
+        lossy decode of its three lossy textures and q90-photo-256-420, and
+        the LZMA2 decoder (csrc/image_entropy.cpp `xz_strip`) on an .xz
+        stream of the photo's decoded RGBA bytes, in ms per megapixel."""
         import hashlib
         import os
 
@@ -4130,12 +4135,12 @@ class Smoke:
 
         t0 = time.perf_counter()
         _entropy.av1_library()  # built before any decode is timed
-        log(f"csrc/av1_intra.cpp (the AV1 tile decoder of lossless AVIF) built by g++ or loaded "
+        log(f"csrc/av1_intra.cpp (the AV1 tile decoder of AVIF) built by g++ or loaded "
             f"in {time.perf_counter() - t0:.2f} s")
         with open(os.path.join(FORMATS_AVIF, "manifest.json")) as f:
             avif_manifest = json.load(f)
         entries = avif_manifest["images"]
-        photo_planes, n_lossless = None, 0
+        photo_planes, outcomes = None, {"lossless": 0, "lossy": 0, "deblocking": 0, "CDEF": 0}
         t0 = time.perf_counter()
         for entry in entries:
             with open(os.path.join(FORMATS_AVIF, entry["file"]), "rb") as f:
@@ -4157,12 +4162,20 @@ class Smoke:
             frames = [record[k] for k in ("colour", "alpha") if k in record]
             if all(f["frame"]["coded_lossless"] for f in frames) != entry["lossless"]:
                 self.fail(f"{entry['file']}: CodedLossless is not its record's")
-            if entry["lossless"]:  # the tile decoder: dav1d's planes, then Pillow's RGBA
-                n_lossless += 1
+            filtered = []  # the in-loop filters the payloads turn on, by their refusals' names
+            if any(any(f["frame"]["loop_filter"]) for f in frames):
+                filtered.append("deblocking")
+            if any(f["frame"]["cdef"] and any(any(s) for s in f["frame"]["cdef"]["strengths"])
+                   for f in frames):
+                filtered.append("CDEF")
+            if not filtered:  # the tile decoder: dav1d's planes, then Pillow's RGBA
+                outcomes["lossless" if entry["lossless"] else "lossy"] += 1
                 parsed = avif_mod.headers(raw, h)
                 for name in ("colour", "alpha"):
-                    for payload, p in zip(getattr(h, name), parsed[name]):
-                        got, _ = avif_mod.decode_av1(avif_mod._payload(raw, h.idat, payload), p)
+                    tiles = [avif_mod.decode_av1(avif_mod._payload(raw, h.idat, payload), p)[0]
+                             for payload, p in zip(getattr(h, name), parsed[name])]
+                    if tiles:  # a grid's tiles placed as libavif places them
+                        got = avif_mod._placed(h, tiles, parsed[name][0]["sequence"])
                         got = dict(got) if name == "colour" else {"a": got["y"]}
                         if "planes" in entry:
                             with np.load(os.path.join(FORMATS_AVIF, entry["planes"])) as z:
@@ -4176,11 +4189,12 @@ class Smoke:
                 if not matches(entry, rgba):
                     self.fail(f"{entry['file']}: the decode differs from Pillow's RGBA")
             else:
+                outcomes[filtered[0]] += 1
                 try:
                     decode_image_u8(raw, entry["file"])
-                    self.fail(f"{entry['file']}: the lossy tile data was not refused")
+                    self.fail(f"{entry['file']}: the filtered tile data was not refused")
                 except NotImplementedError as e:
-                    if "AVIF AV1 tile data (lossy)" not in str(e):
+                    if f"AVIF AV1 tile data (lossy, {filtered[0]})" not in str(e):
                         self.fail(f"{entry['file']}: refused otherwise: {e}")
             if "planes" not in entry:
                 continue
@@ -4197,9 +4211,10 @@ class Smoke:
                 self.fail(f"{entry['file']}: the colour stage differs from Pillow's RGBA")
         log(f"{len(entries)} AVIF fixtures: headers as Pillow's, AV1 headers as recorded and "
             f"as dav1d parses them, the colour stage on dav1d's planes equal to Pillow's RGBA; "
-            f"{n_lossless} lossless files decoded (csrc/av1_intra.cpp) to dav1d's planes and "
-            f"Pillow's RGBA, the lossy tile data refused by name "
-            f"({time.perf_counter() - t0:.2f} s)")
+            f"{outcomes['lossless']} lossless and {outcomes['lossy']} filter-free lossy files "
+            f"decoded (csrc/av1_intra.cpp) to dav1d's planes and Pillow's RGBA; "
+            f"{outcomes['deblocking']} deblocked and {outcomes['CDEF']} CDEF-only files refused "
+            f"by name ({time.perf_counter() - t0:.2f} s)")
         y, u, v = photo_planes["y"], photo_planes["u"], photo_planes["v"]
         u444, v444 = (np.repeat(np.repeat(c, 2, 0), 2, 1)[: y.shape[0], : y.shape[1]]
                       for c in (u, v))
@@ -4216,13 +4231,17 @@ class Smoke:
                                                                         full_range=True)}
         if stream is not None:
             jobs["tiff lzma2 decoder (xz_strip)"] = lambda: tiff_mod._unxz(stream, len(rgba))
-        textures = []  # BreakTime-AVIF's six lossless textures, 256^2 each
-        for name in avif_manifest["scene"]["textures"]:
+        textures = {"lossless": [], "lossy": []}  # BreakTime-AVIF's textures, 256^2 each
+        for name in avif_manifest["scene"]["textures"] + ["q90-photo-256-420.avif"]:
             with open(os.path.join(FORMATS_AVIF, name), "rb") as f:
-                textures.append((name, f.read()))
-        jobs["avif lossless decode (BreakTime-AVIF's six textures)"] = lambda: [
-            decode_image_u8(raw, name) for name, raw in textures]
-        pixels = {"avif lossless decode (BreakTime-AVIF's six textures)": 6 * 256 * 256}
+                textures["lossless" if name.startswith("q100") else "lossy"].append((name, f.read()))
+        lossless_job = "avif lossless decode (BreakTime-AVIF's three lossless textures)"
+        lossy_job = ("avif lossy decode (BreakTime-AVIF's three lossy textures and "
+                     "q90-photo-256-420)")
+        jobs[lossless_job] = lambda: [decode_image_u8(raw, n) for n, raw in textures["lossless"]]
+        jobs[lossy_job] = lambda: [decode_image_u8(raw, n) for n, raw in textures["lossy"]]
+        pixels = {lossless_job: len(textures["lossless"]) * 256 * 256,
+                  lossy_job: len(textures["lossy"]) * 256 * 256}
         best = {k: float("inf") for k in jobs}
         best_photo = float("inf")
         for _ in range(VARIANT_TURNS):
@@ -4261,9 +4280,9 @@ class Smoke:
         and DCX textures, EXR sky), BreakTime-legacy (IPTC holding a TIFF,
         IM, BLP, long-key XPM, McIdas and APNG textures, EXR sky),
         BreakTime-JPEG-ext (CMYK, YCCK, arithmetic-coded, lossless and
-        repaired JPEG textures, EXR sky), BreakTime-AVIF (lossless AVIF
-        textures: 4:4:4 and 4:2:0, 2x2 tiles, palette and intra block copy;
-        EXR sky) and
+        repaired JPEG textures, EXR sky), BreakTime-AVIF (three lossy and
+        three lossless AVIF textures: 4:4:4 and 4:2:0, 2x2 tiles, palette
+        and intra block copy; EXR sky) and
         their lossless twins loaded
         on the card (the load split; a twin takes its partner's packed
         atlas once its decoded textures are found equal to the partner's),

@@ -1,15 +1,21 @@
 // The AV1 tile decoder of the AVIF reader (utils/avif.py): the tile data of
-// one key frame whose frame is CodedLossless, decoded as the AV1
-// specification decodes it (sections 5.11 and 7.11-7.13; names follow it):
-// the symbol decoder with CDF adaptation, partitions, intra frame mode info
-// (skip, segment id, y and uv modes, angle deltas, CfL alphas, palette and
-// its colour cache and colour-index map, filter intra), intra block copy
-// (its DV stack, default DV and read_mv), the coefficients of 4x4 transform
-// blocks, and reconstruction: the intra edges (availability, the edge filter
-// and upsampling), every intra prediction mode, CfL, filter intra, palette,
-// the block copy's bilinear prediction, and the inverse Walsh-Hadamard
-// transform. Lossless frames have no loop filter, CDEF or loop restoration,
-// so the reconstructed planes are the picture.
+// one key frame, decoded as the AV1 specification decodes it (sections 5.11
+// and 7.11-7.13; names follow it): the symbol decoder with CDF adaptation,
+// partitions, intra frame mode info (skip, segment id, CDEF indices, y and
+// uv modes, angle deltas, CfL alphas, palette and its colour cache and
+// colour-index map, filter intra), intra block copy (its DV stack, default
+// DV and read_mv), the transform size (tx_depth, and the var-tx tree of a
+// block copy) and type (the intra and inter sets), the coefficients of
+// every transform size, and reconstruction: the intra edges (availability,
+// the edge filter, the corner filter and upsampling), every intra
+// prediction mode, CfL, filter intra, palette, the block copy's bilinear
+// prediction, dequantisation, and the inverse transforms (av1_itx.h; the
+// Walsh-Hadamard transform where the frame is CodedLossless).
+//
+// The frame is the picture only where no in-loop filter runs: utils/avif.py
+// refuses by name the frames whose loop filter levels or CDEF strengths are
+// not 0, and those with loop restoration, superres, quantiser matrices,
+// segmentation in a lossy frame, or delta q / lf.
 //
 // Where a bitstream breaks a rule the decoder cannot go on from, the call
 // returns 1 with a message: a partition whose chroma block is invalid at
@@ -17,8 +23,9 @@
 // block copy that no clamp takes out of the superblock being decoded (as
 // dav1d 1.5.1, the decoder Pillow's libavif uses, refuses them). Where dav1d goes
 // on, this decoder goes on as it does: reads past the end of a tile's data
-// read zeros, and an intra block copy's source is clamped to the decoded
-// area as dav1d clamps it.
+// read zeros, an intra block copy's source is clamped to the decoded area as
+// dav1d clamps it, and coefficients and transform stages out of range are
+// clamped as dav1d clamps them.
 //
 // Built by g++ at first use (ops/_build.py compile_host), loaded by
 // utils/_entropy.py av1_library().
@@ -31,6 +38,7 @@
 #include <string>
 #include <vector>
 
+#include "av1_itx.h"
 #include "av1_tables.h"
 
 namespace {
@@ -88,6 +96,22 @@ enum {
     SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED, PAETH_PRED, UV_CFL_PRED, INTRA_MODES = 13
 };
 const int Intra_Mode_Context[INTRA_MODES] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
+const int Filter_Intra_Mode_To_Intra_Dir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
+
+enum {
+    TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16, TX_16X8, TX_16X32,
+    TX_32X16, TX_32X64, TX_64X32, TX_4X16, TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16,
+    TX_SIZES_ALL
+};
+const int Tx_Width[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64};
+const int Tx_Height[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16};
+const int Tx_Width_Log2[TX_SIZES_ALL] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4, 5, 5, 6, 2, 4, 3, 5, 4, 6};
+const int Tx_Height_Log2[TX_SIZES_ALL] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5, 4, 6, 5, 4, 2, 5, 3, 6, 4};
+const int Tx_Size_Sqr[TX_SIZES_ALL] = {0, 1, 2, 3, 4, 0, 0, 1, 1, 2, 2, 3, 3, 0, 0, 1, 1, 2, 2};
+const int Tx_Size_Sqr_Up[TX_SIZES_ALL] = {0, 1, 2, 3, 4, 1, 1, 2, 2, 3, 3, 4, 4, 2, 2, 3, 3, 4, 4};
+enum { TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
+enum { TX_SET_DCTONLY, TX_SET_1, TX_SET_2, TX_SET_3 };  // INTRA_1/2, INTER_1/2/3
+enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 
 // the block of w4 x h4 4x4 units (square, half, quarter and 4:1 shapes)
 int block_of(int w4, int h4) {
@@ -129,7 +153,13 @@ enum {
     C_BLOCKS = 22,             // blocks decoded
     C_PADDING = 23,            // tiles whose trailing bits break the padding rule
     C_UV_MODE = 24,            // 14 entries: blocks of each uv mode
-    C_COUNT = 40
+    C_TX_SIZE = 38,            // 19 entries: transform blocks with coefficients, by size
+    C_TX_TYPE = 57,            // 16 entries: transform blocks with coefficients, by type
+    C_TX_DEPTH = 73,           // intra blocks whose tx_depth is above 0
+    C_TXFM_SPLIT = 74,         // var-tx splits of block copies
+    C_INTRABC_RESIDUAL = 75,   // block copies with a residual (lossy)
+    C_CORNER_FILTER = 76,      // directional predictions with the corner filter
+    C_COUNT = 77
 };
 
 // ---- the CDFs one tile adapts ---------------------------------------------------------------
@@ -145,9 +175,14 @@ struct Cdfs {
     uint16_t seg_id[3][9];
     uint16_t mv_joint[5], mv_class[2][12], mv_sign[2][3], mv_class0_bit[2][3],
         mv_class0_fr[2][2][5], mv_class0_hp[2][3], mv_bit[2][10][3], mv_fr[2][5], mv_hp[2][3];
-    uint16_t txb_skip[5][13][3], eob_pt16[2][2][6], eob_extra[5][2][9][3];
+    uint16_t txb_skip[5][13][3], eob_pt16[2][2][6], eob_pt32[2][2][7], eob_pt64[2][2][8],
+        eob_pt128[2][2][9], eob_pt256[2][2][10], eob_pt512[2][11], eob_pt1024[2][12],
+        eob_extra[5][2][9][3];
     uint16_t coeff_base_eob[5][2][4][4], coeff_base[5][2][41][5], coeff_br[4][2][21][5];
     uint16_t dc_sign[2][3][3];
+    uint16_t tx_8x8[3][3], tx_16x16[3][4], tx_32x32[3][4], tx_64x64[3][4], txfm_split[21][3];
+    uint16_t intra_tx_set1[2][13][8], intra_tx_set2[3][13][6];
+    uint16_t inter_tx_set1[2][17], inter_tx_set2[13], inter_tx_set3[4][3];
 
     void init(int qctx) {
         std::memcpy(partition_w8, Default_Partition_W8_Cdf, sizeof partition_w8);
@@ -201,11 +236,27 @@ struct Cdfs {
         }
         std::memcpy(txb_skip, Default_Txb_Skip_Cdf[qctx], sizeof txb_skip);
         std::memcpy(eob_pt16, Default_Eob_Pt_16_Cdf[qctx], sizeof eob_pt16);
+        std::memcpy(eob_pt32, Default_Eob_Pt_32_Cdf[qctx], sizeof eob_pt32);
+        std::memcpy(eob_pt64, Default_Eob_Pt_64_Cdf[qctx], sizeof eob_pt64);
+        std::memcpy(eob_pt128, Default_Eob_Pt_128_Cdf[qctx], sizeof eob_pt128);
+        std::memcpy(eob_pt256, Default_Eob_Pt_256_Cdf[qctx], sizeof eob_pt256);
+        std::memcpy(eob_pt512, Default_Eob_Pt_512_Cdf[qctx], sizeof eob_pt512);
+        std::memcpy(eob_pt1024, Default_Eob_Pt_1024_Cdf[qctx], sizeof eob_pt1024);
         std::memcpy(eob_extra, Default_Eob_Extra_Cdf[qctx], sizeof eob_extra);
         std::memcpy(coeff_base_eob, Default_Coeff_Base_Eob_Cdf[qctx], sizeof coeff_base_eob);
         std::memcpy(coeff_base, Default_Coeff_Base_Cdf[qctx], sizeof coeff_base);
         std::memcpy(coeff_br, Default_Coeff_Br_Cdf[qctx], sizeof coeff_br);
         std::memcpy(dc_sign, Default_Dc_Sign_Cdf[qctx], sizeof dc_sign);
+        std::memcpy(tx_8x8, Default_Tx_8x8_Cdf, sizeof tx_8x8);
+        std::memcpy(tx_16x16, Default_Tx_16x16_Cdf, sizeof tx_16x16);
+        std::memcpy(tx_32x32, Default_Tx_32x32_Cdf, sizeof tx_32x32);
+        std::memcpy(tx_64x64, Default_Tx_64x64_Cdf, sizeof tx_64x64);
+        std::memcpy(txfm_split, Default_Txfm_Split_Cdf, sizeof txfm_split);
+        std::memcpy(intra_tx_set1, Default_Intra_Tx_Type_Set1_Cdf, sizeof intra_tx_set1);
+        std::memcpy(intra_tx_set2, Default_Intra_Tx_Type_Set2_Cdf, sizeof intra_tx_set2);
+        std::memcpy(inter_tx_set1, Default_Inter_Tx_Type_Set1_Cdf, sizeof inter_tx_set1);
+        std::memcpy(inter_tx_set2, Default_Inter_Tx_Type_Set2_Cdf, sizeof inter_tx_set2);
+        std::memcpy(inter_tx_set3, Default_Inter_Tx_Type_Set3_Cdf, sizeof inter_tx_set3);
     }
 };
 
@@ -310,6 +361,8 @@ struct Params {
     int width, height, mono, ssx, ssy, sb128, enable_filter_intra, enable_edge_filter;
     int screen, allow_intrabc, disable_cdf_update, base_q_idx;
     int seg_enabled, seg_preskip, seg_last_active, seg_skip_mask;
+    int lossless, tx_mode, reduced_tx_set, enable_cdef, cdef_bits;
+    int dq_ydc, dq_udc, dq_uac, dq_vdc, dq_vac;  // DeltaQYDc, DeltaQUDc, ...
 };
 
 struct Decoder {
@@ -320,6 +373,9 @@ struct Decoder {
 
     // per-MI state of the frame
     std::vector<uint8_t> mi_size, y_modes, uv_modes, skips, seg_ids, is_inters, written;
+    std::vector<uint8_t> inter_tx_sizes, tx_types;  // InterTxSizes, TxTypes (luma 4x4 units)
+    std::vector<int8_t> cdef_idx;                   // per 64x64
+    int cdef_stride;
     std::vector<uint8_t> pal_sizes[2];
     std::vector<uint16_t> pal_colors[2];
     std::vector<int16_t> mvs;
@@ -360,8 +416,11 @@ struct Decoder {
         mi_rows = 2 * ((p.height + 7) >> 3);
         num_planes = p.mono ? 1 : 3;
         int64_t n = (int64_t)mi_cols * mi_rows;
-        for (auto* v : {&mi_size, &y_modes, &uv_modes, &skips, &seg_ids, &is_inters, &written})
+        for (auto* v : {&mi_size, &y_modes, &uv_modes, &skips, &seg_ids, &is_inters, &written,
+                        &inter_tx_sizes, &tx_types})
             v->assign(n, 0);
+        cdef_stride = (mi_cols >> 4) + 3;
+        cdef_idx.assign((int64_t)cdef_stride * ((mi_rows >> 4) + 3), -1);
         for (int k = 0; k < 2; k++) {
             pal_sizes[k].assign(n, 0);
             pal_colors[k].assign(n * 8, 0);
@@ -402,6 +461,8 @@ struct Decoder {
             }
             for (int c = mi_col_start; c < mi_col_end; c += sb4) {
                 clear_block_decoded_flags(r, c, sb4);
+                for (int y = 0; y < sb4; y += 16)  // clear_cdef
+                    for (int x = 0; x < sb4; x += 16) cdef_at(r + y, c + x) = -1;
                 decode_partition(r, c, sb_size);
             }
         }
@@ -413,6 +474,7 @@ struct Decoder {
     }
 
     uint8_t& decoded(int plane, int y, int x) { return block_decoded[plane][y + 1][x + 1]; }
+    int8_t& cdef_at(int r, int c) { return cdef_idx[(int64_t)(r >> 4) * cdef_stride + (c >> 4)]; }
 
     void clear_block_decoded_flags(int r, int c, int sb4) {
         for (int pl = 0; pl < num_planes; pl++) {
@@ -557,6 +619,7 @@ struct Decoder {
         }
         intra_frame_mode_info();
         palette_tokens();
+        read_block_tx_size();
         if (skip) reset_block_context();
         for (int y = 0; y < bh4; y++) {
             if (r + y >= mi_rows) break;
@@ -606,9 +669,6 @@ struct Decoder {
                 left_level[pl][i] = left_dc[pl][i] = 0;
         }
     }
-
-    uint8_t& left_lvl(int pl, int y4) { return left_level[pl][y4]; }
-    uint8_t& left_dcc(int pl, int y4) { return left_dc[pl][y4]; }
 
     void intra_segment_id() {
         if (!p.seg_enabled) {
@@ -661,6 +721,7 @@ struct Decoder {
         if (p.seg_preskip) intra_segment_id();
         read_skip();
         if (!p.seg_preskip) intra_segment_id();
+        read_cdef();
         use_intrabc = p.allow_intrabc ? sd.symbol(cdf.intrabc, 2) : 0;
         palette_size_y = palette_size_uv = 0;
         use_filter_intra = 0;
@@ -681,7 +742,8 @@ struct Decoder {
         if (use_angle_delta && y_mode >= V_PRED && y_mode <= D67_PRED)
             angle_delta_y = sd.symbol(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
         if (has_chroma) {
-            int cfl_allowed = Subsampled_Size[mi_sz][p.ssx][p.ssy] == BLOCK_4X4;
+            int cfl_allowed = p.lossless ? Subsampled_Size[mi_sz][p.ssx][p.ssy] == BLOCK_4X4
+                                         : std::max(bw4, bh4) <= 8;
             if (cfl_allowed) uv_mode = sd.symbol(cdf.uv_cfl[y_mode], 14);
             else uv_mode = sd.symbol(cdf.uv_no_cfl[y_mode], 13);
             if (uv_mode == UV_CFL_PRED) read_cfl_alphas();
@@ -697,6 +759,16 @@ struct Decoder {
             std::max(Num_4x4_Blocks_Wide[mi_sz], Num_4x4_Blocks_High[mi_sz]) <= 8) {
             use_filter_intra = sd.symbol(cdf.filter_intra[mi_sz], 2);
             if (use_filter_intra) filter_intra_mode = sd.symbol(cdf.filter_intra_mode, 5);
+        }
+    }
+
+    void read_cdef() {
+        if (skip || p.lossless || !p.enable_cdef || p.allow_intrabc) return;
+        int r = mi_row & ~15, c = mi_col & ~15;
+        if (cdef_at(r, c) == -1) {
+            int v = (int)sd.literal(p.cdef_bits);
+            for (int y = r; y < r + bh4; y += 16)
+                for (int x = c; x < c + bw4; x += 16) cdef_at(y, x) = (int8_t)v;
         }
     }
 
@@ -1112,32 +1184,176 @@ struct Decoder {
         }
     }
 
+    // ---- transform size (5.11.15-5.11.17) ----
+
+    int tx_size;  // TxSize: the block's (intra), or the last var-tx leaf's
+
+    int get_above_tx_width(int row, int col) {
+        if (row == mi_row) {
+            if (!avail_u) return 64;
+            int64_t k = mi(row - 1, col);
+            if (skips[k] && is_inters[k]) return Num_4x4_Blocks_Wide[mi_size[k]] * 4;
+        }
+        return Tx_Width[inter_tx_sizes[mi(row - 1, col)]];
+    }
+
+    int get_left_tx_height(int row, int col) {
+        if (col == mi_col) {
+            if (!avail_l) return 64;
+            int64_t k = mi(row, col - 1);
+            if (skips[k] && is_inters[k]) return Num_4x4_Blocks_High[mi_size[k]] * 4;
+        }
+        return Tx_Height[inter_tx_sizes[mi(row, col - 1)]];
+    }
+
+    void read_block_tx_size() {
+        if (p.tx_mode == TX_MODE_SELECT && mi_sz > BLOCK_4X4 && is_inter && !skip && !p.lossless) {
+            int max_tx = Max_Tx_Size_Rect[mi_sz];
+            int tw4 = Tx_Width[max_tx] >> 2, th4 = Tx_Height[max_tx] >> 2;
+            for (int row = mi_row; row < mi_row + bh4; row += th4)
+                for (int col = mi_col; col < mi_col + bw4; col += tw4)
+                    read_var_tx_size(row, col, max_tx, 0);
+            return;
+        }
+        read_tx_size(!skip || !is_inter);
+        for (int row = mi_row; row < std::min(mi_row + bh4, mi_rows); row++)
+            for (int col = mi_col; col < std::min(mi_col + bw4, mi_cols); col++)
+                inter_tx_sizes[mi(row, col)] = (uint8_t)tx_size;
+    }
+
+    void read_var_tx_size(int row, int col, int tx, int depth) {
+        if (row >= mi_rows || col >= mi_cols) return;
+        int split = 0;
+        if (tx != TX_4X4 && depth != 2) {  // MAX_VARTX_DEPTH
+            int above = get_above_tx_width(row, col) < Tx_Width[tx];
+            int left = get_left_tx_height(row, col) < Tx_Height[tx];
+            int size = std::min(64, std::max(bw4, bh4) * 4);
+            int max_tx_sz = floor_log2(size) - 2;  // find_tx_size(size, size)
+            int ctx = (Tx_Size_Sqr_Up[tx] != max_tx_sz) * 3 + (TX_64X64 - max_tx_sz) * 6 + above +
+                      left;
+            split = sd.symbol(cdf.txfm_split[ctx], 2);
+        }
+        int w4 = Tx_Width[tx] >> 2, h4 = Tx_Height[tx] >> 2;
+        if (split) {
+            counters[C_TXFM_SPLIT]++;
+            int sub = Split_Tx_Size[tx];
+            int sw4 = Tx_Width[sub] >> 2, sh4 = Tx_Height[sub] >> 2;
+            for (int i = 0; i < h4; i += sh4)
+                for (int j = 0; j < w4; j += sw4) read_var_tx_size(row + i, col + j, sub, depth + 1);
+        } else {
+            for (int i = 0; i < h4 && row + i < mi_rows; i++)
+                for (int j = 0; j < w4 && col + j < mi_cols; j++)
+                    inter_tx_sizes[mi(row + i, col + j)] = (uint8_t)tx;
+            tx_size = tx;
+        }
+    }
+
+    void read_tx_size(int allow_select) {
+        if (p.lossless) {
+            tx_size = TX_4X4;
+            return;
+        }
+        int max_rect = Max_Tx_Size_Rect[mi_sz];
+        tx_size = max_rect;
+        if (mi_sz > BLOCK_4X4 && allow_select && p.tx_mode == TX_MODE_SELECT) {
+            int above_w = 0, left_h = 0;
+            if (avail_u) {
+                int64_t k = mi(mi_row - 1, mi_col);
+                above_w = is_inters[k] ? Num_4x4_Blocks_Wide[mi_size[k]] * 4
+                                       : get_above_tx_width(mi_row, mi_col);
+            }
+            if (avail_l) {
+                int64_t k = mi(mi_row, mi_col - 1);
+                left_h = is_inters[k] ? Num_4x4_Blocks_High[mi_size[k]] * 4
+                                      : get_left_tx_height(mi_row, mi_col);
+            }
+            int ctx = (above_w >= Tx_Width[max_rect]) + (left_h >= Tx_Height[max_rect]);
+            int depth;
+            switch (Max_Tx_Depth[mi_sz]) {
+                case 4: depth = sd.symbol(cdf.tx_64x64[ctx], 3); break;
+                case 3: depth = sd.symbol(cdf.tx_32x32[ctx], 3); break;
+                case 2: depth = sd.symbol(cdf.tx_16x16[ctx], 3); break;
+                default: depth = sd.symbol(cdf.tx_8x8[ctx], 2); break;
+            }
+            for (int i = 0; i < depth; i++) tx_size = Split_Tx_Size[tx_size];
+            if (depth) counters[C_TX_DEPTH]++;
+        }
+    }
+
+    // get_tx_size: a chroma plane's transform is its residual block's largest,
+    // 32 where that is 64
+    int get_tx_size(int pl, int tx) {
+        if (pl == 0) return tx;
+        int uv_tx = Max_Tx_Size_Rect[Subsampled_Size[mi_sz][p.ssx][p.ssy]];
+        if (Tx_Width[uv_tx] == 64 || Tx_Height[uv_tx] == 64) {
+            if (Tx_Width[uv_tx] == 16) return TX_16X32;
+            if (Tx_Height[uv_tx] == 16) return TX_32X16;
+            return TX_32X32;
+        }
+        return uv_tx;
+    }
+
     // ---- residual (5.11.34) and transform blocks ----
 
     void residual() {
         int width_chunks = std::max(1, bw4 >> 4), height_chunks = std::max(1, bh4 >> 4);
+        int mi_size_chunk = width_chunks > 1 || height_chunks > 1 ? (int)BLOCK_64X64 : mi_sz;
+        if (use_intrabc && !skip && !p.lossless) counters[C_INTRABC_RESIDUAL]++;
         for (int cy = 0; cy < height_chunks; cy++)
             for (int cx = 0; cx < width_chunks; cx++) {
+                int mi_row_chunk = mi_row + (cy << 4), mi_col_chunk = mi_col + (cx << 4);
                 for (int pl = 0; pl < 1 + 2 * has_chroma; pl++) {
                     int sx = pl ? p.ssx : 0, sy = pl ? p.ssy : 0;
-                    int plane_sz = Subsampled_Size[mi_sz][sx][sy];
+                    int tx = p.lossless ? (int)TX_4X4 : get_tx_size(pl, tx_size);
+                    int step_x = Tx_Width[tx] >> 2, step_y = Tx_Height[tx] >> 2;
+                    int plane_sz = Subsampled_Size[mi_size_chunk][sx][sy];
                     int num4x4_w = Num_4x4_Blocks_Wide[plane_sz];
                     int num4x4_h = Num_4x4_Blocks_High[plane_sz];
+                    if (is_inter && !p.lossless && pl == 0) {
+                        transform_tree(mi_col_chunk * 4, mi_row_chunk * 4, num4x4_w * 4,
+                                       num4x4_h * 4);
+                        continue;
+                    }
                     int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
-                    for (int y = 0; y < std::min(num4x4_h, 16 >> sy); y++)
-                        for (int x = 0; x < std::min(num4x4_w, 16 >> sx); x++)
-                            transform_block(pl, base_x, base_y, x + ((cx << 4) >> sx),
+                    for (int y = 0; y < num4x4_h; y += step_y)
+                        for (int x = 0; x < num4x4_w; x += step_x)
+                            transform_block(pl, base_x, base_y, tx, x + ((cx << 4) >> sx),
                                             y + ((cy << 4) >> sy));
                 }
             }
     }
 
-    void transform_block(int pl, int base_x, int base_y, int x, int y) {
+    // the luma transform blocks of a var-tx block: halves (or quarters) of
+    // w x h down to the InterTxSizes leaf at their corner
+    void transform_tree(int start_x, int start_y, int w, int h) {
+        if (start_x >= mi_cols * 4 || start_y >= mi_rows * 4) return;
+        int tx = inter_tx_sizes[mi(start_y >> 2, start_x >> 2)];
+        if (w <= Tx_Width[tx] && h <= Tx_Height[tx]) {
+            int found = TX_4X4;  // find_tx_size(w, h)
+            for (int t = 0; t < TX_SIZES_ALL; t++)
+                if (Tx_Width[t] == w && Tx_Height[t] == h) found = t;
+            transform_block(0, start_x, start_y, found, 0, 0);
+        } else if (w > h) {
+            transform_tree(start_x, start_y, w / 2, h);
+            transform_tree(start_x + w / 2, start_y, w / 2, h);
+        } else if (w < h) {
+            transform_tree(start_x, start_y, w, h / 2);
+            transform_tree(start_x, start_y + h / 2, w, h / 2);
+        } else {
+            transform_tree(start_x, start_y, w / 2, h / 2);
+            transform_tree(start_x + w / 2, start_y, w / 2, h / 2);
+            transform_tree(start_x, start_y + h / 2, w / 2, h / 2);
+            transform_tree(start_x + w / 2, start_y + h / 2, w / 2, h / 2);
+        }
+    }
+
+    void transform_block(int pl, int base_x, int base_y, int tx, int x, int y) {
         int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
         int sx = pl ? p.ssx : 0, sy = pl ? p.ssy : 0;
         int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
         int sb_mask = p.sb128 ? 31 : 15;
         int sub_row = row & sb_mask, sub_col = col & sb_mask;
+        int step_x = Tx_Width[tx] >> 2, step_y = Tx_Height[tx] >> 2;
         int max_x = (mi_cols * 4) >> sx, max_y = (mi_rows * 4) >> sy;
         if (start_x >= max_x || start_y >= max_y) return;
         if (!is_inter) {
@@ -1145,8 +1361,8 @@ struct Decoder {
                 const int* palette = pl == 0 ? palette_colors_y
                                              : pl == 1 ? palette_colors_u : palette_colors_v;
                 uint8_t (*map)[64] = pl == 0 ? color_map_y : color_map_uv;
-                for (int i = 0; i < 4; i++)
-                    for (int j = 0; j < 4; j++)
+                for (int i = 0; i < Tx_Height[tx]; i++)
+                    for (int j = 0; j < Tx_Width[tx]; j++)
                         px(pl, start_y + i, start_x + j) =
                             (uint8_t)palette[map[y * 4 + i][x * 4 + j]];
             } else {
@@ -1154,39 +1370,137 @@ struct Decoder {
                 int mode = pl == 0 ? y_mode : is_cfl ? DC_PRED : uv_mode;
                 int have_left = (pl == 0 ? avail_l : avail_l_chroma) || x > 0;
                 int have_above = (pl == 0 ? avail_u : avail_u_chroma) || y > 0;
-                int have_above_rt = decoded(pl, (sub_row >> sy) - 1, (sub_col >> sx) + 1);
-                int have_below_lft = decoded(pl, (sub_row >> sy) + 1, (sub_col >> sx) - 1);
+                int have_above_rt = decoded(pl, (sub_row >> sy) - 1, (sub_col >> sx) + step_x);
+                int have_below_lft = decoded(pl, (sub_row >> sy) + step_y, (sub_col >> sx) - 1);
                 predict_intra(pl, start_x, start_y, have_left, have_above, have_above_rt,
-                              have_below_lft, mode);
-                if (is_cfl) predict_cfl(pl, start_x, start_y);
+                              have_below_lft, mode, Tx_Width_Log2[tx], Tx_Height_Log2[tx]);
+                if (is_cfl) predict_cfl(pl, start_x, start_y, tx);
             }
             if (pl == 0) {
-                max_luma_w = start_x + 4;
-                max_luma_h = start_y + 4;
+                max_luma_w = start_x + step_x * 4;
+                max_luma_h = start_y + step_y * 4;
             }
         }
         if (!skip) {
-            int eob = coeffs(pl, start_x, start_y);
-            if (eob > 0) reconstruct(pl, start_x, start_y);
+            int eob = coeffs(pl, start_x, start_y, tx);
+            if (eob > 0) reconstruct(pl, start_x, start_y, tx);
         }
-        decoded(pl, sub_row >> sy, sub_col >> sx) = 1;
+        for (int i = 0; i < step_y; i++)
+            for (int j = 0; j < step_x; j++) decoded(pl, (sub_row >> sy) + i, (sub_col >> sx) + j) = 1;
+    }
+
+    // ---- transform types (5.11.47, 7.13.1) ----
+
+    int get_tx_set(int tx) {
+        int sqr = Tx_Size_Sqr[tx], sqr_up = Tx_Size_Sqr_Up[tx];
+        if (sqr_up > TX_32X32) return TX_SET_DCTONLY;
+        if (is_inter) {
+            if (p.reduced_tx_set || sqr_up == TX_32X32) return TX_SET_3;
+            return sqr == TX_16X16 ? TX_SET_2 : TX_SET_1;
+        }
+        if (sqr_up == TX_32X32) return TX_SET_DCTONLY;
+        if (p.reduced_tx_set || sqr == TX_16X16) return TX_SET_2;
+        return TX_SET_1;
+    }
+
+    void transform_type(int x4, int y4, int tx) {
+        int set = get_tx_set(tx), type = av1itx::DCT_DCT;
+        if (set > 0 && !p.lossless && p.base_q_idx > 0) {
+            int sqr = Tx_Size_Sqr[tx];
+            if (is_inter) {
+                if (set == TX_SET_1)
+                    type = Tx_Type_Inter_Inv_Set1[sd.symbol(cdf.inter_tx_set1[sqr], 16)];
+                else if (set == TX_SET_2)
+                    type = Tx_Type_Inter_Inv_Set2[sd.symbol(cdf.inter_tx_set2, 12)];
+                else
+                    type = Tx_Type_Inter_Inv_Set3[sd.symbol(cdf.inter_tx_set3[sqr], 2)];
+            } else {
+                int dir = use_filter_intra ? Filter_Intra_Mode_To_Intra_Dir[filter_intra_mode]
+                                           : y_mode;
+                if (set == TX_SET_1)
+                    type = Tx_Type_Intra_Inv_Set1[sd.symbol(cdf.intra_tx_set1[sqr][dir], 7)];
+                else
+                    type = Tx_Type_Intra_Inv_Set2[sd.symbol(cdf.intra_tx_set2[sqr][dir], 5)];
+            }
+        }
+        set_tx_types(x4, y4, tx, type);
+    }
+
+    void set_tx_types(int x4, int y4, int tx, int type) {
+        for (int j = 0; j < (Tx_Height[tx] >> 2) && y4 + j < mi_rows; j++)
+            for (int i = 0; i < (Tx_Width[tx] >> 2) && x4 + i < mi_cols; i++)
+                tx_types[mi(y4 + j, x4 + i)] = (uint8_t)type;
+    }
+
+    int compute_tx_type(int pl, int tx, int block_x, int block_y) {
+        if (p.lossless || Tx_Size_Sqr_Up[tx] > TX_32X32) return av1itx::DCT_DCT;
+        int set = get_tx_set(tx);
+        if (pl == 0) return tx_types[mi(block_y, block_x)];
+        int type;
+        if (is_inter) {
+            int x4 = std::max(mi_col, block_x << p.ssx), y4 = std::max(mi_row, block_y << p.ssy);
+            type = tx_types[mi(y4, x4)];
+            return Tx_Type_In_Set_Inter[set][type] ? type : av1itx::DCT_DCT;
+        }
+        type = Mode_To_Txfm[uv_mode];
+        return Tx_Type_In_Set_Intra[set][type] ? type : av1itx::DCT_DCT;
+    }
+
+    static int tx_class_of(int type) {
+        if (type == av1itx::V_DCT || type == av1itx::V_ADST || type == av1itx::V_FLIPADST)
+            return TX_CLASS_VERT;
+        if (type == av1itx::H_DCT || type == av1itx::H_ADST || type == av1itx::H_FLIPADST)
+            return TX_CLASS_HORIZ;
+        return TX_CLASS_2D;
+    }
+
+    const uint16_t* get_scan(int tx) {
+        if (tx == TX_16X64) return Default_Scan_16x32;
+        if (tx == TX_64X16) return Default_Scan_32x16;
+        if (Tx_Size_Sqr_Up[tx] == TX_64X64) return Default_Scan_32x32;
+        int cls = plane_tx_type == av1itx::IDTX ? TX_CLASS_2D : tx_class_of(plane_tx_type);
+        switch (tx) {
+#define AV1_SCANS(tx, size) \
+    case tx: \
+        return cls == TX_CLASS_VERT ? Mrow_Scan_##size \
+               : cls == TX_CLASS_HORIZ ? Mcol_Scan_##size : Default_Scan_##size;
+            AV1_SCANS(TX_4X4, 4x4) AV1_SCANS(TX_8X8, 8x8) AV1_SCANS(TX_16X16, 16x16)
+            AV1_SCANS(TX_4X8, 4x8) AV1_SCANS(TX_8X4, 8x4) AV1_SCANS(TX_8X16, 8x16)
+            AV1_SCANS(TX_16X8, 16x8) AV1_SCANS(TX_4X16, 4x16) AV1_SCANS(TX_16X4, 16x4)
+#undef AV1_SCANS
+            case TX_32X32: return Default_Scan_32x32;
+            case TX_16X32: return Default_Scan_16x32;
+            case TX_32X16: return Default_Scan_32x16;
+            case TX_8X32: return Default_Scan_8x32;
+            default: return Default_Scan_32x8;
+        }
     }
 
     // ---- coefficients (5.11.39) ----
 
-    int quant[16];
+    int quant[1024];
+    int plane_tx_type;
 
-    int coeffs(int pl, int start_x, int start_y) {
+    int coeffs(int pl, int start_x, int start_y, int tx) {
         int x4 = start_x >> 2, y4 = start_y >> 2;
+        int w4 = Tx_Width[tx] >> 2, h4 = Tx_Height[tx] >> 2;
+        int tx_sz_ctx = (Tx_Size_Sqr[tx] + Tx_Size_Sqr_Up[tx] + 1) >> 1;
         int ptype = pl > 0;
         int sx = pl ? p.ssx : 0, sy = pl ? p.ssy : 0;
         int max_x4 = mi_cols >> sx, max_y4 = mi_rows >> sy;
-        std::memset(quant, 0, sizeof quant);
+        int seg_eob = tx == TX_16X64 || tx == TX_64X16 ? 512
+                                                       : std::min(1024, Tx_Width[tx] * Tx_Height[tx]);
+        std::memset(quant, 0, seg_eob * sizeof(int));
         int ctx;
+        int plane_sz = Subsampled_Size[mi_sz][sx][sy];
+        int bw = Num_4x4_Blocks_Wide[plane_sz] * 4, bh = Num_4x4_Blocks_High[plane_sz] * 4;
         if (pl == 0) {
-            int top = x4 < max_x4 ? above_level[pl][x4] : 0;
-            int left = y4 < max_y4 ? left_lvl(pl, y4) : 0;
-            if (mi_sz == BLOCK_4X4) ctx = 0;
+            int top = 0, left = 0;
+            for (int k = 0; k < w4; k++)
+                if (x4 + k < max_x4) top = std::max(top, (int)above_level[pl][x4 + k]);
+            for (int k = 0; k < h4; k++)
+                if (y4 + k < max_y4) left = std::max(left, (int)left_level[pl][y4 + k]);
+            if (bw == Tx_Width[tx] && bh == Tx_Height[tx]) ctx = 0;
             else if (top == 0 && left == 0) ctx = 1;
             else if (top == 0 || left == 0) ctx = 2 + (std::max(top, left) > 3);
             else if (std::max(top, left) <= 3) ctx = 4;
@@ -1194,37 +1508,60 @@ struct Decoder {
             else ctx = 6;
         } else {
             int above = 0, left = 0;
-            if (x4 < max_x4) above = above_level[pl][x4] | above_dc[pl][x4];
-            if (y4 < max_y4) left = left_lvl(pl, y4) | left_dcc(pl, y4);
+            for (int k = 0; k < w4; k++)
+                if (x4 + k < max_x4) above |= above_level[pl][x4 + k] | above_dc[pl][x4 + k];
+            for (int k = 0; k < h4; k++)
+                if (y4 + k < max_y4) left |= left_level[pl][y4 + k] | left_dc[pl][y4 + k];
             ctx = 7 + (above != 0) + (left != 0);
-            if (Subsampled_Size[mi_sz][sx][sy] != BLOCK_4X4) ctx += 3;
+            if (bw * bh > Tx_Width[tx] * Tx_Height[tx]) ctx += 3;
         }
-        int all_zero = sd.symbol(cdf.txb_skip[0][ctx], 2);
+        int all_zero = sd.symbol(cdf.txb_skip[tx_sz_ctx][ctx], 2);
         int eob = 0, cul_level = 0, dc_category = 0;
-        if (!all_zero) {
-            int eob_pt = sd.symbol(cdf.eob_pt16[ptype][0], 5) + 1;
+        if (all_zero) {
+            if (pl == 0) set_tx_types(x4, y4, tx, av1itx::DCT_DCT);
+        } else {
+            if (pl == 0) transform_type(x4, y4, tx);
+            plane_tx_type = compute_tx_type(pl, tx, x4, y4);
+            int tx_class = tx_class_of(plane_tx_type);
+            const uint16_t* scan = get_scan(tx);
+            int eob_multisize = std::min(Tx_Width_Log2[tx], 5) + std::min(Tx_Height_Log2[tx], 5) - 4;
+            int ectx = tx_class == TX_CLASS_2D ? 0 : 1;
+            int eob_pt;
+            switch (eob_multisize) {
+                case 0: eob_pt = sd.symbol(cdf.eob_pt16[ptype][ectx], 5); break;
+                case 1: eob_pt = sd.symbol(cdf.eob_pt32[ptype][ectx], 6); break;
+                case 2: eob_pt = sd.symbol(cdf.eob_pt64[ptype][ectx], 7); break;
+                case 3: eob_pt = sd.symbol(cdf.eob_pt128[ptype][ectx], 8); break;
+                case 4: eob_pt = sd.symbol(cdf.eob_pt256[ptype][ectx], 9); break;
+                case 5: eob_pt = sd.symbol(cdf.eob_pt512[ptype], 10); break;
+                default: eob_pt = sd.symbol(cdf.eob_pt1024[ptype], 11); break;
+            }
+            eob_pt += 1;
             eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
             int eob_shift = eob_pt - 3;
             if (eob_shift >= 0) {
-                if (sd.symbol(cdf.eob_extra[0][ptype][eob_pt - 3], 2)) eob += 1 << eob_shift;
+                if (sd.symbol(cdf.eob_extra[tx_sz_ctx][ptype][eob_pt - 3], 2)) eob += 1 << eob_shift;
                 for (int i = 1; i < std::max(0, eob_pt - 2); i++) {
                     eob_shift = std::max(0, eob_pt - 2) - 1 - i;
                     if (sd.literal(1)) eob += 1 << eob_shift;
                 }
             }
+            int adj = Adjusted_Tx_Size[tx];
+            int bwl = Tx_Width_Log2[adj], txh = Tx_Height[adj], area = Tx_Width[adj] * txh;
             for (int c = eob - 1; c >= 0; c--) {
-                int pos = Default_Scan_4x4[c];
+                int pos = scan[c];
                 int level;
                 if (c == eob - 1) {
-                    int ectx = c == 0 ? 0 : c <= 2 ? 1 : c <= 4 ? 2 : 3;
-                    level = sd.symbol(cdf.coeff_base_eob[0][ptype][ectx], 3) + 1;
+                    int bctx = c == 0 ? 0 : c <= area / 8 ? 1 : c <= area / 4 ? 2 : 3;
+                    level = sd.symbol(cdf.coeff_base_eob[tx_sz_ctx][ptype][bctx], 3) + 1;
                 } else {
-                    level = sd.symbol(cdf.coeff_base[0][ptype][coeff_base_ctx(pos)], 4);
+                    int bctx = coeff_base_ctx(tx, bwl, txh, pos, tx_class);
+                    level = sd.symbol(cdf.coeff_base[tx_sz_ctx][ptype][bctx], 4);
                 }
                 if (level > 2) {
-                    int bctx = coeff_br_ctx(pos);
+                    int bctx = coeff_br_ctx(bwl, txh, pos, tx_class);
                     for (int idx = 0; idx < 4; idx++) {
-                        int br = sd.symbol(cdf.coeff_br[0][ptype][bctx], 4);
+                        int br = sd.symbol(cdf.coeff_br[std::min(tx_sz_ctx, 3)][ptype][bctx], 4);
                         level += br;
                         if (br < 3) break;
                     }
@@ -1232,13 +1569,17 @@ struct Decoder {
                 quant[pos] = level;
             }
             for (int c = 0; c < eob; c++) {
-                int pos = Default_Scan_4x4[c];
+                int pos = scan[c];
                 int sign = 0;
                 if (quant[pos] != 0) {
                     if (c == 0) {
                         int dc = 0;
-                        if (x4 < max_x4) dc += above_dc[pl][x4] == 1 ? -1 : above_dc[pl][x4] == 2;
-                        if (y4 < max_y4) dc += left_dcc(pl, y4) == 1 ? -1 : left_dcc(pl, y4) == 2;
+                        for (int k = 0; k < w4; k++)
+                            if (x4 + k < max_x4)
+                                dc += above_dc[pl][x4 + k] == 1 ? -1 : above_dc[pl][x4 + k] == 2;
+                        for (int k = 0; k < h4; k++)
+                            if (y4 + k < max_y4)
+                                dc += left_dc[pl][y4 + k] == 1 ? -1 : left_dc[pl][y4 + k] == 2;
                         int sctx = dc < 0 ? 1 : dc > 0 ? 2 : 0;
                         sign = sd.symbol(cdf.dc_sign[ptype][sctx], 2);
                     } else {
@@ -1259,49 +1600,86 @@ struct Decoder {
                 quant[pos] = sign ? -(int)level : (int)level;
             }
             cul_level = std::min(63, cul_level);
+            counters[C_TX_SIZE + tx]++;
+            counters[C_TX_TYPE + plane_tx_type]++;
         }
-        if (x4 < (int)above_level[pl].size()) {
-            above_level[pl][x4] = (uint8_t)cul_level;
-            above_dc[pl][x4] = (uint8_t)dc_category;
+        for (int i = 0; i < w4; i++) {
+            above_level[pl][x4 + i] = (uint8_t)cul_level;
+            above_dc[pl][x4 + i] = (uint8_t)dc_category;
         }
-        left_lvl(pl, y4) = (uint8_t)cul_level;
-        left_dcc(pl, y4) = (uint8_t)dc_category;
+        for (int i = 0; i < h4; i++) {
+            left_level[pl][y4 + i] = (uint8_t)cul_level;
+            left_dc[pl][y4 + i] = (uint8_t)dc_category;
+        }
         return eob;
     }
 
-    int coeff_base_ctx(int pos) {
-        int row = pos >> 2, col = pos & 3, mag = 0;
+    int coeff_base_ctx(int tx, int bwl, int txh, int pos, int tx_class) {
+        int row = pos >> bwl, col = pos - (row << bwl), mag = 0;
         for (int i = 0; i < 5; i++) {
-            int rr = row + Sig_Ref_Diff_Offset_2D[i][0], cc = col + Sig_Ref_Diff_Offset_2D[i][1];
-            if (rr < 4 && cc < 4) mag += std::min(std::abs(quant[rr * 4 + cc]), 3);
+            int rr = row + Sig_Ref_Diff_Offset[tx_class][i][0];
+            int cc = col + Sig_Ref_Diff_Offset[tx_class][i][1];
+            if (rr < txh && cc < (1 << bwl)) mag += std::min(std::abs(quant[(rr << bwl) + cc]), 3);
         }
         int ctx = std::min((mag + 1) >> 1, 4);
-        if (row == 0 && col == 0) return 0;
-        return ctx + Coeff_Base_Ctx_Offset_4x4[std::min(row, 4)][std::min(col, 4)];
+        if (tx_class == TX_CLASS_2D) {
+            if (row == 0 && col == 0) return 0;
+            return ctx + Coeff_Base_Ctx_Offset[tx][std::min(row, 4)][std::min(col, 4)];
+        }
+        return ctx + Coeff_Base_Pos_Ctx_Offset[std::min(tx_class == TX_CLASS_VERT ? row : col, 2)];
     }
 
-    int coeff_br_ctx(int pos) {
-        int row = pos >> 2, col = pos & 3, mag = 0;
+    int coeff_br_ctx(int bwl, int txh, int pos, int tx_class) {
+        int row = pos >> bwl, col = pos - (row << bwl), mag = 0;
         for (int i = 0; i < 3; i++) {
-            int rr = row + Mag_Ref_Offset_2D[i][0], cc = col + Mag_Ref_Offset_2D[i][1];
-            if (rr < 4 && cc < 4) mag += std::min(quant[rr * 4 + cc], 15);
+            int rr = row + Mag_Ref_Offset_With_Tx_Class[tx_class][i][0];
+            int cc = col + Mag_Ref_Offset_With_Tx_Class[tx_class][i][1];
+            if (rr < txh && cc < (1 << bwl)) mag += std::min(quant[(rr << bwl) + cc], 15);
         }
         mag = std::min((mag + 1) >> 1, 6);
         if (pos == 0) return mag;
-        if (row < 2 && col < 2) return mag + 7;
-        return mag + 14;
+        int near = tx_class == TX_CLASS_2D     ? row < 2 && col < 2
+                   : tx_class == TX_CLASS_HORIZ ? col == 0
+                                                : row == 0;
+        return mag + (near ? 7 : 14);
     }
 
-    // ---- reconstruction: dequantisation at q index 0 and the inverse WHT (7.13) ----
+    // ---- reconstruction: dequantisation (7.12.3) and the inverse transforms (7.13) ----
 
-    void reconstruct(int pl, int x, int y) {
+    int dq[1024];
+
+    void reconstruct(int pl, int x, int y, int tx) {
+        if (p.lossless) {
+            reconstruct_wht(pl, x, y);
+            return;
+        }
+        int w = Tx_Width[tx], h = Tx_Height[tx];
+        int tw = std::min(32, w), th = std::min(32, h);
+        int area = w * h;
+        int dq_shift = area > 1024 ? 2 : area > 256 ? 1 : 0;  // dqDenom 4, 2 or 1
+        const int dc_delta[3] = {p.dq_ydc, p.dq_udc, p.dq_vdc};
+        const int ac_delta[3] = {0, p.dq_uac, p.dq_vac};
+        int dc_q = Dc_Qlookup[std::min(std::max(p.base_q_idx + dc_delta[pl], 0), 255)];
+        int ac_q = Ac_Qlookup[std::min(std::max(p.base_q_idx + ac_delta[pl], 0), 255)];
+        for (int i = 0; i < th * tw; i++) {
+            int q = quant[i];
+            uint32_t v = ((uint32_t)std::abs(q) * (uint32_t)(i == 0 ? dc_q : ac_q)) & 0xFFFFFF;
+            v >>= dq_shift;
+            dq[i] = q < 0 ? -(int)std::min<uint32_t>(v, 32768) : (int)std::min<uint32_t>(v, 32767);
+        }
+        av1itx::inverse_transform_add(dq, w, h, Transform_Row_Shift[tx], plane_tx_type,
+                                      &px(pl, y, x), stride[pl]);
+    }
+
+    // a CodedLossless frame: dequantisation at q index 0 and the inverse WHT
+    void reconstruct_wht(int pl, int x, int y) {
         int t[4][4];
         for (int i = 0; i < 4; i++)
             for (int j = 0; j < 4; j++) {
                 int q = quant[i * 4 + j];
-                uint32_t dq = ((uint32_t)std::abs(q) * 4u) & 0xFFFFFF;
-                t[i][j] = q < 0 ? -(int)std::min<uint32_t>(dq, 32768)
-                                : (int)std::min<uint32_t>(dq, 32767);
+                uint32_t dq4 = ((uint32_t)std::abs(q) * 4u) & 0xFFFFFF;
+                t[i][j] = q < 0 ? -(int)std::min<uint32_t>(dq4, 32768)
+                                : (int)std::min<uint32_t>(dq4, 32767);
             }
         auto wht = [](int* a, int* b, int* c, int* d, int shift) {
             int A = *a >> shift, C = *b >> shift, D = *c >> shift, B = *d >> shift;
@@ -1385,7 +1763,7 @@ struct Decoder {
     // edge[-16..] with index offset 16
     void edge_filter(int* edge, int size, int strength) {
         if (!strength) return;
-        int e[64];
+        int e[160];
         for (int i = 0; i < size; i++) e[i] = edge[i - 1];
         for (int i = 1; i < size; i++) {
             int s = 0;
@@ -1412,12 +1790,24 @@ struct Decoder {
         }
     }
 
+    static const uint8_t* sm_weights(int log2) {
+        switch (log2) {
+            case 2: return Sm_Weights_Tx_4x4;
+            case 3: return Sm_Weights_Tx_8x8;
+            case 4: return Sm_Weights_Tx_16x16;
+            case 5: return Sm_Weights_Tx_32x32;
+            default: return Sm_Weights_Tx_64x64;
+        }
+    }
+
+    int pred[64][64];
+
     void predict_intra(int pl, int x, int y, int have_left, int have_above, int have_above_rt,
-                       int have_below_lft, int mode) {
-        const int w = 4, h = 4;
+                       int have_below_lft, int mode, int log2w, int log2h) {
+        const int w = 1 << log2w, h = 1 << log2h;
         int sx = pl ? p.ssx : 0, sy = pl ? p.ssy : 0;
         int max_x = ((mi_cols * 4) >> sx) - 1, max_y = ((mi_rows * 4) >> sy) - 1;
-        int above_buf[64], left_buf[64];
+        int above_buf[176], left_buf[176];
         int* above = above_buf + 16;
         int* left = left_buf + 16;
         for (int i = 0; i < w + h; i++) {
@@ -1441,7 +1831,6 @@ struct Decoder {
         else if (have_left) above[-1] = px(pl, y, x - 1);
         else above[-1] = 128;
         left[-1] = above[-1];
-        int pred[4][4];
         if (pl == 0 && use_filter_intra) {
             // the recursive intra prediction process (filter intra), 4x2 at a time
             for (int i2 = 0; i2 < h / 2; i2++)
@@ -1475,6 +1864,7 @@ struct Decoder {
                     if (p_angle > 90 && p_angle < 180 && (w + h) >= 24) {
                         int v = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
                         left[-1] = above[-1] = v;
+                        counters[C_CORNER_FILTER]++;
                     }
                     if (have_above) {
                         int strength = edge_strength(w, h, type, p_angle - 90);
@@ -1537,23 +1927,23 @@ struct Decoder {
                     pred[i][j] = v;
                 }
         } else if (mode == SMOOTH_PRED) {
+            const uint8_t *wx = sm_weights(log2w), *wy = sm_weights(log2h);
             for (int i = 0; i < h; i++)
                 for (int j = 0; j < w; j++) {
-                    const uint8_t* wt = Sm_Weights_Tx_4x4;
-                    int s = wt[i] * above[j] + (256 - wt[i]) * left[h - 1] + wt[j] * left[i] +
-                            (256 - wt[j]) * above[w - 1];
+                    int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + wx[j] * left[i] +
+                            (256 - wx[j]) * above[w - 1];
                     pred[i][j] = round2(s, 9);
                 }
         } else if (mode == SMOOTH_V_PRED) {
+            const uint8_t* wy = sm_weights(log2h);
             for (int i = 0; i < h; i++)
                 for (int j = 0; j < w; j++)
-                    pred[i][j] = round2(Sm_Weights_Tx_4x4[i] * above[j] +
-                                        (256 - Sm_Weights_Tx_4x4[i]) * left[h - 1], 8);
+                    pred[i][j] = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
         } else if (mode == SMOOTH_H_PRED) {
+            const uint8_t* wx = sm_weights(log2w);
             for (int i = 0; i < h; i++)
                 for (int j = 0; j < w; j++)
-                    pred[i][j] = round2(Sm_Weights_Tx_4x4[j] * left[i] +
-                                        (256 - Sm_Weights_Tx_4x4[j]) * above[w - 1], 8);
+                    pred[i][j] = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
         } else if (mode == DC_PRED) {
             int v;
             if (have_left && have_above) {
@@ -1564,11 +1954,11 @@ struct Decoder {
             } else if (have_left) {
                 int sum = 0;
                 for (int k = 0; k < h; k++) sum += left[k];
-                v = clip1((sum + (h >> 1)) >> 2);
+                v = clip1((sum + (h >> 1)) >> log2h);
             } else if (have_above) {
                 int sum = 0;
                 for (int k = 0; k < w; k++) sum += above[k];
-                v = clip1((sum + (w >> 1)) >> 2);
+                v = clip1((sum + (w >> 1)) >> log2w);
             } else {
                 v = 128;
             }
@@ -1589,11 +1979,11 @@ struct Decoder {
             for (int j = 0; j < w; j++) px(pl, y + i, x + j) = (uint8_t)pred[i][j];
     }
 
-    void predict_cfl(int pl, int start_x, int start_y) {
-        const int w = 4, h = 4;
+    void predict_cfl(int pl, int start_x, int start_y, int tx) {
+        const int w = Tx_Width[tx], h = Tx_Height[tx];
         int sx = p.ssx, sy = p.ssy;
         int alpha = pl == 1 ? cfl_alpha_u : cfl_alpha_v;
-        int lum[4][4], avg = 0;
+        int avg = 0;
         for (int i = 0; i < h; i++) {
             int luma_y = std::min((start_y + i) << sy, max_luma_h - (1 << sy));
             for (int j = 0; j < w; j++) {
@@ -1602,15 +1992,15 @@ struct Decoder {
                 for (int dy = 0; dy <= sy; dy++)
                     for (int dx = 0; dx <= sx; dx++) t += px(0, luma_y + dy, luma_x + dx);
                 int v = t << (3 - sx - sy);
-                lum[i][j] = v;
+                pred[i][j] = v;
                 avg += v;
             }
         }
-        avg = round2(avg, 4);
+        avg = round2(avg, Tx_Width_Log2[tx] + Tx_Height_Log2[tx]);
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++) {
                 int dc = px(pl, start_y + i, start_x + j);
-                int scaled = round2signed(alpha * (lum[i][j] - avg), 6);
+                int scaled = round2signed(alpha * (pred[i][j] - avg), 6);
                 px(pl, start_y + i, start_x + j) = (uint8_t)clip1(dc + scaled);
             }
     }
@@ -1620,13 +2010,16 @@ struct Decoder {
 
 extern "C" {
 
-// Decode one CodedLossless key frame's tiles.
+// Decode one key frame's tiles.
 //   data, size       the tile group data the tiles' offsets index
 //   params           width, height, mono, subsampling_x, subsampling_y, sb128,
 //                    enable_filter_intra, enable_intra_edge_filter,
 //                    allow_screen_content_tools, allow_intrabc, disable_cdf_update,
 //                    base_q_idx, segmentation_enabled, SegIdPreSkip, LastActiveSegId,
-//                    the mask of segments with SEG_LVL_SKIP (16 int32)
+//                    the mask of segments with SEG_LVL_SKIP, CodedLossless, TxMode
+//                    (0 ONLY_4X4, 1 LARGEST, 2 SELECT), reduced_tx_set, enable_cdef,
+//                    cdef_bits, DeltaQYDc, DeltaQUDc, DeltaQUAc, DeltaQVDc, DeltaQVAc
+//                    (26 int32)
 //   tiles            per tile: offset, size, MiRowStart, MiRowEnd, MiColStart, MiColEnd
 //   y, u, v          the planes out, cropped to the frame: height x width, and the
 //                    chroma planes' ceil-subsampled size (u, v null for 4:0:0)
@@ -1655,6 +2048,16 @@ int av1_decode_tiles(const uint8_t* data, int64_t size, const int32_t* params,
         p.seg_preskip = params[13];
         p.seg_last_active = params[14];
         p.seg_skip_mask = params[15];
+        p.lossless = params[16];
+        p.tx_mode = params[17];
+        p.reduced_tx_set = params[18];
+        p.enable_cdef = params[19];
+        p.cdef_bits = params[20];
+        p.dq_ydc = params[21];
+        p.dq_udc = params[22];
+        p.dq_uac = params[23];
+        p.dq_vdc = params[24];
+        p.dq_vac = params[25];
         d->setup(p, counters);
         for (int t = 0; t < n_tiles; t++) {
             const int64_t* tile = tiles + 6 * t;

@@ -1,6 +1,7 @@
 """AVIF as Pillow 12.1.0 opens it (PIL/AvifImagePlugin.py over its
-bundled libavif 1.3.0 with dav1d 1.5.1): lossless key frames decoded,
-lossy tile data refused by name.
+bundled libavif 1.3.0 with dav1d 1.5.1): key frames that no in-loop
+filter touches decoded (lossless, and lossy with loop filter and CDEF
+off), the filtered ones refused by name.
 
 Identification is Pillow's `_accept`: "ftyp" at bytes 4-8 and a major
 brand "avif", "avis", "mif1" or "msf1". The header reader `open_avif`
@@ -45,13 +46,18 @@ the payload's), and the key frame's uncompressed_header (frame and render
 size, superres, intrabc, tile_info, quantisation with delta-q and
 segmentation, loop filter, CDEF, loop restoration, tx_mode,
 reduced_tx_set, film grain), checked to end where the tile group's data
-begins; `CodedLossless` follows the AV1 specification. The tile data of
-a CodedLossless frame is decoded by `decode_av1` (csrc/av1_intra.cpp, an
-AV1 intra tile decoder held to dav1d 1.5.1's planes; a grid's tiles placed
-as libavif places them); lossy tile data raises NotImplementedError
-naming it ("AVIF AV1 tile data (lossy)"), and so do samples of other than
-8 bits (nothing here writes them) and lossless frames with superres or
-film grain.
+begins; `CodedLossless` follows the AV1 specification. The tile data is
+decoded by `decode_av1` (csrc/av1_intra.cpp, an AV1 intra tile decoder
+held to dav1d 1.5.1's planes; a grid's tiles placed as libavif places
+them): CodedLossless frames, and lossy frames (every transform size and
+type, intra block copy with its residual) whose loop filter levels and
+CDEF strengths are all 0, so that the reconstruction is the picture. A
+frame the decoder does not take raises NotImplementedError naming what
+it lacks (`tool_refusal`): a loop filter level ("AVIF AV1 tile data
+(lossy, deblocking)"), a CDEF strength ("(lossy, CDEF)"), loop
+restoration, superres, film grain, quantiser matrices, segmentation in a
+lossy frame, delta q or lf, and samples of other than 8 bits (nothing
+here writes them).
 
 `yuv_to_rgba` is libavif's avifImageYUVToRGB as Pillow calls it (8-bit
 RGB, or RGBA where there is alpha, chroma upsampling automatic): where
@@ -1589,11 +1595,12 @@ def header_record(raw: bytes) -> dict:
 def decode_avif(raw: bytes, h: Avif = None) -> np.ndarray:
     """AVIF bytes (or their `open_avif` header) -> uint8 [H, W, 4], Pillow's
     convert("RGBA"): the payloads read, their AV1 headers parsed, the tile
-    data of a CodedLossless frame decoded (`decode_av1`; a grid's tiles
-    placed as libavif places them), then `yuv_to_rgba` with the container's
-    colour description. Lossy tile data raises NotImplementedError naming
-    it, and so do the lossless frames this decoder does not take (superres,
-    film grain)."""
+    data of a frame no in-loop filter touches decoded (`decode_av1`, lossless
+    or lossy; a grid's tiles placed as libavif places them), then
+    `yuv_to_rgba` with the container's colour description. A frame the
+    decoder does not take (`tool_refusal`: a loop filter level, a CDEF
+    strength, ...) raises NotImplementedError naming it before any tile
+    data is read."""
     raw = bytes(raw)
     h = h or open_avif(raw)
     try:
@@ -1605,13 +1612,10 @@ def decode_avif(raw: bytes, h: Avif = None) -> np.ndarray:
     frames = parsed["colour"] + parsed["alpha"]
     if h.depth != 8 or any(f["sequence"]["depth"] != 8 for f in frames):
         _refuse(f"{h.depth}-bit samples")
-    if not all(f["frame"]["coded_lossless"] for f in frames):
-        _refuse("AV1 tile data (lossy)")
     for f in frames:
-        if f["frame"]["frame_width"] != f["frame"]["upscaled_width"]:
-            _refuse("AV1 tile data (lossless, superres)")
-        if f["frame"]["film_grain"] is not None:
-            _refuse("AV1 tile data (lossless, film grain)")
+        refusal = tool_refusal(f["frame"])
+        if refusal:
+            _refuse(refusal)
     payloads = {name: [_payload(raw, h.idat, p) for p in getattr(h, name)]
                 for name in ("colour", "alpha")}
     colour = _placed(h, [decode_av1(d, p)[0] for d, p in zip(payloads["colour"],
@@ -1649,11 +1653,45 @@ def _placed(h: Avif, tiles: list, seq: dict) -> dict:
     return out
 
 
-# csrc/av1_intra.cpp's counters: name -> slot (the y and uv modes: 13 and 14 slots)
+def tool_refusal(fh: dict):
+    """The name a frame header's refusal gives, or None where the tile
+    decoder takes the frame: its reconstruction must be the picture (no
+    loop filter level, CDEF strength, loop restoration, superres or film
+    grain) and its quantisers the frame's own (no quantiser matrix,
+    segmentation of a lossy frame, delta q or lf)."""
+    lossy = "lossless" if fh["coded_lossless"] else "lossy"
+    if any(fh["loop_filter"]["levels"]):
+        return "AV1 tile data (lossy, deblocking)"
+    if any(any(y) or any(uv) for y, uv in fh["cdef"]["strengths"]):
+        return "AV1 tile data (lossy, CDEF)"
+    if any(t != "NONE" for t in fh["restoration"]["types"]):
+        return f"AV1 tile data ({lossy}, loop restoration)"
+    if fh["frame_width"] != fh["upscaled_width"]:
+        return f"AV1 tile data ({lossy}, superres)"
+    if fh["film_grain"] is not None:
+        return f"AV1 tile data ({lossy}, film grain)"
+    if fh["quant"]["qmatrix"]:
+        return f"AV1 tile data ({lossy}, quantiser matrices)"
+    if fh["segmentation"]["enabled"] and not fh["coded_lossless"]:
+        return "AV1 tile data (lossy, segmentation)"
+    if fh["delta_q"]:
+        return f"AV1 tile data ({lossy}, delta q/lf)"
+    return None
+
+
+# csrc/av1_intra.cpp's counters: name -> slot (the y and uv modes: 13 and 14 slots, the
+# transform sizes TX_4X4 ... TX_64X16 and types DCT_DCT ... H_FLIPADST: 19 and 16)
 AV1_COUNTERS = {"y modes": slice(0, 13), "angle delta": 13, "upsampled edge": 14,
                 "filter intra": 15, "cfl": 16, "palette y": 17, "palette uv": 18, "intrabc": 19,
                 "tiles": 20, "edge filter": 21, "blocks": 22, "padding": 23,
-                "uv modes": slice(24, 38)}
+                "uv modes": slice(24, 38), "tx sizes": slice(38, 57),
+                "tx types": slice(57, 73), "tx depth": 73, "txfm split": 74,
+                "intrabc residual": 75, "corner filter": 76}
+TX_SIZE_NAMES = ["4x4", "8x8", "16x16", "32x32", "64x64", "4x8", "8x4", "8x16", "16x8", "16x32",
+                 "32x16", "32x64", "64x32", "4x16", "16x4", "8x32", "32x8", "16x64", "64x16"]
+TX_TYPE_NAMES = ["DCT_DCT", "ADST_DCT", "DCT_ADST", "ADST_ADST", "FLIPADST_DCT", "DCT_FLIPADST",
+                 "FLIPADST_FLIPADST", "ADST_FLIPADST", "FLIPADST_ADST", "IDTX", "V_DCT", "H_DCT",
+                 "V_ADST", "H_ADST", "V_FLIPADST", "H_FLIPADST"]
 
 
 def _tiles(data: bytes, parsed: dict) -> list:
@@ -1694,25 +1732,33 @@ def _tiles(data: bytes, parsed: dict) -> list:
 
 
 def decode_av1(data: bytes, parsed: dict = None) -> tuple:
-    """One AV1 payload whose first frame is CodedLossless -> ({"y", and "u",
-    "v" unless 4:0:0: uint8 planes of the frame's size}, {counter: count of
-    the blocks that took each tool}) through csrc/av1_intra.cpp; corrupt
-    tile data raises ValueError."""
+    """One AV1 payload whose first frame no in-loop filter touches ->
+    ({"y", and "u", "v" unless 4:0:0: uint8 planes of the frame's size},
+    {counter: count of the blocks (or transform blocks) that took each
+    tool}) through csrc/av1_intra.cpp: a CodedLossless frame, or a lossy
+    one of any tx_mode whose loop filter levels and CDEF strengths are 0.
+    Another frame raises NotImplementedError by name (`tool_refusal`);
+    corrupt tile data raises ValueError."""
     from rustic_tpu_torch.utils._entropy import av1_library, ptr
 
     parsed = parsed or parse_av1(data)
     seq, fh = parsed["sequence"], parsed["frame"]
-    if not fh["coded_lossless"]:
-        _refuse("AV1 tile data (lossy)")
+    refusal = tool_refusal(fh)
+    if refusal:
+        _refuse(refusal)
     seg = fh["segmentation"]
     features = seg["features"] if seg["enabled"] else [[None] * 8] * 8
     active = [i for i in range(8) if any(v is not None for v in features[i])]
+    q = fh["quant"]
     params = np.array([
         fh["frame_width"], fh["frame_height"], seq["mono"], seq["ssx"], seq["ssy"],
         seq["sb128"], seq["filter_intra"], seq["intra_edge"], fh["screen_content_tools"],
-        fh["intrabc"], fh["disable_cdf_update"], fh["quant"]["base"], seg["enabled"],
+        fh["intrabc"], fh["disable_cdf_update"], q["base"], seg["enabled"],
         any(f[j] is not None for f in features for j in range(5, 8)), max(active, default=0),
-        sum(1 << i for i in range(8) if features[i][6] is not None)], np.int32)
+        sum(1 << i for i in range(8) if features[i][6] is not None), fh["coded_lossless"],
+        ("ONLY_4X4", "TX_MODE_LARGEST", "TX_MODE_SELECT").index(fh["tx_mode"]),
+        fh["reduced_tx_set"], seq["cdef"], fh["cdef"]["bits"], q["y_dc"], q["u_dc"], q["u_ac"],
+        q["v_dc"], q["v_ac"]], np.int32)
     tiles = np.array(_tiles(data, parsed), np.int64)
     width, height = fh["frame_width"], fh["frame_height"]
     planes = dict(y=np.zeros((height, width), np.uint8))
@@ -1878,6 +1924,8 @@ def yuv_to_rgba(y: np.ndarray, u: np.ndarray = None, v: np.ndarray = None,
         out[..., 3] = alpha
         if premultiplied:  # libyuv's ARGBUnattenuate: (c * 0x0101 * (1/a in 8.8)) >> 16
             inverse = _INVERSE[alpha.astype(np.int64)][..., None]
-            out[..., :3] = np.minimum((out[..., :3].astype(np.int64) * 0x0101 * inverse) >> 16,
-                                      255)
+            word = (out[..., :3].astype(np.int64) * 0x0101 * inverse) >> 16
+            # packed to bytes with signed saturation: a word of 0x8000 or more (a colour of
+            # 128 or more over an alpha of 1, which valid premultiplied data never has) is 0
+            out[..., :3] = np.where(word >= 0x8000, 0, np.minimum(word, 255))
     return out

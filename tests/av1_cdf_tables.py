@@ -100,6 +100,19 @@ DAV1D = {
     "Default_Mv_Bit_Cdf": ("kfym", -100, (10,), 2, 2, 3),
     "Default_Mv_Fr_Cdf": ("kfym", -56, (), 4, 4, 5),
     "Default_Mv_Hp_Cdf": ("kfym", -48, (), 2, 2, 3),
+    # tx_depth by the block's largest transform (dav1d's txsz[4][3], 2 symbols at 8x8)
+    "Default_Tx_8x8_Cdf": ("mode", 4352, (3,), 4, 2, 4),
+    "Default_Tx_16x16_Cdf": ("mode", 4376, (3,), 4, 3, 4),
+    "Default_Tx_32x32_Cdf": ("mode", 4400, (3,), 4, 3, 4),
+    "Default_Tx_64x64_Cdf": ("mode", 4424, (3,), 4, 3, 4),
+    "Default_Txfm_Split_Cdf": ("mode", 4616, (21,), 2, 2, 3),
+    # the transform types by Tx_Size_Sqr (and the intra direction); libaom's arrays hold
+    # every set at 17 slots a CDF
+    "Default_Intra_Tx_Type_Set1_Cdf": ("mode", 1760, (2, 13), 8, 7, 17),
+    "Default_Intra_Tx_Type_Set2_Cdf": ("mode", 2176, (3, 13), 8, 5, 17),
+    "Default_Inter_Tx_Type_Set1_Cdf": ("mode", 1664, (2,), 16, 16, 17),
+    "Default_Inter_Tx_Type_Set2_Cdf": ("mode", 1728, (), 16, 12, 17),
+    "Default_Inter_Tx_Type_Set3_Cdf": ("mode", 4512, (4,), 2, 2, 17),
 }
 for _n in range(2, 9):
     for _k, _plane in enumerate(("Y", "Uv")):
@@ -233,6 +246,83 @@ INTRA_FILTER_TAPS = [
      [-8, 0, 0, 0, 14, 10, 0], [-10, 12, 0, 0, 0, 0, 14], [-9, 1, 12, 0, 0, 0, 12],
      [-8, 0, 0, 12, 0, 1, 11], [-7, 0, 0, 1, 12, 1, 9]],
 ]
+# the transform sizes: TX_4X4 ... TX_64X16 as the specification numbers them
+TX_SIZES_ALL = [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4), (8, 16), (16, 8),
+                (16, 32), (32, 16), (32, 64), (64, 32), (4, 16), (16, 4), (8, 32), (32, 8),
+                (16, 64), (64, 16)]  # (width, height)
+SCAN_SIZES = [(4, 8), (8, 4), (8, 8), (8, 16), (16, 8), (16, 16), (16, 32), (32, 16), (32, 32),
+              (4, 16), (16, 4), (8, 32), (32, 8)]
+MROW_SIZES = [(4, 8), (8, 4), (8, 8), (8, 16), (16, 8), (16, 16), (4, 16), (16, 4)]
+
+
+def default_scan(w: int, h: int) -> list:
+    """Default_Scan_WxH: positions row * w + col. Square sizes zig-zag
+    (the odd anti-diagonals down from the top row, the even ones up from
+    the left column); the others walk each anti-diagonal along the longer
+    side (down the rows where h > w, along the columns where w > h)."""
+    out = []
+    for d in range(w + h - 1):
+        cells = [(r, d - r) for r in range(h) if 0 <= d - r < w]
+        if (w == h and d % 2 == 0) or w > h:
+            cells = cells[::-1]
+        out += [r * w + c for r, c in cells]
+    return out
+
+
+def mrow_scan(w: int, h: int) -> list:
+    return list(range(w * h))
+
+
+def mcol_scan(w: int, h: int) -> list:
+    return [r * w + c for c in range(w) for r in range(h)]
+
+
+DC_QLOOKUP = [4, 8, 8, 9, 10, 11, 12, 12, 13, 14, 15, 16, 17, 18, 19, 19, 20, 21, 22, 23, 24, 25,
+    26, 26, 27, 28, 29, 30, 31, 32, 32, 33, 34, 35, 36, 37, 38, 38, 39, 40, 41, 42, 43, 43, 44,
+    45, 46, 47, 48, 48, 49, 50, 51, 52, 53, 53, 54, 55, 56, 57, 57, 58, 59, 60, 61, 62, 62, 63,
+    64, 65, 66, 66, 67, 68, 69, 70, 70, 71, 72, 73, 74, 74, 75, 76, 77, 78, 78, 79, 80, 81, 81,
+    82, 83, 84, 85, 85, 87, 88, 90, 92, 93, 95, 96, 98, 99, 101, 102, 104, 105, 107, 108, 110,
+    111, 113, 114, 116, 117, 118, 120, 121, 123, 125, 127, 129, 131, 134, 136, 138, 140, 142, 144,
+    146, 148, 150, 152, 154, 156, 158, 161, 164, 166, 169, 172, 174, 177, 180, 182, 185, 187, 190,
+    192, 195, 199, 202, 205, 208, 211, 214, 217, 220, 223, 226, 230, 233, 237, 240, 243, 247, 250,
+    253, 257, 261, 265, 269, 272, 276, 280, 284, 288, 292, 296, 300, 304, 309, 313, 317, 322, 326,
+    330, 335, 340, 344, 349, 354, 359, 364, 369, 374, 379, 384, 389, 395, 400, 406, 411, 417, 423,
+    429, 435, 441, 447, 454, 461, 467, 475, 482, 489, 497, 505, 513, 522, 530, 539, 549, 559, 569,
+    579, 590, 602, 614, 626, 640, 654, 668, 684, 700, 717, 736, 755, 775, 796, 819, 843, 869, 896,
+    925, 955, 988, 1022, 1058, 1098, 1139, 1184, 1232, 1282, 1336]  # Dc_Qlookup[0]: 8-bit
+AC_QLOOKUP = [4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28,
+    29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51,
+    52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74,
+    75, 76, 77, 78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89, 90, 91, 92, 93, 94, 95, 96, 97,
+    98, 99, 100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118, 120, 122, 124, 126, 128, 130,
+    132, 134, 136, 138, 140, 142, 144, 146, 148, 150, 152, 155, 158, 161, 164, 167, 170, 173, 176,
+    179, 182, 185, 188, 191, 194, 197, 200, 203, 207, 211, 215, 219, 223, 227, 231, 235, 239, 243,
+    247, 251, 255, 260, 265, 270, 275, 280, 285, 290, 295, 300, 305, 311, 317, 323, 329, 335, 341,
+    347, 353, 359, 366, 373, 380, 387, 394, 401, 408, 416, 424, 432, 440, 448, 456, 465, 474, 483,
+    492, 501, 510, 520, 530, 540, 550, 560, 571, 582, 593, 604, 615, 627, 639, 651, 663, 676, 689,
+    702, 715, 729, 743, 757, 771, 786, 801, 816, 832, 848, 864, 881, 898, 915, 933, 951, 969, 988,
+    1007, 1026, 1046, 1066, 1087, 1108, 1129, 1151, 1173, 1196, 1219, 1243, 1267, 1292, 1317,
+    1343, 1369, 1396, 1423, 1451, 1479, 1508, 1537, 1567, 1597, 1628, 1660, 1692, 1725, 1759,
+    1793, 1828]
+COS128_LOOKUP = [round(4096 * np.cos(i * np.pi / 128)) for i in range(65)]  # cos128(0..64)
+# DCT_DCT, ADST_DCT, DCT_ADST or ADST_ADST by intra mode (UV_CFL_PRED last)
+MODE_TO_TXFM = [0, 1, 2, 0, 3, 1, 2, 2, 1, 3, 1, 2, 3, 0]
+TRANSFORM_ROW_SHIFT = [0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2]
+MAX_TX_SIZE_RECT = [0, 5, 6, 1, 7, 8, 2, 9, 10, 3, 11, 12, 4, 4, 4, 4, 13, 14, 15, 16, 17, 18]
+MAX_TX_DEPTH = [0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4]
+SPLIT_TX_SIZE = [0, 0, 1, 2, 3, 0, 0, 1, 1, 2, 2, 3, 3, 5, 6, 7, 8, 9, 10]
+ADJUSTED_TX_SIZE = [0, 1, 2, 3, 3, 5, 6, 7, 8, 9, 10, 3, 3, 13, 14, 15, 16, 9, 10]
+# the read tx type -> TxType, per set (TX_SET_INTRA_1/2, TX_SET_INTER_1/2/3)
+TX_TYPE_INTRA_INV_SET1 = [9, 0, 10, 11, 3, 1, 2]
+TX_TYPE_INTRA_INV_SET2 = [9, 0, 3, 1, 2]
+TX_TYPE_INTER_INV_SET1 = [9, 10, 11, 12, 13, 14, 15, 0, 1, 2, 4, 5, 3, 6, 7, 8]
+TX_TYPE_INTER_INV_SET2 = [9, 10, 11, 0, 1, 2, 4, 5, 3, 6, 7, 8]
+TX_TYPE_INTER_INV_SET3 = [9, 0]
+TX_TYPE_IN_SET_INTRA = [[1] + [0] * 15, [1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0],
+                        [1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0]]
+TX_TYPE_IN_SET_INTER = [[1] + [0] * 15, [1] * 16, [1] * 12 + [0] * 4,
+                        [1] + [0] * 8 + [1] + [0] * 6]
+
 INTRA_EDGE_KERNEL = [[0, 4, 8, 4, 0], [0, 5, 6, 5, 0], [2, 4, 4, 4, 2]]
 INTRA_EDGE_UPSAMPLE = [-1, 9, 9, -1]  # the taps of the intra edge upsample process
 DEFAULT_SCAN_4X4 = [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]
@@ -240,9 +330,29 @@ MROW_SCAN_4X4 = list(range(16))
 MCOL_SCAN_4X4 = [0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14, 3, 7, 11, 15]
 COEFF_BASE_CTX_OFFSET_4X4 = [[0, 1, 6, 6, 0], [1, 6, 6, 21, 0], [6, 6, 21, 21, 0],
                              [6, 21, 21, 21, 0], [0, 0, 0, 0, 0]]
+_CTX_SQUARE = [[0, 1, 6, 6, 21], [1, 6, 6, 21, 21], [6, 6, 21, 21, 21], [6, 21, 21, 21, 21],
+               [21] * 5]
+_CTX_WIDE = [[0, 16, 6, 6, 21], [16, 16, 6, 21, 21]] + [[16, 16, 21, 21, 21]] * 3
+_CTX_TALL = [[0, 11, 11, 11, 11], [11] * 5, [6, 6, 21, 21, 21], [6, 21, 21, 21, 21], [21] * 5]
+
+
+def coeff_base_ctx_offset(w: int, h: int) -> list:
+    """Coeff_Base_Ctx_Offset[txSz] ([row][col], rows and columns past the
+    coded block's 0): by the transform's own shape, 64x32 wide and 32x64
+    tall though each codes its 32x32 corner."""
+    table = _CTX_SQUARE if w == h else _CTX_WIDE if w > h else _CTX_TALL
+    w, h = min(w, 32), min(h, 32)
+    return [[table[r][c] if r < h and c < w else 0 for c in range(5)] for r in range(5)]
+
+
+COEFF_BASE_CTX_OFFSET = [coeff_base_ctx_offset(w, h) for w, h in TX_SIZES_ALL]
+assert COEFF_BASE_CTX_OFFSET[0] == COEFF_BASE_CTX_OFFSET_4X4
 COEFF_BASE_POS_CTX_OFFSET = [26, 31, 36]
-SIG_REF_DIFF_OFFSET_2D = [[0, 1], [1, 0], [1, 1], [0, 2], [2, 0]]
-MAG_REF_OFFSET_2D = [[0, 1], [1, 0], [1, 1]]
+SIG_REF_DIFF_OFFSET = [[[0, 1], [1, 0], [1, 1], [0, 2], [2, 0]],  # TX_CLASS_2D, _HORIZ, _VERT
+                       [[0, 1], [1, 0], [0, 2], [0, 3], [0, 4]],
+                       [[0, 1], [1, 0], [2, 0], [3, 0], [4, 0]]]
+MAG_REF_OFFSET_WITH_TX_CLASS = [[[0, 1], [1, 0], [1, 1]], [[0, 1], [1, 0], [0, 2]],
+                                [[0, 1], [1, 0], [2, 0]]]
 PALETTE_COLOR_CONTEXT = [-1, -1, 0, -1, -1, 4, 3, 2, 1]
 PALETTE_COLOR_HASH_MULTIPLIERS = [1, 2, 2]
 
@@ -253,13 +363,32 @@ OTHER = {  # name -> (C type, values)
     "Intra_Filter_Taps": ("int8_t", INTRA_FILTER_TAPS),
     "Intra_Edge_Kernel": ("int8_t", INTRA_EDGE_KERNEL),
     "Intra_Edge_Upsample_Taps": ("int8_t", INTRA_EDGE_UPSAMPLE),
-    "Default_Scan_4x4": ("uint8_t", DEFAULT_SCAN_4X4),
-    "Mrow_Scan_4x4": ("uint8_t", MROW_SCAN_4X4),
-    "Mcol_Scan_4x4": ("uint8_t", MCOL_SCAN_4X4),
-    "Coeff_Base_Ctx_Offset_4x4": ("uint8_t", COEFF_BASE_CTX_OFFSET_4X4),
+    "Default_Scan_4x4": ("uint16_t", DEFAULT_SCAN_4X4),
+    "Mrow_Scan_4x4": ("uint16_t", MROW_SCAN_4X4),
+    "Mcol_Scan_4x4": ("uint16_t", MCOL_SCAN_4X4),
+    **{f"Default_Scan_{w}x{h}": ("uint16_t", default_scan(w, h)) for w, h in SCAN_SIZES},
+    **{f"Mrow_Scan_{w}x{h}": ("uint16_t", mrow_scan(w, h)) for w, h in MROW_SIZES},
+    **{f"Mcol_Scan_{w}x{h}": ("uint16_t", mcol_scan(w, h)) for w, h in MROW_SIZES},
+    "Coeff_Base_Ctx_Offset": ("uint8_t", COEFF_BASE_CTX_OFFSET),
     "Coeff_Base_Pos_Ctx_Offset": ("uint8_t", COEFF_BASE_POS_CTX_OFFSET),
-    "Sig_Ref_Diff_Offset_2D": ("int8_t", SIG_REF_DIFF_OFFSET_2D),
-    "Mag_Ref_Offset_2D": ("int8_t", MAG_REF_OFFSET_2D),
+    "Sig_Ref_Diff_Offset": ("int8_t", SIG_REF_DIFF_OFFSET),
+    "Mag_Ref_Offset_With_Tx_Class": ("int8_t", MAG_REF_OFFSET_WITH_TX_CLASS),
+    "Dc_Qlookup": ("int16_t", DC_QLOOKUP),
+    "Cos128_Lookup": ("int16_t", COS128_LOOKUP),
+    "Ac_Qlookup": ("int16_t", AC_QLOOKUP),
+    "Mode_To_Txfm": ("uint8_t", MODE_TO_TXFM),
+    "Transform_Row_Shift": ("uint8_t", TRANSFORM_ROW_SHIFT),
+    "Max_Tx_Size_Rect": ("uint8_t", MAX_TX_SIZE_RECT),
+    "Max_Tx_Depth": ("uint8_t", MAX_TX_DEPTH),
+    "Split_Tx_Size": ("uint8_t", SPLIT_TX_SIZE),
+    "Adjusted_Tx_Size": ("uint8_t", ADJUSTED_TX_SIZE),
+    "Tx_Type_Intra_Inv_Set1": ("uint8_t", TX_TYPE_INTRA_INV_SET1),
+    "Tx_Type_Intra_Inv_Set2": ("uint8_t", TX_TYPE_INTRA_INV_SET2),
+    "Tx_Type_Inter_Inv_Set1": ("uint8_t", TX_TYPE_INTER_INV_SET1),
+    "Tx_Type_Inter_Inv_Set2": ("uint8_t", TX_TYPE_INTER_INV_SET2),
+    "Tx_Type_Inter_Inv_Set3": ("uint8_t", TX_TYPE_INTER_INV_SET3),
+    "Tx_Type_In_Set_Intra": ("uint8_t", TX_TYPE_IN_SET_INTRA),
+    "Tx_Type_In_Set_Inter": ("uint8_t", TX_TYPE_IN_SET_INTER),
     "Palette_Color_Context": ("int8_t", PALETTE_COLOR_CONTEXT),
     "Palette_Color_Hash_Multipliers": ("uint8_t", PALETTE_COLOR_HASH_MULTIPLIERS),
 }

@@ -10,8 +10,9 @@ bundled libavif 1.3.0 (dav1d 1.5.1 decoding, aom 3.12.1 encoding):
   the tile data begins, `CodedLossless` exactly on the quality-100 files;
 - the colour stage `yuv_to_rgba` on dav1d's own planes, committed beside
   each file (`.yuv.npz`), equal to Pillow's convert("RGBA") (`.rgba.npy`);
-- the decode: a lossless file (CodedLossless, csrc/av1_intra.cpp) to
-  Pillow's RGBA, lossy tile data refused by name.
+- the decode: a lossless file, and a lossy one no in-loop filter touches
+  (csrc/av1_intra.cpp), to Pillow's RGBA; deblocked and CDEF tile data
+  refused by name.
 
 The fixtures of tests/data_torch/formats_avif are Pillow's writer at
 qualities 100, 90 and 50, every subsampling, both ranges, with and without
@@ -23,12 +24,15 @@ configOBUs). `python -m tests.test_torch_image_formats_avif --make`
 rewrites them on a host with Pillow's libavif: the planes are dumped
 through ctypes from that libavif (`dav1d_planes`); the card's host has
 neither. `--fuzz N SEED` runs N edits of each fixture against Pillow and
-prints the counts by kind and outcome; `--fuzz-tiles N SEED` runs N edits
-inside the tile data of each lossless fixture against Pillow's decode;
+prints the counts by kind and outcome; `--fuzz-tiles N SEED [lossy]` runs N
+edits inside the tile data of each lossless (or each filter-free lossy)
+fixture against Pillow's decode;
 `--tables` rewrites rustic_tpu_torch/csrc/av1_tables.h (tests/av1_cdf_tables.py).
-The lossless 256^2 fixtures (BreakTime's textures) keep each dav1d plane's
-sha256 in the manifest, not a .yuv.npz, and BreakTime-AVIF.glb with its twin
-sits beside them (tests/test_torch_image_scenes.py renders the pair).
+The 256^2 fixtures (BreakTime's textures, lossless and lossy, and the
+photo's centre) keep each dav1d plane's sha256 in the manifest, not a
+.yuv.npz, and BreakTime-AVIF.glb (three lossy textures, three lossless)
+with its twin sits beside them (tests/test_torch_image_scenes.py renders
+the pair).
 """
 
 import hashlib
@@ -262,9 +266,10 @@ def avif_sources() -> dict:
     for q in (50, 20):  # aom's CDEF, off in its still-image defaults, and its chroma delta q
         out[f"q{q}-420-cdef.avif"] = (encode(img, quality=q, advanced={"enable-cdef": "1"}),
                                       "avif 420")
-    out["q50-420-chroma-deltaq.avif"] = (encode(img, quality=50,
-                                                advanced={"enable-chroma-deltaq": "1"}),
-                                         "avif 420")
+    for q in (50, 90):
+        out[f"q{q}-420-chroma-deltaq.avif"] = (encode(img, quality=q,
+                                                      advanced={"enable-chroma-deltaq": "1"}),
+                                               "avif 420")
     out["q90-420-premultiplied.avif"] = (encode(imga, quality=90, alpha_premultiplied=True),
                                          "avif 420")
     out["q90-444-premultiplied-limited.avif"] = (encode(imga, quality=90, subsampling="4:4:4",
@@ -337,12 +342,13 @@ def avif_sources() -> dict:
 
 
 # BreakTime-AVIF: texture i of BreakTime.glb as the fixture BT_AVIF_TEXTURES[i] names (aom
-# finds screen content in textures 0 and 1: palette and intra block copy)
+# finds screen content in textures 0 and 1: palette and intra block copy); three lossy, three
+# lossless
 BT_AVIF = "BreakTime-AVIF.glb"
 BT_AVIF_TWIN = "BreakTime-AVIF-twin.glb"
-BT_AVIF_TEXTURES = ["q100-breaktime-0-444.avif", "q100-breaktime-1-420.avif",
-                    "q100-breaktime-2-420-tiles-2x2.avif", "q100-breaktime-3-444.avif",
-                    "q100-breaktime-4-420.avif", "q100-breaktime-5-444.avif"]
+BT_AVIF_TEXTURES = ["q90-breaktime-0-444.avif", "q100-breaktime-1-420.avif",
+                    "q90-breaktime-2-420-tiles-2x2.avif", "q100-breaktime-3-444.avif",
+                    "q100-breaktime-4-420.avif", "q90-breaktime-5-420.avif"]
 
 
 def breaktime_textures():
@@ -353,9 +359,14 @@ def breaktime_textures():
 
 
 def breaktime_sources() -> dict:
-    """The lossless 256^2 fixtures: BreakTime's six textures at quality 100
-    at 4:4:4 and at 4:2:0, texture 2 as 2x2 tiles, and texture 1 with an
-    alpha item (a radial ramp)."""
+    """The 256^2 fixtures: BreakTime's six textures at quality 100 at 4:4:4
+    and at 4:2:0, texture 2 as 2x2 tiles, and texture 1 with an alpha item
+    (a radial ramp); then lossy ones with no in-loop filter: textures 0 and
+    1 with intra block copy (which turns the filters off; texture 1 at 4:4:4
+    quality 80 with residuals on its copies, at 4:2:0 quality 50 in q
+    context 3), texture 2 as 2x2 tiles, texture 5 (TX_MODE_LARGEST), and
+    the centre 256^2 of photo-1024-420.jpg at 4:2:0 and 4:4:4 (natural
+    content, TX_MODE_SELECT)."""
     _, textures = breaktime_textures()
     out = {}
     for i, tex in enumerate(textures):
@@ -371,7 +382,33 @@ def breaktime_sources() -> dict:
     with_alpha = np.dstack([np.asarray(textures[1]), 255 - ramp])
     out["q100-breaktime-1-444-alpha.avif"] = (encode(Image.fromarray(with_alpha), quality=100,
                                                      subsampling="4:4:4"), "avif 444")
+    for i, q, sub in ((0, 90, "4:4:4"), (1, 90, "4:2:0"), (1, 50, "4:2:0"), (1, 80, "4:4:4"),
+                      (5, 90, "4:2:0")):
+        tag = sub.replace(":", "")
+        out[f"q{q}-breaktime-{i}-{tag}.avif"] = (encode(textures[i], quality=q, subsampling=sub),
+                                                 f"avif {tag}")
+    out["q90-breaktime-2-420-tiles-2x2.avif"] = (
+        encode(textures[2], quality=90, subsampling="4:2:0", tile_rows=1, tile_cols=1),
+        "avif 420")
+    crop = photo_crop()
+    for sub in ("4:2:0", "4:4:4"):
+        tag = sub.replace(":", "")
+        out[f"q90-photo-256-{tag}.avif"] = (encode(crop, quality=90, subsampling=sub),
+                                            f"avif {tag}")
     return out
+
+
+def photo_image() -> Image.Image:
+    with open(os.path.join(os.path.dirname(AVIF_FIXTURES), "formats", "photo-1024-420.jpg"),
+              "rb") as f:
+        return Image.open(io.BytesIO(f.read())).convert("RGB")
+
+
+def photo_crop() -> Image.Image:
+    """The centre 256^2 of tests/data_torch/formats/photo-1024-420.jpg."""
+    photo = photo_image()
+    w, h = photo.size
+    return photo.crop((w // 2 - 128, h // 2 - 128, w // 2 + 128, h // 2 + 128))
 
 
 def breaktime_avif_pair(sources: dict = None):
@@ -389,14 +426,11 @@ def breaktime_avif_pair(sources: dict = None):
             replace_glb_images(raw, pngs, "image/png"))
 
 
-PHOTO = "photo-1024-q50-420.avif"  # the one fixture over 64x64: the colour stage's timing
+PHOTO = "photo-1024-q50-420.avif"  # the colour stage's timing (deblocked: its tile data refused)
 
 
 def photo_source() -> bytes:
-    with open(os.path.join(os.path.dirname(AVIF_FIXTURES), "formats", "photo-1024-420.jpg"),
-              "rb") as f:
-        photo = Image.open(io.BytesIO(f.read())).convert("RGB")
-    return encode(photo, quality=50, subsampling="4:2:0")
+    return encode(photo_image(), quality=50, subsampling="4:2:0")
 
 
 def dav1d_planes(raw: bytes) -> dict:
@@ -499,8 +533,8 @@ def dav1d_records(raw: bytes) -> dict:
 
 def make_avif_fixtures(out_dir: str) -> dict:
     """Write every fixture, Pillow's decode (.rgba.npy, or its sha256 over
-    64x64), dav1d's planes (.yuv.npz, or each plane's sha256 for the
-    lossless 256^2 files), the manifest (Pillow's header, the port's AV1
+    64x64), dav1d's planes (.yuv.npz, or each plane's sha256 for the 256^2
+    files), the manifest (Pillow's header, the port's AV1
     header record, dav1d's parse of the same headers) and BreakTime-AVIF
     with its twin into `out_dir`."""
     os.makedirs(out_dir, exist_ok=True)
@@ -516,7 +550,7 @@ def make_avif_fixtures(out_dir: str) -> dict:
         entry = dict(file=name, kind=kind, **pillow_header(raw),
                      headers=avif.header_record(raw), dav1d=dav1d_records(raw),
                      lossless=name.startswith("q100"))
-        if name.startswith("q100-breaktime"):
+        if "-breaktime-" in name or "-photo-256-" in name:
             entry.update(colour=planes["colour"].tolist(), planes_sha256={
                 k: [list(v.shape), sha256_of(v)] for k, v in planes.items() if k != "colour"})
         else:
@@ -589,6 +623,17 @@ def expected_rgba_matches(entry: dict, rgba: np.ndarray) -> bool:
         want = np.load(os.path.join(AVIF_FIXTURES, entry["expect"]))
         return want.shape == rgba.shape and np.array_equal(want, rgba)
     return list(rgba.shape) == entry["shape"] and sha256_of(rgba) == entry["sha256"]
+
+
+def filters(entry: dict) -> list:
+    """The in-loop filters a fixture's payloads turn on, by the name the
+    decoder refuses them by: "deblocking" (a loop filter level), "CDEF"
+    (a CDEF strength)."""
+    frames = [f["frame"] for f in entry["headers"].values()]
+    out = ["deblocking"] if any(any(f["loop_filter"]) for f in frames) else []
+    if any(f["cdef"] and any(any(s) for s in f["cdef"]["strengths"]) for f in frames):
+        out.append("CDEF")
+    return out
 
 
 MANIFEST = avif_manifest()["images"] if os.path.exists(
@@ -690,14 +735,17 @@ def test_avif_av1_headers_match_libavif(entry):
 
 @pytest.mark.parametrize("entry", MANIFEST, ids=lambda e: e["file"])
 def test_avif_decode_refuses_the_tile_data_by_name(entry):
-    """Lossy tile data is refused by name; a lossless file decodes to
-    Pillow's RGBA (csrc/av1_intra.cpp, then the colour stage)."""
+    """Three outcomes: a lossless file, and a lossy one that no in-loop
+    filter touches, decode to Pillow's RGBA (csrc/av1_intra.cpp, then the
+    colour stage); a deblocked or CDEF file is refused by the filter's
+    name."""
     raw = fixture(entry["file"])
-    if entry["lossless"]:
+    if not filters(entry):
         assert expected_rgba_matches(entry, decode_image_u8(raw, entry["file"]))
         return
-    with pytest.raises(NotImplementedError, match=r"AVIF AV1 tile data \(lossy\).*"
-                                                  + FORMATS_TODO.split(":")[0]):
+    with pytest.raises(NotImplementedError,
+                       match=rf"AVIF AV1 tile data \(lossy, {filters(entry)[0]}\).*"
+                             + FORMATS_TODO.split(":")[0]):
         decode_image_u8(raw, entry["file"])
 
 
@@ -847,11 +895,13 @@ TILE_EDITS = ["flip", "flip", "byte", "zero", "cut"]
 
 
 def tile_span(raw: bytes) -> tuple:
-    """(file offset, length) of the colour payload's first tile group data."""
+    """(file offset, length) of the colour payload's first tile group data
+    (an item in the meta's idat box counts its extents from the box's
+    data)."""
     h = avif.open_avif(raw)
-    _, extents = h.colour[0]
+    in_idat, extents = h.colour[0]
     start, end = avif.headers(raw, h)["colour"][0]["tile_data"]
-    return extents[0][0] + start, end - start
+    return (raw.index(h.idat) if in_idat else 0) + extents[0][0] + start, end - start
 
 
 def tile_case(raw: bytes, kind: str, where: float, value: int) -> tuple:
@@ -863,15 +913,22 @@ def tile_case(raw: bytes, kind: str, where: float, value: int) -> tuple:
     return outcome(edited), port_outcome(edited, "edited.avif")
 
 
+def tile_fuzz_names(which: str = "lossless") -> list:
+    """The fixtures whose tile data the port decodes: "lossless", or
+    "lossy" (no loop filter level, no CDEF strength in any payload)."""
+    return [e["file"] for e in MANIFEST
+            if (e["lossless"] if which == "lossless" else not e["lossless"] and not filters(e))]
+
+
 def fuzz_tiles(n: int, seed: int = 0, names=None) -> dict:
     """`n` edits (bit flips, bytes, zeros, cuts) inside the tile data of
-    each lossless fixture -> counts of (kind, outcome); raises
-    AssertionError at the first edit where the pixels differ or only one
-    side refuses."""
+    each fixture of `names` (the lossless ones by default) -> counts of
+    (kind, outcome); raises AssertionError at the first edit where the
+    pixels differ or only one side refuses."""
     from tests.test_torch_image_formats_variants import same
 
     counts = {}
-    for name in names or [e["file"] for e in MANIFEST if e["lossless"]]:
+    for name in names or tile_fuzz_names():
         raw = fixture(name)
         rng = np.random.default_rng([seed] + list(name.encode()))  # each file's own edits
         for _ in range(n):
@@ -889,8 +946,9 @@ def fuzz_tiles(n: int, seed: int = 0, names=None) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--make"]:
         print(json.dumps(make_avif_fixtures(AVIF_FIXTURES)["images"][-1], indent=1))
-    elif sys.argv[1:2] == ["--fuzz-tiles"]:  # --fuzz-tiles N [SEED]
-        print(json.dumps(fuzz_tiles(int(sys.argv[2]), int(sys.argv[3]) if sys.argv[3:] else 0),
+    elif sys.argv[1:2] == ["--fuzz-tiles"]:  # --fuzz-tiles N [SEED [lossless|lossy]]
+        print(json.dumps(fuzz_tiles(int(sys.argv[2]), int(sys.argv[3]) if sys.argv[3:] else 0,
+                                    tile_fuzz_names(sys.argv[4]) if sys.argv[4:] else None),
                          indent=1, sort_keys=True))
     elif sys.argv[1:2] == ["--tables"]:
         from tests.av1_cdf_tables import write_header

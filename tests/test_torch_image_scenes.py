@@ -22,9 +22,10 @@ port and through the JAX package (which decodes them with Pillow).
   lossless and repaired (junk before a marker, a dropped RST) JPEG
   textures (tests/data_torch/formats_jpeg, `make_jpeg_fixtures` of
   tests/test_torch_image_formats_jpeg.py), the same way; BreakTime-AVIF
-  with six lossless AVIF textures (4:4:4 and 4:2:0, one of 2x2 tiles,
-  two with palette and intra block copy; tests/data_torch/formats_avif,
-  `make_avif_fixtures`), the same way.
+  with six AVIF textures, three lossy (no in-loop filter) and three
+  lossless (4:4:4 and 4:2:0, one of 2x2 tiles, two with palette and intra
+  block copy; tests/data_torch/formats_avif, `make_avif_fixtures`), the
+  same way.
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
   TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, one with .dds
   and .psd maps, and two with .ppm, .qoi, .ico, .pcx, .sgi, .pgm, .rgb,
@@ -33,10 +34,11 @@ port and through the JAX package (which decodes them with Pillow).
   16-bit and OS/2 bitmaps, 16-bit TGA, JPEG, fax, YCbCr, CMYK and CIELab
   TIFF, an animated WebP), and three with the kinds read next (TIFF fill
   order 2, orientations, planar and predicted YCbCr, LZMA; McIdas, XV
-  thumbnail, Lab PSD, IPTC holding a PNG, long-key XPM), and one with
-  lossless .avif maps, against rustic_tpu/scene/obj.py, exactly.
+  thumbnail, Lab PSD, IPTC holding a PNG, long-key XPM), one with
+  lossless .avif maps and one with lossy .avif maps (no in-loop filter),
+  against rustic_tpu/scene/obj.py, exactly.
 - JPEG, BMP, TGA, WebP, TIFF, GIF, JPEG 2000 (.jp2, .j2k), DDS, PNM,
-  PFM, QOI, ICO, PCX, DCX, SGI, DIB, IM, SPIDER and lossless AVIF skies through
+  PFM, QOI, ICO, PCX, DCX, SGI, DIB, IM, SPIDER, lossless and lossy AVIF skies through
   `load_skybox_image`,
   against the JAX function, exactly. The JAX package reads .exr through
   imageio, which has no backend here: the EXR sky is held to the .npy of
@@ -151,9 +153,10 @@ def test_breaktime_jpeg_ext_world_matches_jax():
 
 
 def test_breaktime_avif_world_matches_jax():
-    """BreakTime-AVIF (six lossless AVIF textures: 4:4:4 and 4:2:0, one of
-    2x2 tiles, two with palette and intra block copy) as the JAX package
-    builds it, and as its twin."""
+    """BreakTime-AVIF (six AVIF textures, three lossy with no in-loop
+    filter and three lossless: 4:4:4 and 4:2:0, one of 2x2 tiles, two with
+    palette and intra block copy, one under TX_MODE_LARGEST) as the JAX
+    package builds it, and as its twin."""
     assert_world_and_twin(os.path.join(AVIF_FIXTURES, BT_AVIF),
                           os.path.join(AVIF_FIXTURES, BT_AVIF_TWIN))
 
@@ -423,6 +426,47 @@ def test_obj_with_avif_maps_matches_jax(tmp_path):
     floor = got.materials[got.triangles[0, 3]]
     assert floor.albedo_texture is not None and floor.normal_texture is not None
     assert same_world(path).has_textures
+
+
+def filter_free(raw: bytes) -> bool:
+    """No payload of the AVIF has a loop filter level or a CDEF strength."""
+    from rustic_tpu_torch.utils import avif
+    from tests.test_torch_image_formats_avif import filters
+
+    return not filters(dict(headers=avif.header_record(raw)))
+
+
+def test_obj_with_lossy_avif_maps_matches_jax(tmp_path):
+    """The albedo map a lossy 4:4:4 AVIF, the roughness map a lossy 4:2:0
+    AVIF with alpha (9x14), the normal map a lossy 4:2:2 AVIF at an odd
+    width and height (9x15), each at quality 90, where aom turns no
+    in-loop filter on."""
+    modes, odd = pillow_modes(9, 14, seed=37), pillow_modes(9, 15, seed=41)
+    maps = {"albedo": ("albedo.avif", save(modes["RGB"], "AVIF", quality=90, subsampling="4:4:4")),
+            "rough": ("rough.avif", save(modes["RGBA"], "AVIF", quality=90)),
+            "normal": ("normal.avif", save(odd["RGB"], "AVIF", quality=90, subsampling="4:2:2"))}
+    assert all(filter_free(data) for _, data in maps.values())
+    path = write_obj_with_maps(tmp_path, maps)
+    got, want = TO.load_obj(path), JO.load_obj(path)
+    same_gltf(got, want)
+    floor = got.materials[got.triangles[0, 3]]
+    assert floor.albedo_texture is not None and floor.normal_texture is not None
+    assert same_world(path).has_textures
+
+
+@pytest.mark.parametrize("mode, sub", [("RGB", "4:4:4"), ("RGBA", "4:2:0"), ("L", "4:0:0"),
+                                       ("RGB", "4:2:2")])
+def test_lossy_avif_skies_match_jax(tmp_path, mode, sub):
+    """A quality-90 AVIF sky (no in-loop filter) through
+    load_skybox_image, against rustic_tpu/scene/world.py through Pillow."""
+    raw = save(pillow_modes(8, 16, seed=43)[mode], "AVIF", quality=90, subsampling=sub)
+    assert filter_free(raw)
+    path = str(tmp_path / "sky.avif")
+    with open(path, "wb") as f:
+        f.write(raw)
+    got = TW.load_skybox_image(path)
+    assert got.dtype == np.float32 and got.shape == (8, 16, 4)
+    np.testing.assert_array_equal(got, JW.load_skybox_image(path))
 
 
 @pytest.mark.parametrize("mode, sub", [("RGB", "4:4:4"), ("RGBA", "4:2:0"), ("L", "4:0:0")])
