@@ -31,7 +31,8 @@ vp8.py, jpeg2000.py, dds.py, psd.py, pnm.py, qoi.py, ico.py, pcx.py,
 sgi.py, im.py, iptc.py, pcd.py, spider.py, blp.py, fits.py, fli.py,
 ftex.py, gbr.py, icns.py, mcidas.py, msp.py, pixar.py, sun.py, xbm.py,
 xpm.py, xvthumb.py, exr.py, and avif.py with csrc/av1_intra.cpp, the AV1
-tile decoder of key frames with no in-loop filter, lossless and lossy) on the
+tile decoder of key frames, lossless and lossy, with the in-loop filters of
+csrc/av1_filters.h: deblocking, CDEF and loop restoration) on the
 fixtures of tests/data_torch/formats, formats_dds_psd, formats_classic,
 formats_legacy, formats_jpeg, formats_variants and formats_avif, then
 BreakTime with JPEG textures, with TIFF and Lab PSD textures, with JPEG 2000 textures, with DDS and PSD textures, with
@@ -39,7 +40,7 @@ PPM, QOI, SGI, PCX, ICO and DCX textures, with IPTC, IM, BLP, XPM,
 McIdas and APNG textures,
 with CMYK, YCCK, arithmetic-coded, lossless and repaired JPEG textures, and
 with lossy and lossless AVIF textures (palette, intra block copy, 2x2
-tiles),
+tiles; deblocked, CDEF'd and restored),
 under an OpenEXR sky through the grid form of the kernel-shade loop
 (K9-K11, K4);
 and the benchmark programs (rustic_tpu_torch/bench.py through the CLI's
@@ -401,10 +402,10 @@ Phases, each of which must pass (the first that fails ends the run):
      BreakTime-classic's, BreakTime-legacy's, BreakTime-JPEG-ext's and
      BreakTime-AVIF's 256x256 textures (best of 3); AVIF's fixtures as the
      `avif` part of the phase holds them (each lossless file's planes, and
-     each filter-free lossy file's, equal to dav1d's, its RGBA to Pillow's,
-     the deblocked and CDEF ones refused by name; the lossless and the
-     lossy decode of BreakTime-AVIF's textures timed in turns with the
-     photo). BreakTime-JPEG (each
+     each lossy file's, filtered or not, equal to dav1d's, its RGBA to
+     Pillow's; the lossless, the filter-free lossy and the filtered decode
+     of BreakTime-AVIF's textures timed in turns with the photo).
+     BreakTime-JPEG (each
      texture a quality-90 4:2:0 JPEG, the EXR sky) and its twin (each
      texture a PNG of Pillow's decode of that JPEG, the sky as .npy),
      BreakTime-mixed (a JPEG-compressed planar YCbCr TIFF, an LZMA 4:2:0
@@ -671,6 +672,14 @@ FORMATS_JPEG = "tests/data_torch/formats_jpeg"  # CMYK, YCCK, arithmetic, lossle
 FORMATS_VARIANTS = "tests/data_torch/formats_variants"  # RLE/16-bit BMP, fax/JPEG/YCbCr TIFF...
 FORMATS_AVIF = "tests/data_torch/formats_avif"  # AVIF files, their headers' records, dav1d's planes
 PHOTO_AVIF = "photo-1024-q50-420.avif"  # its 1024^2 photo: the colour stage's timing
+# phase 34's timed AVIF decodes (256^2 each): lossy with no in-loop filter (BreakTime-AVIF's
+# such texture, its two textures before they were filtered, the photo's centre), and filtered
+# (BreakTime-AVIF's deblocked and CDEF'd textures, one of them restored, and the photo's
+# centre through all three filters)
+AVIF_FILTER_FREE = ["q90-breaktime-0-444.avif", "q90-breaktime-2-420-tiles-2x2.avif",
+                    "q90-breaktime-5-420.avif", "q90-photo-256-420.avif"]
+AVIF_FILTERED = ["q50-breaktime-2-420-tiles-2x2-cdef.avif",
+                 "q50-breaktime-5-420-speed0-cdef.avif", "q40-photo-256-420-speed0-cdef.avif"]
 VARIANT_TURNS = 5  # phase 34 times each formats_variants kind in turns with the 1024^2 photo
 # phase 34 renders BreakTime-JPEG, -mixed, -J2K, -classic, -legacy, -JPEG-ext, -AVIF and their
 # twins at
@@ -4102,18 +4111,20 @@ class Smoke:
         to the committed record and to dav1d's parse of the same payloads
         (CodedLossless on the quality-100 files), the colour stage on
         dav1d's committed planes equal to Pillow's RGBA (the odd-sized 4:2:0
-        and 4:2:2 fixtures among them); each lossless file's payloads, and
-        each lossy file's that no in-loop filter touches, decoded by the AV1
-        tile decoder (csrc/av1_intra.cpp) to dav1d's planes, plane for plane
-        (arrays, or sha256 for the 256^2 files), and through decode_image_u8
-        to Pillow's RGBA; deblocked and CDEF tile data refused by the
-        filter's name; then, in turns with the 1024^2 Huffman photo (best
-        of VARIANT_TURNS), the colour stage at 4:2:0 (the 1024^2 photo's
-        dav1d planes) and at 4:4:4 (the same chroma repeated to full size),
-        the lossless decode of BreakTime-AVIF's three lossless textures, the
-        lossy decode of its three lossy textures and q90-photo-256-420, and
-        the LZMA2 decoder (csrc/image_entropy.cpp `xz_strip`) on an .xz
-        stream of the photo's decoded RGBA bytes, in ms per megapixel."""
+        and 4:2:2 fixtures among them); every file's payloads, lossless and
+        lossy, deblocked, CDEF'd and restored or not, decoded by the AV1
+        tile decoder (csrc/av1_intra.cpp with csrc/av1_filters.h) to dav1d's
+        planes, plane for plane (arrays, or sha256 for the 256^2 files and
+        the photo's crops), and through decode_image_u8 to Pillow's RGBA;
+        then, in turns with the 1024^2 Huffman photo (best of
+        VARIANT_TURNS), the colour stage at 4:2:0 (the 1024^2 photo's dav1d
+        planes) and at 4:4:4 (the same chroma repeated to full size), the
+        lossless decode of BreakTime-AVIF's three lossless textures, the
+        filter-free lossy decode (AVIF_FILTER_FREE), the filtered decode
+        (AVIF_FILTERED: BreakTime-AVIF's two filtered textures and
+        q40-photo-256-420-speed0-cdef), and the LZMA2 decoder
+        (csrc/image_entropy.cpp `xz_strip`) on an .xz stream of the
+        photo's decoded RGBA bytes, in ms per megapixel."""
         import hashlib
         import os
 
@@ -4140,7 +4151,9 @@ class Smoke:
         with open(os.path.join(FORMATS_AVIF, "manifest.json")) as f:
             avif_manifest = json.load(f)
         entries = avif_manifest["images"]
-        photo_planes, outcomes = None, {"lossless": 0, "lossy": 0, "deblocking": 0, "CDEF": 0}
+        photo_planes = None
+        outcomes = {"lossless": 0, "lossy": 0, "filtered": 0, "deblocking": 0, "CDEF": 0,
+                    "loop restoration": 0}
         t0 = time.perf_counter()
         for entry in entries:
             with open(os.path.join(FORMATS_AVIF, entry["file"]), "rb") as f:
@@ -4162,40 +4175,35 @@ class Smoke:
             frames = [record[k] for k in ("colour", "alpha") if k in record]
             if all(f["frame"]["coded_lossless"] for f in frames) != entry["lossless"]:
                 self.fail(f"{entry['file']}: CodedLossless is not its record's")
-            filtered = []  # the in-loop filters the payloads turn on, by their refusals' names
+            filtered = []  # the in-loop filters the payloads turn on
             if any(any(f["frame"]["loop_filter"]) for f in frames):
                 filtered.append("deblocking")
             if any(f["frame"]["cdef"] and any(any(s) for s in f["frame"]["cdef"]["strengths"])
                    for f in frames):
                 filtered.append("CDEF")
-            if not filtered:  # the tile decoder: dav1d's planes, then Pillow's RGBA
-                outcomes["lossless" if entry["lossless"] else "lossy"] += 1
-                parsed = avif_mod.headers(raw, h)
-                for name in ("colour", "alpha"):
-                    tiles = [avif_mod.decode_av1(avif_mod._payload(raw, h.idat, payload), p)[0]
-                             for payload, p in zip(getattr(h, name), parsed[name])]
-                    if tiles:  # a grid's tiles placed as libavif places them
-                        got = avif_mod._placed(h, tiles, parsed[name][0]["sequence"])
-                        got = dict(got) if name == "colour" else {"a": got["y"]}
-                        if "planes" in entry:
-                            with np.load(os.path.join(FORMATS_AVIF, entry["planes"])) as z:
-                                ok = all(np.array_equal(v, z[k]) for k, v in got.items())
-                        else:
-                            ok = all([list(v.shape), sha(v)] == entry["planes_sha256"][k]
-                                     for k, v in got.items())
-                        if not ok:
-                            self.fail(f"{entry['file']}: the {name} planes differ from dav1d's")
-                rgba = decode_image_u8(raw, entry["file"])
-                if not matches(entry, rgba):
-                    self.fail(f"{entry['file']}: the decode differs from Pillow's RGBA")
-            else:
-                outcomes[filtered[0]] += 1
-                try:
-                    decode_image_u8(raw, entry["file"])
-                    self.fail(f"{entry['file']}: the filtered tile data was not refused")
-                except NotImplementedError as e:
-                    if f"AVIF AV1 tile data (lossy, {filtered[0]})" not in str(e):
-                        self.fail(f"{entry['file']}: refused otherwise: {e}")
+            if any(t != "NONE" for f in frames for t in f["frame"]["restoration"]):
+                filtered.append("loop restoration")
+            for name in filtered:
+                outcomes[name] += 1
+            outcomes["filtered" if filtered else "lossless" if entry["lossless"] else "lossy"] += 1
+            parsed = avif_mod.headers(raw, h)  # the tile decoder: dav1d's planes, Pillow's RGBA
+            for name in ("colour", "alpha"):
+                tiles = [avif_mod.decode_av1(avif_mod._payload(raw, h.idat, payload), p)[0]
+                         for payload, p in zip(getattr(h, name), parsed[name])]
+                if tiles:  # a grid's tiles placed as libavif places them
+                    got = avif_mod._placed(h, tiles, parsed[name][0]["sequence"])
+                    got = dict(got) if name == "colour" else {"a": got["y"]}
+                    if "planes" in entry:
+                        with np.load(os.path.join(FORMATS_AVIF, entry["planes"])) as z:
+                            ok = all(np.array_equal(v, z[k]) for k, v in got.items())
+                    else:
+                        ok = all([list(v.shape), sha(v)] == entry["planes_sha256"][k]
+                                 for k, v in got.items())
+                    if not ok:
+                        self.fail(f"{entry['file']}: the {name} planes differ from dav1d's")
+            rgba = decode_image_u8(raw, entry["file"])
+            if not matches(entry, rgba):
+                self.fail(f"{entry['file']}: the decode differs from Pillow's RGBA")
             if "planes" not in entry:
                 continue
             with np.load(os.path.join(FORMATS_AVIF, entry["planes"])) as z:
@@ -4211,10 +4219,11 @@ class Smoke:
                 self.fail(f"{entry['file']}: the colour stage differs from Pillow's RGBA")
         log(f"{len(entries)} AVIF fixtures: headers as Pillow's, AV1 headers as recorded and "
             f"as dav1d parses them, the colour stage on dav1d's planes equal to Pillow's RGBA; "
-            f"{outcomes['lossless']} lossless and {outcomes['lossy']} filter-free lossy files "
-            f"decoded (csrc/av1_intra.cpp) to dav1d's planes and Pillow's RGBA; "
-            f"{outcomes['deblocking']} deblocked and {outcomes['CDEF']} CDEF-only files refused "
-            f"by name ({time.perf_counter() - t0:.2f} s)")
+            f"{outcomes['lossless']} lossless, {outcomes['lossy']} filter-free lossy and "
+            f"{outcomes['filtered']} filtered files ({outcomes['deblocking']} deblocked, "
+            f"{outcomes['CDEF']} with CDEF, {outcomes['loop restoration']} with loop "
+            f"restoration) decoded (csrc/av1_intra.cpp, csrc/av1_filters.h) to dav1d's planes "
+            f"and Pillow's RGBA ({time.perf_counter() - t0:.2f} s)")
         y, u, v = photo_planes["y"], photo_planes["u"], photo_planes["v"]
         u444, v444 = (np.repeat(np.repeat(c, 2, 0), 2, 1)[: y.shape[0], : y.shape[1]]
                       for c in (u, v))
@@ -4231,17 +4240,18 @@ class Smoke:
                                                                         full_range=True)}
         if stream is not None:
             jobs["tiff lzma2 decoder (xz_strip)"] = lambda: tiff_mod._unxz(stream, len(rgba))
-        textures = {"lossless": [], "lossy": []}  # BreakTime-AVIF's textures, 256^2 each
-        for name in avif_manifest["scene"]["textures"] + ["q90-photo-256-420.avif"]:
-            with open(os.path.join(FORMATS_AVIF, name), "rb") as f:
-                textures["lossless" if name.startswith("q100") else "lossy"].append((name, f.read()))
-        lossless_job = "avif lossless decode (BreakTime-AVIF's three lossless textures)"
-        lossy_job = ("avif lossy decode (BreakTime-AVIF's three lossy textures and "
-                     "q90-photo-256-420)")
-        jobs[lossless_job] = lambda: [decode_image_u8(raw, n) for n, raw in textures["lossless"]]
-        jobs[lossy_job] = lambda: [decode_image_u8(raw, n) for n, raw in textures["lossy"]]
-        pixels = {lossless_job: len(textures["lossless"]) * 256 * 256,
-                  lossy_job: len(textures["lossy"]) * 256 * 256}
+        lossless = [n for n in avif_manifest["scene"]["textures"] if n.startswith("q100")]
+        groups = {"avif lossless decode (BreakTime-AVIF's three lossless textures)": lossless,
+                  f"avif lossy decode ({', '.join(AVIF_FILTER_FREE)})": AVIF_FILTER_FREE,
+                  f"avif filtered decode ({', '.join(AVIF_FILTERED)})": AVIF_FILTERED}
+        pixels = {}
+        for job, names in groups.items():  # 256^2 textures each
+            files = []
+            for name in names:
+                with open(os.path.join(FORMATS_AVIF, name), "rb") as f:
+                    files.append((name, f.read()))
+            jobs[job] = lambda files=files: [decode_image_u8(raw, n) for n, raw in files]
+            pixels[job] = len(files) * 256 * 256
         best = {k: float("inf") for k in jobs}
         best_photo = float("inf")
         for _ in range(VARIANT_TURNS):

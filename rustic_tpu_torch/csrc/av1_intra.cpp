@@ -10,12 +10,13 @@
 // the edge filter, the corner filter and upsampling), every intra
 // prediction mode, CfL, filter intra, palette, the block copy's bilinear
 // prediction, dequantisation, and the inverse transforms (av1_itx.h; the
-// Walsh-Hadamard transform where the frame is CodedLossless).
+// Walsh-Hadamard transform where the frame is CodedLossless); and the loop
+// restoration units' syntax (5.11.57-5.11.58). The in-loop filters then run
+// on the whole frame (av1_filters.h: deblocking, CDEF, loop restoration).
 //
-// The frame is the picture only where no in-loop filter runs: utils/avif.py
-// refuses by name the frames whose loop filter levels or CDEF strengths are
-// not 0, and those with loop restoration, superres, quantiser matrices,
-// segmentation in a lossy frame, or delta q / lf.
+// utils/avif.py refuses by name the frames whose tools this file lacks:
+// superres, film grain, quantiser matrices, segmentation in a lossy frame,
+// and delta q / lf.
 //
 // Where a bitstream breaks a rule the decoder cannot go on from, the call
 // returns 1 with a message: a partition whose chroma block is invalid at
@@ -38,6 +39,7 @@
 #include <string>
 #include <vector>
 
+#include "av1_filters.h"
 #include "av1_itx.h"
 #include "av1_tables.h"
 
@@ -159,7 +161,8 @@ enum {
     C_TXFM_SPLIT = 74,         // var-tx splits of block copies
     C_INTRABC_RESIDUAL = 75,   // block copies with a residual (lossy)
     C_CORNER_FILTER = 76,      // directional predictions with the corner filter
-    C_COUNT = 77
+    C_FILTERS = 77,            // av1lf::F_COUNT entries: the in-loop filters (av1_filters.h)
+    C_COUNT = C_FILTERS + av1lf::F_COUNT
 };
 
 // ---- the CDFs one tile adapts ---------------------------------------------------------------
@@ -183,6 +186,7 @@ struct Cdfs {
     uint16_t tx_8x8[3][3], tx_16x16[3][4], tx_32x32[3][4], tx_64x64[3][4], txfm_split[21][3];
     uint16_t intra_tx_set1[2][13][8], intra_tx_set2[3][13][6];
     uint16_t inter_tx_set1[2][17], inter_tx_set2[13], inter_tx_set3[4][3];
+    uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
 
     void init(int qctx) {
         std::memcpy(partition_w8, Default_Partition_W8_Cdf, sizeof partition_w8);
@@ -257,6 +261,9 @@ struct Cdfs {
         std::memcpy(inter_tx_set1, Default_Inter_Tx_Type_Set1_Cdf, sizeof inter_tx_set1);
         std::memcpy(inter_tx_set2, Default_Inter_Tx_Type_Set2_Cdf, sizeof inter_tx_set2);
         std::memcpy(inter_tx_set3, Default_Inter_Tx_Type_Set3_Cdf, sizeof inter_tx_set3);
+        std::memcpy(restoration_type, Default_Restoration_Type_Cdf, sizeof restoration_type);
+        std::memcpy(use_wiener, Default_Use_Wiener_Cdf, sizeof use_wiener);
+        std::memcpy(use_sgrproj, Default_Use_Sgrproj_Cdf, sizeof use_sgrproj);
     }
 };
 
@@ -363,6 +370,8 @@ struct Params {
     int seg_enabled, seg_preskip, seg_last_active, seg_skip_mask;
     int lossless, tx_mode, reduced_tx_set, enable_cdef, cdef_bits;
     int dq_ydc, dq_udc, dq_uac, dq_vdc, dq_vac;  // DeltaQYDc, DeltaQUDc, ...
+    av1lf::Params lf;
+    int lr_unit_shift, lr_uv_shift;
 };
 
 struct Decoder {
@@ -374,6 +383,8 @@ struct Decoder {
     // per-MI state of the frame
     std::vector<uint8_t> mi_size, y_modes, uv_modes, skips, seg_ids, is_inters, written;
     std::vector<uint8_t> inter_tx_sizes, tx_types;  // InterTxSizes, TxTypes (luma 4x4 units)
+    std::vector<uint8_t> lf_tx_sizes[3];            // LoopfilterTxSizes (each plane's 4x4 units)
+    int lf_tx_w[3], lf_tx_h[3];
     std::vector<int8_t> cdef_idx;                   // per 64x64
     int cdef_stride;
     std::vector<uint8_t> pal_sizes[2];
@@ -383,6 +394,11 @@ struct Decoder {
     // the planes (the MI area, padded)
     int stride[3], plane_w[3], plane_h[3];
     std::vector<uint8_t> frame[3];
+
+    // loop restoration: each plane's units, and the references of the tile
+    std::vector<av1lf::LrUnit> lr_units[3];
+    int lr_rows[3], lr_cols[3], lr_size[3];
+    int ref_lr_wiener[3][2][3], ref_sgr_xqd[3][2];
 
     // contexts of the tile
     std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
@@ -432,6 +448,15 @@ struct Decoder {
             plane_h[pl] = (mi_rows * 4) >> sy;
             stride[pl] = plane_w[pl] + 160;
             frame[pl].assign((int64_t)stride[pl] * (plane_h[pl] + 160), 0);
+            lf_tx_w[pl] = plane_w[pl] >> 2;
+            lf_tx_h[pl] = plane_h[pl] >> 2;
+            lf_tx_sizes[pl].assign((int64_t)lf_tx_w[pl] * lf_tx_h[pl], 0);
+            // LoopRestorationSize, and count_units_in_frame of the cropped plane
+            lr_size[pl] = (256 >> (2 - p.lr_unit_shift)) >> (pl ? p.lr_uv_shift : 0);
+            int w = (p.width + sx) >> sx, h = (p.height + sy) >> sy;
+            lr_cols[pl] = std::max((w + (lr_size[pl] >> 1)) / lr_size[pl], 1);
+            lr_rows[pl] = std::max((h + (lr_size[pl] >> 1)) / lr_size[pl], 1);
+            lr_units[pl].assign((int64_t)lr_rows[pl] * lr_cols[pl], av1lf::LrUnit());
         }
     }
 
@@ -451,6 +476,10 @@ struct Decoder {
         for (int pl = 0; pl < num_planes; pl++) {  // clear_above_context
             above_level[pl].assign(mi_cols + 32, 0);
             above_dc[pl].assign(mi_cols + 32, 0);
+            for (int pass = 0; pass < 2; pass++) {
+                ref_sgr_xqd[pl][pass] = Sgrproj_Xqd_Mid[pass];
+                for (int i = 0; i < 3; i++) ref_lr_wiener[pl][pass][i] = Wiener_Taps_Mid[i];
+            }
         }
         int sb_size = p.sb128 ? BLOCK_128X128 : BLOCK_64X64;
         int sb4 = Num_4x4_Blocks_Wide[sb_size];
@@ -463,6 +492,7 @@ struct Decoder {
                 clear_block_decoded_flags(r, c, sb4);
                 for (int y = 0; y < sb4; y += 16)  // clear_cdef
                     for (int x = 0; x < sb4; x += 16) cdef_at(r + y, c + x) = -1;
+                read_lr(r, c, sb_size);
                 decode_partition(r, c, sb_size);
             }
         }
@@ -770,6 +800,89 @@ struct Decoder {
             for (int y = r; y < r + bh4; y += 16)
                 for (int x = c; x < c + bw4; x += 16) cdef_at(y, x) = (int8_t)v;
         }
+    }
+
+    // ---- loop restoration syntax (5.11.57, 5.11.58) ----
+
+    void read_lr(int r, int c, int bsize) {
+        if (p.allow_intrabc) return;
+        int w = Num_4x4_Blocks_Wide[bsize], h = Num_4x4_Blocks_High[bsize];
+        for (int pl = 0; pl < num_planes; pl++) {
+            if (p.lf.lr_type[pl] == av1lf::RESTORE_NONE) continue;
+            int sx = pl ? p.ssx : 0, sy = pl ? p.ssy : 0, unit = lr_size[pl];
+            int row_start = (r * (4 >> sy) + unit - 1) / unit;
+            int row_end = std::min(lr_rows[pl], ((r + h) * (4 >> sy) + unit - 1) / unit);
+            int col_start = (c * (4 >> sx) + unit - 1) / unit;
+            int col_end = std::min(lr_cols[pl], ((c + w) * (4 >> sx) + unit - 1) / unit);
+            for (int ur = row_start; ur < row_end; ur++)
+                for (int uc = col_start; uc < col_end; uc++) read_lr_unit(pl, ur, uc);
+        }
+    }
+
+    void read_lr_unit(int pl, int unit_row, int unit_col) {
+        av1lf::LrUnit& u = lr_units[pl][(int64_t)unit_row * lr_cols[pl] + unit_col];
+        int type = p.lf.lr_type[pl];
+        if (type == av1lf::RESTORE_WIENER)
+            u.type = sd.symbol(cdf.use_wiener, 2) ? av1lf::RESTORE_WIENER : av1lf::RESTORE_NONE;
+        else if (type == av1lf::RESTORE_SGRPROJ)
+            u.type = sd.symbol(cdf.use_sgrproj, 2) ? av1lf::RESTORE_SGRPROJ : av1lf::RESTORE_NONE;
+        else
+            u.type = (uint8_t)sd.symbol(cdf.restoration_type, 3);
+        int64_t* lf_counters = counters + C_FILTERS;
+        if (u.type == av1lf::RESTORE_WIENER) {
+            for (int pass = 0; pass < 2; pass++) {
+                int first = pl ? 1 : 0;
+                u.wiener[pass][0] = 0;
+                for (int j = first; j < 3; j++) {
+                    int v = decode_signed_subexp_with_ref_bool(
+                        Wiener_Taps_Min[j], Wiener_Taps_Max[j] + 1, Wiener_Taps_K[j],
+                        ref_lr_wiener[pl][pass][j]);
+                    u.wiener[pass][j] = (int8_t)v;
+                    ref_lr_wiener[pl][pass][j] = v;
+                }
+            }
+            lf_counters[av1lf::F_LR_WIENER]++;
+        } else if (u.type == av1lf::RESTORE_SGRPROJ) {
+            u.set = (uint8_t)sd.literal(4);  // SGRPROJ_PARAMS_BITS
+            for (int i = 0; i < 2; i++) {
+                int radius = Sgr_Params[u.set][i * 2];
+                int lo = Sgrproj_Xqd_Min[i], hi = Sgrproj_Xqd_Max[i], v = 0;
+                if (radius)
+                    v = decode_signed_subexp_with_ref_bool(lo, hi + 1, 4, ref_sgr_xqd[pl][i]);
+                else if (i == 1)
+                    v = std::min(std::max((1 << 7) - ref_sgr_xqd[pl][0], lo), hi);
+                u.xqd[i] = (int16_t)v;
+                ref_sgr_xqd[pl][i] = v;
+            }
+            lf_counters[av1lf::F_LR_SGRPROJ]++;
+            if (!Sgr_Params[u.set][0]) lf_counters[av1lf::F_LR_SGR_R0]++;
+            if (!Sgr_Params[u.set][2]) lf_counters[av1lf::F_LR_SGR_R1]++;
+        }
+    }
+
+    int decode_signed_subexp_with_ref_bool(int low, int high, int k, int r) {
+        int mx = high - low;
+        r -= low;
+        int i = 0, mk = 0, v;  // decode_subexp_bool(mx, k)
+        while (true) {
+            int b2 = i ? k + i - 1 : k, a = 1 << b2;
+            if (mx <= mk + 3 * a) {
+                v = sd.ns(mx - mk) + mk;
+                break;
+            }
+            if (!sd.literal(1)) {
+                v = (int)sd.literal(b2) + mk;
+                break;
+            }
+            i++;
+            mk += a;
+        }
+        auto inverse_recenter = [](int r_, int v_) {
+            if (v_ > 2 * r_) return v_;
+            return (v_ & 1) ? r_ - ((v_ + 1) >> 1) : r_ + (v_ >> 1);
+        };
+        int x = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
+        return x + low;
     }
 
     void read_cfl_alphas() {
@@ -1387,6 +1500,9 @@ struct Decoder {
         }
         for (int i = 0; i < step_y; i++)
             for (int j = 0; j < step_x; j++) decoded(pl, (sub_row >> sy) + i, (sub_col >> sx) + j) = 1;
+        for (int i = start_y >> 2; i < std::min((start_y >> 2) + step_y, lf_tx_h[pl]); i++)
+            for (int j = start_x >> 2; j < std::min((start_x >> 2) + step_x, lf_tx_w[pl]); j++)
+                lf_tx_sizes[pl][(int64_t)i * lf_tx_w[pl] + j] = (uint8_t)tx;
     }
 
     // ---- transform types (5.11.47, 7.13.1) ----
@@ -2018,8 +2134,13 @@ extern "C" {
 //                    base_q_idx, segmentation_enabled, SegIdPreSkip, LastActiveSegId,
 //                    the mask of segments with SEG_LVL_SKIP, CodedLossless, TxMode
 //                    (0 ONLY_4X4, 1 LARGEST, 2 SELECT), reduced_tx_set, enable_cdef,
-//                    cdef_bits, DeltaQYDc, DeltaQUDc, DeltaQUAc, DeltaQVDc, DeltaQVAc
-//                    (26 int32)
+//                    cdef_bits, DeltaQYDc, DeltaQUDc, DeltaQUAc, DeltaQVDc, DeltaQVAc;
+//                    then the in-loop filters: loop_filter_level[0..3],
+//                    loop_filter_sharpness, loop_filter_delta_enabled,
+//                    loop_filter_ref_deltas[INTRA_FRAME], CdefDamping, 8 x (cdef_y_pri,
+//                    cdef_y_sec, cdef_uv_pri, cdef_uv_sec as coded: a sec of 3 means 4),
+//                    FrameRestorationType[0..2] (0 NONE, 1 WIENER, 2 SGRPROJ,
+//                    3 SWITCHABLE), lr_unit_shift, lr_uv_shift (71 int32)
 //   tiles            per tile: offset, size, MiRowStart, MiRowEnd, MiColStart, MiColEnd
 //   y, u, v          the planes out, cropped to the frame: height x width, and the
 //                    chroma planes' ceil-subsampled size (u, v null for 4:0:0)
@@ -2058,6 +2179,18 @@ int av1_decode_tiles(const uint8_t* data, int64_t size, const int32_t* params,
         p.dq_uac = params[23];
         p.dq_vdc = params[24];
         p.dq_vac = params[25];
+        const int32_t* f = params + 26;  // the in-loop filters
+        for (int i = 0; i < 4; i++) p.lf.levels[i] = f[i];
+        p.lf.sharpness = f[4];
+        p.lf.delta_enabled = f[5];
+        p.lf.ref_delta_intra = f[6];
+        p.lf.cdef_on = p.enable_cdef && !p.lossless && !p.allow_intrabc;
+        p.lf.cdef_damping = f[7];
+        for (int i = 0; i < 8; i++)
+            for (int j = 0; j < 4; j++) p.lf.cdef[i][j] = f[8 + 4 * i + j];
+        for (int i = 0; i < 3; i++) p.lf.lr_type[i] = f[40 + i];
+        p.lr_unit_shift = f[43];
+        p.lr_uv_shift = f[44];
         d->setup(p, counters);
         for (int t = 0; t < n_tiles; t++) {
             const int64_t* tile = tiles + 6 * t;
@@ -2066,6 +2199,31 @@ int av1_decode_tiles(const uint8_t* data, int64_t size, const int32_t* params,
             d->decode_tile(data + tile[0], tile[1], (int)tile[2], (int)tile[3], (int)tile[4],
                            (int)tile[5]);
         }
+        av1lf::Frame fr;
+        fr.width = p.width;
+        fr.height = p.height;
+        fr.mi_rows = d->mi_rows;
+        fr.mi_cols = d->mi_cols;
+        fr.num_planes = d->num_planes;
+        fr.ssx = p.ssx;
+        fr.ssy = p.ssy;
+        for (int pl = 0; pl < d->num_planes; pl++) {
+            fr.planes[pl] = d->frame[pl].data();
+            fr.stride[pl] = d->stride[pl];
+            fr.tx_sizes[pl] = d->lf_tx_sizes[pl].data();
+            fr.tx_stride[pl] = d->lf_tx_w[pl];
+            fr.lr_units[pl] = d->lr_units[pl].data();
+            fr.lr_rows[pl] = d->lr_rows[pl];
+            fr.lr_cols[pl] = d->lr_cols[pl];
+            fr.lr_size[pl] = d->lr_size[pl];
+        }
+        fr.skips = d->skips.data();
+        fr.tx_width = Tx_Width;
+        fr.tx_height = Tx_Height;
+        fr.cdef_idx = d->cdef_idx.data();
+        fr.cdef_stride = d->cdef_stride;
+        fr.counters = counters + C_FILTERS;
+        av1lf::filter_frame(fr, p.lf);
         uint8_t* out[3] = {y, u, v};
         for (int pl = 0; pl < d->num_planes; pl++) {
             int sx = pl ? p.ssx : 0, sy = pl ? p.ssy : 0;

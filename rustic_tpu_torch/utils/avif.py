@@ -1,7 +1,7 @@
 """AVIF as Pillow 12.1.0 opens it (PIL/AvifImagePlugin.py over its
-bundled libavif 1.3.0 with dav1d 1.5.1): key frames that no in-loop
-filter touches decoded (lossless, and lossy with loop filter and CDEF
-off), the filtered ones refused by name.
+bundled libavif 1.3.0 with dav1d 1.5.1): key frames decoded, lossless and
+lossy, with the in-loop filters (deblocking, CDEF, loop restoration); the
+tools the decoder lacks refused by name.
 
 Identification is Pillow's `_accept`: "ftyp" at bytes 4-8 and a major
 brand "avif", "avis", "mif1" or "msf1". The header reader `open_avif`
@@ -50,14 +50,15 @@ begins; `CodedLossless` follows the AV1 specification. The tile data is
 decoded by `decode_av1` (csrc/av1_intra.cpp, an AV1 intra tile decoder
 held to dav1d 1.5.1's planes; a grid's tiles placed as libavif places
 them): CodedLossless frames, and lossy frames (every transform size and
-type, intra block copy with its residual) whose loop filter levels and
-CDEF strengths are all 0, so that the reconstruction is the picture. A
-frame the decoder does not take raises NotImplementedError naming what
-it lacks (`tool_refusal`): a loop filter level ("AVIF AV1 tile data
-(lossy, deblocking)"), a CDEF strength ("(lossy, CDEF)"), loop
-restoration, superres, film grain, quantiser matrices, segmentation in a
-lossy frame, delta q or lf, and samples of other than 8 bits (nothing
-here writes them).
+type, intra block copy with its residual, and the loop restoration units
+of each superblock), then the in-loop filters of csrc/av1_filters.h in
+the specification's order: deblocking at the frame's levels, sharpness
+and intra ref delta, CDEF at its strengths per 64x64, and Wiener and
+self-guided loop restoration. A frame the decoder does not take raises
+NotImplementedError naming what it lacks (`tool_refusal`): superres
+("AVIF AV1 tile data (lossy, superres)"), film grain, quantiser
+matrices, segmentation in a lossy frame, delta q or lf, and samples of
+other than 8 bits (nothing here writes them).
 
 `yuv_to_rgba` is libavif's avifImageYUVToRGB as Pillow calls it (8-bit
 RGB, or RGBA where there is alpha, chroma upsampling automatic): where
@@ -1397,18 +1398,33 @@ def _segmentation(b: _Bits) -> dict:
     return seg
 
 
+# setup_past_independence's loop_filter_ref_deltas (INTRA_FRAME, LAST_FRAME ... ALTREF_FRAME)
+# and loop_filter_mode_deltas, which a key frame's updates start from
+_REF_DELTAS = (1, 0, 0, 0, -1, 0, -1, -1)
+_MODE_DELTAS = (0, 0)
+
+
 def _loop_filter(b: _Bits, planes: int, off: bool) -> dict:
-    lf = dict(levels=[0, 0, 0, 0], sharpness=0, deltas=None)
+    """loop_filter_params(): the four levels, the sharpness, and where
+    loop_filter_delta_enabled the ref and mode deltas (the defaults with
+    any update applied; None where deltas are off)."""
+    lf = dict(levels=[0, 0, 0, 0], sharpness=0, delta_enabled=0, delta_update=0, ref_deltas=None,
+              mode_deltas=None)
     if off:
         return lf
     lf["levels"][0], lf["levels"][1] = b.f(6), b.f(6)
     if planes > 1 and (lf["levels"][0] or lf["levels"][1]):
         lf["levels"][2], lf["levels"][3] = b.f(6), b.f(6)
     lf["sharpness"] = b.f(3)
-    if b.f(1) and b.f(1):  # delta_enabled, delta_update
-        refs = [b.su(7) if b.f(1) else None for _ in range(8)]
-        modes = [b.su(7) if b.f(1) else None for _ in range(2)]
-        lf["deltas"] = (refs, modes)
+    lf["delta_enabled"] = b.f(1)
+    if lf["delta_enabled"]:
+        lf["ref_deltas"], lf["mode_deltas"] = list(_REF_DELTAS), list(_MODE_DELTAS)
+        lf["delta_update"] = b.f(1)
+        if lf["delta_update"]:
+            for deltas in (lf["ref_deltas"], lf["mode_deltas"]):
+                for i in range(len(deltas)):
+                    if b.f(1):  # update_ref_delta, update_mode_delta
+                        deltas[i] = b.su(7)
     return lf
 
 
@@ -1594,13 +1610,13 @@ def header_record(raw: bytes) -> dict:
 
 def decode_avif(raw: bytes, h: Avif = None) -> np.ndarray:
     """AVIF bytes (or their `open_avif` header) -> uint8 [H, W, 4], Pillow's
-    convert("RGBA"): the payloads read, their AV1 headers parsed, the tile
-    data of a frame no in-loop filter touches decoded (`decode_av1`, lossless
-    or lossy; a grid's tiles placed as libavif places them), then
-    `yuv_to_rgba` with the container's colour description. A frame the
-    decoder does not take (`tool_refusal`: a loop filter level, a CDEF
-    strength, ...) raises NotImplementedError naming it before any tile
-    data is read."""
+    convert("RGBA"): the payloads read, their AV1 headers parsed, each
+    frame's tile data decoded and filtered (`decode_av1`, lossless or lossy,
+    deblocked, CDEF'd and restored; a grid's tiles placed as libavif places
+    them), then `yuv_to_rgba` with the container's colour description. A
+    frame the decoder does not take (`tool_refusal`: superres, film grain,
+    quantiser matrices, ...) raises NotImplementedError naming it before
+    any tile data is read."""
     raw = bytes(raw)
     h = h or open_avif(raw)
     try:
@@ -1655,17 +1671,11 @@ def _placed(h: Avif, tiles: list, seq: dict) -> dict:
 
 def tool_refusal(fh: dict):
     """The name a frame header's refusal gives, or None where the tile
-    decoder takes the frame: its reconstruction must be the picture (no
-    loop filter level, CDEF strength, loop restoration, superres or film
-    grain) and its quantisers the frame's own (no quantiser matrix,
-    segmentation of a lossy frame, delta q or lf)."""
+    decoder takes the frame: no superres or film grain after the in-loop
+    filters (deblocking, CDEF and loop restoration are decoded), and its
+    quantisers the frame's own (no quantiser matrix, segmentation of a
+    lossy frame, delta q or lf)."""
     lossy = "lossless" if fh["coded_lossless"] else "lossy"
-    if any(fh["loop_filter"]["levels"]):
-        return "AV1 tile data (lossy, deblocking)"
-    if any(any(y) or any(uv) for y, uv in fh["cdef"]["strengths"]):
-        return "AV1 tile data (lossy, CDEF)"
-    if any(t != "NONE" for t in fh["restoration"]["types"]):
-        return f"AV1 tile data ({lossy}, loop restoration)"
     if fh["frame_width"] != fh["upscaled_width"]:
         return f"AV1 tile data ({lossy}, superres)"
     if fh["film_grain"] is not None:
@@ -1680,13 +1690,20 @@ def tool_refusal(fh: dict):
 
 
 # csrc/av1_intra.cpp's counters: name -> slot (the y and uv modes: 13 and 14 slots, the
-# transform sizes TX_4X4 ... TX_64X16 and types DCT_DCT ... H_FLIPADST: 19 and 16)
+# transform sizes TX_4X4 ... TX_64X16 and types DCT_DCT ... H_FLIPADST: 19 and 16), then
+# csrc/av1_filters.h's: edges of 4 samples deblocked on luma with 4, 8 and 14 taps and on
+# chroma with 4 and 6, 8x8 blocks CDEF filtered (luma; chroma, each plane's), 64x64 blocks
+# CDEF skips (cdef_idx -1), and restoration units: Wiener, self-guided, and of those the
+# ones whose Sgr_Params set has r0 = 0 and r1 = 0
 AV1_COUNTERS = {"y modes": slice(0, 13), "angle delta": 13, "upsampled edge": 14,
                 "filter intra": 15, "cfl": 16, "palette y": 17, "palette uv": 18, "intrabc": 19,
                 "tiles": 20, "edge filter": 21, "blocks": 22, "padding": 23,
                 "uv modes": slice(24, 38), "tx sizes": slice(38, 57),
                 "tx types": slice(57, 73), "tx depth": 73, "txfm split": 74,
-                "intrabc residual": 75, "corner filter": 76}
+                "intrabc residual": 75, "corner filter": 76, "deblock luma": slice(77, 80),
+                "deblock chroma": slice(80, 82), "cdef luma": 82, "cdef chroma": 83,
+                "cdef skipped": 84, "lr wiener": 85, "lr sgrproj": 86, "lr sgr r0 0": 87,
+                "lr sgr r1 0": 88}
 TX_SIZE_NAMES = ["4x4", "8x8", "16x16", "32x32", "64x64", "4x8", "8x4", "8x16", "16x8", "16x32",
                  "32x16", "32x64", "64x32", "4x16", "16x4", "8x32", "32x8", "16x64", "64x16"]
 TX_TYPE_NAMES = ["DCT_DCT", "ADST_DCT", "DCT_ADST", "ADST_ADST", "FLIPADST_DCT", "DCT_FLIPADST",
@@ -1731,14 +1748,33 @@ def _tiles(data: bytes, parsed: dict) -> list:
                      "picture)")
 
 
+_LR_TYPES = ("NONE", "WIENER", "SGRPROJ", "SWITCHABLE")  # csrc/av1_filters.h's RESTORE_*
+
+
+def _filter_params(fh: dict) -> list:
+    """The in-loop filters' part of decode_av1's params: the four loop
+    filter levels, sharpness, delta_enabled and the INTRA_FRAME ref delta
+    (a key frame's blocks take no other), CdefDamping and the 8 x 4 CDEF
+    strengths (y primary, y secondary, uv primary, uv secondary), the
+    three FrameRestorationTypes, lr_unit_shift and lr_uv_shift."""
+    lf, cdef, lr = fh["loop_filter"], fh["cdef"], fh["restoration"]
+    strengths = [[*y, *uv] for y, uv in cdef["strengths"]]
+    strengths += [[0, 0, 0, 0]] * (8 - len(strengths))
+    types = [_LR_TYPES.index(t) for t in lr["types"]] + [0] * (3 - len(lr["types"]))
+    return [*lf["levels"], lf["sharpness"], lf["delta_enabled"],
+            lf["ref_deltas"][0] if lf["delta_enabled"] else 0, cdef["damping"],
+            *sum(strengths, []), *types, lr["unit_shift"], lr["uv_shift"]]
+
+
 def decode_av1(data: bytes, parsed: dict = None) -> tuple:
-    """One AV1 payload whose first frame no in-loop filter touches ->
-    ({"y", and "u", "v" unless 4:0:0: uint8 planes of the frame's size},
-    {counter: count of the blocks (or transform blocks) that took each
-    tool}) through csrc/av1_intra.cpp: a CodedLossless frame, or a lossy
-    one of any tx_mode whose loop filter levels and CDEF strengths are 0.
-    Another frame raises NotImplementedError by name (`tool_refusal`);
-    corrupt tile data raises ValueError."""
+    """One AV1 payload's first frame -> ({"y", and "u", "v" unless 4:0:0:
+    uint8 planes of the frame's size}, {counter: count of the blocks,
+    transform blocks, filtered edges and blocks, or restoration units that
+    took each tool}) through csrc/av1_intra.cpp: a CodedLossless frame, or
+    a lossy one of any tx_mode, its tile data decoded (loop restoration's
+    syntax with it) and then deblocked, CDEF'd and restored as its header
+    says (`_filter_params`). Another frame raises NotImplementedError by
+    name (`tool_refusal`); corrupt tile data raises ValueError."""
     from rustic_tpu_torch.utils._entropy import av1_library, ptr
 
     parsed = parsed or parse_av1(data)
@@ -1758,7 +1794,7 @@ def decode_av1(data: bytes, parsed: dict = None) -> tuple:
         sum(1 << i for i in range(8) if features[i][6] is not None), fh["coded_lossless"],
         ("ONLY_4X4", "TX_MODE_LARGEST", "TX_MODE_SELECT").index(fh["tx_mode"]),
         fh["reduced_tx_set"], seq["cdef"], fh["cdef"]["bits"], q["y_dc"], q["u_dc"], q["u_ac"],
-        q["v_dc"], q["v_ac"]], np.int32)
+        q["v_dc"], q["v_ac"], *_filter_params(fh)], np.int32)
     tiles = np.array(_tiles(data, parsed), np.int64)
     width, height = fh["frame_width"], fh["frame_height"]
     planes = dict(y=np.zeros((height, width), np.uint8))

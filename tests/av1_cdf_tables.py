@@ -1,7 +1,7 @@
 """The AV1 tables of rustic_tpu_torch/csrc/av1_tables.h: the default CDFs an
 intra frame reads, read out of dav1d 1.5.1's copy in Pillow 12.1.0's bundled
 libavif, and the AV1 specification's other tables that the tile decoder
-(csrc/av1_intra.cpp) uses.
+(csrc/av1_intra.cpp) and its in-loop filters (csrc/av1_filters.h) use.
 
 The library holds the default CDFs twice, as inverted 15-bit values
 (32768 - x) with a counter slot after each CDF:
@@ -113,6 +113,10 @@ DAV1D = {
     "Default_Inter_Tx_Type_Set1_Cdf": ("mode", 1664, (2,), 16, 16, 17),
     "Default_Inter_Tx_Type_Set2_Cdf": ("mode", 1728, (), 16, 12, 17),
     "Default_Inter_Tx_Type_Set3_Cdf": ("mode", 4512, (4,), 2, 2, 17),
+    # loop restoration: restoration_type (RESTORE_SWITCHABLE), use_wiener, use_sgrproj
+    "Default_Restoration_Type_Cdf": ("mode", 4496, (), 4, 3, 4),
+    "Default_Use_Wiener_Cdf": ("mode", 4504, (), 2, 2, 3),
+    "Default_Use_Sgrproj_Cdf": ("mode", 4508, (), 2, 2, 3),
 }
 for _n in range(2, 9):
     for _k, _plane in enumerate(("Y", "Uv")):
@@ -187,7 +191,8 @@ def read_tables(data: bytes = None) -> dict:
 IMMEDIATE = ("Default_Skip_Cdf", "Default_Cfl_Sign_Cdf", "Default_Palette_Uv_Mode_Cdf",
              "Default_Segment_Id_Cdf", "Default_Intrabc_Cdf", "Default_Filter_Intra_Mode_Cdf",
              "Default_Mv_Sign_Cdf", "Default_Mv_Class0_Bit_Cdf", "Default_Mv_Class0_Hp_Cdf",
-             "Default_Mv_Hp_Cdf", "Default_Delta_Q_Cdf", "Default_Delta_Lf_Cdf")
+             "Default_Mv_Hp_Cdf", "Default_Delta_Q_Cdf", "Default_Delta_Lf_Cdf",
+             "Default_Use_Wiener_Cdf")
 
 
 def libaom_bytes(name: str, table: np.ndarray) -> list:
@@ -356,6 +361,26 @@ MAG_REF_OFFSET_WITH_TX_CLASS = [[[0, 1], [1, 0], [1, 1]], [[0, 1], [1, 0], [0, 2
 PALETTE_COLOR_CONTEXT = [-1, -1, 0, -1, -1, 4, 3, 2, 1]
 PALETTE_COLOR_HASH_MULTIPLIERS = [1, 2, 2]
 
+# the in-loop filters (7.15-7.17): CDEF's chroma direction at 4:2:2 and 4:4:0 (by
+# subsampling_x, subsampling_y), its tap offsets (row, column) by direction, its taps and
+# the direction search's divisors; the self-guided filter's radius and eps pairs, its
+# x / (x + 1) in 8 bits, and the Wiener and self-guided coefficients' ranges
+CDEF_UV_DIR = [[[0, 1, 2, 3, 4, 5, 6, 7], [1, 2, 2, 2, 3, 4, 6, 0]],
+               [[7, 0, 2, 4, 5, 6, 6, 6], [0, 1, 2, 3, 4, 5, 6, 7]]]
+CDEF_DIRECTIONS = [[[-1, 1], [-2, 2]], [[0, 1], [-1, 2]], [[0, 1], [0, 2]], [[0, 1], [1, 2]],
+                   [[1, 1], [2, 2]], [[1, 0], [2, 1]], [[1, 0], [2, 0]], [[1, 0], [2, -1]]]
+CDEF_PRI_TAPS = [[4, 2], [3, 3]]
+CDEF_SEC_TAPS = [[2, 1], [2, 1]]
+DIV_TABLE = [0, 840, 420, 280, 210, 168, 140, 120, 105]
+SGR_PARAMS = [[2, 12, 1, 4], [2, 15, 1, 6], [2, 18, 1, 8], [2, 21, 1, 9], [2, 24, 1, 10],
+              [2, 29, 1, 11], [2, 36, 1, 12], [2, 45, 1, 13], [2, 56, 1, 14], [2, 68, 1, 15],
+              [0, 0, 1, 5], [0, 0, 1, 8], [0, 0, 1, 11], [0, 0, 1, 14], [2, 30, 0, 0],
+              [2, 75, 0, 0]]  # (r0, eps0, r1, eps1)
+SGR_X_BY_XPLUS1 = [1] + [((z << 8) + z // 2) // (z + 1) for z in range(1, 255)] + [256]
+WIENER_TAPS_MIN, WIENER_TAPS_MID, WIENER_TAPS_MAX = [-5, -23, -17], [3, -7, 15], [10, 8, 46]
+WIENER_TAPS_K = [1, 2, 3]
+SGRPROJ_XQD_MIN, SGRPROJ_XQD_MID, SGRPROJ_XQD_MAX = [-96, -32], [-32, 31], [31, 95]
+
 OTHER = {  # name -> (C type, values)
     **{f"Sm_Weights_Tx_{n}x{n}": ("uint8_t", SM_WEIGHTS[n]) for n in SM_WEIGHTS},
     "Dr_Intra_Derivative": ("int16_t", DR_INTRA_DERIVATIVE),
@@ -391,6 +416,20 @@ OTHER = {  # name -> (C type, values)
     "Tx_Type_In_Set_Inter": ("uint8_t", TX_TYPE_IN_SET_INTER),
     "Palette_Color_Context": ("int8_t", PALETTE_COLOR_CONTEXT),
     "Palette_Color_Hash_Multipliers": ("uint8_t", PALETTE_COLOR_HASH_MULTIPLIERS),
+    "Cdef_Uv_Dir": ("uint8_t", CDEF_UV_DIR),
+    "Cdef_Directions": ("int8_t", CDEF_DIRECTIONS),
+    "Cdef_Pri_Taps": ("uint8_t", CDEF_PRI_TAPS),
+    "Cdef_Sec_Taps": ("uint8_t", CDEF_SEC_TAPS),
+    "Div_Table": ("int16_t", DIV_TABLE),
+    "Sgr_Params": ("int16_t", SGR_PARAMS),
+    "Sgr_X_By_Xplus1": ("int16_t", SGR_X_BY_XPLUS1),
+    "Wiener_Taps_Min": ("int8_t", WIENER_TAPS_MIN),
+    "Wiener_Taps_Mid": ("int8_t", WIENER_TAPS_MID),
+    "Wiener_Taps_Max": ("int8_t", WIENER_TAPS_MAX),
+    "Wiener_Taps_K": ("int8_t", WIENER_TAPS_K),
+    "Sgrproj_Xqd_Min": ("int8_t", SGRPROJ_XQD_MIN),
+    "Sgrproj_Xqd_Mid": ("int8_t", SGRPROJ_XQD_MID),
+    "Sgrproj_Xqd_Max": ("int8_t", SGRPROJ_XQD_MAX),
 }
 
 
@@ -403,7 +442,8 @@ def _c_array(values) -> str:
 
 def header_text(tables: dict = None) -> str:
     tables = tables if tables is not None else read_tables()
-    lines = ["// The AV1 tables of csrc/av1_intra.cpp, under the AV1 specification's names.",
+    lines = ["// The AV1 tables of csrc/av1_intra.cpp and csrc/av1_filters.h, under the AV1",
+             "// specification's names.",
              "// Generated by `python -m tests.test_torch_image_formats_avif --tables`: the",
              "// default CDFs are read from dav1d 1.5.1's copy in Pillow 12.1.0's libavif",
              "// (tests/av1_cdf_tables.py), in the specification's form (increasing values,",

@@ -6,8 +6,10 @@ against dav1d 1.5.1 and Pillow 12.1.0 (its bundled libavif 1.3.0):
   copy of the default CDFs in Pillow's libavif, and every CDF in it equals
   libaom's copy in the same library too; the specification's other tables
   the decoder uses (the lossy decoder's too: scans, quantiser lookups,
-  transform sizes and types, coefficient contexts) are found in libaom's
-  copy;
+  transform sizes and types, coefficient contexts; and the in-loop
+  filters': CDEF's directions and taps, the self-guided filter's
+  parameters, the restoration coefficients' ranges) are found in libaom's
+  copy, or follow from what it keeps;
 - every lossless fixture of tests/data_torch/formats_avif (every layout,
   odd sizes, alpha, 2x2 tiles, BreakTime's textures with palette and intra
   block copy) decodes to dav1d's planes, plane for plane, and through
@@ -19,8 +21,9 @@ against dav1d 1.5.1 and Pillow 12.1.0 (its bundled libavif 1.3.0):
   Pillow's pixels;
 - edits inside the tile data (bit flips, bytes, zeros, cuts) decode to
   Pillow's pixels or are refused where Pillow refuses them;
-- lossy payloads that an in-loop filter touches are refused by name
-  (tests/test_torch_av1_lossy.py holds the lossy decoder).
+- a payload whose frame header names a tool the decoder lacks is refused
+  by name before its tile data is read (tests/test_torch_av1_lossy.py
+  holds the lossy decoder and its in-loop filters).
 
 Run on the CPU (the decoder is host C++, built by g++ at first use):
 
@@ -75,6 +78,13 @@ def test_av1_cdf_equals_both_copies(name, library, dav1d_tables):
         assert library.find(block) >= 0, name
 
 
+def sgr_scale(r: int, eps: int) -> int:
+    """box_filter's s of radius r and eps: ((1 << 20) + n^2 eps / 2) / (n^2
+    eps), n = (2r + 1)^2; -1 where r is 0, as libaom keeps it."""
+    n2e = (2 * r + 1) ** 4 * eps
+    return ((1 << 20) + n2e // 2) // n2e if r else -1
+
+
 OTHER_IN_LIBAOM = {  # name -> libaom's layout of the same values
     "Sm_Weights": (sum((tables.SM_WEIGHTS[n] for n in (4, 8, 16, 32, 64)), []), np.uint8),
     "Dr_Intra_Derivative": (tables.DR_INTRA_DERIVATIVE, np.uint16),
@@ -96,6 +106,26 @@ OTHER_IN_LIBAOM = {  # name -> libaom's layout of the same values
     "Tx_Type_Intra_Inv_Set2": (tables.TX_TYPE_INTRA_INV_SET2, np.int8),
     "Tx_Type_Inter_Inv_Set1": (tables.TX_TYPE_INTER_INV_SET1, np.int8),
     "Tx_Type_Inter_Inv_Set2": (tables.TX_TYPE_INTER_INV_SET2, np.int8),
+    # the in-loop filters' tables, each in the form libaom keeps it: Cdef_Uv_Dir as its two
+    # remaps (conv422 at subsampling 1, 0 and conv440 at 0, 1), Cdef_Directions as offsets
+    # into its CDEF buffer (row * CDEF_BSTRIDE 144 + column), Cdef_Sec_Taps as its one row
+    # (both of the specification's rows are it), Sgr_Params as av1_sgr_params (the radii,
+    # then the scales s that box_filter derives from eps, -1 where a radius is 0), the
+    # Wiener taps' middle as its default filter (the 7 taps)
+    "Cdef_Uv_Dir_422": (tables.CDEF_UV_DIR[1][0], np.int32),
+    "Cdef_Uv_Dir_440": (tables.CDEF_UV_DIR[0][1], np.int32),
+    "Cdef_Directions": ([[dy * 144 + dx for dy, dx in d] for d in tables.CDEF_DIRECTIONS],
+                        np.int32),
+    "Cdef_Pri_Taps": (tables.CDEF_PRI_TAPS, np.int32),
+    "Cdef_Sec_Taps": (tables.CDEF_SEC_TAPS[0], np.int32),
+    "Div_Table": (tables.DIV_TABLE, np.int32),
+    "Sgr_Params": ([[r0, r1, sgr_scale(r0, e0), sgr_scale(r1, e1)]
+                    for r0, e0, r1, e1 in tables.SGR_PARAMS], np.int32),
+    "Sgr_X_By_Xplus1": (tables.SGR_X_BY_XPLUS1, np.int32),
+    "Wiener_Taps_Mid": (tables.WIENER_TAPS_MID + [128 - 2 * sum(tables.WIENER_TAPS_MID)]
+                        + tables.WIENER_TAPS_MID[::-1], np.int32),
+    "Sgrproj_Xqd_Min": (tables.SGRPROJ_XQD_MIN, np.int32),
+    "Sgrproj_Xqd_Max": (tables.SGRPROJ_XQD_MAX, np.int32),
 }
 
 
@@ -135,6 +165,26 @@ def test_av1_other_tables_are_libaoms(name, library):
     the transform sizes' planes equal dav1d's.)"""
     values, dtype = OTHER_IN_LIBAOM[name]
     assert library.find(np.array(values, dtype).tobytes()) >= 0
+
+
+def test_av1_filter_tables_follow_libaoms_definitions():
+    """What libaom keeps as definitions, not tables: the Wiener taps'
+    ranges are WIENER_FILT_TAPi_MINV = MIDV - (1 << (BITS - 1)) and MAXV =
+    MIDV - 1 + (1 << (BITS - 1)) with BITS = Wiener_Taps_K + 3 (4, 5, 6),
+    the self-guided weights' middle is set_default_sgrproj's (min + max) / 2
+    (C's division), both rows of Cdef_Sec_Taps are libaom's one, and
+    Sgr_X_By_Xplus1 is the specification's ((z << 8) + z / 2) / (z + 1)
+    with 1 at 0 and 256 at 255."""
+    for lo, mid, hi, k in zip(tables.WIENER_TAPS_MIN, tables.WIENER_TAPS_MID,
+                              tables.WIENER_TAPS_MAX, tables.WIENER_TAPS_K):
+        assert (lo, hi) == (mid - (1 << (k + 2)), mid - 1 + (1 << (k + 2)))
+    for lo, mid, hi in zip(tables.SGRPROJ_XQD_MIN, tables.SGRPROJ_XQD_MID,
+                           tables.SGRPROJ_XQD_MAX):
+        assert mid == int((lo + hi) / 2)
+    assert tables.CDEF_SEC_TAPS[0] == tables.CDEF_SEC_TAPS[1] == [2, 1]
+    x = tables.SGR_X_BY_XPLUS1
+    assert len(x) == 256 and x[0] == 1 and x[255] == 256
+    assert all(x[z] == ((z << 8) + z // 2) // (z + 1) for z in range(1, 255))
 
 
 def decoded_payloads(raw: bytes):
@@ -211,13 +261,20 @@ def test_128_superblocks_decode_as_pillow(texture):
 
 @pytest.mark.parametrize("entry", FILTERED[:8], ids=lambda e: e["file"])
 def test_lossy_payload_is_refused_by_name(entry):
-    """A colour payload that the loop filter or CDEF touches is refused by
-    the name of the first filter its frame header turns on."""
+    """A colour payload that the loop filter touches decodes (the filters
+    are no longer refused); the same payload with its frame header naming
+    film grain, which the decoder lacks, is refused by that name before
+    its tile data is read."""
     raw = fixture(entry["file"])
     h = avif.open_avif(raw)
-    name = filters(dict(headers={"colour": entry["headers"]["colour"]}))[0]
-    with pytest.raises(NotImplementedError, match=rf"AVIF AV1 tile data \(lossy, {name}\)"):
-        avif.decode_av1(avif._payload(raw, h.idat, h.colour[0]))
+    data = avif._payload(raw, h.idat, h.colour[0])
+    parsed = avif.parse_av1(data)
+    assert "deblocking" in filters(dict(headers={"colour": entry["headers"]["colour"]}))
+    counts = avif.decode_av1(data, parsed)[1]
+    assert sum(counts["deblock luma"]) > 0
+    parsed["frame"]["film_grain"] = dict(seed=1)
+    with pytest.raises(NotImplementedError, match=r"AVIF AV1 tile data \(lossy, film grain\)"):
+        avif.decode_av1(data, parsed)
 
 
 EDIT_CASES = [(e["file"], k) for e in LOSSLESS for k in range(3 if "planes" in e else 1)]

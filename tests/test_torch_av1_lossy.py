@@ -1,7 +1,7 @@
-"""The AV1 tile decoder of lossy AVIF key frames that no in-loop filter
-touches (rustic_tpu_torch/csrc/av1_intra.cpp with csrc/av1_itx.h, through
-utils/avif.py `decode_av1`) against dav1d 1.5.1 and Pillow 12.1.0 (its
-bundled libavif 1.3.0 and aom 3.12.1):
+"""The AV1 tile decoder of lossy AVIF key frames and its in-loop filters
+(rustic_tpu_torch/csrc/av1_intra.cpp with csrc/av1_itx.h and
+csrc/av1_filters.h, through utils/avif.py `decode_av1`) against dav1d 1.5.1
+and Pillow 12.1.0 (its bundled libavif 1.3.0 and aom 3.12.1):
 
 - every lossy fixture of tests/data_torch/formats_avif whose payloads have
   loop filter levels 0 and no non-zero CDEF strength (quality 90 at every
@@ -18,12 +18,23 @@ bundled libavif 1.3.0 and aom 3.12.1):
 - encodes made here with aom's options (loop filter off by
   `loopfilter-control`, the reduced transform set, other speeds) decode
   to Pillow's pixels, and reach the 32x16 and 16x4 transforms;
-- the deblocked and CDEF fixtures are refused by name, and so is each
-  other tool the decoder does not take (`tool_refusal`, on a fixture's
-  frame header with that tool turned on), and loop restoration in an
-  encode aom makes at speed 0;
-- derandomised edits inside the lossy tile data decode to Pillow's pixels
-  or are refused where Pillow refuses them; the edits the fuzz found
+- every filtered fixture (deblocked at every layout, with alpha, at odd
+  sizes' padding, sharpness 3, a level per direction and plane; CDEF with
+  one and two strength pairs at every layout, in 128x128 superblocks and
+  across tile edges; Wiener and self-guided loop restoration at 4:2:0,
+  4:2:2 and 4:4:4, alone and after both other filters) decodes to dav1d's
+  planes and Pillow's RGBA, and the filters' counters show every filter
+  length, CDEF on luma and chroma and each restoration kind; odd-sized
+  encodes, deblocked and CDEF'd, decode to Pillow's pixels;
+  `loop_filter_delta_enabled` is read, and its intra ref delta filters
+  level 10 as 11;
+- each tool the decoder does not take is refused by name (`tool_refusal`,
+  on a fixture's frame header with that tool turned on), and so are the
+  quantiser matrices, film grain and delta q that aom makes here, which
+  Pillow decodes;
+- derandomised edits inside the lossy tile data, filtered or not, decode
+  to Pillow's pixels or are refused where Pillow refuses them; the edits
+  the fuzz found
   stay as named cases, and so do edits whose streams reach what no
   fixture reaches (64-point transforms, a var-tx split, the uv modes D135
   and D157).
@@ -37,11 +48,14 @@ import copy
 
 import numpy as np
 import pytest
+from PIL import Image
 
 from rustic_tpu_torch.utils import FORMATS_TODO, avif
 from rustic_tpu_torch.utils.png import decode_image_u8
-from tests.test_torch_image_formats_avif import (MANIFEST, TILE_EDITS, breaktime_textures, edit,
-                                                 encode, expected_rgba_matches, filters, fixture,
+from tests.test_torch_image_formats import picture
+from tests.test_torch_image_formats_avif import (CDEF_ON, MANIFEST, PHOTO, TILE_EDITS,
+                                                 breaktime_textures, edit, encode,
+                                                 expected_rgba_matches, filters, fixture,
                                                  photo_crop, planes_of, sha256_of, tile_case,
                                                  tile_span)
 from tests.test_torch_image_formats_variants import outcome, port_outcome, same
@@ -65,18 +79,31 @@ def placed_payloads(raw: bytes):
 
 def test_the_fixtures_split_as_the_manifest_says():
     """71 filter-free lossy fixtures were committed before the decoder
-    took them, 9 came with it; 20 are deblocked (two with CDEF too)."""
-    assert len(FILTER_FREE) == 80 and len(FILTERED) == 20
-    cdef = [e["file"] for e in FILTERED if "CDEF" in filters(e)]
-    assert set(cdef) == {"q50-420-cdef.avif", "q20-420-cdef.avif"}
+    took them, 9 came with it; 20 deblocked ones (two with CDEF too) were
+    committed before the filters were decoded, 14 filtered ones came with
+    them: 12 deblocked, 9 with CDEF, 5 with loop restoration (two alone)."""
+    assert len(FILTER_FREE) == 80 and len(FILTERED) == 34
+    by = {name: {e["file"] for e in FILTERED if name in filters(e)}
+          for name in ("deblocking", "CDEF", "loop restoration")}
+    assert len(by["deblocking"]) == 32
+    assert by["CDEF"] == {"q50-420-cdef.avif", "q20-420-cdef.avif", "q40-photo-512-420-cdef.avif",
+                          "q30-photo-256-420-speed2-cdef.avif",
+                          "q40-photo-256-420-speed0-cdef.avif",
+                          "q50-breaktime-2-420-tiles-2x2-cdef.avif",
+                          "q50-breaktime-5-420-speed0-cdef.avif"} | {
+        f"q50-photo-256-{t}-cdef.avif" for t in ("420", "422", "444", "400")}
+    assert by["loop restoration"] == {"q60-photo-256-420-speed0-lr.avif",
+                                      "q40-photo-256-420-speed0-cdef.avif",
+                                      "q40-photo-128-422-speed1.avif",
+                                      "q50-photo-128-444-speed0.avif",
+                                      "q50-breaktime-5-420-speed0-cdef.avif"}
+    assert by["loop restoration"] - by["deblocking"] == {"q60-photo-256-420-speed0-lr.avif",
+                                                          "q50-photo-128-444-speed0.avif"}
     two = next(e for e in FILTER_FREE if e["file"] == "two-frames.avif")
     assert two["headers"]["colour"]["frame"]["cdef"]["strengths"] == [[0, 0, 0, 0]]
 
 
-@pytest.mark.parametrize("entry", FILTER_FREE, ids=lambda e: e["file"])
-def test_lossy_planes_equal_dav1d(entry):
-    """Each payload's planes equal dav1d's, alpha's Y as libavif's alpha
-    plane."""
+def assert_planes_equal_dav1d(entry: dict):
     for name, planes, _ in placed_payloads(fixture(entry["file"])):
         got = dict(planes) if name == "colour" else {"a": planes["y"]}
         if "planes" in entry:
@@ -86,6 +113,13 @@ def test_lossy_planes_equal_dav1d(entry):
         else:
             for k, v in got.items():
                 assert [list(v.shape), sha256_of(v)] == entry["planes_sha256"][k], (name, k)
+
+
+@pytest.mark.parametrize("entry", FILTER_FREE, ids=lambda e: e["file"])
+def test_lossy_planes_equal_dav1d(entry):
+    """Each payload's planes equal dav1d's, alpha's Y as libavif's alpha
+    plane."""
+    assert_planes_equal_dav1d(entry)
 
 
 @pytest.mark.parametrize("entry", FILTER_FREE, ids=lambda e: e["file"])
@@ -161,14 +195,95 @@ def test_lossy_encode_decodes_as_pillow(label, image, options, sizes, sources):
 
 
 @pytest.mark.parametrize("entry", FILTERED, ids=lambda e: e["file"])
-def test_filtered_lossy_file_is_refused_by_name(entry):
-    """A deblocked or CDEF file: NotImplementedError naming the filter
-    and FORMATS_TODO's queue, never pixels."""
-    name = filters(entry)[0]
-    with pytest.raises(NotImplementedError) as e:
-        decode_image_u8(fixture(entry["file"]), entry["file"])
-    assert f"AVIF AV1 tile data (lossy, {name})" in str(e.value)
-    assert FORMATS_TODO.split(":")[0] in str(e.value)
+def test_filtered_planes_equal_dav1d(entry):
+    """A deblocked, CDEF'd or restored file: each payload's planes, after
+    the filters, equal dav1d's (alpha's as libavif's alpha plane)."""
+    assert_planes_equal_dav1d(entry)
+
+
+@pytest.mark.parametrize("entry", FILTERED, ids=lambda e: e["file"])
+def test_filtered_rgba_equals_pillow(entry):
+    assert expected_rgba_matches(entry, decode_image_u8(fixture(entry["file"]), entry["file"]))
+
+
+def test_loop_filter_delta_enabled_is_read():
+    """Every lossy fixture's loop_filter_params() has
+    loop_filter_delta_enabled 1 and no update: the ref deltas are the key
+    frame's defaults, and an intra block's level 10 filters as 11
+    (lvl + (loop_filter_ref_deltas[INTRA_FRAME] << (lvl >> 5))). The planes
+    of the 1024^2 photo at level 10 equal those of its header rewritten to
+    level 11 without deltas, and dav1d's; at level 10 without deltas they
+    differ."""
+    raw = fixture(PHOTO)
+    h = avif.open_avif(raw)
+    data, parsed = avif._payload(raw, h.idat, h.colour[0]), avif.headers(raw, h)["colour"][0]
+    lf = parsed["frame"]["loop_filter"]
+    assert (lf["levels"], lf["delta_enabled"], lf["delta_update"]) == ([10] * 4, 1, 0)
+    assert lf["ref_deltas"] == [1, 0, 0, 0, -1, 0, -1, -1] and lf["mode_deltas"] == [0, 0]
+    assert avif._filter_params(parsed["frame"])[:7] == [10, 10, 10, 10, 0, 1, 1]
+    for e in FILTER_FREE + FILTERED:
+        frame = e["headers"]["colour"]["frame"]
+        if any(frame["loop_filter"]):
+            fh = avif.headers(fixture(e["file"]))["colour"][0]["frame"]
+            assert fh["loop_filter"]["delta_enabled"] == 1, e["file"]
+    want = planes_of(next(e for e in FILTERED if e["file"] == PHOTO))
+
+    def planes_at(level: int, enabled: int) -> dict:
+        p = copy.deepcopy(parsed)
+        p["frame"]["loop_filter"].update(levels=[level] * 4, delta_enabled=enabled)
+        return avif.decode_av1(data, p)[0]
+
+    for got in (avif.decode_av1(data, parsed)[0], planes_at(11, 0)):
+        for k in got:
+            np.testing.assert_array_equal(got[k], want[k])
+    assert any((planes_at(10, 0)[k] != want[k]).any() for k in ("y", "u", "v"))
+
+
+# the in-loop filters' counters the filtered fixtures and their committed edits reach: each
+# deblocking filter length (luma 4, 8, 14 taps; chroma 4, 6), CDEF on luma and on chroma,
+# each restoration kind
+FILTER_PATHS = [("deblock luma", 0), ("deblock luma", 1), ("deblock luma", 2),
+                ("deblock chroma", 0), ("deblock chroma", 1), ("cdef luma", None),
+                ("cdef chroma", None), ("lr wiener", None), ("lr sgrproj", None),
+                ("lr sgr r0 0", None), ("lr sgr r1 0", None)]
+
+
+def test_filter_counters_reach_every_filter_path():
+    """Summed over the filtered fixtures and the edits of FILTER_EDITS,
+    the filters took every path of FILTER_PATHS, and CDEF skipped a 64x64
+    block whose cdef_idx is -1 (an edit's: aom writes no 64x64 of skipped
+    blocks in these files); the filter-free lossy fixtures take none of the
+    paths."""
+    raws = [fixture(e["file"]) for e in FILTERED]
+    raws += [edit(fixture(name), kind, where, value, tile_span(fixture(name)))
+             for _, name, kind, where, value, _ in FILTER_EDITS]
+    total = counter_totals(raws)
+    for key, slot in FILTER_PATHS:
+        assert (total[key] if slot is None else total[key][slot]) > 0, (key, slot)
+    assert total["cdef skipped"] > 0
+    free = counter_totals(fixture(e["file"]) for e in FILTER_FREE)
+    for key, slot in FILTER_PATHS:
+        assert (free[key] if slot is None else free[key][slot]) == 0, (key, slot)
+
+
+# edits inside filtered fixtures' tile data whose streams reach what no fixture reaches:
+# (label, file, kind, where, value, counter)
+FILTER_EDITS = [
+    ("cdef-skipped-64x64", "q50-breaktime-2-420-tiles-2x2-cdef.avif", "flip",
+     0.33718386474632744, 22576, "cdef skipped"),
+]
+
+
+@pytest.mark.parametrize("label, name, kind, where, value, counter", FILTER_EDITS,
+                         ids=[r[0] for r in FILTER_EDITS])
+def test_edited_filtered_tile_data_reaches_what_no_fixture_does(label, name, kind, where, value,
+                                                                 counter):
+    """An edit of a filtered fixture's tile data that reaches a filter path
+    no fixture reaches decodes to Pillow's pixels."""
+    raw = fixture(name)
+    want, got = tile_case(raw, kind, where, value)
+    assert not isinstance(want, Exception) and same(want, got)
+    assert counter_totals([edit(raw, kind, where, value, tile_span(raw))])[counter] > 0
 
 
 def edited_header(tool: str) -> dict:
@@ -198,22 +313,63 @@ def edited_header(tool: str) -> dict:
                                   "film grain", "quantiser matrices", "segmentation",
                                   "delta q/lf"])
 def test_each_tool_the_decoder_lacks_is_refused_by_name(tool):
-    assert avif.tool_refusal(edited_header(tool)) == f"AV1 tile data (lossy, {tool})"
+    """The in-loop filters are decoded: a header with deblocking, CDEF or
+    loop restoration turned on passes `tool_refusal`; each other tool is
+    refused by its name."""
+    want = None if tool in ("deblocking", "CDEF", "loop restoration") else (
+        f"AV1 tile data (lossy, {tool})")
+    assert avif.tool_refusal(edited_header(tool)) == want
     fh = avif.headers(fixture("q90-420-full.avif"))["colour"][0]["frame"]
     assert avif.tool_refusal(fh) is None
 
 
 def test_loop_restoration_is_refused_by_name(sources):
-    """aom at speed 0 with the loop filter off turns loop restoration on:
-    Pillow decodes the file, the port refuses it by name."""
+    """aom at speed 0 with the loop filter off turns loop restoration on
+    (no longer refused): Pillow decodes the file, and the port decodes it
+    to Pillow's pixels through its restoration units."""
     raw = encode(sources["photo"], quality=60, speed=0, advanced={"loopfilter-control": "0"})
     assert any(t != "NONE" for t in avif.header_record(raw)["colour"]["frame"]["restoration"])
+    want, got = outcome(raw), port_outcome(raw, "restored.avif")
+    assert not isinstance(want, Exception) and same(want, got)
+    total = counter_totals([raw])
+    assert total["lr wiener"] + total["lr sgrproj"] > 0
+
+
+@pytest.mark.parametrize("w, h", [(23, 17), (17, 23)])
+@pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4"])
+def test_filtered_odd_sizes_decode_as_pillow(w, h, sub):
+    """Odd widths and heights, deblocked (level 26) and CDEF'd: the
+    deblocking edges stop at FrameWidth and FrameHeight while their taps
+    and CDEF's read the decoded MI area beyond them; Pillow's pixels."""
+    raw = encode(Image.fromarray(picture(h, w, 11)), quality=30, subsampling=sub,
+                 advanced=CDEF_ON)
+    frame = avif.header_record(raw)["colour"]["frame"]
+    assert frame["loop_filter"] == [26] * 4 and any(map(any, frame["cdef"]["strengths"]))
+    want, got = outcome(raw), port_outcome(raw, "odd.avif")
+    assert not isinstance(want, Exception) and same(want, got)
+
+
+# the tools aom makes here that the decoder lacks: (name, encode options)
+UNDECODED = [("quantiser matrices", {"enable-qm": "1"}),
+             ("film grain", {"denoise-noise-level": "25"}),
+             ("delta q/lf", {"deltaq-mode": "2", "enable-chroma-deltaq": "1"})]
+
+
+@pytest.mark.parametrize("tool, advanced", UNDECODED, ids=[u[0] for u in UNDECODED])
+def test_tools_aom_writes_here_are_refused_by_name(tool, advanced):
+    """Pillow's writer makes quantiser matrices, film grain and delta q
+    with these aom options; Pillow decodes each file, and the port refuses
+    it by name (the decoder's open faults, in ROADMAP.md)."""
+    raw = encode(photo_crop(128), advanced=advanced)
     assert not isinstance(outcome(raw), Exception)
-    with pytest.raises(NotImplementedError, match=r"\(lossy, loop restoration\)"):
-        decode_image_u8(raw, "restored.avif")
+    with pytest.raises(NotImplementedError) as e:
+        decode_image_u8(raw, "undecoded.avif")
+    assert f"AVIF AV1 tile data (lossy, {tool})" in str(e.value)
+    assert FORMATS_TODO.split(":")[0] in str(e.value)
 
 
 EDIT_CASES = [(e["file"], k) for e in FILTER_FREE for k in range(3 if "planes" in e else 2)]
+FILTERED_EDIT_CASES = [(e["file"], k) for e in FILTERED for k in range(2)]
 
 
 @pytest.mark.parametrize("name, k", EDIT_CASES, ids=str)
@@ -221,6 +377,19 @@ def test_edited_lossy_tile_data_decodes_as_pillow(name, k):
     """A fixed, derandomised edit inside the lossy tile data (seeded by the
     name and k): Pillow's pixels, or a refusal where Pillow refuses."""
     rng = np.random.default_rng([k, 11] + list(name.encode()))
+    kind = TILE_EDITS[int(rng.integers(0, len(TILE_EDITS)))]
+    where, value = float(rng.random()), int(rng.integers(0, 2**16))
+    want, got = tile_case(fixture(name), kind, where, value)
+    assert same(want, got), (kind, where, value, want if isinstance(want, Exception) else "",
+                             got if isinstance(got, Exception) else "")
+
+
+@pytest.mark.parametrize("name, k", FILTERED_EDIT_CASES, ids=str)
+def test_edited_filtered_tile_data_decodes_as_pillow(name, k):
+    """A fixed, derandomised edit inside a filtered fixture's tile data
+    (seeded by the name and k): Pillow's pixels, deblocked, CDEF'd and
+    restored as the edited stream says, or a refusal where Pillow refuses."""
+    rng = np.random.default_rng([k, 13] + list(name.encode()))
     kind = TILE_EDITS[int(rng.integers(0, len(TILE_EDITS)))]
     where, value = float(rng.random()), int(rng.integers(0, 2**16))
     want, got = tile_case(fixture(name), kind, where, value)

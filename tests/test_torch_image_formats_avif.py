@@ -10,9 +10,9 @@ bundled libavif 1.3.0 (dav1d 1.5.1 decoding, aom 3.12.1 encoding):
   the tile data begins, `CodedLossless` exactly on the quality-100 files;
 - the colour stage `yuv_to_rgba` on dav1d's own planes, committed beside
   each file (`.yuv.npz`), equal to Pillow's convert("RGBA") (`.rgba.npy`);
-- the decode: a lossless file, and a lossy one no in-loop filter touches
-  (csrc/av1_intra.cpp), to Pillow's RGBA; deblocked and CDEF tile data
-  refused by name.
+- the decode: every fixture, lossless or lossy, deblocked, CDEF'd and
+  restored or not (csrc/av1_intra.cpp with csrc/av1_filters.h), to
+  Pillow's RGBA.
 
 The fixtures of tests/data_torch/formats_avif are Pillow's writer at
 qualities 100, 90 and 50, every subsampling, both ranges, with and without
@@ -24,15 +24,15 @@ configOBUs). `python -m tests.test_torch_image_formats_avif --make`
 rewrites them on a host with Pillow's libavif: the planes are dumped
 through ctypes from that libavif (`dav1d_planes`); the card's host has
 neither. `--fuzz N SEED` runs N edits of each fixture against Pillow and
-prints the counts by kind and outcome; `--fuzz-tiles N SEED [lossy]` runs N
-edits inside the tile data of each lossless (or each filter-free lossy)
-fixture against Pillow's decode;
+prints the counts by kind and outcome; `--fuzz-tiles N SEED [lossy|filtered]`
+runs N edits inside the tile data of each lossless (or each filter-free
+lossy, or each filtered) fixture against Pillow's decode;
 `--tables` rewrites rustic_tpu_torch/csrc/av1_tables.h (tests/av1_cdf_tables.py).
-The 256^2 fixtures (BreakTime's textures, lossless and lossy, and the
-photo's centre) keep each dav1d plane's sha256 in the manifest, not a
-.yuv.npz, and BreakTime-AVIF.glb (three lossy textures, three lossless)
-with its twin sits beside them (tests/test_torch_image_scenes.py renders
-the pair).
+The 256^2 fixtures (BreakTime's textures, lossless and lossy) and the
+photo's centre crops keep each dav1d plane's sha256 in the manifest, not
+a .yuv.npz, and BreakTime-AVIF.glb (three lossy textures, two of them
+deblocked, CDEF'd and one restored; three lossless) with its twin sits
+beside them (tests/test_torch_image_scenes.py renders the pair).
 """
 
 import hashlib
@@ -46,7 +46,7 @@ import numpy as np
 import pytest
 from PIL import Image, UnidentifiedImageError
 
-from rustic_tpu_torch.utils import FORMATS_TODO, avif
+from rustic_tpu_torch.utils import avif
 from rustic_tpu_torch.utils.png import decode_image_u8, image_format
 from tests.conftest import scene_path
 from tests.test_torch_image_formats import glb_images, picture, replace_glb_images, rgba
@@ -264,8 +264,7 @@ def avif_sources() -> dict:
     out["q100-420-23x17-full.avif"] = (encode(Image.fromarray(picture(17, 23, 11)), quality=100),
                                        "avif 420")
     for q in (50, 20):  # aom's CDEF, off in its still-image defaults, and its chroma delta q
-        out[f"q{q}-420-cdef.avif"] = (encode(img, quality=q, advanced={"enable-cdef": "1"}),
-                                      "avif 420")
+        out[f"q{q}-420-cdef.avif"] = (encode(img, quality=q, advanced=CDEF_ON), "avif 420")
     for q in (50, 90):
         out[f"q{q}-420-chroma-deltaq.avif"] = (encode(img, quality=q,
                                                       advanced={"enable-chroma-deltaq": "1"}),
@@ -338,6 +337,7 @@ def avif_sources() -> dict:
     out["q100-420-64x64-speed0.avif"] = (encode(Image.fromarray(picture(64, 64, 3)),
                                                 quality=100, speed=0), "avif 420")
     out.update(breaktime_sources())
+    out.update(filtered_sources())
     return out
 
 
@@ -347,8 +347,8 @@ def avif_sources() -> dict:
 BT_AVIF = "BreakTime-AVIF.glb"
 BT_AVIF_TWIN = "BreakTime-AVIF-twin.glb"
 BT_AVIF_TEXTURES = ["q90-breaktime-0-444.avif", "q100-breaktime-1-420.avif",
-                    "q90-breaktime-2-420-tiles-2x2.avif", "q100-breaktime-3-444.avif",
-                    "q100-breaktime-4-420.avif", "q90-breaktime-5-420.avif"]
+                    "q50-breaktime-2-420-tiles-2x2-cdef.avif", "q100-breaktime-3-444.avif",
+                    "q100-breaktime-4-420.avif", "q50-breaktime-5-420-speed0-cdef.avif"]
 
 
 def breaktime_textures():
@@ -366,7 +366,10 @@ def breaktime_sources() -> dict:
     quality 80 with residuals on its copies, at 4:2:0 quality 50 in q
     context 3), texture 2 as 2x2 tiles, texture 5 (TX_MODE_LARGEST), and
     the centre 256^2 of photo-1024-420.jpg at 4:2:0 and 4:4:4 (natural
-    content, TX_MODE_SELECT)."""
+    content, TX_MODE_SELECT); and filtered ones: texture 3 at Pillow's
+    defaults (deblocked), texture 2 as 2x2 tiles with CDEF (both filters
+    across tile edges), texture 5 at speed 0 with CDEF (a level per
+    direction and plane, CDEF, Wiener on every plane)."""
     _, textures = breaktime_textures()
     out = {}
     for i, tex in enumerate(textures):
@@ -395,6 +398,47 @@ def breaktime_sources() -> dict:
         tag = sub.replace(":", "")
         out[f"q90-photo-256-{tag}.avif"] = (encode(crop, quality=90, subsampling=sub),
                                             f"avif {tag}")
+    out["q75-breaktime-3-420.avif"] = (encode(textures[3]), "avif 420")
+    out["q50-breaktime-2-420-tiles-2x2-cdef.avif"] = (
+        encode(textures[2], quality=50, tile_rows=1, tile_cols=1, advanced=CDEF_ON), "avif 420")
+    out["q50-breaktime-5-420-speed0-cdef.avif"] = (
+        encode(textures[5], quality=50, speed=0, advanced=CDEF_ON), "avif 420")
+    return out
+
+
+CDEF_ON = {"enable-cdef": "1"}  # aom's CDEF, off in its still-image defaults
+
+
+def filtered_sources() -> dict:
+    """The photo's centre (`photo_crop` at 128^2, 256^2 and 512^2) made by
+    the options that turn on what the in-loop filters take: CDEF with two
+    strength pairs (cdef_bits 1) at every layout, in 128x128 superblocks,
+    at speed 2 (a level per direction and plane), the loop filter's
+    sharpness 3, and aom's speeds 0 and 1, which turn on loop restoration
+    (Wiener and self-guided units; alone, with every filter, at 4:2:2 and
+    at 4:4:4)."""
+    crop = photo_crop()
+    out = {}
+    for sub in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+        tag = sub.replace(":", "")
+        img = crop.convert("L") if sub == "4:0:0" else crop
+        kw = dict(subsampling=sub) if sub != "4:0:0" else {}
+        out[f"q50-photo-256-{tag}-cdef.avif"] = (
+            encode(img, quality=50, advanced=CDEF_ON, **kw), f"avif {tag}")
+    out["q40-photo-512-420-cdef.avif"] = (encode(photo_crop(512), quality=40, advanced=CDEF_ON),
+                                          "avif 420")
+    out["q30-photo-256-420-speed2-cdef.avif"] = (encode(crop, quality=30, speed=2,
+                                                        advanced=CDEF_ON), "avif 420")
+    out["q50-photo-256-420-sharp3.avif"] = (encode(crop, quality=50,
+                                                   advanced={"sharpness": "3"}), "avif 420")
+    out["q60-photo-256-420-speed0-lr.avif"] = (
+        encode(crop, quality=60, speed=0, advanced={"loopfilter-control": "0"}), "avif 420")
+    out["q40-photo-256-420-speed0-cdef.avif"] = (encode(crop, quality=40, speed=0,
+                                                        advanced=CDEF_ON), "avif 420")
+    out["q40-photo-128-422-speed1.avif"] = (encode(photo_crop(128), quality=40, speed=1,
+                                                   subsampling="4:2:2"), "avif 422")
+    out["q50-photo-128-444-speed0.avif"] = (encode(photo_crop(128), quality=50, speed=0,
+                                                   subsampling="4:4:4"), "avif 444")
     return out
 
 
@@ -404,11 +448,12 @@ def photo_image() -> Image.Image:
         return Image.open(io.BytesIO(f.read())).convert("RGB")
 
 
-def photo_crop() -> Image.Image:
-    """The centre 256^2 of tests/data_torch/formats/photo-1024-420.jpg."""
+def photo_crop(size: int = 256) -> Image.Image:
+    """The centre size^2 of tests/data_torch/formats/photo-1024-420.jpg."""
     photo = photo_image()
     w, h = photo.size
-    return photo.crop((w // 2 - 128, h // 2 - 128, w // 2 + 128, h // 2 + 128))
+    half = size // 2
+    return photo.crop((w // 2 - half, h // 2 - half, w // 2 + half, h // 2 + half))
 
 
 def breaktime_avif_pair(sources: dict = None):
@@ -550,7 +595,7 @@ def make_avif_fixtures(out_dir: str) -> dict:
         entry = dict(file=name, kind=kind, **pillow_header(raw),
                      headers=avif.header_record(raw), dav1d=dav1d_records(raw),
                      lossless=name.startswith("q100"))
-        if "-breaktime-" in name or "-photo-256-" in name:
+        if "-breaktime-" in name or "-photo-" in name:
             entry.update(colour=planes["colour"].tolist(), planes_sha256={
                 k: [list(v.shape), sha256_of(v)] for k, v in planes.items() if k != "colour"})
         else:
@@ -626,13 +671,15 @@ def expected_rgba_matches(entry: dict, rgba: np.ndarray) -> bool:
 
 
 def filters(entry: dict) -> list:
-    """The in-loop filters a fixture's payloads turn on, by the name the
-    decoder refuses them by: "deblocking" (a loop filter level), "CDEF"
-    (a CDEF strength)."""
+    """The in-loop filters a fixture's payloads turn on: "deblocking" (a
+    loop filter level), "CDEF" (a CDEF strength), "loop restoration" (a
+    FrameRestorationType)."""
     frames = [f["frame"] for f in entry["headers"].values()]
     out = ["deblocking"] if any(any(f["loop_filter"]) for f in frames) else []
     if any(f["cdef"] and any(any(s) for s in f["cdef"]["strengths"]) for f in frames):
         out.append("CDEF")
+    if any(t != "NONE" for f in frames for t in f["restoration"]):
+        out.append("loop restoration")
     return out
 
 
@@ -735,18 +782,15 @@ def test_avif_av1_headers_match_libavif(entry):
 
 @pytest.mark.parametrize("entry", MANIFEST, ids=lambda e: e["file"])
 def test_avif_decode_refuses_the_tile_data_by_name(entry):
-    """Three outcomes: a lossless file, and a lossy one that no in-loop
-    filter touches, decode to Pillow's RGBA (csrc/av1_intra.cpp, then the
-    colour stage); a deblocked or CDEF file is refused by the filter's
-    name."""
+    """No fixture's tile data is refused any more: no payload's frame
+    header names a tool the decoder lacks (`tool_refusal`), and every file,
+    lossless, lossy, deblocked, CDEF'd or restored, decodes to Pillow's
+    RGBA (csrc/av1_intra.cpp with csrc/av1_filters.h, then the colour
+    stage)."""
     raw = fixture(entry["file"])
-    if not filters(entry):
-        assert expected_rgba_matches(entry, decode_image_u8(raw, entry["file"]))
-        return
-    with pytest.raises(NotImplementedError,
-                       match=rf"AVIF AV1 tile data \(lossy, {filters(entry)[0]}\).*"
-                             + FORMATS_TODO.split(":")[0]):
-        decode_image_u8(raw, entry["file"])
+    parsed = avif.headers(raw)
+    assert all(avif.tool_refusal(p["frame"]) is None for ps in parsed.values() for p in ps)
+    assert expected_rgba_matches(entry, decode_image_u8(raw, entry["file"]))
 
 
 @pytest.mark.parametrize("entry", SMALL, ids=lambda e: e["file"])
@@ -914,10 +958,12 @@ def tile_case(raw: bytes, kind: str, where: float, value: int) -> tuple:
 
 
 def tile_fuzz_names(which: str = "lossless") -> list:
-    """The fixtures whose tile data the port decodes: "lossless", or
-    "lossy" (no loop filter level, no CDEF strength in any payload)."""
-    return [e["file"] for e in MANIFEST
-            if (e["lossless"] if which == "lossless" else not e["lossless"] and not filters(e))]
+    """The fixtures of one kind: "lossless", "lossy" (no in-loop filter in
+    any payload) or "filtered" (deblocked, CDEF'd or restored)."""
+    kinds = {"lossless": lambda e: e["lossless"],
+             "lossy": lambda e: not e["lossless"] and not filters(e),
+             "filtered": lambda e: bool(filters(e))}
+    return [e["file"] for e in MANIFEST if kinds[which](e)]
 
 
 def fuzz_tiles(n: int, seed: int = 0, names=None) -> dict:

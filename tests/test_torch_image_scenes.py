@@ -22,10 +22,11 @@ port and through the JAX package (which decodes them with Pillow).
   lossless and repaired (junk before a marker, a dropped RST) JPEG
   textures (tests/data_torch/formats_jpeg, `make_jpeg_fixtures` of
   tests/test_torch_image_formats_jpeg.py), the same way; BreakTime-AVIF
-  with six AVIF textures, three lossy (no in-loop filter) and three
-  lossless (4:4:4 and 4:2:0, one of 2x2 tiles, two with palette and intra
-  block copy; tests/data_torch/formats_avif, `make_avif_fixtures`), the
-  same way.
+  with six AVIF textures, three lossy (one with no in-loop filter, one of
+  2x2 tiles deblocked and CDEF'd, one deblocked, CDEF'd and
+  Wiener-restored) and three lossless (4:4:4 and 4:2:0, two with palette
+  and intra block copy; tests/data_torch/formats_avif,
+  `make_avif_fixtures`), the same way.
 - An OBJ whose MTL names JPEG, TGA and BMP maps, one whose MTL names
   TIFF, WebP and GIF maps, one with .jp2 and .j2k maps, one with .dds
   and .psd maps, and two with .ppm, .qoi, .ico, .pcx, .sgi, .pgm, .rgb,
@@ -153,10 +154,11 @@ def test_breaktime_jpeg_ext_world_matches_jax():
 
 
 def test_breaktime_avif_world_matches_jax():
-    """BreakTime-AVIF (six AVIF textures, three lossy with no in-loop
-    filter and three lossless: 4:4:4 and 4:2:0, one of 2x2 tiles, two with
-    palette and intra block copy, one under TX_MODE_LARGEST) as the JAX
-    package builds it, and as its twin."""
+    """BreakTime-AVIF (six AVIF textures: three lossy, one with no in-loop
+    filter, one of 2x2 tiles deblocked and CDEF'd across the tile edges,
+    one deblocked, CDEF'd and Wiener-restored; three lossless, 4:4:4 and
+    4:2:0, two with palette and intra block copy) as the JAX package
+    builds it, and as its twin."""
     assert_world_and_twin(os.path.join(AVIF_FIXTURES, BT_AVIF),
                           os.path.join(AVIF_FIXTURES, BT_AVIF_TWIN))
 
@@ -607,8 +609,8 @@ def test_jpeg_ext_breaktime_film_matches_jax(half_sky):
 
 
 def test_avif_breaktime_film_matches_jax(half_sky):
-    """The one-tile cut of BreakTime-AVIF (lossless AVIF textures through
-    csrc/av1_intra.cpp), as the JPEG one."""
+    """The one-tile cut of BreakTime-AVIF (its AVIF textures through
+    csrc/av1_intra.cpp and csrc/av1_filters.h), as the JPEG one."""
     assert_one_tile_film(os.path.join(AVIF_FIXTURES, BT_AVIF), half_sky)
 
 
